@@ -1,0 +1,221 @@
+// One-shot eval attention: point records -> (fused features, attention).
+//
+// Replaces papr_tpu/ops/stream_attn.py::attend_stream_eval (pallas_call at
+// :2087, kernel body _ase_fwd_kernel :1856). Per (ray, k): point-ray
+// geometry -> key posenc (117) -> LN -> 5 x 256 -> LN -> w_k ->
+// relu(q.k / sqrt(d)) * influence, alive-masked; value posenc (78) + 64
+// point features -> 8 layers -> 32; then a background-seeded online softmax
+// and the renormalized fuse.
+//
+// What bounds it on the H100: the two walks, ~1.6 MFLOP of bf16 tensor-core
+// work per (ray, k) token (~20 TFLOP per 800x800 frame at k = 20) against
+// ~300 B of record read per token — compute bound. What the design does
+// about it: one block of 512 threads per 64-ray tile loops over k inside the
+// block (the TPU grid's sequential k axis, which carried the running max and
+// accumulator in VMEM scratch; here they live in shared memory because
+// blocks run in no order and nothing may carry between them). Every
+// activation of both walks stays in shared memory; each layer's weights are
+// staged into shared memory once per (tile, k) step and shared by the 16
+// warps; only the record rows, the ray data and qq are read, and only
+// (T, 32) + (T, K + 1) is written.
+// The kernel gathers record rows by index from the (P, 128) record instead
+// of a pre-gathered (K, T, 128) tensor (6.55 GB at one 800x800 tile).
+
+#include "walk.cuh"
+
+using namespace papr;
+
+namespace {
+
+constexpr float kNegBig = -1e30f;     // papr.py NEG_BIG: dead points
+constexpr int kGeo = 12;              // sel(3) proj(3) perp(3) influ alive pad
+
+// Encoded columns of one walk from the per-row geometry: sources 0..8 are
+// [pos, proj, perp], source 9 + j is record lane 5 + j (point features).
+// Each lane reads its columns' plan once and walks the rows.
+__device__ __forceinline__ void encode_rec(float* C, const WalkDesc& d,
+                                           const float* geo, const int* gidx,
+                                           const float* __restrict__ record,
+                                           int rec_w) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pd0 = d.pd[0];
+  for (int c = lane; c < pd0; c += 32) {
+    const bool live = c < d.d_enc;
+    const int src = live ? (int)d.plan[c] : 0;
+    const float freq = live ? d.plan[pd0 + c] : 0.f;
+    const int kind = live ? (int)d.plan[2 * pd0 + c] : 0;
+#pragma unroll
+    for (int i = 0; i < kRows / kWarps; ++i) {
+      const int r = warp + i * kWarps;
+      float v = 0.f;
+      if (live) {
+        const float x = src < 9
+            ? geo[r * kGeo + src]
+            : record[(size_t)gidx[r] * rec_w + 5 + (src - 9)];
+        v = encode_value(x, freq, kind);
+      }
+      C[r * kCLd + c] = v;
+    }
+  }
+}
+
+}  // namespace
+
+__global__ void __launch_bounds__(kThreads, 1)
+attend_eval_kernel(const float* __restrict__ record, int rec_w,
+                   const int* __restrict__ idx, int T, int K,
+                   const float* __restrict__ rayo,
+                   const float* __restrict__ rays,
+                   const float* __restrict__ qq, int dm, float sqrt_dm,
+                   WalkDesc kd, const __nv_bfloat16* __restrict__ wk,
+                   const float* __restrict__ bk, int dm_pad, WalkDesc vd,
+                   int score_relu, float bkg, int normalize, float eps,
+                   float* __restrict__ fused, float* __restrict__ attn) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WalkSmem S = walk_smem(smem);
+  float* C = S.C;
+  float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
+  float* m_run = geo + kRows * kGeo;                         // kRows
+  float* ss = m_run + kRows;                                 // kRows x K
+  const int cout = vd.d_out;
+  float* acc = ss + kRows * K;                               // kRows x cout
+  int* gidx = reinterpret_cast<int*>(acc + kRows * cout);    // kRows
+
+  const int t0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  for (int r = tid; r < kRows; r += kThreads) m_run[r] = bkg;
+  for (int i = tid; i < kRows * cout; i += kThreads) acc[i] = 0.f;
+
+  for (int k = 0; k < K; ++k) {
+    // --- geometry (papr_tpu/ops/geometry.py point_ray_geometry) ---
+    if (tid < kRows) {
+      const int t = t0 + tid;
+      const bool valid = t < T;
+      const int g = valid ? idx[(size_t)t * K + k] : 0;
+      const float* rec = record + (size_t)g * rec_w;
+      float o[3], dr[3], v[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        o[j] = valid ? rayo[(size_t)t * 3 + j] : 0.f;
+        dr[j] = valid ? rays[(size_t)t * 3 + j] : 0.f;
+        v[j] = rec[j] - o[j];
+      }
+      const float t_al = v[0] * dr[0] + v[1] * dr[1] + v[2] * dr[2];
+      const float dd = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2];
+      const float cc = t_al / (dd + eps);
+      float* gr = geo + tid * kGeo;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float proj = dr[j] * cc;
+        gr[j] = rec[j];
+        gr[3 + j] = proj;
+        gr[6 + j] = v[j] - proj;
+      }
+      gr[9] = rec[3];
+      gr[10] = rec[4];
+      gidx[tid] = g;
+    }
+    __syncthreads();
+
+    // --- key walk -> w_k -> score column ---
+    encode_rec(C, kd, geo, gidx, record, rec_w);
+    __syncthreads();
+    run_walk(S, kd, true);                      // y_k rounded to bf16 in A[0]
+    dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
+    __syncthreads();
+    for (int r = warp; r < kRows; r += kWarps) {
+      const int t = t0 + r;
+      float s = 0.f;
+      if (t < T) {
+        const float* qrow = qq + (size_t)t * dm;
+        for (int c = lane; c < dm; c += 32) {
+          // nn/mlp.py linear_apply in bf16: matmul rounded to bf16, bias add
+          // in bf16, promoted to fp32 for the score.
+          const float kk = bf16_round(bf16_round(C[r * kCLd + c]) +
+                                      bf16_round(bk[c]));
+          s += qrow[c] * kk;
+        }
+      }
+      s = warp_sum(s);
+      if (lane == 0) {
+        const float col = s / sqrt_dm;
+        const float sact = score_relu ? fmaxf(col, 0.f) : col;
+        const float* gr = geo + r * kGeo;
+        ss[r * K + k] = gr[10] > 0.5f ? sact * gr[9] : kNegBig;
+      }
+    }
+    __syncthreads();
+
+    // --- value walk -> online softmax-weighted accumulation ---
+    encode_rec(C, vd, geo, gidx, record, rec_w);
+    __syncthreads();
+    run_walk(S, vd);
+    for (int r = warp; r < kRows; r += kWarps) {
+      const float s = ss[r * K + k];
+      const float m_old = m_run[r];
+      const float m_new = fmaxf(m_old, s);
+      const float scale = expf(m_old - m_new), e = expf(s - m_new);
+      for (int c = lane; c < cout; c += 32) {
+        const float yc = bf16_round(C[r * kCLd + c]);
+        acc[r * cout + c] = acc[r * cout + c] * scale + e * yc;
+      }
+    }
+    __syncthreads();
+    if (tid < kRows) m_run[tid] = fmaxf(m_run[tid], ss[tid * K + k]);
+    __syncthreads();
+  }
+
+  // --- background-token softmax, renormalized fuse ---
+  for (int r = warp; r < kRows; r += kWarps) {
+    const int t = t0 + r;
+    if (t >= T) continue;
+    const float m = m_run[r];
+    float z = 0.f;
+    for (int k = lane; k < K; k += 32) z += expf(ss[r * K + k] - m);
+    z = warp_sum(z);
+    const float eb = expf(bkg - m);
+    const float denom = z + eb;
+    float* arow = attn + (size_t)t * (K + 1);
+    for (int k = lane; k < K; k += 32) arow[k] = expf(ss[r * K + k] - m) / denom;
+    if (lane == 0) arow[K] = eb / denom;
+    const float dn = normalize ? (z > 0.f ? z : 1.f) : denom;
+    for (int c = lane; c < cout; c += 32)
+      fused[(size_t)t * cout + c] = acc[r * cout + c] / dn;
+  }
+}
+
+extern "C" int papr_attend_eval(
+    const float* record, int rec_w, const int* idx, int T, int K,
+    const float* rayo, const float* rays, const float* qq, int dm,
+    float sqrt_dm, const int* kmeta, const void* kw, const void* kb,
+    const void* kln, const void* kplan, const void* wk, const void* bk,
+    int dm_pad, const int* vmeta, const void* vw, const void* vb,
+    const void* vln, const void* vplan, int score_relu, float bkg,
+    int normalize, float eps, void* fused, void* attn, void* stream) {
+  WalkDesc kd, vd;
+  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
+  if (err) return err;
+  err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
+  if (err) return err;
+  if (dm_pad <= 0 || dm_pad > kMaxWidth || dm_pad % 16 != 0 || dm > dm_pad)
+    return -201;
+  if (K <= 0 || K > 128) return -202;
+  if (T <= 0) return 0;
+  const size_t smem = kWalkSmem + sizeof(float) * kRows *
+      (kGeo + 1 + K + vd.d_out) + sizeof(int) * kRows;
+  if (smem > 232448) return -203;      // the H100's per-block maximum
+  cudaError_t e = cudaFuncSetAttribute(
+      attend_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (T + kRows - 1) / kRows;
+  attend_eval_kernel<<<grid, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd,
+      static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
+      dm_pad, vd, score_relu, bkg, normalize, eps,
+      static_cast<float*>(fused), static_cast<float*>(attn));
+  return (int)cudaGetLastError();
+}

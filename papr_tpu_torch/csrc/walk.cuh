@@ -1,0 +1,344 @@
+// Embedder "walk" building blocks shared by the fused query embedder
+// (fused_mlp.cu) and the one-shot eval attention (attend_eval.cu).
+//
+// A walk is papr_tpu/ops/fused_mlp.py::walk_body_fwd: [LayerNorm] -> dense
+// stack (bf16 operands, fp32 accumulate, fp32 bias, relu/none, activations
+// rounded to bf16 between layers) -> [LayerNorm], on a tile of kRows tokens
+// that never leaves the SM. The LayerNorm is the reference's: fp32
+// statistics over the true width only, UNBIASED std, 1 / (std + eps).
+//
+// Shared memory of one block (walk_smem):
+//   A[2] (kRows x kALd) bf16 : layer input / output activations (ping-pong)
+//   C    (kRows x kCLd) fp32 : accumulators, fp32 stage values
+//   W    2 x (kWChunk x kWLd) bf16 : the current layer's weight rows,
+//        double-buffered 64-row chunks filled by cp.async
+// followed by per-kernel extras. The dense layers run on the tensor cores
+// through WMMA (m16n16k16 bf16 -> fp32). Each layer's weights are staged
+// once per block and shared by all sixteen warps, so device memory / L2 see
+// them once per 64-token tile; every activation stays on chip. Shared memory
+// allows one block per SM, so the block itself carries 16 warps (four per
+// scheduler) to hide the latency of the fragment loads and MMAs.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace papr {
+
+constexpr int kRows = 64;              // tokens per block tile (4 WMMA row blocks)
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxWidth = 256;         // widest padded layer a walk takes
+constexpr int kALd = kMaxWidth + 8;    // bf16 leading dim (bank-conflict pad)
+constexpr int kCLd = kMaxWidth + 8;    // fp32 leading dim
+constexpr int kWChunk = 64;            // weight rows per staged chunk
+constexpr int kWLd = kMaxWidth + 8;    // staged weight leading dim
+constexpr int kMaxLayers = 12;
+constexpr float kLnEps = 1e-6f;        // fused_mlp.py hard-wires 1e-6
+constexpr size_t kABytes = sizeof(__nv_bfloat16) * kRows * kALd;
+constexpr size_t kCBytes = sizeof(float) * kRows * kCLd;
+constexpr size_t kWBytes = sizeof(__nv_bfloat16) * 2 * kWChunk * kWLd;
+constexpr size_t kWalkSmem = 2 * kABytes + kCBytes + kWBytes;
+
+// dense_layer's split of a (kRows x 256) output into 16x16 tiles: eight
+// warp columns own two column tiles each (c and c + 8); kWarps / 8 warp rows
+// split the kRows / 16 row blocks.
+constexpr int kWarpRows = kWarps / 8;
+constexpr int kRowBlocksPerWarp = kRows / 16 / kWarpRows;
+static_assert(kWarps % 8 == 0 && kRows % (16 * kWarpRows) == 0,
+              "dense_layer: whole row blocks per warp");
+
+// One walk's parameters, passed to the kernel by value.
+struct WalkDesc {
+  int n;                 // dense layers
+  int d_enc;             // true encoded width (input LayerNorm statistics)
+  int d_out;             // true output width (output LayerNorm statistics)
+  int act, last_act;     // 0 = none, 1 = relu
+  int has_li, has_lo;
+  int pd[kMaxLayers + 1];                   // padded widths, multiples of 16
+  const __nv_bfloat16* w[kMaxLayers];       // (pd[i], pd[i+1]) input-major
+  const float* b[kMaxLayers];               // (pd[i+1])
+  const float* ln;       // li_a (pd[0]), li_b (pd[0]), lo_a (pd[n]), lo_b (pd[n])
+  const float* plan;     // 3 rows of pd[0]: source index, frequency, kind
+};
+
+// Host side: meta = [n, d_enc, d_out, act, last_act, has_li, has_lo,
+// pd[0..n], w_off[0..n-1], b_off[0..n-1]] (offsets in elements).
+// Returns 0, or a negative code for a walk the kernels do not take.
+inline int fill_walk(WalkDesc* d, const int* meta, const void* w_all,
+                     const void* b_all, const void* ln, const void* plan) {
+  d->n = meta[0];
+  if (d->n < 1 || d->n > kMaxLayers) return -101;
+  d->d_enc = meta[1];
+  d->d_out = meta[2];
+  d->act = meta[3];
+  d->last_act = meta[4];
+  d->has_li = meta[5];
+  d->has_lo = meta[6];
+  const int* pd = meta + 7;
+  for (int i = 0; i <= d->n; ++i) {
+    if (pd[i] <= 0 || pd[i] > kMaxWidth || pd[i] % 16 != 0) return -102;
+    d->pd[i] = pd[i];
+  }
+  const int* w_off = pd + d->n + 1;
+  const int* b_off = w_off + d->n;
+  for (int i = 0; i < d->n; ++i) {
+    if (w_off[i] % 16 != 0) return -103;
+    d->w[i] = static_cast<const __nv_bfloat16*>(w_all) + w_off[i];
+    d->b[i] = static_cast<const float*>(b_all) + b_off[i];
+  }
+  d->ln = static_cast<const float*>(ln);
+  d->plan = static_cast<const float*>(plan);
+  return 0;
+}
+
+struct WalkSmem {
+  __nv_bfloat16* A[2];
+  float* C;
+  __nv_bfloat16* W;
+  unsigned char* extra;   // first byte after the walk's buffers
+};
+
+__device__ __forceinline__ WalkSmem walk_smem(unsigned char* base) {
+  WalkSmem s;
+  s.A[0] = reinterpret_cast<__nv_bfloat16*>(base);
+  s.A[1] = reinterpret_cast<__nv_bfloat16*>(base + kABytes);
+  s.C = reinterpret_cast<float*>(base + 2 * kABytes);
+  s.W = reinterpret_cast<__nv_bfloat16*>(base + 2 * kABytes + kCBytes);
+  s.extra = base + kWalkSmem;
+  return s;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// One posenc column (nn/posenc.py layout): the raw value itself, or
+// sin / cos of value * frequency. Precise sinf/cosf: frequencies reach 2^5
+// on coordinates scaled by 10, so the fast intrinsics would lose the phase.
+// Neighbouring lanes hold sin and cos columns: one sincosf per lane keeps
+// the warp on a single path instead of running sinf and cosf both.
+__device__ __forceinline__ float encode_value(float x, float freq, int kind) {
+  if (kind == 0) return x;
+  float s, c;
+  sincosf(x * freq, &s, &c);
+  return kind == 1 ? s : c;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Row-wise LayerNorm of C's first n_true lanes (one warp per row), written
+// as bf16 into A (out_bf16) or back into C; pad lanes up to pd become 0.
+__device__ __forceinline__ void layernorm_rows(float* C, __nv_bfloat16* A,
+                                               bool out_bf16, int n_true,
+                                               int pd, const float* a,
+                                               const float* b) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kRows; r += kWarps) {
+    float* row = C + r * kCLd;
+    float s = 0.f;
+    for (int c = lane; c < n_true; c += 32) s += row[c];
+    const float mu = warp_sum(s) / (float)n_true;
+    float v = 0.f;
+    for (int c = lane; c < n_true; c += 32) {
+      const float dv = row[c] - mu;
+      v += dv * dv;
+    }
+    const float var = warp_sum(v) / (float)(n_true > 1 ? n_true - 1 : 1);
+    const float rr = 1.f / (sqrtf(var) + kLnEps);
+    for (int c = lane; c < pd; c += 32) {
+      const float y = c < n_true ? (row[c] - mu) * rr * a[c] + b[c] : 0.f;
+      if (out_bf16) A[r * kALd + c] = __float2bfloat16_rn(y);
+      else row[c] = y;
+    }
+  }
+}
+
+__device__ __forceinline__ void to_bf16(const float* C, __nv_bfloat16* A,
+                                        int pd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kRows; r += kWarps)
+    for (int c = lane; c < pd; c += 32)
+      A[r * kALd + c] = __float2bfloat16_rn(C[r * kCLd + c]);
+}
+
+// Stage weight rows [k0, k0 + rows) of W (pd_out wide) into dst, 16 bytes
+// per cp.async, as one commit group. vshift = log2(pd_out / 8) when that is
+// a power of two (every width of the flagship), else -1.
+__device__ __forceinline__ void load_w_chunk(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* W, int k0,
+                                             int rows, int pd_out,
+                                             int vshift) {
+  const int vpr = pd_out >> 3;           // 8 bf16 per 16-byte vector
+  for (int v = threadIdx.x; v < rows * vpr; v += kThreads) {
+    const int r = vshift >= 0 ? v >> vshift : v / vpr;
+    const int c8 = (v - r * vpr) << 3;
+    cp_async16(dst + r * kWLd + c8, W + (size_t)(k0 + r) * pd_out + c8);
+  }
+  cp_async_commit();
+}
+
+// One dense layer: C[:, :pd_out] = A_in[:, :pd_in] @ W (+ bias, act).
+// W is staged chunk by chunk into shared memory and read by every warp.
+// Warp w owns the 16-wide column tiles w % 8 and w % 8 + 8 for its
+// kRowBlocksPerWarp 16-row blocks, so each 16-deep step loads
+// kRowBlocksPerWarp A and 2 B fragments for 2 * kRowBlocksPerWarp MMAs.
+// Epilogue per warp, on its own tiles only: bias and activation, then either
+// rounded to bf16 into A_out (the next layer's input) or kept fp32 in C.
+// A_out / C are complete for other warps only after the caller's barrier;
+// the first barrier inside the next dense_layer serves for chained layers.
+__device__ __forceinline__ void dense_layer(const __nv_bfloat16* A_in,
+                                            float* C, __nv_bfloat16* A_out,
+                                            __nv_bfloat16* wbuf,
+                                            const __nv_bfloat16* __restrict__ W,
+                                            const float* __restrict__ bias,
+                                            int pd_in, int pd_out, int act) {
+  using namespace nvcuda;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wc = warp & 7;                             // column tiles wc, wc + 8
+  const int rb0 = (warp >> 3) * kRowBlocksPerWarp;     // first row block
+  const int nct = pd_out >> 4;
+  const bool has0 = wc < nct, has1 = wc + 8 < nct;
+  const int vpr = pd_out >> 3;
+  const int vshift = (vpr & (vpr - 1)) == 0 ? __ffs(vpr) - 1 : -1;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRowBlocksPerWarp][2];
+#pragma unroll
+  for (int i = 0; i < kRowBlocksPerWarp; ++i) {
+    wmma::fill_fragment(acc[i][0], 0.f);
+    wmma::fill_fragment(acc[i][1], 0.f);
+  }
+
+  const int nchunks = (pd_in + kWChunk - 1) / kWChunk;
+  load_w_chunk(wbuf, W, 0, min(kWChunk, pd_in), pd_out, vshift);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      const int k1 = (ch + 1) * kWChunk;
+      load_w_chunk(wbuf + ((ch + 1) & 1) * kWChunk * kWLd, W, k1,
+                   min(kWChunk, pd_in - k1), pd_out, vshift);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* wb = wbuf + (ch & 1) * kWChunk * kWLd;
+    const int rows = min(kWChunk, pd_in - ch * kWChunk);
+    // One 16-deep step: kRowBlocksPerWarp A and two B fragments.
+    auto step = [&](int kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[kRowBlocksPerWarp];
+#pragma unroll
+      for (int i = 0; i < kRowBlocksPerWarp; ++i)
+        wmma::load_matrix_sync(
+            fa[i], A_in + (rb0 + i) * 16 * kALd + ch * kWChunk + kk, kALd);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, wb + kk * kWLd + wc * 16, kWLd);
+#pragma unroll
+      for (int i = 0; i < kRowBlocksPerWarp; ++i)
+        wmma::mma_sync(acc[i][0], fa[i], fb, acc[i][0]);
+      if (has1) {
+        wmma::load_matrix_sync(fb, wb + kk * kWLd + (wc + 8) * 16, kWLd);
+#pragma unroll
+        for (int i = 0; i < kRowBlocksPerWarp; ++i)
+          wmma::mma_sync(acc[i][1], fa[i], fb, acc[i][1]);
+      }
+    };
+    if (has0) {
+      // A full chunk unrolls at compile time, so the scheduler can issue a
+      // step's fragment loads under the previous step's MMAs.
+      if (rows == kWChunk) {
+#pragma unroll
+        for (int kk = 0; kk < kWChunk; kk += 16) step(kk);
+      } else {
+        for (int kk = 0; kk < rows; kk += 16) step(kk);
+      }
+    }
+    __syncthreads();
+  }
+  if (!has0) return;
+
+#pragma unroll
+  for (int i = 0; i < kRowBlocksPerWarp; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (j == 0 || has1)
+        wmma::store_matrix_sync(C + (rb0 + i) * 16 * kCLd + (wc + 8 * j) * 16,
+                                acc[i][j], kCLd, wmma::mem_row_major);
+  __syncwarp();
+  const int c0 = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < kRowBlocksPerWarp; ++i) {
+    const int r = (rb0 + i) * 16 + (lane >> 1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j == 1 && !has1) continue;
+      const int col = (wc + 8 * j) * 16 + c0;
+      float* p = C + r * kCLd + col;
+      float v[8];
+      *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(p);
+      *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(p + 4);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (bias) v[e] += bias[col + e];
+        if (act == 1) v[e] = fmaxf(v[e], 0.f);
+      }
+      if (A_out) {
+        __align__(16) __nv_bfloat16 h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16_rn(v[e]);
+        *reinterpret_cast<uint4*>(A_out + r * kALd + col) =
+            *reinterpret_cast<const uint4*>(h);
+      } else {
+        *reinterpret_cast<float4*>(p) = *reinterpret_cast<const float4*>(v);
+        *reinterpret_cast<float4*>(p + 4) = *reinterpret_cast<const float4*>(v + 4);
+      }
+    }
+  }
+}
+
+// Runs a walk on the encoded fp32 tile in C (pad lanes zero). The output
+// (pd[n] lanes) is left fp32 in C, or, with out_bf16, rounded to bf16 into
+// A[0] (the output LayerNorm writes it there directly); ends on a barrier.
+__device__ __forceinline__ void run_walk(const WalkSmem& s, const WalkDesc& d,
+                                         bool out_bf16 = false) {
+  const int pd0 = d.pd[0], pdn = d.pd[d.n];
+  if (d.has_li) layernorm_rows(s.C, s.A[0], true, d.d_enc, pd0, d.ln, d.ln + pd0);
+  else to_bf16(s.C, s.A[0], pd0);
+  __syncthreads();
+  int cur = 0;
+  for (int l = 0; l < d.n; ++l) {
+    const bool last = l + 1 == d.n;
+    dense_layer(s.A[cur], s.C, last ? nullptr : s.A[cur ^ 1], s.W, d.w[l],
+                d.b[l], d.pd[l], d.pd[l + 1], last ? d.last_act : d.act);
+    cur ^= 1;
+  }
+  __syncthreads();
+  if (d.has_lo) {
+    const float* lo = d.ln + 2 * pd0;
+    layernorm_rows(s.C, s.A[0], out_bf16, d.d_out, pdn, lo, lo + pdn);
+    __syncthreads();
+  } else if (out_bf16) {
+    to_bf16(s.C, s.A[0], pdn);
+    __syncthreads();
+  }
+}
+
+}  // namespace papr

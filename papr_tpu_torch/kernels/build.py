@@ -1,0 +1,108 @@
+"""Build the CUDA kernels under ``papr_tpu_torch/csrc`` and load them.
+
+The sources have a plain C interface; ``nvcc`` compiles all of them into one
+shared library for ``sm_90a`` (Hopper) on first use, into
+``papr_tpu_torch/_build/`` (git-ignored), named by a hash of the sources and
+flags so an edit rebuilds. The library is loaded with ``ctypes``; pointers
+and the CUDA stream travel as ``c_void_p``. Nothing is built at import time.
+
+    python -m papr_tpu_torch.kernels.build      # build, print ptxas stats
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the exported launchers (each returns a cudaError_t, or a
+# negative code for an argument the kernel does not take).
+SIGNATURES = {
+    "papr_cull_topk": [P, P, P, I, I, I, I, I, I, P, P],
+    "papr_fused_mlp_fwd": [P, I, I, P, P, P, P, P, P, P],
+    "papr_attend_eval": [P, I, P, I, I, P, P, P, I, F, P, P, P, P, P, P, P,
+                         I, P, P, P, P, P, I, F, I, F, P, P, P],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from papr_tpu_torch/csrc on first use")
+    return found
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libpapr_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the library if this source set has not been built yet;
+    returns its path. The compiler's ptxas report lands beside it."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc={res.returncode}):\n"
+                           f"{res.stderr[-6000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build on first use and load the library (once per process)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launcher reported an error (it returns cudaGetLastError()
+    right after the launch, so a refused launch surfaces here)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with code {rc}")
+
+
+if __name__ == "__main__":
+    path = build()
+    print(path)
+    with open(path[:-3] + ".log") as f:
+        sys.stdout.write(f.read())

@@ -1,0 +1,464 @@
+"""PAPR model, render half: learned point cloud + proximity attention + UNet
+decode (``papr_tpu/model/papr.py``).
+
+Parameters are the JAX package's tree as plain dicts of tensors: the point
+cloud is padded to ``max_num_pts`` with an ``alive`` mask (dead slots parked
+at 1e8), so ``papr_tpu_torch.convert.from_jax_params`` copies a JAX model
+leaf by leaf and both packages compute the same function.
+
+Pipeline per ray (reference models/model.py:494-560): top-k by point-to-ray
+distance -> geometric k/q/v -> posenc + FFN embedders -> scaled-dot scores
+-> x influence -> softmax with a background token -> renormalized
+foreground attention -> feature fusion -> UNet -> composite with the
+background color.
+
+Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
+
+* ``topk_impl: auto`` -> the tile-culled selection when P <= 32768 (its
+  stage-3 kernel on the card, the plain version on the CPU), exact selection
+  otherwise; ``cull`` / ``xla`` pin either. ``pallas`` and ``approx`` name
+  selections not ported yet and raise.
+* ``fused_attn: auto`` (fusible configs) or ``streamrec`` -> the eval path
+  through the fused query embedder and the one-shot eval attention (kernels
+  on the card, plain versions on the CPU); ``false`` -> the plain unfused
+  PyTorch path, the parity oracle. ``stream``, ``score``, ``embed`` and
+  ``true`` name kernels not ported yet and raise.
+* ``eval_fused: false``, ``int8_eval: true`` and ``query_fold: true`` name
+  kernels not ported yet and raise; a ``tpu.mesh`` of more than one device
+  raises (single-card slice).
+* The TPU tuning knobs (``fused_tile``, ``vmem_mb``, ``mxu_reduce``,
+  ``force_local``, ``remat_embed``, ``donate_state``) select no computation
+  and have no meaning on the card.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..nn.mlp import F32, Policy, linear_apply, mlp_apply, mlp_init
+from ..nn.unet import small_unet_apply, small_unet_init
+from ..ops.geometry import normalize_vector, point_ray_geometry
+from ..ops.topk import select_topk
+from .attention import attention_init, embed_kqv, score_fusible, score_tail
+
+NEG_BIG = -1e30  # score for dead points: 0 softmax weight
+
+
+# -------------------------------------------------------------- point init --
+
+def sphere_points(center, num_pts: int, scale) -> np.ndarray:
+    """Fibonacci sphere (reference: models/model.py:194-207)."""
+    phi = math.pi * (3.0 - math.sqrt(5.0))
+    i = np.arange(num_pts, dtype=np.float64)
+    y = 1 - (i / max(num_pts - 1, 1)) * 2
+    radius = np.sqrt(np.maximum(1 - y * y, 0))
+    theta = phi * i
+    pts = np.stack([np.cos(theta) * radius * scale[0] + center[0],
+                    y * scale[1] + center[1],
+                    np.sin(theta) * radius * scale[2] + center[2]], axis=-1)
+    return pts.astype(np.float32)
+
+
+def cube_points(rng: np.random.Generator, center, num_pts: int,
+                scale) -> np.ndarray:
+    """Regular grid + uniform remainder (reference: models/model.py:239-256)."""
+    n_axis = int(num_pts ** (1.0 / 3.0))
+    xs = np.linspace(-scale[0], scale[0], n_axis) + center[0]
+    ys = np.linspace(-scale[1], scale[1], n_axis) + center[1]
+    zs = np.linspace(-scale[2], scale[2], n_axis) + center[2]
+    grid = np.array([[i, j, k] for i in xs for j in ys for k in zs])
+    rest = num_pts - grid.shape[0]
+    if rest > 0:
+        rnd = np.stack([rng.uniform(-scale[a], scale[a], rest) + center[a]
+                        for a in range(3)], axis=-1)
+        grid = np.concatenate([grid, rnd], axis=0)
+    return grid.astype(np.float32)
+
+
+def load_point_cloud(path: str, max_num_pts: int,
+                     rng: np.random.Generator) -> np.ndarray:
+    """Initial cloud from .pth/.pt or .npy/.npz, shuffled then truncated."""
+    if path.endswith((".pth", ".pt")):
+        pts = np.asarray(torch.load(path, map_location="cpu")).astype(np.float32)
+    else:
+        pts = np.load(path)
+        if hasattr(pts, "files"):
+            pts = pts[pts.files[0]]
+        pts = np.asarray(pts, np.float32)
+    rng.shuffle(pts)
+    if max_num_pts > 0:
+        pts = pts[:max_num_pts]
+    return pts
+
+
+# ------------------------------------------------------------------ config --
+
+@dataclass
+class ModelMeta:
+    """Static facts derived from the config."""
+    pad_num_pts: int
+    select_k: int
+    use_pc_feats: bool
+    use_renderer: bool
+    use_mapping_mlp: bool
+    bkg_learnable: bool
+    feat_dim: int
+
+
+def model_meta(cfg) -> ModelMeta:
+    pc = cfg.geoms.point_feats
+    max_pts = int(cfg.max_num_pts)
+    init_num = int(cfg.geoms.points.init_num)
+    pad = max_pts if max_pts > 0 else init_num
+    return ModelMeta(
+        pad_num_pts=max(pad, init_num),
+        select_k=int(cfg.geoms.points.select_k),
+        use_pc_feats=bool(pc.use_ink or pc.use_inq or pc.use_inv),
+        use_renderer=bool(cfg.models.use_renderer),
+        use_mapping_mlp=bool(cfg.exposure_control.use),
+        bkg_learnable=bool(cfg.geoms.background.learnable),
+        feat_dim=int(cfg.models.attn.embed.value.d_ff_out),
+    )
+
+
+# -------------------------------------------------------------------- init --
+
+def create_model(cfg, seed: int = 0, device="cpu",
+                 init_points: np.ndarray | None = None):
+    """Build (params, state) on ``device``; ``state`` holds the alive mask.
+
+    Points come from the config's init (numpy, seeded by ``cfg.seed``, so
+    they equal the JAX package's); weights are drawn from a
+    ``torch.Generator`` seeded with ``seed``. Slots beyond the live count are
+    parked at 1e8 and masked."""
+    meta = model_meta(cfg)
+    point_opt = cfg.geoms.points
+    np_rng = np.random.default_rng(int(cfg.seed))
+    if init_points is None and point_opt.load_path:
+        init_points = load_point_cloud(point_opt.load_path, cfg.max_num_pts,
+                                       np_rng)
+    if init_points is None:
+        center = [c * cfg.dataset.coord_scale for c in point_opt.init_center]
+        scale = [s * cfg.dataset.coord_scale for s in point_opt.init_scale]
+        if point_opt.init_type == "sphere":
+            init_points = sphere_points(center, point_opt.init_num, scale)
+        elif point_opt.init_type == "cube":
+            init_points = cube_points(np_rng, center, point_opt.init_num,
+                                      scale)
+        else:
+            raise NotImplementedError(
+                f"Point init type [{point_opt.init_type}] is not found")
+
+    n_live = init_points.shape[0]
+    P = meta.pad_num_pts
+    assert n_live <= P, (n_live, P)
+    points = np.full((P, 3), 1e8, np.float32)
+    points[:n_live] = init_points
+    alive = np.zeros((P,), bool)
+    alive[:n_live] = True
+
+    gen = torch.Generator().manual_seed(int(seed))
+    dev = torch.device(device)
+    params: dict[str, Any] = {
+        "points": torch.from_numpy(points).to(dev),
+        "points_influ_scores": torch.full(
+            (P, 1), float(point_opt.influ_init_val), dtype=torch.float32,
+            device=dev),
+    }
+    pc = cfg.geoms.point_feats
+    extra = {"k": 0, "q": 0, "v": 0}
+    if meta.use_pc_feats:
+        params["pc_feats"] = torch.randn(P, int(pc.dim), generator=gen).to(dev)
+        for name, flag in (("k", pc.use_ink), ("q", pc.use_inq),
+                           ("v", pc.use_inv)):
+            if flag:
+                extra[name] = int(pc.dim)
+    params["attn"] = attention_init(gen, cfg.models.attn, extra["k"],
+                                    extra["q"], extra["v"], dev)
+    if meta.use_renderer:
+        g = cfg.models.renderer.generator
+        if g.type == "small-unet":
+            su = g.small_unet
+            params["renderer"] = small_unet_init(
+                gen, meta.feat_dim, 3, bilinear=su.bilinear, single=su.single,
+                render_scale=int(su.get("render_scale", 1)), device=dev)
+        elif g.type == "mlp":
+            m = g.mlp
+            params["renderer"] = mlp_init(
+                gen, meta.feat_dim, m.num_layers, m.num_channels, 3,
+                use_wn=m.use_wn, skip_layers=tuple(m.skip_layers),
+                bias=m.bias, half_layers=tuple(m.half_layers), device=dev)
+        else:
+            raise NotImplementedError(f"generator type [{g.type}]")
+    else:
+        assert meta.feat_dim == 3, \
+            "Value embedding MLP should have output dim 3 if not using renderer"
+    params["bkg_feats"] = torch.tensor(
+        np.asarray(cfg.geoms.background.init_color, np.float32)[None, :],
+        device=dev)
+    if meta.use_mapping_mlp:
+        ec = cfg.exposure_control
+        params["mapping_mlp"] = mlp_init(
+            gen, int(ec.shading_code_dim), int(ec.mapping_mlp.num_layers),
+            int(ec.mapping_mlp.dim), int(ec.mapping_mlp.out_dim),
+            use_wn=ec.mapping_mlp.use_wn, device=dev)
+    state = {"alive": torch.from_numpy(alive).to(dev)}
+    return params, state
+
+
+# ----------------------------------------------------------------- forward --
+
+def _point_record(params, alive, meta, pcf) -> torch.Tensor:
+    """Lane-aligned per-point record [xyz, influ, alive, pc_feats?, pad]."""
+    parts = [params["points"], params["points_influ_scores"],
+             alive.float()[:, None]]
+    if meta.use_pc_feats:
+        parts.append(params["pc_feats"])
+    width = 3 + 1 + 1 + (int(pcf.dim) if meta.use_pc_feats else 0)
+    pad = -(-width // 128) * 128 - width
+    record = torch.cat(parts, dim=1)
+    if pad:
+        record = torch.nn.functional.pad(record, (0, pad))
+    return record.contiguous()
+
+
+def _check_single_device(cfg) -> None:
+    data = int(cfg.get_path("tpu.mesh.data", 1))
+    rays = int(cfg.get_path("tpu.mesh.rays", 1))
+    if data * rays > 1:
+        raise NotImplementedError(
+            f"tpu.mesh {data}x{rays}: the multi-device render is ROADMAP.md "
+            "Queue 1 item 12; this port renders on one card")
+
+
+def resolve_topk_impl(cfg, P: int) -> str:
+    """``tpu.topk_impl`` -> 'cull' or 'xla' (see module docstring)."""
+    impl = cfg.get_path("tpu.topk_impl", "auto")
+    if impl == "auto":
+        return "cull" if P <= (1 << 15) else "xla"
+    if impl in ("cull", "xla"):
+        return impl
+    if impl == "pallas":
+        raise NotImplementedError(
+            "tpu.topk_impl: pallas (uncull pack-min-extract kernel) is "
+            "ROADMAP.md Queue 2 item 6; use auto, cull or xla")
+    if impl == "approx":
+        raise NotImplementedError(
+            "tpu.topk_impl: approx needs approx_min_k, which torch lacks "
+            "(ROADMAP.md Queue 2 item 1b); use auto, cull or xla")
+    raise ValueError(f"unknown tpu.topk_impl {impl!r}")
+
+
+def resolve_fused_attn(cfg, fusible: bool):
+    """``tpu.fused_attn`` -> 'streamrec' (eval kernels) or False (plain)."""
+    fa = cfg.get_path("tpu.fused_attn", "auto")
+    for knob, bad, item in (("int8_eval", True, "10"),
+                            ("query_fold", True, "9")):
+        if bool(cfg.get_path(f"tpu.{knob}", not bad)) == bad:
+            raise NotImplementedError(
+                f"tpu.{knob}: {bad} names a kernel not ported yet "
+                f"(ROADMAP.md Queue 2 item {item})")
+    if fa == "auto":
+        fa = "streamrec" if fusible else False
+    elif fa is False:
+        return False
+    elif fa == "streamrec":
+        fa = "streamrec" if fusible else False
+    else:
+        raise NotImplementedError(
+            f"tpu.fused_attn: {fa!r} names kernels not ported yet "
+            "(ROADMAP.md Queue 2 items 7-8); use auto, streamrec or false")
+    if fa == "streamrec" and not bool(cfg.get_path("tpu.eval_fused", True)):
+        raise NotImplementedError(
+            "tpu.eval_fused: false selects the two training stream kernels "
+            "for eval (ROADMAP.md Queue 2 items 3-4)")
+    return fa
+
+
+def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy):
+    """Eval-mode selection + attention + fusion.
+
+    rays_o (N, 3), rays_d (N, H, W, 3) on the parameters' device ->
+    fused (N, H, W, C) fp32, attn (N, H, W, K+1) fp32 (background token
+    last) and the selection indices (N, H, W, K). Selection pins the exact
+    candidate prefilter ('packsort' by default) like the JAX eval path."""
+    meta = model_meta(cfg)
+    _check_single_device(cfg)
+    N, H, W, _ = rays_d.shape
+    points, alive = params["points"], state["alive"]
+    if rays_d.device != points.device or rays_o.device != points.device:
+        raise ValueError(f"rays on {rays_d.device}, model on {points.device}")
+    P = points.shape[0]
+    k = meta.select_k
+    eps = float(cfg.eps)
+
+    if k >= P or k < 0:
+        idx = torch.arange(P, dtype=torch.int32, device=points.device)
+        idx = idx.expand(N, H * W, P)
+        k = P
+    else:
+        impl = resolve_topk_impl(cfg, P)
+        rds = rays_d.reshape(N, H * W, 3)
+        if impl == "cull":
+            from ..ops.tile_cull import select_topk_culled
+            M = int(cfg.get_path("tpu.cull_candidates", 2048))
+            blk = int(cfg.get_path("tpu.cull_block", 16))
+            pf = str(cfg.get_path("tpu.cull_prefilter_eval", "packsort"))
+            eblk = int(cfg.get_path("tpu.cull_block_eval", 0)) or blk
+            me = cfg.get_path("tpu.cull_candidates_eval", "auto")
+            M = int(me) if me != "auto" else \
+                M * max((eblk * eblk) // (blk * blk), 1)
+            ee = bool(cfg.get_path("tpu.cull_early_exit", True))
+            idx = torch.stack([select_topk_culled(
+                points, alive, rays_o[i], rds[i].reshape(H, W, 3), k, M=M,
+                block=eblk, eps=eps, prefilter=pf, early_exit=ee)
+                for i in range(N)])
+        else:
+            chunk = int(cfg.get_path("tpu.ray_chunk", 4096))
+            idx = torch.stack([select_topk(points, alive, rays_o[i], rds[i],
+                                           k, eps, chunk) for i in range(N)])
+    idx = idx.reshape(N, H, W, k)
+
+    from ..ops.fused_mlp import feedforward_fusible
+    e = cfg.models.attn.embed
+    fusible = (k <= 64 and not cfg.geoms.point_feats.use_inq
+               and score_fusible(cfg.models.attn)
+               and all(feedforward_fusible(c)
+                       for c in (e.key, e.query, e.value)))
+    if resolve_fused_attn(cfg, fusible) == "streamrec":
+        fused_f, attn = _attend_eval_kernels(params, cfg, meta, idx, rays_o,
+                                             rays_d, alive, eps, policy)
+        return fused_f, attn, idx
+
+    # Plain unfused path (papr.py:425-474), the parity oracle.
+    pcf = cfg.geoms.point_feats
+    pcf_dim = int(pcf.dim) if meta.use_pc_feats else 0
+    record = _point_record(params, alive, meta, pcf)
+    rec = record[idx.long()]                                 # (N,H,W,K,128n)
+    selected = rec[..., :3]
+    influ = rec[..., 3]
+    sel_alive = rec[..., 4] > 0.5
+    proj, perp, _, _ = point_ray_geometry(
+        selected, rays_o[:, None, None, :], rays_d, eps)
+    k_feats = [selected, proj, perp]
+    q_feats = [rays_d[..., None, :]]
+    v_feats = [proj, perp]
+    k_extra = q_extra = v_extra = None
+    if meta.use_pc_feats:
+        gathered = rec[..., 5:5 + pcf_dim]
+        if pcf.use_ink:
+            k_extra = [gathered]
+        if pcf.use_inq:
+            q_extra = [gathered]
+        if pcf.use_inv:
+            v_extra = [gathered]
+    attn_cfg = cfg.models.attn
+    ek, eq, ev = embed_kqv(params["attn"], attn_cfg, k_feats, q_feats,
+                           v_feats, k_extra, q_extra, v_extra, eps=eps,
+                           policy=policy)
+    scores = score_tail(params["attn"], attn_cfg, ek, eq, policy)
+    scores = scores * influ.float()
+    scores = torch.where(sel_alive, scores, NEG_BIG)
+    fused_f, attn = _softmax_fuse(cfg, ev, scores,
+                                  float(cfg.geoms.background.constant))
+    return fused_f, attn, idx
+
+
+def _attend_eval_kernels(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
+                         policy):
+    """The eval branch of ``_attend_kmaj`` (papr.py:524-682): the fused query
+    embedder for ``eq``, ``w_q`` as a plain matmul, then the one-shot eval
+    attention reading the point record by index."""
+    from ..ops.fused_mlp import fused_embedder_apply, walk_from_params
+    from ..ops.stream_attn import attend_eval_idx, rec_pe_plan
+
+    N, H, W, _ = rays_d.shape
+    k = idx.shape[-1]
+    T = N * H * W
+    pcf = cfg.geoms.point_feats
+    attn_cfg = cfg.models.attn
+    e = attn_cfg.embed
+    record = _point_record(params, alive, meta, pcf)
+    rayd_flat = rays_d.reshape(T, 3)
+    rayo_flat = rays_o[:, None, :].expand(N, H * W, 3).reshape(T, 3)
+    rays = normalize_vector(rayd_flat, eps=eps)
+
+    eq = fused_embedder_apply(params["attn"]["embed_q"], [rayd_flat], None,
+                              e.q_L, e, e.query, policy)
+    qq = linear_apply(params["attn"]["w_q"], eq, policy).float()
+
+    def plan(has_pos, Ls, use_extra):
+        extra = int(pcf.dim) if (meta.use_pc_feats and use_extra) else 0
+        return rec_pe_plan(has_pos, tuple(int(l) for l in Ls),
+                           int(e.embed_type), float(e.pe_factor),
+                           float(e.pe_mult_factor), extra)
+
+    kwalk = walk_from_params(params["attn"]["embed_k"], e.key,
+                             plan(True, e.k_L, pcf.use_ink))
+    vwalk = walk_from_params(params["attn"]["embed_v"], e.value,
+                             plan(False, e.v_L, pcf.use_inv))
+    fused_f, attn = attend_eval_idx(
+        record, idx.reshape(T, k), rayo_flat, rays, qq, kwalk,
+        params["attn"]["w_k"]["w"], params["attn"]["w_k"]["bias"], vwalk,
+        attn_cfg.score_act, float(cfg.geoms.background.constant),
+        bool(cfg.models.normalize_topk_attn), eps, policy.compute_dtype)
+    return fused_f.reshape(N, H, W, -1), attn.reshape(N, H, W, k + 1)
+
+
+def _softmax_fuse(cfg, embedv, scores, bkg_score: float):
+    """Background-token softmax + foreground renormalization + fusion
+    (models/model.py:526-534); an all-dead ray renormalizes against 1."""
+    bkg = torch.full(scores.shape[:-1] + (1,), bkg_score, dtype=torch.float32,
+                     device=scores.device)
+    attn = torch.softmax(torch.cat([scores, bkg], dim=-1), dim=-1)
+    topk_attn = attn[..., :-1]
+    if cfg.models.normalize_topk_attn:
+        den = topk_attn.sum(-1, keepdim=True)
+        topk_attn = topk_attn / torch.where(den > 0, den, torch.ones_like(den))
+    fused = (embedv.float() * topk_attn[..., None]).sum(-2)
+    return fused, attn
+
+
+def render_foreground(params: dict, cfg, fused: torch.Tensor, gamma=None,
+                      beta=None, policy: Policy = F32) -> torch.Tensor:
+    """Decode fused features (N, H, W, C) to RGB with the generator head."""
+    g = cfg.models.renderer.generator
+    if g.type == "small-unet":
+        su = g.small_unet
+        out = small_unet_apply(
+            params["renderer"], fused, bilinear=su.bilinear, single=su.single,
+            norm=su.norm, last_act=su.last_act,
+            render_scale=int(su.get("render_scale", 1)),
+            affine_layer=int(su.affine_layer), gamma=gamma, beta=beta,
+            policy=policy)
+    else:
+        m = g.mlp
+        out = mlp_apply(params["renderer"], policy.cast(fused),
+                        act_type=m.act_type, last_act_type=m.last_act_type,
+                        a=m.act_a, b=m.act_b,
+                        skip_layers=tuple(m.skip_layers), policy=policy)
+    return out.float()
+
+
+def evaluate(params: dict, state: dict, cfg, rays_o, rays_d,
+             policy: Policy = F32, with_selected: bool = False):
+    """Attention half only, for tiled full-image rendering (reference
+    models/model.py:462-492): fused (N, H, W, 1, C), attention
+    (N, H, W, K+1, 1) and, with ``with_selected``, the selected points."""
+    fused, attn, idx = _attend(params, state, cfg, rays_o, rays_d, policy)
+    out = (fused[..., None, :], attn[..., None])
+    if with_selected:
+        return out + (params["points"][idx.long()],)
+    return out
+
+
+def composite_background(cfg, params, foreground, bkg_attn):
+    """Eval-time compositing (reference train.py:74-82)."""
+    if cfg.models.normalize_topk_attn:
+        return foreground * (1 - bkg_attn) + params["bkg_feats"][0] * bkg_attn
+    return foreground + params["bkg_feats"][0] * bkg_attn
