@@ -7,6 +7,10 @@ function on the same weights. Both sides keep the same layouts: linear
 weights are (out, in), convolution kernels HWIO. (``papr_tpu/model/
 torch_convert.py::to_torch_state_dict`` exports only the live points for the
 reference's ``model.pth``, which is a different purpose.)
+
+``from_jax_opt_state`` and ``from_jax_lpips_params`` carry the Adam state and
+the LPIPS weights across, so both packages can start from one mid-training
+state.
 """
 
 from __future__ import annotations
@@ -42,3 +46,30 @@ def from_jax_params(params_np: dict, state_np: dict, cfg, device="cpu"):
                          f"{tuple(params['points'].shape)} / "
                          f"{tuple(state['alive'].shape)}")
     return params, state
+
+
+def from_jax_opt_state(opt_state_np: dict, params: dict, cfg) -> dict:
+    """The JAX per-group Adam state (``papr_tpu.train.optim.init_opt_state``
+    layout: {group key: {"m": tree, "v": tree, "t": int32}} as numpy) ->
+    the port's (moments on the parameters' device, ``t`` a host int)."""
+    from .train.optim import build_group_specs
+    specs = build_group_specs(cfg)
+    dev = params["points"].device
+    out = {}
+    for key, st in opt_state_np.items():
+        if key not in specs or key not in params:
+            raise ValueError(f"optimizer group {key!r} is not trained by "
+                             "this config")
+        out[key] = {"m": to_torch(st["m"], dev), "v": to_torch(st["v"], dev),
+                    "t": int(np.asarray(st["t"]))}
+    return out
+
+
+def from_jax_lpips_params(lp_np: dict, device="cpu") -> dict:
+    """JAX LPIPS params ({"convs": [{"w": HWIO, "b"}], "lins": [...]}, numpy)
+    -> the port's (OIHW kernels for ``F.conv2d``)."""
+    t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
+    convs = [{"w": t(np.asarray(c["w"]).transpose(3, 2, 0, 1)), "b": t(c["b"])}
+             for c in lp_np["convs"]]
+    lins = [t(np.asarray(l).reshape(-1)) for l in lp_np["lins"]]
+    return {"convs": convs, "lins": lins}

@@ -21,45 +21,9 @@
 // The kernel gathers record rows by index from the (P, 128) record instead
 // of a pre-gathered (K, T, 128) tensor (6.55 GB at one 800x800 tile).
 
-#include "walk.cuh"
+#include "rec_stream.cuh"
 
 using namespace papr;
-
-namespace {
-
-constexpr float kNegBig = -1e30f;     // papr.py NEG_BIG: dead points
-constexpr int kGeo = 12;              // sel(3) proj(3) perp(3) influ alive pad
-
-// Encoded columns of one walk from the per-row geometry: sources 0..8 are
-// [pos, proj, perp], source 9 + j is record lane 5 + j (point features).
-// Each lane reads its columns' plan once and walks the rows.
-__device__ __forceinline__ void encode_rec(float* C, const WalkDesc& d,
-                                           const float* geo, const int* gidx,
-                                           const float* __restrict__ record,
-                                           int rec_w) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pd0 = d.pd[0];
-  for (int c = lane; c < pd0; c += 32) {
-    const bool live = c < d.d_enc;
-    const int src = live ? (int)d.plan[c] : 0;
-    const float freq = live ? d.plan[pd0 + c] : 0.f;
-    const int kind = live ? (int)d.plan[2 * pd0 + c] : 0;
-#pragma unroll
-    for (int i = 0; i < kRows / kWarps; ++i) {
-      const int r = warp + i * kWarps;
-      float v = 0.f;
-      if (live) {
-        const float x = src < 9
-            ? geo[r * kGeo + src]
-            : record[(size_t)gidx[r] * rec_w + 5 + (src - 9)];
-        v = encode_value(x, freq, kind);
-      }
-      C[r * kCLd + c] = v;
-    }
-  }
-}
-
-}  // namespace
 
 __global__ void __launch_bounds__(kThreads, 1)
 attend_eval_kernel(const float* __restrict__ record, int rec_w,

@@ -1,0 +1,247 @@
+// Streamed value fuse of the training path, forward and backward.
+//
+// Forward replaces papr_tpu/ops/stream_attn.py::value_stream_fuse_rec
+// (pallas_call at :1756, kernel body _vsr_fwd_kernel :1601): per (ray, k)
+// the point-ray geometry -> value posenc (78) + point features (64) ->
+// 8-layer walk to 32 -> rounded to bf16 -> weighted by the renormalized
+// foreground attention and summed over k: fused (T, C) fp32.
+//
+// Backward replaces _vsr_bwd (pallas_call at :1809, kernel body
+// _vsr_bwd_kernel :1634): per k a recompute of the walk; dattn from the
+// value rows and the renormalization (at the end of the k loop, when every
+// column of the ray is in the block); the walk's gradients; the posenc and
+// geometry backward to d_rec (K, T, rec_w) — geometry gradient in lanes
+// 0:3, point-feature gradient in lanes 5.. — and d_rayo / d_rays.
+// All-dead rays (foreground mass exactly 0) divide by 1: zero gradient into
+// the walk, as in the TPU kernel.
+//
+// What bounds it on the H100: the walk, ~1.2 MFLOP of bf16 tensor-core work
+// per token forward and ~3x that backward; compute bound. The design is
+// key_stream.cu's: one block of 512 threads per 64-ray tile, k inside the
+// block, every activation in shared memory, dW through the stash and
+// wgrad.cu.
+
+#include "rec_stream.cuh"
+#include "walk_bwd.cuh"
+
+using namespace papr;
+
+__global__ void __launch_bounds__(kThreads, 1)
+value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
+                 const float* __restrict__ rayo,
+                 const float* __restrict__ rays,
+                 const float* __restrict__ attn, WalkDesc vd, int normalize,
+                 float eps, float* __restrict__ fused) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WalkSmem S = walk_smem(smem);
+  float* C = S.C;
+  float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
+  float* den = geo + kRows * kGeo;                           // kRows
+  const int cout = vd.d_out;
+  float* acc = den + kRows;                                  // kRows x cout
+  int* gidx = reinterpret_cast<int*>(acc + kRows * cout);    // kRows
+  const int t0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int i = threadIdx.x; i < kRows * cout; i += kThreads) acc[i] = 0.f;
+  for (int r = warp; r < kRows; r += kWarps) {
+    const int t = t0 + r;
+    float sfg = 0.f;
+    if (t < T)
+      for (int k = lane; k < K; k += 32) sfg += attn[(size_t)t * (K + 1) + k];
+    sfg = warp_sum(sfg);
+    if (lane == 0) den[r] = normalize ? (sfg > 0.f ? sfg : 1.f) : 1.f;
+  }
+
+  for (int k = 0; k < K; ++k) {
+    geometry_rows(geo, gidx, rec, rec_w, T, k, t0, rayo, rays, eps);
+    __syncthreads();
+    encode_rec(C, vd, geo, gidx, rec, rec_w);
+    __syncthreads();
+    run_walk(S, vd);
+    for (int r = warp; r < kRows; r += kWarps) {
+      const int t = t0 + r;
+      if (t >= T) continue;
+      const float w = attn[(size_t)t * (K + 1) + k] / den[r];
+      for (int c = lane; c < cout; c += 32)
+        acc[r * cout + c] += w * bf16_round(C[r * kCLd + c]);
+    }
+    __syncthreads();
+  }
+  for (int r = warp; r < kRows; r += kWarps) {
+    const int t = t0 + r;
+    if (t >= T) continue;
+    for (int c = lane; c < cout; c += 32)
+      fused[(size_t)t * cout + c] = acc[r * cout + c];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
+                 int K, const float* __restrict__ rayo,
+                 const float* __restrict__ rays,
+                 const float* __restrict__ attn,
+                 const float* __restrict__ dfused, WalkDesc vd, WalkBwd vb,
+                 int normalize, float eps, const int* __restrict__ seg,
+                 int nsrc, float* drec, float* drayo, float* drays,
+                 float* __restrict__ dattn) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WalkSmem S = walk_smem(smem);
+  float* C = S.C;
+  float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
+  float* datt = geo + kRows * kGeo;                          // kRows x K
+  float* den = datt + kRows * K;                             // kRows
+  float* st = den + kRows;                                   // 4 x kRows
+  float* dgeo = st + 4 * kRows;                              // kRows x 9
+  int* gidx = reinterpret_cast<int*>(dgeo + kRows * kNGeoSrc);
+  const int t0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cout = vd.d_out, pdn = vd.pd[vd.n];
+
+  // Safe denominator (_vsr_bwd_kernel :1659-1663): 1 for all-dead rays.
+  for (int r = warp; r < kRows; r += kWarps) {
+    const int t = t0 + r;
+    float sfg = 0.f;
+    if (t < T)
+      for (int k = lane; k < K; k += 32) sfg += attn[(size_t)t * (K + 1) + k];
+    sfg = warp_sum(sfg);
+    if (lane == 0) den[r] = sfg > 0.f ? sfg : 1.f;
+  }
+
+  for (int k = 0; k < K; ++k) {
+    geometry_rows(geo, gidx, rec, rec_w, T, k, t0, rayo, rays, eps);
+    __syncthreads();
+    encode_rec(C, vd, geo, gidx, rec, rec_w);
+    __syncthreads();
+    const TileCtx ctx = tile_ctx(vd, vb, (size_t)k * Tp + t0, st);
+    walk_fwd_stash(S, vd, vb, ctx, false);       // y fp32 in C
+
+    // d attn_k = y_c . dfused (y rounded to bf16 as in the forward).
+    for (int r = warp; r < kRows; r += kWarps) {
+      const int t = t0 + r;
+      float s = 0.f;
+      if (t < T)
+        for (int c = lane; c < cout; c += 32)
+          s += bf16_round(C[r * kCLd + c]) * dfused[(size_t)t * cout + c];
+      s = warp_sum(s);
+      if (lane == 0) datt[r * K + k] = s;
+    }
+    __syncthreads();
+    // Upstream gradient of the walk output: w_k dfused.
+    for (int i = tid; i < kRows * pdn; i += kThreads) {
+      const int r = i / pdn, c = i - r * pdn, t = t0 + r;
+      float g = 0.f;
+      if (t < T && c < cout) {
+        float w = attn[(size_t)t * (K + 1) + k];
+        if (normalize) w = w / den[r];
+        g = w * dfused[(size_t)t * cout + c];
+      }
+      C[r * kCLd + c] = g;
+    }
+    __syncthreads();
+    walk_bwd(S, vd, vb, ctx);
+
+    pe_bwd_deriv(C, vd, [&](int r, int src) {
+      return src < kNGeoSrc ? geo[r * kGeo + src]
+          : rec[(size_t)gidx[r] * rec_w + 5 + (src - kNGeoSrc)];
+    });
+    __syncthreads();
+    pe_source_sums(C, seg, nsrc, [&](int r, int src, float v) {
+      if (src < kNGeoSrc) dgeo[r * kNGeoSrc + src] = v;
+      else if (t0 + r < T) drec[(size_t)gidx[r] * rec_w + 5 + (src - kNGeoSrc)] = v;
+    });
+    __syncthreads();
+    if (tid < kRows && t0 + tid < T) {
+      const int t = t0 + tid;
+      float o[3], dr[3], dsel[3], dry[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        o[j] = rayo[(size_t)t * 3 + j];
+        dr[j] = rays[(size_t)t * 3 + j];
+      }
+      float* prow = drec + (size_t)gidx[tid] * rec_w;
+      geom_bwd_row(rec + (size_t)gidx[tid] * rec_w, o, dr,
+                   dgeo + tid * kNGeoSrc + 3, dgeo + tid * kNGeoSrc + 6, eps,
+                   dsel, dry);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        prow[j] = dsel[j];
+        drayo[(size_t)t * 3 + j] -= dsel[j];
+        drays[(size_t)t * 3 + j] += dry[j];
+      }
+    }
+    __syncthreads();
+  }
+
+  // Renormalization backward (_vsr_bwd_kernel :1681-1690).
+  for (int r = warp; r < kRows; r += kWarps) {
+    const int t = t0 + r;
+    if (t >= T) continue;
+    const float* arow = attn + (size_t)t * (K + 1);
+    float* drow = dattn + (size_t)t * (K + 1);
+    float inner = 0.f;
+    if (normalize) {
+      for (int k = lane; k < K; k += 32) inner += datt[r * K + k] * arow[k];
+      inner = warp_sum(inner) / den[r];
+    }
+    for (int k = lane; k < K; k += 32)
+      drow[k] = normalize ? (datt[r * K + k] - inner) / den[r] : datt[r * K + k];
+    if (lane == 0) drow[K] = 0.f;
+  }
+}
+
+extern "C" int papr_value_stream_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* attn, const int* vmeta, const void* vw,
+    const void* vb, const void* vln, const void* vplan, int normalize,
+    float eps, void* fused, void* stream) {
+  WalkDesc vd;
+  int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
+  if (err) return err;
+  if (K <= 0 || K > 64) return -202;
+  if (T <= 0) return 0;
+  const size_t smem = kWalkSmem + sizeof(float) * kRows *
+      (kGeo + 1 + vd.d_out) + sizeof(int) * kRows;
+  if (smem > 232448) return -203;
+  cudaError_t e = cudaFuncSetAttribute(
+      value_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  value_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      rec, rec_w, T, K, rayo, rays, attn, vd, normalize, eps,
+      static_cast<float*>(fused));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int papr_value_stream_bwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* attn, const float* dfused,
+    const int* vmeta, const void* vw, const void* vb, const void* vln,
+    const void* vplan, const void* vwt, int normalize, float eps,
+    void* stash, const long long* stash_off, const int* seg, int nsrc,
+    float* drec, float* drayo, float* drays, float* dattn, float* part,
+    int part_w, float* scratch, void* stream) {
+  WalkDesc vd;
+  int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
+  if (err) return err;
+  WalkBwd wb;
+  err = fill_walk_bwd(&wb, vd, vmeta, vwt, stash, stash_off, vd.n, part,
+                      part_w, scratch);
+  if (err) return err;
+  if (K <= 0 || K > 64) return -202;
+  if (T <= 0) return 0;
+  const size_t smem = kWalkSmem + sizeof(float) * kRows *
+      (kGeo + K + 1 + 4 + kNGeoSrc) + sizeof(int) * kRows;
+  if (smem > 232448) return -203;
+  cudaError_t e = cudaFuncSetAttribute(
+      value_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int Tp = (T + kRows - 1) / kRows * kRows;
+  value_bwd_kernel<<<Tp / kRows, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      rec, rec_w, T, Tp, K, rayo, rays, attn, dfused, vd, wb, normalize, eps,
+      seg, nsrc, drec, drayo, drays, dattn);
+  return (int)cudaGetLastError();
+}

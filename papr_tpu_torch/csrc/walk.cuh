@@ -149,10 +149,14 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Row-wise LayerNorm of C's first n_true lanes (one warp per row), written
 // as bf16 into A (out_bf16) or back into C; pad lanes up to pd become 0.
+// With mu_out / r_out the per-row mean and 1 / (std + eps) are kept for a
+// backward pass.
 __device__ __forceinline__ void layernorm_rows(float* C, __nv_bfloat16* A,
                                                bool out_bf16, int n_true,
                                                int pd, const float* a,
-                                               const float* b) {
+                                               const float* b,
+                                               float* mu_out = nullptr,
+                                               float* r_out = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < kRows; r += kWarps) {
     float* row = C + r * kCLd;
@@ -166,6 +170,10 @@ __device__ __forceinline__ void layernorm_rows(float* C, __nv_bfloat16* A,
     }
     const float var = warp_sum(v) / (float)(n_true > 1 ? n_true - 1 : 1);
     const float rr = 1.f / (sqrtf(var) + kLnEps);
+    if (mu_out && lane == 0) {
+      mu_out[r] = mu;
+      r_out[r] = rr;
+    }
     for (int c = lane; c < pd; c += 32) {
       const float y = c < n_true ? (row[c] - mu) * rr * a[c] + b[c] : 0.f;
       if (out_bf16) A[r * kALd + c] = __float2bfloat16_rn(y);

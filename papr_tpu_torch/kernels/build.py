@@ -1,7 +1,8 @@
 """Build the CUDA kernels under ``papr_tpu_torch/csrc`` and load them.
 
-The sources have a plain C interface; ``nvcc`` compiles all of them into one
-shared library for ``sm_90a`` (Hopper) on first use, into
+The sources have a plain C interface; ``nvcc`` compiles each ``.cu`` for
+``sm_90a`` (Hopper) into an object, all sources at once in parallel, and
+links the objects into one shared library on first use, in
 ``papr_tpu_torch/_build/`` (git-ignored), named by a hash of the sources and
 flags so an edit rebuilds. The library is loaded with ``ctypes``; pointers
 and the CUDA stream travel as ``c_void_p``. Nothing is built at import time.
@@ -23,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the exported launchers (each returns a cudaError_t, or a
@@ -33,6 +34,18 @@ SIGNATURES = {
     "papr_fused_mlp_fwd": [P, I, I, P, P, P, P, P, P, P],
     "papr_attend_eval": [P, I, P, I, I, P, P, P, I, F, P, P, P, P, P, P, P,
                          I, P, P, P, P, P, I, F, I, F, P, P, P],
+    "papr_fused_mlp_bwd": [P, I, I, P, P, P, P, P, P, P, P, P, P, P, P, I, P,
+                           P],
+    "papr_wgrad": [P, P, I, I, I, I, P, P, P],
+    "papr_colsum": [P, I, I, P, P],
+    "papr_key_stream_fwd": [P, I, I, I, P, P, P, I, F, P, P, P, P, P, P, P, I,
+                            I, F, F, P, P, P, P],
+    "papr_key_stream_bwd": [P, I, I, I, P, P, P, I, F, P, P, P,   # ..dattn
+                            P, P, P, P, P, P, P, P, P, I, I, F, F,  # ..eps
+                            P, P, P, I, P, P, P, P, P, I, P, P],
+    "papr_value_stream_fwd": [P, I, I, I, P, P, P, P, P, P, P, P, I, F, P, P],
+    "papr_value_stream_bwd": [P, I, I, I, P, P, P, P, P, P, P, P, P, P, I, F,
+                              P, P, P, I, P, P, P, P, P, I, P, P],
 }
 
 _lib = None
@@ -68,16 +81,34 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tmp = f"{out}.{os.getpid()}"
+    nvcc = _nvcc()
     cus = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [f"{tmp}.{os.path.basename(cu)}.o" for cu in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, cu] for cu, o in zip(cus, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    link = [nvcc, "-shared", "-o", f"{tmp}.so", *objs]
+    res = (subprocess.run(link, capture_output=True, text=True)
+           if all(p.returncode == 0 for p in procs) else None)
     with open(out[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        for c, log in zip(cmds, logs):
+            f.write(" ".join(c) + "\n" + log)
+        if res is not None:
+            f.write(" ".join(link) + "\n" + res.stdout + res.stderr)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [(c[-1], log) for c, p, log in zip(cmds, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{src}:\n{log[-4000:]}" for src, log in failed))
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={res.returncode}):\n"
-                           f"{res.stderr[-6000:]}")
-    os.replace(tmp, out)
+        raise RuntimeError(f"link failed:\n{res.stderr[-4000:]}")
+    os.replace(f"{tmp}.so", out)
     return out
 
 

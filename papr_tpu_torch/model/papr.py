@@ -1,5 +1,6 @@
-"""PAPR model, render half: learned point cloud + proximity attention + UNet
-decode (``papr_tpu/model/papr.py``).
+"""PAPR model: learned point cloud + proximity attention + UNet decode
+(``papr_tpu/model/papr.py``), for serving (``evaluate``) and training
+(``forward``).
 
 Parameters are the JAX package's tree as plain dicts of tensors: the point
 cloud is padded to ``max_num_pts`` with an ``alive`` mask (dead slots parked
@@ -18,11 +19,17 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
   stage-3 kernel on the card, the plain version on the CPU), exact selection
   otherwise; ``cull`` / ``xla`` pin either. ``pallas`` and ``approx`` name
   selections not ported yet and raise.
-* ``fused_attn: auto`` (fusible configs) or ``streamrec`` -> the eval path
-  through the fused query embedder and the one-shot eval attention (kernels
-  on the card, plain versions on the CPU); ``false`` -> the plain unfused
-  PyTorch path, the parity oracle. ``stream``, ``score``, ``embed`` and
-  ``true`` name kernels not ported yet and raise.
+* ``fused_attn: auto`` (fusible configs) or ``streamrec`` -> the fused
+  query embedder, then for eval the one-shot eval attention and for
+  training the key and value streams with their backwards (kernels on the
+  card, plain versions on the CPU); ``false`` -> the plain unfused PyTorch
+  path, differentiable, the parity oracle. ``stream``, ``score``, ``embed``
+  and ``true`` name kernels not ported yet and raise.
+* Training selection reads ``tpu.cull_prefilter`` (default ``approx``, read
+  as the exact top-k of the cone lower bounds, see ``ops/tile_cull.py``);
+  eval pins ``tpu.cull_prefilter_eval`` like the JAX eval path.
+* Training raises for embedder dropout (``dropout_ff > 0``) and
+  ``tpu.int8_train: true`` (ROADMAP.md Queue 1 item 6, Queue 2 item 11).
 * ``eval_fused: false``, ``int8_eval: true`` and ``query_fold: true`` name
   kernels not ported yet and raise; a ``tpu.mesh`` of more than one device
   raises (single-card slice).
@@ -249,13 +256,13 @@ def resolve_topk_impl(cfg, P: int) -> str:
             "ROADMAP.md Queue 2 item 6; use auto, cull or xla")
     if impl == "approx":
         raise NotImplementedError(
-            "tpu.topk_impl: approx needs approx_min_k, which torch lacks "
-            "(ROADMAP.md Queue 2 item 1b); use auto, cull or xla")
+            "tpu.topk_impl: approx (approx_min_k over every point) is not "
+            "ported (ROADMAP.md Queue 2 item 1c); use auto, cull or xla")
     raise ValueError(f"unknown tpu.topk_impl {impl!r}")
 
 
-def resolve_fused_attn(cfg, fusible: bool):
-    """``tpu.fused_attn`` -> 'streamrec' (eval kernels) or False (plain)."""
+def resolve_fused_attn(cfg, fusible: bool, eval_mode: bool = True):
+    """``tpu.fused_attn`` -> 'streamrec' (the kernels) or False (plain)."""
     fa = cfg.get_path("tpu.fused_attn", "auto")
     for knob, bad, item in (("int8_eval", True, "10"),
                             ("query_fold", True, "9")):
@@ -273,20 +280,36 @@ def resolve_fused_attn(cfg, fusible: bool):
         raise NotImplementedError(
             f"tpu.fused_attn: {fa!r} names kernels not ported yet "
             "(ROADMAP.md Queue 2 items 7-8); use auto, streamrec or false")
-    if fa == "streamrec" and not bool(cfg.get_path("tpu.eval_fused", True)):
+    if (fa == "streamrec" and eval_mode
+            and not bool(cfg.get_path("tpu.eval_fused", True))):
         raise NotImplementedError(
-            "tpu.eval_fused: false selects the two training stream kernels "
-            "for eval (ROADMAP.md Queue 2 items 3-4)")
+            "tpu.eval_fused: false (the two training stream kernels at eval) "
+            "is not wired yet (ROADMAP.md Queue 2 item 4b)")
     return fa
 
 
-def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy):
-    """Eval-mode selection + attention + fusion.
+def _check_train_knobs(cfg) -> None:
+    e = cfg.models.attn.embed
+    if any(float(e[n].dropout_ff) > 0 for n in ("key", "query", "value")):
+        raise NotImplementedError(
+            "embedder dropout (dropout_ff > 0) in training is ROADMAP.md "
+            "Queue 1 item 6")
+    if bool(cfg.get_path("tpu.int8_train", False)):
+        raise NotImplementedError(
+            "tpu.int8_train: true names int8 training walks not ported yet "
+            "(ROADMAP.md Queue 2 item 11)")
+
+
+def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
+            exact_select: bool = True):
+    """Selection + attention + fusion.
 
     rays_o (N, 3), rays_d (N, H, W, 3) on the parameters' device ->
     fused (N, H, W, C) fp32, attn (N, H, W, K+1) fp32 (background token
-    last) and the selection indices (N, H, W, K). Selection pins the exact
-    candidate prefilter ('packsort' by default) like the JAX eval path."""
+    last) and the selection indices (N, H, W, K). ``exact_select`` (eval)
+    pins the exact candidate prefilter ('packsort' by default) and the
+    one-shot eval attention; training (False) takes ``tpu.cull_prefilter``
+    and the differentiable key / value streams."""
     meta = model_meta(cfg)
     _check_single_device(cfg)
     N, H, W, _ = rays_d.shape
@@ -308,15 +331,18 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy):
             from ..ops.tile_cull import select_topk_culled
             M = int(cfg.get_path("tpu.cull_candidates", 2048))
             blk = int(cfg.get_path("tpu.cull_block", 16))
-            pf = str(cfg.get_path("tpu.cull_prefilter_eval", "packsort"))
-            eblk = int(cfg.get_path("tpu.cull_block_eval", 0)) or blk
-            me = cfg.get_path("tpu.cull_candidates_eval", "auto")
-            M = int(me) if me != "auto" else \
-                M * max((eblk * eblk) // (blk * blk), 1)
+            pf = str(cfg.get_path("tpu.cull_prefilter", "approx"))
+            if exact_select:
+                pf = str(cfg.get_path("tpu.cull_prefilter_eval", "packsort"))
+                eblk = int(cfg.get_path("tpu.cull_block_eval", 0)) or blk
+                me = cfg.get_path("tpu.cull_candidates_eval", "auto")
+                M = int(me) if me != "auto" else \
+                    M * max((eblk * eblk) // (blk * blk), 1)
+                blk = eblk
             ee = bool(cfg.get_path("tpu.cull_early_exit", True))
             idx = torch.stack([select_topk_culled(
                 points, alive, rays_o[i], rds[i].reshape(H, W, 3), k, M=M,
-                block=eblk, eps=eps, prefilter=pf, early_exit=ee)
+                block=blk, eps=eps, prefilter=pf, early_exit=ee)
                 for i in range(N)])
         else:
             chunk = int(cfg.get_path("tpu.ray_chunk", 4096))
@@ -330,9 +356,10 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy):
                and score_fusible(cfg.models.attn)
                and all(feedforward_fusible(c)
                        for c in (e.key, e.query, e.value)))
-    if resolve_fused_attn(cfg, fusible) == "streamrec":
-        fused_f, attn = _attend_eval_kernels(params, cfg, meta, idx, rays_o,
-                                             rays_d, alive, eps, policy)
+    if resolve_fused_attn(cfg, fusible, exact_select) == "streamrec":
+        run = _attend_eval_kernels if exact_select else _attend_train_kernels
+        fused_f, attn = run(params, cfg, meta, idx, rays_o, rays_d, alive,
+                            eps, policy)
         return fused_f, attn, idx
 
     # Plain unfused path (papr.py:425-474), the parity oracle.
@@ -345,7 +372,9 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy):
     sel_alive = rec[..., 4] > 0.5
     proj, perp, _, _ = point_ray_geometry(
         selected, rays_o[:, None, None, :], rays_d, eps)
-    k_feats = [selected, proj, perp]
+    # Positions are detached in the key stream (reference
+    # models/model.py:403); proj / perp keep their gradient to the points.
+    k_feats = [selected.detach(), proj, perp]
     q_feats = [rays_d[..., None, :]]
     v_feats = [proj, perp]
     k_extra = q_extra = v_extra = None
@@ -369,20 +398,17 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy):
     return fused_f, attn, idx
 
 
-def _attend_eval_kernels(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
-                         policy):
-    """The eval branch of ``_attend_kmaj`` (papr.py:524-682): the fused query
-    embedder for ``eq``, ``w_q`` as a plain matmul, then the one-shot eval
-    attention reading the point record by index."""
+def _kernel_inputs(params, cfg, meta, rays_o, rays_d, alive, eps, policy):
+    """Shared head of the fused paths (papr.py:558-635): the point record,
+    the flat ray origins / normalized directions, ``qq`` through the fused
+    query embedder and ``w_q`` (a plain matmul), and the key / value walks."""
     from ..ops.fused_mlp import fused_embedder_apply, walk_from_params
-    from ..ops.stream_attn import attend_eval_idx, rec_pe_plan
+    from ..ops.stream_attn import rec_pe_plan
 
     N, H, W, _ = rays_d.shape
-    k = idx.shape[-1]
     T = N * H * W
     pcf = cfg.geoms.point_feats
-    attn_cfg = cfg.models.attn
-    e = attn_cfg.embed
+    e = cfg.models.attn.embed
     record = _point_record(params, alive, meta, pcf)
     rayd_flat = rays_d.reshape(T, 3)
     rayo_flat = rays_o[:, None, :].expand(N, H * W, 3).reshape(T, 3)
@@ -402,6 +428,49 @@ def _attend_eval_kernels(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
                              plan(True, e.k_L, pcf.use_ink))
     vwalk = walk_from_params(params["attn"]["embed_v"], e.value,
                              plan(False, e.v_L, pcf.use_inv))
+    return record, rayo_flat.contiguous(), rays, qq, kwalk, vwalk
+
+
+def _attend_train_kernels(params, cfg, meta, idx, rays_o, rays_d, alive,
+                          eps, policy):
+    """The training branch of ``_attend_kmaj`` with ``streamrec``
+    (papr.py:705-713, 763-769): the k-major record gather (its gradient
+    reaches points, influence scores and point features through autograd),
+    the key stream, then the value stream on its attention. Autograd runs
+    the backward value -> dattn -> key -> dqq -> w_q -> query embedder."""
+    from ..ops.stream_attn import key_stream_scores_rec, value_stream_fuse_rec
+
+    N, H, W, _ = rays_d.shape
+    k = idx.shape[-1]
+    T = N * H * W
+    attn_cfg = cfg.models.attn
+    record, rayo_flat, rays, qq, kwalk, vwalk = _kernel_inputs(
+        params, cfg, meta, rays_o, rays_d, alive, eps, policy)
+    rec = record[idx.reshape(T, k).T.long()]                 # (K, T, 128n)
+    cdt = policy.compute_dtype
+    attn = key_stream_scores_rec(
+        rec, rayo_flat, rays, qq, kwalk, params["attn"]["w_k"]["w"],
+        params["attn"]["w_k"]["bias"], attn_cfg.score_act,
+        float(cfg.geoms.background.constant), eps, cdt)
+    fused_f = value_stream_fuse_rec(rec, rayo_flat, rays, attn, vwalk,
+                                    bool(cfg.models.normalize_topk_attn), eps,
+                                    cdt)
+    return fused_f.reshape(N, H, W, -1), attn.reshape(N, H, W, k + 1)
+
+
+def _attend_eval_kernels(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
+                         policy):
+    """The eval branch of ``_attend_kmaj`` (papr.py:524-682): the fused query
+    embedder for ``eq``, ``w_q`` as a plain matmul, then the one-shot eval
+    attention reading the point record by index."""
+    from ..ops.stream_attn import attend_eval_idx
+
+    N, H, W, _ = rays_d.shape
+    k = idx.shape[-1]
+    T = N * H * W
+    attn_cfg = cfg.models.attn
+    record, rayo_flat, rays, qq, kwalk, vwalk = _kernel_inputs(
+        params, cfg, meta, rays_o, rays_d, alive, eps, policy)
     fused_f, attn = attend_eval_idx(
         record, idx.reshape(T, k), rayo_flat, rays, qq, kwalk,
         params["attn"]["w_k"]["w"], params["attn"]["w_k"]["bias"], vwalk,
@@ -443,6 +512,37 @@ def render_foreground(params: dict, cfg, fused: torch.Tensor, gamma=None,
                         a=m.act_a, b=m.act_b,
                         skip_layers=tuple(m.skip_layers), policy=policy)
     return out.float()
+
+
+def mapping_apply(params: dict, cfg, shading_code: torch.Tensor,
+                  policy: Policy = F32):
+    """Shading code -> (gamma, beta) FiLM pair (reference models/mlp.py:62-78
+    and models/model.py:495-499)."""
+    mm = cfg.exposure_control.mapping_mlp
+    affine = mlp_apply(params["mapping_mlp"], shading_code.float(),
+                       act_type=mm.act, last_act_type=mm.last_act,
+                       policy=policy)
+    half = affine.shape[-1] // 2
+    return affine[..., :half], affine[..., half:]
+
+
+def forward(params: dict, state: dict, cfg, rays_o, rays_d, c2w=None,
+            shading_code=None, policy: Policy = F32) -> torch.Tensor:
+    """Full training forward -> RGB (N, H, W, 3) fp32, differentiable in
+    the parameters (reference models/model.py:494-560)."""
+    _check_train_knobs(cfg)
+    meta = model_meta(cfg)
+    gamma = beta = None
+    if shading_code is not None and meta.use_mapping_mlp:
+        gamma, beta = mapping_apply(params, cfg, shading_code, policy)
+    fused, attn, _ = _attend(params, state, cfg, rays_o, rays_d, policy,
+                             exact_select=False)
+    bkg_attn = attn[..., -1:]
+    if meta.use_renderer:
+        foreground = render_foreground(params, cfg, fused, gamma, beta, policy)
+    else:
+        foreground = fused
+    return composite_background(cfg, params, foreground, bkg_attn)
 
 
 def evaluate(params: dict, state: dict, cfg, rays_o, rays_d,

@@ -1,10 +1,13 @@
 """Fused embedder: posenc -> [LayerNorm] -> dense stack -> [LayerNorm]
-(``papr_tpu/ops/fused_mlp.py``, forward only).
+(``papr_tpu/ops/fused_mlp.py``), forward and backward.
 
 ``fused_mlp`` is the wrapper of the CUDA kernel in ``csrc/fused_mlp.cu``
-(the port of the Pallas ``_fwd_kernel``); ``fused_mlp_plain`` is the same
-function in plain PyTorch. A CPU tensor takes the plain version; a CUDA
-tensor takes the kernel or raises.
+(the port of the Pallas ``_fwd_kernel``); ``fused_mlp_bwd`` wraps the
+backward (``csrc/fused_mlp_bwd.cu`` + the dW reduction in ``csrc/wgrad.cu``,
+the port of ``_bwd_kernel``); ``fused_mlp_plain`` / ``fused_mlp_bwd_plain``
+are the same functions in plain PyTorch, and ``fused_mlp_apply`` joins the
+two directions in an autograd ``Function``. A CPU tensor takes the plain
+version; a CUDA tensor takes the kernel or raises.
 
 Numerics follow the TPU kernel's walk (``walk_body_fwd``): the posenc is
 computed in fp32 from the raw features; the input LayerNorm runs on the fp32
@@ -120,21 +123,22 @@ def walk_plain(enc: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
     return z
 
 
-_pack_cache: dict = {}
+@functools.lru_cache(maxsize=64)
+def _plan_rows(cols, pd0: int, device) -> torch.Tensor:
+    """The posenc plan as 3 fp32 rows of pd0 (source, frequency, kind)."""
+    plan = torch.zeros(3, pd0, dtype=torch.float32)
+    plan[:, :len(cols)] = torch.tensor(cols, dtype=torch.float32).T
+    return plan.reshape(-1).to(device)
 
 
 def pack_walk(walk: Walk, d_enc: int, device) -> tuple:
     """Kernel layout of a walk: widths padded to 16, all weights in one bf16
     buffer and biases in one fp32 buffer (zero padding), the LayerNorm
     tables, the posenc plan rows, and the int meta row ``csrc/walk.cuh``
-    reads. Cached on the parameters' identity and version."""
-    tensors = list(walk.ws) + list(walk.bs) + [
-        t for ln in (walk.ln_in, walk.ln_out) if ln is not None for t in ln]
-    key = (tuple((t.data_ptr(), t._version, tuple(t.shape)) for t in tensors),
-           walk.cols, walk.act, walk.last_act, d_enc, str(device))
-    hit = _pack_cache.get(key)
-    if hit is not None:
-        return hit
+    reads. Packed on every call (a few small copies): training rewrites the
+    weights in place every step, which no cache key on the tensors' address
+    and version can see (a write through ``.data`` leaves ``_version``
+    alone)."""
     n = len(walk.ws)
     dims = [d_enc] + [int(w.shape[1]) for w in walk.ws]
     pd = [round_up(d, _ALIGN) for d in dims]
@@ -157,17 +161,134 @@ def pack_walk(walk: Walk, d_enc: int, device) -> tuple:
             ln[base:base + d] = ab[0].to(device=device, dtype=torch.float32)
             ln[base + width:base + width + d] = ab[1].to(
                 device=device, dtype=torch.float32)
-    plan = torch.zeros(3, pd[0], dtype=torch.float32)
-    plan[:, :len(walk.cols)] = torch.tensor(walk.cols, dtype=torch.float32).T
     meta = ([n, d_enc, dims[-1], _ACT_CODES[walk.act],
              _ACT_CODES[walk.last_act], int(walk.ln_in is not None),
              int(walk.ln_out is not None)] + pd + w_off + b_off)
-    packed = (meta, torch.cat(wparts), torch.cat(bparts), ln,
-              plan.reshape(-1).to(device), pd)
-    if len(_pack_cache) > 16:
-        _pack_cache.clear()
-    _pack_cache[key] = packed
-    return packed
+    return (meta, torch.cat(wparts), torch.cat(bparts), ln,
+            _plan_rows(walk.cols, pd[0], torch.device(device)), pd)
+
+
+def pack_walk_t(walk: Walk, pd, device) -> torch.Tensor:
+    """The transposed weights W_i^T, each zero-padded to (pd[i+1], pd[i])
+    and laid out at the same offsets as ``pack_walk``'s weights: the reverse
+    walk's dX = dz @ W^T runs through the forward's dense layer on them."""
+    parts = []
+    for i, w in enumerate(walk.ws):
+        wt = torch.zeros(pd[i + 1], pd[i], dtype=torch.bfloat16, device=device)
+        wt[:w.shape[1], :w.shape[0]] = w.T.to(device=device,
+                                              dtype=torch.bfloat16)
+        parts.append(wt.reshape(-1))
+    return torch.cat(parts)
+
+
+def source_segments(cols, nsrc: int, device) -> torch.Tensor:
+    """int32 [start_0..start_{nsrc-1}, end_0..end_{nsrc-1}]: the encoded
+    columns of each raw source, contiguous in the posenc layout (the
+    backward kernels sum a source's gradient over its segment)."""
+    start, end = [0] * nsrc, [0] * nsrc
+    for c, (src, _, _) in enumerate(cols):
+        src = int(src)
+        if end[src] == 0:
+            start[src] = c
+        elif end[src] != c:
+            raise ValueError(f"posenc source {src} is not contiguous")
+        end[src] = c + 1
+    return torch.tensor(start + end, dtype=torch.int32, device=device)
+
+
+def walk_tensors(walk: Walk) -> list:
+    """The walk's parameter tensors: weights, biases, then the LayerNorms'
+    (a, b) pairs that exist."""
+    return (list(walk.ws) + list(walk.bs)
+            + [t for ln in (walk.ln_in, walk.ln_out) if ln is not None
+               for t in ln])
+
+
+def walk_with(walk: Walk, tensors) -> Walk:
+    """``walk`` with its parameter tensors replaced (``walk_tensors`` order)."""
+    n = len(walk.ws)
+    rest = list(tensors[2 * n:])
+    ln_in = ln_out = None
+    if walk.ln_in is not None:
+        ln_in, rest = (rest[0], rest[1]), rest[2:]
+    if walk.ln_out is not None:
+        ln_out = (rest[0], rest[1])
+    return walk._replace(ws=tuple(tensors[:n]), bs=tuple(tensors[n:2 * n]),
+                         ln_in=ln_in, ln_out=ln_out)
+
+
+class BwdBuffers:
+    """Device buffers of one walk backward launch (``csrc/walk_bwd.cuh``):
+    the bf16 stash (one (N, width) matrix per layer input and per layer
+    output gradient, plus a caller's head layer), the per-block partial-sum
+    rows (biases, LayerNorms, then ``extra`` columns) and the per-block fp32
+    scratch. ``reduce`` runs the wgrad / colsum kernels afterwards."""
+
+    def __init__(self, pd, N: int, nblk: int, device, head=None,
+                 extra: int = 0):
+        self.pd, self.N, self.nblk, self.dev = list(pd), N, nblk, device
+        n = len(pd) - 1
+        self.hs_w = self.pd[:n] + ([head[0]] if head else [])
+        self.dz_w = self.pd[1:] + ([head[1]] if head else [])
+        offs, o = [], 0
+        for w in self.hs_w + self.dz_w:
+            offs.append(o)
+            o += N * w
+        self.offs = offs
+        self.stash = torch.empty(o, dtype=torch.bfloat16, device=device)
+        self.off_arg = (ctypes.c_longlong * len(offs))(*offs)
+        self.bias_len = sum(self.pd[1:])
+        self.extra_off = self.bias_len + 2 * self.pd[0] + 2 * self.pd[-1]
+        self.part_w = self.extra_off + extra
+        self.part = torch.zeros(nblk, self.part_w, dtype=torch.float32,
+                                device=device)
+        self.scratch = torch.empty(nblk * 64 * (self.pd[0] + self.pd[-1]),
+                                   dtype=torch.float32, device=device)
+
+    def reduce(self, lib, stream):
+        """-> (dW per stashed layer as (hs width, dz width) fp32, the
+        reduced partial row)."""
+        from ..kernels import build
+        m = len(self.hs_w)
+        base = self.stash.data_ptr()
+        dws = []
+        for i in range(m):
+            da, db = self.hs_w[i], self.dz_w[i]
+            tiles = -(-da // 64) * -(-db // 64)
+            # Enough token ranges for ~2 blocks per SM (132 SMs on an H100),
+            # each range at least 256 tokens.
+            splits = max(1, min(-(-264 // tiles), -(-self.N // 256)))
+            tmp = torch.empty(splits * da * db, dtype=torch.float32,
+                              device=self.dev)
+            out = torch.empty(da, db, dtype=torch.float32, device=self.dev)
+            build.check(lib.papr_wgrad(base + 2 * self.offs[i],
+                                       base + 2 * self.offs[m + i], self.N,
+                                       da, db, splits, tmp.data_ptr(),
+                                       out.data_ptr(), stream), "papr_wgrad")
+            dws.append(out)
+        psum = torch.empty(self.part_w, dtype=torch.float32, device=self.dev)
+        build.check(lib.papr_colsum(self.part.data_ptr(), self.nblk,
+                                    self.part_w, psum.data_ptr(), stream),
+                    "papr_colsum")
+        return dws, psum
+
+    def walk_grads(self, walk: Walk, dws, psum) -> list:
+        """Gradients in ``walk_tensors`` order from the reduced buffers."""
+        pd, n = self.pd, len(walk.ws)
+        dims = [int(walk.ws[0].shape[0])] + [int(w.shape[1]) for w in walk.ws]
+        out = [dws[i][:dims[i], :dims[i + 1]] for i in range(n)]
+        o = 0
+        for i in range(n):
+            out.append(psum[o:o + dims[i + 1]])
+            o += pd[i + 1]
+        L = self.bias_len
+        if walk.ln_in is not None:
+            out += [psum[L:L + dims[0]], psum[L + pd[0]:L + pd[0] + dims[0]]]
+        if walk.ln_out is not None:
+            lo = L + 2 * pd[0]
+            out += [psum[lo:lo + dims[-1]],
+                    psum[lo + pd[-1]:lo + pd[-1] + dims[-1]]]
+        return out
 
 
 def c_ints(vals) -> ctypes.Array:
@@ -233,6 +354,94 @@ def fused_mlp(x: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
 fused_mlp.launches = 0
 
 
+def fused_mlp_bwd_plain(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
+                        cdt: torch.dtype):
+    """Plain PyTorch version of the embedder backward: the plain forward
+    recomputed under autograd. Returns (dx, [grads in walk_tensors
+    order])."""
+    fused_mlp_bwd_plain.calls += 1
+    leaves = [t.detach().requires_grad_(True)
+              for t in [x.float()] + walk_tensors(walk)]
+    with torch.enable_grad():
+        y = walk_plain(encode_plain(leaves[0], walk.cols),
+                       walk_with(walk, leaves[1:]), cdt).to(cdt)
+        grads = torch.autograd.grad(y, leaves, dy.to(y.dtype),
+                                    allow_unused=True)
+    grads = [torch.zeros_like(l) if g is None else g
+             for g, l in zip(grads, leaves)]
+    return grads[0], grads[1:]
+
+
+fused_mlp_bwd_plain.calls = 0
+
+
+def fused_mlp_bwd(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
+                  cdt: torch.dtype):
+    """Embedder backward, (R, d_raw) raw features and (R, d_out) output
+    gradient -> (dx fp32, [dW, db, dLN in walk_tensors order] fp32): the
+    CUDA kernels (``csrc/fused_mlp_bwd.cu`` + ``csrc/wgrad.cu``) for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if not x.is_cuda:
+        return fused_mlp_bwd_plain(x, dy, walk, cdt)
+    from ..kernels import build
+
+    check_walk_for_kernel(walk, cdt, "fused_mlp backward")
+    x = x.float().contiguous()
+    R, d_raw = x.shape
+    d_out = int(walk.ws[-1].shape[1])
+    if tuple(dy.shape) != (R, d_out) or not dy.is_cuda:
+        raise ValueError(f"dy: want ({R}, {d_out}) on the card, got "
+                         f"{tuple(dy.shape)} {dy.device}")
+    dy = dy.float().contiguous()
+    dev = x.device
+    meta, w_all, b_all, ln, plan, pd = pack_walk(walk, len(walk.cols), dev)
+    wt_all = pack_walk_t(walk, pd, dev)
+    seg = source_segments(walk.cols, d_raw, dev)
+    nblk = -(-R // 64)
+    buf = BwdBuffers(pd, nblk * 64, nblk, dev)
+    dx = torch.empty(R, d_raw, dtype=torch.float32, device=dev)
+    lib = build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.papr_fused_mlp_bwd(
+        x.data_ptr(), R, d_raw, dy.data_ptr(),
+        ctypes.cast(c_ints(meta), ctypes.c_void_p), w_all.data_ptr(),
+        b_all.data_ptr(), ln.data_ptr(), plan.data_ptr(), wt_all.data_ptr(),
+        buf.stash.data_ptr(), ctypes.cast(buf.off_arg, ctypes.c_void_p),
+        seg.data_ptr(), dx.data_ptr(), buf.part.data_ptr(), buf.part_w,
+        buf.scratch.data_ptr(), stream)
+    build.check(rc, "papr_fused_mlp_bwd")
+    dws, psum = buf.reduce(lib, stream)
+    fused_mlp_bwd.launches += 1
+    return dx, buf.walk_grads(walk, dws, psum)
+
+
+fused_mlp_bwd.launches = 0
+
+
+class FusedMLP(torch.autograd.Function):
+    """The fused embedder with its backward: forward ``fused_mlp``, backward
+    ``fused_mlp_bwd`` (kernels for CUDA tensors, plain versions for CPU
+    tensors). Returns dx, and dW / db / dLN for the walk's tensors."""
+
+    @staticmethod
+    def forward(ctx, walk, cdt, x, *tensors):
+        ctx.walk, ctx.cdt = walk, cdt
+        ctx.save_for_backward(x, *tensors)
+        return fused_mlp(x, walk_with(walk, tensors), cdt)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *tensors = ctx.saved_tensors
+        dx, grads = fused_mlp_bwd(x, dy, walk_with(ctx.walk, tensors),
+                                  ctx.cdt)
+        return (None, None, dx.to(x.dtype), *grads)
+
+
+def fused_mlp_apply(x: torch.Tensor, walk: Walk, cdt: torch.dtype):
+    """Differentiable fused embedder (R, d_raw) -> (R, d_out) in ``cdt``."""
+    return FusedMLP.apply(walk, cdt, x, *walk_tensors(walk))
+
+
 # ----------------------------------------------------------- integration ----
 
 def feedforward_fusible(ff_cfg) -> bool:
@@ -282,7 +491,7 @@ def fused_embedder_apply(params, raw_features, extras, Ls, embed_cfg, ff_cfg,
     parts = list(raw_features) + (list(extras) if extras else [])
     x = torch.cat([p.float() for p in parts], dim=-1)
     lead = x.shape[:-1]
-    y = fused_mlp(x.reshape(-1, x.shape[-1]),
-                  walk_from_params(params, ff_cfg, cols),
-                  policy.compute_dtype)
+    y = fused_mlp_apply(x.reshape(-1, x.shape[-1]),
+                        walk_from_params(params, ff_cfg, cols),
+                        policy.compute_dtype)
     return y.reshape(*lead, y.shape[-1])

@@ -1,11 +1,14 @@
-"""One-shot eval attention (``papr_tpu/ops/stream_attn.py::attend_stream_eval``).
+"""Streamed attention (``papr_tpu/ops/stream_attn.py``): the one-shot eval
+attention of the render path, and the training key / value streams with
+their backwards (see the "training streams" section below).
 
-From the gathered point records to (fused features, attention) in one
-kernel: per (ray, k) the point-ray geometry, the key posenc and walk, the
-``w_k`` projection, the scaled dot with the ray's query ``qq``,
-``score_act`` x influence with the alive mask; the value posenc (geometry +
-point features) and walk; a background-seeded online softmax and the
-renormalized fuse. Forward only: the render path never differentiates.
+Eval, ``attend_stream_eval``: from the gathered point records to (fused
+features, attention) in one kernel: per (ray, k) the point-ray geometry,
+the key posenc and walk, the ``w_k`` projection, the scaled dot with the
+ray's query ``qq``, ``score_act`` x influence with the alive mask; the value
+posenc (geometry + point features) and walk; a background-seeded online
+softmax and the renormalized fuse. Forward only: rendering never
+differentiates.
 
 ``attend_eval_idx`` is the wrapper of the CUDA kernel in
 ``csrc/attend_eval.cu``; it reads record rows by index from the (P, 128)
@@ -30,8 +33,9 @@ import math
 
 import torch
 
-from .fused_mlp import (Walk, c_ints, check_walk_for_kernel, encode_plain,
-                        pack_walk, round_up, walk_plain)
+from .fused_mlp import (BwdBuffers, Walk, c_ints, check_walk_for_kernel,
+                        encode_plain, pack_walk, pack_walk_t, round_up,
+                        source_segments, walk_plain, walk_tensors, walk_with)
 
 NEG_BIG = -1e30
 REC_POS, REC_INFLU, REC_ALIVE, REC_FEATS = 0, 3, 4, 5
@@ -190,3 +194,422 @@ def attend_stream_eval(rec, rayo, rays, qq, kwalk: Walk, wk, bk, vwalk: Walk,
     return attend_eval_idx(rec.reshape(K * T, rp), idx, rayo, rays, qq,
                            kwalk, wk, bk, vwalk, score_act, bkg_score,
                            normalize, eps, cdt)
+
+
+# ------------------------------------------------------- training streams ----
+#
+# The rec-native key and value streams of the training path
+# (``key_stream_scores_rec`` / ``value_stream_fuse_rec``), forward and
+# backward. The record is read pre-gathered k-major, rec (K, T, rp), as the
+# JAX kernels read it: d_rec comes out as a plain (K, T, rp) tensor and
+# autograd scatter-adds it into the (P, rp) point record through the gather.
+# Each direction has a CUDA kernel (``csrc/key_stream.cu``,
+# ``csrc/value_stream.cu``, weight gradients through ``csrc/wgrad.cu``) and a
+# plain version; a backward's plain version is the plain forward recomputed
+# under autograd, independent of the kernels' hand derivation.
+
+def _geometry_km(rec, rayo, rays, eps):
+    """point_ray_geometry on (K, T, 3) selections against (T, 3) rays."""
+    sel = rec[..., :3]
+    v = sel - rayo
+    t_al = (v * rays).sum(-1, keepdim=True)
+    dd = (rays * rays).sum(-1, keepdim=True)
+    proj = rays * (t_al / (dd + eps))
+    return sel, proj, v - proj
+
+
+def _walk_rec(rec, rayo, rays, walk: Walk, eps, cdt, detach_pos: bool):
+    """Geometry + posenc + walk over every (k, t) token -> (K, T, d_out)
+    fp32. ``detach_pos`` detaches the position FEATURE (the key stream's
+    reference detach); proj / perp keep their gradient to the positions."""
+    K, T, rp = rec.shape
+    sel, proj, perp = _geometry_km(rec, rayo, rays, eps)
+    raw_in = torch.cat([sel.detach() if detach_pos else sel, proj, perp,
+                        rec[..., REC_FEATS:]], dim=-1)
+    y = walk_plain(encode_plain(raw_in.reshape(K * T, -1), walk.cols), walk,
+                   cdt)
+    return y.reshape(K, T, -1)
+
+
+def _key_math(rec, rayo, rays, qq, kwalk, wk, bk, score_act, bkg_score, eps,
+              cdt, relu_on=None):
+    _check_score_act(score_act)
+    dm = wk.shape[0]
+    y = _walk_rec(rec, rayo, rays, kwalk, eps, cdt, detach_pos=True)
+    kk = (y.to(cdt).float() @ wk.to(cdt).float().T).to(cdt)
+    kk = (kk + bk.to(cdt)).float()                            # (K, T, dm)
+    raw = ((qq.float()[None] * kk).sum(-1) / math.sqrt(dm)).T  # (T, K)
+    if score_act != "relu":
+        sact = raw
+    elif relu_on is None:
+        sact = torch.clamp_min(raw, 0.0)
+    else:
+        sact = raw * relu_on
+    alive = (rec[..., REC_ALIVE] > 0.5).T
+    ss = torch.where(alive, sact * rec[..., REC_INFLU].T, NEG_BIG)
+    m = torch.clamp_min(ss.amax(dim=1, keepdim=True), bkg_score)
+    e = torch.exp(ss - m)
+    eb = torch.exp(bkg_score - m)
+    z = e.sum(dim=1, keepdim=True) + eb
+    return torch.cat([e / z, eb / z], dim=1), raw, ss
+
+
+def key_stream_plain(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
+                     score_act="relu", bkg_score=5.0, eps=1e-6,
+                     cdt=torch.float32, relu_on=None):
+    """Plain PyTorch version of the key stream forward. rec (K, T, rp),
+    rayo / rays (T, 3), qq (T, dm) fp32 -> attn (T, K+1), raw dots (T, K),
+    masked scores ss (T, K), all fp32.
+
+    ``relu_on`` (T, K) bool, optional: the score relu's on-pattern to apply
+    instead of ``raw > 0``. Given the kernel forward's ``raw > 0``, the
+    plain version computes the same piecewise-linear function as the kernel
+    and its backward, which reads the saved raw: a dot near 0 whose sign
+    the two bf16 forwards round differently then no longer switches a
+    gradient path on in one and off in the other."""
+    key_stream_plain.calls += 1
+    return _key_math(rec, rayo, rays, qq, kwalk, wk, bk, score_act,
+                     bkg_score, eps, cdt, relu_on)
+
+
+key_stream_plain.calls = 0
+
+
+def _grads_of(fn, tensors, cotangent):
+    """Gradients of fn(*leaves) against ``cotangent`` for fresh leaves made
+    from ``tensors`` (zeros where a tensor does not reach the output)."""
+    leaves = [t.detach().requires_grad_(True) for t in tensors]
+    with torch.enable_grad():
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, cotangent, allow_unused=True)
+    return [torch.zeros_like(l) if g is None else g
+            for g, l in zip(grads, leaves)]
+
+
+def key_stream_bwd_plain(rec, rayo, rays, qq, kwalk: Walk, wk, bk, dattn,
+                         score_act="relu", bkg_score=5.0, eps=1e-6,
+                         cdt=torch.float32, relu_on=None):
+    """Plain version of the key stream backward -> [d_rec, d_rayo, d_rays,
+    dqq, dwk, dbk, walk grads (walk_tensors order)]; ``relu_on`` as in
+    ``key_stream_plain``."""
+    key_stream_bwd_plain.calls += 1
+    fn = lambda r, o, d, q, w, b, *wt: _key_math(
+        r, o, d, q, walk_with(kwalk, wt), w, b, score_act, bkg_score, eps,
+        cdt, relu_on)[0]
+    return _grads_of(fn, [rec, rayo, rays, qq, wk, bk] + walk_tensors(kwalk),
+                     dattn)
+
+
+key_stream_bwd_plain.calls = 0
+
+
+def _check_rec_args(rec, rayo, rays, walks, what):
+    K, T, rp = rec.shape
+    for name, t in (("rec", rec), ("rayo", rayo), ("rays", rays)):
+        if t.dtype != torch.float32 or not t.is_cuda:
+            raise ValueError(f"{what}: {name} must be float32 on the card")
+    if tuple(rayo.shape) != (T, 3) or tuple(rays.shape) != (T, 3):
+        raise ValueError(f"{what}: rayo / rays must be ({T}, 3)")
+    if K > 64:
+        raise NotImplementedError(f"{what}: K <= 64 (got {K})")
+    need = max(c[0] for w in walks for c in w.cols) - N_GEO
+    if REC_FEATS + need >= rp:
+        raise ValueError(f"{what}: posenc plan reads past the record width")
+
+
+def _nsrc(walk: Walk) -> int:
+    return max(N_GEO, max(int(c[0]) for c in walk.cols) + 1)
+
+
+def _wk_packs(wk, bk, pdn, dev):
+    """w_k as the forward's (pd_out, dm_pad) and the backward's
+    (dm_pad, pd_out) input-major bf16 layouts, and the padded fp32 bias."""
+    dm, d_out = wk.shape
+    dm_pad = round_up(dm, 16)
+    wkf = torch.zeros(pdn, dm_pad, dtype=torch.bfloat16, device=dev)
+    wkf[:d_out, :dm] = wk.T.to(device=dev, dtype=torch.bfloat16)
+    wkb = torch.zeros(dm_pad, pdn, dtype=torch.bfloat16, device=dev)
+    wkb[:dm, :d_out] = wk.to(device=dev, dtype=torch.bfloat16)
+    bkp = torch.zeros(dm_pad, dtype=torch.float32, device=dev)
+    bkp[:dm] = bk.to(device=dev, dtype=torch.float32)
+    return wkf, wkb, bkp, dm_pad
+
+
+def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
+                   score_act="relu", bkg_score=5.0, eps=1e-6,
+                   cdt=torch.float32):
+    """Key stream forward -> (attn (T, K+1), raw (T, K), ss (T, K)): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not rec.is_cuda:
+        return key_stream_plain(rec, rayo, rays, qq, kwalk, wk, bk,
+                                score_act, bkg_score, eps, cdt)
+    from ..kernels import build
+
+    _check_score_act(score_act)
+    check_walk_for_kernel(kwalk, cdt, "key stream")
+    _check_rec_args(rec, rayo, rays, (kwalk,), "key stream")
+    K, T, rp = rec.shape
+    dm = int(wk.shape[0])
+    if tuple(qq.shape) != (T, dm) or dm > 256:
+        raise ValueError(f"key stream: qq want ({T}, {dm}), d_model <= 256")
+    dev = rec.device
+    rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
+    qq = qq.float().contiguous()
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
+    wkf, _, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
+    attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
+    raw = torch.empty(T, K, dtype=torch.float32, device=dev)
+    ss = torch.empty(T, K, dtype=torch.float32, device=dev)
+    rc = build.load().papr_key_stream_fwd(
+        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+        qq.data_ptr(), dm, float(math.sqrt(dm)),
+        ctypes.cast(c_ints(kmeta), ctypes.c_void_p), kw.data_ptr(),
+        kb.data_ptr(), kln.data_ptr(), kplan.data_ptr(), wkf.data_ptr(),
+        bkp.data_ptr(), dm_pad, int(score_act == "relu"), float(bkg_score),
+        float(eps), attn.data_ptr(), raw.data_ptr(), ss.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "papr_key_stream_fwd")
+    key_stream_fwd.launches += 1
+    return attn, raw, ss
+
+
+key_stream_fwd.launches = 0
+
+
+def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
+                   score_act="relu", bkg_score=5.0, eps=1e-6,
+                   cdt=torch.float32):
+    """Key stream backward -> [d_rec (K, T, rp), d_rayo, d_rays (T, 3),
+    dqq (T, dm), dwk, dbk, walk grads]: the CUDA kernels for CUDA tensors
+    (raw / ss saved by the forward), the plain version for CPU tensors."""
+    if not rec.is_cuda:
+        return key_stream_bwd_plain(rec, rayo, rays, qq, kwalk, wk, bk,
+                                    dattn, score_act, bkg_score, eps, cdt)
+    from ..kernels import build
+
+    _check_score_act(score_act)
+    check_walk_for_kernel(kwalk, cdt, "key stream backward")
+    _check_rec_args(rec, rayo, rays, (kwalk,), "key stream backward")
+    K, T, rp = rec.shape
+    dm = int(wk.shape[0])
+    dev = rec.device
+    rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
+    qq = qq.float().contiguous()
+    raw, ss = raw.contiguous(), ss.contiguous()
+    dattn = dattn.float().contiguous()
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
+    kwt = pack_walk_t(kwalk, kpd, dev)
+    wkf, wkb, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
+    nsrc = _nsrc(kwalk)
+    seg = source_segments(kwalk.cols, nsrc, dev)
+    nblk = -(-T // 64)
+    buf = BwdBuffers(kpd, K * nblk * 64, nblk, dev, head=(kpd[-1], dm_pad),
+                     extra=dm_pad)
+    drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
+    drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
+    drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
+    dqq = torch.zeros(T, dm, dtype=torch.float32, device=dev)
+    lib = build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.papr_key_stream_bwd(
+        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+        qq.data_ptr(), dm, float(math.sqrt(dm)), raw.data_ptr(),
+        ss.data_ptr(), dattn.data_ptr(),
+        ctypes.cast(c_ints(kmeta), ctypes.c_void_p), kw.data_ptr(),
+        kb.data_ptr(), kln.data_ptr(), kplan.data_ptr(), kwt.data_ptr(),
+        wkf.data_ptr(), wkb.data_ptr(), bkp.data_ptr(), dm_pad,
+        int(score_act == "relu"), float(bkg_score), float(eps),
+        buf.stash.data_ptr(), ctypes.cast(buf.off_arg, ctypes.c_void_p),
+        seg.data_ptr(), nsrc, drec.data_ptr(), drayo.data_ptr(),
+        drays.data_ptr(), dqq.data_ptr(), buf.part.data_ptr(), buf.part_w,
+        buf.scratch.data_ptr(), stream)
+    build.check(rc, "papr_key_stream_bwd")
+    dws, psum = buf.reduce(lib, stream)
+    key_stream_bwd.launches += 1
+    d_out = int(wk.shape[1])
+    dwk = dws[-1][:d_out, :dm].T
+    dbk = psum[buf.extra_off:buf.extra_off + dm]
+    return ([drec, drayo, drays, dqq, dwk, dbk]
+            + buf.walk_grads(kwalk, dws, psum))
+
+
+key_stream_bwd.launches = 0
+
+
+class KeyStream(torch.autograd.Function):
+    """``key_stream_scores_rec`` with its backward; saves raw / ss from the
+    forward for the softmax backward, as the JAX kernel does."""
+
+    @staticmethod
+    def forward(ctx, opts, rec, rayo, rays, qq, wk, bk, *tensors):
+        kwalk = walk_with(opts[0], tensors)
+        attn, raw, ss = key_stream_fwd(rec, rayo, rays, qq, kwalk, wk, bk,
+                                       *opts[1:])
+        ctx.opts = opts
+        ctx.save_for_backward(rec, rayo, rays, qq, wk, bk, raw, ss, *tensors)
+        return attn
+
+    @staticmethod
+    def backward(ctx, dattn):
+        rec, rayo, rays, qq, wk, bk, raw, ss, *tensors = ctx.saved_tensors
+        kwalk = walk_with(ctx.opts[0], tensors)
+        return (None, *key_stream_bwd(rec, rayo, rays, qq, kwalk, wk, bk, raw,
+                                      ss, dattn, *ctx.opts[1:]))
+
+
+def key_stream_scores_rec(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
+                          score_act="relu", bkg_score=5.0, eps=1e-6,
+                          cdt=torch.float32):
+    """Differentiable rec-native key stream (JAX ``key_stream_scores_rec``):
+    rec (K, T, rp) gathered k-major, rayo / rays (T, 3) (rays normalized),
+    qq (T, dm) -> attn (T, K+1) fp32, background token last."""
+    return KeyStream.apply((kwalk, score_act, float(bkg_score), float(eps),
+                            cdt), rec, rayo, rays, qq, wk, bk,
+                           *walk_tensors(kwalk))
+
+
+def _value_math(rec, rayo, rays, attn, vwalk, normalize, eps, cdt):
+    K = rec.shape[0]
+    y = _walk_rec(rec, rayo, rays, vwalk, eps, cdt, detach_pos=False)
+    y = y.to(cdt).float()                                     # (K, T, C)
+    w = attn[:, :K]
+    if normalize:
+        s = w.sum(dim=1, keepdim=True)
+        w = w / torch.where(s > 0, s, torch.ones_like(s))
+    return (w.T[..., None] * y).sum(0)
+
+
+def value_stream_plain(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
+                       eps=1e-6, cdt=torch.float32):
+    """Plain PyTorch version of the value stream forward: rec (K, T, rp),
+    attn (T, K+1) -> fused (T, C) fp32."""
+    value_stream_plain.calls += 1
+    return _value_math(rec, rayo, rays, attn, vwalk, normalize, eps, cdt)
+
+
+value_stream_plain.calls = 0
+
+
+def value_stream_bwd_plain(rec, rayo, rays, attn, vwalk: Walk, dfused,
+                           normalize=True, eps=1e-6, cdt=torch.float32):
+    """Plain version of the value stream backward -> [d_rec, d_rayo,
+    d_rays, d_attn, walk grads]."""
+    value_stream_bwd_plain.calls += 1
+    fn = lambda r, o, d, a, *wt: _value_math(
+        r, o, d, a, walk_with(vwalk, wt), normalize, eps, cdt)
+    return _grads_of(fn, [rec, rayo, rays, attn] + walk_tensors(vwalk),
+                     dfused)
+
+
+value_stream_bwd_plain.calls = 0
+
+
+def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
+                     eps=1e-6, cdt=torch.float32):
+    """Value stream forward -> fused (T, C) fp32: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if not rec.is_cuda:
+        return value_stream_plain(rec, rayo, rays, attn, vwalk, normalize,
+                                  eps, cdt)
+    from ..kernels import build
+
+    check_walk_for_kernel(vwalk, cdt, "value stream")
+    _check_rec_args(rec, rayo, rays, (vwalk,), "value stream")
+    K, T, rp = rec.shape
+    if tuple(attn.shape) != (T, K + 1):
+        raise ValueError(f"value stream: attn want ({T}, {K + 1})")
+    dev = rec.device
+    rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
+    attn = attn.float().contiguous()
+    vmeta, vw, vb, vln, vplan, _ = pack_walk(vwalk, len(vwalk.cols), dev)
+    fused = torch.empty(T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32,
+                        device=dev)
+    rc = build.load().papr_value_stream_fwd(
+        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+        attn.data_ptr(), ctypes.cast(c_ints(vmeta), ctypes.c_void_p),
+        vw.data_ptr(), vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(),
+        int(bool(normalize)), float(eps), fused.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "papr_value_stream_fwd")
+    value_stream_fwd.launches += 1
+    return fused
+
+
+value_stream_fwd.launches = 0
+
+
+def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
+                     normalize=True, eps=1e-6, cdt=torch.float32):
+    """Value stream backward -> [d_rec (K, T, rp), d_rayo, d_rays (T, 3),
+    d_attn (T, K+1), walk grads]: the CUDA kernels for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not rec.is_cuda:
+        return value_stream_bwd_plain(rec, rayo, rays, attn, vwalk, dfused,
+                                      normalize, eps, cdt)
+    from ..kernels import build
+
+    check_walk_for_kernel(vwalk, cdt, "value stream backward")
+    _check_rec_args(rec, rayo, rays, (vwalk,), "value stream backward")
+    K, T, rp = rec.shape
+    C = int(vwalk.ws[-1].shape[1])
+    dev = rec.device
+    rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
+    attn = attn.float().contiguous()
+    dfused = dfused.float().contiguous()
+    if tuple(dfused.shape) != (T, C):
+        raise ValueError(f"value stream backward: dfused want ({T}, {C})")
+    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev)
+    vwt = pack_walk_t(vwalk, vpd, dev)
+    nsrc = _nsrc(vwalk)
+    seg = source_segments(vwalk.cols, nsrc, dev)
+    nblk = -(-T // 64)
+    buf = BwdBuffers(vpd, K * nblk * 64, nblk, dev)
+    drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
+    drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
+    drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
+    dattn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
+    lib = build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.papr_value_stream_bwd(
+        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+        attn.data_ptr(), dfused.data_ptr(),
+        ctypes.cast(c_ints(vmeta), ctypes.c_void_p), vw.data_ptr(),
+        vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(), vwt.data_ptr(),
+        int(bool(normalize)), float(eps), buf.stash.data_ptr(),
+        ctypes.cast(buf.off_arg, ctypes.c_void_p), seg.data_ptr(), nsrc,
+        drec.data_ptr(), drayo.data_ptr(), drays.data_ptr(),
+        dattn.data_ptr(), buf.part.data_ptr(), buf.part_w,
+        buf.scratch.data_ptr(), stream)
+    build.check(rc, "papr_value_stream_bwd")
+    dws, psum = buf.reduce(lib, stream)
+    value_stream_bwd.launches += 1
+    return [drec, drayo, drays, dattn] + buf.walk_grads(vwalk, dws, psum)
+
+
+value_stream_bwd.launches = 0
+
+
+class ValueStream(torch.autograd.Function):
+    """``value_stream_fuse_rec`` with its backward."""
+
+    @staticmethod
+    def forward(ctx, opts, rec, rayo, rays, attn, *tensors):
+        ctx.opts = opts
+        ctx.save_for_backward(rec, rayo, rays, attn, *tensors)
+        return value_stream_fwd(rec, rayo, rays, attn,
+                                walk_with(opts[0], tensors), *opts[1:])
+
+    @staticmethod
+    def backward(ctx, dfused):
+        rec, rayo, rays, attn, *tensors = ctx.saved_tensors
+        vwalk = walk_with(ctx.opts[0], tensors)
+        return (None, *value_stream_bwd(rec, rayo, rays, attn, vwalk, dfused,
+                                        *ctx.opts[1:]))
+
+
+def value_stream_fuse_rec(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
+                          eps=1e-6, cdt=torch.float32):
+    """Differentiable rec-native value stream (JAX ``value_stream_fuse_rec``):
+    rec (K, T, rp), attn (T, K+1) -> fused (T, C) fp32."""
+    return ValueStream.apply((vwalk, bool(normalize), float(eps), cdt), rec,
+                             rayo, rays, attn, *walk_tensors(vwalk))

@@ -13,8 +13,8 @@ whenever at most M points can beat it in lower bound.
 Pipeline:
   1. (torch) per tile: cone axis and half-angle, the bounds from one
      (T, 3) x (3, P) product, the M smallest by a sort of the bounds packed
-     in the stage-3 layout ('packsort', the eval default) or an exact
-     stable sort ('sort');
+     in the stage-3 layout ('packsort', the eval default), an exact stable
+     sort ('sort') or an exact top-k ('approx', the training default);
   2. (torch) gather the (T, 8, M) candidate records;
   3. (kernel) exact distances to the tile's rays over its candidates and
      the k best per ray (``cull_select``: ``csrc/cull_topk.cu``, or
@@ -23,8 +23,17 @@ Pipeline:
   4. (torch) untile to row-major ray order.
 
 The pack keeps 17 value bits and 15 index bits (``ops/topk.py``), so
-P <= 32768. There is no ``approx_min_k`` in torch: the training-path 'approx'
-prefilter is not ported (the render path uses 'packsort').
+P <= 32768.
+
+The training prefilter 'approx' is ``jax.lax.approx_min_k`` in the JAX
+package. Off the TPU that call returns the exact set of the ``take``
+smallest bounds (in another order; ties among equal bounds may resolve
+otherwise), so the port reads 'approx' as the exact top-k of the lower
+bounds, ties to the lower index as ``lax.top_k`` (the JAX branch for
+``take >= P``) resolves them: the candidate set is exact, recall 1.0 >=
+``tpu.cull_recall``, which has nothing left to trade. As in the JAX package,
+'approx' turns the early exit off, which at the training block of 16 gives
+one 2048-wide chunk per tile in stage 3.
 """
 
 from __future__ import annotations
@@ -144,11 +153,8 @@ def cull_inputs(points, alive, rays_o, rays_d_hw, M: int = 2048,
                 early_exit: bool = True):
     """Stages 1 and 2: returns (tiles, f, recs, chunk, early_exit, meta),
     the arguments of stage 3 plus the untile metadata."""
-    if prefilter not in ("packsort", "sort"):
-        raise NotImplementedError(
-            f"cull prefilter {prefilter!r}: torch has no approx_min_k; the "
-            "approx prefilter is ROADMAP.md Queue 2 item 1b (render paths "
-            "use packsort or sort)")
+    if prefilter not in ("packsort", "sort", "approx"):
+        raise NotImplementedError(f"cull prefilter {prefilter!r}")
     P = points.shape[0]
     if P > IDX_MASK + 1:
         raise ValueError(
@@ -156,6 +162,7 @@ def cull_inputs(points, alive, rays_o, rays_d_hw, M: int = 2048,
             f"{IDX_MASK + 1}-entry index bits; got P={P}. "
             "Use tpu.topk_impl: xla for larger clouds.")
     chunk = _chunk_for(block * block, M)
+    early_exit = early_exit and prefilter in ("packsort", "sort")
     if early_exit:
         chunk = min(chunk, 512)
     Mp = max(-(-M // chunk) * chunk, chunk)
@@ -192,7 +199,7 @@ def cull_inputs(points, alive, rays_o, rays_d_hw, M: int = 2048,
     if prefilter == "packsort":
         pidx = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
         cand = torch.sort(pack(LB, pidx), dim=1).values[:, :take] & IDX_MASK
-    else:
+    else:                                  # sort, approx: exact, stable
         cand = torch.sort(LB, dim=1, stable=True).indices[:, :take]
     cand = cand.long()
     if take < Mp:                                     # tiny clouds: pad

@@ -1,5 +1,9 @@
-"""Tiled full-image rendering and frame delivery (the render half of
-``papr_tpu/train/step.py``).
+"""The training step, tiled full-image rendering and frame delivery
+(``papr_tpu/train/step.py``).
+
+* ``make_train_step``: forward, loss (MSE + LPIPS), the gradient of every
+  trained parameter through autograd (the kernels' backwards on the card),
+  and the per-group Adam update in place; eager, no ``torch.compile``.
 
 * ``render_full_image``: host rays in (dataset-driven eval), edge-padded
   fixed-shape ray tiles, the attention pass per tile, untiling, one
@@ -21,11 +25,74 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..model.papr import (composite_background, evaluate, model_meta,
-                          render_foreground)
+from ..model.papr import (composite_background, evaluate, forward,
+                          model_meta, render_foreground)
 from ..nn.activations import build_activation
 from ..nn.mlp import policy_from_config
 from ..ops.geometry import get_rays
+from .optim import (apply_updates, build_group_specs, init_opt_state,
+                    tree_leaves, tree_map)
+
+
+def loss_and_grads(params, state, cfg, rayo, rayd, target, c2w, loss_fn,
+                   specs, policy, shading_code=None):
+    """Forward + last activation + loss, and the loss's gradient for every
+    trained group (``specs``) -> (loss, pred, grads {key: tree})."""
+    last_act = build_activation(cfg.models.last_act)
+    live = {key: tree_map(lambda t: t.detach().requires_grad_(True), p)
+            if key in specs else p for key, p in params.items()}
+    with torch.enable_grad():
+        pred = last_act(forward(live, state, cfg, rayo, rayd, c2w,
+                                shading_code=shading_code, policy=policy))
+        loss = loss_fn(pred, target)
+        keys = [k for k in live if k in specs]
+        flat = [x for k in keys for x in tree_leaves(live[k])]
+        gflat = torch.autograd.grad(loss, flat, allow_unused=True)
+    gflat = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(gflat, flat)]
+    grads, i = {}, 0
+    for k in keys:
+        n = len(tree_leaves(live[k]))
+        it = iter(gflat[i:i + n])
+        grads[k] = tree_map(lambda _: next(it), live[k])
+        i += n
+    return loss.detach(), pred.detach(), grads
+
+
+def make_train_step(cfg, loss_fn=None):
+    """-> step(params, opt_state, state, rayo, rayd, target, c2w, step,
+    shading_code=None) -> (params, opt_state, loss, pred).
+
+    rayo (N, 3), rayd (N, H, W, 3) and target (N, H, W, 3) on the model's
+    device; ``step`` is the global step the schedules read. The update is in
+    place (the returned params / opt_state are the ones passed in). With no
+    ``loss_fn`` the config's loss is built with the LPIPS fallback
+    (``train/losses.py``)."""
+    from .losses import build_loss
+    policy = policy_from_config(cfg)
+    specs = build_group_specs(cfg)
+    loss_cache = {}
+
+    def step(params, opt_state, state, rayo, rayd, target, c2w, step,
+             shading_code=None):
+        fn = loss_fn
+        if fn is None:
+            dev = params["points"].device
+            if dev not in loss_cache:
+                loss_cache[dev] = build_loss(cfg, policy, device=dev)
+            fn = loss_cache[dev]
+        loss, pred, grads = loss_and_grads(params, state, cfg, rayo, rayd,
+                                           target, c2w, fn, specs, policy,
+                                           shading_code)
+        params, opt_state = apply_updates(params, grads, opt_state, specs,
+                                          int(step))
+        return params, opt_state, loss, pred
+
+    return step
+
+
+def make_opt_state(cfg, params):
+    return init_opt_state(params, build_group_specs(cfg))
 
 
 def _untile(x: torch.Tensor, N: int, ty: int, tx: int) -> torch.Tensor:

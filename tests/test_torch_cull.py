@@ -114,6 +114,24 @@ def test_plain_matches_early_exit_kernel():
     _assert_sets_equal_or_ties(got, want, pts, alive, rayo, rayd)
 
 
+def test_approx_prefilter_matches_jax_top_k():
+    """The training prefilter on the dense, capped scene: the port reads
+    'approx' as the exact top-k of the lower bounds with lax.top_k's ties
+    (to the lower index), so it selects as the JAX kernel does behind its
+    top-k prefilter. (Off the TPU, approx_min_k returns the same set except
+    among tied bounds, which this scene has many of: every point inside a
+    tile's cone bounds at 0.)"""
+    pts, alive, rayo, rayd = _scene(2048, 32, 32, seed=7, dead=(100, 300),
+                                    spread=0.35)
+    got = tc.select_topk_culled(torch.as_tensor(pts), torch.as_tensor(alive),
+                                torch.as_tensor(rayo), torch.as_tensor(rayd),
+                                8, M=512, prefilter="approx").numpy()
+    want = np.asarray(jax_culled(jnp.asarray(pts), jnp.asarray(alive),
+                                 jnp.asarray(rayo), jnp.asarray(rayd), 8,
+                                 M=512, interpret=True, prefilter="sort"))
+    _assert_sets_equal_or_ties(got, want, pts, alive, rayo, rayd)
+
+
 def test_tile_untile_roundtrip():
     H, W = 20, 24
     ids = torch.arange(H * W, dtype=torch.float32).reshape(H, W, 1).repeat(1, 1, 3)
@@ -138,8 +156,14 @@ def test_exact_selection_matches_jax():
 
 
 def test_cull_approx_prefilter_raises():
+    """'approx' (the training prefilter) is now the exact top-k of the
+    lower bounds: the same selection as the exact sort; a prefilter name the
+    port does not know still raises."""
     pts, alive, rayo, rayd = _scene(100, 16, 16)
+    args = (torch.as_tensor(pts), torch.as_tensor(alive),
+            torch.as_tensor(rayo), torch.as_tensor(rayd), 4)
+    got = tc.select_topk_culled(*args, M=64, prefilter="approx")
+    want = tc.select_topk_culled(*args, M=64, prefilter="sort")
+    assert torch.equal(torch.sort(got, -1).values, torch.sort(want, -1).values)
     with pytest.raises(NotImplementedError, match="approx"):
-        tc.select_topk_culled(torch.as_tensor(pts), torch.as_tensor(alive),
-                              torch.as_tensor(rayo), torch.as_tensor(rayd), 4,
-                              prefilter="approx")
+        tc.select_topk_culled(*args, prefilter="approx_min_k")

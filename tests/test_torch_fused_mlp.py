@@ -123,3 +123,29 @@ def test_kernel_layout_reproduces_plain_walk():
     np.testing.assert_allclose(h[:, :d_out].numpy(), ref.numpy(), rtol=1e-5,
                                atol=1e-5)
     assert float(h[:, d_out:].abs().max()) == 0.0       # pad lanes stay 0
+
+
+def test_pack_walk_sees_writes_through_data():
+    """Packing again after an in-place write through ``.data`` (which leaves
+    ``_version`` alone) gives the new values: a training step rewrites the
+    weights this way, so a cache keyed on address and version would hand
+    the kernels stale weights."""
+    x, ws, bs, lns, cols = _case(True, seed=3)
+    t = lambda a: torch.as_tensor(a.copy())
+    walk = Walk(tuple(map(t, ws)), tuple(map(t, bs)), tuple(map(t, lns[0])),
+                tuple(map(t, lns[1])), "relu", "none", cols)
+    first = pack_walk(walk, len(cols), "cpu")
+    version = walk.ws[0]._version
+    walk.ws[0].data.copy_(walk.ws[0] * 2 + 1)
+    walk.bs[1].data.add_(3.0)
+    assert walk.ws[0]._version == version
+    second = pack_walk(walk, len(cols), "cpu")
+    meta, w_all, b_all, _, _, pd = second
+    n = meta[0]
+    w_off, b_off = meta[8 + n:8 + 2 * n], meta[8 + 2 * n:8 + 3 * n]
+    w0 = w_all[w_off[0]:w_off[0] + pd[0] * pd[1]].reshape(pd[0], pd[1])
+    d0, d1 = walk.ws[0].shape
+    assert torch.equal(w0[:d0, :d1], walk.ws[0].to(torch.bfloat16))
+    b1 = b_all[b_off[1]:b_off[1] + pd[2]]
+    assert torch.equal(b1[:walk.bs[1].shape[0]], walk.bs[1])
+    assert not torch.equal(first[1], second[1])

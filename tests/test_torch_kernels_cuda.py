@@ -141,3 +141,135 @@ def test_render_frame_on_card_uses_the_kernels(dev):
     assert frame.shape == (80, 72, 3) and frame.dtype == np.uint8
     assert tc.cull_select.launches > 0 and fm.fused_mlp.launches > 0
     assert sa.attend_eval_idx.launches > 0
+
+
+# ------------------------------------------------- training-path kernels ----
+# Backward tolerance: relative Frobenius error <= 3e-2 per gradient, d_rec
+# per lane group; where the plain gradient is all zero the kernel's must be
+# too. Both sides round activations and dz to bf16; the plain version also
+# rounds dW to bf16 (autograd through the bf16 weight cast) and sums in
+# another order, the kernel keeps dW / db in fp32; a hidden relu whose input
+# the two forwards round to opposite signs switches one token's path in
+# one of them. The plain key stream is given the kernel forward's score
+# relu pattern (``relu_on``), so both differentiate the same function.
+# The sound kernels read up to 2.2e-2 here (value d_rec, T = 100); planted
+# faults (a score scale off by 10 %, the LayerNorm backward's variance term
+# dropped, a routing lane left out, the renormalization term dropped) read
+# 8.9e-2 and above (PERF.md, Findings).
+
+BWD_REL = 3e-2
+
+
+def _close_all(got, want, tol, name):
+    assert len(got) == len(want)
+    rels = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert tuple(g.shape) == tuple(w.shape), i
+        assert torch.isfinite(g).all(), i
+        if float(w.abs().max()) == 0.0:
+            assert float(g.abs().max()) == 0.0, i
+            rels.append(0.0)
+        else:
+            rels.append(_rel(g, w))
+    print(f"{name}: rel Frobenius " + ", ".join(f"{r:.2e}" for r in rels))
+    assert max(rels) <= tol, (name, rels)
+
+
+def _rec_lanes(grads):
+    """d_rec split by routing rule: geometry (lanes 0:3), d_influence
+    (lane 3), the rest."""
+    d = grads[0]
+    return [d[..., :3], d[..., 3], d[..., 4:]] + list(grads[1:])
+
+
+@pytest.mark.parametrize("R,norm", [(1000, True), (100, False)])
+def test_fused_mlp_bwd_kernel_matches_plain(dev, R, norm):
+    """Row-3 backward; R = 100 leaves an overhang tile of 36 rows."""
+    rng = np.random.default_rng(4)
+    _, cols = posenc_plan((3,), (6,), 1, 2.0, 1.0, 0)
+    walk = _walk(rng, cols, 5, 256, 256, norm, dev)
+    x = torch.as_tensor(rng.normal(size=(R, 3)).astype(np.float32), device=dev)
+    dy = torch.as_tensor(rng.normal(size=(R, 256)).astype(np.float32), device=dev)
+    dx, grads = fm.fused_mlp_bwd(x, dy, walk, torch.bfloat16)
+    dxp, gp = fm.fused_mlp_bwd_plain(x, dy, walk, torch.bfloat16)
+    _close_all([dx] + grads, [dxp] + gp, BWD_REL, f"fused_mlp_bwd R={R}")
+
+
+def _stream_case(rng, dev, T, K, dm=256):
+    """Records k-major (K, T, 128) with random alive bits and ray 5 all dead;
+    the flagship walks (key 117 -> 5 x 256 with LNs, value 142 -> 8 layers to
+    32)."""
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    rec = np.zeros((K, T, 128), np.float32)
+    rec[..., :3] = rng.normal(size=(K, T, 3))
+    rec[..., 3] = rng.normal(size=(K, T))
+    rec[..., 4] = rng.random((K, T)) > 0.2
+    rec[:, 5, 4] = 0.0
+    rec[..., 5:69] = rng.normal(size=(K, T, 64))
+    rayo = t(np.broadcast_to(rng.normal(size=(1, 3)) * 3, (T, 3)))
+    rays = rng.normal(size=(T, 3))
+    rays = t(rays / np.linalg.norm(rays, axis=-1, keepdims=True))
+    qq = t(rng.normal(size=(T, dm)))
+    kw = _walk(rng, sa.rec_pe_plan(True, (6, 6, 6), 1, 2.0, 1.0, 0), 5, 256,
+               256, True, dev)
+    vw = _walk(rng, sa.rec_pe_plan(False, (6, 6), 1, 2.0, 1.0, 64), 8, 256,
+               32, False, dev)
+    wk = t(rng.normal(size=(dm, 256)) / 16)
+    bk = t(rng.normal(size=dm) * 0.1)
+    return t(rec), rayo, rays, qq, kw, vw, wk, bk
+
+
+@pytest.mark.parametrize("T", [256, 100])
+def test_key_stream_kernels_match_plain(dev, T):
+    """Row 5 forward and backward (T = 100: an overhang tile)."""
+    rng = np.random.default_rng(5)
+    K = 20
+    rec, rayo, rays, qq, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    args = (rec, rayo, rays, qq, kw, wk, bk)
+    opts = ("relu", 5.0, 1e-6, torch.bfloat16)
+    attn, raw, ss = sa.key_stream_fwd(*args, *opts)
+    attn_p, raw_p, ss_p = sa.key_stream_plain(*args, *opts)
+    assert float((attn - attn_p).abs().max()) <= 5e-3
+    assert _rel(raw, raw_p) <= 1e-2
+    alive = (rec[..., 4] > 0.5).T
+    assert torch.equal(ss, torch.where(alive, torch.clamp_min(raw, 0.0)
+                                       * rec[..., 3].T, sa.NEG_BIG))
+    assert torch.equal(ss_p > -1e29, alive)
+    assert float(attn[5, K]) == 1.0                      # the all-dead ray
+    # alive scores whose relu both forwards agree on: nearly all, and their
+    # masked scores match
+    same = (raw > 0) == (raw_p > 0)
+    assert float(same[alive].float().mean()) >= 0.99
+    assert _rel(ss[alive & same], ss_p[alive & same]) <= 3e-2
+    dattn = torch.as_tensor(rng.normal(size=(T, K + 1)).astype(np.float32),
+                            device=dev)
+    got = sa.key_stream_bwd(*args, raw, ss, dattn, *opts)
+    want = sa.key_stream_bwd_plain(*args, dattn, *opts, relu_on=raw > 0)
+    _close_all(_rec_lanes(got), _rec_lanes(want), BWD_REL,
+               f"key_stream_bwd T={T}")
+    assert float(got[0][:, 5].abs().max()) == 0.0        # no gradient there
+
+
+@pytest.mark.parametrize("T,normalize", [(256, True), (100, False)])
+def test_value_stream_kernels_match_plain(dev, T, normalize):
+    """Row 6 forward and backward, with an all-dead ray (attention mass 0
+    on the foreground) and an overhang tile."""
+    rng = np.random.default_rng(6)
+    K = 20
+    rec, rayo, rays, _, _, vw, _, _ = _stream_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    args = (rec, rayo, rays, attn, vw)
+    opts = (normalize, 1e-6, torch.bfloat16)
+    fused = sa.value_stream_fwd(*args, *opts)
+    fused_p = sa.value_stream_plain(*args, *opts)
+    assert _rel(fused, fused_p) <= 1e-2
+    assert float(fused[5].abs().max()) == 0.0
+    dfused = torch.as_tensor(rng.normal(size=(T, 32)).astype(np.float32),
+                             device=dev)
+    got = sa.value_stream_bwd(*args, dfused, *opts)
+    want = sa.value_stream_bwd_plain(*args, dfused, *opts)
+    _close_all(_rec_lanes(got), _rec_lanes(want), BWD_REL,
+               f"value_stream_bwd T={T} normalize={normalize}")
+    assert float(got[0][:, 5].abs().max()) == 0.0

@@ -140,7 +140,7 @@ def test_create_model_tree_matches_jax():
 @pytest.mark.parametrize("tpu,match", [
     ({"topk_impl": "pallas"}, "Queue 2 item 6"),
     ({"topk_impl": "approx"}, "approx"),
-    ({"cull_prefilter_eval": "approx"}, "approx"),
+    ({"cull_prefilter_eval": "approx_min_k"}, "approx"),
     ({"fused_attn": "stream"}, "fused_attn"),
     ({"fused_attn": "score"}, "fused_attn"),
     ({"fused_attn": "embed"}, "fused_attn"),
