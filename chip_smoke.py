@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path and training step on one NVIDIA GPU.
+"""Drive the PyTorch port's render path, training step and command-line path
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -30,8 +31,29 @@ Phases (each prints a line; any failure exits non-zero):
    trained group moved, every training kernel launched on each step and no
    plain version ran; profile one step by stage; prune + grow and one more
    step on a fresh optimizer state; then one 32x32 step of the kernel path
-   against the plain fp32 path (loss and per-group gradients).
-5. Print the kernels' JSON line, then the result line.
+   against the plain fp32 path (loss and per-group gradients), for
+   ``streamrec`` + ``cull`` and for ``fused_attn: true`` + ``topk_impl:
+   pallas``.
+   Phase 2 also holds the streaming top-k, the fused attention scores
+   (forward and backward), the dW reduction (beside one ``torch.matmul``)
+   and the embedder kernels on the key and value stacks (512,000 tokens
+   with the point-feature columns, forward and backward) against their
+   plain versions at the command-line path's shapes.
+5. The command-line path in process: a procedural sphere scene written at
+   800x800 (``dataset/synth.py``), ``configs/default.yml`` with the sphere
+   run's point init, 30,000 padded points, k = 20, 160x160 patches, bf16,
+   MSE + 1e-2 LPIPS, ``tpu.topk_impl: pallas`` and ``tpu.fused_attn: true``:
+   ``train_and_eval`` for 12 steps with a prune + grow event, eval renders
+   and checkpoints; the checkpoint restored bit for bit and a resume of two
+   more steps; the test entry point over the test split at 100x100 tiles;
+   one frame again through the one-shot kernel and the two-kernel eval path
+   (``eval_fused: false``), the split-kernel and two-kernel frames held
+   against the one-shot kernel's; then ms/step, the device's idle
+   share and the kernel time by stage of this configuration on a fixed
+   batch and on the real loader, and of ``streamrec`` + ``cull`` on the same
+   model and batch.
+6. Print the kernels' JSON line (each kernel's launches on its main path,
+   error, time, plain version's time and bound), then the result line.
 
 Imports nothing of JAX. Weights are random, from fixed seeds.
 """
@@ -72,6 +94,48 @@ BWD_REL = 4e-2
 # per-group gradients (relative Frobenius error).
 TRAIN_REF_LOSS_REL = 2e-2
 TRAIN_REF_GRAD_REL = 1e-1
+# Streaming top-k: the kernel rounds like its plain version, rows are equal.
+TOPK_MIN_EQUAL = 1.0
+# Fused scores, on the embedder's own outputs at the patch. Forward: attn
+# max abs and raw dots relative Frobenius (both sides round the two
+# projections to bf16; the summation order differs): the sound kernel reads
+# 2.3e-5 / 7.6e-5; planted faults read 1.2e-4 / 1.0e-2 (score scale off by
+# 1 %), 3.4e-4 / 5.4e-3 (projection not rounded before its bias) and above.
+# Backward: every gradient, relative Frobenius, against the plain backward
+# given the kernel forward's relu pattern: sound 2.3e-3; faults 1.1e-2
+# (scale off by 1 %), 2.6e-2 (the rounding point) and above (PERF.md,
+# Findings).
+SCORE_ATTN_ABS = 1e-4
+SCORE_RAW_REL = 2e-3
+SCORE_BWD_REL = 6e-3
+# The embedder kernels on the key and value stacks (512,000 tokens, the value
+# stack with 64 pass-through point-feature columns). Sound: forward 6.2e-4,
+# every gradient <= 8.8e-3. Planted faults: pass-through columns scaled by
+# 1 % in the encoding read 5.5e-3 / 1.2e-2 forward and 9.6e-2 / 1.4e-1
+# backward; dx of some raw columns scaled by 5 % reads 2.9e-2 / 5.1e-2, by
+# 1 % 8.4e-3 / 1.3e-2 (not caught) (PERF.md, Findings).
+STACK_FWD_REL = 2e-3
+STACK_BWD_REL = 2e-2
+# The dW reduction against the fp32 product of the same bf16 operands (both
+# sum exact products in fp32; only the order differs).
+WGRAD_REL = 1e-4
+# Two-kernel eval frame against the one-shot kernel's frame.
+EVAL_TWO_MIN_CLOSE = 0.999
+# Split-kernel frame (topk_impl pallas, fused_attn true) against the one-shot
+# kernel's frame (cull selection), on a model with non-zero influence
+# scores: pixels, then the whole frame's fused features (relative Frobenius)
+# and attention (max abs). The selections may swap near ties; both paths
+# compute in bf16 and sum in different orders. A sound run reads 100 % of
+# pixels within 1/255, 1.7e-4 and 2.6e-3.
+EVAL_SPLIT_MIN_CLOSE = 0.999
+SPLIT_FUSED_REL = 1e-3
+SPLIT_ATTN_ABS = 5e-3
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, dense bf16 tensor-core rate, fp32 rate outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 H = W = 800
 FOCAL = 700.0
@@ -140,6 +204,34 @@ def query_walk(params, cfg):
                            int(e.embed_type), float(e.pe_factor),
                            float(e.pe_mult_factor), 0)
     return walk_from_params(params["attn"]["embed_q"], e.query, qcols)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float, rate: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (inputs read once, outputs written once) over the
+    memory rate and its operations over the peak rate for their type."""
+    t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, ops / rate * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": None}
+
+
+def walk_flops(*walks_or_weights) -> float:
+    """2 x (sum of in x out over the dense layers) per token."""
+    total = 0
+    for w in walks_or_weights:
+        for m in (w.ws if hasattr(w, "ws") else (w,)):
+            total += int(m.shape[0]) * int(m.shape[1])
+    return 2.0 * total
+
+
+def walk_bytes(*walks) -> int:
+    from papr_tpu_torch.ops.fused_mlp import walk_tensors
+    return sum(nbytes(*walk_tensors(w)) for w in walks)
 
 
 def rel_fro(a, b) -> float:
@@ -214,10 +306,15 @@ def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
           f"{plain_ms:.3f} ms", flush=True)
     if frac_eq < K1_MIN_EQUAL or not ties_ok:
         fail("K1 cull selection disagrees with its plain version")
+    # The early exit makes the work depend on the data: every tile scans at
+    # least its first chunk, which is what the operations count here.
+    n_first = tiles.shape[0] * tiles.shape[1] * min(chunk, recs.shape[-1])
     results.append({"name": "cull_select", "route": "cuda",
                     "source": "papr_tpu_torch/csrc/cull_topk.cu",
                     "replaces": "papr_tpu/ops/tile_cull.py:110",
-                    "max_abs_err": k1_err, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": k1_err, "ms": ms, "plain_ms": plain_ms,
+                    **bound(nbytes(tiles, f, recs, got), 9.0 * n_first,
+                            FP32_FLOPS)})
 
     # K2: query embedder on the frame's 640,000 rays.
     x = rayd.reshape(-1, 3).contiguous()
@@ -237,7 +334,9 @@ def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
     results.append({"name": "fused_mlp", "route": "cuda",
                     "source": "papr_tpu_torch/csrc/fused_mlp.cu",
                     "replaces": "papr_tpu/ops/fused_mlp.py:417",
-                    "max_abs_err": k2_abs, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": k2_abs, "ms": ms, "plain_ms": plain_ms,
+                    **bound(nbytes(x, got) + walk_bytes(qwalk),
+                            x.shape[0] * walk_flops(qwalk), BF16_FLOPS)})
 
     # K3: eval attention on the central 160x160 ray block.
     r0 = (H - BLOCK) // 2
@@ -287,8 +386,239 @@ def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
     results.append({"name": "attend_stream_eval", "route": "cuda",
                     "source": "papr_tpu_torch/csrc/attend_eval.cu",
                     "replaces": "papr_tpu/ops/stream_attn.py:1856",
-                    "max_abs_err": f_abs, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": f_abs, "ms": ms, "plain_ms": plain_ms,
+                    **bound(nbytes(record, idx, rayo_flat, rays, qq, f_got,
+                                   a_got) + walk_bytes(kwalk, vwalk),
+                            gflop * 1e9, BF16_FLOPS)})
     return results
+
+
+def compare_cli_kernels(params, state, cfg, device, n_time: int = 3) -> list:
+    """Phase 2, the command-line path's kernels at the 160x160 patch
+    (T = 25,600 rays, K = 20, 30,000 points): the streaming top-k, and the
+    fused attention scores forward and backward on the key / query
+    embeddings the fused embedder gives for those rays. Also times the dW
+    reduction (``csrc/wgrad.cu``) beside one ``torch.matmul`` on the same
+    bf16 operands."""
+    import torch
+    from papr_tpu_torch.kernels import build
+    from papr_tpu_torch.model.papr import _split_embeddings, model_meta
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops import fused_attn as fa
+    from papr_tpu_torch.ops import fused_mlp as fm
+    from papr_tpu_torch.ops import pallas_topk as pt
+
+    policy = policy_from_config(cfg)
+    cdt = policy.compute_dtype
+    meta = model_meta(cfg)
+    k = meta.select_k
+    eps = float(cfg.eps)
+    points, alive = params["points"], state["alive"]
+    rayo, rayd = training_patch(device)
+    T = PATCH * PATCH
+    gen = torch.Generator(device=device).manual_seed(6)
+    results, failed = [], []
+
+    # A: streaming top-k over every point.
+    ops_in = pt.stream_inputs(points, alive, rayo[0], rayd.reshape(T, 3), eps)
+    got = pt.topk_stream(*ops_in, k)
+    want = pt.topk_stream_plain(*ops_in, k)
+    torch.cuda.synchronize()
+    frac = float((got == want).all(-1).float().mean())
+    n_diff = int((got != want).sum())
+    ms = cuda_ms(lambda: pt.topk_stream(*ops_in, k), n_time)
+    plain_ms = cuda_ms(lambda: pt.topk_stream_plain(*ops_in, k), 1)
+    work = bound(nbytes(*ops_in, got), 9.0 * T * ops_in[3].shape[0],
+                 FP32_FLOPS)
+    print(f"phase 2 topk_stream: R={T} P={points.shape[0]} (padded "
+          f"{ops_in[3].shape[0]}) k={k}: equal rows {frac:.6f} (need >= "
+          f"{TOPK_MIN_EQUAL}), differing entries {n_diff}; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {work['bound_ms']:.4f} ms "
+          f"({work['bound_by']})", flush=True)
+    if frac < TOPK_MIN_EQUAL:
+        failed.append("topk_stream")
+    results.append({"name": "topk_stream", "route": "cuda",
+                    "source": "papr_tpu_torch/csrc/topk_stream.cu",
+                    "replaces": "papr_tpu/ops/pallas_topk.py:45",
+                    "max_abs_err": float(n_diff), "ms": ms,
+                    "plain_ms": plain_ms, **work})
+
+    # B, C: fused scores on real embeddings.
+    idx = pt.pallas_select_topk(points, alive, rayo[0], rayd.reshape(T, 3), k,
+                                eps).reshape(1, PATCH, PATCH, k)
+    # The embedder kernels' inputs on this path are recorded as the path's
+    # own head builds them: (x, walk) of the key, query and value stacks.
+    stacks, apply = [], fm.fused_mlp_apply
+
+    def recording(x, walk, cdt):
+        stacks.append((x, walk))
+        return apply(x, walk, cdt)
+
+    fm.fused_mlp_apply = recording
+    try:
+        with torch.no_grad():
+            ek, eq, _, influ, sel_alive = _split_embeddings(
+                params, cfg, meta, idx, rayo, rayd, alive, eps, policy, True)
+    finally:
+        fm.fused_mlp_apply = apply
+    a = params["attn"]
+    args = (ek.contiguous(), eq.contiguous(), a["w_k"]["w"], a["w_k"]["bias"],
+            a["w_q"]["w"], a["w_q"]["bias"], influ.float().contiguous(),
+            sel_alive.float())
+    opts = (cfg.models.attn.score_act, float(cfg.geoms.background.constant),
+            cdt)
+    Dk, dm = int(ek.shape[-1]), int(a["w_k"]["w"].shape[0])
+    proj_flops = 2.0 * T * (k + 1) * Dk * dm
+    attn_g, raw_g = fa.fused_scores_fwd(*args, *opts, with_raw=True)
+    attn_w, raw_w = fa.fused_scores_plain(*args, *opts)
+    torch.cuda.synchronize()
+    a_abs = float((attn_g - attn_w).abs().max())
+    raw_rel = rel_fro(raw_g, raw_w)
+    finite = bool(torch.isfinite(attn_g).all())
+    ms = cuda_ms(lambda: fa.fused_scores_fwd(*args, *opts), n_time)
+    plain_ms = cuda_ms(lambda: fa.fused_scores_plain(*args, *opts), 1)
+    work = bound(nbytes(*args, attn_g), proj_flops, BF16_FLOPS)
+    print(f"phase 2 fused_scores_fwd: T={T} K={k} Dk={Dk} dm={dm}: attn max "
+          f"abs {a_abs:.3e} (need <= {SCORE_ATTN_ABS}), raw rel Frobenius "
+          f"{raw_rel:.3e} (need <= {SCORE_RAW_REL}); finite {finite}; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{work['bound_ms']:.4f} ms ({work['bound_by']})", flush=True)
+    if not (finite and a_abs <= SCORE_ATTN_ABS and raw_rel <= SCORE_RAW_REL):
+        failed.append("fused_scores_fwd")
+    results.append({"name": "fused_scores_fwd", "route": "cuda",
+                    "source": "papr_tpu_torch/csrc/fused_attn.cu",
+                    "replaces": "papr_tpu/ops/fused_attn.py:116",
+                    "max_abs_err": a_abs, "ms": ms, "plain_ms": plain_ms,
+                    **work})
+
+    dattn = torch.randn(T, k + 1, generator=gen, device=device)
+    relu_on = raw_g > 0       # the plain backward takes the kernel's pattern
+    g = fa.fused_scores_bwd(*args, dattn, *opts)
+    w = fa.fused_scores_bwd_plain(*args, dattn, *opts, relu_on=relu_on)
+    torch.cuda.synchronize()
+    labels = ["d_embedk", "d_embedq", "dW_k", "db_k", "dW_q", "db_q",
+              "d_influ"]
+    rels = _rels(g, w)
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in g)
+    ms = cuda_ms(lambda: fa.fused_scores_bwd(*args, dattn, *opts), n_time)
+    plain_ms = cuda_ms(lambda: fa.fused_scores_bwd_plain(
+        *args, dattn, *opts, relu_on=relu_on), 1)
+    work = bound(nbytes(*args, dattn, *g), 3 * proj_flops, BF16_FLOPS)
+    print(f"phase 2 fused_scores_bwd: T={T} K={k}: rel Frobenius "
+          + ", ".join(f"{l} {r:.2e}" for l, r in zip(labels, rels))
+          + f" (max {max(rels):.3e}, need <= {SCORE_BWD_REL}); finite "
+          f"{finite}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{work['bound_ms']:.4f} ms ({work['bound_by']})", flush=True)
+    if not (finite and max(rels) <= SCORE_BWD_REL):
+        failed.append("fused_scores_bwd")
+    results.append({"name": "fused_scores_bwd", "route": "cuda",
+                    "source": "papr_tpu_torch/csrc/fused_attn.cu",
+                    "replaces": "papr_tpu/ops/fused_attn.py:125",
+                    "max_abs_err": _max_abs(g, w), "max_rel_err": max(rels),
+                    "ms": ms, "plain_ms": plain_ms, **work})
+
+    # The dW reduction beside the one PyTorch call that computes the same
+    # function: dW = H^T DZ over K * T tokens of bf16 operands.
+    N = k * T
+    hmat = ek.reshape(N, Dk).contiguous()
+    dz = torch.randn(N, dm, generator=gen, device=device).to(torch.bfloat16)
+    lib = build.load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    run = lambda: fm.wgrad(lib, hmat.data_ptr(), dz.data_ptr(), N, Dk, dm,
+                           device, stream)
+    plain = lambda: torch.matmul(hmat.float().T, dz.float())
+    call = lambda: torch.matmul(hmat.T, dz)
+    got, want = run(), plain()
+    err = rel_fro(got, want)
+    ms, plain_ms = cuda_ms(run, n_time), cuda_ms(plain, 1)
+    lib_ms = cuda_ms(call, n_time)
+    work = bound(nbytes(hmat, dz, got), 2.0 * N * Dk * dm, BF16_FLOPS)
+    work["library_ms"] = lib_ms
+    print(f"phase 2 wgrad (dW = H^T DZ, N={N}, {Dk}x{dm}, bf16 operands): "
+          f"rel Frobenius {err:.3e} (need <= {WGRAD_REL}) against the fp32 "
+          f"product; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"torch.matmul on the same bf16 operands (bf16 output) "
+          f"{lib_ms:.3f} ms, bound {work['bound_ms']:.4f} ms "
+          f"({work['bound_by']})", flush=True)
+    if not (err <= WGRAD_REL):
+        failed.append("wgrad")
+    results.append({"name": "wgrad", "route": "cuda",
+                    "source": "papr_tpu_torch/csrc/wgrad.cu",
+                    "replaces": "papr_tpu/ops/fused_mlp.py:424 (the dW "
+                                "accumulation of every TPU backward body)",
+                    "max_abs_err": _max_abs([got], [want]),
+                    "max_rel_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **work})
+    del ek, eq, hmat, dz, g, w, got, want
+    torch.cuda.empty_cache()
+
+    # The embedder kernels on the key and value stacks (K * T tokens, the
+    # geometry features plus the point-feature extras), forward and backward.
+    by_name = dict(zip(("key", "query", "value"), stacks))
+    out_stacks = {"fused_mlp": {}, "fused_mlp_bwd": {}}
+    for name in ("key", "value"):
+        x, walk = by_name[name]
+        x = x.detach().contiguous()
+        # Raw columns the posenc encodes (geometry); the rest pass through.
+        n_geo = 1 + max(c[0] for c in walk.cols if c[2] == 1)
+        extras = n_geo < x.shape[1]
+        got = fm.fused_mlp(x, walk, cdt)
+        want = fm.fused_mlp_plain(x, walk, cdt)
+        err = rel_fro(got, want)
+        y_abs = float((got.float() - want.float()).abs().max())
+        ms = cuda_ms(lambda: fm.fused_mlp(x, walk, cdt), n_time)
+        plain_ms = cuda_ms(lambda: fm.fused_mlp_plain(x, walk, cdt), 1)
+        work = bound(nbytes(x, got) + walk_bytes(walk),
+                     x.shape[0] * walk_flops(walk), BF16_FLOPS)
+        print(f"phase 2 fused_mlp ({name} stack): x={tuple(x.shape)} "
+              f"({n_geo} geometry + {x.shape[1] - n_geo} point-feature "
+              f"columns) -> {tuple(got.shape)}: rel Frobenius {err:.3e} (need "
+              f"<= {STACK_FWD_REL}), max abs {y_abs:.3e}; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {work['bound_ms']:.4f} ms "
+              f"({work['bound_by']})", flush=True)
+        if not (err <= STACK_FWD_REL and bool(torch.isfinite(got.float()).all())):
+            failed.append(f"fused_mlp ({name} stack)")
+        out_stacks["fused_mlp"][name] = {
+            "tokens": int(x.shape[0]), "d_raw": int(x.shape[1]),
+            "max_abs_err": y_abs, "max_rel_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+            "bound_by": work["bound_by"]}
+        del got, want
+
+        dy = torch.randn(x.shape[0], int(walk.ws[-1].shape[1]), generator=gen,
+                         device=device)
+        split = lambda r: ([r[0][:, :n_geo]]
+                           + ([r[0][:, n_geo:]] if extras else [])
+                           + list(r[1]))
+        labels = (["dx[geometry]"] + (["dx[point features]"] if extras else [])
+                  + walk_labels(walk))
+        g = split(fm.fused_mlp_bwd(x, dy, walk, cdt))
+        w = split(fm.fused_mlp_bwd_plain(x, dy, walk, cdt))
+        torch.cuda.synchronize()
+        rels = _rels(g, w)
+        finite = all(bool(torch.isfinite(t).all()) for t in g)
+        ms = cuda_ms(lambda: fm.fused_mlp_bwd(x, dy, walk, cdt), n_time)
+        plain_ms = cuda_ms(lambda: fm.fused_mlp_bwd_plain(x, dy, walk, cdt), 1)
+        work = bound(nbytes(x, dy, *g) + walk_bytes(walk),
+                     3 * x.shape[0] * walk_flops(walk), BF16_FLOPS)
+        print(f"phase 2 fused_mlp_bwd ({name} stack): x={tuple(x.shape)}: rel "
+              "Frobenius " + ", ".join(f"{l} {r:.2e}" for l, r in
+                                       zip(labels, rels))
+              + f" (max {max(rels):.3e}, need <= {STACK_BWD_REL}); finite {finite}; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{work['bound_ms']:.4f} ms ({work['bound_by']})", flush=True)
+        if not (finite and max(rels) <= STACK_BWD_REL and len(rels) == len(labels)):
+            failed.append(f"fused_mlp_bwd ({name} stack)")
+        out_stacks["fused_mlp_bwd"][name] = {
+            "tokens": int(x.shape[0]), "d_raw": int(x.shape[1]),
+            "max_abs_err": _max_abs(g, w), "max_rel_err": max(rels), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+            "bound_by": work["bound_by"]}
+        del g, w, dy
+        torch.cuda.empty_cache()
+    if failed:
+        fail(f"kernels disagree with their plain versions: {failed}")
+    return results, out_stacks
 
 
 def training_patch(device, seed: int = 0):
@@ -396,9 +726,12 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     qwalk = query_walk(params, cfg)
     randn = lambda *shape: torch.randn(*shape, generator=gen, device=device)
 
-    def record_case(name, source, replaces, fn, plain, tol, labels):
+    def record_case(name, source, replaces, fn, plain, tol, labels, in_bytes,
+                    flops):
         """Kernel against its plain version (the same bf16 compute): every
-        output's relative Frobenius error held to ``tol``."""
+        output's relative Frobenius error held to ``tol``. ``in_bytes`` and
+        ``flops`` (bf16 tensor-core work) give the bound; the outputs' bytes
+        are added here."""
         g = fn()
         w = plain()
         torch.cuda.synchronize()
@@ -415,7 +748,8 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
             failed.append(name)
         out[name] = {"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "max_abs_err": _max_abs(g, w),
-                     "max_rel_err": worst, "ms": ms, "plain_ms": p_ms}
+                     "max_rel_err": worst, "ms": ms, "plain_ms": p_ms,
+                     **bound(in_bytes + nbytes(*g), flops, BF16_FLOPS)}
         return g
 
     dy = randn(T, int(qwalk.ws[-1].shape[1]))
@@ -425,7 +759,8 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         lambda: (lambda r: [r[0]] + r[1])(fm.fused_mlp_bwd(x, dy, qwalk, cdt)),
         lambda: (lambda r: [r[0]] + r[1])(
             fm.fused_mlp_bwd_plain(x, dy, qwalk, cdt)),
-        BWD_REL, ["dx"] + walk_labels(qwalk))
+        BWD_REL, ["dx"] + walk_labels(qwalk),
+        nbytes(x, dy) + walk_bytes(qwalk), 3 * T * walk_flops(qwalk))
     kargs = (rec, rayo_f, rays, qq, kwalk, wk, bk)
     kopts = (score_act, bkg, eps, cdt)
     attn, raw = record_case(
@@ -433,7 +768,8 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         "papr_tpu/ops/stream_attn.py:798",
         lambda: list(sa.key_stream_fwd(*kargs, *kopts))[:2],
         lambda: list(sa.key_stream_plain(*kargs, *kopts))[:2], FWD_REL,
-        ["attn", "raw"])
+        ["attn", "raw"], nbytes(rec, rayo_f, rays, qq) + walk_bytes(kwalk),
+        T * k * walk_flops(kwalk, wk))
     # The saved scores: exactly act(raw) x influence of the kernel's own
     # raw, and against the plain version's on the alive scores whose relu
     # both forwards agree on (the rest differ by a switched-off score).
@@ -462,14 +798,18 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         lambda: rec_lanes(sa.key_stream_bwd_plain(*kargs, dattn, *kopts,
                                                   relu_on=relu_on)),
         BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "dqq", "dW_k", "db_k"]
-        + walk_labels(kwalk))
+        + walk_labels(kwalk),
+        nbytes(rec, rayo_f, rays, qq, raw, ss, dattn) + walk_bytes(kwalk),
+        3 * T * k * walk_flops(kwalk, wk))
     vargs = (rec, rayo_f, rays, attn, vwalk)
     vopts = (normalize, eps, cdt)
     record_case(
         "value_stream_fwd", "papr_tpu_torch/csrc/value_stream.cu",
         "papr_tpu/ops/stream_attn.py:1601",
         lambda: [sa.value_stream_fwd(*vargs, *vopts)],
-        lambda: [sa.value_stream_plain(*vargs, *vopts)], FWD_REL, ["fused"])
+        lambda: [sa.value_stream_plain(*vargs, *vopts)], FWD_REL, ["fused"],
+        nbytes(rec, rayo_f, rays, attn) + walk_bytes(vwalk),
+        T * k * walk_flops(vwalk))
     dfused = randn(T, int(vwalk.ws[-1].shape[1]))
     record_case(
         "value_stream_bwd", "papr_tpu_torch/csrc/value_stream.cu",
@@ -477,7 +817,9 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         lambda: rec_lanes(sa.value_stream_bwd(*vargs, dfused, *vopts)),
         lambda: rec_lanes(sa.value_stream_bwd_plain(*vargs, dfused, *vopts)),
         BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "d_attn"]
-        + walk_labels(vwalk))
+        + walk_labels(vwalk),
+        nbytes(rec, rayo_f, rays, attn, dfused) + walk_bytes(vwalk),
+        3 * T * k * walk_flops(vwalk))
     del rec, record
     torch.cuda.empty_cache()
     if failed:
@@ -488,7 +830,9 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
 def counters(training: bool = False):
     """The launch counters of one path's kernels and the call counters of
     every plain version."""
+    from papr_tpu_torch.ops import fused_attn as fa
     from papr_tpu_torch.ops import fused_mlp as fm
+    from papr_tpu_torch.ops import pallas_topk as pt
     from papr_tpu_torch.ops import stream_attn as sa
     from papr_tpu_torch.ops import tile_cull as tc
     kernels = {"cull_select": tc.cull_select, "fused_mlp": fm.fused_mlp}
@@ -497,7 +841,8 @@ def counters(training: bool = False):
                         "key_stream_fwd": sa.key_stream_fwd,
                         "key_stream_bwd": sa.key_stream_bwd,
                         "value_stream_fwd": sa.value_stream_fwd,
-                        "value_stream_bwd": sa.value_stream_bwd})
+                        "value_stream_bwd": sa.value_stream_bwd,
+                        "wgrad": fm.wgrad})
     else:
         kernels["attend_stream_eval"] = sa.attend_eval_idx
     plains = {"cull_select": tc.cull_select_plain,
@@ -507,8 +852,28 @@ def counters(training: bool = False):
               "key_stream_fwd": sa.key_stream_plain,
               "key_stream_bwd": sa.key_stream_bwd_plain,
               "value_stream_fwd": sa.value_stream_plain,
-              "value_stream_bwd": sa.value_stream_bwd_plain}
+              "value_stream_bwd": sa.value_stream_bwd_plain,
+              "topk_stream": pt.topk_stream_plain,
+              "fused_scores_fwd": fa.fused_scores_plain,
+              "fused_scores_bwd": fa.fused_scores_bwd_plain}
     return kernels, plains
+
+
+def cli_counters():
+    """The kernels of the command-line path under ``topk_impl: pallas`` and
+    ``fused_attn: true`` (training, eval render, test render), and of its
+    two-kernel eval frame."""
+    from papr_tpu_torch.ops import fused_attn as fa
+    from papr_tpu_torch.ops import fused_mlp as fm
+    from papr_tpu_torch.ops import pallas_topk as pt
+    from papr_tpu_torch.ops import stream_attn as sa
+    return {"topk_stream": pt.topk_stream,
+            "fused_mlp": fm.fused_mlp, "fused_mlp_bwd": fm.fused_mlp_bwd,
+            "fused_scores_fwd": fa.fused_scores_fwd,
+            "fused_scores_bwd": fa.fused_scores_bwd, "wgrad": fm.wgrad,
+            "key_stream_fwd": sa.key_stream_fwd,
+            "value_stream_fwd": sa.value_stream_fwd,
+            "attend_stream_eval": sa.attend_eval_idx}, counters()[1]
 
 
 def reset_counters(kernels, plains) -> None:
@@ -578,40 +943,20 @@ def profile_frames(params, state, cfg, n: int = 3) -> None:
     """Device-time split of n serving frames (torch.profiler, CUPTI kernel
     times): each stage's ms per frame and share, and the device's idle share
     of the window."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from papr_tpu_torch.train.step import render_frame
 
-    stages = (("K3 attend_eval", "attend_eval"), ("K2 fused_mlp", "fused_mlp"),
-              ("K1 cull", "cull_topk"), ("sort", "Sort"),
-              ("conv (cuDNN)", "fprop"), ("gemm", "gemm"))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def frames():
         for i in range(n):
             render_frame(params, state, cfg, orbit(2 * np.pi * i / n), FOCAL,
                          FOCAL, H, W)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-    spans = sorted({(e.time_range.start, e.time_range.end, e.name)
-                    for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+    wall_ms, idle, spans = device_profile(frames)
     if not spans:
         print("phase 3 profile: not measured (the profiler saw no device "
               "events)", flush=True)
         return
-    by, busy, end = {}, 0.0, spans[0][0]
-    for s, e, name in spans:
-        stage = next((k for k, pat in stages if pat in name), "other")
-        by[stage] = by.get(stage, 0.0) + (e - s)
-        busy += max(e - max(s, end), 0.0)
-        end = max(end, e)
-    idle = 1.0 - busy / (end - spans[0][0])
-    total = sum(by.values())
-    split = ", ".join(f"{k} {v / n / 1e3:.3f} ms ({100 * v / total:.1f} %)"
-                      for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
-    print(f"phase 3 profile: {n} frames, {wall_ms:.1f} ms/frame under the "
+    split, _ = stage_split(spans, FRAME_STAGES, n)
+    print(f"phase 3 profile: {n} frames, {wall_ms / n:.1f} ms/frame under the "
           f"profiler; device idle share {idle:.4f}; per frame: {split}",
           flush=True)
 
@@ -723,7 +1068,9 @@ def drive_training(params, state, cfg, device) -> dict:
         fail(f"training step output: losses {losses}, pred {tuple(pred.shape)}")
     if not all(moved.values()):
         fail(f"a trained group did not change: {moved}")
-    if any(v != TRAIN_STEPS for v in launches.values()):
+    # wgrad launches once per dense layer of every backward body.
+    if any(v != TRAIN_STEPS for n, v in launches.items() if n != "wgrad") \
+            or launches["wgrad"] < TRAIN_STEPS:
         fail(f"a training kernel did not launch once per step: {launches}")
     if max(plain_calls.values()) != 0:
         fail(f"a plain version ran on the training path: {plain_calls}")
@@ -747,11 +1094,302 @@ def drive_training(params, state, cfg, device) -> dict:
           f"fresh optimizer state: step loss {float(loss):.6f}; launches "
           f"{launched}", flush=True)
     if not (np.isfinite(float(loss)) and n_pr > 0 and n_add > 0
-            and min(launched.values()) == 1
+            and all(v == 1 for n, v in launched.items() if n != "wgrad")
+            and launched["wgrad"] >= 1
             and all(st["t"] == 1 for st in opt.values())):
         fail("the step after prune / grow failed")
     return {"launches": launches, "step_ms": step_ms, "rays_s": rays_s,
             "peak_gb": peak_gb}
+
+
+def cli_config(scene: str, save_dir: str, steps: int, **tpu):
+    """``configs/default.yml`` with the sphere run's point init and
+    ``coord_scale`` (``configs/quality_sphere.yml``): 30,000 padded points
+    (10,000 at the cube init), k = 20, 160x160 patches, bf16, MSE + 1e-2
+    LPIPS; a prune + grow event at step 10, an eval render and a checkpoint
+    every 5 steps, 100x100 render tiles."""
+    from papr_tpu_torch.config import load_config
+    ds = {"name": "testset", "type": "synthetic", "path": scene}
+    return load_config(overrides={
+        "index": "chip_smoke", "save_dir": save_dir, "seed": 1,
+        "use_amp": True, "max_num_pts": 30000,
+        "dataset": {"coord_scale": 1.0, "type": "synthetic", "white_bg": True,
+                    "path": scene, "factor": 1},
+        "geoms": {"points": {"init_type": "cube",
+                             "init_scale": [0.8, 0.8, 0.8],
+                             "init_num": 10000}},
+        "training": {"steps": steps, "prune_steps": 10, "prune_start": 10,
+                     "prune_stop": 12, "add_steps": 10, "add_start": 10,
+                     "add_stop": 12, "add_num": 1000},
+        "eval": {"dataset": ds, "step": 5, "img_idx": 0, "max_height": 100,
+                 "max_width": 100, "save_fig": False},
+        "test": {"save_fig": True, "save_video": False, "max_height": 100,
+                 "max_width": 100, "datasets": [ds]},
+        "tpu": {"topk_impl": "pallas", "fused_attn": True, **tpu}})
+
+
+def drive_cli_path(device) -> dict:
+    """Phase 5: dataset -> training loop -> checkpoint -> resume -> test
+    render, in process through ``train_and_eval`` and the test entry point,
+    the counters reset just before and read just after."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+    from papr_tpu_torch.cli import test as cli_test
+    from papr_tpu_torch.config import Config, make_eval_config, make_test_config
+    from papr_tpu_torch.dataset import get_dataset, get_loader
+    from papr_tpu_torch.dataset.dataset import device_prefetch
+    from papr_tpu_torch.dataset.synth import make_demo_scene
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.train import checkpoint as ck
+    from papr_tpu_torch.train.loop import train_and_eval
+    from papr_tpu_torch.train.losses import build_loss
+    from papr_tpu_torch.train.optim import tree_leaves
+    from papr_tpu_torch.train.step import (make_opt_state, make_train_step,
+                                           render_full_image)
+
+    root = tempfile.mkdtemp(prefix="papr_chip_smoke_")
+    t0 = time.perf_counter()
+    scene = make_demo_scene(os.path.join(root, "scene"), n_train=4, n_test=2,
+                            H=H, W=W)
+    print(f"phase 5 scene: procedural sphere, 4 train + 2 test + 1 val views "
+          f"at {H}x{W} written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    save_dir = os.path.join(root, "experiments")
+    cfg = cli_config(scene, save_dir, 12)
+    log_dir = os.path.join(save_dir, cfg.index)
+
+    def logged(fn):
+        """Run fn with its prints captured (and echoed with a prefix)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            print(f"phase 5 | {line}", flush=True)
+        return out, text
+
+    kernels, plains = cli_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(kernels, plains)
+
+    # ---- train: 12 steps, eval + checkpoint at 5 and 10, prune + grow at 10 --
+    t0 = time.perf_counter()
+    (params, opt, state, hist), text = logged(
+        lambda: train_and_eval(cfg, make_eval_config(cfg)))
+    train_s = time.perf_counter() - t0
+    losses = hist["train_losses"]
+    if "Training finished!" not in text or "Pruned" not in text \
+            or f"Added {int(cfg.training.add_num)} points" not in text:
+        fail("the training loop did not finish with its prune + grow event")
+    if hist["steps"] != [5, 10] or not all(np.isfinite(losses)) \
+            or not all(np.isfinite(hist["eval_psnrs"])):
+        fail(f"training histories: {hist}")
+
+    # ---- the checkpoint restores bit for bit; resume takes two more steps --
+    from papr_tpu_torch.model.papr import create_model
+    step, tree = ck.load_checkpoint(log_dir)
+    fresh_p, fresh_s = create_model(cfg, seed=7, device=device)
+    same = step == 12
+    for got, want in ((ck.restore_into(fresh_p, tree["params"]), params),
+                      (ck.restore_into(fresh_s, tree["state"]), state),
+                      (ck.restore_into(make_opt_state(cfg, fresh_p),
+                                       tree["opt_state"]), opt)):
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            same &= (bool(torch.equal(a, b)) if isinstance(a, torch.Tensor)
+                     else a == b)
+    t_before = {k: v["t"] for k, v in opt.items()}
+    cfg14 = cli_config(scene, save_dir, 14)
+    (params, opt, state, hist2), text = logged(
+        lambda: train_and_eval(cfg14, make_eval_config(cfg14), resume=1))
+    step2, _ = ck.load_checkpoint(log_dir)
+    t_after = {k: v["t"] for k, v in opt.items()}
+    print(f"phase 5 train_and_eval: 12 steps in {train_s:.1f} s (dataset, "
+          f"loss and eval renders included); mean loss steps 1-5 "
+          f"{losses[0]:.6f}, steps 6-10 {losses[1]:.6f}; eval PSNR "
+          + ", ".join(f"{p:.3f}" for p in hist["eval_psnrs"])
+          + f"; checkpoint at step {step} restored bit-equal (parameters, "
+          f"alive mask, Adam moments and t): {same}; resume -> step {step2}, "
+          f"Adam t {t_before} -> {t_after}", flush=True)
+    if not (same and "Resume from step 12" in text and step2 == 14
+            and all(t_after[k] == t_before[k] + 2 for k in t_after)):
+        fail("checkpoint / resume did not restore the training state")
+
+    # ---- the test entry point over the test split, 100x100 tiles ----
+    entry = Config(cfg14.test.datasets[0])
+    tcfg = make_test_config(cfg14, entry)
+    t0 = time.perf_counter()
+    means, text = logged(lambda: cli_test.run_test(tcfg, entry.name,
+                                                   entry.mode, 14))
+    test_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    plain_calls = {n: fn.calls for n, fn in plains.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    pngs = [f for f in os.listdir(os.path.join(log_dir, "test", "images"))
+            if f.endswith("-predrgb.png")]
+    print(f"phase 5 test entry point: 2 frames at {H}x{W} in 100x100 tiles in "
+          f"{test_s:.1f} s; PSNR {means['psnr']:.4f}, SSIM {means['ssim']:.4f}"
+          f", loss {means['loss']:.6f}; {len(pngs)} predrgb PNGs; peak device "
+          f"memory {peak_gb:.2f} GiB", flush=True)
+    print(f"phase 5 launches {launches}; plain-version calls {plain_calls}",
+          flush=True)
+    if not (np.isfinite(means["psnr"]) and np.isfinite(means["ssim"])
+            and "test PSNR:" in text and len(pngs) == 2):
+        fail(f"the test render failed: {means}")
+    need = ("topk_stream", "fused_mlp", "fused_mlp_bwd", "fused_scores_fwd",
+            "fused_scores_bwd", "wgrad")
+    if min(launches[n] for n in need) <= 0:
+        fail(f"a kernel of the command-line path never launched: {launches}")
+    if launches["fused_mlp"] < 3 * 14 or launches["fused_mlp_bwd"] != 3 * 14:
+        fail(f"the fused embedder did not run on all three stacks: {launches}")
+    if max(plain_calls.values()) != 0:
+        fail(f"a plain version ran on the command-line path: {plain_calls}")
+
+    # ---- one frame through the two-kernel eval path against the one-shot --
+    # After 14 steps the influence scores are still 0 (every score 0, the
+    # attention uniform), so these comparisons give the trained model seeded
+    # random ones, as build_model does: the score path then decides pixels.
+    test_set = get_dataset(tcfg.dataset, mode="test")
+    _, rayd, rayo = test_set.get_full_img(0)
+    probe = dict(params)
+    probe["points_influ_scores"] = torch.randn(
+        params["points_influ_scores"].shape,
+        generator=torch.Generator().manual_seed(8)).to(device)
+    frames = {}
+    for name, tpu in (("split-kernel", {}),
+                      ("one-shot", {"fused_attn": "streamrec"}),
+                      ("two-kernel", {"fused_attn": "streamrec",
+                                      "eval_fused": False})):
+        c = cli_config(scene, save_dir, 14, **tpu)
+        t0 = time.perf_counter()
+        frames[name] = render_full_image(probe, state, c, rayo, rayd, 100,
+                                         100, rgb_only=True,
+                                         rgb_uint8=True)["rgb"][0]
+        frames[name + " ms"] = (time.perf_counter() - t0) * 1e3
+    two = {n: kernels[n].launches - launches[n]
+           for n in ("key_stream_fwd", "value_stream_fwd",
+                     "attend_stream_eval")}
+    plain_calls = {n: fn.calls for n, fn in plains.items()}
+    diff = np.abs(frames["two-kernel"].astype(np.int16)
+                  - frames["one-shot"].astype(np.int16))
+    close = float((diff.max(-1) <= 2).mean())
+    sdiff = np.abs(frames["split-kernel"].astype(np.int16)
+                   - frames["one-shot"].astype(np.int16))
+    sclose = float((sdiff.max(-1) <= 2).mean())
+    mse = float(np.mean((sdiff / 255.0) ** 2))
+    print(f"phase 5 split-kernel frame (fused_attn true, topk_impl pallas) "
+          f"against the one-shot kernel's frame (cull selection): pixels "
+          f"within 2/255: {sclose:.6f} (need >= {EVAL_SPLIT_MIN_CLOSE}), max "
+          f"diff {int(sdiff.max())}, PSNR between them "
+          f"{-10 * np.log10(max(mse, 1e-12)):.2f} dB", flush=True)
+    # The same two paths before the UNet: fused features and attention of
+    # the whole frame (the uint8 pixels hide small differences).
+    att = {name: render_full_image(
+        probe, state, cli_config(scene, save_dir, 14, **tpu), rayo, rayd,
+        100, 100, attention_only=True)
+        for name, tpu in (("split", {}), ("one-shot",
+                                          {"fused_attn": "streamrec"}))}
+    f_rel = float(np.linalg.norm(att["split"]["fused"] - att["one-shot"]["fused"])
+                  / max(np.linalg.norm(att["one-shot"]["fused"]), 1e-30))
+    a_abs = float(np.abs(att["split"]["attn"] - att["one-shot"]["attn"]).max())
+    fg = 1.0 - att["one-shot"]["attn"][..., -1, 0]
+    # Selected positions (..., K, 3), each coordinate sorted along K.
+    same_sel = float((np.sort(att["split"]["selected"], -2)
+                      == np.sort(att["one-shot"]["selected"], -2))
+                     .all((-1, -2)).mean())
+    print(f"phase 5 split-kernel attention against the one-shot kernel's, "
+          f"whole frame: fused features rel Frobenius {f_rel:.3e} (need <= "
+          f"{SPLIT_FUSED_REL}), attn max abs {a_abs:.3e} (need <= "
+          f"{SPLIT_ATTN_ABS}); "
+          f"rays with the same selection {same_sel:.6f}; foreground "
+          f"attention mean {float(fg.mean()):.4f}, max {float(fg.max()):.4f}",
+          flush=True)
+    if not (sclose >= EVAL_SPLIT_MIN_CLOSE and f_rel <= SPLIT_FUSED_REL
+            and a_abs <= SPLIT_ATTN_ABS and float(fg.max()) > float(fg.min())):
+        fail("the split-kernel eval frame disagrees with the one-shot kernel")
+    del att, probe
+    print(f"phase 5 eval_fused false: two-kernel frame "
+          f"{frames['two-kernel ms']:.1f} ms, one-shot frame "
+          f"{frames['one-shot ms']:.1f} ms, the command-line path's "
+          f"split-kernel frame (fused_attn true, topk_impl pallas) "
+          f"{frames['split-kernel ms']:.1f} ms ({H}x{W}, 100x100 tiles, the "
+          f"first two include warm-up); pixels within 2/255: {close:.6f} "
+          f"(need >= {EVAL_TWO_MIN_CLOSE}), max diff {int(diff.max())}; "
+          f"launches {two}", flush=True)
+    if not (close >= EVAL_TWO_MIN_CLOSE and two["key_stream_fwd"] == 64
+            and two["value_stream_fwd"] == 64
+            and two["attend_stream_eval"] == 64
+            and max(plain_calls.values()) == 0
+            and int(frames["one-shot"].max()) > int(frames["one-shot"].min())):
+        fail("the two-kernel eval path disagrees with the one-shot kernel")
+
+    # ---- ms/step and idle share: a fixed batch against the real loader, and
+    # the other training mode on the same model and batch ----
+    policy = policy_from_config(cfg)
+    loss_fn = build_loss(cfg, policy, device=device)
+    steps = {"topk_impl pallas, fused_attn true": make_train_step(cfg, loss_fn),
+             "topk_impl cull, fused_attn streamrec": make_train_step(
+                 cli_config(scene, save_dir, 14, topk_impl="cull",
+                            fused_attn="streamrec"), loss_fn)}
+    dataset = get_dataset(cfg.dataset, mode="train", seed=int(cfg.seed))
+
+    def batches():
+        while True:
+            yield from device_prefetch(get_loader(dataset, cfg.dataset),
+                                       device=device)
+
+    feed = batches()
+    fixed = next(feed)
+    n_rays = fixed.rayd[..., 0].numel()
+    cli_mode, other_mode = steps
+
+    def run(n, mode, source):
+        losses = []
+        for i in range(n):
+            b = source()
+            losses.append(steps[mode](params, opt, state, b.rayo, b.rayd,
+                                      b.image, b.c2w, 1000 + i)[2])
+        return losses
+
+    out = {}
+    for name, mode, source in (("fixed batch", cli_mode, lambda: fixed),
+                               ("real loader", cli_mode, lambda: next(feed)),
+                               ("fixed batch", other_mode, lambda: fixed)):
+        seen = run(1, mode, source)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen += run(TRAIN_STEPS, mode, source)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        wall, idle, spans = device_profile(lambda: run(3, mode, source))
+        split, kern = stage_split(spans, TRAIN_STAGES, 3, TRAIN_OTHER)
+        out[name, mode] = ms
+        if name == "fixed batch":
+            # The loop's patches are random crops (some all background), so
+            # the loss is held to fall where the batch stays the same.
+            fixed_losses = [float(l) for l in seen]
+            if not (all(np.isfinite(fixed_losses))
+                    and fixed_losses[-1] < fixed_losses[0]):
+                fail(f"the loss on a fixed batch did not fall: {fixed_losses}")
+            print(f"phase 5 losses on the fixed batch ({mode}): "
+                  + ", ".join(f"{l:.6f}" for l in fixed_losses), flush=True)
+        print(f"phase 5 step ({name}; {mode}, {n_rays} rays): {ms:.1f} ms/step "
+              f"over {TRAIN_STEPS} steps = {n_rays / ms * 1e3:.0f} rays/s; 3 "
+              f"profiled steps: {wall / 3:.1f} ms/step, device idle share "
+              f"{idle:.4f}, kernel time {kern:.3f} ms/step: {split}; largest "
+              f"of 'other': {largest_unstaged(spans, TRAIN_STAGES, 3)}",
+              flush=True)
+    plain_calls = {n: fn.calls for n, fn in plains.items()}
+    if max(plain_calls.values()) != 0:
+        fail(f"a plain version ran in the timed steps: {plain_calls}")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "step_ms": out["real loader", cli_mode]}
 
 
 def device_profile(fn):
@@ -779,6 +1417,56 @@ def device_profile(fn):
     return wall_ms, 1.0 - busy / (end - spans[0][0]), spans
 
 
+# Stage of a device kernel: the first pattern found in its name.
+FRAME_STAGES = (("K3 attend_eval", "attend_eval"), ("K2 fused_mlp", "fused_mlp"),
+                ("K1 cull", "cull_topk"), ("sort", "Sort"),
+                ("conv (cuDNN)", "fprop"), ("gemm", "gemm"))
+TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
+                ("selection (streaming top-k kernel)", "topk_stream"),
+                ("embedder fwd", "fused_mlp_fwd_kernel"),
+                ("embedder bwd", "fused_mlp_bwd_kernel"),
+                ("fused scores fwd", "fused_scores_fwd_kernel"),
+                ("fused scores bwd", "fused_scores_bwd_kernel"),
+                ("key stream fwd", "key_fwd_kernel"),
+                ("key stream bwd", "key_bwd_kernel"),
+                ("value stream fwd", "value_fwd_kernel"),
+                ("value stream bwd", "value_bwd_kernel"),
+                ("dW reduction (wgrad)", "wgrad_kernel"),
+                ("dW reduction (wgrad)", "colsum_kernel"),
+                ("selection (prefilter sort / top-k)", "ort"),
+                ("selection (prefilter sort / top-k)", "topk"),
+                ("convolutions (UNet + LPIPS)", "conv"),
+                ("convolutions (UNet + LPIPS)", "xmma"),
+                ("convolutions (UNet + LPIPS)", "cudnn"),
+                ("gemm", "gemm"))
+TRAIN_OTHER = ("other (gather / scatter, elementwise, UNet / LPIPS non-conv, "
+               "optimizer)")
+
+
+def stage_split(spans, stages, n: int, other: str = "other"):
+    """Kernel time of the spans by stage -> ("stage x ms (y %), ..." per unit
+    over n units, largest first; total kernel ms per unit)."""
+    by = {}
+    for s0, e0, name in spans:
+        stage = next((k for k, pat in stages if pat in name), other)
+        by[stage] = by.get(stage, 0.0) + (e0 - s0)
+    total = sum(by.values())
+    text = ", ".join(f"{k} {v / n / 1e3:.3f} ms ({100 * v / total:.1f} %)"
+                     for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+    return text, total / n / 1e3
+
+
+def largest_unstaged(spans, stages, n: int, count: int = 3) -> str:
+    """The kernels no stage pattern names, largest first: "name x ms" per
+    unit over n units."""
+    by = {}
+    for s0, e0, name in spans:
+        if not any(pat in name for _, pat in stages):
+            by[name] = by.get(name, 0.0) + (e0 - s0)
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:count]
+    return ", ".join(f"{k[:70]} {v / n / 1e3:.3f} ms" for k, v in top)
+
+
 def profile_train_step(step_fn, params, opt, state, cfg, rayo, rayd, target,
                        c2w, loss_fn, policy) -> None:
     """Device-time split of one training step by stage (kernel names), the
@@ -790,38 +1478,15 @@ def profile_train_step(step_fn, params, opt, state, cfg, rayo, rayd, target,
     from papr_tpu_torch.train.optim import (apply_updates, build_group_specs,
                                             init_opt_state, tree_map)
 
-    stages = (("selection (cull kernel)", "cull_topk"),
-              ("query embedder fwd", "fused_mlp_fwd_kernel"),
-              ("query embedder bwd", "fused_mlp_bwd_kernel"),
-              ("key stream fwd", "key_fwd_kernel"),
-              ("key stream bwd", "key_bwd_kernel"),
-              ("value stream fwd", "value_fwd_kernel"),
-              ("value stream bwd", "value_bwd_kernel"),
-              ("dW reduction (wgrad)", "wgrad_kernel"),
-              ("dW reduction (wgrad)", "colsum_kernel"),
-              ("selection (prefilter sort / top-k)", "ort"),
-              ("selection (prefilter sort / top-k)", "topk"),
-              ("convolutions (UNet + LPIPS)", "conv"),
-              ("convolutions (UNet + LPIPS)", "xmma"),
-              ("convolutions (UNet + LPIPS)", "cudnn"),
-              ("gemm", "gemm"))
     wall_ms, idle, spans = device_profile(
         lambda: step_fn(params, opt, state, rayo, rayd, target, c2w, 1500))
     if not spans:
         print("phase 4 profile: not measured (the profiler saw no device "
               "events)", flush=True)
         return
-    by = {}
-    for s0, e0, name in spans:
-        stage = next((k for k, pat in stages if pat in name),
-                     "other (gather / scatter, elementwise, UNet / LPIPS "
-                     "non-conv, optimizer)")
-        by[stage] = by.get(stage, 0.0) + (e0 - s0)
-    total = sum(by.values())
-    split = ", ".join(f"{k} {v / 1e3:.3f} ms ({100 * v / total:.1f} %)"
-                      for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+    split, total = stage_split(spans, TRAIN_STAGES, 1, TRAIN_OTHER)
     print(f"phase 4 profile: one step, {wall_ms:.1f} ms under the profiler; "
-          f"device idle share {idle:.4f}; kernel time {total / 1e3:.3f} ms: "
+          f"device idle share {idle:.4f}; kernel time {total:.3f} ms: "
           f"{split}", flush=True)
 
     feats = torch.randn(1, PATCH, PATCH,
@@ -856,8 +1521,10 @@ def profile_train_step(step_fn, params, opt, state, cfg, rayo, rayd, target,
 
 def train_reference_check(device, side: int = 32) -> None:
     """One training step's loss and gradients at a 32x32 patch, flagship
-    widths: the bf16 kernel path against the plain fp32 path
-    (tpu.fused_attn: false, use_amp: false) on the same weights."""
+    widths: the two bf16 kernel paths (``streamrec`` + ``cull``; ``fused_attn:
+    true`` + ``topk_impl: pallas``) against the plain fp32 path
+    (tpu.fused_attn: false, use_amp: false) on the same weights and the
+    same selection."""
     import torch
     from papr_tpu_torch.nn.mlp import policy_from_config
     from papr_tpu_torch.train.losses import build_loss
@@ -868,31 +1535,39 @@ def train_reference_check(device, side: int = 32) -> None:
     rayd = rayd[:, :side, :side].contiguous()
     gen = torch.Generator(device=device).manual_seed(5)
     target = torch.rand(1, side, side, 3, generator=gen, device=device)
-    res = {}
-    for name, cfg in (("kernel", flagship_cfg()),
-                      ("plain", flagship_cfg(amp=False, fused_attn=False))):
+
+    def step(cfg):
         params, state = build_model(cfg, device)
         policy = policy_from_config(cfg)
         loss, _, grads = loss_and_grads(
             params, state, cfg, rayo, rayd, target, orbit(0.0),
             build_loss(cfg, policy, device=device), build_group_specs(cfg),
             policy)
-        res[name] = (float(loss), {k: torch.cat([g.float().reshape(-1) for g
-                                                 in tree_leaves(v)])
-                                   for k, v in grads.items()})
-    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
-    loss_rel = abs(lk - lp) / max(abs(lp), 1e-30)
-    errs = {k: rel_fro(gk[k], gp[k]) for k in gp}
-    finite = np.isfinite(lk) and all(bool(torch.isfinite(g).all())
-                                     for g in gk.values())
-    print(f"phase 4 reference: {side}x{side} patch, one step, bf16 kernel path "
-          f"vs fp32 plain path: loss {lk:.6f} vs {lp:.6f} (rel {loss_rel:.3e}, "
-          f"need <= {TRAIN_REF_LOSS_REL}); gradient rel Frobenius "
-          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f" (need <= {TRAIN_REF_GRAD_REL}); finite {finite}", flush=True)
-    if not (finite and loss_rel <= TRAIN_REF_LOSS_REL
-            and max(errs.values()) <= TRAIN_REF_GRAD_REL):
-        fail("the training step's kernel path disagrees with the plain path")
+        return float(loss), {k: torch.cat([g.float().reshape(-1)
+                                           for g in tree_leaves(v)])
+                             for k, v in grads.items()}
+
+    # Each kernel path against the plain path on the same selection.
+    for name, tpu in (("streamrec + cull", {"topk_impl": "cull"}),
+                      ("true + pallas", {"topk_impl": "pallas",
+                                         "fused_attn": True})):
+        lk, gk = step(flagship_cfg(**tpu))
+        lp, gp = step(flagship_cfg(amp=False, **{**tpu, "fused_attn": False}))
+        loss_rel = abs(lk - lp) / max(abs(lp), 1e-30)
+        errs = {k: rel_fro(gk[k], gp[k]) for k in gp}
+        finite = np.isfinite(lk) and all(bool(torch.isfinite(g).all())
+                                         for g in gk.values())
+        print(f"phase 4 reference: {side}x{side} patch, one step, bf16 kernel "
+              f"path ({name}) vs fp32 plain path: loss {lk:.6f} vs {lp:.6f} "
+              f"(rel {loss_rel:.3e}, need <= {TRAIN_REF_LOSS_REL}); gradient "
+              "rel Frobenius "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (need <= {TRAIN_REF_GRAD_REL}); finite {finite}",
+              flush=True)
+        if not (finite and loss_rel <= TRAIN_REF_LOSS_REL
+                and max(errs.values()) <= TRAIN_REF_GRAD_REL):
+            fail(f"the training step's kernel path ({name}) disagrees with "
+                 "the plain path")
 
 
 def main() -> None:
@@ -928,15 +1603,37 @@ def main() -> None:
     train_results = compare_train_kernels(params, state, cfg, device)
     results[0].update(train_results.pop("cull_select"))
     results += list(train_results.values())
+    cli_results, stacks = compare_cli_kernels(params, state, cfg, device)
+    results += cli_results
+    for r in results:
+        # The embedder kernels at the command-line path's key / value stacks.
+        if r["name"] in stacks:
+            r["stacks"] = stacks[r["name"]]
     run = drive_main_path(params, state, cfg, device)
     profile_frames(params, state, cfg)
     reference_check(device)
     train = drive_training(params, state, cfg, device)
     train_reference_check(device)
+    del params, state
+    torch.cuda.empty_cache()
+    cli = drive_cli_path(device)
 
+    # Each kernel's launches on the main path that holds it: the serving
+    # path and the training step (phases 3, 4), or the command-line path.
+    cli_only = ("topk_stream", "fused_scores_fwd", "fused_scores_bwd")
     for r in results:
-        r["launches"] = (run["launches"].get(r["name"], 0)
+        r["launches"] = (cli["launches"][r["name"]] if r["name"] in cli_only
+                         else run["launches"].get(r["name"], 0)
                          + train["launches"].get(r["name"], 0))
+        if cli["launches"].get(r["name"], 0) > 0:
+            r["launches_command_line_path"] = cli["launches"][r["name"]]
+        missing = [key for key in ("name", "route", "source", "replaces",
+                                   "launches", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms") if key not in r]
+        if missing or r["launches"] <= 0:
+            fail(f"kernel record {r.get('name')}: missing {missing}, "
+                 f"launches {r.get('launches')}")
     print(json.dumps({"kernels": results}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

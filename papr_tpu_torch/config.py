@@ -99,3 +99,20 @@ def load_config(scene_path: str | None = None,
     if overrides:
         merge_config(cfg, overrides)
     return Config(cfg)
+
+
+def make_eval_config(train_cfg: Config) -> Config:
+    """Derive the eval-time config: ``dataset`` updated from ``eval.dataset``
+    (reference train.py:351-352)."""
+    cfg = copy.deepcopy(dict(train_cfg))
+    cfg["dataset"] = dict(cfg["dataset"])
+    cfg["dataset"].update(cfg["eval"]["dataset"])
+    return Config(cfg)
+
+
+def make_test_config(cfg: Config, dataset_entry: Mapping[str, Any]) -> Config:
+    """Derive a per-test-dataset config (reference test.py:371-376)."""
+    out = copy.deepcopy(dict(cfg))
+    out["dataset"] = dict(out["dataset"])
+    out["dataset"].update(dataset_entry)
+    return Config(out)

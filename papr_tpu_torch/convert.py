@@ -18,12 +18,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .model.papr import model_meta
 
 
-def to_torch(tree, device="cpu"):
+def to_torch(tree, device=None):
     """Nested dicts / lists of numpy arrays -> the same tree of tensors
-    (float32, or bool for masks) on ``device``."""
+    (float32, or bool for masks) on ``device`` (``None``: the card, and an
+    error without one, as in every converter here)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -34,7 +37,7 @@ def to_torch(tree, device="cpu"):
     return torch.from_numpy(arr.astype(np.float32)).to(device)
 
 
-def from_jax_params(params_np: dict, state_np: dict, cfg, device="cpu"):
+def from_jax_params(params_np: dict, state_np: dict, cfg, device=None):
     """(params, state) numpy pytrees of ``papr_tpu.model.papr.create_model``
     -> the port's (params, state) on ``device``."""
     params = to_torch(params_np, device)
@@ -65,9 +68,10 @@ def from_jax_opt_state(opt_state_np: dict, params: dict, cfg) -> dict:
     return out
 
 
-def from_jax_lpips_params(lp_np: dict, device="cpu") -> dict:
+def from_jax_lpips_params(lp_np: dict, device=None) -> dict:
     """JAX LPIPS params ({"convs": [{"w": HWIO, "b"}], "lins": [...]}, numpy)
     -> the port's (OIHW kernels for ``F.conv2d``)."""
+    device = resolve_device(device)
     t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
     convs = [{"w": t(np.asarray(c["w"]).transpose(3, 2, 0, 1)), "b": t(c["b"])}
              for c in lp_np["convs"]]

@@ -46,6 +46,9 @@ SIGNATURES = {
     "papr_value_stream_fwd": [P, I, I, I, P, P, P, P, P, P, P, P, I, F, P, P],
     "papr_value_stream_bwd": [P, I, I, I, P, P, P, P, P, P, P, P, P, P, I, F,
                               P, P, P, I, P, P, P, P, P, I, P, P],
+    "papr_topk_stream": [P, P, P, P, I, I, I, I, P, P],
+    "papr_fused_scores_fwd": [P] * 8 + [I] * 8 + [F, F, I, P, P, P],
+    "papr_fused_scores_bwd": [P] * 8 + [I] * 8 + [F, F, I] + [P] * 10,
 }
 
 _lib = None

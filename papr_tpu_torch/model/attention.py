@@ -67,14 +67,21 @@ def _encode(features, Ls, embed_type: int, pe_factor: float, pe_mult: float,
 
 def embed_kqv(params: dict, attn_cfg, k_features, q_features, v_features,
               k_extra=None, q_extra=None, v_extra=None, eps: float = 1e-6,
-              policy: Policy = F32):
-    """Run the three geometric embedders, unfused -> (embed_k, embed_q,
-    embed_v). Inputs are lists of geometric features (..., K, d_i) (query:
-    (..., d_i)). The fused eval path embeds in ``ops/fused_mlp.py`` and
-    ``ops/stream_attn.py`` instead."""
+              policy: Policy = F32, fused: bool = False):
+    """Run the three geometric embedders -> (embed_k, embed_q, embed_v).
+    Inputs are lists of geometric features (..., K, d_i) (query:
+    (..., d_i)). With ``fused`` every embedder runs posenc + LN + dense
+    stack + LN in one dispatch with its kernel backward
+    (``ops/fused_mlp.py``; the plain version for CPU tensors): the caller
+    asks for it only where ``feedforward_fusible`` holds for all three
+    stacks. The stream paths embed inside ``ops/stream_attn.py`` instead."""
     e = attn_cfg.embed
 
     def run(ff_params, feats, Ls, extra, ff_cfg):
+        if fused:
+            from ..ops.fused_mlp import fused_embedder_apply
+            return fused_embedder_apply(ff_params, feats, extra, Ls, e,
+                                        ff_cfg, policy)
         x = _encode(feats, Ls, e.embed_type, e.pe_factor, e.pe_mult_factor,
                     extra)
         return feedforward_apply(ff_params, policy.cast(x), ff_cfg,

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
+
 # VGG16 feature-extractor conv plan: (out_channels, pool_before)
 VGG16_CONVS = [
     (64, False), (64, False),
@@ -48,9 +50,11 @@ def _hwio_to_oihw(w: np.ndarray) -> torch.Tensor:
         np.asarray(w, np.float32).transpose(3, 2, 0, 1)))
 
 
-def load_lin_params(path: str | None = None, device="cpu") -> list | None:
+def load_lin_params(path: str | None = None, device=None) -> list | None:
     """The 5 learned lin-head weight vectors, or None when the asset is
-    missing."""
+    missing. ``device`` ``None`` is the card (an error without one), here
+    and in the two functions below."""
+    device = resolve_device(device)
     path = path or DEFAULT_LIN_WEIGHTS
     if not os.path.exists(path):
         return None
@@ -59,7 +63,8 @@ def load_lin_params(path: str | None = None, device="cpu") -> list | None:
                 for i in range(5)]
 
 
-def load_lpips_params(path: str | None = None, device="cpu") -> dict:
+def load_lpips_params(path: str | None = None, device=None) -> dict:
+    device = resolve_device(device)
     path = path or os.environ.get("PAPR_LPIPS_WEIGHTS", DEFAULT_WEIGHTS)
     if not os.path.exists(path):
         raise FileNotFoundError(
@@ -78,11 +83,12 @@ def load_lpips_params(path: str | None = None, device="cpu") -> dict:
 
 
 def random_lpips_params(seed: int = 0, use_real_lins: bool = False,
-                        device="cpu") -> dict:
+                        device=None) -> dict:
     """Seeded random backbone (no-torchvision fallback): the shapes and
     scales of the JAX package's ``random_lpips_params`` — N(0, 1) * 0.05
     kernels (drawn HWIO) and biases, U(0, 1) lin heads unless the real ones
     are asked for. The bits differ from jax.random's."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     convs, in_c = [], 3
     for out_c, _ in VGG16_CONVS:

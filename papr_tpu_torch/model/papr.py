@@ -17,22 +17,34 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
 
 * ``topk_impl: auto`` -> the tile-culled selection when P <= 32768 (its
   stage-3 kernel on the card, the plain version on the CPU), exact selection
-  otherwise; ``cull`` / ``xla`` pin either. ``pallas`` and ``approx`` name
-  selections not ported yet and raise.
+  otherwise; ``cull`` / ``xla`` pin either. ``pallas`` -> the streaming
+  top-k over every point (``ops/pallas_topk.py``: ``csrc/topk_stream.cu`` on
+  the card, its plain version on the CPU; P <= 32768). ``approx`` names a
+  selection not ported yet and raises (ROADMAP.md Queue 2 item 1c).
 * ``fused_attn: auto`` (fusible configs) or ``streamrec`` -> the fused
   query embedder, then for eval the one-shot eval attention and for
   training the key and value streams with their backwards (kernels on the
-  card, plain versions on the CPU); ``false`` -> the plain unfused PyTorch
-  path, differentiable, the parity oracle. ``stream``, ``score``, ``embed``
-  and ``true`` name kernels not ported yet and raise.
+  card, plain versions on the CPU). ``true`` | ``embed`` | ``score`` -> the
+  split-kernel path on k-major tokens: ``true`` / ``embed`` run the fused
+  embedder (forward and backward kernels) on the key, query and value
+  stacks, ``true`` / ``score`` run ``ops/fused_attn.py fused_scores``
+  (forward and backward kernels) for the projections, scores and softmax;
+  the stage a value leaves out is plain PyTorch, and the
+  renormalize-and-fuse epilogue always is. ``false`` -> the plain unfused
+  PyTorch path, differentiable, the parity oracle; a config the kernels do
+  not cover takes it too. ``stream`` names kernels not ported yet and raises
+  (ROADMAP.md Queue 2 item 8).
+* ``eval_fused: false`` (with ``streamrec``, at eval) -> the two training
+  stream kernels' forwards on the k-major gathered record under
+  ``torch.no_grad()`` instead of the one-shot eval kernel.
 * Training selection reads ``tpu.cull_prefilter`` (default ``approx``, read
   as the exact top-k of the cone lower bounds, see ``ops/tile_cull.py``);
   eval pins ``tpu.cull_prefilter_eval`` like the JAX eval path.
 * Training raises for embedder dropout (``dropout_ff > 0``) and
   ``tpu.int8_train: true`` (ROADMAP.md Queue 1 item 6, Queue 2 item 11).
-* ``eval_fused: false``, ``int8_eval: true`` and ``query_fold: true`` name
-  kernels not ported yet and raise; a ``tpu.mesh`` of more than one device
-  raises (single-card slice).
+* ``int8_eval: true`` and ``query_fold: true`` name kernels not ported yet
+  and raise (ROADMAP.md Queue 2 items 10 and 9); a ``tpu.mesh`` of more than
+  one device raises (single-card slice, Queue 1 item 12).
 * The TPU tuning knobs (``fused_tile``, ``vmem_mb``, ``mxu_reduce``,
   ``force_local``, ``remat_embed``, ``donate_state``) select no computation
   and have no meaning on the card.
@@ -47,6 +59,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..nn.mlp import F32, Policy, linear_apply, mlp_apply, mlp_init
 from ..nn.unet import small_unet_apply, small_unet_init
 from ..ops.geometry import normalize_vector, point_ray_geometry
@@ -135,9 +148,10 @@ def model_meta(cfg) -> ModelMeta:
 
 # -------------------------------------------------------------------- init --
 
-def create_model(cfg, seed: int = 0, device="cpu",
+def create_model(cfg, seed: int = 0, device=None,
                  init_points: np.ndarray | None = None):
-    """Build (params, state) on ``device``; ``state`` holds the alive mask.
+    """Build (params, state) on ``device`` (``None``: the card, and an error
+    without one); ``state`` holds the alive mask.
 
     Points come from the config's init (numpy, seeded by ``cfg.seed``, so
     they equal the JAX package's); weights are drawn from a
@@ -170,7 +184,7 @@ def create_model(cfg, seed: int = 0, device="cpu",
     alive[:n_live] = True
 
     gen = torch.Generator().manual_seed(int(seed))
-    dev = torch.device(device)
+    dev = resolve_device(device)
     params: dict[str, Any] = {
         "points": torch.from_numpy(points).to(dev),
         "points_influ_scores": torch.full(
@@ -244,25 +258,24 @@ def _check_single_device(cfg) -> None:
 
 
 def resolve_topk_impl(cfg, P: int) -> str:
-    """``tpu.topk_impl`` -> 'cull' or 'xla' (see module docstring)."""
+    """``tpu.topk_impl`` -> 'cull', 'pallas' or 'xla' (see module
+    docstring)."""
     impl = cfg.get_path("tpu.topk_impl", "auto")
     if impl == "auto":
         return "cull" if P <= (1 << 15) else "xla"
-    if impl in ("cull", "xla"):
+    if impl in ("cull", "pallas", "xla"):
         return impl
-    if impl == "pallas":
-        raise NotImplementedError(
-            "tpu.topk_impl: pallas (uncull pack-min-extract kernel) is "
-            "ROADMAP.md Queue 2 item 6; use auto, cull or xla")
     if impl == "approx":
         raise NotImplementedError(
             "tpu.topk_impl: approx (approx_min_k over every point) is not "
-            "ported (ROADMAP.md Queue 2 item 1c); use auto, cull or xla")
+            "ported (ROADMAP.md Queue 2 item 1c); use auto, cull, pallas or "
+            "xla")
     raise ValueError(f"unknown tpu.topk_impl {impl!r}")
 
 
-def resolve_fused_attn(cfg, fusible: bool, eval_mode: bool = True):
-    """``tpu.fused_attn`` -> 'streamrec' (the kernels) or False (plain)."""
+def resolve_fused_attn(cfg, fusible: bool):
+    """``tpu.fused_attn`` -> 'streamrec', True, 'embed' or 'score' (the
+    kernels that run) or False (the plain path); see the module docstring."""
     fa = cfg.get_path("tpu.fused_attn", "auto")
     for knob, bad, item in (("int8_eval", True, "10"),
                             ("query_fold", True, "9")):
@@ -271,21 +284,14 @@ def resolve_fused_attn(cfg, fusible: bool, eval_mode: bool = True):
                 f"tpu.{knob}: {bad} names a kernel not ported yet "
                 f"(ROADMAP.md Queue 2 item {item})")
     if fa == "auto":
-        fa = "streamrec" if fusible else False
-    elif fa is False:
+        fa = "streamrec"
+    if fa is False:
         return False
-    elif fa == "streamrec":
-        fa = "streamrec" if fusible else False
-    else:
-        raise NotImplementedError(
-            f"tpu.fused_attn: {fa!r} names kernels not ported yet "
-            "(ROADMAP.md Queue 2 items 7-8); use auto, streamrec or false")
-    if (fa == "streamrec" and eval_mode
-            and not bool(cfg.get_path("tpu.eval_fused", True))):
-        raise NotImplementedError(
-            "tpu.eval_fused: false (the two training stream kernels at eval) "
-            "is not wired yet (ROADMAP.md Queue 2 item 4b)")
-    return fa
+    if fa is True or fa in ("streamrec", "embed", "score"):
+        return fa if fusible else False
+    raise NotImplementedError(
+        f"tpu.fused_attn: {fa!r} names kernels not ported yet (ROADMAP.md "
+        "Queue 2 item 8); use auto, streamrec, true, embed, score or false")
 
 
 def _check_train_knobs(cfg) -> None:
@@ -344,6 +350,11 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
                 points, alive, rays_o[i], rds[i].reshape(H, W, 3), k, M=M,
                 block=blk, eps=eps, prefilter=pf, early_exit=ee)
                 for i in range(N)])
+        elif impl == "pallas":
+            from ..ops.pallas_topk import pallas_select_topk
+            idx = torch.stack([pallas_select_topk(points, alive, rays_o[i],
+                                                  rds[i], k, eps)
+                               for i in range(N)])
         else:
             chunk = int(cfg.get_path("tpu.ray_chunk", 4096))
             idx = torch.stack([select_topk(points, alive, rays_o[i], rds[i],
@@ -356,10 +367,22 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
                and score_fusible(cfg.models.attn)
                and all(feedforward_fusible(c)
                        for c in (e.key, e.query, e.value)))
-    if resolve_fused_attn(cfg, fusible, exact_select) == "streamrec":
-        run = _attend_eval_kernels if exact_select else _attend_train_kernels
-        fused_f, attn = run(params, cfg, meta, idx, rays_o, rays_d, alive,
-                            eps, policy)
+    fa = resolve_fused_attn(cfg, fusible)
+    if fa == "streamrec":
+        # tpu.eval_fused: false restores the two-kernel eval path: the
+        # training streams' forwards, nothing differentiated.
+        eval_one = exact_select and bool(cfg.get_path("tpu.eval_fused", True))
+        run = _attend_eval_kernels if eval_one else _attend_train_kernels
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not exact_select):
+            fused_f, attn = run(params, cfg, meta, idx, rays_o, rays_d, alive,
+                                eps, policy)
+        return fused_f, attn, idx
+    if fa is not False:
+        fused_f, attn = _attend_split(
+            params, cfg, meta, idx, rays_o, rays_d, alive, eps, policy,
+            use_embed_kernel=fa in (True, "embed"),
+            use_score_kernel=fa in (True, "score"))
         return fused_f, attn, idx
 
     # Plain unfused path (papr.py:425-474), the parity oracle.
@@ -455,6 +478,97 @@ def _attend_train_kernels(params, cfg, meta, idx, rays_o, rays_d, alive,
     fused_f = value_stream_fuse_rec(rec, rayo_flat, rays, attn, vwalk,
                                     bool(cfg.models.normalize_topk_attn), eps,
                                     cdt)
+    return fused_f.reshape(N, H, W, -1), attn.reshape(N, H, W, k + 1)
+
+
+def _split_embeddings(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
+                      policy, use_embed_kernel: bool):
+    """Head of the split-kernel path: the k-major record gather, the
+    per-token geometry and the three embedders (fused or plain) ->
+    (embed_k (K, T, Dk), embed_q (T, Dq), embed_v (K, T, C), influ (T, K),
+    sel_alive (T, K) bool)."""
+    N, H, W, _ = rays_d.shape
+    k = idx.shape[-1]
+    T = N * H * W
+    pcf = cfg.geoms.point_feats
+
+    record = _point_record(params, alive, meta, pcf)
+    rec = record[idx.reshape(T, k).T.long()]                 # (K, T, 128n)
+    selected = rec[..., :3]
+    influ = rec[..., 3].T                                    # (T, K)
+    sel_alive = rec[..., 4].T > 0.5
+
+    rayd_flat = rays_d.reshape(T, 3)
+    rayo_flat = rays_o[:, None, :].expand(N, H * W, 3).reshape(T, 3)
+    rays = normalize_vector(rayd_flat, eps=eps)
+    v = selected - rayo_flat
+    t_along = (v * rays).sum(-1)
+    dd = (rays * rays).sum(-1)
+    proj = rays * (t_along / (dd + eps))[..., None]          # (K, T, 3)
+    perp = v - proj
+
+    flat = lambda x: x.reshape(k * T, x.shape[-1])
+    k_feats = [flat(selected.detach()), flat(proj), flat(perp)]
+    v_feats = [flat(proj), flat(perp)]
+    k_extra = v_extra = None
+    if meta.use_pc_feats:
+        gathered = flat(rec[..., 5:5 + int(pcf.dim)])
+        if pcf.use_ink:
+            k_extra = [gathered]
+        if pcf.use_inv:
+            v_extra = [gathered]
+    ek, eq, ev = embed_kqv(params["attn"], cfg.models.attn, k_feats,
+                           [rayd_flat], v_feats, k_extra, None, v_extra,
+                           eps=eps, policy=policy, fused=use_embed_kernel)
+    return (ek.reshape(k, T, ek.shape[-1]), eq,
+            ev.reshape(k, T, ev.shape[-1]), influ, sel_alive)
+
+
+def _attend_split(params, cfg, meta, idx, rays_o, rays_d, alive, eps, policy,
+                  use_embed_kernel: bool, use_score_kernel: bool):
+    """The split-kernel branch of ``_attend_kmaj`` (papr.py:540-612,
+    730-751, 783-795), in k-major token order: every (tokens, dim) tensor is
+    plain 2D with token order (k, ray), so the (K*T, D) embedder outputs
+    view freely as (K, T, D). The embedders run fused (``use_embed_kernel``)
+    or plain, the score tail through ``fused_scores`` (``use_score_kernel``)
+    or plain; the renormalize-and-fuse epilogue is plain PyTorch."""
+    from ..nn.activations import build_activation
+    from ..ops.fused_attn import fused_scores
+
+    N, H, W, _ = rays_d.shape
+    k = idx.shape[-1]
+    T = N * H * W
+    attn_cfg = cfg.models.attn
+    bkg_score = float(cfg.geoms.background.constant)
+    ek, eq, ev3, influ, sel_alive = _split_embeddings(
+        params, cfg, meta, idx, rays_o, rays_d, alive, eps, policy,
+        use_embed_kernel)
+
+    if use_score_kernel:
+        attn = fused_scores(
+            ek, eq, params["attn"]["w_k"]["w"], params["attn"]["w_k"]["bias"],
+            params["attn"]["w_q"]["w"], params["attn"]["w_q"]["bias"],
+            influ.float(), sel_alive.float(), score_act=attn_cfg.score_act,
+            bkg_score=bkg_score, compute=policy.compute_dtype)  # (T, K+1)
+    else:
+        kk = linear_apply(params["attn"]["w_k"], ek, policy).float()
+        qq = linear_apply(params["attn"]["w_q"], eq, policy).float()
+        raw = (qq[None] * kk).sum(-1) / math.sqrt(attn_cfg.d_model)
+        scores = build_activation(attn_cfg.score_act)(raw).T     # (T, K)
+        scores = scores * influ.float()
+        scores = torch.where(sel_alive, scores, NEG_BIG)
+        bkg = torch.full((T, 1), bkg_score, dtype=torch.float32,
+                         device=scores.device)
+        attn = torch.softmax(torch.cat([scores, bkg], dim=-1), dim=-1)
+
+    # Renormalize + fuse (models/model.py:533-534); an all-dead ray (the
+    # foreground mass exactly 0, possible only with padded slots)
+    # renormalizes against 1: fused 0, the composite pure background.
+    topk_attn = attn[:, :-1]
+    if cfg.models.normalize_topk_attn:
+        den = topk_attn.sum(-1, keepdim=True)
+        topk_attn = topk_attn / torch.where(den > 0, den, torch.ones_like(den))
+    fused_f = torch.einsum("tk,ktc->tc", topk_attn, ev3.float())
     return fused_f.reshape(N, H, W, -1), attn.reshape(N, H, W, k + 1)
 
 

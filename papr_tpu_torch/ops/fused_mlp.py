@@ -251,21 +251,9 @@ class BwdBuffers:
         from ..kernels import build
         m = len(self.hs_w)
         base = self.stash.data_ptr()
-        dws = []
-        for i in range(m):
-            da, db = self.hs_w[i], self.dz_w[i]
-            tiles = -(-da // 64) * -(-db // 64)
-            # Enough token ranges for ~2 blocks per SM (132 SMs on an H100),
-            # each range at least 256 tokens.
-            splits = max(1, min(-(-264 // tiles), -(-self.N // 256)))
-            tmp = torch.empty(splits * da * db, dtype=torch.float32,
-                              device=self.dev)
-            out = torch.empty(da, db, dtype=torch.float32, device=self.dev)
-            build.check(lib.papr_wgrad(base + 2 * self.offs[i],
-                                       base + 2 * self.offs[m + i], self.N,
-                                       da, db, splits, tmp.data_ptr(),
-                                       out.data_ptr(), stream), "papr_wgrad")
-            dws.append(out)
+        dws = [wgrad(lib, base + 2 * self.offs[i], base + 2 * self.offs[m + i],
+                     self.N, self.hs_w[i], self.dz_w[i], self.dev, stream)
+               for i in range(m)]
         psum = torch.empty(self.part_w, dtype=torch.float32, device=self.dev)
         build.check(lib.papr_colsum(self.part.data_ptr(), self.nblk,
                                     self.part_w, psum.data_ptr(), stream),
@@ -289,6 +277,28 @@ class BwdBuffers:
             out += [psum[lo:lo + dims[-1]],
                     psum[lo + pd[-1]:lo + pd[-1] + dims[-1]]]
         return out
+
+
+def wgrad(lib, h_ptr: int, dz_ptr: int, N: int, da: int, db: int, dev,
+          stream) -> torch.Tensor:
+    """dW (da, db) fp32 = H^T DZ for bf16 row-major H (N, da), DZ (N, db) at
+    the given device addresses (``csrc/wgrad.cu``: split-K partials summed in
+    a fixed order)."""
+    from ..kernels import build
+    tiles = -(-da // 64) * -(-db // 64)
+    # Enough token ranges for ~2 blocks per SM (132 SMs on an H100), each
+    # range at least 256 tokens.
+    splits = max(1, min(-(-264 // tiles), -(-N // 256)))
+    tmp = torch.empty(splits * da * db, dtype=torch.float32, device=dev)
+    out = torch.empty(da, db, dtype=torch.float32, device=dev)
+    build.check(lib.papr_wgrad(h_ptr, dz_ptr, N, da, db, splits,
+                               tmp.data_ptr(), out.data_ptr(), stream),
+                "papr_wgrad")
+    wgrad.launches += 1
+    return out
+
+
+wgrad.launches = 0
 
 
 def c_ints(vals) -> ctypes.Array:

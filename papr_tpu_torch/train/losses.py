@@ -47,11 +47,14 @@ def get_loss(losses_cfg, lpips_params=None, policy=None):
     return loss_fn
 
 
-def build_loss(cfg, policy=None, device="cpu"):
+def build_loss(cfg, policy=None, device=None):
     """The loss of ``cfg`` with the LPIPS fallback when the converted VGG16
     backbone is absent (``tpu.lpips_fallback``): "random" (default) seeded
     random backbone and lin heads, "random-lin" random backbone with the
-    shipped lin heads, "drop" the term zeroed."""
+    shipped lin heads, "drop" the term zeroed. ``device`` ``None`` is the
+    card (an error without one)."""
+    from ..device import resolve_device
+    device = resolve_device(device)
     from ..model.lpips import load_lpips_params, random_lpips_params
     lp = None
     if float(dict(cfg.training.losses).get("lpips", 0)) > 0:

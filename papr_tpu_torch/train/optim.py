@@ -122,3 +122,7 @@ def apply_updates(params: dict, grads: dict, opt_state: dict,
             torch._foreach_div_(upd, den)
             torch._foreach_sub_(ps, upd)
     return params, opt_state
+
+
+def current_lrs(specs: dict[str, GroupSpec], step: int) -> dict[str, float]:
+    return {spec.name: float(spec.lr_fn(step)) for spec in specs.values()}

@@ -7,7 +7,9 @@ import pytest
 
 pytest.importorskip("jax")
 
+from papr_tpu import config as jconfig
 from papr_tpu.config import load_config as jax_load
+from papr_tpu_torch import config as tconfig
 from papr_tpu_torch.config import Config, load_config, merge_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,3 +54,21 @@ def test_merge_overwrites_non_dataset_lists():
     merge_config(base, {"a": [3], "b": {"d": 2}})
     assert base == {"a": [3], "b": {"c": 1, "d": 2}}
     assert isinstance(Config(base).b, Config)
+
+
+@pytest.mark.parametrize("scene", SCENES,
+                         ids=[os.path.relpath(s, ROOT) for s in SCENES])
+def test_eval_and_test_configs_equal_jax(scene):
+    """make_eval_config and make_test_config (one per test dataset) give the
+    JAX package's trees, and leave the training config untouched."""
+    cfg, jcfg = load_config(scene), jax_load(scene)
+    before = _plain(cfg)
+    ev = tconfig.make_eval_config(cfg)
+    assert _plain(ev) == _plain(jconfig.make_eval_config(jcfg))
+    assert ev.dataset.mode == cfg.eval.dataset.mode
+    assert len(cfg.test.datasets) >= 1
+    for entry, jentry in zip(cfg.test.datasets, jcfg.test.datasets):
+        got = tconfig.make_test_config(cfg, entry)
+        assert _plain(got) == _plain(jconfig.make_test_config(jcfg, jentry))
+        assert got.dataset.name == entry["name"]
+    assert _plain(cfg) == before

@@ -195,6 +195,31 @@ def test_fused_mlp_bwd_kernel_matches_plain(dev, R, norm):
     _close_all([dx] + grads, [dxp] + gp, BWD_REL, f"fused_mlp_bwd R={R}")
 
 
+@pytest.mark.parametrize("dims,Ls,extra,n,d_out,norm",
+                         [((3, 3, 3), (6, 6, 6), 0, 5, 256, True),
+                          ((3, 3), (6, 6), 64, 8, 32, False)],
+                         ids=["key", "value"])
+def test_fused_mlp_kernels_on_key_value_stacks(dev, dims, Ls, extra, n, d_out,
+                                               norm):
+    """The embedder kernels on the flagship key and value stacks (several
+    posenc features, pass-through point-feature columns), forward and
+    backward, dx held per column group; R = 1100 leaves an overhang tile."""
+    rng = np.random.default_rng(8)
+    d_raw, cols = posenc_plan(dims, Ls, 1, 2.0, 1.0, extra)
+    walk = _walk(rng, cols, n, 256, d_out, norm, dev)
+    R, n_geo = 1100, sum(dims)
+    x = torch.as_tensor(rng.normal(size=(R, d_raw)).astype(np.float32), device=dev)
+    got = fm.fused_mlp(x, walk, torch.bfloat16)
+    want = fm.fused_mlp_plain(x, walk, torch.bfloat16)
+    assert got.shape == (R, d_out) and _rel(got, want) <= 1e-2
+    dy = torch.as_tensor(rng.normal(size=(R, d_out)).astype(np.float32), device=dev)
+    split = lambda r: ([r[0][:, :n_geo]] + ([r[0][:, n_geo:]] if extra else [])
+                       + list(r[1]))
+    _close_all(split(fm.fused_mlp_bwd(x, dy, walk, torch.bfloat16)),
+               split(fm.fused_mlp_bwd_plain(x, dy, walk, torch.bfloat16)),
+               BWD_REL, f"fused_mlp_bwd {dims} + {extra}")
+
+
 def _stream_case(rng, dev, T, K, dm=256):
     """Records k-major (K, T, 128) with random alive bits and ray 5 all dead;
     the flagship walks (key 117 -> 5 x 256 with LNs, value 142 -> 8 layers to
@@ -273,3 +298,131 @@ def test_value_stream_kernels_match_plain(dev, T, normalize):
     _close_all(_rec_lanes(got), _rec_lanes(want), BWD_REL,
                f"value_stream_bwd T={T} normalize={normalize}")
     assert float(got[0][:, 5].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("P,R,k,n_alive", [(3000, 777, 20, 2800),
+                                           (4096, 64, 8, 4096),
+                                           (2500, 130, 20, 12)])
+def test_topk_stream_kernel_bit_equal_to_plain(dev, P, R, k, n_alive):
+    """Streaming top-k: the kernel rounds like the plain version, so the
+    rows are equal; fewer than k alive points fill the tail with dead /
+    padded slots in index order in both."""
+    from papr_tpu_torch.ops import pallas_topk as pt
+    rng = np.random.default_rng(7)
+    pts = torch.as_tensor(rng.normal(size=(P, 3)).astype(np.float32) * 3,
+                          device=dev)
+    alive = torch.zeros(P, dtype=torch.bool, device=dev)
+    alive[torch.as_tensor(rng.permutation(P)[:n_alive], device=dev)] = True
+    o = torch.as_tensor(rng.normal(size=3).astype(np.float32), device=dev)
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True),
+                        device=dev)
+    ops = pt.stream_inputs(pts, alive, o, d, 1e-6)
+    got = pt.topk_stream(*ops, k)
+    want = pt.topk_stream_plain(*ops, k)
+    assert got.dtype == torch.int32 and got.shape == (R, k)
+    assert torch.equal(got, want)
+    idx = pt.pallas_select_topk(pts, alive, o, d, k, 1e-6)
+    assert int(idx.max()) < P
+    if n_alive >= k:
+        assert bool(alive[idx.long()].all())
+
+
+def _score_inputs(rng, T, K, Dk, Dq, dm, dev):
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    ek = t(rng.normal(size=(K, T, Dk))).to(torch.bfloat16)
+    eq = t(rng.normal(size=(T, Dq))).to(torch.bfloat16)
+    wk = t(rng.normal(size=(dm, Dk)) / math.sqrt(Dk))
+    bk = t(rng.normal(size=dm) * 0.1)
+    wq = t(rng.normal(size=(dm, Dq)) / math.sqrt(Dq))
+    bq = t(rng.normal(size=dm) * 0.1)
+    influ = t(rng.normal(size=(T, K)) * 0.5 + 1.0)
+    alive = t(rng.random((T, K)) > 0.2)
+    alive[3] = 0.0                                        # an all-dead ray
+    return ek, eq, wk, bk, wq, bq, influ, alive
+
+
+@pytest.mark.parametrize("T,K,Dk,Dq,dm,act", [(300, 20, 256, 256, 256, "relu"),
+                                              (100, 7, 48, 40, 32, "none"),
+                                              (64, 5, 33, 24, 32, "relu")])
+def test_fused_scores_fwd_kernel_matches_plain(dev, T, K, Dk, Dq, dm, act):
+    """bf16 projections, fp32 softmax: attn within 5e-3 absolute, the raw
+    dots within 1e-2 relative Frobenius (summation order in the MMAs and a
+    bf16 rounding of each projection); the all-dead ray is pure background."""
+    from papr_tpu_torch.ops import fused_attn as fa
+    args = _score_inputs(np.random.default_rng(11), T, K, Dk, Dq, dm, dev)
+    got, raw = fa.fused_scores_fwd(*args, act, 5.0, torch.bfloat16,
+                                   with_raw=True)
+    want, raw_w = fa.fused_scores_plain(*args, act, 5.0, torch.bfloat16)
+    assert got.shape == (T, K + 1) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 5e-3
+    assert _rel(raw, raw_w) <= 1e-2
+    assert float(got[3, K]) == 1.0
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fa.fused_scores_fwd(*args, act, 5.0, torch.float32)
+
+
+@pytest.mark.parametrize("T,K,Dk,Dq,dm,act", [(300, 20, 256, 256, 256, "relu"),
+                                              (100, 7, 48, 40, 32, "none")])
+def test_fused_scores_bwd_kernel_matches_plain(dev, T, K, Dk, Dq, dm, act):
+    """Every gradient within 3e-2 relative Frobenius of the plain backward
+    (bf16 on both sides; the plain version is given the kernel forward's
+    relu pattern so both differentiate the same function)."""
+    from papr_tpu_torch.ops import fused_attn as fa
+    rng = np.random.default_rng(13)
+    args = _score_inputs(rng, T, K, Dk, Dq, dm, dev)
+    dattn = torch.as_tensor(rng.normal(size=(T, K + 1)).astype(np.float32),
+                            device=dev)
+    _, raw = fa.fused_scores_fwd(*args, act, 5.0, torch.bfloat16,
+                                 with_raw=True)
+    got = fa.fused_scores_bwd(*args, dattn, act, 5.0, torch.bfloat16)
+    want = fa.fused_scores_bwd_plain(*args, dattn, act, 5.0, torch.bfloat16,
+                                     relu_on=raw > 0)
+    names = ("d_embedk", "d_embedq", "dwk", "dbk", "dwq", "dbq", "d_influ")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel(g, w) <= 3e-2, (name, _rel(g, w))
+    assert float(got[6][3].abs().max()) == 0.0            # all-dead ray
+
+
+def test_split_kernel_training_step_on_card(dev):
+    """``fused_attn: true`` + ``topk_impl: pallas`` on the card: forward and
+    gradients run through the embedder, score and top-k kernels and no plain
+    version."""
+    from papr_tpu_torch.ops import fused_attn as fa
+    from papr_tpu_torch.ops import pallas_topk as pt
+    from papr_tpu_torch.model.papr import forward
+    cfg = load_config(overrides={
+        "use_amp": True, "max_num_pts": 2048,
+        "geoms": {"points": {"init_num": 2000, "select_k": 8}},
+        "tpu": {"fused_attn": True, "topk_impl": "pallas"}})
+    params, state = create_model(cfg, seed=0, device=dev)
+    params["points_influ_scores"].normal_()
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 35.0
+    rayo, rayd = get_rays_np(32, 32, 30.0, 30.0, c2w[None])
+    fns = (pt.topk_stream, fm.fused_mlp, fm.fused_mlp_bwd,
+           fa.fused_scores_fwd, fa.fused_scores_bwd)
+    plains = (pt.topk_stream_plain, fm.fused_mlp_plain,
+              fm.fused_mlp_bwd_plain, fa.fused_scores_plain,
+              fa.fused_scores_bwd_plain)
+    before = [f.launches for f in fns], [p.calls for p in plains]
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.train.optim import tree_leaves, tree_map
+    live = {k: tree_map(lambda t: t.detach().requires_grad_(True), v)
+            for k, v in params.items()}
+    out = forward(live, state, cfg, torch.as_tensor(rayo, device=dev),
+                  torch.as_tensor(rayd, device=dev),
+                  policy=policy_from_config(cfg))
+    leaves = tree_leaves(live["attn"]) + [live["points"],
+                                          live["points_influ_scores"]]
+    grads = torch.autograd.grad(out.square().mean(), leaves)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert any(float(g.abs().max()) > 0 for g in grads)
+    assert [f.launches for f in fns] == [b + n for b, n in
+                                         zip(before[0], (1, 3, 3, 1, 1))]
+    assert [p.calls for p in plains] == before[1]

@@ -25,7 +25,7 @@ from papr_tpu_torch.train import losses as tloss
 @pytest.fixture(scope="module")
 def params():
     lp = jax_random(jax.random.PRNGKey(0))
-    return lp, from_jax_lpips_params(jax.tree.map(np.asarray, lp))
+    return lp, from_jax_lpips_params(jax.tree.map(np.asarray, lp), device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(1, 24, 24, 3), (2, 19, 17, 3)])
@@ -46,8 +46,8 @@ def test_lpips_value_and_grad_match_jax(params, shape):
 
 
 def test_random_backbone_shapes_and_fallbacks(capsys):
-    lp = tl.random_lpips_params(0)
-    again = tl.random_lpips_params(0)
+    lp = tl.random_lpips_params(0, device="cpu")
+    again = tl.random_lpips_params(0, device="cpu")
     cin = 3
     for (cout, _), conv, conv2 in zip(tl.VGG16_CONVS, lp["convs"],
                                       again["convs"]):
@@ -57,16 +57,16 @@ def test_random_backbone_shapes_and_fallbacks(capsys):
         cin = cout
     assert [l.shape[0] for l in lp["lins"]] == list(tl.SLICE_CHANNELS)
     assert all(0 <= float(l.min()) and float(l.max()) <= 1 for l in lp["lins"])
-    real = tl.random_lpips_params(0, use_real_lins=True)
-    assert torch.equal(real["lins"][0], tl.load_lin_params()[0])
+    real = tl.random_lpips_params(0, use_real_lins=True, device="cpu")
+    assert torch.equal(real["lins"][0], tl.load_lin_params(device="cpu")[0])
 
     x = torch.rand(1, 16, 16, 3)
     y = torch.rand(1, 16, 16, 3)
     mse = float(((x - y) ** 2).mean())
     cfg = load_config(overrides={"tpu": {"lpips_fallback": "drop"}})
-    assert abs(float(tloss.build_loss(cfg)(x, y)) - mse) < 1e-7
+    assert abs(float(tloss.build_loss(cfg, device="cpu")(x, y)) - mse) < 1e-7
     cfg = load_config()
-    fn = tloss.build_loss(cfg)
+    fn = tloss.build_loss(cfg, device="cpu")
     assert "RANDOM VGG" in capsys.readouterr().out
     want = mse + 1e-2 * float(tl.lpips_apply(lp, x, y))
     np.testing.assert_allclose(float(fn(x, y)), want, rtol=1e-6)

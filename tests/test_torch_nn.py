@@ -48,7 +48,7 @@ def test_layernorm_unbiased_std_plus_eps(width):
     x = rng.normal(size=(33, width)).astype(np.float32) * 3 + 1
     p = {"a": rng.normal(size=width).astype(np.float32),
          "b": rng.normal(size=width).astype(np.float32)}
-    got = tnorm.layernorm_apply(to_torch(p), torch.as_tensor(x))
+    got = tnorm.layernorm_apply(to_torch(p, "cpu"), torch.as_tensor(x))
     want = jnorm.layernorm_apply(jax.tree.map(jnp.asarray, p), jnp.asarray(x))
     _close(got, want)
 
@@ -92,7 +92,7 @@ def test_feedforward(norm, residual, wn, skip):
     ff_t = load_config(overrides=over).models.attn.embed.key
     jp = jmlp.feedforward_init(jax.random.PRNGKey(0), 24, 24, ff_j)
     x = np.random.default_rng(4).normal(size=(40, 24)).astype(np.float32)
-    got = tmlp.feedforward_apply(to_torch(jp), torch.as_tensor(x), ff_t, 24)
+    got = tmlp.feedforward_apply(to_torch(jp, "cpu"), torch.as_tensor(x), ff_t, 24)
     want = jmlp.feedforward_apply(jp, jnp.asarray(x), ff_j, 24)
     _close(got, want, atol=1e-5)
 
@@ -131,7 +131,7 @@ def test_small_unet(variant):
     else:
         jkw = tkw = apply_kw
     want = junet.small_unet_apply(jp, jnp.asarray(x), **jkw)
-    got = tunet.small_unet_apply(to_torch(jp), torch.as_tensor(x), **tkw)
+    got = tunet.small_unet_apply(to_torch(jp, "cpu"), torch.as_tensor(x), **tkw)
     assert tuple(got.shape) == want.shape
     _close(got, want, atol=1e-5)
 
@@ -144,7 +144,7 @@ def test_small_unet_bilinear_raises_like_jax():
     with pytest.raises(ValueError):
         junet.small_unet_apply(jp, jnp.asarray(x), bilinear=True)
     with pytest.raises(RuntimeError):
-        tunet.small_unet_apply(to_torch(jp), torch.as_tensor(x), bilinear=True)
+        tunet.small_unet_apply(to_torch(jp, "cpu"), torch.as_tensor(x), bilinear=True)
 
 
 def test_upsample_bilinear_align_corners():

@@ -39,7 +39,7 @@ def _grads_match(jfn, tfn, params_np, x, atol_scale=1e-6, whole_tree=False):
     cot = np.random.default_rng(0).normal(size=out.shape).astype(np.float32)
     jg = jax.jit(jax.grad(lambda p, v: jnp.sum(jfn(p, v) * cot), (0, 1)))(
         jp, jnp.asarray(x))
-    tp = tree_map(lambda t: t.requires_grad_(), to_torch(params_np))
+    tp = tree_map(lambda t: t.requires_grad_(), to_torch(params_np, "cpu"))
     tx = torch.tensor(x, requires_grad=True)
     (tfn(tp, tx) * torch.as_tensor(cot)).sum().backward()
     got = [l.grad for l in tree_leaves(tp)] + [tx.grad]

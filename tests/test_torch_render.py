@@ -61,7 +61,7 @@ def models():
     state = {"alive": jnp.asarray(alive)}
     pnp = jax.tree.map(np.asarray, params)
     snp = jax.tree.map(np.asarray, state)
-    tp, ts = from_jax_params(pnp, snp, load_config(overrides=_over()))
+    tp, ts = from_jax_params(pnp, snp, load_config(overrides=_over()), device="cpu")
     return params, state, tp, ts
 
 
@@ -128,7 +128,7 @@ def test_create_model_tree_matches_jax():
     shapes, the same (numpy-seeded) padded points and alive mask."""
     jcfg = jax_load(overrides=_over())
     jp, js = jax_create(jcfg, jax.random.PRNGKey(0))
-    tp, ts = tpapr.create_model(load_config(overrides=_over()), seed=0)
+    tp, ts = tpapr.create_model(load_config(overrides=_over()), seed=0, device="cpu")
     flat = lambda t: {jax.tree_util.keystr(k): tuple(np.shape(v))
                       for k, v in jax.tree_util.tree_flatten_with_path(t)[0]}
     as_np = lambda t: jax.tree.map(lambda v: np.asarray(v), t)
@@ -138,14 +138,9 @@ def test_create_model_tree_matches_jax():
 
 
 @pytest.mark.parametrize("tpu,match", [
-    ({"topk_impl": "pallas"}, "Queue 2 item 6"),
     ({"topk_impl": "approx"}, "approx"),
     ({"cull_prefilter_eval": "approx_min_k"}, "approx"),
     ({"fused_attn": "stream"}, "fused_attn"),
-    ({"fused_attn": "score"}, "fused_attn"),
-    ({"fused_attn": "embed"}, "fused_attn"),
-    ({"fused_attn": True}, "fused_attn"),
-    ({"eval_fused": False}, "eval_fused"),
     ({"int8_eval": True}, "int8_eval"),
     ({"query_fold": True}, "query_fold"),
     ({"mesh": {"data": 2, "rays": 1}}, "mesh"),
@@ -157,6 +152,40 @@ def test_unported_tpu_values_raise(models, tpu, match):
     with pytest.raises(NotImplementedError, match=match):
         tpapr.evaluate(tp, ts, cfg, torch.as_tensor(rayo),
                        torch.as_tensor(rayd))
+
+
+@pytest.mark.parametrize("tpu,plain", [
+    ({"topk_impl": "pallas"}, "topk"),
+    ({"fused_attn": "score"}, "score"),
+    ({"fused_attn": "embed"}, "embed"),
+    ({"fused_attn": True}, "both"),
+    ({"eval_fused": False}, "streams"),
+])
+def test_ported_tpu_values_run(models, tpu, plain):
+    """The values that used to raise now run: on CPU tensors through their
+    kernels' plain versions, agreeing with the default kernel path (fp32:
+    fused features and attention atol 2e-5; the packed selection may swap
+    near-tied points, so ``pallas`` compares attention mass only)."""
+    from papr_tpu_torch.ops import fused_attn as fa
+    from papr_tpu_torch.ops import pallas_topk as pt
+    _, _, tp, ts = models
+    rayo, rayd = get_rays_np(8, 8, 10.0, 10.0, _pose()[None])
+    args = (torch.as_tensor(rayo), torch.as_tensor(rayd))
+    want = tpapr.evaluate(tp, ts, load_config(overrides=_over()), *args)
+    counters = {"topk": [pt.topk_stream_plain],
+                "score": [fa.fused_scores_plain],
+                "embed": [fm.fused_mlp_plain],
+                "both": [fa.fused_scores_plain, fm.fused_mlp_plain],
+                "streams": [sa.key_stream_plain, sa.value_stream_plain]}[plain]
+    before = [c.calls for c in counters]
+    got = tpapr.evaluate(tp, ts, load_config(overrides=_over(**tpu)), *args)
+    assert all(c.calls > b for c, b in zip(counters, before))
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    torch.testing.assert_close(got[1].sum(-2), want[1].sum(-2), rtol=0,
+                               atol=2e-5)
+    if plain != "topk":
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-5)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=2e-5)
 
 
 def test_auto_on_cpu_takes_the_plain_versions(models):

@@ -36,7 +36,7 @@ def _jwalk(ff):
 
 def _twalk(ff, ff_cfg, has_pos, Ls, extra):
     cols = sa.rec_pe_plan(has_pos, Ls, 1, PE[0], PE[1], extra)
-    return walk_from_params(to_torch(jax.tree.map(np.asarray, ff)), ff_cfg,
+    return walk_from_params(to_torch(jax.tree.map(np.asarray, ff), "cpu"), ff_cfg,
                             cols)
 
 

@@ -62,7 +62,7 @@ def _over(fused_attn):
 @pytest.fixture(scope="module")
 def lpips_pair():
     lp = random_lpips_params(jax.random.PRNGKey(0))
-    return lp, from_jax_lpips_params(jax.tree.map(np.asarray, lp))
+    return lp, from_jax_lpips_params(jax.tree.map(np.asarray, lp), device="cpu")
 
 
 def _setup(fused_attn):
@@ -81,7 +81,8 @@ def _setup(fused_attn):
     target = rng.random((1, H, W, 3)).astype(np.float32)
     cfg = load_config(overrides=_over(fused_attn))
     tp, ts = from_jax_params(jax.tree.map(np.asarray, params),
-                             jax.tree.map(np.asarray, state), cfg)
+                             jax.tree.map(np.asarray, state), cfg,
+                             device="cpu")
     return jcfg, cfg, params, state, tp, ts, (rayo, rayd, target, c2w)
 
 
@@ -205,7 +206,7 @@ def test_eval_fused_false_leaves_training_alone():
     rayo, rayd = get_rays_np(8, 8, 10.0, 10.0, np.eye(4, dtype=np.float32)[None])
     rayo, rayd = torch.as_tensor(rayo), torch.as_tensor(rayd)
     cfg = load_config(overrides=_over("streamrec"))
-    tp, ts = tpapr.create_model(cfg, seed=0)
+    tp, ts = tpapr.create_model(cfg, seed=0, device="cpu")
     want = tpapr.forward(tp, ts, cfg, rayo, rayd)
     over = _over("streamrec")
     over["tpu"]["eval_fused"] = False
@@ -217,7 +218,7 @@ def test_eval_fused_false_leaves_training_alone():
 def test_training_knobs_not_ported_raise():
     cfg = load_config(overrides={**_over("streamrec"), "models": {"attn": {
         "embed": {"key": {"dropout_ff": 0.1}}}}})
-    tp, ts = tpapr.create_model(cfg, seed=0)
+    tp, ts = tpapr.create_model(cfg, seed=0, device="cpu")
     rayo, rayd = get_rays_np(8, 8, 10.0, 10.0, np.eye(4, dtype=np.float32)[None])
     with pytest.raises(NotImplementedError, match="dropout"):
         tpapr.forward(tp, ts, cfg, torch.as_tensor(rayo),
