@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path, training step and command-line path
-on one NVIDIA GPU.
+"""Drive the PyTorch port's render path, training step, command-line path
+and its two other training attention modes on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -17,8 +17,11 @@ Phases (each prints a line; any failure exits non-zero):
    training patch cropped at a seeded offset from the same frame, the
    training selection (exact 'approx' prefilter, one 2048-wide chunk), the
    query embedder backward and the key / value streams forward and
-   backward (every output and gradient, d_rec per routing lane group).
-   Print errors and times.
+   backward (every output and gradient, d_rec per routing lane group): the
+   record-native streams, the key stream with the query chain folded in
+   (``tpu.query_fold``) and the streams on raw feature tensors
+   (``tpu.fused_attn: stream``, dx per column group). Print errors and
+   times.
 3. Render 1 + 3 orbit frames at 800x800 through ``render_frames`` (one
    full-frame tile) and one frame through ``render_full_image`` with the
    config's 100x100 test tiles; check the frames, that every kernel of the
@@ -52,7 +55,17 @@ Phases (each prints a line; any failure exits non-zero):
    share and the kernel time by stage of this configuration on a fixed
    batch and on the real loader, and of ``streamrec`` + ``cull`` on the same
    model and batch.
-6. Print the kernels' JSON line (each kernel's launches on its main path,
+6. The two other training attention modes, ``tpu.fused_attn: stream`` and
+   ``streamrec`` + ``tpu.query_fold: true``, beside ``streamrec`` on the
+   flagship model and one 160x160 batch: each mode from the same seeded
+   model, 1 warm-up and 10 timed steps, twice (there and back): ms/step,
+   rays/s, peak memory, the profiler's kernel-time split and idle share;
+   exact launch counts per step (1 + 1 key and 1 + 1 value launches, no
+   query embedder launch under ``query_fold``) and no plain version; one
+   800x800 frame at 100x100 tiles under each mode (64 + 64 launches), the
+   new modes' frames held against the one-shot kernel's; then one 32x32 step
+   of each new mode against the plain fp32 path.
+7. Print the kernels' JSON line (each kernel's launches on its main path,
    error, time, plain version's time and bound), then the result line.
 
 Imports nothing of JAX. Weights are random, from fixed seeds.
@@ -86,10 +99,25 @@ REF_REL = 3e-2            # small frame: bf16 kernel path vs fp32 plain path
 # LayerNorm backward's variance term dropped, key walk) and above (PERF.md,
 # Findings).
 K1_TRAIN_MIN_EQUAL = 0.999
-FWD_REL = 1e-2
+FWD_REL = 5e-3         # sound <= 2.1e-3 (raw); a score scale off by 1 %: 1.0e-2
 SS_REL = 3e-2          # masked scores keep ~6 % of the dots: ~5x raw's error
 RELU_MIN_AGREE = 0.99  # share of alive scores whose relu the forwards agree on
 BWD_REL = 4e-2
+# The streams of ``fused_attn: stream`` and ``query_fold``. The folded key
+# stream holds FWD_REL / BWD_REL as the record-native one (sound: raw 2.1e-3,
+# qq 2.9e-4, gradients <= 3.12e-2; the query backward fed 1.05 dqq reads
+# 5.07e-2, b_q left out 3.6e-2 forward). The feature streams get the same
+# geometry floats as their plain versions and read lower, so their bounds
+# are tighter. Sound: raw 5.5e-4, fused 1.44e-4, gradients <= 1.37e-2 (key),
+# 8.9e-3 (value), attn max abs 1.2e-4 (features) / 1.8e-4 (folded). Planted
+# faults: score scale off by 1 % raw 1.0e-2; value rows not rounded before
+# the fuse 4.1e-4; d_influ scaled by 1.05 5.0e-2, without its relu 19; dxk's
+# position columns zeroed 1.0; dqq keeping one slot 0.98; b_q left out attn
+# 1.0e-3 (PERF.md, Findings).
+STREAM_ATTN_ABS = 5e-4
+FEAT_RAW_REL = 2e-3
+FEAT_FUSED_REL = 3e-4
+FEAT_BWD_REL = 2.5e-2
 # One 32x32 training step, bf16 kernel path vs fp32 plain path: loss and
 # per-group gradients (relative Frobenius error).
 TRAIN_REF_LOSS_REL = 2e-2
@@ -121,6 +149,9 @@ STACK_BWD_REL = 2e-2
 WGRAD_REL = 1e-4
 # Two-kernel eval frame against the one-shot kernel's frame.
 EVAL_TWO_MIN_CLOSE = 0.999
+# Tiled frames under ``stream`` and ``streamrec`` + ``query_fold`` against
+# the one-shot kernel's tiled frame (the same selection): pixels within 1/255.
+STREAM_FRAME_MIN_CLOSE = 0.999
 # Split-kernel frame (topk_impl pallas, fused_attn true) against the one-shot
 # kernel's frame (cull selection), on a model with non-zero influence
 # scores: pixels, then the whole frame's fused features (relative Frobenius)
@@ -142,6 +173,7 @@ FOCAL = 700.0
 BLOCK = 160               # eval-attention comparison block (160x160 rays)
 PATCH = 160               # training patch edge (configs/default.yml patches)
 TRAIN_STEPS = 5
+STREAM_STEPS = 10         # timed steps per mode and round in phase 6
 
 
 def fail(msg: str) -> None:
@@ -669,14 +701,19 @@ REC_LABELS = ["d_rec[0:3]", "d_rec[3]", "d_rec[4:]"]
 
 def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     """Phase 2, training shapes: the selection at its training shape and
-    the five training kernel bodies against their plain versions on the
-    160x160 patch (T = 25,600 rays, K = 20). Every case runs and prints
-    before the phase fails on any of them."""
+    the training kernel bodies against their plain versions on the 160x160
+    patch (T = 25,600 rays, K = 20): the query embedder backward, the
+    record-native key / value streams, the key stream with the query chain
+    folded in, and the key / value streams on raw feature tensors, forward
+    and backward each. Every case runs and prints before the phase fails on
+    any of them."""
     import torch
-    from papr_tpu_torch.model.papr import _kernel_inputs, model_meta
+    from papr_tpu_torch.model.papr import (_kernel_inputs, _stream_inputs,
+                                           model_meta)
     from papr_tpu_torch.nn.mlp import policy_from_config
     from papr_tpu_torch.ops import fused_mlp as fm
     from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops import stream_feat as sf
     from papr_tpu_torch.ops import tile_cull as tc
 
     policy = policy_from_config(cfg)
@@ -716,7 +753,7 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
 
     idx = tc.select_topk_culled(points, alive, rayo[0], rayd[0], k, M=2048,
                                 block=16, eps=eps, prefilter="approx")
-    record, rayo_f, rays, qq, kwalk, vwalk = _kernel_inputs(
+    record, rayo_f, rays, rayd_f, qq, kwalk, vwalk = _kernel_inputs(
         params, cfg, meta, rayo, rayd, alive, eps, policy)
     qq = qq.detach()
     rec = record[idx.T.long()].contiguous()               # (K, T, 128)
@@ -727,7 +764,7 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     randn = lambda *shape: torch.randn(*shape, generator=gen, device=device)
 
     def record_case(name, source, replaces, fn, plain, tol, labels, in_bytes,
-                    flops):
+                    flops, fwd_tol=None):
         """Kernel against its plain version (the same bf16 compute): every
         output's relative Frobenius error held to ``tol``. ``in_bytes`` and
         ``flops`` (bf16 tensor-core work) give the bound; the outputs' bytes
@@ -746,6 +783,12 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
               f"kernel {ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
         if not (finite and worst <= tol and len(rels) == len(labels)):
             failed.append(name)
+        if fwd_tol is not None:
+            a_abs = float((g[0] - w[0]).abs().max())
+            print(f"phase 2 {name}: attn max abs {a_abs:.3e} (need <= "
+                  f"{fwd_tol})", flush=True)
+            if not a_abs <= fwd_tol:
+                failed.append(name + " attn")
         out[name] = {"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "max_abs_err": _max_abs(g, w),
                      "max_rel_err": worst, "ms": ms, "plain_ms": p_ms,
@@ -820,7 +863,101 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         + walk_labels(vwalk),
         nbytes(rec, rayo_f, rays, attn, dfused) + walk_bytes(vwalk),
         3 * T * k * walk_flops(vwalk))
-    del rec, record
+    torch.cuda.empty_cache()
+
+    # The key stream with the query chain folded in (tpu.query_fold): the
+    # raw ray directions go in; qq comes out as a residual.
+    a = params["attn"]
+    qargs = (rec, rayo_f, rays, rayd_f.contiguous(), kwalk, wk, bk, qwalk,
+             a["w_q"]["w"], a["w_q"]["bias"])
+    q_flops = T * (k * walk_flops(kwalk, wk) + walk_flops(qwalk, a["w_q"]["w"]))
+    q_bytes = nbytes(rec, rayo_f, rays, rayd_f) + walk_bytes(kwalk, qwalk)
+    attn_q, raw_q, qq_q = record_case(
+        "key_stream_q_fwd", "papr_tpu_torch/csrc/key_stream_q.cu",
+        "papr_tpu/ops/stream_attn.py:1201",
+        lambda: (lambda r: [r[0], r[1], r[3]])(sa.key_stream_q_fwd(*qargs,
+                                                                  *kopts)),
+        lambda: (lambda r: [r[0], r[1], r[3]])(sa.key_stream_q_plain(*qargs,
+                                                                    *kopts)),
+        FWD_REL, ["attn", "raw", "qq"], q_bytes, q_flops,
+        fwd_tol=STREAM_ATTN_ABS)
+    ss_q = sa.key_stream_q_fwd(*qargs, *kopts)[2]
+    # On its own qq the folded kernel is the unfolded kernel.
+    attn_u, raw_u, ss_u = sa.key_stream_fwd(rec, rayo_f, rays, qq_q, kwalk,
+                                            wk, bk, *kopts)
+    same_fn = (torch.equal(attn_q, attn_u) and torch.equal(raw_q, raw_u)
+               and torch.equal(ss_q, ss_u))
+    print(f"phase 2 key_stream_q_fwd on its own qq equals key_stream_fwd bit "
+          f"for bit: {same_fn}", flush=True)
+    if not same_fn:
+        failed.append("key_stream_q_fwd vs key_stream_fwd")
+    relu_q = raw_q > 0
+    record_case(
+        "key_stream_q_bwd", "papr_tpu_torch/csrc/key_stream_q.cu",
+        "papr_tpu/ops/stream_attn.py:1243",
+        lambda: rec_lanes(sa.key_stream_q_bwd(*qargs, qq_q, raw_q, ss_q,
+                                              dattn, *kopts)),
+        lambda: rec_lanes(sa.key_stream_q_bwd_plain(*qargs, dattn, *kopts,
+                                                    relu_on=relu_q)),
+        BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "d_rayd", "dW_k", "db_k",
+                               "dW_q", "db_q"] + walk_labels(kwalk)
+        + ["q." + l for l in walk_labels(qwalk)],
+        q_bytes + nbytes(qq_q, raw_q, ss_q, dattn), 3 * q_flops)
+    del rec, record, qargs
+    torch.cuda.empty_cache()
+
+    # The streams on raw feature tensors (tpu.fused_attn: stream), on the
+    # inputs the model's own head builds: xk (K, T, 9), xv (K, T, 70).
+    with torch.no_grad():
+        xk, kwalk_f, xv, vwalk_f, influ, sel_alive, _ = _stream_inputs(
+            params, cfg, meta, idx, rayo, rayd, alive, eps)
+    xk, xv = xk.contiguous(), xv.contiguous()
+    influ, sel_alive = influ.contiguous(), sel_alive.contiguous()
+    fargs = (xk, qq, kwalk_f, wk, bk, influ, sel_alive)
+    fopts = (score_act, bkg, cdt)
+    # dx by column group: the key positions (returned here, detached by the
+    # caller) / proj + perp; the value geometry / point features.
+    cols = lambda n: (lambda g: [g[0][..., :n], g[0][..., n:]] + list(g[1:]))
+    attn_f, raw_f = record_case(
+        "key_stream_feat_fwd", "papr_tpu_torch/csrc/key_stream_feat.cu",
+        "papr_tpu/ops/stream_attn.py:133",
+        lambda: list(sf.key_stream_feat_fwd(*fargs, *fopts)),
+        lambda: list(sf.key_stream_feat_plain(*fargs, *fopts)), FEAT_RAW_REL,
+        ["attn", "raw"],
+        nbytes(xk, qq, influ, sel_alive) + walk_bytes(kwalk_f),
+        T * k * walk_flops(kwalk_f, wk), fwd_tol=STREAM_ATTN_ABS)
+    relu_f = raw_f > 0
+    record_case(
+        "key_stream_feat_bwd", "papr_tpu_torch/csrc/key_stream_feat.cu",
+        "papr_tpu/ops/stream_attn.py:159",
+        lambda: cols(3)(sf.key_stream_feat_bwd(*fargs, raw_f, dattn, *fopts)),
+        lambda: cols(3)(sf.key_stream_feat_bwd_plain(*fargs, dattn, *fopts,
+                                                     relu_on=relu_f)),
+        FEAT_BWD_REL, ["dxk[position]", "dxk[proj, perp]", "dqq", "d_influ",
+                  "dW_k", "db_k"] + walk_labels(kwalk_f),
+        nbytes(xk, qq, influ, sel_alive, raw_f, dattn) + walk_bytes(kwalk_f),
+        3 * T * k * walk_flops(kwalk_f, wk))
+    record_case(
+        "value_stream_feat_fwd", "papr_tpu_torch/csrc/value_stream_feat.cu",
+        "papr_tpu/ops/stream_attn.py:406",
+        lambda: [sf.value_stream_feat_fwd(xv, attn_f, vwalk_f, normalize,
+                                          cdt)],
+        lambda: [sf.value_stream_feat_plain(xv, attn_f, vwalk_f, normalize,
+                                            cdt)], FEAT_FUSED_REL,
+        ["fused"], nbytes(xv, attn_f) + walk_bytes(vwalk_f),
+        T * k * walk_flops(vwalk_f))
+    record_case(
+        "value_stream_feat_bwd", "papr_tpu_torch/csrc/value_stream_feat.cu",
+        "papr_tpu/ops/stream_attn.py:433",
+        lambda: cols(6)(sf.value_stream_feat_bwd(xv, attn_f, vwalk_f, dfused,
+                                                 normalize, cdt)),
+        lambda: cols(6)(sf.value_stream_feat_bwd_plain(
+            xv, attn_f, vwalk_f, dfused, normalize, cdt)),
+        FEAT_BWD_REL, ["dxv[proj, perp]", "dxv[point features]", "d_attn"]
+        + walk_labels(vwalk_f),
+        nbytes(xv, attn_f, dfused) + walk_bytes(vwalk_f),
+        3 * T * k * walk_flops(vwalk_f))
+    del xk, xv, fargs
     torch.cuda.empty_cache()
     if failed:
         fail(f"training kernels disagree with their plain versions: {failed}")
@@ -834,6 +971,7 @@ def counters(training: bool = False):
     from papr_tpu_torch.ops import fused_mlp as fm
     from papr_tpu_torch.ops import pallas_topk as pt
     from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops import stream_feat as sf
     from papr_tpu_torch.ops import tile_cull as tc
     kernels = {"cull_select": tc.cull_select, "fused_mlp": fm.fused_mlp}
     if training:
@@ -855,8 +993,192 @@ def counters(training: bool = False):
               "value_stream_bwd": sa.value_stream_bwd_plain,
               "topk_stream": pt.topk_stream_plain,
               "fused_scores_fwd": fa.fused_scores_plain,
-              "fused_scores_bwd": fa.fused_scores_bwd_plain}
+              "fused_scores_bwd": fa.fused_scores_bwd_plain,
+              "key_stream_q_fwd": sa.key_stream_q_plain,
+              "key_stream_q_bwd": sa.key_stream_q_bwd_plain,
+              "key_stream_feat_fwd": sf.key_stream_feat_plain,
+              "key_stream_feat_bwd": sf.key_stream_feat_bwd_plain,
+              "value_stream_feat_fwd": sf.value_stream_feat_plain,
+              "value_stream_feat_bwd": sf.value_stream_feat_bwd_plain}
     return kernels, plains
+
+
+def stream_counters():
+    """Every kernel a training step or a tiled frame can launch under
+    ``streamrec``, ``streamrec`` + ``query_fold`` or ``stream``."""
+    from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops import stream_feat as sf
+    kernels, plains = counters(training=True)
+    kernels.update({"attend_stream_eval": sa.attend_eval_idx,
+                    "key_stream_q_fwd": sa.key_stream_q_fwd,
+                    "key_stream_q_bwd": sa.key_stream_q_bwd,
+                    "key_stream_feat_fwd": sf.key_stream_feat_fwd,
+                    "key_stream_feat_bwd": sf.key_stream_feat_bwd,
+                    "value_stream_feat_fwd": sf.value_stream_feat_fwd,
+                    "value_stream_feat_bwd": sf.value_stream_feat_bwd})
+    return kernels, plains
+
+
+# Launches of one training step / one tiled 800x800 frame (64 tiles) by
+# attention mode; a kernel not named launches 0 times (wgrad: at least once a
+# step).
+STREAM_MODES = {
+    "stream": ({"fused_attn": "stream"},
+               ("cull_select", "fused_mlp", "fused_mlp_bwd",
+                "key_stream_feat_fwd", "key_stream_feat_bwd",
+                "value_stream_feat_fwd", "value_stream_feat_bwd"),
+               ("cull_select", "fused_mlp", "key_stream_feat_fwd",
+                "value_stream_feat_fwd")),
+    "streamrec + query_fold": ({"fused_attn": "streamrec", "query_fold": True},
+                               ("cull_select", "key_stream_q_fwd",
+                                "key_stream_q_bwd", "value_stream_fwd",
+                                "value_stream_bwd"),
+                               ("cull_select", "key_stream_q_fwd",
+                                "value_stream_fwd")),
+    "streamrec": ({"fused_attn": "streamrec"},
+                  ("cull_select", "fused_mlp", "fused_mlp_bwd",
+                   "key_stream_fwd", "key_stream_bwd", "value_stream_fwd",
+                   "value_stream_bwd"),
+                  ("cull_select", "fused_mlp", "attend_stream_eval")),
+}
+
+
+def drive_stream_modes(device) -> dict:
+    """Phase 6: training and rendering under ``tpu.fused_attn: stream`` and
+    ``streamrec`` + ``tpu.query_fold``, beside ``streamrec``, on the flagship
+    model and one 160x160 batch in this one call: each mode starts from the
+    same seeded model and optimizer state; the modes run in two rounds (there
+    and back) so a drift of the card shows. The counters are reset just before
+    each mode's timed steps and frame and read just after."""
+    import torch
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops.geometry import get_rays_np
+    from papr_tpu_torch.train.losses import build_loss
+    from papr_tpu_torch.train.step import (make_opt_state, make_train_step,
+                                           render_full_image)
+
+    rayo, rayd = training_patch(device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    target = torch.rand(1, PATCH, PATCH, 3, generator=gen, device=device)
+    c2w = orbit(0.0)
+    n_rays = PATCH * PATCH
+    kernels, plains = stream_counters()
+    base = flagship_cfg()
+    loss_fn = build_loss(base, policy_from_config(base), device=device)
+    total = {n: 0 for n in kernels}
+    readings = {m: [] for m in STREAM_MODES}
+
+    def check_launches(what, mode, got, named, per_unit, training):
+        """Exactly per_unit launches of each named kernel, none of any other
+        (wgrad: at least per_unit in training, none in a frame), and no plain
+        version."""
+        want = {n: (per_unit if n in named else 0) for n in got}
+        bad = {n: (got[n], want[n]) for n in got
+               if n != "wgrad" and got[n] != want[n]}
+        calls = {n: fn.calls for n, fn in plains.items() if fn.calls}
+        wgrad_ok = (got["wgrad"] >= per_unit if training
+                    else got["wgrad"] == 0)
+        if bad or calls or not wgrad_ok:
+            fail(f"{what} under {mode}: launches (got, want) {bad}; plain "
+                 f"versions called {calls}; wgrad {got['wgrad']}")
+
+    order = list(STREAM_MODES) + list(STREAM_MODES)[::-1]
+    for rnd, mode in enumerate(order):
+        tpu, step_kernels, _ = STREAM_MODES[mode]
+        cfg = flagship_cfg(**tpu)
+        params, state = build_model(cfg, device)
+        opt = make_opt_state(cfg, params)
+        step_fn = make_train_step(cfg, loss_fn)
+        losses = [step_fn(params, opt, state, rayo, rayd, target, c2w,
+                          1000)[2]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(kernels, plains)
+        t0 = time.perf_counter()
+        for i in range(STREAM_STEPS):
+            params, opt, loss, pred = step_fn(params, opt, state, rayo, rayd,
+                                              target, c2w, 1001 + i)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / STREAM_STEPS * 1e3
+        got = {n: fn.launches for n, fn in kernels.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_launches("training steps", mode, got, step_kernels, STREAM_STEPS,
+                       True)
+        for n in total:
+            total[n] += got[n]
+        losses = [float(l) for l in losses]
+        if not (all(np.isfinite(losses))
+                and pred.shape == (1, PATCH, PATCH, 3)):
+            fail(f"training under {mode}: losses {losses}")
+        wall, idle, spans = device_profile(lambda: [step_fn(
+            params, opt, state, rayo, rayd, target, c2w, 1100 + i)
+            for i in range(3)])
+        split, kern = stage_split(spans, TRAIN_STAGES, 3, TRAIN_OTHER)
+        readings[mode].append((ms, kern, idle, peak_gb))
+        print(f"phase 6 step ({mode}, round {rnd // len(STREAM_MODES) + 1}; "
+              f"{n_rays} rays): {ms:.1f} ms/step over {STREAM_STEPS} steps = "
+              f"{n_rays / ms * 1e3:.0f} rays/s; peak device memory "
+              f"{peak_gb:.2f} GiB; losses "
+              + ", ".join(f"{l:.6f}" for l in losses)
+              + f"; 3 profiled steps: {wall / 3:.1f} ms/step, device idle "
+              f"share {idle:.4f}, kernel time {kern:.3f} ms/step: {split}; "
+              f"launches {({n: v for n, v in got.items() if v})}", flush=True)
+        del params, state, opt
+        torch.cuda.empty_cache()
+    print("phase 6 ms/step, both rounds (kernel ms/step; idle share): "
+          + "; ".join(f"{m}: " + ", ".join(
+              f"{r[0]:.1f} ({r[1]:.3f}; {r[2]:.4f})" for r in rs)
+              for m, rs in readings.items()), flush=True)
+
+    # One 800x800 frame at the config's 100x100 test tiles under each mode;
+    # the new modes' frames against the one-shot kernel's.
+    th, tw = int(base.test.max_height), int(base.test.max_width)
+    fr_o, fr_d = get_rays_np(H, W, FOCAL, FOCAL, orbit(0.0)[None])
+    frames = {}
+    for mode in ("streamrec", "stream", "streamrec + query_fold"):
+        tpu, _, frame_kernels = STREAM_MODES[mode]
+        cfg = flagship_cfg(**tpu)
+        params, state = build_model(cfg, device)
+        render = lambda: render_full_image(
+            params, state, cfg, fr_o, fr_d, th, tw, rgb_only=True,
+            rgb_uint8=True)["rgb"][0]
+        render()                                             # warm-up
+        torch.cuda.synchronize()
+        reset_counters(kernels, plains)
+        t0 = time.perf_counter()
+        frames[mode] = render()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {n: fn.launches for n, fn in kernels.items()}
+        n_tiles = (H // th) * (W // tw)
+        check_launches("a tiled frame", mode, got, frame_kernels, n_tiles,
+                       False)
+        for n in total:
+            total[n] += got[n]
+        fr = frames[mode]
+        if fr.shape != (H, W, 3) or fr.dtype != np.uint8 \
+                or int(fr.max()) == int(fr.min()):
+            fail(f"frame under {mode}: {fr.shape} {fr.dtype}")
+        line = (f"phase 6 frame ({mode}): {H}x{W} in {th}x{tw} tiles, "
+                f"{ms:.1f} ms; launches "
+                f"{({n: v for n, v in got.items() if v})}")
+        if mode != "streamrec":
+            diff = np.abs(fr.astype(np.int16)
+                          - frames["streamrec"].astype(np.int16))
+            close = float((diff.max(-1) <= 1).mean())
+            line += (f"; against the one-shot kernel's frame: pixels within "
+                     f"1/255 {close:.6f} (need >= {STREAM_FRAME_MIN_CLOSE}), "
+                     f"max diff {int(diff.max())}")
+            if close < STREAM_FRAME_MIN_CLOSE:
+                print(line, flush=True)
+                fail(f"the tiled frame under {mode} disagrees with the "
+                     "one-shot kernel's")
+        print(line, flush=True)
+        del params, state
+        torch.cuda.empty_cache()
+    return {"launches": total, "step_ms": {m: [r[0] for r in rs]
+                                           for m, rs in readings.items()}}
 
 
 def cli_counters():
@@ -1431,6 +1753,12 @@ TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("key stream bwd", "key_bwd_kernel"),
                 ("value stream fwd", "value_fwd_kernel"),
                 ("value stream bwd", "value_bwd_kernel"),
+                ("key stream fwd (query folded)", "keyq_fwd_kernel"),
+                ("key stream bwd (query folded)", "keyq_bwd_kernel"),
+                ("key stream fwd (features)", "keyf_fwd_kernel"),
+                ("key stream bwd (features)", "keyf_bwd_kernel"),
+                ("value stream fwd (features)", "valuef_fwd_kernel"),
+                ("value stream bwd (features)", "valuef_bwd_kernel"),
                 ("dW reduction (wgrad)", "wgrad_kernel"),
                 ("dW reduction (wgrad)", "colsum_kernel"),
                 ("selection (prefilter sort / top-k)", "ort"),
@@ -1519,10 +1847,19 @@ def profile_train_step(step_fn, params, opt, state, cfg, rayo, rayd, target,
     print("phase 4 stages alone: " + ", ".join(parts), flush=True)
 
 
-def train_reference_check(device, side: int = 32) -> None:
+REF_MODES = (("streamrec + cull", {"topk_impl": "cull"}),
+             ("true + pallas", {"topk_impl": "pallas", "fused_attn": True}))
+REF_STREAM_MODES = (("stream + cull", {"topk_impl": "cull",
+                                       "fused_attn": "stream"}),
+                    ("streamrec + query_fold + cull",
+                     {"topk_impl": "cull", "fused_attn": "streamrec",
+                      "query_fold": True}))
+
+
+def train_reference_check(device, modes=REF_MODES, phase: int = 4,
+                          side: int = 32) -> None:
     """One training step's loss and gradients at a 32x32 patch, flagship
-    widths: the two bf16 kernel paths (``streamrec`` + ``cull``; ``fused_attn:
-    true`` + ``topk_impl: pallas``) against the plain fp32 path
+    widths: each bf16 kernel path of ``modes`` against the plain fp32 path
     (tpu.fused_attn: false, use_amp: false) on the same weights and the
     same selection."""
     import torch
@@ -1548,16 +1885,14 @@ def train_reference_check(device, side: int = 32) -> None:
                              for k, v in grads.items()}
 
     # Each kernel path against the plain path on the same selection.
-    for name, tpu in (("streamrec + cull", {"topk_impl": "cull"}),
-                      ("true + pallas", {"topk_impl": "pallas",
-                                         "fused_attn": True})):
+    for name, tpu in modes:
         lk, gk = step(flagship_cfg(**tpu))
         lp, gp = step(flagship_cfg(amp=False, **{**tpu, "fused_attn": False}))
         loss_rel = abs(lk - lp) / max(abs(lp), 1e-30)
         errs = {k: rel_fro(gk[k], gp[k]) for k in gp}
         finite = np.isfinite(lk) and all(bool(torch.isfinite(g).all())
                                          for g in gk.values())
-        print(f"phase 4 reference: {side}x{side} patch, one step, bf16 kernel "
+        print(f"phase {phase} reference: {side}x{side} patch, one step, bf16 kernel "
               f"path ({name}) vs fp32 plain path: loss {lk:.6f} vs {lp:.6f} "
               f"(rel {loss_rel:.3e}, need <= {TRAIN_REF_LOSS_REL}); gradient "
               "rel Frobenius "
@@ -1617,14 +1952,24 @@ def main() -> None:
     del params, state
     torch.cuda.empty_cache()
     cli = drive_cli_path(device)
+    modes = drive_stream_modes(device)
+    train_reference_check(device, REF_STREAM_MODES, phase=6)
 
     # Each kernel's launches on the main path that holds it: the serving
-    # path and the training step (phases 3, 4), or the command-line path.
+    # path and the training step (phases 3, 4), the command-line path, or
+    # the stream modes' steps and frames (phase 6).
     cli_only = ("topk_stream", "fused_scores_fwd", "fused_scores_bwd")
+    mode_only = ("key_stream_q_fwd", "key_stream_q_bwd",
+                 "key_stream_feat_fwd", "key_stream_feat_bwd",
+                 "value_stream_feat_fwd", "value_stream_feat_bwd")
     for r in results:
         r["launches"] = (cli["launches"][r["name"]] if r["name"] in cli_only
+                         else modes["launches"][r["name"]]
+                         if r["name"] in mode_only
                          else run["launches"].get(r["name"], 0)
                          + train["launches"].get(r["name"], 0))
+        if r["name"] not in mode_only and modes["launches"].get(r["name"]):
+            r["launches_stream_modes"] = modes["launches"][r["name"]]
         if cli["launches"].get(r["name"], 0) > 0:
             r["launches_command_line_path"] = cli["launches"][r["name"]]
         missing = [key for key in ("name", "route", "source", "replaces",

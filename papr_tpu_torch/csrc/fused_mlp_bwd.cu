@@ -30,19 +30,9 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, int R, int d_raw,
   float* st = reinterpret_cast<float*>(s.extra);            // 4 x kRows
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = blockIdx.x * kRows;
-  const int pd0 = d.pd[0], pdn = d.pd[d.n];
+  const int pdn = d.pd[d.n];
 
-  for (int c = lane; c < pd0; c += 32) {
-    const bool live = c < d.d_enc;
-    const int src = live ? (int)d.plan[c] : 0;
-    const float freq = live ? d.plan[pd0 + c] : 0.f;
-    const int kind = live ? (int)d.plan[2 * pd0 + c] : 0;
-    for (int r = warp; r < kRows; r += kWarps) {
-      const int row = r0 + r;
-      s.C[r * kCLd + c] = live && row < R
-          ? encode_value(x[(size_t)row * d_raw + src], freq, kind) : 0.f;
-    }
-  }
+  encode_raw(s.C, d, x, r0, R, d_raw);
   __syncthreads();
   const TileCtx ctx = tile_ctx(d, b, (size_t)r0, st);
   walk_fwd_stash(s, d, b, ctx, false);

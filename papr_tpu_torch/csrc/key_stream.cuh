@@ -1,0 +1,144 @@
+// The record-native key stream on one tile of kRows rays: the forward k loop
+// with its softmax, and the backward k loop from the softmax backward to
+// d_rec / d_rayo / d_rays / dqq. Shared by key_stream.cu (the query projected
+// outside the kernel) and key_stream_q.cu (the query chain inside it), which
+// differ only in where qq comes from and where dqq goes afterwards.
+
+#pragma once
+
+#include "rec_stream.cuh"
+#include "stream_common.cuh"
+
+namespace papr {
+
+// Shared memory after the walk's buffers (floats, then kRows ints).
+inline size_t key_rec_fwd_smem(int K) {
+  return kWalkSmem + sizeof(float) * kRows * (kGeo + K) + sizeof(int) * kRows;
+}
+inline size_t key_rec_bwd_smem(int K) {
+  return kWalkSmem + sizeof(float) * kRows * (kGeo + K + 4 + 2 + kNGeoSrc) +
+      sizeof(int) * kRows;
+}
+
+// Per (ray, k): geometry -> key posenc -> walk -> w_k -> scaled dot with qq
+// -> score_act x influence, alive-masked; then the background-token softmax.
+// Writes attn (T, K+1), the raw dots and the masked scores (T, K).
+__device__ __forceinline__ void key_rec_fwd_tile(
+    const WalkSmem& S, const float* __restrict__ rec, int rec_w, int T, int K,
+    const float* __restrict__ rayo, const float* __restrict__ rays,
+    const float* qq, int dm, float sqrt_dm, const WalkDesc& kd,
+    const __nv_bfloat16* __restrict__ wk, const float* __restrict__ bk,
+    int dm_pad, int score_relu, float bkg, float eps,
+    float* __restrict__ attn, float* __restrict__ raw,
+    float* __restrict__ ss_out) {
+  float* C = S.C;
+  float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
+  float* ss = geo + kRows * kGeo;                            // kRows x K
+  int* gidx = reinterpret_cast<int*>(ss + kRows * K);        // kRows
+  const int t0 = blockIdx.x * kRows;
+
+  for (int k = 0; k < K; ++k) {
+    geometry_rows(geo, gidx, rec, rec_w, T, k, t0, rayo, rays, eps);
+    __syncthreads();
+    encode_rec(C, kd, geo, gidx, rec, rec_w);
+    __syncthreads();
+    run_walk(S, kd, true);                      // y_k rounded to bf16 in A[0]
+    dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
+    __syncthreads();
+    score_column(C, qq, bk, dm, sqrt_dm, t0, T, [&](int r, int t, float col) {
+      raw[(size_t)t * K + k] = col;
+      const float* gr = geo + r * kGeo;
+      ss[r * K + k] = masked_score(col, score_relu, gr[9], gr[10] > 0.5f);
+    });
+    __syncthreads();
+  }
+  softmax_rows(ss, K, bkg, t0, T, attn, ss_out);
+}
+
+// The softmax backward from the saved masked scores, then per k a recompute
+// of the walk and the reverse chain: dqq += (into the block's own rows of
+// dqq, which the caller zeroed), dW_k / db_k, the walk's gradients, the
+// posenc and geometry backward to d_rec (K, T, rec_w) with the position
+// FEATURE gradient dropped (the reference detaches it), the geometry gradient
+// in lanes 0:3 and d_influence in lane 3, and d_rayo / d_rays. `st` (4 x
+// kRows floats of shared memory, the LayerNorm statistics) is free again on
+// return; ends on a barrier.
+__device__ __forceinline__ void key_rec_bwd_tile(
+    const WalkSmem& S, const float* __restrict__ rec, int rec_w, int T,
+    int Tp, int K, const float* __restrict__ rayo,
+    const float* __restrict__ rays, const float* qq, int dm, float sqrt_dm,
+    const float* __restrict__ raw, const float* __restrict__ ss,
+    const float* __restrict__ dattn, const WalkDesc& kd, const WalkBwd& kb,
+    const __nv_bfloat16* __restrict__ wkf,
+    const __nv_bfloat16* __restrict__ wkb, const float* __restrict__ bk,
+    int dm_pad, int dbk_off, int score_relu, float bkg, float eps,
+    const int* __restrict__ seg, int nsrc, float* drec, float* drayo,
+    float* drays, float* dqq, float* st) {
+  float* C = S.C;
+  float* geo = st + 4 * kRows;                               // kRows x kGeo
+  float* ds = geo + kRows * kGeo;                            // kRows x K
+  float* draw = ds + kRows * K;                              // kRows
+  float* dinf = draw + kRows;                                // kRows
+  float* dgeo = dinf + kRows;                                // kRows x 9
+  int* gidx = reinterpret_cast<int*>(dgeo + kRows * kNGeoSrc);
+  const int t0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+
+  softmax_bwd_rows(ds, K, bkg, t0, T, dattn,
+                   [&](int t, int k) { return ss[(size_t)t * K + k]; });
+  __syncthreads();
+
+  for (int k = 0; k < K; ++k) {
+    geometry_rows(geo, gidx, rec, rec_w, T, k, t0, rayo, rays, eps);
+    __syncthreads();
+    if (tid < kRows) {
+      const int t = t0 + tid;
+      const float rw = t < T ? raw[(size_t)t * K + k] : 0.f;
+      const float d = ds[tid * K + k];
+      dinf[tid] = d * (score_relu ? fmaxf(rw, 0.f) : rw);
+      draw[tid] = draw_of(d, rw, geo[tid * kGeo + 9], score_relu, sqrt_dm);
+    }
+    encode_rec(C, kd, geo, gidx, rec, rec_w);
+    __syncthreads();
+    const TileCtx ctx = tile_ctx(kd, kb, (size_t)k * Tp + t0, st);
+    walk_fwd_stash(S, kd, kb, ctx, true);        // y_c in A[0]
+    key_head_bwd(S, kd, kb, ctx, wkf, wkb, bk, dm, dm_pad, dbk_off, qq, dqq,
+                 draw, t0, T);
+    walk_bwd(S, kd, kb, ctx);
+
+    pe_bwd_deriv(C, kd, [&](int r, int src) {
+      return src < kNGeoSrc ? geo[r * kGeo + src]
+          : rec[(size_t)gidx[r] * rec_w + 5 + (src - kNGeoSrc)];
+    });
+    __syncthreads();
+    pe_source_sums(C, seg, nsrc, [&](int r, int src, float v) {
+      if (src < kNGeoSrc) dgeo[r * kNGeoSrc + src] = v;
+      else if (t0 + r < T) drec[(size_t)gidx[r] * rec_w + 5 + (src - kNGeoSrc)] = v;
+    });
+    __syncthreads();
+    if (tid < kRows && t0 + tid < T) {
+      const int t = t0 + tid;
+      float o[3], dr[3], dsel[3], dry[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        o[j] = rayo[(size_t)t * 3 + j];
+        dr[j] = rays[(size_t)t * 3 + j];
+      }
+      float* prow = drec + (size_t)gidx[tid] * rec_w;
+      // Sources 0..2 (the position feature) are dropped: detached.
+      geom_bwd_row(rec + (size_t)gidx[tid] * rec_w, o, dr,
+                   dgeo + tid * kNGeoSrc + 3, dgeo + tid * kNGeoSrc + 6, eps,
+                   dsel, dry);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        prow[j] = dsel[j];
+        drayo[(size_t)t * 3 + j] -= dsel[j];
+        drays[(size_t)t * 3 + j] += dry[j];
+      }
+      prow[3] = dinf[tid];
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace papr

@@ -1,0 +1,190 @@
+// Streamed key attention from RAW FEATURE tensors, forward and backward
+// (tpu.fused_attn: stream).
+//
+// Forward replaces papr_tpu/ops/stream_attn.py::key_stream_scores
+// (pallas_call at :303, kernel body _ks_fwd_kernel :133): per (ray, k) the
+// key posenc of xk[k, t] (9 -> 117, plus pass-through extras) -> LN -> 5 x
+// 256 -> LN -> w_k -> scaled dot with qq -> score_act x influence,
+// alive-masked (influence and alive are (T, K) arrays); then the
+// background-token softmax. Outputs attn (T, K+1) and the raw dots (T, K).
+//
+// Backward replaces _ks_bwd (pallas_call at :361, kernel body _ks_bwd_kernel
+// :159): the softmax recomputed from raw, influence and alive and its
+// backward; d_influence = ds x score_act(raw), an output of its own; then per
+// k a recompute of the walk and the reverse chain: dqq, dW_k / db_k, the
+// walk's gradients, and the posenc backward summed per raw source into dxk
+// (K, T, d_raw). All of dxk is returned: the caller detaches the position
+// columns before they enter xk, so autograd drops them there.
+//
+// What bounds it on the H100: the walks, as key_stream.cu (compute bound);
+// xk adds 36 B a token to read and dxk as much to write. The design is
+// key_stream.cu's: one block of 512 threads per 64-ray tile, k inside the
+// block, every activation in shared memory, scores / dqq / ds owned by the
+// block (no atomics), dW through the bf16 stash and wgrad.cu. The encode
+// stage reads x[k, t, src] by the column plan, as the embedder kernel does.
+
+#include "stream_common.cuh"
+
+using namespace papr;
+
+__global__ void __launch_bounds__(kThreads, 1)
+keyf_fwd_kernel(const float* __restrict__ x, int d_raw, int T, int K,
+                const float* __restrict__ qq, int dm, float sqrt_dm,
+                const float* __restrict__ influ,
+                const float* __restrict__ alive, WalkDesc kd,
+                const __nv_bfloat16* __restrict__ wk,
+                const float* __restrict__ bk, int dm_pad, int score_relu,
+                float bkg, float* __restrict__ attn, float* __restrict__ raw) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WalkSmem S = walk_smem(smem);
+  float* C = S.C;
+  float* ss = reinterpret_cast<float*>(S.extra);             // kRows x K
+  const int t0 = blockIdx.x * kRows;
+
+  for (int k = 0; k < K; ++k) {
+    encode_raw(C, kd, x + (size_t)k * T * d_raw, t0, T, d_raw);
+    __syncthreads();
+    run_walk(S, kd, true);                      // y_k rounded to bf16 in A[0]
+    dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
+    __syncthreads();
+    score_column(C, qq, bk, dm, sqrt_dm, t0, T, [&](int r, int t, float col) {
+      const size_t i = (size_t)t * K + k;
+      raw[i] = col;
+      ss[r * K + k] = masked_score(col, score_relu, influ[i], alive[i] > 0.5f);
+    });
+    __syncthreads();
+  }
+  softmax_rows(ss, K, bkg, t0, T, attn, nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+keyf_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp, int K,
+                const float* __restrict__ qq, int dm, float sqrt_dm,
+                const float* __restrict__ influ,
+                const float* __restrict__ alive,
+                const float* __restrict__ raw,
+                const float* __restrict__ dattn, WalkDesc kd, WalkBwd kb,
+                const __nv_bfloat16* __restrict__ wkf,
+                const __nv_bfloat16* __restrict__ wkb,
+                const float* __restrict__ bk, int dm_pad, int dbk_off,
+                int score_relu, float bkg, const int* __restrict__ seg,
+                float* __restrict__ dx, float* dqq,
+                float* __restrict__ dinflu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WalkSmem S = walk_smem(smem);
+  float* C = S.C;
+  float* st = reinterpret_cast<float*>(S.extra);             // 4 x kRows
+  float* ds = st + 4 * kRows;                                // kRows x K
+  float* draw = ds + kRows * K;                              // kRows
+  const int t0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+
+  // Softmax backward, the masked scores recomputed from the saved raw dots
+  // (_ks_bwd_kernel :183-191), and d_influence for every slot at once (:195).
+  softmax_bwd_rows(ds, K, bkg, t0, T, dattn, [&](int t, int k) {
+    const size_t i = (size_t)t * K + k;
+    return masked_score(raw[i], score_relu, influ[i], alive[i] > 0.5f);
+  });
+  __syncthreads();
+  for (int i = tid; i < kRows * K; i += kThreads) {
+    const int r = i / K, t = t0 + r;
+    if (t >= T) continue;
+    const float rw = raw[(size_t)t * K + (i - r * K)];
+    dinflu[(size_t)t * K + (i - r * K)] =
+        ds[i] * (score_relu ? fmaxf(rw, 0.f) : rw);
+  }
+
+  for (int k = 0; k < K; ++k) {
+    const float* xk = x + (size_t)k * T * d_raw;
+    if (tid < kRows) {
+      const int t = t0 + tid;
+      draw[tid] = t < T
+          ? draw_of(ds[tid * K + k], raw[(size_t)t * K + k],
+                    influ[(size_t)t * K + k], score_relu, sqrt_dm)
+          : 0.f;
+    }
+    encode_raw(C, kd, xk, t0, T, d_raw);
+    __syncthreads();
+    const TileCtx ctx = tile_ctx(kd, kb, (size_t)k * Tp + t0, st);
+    walk_fwd_stash(S, kd, kb, ctx, true);        // y_c in A[0]
+    key_head_bwd(S, kd, kb, ctx, wkf, wkb, bk, dm, dm_pad, dbk_off, qq, dqq,
+                 draw, t0, T);
+    walk_bwd(S, kd, kb, ctx);
+
+    pe_bwd_deriv(C, kd, [&](int r, int src) {
+      const int t = t0 + r;
+      return t < T ? xk[(size_t)t * d_raw + src] : 0.f;
+    });
+    __syncthreads();
+    float* dxk = dx + (size_t)k * T * d_raw;
+    pe_source_sums(C, seg, d_raw, [&](int r, int src, float v) {
+      const int t = t0 + r;
+      if (t < T) dxk[(size_t)t * d_raw + src] = v;
+    });
+    __syncthreads();
+  }
+}
+
+extern "C" int papr_key_stream_feat_fwd(
+    const float* x, int d_raw, int T, int K, const float* qq, int dm,
+    float sqrt_dm, const float* influ, const float* alive, const int* kmeta,
+    const void* kw, const void* kb, const void* kln, const void* kplan,
+    const void* wk, const void* bk, int dm_pad, int score_relu, float bkg,
+    void* attn, void* raw, void* stream) {
+  WalkDesc kd;
+  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
+  if (err) return err;
+  err = check_score_head(dm, dm_pad, K);
+  if (err) return err;
+  if (d_raw <= 0 || d_raw > kMaxWidth) return -205;
+  if (T <= 0) return 0;
+  const size_t smem = kWalkSmem + sizeof(float) * kRows * K;
+  if (smem > 232448) return -203;
+  cudaError_t e = cudaFuncSetAttribute(
+      keyf_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  keyf_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      x, d_raw, T, K, qq, dm, sqrt_dm, influ, alive, kd,
+      static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
+      dm_pad, score_relu, bkg, static_cast<float*>(attn),
+      static_cast<float*>(raw));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int papr_key_stream_feat_bwd(
+    const float* x, int d_raw, int T, int K, const float* qq, int dm,
+    float sqrt_dm, const float* influ, const float* alive, const float* raw,
+    const float* dattn, const int* kmeta, const void* kw, const void* kb,
+    const void* kln, const void* kplan, const void* kwt, const void* wkf,
+    const void* wkb, const void* bk, int dm_pad, int score_relu, float bkg,
+    void* stash, const long long* stash_off, const int* seg, float* dx,
+    float* dqq, float* dinflu, float* part, int part_w, float* scratch,
+    void* stream) {
+  WalkDesc kd;
+  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
+  if (err) return err;
+  WalkBwd wb;
+  err = fill_walk_bwd(&wb, kd, kmeta, kwt, stash, stash_off, kd.n + 1, part,
+                      part_w, scratch);
+  if (err) return err;
+  err = check_score_head(dm, dm_pad, K);
+  if (err) return err;
+  if (d_raw <= 0 || d_raw > kMaxWidth) return -205;
+  const int dbk_off = wb.bias_len + 2 * kd.pd[0] + 2 * kd.pd[kd.n];
+  if (part_w < dbk_off + dm_pad) return -204;
+  if (T <= 0) return 0;
+  const size_t smem = kWalkSmem + sizeof(float) * kRows * (4 + K + 1);
+  if (smem > 232448) return -203;
+  cudaError_t e = cudaFuncSetAttribute(
+      keyf_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int Tp = (T + kRows - 1) / kRows * kRows;
+  keyf_bwd_kernel<<<Tp / kRows, kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      x, d_raw, T, Tp, K, qq, dm, sqrt_dm, influ, alive, raw, dattn, kd, wb,
+      static_cast<const __nv_bfloat16*>(wkf),
+      static_cast<const __nv_bfloat16*>(wkb), static_cast<const float*>(bk),
+      dm_pad, dbk_off, score_relu, bkg, seg, dx, dqq, dinflu);
+  return (int)cudaGetLastError();
+}

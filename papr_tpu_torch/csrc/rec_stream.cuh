@@ -12,7 +12,6 @@
 
 namespace papr {
 
-constexpr float kNegBig = -1e30f;     // papr.py NEG_BIG: dead points
 constexpr int kGeo = 12;              // sel(3) proj(3) perp(3) influ alive pad
 constexpr int kNGeoSrc = 9;           // posenc sources 0..8: pos, proj, perp
 

@@ -22,7 +22,7 @@
 // wgrad.cu.
 
 #include "rec_stream.cuh"
-#include "walk_bwd.cuh"
+#include "stream_common.cuh"
 
 using namespace papr;
 
@@ -44,14 +44,7 @@ value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   for (int i = threadIdx.x; i < kRows * cout; i += kThreads) acc[i] = 0.f;
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int t = t0 + r;
-    float sfg = 0.f;
-    if (t < T)
-      for (int k = lane; k < K; k += 32) sfg += attn[(size_t)t * (K + 1) + k];
-    sfg = warp_sum(sfg);
-    if (lane == 0) den[r] = normalize ? (sfg > 0.f ? sfg : 1.f) : 1.f;
-  }
+  fg_mass_rows(attn, K, t0, T, normalize, den);
 
   for (int k = 0; k < K; ++k) {
     geometry_rows(geo, gidx, rec, rec_w, T, k, t0, rayo, rays, eps);
@@ -59,13 +52,7 @@ value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
     encode_rec(C, vd, geo, gidx, rec, rec_w);
     __syncthreads();
     run_walk(S, vd);
-    for (int r = warp; r < kRows; r += kWarps) {
-      const int t = t0 + r;
-      if (t >= T) continue;
-      const float w = attn[(size_t)t * (K + 1) + k] / den[r];
-      for (int c = lane; c < cout; c += 32)
-        acc[r * cout + c] += w * bf16_round(C[r * kCLd + c]);
-    }
+    fuse_step(C, acc, attn, den, k, K, cout, t0, T);
     __syncthreads();
   }
   for (int r = warp; r < kRows; r += kWarps) {
@@ -95,18 +82,11 @@ value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
   float* dgeo = st + 4 * kRows;                              // kRows x 9
   int* gidx = reinterpret_cast<int*>(dgeo + kRows * kNGeoSrc);
   const int t0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int cout = vd.d_out, pdn = vd.pd[vd.n];
 
   // Safe denominator (_vsr_bwd_kernel :1659-1663): 1 for all-dead rays.
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int t = t0 + r;
-    float sfg = 0.f;
-    if (t < T)
-      for (int k = lane; k < K; k += 32) sfg += attn[(size_t)t * (K + 1) + k];
-    sfg = warp_sum(sfg);
-    if (lane == 0) den[r] = sfg > 0.f ? sfg : 1.f;
-  }
+  fg_mass_rows(attn, K, t0, T, normalize, den);
 
   for (int k = 0; k < K; ++k) {
     geometry_rows(geo, gidx, rec, rec_w, T, k, t0, rayo, rays, eps);
@@ -116,29 +96,9 @@ value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
     const TileCtx ctx = tile_ctx(vd, vb, (size_t)k * Tp + t0, st);
     walk_fwd_stash(S, vd, vb, ctx, false);       // y fp32 in C
 
-    // d attn_k = y_c . dfused (y rounded to bf16 as in the forward).
-    for (int r = warp; r < kRows; r += kWarps) {
-      const int t = t0 + r;
-      float s = 0.f;
-      if (t < T)
-        for (int c = lane; c < cout; c += 32)
-          s += bf16_round(C[r * kCLd + c]) * dfused[(size_t)t * cout + c];
-      s = warp_sum(s);
-      if (lane == 0) datt[r * K + k] = s;
-    }
-    __syncthreads();
-    // Upstream gradient of the walk output: w_k dfused.
-    for (int i = tid; i < kRows * pdn; i += kThreads) {
-      const int r = i / pdn, c = i - r * pdn, t = t0 + r;
-      float g = 0.f;
-      if (t < T && c < cout) {
-        float w = attn[(size_t)t * (K + 1) + k];
-        if (normalize) w = w / den[r];
-        g = w * dfused[(size_t)t * cout + c];
-      }
-      C[r * kCLd + c] = g;
-    }
-    __syncthreads();
+    // d attn_k = y_c . dfused (y rounded to bf16 as in the forward), then
+    // the upstream gradient of the walk output, w_k dfused.
+    fuse_step_bwd(C, datt, attn, den, dfused, k, K, cout, pdn, t0, T);
     walk_bwd(S, vd, vb, ctx);
 
     pe_bwd_deriv(C, vd, [&](int r, int src) {
@@ -174,20 +134,7 @@ value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
   }
 
   // Renormalization backward (_vsr_bwd_kernel :1681-1690).
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int t = t0 + r;
-    if (t >= T) continue;
-    const float* arow = attn + (size_t)t * (K + 1);
-    float* drow = dattn + (size_t)t * (K + 1);
-    float inner = 0.f;
-    if (normalize) {
-      for (int k = lane; k < K; k += 32) inner += datt[r * K + k] * arow[k];
-      inner = warp_sum(inner) / den[r];
-    }
-    for (int k = lane; k < K; k += 32)
-      drow[k] = normalize ? (datt[r * K + k] - inner) / den[r] : datt[r * K + k];
-    if (lane == 0) drow[K] = 0.f;
-  }
+  renorm_bwd_rows(datt, attn, den, normalize, K, t0, T, dattn);
 }
 
 extern "C" int papr_value_stream_fwd(

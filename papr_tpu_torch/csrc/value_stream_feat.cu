@@ -1,0 +1,148 @@
+// Streamed value fuse from RAW FEATURE tensors, forward and backward
+// (tpu.fused_attn: stream).
+//
+// Forward replaces papr_tpu/ops/stream_attn.py::value_stream_fuse
+// (pallas_call at :555, kernel body _vs_fwd_kernel :406): per (ray, k) the
+// value posenc of xv[k, t] (6 -> 78, plus 64 pass-through point features) ->
+// 8-layer walk to 32 -> rounded to bf16 -> weighted by the renormalized
+// foreground attention and summed over k: fused (T, C) fp32.
+//
+// Backward replaces _vs_bwd (pallas_call at :605, kernel body _vs_bwd_kernel
+// :433): per k a recompute of the walk; dattn from the value rows and the
+// renormalization (after the k loop, when every column of the ray is in the
+// block; the background column stays 0); the walk's gradients; the posenc
+// backward summed per raw source into dxv (K, T, d_raw). All-dead rays
+// (foreground mass exactly 0) divide by 1: zero gradient into the walk.
+//
+// What bounds it on the H100: the walk, as value_stream.cu (compute bound);
+// xv adds 280 B a token to read and dxv as much to write. The design is
+// value_stream.cu's: one block of 512 threads per 64-ray tile, k inside the
+// block, every activation in shared memory, dW through the stash and
+// wgrad.cu; the fuse steps are shared with it (stream_common.cuh).
+
+#include "stream_common.cuh"
+
+using namespace papr;
+
+__global__ void __launch_bounds__(kThreads, 1)
+valuef_fwd_kernel(const float* __restrict__ x, int d_raw, int T, int K,
+                  const float* __restrict__ attn, WalkDesc vd, int normalize,
+                  float* __restrict__ fused) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WalkSmem S = walk_smem(smem);
+  float* C = S.C;
+  float* den = reinterpret_cast<float*>(S.extra);            // kRows
+  const int cout = vd.d_out;
+  float* acc = den + kRows;                                  // kRows x cout
+  const int t0 = blockIdx.x * kRows;
+
+  for (int i = threadIdx.x; i < kRows * cout; i += kThreads) acc[i] = 0.f;
+  fg_mass_rows(attn, K, t0, T, normalize, den);
+  __syncthreads();
+
+  for (int k = 0; k < K; ++k) {
+    encode_raw(C, vd, x + (size_t)k * T * d_raw, t0, T, d_raw);
+    __syncthreads();
+    run_walk(S, vd);
+    fuse_step(C, acc, attn, den, k, K, cout, t0, T);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < kRows * cout; i += kThreads) {
+    const int r = i / cout, t = t0 + r;
+    if (t < T) fused[(size_t)t * cout + (i - r * cout)] = acc[i];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+valuef_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp,
+                  int K, const float* __restrict__ attn,
+                  const float* __restrict__ dfused, WalkDesc vd, WalkBwd vb,
+                  int normalize, const int* __restrict__ seg,
+                  float* __restrict__ dx, float* __restrict__ dattn) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WalkSmem S = walk_smem(smem);
+  float* C = S.C;
+  float* st = reinterpret_cast<float*>(S.extra);             // 4 x kRows
+  float* den = st + 4 * kRows;                               // kRows
+  float* datt = den + kRows;                                 // kRows x K
+  const int t0 = blockIdx.x * kRows;
+  const int cout = vd.d_out, pdn = vd.pd[vd.n];
+
+  // Safe denominator (_vs_bwd_kernel :459-460): 1 for all-dead rays.
+  fg_mass_rows(attn, K, t0, T, normalize, den);
+  __syncthreads();
+
+  for (int k = 0; k < K; ++k) {
+    const float* xk = x + (size_t)k * T * d_raw;
+    encode_raw(C, vd, xk, t0, T, d_raw);
+    __syncthreads();
+    const TileCtx ctx = tile_ctx(vd, vb, (size_t)k * Tp + t0, st);
+    walk_fwd_stash(S, vd, vb, ctx, false);       // y fp32 in C
+    fuse_step_bwd(C, datt, attn, den, dfused, k, K, cout, pdn, t0, T);
+    walk_bwd(S, vd, vb, ctx);
+
+    pe_bwd_deriv(C, vd, [&](int r, int src) {
+      const int t = t0 + r;
+      return t < T ? xk[(size_t)t * d_raw + src] : 0.f;
+    });
+    __syncthreads();
+    float* dxk = dx + (size_t)k * T * d_raw;
+    pe_source_sums(C, seg, d_raw, [&](int r, int src, float v) {
+      const int t = t0 + r;
+      if (t < T) dxk[(size_t)t * d_raw + src] = v;
+    });
+    __syncthreads();
+  }
+  renorm_bwd_rows(datt, attn, den, normalize, K, t0, T, dattn);
+}
+
+extern "C" int papr_value_stream_feat_fwd(
+    const float* x, int d_raw, int T, int K, const float* attn,
+    const int* vmeta, const void* vw, const void* vb, const void* vln,
+    const void* vplan, int normalize, void* fused, void* stream) {
+  WalkDesc vd;
+  int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
+  if (err) return err;
+  if (K <= 0 || K > 64) return -202;
+  if (d_raw <= 0 || d_raw > kMaxWidth) return -205;
+  if (T <= 0) return 0;
+  const size_t smem = kWalkSmem + sizeof(float) * kRows * (1 + vd.d_out);
+  if (smem > 232448) return -203;
+  cudaError_t e = cudaFuncSetAttribute(
+      valuef_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  valuef_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      x, d_raw, T, K, attn, vd, normalize, static_cast<float*>(fused));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int papr_value_stream_feat_bwd(
+    const float* x, int d_raw, int T, int K, const float* attn,
+    const float* dfused, const int* vmeta, const void* vw, const void* vb,
+    const void* vln, const void* vplan, const void* vwt, int normalize,
+    void* stash, const long long* stash_off, const int* seg, float* dx,
+    float* dattn, float* part, int part_w, float* scratch, void* stream) {
+  WalkDesc vd;
+  int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
+  if (err) return err;
+  WalkBwd wb;
+  err = fill_walk_bwd(&wb, vd, vmeta, vwt, stash, stash_off, vd.n, part,
+                      part_w, scratch);
+  if (err) return err;
+  if (K <= 0 || K > 64) return -202;
+  if (d_raw <= 0 || d_raw > kMaxWidth) return -205;
+  if (T <= 0) return 0;
+  const size_t smem = kWalkSmem + sizeof(float) * kRows * (4 + 1 + K);
+  if (smem > 232448) return -203;
+  cudaError_t e = cudaFuncSetAttribute(
+      valuef_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int Tp = (T + kRows - 1) / kRows * kRows;
+  valuef_bwd_kernel<<<Tp / kRows, kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      x, d_raw, T, Tp, K, attn, dfused, vd, wb, normalize, seg, dx, dattn);
+  return (int)cudaGetLastError();
+}

@@ -1,5 +1,6 @@
-// Embedder "walk" building blocks shared by the fused query embedder
-// (fused_mlp.cu) and the one-shot eval attention (attend_eval.cu).
+// Embedder "walk" building blocks shared by the fused embedder
+// (fused_mlp.cu), the one-shot eval attention (attend_eval.cu) and the
+// training streams.
 //
 // A walk is papr_tpu/ops/fused_mlp.py::walk_body_fwd: [LayerNorm] -> dense
 // stack (bf16 operands, fp32 accumulate, fp32 bias, relu/none, activations
@@ -38,6 +39,7 @@ constexpr int kWChunk = 64;            // weight rows per staged chunk
 constexpr int kWLd = kMaxWidth + 8;    // staged weight leading dim
 constexpr int kMaxLayers = 12;
 constexpr float kLnEps = 1e-6f;        // fused_mlp.py hard-wires 1e-6
+constexpr float kNegBig = -1e30f;      // papr.py NEG_BIG: score of a dead point
 constexpr size_t kABytes = sizeof(__nv_bfloat16) * kRows * kALd;
 constexpr size_t kCBytes = sizeof(float) * kRows * kCLd;
 constexpr size_t kWBytes = sizeof(__nv_bfloat16) * 2 * kWChunk * kWLd;
@@ -132,6 +134,28 @@ __device__ __forceinline__ float encode_value(float x, float freq, int kind) {
   float s, c;
   sincosf(x * freq, &s, &c);
   return kind == 1 ? s : c;
+}
+
+// Encoded columns of a walk from raw feature rows: x is (R, d_raw) row-major,
+// the block's rows are r0 .. r0 + kRows - 1 (rows past R and pad lanes
+// encode as 0). Each lane reads its columns' plan once and walks the rows.
+__device__ __forceinline__ void encode_raw(float* C, const WalkDesc& d,
+                                           const float* __restrict__ x,
+                                           int r0, int R, int d_raw) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pd0 = d.pd[0];
+  for (int c = lane; c < pd0; c += 32) {
+    const bool live = c < d.d_enc;
+    const int src = live ? (int)d.plan[c] : 0;
+    const float freq = live ? d.plan[pd0 + c] : 0.f;
+    const int kind = live ? (int)d.plan[2 * pd0 + c] : 0;
+#pragma unroll
+    for (int i = 0; i < kRows / kWarps; ++i) {
+      const int r = warp + i * kWarps, row = r0 + r;
+      C[r * kCLd + c] = live && row < R
+          ? encode_value(x[(size_t)row * d_raw + src], freq, kind) : 0.f;
+    }
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

@@ -46,6 +46,19 @@ SIGNATURES = {
     "papr_value_stream_fwd": [P, I, I, I, P, P, P, P, P, P, P, P, I, F, P, P],
     "papr_value_stream_bwd": [P, I, I, I, P, P, P, P, P, P, P, P, P, P, I, F,
                               P, P, P, I, P, P, P, P, P, I, P, P],
+    "papr_key_stream_q_fwd": [P, I, I, I, P, P, P, I, F] + [P] * 14    # ..bq
+                             + [I, I, F, F] + [P] * 5,
+    "papr_key_stream_q_bwd": [P, I, I, I, P, P, P, P, I, F, P, P, P]  # ..dattn
+                             + [P] * 16 + [I, I, F, F]                # ..eps
+                             + [P] * 4 + [P, I, P] + [P] * 5          # ..dqq
+                             + [P, I, P, P, I, P, P],
+    "papr_key_stream_feat_fwd": [P, I, I, I, P, I, F, P, P] + [P] * 7
+                                + [I, I, F] + [P] * 3,
+    "papr_key_stream_feat_bwd": [P, I, I, I, P, I, F, P, P, P, P] + [P] * 9
+                                + [I, I, F] + [P] * 7 + [I, P, P],
+    "papr_value_stream_feat_fwd": [P, I, I, I, P] + [P] * 5 + [I, P, P],
+    "papr_value_stream_feat_bwd": [P, I, I, I, P, P] + [P] * 6 + [I]
+                                  + [P] * 6 + [I, P, P],
     "papr_topk_stream": [P, P, P, P, I, I, I, I, P, P],
     "papr_fused_scores_fwd": [P] * 8 + [I] * 8 + [F, F, I, P, P, P],
     "papr_fused_scores_bwd": [P] * 8 + [I] * 8 + [F, F, I] + [P] * 10,

@@ -67,14 +67,19 @@ def _encode(features, Ls, embed_type: int, pe_factor: float, pe_mult: float,
 
 def embed_kqv(params: dict, attn_cfg, k_features, q_features, v_features,
               k_extra=None, q_extra=None, v_extra=None, eps: float = 1e-6,
-              policy: Policy = F32, fused: bool = False):
+              policy: Policy = F32, fused: bool = False,
+              skip_k: bool = False, skip_v: bool = False,
+              skip_q: bool = False):
     """Run the three geometric embedders -> (embed_k, embed_q, embed_v).
     Inputs are lists of geometric features (..., K, d_i) (query:
     (..., d_i)). With ``fused`` every embedder runs posenc + LN + dense
     stack + LN in one dispatch with its kernel backward
     (``ops/fused_mlp.py``; the plain version for CPU tensors): the caller
     asks for it only where ``feedforward_fusible`` holds for all three
-    stacks. The stream paths embed inside ``ops/stream_attn.py`` instead."""
+    stacks. ``skip_k`` / ``skip_v`` / ``skip_q`` return that embedding as
+    None: the stream kernels embed those tokens themselves
+    (``ops/stream_attn.py``, ``ops/stream_feat.py``; ``skip_q`` is the
+    query-folded key stream)."""
     e = attn_cfg.embed
 
     def run(ff_params, feats, Ls, extra, ff_cfg):
@@ -87,8 +92,11 @@ def embed_kqv(params: dict, attn_cfg, k_features, q_features, v_features,
         return feedforward_apply(ff_params, policy.cast(x), ff_cfg,
                                  ff_cfg.d_ff_out, eps, policy)
 
-    return (run(params["embed_k"], k_features, e.k_L, k_extra, e.key),
+    return (None if skip_k else
+            run(params["embed_k"], k_features, e.k_L, k_extra, e.key),
+            None if skip_q else
             run(params["embed_q"], q_features, e.q_L, q_extra, e.query),
+            None if skip_v else
             run(params["embed_v"], v_features, e.v_L, v_extra, e.value))
 
 

@@ -19,8 +19,9 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
   stage-3 kernel on the card, the plain version on the CPU), exact selection
   otherwise; ``cull`` / ``xla`` pin either. ``pallas`` -> the streaming
   top-k over every point (``ops/pallas_topk.py``: ``csrc/topk_stream.cu`` on
-  the card, its plain version on the CPU; P <= 32768). ``approx`` names a
-  selection not ported yet and raises (ROADMAP.md Queue 2 item 1c).
+  the card, its plain version on the CPU; P <= 32768). ``approx``
+  (``approx_min_k`` over every point in the JAX package, which returns the
+  exact selection off the TPU) -> the exact selection, as ``xla``.
 * ``fused_attn: auto`` (fusible configs) or ``streamrec`` -> the fused
   query embedder, then for eval the one-shot eval attention and for
   training the key and value streams with their backwards (kernels on the
@@ -32,19 +33,25 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
   the stage a value leaves out is plain PyTorch, and the
   renormalize-and-fuse epilogue always is. ``false`` -> the plain unfused
   PyTorch path, differentiable, the parity oracle; a config the kernels do
-  not cover takes it too. ``stream`` names kernels not ported yet and raises
-  (ROADMAP.md Queue 2 item 8).
+  not cover takes it too. ``stream`` -> the fused query embedder, then the
+  key and value streams that read raw k-major feature tensors
+  (``ops/stream_feat.py``), for training and, forward only, for eval.
+* ``query_fold: true`` with ``streamrec`` -> the query chain (posenc ->
+  query embedder -> ``w_q``) runs inside the key stream kernel
+  (``key_stream_scores_recq``), for training and eval; under any other
+  kernel mode it warns once and the query chain runs unfolded.
 * ``eval_fused: false`` (with ``streamrec``, at eval) -> the two training
   stream kernels' forwards on the k-major gathered record under
-  ``torch.no_grad()`` instead of the one-shot eval kernel.
+  ``torch.no_grad()`` instead of the one-shot eval kernel; a folded query
+  turns the one-shot kernel off in the same way.
 * Training selection reads ``tpu.cull_prefilter`` (default ``approx``, read
   as the exact top-k of the cone lower bounds, see ``ops/tile_cull.py``);
   eval pins ``tpu.cull_prefilter_eval`` like the JAX eval path.
 * Training raises for embedder dropout (``dropout_ff > 0``) and
   ``tpu.int8_train: true`` (ROADMAP.md Queue 1 item 6, Queue 2 item 11).
-* ``int8_eval: true`` and ``query_fold: true`` name kernels not ported yet
-  and raise (ROADMAP.md Queue 2 items 10 and 9); a ``tpu.mesh`` of more than
-  one device raises (single-card slice, Queue 1 item 12).
+* ``int8_eval: true`` names kernels not ported yet and raises (ROADMAP.md
+  Queue 2 item 10); a ``tpu.mesh`` of more than one device raises
+  (single-card slice, Queue 1 item 12).
 * The TPU tuning knobs (``fused_tile``, ``vmem_mb``, ``mxu_reduce``,
   ``force_local``, ``remat_embed``, ``donate_state``) select no computation
   and have no meaning on the card.
@@ -52,6 +59,7 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -266,32 +274,56 @@ def resolve_topk_impl(cfg, P: int) -> str:
     if impl in ("cull", "pallas", "xla"):
         return impl
     if impl == "approx":
-        raise NotImplementedError(
-            "tpu.topk_impl: approx (approx_min_k over every point) is not "
-            "ported (ROADMAP.md Queue 2 item 1c); use auto, cull, pallas or "
-            "xla")
+        # approx_min_k returns the exact selection off the TPU.
+        return "xla"
     raise ValueError(f"unknown tpu.topk_impl {impl!r}")
 
 
 def resolve_fused_attn(cfg, fusible: bool):
-    """``tpu.fused_attn`` -> 'streamrec', True, 'embed' or 'score' (the
-    kernels that run) or False (the plain path); see the module docstring."""
+    """``tpu.fused_attn`` -> 'streamrec', 'stream', True, 'embed' or 'score'
+    (the kernels that run) or False (the plain path); see the module
+    docstring."""
     fa = cfg.get_path("tpu.fused_attn", "auto")
-    for knob, bad, item in (("int8_eval", True, "10"),
-                            ("query_fold", True, "9")):
-        if bool(cfg.get_path(f"tpu.{knob}", not bad)) == bad:
-            raise NotImplementedError(
-                f"tpu.{knob}: {bad} names a kernel not ported yet "
-                f"(ROADMAP.md Queue 2 item {item})")
+    if bool(cfg.get_path("tpu.int8_eval", False)):
+        raise NotImplementedError(
+            "tpu.int8_eval: True names a kernel not ported yet (ROADMAP.md "
+            "Queue 2 item 10)")
     if fa == "auto":
         fa = "streamrec"
     if fa is False:
         return False
-    if fa is True or fa in ("streamrec", "embed", "score"):
+    if fa is True or fa in ("streamrec", "stream", "embed", "score"):
         return fa if fusible else False
-    raise NotImplementedError(
-        f"tpu.fused_attn: {fa!r} names kernels not ported yet (ROADMAP.md "
-        "Queue 2 item 8); use auto, streamrec, true, embed, score or false")
+    raise ValueError(f"unknown tpu.fused_attn {fa!r}")
+
+
+_warned: set = set()
+
+
+def _warn_qfold_ignored(why: str) -> None:
+    """One-time warning when ``tpu.query_fold: true`` cannot take effect
+    (the folded kernel exists only on the record-native stream path)."""
+    key = f"qfold:{why}"
+    if key not in _warned:
+        _warned.add(key)
+        import warnings
+        warnings.warn(
+            f"tpu.query_fold: true ignored — {why}; the query chain runs "
+            "unfolded. The folded kernel needs tpu.fused_attn: streamrec "
+            "and no per-point query features (point_feats.use_inq).")
+
+
+def resolve_query_fold(cfg, fa) -> bool:
+    """``tpu.query_fold`` on a kernel path ``fa``: True under ``streamrec``
+    (a fusible config has no per-point query features); under any other
+    kernel mode a one-time warning, and False."""
+    if not bool(cfg.get_path("tpu.query_fold", False)):
+        return False
+    if fa == "streamrec":
+        return True
+    _warn_qfold_ignored("rec-native streamrec preconditions do not hold "
+                        "(rec_native=False, q_extra=None)")
+    return False
 
 
 def _check_train_knobs(cfg) -> None:
@@ -368,11 +400,18 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
                and all(feedforward_fusible(c)
                        for c in (e.key, e.query, e.value)))
     fa = resolve_fused_attn(cfg, fusible)
-    if fa == "streamrec":
-        # tpu.eval_fused: false restores the two-kernel eval path: the
-        # training streams' forwards, nothing differentiated.
-        eval_one = exact_select and bool(cfg.get_path("tpu.eval_fused", True))
-        run = _attend_eval_kernels if eval_one else _attend_train_kernels
+    qfold = fa is not False and resolve_query_fold(cfg, fa)
+    if fa in ("streamrec", "stream"):
+        # The one-shot eval kernel serves streamrec only. tpu.eval_fused:
+        # false, a folded query and ``stream`` take the two-kernel eval
+        # path: the training streams' forwards, nothing differentiated.
+        if (fa == "streamrec" and exact_select and not qfold
+                and bool(cfg.get_path("tpu.eval_fused", True))):
+            run = _attend_eval_kernels
+        elif fa == "stream":
+            run = _attend_stream_feat
+        else:
+            run = functools.partial(_attend_train_kernels, qfold=qfold)
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not exact_select):
             fused_f, attn = run(params, cfg, meta, idx, rays_o, rays_d, alive,
@@ -421,11 +460,34 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
     return fused_f, attn, idx
 
 
-def _kernel_inputs(params, cfg, meta, rays_o, rays_d, alive, eps, policy):
-    """Shared head of the fused paths (papr.py:558-635): the point record,
-    the flat ray origins / normalized directions, ``qq`` through the fused
-    query embedder and ``w_q`` (a plain matmul), and the key / value walks."""
-    from ..ops.fused_mlp import fused_embedder_apply, walk_from_params
+def _query_walk(params, cfg):
+    """The query embedder as a kernel walk on the raw ray direction."""
+    from ..ops.fused_mlp import posenc_plan, walk_from_params
+    e = cfg.models.attn.embed
+    _, cols = posenc_plan((3,), tuple(int(l) for l in e.q_L),
+                          int(e.embed_type), float(e.pe_factor),
+                          float(e.pe_mult_factor), 0)
+    return walk_from_params(params["attn"]["embed_q"], e.query, cols)
+
+
+def _projected_query(params, cfg, rayd_flat, policy):
+    """qq (T, dm) fp32 outside the stream kernels: the fused query embedder
+    (``embed_kqv`` with the key and value stacks skipped), then ``w_q`` as a
+    plain matmul."""
+    _, eq, _ = embed_kqv(params["attn"], cfg.models.attn, None, [rayd_flat],
+                         None, eps=float(cfg.eps), policy=policy, fused=True,
+                         skip_k=True, skip_v=True)
+    return linear_apply(params["attn"]["w_q"], eq, policy).float()
+
+
+def _kernel_inputs(params, cfg, meta, rays_o, rays_d, alive, eps, policy,
+                   qfold: bool = False):
+    """Shared head of the record-native paths (papr.py:558-635): the point
+    record, the flat ray origins / normalized directions / raw directions,
+    ``qq`` through the fused query embedder and ``w_q`` (None with ``qfold``:
+    the key stream kernel runs the query chain itself), and the key / value
+    walks."""
+    from ..ops.fused_mlp import walk_from_params
     from ..ops.stream_attn import rec_pe_plan
 
     N, H, W, _ = rays_d.shape
@@ -436,10 +498,7 @@ def _kernel_inputs(params, cfg, meta, rays_o, rays_d, alive, eps, policy):
     rayd_flat = rays_d.reshape(T, 3)
     rayo_flat = rays_o[:, None, :].expand(N, H * W, 3).reshape(T, 3)
     rays = normalize_vector(rayd_flat, eps=eps)
-
-    eq = fused_embedder_apply(params["attn"]["embed_q"], [rayd_flat], None,
-                              e.q_L, e, e.query, policy)
-    qq = linear_apply(params["attn"]["w_q"], eq, policy).float()
+    qq = None if qfold else _projected_query(params, cfg, rayd_flat, policy)
 
     def plan(has_pos, Ls, use_extra):
         extra = int(pcf.dim) if (meta.use_pc_feats and use_extra) else 0
@@ -451,42 +510,50 @@ def _kernel_inputs(params, cfg, meta, rays_o, rays_d, alive, eps, policy):
                              plan(True, e.k_L, pcf.use_ink))
     vwalk = walk_from_params(params["attn"]["embed_v"], e.value,
                              plan(False, e.v_L, pcf.use_inv))
-    return record, rayo_flat.contiguous(), rays, qq, kwalk, vwalk
+    return record, rayo_flat.contiguous(), rays, rayd_flat, qq, kwalk, vwalk
 
 
 def _attend_train_kernels(params, cfg, meta, idx, rays_o, rays_d, alive,
-                          eps, policy):
+                          eps, policy, qfold: bool = False):
     """The training branch of ``_attend_kmaj`` with ``streamrec``
-    (papr.py:705-713, 763-769): the k-major record gather (its gradient
+    (papr.py:684-713, 763-769): the k-major record gather (its gradient
     reaches points, influence scores and point features through autograd),
     the key stream, then the value stream on its attention. Autograd runs
-    the backward value -> dattn -> key -> dqq -> w_q -> query embedder."""
-    from ..ops.stream_attn import key_stream_scores_rec, value_stream_fuse_rec
+    the backward value -> dattn -> key -> dqq -> w_q -> query embedder; with
+    ``qfold`` the last three happen inside the key stream's backward."""
+    from ..ops.stream_attn import (key_stream_scores_rec,
+                                   key_stream_scores_recq,
+                                   value_stream_fuse_rec)
 
     N, H, W, _ = rays_d.shape
     k = idx.shape[-1]
     T = N * H * W
-    attn_cfg = cfg.models.attn
-    record, rayo_flat, rays, qq, kwalk, vwalk = _kernel_inputs(
-        params, cfg, meta, rays_o, rays_d, alive, eps, policy)
+    a = params["attn"]
+    record, rayo_flat, rays, rayd_flat, qq, kwalk, vwalk = _kernel_inputs(
+        params, cfg, meta, rays_o, rays_d, alive, eps, policy, qfold)
     rec = record[idx.reshape(T, k).T.long()]                 # (K, T, 128n)
     cdt = policy.compute_dtype
-    attn = key_stream_scores_rec(
-        rec, rayo_flat, rays, qq, kwalk, params["attn"]["w_k"]["w"],
-        params["attn"]["w_k"]["bias"], attn_cfg.score_act,
-        float(cfg.geoms.background.constant), eps, cdt)
+    tail = (cfg.models.attn.score_act, float(cfg.geoms.background.constant),
+            eps, cdt)
+    if qfold:
+        attn = key_stream_scores_recq(
+            rec, rayo_flat, rays, rayd_flat.contiguous(), kwalk,
+            a["w_k"]["w"], a["w_k"]["bias"], _query_walk(params, cfg),
+            a["w_q"]["w"], a["w_q"]["bias"], *tail)
+    else:
+        attn = key_stream_scores_rec(rec, rayo_flat, rays, qq, kwalk,
+                                     a["w_k"]["w"], a["w_k"]["bias"], *tail)
     fused_f = value_stream_fuse_rec(rec, rayo_flat, rays, attn, vwalk,
                                     bool(cfg.models.normalize_topk_attn), eps,
                                     cdt)
     return fused_f.reshape(N, H, W, -1), attn.reshape(N, H, W, k + 1)
 
 
-def _split_embeddings(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
-                      policy, use_embed_kernel: bool):
-    """Head of the split-kernel path: the k-major record gather, the
-    per-token geometry and the three embedders (fused or plain) ->
-    (embed_k (K, T, Dk), embed_q (T, Dq), embed_v (K, T, C), influ (T, K),
-    sel_alive (T, K) bool)."""
+def _kmajor_features(params, cfg, meta, idx, rays_o, rays_d, alive, eps):
+    """The k-major record gather and the per-token geometry
+    (papr.py:558-589) -> (selected, proj, perp (K, T, 3), point features
+    (K, T, dim) or None, influ (T, K), sel_alive (T, K) bool, rayd_flat
+    (T, 3))."""
     N, H, W, _ = rays_d.shape
     k = idx.shape[-1]
     T = N * H * W
@@ -506,17 +573,86 @@ def _split_embeddings(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
     dd = (rays * rays).sum(-1)
     proj = rays * (t_along / (dd + eps))[..., None]          # (K, T, 3)
     perp = v - proj
+    feats = rec[..., 5:5 + int(pcf.dim)] if meta.use_pc_feats else None
+    return selected, proj, perp, feats, influ, sel_alive, rayd_flat
+
+
+def _stream_inputs(params, cfg, meta, idx, rays_o, rays_d, alive, eps):
+    """Inputs of the ``stream`` kernels (papr.py:714-722, 770-778): the raw
+    key features xk = [selected (detached), proj, perp, point features?] and
+    value features xv = [proj, perp, point features?], each (K, T, d_raw)
+    fp32, with their embedders as kernel walks, the (T, K) influence scores
+    and alive mask in fp32, and the raw ray directions (T, 3). The key
+    positions are detached HERE, before they enter xk: the key stream's
+    backward returns all of dxk and autograd drops those columns."""
+    from ..ops.fused_mlp import posenc_plan, walk_from_params
+
+    pcf = cfg.geoms.point_feats
+    e = cfg.models.attn.embed
+    selected, proj, perp, feats, influ, sel_alive, rayd_flat = \
+        _kmajor_features(params, cfg, meta, idx, rays_o, rays_d, alive, eps)
+
+    def stream_input(parts, dims, Ls, use_extra, ff_params, ff_cfg):
+        extra = feats is not None and bool(use_extra)
+        x = torch.cat([p.float() for p in parts + ([feats] if extra else [])],
+                      dim=-1)
+        _, cols = posenc_plan(dims, tuple(int(l) for l in Ls),
+                              int(e.embed_type), float(e.pe_factor),
+                              float(e.pe_mult_factor),
+                              int(pcf.dim) if extra else 0)
+        return x, walk_from_params(ff_params, ff_cfg, cols)
+
+    xk, kwalk = stream_input([selected.detach(), proj, perp], (3, 3, 3),
+                             e.k_L, pcf.use_ink, params["attn"]["embed_k"],
+                             e.key)
+    xv, vwalk = stream_input([proj, perp], (3, 3), e.v_L, pcf.use_inv,
+                             params["attn"]["embed_v"], e.value)
+    return xk, kwalk, xv, vwalk, influ.float(), sel_alive.float(), rayd_flat
+
+
+def _attend_stream_feat(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
+                        policy):
+    """The ``stream`` branch of ``_attend_kmaj`` (papr.py:714-729, 770-782):
+    the raw key / value features concatenated k-major, qq outside the
+    kernels, then the key stream and the value stream on its attention."""
+    from ..ops.stream_feat import key_stream_scores, value_stream_fuse
+
+    N, H, W, _ = rays_d.shape
+    k = idx.shape[-1]
+    a = params["attn"]
+    xk, kwalk, xv, vwalk, influ, sel_alive, rayd_flat = _stream_inputs(
+        params, cfg, meta, idx, rays_o, rays_d, alive, eps)
+    qq = _projected_query(params, cfg, rayd_flat, policy)
+    cdt = policy.compute_dtype
+    attn = key_stream_scores(
+        xk, qq, kwalk, a["w_k"]["w"], a["w_k"]["bias"], influ, sel_alive,
+        cfg.models.attn.score_act, float(cfg.geoms.background.constant), cdt)
+    fused_f = value_stream_fuse(xv, attn, vwalk,
+                                bool(cfg.models.normalize_topk_attn), cdt)
+    return fused_f.reshape(N, H, W, -1), attn.reshape(N, H, W, k + 1)
+
+
+def _split_embeddings(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
+                      policy, use_embed_kernel: bool):
+    """Head of the split-kernel path: the k-major record gather, the
+    per-token geometry and the three embedders (fused or plain) ->
+    (embed_k (K, T, Dk), embed_q (T, Dq), embed_v (K, T, C), influ (T, K),
+    sel_alive (T, K) bool)."""
+    k = idx.shape[-1]
+    pcf = cfg.geoms.point_feats
+    selected, proj, perp, feats, influ, sel_alive, rayd_flat = \
+        _kmajor_features(params, cfg, meta, idx, rays_o, rays_d, alive, eps)
+    T = rayd_flat.shape[0]
 
     flat = lambda x: x.reshape(k * T, x.shape[-1])
     k_feats = [flat(selected.detach()), flat(proj), flat(perp)]
     v_feats = [flat(proj), flat(perp)]
     k_extra = v_extra = None
-    if meta.use_pc_feats:
-        gathered = flat(rec[..., 5:5 + int(pcf.dim)])
+    if feats is not None:
         if pcf.use_ink:
-            k_extra = [gathered]
+            k_extra = [flat(feats)]
         if pcf.use_inv:
-            v_extra = [gathered]
+            v_extra = [flat(feats)]
     ek, eq, ev = embed_kqv(params["attn"], cfg.models.attn, k_feats,
                            [rayd_flat], v_feats, k_extra, None, v_extra,
                            eps=eps, policy=policy, fused=use_embed_kernel)
@@ -583,7 +719,7 @@ def _attend_eval_kernels(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
     k = idx.shape[-1]
     T = N * H * W
     attn_cfg = cfg.models.attn
-    record, rayo_flat, rays, qq, kwalk, vwalk = _kernel_inputs(
+    record, rayo_flat, rays, _, qq, kwalk, vwalk = _kernel_inputs(
         params, cfg, meta, rays_o, rays_d, alive, eps, policy)
     fused_f, attn = attend_eval_idx(
         record, idx.reshape(T, k), rayo_flat, rays, qq, kwalk,

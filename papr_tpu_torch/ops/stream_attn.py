@@ -18,6 +18,12 @@ tensor. ``attend_stream_eval`` keeps the JAX package's public layout
 ``attend_eval_plain`` is the plain PyTorch version. A CPU tensor takes the
 plain version; a CUDA tensor takes the kernel or raises.
 
+Training: the record-native key / value streams (``key_stream_scores_rec``,
+``value_stream_fuse_rec``) and the key stream with the query chain folded in
+(``key_stream_scores_recq``) are below; the streams that read raw feature
+tensors (``key_stream_scores``, ``value_stream_fuse``) are in
+``ops/stream_feat.py``.
+
 Numerics follow ``_ase_fwd_kernel``: fp32 geometry and posenc; walks as in
 ``ops/fused_mlp.py``; ``kk`` in the compute dtype (matmul rounded, bias
 added in the compute dtype) promoted to fp32; ``qq``, scores and softmax
@@ -231,11 +237,14 @@ def _walk_rec(rec, rayo, rays, walk: Walk, eps, cdt, detach_pos: bool):
     return y.reshape(K, T, -1)
 
 
-def _key_math(rec, rayo, rays, qq, kwalk, wk, bk, score_act, bkg_score, eps,
-              cdt, relu_on=None):
+def _score_softmax(y, qq, wk, bk, influ, alive, score_act, bkg_score, cdt,
+                   relu_on=None):
+    """The key streams' tail on the walk outputs y (K, T, d_out) fp32:
+    ``w_k`` in the compute dtype, the scaled dot with qq (T, dm), score_act x
+    influence (T, K) masked by alive (T, K) bool, and the background-token
+    softmax -> attn (T, K+1), raw dots (T, K), masked scores (T, K)."""
     _check_score_act(score_act)
     dm = wk.shape[0]
-    y = _walk_rec(rec, rayo, rays, kwalk, eps, cdt, detach_pos=True)
     kk = (y.to(cdt).float() @ wk.to(cdt).float().T).to(cdt)
     kk = (kk + bk.to(cdt)).float()                            # (K, T, dm)
     raw = ((qq.float()[None] * kk).sum(-1) / math.sqrt(dm)).T  # (T, K)
@@ -245,13 +254,20 @@ def _key_math(rec, rayo, rays, qq, kwalk, wk, bk, score_act, bkg_score, eps,
         sact = torch.clamp_min(raw, 0.0)
     else:
         sact = raw * relu_on
-    alive = (rec[..., REC_ALIVE] > 0.5).T
-    ss = torch.where(alive, sact * rec[..., REC_INFLU].T, NEG_BIG)
+    ss = torch.where(alive, sact * influ, NEG_BIG)
     m = torch.clamp_min(ss.amax(dim=1, keepdim=True), bkg_score)
     e = torch.exp(ss - m)
     eb = torch.exp(bkg_score - m)
     z = e.sum(dim=1, keepdim=True) + eb
     return torch.cat([e / z, eb / z], dim=1), raw, ss
+
+
+def _key_math(rec, rayo, rays, qq, kwalk, wk, bk, score_act, bkg_score, eps,
+              cdt, relu_on=None):
+    y = _walk_rec(rec, rayo, rays, kwalk, eps, cdt, detach_pos=True)
+    return _score_softmax(y, qq, wk, bk, rec[..., REC_INFLU].T,
+                          (rec[..., REC_ALIVE] > 0.5).T, score_act,
+                          bkg_score, cdt, relu_on)
 
 
 def key_stream_plain(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
@@ -613,3 +629,236 @@ def value_stream_fuse_rec(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
     rec (K, T, rp), attn (T, K+1) -> fused (T, C) fp32."""
     return ValueStream.apply((vwalk, bool(normalize), float(eps), cdt), rec,
                              rayo, rays, attn, *walk_tensors(vwalk))
+
+
+# ------------------------------------------------- query-folded key stream ----
+#
+# ``key_stream_scores_recq``: the record-native key stream with the query
+# chain (posenc of the RAW ray direction -> query embedder -> ``w_q``) inside
+# the kernel (``csrc/key_stream_q.cu``). The forward also returns qq (T, dm)
+# as a residual; the backward sums dqq over k and runs the query backward once
+# per ray tile, giving dW_q / db_q, the query stack's gradients and d_rayd.
+
+def _query_math(rayd, qwalk, wq, bq, cdt):
+    """posenc -> query walk -> ``w_q`` in the compute dtype (nn/mlp.py
+    linear_apply: product rounded, bias added in the compute dtype)."""
+    eq = walk_plain(encode_plain(rayd, qwalk.cols), qwalk, cdt)
+    qq = (eq.to(cdt).float() @ wq.to(cdt).float().T).to(cdt)
+    return (qq + bq.to(cdt)).float()
+
+
+def key_stream_q_plain(rec, rayo, rays, rayd, kwalk: Walk, wk, bk,
+                       qwalk: Walk, wq, bq, score_act="relu", bkg_score=5.0,
+                       eps=1e-6, cdt=torch.float32, relu_on=None):
+    """Plain PyTorch version of the query-folded key stream forward ->
+    attn (T, K+1), raw (T, K), ss (T, K), qq (T, dm), all fp32; ``relu_on``
+    as in ``key_stream_plain``."""
+    key_stream_q_plain.calls += 1
+    qq = _query_math(rayd, qwalk, wq, bq, cdt)
+    return (*_key_math(rec, rayo, rays, qq, kwalk, wk, bk, score_act,
+                       bkg_score, eps, cdt, relu_on), qq)
+
+
+key_stream_q_plain.calls = 0
+
+
+def key_stream_q_bwd_plain(rec, rayo, rays, rayd, kwalk: Walk, wk, bk,
+                           qwalk: Walk, wq, bq, dattn, score_act="relu",
+                           bkg_score=5.0, eps=1e-6, cdt=torch.float32,
+                           relu_on=None):
+    """Plain version of the query-folded backward -> [d_rec, d_rayo, d_rays,
+    d_rayd, dwk, dbk, dwq, dbq, key walk grads, query walk grads]."""
+    key_stream_q_bwd_plain.calls += 1
+    nk = len(walk_tensors(kwalk))
+
+    def fn(r, o, d, rd, w, b, w2, b2, *wt):
+        qq = _query_math(rd, walk_with(qwalk, wt[nk:]), w2, b2, cdt)
+        return _key_math(r, o, d, qq, walk_with(kwalk, wt[:nk]), w, b,
+                         score_act, bkg_score, eps, cdt, relu_on)[0]
+
+    return _grads_of(fn, [rec, rayo, rays, rayd, wk, bk, wq, bq]
+                     + walk_tensors(kwalk) + walk_tensors(qwalk), dattn)
+
+
+key_stream_q_bwd_plain.calls = 0
+
+
+def _check_query_args(rayd, qwalk, wk, wq, T, cdt, what):
+    check_walk_for_kernel(qwalk, cdt, f"{what} query walk")
+    if tuple(rayd.shape) != (T, 3) or rayd.dtype != torch.float32 \
+            or not rayd.is_cuda:
+        raise ValueError(f"{what}: rayd must be ({T}, 3) float32 on the card")
+    if max(c[0] for c in qwalk.cols) >= 3:
+        raise ValueError(f"{what}: the query posenc reads past the ray "
+                         "direction")
+    dm = int(wk.shape[0])
+    if tuple(wq.shape) != (dm, int(qwalk.ws[-1].shape[1])) or dm > 256:
+        raise ValueError(f"{what}: w_q {tuple(wq.shape)} against d_model "
+                         f"{dm} (<= 256)")
+
+
+def key_stream_q_fwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
+                     wq, bq, score_act="relu", bkg_score=5.0, eps=1e-6,
+                     cdt=torch.float32):
+    """Query-folded key stream forward -> (attn, raw, ss, qq): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not rec.is_cuda:
+        return key_stream_q_plain(rec, rayo, rays, rayd, kwalk, wk, bk,
+                                  qwalk, wq, bq, score_act, bkg_score, eps,
+                                  cdt)
+    from ..kernels import build
+
+    what = "query-folded key stream"
+    _check_score_act(score_act)
+    check_walk_for_kernel(kwalk, cdt, what)
+    _check_rec_args(rec, rayo, rays, (kwalk,), what)
+    K, T, rp = rec.shape
+    _check_query_args(rayd, qwalk, wk, wq, T, cdt, what)
+    dm = int(wk.shape[0])
+    dev = rec.device
+    rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
+    rayd = rayd.contiguous()
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
+    qmeta, qw, qb, qln, qplan, qpd = pack_walk(qwalk, len(qwalk.cols), dev)
+    wkf, _, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
+    wqf, _, bqp, _ = _wk_packs(wq, bq, qpd[-1], dev)
+    attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
+    raw = torch.empty(T, K, dtype=torch.float32, device=dev)
+    ss = torch.empty(T, K, dtype=torch.float32, device=dev)
+    qq = torch.empty(T, dm, dtype=torch.float32, device=dev)
+    vp = lambda a: ctypes.cast(c_ints(a), ctypes.c_void_p)
+    rc = build.load().papr_key_stream_q_fwd(
+        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+        rayd.data_ptr(), dm, float(math.sqrt(dm)),
+        vp(kmeta), kw.data_ptr(), kb.data_ptr(), kln.data_ptr(),
+        kplan.data_ptr(), wkf.data_ptr(), bkp.data_ptr(),
+        vp(qmeta), qw.data_ptr(), qb.data_ptr(), qln.data_ptr(),
+        qplan.data_ptr(), wqf.data_ptr(), bqp.data_ptr(), dm_pad,
+        int(score_act == "relu"), float(bkg_score), float(eps),
+        attn.data_ptr(), raw.data_ptr(), ss.data_ptr(), qq.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "papr_key_stream_q_fwd")
+    key_stream_q_fwd.launches += 1
+    return attn, raw, ss, qq
+
+
+key_stream_q_fwd.launches = 0
+
+
+def key_stream_q_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
+                     wq, bq, qq, raw, ss, dattn, score_act="relu",
+                     bkg_score=5.0, eps=1e-6, cdt=torch.float32):
+    """Query-folded key stream backward -> [d_rec (K, T, rp), d_rayo, d_rays,
+    d_rayd (T, 3), dwk, dbk, dwq, dbq, key walk grads, query walk grads]: the
+    CUDA kernels for CUDA tensors (qq / raw / ss saved by the forward), the
+    plain version for CPU tensors."""
+    if not rec.is_cuda:
+        return key_stream_q_bwd_plain(rec, rayo, rays, rayd, kwalk, wk, bk,
+                                      qwalk, wq, bq, dattn, score_act,
+                                      bkg_score, eps, cdt)
+    from ..kernels import build
+
+    what = "query-folded key stream backward"
+    _check_score_act(score_act)
+    check_walk_for_kernel(kwalk, cdt, what)
+    _check_rec_args(rec, rayo, rays, (kwalk,), what)
+    K, T, rp = rec.shape
+    _check_query_args(rayd, qwalk, wk, wq, T, cdt, what)
+    dm = int(wk.shape[0])
+    dev = rec.device
+    rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
+    rayd, qq = rayd.contiguous(), qq.float().contiguous()
+    raw, ss = raw.contiguous(), ss.contiguous()
+    dattn = dattn.float().contiguous()
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
+    qmeta, qw, qb, qln, qplan, qpd = pack_walk(qwalk, len(qwalk.cols), dev)
+    kwt, qwt = pack_walk_t(kwalk, kpd, dev), pack_walk_t(qwalk, qpd, dev)
+    wkf, wkb, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
+    _, wqb, _, _ = _wk_packs(wq, bq, qpd[-1], dev)
+    nsrc = _nsrc(kwalk)
+    seg = source_segments(kwalk.cols, nsrc, dev)
+    qseg = source_segments(qwalk.cols, 3, dev)
+    nblk = -(-T // 64)
+    # Two walks' buffers: the key stashes hold K * T rows, the query's T.
+    kbuf = BwdBuffers(kpd, K * nblk * 64, nblk, dev, head=(kpd[-1], dm_pad),
+                      extra=dm_pad)
+    qbuf = BwdBuffers(qpd, nblk * 64, nblk, dev, head=(qpd[-1], dm_pad),
+                      extra=dm_pad)
+    drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
+    drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
+    drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
+    drayd = torch.empty(T, 3, dtype=torch.float32, device=dev)
+    dqq = torch.zeros(T, dm, dtype=torch.float32, device=dev)
+    lib = build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    vp = lambda a: ctypes.cast(a, ctypes.c_void_p)
+    rc = lib.papr_key_stream_q_bwd(
+        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+        rayd.data_ptr(), qq.data_ptr(), dm, float(math.sqrt(dm)),
+        raw.data_ptr(), ss.data_ptr(), dattn.data_ptr(),
+        vp(c_ints(kmeta)), kw.data_ptr(), kb.data_ptr(), kln.data_ptr(),
+        kplan.data_ptr(), kwt.data_ptr(), wkf.data_ptr(), wkb.data_ptr(),
+        bkp.data_ptr(),
+        vp(c_ints(qmeta)), qw.data_ptr(), qb.data_ptr(), qln.data_ptr(),
+        qplan.data_ptr(), qwt.data_ptr(), wqb.data_ptr(), dm_pad,
+        int(score_act == "relu"), float(bkg_score), float(eps),
+        kbuf.stash.data_ptr(), vp(kbuf.off_arg), qbuf.stash.data_ptr(),
+        vp(qbuf.off_arg), seg.data_ptr(), nsrc, qseg.data_ptr(),
+        drec.data_ptr(), drayo.data_ptr(), drays.data_ptr(),
+        drayd.data_ptr(), dqq.data_ptr(), kbuf.part.data_ptr(), kbuf.part_w,
+        kbuf.scratch.data_ptr(), qbuf.part.data_ptr(), qbuf.part_w,
+        qbuf.scratch.data_ptr(), stream)
+    build.check(rc, "papr_key_stream_q_bwd")
+    kdws, kpsum = kbuf.reduce(lib, stream)
+    qdws, qpsum = qbuf.reduce(lib, stream)
+    key_stream_q_bwd.launches += 1
+    d_k, d_q = int(wk.shape[1]), int(wq.shape[1])
+    return ([drec, drayo, drays, drayd,
+             kdws[-1][:d_k, :dm].T, kpsum[kbuf.extra_off:kbuf.extra_off + dm],
+             qdws[-1][:d_q, :dm].T, qpsum[qbuf.extra_off:qbuf.extra_off + dm]]
+            + kbuf.walk_grads(kwalk, kdws, kpsum)
+            + qbuf.walk_grads(qwalk, qdws, qpsum))
+
+
+key_stream_q_bwd.launches = 0
+
+
+class KeyStreamQ(torch.autograd.Function):
+    """``key_stream_scores_recq`` with its backward; saves qq / raw / ss
+    from the forward, as the JAX kernel does."""
+
+    @staticmethod
+    def forward(ctx, opts, rec, rayo, rays, rayd, wk, bk, wq, bq, *tensors):
+        nk = len(walk_tensors(opts[0]))
+        kwalk = walk_with(opts[0], tensors[:nk])
+        qwalk = walk_with(opts[1], tensors[nk:])
+        attn, raw, ss, qq = key_stream_q_fwd(rec, rayo, rays, rayd, kwalk, wk,
+                                             bk, qwalk, wq, bq, *opts[2:])
+        ctx.opts = opts
+        ctx.save_for_backward(rec, rayo, rays, rayd, wk, bk, wq, bq, qq, raw,
+                              ss, *tensors)
+        return attn
+
+    @staticmethod
+    def backward(ctx, dattn):
+        (rec, rayo, rays, rayd, wk, bk, wq, bq, qq, raw, ss,
+         *tensors) = ctx.saved_tensors
+        nk = len(walk_tensors(ctx.opts[0]))
+        kwalk = walk_with(ctx.opts[0], tensors[:nk])
+        qwalk = walk_with(ctx.opts[1], tensors[nk:])
+        return (None, *key_stream_q_bwd(rec, rayo, rays, rayd, kwalk, wk, bk,
+                                        qwalk, wq, bq, qq, raw, ss, dattn,
+                                        *ctx.opts[2:]))
+
+
+def key_stream_scores_recq(rec, rayo, rays, rayd, kwalk: Walk, wk, bk,
+                           qwalk: Walk, wq, bq, score_act="relu",
+                           bkg_score=5.0, eps=1e-6, cdt=torch.float32):
+    """Differentiable query-folded key stream (JAX
+    ``key_stream_scores_recq``): rec (K, T, rp) gathered k-major, rayo / rays
+    (T, 3) (rays normalized), rayd (T, 3) the RAW ray directions (the query
+    feature) -> attn (T, K+1) fp32, background token last."""
+    return KeyStreamQ.apply((kwalk, qwalk, score_act, float(bkg_score),
+                             float(eps), cdt), rec, rayo, rays, rayd, wk, bk,
+                            wq, bq, *walk_tensors(kwalk),
+                            *walk_tensors(qwalk))

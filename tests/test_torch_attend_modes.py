@@ -1,8 +1,9 @@
 """The attention modes this slice adds, as the whole model: ``forward`` (with
 the gradient of every trained group) and ``evaluate`` of
 ``papr_tpu_torch.model.papr`` against ``papr_tpu.model.papr`` with the same
-knobs: ``tpu.fused_attn`` in (true, embed, score), ``tpu.topk_impl: pallas``
-and ``tpu.eval_fused: false``.
+knobs: ``tpu.fused_attn`` in (true, embed, score, stream), ``tpu.topk_impl:
+pallas``, ``tpu.query_fold: true`` (with ``streamrec``) and ``tpu.eval_fused:
+false``.
 
 JAX runs with ``tpu.force_local`` so its Pallas kernels run in interpret
 mode; the port runs its kernels' plain versions (CPU tensors). fp32.
@@ -28,6 +29,7 @@ from papr_tpu_torch.ops import fused_attn as fa
 from papr_tpu_torch.ops import fused_mlp as fm
 from papr_tpu_torch.ops import pallas_topk as pt
 from papr_tpu_torch.ops import stream_attn as sa
+from papr_tpu_torch.ops import stream_feat as sf
 from papr_tpu_torch.train.optim import tree_leaves, tree_map
 
 H = W = 16
@@ -79,8 +81,14 @@ MODES = [({"fused_attn": True}, (fa.fused_scores_plain, fm.fused_mlp_plain)),
          ({"fused_attn": "score"}, (fa.fused_scores_plain,)),
          ({"topk_impl": "pallas"}, (pt.topk_stream_plain,)),
          ({"topk_impl": "pallas", "fused_attn": True},
-          (pt.topk_stream_plain, fa.fused_scores_plain))]
-IDS = ["true", "embed", "score", "pallas", "pallas+true"]
+          (pt.topk_stream_plain, fa.fused_scores_plain)),
+         ({"fused_attn": "stream"},
+          (sf.key_stream_feat_plain, sf.value_stream_feat_plain,
+           fm.fused_mlp_plain)),
+         ({"query_fold": True}, (sa.key_stream_q_plain,
+                                 sa.value_stream_plain))]
+IDS = ["true", "embed", "score", "pallas", "pallas+true", "stream",
+       "query_fold"]
 
 
 @pytest.mark.parametrize("tpu,plains", MODES, ids=IDS)
@@ -116,10 +124,12 @@ def test_forward_and_gradients_match_jax(scene, tpu, plains):
 
 
 EVAL_MODES = MODES[:4] + [({"eval_fused": False},
-                           (sa.key_stream_plain, sa.value_stream_plain))]
+                           (sa.key_stream_plain, sa.value_stream_plain))
+                          ] + MODES[5:]
 
 
-@pytest.mark.parametrize("tpu,plains", EVAL_MODES, ids=IDS[:4] + ["two-kernel"])
+@pytest.mark.parametrize("tpu,plains", EVAL_MODES,
+                         ids=IDS[:4] + ["two-kernel"] + IDS[5:])
 def test_evaluate_matches_jax(scene, tpu, plains):
     params, state, tp, ts, rayo, rayd, _ = scene
     jcfg = jax_load(overrides=_over(**tpu))
@@ -141,16 +151,71 @@ def test_evaluate_matches_jax(scene, tpu, plains):
 def test_knobs_that_still_raise_name_their_roadmap_items(scene):
     _, _, tp, ts, rayo, rayd, _ = scene
     args = (torch.as_tensor(rayo), torch.as_tensor(rayd))
-    for tpu, match in (({"fused_attn": "stream"}, "Queue 2 item 8"),
-                       ({"query_fold": True}, "Queue 2 item 9"),
-                       ({"int8_eval": True}, "Queue 2 item 10"),
-                       ({"topk_impl": "approx"}, "Queue 2 item 1c"),
+    for tpu, match in (({"int8_eval": True}, "Queue 2 item 10"),
                        ({"mesh": {"data": 2, "rays": 1}}, "Queue 1 item 12")):
         with pytest.raises(NotImplementedError, match=match):
             tpapr.evaluate(tp, ts, load_config(overrides=_over(**tpu)), *args)
     with pytest.raises(NotImplementedError, match="Queue 2 item 11"):
         tpapr.forward(tp, ts, load_config(overrides=_over(int8_train=True)),
                       *args)
+
+
+def test_query_fold_outside_streamrec_warns_once_and_runs_unfolded(scene):
+    """``tpu.query_fold: true`` under ``fused_attn: true``: one warning (keyed
+    as in the JAX package), then the unfolded result, as in JAX
+    (papr.py:598-604)."""
+    import warnings
+    params, state, tp, ts, rayo, rayd, _ = scene
+    args = (torch.as_tensor(rayo), torch.as_tensor(rayd))
+    tpapr._warned.clear()
+    folded = load_config(overrides=_over(fused_attn=True, query_fold=True))
+    calls = sa.key_stream_q_plain.calls
+    with pytest.warns(UserWarning, match="tpu.query_fold: true ignored"):
+        got = tpapr.evaluate(tp, ts, folded, *args)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")                   # no second warning
+        again = tpapr.evaluate(tp, ts, folded, *args)
+        want = tpapr.evaluate(
+            tp, ts, load_config(overrides=_over(fused_attn=True)), *args)
+    assert sa.key_stream_q_plain.calls == calls
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
+    jcfg = jax_load(overrides=_over(fused_attn=True, query_fold=True))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jf, ja = jpapr.evaluate(params, state, jcfg, jnp.asarray(rayo),
+                                jnp.asarray(rayd))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(jf), rtol=0,
+                               atol=2e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ja), rtol=0,
+                               atol=2e-5)
+    # the plain path takes no kernel at all: nothing to fold, no warning
+    tpapr._warned.clear()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tpapr.evaluate(tp, ts, load_config(overrides=_over(
+            fused_attn=False, query_fold=True)), *args)
+
+
+def test_topk_impl_approx_selects_what_xla_selects(scene):
+    """``approx`` (approx_min_k, exact off the TPU) runs the exact
+    selection: the same points as ``xla``, and as the JAX package."""
+    params, state, tp, ts, rayo, rayd, _ = scene
+    args = (torch.as_tensor(rayo), torch.as_tensor(rayd))
+    out = {}
+    for impl in ("approx", "xla"):
+        cfg = load_config(overrides=_over(topk_impl=impl))
+        assert tpapr.resolve_topk_impl(cfg, 320) == "xla"
+        with torch.no_grad():
+            out[impl] = tpapr.evaluate(tp, ts, cfg, *args,
+                                       with_selected=True)
+    for a, b in zip(out["approx"], out["xla"]):
+        assert torch.equal(a, b)
+    jsel = jpapr.evaluate(params, state,
+                          jax_load(overrides=_over(topk_impl="approx")),
+                          jnp.asarray(rayo), jnp.asarray(rayd),
+                          with_selected=True)[2]
+    np.testing.assert_array_equal(out["approx"][2].numpy(), np.asarray(jsel))
 
 
 def test_unfusible_config_takes_the_plain_path(scene):

@@ -17,6 +17,7 @@ MODULES = ["papr_tpu_torch", "papr_tpu_torch.config", "papr_tpu_torch.convert",
            "papr_tpu_torch.nn.norm", "papr_tpu_torch.nn.posenc",
            "papr_tpu_torch.nn.unet", "papr_tpu_torch.ops.fused_mlp",
            "papr_tpu_torch.ops.geometry", "papr_tpu_torch.ops.stream_attn",
+           "papr_tpu_torch.ops.stream_feat",
            "papr_tpu_torch.ops.tile_cull", "papr_tpu_torch.ops.topk",
            "papr_tpu_torch.train.step", "papr_tpu_torch.device",
            "papr_tpu_torch.ops.pallas_topk", "papr_tpu_torch.ops.fused_attn",

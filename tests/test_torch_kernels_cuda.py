@@ -426,3 +426,173 @@ def test_split_kernel_training_step_on_card(dev):
     assert [f.launches for f in fns] == [b + n for b, n in
                                          zip(before[0], (1, 3, 3, 1, 1))]
     assert [p.calls for p in plains] == before[1]
+
+
+# ------------------------------------- feature streams, query-folded stream ----
+# The kernels of ``tpu.fused_attn: stream`` (raw feature tensors in,
+# ``csrc/key_stream_feat.cu`` / ``csrc/value_stream_feat.cu``) and of
+# ``tpu.query_fold`` (``csrc/key_stream_q.cu``), forward and backward, at two
+# T (100 leaves an overhang tile), with an all-dead ray. Bounds as the
+# record-native streams' above.
+
+def _feat_case(rng, dev, T, K, dm=256):
+    """Raw key features (K, T, 9) and value features (K, T, 6 + 64), (T, K)
+    influence and alive (ray 5 all dead), and the flagship walks."""
+    from papr_tpu_torch.ops.fused_mlp import posenc_plan
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    xk = t(rng.normal(size=(K, T, 9)))
+    xv = t(rng.normal(size=(K, T, 70)))
+    influ = t(rng.normal(size=(T, K)))
+    alive = rng.random((T, K)) > 0.2
+    alive[5] = False
+    qq = t(rng.normal(size=(T, dm)))
+    kw = _walk(rng, posenc_plan((3, 3, 3), (6, 6, 6), 1, 2.0, 1.0, 0)[1], 5,
+               256, 256, True, dev)
+    vw = _walk(rng, posenc_plan((3, 3), (6, 6), 1, 2.0, 1.0, 64)[1], 8, 256,
+               32, False, dev)
+    wk = t(rng.normal(size=(dm, 256)) / 16)
+    bk = t(rng.normal(size=dm) * 0.1)
+    return xk, xv, qq, influ, t(alive), kw, vw, wk, bk
+
+
+@pytest.mark.parametrize("T", [256, 100])
+def test_key_stream_feat_kernels_match_plain(dev, T):
+    """Row 8 forward and backward; dxk held per column group (the position
+    columns are returned too: the caller detaches them), dinflu on its own."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    rng = np.random.default_rng(15)
+    K = 20
+    xk, _, qq, influ, alive, kw, _, wk, bk = _feat_case(rng, dev, T, K)
+    args = (xk, qq, kw, wk, bk, influ, alive)
+    opts = ("relu", 5.0, torch.bfloat16)
+    attn, raw = sf.key_stream_feat_fwd(*args, *opts)
+    attn_p, raw_p = sf.key_stream_feat_plain(*args, *opts)
+    assert float((attn - attn_p).abs().max()) <= 5e-3
+    assert _rel(raw, raw_p) <= 1e-2
+    assert float(attn[5, K]) == 1.0                      # the all-dead ray
+    dattn = torch.as_tensor(rng.normal(size=(T, K + 1)).astype(np.float32),
+                            device=dev)
+    split = lambda g: [g[0][..., :3], g[0][..., 3:]] + list(g[1:])
+    got = sf.key_stream_feat_bwd(*args, raw, dattn, *opts)
+    want = sf.key_stream_feat_bwd_plain(*args, dattn, *opts, relu_on=raw > 0)
+    _close_all(split(got), split(want), BWD_REL, f"key_stream_feat_bwd T={T}")
+    assert float(got[0][:, 5].abs().max()) == 0.0        # no gradient there
+    assert float(got[2][5].abs().max()) == 0.0
+    assert float(got[0][..., :3].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("T,normalize", [(256, True), (100, False)])
+def test_value_stream_feat_kernels_match_plain(dev, T, normalize):
+    """Row 9 forward and backward, with an all-dead ray (attention mass 0 on
+    the foreground) and an overhang tile; dxv held per column group."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    rng = np.random.default_rng(16)
+    K = 20
+    _, xv, _, _, _, _, vw, _, _ = _feat_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    opts = (normalize, torch.bfloat16)
+    fused = sf.value_stream_feat_fwd(xv, attn, vw, *opts)
+    fused_p = sf.value_stream_feat_plain(xv, attn, vw, *opts)
+    assert _rel(fused, fused_p) <= 1e-2
+    assert float(fused[5].abs().max()) == 0.0
+    dfused = torch.as_tensor(rng.normal(size=(T, 32)).astype(np.float32),
+                             device=dev)
+    split = lambda g: [g[0][..., :6], g[0][..., 6:]] + list(g[1:])
+    got = sf.value_stream_feat_bwd(xv, attn, vw, dfused, *opts)
+    want = sf.value_stream_feat_bwd_plain(xv, attn, vw, dfused, *opts)
+    _close_all(split(got), split(want), BWD_REL,
+               f"value_stream_feat_bwd T={T} normalize={normalize}")
+    assert float(got[0][:, 5].abs().max()) == 0.0
+    assert float(got[1][:, K].abs().max()) == 0.0        # background column
+
+
+@pytest.mark.parametrize("T", [256, 100])
+def test_key_stream_q_kernels_match_plain(dev, T):
+    """Row 7 forward and backward: the key stream with the query chain
+    inside; d_rayd, dW_q, db_q and the query stack's gradients included."""
+    from papr_tpu_torch.ops.fused_mlp import posenc_plan
+    rng = np.random.default_rng(17)
+    K = 20
+    rec, rayo, rays, _, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    rayd = rays * t(rng.uniform(0.5, 2.0, size=(T, 1)))
+    qw = _walk(rng, posenc_plan((3,), (6,), 1, 2.0, 1.0, 0)[1], 5, 256, 256,
+               True, dev)
+    wq = t(rng.normal(size=(256, 256)) / 16)
+    bq = t(rng.normal(size=256) * 0.1)
+    args = (rec, rayo, rays, rayd, kw, wk, bk, qw, wq, bq)
+    opts = ("relu", 5.0, 1e-6, torch.bfloat16)
+    attn, raw, ss, qq = sa.key_stream_q_fwd(*args, *opts)
+    attn_p, raw_p, _, qq_p = sa.key_stream_q_plain(*args, *opts)
+    assert _rel(qq, qq_p) <= 1e-2
+    assert float((attn - attn_p).abs().max()) <= 5e-3
+    assert _rel(raw, raw_p) <= 1e-2
+    assert float(attn[5, K]) == 1.0
+    # the same function as the unfolded kernel on the kernel's own qq
+    attn_u, raw_u, ss_u = sa.key_stream_fwd(rec, rayo, rays, qq, kw, wk, bk,
+                                            *opts)
+    assert torch.equal(attn, attn_u) and torch.equal(raw, raw_u)
+    assert torch.equal(ss, ss_u)
+    dattn = t(rng.normal(size=(T, K + 1)))
+    got = sa.key_stream_q_bwd(*args, qq, raw, ss, dattn, *opts)
+    want = sa.key_stream_q_bwd_plain(*args, dattn, *opts, relu_on=raw > 0)
+    _close_all(_rec_lanes(got), _rec_lanes(want), BWD_REL,
+               f"key_stream_q_bwd T={T}")
+    assert float(got[0][:, 5].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tpu,n_embed", [({"fused_attn": "stream"}, 1),
+                                         ({"fused_attn": "streamrec",
+                                           "query_fold": True}, 0)],
+                         ids=["stream", "query_fold"])
+def test_stream_modes_training_step_on_card(dev, tpu, n_embed):
+    """``fused_attn: stream`` and ``streamrec`` + ``query_fold`` on the card:
+    forward and gradients run through their kernels (one key and one value
+    launch each way; the query embedder only where the query is not folded)
+    and no plain version."""
+    from papr_tpu_torch.model.papr import forward
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops import stream_feat as sf
+    from papr_tpu_torch.train.optim import tree_leaves, tree_map
+    cfg = load_config(overrides={
+        "use_amp": True, "max_num_pts": 2048,
+        "geoms": {"points": {"init_num": 2000, "select_k": 8}},
+        "tpu": {"topk_impl": "cull", **tpu}})
+    params, state = create_model(cfg, seed=0, device=dev)
+    params["points_influ_scores"].normal_()
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 35.0
+    rayo, rayd = get_rays_np(32, 32, 30.0, 30.0, c2w[None])
+    if "query_fold" in tpu:
+        fns = (sa.key_stream_q_fwd, sa.key_stream_q_bwd, sa.value_stream_fwd,
+               sa.value_stream_bwd)
+    else:
+        fns = (sf.key_stream_feat_fwd, sf.key_stream_feat_bwd,
+               sf.value_stream_feat_fwd, sf.value_stream_feat_bwd)
+    plains = (sa.key_stream_q_plain, sa.key_stream_q_bwd_plain,
+              sa.value_stream_plain, sa.value_stream_bwd_plain,
+              sf.key_stream_feat_plain, sf.key_stream_feat_bwd_plain,
+              sf.value_stream_feat_plain, sf.value_stream_feat_bwd_plain,
+              fm.fused_mlp_plain, fm.fused_mlp_bwd_plain)
+    before = ([f.launches for f in fns], [p.calls for p in plains],
+              fm.fused_mlp.launches, fm.fused_mlp_bwd.launches)
+    live = {k: tree_map(lambda t: t.detach().requires_grad_(True), v)
+            for k, v in params.items()}
+    out = forward(live, state, cfg, torch.as_tensor(rayo, device=dev),
+                  torch.as_tensor(rayd, device=dev),
+                  policy=policy_from_config(cfg))
+    leaves = tree_leaves(live["attn"]) + [live["points"],
+                                          live["points_influ_scores"],
+                                          live["pc_feats"]]
+    grads = torch.autograd.grad(out.square().mean(), leaves)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert any(float(g.abs().max()) > 0 for g in grads[:-3])
+    assert all(float(g.abs().max()) > 0 for g in grads[-3:])
+    assert [f.launches for f in fns] == [b + 1 for b in before[0]]
+    assert [p.calls for p in plains] == before[1]
+    assert fm.fused_mlp.launches == before[2] + n_embed
+    assert fm.fused_mlp_bwd.launches == before[3] + n_embed

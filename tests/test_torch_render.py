@@ -138,20 +138,36 @@ def test_create_model_tree_matches_jax():
 
 
 @pytest.mark.parametrize("tpu,match", [
-    ({"topk_impl": "approx"}, "approx"),
-    ({"cull_prefilter_eval": "approx_min_k"}, "approx"),
-    ({"fused_attn": "stream"}, "fused_attn"),
-    ({"int8_eval": True}, "int8_eval"),
-    ({"query_fold": True}, "query_fold"),
-    ({"mesh": {"data": 2, "rays": 1}}, "mesh"),
+    pytest.param({"topk_impl": "approx"}, None, id="tpu0-approx"),
+    pytest.param({"cull_prefilter_eval": "approx_min_k"}, "approx",
+                 id="tpu1-approx"),
+    pytest.param({"fused_attn": "stream"}, None, id="tpu2-fused_attn"),
+    pytest.param({"int8_eval": True}, "int8_eval", id="tpu3-int8_eval"),
+    pytest.param({"query_fold": True}, None, id="tpu4-query_fold"),
+    pytest.param({"mesh": {"data": 2, "rays": 1}}, "mesh", id="tpu5-mesh"),
 ])
 def test_unported_tpu_values_raise(models, tpu, match):
+    """A value that names something not ported raises with its name. The
+    values ported since (``match`` None: the exact selection for ``approx``,
+    the feature streams, the folded query) run instead, and agree with the
+    default kernel path (fp32: attention mass atol 2e-5; the exact selection
+    may swap near-tied points against the culled one, so ``approx`` compares
+    no more than that)."""
     _, _, tp, ts = models
     cfg = load_config(overrides=_over(**tpu))
     rayo, rayd = get_rays_np(8, 8, 10.0, 10.0, _pose()[None])
-    with pytest.raises(NotImplementedError, match=match):
-        tpapr.evaluate(tp, ts, cfg, torch.as_tensor(rayo),
-                       torch.as_tensor(rayd))
+    args = (torch.as_tensor(rayo), torch.as_tensor(rayd))
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            tpapr.evaluate(tp, ts, cfg, *args)
+        return
+    got = tpapr.evaluate(tp, ts, cfg, *args)
+    want = tpapr.evaluate(tp, ts, load_config(overrides=_over()), *args)
+    torch.testing.assert_close(got[1].sum(-2), want[1].sum(-2), rtol=0,
+                               atol=2e-5)
+    if "topk_impl" not in tpu:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-5)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("tpu,plain", [
@@ -160,6 +176,8 @@ def test_unported_tpu_values_raise(models, tpu, match):
     ({"fused_attn": "embed"}, "embed"),
     ({"fused_attn": True}, "both"),
     ({"eval_fused": False}, "streams"),
+    ({"fused_attn": "stream"}, "features"),
+    ({"query_fold": True}, "folded"),
 ])
 def test_ported_tpu_values_run(models, tpu, plain):
     """The values that used to raise now run: on CPU tensors through their
@@ -168,6 +186,7 @@ def test_ported_tpu_values_run(models, tpu, plain):
     near-tied points, so ``pallas`` compares attention mass only)."""
     from papr_tpu_torch.ops import fused_attn as fa
     from papr_tpu_torch.ops import pallas_topk as pt
+    from papr_tpu_torch.ops import stream_feat as sf
     _, _, tp, ts = models
     rayo, rayd = get_rays_np(8, 8, 10.0, 10.0, _pose()[None])
     args = (torch.as_tensor(rayo), torch.as_tensor(rayd))
@@ -176,7 +195,10 @@ def test_ported_tpu_values_run(models, tpu, plain):
                 "score": [fa.fused_scores_plain],
                 "embed": [fm.fused_mlp_plain],
                 "both": [fa.fused_scores_plain, fm.fused_mlp_plain],
-                "streams": [sa.key_stream_plain, sa.value_stream_plain]}[plain]
+                "streams": [sa.key_stream_plain, sa.value_stream_plain],
+                "features": [sf.key_stream_feat_plain,
+                             sf.value_stream_feat_plain],
+                "folded": [sa.key_stream_q_plain, sa.value_stream_plain]}[plain]
     before = [c.calls for c in counters]
     got = tpapr.evaluate(tp, ts, load_config(overrides=_over(**tpu)), *args)
     assert all(c.calls > b for c, b in zip(counters, before))

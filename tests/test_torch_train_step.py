@@ -3,8 +3,8 @@ converted with ``from_jax_params``, through both packages.
 
 JAX runs with ``tpu.force_local`` (the CPU test host has 8 virtual devices),
 ``topk_impl: cull`` with the default ``approx`` prefilter, and
-``fused_attn`` in (``streamrec``, ``false``): its Pallas kernels run in
-interpret mode; the port runs the same path with its kernels' plain versions
+``fused_attn`` in (``streamrec``, ``false``, ``stream``, ``streamrec`` with
+``query_fold``): its Pallas kernels run in interpret mode; the port runs the same path with its kernels' plain versions
 (CPU tensors). The loss is MSE + 1e-2 LPIPS on JAX-drawn random VGG weights,
 converted. fp32 compute. Tolerances: equal selection indices; loss rtol
 1e-5; every gradient rtol 3e-4 with atol 1e-6 x the gradient's max (Adam's
@@ -41,7 +41,7 @@ from papr_tpu_torch.train.optim import build_group_specs, tree_leaves
 H = W = 16
 
 
-def _over(fused_attn):
+def _over(fused_attn, query_fold=False):
     return {
         "use_amp": False, "max_num_pts": 320,
         "dataset": {"coord_scale": 1.0},
@@ -55,7 +55,8 @@ def _over(fused_attn):
             "value": {"d_ff": 16, "d_ff_out": 8, "n_ff_layer": 3}}}},
         "training": {"add_num": 20},
         "tpu": {"force_local": True, "topk_impl": "cull",
-                "fused_attn": fused_attn, "cull_candidates": 256},
+                "fused_attn": fused_attn, "cull_candidates": 256,
+                "query_fold": query_fold},
     }
 
 
@@ -65,8 +66,8 @@ def lpips_pair():
     return lp, from_jax_lpips_params(jax.tree.map(np.asarray, lp), device="cpu")
 
 
-def _setup(fused_attn):
-    jcfg = jax_load(overrides=_over(fused_attn))
+def _setup(fused_attn, query_fold=False):
+    jcfg = jax_load(overrides=_over(fused_attn, query_fold))
     params, state = jpapr.create_model(jcfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     params = dict(params)
@@ -79,7 +80,7 @@ def _setup(fused_attn):
     c2w[:3, 3] = [0.2, 0.1, 2.5]
     rayo, rayd = get_rays_np(H, W, 20.0, 20.0, c2w[None])
     target = rng.random((1, H, W, 3)).astype(np.float32)
-    cfg = load_config(overrides=_over(fused_attn))
+    cfg = load_config(overrides=_over(fused_attn, query_fold))
     tp, ts = from_jax_params(jax.tree.map(np.asarray, params),
                              jax.tree.map(np.asarray, state), cfg,
                              device="cpu")
@@ -125,10 +126,13 @@ def _check(jl, jg, tl, tg):
                 err_msg=key)
 
 
-@pytest.mark.parametrize("fused_attn", ["streamrec", False])
-def test_train_step_matches_jax(lpips_pair, fused_attn):
+@pytest.mark.parametrize("fused_attn,query_fold",
+                         [("streamrec", False), (False, False),
+                          ("stream", False), ("streamrec", True)],
+                         ids=["streamrec", "False", "stream", "query_fold"])
+def test_train_step_matches_jax(lpips_pair, fused_attn, query_fold):
     lp, lp_t = lpips_pair
-    jcfg, cfg, params, state, tp, ts, batch = _setup(fused_attn)
+    jcfg, cfg, params, state, tp, ts, batch = _setup(fused_attn, query_fold)
     rayo, rayd = batch[0], batch[1]
 
     # Same selection: the approx prefilter is exact off the TPU.

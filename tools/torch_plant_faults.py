@@ -3,13 +3,16 @@ the kernel-against-plain comparisons make of each.
 
     python tools/torch_plant_faults.py [word ...]     # needs a card and nvcc
 
-With words, only the sound case and the cases whose name holds one of them.
+With words, only the cases whose name holds one of them, and the sound
+sources for the comparisons those cases need.
 
 For the sound sources and for each fault: the package, ``chip_smoke.py``, the
 configs and the tests are copied into a temporary directory, one line of
 a CUDA source under ``csrc/`` is replaced there, the
-kernels are rebuilt, and ``chip_smoke.compare_cli_kernels`` (the flagship
-patch) and the small-shape ``cuda`` tests of those kernels run on the copy.
+kernels are rebuilt, and the phase-2 comparison that holds the kernel
+(``chip_smoke.compare_cli_kernels`` or, for the cases named "stream",
+``chip_smoke.compare_train_kernels``; the flagship patch) and the small-shape
+``cuda`` tests of those kernels run on the copy.
 The readings are how the comparisons' bounds were set between the sound
 kernels and the weakest fault caught (PERF.md, Findings). The repository's
 own sources are never touched.
@@ -22,11 +25,48 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (name, the line to replace, its replacement); the first case is the sound
+# (name, the line to replace, its replacement); the first cases are the sound
 # sources. Cases named "topk" patch topk_stream.cu, "embedder bwd"
-# fused_mlp_bwd.cu, "encoding" walk.cuh, the others fused_attn.cu.
+# fused_mlp_bwd.cu, "encoding" walk.cuh, "stream feat key" key_stream_feat.cu,
+# "stream q" key_stream_q.cu, "stream shared" stream_common.cuh, the others
+# fused_attn.cu.
 MUTS = [
     ("sound", None, None),
+    ("sound stream", None, None),
+    ("stream feat key bwd: d_influ without the score relu",
+     "        ds[i] * (score_relu ? fmaxf(rw, 0.f) : rw);",
+     "        ds[i] * rw;"),
+    ("stream feat key bwd: d_influ scaled by 1.05",
+     "        ds[i] * (score_relu ? fmaxf(rw, 0.f) : rw);",
+     "        ds[i] * (score_relu ? fmaxf(rw, 0.f) : rw) * 1.05f;"),
+    ("stream feat key bwd: position columns of dxk zeroed (a detach inside "
+     "the kernel)",
+     "      if (t < T) dxk[(size_t)t * d_raw + src] = v;",
+     "      if (t < T) dxk[(size_t)t * d_raw + src] = src < 3 ? 0.f : v;"),
+    ("stream feat key fwd + bwd: alive mask ignored",
+     "      ss[r * K + k] = masked_score(col, score_relu, influ[i], "
+     "alive[i] > 0.5f);",
+     "      ss[r * K + k] = masked_score(col, score_relu, influ[i], true);"),
+    ("stream q bwd: the query backward takes 1.05 dqq",
+     "    const float g = t < T && c < dm ? dqq[(size_t)t * dm + c] : 0.f;",
+     "    const float g = t < T && c < dm ? 1.05f * dqq[(size_t)t * dm + c] "
+     ": 0.f;"),
+    ("stream q fwd: b_q left out",
+     "    if (t < T) qq[(size_t)t * dm + c] = linear_bf16(S.C[r * kCLd + c], "
+     "bq[c]);",
+     "    if (t < T) qq[(size_t)t * dm + c] = linear_bf16(S.C[r * kCLd + c], "
+     "0.f);"),
+    ("stream shared bwd: dqq keeps the last slot only (the query backward "
+     "sees one k, not their sum)",
+     "      dqq[(size_t)t * dm + c] += draw[r] * kk;",
+     "      dqq[(size_t)t * dm + c] = draw[r] * kk;"),
+    ("stream shared fwd: score scale off by 1 %",
+     "    if (lane == 0) sink(r, t, s / sqrt_dm);",
+     "    if (lane == 0) sink(r, t, s / sqrt_dm * 1.01f);"),
+    ("stream shared fwd: value rows not rounded to bf16 before the fuse (a "
+     "rounding point)",
+     "      acc[r * cout + c] += w * bf16_round(C[r * kCLd + c]);",
+     "      acc[r * cout + c] += w * C[r * kCLd + c];"),
     ("bwd: relu mask dropped",
      "        if (a.relu && !(sact > 0.f)) d_sact = 0.f;\n", ""),
     ("bwd: score scale off by 10 %",
@@ -71,15 +111,35 @@ cs.fail = lambda m: print("FAILS:", m)
 dev = torch.device("cuda", 0)
 cfg = cs.flagship_cfg()
 params, state = cs.build_model(cfg, dev)
-cs.compare_cli_kernels(params, state, cfg, dev, n_time=1)
+getattr(cs, sys.argv[1])(params, state, cfg, dev, n_time=1)
 '''
+# Per comparison: the lines of its output to show, the ``cuda`` tests to run.
+TARGETS = {
+    "compare_cli_kernels": (
+        ("phase 2 topk", "phase 2 fused_scores", "phase 2 fused_mlp"),
+        "fused_scores or topk_stream or key_value_stacks"),
+    "compare_train_kernels": (
+        ("phase 2 key_stream_q", "phase 2 key_stream_feat",
+         "phase 2 value_stream_feat", "phase 2 key_stream_bwd",
+         "phase 2 value_stream_fwd"),
+        "key_stream or value_stream"),
+}
+
+
+def target_of(name: str) -> str:
+    return ("compare_train_kernels" if "stream" in name.split(":")[0]
+            else "compare_cli_kernels")
 
 
 def main() -> None:
     words = sys.argv[1:]
-    for name, old, new in MUTS:
-        if old is None or not words or any(w in name for w in words):
-            run_case(name, old, new)
+    picked = [m for m in MUTS if m[1] is not None
+              and (not words or any(w in m[0] for w in words))]
+    targets = {target_of(m[0]) for m in picked}
+    for m in MUTS:
+        # The sound sources run once for each comparison a picked case needs.
+        if m in picked or (m[1] is None and target_of(m[0]) in targets):
+            run_case(*m)
 
 
 def run_case(name, old, new) -> None:
@@ -90,10 +150,15 @@ def run_case(name, old, new) -> None:
                         ignore=skip)
     for f in ("chip_smoke.py", "pytest.ini"):
         shutil.copy(os.path.join(REPO, f), root)
+    target = target_of(name)
+    shown, tests = TARGETS[target]
     if old is not None:
         src = next((f for word, f in (("topk", "topk_stream.cu"),
                                       ("embedder bwd", "fused_mlp_bwd.cu"),
-                                      ("encoding", "walk.cuh"))
+                                      ("encoding", "walk.cuh"),
+                                      ("stream feat key", "key_stream_feat.cu"),
+                                      ("stream q", "key_stream_q.cu"),
+                                      ("stream shared", "stream_common.cuh"))
                     if word in name), "fused_attn.cu")
         p = os.path.join(root, "papr_tpu_torch", "csrc", src)
         s = open(p).read()
@@ -102,18 +167,17 @@ def run_case(name, old, new) -> None:
                              f"{src}; bring MUTS up to date")
         open(p, "w").write(s.replace(old, new))
     print(f"===== {name}", flush=True)
-    r = subprocess.run([sys.executable, "-c", RUN], cwd=root,
+    r = subprocess.run([sys.executable, "-c", RUN, target], cwd=root,
                        capture_output=True, text=True)
     for line in r.stdout.splitlines():
-        if line.startswith(("phase 2 topk", "phase 2 fused_scores",
-                            "phase 2 fused_mlp", "FAILS")):
-            print("  " + line[:1300], flush=True)
+        if line.startswith(shown + ("FAILS",)):
+            print("  " + line[:1600], flush=True)
     if r.returncode:
         print("  rc", r.returncode, r.stderr[-1500:], flush=True)
     t = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
          "-p", "no:cacheprovider", "tests/test_torch_kernels_cuda.py", "-k",
-         "fused_scores or topk_stream or key_value_stacks", "--tb=line"],
+         tests, "--tb=line"],
         cwd=root, capture_output=True, text=True)
     for line in t.stdout.splitlines():
         if "Error" in line:
