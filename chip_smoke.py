@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path, training step, command-line path
-and its two other training attention modes on one NVIDIA GPU.
+"""Drive the PyTorch port's render path, training step, command-line path,
+its two other training attention modes and its int8 walks on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -65,7 +65,26 @@ Phases (each prints a line; any failure exits non-zero):
    800x800 frame at 100x100 tiles under each mode (64 + 64 launches), the
    new modes' frames held against the one-shot kernel's; then one 32x32 step
    of each new mode against the plain fp32 path.
-7. Print the kernels' JSON line (each kernel's launches on its main path,
+   Phase 2 also holds the three int8 kernels (``attend_eval_i8`` on the eval
+   block, self-calibrated and on a frame-level quantization;
+   ``key_stream_i8_fwd`` / ``value_stream_i8_fwd`` on the training patch) and
+   the four variants of the int8 walk microbenchmark against their plain
+   versions on the same quantization, beside the bf16 kernels on the same
+   inputs and the calibration alone.
+7. The int8 walks at full width: 1 + 3 serving frames under
+   ``tpu.int8_eval`` beside bf16 frames (ms/frame, peak memory, profiler
+   split and idle share); one tiled frame (exactly 64 int8 launches, no bf16
+   one, ONE calibration); the int8 frame against the bf16 frame (PSNR, pixels
+   within 2/255, fused features, attention) on the seeded flagship model and
+   on phase 5's trained sphere model with seeded influence scores; 1 + 10
+   steps under ``tpu.int8_train`` beside ``streamrec`` from the same seeded
+   model (ms/step, profiler split, exact launch counts: the int8 forwards,
+   the unchanged backwards, no bf16 stream forward; every group moved; the
+   first step's loss against the bf16 step's); each row where a knob cannot
+   take effect once (bit-equal, one warning or none, the bf16 kernels); the
+   microbenchmark through its entry point; then one 32x32 ``int8_train`` step
+   against the plain fp32 path.
+8. Print the kernels' JSON line (each kernel's launches on its main path,
    error, time, plain version's time and bound), then the result line.
 
 Imports nothing of JAX. Weights are random, from fixed seeds.
@@ -162,10 +181,42 @@ EVAL_SPLIT_MIN_CLOSE = 0.999
 SPLIT_FUSED_REL = 1e-3
 SPLIT_ATTN_ABS = 5e-3
 
+# The int8 kernels against their plain versions on the same quantization. The
+# integer products are exact on both sides; the two differ where an fp32
+# activation lands within an ulp of a rounding boundary (sincosf against
+# torch.sin, LayerNorm summation order) and one quantized value flips by 1.
+# Sound (deterministic across runs): K3 fused 6.4e-4 / 5.7e-4, attn max abs
+# 2.9e-3 / 1.6e-3; key raw 1.9e-3, attn max abs 4.5e-4; value fused 6.3e-4.
+# The weakest planted fault, a layer quantizing the bf16-rounded activation,
+# reads fused 4.9e-3 / 4.1e-3, raw 1.5e-2, value 4.3e-3; truncation instead
+# of rounding 7.2e-2 / 6.0e-2, 2.0e-2, 6.3e-2, key attn 1.0e-3, K3 attn
+# 7.5e-3 (PERF.md, Findings).
+I8_FUSED_REL = 2e-3
+I8_RAW_REL = 5e-3
+I8_ATTN_ABS = 5e-3
+I8_KEY_ATTN_ABS = 8e-4
+# The microbenchmark's variants: the int8 ones take the same fp32 operations
+# in the same order as their plain versions (int8raw: integers all the way).
+I8_BENCH_REL = {"bf16": 2e-3, "int8": 1e-5, "int8s": 1e-5, "int8raw": 0.0}
+# The int8 frame against the bf16 frame: not kernel against plain but int8's
+# own distance, so these only catch an int8 path that is broken outright
+# (the JAX package's tests allow 5 % of scale and 0.02 on attn on a toy). On
+# the seeded flagship model (diffuse attention) a sound run reads 1.9e-2 /
+# 9.4e-3 max abs; on the trained sphere model with seeded influence scores
+# the softmax is nearly one-hot (foreground mass 0.993), a few of 640,000
+# rays swap their winning point and the max abs reads 0.18 while 99.5 % of
+# pixels stay within 2/255: held by the Frobenius norms, max abs printed.
+I8_FRAME_MIN_CLOSE = 0.98      # pixels within 2/255
+I8_FRAME_FUSED_REL = 1.5e-1
+I8_FRAME_ATTN_REL = 1.5e-1
+I8_STEP_LOSS_REL = 2e-2        # first int8_train step's loss against bf16's
+
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, dense bf16 tensor-core rate, fp32 rate outside the tensor cores.
+# rate, dense bf16 and int8 tensor-core rates, fp32 rate outside the tensor
+# cores.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 FP32_FLOPS = 67e12
 
 H = W = 800
@@ -271,26 +322,60 @@ def rel_fro(a, b) -> float:
     return float(((a - b).norm() / b.norm().clamp_min(1e-30)).item())
 
 
-# ------------------------------------------------------------------ phases --
-
-def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
-    """Phase 2: each kernel against its plain version on the same inputs."""
+def eval_block_args(params, state, cfg, device):
+    """The one-shot eval attention's arguments on the central 160x160 ray
+    block of the orbit frame (``attend_eval_idx`` order), and its ray count."""
     import torch
-    from papr_tpu_torch.model.papr import _point_record, model_meta
+    from papr_tpu_torch.model.papr import (_point_record, _record_walks,
+                                           model_meta)
     from papr_tpu_torch.nn.mlp import linear_apply, policy_from_config
     from papr_tpu_torch.ops import fused_mlp as fm
-    from papr_tpu_torch.ops import stream_attn as sa
     from papr_tpu_torch.ops import tile_cull as tc
-    from papr_tpu_torch.ops.fused_mlp import walk_from_params
     from papr_tpu_torch.ops.geometry import get_rays, normalize_vector
-    from papr_tpu_torch.ops.topk import VAL_MASK
 
     policy = policy_from_config(cfg)
     cdt = policy.compute_dtype
     meta = model_meta(cfg)
     k = meta.select_k
-    e = cfg.models.attn.embed
-    pcf = cfg.geoms.point_feats
+    eps = float(cfg.eps)
+    c2w = torch.as_tensor(orbit(0.0), device=device)
+    focal = torch.tensor([FOCAL, FOCAL], device=device)
+    rayo, rayd = get_rays(H, W, c2w, focal)
+    points, alive = params["points"], state["alive"]
+    M = int(cfg.get_path("tpu.cull_candidates", 2048))
+    r0 = (H - BLOCK) // 2
+    blk = rayd[r0:r0 + BLOCK, r0:r0 + BLOCK].contiguous()
+    T = BLOCK * BLOCK
+    idx = tc.select_topk_culled(points, alive, rayo[0], blk, k, M=M,
+                                block=16, eps=eps, prefilter="packsort")
+    record = _point_record(params, alive, meta, cfg.geoms.point_feats)
+    rayd_flat = blk.reshape(T, 3)
+    rayo_flat = rayo.expand(T, 3).contiguous()
+    rays = normalize_vector(rayd_flat, eps=eps)
+    eq = fm.fused_mlp(rayd_flat.contiguous(), query_walk(params, cfg), cdt)
+    qq = linear_apply(params["attn"]["w_q"], eq, policy).float()
+    kwalk, vwalk = _record_walks(params, cfg, meta)
+    return (record, idx, rayo_flat, rays, qq, kwalk,
+            params["attn"]["w_k"]["w"], params["attn"]["w_k"]["bias"], vwalk,
+            cfg.models.attn.score_act, float(cfg.geoms.background.constant),
+            bool(cfg.models.normalize_topk_attn), eps, cdt), T
+
+
+# ------------------------------------------------------------------ phases --
+
+def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
+    """Phase 2: each kernel against its plain version on the same inputs."""
+    import torch
+    from papr_tpu_torch.model.papr import model_meta
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops import fused_mlp as fm
+    from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops import tile_cull as tc
+    from papr_tpu_torch.ops.geometry import get_rays
+    from papr_tpu_torch.ops.topk import VAL_MASK
+
+    cdt = policy_from_config(cfg).compute_dtype
+    k = model_meta(cfg).select_k
     eps = float(cfg.eps)
     c2w = torch.as_tensor(orbit(0.0), device=device)
     focal = torch.tensor([FOCAL, FOCAL], device=device)
@@ -371,32 +456,8 @@ def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
                             x.shape[0] * walk_flops(qwalk), BF16_FLOPS)})
 
     # K3: eval attention on the central 160x160 ray block.
-    r0 = (H - BLOCK) // 2
-    blk = rayd[r0:r0 + BLOCK, r0:r0 + BLOCK].contiguous()
-    T = BLOCK * BLOCK
-    idx = tc.select_topk_culled(points, alive, rayo[0], blk, k, M=M,
-                                block=16, eps=eps, prefilter="packsort")
-    record = _point_record(params, alive, meta, pcf)
-    rayd_flat = blk.reshape(T, 3)
-    rayo_flat = rayo.expand(T, 3).contiguous()
-    rays = normalize_vector(rayd_flat, eps=eps)
-    eq = fm.fused_mlp(rayd_flat.contiguous(), qwalk, cdt)
-    qq = linear_apply(params["attn"]["w_q"], eq, policy).float()
-
-    def plan(has_pos, Ls, use):
-        extra = int(pcf.dim) if (meta.use_pc_feats and use) else 0
-        return sa.rec_pe_plan(has_pos, tuple(int(l) for l in Ls),
-                              int(e.embed_type), float(e.pe_factor),
-                              float(e.pe_mult_factor), extra)
-
-    kwalk = walk_from_params(params["attn"]["embed_k"], e.key,
-                             plan(True, e.k_L, pcf.use_ink))
-    vwalk = walk_from_params(params["attn"]["embed_v"], e.value,
-                             plan(False, e.v_L, pcf.use_inv))
-    args = (record, idx, rayo_flat, rays, qq, kwalk,
-            params["attn"]["w_k"]["w"], params["attn"]["w_k"]["bias"], vwalk,
-            cfg.models.attn.score_act, float(cfg.geoms.background.constant),
-            bool(cfg.models.normalize_topk_attn), eps, cdt)
+    args, T = eval_block_args(params, state, cfg, device)
+    record, idx, rayo_flat, rays, qq, kwalk, _, _, vwalk = args[:9]
     f_got, a_got = sa.attend_eval_idx(*args)
     f_want, a_want = sa.attend_eval_plain(*args)
     err = rel_fro(f_got, f_want)
@@ -699,6 +760,27 @@ def rec_lanes(grads) -> list:
 REC_LABELS = ["d_rec[0:3]", "d_rec[3]", "d_rec[4:]"]
 
 
+def stream_patch_inputs(params, state, cfg, rayo, rayd):
+    """The record-native streams' inputs on a training patch, as the model's
+    own head builds them: the selection (T, K), the (P, 128) record, its
+    k-major gather rec (K, T, 128), rays, the projected query and the key /
+    value walks."""
+    from papr_tpu_torch.model.papr import _kernel_inputs, model_meta
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops import tile_cull as tc
+
+    meta = model_meta(cfg)
+    eps = float(cfg.eps)
+    alive = state["alive"]
+    idx = tc.select_topk_culled(params["points"], alive, rayo[0], rayd[0],
+                                meta.select_k, M=2048, block=16, eps=eps,
+                                prefilter="approx")
+    record, rayo_f, rays, rayd_f, qq, kwalk, vwalk = _kernel_inputs(
+        params, cfg, meta, rayo, rayd, alive, eps, policy_from_config(cfg))
+    rec = record[idx.T.long()].contiguous()               # (K, T, 128)
+    return idx, record, rec, rayo_f, rays, rayd_f, qq.detach(), kwalk, vwalk
+
+
 def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     """Phase 2, training shapes: the selection at its training shape and
     the training kernel bodies against their plain versions on the 160x160
@@ -708,16 +790,14 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     and backward each. Every case runs and prints before the phase fails on
     any of them."""
     import torch
-    from papr_tpu_torch.model.papr import (_kernel_inputs, _stream_inputs,
-                                           model_meta)
+    from papr_tpu_torch.model.papr import _stream_inputs, model_meta
     from papr_tpu_torch.nn.mlp import policy_from_config
     from papr_tpu_torch.ops import fused_mlp as fm
     from papr_tpu_torch.ops import stream_attn as sa
     from papr_tpu_torch.ops import stream_feat as sf
     from papr_tpu_torch.ops import tile_cull as tc
 
-    policy = policy_from_config(cfg)
-    cdt = policy.compute_dtype
+    cdt = policy_from_config(cfg).compute_dtype
     meta = model_meta(cfg)
     k = meta.select_k
     eps = float(cfg.eps)
@@ -751,12 +831,8 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     out["cull_select"] = {"equal_sets_train": frac, "ms_train": ms,
                           "plain_ms_train": plain_ms}
 
-    idx = tc.select_topk_culled(points, alive, rayo[0], rayd[0], k, M=2048,
-                                block=16, eps=eps, prefilter="approx")
-    record, rayo_f, rays, rayd_f, qq, kwalk, vwalk = _kernel_inputs(
-        params, cfg, meta, rayo, rayd, alive, eps, policy)
-    qq = qq.detach()
-    rec = record[idx.T.long()].contiguous()               # (K, T, 128)
+    idx, record, rec, rayo_f, rays, rayd_f, qq, kwalk, vwalk = \
+        stream_patch_inputs(params, state, cfg, rayo, rayd)
     wk = params["attn"]["w_k"]["w"]
     bk = params["attn"]["w_k"]["bias"]
     x = rayd.reshape(T, 3).contiguous()
@@ -962,6 +1038,234 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     if failed:
         fail(f"training kernels disagree with their plain versions: {failed}")
     return out
+
+
+def kernel_span_ms(fn, pattern: str, n: int = 3) -> float:
+    """Device time per call of the kernels whose name holds ``pattern``, over
+    n calls of fn under the profiler (after one warm-up): a wrapper's kernel
+    without the small launches around it. NaN if the profiler saw none."""
+    fn()
+    _, _, spans = device_profile(lambda: [fn() for _ in range(n)])
+    hit = [e0 - s0 for s0, e0, name in spans if pattern in name]
+    return sum(hit) / n / 1e3 if hit else float("nan")
+
+
+def load_tool(name: str):
+    """A script under tools/ as a module (tools/ is not a package)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare_int8_kernels(params, state, cfg, device, n_time: int = 3) -> list:
+    """Phase 2, the int8 walks: ``attend_eval_i8`` on the 160x160 eval block
+    (self-calibrated and on a frame-level quantization), ``key_stream_i8_fwd``
+    / ``value_stream_i8_fwd`` on the training patch, and the four variants of
+    the int8 walk microbenchmark, each against its plain version on the same
+    quantization. Beside each: the bf16 kernel on the same inputs, and the
+    calibration alone."""
+    import torch
+    from papr_tpu_torch.model.papr import eval_quant_params
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops.geometry import get_rays
+
+    policy = policy_from_config(cfg)
+    cdt = policy.compute_dtype
+    eps = float(cfg.eps)
+    results, failed = [], []
+
+    def i8_bound(n_bytes, int8_ops, bf16_ops=0.0):
+        """Bytes over the memory rate against int8 operations over the int8
+        peak plus what stays bf16 (w_k) over the bf16 peak."""
+        t_b = n_bytes / HBM_BYTES_S * 1e3
+        t_o = (int8_ops / INT8_OPS + bf16_ops / BF16_FLOPS) * 1e3
+        return {"bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "library_ms": None}
+
+    # ---- attend_eval_i8 on the eval block ----
+    args, T = eval_block_args(params, state, cfg, device)
+    record, idx, rayo_flat, rays, qq, kwalk, wk, _, vwalk = args[:9]
+    k = idx.shape[1]
+    cfg8 = flagship_cfg(int8_eval=True)
+    c2w = torch.as_tensor(orbit(0.0), device=device)
+    _, frame_rays = get_rays(H, W, c2w, torch.tensor([FOCAL, FOCAL],
+                                                     device=device))
+    frame_rays = frame_rays.reshape(-1, 3)
+    sample = frame_rays[::max(1, frame_rays.shape[0] // 1024)]
+    calibrate = lambda: eval_quant_params(params, state, cfg8, rayo_flat[0],
+                                          sample, policy=policy)
+    qp = calibrate()
+    bf16_ms = cuda_ms(lambda: sa.attend_eval_idx(*args), n_time)
+    work = i8_bound(nbytes(record, idx, rayo_flat, rays, qq)
+                    + walk_bytes(kwalk, vwalk) + T * (32 + k + 1) * 4,
+                    T * k * walk_flops(kwalk, vwalk), T * k * walk_flops(wk))
+    for name, quant, cal in (
+            ("frame-level quant_params", qp, calibrate),
+            ("self-calibrated", None, lambda: sa._calibrate_idx(
+                record, idx, rayo_flat, rays, (kwalk, vwalk), eps, cdt))):
+        call = lambda: sa.attend_eval_idx(*args, True, quant)
+        f_got, a_got = call()
+        f_want, a_want = sa.attend_eval_plain(*args, True, quant)
+        torch.cuda.synchronize()
+        err = rel_fro(f_got, f_want)
+        f_abs = float((f_got - f_want).abs().max())
+        a_abs = float((a_got - a_want).abs().max())
+        finite = bool(torch.isfinite(f_got).all()
+                      and torch.isfinite(a_got).all())
+        f_bf, a_bf = sa.attend_eval_idx(*args)
+        ms = cuda_ms(call, n_time)
+        kern_ms = kernel_span_ms(call, "attend_eval_i8_kernel")
+        plain_ms = cuda_ms(lambda: sa.attend_eval_plain(*args, True, quant), 1)
+        cal_ms = cuda_ms(cal, n_time)
+        print(f"phase 2 attend_eval_i8 ({name}): T={T} K={k}: fused rel "
+              f"Frobenius {err:.3e} (need <= {I8_FUSED_REL}), max abs "
+              f"{f_abs:.3e}; attn max abs {a_abs:.3e} (need <= "
+              f"{I8_ATTN_ABS}); finite {finite}; call {ms:.3f} ms, its kernel "
+              f"alone {kern_ms:.3f} ms, the bf16 kernel on the same inputs "
+              f"{bf16_ms:.3f} ms, plain {plain_ms:.3f} ms, the calibration "
+              f"alone {cal_ms:.3f} ms, bound {work['bound_ms']:.4f} ms "
+              f"({work['bound_by']}); int8 against bf16 kernel: fused rel "
+              f"Frobenius {rel_fro(f_got, f_bf):.3e}, attn max abs "
+              f"{float((a_got - a_bf).abs().max()):.3e}", flush=True)
+        if not (finite and err <= I8_FUSED_REL and a_abs <= I8_ATTN_ABS):
+            failed.append(f"attend_eval_i8 ({name})")
+        if quant is not None:
+            results.append({
+                "name": "attend_eval_i8", "route": "cuda",
+                "source": "papr_tpu_torch/csrc/attend_eval.cu",
+                "replaces": "papr_tpu/ops/stream_attn.py:1856 (quant=True: "
+                            "papr_tpu/ops/fused_mlp.py:322)",
+                "max_abs_err": f_abs, "max_rel_err": err, "ms": ms,
+                "kernel_ms": kern_ms, "bf16_kernel_ms": bf16_ms,
+                "plain_ms": plain_ms, "calibration_ms": cal_ms, **work})
+        else:
+            results[-1]["self_calibrated"] = {
+                "max_abs_err": f_abs, "max_rel_err": err, "ms": ms,
+                "kernel_ms": kern_ms, "plain_ms": plain_ms,
+                "calibration_ms": cal_ms}
+    del args, record, idx, qq, f_got, f_want, a_got, a_want
+    torch.cuda.empty_cache()
+
+    # ---- the two int8 training forwards on the training patch ----
+    rayo, rayd = training_patch(device)
+    _, _, rec, rayo_f, rays, _, qq, kwalk, vwalk = stream_patch_inputs(
+        params, state, cfg, rayo, rayd)
+    T, wk, bk = PATCH * PATCH, params["attn"]["w_k"]["w"], \
+        params["attn"]["w_k"]["bias"]
+    kargs = (rec, rayo_f, rays, qq, kwalk, wk, bk)
+    kopts = (cfg.models.attn.score_act, float(cfg.geoms.background.constant),
+             eps, cdt)
+    attn = sa.key_stream_fwd(*kargs, *kopts)[0]
+    vargs = (rec, rayo_f, rays, attn, vwalk)
+    vopts = (bool(cfg.models.normalize_topk_attn), eps, cdt)
+    cases = (
+        ("key_stream_i8_fwd", "papr_tpu_torch/csrc/key_stream.cu",
+         "papr_tpu/ops/stream_attn.py:798 (quant=True)", "key_i8_fwd_kernel",
+         lambda i8: list(sa.key_stream_fwd(*kargs, *kopts, int8=i8))[:2],
+         lambda: list(sa.key_stream_plain(*kargs, *kopts, int8=True))[:2],
+         ["attn", "raw"], kwalk, I8_RAW_REL,
+         i8_bound(nbytes(rec, rayo_f, rays, qq) + walk_bytes(kwalk)
+                  + T * (3 * k + 1) * 4, T * k * walk_flops(kwalk),
+                  T * k * walk_flops(wk))),
+        ("value_stream_i8_fwd", "papr_tpu_torch/csrc/value_stream.cu",
+         "papr_tpu/ops/stream_attn.py:1601 (quant=True)",
+         "value_i8_fwd_kernel",
+         lambda i8: [sa.value_stream_fwd(*vargs, *vopts, int8=i8)],
+         lambda: [sa.value_stream_plain(*vargs, *vopts, int8=True)],
+         ["fused"], vwalk, I8_FUSED_REL,
+         i8_bound(nbytes(rec, rayo_f, rays, attn) + walk_bytes(vwalk)
+                  + T * 32 * 4, T * k * walk_flops(vwalk))))
+    for (name, source, replaces, pattern, fn, plain, labels, walk, tol,
+         work) in cases:
+        g, w = fn(True), plain()
+        torch.cuda.synchronize()
+        rels = _rels(g, w)
+        finite = all(bool(torch.isfinite(t).all()) for t in g)
+        vs_bf16 = _rels(g, fn(False))
+        ms = cuda_ms(lambda: fn(True), n_time)
+        kern_ms = kernel_span_ms(lambda: fn(True), pattern)
+        bf16_ms = cuda_ms(lambda: fn(False), n_time)
+        plain_ms = cuda_ms(plain, 1)
+        cal_ms = cuda_ms(lambda: sa.calibrate_walk(rec, rayo_f, rays, walk,
+                                                   eps, cdt), n_time)
+        print(f"phase 2 {name}: T={T} K={k}: rel Frobenius "
+              + ", ".join(f"{l} {r:.2e}" for l, r in zip(labels, rels))
+              + f" (need <= {tol}); finite {finite}; call {ms:.3f} ms "
+              f"(with its calibration, {cal_ms:.3f} ms alone), its kernel "
+              f"alone {kern_ms:.3f} ms, the bf16 kernel on the same inputs "
+              f"{bf16_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{work['bound_ms']:.4f} ms ({work['bound_by']}); int8 against "
+              "bf16 kernel: "
+              + ", ".join(f"{l} {r:.2e}" for l, r in zip(labels, vs_bf16)),
+              flush=True)
+        if not (finite and max(rels) <= tol):
+            failed.append(name)
+        if name == "key_stream_i8_fwd":
+            a_abs = float((g[0] - w[0]).abs().max())
+            print(f"phase 2 {name}: attn max abs {a_abs:.3e} (need <= "
+                  f"{I8_KEY_ATTN_ABS})", flush=True)
+            if not a_abs <= I8_KEY_ATTN_ABS:
+                failed.append(name + " attn")
+        results.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "max_abs_err": _max_abs(g, w),
+                        "max_rel_err": max(rels), "ms": ms,
+                        "kernel_ms": kern_ms, "bf16_kernel_ms": bf16_ms,
+                        "plain_ms": plain_ms, "calibration_ms": cal_ms,
+                        **work})
+    del rec, kargs, vargs, attn, g, w
+    torch.cuda.empty_cache()
+
+    # ---- the microbenchmark's four variants, 1024 x 128 rows, 8 layers ----
+    mb = load_tool("torch_int8_walk_microbench")
+    rows, tiles, layers = 1024, 128, 8
+    x = torch.randn(rows * tiles, mb.D,
+                    generator=torch.Generator().manual_seed(100)).to(device)
+    ws, bs = mb.make_weights(layers, device)
+    variants = {}
+    for kind in mb.KINDS:
+        got = mb.int8_walk_bench(kind, x, ws, bs)
+        want = mb.walk_bench_plain(kind, x, ws, bs)
+        torch.cuda.synchronize()
+        err = rel_fro(got, want)
+        tol = I8_BENCH_REL[kind]
+        variants[kind] = {
+            "max_abs_err": float((got - want).abs().max()),
+            "max_rel_err": err, "equal": bool(torch.equal(got, want)),
+            "ms": mb.time_kind(kind, x, ws, bs, 10),
+            "plain_ms": cuda_ms(lambda: mb.walk_bench_plain(kind, x, ws, bs),
+                                1)}
+        v = variants[kind]
+        print(f"phase 2 int8_walk_bench ({kind}): {rows * tiles} rows x "
+              f"{layers} layers of {mb.D}x{mb.D}: rel Frobenius {err:.3e} "
+              f"(need <= {tol}), equal {v['equal']}; kernel {v['ms']:.3f} ms, "
+              f"plain {v['plain_ms']:.3f} ms", flush=True)
+        if not err <= tol:
+            failed.append(f"int8_walk_bench ({kind})")
+        del got, want
+    ops = 2.0 * rows * tiles * layers * mb.D * mb.D
+    n_bytes = nbytes(x) * 2 + layers * mb.D * (mb.D + 12)
+    results.append({
+        "name": "int8_walk_bench", "route": "cuda",
+        "source": "papr_tpu_torch/csrc/int8_walk_bench.cu",
+        "replaces": "tools/int8_walk_microbench.py:132 (bodies :33, :45, "
+                    ":63, :80); ms, plain_ms, errors and the bound are the "
+                    "int8s variant's (the model's form)",
+        "max_abs_err": variants["int8s"]["max_abs_err"],
+        "max_rel_err": variants["int8s"]["max_rel_err"],
+        "ms": variants["int8s"]["ms"],
+        "plain_ms": variants["int8s"]["plain_ms"], "variants": variants,
+        "bf16_bound_ms": ops / BF16_FLOPS * 1e3,
+        **i8_bound(n_bytes, ops)})
+    if failed:
+        fail(f"int8 kernels disagree with their plain versions: {failed}")
+    return results
 
 
 def counters(training: bool = False):
@@ -1179,6 +1483,318 @@ def drive_stream_modes(device) -> dict:
         torch.cuda.empty_cache()
     return {"launches": total, "step_ms": {m: [r[0] for r in rs]
                                            for m, rs in readings.items()}}
+
+
+def int8_counters():
+    """The kernels an int8 frame or an ``int8_train`` step can launch (with
+    the bf16 twins they must not), and every plain version."""
+    from papr_tpu_torch.ops import stream_attn as sa
+    kernels, plains = stream_counters()
+    kernels.update({"attend_eval_i8": sa.attend_eval_i8,
+                    "key_stream_i8_fwd": sa.key_stream_i8_fwd,
+                    "value_stream_i8_fwd": sa.value_stream_i8_fwd})
+    return kernels, plains
+
+
+def frame_distance(what, a, b, att_a, att_b) -> None:
+    """An int8 frame against the bf16 frame of the same model and pose: uint8
+    pixels (PSNR, share within 2/255), fused features and attention of the
+    whole frame. Fails outside int8's own distance."""
+    diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    close = float((diff.max(-1) <= 2).mean())
+    mse = float(np.mean((diff / 255.0) ** 2))
+    psnr = -10 * np.log10(max(mse, 1e-12))
+    f_rel = float(np.linalg.norm(att_a["fused"] - att_b["fused"])
+                  / max(np.linalg.norm(att_b["fused"]), 1e-30))
+    f_scale = float(np.abs(att_a["fused"] - att_b["fused"]).max()
+                    / max(np.abs(att_b["fused"]).max(), 1e-30))
+    a_rel = float(np.linalg.norm(att_a["attn"] - att_b["attn"])
+                  / max(np.linalg.norm(att_b["attn"]), 1e-30))
+    a_abs = float(np.abs(att_a["attn"] - att_b["attn"]).max())
+    fg = 1.0 - att_b["attn"][..., -1, 0]
+    print(f"phase 7 int8 frame against bf16 frame ({what}): PSNR between "
+          f"them {psnr:.2f} dB, pixels within 2/255 {close:.6f} (need >= "
+          f"{I8_FRAME_MIN_CLOSE}), max diff {int(diff.max())}; fused features "
+          f"rel Frobenius {f_rel:.3e} (need <= {I8_FRAME_FUSED_REL}), max abs "
+          f"over scale {f_scale:.3e}; attn rel Frobenius {a_rel:.3e} (need <= "
+          f"{I8_FRAME_ATTN_REL}), max abs {a_abs:.3e}; foreground attention "
+          f"mean {float(fg.mean()):.4f}, max {float(fg.max()):.4f}",
+          flush=True)
+    if not (close >= I8_FRAME_MIN_CLOSE and f_rel <= I8_FRAME_FUSED_REL
+            and a_rel <= I8_FRAME_ATTN_REL
+            and float(fg.max()) > float(fg.min())):
+        fail(f"the int8 frame is outside int8's distance of the bf16 frame "
+             f"({what})")
+
+
+def drive_int8_paths(device, cli_model) -> dict:
+    """Phase 7: ``tpu.int8_eval`` frames and ``tpu.int8_train`` steps at full
+    width beside their bf16 twins in this one call, the knobs' ignored rows
+    once each, and the microbenchmark through its entry point. Counters are
+    reset just before each part and read just after."""
+    import warnings
+
+    import torch
+    from papr_tpu_torch.model import papr as tpapr
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops.geometry import get_rays_np
+    from papr_tpu_torch.train.losses import build_loss
+    from papr_tpu_torch.train.optim import build_group_specs, tree_leaves
+    from papr_tpu_torch.train.step import (make_opt_state, make_train_step,
+                                           render_frame, render_frames,
+                                           render_full_image)
+
+    kernels, plains = int8_counters()
+    total = {n: 0 for n in kernels}
+
+    def read(what, want, units=1, wgrad_min=0):
+        """Exactly ``want[n] * units`` launches of each named kernel, none of
+        any other, no plain version; adds the counts to the phase's total."""
+        got = {n: fn.launches for n, fn in kernels.items()}
+        bad = {n: (got[n], want.get(n, 0) * units) for n in got
+               if n != "wgrad" and got[n] != want.get(n, 0) * units}
+        calls = {n: fn.calls for n, fn in plains.items() if fn.calls}
+        if bad or calls or got["wgrad"] < wgrad_min \
+                or (wgrad_min == 0 and got["wgrad"]):
+            fail(f"{what}: launches (got, want) {bad}; plain versions called "
+                 f"{calls}; wgrad {got['wgrad']}")
+        for n in total:
+            total[n] += got[n]
+        return {n: v for n, v in got.items() if v}
+
+    # ---- (a) serving frames under int8_eval beside bf16 ----
+    cfg8, cfgb = flagship_cfg(int8_eval=True), flagship_cfg()
+    params, state = build_model(cfg8, device)
+    poses = [orbit(2 * np.pi * i / 3) for i in range(3)]
+    serve = lambda cfg, ps: list(render_frames(params, state, cfg, ps, FOCAL,
+                                               FOCAL, H, W, H, W))
+    frame_ms, peaks = {}, {}
+    for name, cfg in (("int8_eval", cfg8), ("bf16", cfgb), ("int8_eval, again",
+                                                            cfg8)):
+        serve(cfg, [orbit(0.3)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(kernels, plains)
+        cal = tpapr.eval_quant_params.calls, sa.walk_amax.calls
+        t0 = time.perf_counter()
+        frames = serve(cfg, poses)
+        frame_ms[name] = (time.perf_counter() - t0) / len(poses) * 1e3
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        cal = (tpapr.eval_quant_params.calls - cal[0],
+               sa.walk_amax.calls - cal[1])
+        i8 = name != "bf16"
+        got = read(f"serving frames ({name})",
+                   {"cull_select": 1, "fused_mlp": 1,
+                    "attend_eval_i8" if i8 else "attend_stream_eval": 1}, 3)
+        if cal != ((3, 6) if i8 else (0, 0)) or any(
+                f.shape != (H, W, 3) or int(f.max()) == int(f.min())
+                for f in frames):
+            fail(f"serving frames ({name}): calibrations {cal}")
+        print(f"phase 7 render_frames {H}x{W} ({name}): "
+              f"{frame_ms[name]:.1f} ms/frame over 3 frames; peak device "
+              f"memory {peaks[name]:.2f} GiB; launches {got}; calibrations "
+              f"(frames, walks) {cal}", flush=True)
+    for name, cfg in (("int8_eval", cfg8), ("bf16", cfgb)):
+        wall, idle, spans = device_profile(lambda: [render_frame(
+            params, state, cfg, orbit(2 * np.pi * i / 3), FOCAL, FOCAL, H, W)
+            for i in range(3)])
+        split, kern = stage_split(spans, FRAME_STAGES, 3)
+        print(f"phase 7 profile ({name}): 3 frames, {wall / 3:.1f} ms/frame "
+              f"under the profiler; device idle share {idle:.4f}; kernel time "
+              f"{kern:.3f} ms/frame: {split}", flush=True)
+
+    # One tiled frame: 64 tiles, ONE calibration.
+    th, tw = int(cfg8.test.max_height), int(cfg8.test.max_width)
+    rayo, rayd = get_rays_np(H, W, FOCAL, FOCAL, poses[0][None])
+    tiled = lambda cfg, **kw: render_full_image(params, state, cfg, rayo, rayd,
+                                                th, tw, **kw)
+    rgb = dict(rgb_only=True, rgb_uint8=True)
+    tiled(cfg8, **rgb)
+    tiled(cfgb, **rgb)
+    torch.cuda.synchronize()
+    reset_counters(kernels, plains)
+    cal = tpapr.eval_quant_params.calls, sa.walk_amax.calls
+    t0 = time.perf_counter()
+    fr8 = tiled(cfg8, **rgb)["rgb"][0]
+    tiled_ms = [(time.perf_counter() - t0) * 1e3]
+    cal = (tpapr.eval_quant_params.calls - cal[0], sa.walk_amax.calls - cal[1])
+    n_tiles = (H // th) * (W // tw)
+    got = read("a tiled int8 frame", {"cull_select": 1, "fused_mlp": 1,
+                                      "attend_eval_i8": 1}, n_tiles)
+    # The tile loop is host code and its clock spreads: bf16 and int8 frames
+    # in turn, twice more.
+    tiled_b_ms = []
+    for cfg, ms in ((cfgb, tiled_b_ms), (cfg8, tiled_ms)) * 2 \
+            + ((cfgb, tiled_b_ms),):
+        t0 = time.perf_counter()
+        frb = tiled(cfg, **rgb)["rgb"][0]
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 7 render_full_image {H}x{W} in {th}x{tw} tiles, frames in "
+          "turn: int8_eval " + ", ".join(f"{m:.1f}" for m in tiled_ms)
+          + " ms; bf16 " + ", ".join(f"{m:.1f}" for m in tiled_b_ms)
+          + f" ms; the int8 frame's launches {got}; calibrations (frames, "
+          f"walks) {cal}", flush=True)
+    if cal != (1, 2) or n_tiles != 64:
+        fail(f"the tiled int8 frame calibrated {cal} times over {n_tiles} "
+             "tiles, want (1, 2) over 64")
+    frame_distance("seeded flagship model", fr8, frb,
+                   tiled(cfg8, attention_only=True),
+                   tiled(cfgb, attention_only=True))
+    del params, state
+    torch.cuda.empty_cache()
+    probe, pstate, prayo, prayd, pcfg = cli_model
+    ptiled = lambda cfg, **kw: render_full_image(probe, pstate, cfg, prayo,
+                                                 prayd, 100, 100, **kw)
+    frame_distance("the command-line path's trained sphere model, seeded "
+                   "influence scores",
+                   ptiled(pcfg(int8_eval=True), **rgb)["rgb"][0],
+                   ptiled(pcfg(), **rgb)["rgb"][0],
+                   ptiled(pcfg(int8_eval=True), attention_only=True),
+                   ptiled(pcfg(), attention_only=True))
+    del probe, pstate
+    torch.cuda.empty_cache()
+
+    # ---- (b) training steps under int8_train beside streamrec ----
+    rayo, rayd = training_patch(device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    target = torch.rand(1, PATCH, PATCH, 3, generator=gen, device=device)
+    c2w = orbit(0.0)
+    n_rays = PATCH * PATCH
+    base = flagship_cfg()
+    loss_fn = build_loss(base, policy_from_config(base), device=device)
+    step_want = {
+        "int8_train": {"cull_select": 1, "fused_mlp": 1, "fused_mlp_bwd": 1,
+                       "key_stream_i8_fwd": 1, "key_stream_bwd": 1,
+                       "value_stream_i8_fwd": 1, "value_stream_bwd": 1},
+        "streamrec": {"cull_select": 1, "fused_mlp": 1, "fused_mlp_bwd": 1,
+                      "key_stream_fwd": 1, "key_stream_bwd": 1,
+                      "value_stream_fwd": 1, "value_stream_bwd": 1}}
+    first, step_ms = {}, {}
+    for mode, tpu in (("int8_train", {"int8_train": True}), ("streamrec", {})):
+        cfg = flagship_cfg(fused_attn="streamrec", **tpu)
+        params, state = build_model(cfg, device)
+        specs = build_group_specs(cfg)
+        before = _snapshot(params, specs)
+        opt = make_opt_state(cfg, params)
+        step_fn = make_train_step(cfg, loss_fn)
+        losses = [step_fn(params, opt, state, rayo, rayd, target, c2w,
+                          1000)[2]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(kernels, plains)
+        t0 = time.perf_counter()
+        for i in range(STREAM_STEPS):
+            params, opt, loss, pred = step_fn(params, opt, state, rayo, rayd,
+                                              target, c2w, 1001 + i)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        step_ms[mode] = (time.perf_counter() - t0) / STREAM_STEPS * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = read(f"training steps ({mode})", step_want[mode], STREAM_STEPS,
+                   wgrad_min=STREAM_STEPS)
+        losses = [float(l) for l in losses]
+        first[mode] = losses[0]
+        moved = {k: any(not torch.equal(a, b) for a, b in
+                        zip(before[k], tree_leaves(params[k])))
+                 for k in before}
+        if not (all(np.isfinite(losses)) and all(moved.values())
+                and pred.shape == (1, PATCH, PATCH, 3)):
+            fail(f"training under {mode}: losses {losses}, moved {moved}")
+        wall, idle, spans = device_profile(lambda: [step_fn(
+            params, opt, state, rayo, rayd, target, c2w, 1100 + i)
+            for i in range(3)])
+        split, kern = stage_split(spans, TRAIN_STAGES, 3, TRAIN_OTHER)
+        print(f"phase 7 step ({mode}; {n_rays} rays): {step_ms[mode]:.1f} "
+              f"ms/step over {STREAM_STEPS} steps = "
+              f"{n_rays / step_ms[mode] * 1e3:.0f} rays/s; peak device memory "
+              f"{peak_gb:.2f} GiB; losses "
+              + ", ".join(f"{l:.6f}" for l in losses)
+              + f"; every group moved {all(moved.values())}; 3 profiled "
+              f"steps: {wall / 3:.1f} ms/step, device idle share {idle:.4f}, "
+              f"kernel time {kern:.3f} ms/step: {split}; launches {got}",
+              flush=True)
+        del params, state, opt
+        torch.cuda.empty_cache()
+    loss_rel = abs(first["int8_train"] - first["streamrec"]) \
+        / abs(first["streamrec"])
+    print(f"phase 7 first step's loss, int8_train {first['int8_train']:.6f} "
+          f"against streamrec {first['streamrec']:.6f}: rel {loss_rel:.3e} "
+          f"(need <= {I8_STEP_LOSS_REL})", flush=True)
+    if not loss_rel <= I8_STEP_LOSS_REL:
+        fail("the int8_train step's loss is outside int8's distance of the "
+             "bf16 step's")
+
+    # ---- (c) the rows where a knob cannot take effect, once each ----
+    params, state = build_model(base, device)
+    side = 64
+    focal = FOCAL * side / 800
+    s_o, s_d = get_rays_np(side, side, focal, focal, orbit(0.7)[None])
+    s_o, s_d = (torch.as_tensor(s_o, device=device),
+                torch.as_tensor(s_d, device=device))
+    policy = policy_from_config(base)
+
+    def call(training, **tpu):
+        fn = tpapr.forward if training else tpapr.evaluate
+        with torch.no_grad():
+            out = fn(params, state, flagship_cfg(**tpu), s_o, s_d,
+                     policy=policy)
+        return out if training else torch.cat([out[0].flatten(),
+                                               out[1].flatten()])
+
+    i8 = ("attend_eval_i8", "key_stream_i8_fwd", "value_stream_i8_fwd")
+    rows = (
+        ("int8_eval", {"eval_fused": False}, False, True,
+         ("key_stream_fwd", "value_stream_fwd")),
+        ("int8_eval", {"query_fold": True}, False, True,
+         ("key_stream_q_fwd", "value_stream_fwd")),
+        ("int8_eval", {"fused_attn": "stream"}, False, True,
+         ("key_stream_feat_fwd", "value_stream_feat_fwd")),
+        ("int8_eval", {}, True, False, ("key_stream_fwd", "value_stream_fwd")),
+        ("int8_train", {"query_fold": True}, True, True,
+         ("key_stream_q_fwd", "value_stream_fwd")),
+        ("int8_train", {"fused_attn": "stream"}, True, True,
+         ("key_stream_feat_fwd", "value_stream_feat_fwd")),
+        ("int8_train", {}, False, False, ("attend_stream_eval",)),
+        ("int8_eval", {"fused_attn": True}, False, False, ()),
+        ("int8_train", {"fused_attn": True}, True, False, ()))
+    for knob, rest, training, warns, ran in rows:
+        want = call(training, **rest)
+        tpapr._warned.clear()
+        reset_counters(kernels, plains)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            got = call(training, **{**rest, knob: True})
+            again = call(training, **{**rest, knob: True})
+        named = [w for w in seen
+                 if f"tpu.{knob}: true ignored" in str(w.message)]
+        launched = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+        ok = (torch.equal(got, want) and torch.equal(again, want)
+              and len(named) == (1 if warns else 0)
+              and not any(n in launched for n in i8)
+              and all(launched.get(n) == 2 for n in ran)
+              and not any(fn.calls for fn in plains.values()))
+        print(f"phase 7 ignored knob: {knob} with {rest or 'streamrec'} on "
+              f"{'a training' if training else 'an eval'} call: bit-equal to "
+              f"the config without it {bool(torch.equal(got, want))}; "
+              f"warnings in two calls {len(named)} (want "
+              f"{1 if warns else 0}); launches {launched}", flush=True)
+        if not ok:
+            fail(f"ignored-knob row {knob} {rest} training={training}")
+    del params, state
+    torch.cuda.empty_cache()
+
+    # ---- the microbenchmark through its entry point ----
+    mb = load_tool("torch_int8_walk_microbench")
+    mb.int8_walk_bench.launches = 0
+    out = mb.main(["--reps", "10"])
+    print(f"phase 7 int8 walk microbenchmark: {json.dumps(out)}", flush=True)
+    total["int8_walk_bench"] = mb.int8_walk_bench.launches
+    if mb.walk_bench_plain.calls:
+        fail("a plain version ran inside the microbenchmark")
+    return {"launches": total, "frame_ms": frame_ms, "step_ms": step_ms,
+            "bench": out}
 
 
 def cli_counters():
@@ -1634,7 +2250,7 @@ def drive_cli_path(device) -> dict:
     if not (sclose >= EVAL_SPLIT_MIN_CLOSE and f_rel <= SPLIT_FUSED_REL
             and a_abs <= SPLIT_ATTN_ABS and float(fg.max()) > float(fg.min())):
         fail("the split-kernel eval frame disagrees with the one-shot kernel")
-    del att, probe
+    del att
     print(f"phase 5 eval_fused false: two-kernel frame "
           f"{frames['two-kernel ms']:.1f} ms, one-shot frame "
           f"{frames['one-shot ms']:.1f} ms, the command-line path's "
@@ -1711,7 +2327,13 @@ def drive_cli_path(device) -> dict:
         fail(f"a plain version ran in the timed steps: {plain_calls}")
     import shutil
     shutil.rmtree(root, ignore_errors=True)
-    return {"launches": launches, "step_ms": out["real loader", cli_mode]}
+    # The trained model with its seeded influence scores and the test view's
+    # rays, for the int8 frame of phase 7.
+    model = (probe, state, rayo, rayd,
+             lambda **tpu: cli_config(scene, save_dir, 14,
+                                      fused_attn="streamrec", **tpu))
+    return {"launches": launches, "step_ms": out["real loader", cli_mode],
+            "model": model}
 
 
 def device_profile(fn):
@@ -1740,7 +2362,8 @@ def device_profile(fn):
 
 
 # Stage of a device kernel: the first pattern found in its name.
-FRAME_STAGES = (("K3 attend_eval", "attend_eval"), ("K2 fused_mlp", "fused_mlp"),
+FRAME_STAGES = (("K3 attend_eval_i8", "attend_eval_i8"),
+                ("K3 attend_eval", "attend_eval"), ("K2 fused_mlp", "fused_mlp"),
                 ("K1 cull", "cull_topk"), ("sort", "Sort"),
                 ("conv (cuDNN)", "fprop"), ("gemm", "gemm"))
 TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
@@ -1750,6 +2373,8 @@ TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("fused scores fwd", "fused_scores_fwd_kernel"),
                 ("fused scores bwd", "fused_scores_bwd_kernel"),
                 ("key stream fwd", "key_fwd_kernel"),
+                ("key stream fwd (int8)", "key_i8_fwd_kernel"),
+                ("value stream fwd (int8)", "value_i8_fwd_kernel"),
                 ("key stream bwd", "key_bwd_kernel"),
                 ("value stream fwd", "value_fwd_kernel"),
                 ("value stream bwd", "value_bwd_kernel"),
@@ -1849,6 +2474,9 @@ def profile_train_step(step_fn, params, opt, state, cfg, rayo, rayd, target,
 
 REF_MODES = (("streamrec + cull", {"topk_impl": "cull"}),
              ("true + pallas", {"topk_impl": "pallas", "fused_attn": True}))
+REF_INT8_MODES = (("streamrec + int8_train + cull",
+                   {"topk_impl": "cull", "fused_attn": "streamrec",
+                    "int8_train": True}),)
 REF_STREAM_MODES = (("stream + cull", {"topk_impl": "cull",
                                        "fused_attn": "stream"}),
                     ("streamrec + query_fold + cull",
@@ -1940,6 +2568,7 @@ def main() -> None:
     results += list(train_results.values())
     cli_results, stacks = compare_cli_kernels(params, state, cfg, device)
     results += cli_results
+    results += compare_int8_kernels(params, state, cfg, device)
     for r in results:
         # The embedder kernels at the command-line path's key / value stacks.
         if r["name"] in stacks:
@@ -1954,16 +2583,22 @@ def main() -> None:
     cli = drive_cli_path(device)
     modes = drive_stream_modes(device)
     train_reference_check(device, REF_STREAM_MODES, phase=6)
+    int8 = drive_int8_paths(device, cli.pop("model"))
+    train_reference_check(device, REF_INT8_MODES, phase=7)
 
     # Each kernel's launches on the main path that holds it: the serving
-    # path and the training step (phases 3, 4), the command-line path, or
-    # the stream modes' steps and frames (phase 6).
+    # path and the training step (phases 3, 4), the command-line path, the
+    # stream modes' steps and frames (phase 6), or the int8 frames, steps and
+    # microbenchmark (phase 7).
+    int8_only = ("attend_eval_i8", "key_stream_i8_fwd", "value_stream_i8_fwd",
+                 "int8_walk_bench")
     cli_only = ("topk_stream", "fused_scores_fwd", "fused_scores_bwd")
     mode_only = ("key_stream_q_fwd", "key_stream_q_bwd",
                  "key_stream_feat_fwd", "key_stream_feat_bwd",
                  "value_stream_feat_fwd", "value_stream_feat_bwd")
     for r in results:
-        r["launches"] = (cli["launches"][r["name"]] if r["name"] in cli_only
+        r["launches"] = (int8["launches"][r["name"]] if r["name"] in int8_only
+                         else cli["launches"][r["name"]] if r["name"] in cli_only
                          else modes["launches"][r["name"]]
                          if r["name"] in mode_only
                          else run["launches"].get(r["name"], 0)

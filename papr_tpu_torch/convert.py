@@ -10,7 +10,8 @@ reference's ``model.pth``, which is a different purpose.)
 
 ``from_jax_opt_state`` and ``from_jax_lpips_params`` carry the Adam state and
 the LPIPS weights across, so both packages can start from one mid-training
-state.
+state; ``from_jax_quant_params`` carries an int8 walk quantization across, so
+both int8 kernels can run on the same quantization.
 """
 
 from __future__ import annotations
@@ -77,3 +78,28 @@ def from_jax_lpips_params(lp_np: dict, device=None) -> dict:
              for c in lp_np["convs"]]
     lins = [t(np.asarray(l).reshape(-1)) for l in lp_np["lins"]]
     return {"convs": convs, "lins": lins}
+
+
+def from_jax_quant_params(qp_np, walks, device=None) -> tuple:
+    """The JAX int8 quantization of the key and value walks, ``((kwq, kinv,
+    kdq), (vwq, vinv, vdq))`` as numpy (``papr_tpu.model.papr
+    eval_quant_params`` / ``ops.stream_attn._quantize_walk``: per layer int8
+    weights (d_i, d_i+1), inverse activation scales (1, d_i) and dequant rows
+    (1, d_i+1), every width padded to 128 lanes), cut to the true widths of
+    ``walks`` = (key Walk, value Walk): the port's ``(WalkQuant, WalkQuant)``
+    for ``attend_eval_idx(..., quant_params=)``."""
+    from .ops.fused_mlp import WalkQuant
+    device = resolve_device(device)
+    out = []
+    for (wq, inv, dq), walk in zip(qp_np, walks):
+        dims = [tuple(int(d) for d in w.shape) for w in walk.ws]
+        out.append(WalkQuant(
+            tuple(torch.from_numpy(np.asarray(w)[:a, :b].astype(np.int8))
+                  .to(device) for w, (a, b) in zip(wq, dims)),
+            tuple(torch.from_numpy(np.asarray(r, np.float32).reshape(-1)[:a]
+                                   .copy()).to(device)
+                  for r, (a, _) in zip(inv, dims)),
+            tuple(torch.from_numpy(np.asarray(r, np.float32).reshape(-1)[:b]
+                                   .copy()).to(device)
+                  for r, (_, b) in zip(dq, dims))))
+    return tuple(out)

@@ -20,22 +20,30 @@
 // (T, 32) + (T, K + 1) is written.
 // The kernel gathers record rows by index from the (P, 128) record instead
 // of a pre-gathered (K, T, 128) tensor (6.55 GB at one 800x800 tile).
+//
+// attend_eval_i8 is the same call with quant=True (tpu.int8_eval): both
+// walks' dense stacks run walk.cuh's int8 walk (walk_body_fwd_q in
+// papr_tpu/ops/fused_mlp.py:322) on a quantization the wrapper calibrated;
+// geometry, posenc, LayerNorms, the bf16 w_k product on y_k rounded to bf16,
+// scores, the value rows rounded to bf16, softmax and fuse are this file's
+// one tile function, shared by both kernels. int8 halves the bytes of every
+// MMA operand; the WMMA instruction count per layer is the bf16 one.
 
 #include "rec_stream.cuh"
 
 using namespace papr;
 
-__global__ void __launch_bounds__(kThreads, 1)
-attend_eval_kernel(const float* __restrict__ record, int rec_w,
-                   const int* __restrict__ idx, int T, int K,
-                   const float* __restrict__ rayo,
-                   const float* __restrict__ rays,
-                   const float* __restrict__ qq, int dm, float sqrt_dm,
-                   WalkDesc kd, const __nv_bfloat16* __restrict__ wk,
-                   const float* __restrict__ bk, int dm_pad, WalkDesc vd,
-                   int score_relu, float bkg, int normalize, float eps,
-                   float* __restrict__ fused, float* __restrict__ attn) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// One tile of kRows rays. kq / vq: the walks' int8 forms, or null for the
+// bf16 walks (a compile-time constant in each kernel below).
+__device__ __forceinline__ void attend_eval_tile(
+    unsigned char* smem, const float* __restrict__ record, int rec_w,
+    const int* __restrict__ idx, int T, int K, const float* __restrict__ rayo,
+    const float* __restrict__ rays, const float* __restrict__ qq, int dm,
+    float sqrt_dm, const WalkDesc& kd, const WalkQuant* kq,
+    const __nv_bfloat16* __restrict__ wk, const float* __restrict__ bk,
+    int dm_pad, const WalkDesc& vd, const WalkQuant* vq, int score_relu,
+    float bkg, int normalize, float eps, float* __restrict__ fused,
+    float* __restrict__ attn) {
   const WalkSmem S = walk_smem(smem);
   float* C = S.C;
   float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
@@ -86,7 +94,8 @@ attend_eval_kernel(const float* __restrict__ record, int rec_w,
     // --- key walk -> w_k -> score column ---
     encode_rec(C, kd, geo, gidx, record, rec_w);
     __syncthreads();
-    run_walk(S, kd, true);                      // y_k rounded to bf16 in A[0]
+    if (kq) run_walk_q(S, kd, *kq, true);       // y_k rounded to bf16 in A[0]
+    else run_walk(S, kd, true);
     dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
     __syncthreads();
     for (int r = warp; r < kRows; r += kWarps) {
@@ -115,7 +124,8 @@ attend_eval_kernel(const float* __restrict__ record, int rec_w,
     // --- value walk -> online softmax-weighted accumulation ---
     encode_rec(C, vd, geo, gidx, record, rec_w);
     __syncthreads();
-    run_walk(S, vd);
+    if (vq) run_walk_q(S, vd, *vq);
+    else run_walk(S, vd);
     for (int r = warp; r < kRows; r += kWarps) {
       const float s = ss[r * K + k];
       const float m_old = m_run[r];
@@ -150,6 +160,96 @@ attend_eval_kernel(const float* __restrict__ record, int rec_w,
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+attend_eval_kernel(const float* __restrict__ record, int rec_w,
+                   const int* __restrict__ idx, int T, int K,
+                   const float* __restrict__ rayo,
+                   const float* __restrict__ rays,
+                   const float* __restrict__ qq, int dm, float sqrt_dm,
+                   WalkDesc kd, const __nv_bfloat16* __restrict__ wk,
+                   const float* __restrict__ bk, int dm_pad, WalkDesc vd,
+                   int score_relu, float bkg, int normalize, float eps,
+                   float* __restrict__ fused, float* __restrict__ attn) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  attend_eval_tile(smem, record, rec_w, idx, T, K, rayo, rays, qq, dm,
+                   sqrt_dm, kd, nullptr, wk, bk, dm_pad, vd, nullptr,
+                   score_relu, bkg, normalize, eps, fused, attn);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+attend_eval_i8_kernel(const float* __restrict__ record, int rec_w,
+                      const int* __restrict__ idx, int T, int K,
+                      const float* __restrict__ rayo,
+                      const float* __restrict__ rays,
+                      const float* __restrict__ qq, int dm, float sqrt_dm,
+                      WalkDesc kd, WalkQuant kq,
+                      const __nv_bfloat16* __restrict__ wk,
+                      const float* __restrict__ bk, int dm_pad, WalkDesc vd,
+                      WalkQuant vq, int score_relu, float bkg, int normalize,
+                      float eps, float* __restrict__ fused,
+                      float* __restrict__ attn) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  attend_eval_tile(smem, record, rec_w, idx, T, K, rayo, rays, qq, dm,
+                   sqrt_dm, kd, &kq, wk, bk, dm_pad, vd, &vq, score_relu, bkg,
+                   normalize, eps, fused, attn);
+}
+
+// Shared launcher: kwq .. vdq all null launches the bf16 kernel, all given
+// the int8 one.
+static int launch_attend_eval(
+    const float* record, int rec_w, const int* idx, int T, int K,
+    const float* rayo, const float* rays, const float* qq, int dm,
+    float sqrt_dm, const int* kmeta, const void* kw, const void* kb,
+    const void* kln, const void* kplan, const void* wk, const void* bk,
+    int dm_pad, const int* vmeta, const void* vw, const void* vb,
+    const void* vln, const void* vplan, int score_relu, float bkg,
+    int normalize, float eps, void* fused, void* attn, bool int8,
+    const void* kwq, const void* kinv, const void* kdq, const void* vwq,
+    const void* vinv, const void* vdq, void* stream) {
+  WalkDesc kd, vd;
+  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
+  if (err) return err;
+  err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
+  if (err) return err;
+  WalkQuant kq, vq;
+  if (int8) {
+    err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
+    if (err) return err;
+    err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
+    if (err) return err;
+  }
+  if (dm_pad <= 0 || dm_pad > kMaxWidth || dm_pad % 16 != 0 || dm > dm_pad)
+    return -201;
+  if (K <= 0 || K > 128) return -202;
+  if (T <= 0) return 0;
+  const size_t smem = kWalkSmem + sizeof(float) * kRows *
+      (kGeo + 1 + K + vd.d_out) + sizeof(int) * kRows;
+  if (smem > 232448) return -203;      // the H100's per-block maximum
+  cudaError_t e = int8
+      ? cudaFuncSetAttribute(attend_eval_i8_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem)
+      : cudaFuncSetAttribute(attend_eval_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (T + kRows - 1) / kRows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* wkp = static_cast<const __nv_bfloat16*>(wk);
+  const float* bkp = static_cast<const float*>(bk);
+  if (int8)
+    attend_eval_i8_kernel<<<grid, kThreads, smem, st>>>(
+        record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp,
+        bkp, dm_pad, vd, vq, score_relu, bkg, normalize, eps,
+        static_cast<float*>(fused), static_cast<float*>(attn));
+  else
+    attend_eval_kernel<<<grid, kThreads, smem, st>>>(
+        record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp,
+        dm_pad, vd, score_relu, bkg, normalize, eps,
+        static_cast<float*>(fused), static_cast<float*>(attn));
+  return (int)cudaGetLastError();
+}
+
 extern "C" int papr_attend_eval(
     const float* record, int rec_w, const int* idx, int T, int K,
     const float* rayo, const float* rays, const float* qq, int dm,
@@ -158,28 +258,27 @@ extern "C" int papr_attend_eval(
     int dm_pad, const int* vmeta, const void* vw, const void* vb,
     const void* vln, const void* vplan, int score_relu, float bkg,
     int normalize, float eps, void* fused, void* attn, void* stream) {
-  WalkDesc kd, vd;
-  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
-  if (err) return err;
-  err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
-  if (err) return err;
-  if (dm_pad <= 0 || dm_pad > kMaxWidth || dm_pad % 16 != 0 || dm > dm_pad)
-    return -201;
-  if (K <= 0 || K > 128) return -202;
-  if (T <= 0) return 0;
-  const size_t smem = kWalkSmem + sizeof(float) * kRows *
-      (kGeo + 1 + K + vd.d_out) + sizeof(int) * kRows;
-  if (smem > 232448) return -203;      // the H100's per-block maximum
-  cudaError_t e = cudaFuncSetAttribute(
-      attend_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (T + kRows - 1) / kRows;
-  attend_eval_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd,
-      static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
-      dm_pad, vd, score_relu, bkg, normalize, eps,
-      static_cast<float*>(fused), static_cast<float*>(attn));
-  return (int)cudaGetLastError();
+  return launch_attend_eval(record, rec_w, idx, T, K, rayo, rays, qq, dm,
+                            sqrt_dm, kmeta, kw, kb, kln, kplan, wk, bk,
+                            dm_pad, vmeta, vw, vb, vln, vplan, score_relu,
+                            bkg, normalize, eps, fused, attn, false, nullptr,
+                            nullptr, nullptr, nullptr, nullptr, nullptr,
+                            stream);
+}
+
+extern "C" int papr_attend_eval_i8(
+    const float* record, int rec_w, const int* idx, int T, int K,
+    const float* rayo, const float* rays, const float* qq, int dm,
+    float sqrt_dm, const int* kmeta, const void* kw, const void* kb,
+    const void* kln, const void* kplan, const void* wk, const void* bk,
+    int dm_pad, const int* vmeta, const void* vw, const void* vb,
+    const void* vln, const void* vplan, int score_relu, float bkg,
+    int normalize, float eps, void* fused, void* attn, const void* kwq,
+    const void* kinv, const void* kdq, const void* vwq, const void* vinv,
+    const void* vdq, void* stream) {
+  return launch_attend_eval(record, rec_w, idx, T, K, rayo, rays, qq, dm,
+                            sqrt_dm, kmeta, kw, kb, kln, kplan, wk, bk,
+                            dm_pad, vmeta, vw, vb, vln, vplan, score_relu,
+                            bkg, normalize, eps, fused, attn, true, kwq, kinv,
+                            kdq, vwq, vinv, vdq, stream);
 }

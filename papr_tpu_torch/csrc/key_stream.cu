@@ -25,6 +25,12 @@
 // every activation stays in shared memory. The record is read pre-gathered
 // k-major, (K, T, rec_w), the JAX kernels' layout; d_rec is a plain
 // (K, T, rec_w) output that autograd scatter-adds into the (P, rec_w) record.
+//
+// key_stream_i8_fwd is the forward with int8=True (tpu.int8_train,
+// stream_attn.py:1013-1017): the walk's dense stack runs walk.cuh's int8
+// walk on a quantization the wrapper calibrated on this call's record; the
+// raw dots and masked scores it saves are the int8 forward's. The backward
+// above takes no flag: it recomputes the walk in bf16 (straight-through).
 
 #include "key_stream.cuh"
 
@@ -42,6 +48,22 @@ key_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
   key_rec_fwd_tile(walk_smem(smem), rec, rec_w, T, K, rayo, rays, qq, dm,
                    sqrt_dm, kd, wk, bk, dm_pad, score_relu, bkg, eps, attn,
                    raw, ss_out);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+key_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
+                  const float* __restrict__ rayo,
+                  const float* __restrict__ rays,
+                  const float* __restrict__ qq, int dm, float sqrt_dm,
+                  WalkDesc kd, WalkQuant kq,
+                  const __nv_bfloat16* __restrict__ wk,
+                  const float* __restrict__ bk, int dm_pad, int score_relu,
+                  float bkg, float eps, float* __restrict__ attn,
+                  float* __restrict__ raw, float* __restrict__ ss_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  key_rec_fwd_tile(walk_smem(smem), rec, rec_w, T, K, rayo, rays, qq, dm,
+                   sqrt_dm, kd, wk, bk, dm_pad, score_relu, bkg, eps, attn,
+                   raw, ss_out, &kq);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -64,6 +86,54 @@ key_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
                    reinterpret_cast<float*>(S.extra));
 }
 
+// Shared launcher of the two forwards: with int8 the three quantization
+// buffers are read and the int8 kernel launched.
+static int launch_key_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* qq, int dm, float sqrt_dm,
+    const int* kmeta, const void* kw, const void* kb, const void* kln,
+    const void* kplan, const void* wk, const void* bk, int dm_pad,
+    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
+    bool int8, const void* kwq, const void* kinv, const void* kdq,
+    void* stream) {
+  WalkDesc kd;
+  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
+  if (err) return err;
+  WalkQuant kq;
+  if (int8) {
+    err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
+    if (err) return err;
+  }
+  err = check_score_head(dm, dm_pad, K);
+  if (err) return err;
+  if (T <= 0) return 0;
+  const size_t smem = key_rec_fwd_smem(K);
+  if (smem > 232448) return -203;
+  cudaError_t e = int8
+      ? cudaFuncSetAttribute(key_i8_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem)
+      : cudaFuncSetAttribute(key_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (T + kRows - 1) / kRows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* wkp = static_cast<const __nv_bfloat16*>(wk);
+  const float* bkp = static_cast<const float*>(bk);
+  if (int8)
+    key_i8_fwd_kernel<<<grid, kThreads, smem, st>>>(
+        rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp, bkp,
+        dm_pad, score_relu, bkg, eps, static_cast<float*>(attn),
+        static_cast<float*>(raw), static_cast<float*>(ss));
+  else
+    key_fwd_kernel<<<grid, kThreads, smem, st>>>(
+        rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp, dm_pad,
+        score_relu, bkg, eps, static_cast<float*>(attn),
+        static_cast<float*>(raw), static_cast<float*>(ss));
+  return (int)cudaGetLastError();
+}
+
 extern "C" int papr_key_stream_fwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* qq, int dm, float sqrt_dm,
@@ -71,24 +141,22 @@ extern "C" int papr_key_stream_fwd(
     const void* kplan, const void* wk, const void* bk, int dm_pad,
     int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
     void* stream) {
-  WalkDesc kd;
-  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
-  if (err) return err;
-  err = check_score_head(dm, dm_pad, K);
-  if (err) return err;
-  if (T <= 0) return 0;
-  const size_t smem = key_rec_fwd_smem(K);
-  if (smem > 232448) return -203;
-  cudaError_t e = cudaFuncSetAttribute(
-      key_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  key_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd,
-      static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
-      dm_pad, score_relu, bkg, eps, static_cast<float*>(attn),
-      static_cast<float*>(raw), static_cast<float*>(ss));
-  return (int)cudaGetLastError();
+  return launch_key_fwd(rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta,
+                        kw, kb, kln, kplan, wk, bk, dm_pad, score_relu, bkg,
+                        eps, attn, raw, ss, false, nullptr, nullptr, nullptr,
+                        stream);
+}
+
+extern "C" int papr_key_stream_i8_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* qq, int dm, float sqrt_dm,
+    const int* kmeta, const void* kw, const void* kb, const void* kln,
+    const void* kplan, const void* wk, const void* bk, int dm_pad,
+    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
+    const void* kwq, const void* kinv, const void* kdq, void* stream) {
+  return launch_key_fwd(rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta,
+                        kw, kb, kln, kplan, wk, bk, dm_pad, score_relu, bkg,
+                        eps, attn, raw, ss, true, kwq, kinv, kdq, stream);
 }
 
 extern "C" int papr_key_stream_bwd(

@@ -22,7 +22,8 @@ inline size_t key_rec_bwd_smem(int K) {
 
 // Per (ray, k): geometry -> key posenc -> walk -> w_k -> scaled dot with qq
 // -> score_act x influence, alive-masked; then the background-token softmax.
-// Writes attn (T, K+1), the raw dots and the masked scores (T, K).
+// Writes attn (T, K+1), the raw dots and the masked scores (T, K). With kq
+// the walk's dense stack runs in int8 (walk.cuh run_walk_q).
 __device__ __forceinline__ void key_rec_fwd_tile(
     const WalkSmem& S, const float* __restrict__ rec, int rec_w, int T, int K,
     const float* __restrict__ rayo, const float* __restrict__ rays,
@@ -30,7 +31,7 @@ __device__ __forceinline__ void key_rec_fwd_tile(
     const __nv_bfloat16* __restrict__ wk, const float* __restrict__ bk,
     int dm_pad, int score_relu, float bkg, float eps,
     float* __restrict__ attn, float* __restrict__ raw,
-    float* __restrict__ ss_out) {
+    float* __restrict__ ss_out, const WalkQuant* kq = nullptr) {
   float* C = S.C;
   float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
   float* ss = geo + kRows * kGeo;                            // kRows x K
@@ -42,7 +43,8 @@ __device__ __forceinline__ void key_rec_fwd_tile(
     __syncthreads();
     encode_rec(C, kd, geo, gidx, rec, rec_w);
     __syncthreads();
-    run_walk(S, kd, true);                      // y_k rounded to bf16 in A[0]
+    if (kq) run_walk_q(S, kd, *kq, true);       // y_k rounded to bf16 in A[0]
+    else run_walk(S, kd, true);
     dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
     __syncthreads();
     score_column(C, qq, bk, dm, sqrt_dm, t0, T, [&](int r, int t, float col) {

@@ -20,19 +20,24 @@
 // key_stream.cu's: one block of 512 threads per 64-ray tile, k inside the
 // block, every activation in shared memory, dW through the stash and
 // wgrad.cu.
+//
+// value_stream_i8_fwd is the forward with int8=True (tpu.int8_train,
+// stream_attn.py:1742-1746): the walk's dense stack runs walk.cuh's int8
+// walk on a quantization the wrapper calibrated on this call's record. The
+// backward takes no flag: it recomputes the walk in bf16 (straight-through).
 
 #include "rec_stream.cuh"
 #include "stream_common.cuh"
 
 using namespace papr;
 
-__global__ void __launch_bounds__(kThreads, 1)
-value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
-                 const float* __restrict__ rayo,
-                 const float* __restrict__ rays,
-                 const float* __restrict__ attn, WalkDesc vd, int normalize,
-                 float eps, float* __restrict__ fused) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// The forward on one tile of kRows rays; vq: the walk's int8 form, or null
+// for the bf16 walk (a compile-time constant in each kernel below).
+__device__ __forceinline__ void value_fwd_tile(
+    unsigned char* smem, const float* __restrict__ rec, int rec_w, int T,
+    int K, const float* __restrict__ rayo, const float* __restrict__ rays,
+    const float* __restrict__ attn, const WalkDesc& vd, const WalkQuant* vq,
+    int normalize, float eps, float* __restrict__ fused) {
   const WalkSmem S = walk_smem(smem);
   float* C = S.C;
   float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
@@ -51,7 +56,8 @@ value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
     __syncthreads();
     encode_rec(C, vd, geo, gidx, rec, rec_w);
     __syncthreads();
-    run_walk(S, vd);
+    if (vq) run_walk_q(S, vd, *vq);
+    else run_walk(S, vd);
     fuse_step(C, acc, attn, den, k, K, cout, t0, T);
     __syncthreads();
   }
@@ -61,6 +67,28 @@ value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
     for (int c = lane; c < cout; c += 32)
       fused[(size_t)t * cout + c] = acc[r * cout + c];
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
+                 const float* __restrict__ rayo,
+                 const float* __restrict__ rays,
+                 const float* __restrict__ attn, WalkDesc vd, int normalize,
+                 float eps, float* __restrict__ fused) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  value_fwd_tile(smem, rec, rec_w, T, K, rayo, rays, attn, vd, nullptr,
+                 normalize, eps, fused);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+value_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
+                    const float* __restrict__ rayo,
+                    const float* __restrict__ rays,
+                    const float* __restrict__ attn, WalkDesc vd, WalkQuant vq,
+                    int normalize, float eps, float* __restrict__ fused) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  value_fwd_tile(smem, rec, rec_w, T, K, rayo, rays, attn, vd, &vq, normalize,
+                 eps, fused);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -137,28 +165,67 @@ value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
   renorm_bwd_rows(datt, attn, den, normalize, K, t0, T, dattn);
 }
 
-extern "C" int papr_value_stream_fwd(
+// Shared launcher of the two forwards: with int8 the three quantization
+// buffers are read and the int8 kernel launched.
+static int launch_value_fwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* attn, const int* vmeta, const void* vw,
     const void* vb, const void* vln, const void* vplan, int normalize,
-    float eps, void* fused, void* stream) {
+    float eps, void* fused, bool int8, const void* vwq, const void* vinv,
+    const void* vdq, void* stream) {
   WalkDesc vd;
   int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
+  WalkQuant vq;
+  if (int8) {
+    err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
+    if (err) return err;
+  }
   if (K <= 0 || K > 64) return -202;
   if (T <= 0) return 0;
   const size_t smem = kWalkSmem + sizeof(float) * kRows *
       (kGeo + 1 + vd.d_out) + sizeof(int) * kRows;
   if (smem > 232448) return -203;
-  cudaError_t e = cudaFuncSetAttribute(
-      value_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t e = int8
+      ? cudaFuncSetAttribute(value_i8_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem)
+      : cudaFuncSetAttribute(value_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (e != cudaSuccess) return (int)e;
-  value_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      rec, rec_w, T, K, rayo, rays, attn, vd, normalize, eps,
-      static_cast<float*>(fused));
+  const int grid = (T + kRows - 1) / kRows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int8)
+    value_i8_fwd_kernel<<<grid, kThreads, smem, st>>>(
+        rec, rec_w, T, K, rayo, rays, attn, vd, vq, normalize, eps,
+        static_cast<float*>(fused));
+  else
+    value_fwd_kernel<<<grid, kThreads, smem, st>>>(
+        rec, rec_w, T, K, rayo, rays, attn, vd, normalize, eps,
+        static_cast<float*>(fused));
   return (int)cudaGetLastError();
+}
+
+extern "C" int papr_value_stream_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* attn, const int* vmeta, const void* vw,
+    const void* vb, const void* vln, const void* vplan, int normalize,
+    float eps, void* fused, void* stream) {
+  return launch_value_fwd(rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb,
+                          vln, vplan, normalize, eps, fused, false, nullptr,
+                          nullptr, nullptr, stream);
+}
+
+extern "C" int papr_value_stream_i8_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* attn, const int* vmeta, const void* vw,
+    const void* vb, const void* vln, const void* vplan, int normalize,
+    float eps, void* fused, const void* vwq, const void* vinv,
+    const void* vdq, void* stream) {
+  return launch_value_fwd(rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb,
+                          vln, vplan, normalize, eps, fused, true, vwq, vinv,
+                          vdq, stream);
 }
 
 extern "C" int papr_value_stream_bwd(

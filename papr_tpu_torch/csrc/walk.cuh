@@ -19,6 +19,17 @@
 // them once per 64-token tile; every activation stays on chip. Shared memory
 // allows one block per SM, so the block itself carries 16 warps (four per
 // scheduler) to hide the latency of the fragment loads and MMAs.
+//
+// The int8 walk (run_walk_q) is papr_tpu/ops/fused_mlp.py::walk_body_fwd_q:
+// [LayerNorm fp32] -> per layer the fp32 input quantized per column
+// (q = clip(round(h * inv), +-127)), int8 x int8 -> int32 on the tensor
+// cores, z = acc * dq + b and the activation in fp32 -> [LayerNorm fp32];
+// nothing is rounded to bf16 between layers. It lives in the same buffers:
+// the int8 activations ping-pong in A[0] / A[1] read as bytes (half a bf16
+// tile each), the int8 weights are staged into W; C holds the fp32 stage
+// values at both ends. Each layer's epilogue quantizes straight for the next
+// layer (the fp32 value it holds is the h the reference quantizes), so only
+// the first layer's input takes a separate quantize pass over C.
 
 #pragma once
 
@@ -44,6 +55,20 @@ constexpr size_t kABytes = sizeof(__nv_bfloat16) * kRows * kALd;
 constexpr size_t kCBytes = sizeof(float) * kRows * kCLd;
 constexpr size_t kWBytes = sizeof(__nv_bfloat16) * 2 * kWChunk * kWLd;
 constexpr size_t kWalkSmem = 2 * kABytes + kCBytes + kWBytes;
+
+// The int8 walk's layouts inside those buffers, in bytes. Activations:
+// kRows rows of kQLd (68 words: the 8 rows x 4 words of one fragment load
+// fall on distinct banks). Staged weights: OUTPUT-major, one row per output
+// channel holding a kWChunk-deep slice of its input axis, so both MMA
+// operands are contiguous along the reduction (kQWLd = 20 words: the same).
+// WMMA wants int8 leading dimensions in multiples of 16.
+typedef signed char q8;
+constexpr int kQLd = kMaxWidth + 16;
+constexpr int kQWLd = kWChunk + 16;
+static_assert(kQLd % 16 == 0 && kQWLd % 16 == 0, "int8 WMMA leading dims");
+static_assert((size_t)kRows * kQLd <= kABytes, "int8 tile fits a bf16 tile");
+static_assert((size_t)2 * kMaxWidth * kQWLd <= kWBytes,
+              "two int8 weight chunks fit the bf16 staging buffer");
 
 // dense_layer's split of a (kRows x 256) output into 16x16 tiles: eight
 // warp columns own two column tiles each (c and c + 8); kWarps / 8 warp rows
@@ -94,6 +119,32 @@ inline int fill_walk(WalkDesc* d, const int* meta, const void* w_all,
   }
   d->ln = static_cast<const float*>(ln);
   d->plan = static_cast<const float*>(plan);
+  return 0;
+}
+
+// One walk's int8 form (ops/fused_mlp.py pack_walk_q), beside its WalkDesc.
+struct WalkQuant {
+  const q8* w[kMaxLayers];       // (pd[i+1], pd[i]) OUTPUT-major int8
+  const float* inv[kMaxLayers];  // (pd[i]) 127 / amax per input column, 0 dead
+  const float* dq[kMaxLayers];   // (pd[i+1]) per-output-channel dequant scale
+};
+
+// Host side: the three packed buffers against the walk's meta row. The int8
+// weights sit at the bf16 weights' element offsets, the dequant rows at the
+// bias offsets, the inverse-scale rows back to back.
+inline int fill_walk_quant(WalkQuant* q, const WalkDesc& d, const int* meta,
+                           const void* wq_all, const void* inv_all,
+                           const void* dq_all) {
+  if (!wq_all || !inv_all || !dq_all) return -105;
+  const int* w_off = meta + 7 + d.n + 1;
+  const int* b_off = w_off + d.n;
+  int inv_off = 0;
+  for (int i = 0; i < d.n; ++i) {
+    q->w[i] = static_cast<const q8*>(wq_all) + w_off[i];
+    q->inv[i] = static_cast<const float*>(inv_all) + inv_off;
+    q->dq[i] = static_cast<const float*>(dq_all) + b_off[i];
+    inv_off += d.pd[i];
+  }
   return 0;
 }
 
@@ -360,6 +411,222 @@ __device__ __forceinline__ void run_walk(const WalkSmem& s, const WalkDesc& d,
     const bool last = l + 1 == d.n;
     dense_layer(s.A[cur], s.C, last ? nullptr : s.A[cur ^ 1], s.W, d.w[l],
                 d.b[l], d.pd[l], d.pd[l + 1], last ? d.last_act : d.act);
+    cur ^= 1;
+  }
+  __syncthreads();
+  if (d.has_lo) {
+    const float* lo = d.ln + 2 * pd0;
+    layernorm_rows(s.C, s.A[0], out_bf16, d.d_out, pdn, lo, lo + pdn);
+    __syncthreads();
+  } else if (out_bf16) {
+    to_bf16(s.C, s.A[0], pdn);
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------ int8 walk ----
+
+// clip(round(h * inv), +-127): round half to even (__float2int_rn, as
+// jnp.round); the clamp runs in float first, so a NaN or a product beyond
+// the int range clamps instead of wrapping. The product is a separate
+// multiply (no contraction), as the plain version's.
+__device__ __forceinline__ q8 quantize_value(float h, float inv) {
+  const float t = fminf(fmaxf(__fmul_rn(h, inv), -127.f), 127.f);
+  return (q8)__float2int_rn(t);
+}
+
+// Quantize the fp32 tile C[:, :pd] into the int8 tile Q, four columns a
+// thread; qv(r, c, h) gives one value. Pad lanes of C are zero on entry.
+template <class QV>
+__device__ __forceinline__ void quantize_tile(const float* C, q8* Q, int pd,
+                                              QV qv) {
+  const int vpr = pd >> 2;
+  for (int i = threadIdx.x; i < kRows * vpr; i += kThreads) {
+    const int r = i / vpr, c = (i - r * vpr) << 2;
+    const float4 h = *reinterpret_cast<const float4*>(C + r * kCLd + c);
+    char4 q;
+    q.x = qv(r, c, h.x);
+    q.y = qv(r, c + 1, h.y);
+    q.z = qv(r, c + 2, h.z);
+    q.w = qv(r, c + 3, h.w);
+    *reinterpret_cast<char4*>(Q + r * kQLd + c) = q;
+  }
+}
+
+// Stage input slice [k0, k0 + depth) of every output channel's int8 weights
+// (Wt is (pd_out, pd_in) output-major) into dst, 16 bytes per cp.async, as
+// one commit group. depth is a multiple of 16.
+__device__ __forceinline__ void load_wq_chunk(q8* dst, const q8* Wt, int k0,
+                                              int depth, int pd_in,
+                                              int pd_out) {
+  const int vpr = depth >> 4;            // 16 int8 per 16-byte vector
+  for (int v = threadIdx.x; v < pd_out * vpr; v += kThreads) {
+    const int n = v / vpr;
+    const int c16 = (v - n * vpr) << 4;
+    cp_async16(dst + n * kQWLd + c16, Wt + (size_t)n * pd_in + k0 + c16);
+  }
+  cp_async_commit();
+}
+
+// One int8 dense layer: acc[:, :pd_out] = Q_in[:, :pd_in] @ W as int32, with
+// the warp tiling and the chunked weight staging of dense_layer (WMMA
+// m16n16k16, signed char A row-major x signed char B column-major -> int).
+// The epilogue runs per warp on its own tiles: each lane gets 8 consecutive
+// accumulators of one row as epi(r, col, acc, crow), crow pointing at their
+// place in C (acc aliases it: read acc before writing crow). What the
+// epilogue writes is complete for other warps only after the caller's
+// barrier; the first barrier inside the next dense_layer_q serves for
+// chained layers. Q_in is free for reuse once the epilogue runs (every
+// warp's last MMA precedes the loop's final barrier).
+template <class Epi>
+__device__ __forceinline__ void dense_layer_q(const q8* Q_in, float* C,
+                                              q8* wbuf,
+                                              const q8* __restrict__ Wt,
+                                              int pd_in, int pd_out, Epi epi) {
+  using namespace nvcuda;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wc = warp & 7;
+  const int rb0 = (warp >> 3) * kRowBlocksPerWarp;
+  const int nct = pd_out >> 4;
+  const bool has0 = wc < nct, has1 = wc + 8 < nct;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[kRowBlocksPerWarp][2];
+#pragma unroll
+  for (int i = 0; i < kRowBlocksPerWarp; ++i) {
+    wmma::fill_fragment(acc[i][0], 0);
+    wmma::fill_fragment(acc[i][1], 0);
+  }
+
+  const int nchunks = (pd_in + kWChunk - 1) / kWChunk;
+  load_wq_chunk(wbuf, Wt, 0, min(kWChunk, pd_in), pd_in, pd_out);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      const int k1 = (ch + 1) * kWChunk;
+      load_wq_chunk(wbuf + ((ch + 1) & 1) * kMaxWidth * kQWLd, Wt, k1,
+                    min(kWChunk, pd_in - k1), pd_in, pd_out);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const q8* wb = wbuf + (ch & 1) * kMaxWidth * kQWLd;
+    const int depth = min(kWChunk, pd_in - ch * kWChunk);
+    auto step = [&](int kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, q8, wmma::row_major> fa[kRowBlocksPerWarp];
+#pragma unroll
+      for (int i = 0; i < kRowBlocksPerWarp; ++i)
+        wmma::load_matrix_sync(
+            fa[i], Q_in + (rb0 + i) * 16 * kQLd + ch * kWChunk + kk, kQLd);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, q8, wmma::col_major> fb;
+      wmma::load_matrix_sync(fb, wb + wc * 16 * kQWLd + kk, kQWLd);
+#pragma unroll
+      for (int i = 0; i < kRowBlocksPerWarp; ++i)
+        wmma::mma_sync(acc[i][0], fa[i], fb, acc[i][0]);
+      if (has1) {
+        wmma::load_matrix_sync(fb, wb + (wc + 8) * 16 * kQWLd + kk, kQWLd);
+#pragma unroll
+        for (int i = 0; i < kRowBlocksPerWarp; ++i)
+          wmma::mma_sync(acc[i][1], fa[i], fb, acc[i][1]);
+      }
+    };
+    if (has0) {
+      if (depth == kWChunk) {
+#pragma unroll
+        for (int kk = 0; kk < kWChunk; kk += 16) step(kk);
+      } else {
+        for (int kk = 0; kk < depth; kk += 16) step(kk);
+      }
+    }
+    __syncthreads();
+  }
+  if (!has0) return;
+
+  int* Ci = reinterpret_cast<int*>(C);
+#pragma unroll
+  for (int i = 0; i < kRowBlocksPerWarp; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (j == 0 || has1)
+        wmma::store_matrix_sync(Ci + (rb0 + i) * 16 * kCLd + (wc + 8 * j) * 16,
+                                acc[i][j], kCLd, wmma::mem_row_major);
+  __syncwarp();
+  const int c0 = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < kRowBlocksPerWarp; ++i) {
+    const int r = (rb0 + i) * 16 + (lane >> 1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j == 1 && !has1) continue;
+      const int col = (wc + 8 * j) * 16 + c0;
+      int a[8];
+      *reinterpret_cast<int4*>(a) =
+          *reinterpret_cast<const int4*>(Ci + r * kCLd + col);
+      *reinterpret_cast<int4*>(a + 4) =
+          *reinterpret_cast<const int4*>(Ci + r * kCLd + col + 4);
+      epi(r, col, a, C + r * kCLd + col);
+    }
+  }
+}
+
+// The walk's own epilogue: z = acc * dq + b (a multiply, then an add, as the
+// plain version rounds them), the activation, then either quantized for the
+// next layer (inv_next) into Q_out or kept fp32 in C.
+__device__ __forceinline__ void walk_q_epilogue(int r, int col, const int* a,
+                                                float* crow,
+                                                const float* __restrict__ dq,
+                                                const float* __restrict__ bias,
+                                                int act,
+                                                const float* __restrict__ inv_next,
+                                                q8* Q_out) {
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    v[e] = __fadd_rn(__fmul_rn((float)a[e], dq[col + e]), bias[col + e]);
+    if (act == 1) v[e] = fmaxf(v[e], 0.f);
+  }
+  if (inv_next) {
+    __align__(8) q8 q[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) q[e] = quantize_value(v[e], inv_next[col + e]);
+    *reinterpret_cast<uint2*>(Q_out + r * kQLd + col) =
+        *reinterpret_cast<const uint2*>(q);
+  } else {
+    *reinterpret_cast<float4*>(crow) = *reinterpret_cast<const float4*>(v);
+    *reinterpret_cast<float4*>(crow + 4) = *reinterpret_cast<const float4*>(v + 4);
+  }
+}
+
+// Runs the int8 walk on the encoded fp32 tile in C (pad lanes zero); output
+// as run_walk: fp32 in C, or, with out_bf16, rounded to bf16 into A[0]; ends
+// on a barrier.
+__device__ __forceinline__ void run_walk_q(const WalkSmem& s, const WalkDesc& d,
+                                           const WalkQuant& q,
+                                           bool out_bf16 = false) {
+  const int pd0 = d.pd[0], pdn = d.pd[d.n];
+  q8* Q[2] = {reinterpret_cast<q8*>(s.A[0]), reinterpret_cast<q8*>(s.A[1])};
+  q8* wbuf = reinterpret_cast<q8*>(s.W);
+  if (d.has_li) {
+    layernorm_rows(s.C, nullptr, false, d.d_enc, pd0, d.ln, d.ln + pd0);
+    __syncthreads();
+  }
+  {
+    const float* inv0 = q.inv[0];
+    quantize_tile(s.C, Q[0], pd0, [&](int, int c, float h) {
+      return quantize_value(h, inv0[c]);
+    });
+  }
+  int cur = 0;
+  for (int l = 0; l < d.n; ++l) {
+    const bool last = l + 1 == d.n;
+    const float* dq = q.dq[l];
+    const float* bias = d.b[l];
+    const float* inv_next = last ? nullptr : q.inv[l + 1];
+    const int act = last ? d.last_act : d.act;
+    q8* Q_out = Q[cur ^ 1];
+    dense_layer_q(Q[cur], s.C, wbuf, q.w[l], d.pd[l], d.pd[l + 1],
+                  [&](int r, int col, const int* a, float* crow) {
+                    walk_q_epilogue(r, col, a, crow, dq, bias, act, inv_next,
+                                    Q_out);
+                  });
     cur ^= 1;
   }
   __syncthreads();

@@ -60,9 +60,19 @@ SIGNATURES = {
     "papr_value_stream_feat_bwd": [P, I, I, I, P, P] + [P] * 6 + [I]
                                   + [P] * 6 + [I, P, P],
     "papr_topk_stream": [P, P, P, P, I, I, I, I, P, P],
+    "papr_int8_walk_bench": [I, P, I, F] + [P] * 10,
     "papr_fused_scores_fwd": [P] * 8 + [I] * 8 + [F, F, I, P, P, P],
     "papr_fused_scores_bwd": [P] * 8 + [I] * 8 + [F, F, I] + [P] * 10,
 }
+
+# The int8 forms take their bf16 twin's arguments, then the walk's (two
+# walks': key, then value) int8 weights, inverse-scale rows and dequant rows,
+# then the stream.
+for _name, _walks in (("papr_attend_eval", 2), ("papr_key_stream", 1),
+                      ("papr_value_stream", 1)):
+    _twin = _name + ("_fwd" if _walks == 1 else "")
+    _i8 = _name + ("_i8_fwd" if _walks == 1 else "_i8")
+    SIGNATURES[_i8] = SIGNATURES[_twin][:-1] + [P] * (3 * _walks + 1)
 
 _lib = None
 

@@ -47,11 +47,23 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
 * Training selection reads ``tpu.cull_prefilter`` (default ``approx``, read
   as the exact top-k of the cone lower bounds, see ``ops/tile_cull.py``);
   eval pins ``tpu.cull_prefilter_eval`` like the JAX eval path.
-* Training raises for embedder dropout (``dropout_ff > 0``) and
-  ``tpu.int8_train: true`` (ROADMAP.md Queue 1 item 6, Queue 2 item 11).
-* ``int8_eval: true`` names kernels not ported yet and raises (ROADMAP.md
-  Queue 2 item 10); a ``tpu.mesh`` of more than one device raises
+* Training raises for embedder dropout (``dropout_ff > 0``, ROADMAP.md
+  Queue 1 item 6); a ``tpu.mesh`` of more than one device raises
   (single-card slice, Queue 1 item 12).
+* ``int8_eval: true`` -> at eval, under ``streamrec`` with ``eval_fused``
+  and no folded query, the one-shot eval attention runs both walks' dense
+  stacks in int8 (``attend_eval_i8``), calibrated once per frame by
+  ``eval_quant_params`` in the tiled renders and per call otherwise. Under
+  ``streamrec`` without the one-shot kernel (``eval_fused: false``,
+  ``query_fold``) and under ``stream`` it warns once and the bf16 kernels
+  run, bit-equal to the config without the knob. Training never reads it.
+* ``int8_train: true`` -> in training, under ``streamrec`` without a folded
+  query, the key and value streams' forwards run their walks in int8
+  (``key_stream_i8_fwd`` / ``value_stream_i8_fwd``, calibrated per call);
+  the backwards are the bf16 recompute, unchanged. Under ``query_fold`` or
+  ``stream`` it warns once and trains in bf16. Eval never reads it.
+* Under ``true`` | ``embed`` | ``score`` | ``false`` neither int8 knob does
+  or says anything, as in the JAX package.
 * The TPU tuning knobs (``fused_tile``, ``vmem_mb``, ``mxu_reduce``,
   ``force_local``, ``remat_embed``, ``donate_state``) select no computation
   and have no meaning on the card.
@@ -284,10 +296,6 @@ def resolve_fused_attn(cfg, fusible: bool):
     (the kernels that run) or False (the plain path); see the module
     docstring."""
     fa = cfg.get_path("tpu.fused_attn", "auto")
-    if bool(cfg.get_path("tpu.int8_eval", False)):
-        raise NotImplementedError(
-            "tpu.int8_eval: True names a kernel not ported yet (ROADMAP.md "
-            "Queue 2 item 10)")
     if fa == "auto":
         fa = "streamrec"
     if fa is False:
@@ -313,6 +321,21 @@ def _warn_qfold_ignored(why: str) -> None:
             "and no per-point query features (point_feats.use_inq).")
 
 
+def _warn_int8_ignored(why: str, knob: str = "int8_eval") -> None:
+    """One-time warning when a ``tpu.int8_*: true`` knob cannot take effect
+    (int8 walks exist only in the record-native streamed kernels)."""
+    key = f"int8:{why}"
+    if key not in _warned:
+        _warned.add(key)
+        import warnings
+        warnings.warn(
+            f"tpu.{knob}: true ignored — {why}; walks stay bf16/fp32. "
+            "Int8 eval needs tpu.fused_attn: streamrec with "
+            "tpu.eval_fused: true (the one-shot eval kernel) on an "
+            "eval/render call; int8 train needs the rec-native "
+            "two-kernel path (streamrec, no query folding).")
+
+
 def resolve_query_fold(cfg, fa) -> bool:
     """``tpu.query_fold`` on a kernel path ``fa``: True under ``streamrec``
     (a fusible config has no per-point query features); under any other
@@ -332,14 +355,30 @@ def _check_train_knobs(cfg) -> None:
         raise NotImplementedError(
             "embedder dropout (dropout_ff > 0) in training is ROADMAP.md "
             "Queue 1 item 6")
-    if bool(cfg.get_path("tpu.int8_train", False)):
-        raise NotImplementedError(
-            "tpu.int8_train: true names int8 training walks not ported yet "
-            "(ROADMAP.md Queue 2 item 11)")
+
+
+def _kernel_mode(cfg, k: int):
+    """The attention path of a selection of k points: ``tpu.fused_attn``
+    resolved against what the kernels cover (False: the plain path), and
+    whether the query chain folds into the key stream."""
+    from ..ops.fused_mlp import feedforward_fusible
+    e = cfg.models.attn.embed
+    fusible = (k <= 64 and not cfg.geoms.point_feats.use_inq
+               and score_fusible(cfg.models.attn)
+               and all(feedforward_fusible(c)
+                       for c in (e.key, e.query, e.value)))
+    fa = resolve_fused_attn(cfg, fusible)
+    return fa, fa is not False and resolve_query_fold(cfg, fa)
+
+
+def _one_shot_eval(cfg, fa, qfold: bool) -> bool:
+    """Whether an eval call takes the one-shot eval attention kernel."""
+    return (fa == "streamrec" and not qfold
+            and bool(cfg.get_path("tpu.eval_fused", True)))
 
 
 def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
-            exact_select: bool = True):
+            exact_select: bool = True, quant_params=None):
     """Selection + attention + fusion.
 
     rays_o (N, 3), rays_d (N, H, W, 3) on the parameters' device ->
@@ -347,7 +386,9 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
     last) and the selection indices (N, H, W, K). ``exact_select`` (eval)
     pins the exact candidate prefilter ('packsort' by default) and the
     one-shot eval attention; training (False) takes ``tpu.cull_prefilter``
-    and the differentiable key / value streams."""
+    and the differentiable key / value streams. ``quant_params``: a frame's
+    ``eval_quant_params`` for the int8 one-shot kernel (without it
+    ``tpu.int8_eval`` calibrates on this call's inputs)."""
     meta = model_meta(cfg)
     _check_single_device(cfg)
     N, H, W, _ = rays_d.shape
@@ -393,25 +434,40 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
                                            k, eps, chunk) for i in range(N)])
     idx = idx.reshape(N, H, W, k)
 
-    from ..ops.fused_mlp import feedforward_fusible
-    e = cfg.models.attn.embed
-    fusible = (k <= 64 and not cfg.geoms.point_feats.use_inq
-               and score_fusible(cfg.models.attn)
-               and all(feedforward_fusible(c)
-                       for c in (e.key, e.query, e.value)))
-    fa = resolve_fused_attn(cfg, fusible)
-    qfold = fa is not False and resolve_query_fold(cfg, fa)
+    fa, qfold = _kernel_mode(cfg, k)
     if fa in ("streamrec", "stream"):
         # The one-shot eval kernel serves streamrec only. tpu.eval_fused:
         # false, a folded query and ``stream`` take the two-kernel eval
         # path: the training streams' forwards, nothing differentiated.
-        if (fa == "streamrec" and exact_select and not qfold
-                and bool(cfg.get_path("tpu.eval_fused", True))):
-            run = _attend_eval_kernels
+        rec_native = fa == "streamrec"
+        eval_one = exact_select and _one_shot_eval(cfg, fa, qfold)
+        # The int8 knobs (papr_tpu/model/papr.py:640-662): int8_eval lives
+        # in the one-shot eval kernel only, int8_train in the two
+        # record-native training forwards only; elsewhere on this branch one
+        # warning, then the bf16 kernels.
+        int8_eval = bool(cfg.get_path("tpu.int8_eval", False))
+        if int8_eval and exact_select and not eval_one:
+            _warn_int8_ignored(
+                "the one-shot eval kernel is not active here "
+                f"(rec_native={rec_native}, qfold={qfold}, eval_fused="
+                f"{bool(cfg.get_path('tpu.eval_fused', True))})")
+        int8_train = (bool(cfg.get_path("tpu.int8_train", False))
+                      and not exact_select)
+        if int8_train and (not rec_native or qfold):
+            _warn_int8_ignored(
+                "the rec-native two-kernel path is not active here "
+                f"(rec_native={rec_native}, qfold={qfold})",
+                knob="int8_train")
+            int8_train = False
+        if eval_one:
+            run = functools.partial(
+                _attend_eval_kernels, int8=int8_eval,
+                quant_params=quant_params if int8_eval else None)
         elif fa == "stream":
             run = _attend_stream_feat
         else:
-            run = functools.partial(_attend_train_kernels, qfold=qfold)
+            run = functools.partial(_attend_train_kernels, qfold=qfold,
+                                    int8=int8_train)
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not exact_select):
             fused_f, attn = run(params, cfg, meta, idx, rays_o, rays_d, alive,
@@ -480,25 +536,14 @@ def _projected_query(params, cfg, rayd_flat, policy):
     return linear_apply(params["attn"]["w_q"], eq, policy).float()
 
 
-def _kernel_inputs(params, cfg, meta, rays_o, rays_d, alive, eps, policy,
-                   qfold: bool = False):
-    """Shared head of the record-native paths (papr.py:558-635): the point
-    record, the flat ray origins / normalized directions / raw directions,
-    ``qq`` through the fused query embedder and ``w_q`` (None with ``qfold``:
-    the key stream kernel runs the query chain itself), and the key / value
-    walks."""
+def _record_walks(params, cfg, meta):
+    """The key and value embedders as kernel walks over the point record's
+    sources ([pos?, proj, perp, point features])."""
     from ..ops.fused_mlp import walk_from_params
     from ..ops.stream_attn import rec_pe_plan
 
-    N, H, W, _ = rays_d.shape
-    T = N * H * W
     pcf = cfg.geoms.point_feats
     e = cfg.models.attn.embed
-    record = _point_record(params, alive, meta, pcf)
-    rayd_flat = rays_d.reshape(T, 3)
-    rayo_flat = rays_o[:, None, :].expand(N, H * W, 3).reshape(T, 3)
-    rays = normalize_vector(rayd_flat, eps=eps)
-    qq = None if qfold else _projected_query(params, cfg, rayd_flat, policy)
 
     def plan(has_pos, Ls, use_extra):
         extra = int(pcf.dim) if (meta.use_pc_feats and use_extra) else 0
@@ -506,21 +551,43 @@ def _kernel_inputs(params, cfg, meta, rays_o, rays_d, alive, eps, policy,
                            int(e.embed_type), float(e.pe_factor),
                            float(e.pe_mult_factor), extra)
 
-    kwalk = walk_from_params(params["attn"]["embed_k"], e.key,
-                             plan(True, e.k_L, pcf.use_ink))
-    vwalk = walk_from_params(params["attn"]["embed_v"], e.value,
-                             plan(False, e.v_L, pcf.use_inv))
+    return (walk_from_params(params["attn"]["embed_k"], e.key,
+                             plan(True, e.k_L, pcf.use_ink)),
+            walk_from_params(params["attn"]["embed_v"], e.value,
+                             plan(False, e.v_L, pcf.use_inv)))
+
+
+def _kernel_inputs(params, cfg, meta, rays_o, rays_d, alive, eps, policy,
+                   qfold: bool = False):
+    """Shared head of the record-native paths (papr.py:558-635): the point
+    record, the flat ray origins / normalized directions / raw directions,
+    ``qq`` through the fused query embedder and ``w_q`` (None with ``qfold``:
+    the key stream kernel runs the query chain itself), and the key / value
+    walks."""
+    N, H, W, _ = rays_d.shape
+    T = N * H * W
+    pcf = cfg.geoms.point_feats
+    record = _point_record(params, alive, meta, pcf)
+    rayd_flat = rays_d.reshape(T, 3)
+    rayo_flat = rays_o[:, None, :].expand(N, H * W, 3).reshape(T, 3)
+    rays = normalize_vector(rayd_flat, eps=eps)
+    qq = None if qfold else _projected_query(params, cfg, rayd_flat, policy)
+
+    kwalk, vwalk = _record_walks(params, cfg, meta)
     return record, rayo_flat.contiguous(), rays, rayd_flat, qq, kwalk, vwalk
 
 
 def _attend_train_kernels(params, cfg, meta, idx, rays_o, rays_d, alive,
-                          eps, policy, qfold: bool = False):
+                          eps, policy, qfold: bool = False,
+                          int8: bool = False):
     """The training branch of ``_attend_kmaj`` with ``streamrec``
     (papr.py:684-713, 763-769): the k-major record gather (its gradient
     reaches points, influence scores and point features through autograd),
     the key stream, then the value stream on its attention. Autograd runs
     the backward value -> dattn -> key -> dqq -> w_q -> query embedder; with
-    ``qfold`` the last three happen inside the key stream's backward."""
+    ``qfold`` the last three happen inside the key stream's backward. With
+    ``int8`` (``tpu.int8_train``, never with ``qfold``) both forwards run
+    their walks in int8; the backwards are unchanged."""
     from ..ops.stream_attn import (key_stream_scores_rec,
                                    key_stream_scores_recq,
                                    value_stream_fuse_rec)
@@ -542,10 +609,11 @@ def _attend_train_kernels(params, cfg, meta, idx, rays_o, rays_d, alive,
             a["w_q"]["w"], a["w_q"]["bias"], *tail)
     else:
         attn = key_stream_scores_rec(rec, rayo_flat, rays, qq, kwalk,
-                                     a["w_k"]["w"], a["w_k"]["bias"], *tail)
+                                     a["w_k"]["w"], a["w_k"]["bias"], *tail,
+                                     int8)
     fused_f = value_stream_fuse_rec(rec, rayo_flat, rays, attn, vwalk,
                                     bool(cfg.models.normalize_topk_attn), eps,
-                                    cdt)
+                                    cdt, int8)
     return fused_f.reshape(N, H, W, -1), attn.reshape(N, H, W, k + 1)
 
 
@@ -709,10 +777,12 @@ def _attend_split(params, cfg, meta, idx, rays_o, rays_d, alive, eps, policy,
 
 
 def _attend_eval_kernels(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
-                         policy):
+                         policy, int8: bool = False, quant_params=None):
     """The eval branch of ``_attend_kmaj`` (papr.py:524-682): the fused query
     embedder for ``eq``, ``w_q`` as a plain matmul, then the one-shot eval
-    attention reading the point record by index."""
+    attention reading the point record by index; with ``int8``
+    (``tpu.int8_eval``) its int8 form, on ``quant_params`` or calibrated on
+    this call."""
     from ..ops.stream_attn import attend_eval_idx
 
     N, H, W, _ = rays_d.shape
@@ -725,7 +795,8 @@ def _attend_eval_kernels(params, cfg, meta, idx, rays_o, rays_d, alive, eps,
         record, idx.reshape(T, k), rayo_flat, rays, qq, kwalk,
         params["attn"]["w_k"]["w"], params["attn"]["w_k"]["bias"], vwalk,
         attn_cfg.score_act, float(cfg.geoms.background.constant),
-        bool(cfg.models.normalize_topk_attn), eps, policy.compute_dtype)
+        bool(cfg.models.normalize_topk_attn), eps, policy.compute_dtype,
+        int8, quant_params)
     return fused_f.reshape(N, H, W, -1), attn.reshape(N, H, W, k + 1)
 
 
@@ -796,15 +867,64 @@ def forward(params: dict, state: dict, cfg, rays_o, rays_d, c2w=None,
 
 
 def evaluate(params: dict, state: dict, cfg, rays_o, rays_d,
-             policy: Policy = F32, with_selected: bool = False):
+             policy: Policy = F32, with_selected: bool = False,
+             quant_params=None):
     """Attention half only, for tiled full-image rendering (reference
     models/model.py:462-492): fused (N, H, W, 1, C), attention
-    (N, H, W, K+1, 1) and, with ``with_selected``, the selected points."""
-    fused, attn, idx = _attend(params, state, cfg, rays_o, rays_d, policy)
+    (N, H, W, K+1, 1) and, with ``with_selected``, the selected points.
+    ``quant_params``: the frame's ``eval_quant_params`` (``tpu.int8_eval``
+    in a tiled render; without it the int8 kernel calibrates per call)."""
+    fused, attn, idx = _attend(params, state, cfg, rays_o, rays_d, policy,
+                               quant_params=quant_params)
     out = (fused[..., None, :], attn[..., None])
     if with_selected:
         return out + (params["points"][idx.long()],)
     return out
+
+
+@torch.no_grad()
+def eval_quant_params(params: dict, state: dict, cfg, rays_o, rays_sample,
+                      policy: Policy = F32):
+    """Frame-level int8 calibration for ``tpu.int8_eval`` in tiled renders
+    (``papr_tpu/model/papr.py eval_quant_params``): ``walk_amax`` +
+    ``quantize_walk`` once per frame, on ``S = min(1024, P, n_rays)``
+    evenly strided RAW point records as one K = 1 slot, paired with as many
+    strided, normalized rays of the frame and the camera origin. Raw points
+    are farther from the rays than selected ones, so the amax bounds the
+    per-tile one from above. The tile loop here is host code: calibrating
+    per tile would repeat ~40 small launches for every tile.
+
+    rays_o: (3,) or (1, 3); rays_sample: (S, 3), need not be normalized.
+    Returns (key WalkQuant, value WalkQuant) as a ``FrameQuant`` for
+    ``evaluate(..., quant_params=)``, or None when this config's eval does
+    not take the one-shot int8 kernel."""
+    from ..ops.fused_mlp import FrameQuant
+    from ..ops.stream_attn import quantize_walk, walk_amax
+
+    meta = model_meta(cfg)
+    P = params["points"].shape[0]
+    k = meta.select_k
+    fa, qfold = _kernel_mode(cfg, P if (k >= P or k < 0) else k)
+    if not _one_shot_eval(cfg, fa, qfold):
+        return None
+    eval_quant_params.calls += 1
+    eps = float(cfg.eps)
+    record = _point_record(params, state["alive"], meta,
+                           cfg.geoms.point_feats)
+    rays_sample = rays_sample.reshape(-1, 3)
+    n = rays_sample.shape[0]
+    S = int(min(1024, P, n))
+    pick = lambda m: torch.arange(S, device=record.device) * max(1, m // S)
+    rec_cal = record[pick(P)][None]                          # (1, S, rp)
+    rays = normalize_vector(rays_sample[pick(n)], eps=eps)
+    rayo = rays_o.reshape(1, 3).expand(S, 3)
+    return FrameQuant(
+        quantize_walk(w.ws, walk_amax(rec_cal, rayo, rays, w, eps,
+                                      policy.compute_dtype))
+        for w in _record_walks(params, cfg, meta))
+
+
+eval_quant_params.calls = 0
 
 
 def composite_background(cfg, params, foreground, bkg_attn):

@@ -105,15 +105,19 @@ def _act(z: torch.Tensor, kind: str) -> torch.Tensor:
     raise NotImplementedError(kind)
 
 
-def walk_plain(enc: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
+def walk_plain(enc: torch.Tensor, walk: Walk, cdt: torch.dtype,
+               inputs: list | None = None) -> torch.Tensor:
     """Dense walk on an fp32 encoding; returns the fp32 output (before any
     final cast). Operands are rounded to ``cdt``; products accumulate in
-    fp32 (exact fp32 matmul of the rounded operands)."""
+    fp32 (exact fp32 matmul of the rounded operands). With ``inputs`` (a
+    list) each dense layer's input, in ``cdt``, is appended to it."""
     h = ln_rows(enc, *walk.ln_in) if walk.ln_in is not None else enc
     h = h.to(cdt)
     n = len(walk.ws)
     z = None
     for i, (w, b) in enumerate(zip(walk.ws, walk.bs)):
+        if inputs is not None:
+            inputs.append(h)
         z = h.float() @ w.to(cdt).float() + b.float()
         z = _act(z, walk.last_act if i == n - 1 else walk.act)
         if i < n - 1:
@@ -121,6 +125,57 @@ def walk_plain(enc: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
     if walk.ln_out is not None:
         z = ln_rows(z, *walk.ln_out)
     return z
+
+
+class WalkQuant(NamedTuple):
+    """Int8 form of a walk's dense stack (``ops/stream_attn.py
+    quantize_walk``): per layer the int8 weights, input-major (d_i, d_i+1),
+    with the layer's activation scale folded into their rows; the inverse
+    activation scale of each input column (d_i,), 0 for a dead column; and
+    the dequantization scale of each output channel (d_i+1,)."""
+    wq: tuple
+    inv: tuple
+    dq: tuple
+
+
+class FrameQuant(tuple):
+    """(key WalkQuant, value WalkQuant) of one frame (``model/papr.py
+    eval_quant_params``). ``packs`` keeps the kernels' packed form after the
+    frame's first tile: the one quantized pack that is kept, because it is
+    made for one frame and dropped with it (a tiled frame would otherwise
+    repack the same quantization for every tile)."""
+    packs = None
+
+
+def quantize_rows(h: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """clip(round(h * inv), +-127) as integer-valued fp32 (round half to
+    even, like ``jnp.round`` and the kernel's ``__float2int_rn``)."""
+    return torch.clamp(torch.round(h * inv), -127.0, 127.0)
+
+
+def int_matmul(q: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact product of integer-valued q (R, d) and int8 weights (d, e) as
+    fp32: summed in fp64, where every partial sum (< 2^53) is exact, so the
+    result is the int32 accumulator's."""
+    return (q.double() @ wq.double()).float()
+
+
+def walk_plain_q(enc: torch.Tensor, walk: Walk, quant: WalkQuant) -> torch.Tensor:
+    """Plain version of the int8 walk (``papr_tpu/ops/fused_mlp.py
+    walk_body_fwd_q``) on an fp32 encoding -> the fp32 output: [LN fp32] ->
+    per layer the input quantized per column, an exact integer product,
+    ``* dq + b`` and the activation in fp32 -> [LN fp32]. Activations stay
+    fp32 between layers (no rounding to a compute dtype)."""
+    h = ln_rows(enc, *walk.ln_in) if walk.ln_in is not None else enc
+    h = h.float()
+    n = len(walk.ws)
+    for i in range(n):
+        z = int_matmul(quantize_rows(h, quant.inv[i]), quant.wq[i])
+        z = z * quant.dq[i] + walk.bs[i].float()
+        h = _act(z, walk.last_act if i == n - 1 else walk.act)
+    if walk.ln_out is not None:
+        h = ln_rows(h, *walk.ln_out)
+    return h
 
 
 @functools.lru_cache(maxsize=64)
@@ -179,6 +234,28 @@ def pack_walk_t(walk: Walk, pd, device) -> torch.Tensor:
                                               dtype=torch.bfloat16)
         parts.append(wt.reshape(-1))
     return torch.cat(parts)
+
+
+def pack_walk_q(quant: WalkQuant, pd, device) -> tuple:
+    """Kernel layout of a quantized walk (``csrc/walk.cuh WalkQuant``): the
+    int8 weights OUTPUT-major, W_i^T zero-padded to (pd[i+1], pd[i]), in one
+    buffer at ``pack_walk``'s weight offsets (the tensor cores read both
+    operands along the reduction axis); the inverse activation scales as
+    rows of pd[i]; the dequantization scales as rows of pd[i+1] at
+    ``pack_walk``'s bias offsets. Padding is zero: a pad column quantizes to
+    0 and a pad channel comes out as its (zero) bias."""
+    wparts, iparts, dparts = [], [], []
+    for i, (w, inv, dq) in enumerate(zip(quant.wq, quant.inv, quant.dq)):
+        wt = torch.zeros(pd[i + 1], pd[i], dtype=torch.int8, device=device)
+        wt[:w.shape[1], :w.shape[0]] = w.T.to(device=device, dtype=torch.int8)
+        ip = torch.zeros(pd[i], dtype=torch.float32, device=device)
+        ip[:inv.shape[0]] = inv.to(device=device, dtype=torch.float32)
+        dp = torch.zeros(pd[i + 1], dtype=torch.float32, device=device)
+        dp[:dq.shape[0]] = dq.to(device=device, dtype=torch.float32)
+        wparts.append(wt.reshape(-1))
+        iparts.append(ip)
+        dparts.append(dp)
+    return torch.cat(wparts), torch.cat(iparts), torch.cat(dparts)
 
 
 def source_segments(cols, nsrc: int, device) -> torch.Tensor:

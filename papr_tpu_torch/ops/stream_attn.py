@@ -24,6 +24,16 @@ Training: the record-native key / value streams (``key_stream_scores_rec``,
 tensors (``key_stream_scores``, ``value_stream_fuse``) are in
 ``ops/stream_feat.py``.
 
+Int8 walks (``tpu.int8_eval`` / ``tpu.int8_train``): with ``int8=True`` the
+one-shot eval attention and the two record-native training forwards run
+their dense stacks as int8 x int8 -> int32 products (``walk_plain_q``, the
+kernels ``attend_eval_i8`` / ``key_stream_i8_fwd`` / ``value_stream_i8_fwd``)
+on a quantization calibrated by ``walk_amax`` + ``quantize_walk``: per call
+on a row subsample of the call's own inputs, or once per frame
+(``quant_params``, eval only). The training backwards are unchanged: they
+recompute the walk in the compute dtype (a straight-through estimator) and
+read the raw dots and masked scores the int8 forward saved.
+
 Numerics follow ``_ase_fwd_kernel``: fp32 geometry and posenc; walks as in
 ``ops/fused_mlp.py``; ``kk`` in the compute dtype (matmul rounded, bias
 added in the compute dtype) promoted to fp32; ``qq``, scores and softmax
@@ -39,9 +49,10 @@ import math
 
 import torch
 
-from .fused_mlp import (BwdBuffers, Walk, c_ints, check_walk_for_kernel,
-                        encode_plain, pack_walk, pack_walk_t, round_up,
-                        source_segments, walk_plain, walk_tensors, walk_with)
+from .fused_mlp import (BwdBuffers, FrameQuant, Walk, WalkQuant, c_ints,
+                        check_walk_for_kernel, encode_plain, pack_walk,
+                        pack_walk_q, pack_walk_t, round_up, source_segments,
+                        walk_plain, walk_plain_q, walk_tensors, walk_with)
 
 NEG_BIG = -1e30
 REC_POS, REC_INFLU, REC_ALIVE, REC_FEATS = 0, 3, 4, 5
@@ -75,14 +86,122 @@ def _check_score_act(score_act: str) -> None:
         raise NotImplementedError(f"score_act {score_act}")
 
 
+# ---------------------------------------------------- int8 calibration ----
+#
+# Plain tensor code on the inputs' device (the JAX package runs it as XLA
+# code outside its kernels): no host synchronization, nothing enters an
+# autograd graph.
+
+INT8_CAL_ROWS = 1024       # calibration subsample row budget (across K)
+# Headroom over the subsampled amax: rows outside the strided sample may
+# exceed it and would clip at +-127.
+INT8_CAL_HEADROOM = 1.1
+
+
+def _cal_rays(T: int, K: int, rows: int, device) -> torch.Tensor:
+    """The evenly strided rays a calibration samples: all K slots of
+    ``max(1, min(T, rows // K))`` rays."""
+    Ts = max(1, min(T, rows // max(K, 1)))
+    return torch.arange(Ts, device=device) * max(1, T // Ts)
+
+
+def _amax_sampled(rec, rayo, rays, walk: Walk, eps, cdt) -> list:
+    """Per-column amax of each dense layer's input over the alive tokens of
+    rec (K, Ts, rp) against rayo / rays (Ts, 3), times the headroom: the
+    walk runs in the compute dtype, as the unquantized kernel would."""
+    K, Ts, _ = rec.shape
+    sel, proj, perp = _geometry_km(rec, rayo, rays, eps)
+    raw = torch.cat([sel, proj, perp, rec[..., REC_FEATS:]], dim=-1)
+    hs: list = []
+    walk_plain(encode_plain(raw.reshape(K * Ts, -1).float(), walk.cols), walk,
+               cdt, inputs=hs)
+    alive = (rec[..., REC_ALIVE] > 0.5).reshape(K * Ts, 1)
+    # abs / amax are exact in the compute dtype; a few hundred tiny launches
+    # make a calibration host-bound, so every op saved here counts.
+    return [INT8_CAL_HEADROOM
+            * torch.where(alive, h, 0.0).abs().amax(dim=0).float()
+            for h in hs]
+
+
+@torch.no_grad()
+def walk_amax(rec, rayo, rays, walk: Walk, eps=1e-6, cdt=torch.float32,
+              rows=INT8_CAL_ROWS) -> list:
+    """Per-layer per-column activation amax of a walk (JAX ``_walk_amax``),
+    measured on an evenly strided row subsample of the inputs the kernel is
+    about to run on: rec (K, T, rp) gathered k-major, rayo / rays (T, 3).
+    Returns one (d_i,) fp32 row per dense layer."""
+    walk_amax.calls += 1
+    K, T, _ = rec.shape
+    t = _cal_rays(T, K, rows, rec.device)
+    return _amax_sampled(rec[:, t], rayo[t], rays[t], walk, eps, cdt)
+
+
+walk_amax.calls = 0
+
+
+@torch.no_grad()
+def quantize_walk(ws, amaxs) -> WalkQuant:
+    """Int8 weights for ``walk_plain_q`` from the ORIGINAL fp32 weights
+    (JAX ``_quantize_walk``): the activation scale ``amax / 127`` folds into
+    the weight rows before the per-output-channel weight scale; ``inv`` is
+    ``127 / amax`` where amax > 0, else 0 (a dead column quantizes to 0)."""
+    wq, inv, dq = [], [], []
+    # A tensor divisor: on the card ``x / 127.0`` multiplies by a rounded
+    # reciprocal, which is not JAX's division.
+    c127 = torch.tensor(127.0, device=ws[0].device)
+    for w, ax in zip(ws, amaxs):
+        w, ax = w.float(), ax.float()
+        # 127 / 0 and 0 / 0 land in the branch ``where`` drops.
+        inv.append(torch.where(ax > 0, 127.0 / ax, 0.0))
+        wf = w * (ax / c127)[:, None]
+        sw = wf.abs().amax(dim=0) / c127
+        q = torch.where(sw > 0, wf / sw, 0.0)
+        wq.append(torch.clamp(torch.round(q), -127, 127).to(torch.int8))
+        dq.append(sw)
+    return WalkQuant(tuple(wq), tuple(inv), tuple(dq))
+
+
+def calibrate_walk(rec, rayo, rays, walk: Walk, eps=1e-6,
+                   cdt=torch.float32) -> WalkQuant:
+    """Self-calibration of one call: ``quantize_walk`` on ``walk_amax`` of
+    the call's own (K, T, rp) record and rays."""
+    return quantize_walk(walk.ws, walk_amax(rec, rayo, rays, walk, eps, cdt))
+
+
+@torch.no_grad()
+def _calibrate_idx(record, idx, rayo, rays, walks, eps, cdt) -> tuple:
+    """Self-calibration of the index form: the rows a (K, T, rp) gather
+    would hold for the sampled rays, ``record[idx[t]]``."""
+    T, K = idx.shape
+    t = _cal_rays(T, K, INT8_CAL_ROWS, record.device)
+    rec = record[idx[t].T.long()]                           # (K, Ts, rp)
+    out = []
+    for walk in walks:
+        walk_amax.calls += 1
+        out.append(quantize_walk(walk.ws, _amax_sampled(
+            rec, rayo[t], rays[t], walk, eps, cdt)))
+    return tuple(out)
+
+
+def _run_walk_plain(enc, walk: Walk, cdt, quant: WalkQuant | None):
+    return (walk_plain(enc, walk, cdt) if quant is None
+            else walk_plain_q(enc, walk, quant))
+
+
 def attend_eval_plain(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
                       vwalk: Walk, score_act="relu", bkg_score=5.0,
-                      normalize=True, eps=1e-6, cdt=torch.float32):
+                      normalize=True, eps=1e-6, cdt=torch.float32,
+                      int8=False, quant_params=None):
     """Plain PyTorch version. record (P, rp) fp32, idx (T, K) int, rayo /
-    rays (T, 3) fp32, qq (T, dm) fp32 -> fused (T, C) fp32, attn (T, K+1)."""
+    rays (T, 3) fp32, qq (T, dm) fp32 -> fused (T, C) fp32, attn (T, K+1).
+    ``int8`` / ``quant_params`` as in ``attend_eval_idx``."""
     attend_eval_plain.calls += 1
     _check_score_act(score_act)
     T, K = idx.shape
+    kq = vq = None
+    if int8:
+        kq, vq = quant_params if quant_params is not None else \
+            _calibrate_idx(record, idx, rayo, rays, (kwalk, vwalk), eps, cdt)
     n_feat = record.shape[1] - REC_FEATS
     dm = wk.shape[0]
     scores, values = [], []
@@ -96,14 +215,14 @@ def attend_eval_plain(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
         perp = v - proj
         raw = torch.cat([sel, proj, perp, rec[:, REC_FEATS:REC_FEATS + n_feat]],
                         dim=-1)
-        y_k = walk_plain(encode_plain(raw, kwalk.cols), kwalk, cdt)
+        y_k = _run_walk_plain(encode_plain(raw, kwalk.cols), kwalk, cdt, kq)
         kk = (y_k.to(cdt).float() @ wk.to(cdt).float().T).to(cdt)
         kk = (kk + bk.to(cdt)).float()
         col = (qq.float() * kk).sum(-1) / math.sqrt(dm)
         sact = torch.clamp_min(col, 0.0) if score_act == "relu" else col
         alive = rec[:, REC_ALIVE] > 0.5
         scores.append(torch.where(alive, sact * rec[:, REC_INFLU], NEG_BIG))
-        y_v = walk_plain(encode_plain(raw, vwalk.cols), vwalk, cdt)
+        y_v = _run_walk_plain(encode_plain(raw, vwalk.cols), vwalk, cdt, vq)
         values.append(y_v.to(cdt).float())
     s = torch.stack(scores, dim=1)                              # (T, K)
     m = torch.clamp_min(s.amax(dim=1, keepdim=True), bkg_score)
@@ -122,14 +241,21 @@ attend_eval_plain.calls = 0
 
 def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
                     vwalk: Walk, score_act="relu", bkg_score=5.0,
-                    normalize=True, eps=1e-6, cdt=torch.float32):
+                    normalize=True, eps=1e-6, cdt=torch.float32,
+                    int8=False, quant_params=None):
     """One-shot eval attention from the (P, rp) record and idx (T, K): the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    ``wk`` is the (dm, d_k_out) ``w_k`` weight (nn/mlp.py layout)."""
+    ``wk`` is the (dm, d_k_out) ``w_k`` weight (nn/mlp.py layout).
+
+    ``int8=True`` runs both walks' dense stacks in int8 (the kernel
+    ``attend_eval_i8``): with ``quant_params`` ((key WalkQuant, value
+    WalkQuant), e.g. a frame's ``model.papr.eval_quant_params``) on the
+    caller's quantization, without it calibrated on this call's own
+    inputs. Everything outside the two dense stacks is unchanged."""
     if not record.is_cuda:
         return attend_eval_plain(record, idx, rayo, rays, qq, kwalk, wk, bk,
                                  vwalk, score_act, bkg_score, normalize, eps,
-                                 cdt)
+                                 cdt, int8, quant_params)
     from ..kernels import build
 
     _check_score_act(score_act)
@@ -161,7 +287,7 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
     idx = idx.to(torch.int32).contiguous()
     rayo, rays, qq = rayo.contiguous(), rays.contiguous(), qq.contiguous()
     kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
-    vmeta, vw, vb, vln, vplan, _ = pack_walk(vwalk, len(vwalk.cols), dev)
+    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev)
     dm_pad = round_up(dm, 16)
     wkT = torch.zeros(kpd[-1], dm_pad, dtype=torch.bfloat16, device=dev)
     wkT[:d_k_out, :dm] = wk.T.to(device=dev, dtype=torch.bfloat16)
@@ -172,34 +298,60 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
     attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     lib = build.load()
     vp = lambda a: ctypes.cast(c_ints(a), ctypes.c_void_p)
-    rc = lib.papr_attend_eval(
-        record.data_ptr(), rp, idx.data_ptr(), T, K, rayo.data_ptr(),
-        rays.data_ptr(), qq.data_ptr(), dm, float(math.sqrt(dm)),
-        vp(kmeta), kw.data_ptr(), kb.data_ptr(), kln.data_ptr(),
-        kplan.data_ptr(), wkT.data_ptr(), bkp.data_ptr(), dm_pad,
-        vp(vmeta), vw.data_ptr(), vb.data_ptr(), vln.data_ptr(),
-        vplan.data_ptr(), int(score_act == "relu"), float(bkg_score),
-        int(bool(normalize)), float(eps), fused.data_ptr(), attn.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "papr_attend_eval")
-    attend_eval_idx.launches += 1
+    args = (record.data_ptr(), rp, idx.data_ptr(), T, K, rayo.data_ptr(),
+            rays.data_ptr(), qq.data_ptr(), dm, float(math.sqrt(dm)),
+            vp(kmeta), kw.data_ptr(), kb.data_ptr(), kln.data_ptr(),
+            kplan.data_ptr(), wkT.data_ptr(), bkp.data_ptr(), dm_pad,
+            vp(vmeta), vw.data_ptr(), vb.data_ptr(), vln.data_ptr(),
+            vplan.data_ptr(), int(score_act == "relu"), float(bkg_score),
+            int(bool(normalize)), float(eps), fused.data_ptr(),
+            attn.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if int8:
+        packs = getattr(quant_params, "packs", None)
+        if packs is None:
+            kq, vq = quant_params if quant_params is not None else \
+                _calibrate_idx(record, idx, rayo, rays, (kwalk, vwalk), eps,
+                               cdt)
+            packs = pack_walk_q(kq, kpd, dev) + pack_walk_q(vq, vpd, dev)
+            if isinstance(quant_params, FrameQuant):
+                quant_params.packs = packs      # this frame's other tiles
+        rc = lib.papr_attend_eval_i8(
+            *args, *(t.data_ptr() for t in packs), stream)
+        build.check(rc, "papr_attend_eval_i8")
+        attend_eval_i8.launches += 1
+    else:
+        build.check(lib.papr_attend_eval(*args, stream), "papr_attend_eval")
+        attend_eval_idx.launches += 1
     return fused, attn
 
 
 attend_eval_idx.launches = 0
 
 
+def attend_eval_i8(*args, **kwargs):
+    """``attend_eval_idx`` with both walks in int8 (the kernel
+    ``attend_eval_i8`` in ``csrc/attend_eval.cu``); ``launches`` counts that
+    kernel's launches."""
+    return attend_eval_idx(*args, int8=True, **kwargs)
+
+
+attend_eval_i8.launches = 0
+
+
 def attend_stream_eval(rec, rayo, rays, qq, kwalk: Walk, wk, bk, vwalk: Walk,
                        score_act="relu", bkg_score=5.0, normalize=True,
-                       eps=1e-6, cdt=torch.float32):
+                       eps=1e-6, cdt=torch.float32, int8=False,
+                       quant_params=None):
     """The JAX package's layout: rec (K, T, rp) gathered k-major (rec[k, t]
-    is ray t's k-th point). Returns fused (T, C) fp32, attn (T, K+1) fp32."""
+    is ray t's k-th point). Returns fused (T, C) fp32, attn (T, K+1) fp32.
+    ``int8`` / ``quant_params`` as in ``attend_eval_idx``."""
     K, T, rp = rec.shape
     idx = (torch.arange(K * T, dtype=torch.int32, device=rec.device)
            .reshape(K, T).T)
     return attend_eval_idx(rec.reshape(K * T, rp), idx, rayo, rays, qq,
                            kwalk, wk, bk, vwalk, score_act, bkg_score,
-                           normalize, eps, cdt)
+                           normalize, eps, cdt, int8, quant_params)
 
 
 # ------------------------------------------------------- training streams ----
@@ -224,30 +376,39 @@ def _geometry_km(rec, rayo, rays, eps):
     return sel, proj, v - proj
 
 
-def _walk_rec(rec, rayo, rays, walk: Walk, eps, cdt, detach_pos: bool):
+def _walk_rec(rec, rayo, rays, walk: Walk, eps, cdt, detach_pos: bool,
+              int8: bool = False):
     """Geometry + posenc + walk over every (k, t) token -> (K, T, d_out)
     fp32. ``detach_pos`` detaches the position FEATURE (the key stream's
-    reference detach); proj / perp keep their gradient to the positions."""
+    reference detach); proj / perp keep their gradient to the positions.
+    ``int8``: the int8 walk, calibrated on these inputs."""
     K, T, rp = rec.shape
     sel, proj, perp = _geometry_km(rec, rayo, rays, eps)
     raw_in = torch.cat([sel.detach() if detach_pos else sel, proj, perp,
                         rec[..., REC_FEATS:]], dim=-1)
-    y = walk_plain(encode_plain(raw_in.reshape(K * T, -1), walk.cols), walk,
-                   cdt)
+    quant = calibrate_walk(rec, rayo, rays, walk, eps, cdt) if int8 else None
+    y = _run_walk_plain(encode_plain(raw_in.reshape(K * T, -1), walk.cols),
+                        walk, cdt, quant)
     return y.reshape(K, T, -1)
 
 
 def _score_softmax(y, qq, wk, bk, influ, alive, score_act, bkg_score, cdt,
-                   relu_on=None):
+                   relu_on=None, raw_saved=None):
     """The key streams' tail on the walk outputs y (K, T, d_out) fp32:
     ``w_k`` in the compute dtype, the scaled dot with qq (T, dm), score_act x
     influence (T, K) masked by alive (T, K) bool, and the background-token
-    softmax -> attn (T, K+1), raw dots (T, K), masked scores (T, K)."""
+    softmax -> attn (T, K+1), raw dots (T, K), masked scores (T, K).
+    With ``raw_saved`` (T, K) the dots take a saved forward's values and keep
+    this computation's gradient: what a backward that recomputes the walk
+    does with the raw dots its forward saved."""
     _check_score_act(score_act)
     dm = wk.shape[0]
     kk = (y.to(cdt).float() @ wk.to(cdt).float().T).to(cdt)
     kk = (kk + bk.to(cdt)).float()                            # (K, T, dm)
     raw = ((qq.float()[None] * kk).sum(-1) / math.sqrt(dm)).T  # (T, K)
+    if raw_saved is not None:
+        # Straight-through: the saved forward's values, this walk's gradient.
+        raw = raw + (raw_saved - raw).detach()
     if score_act != "relu":
         sact = raw
     elif relu_on is None:
@@ -263,16 +424,17 @@ def _score_softmax(y, qq, wk, bk, influ, alive, score_act, bkg_score, cdt,
 
 
 def _key_math(rec, rayo, rays, qq, kwalk, wk, bk, score_act, bkg_score, eps,
-              cdt, relu_on=None):
-    y = _walk_rec(rec, rayo, rays, kwalk, eps, cdt, detach_pos=True)
+              cdt, relu_on=None, int8=False, raw_saved=None):
+    y = _walk_rec(rec, rayo, rays, kwalk, eps, cdt, detach_pos=True,
+                  int8=int8)
     return _score_softmax(y, qq, wk, bk, rec[..., REC_INFLU].T,
                           (rec[..., REC_ALIVE] > 0.5).T, score_act,
-                          bkg_score, cdt, relu_on)
+                          bkg_score, cdt, relu_on, raw_saved)
 
 
 def key_stream_plain(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
                      score_act="relu", bkg_score=5.0, eps=1e-6,
-                     cdt=torch.float32, relu_on=None):
+                     cdt=torch.float32, relu_on=None, int8=False):
     """Plain PyTorch version of the key stream forward. rec (K, T, rp),
     rayo / rays (T, 3), qq (T, dm) fp32 -> attn (T, K+1), raw dots (T, K),
     masked scores ss (T, K), all fp32.
@@ -282,10 +444,11 @@ def key_stream_plain(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
     plain version computes the same piecewise-linear function as the kernel
     and its backward, which reads the saved raw: a dot near 0 whose sign
     the two bf16 forwards round differently then no longer switches a
-    gradient path on in one and off in the other."""
+    gradient path on in one and off in the other. ``int8``: the int8 walk,
+    self-calibrated (``key_stream_fwd``)."""
     key_stream_plain.calls += 1
     return _key_math(rec, rayo, rays, qq, kwalk, wk, bk, score_act,
-                     bkg_score, eps, cdt, relu_on)
+                     bkg_score, eps, cdt, relu_on, int8)
 
 
 key_stream_plain.calls = 0
@@ -304,14 +467,17 @@ def _grads_of(fn, tensors, cotangent):
 
 def key_stream_bwd_plain(rec, rayo, rays, qq, kwalk: Walk, wk, bk, dattn,
                          score_act="relu", bkg_score=5.0, eps=1e-6,
-                         cdt=torch.float32, relu_on=None):
+                         cdt=torch.float32, relu_on=None, raw_saved=None):
     """Plain version of the key stream backward -> [d_rec, d_rayo, d_rays,
     dqq, dwk, dbk, walk grads (walk_tensors order)]; ``relu_on`` as in
-    ``key_stream_plain``."""
+    ``key_stream_plain``. ``raw_saved`` (T, K): the raw dots the forward
+    saved; the walk is recomputed in ``cdt`` whatever the forward ran, and
+    the score and softmax backward read the saved dots (as the kernel does:
+    straight-through around an int8 forward)."""
     key_stream_bwd_plain.calls += 1
     fn = lambda r, o, d, q, w, b, *wt: _key_math(
         r, o, d, q, walk_with(kwalk, wt), w, b, score_act, bkg_score, eps,
-        cdt, relu_on)[0]
+        cdt, relu_on, raw_saved=raw_saved)[0]
     return _grads_of(fn, [rec, rayo, rays, qq, wk, bk] + walk_tensors(kwalk),
                      dattn)
 
@@ -353,12 +519,15 @@ def _wk_packs(wk, bk, pdn, dev):
 
 def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
                    score_act="relu", bkg_score=5.0, eps=1e-6,
-                   cdt=torch.float32):
+                   cdt=torch.float32, int8=False):
     """Key stream forward -> (attn (T, K+1), raw (T, K), ss (T, K)): the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    ``int8=True`` (``tpu.int8_train``): the walk's dense stack in int8,
+    calibrated on this call's own record (the kernel
+    ``key_stream_i8_fwd``); raw / ss are the int8 forward's."""
     if not rec.is_cuda:
         return key_stream_plain(rec, rayo, rays, qq, kwalk, wk, bk,
-                                score_act, bkg_score, eps, cdt)
+                                score_act, bkg_score, eps, cdt, int8=int8)
     from ..kernels import build
 
     _check_score_act(score_act)
@@ -376,20 +545,40 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
     attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     raw = torch.empty(T, K, dtype=torch.float32, device=dev)
     ss = torch.empty(T, K, dtype=torch.float32, device=dev)
-    rc = build.load().papr_key_stream_fwd(
-        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
-        qq.data_ptr(), dm, float(math.sqrt(dm)),
-        ctypes.cast(c_ints(kmeta), ctypes.c_void_p), kw.data_ptr(),
-        kb.data_ptr(), kln.data_ptr(), kplan.data_ptr(), wkf.data_ptr(),
-        bkp.data_ptr(), dm_pad, int(score_act == "relu"), float(bkg_score),
-        float(eps), attn.data_ptr(), raw.data_ptr(), ss.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "papr_key_stream_fwd")
-    key_stream_fwd.launches += 1
+    args = (rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+            qq.data_ptr(), dm, float(math.sqrt(dm)),
+            ctypes.cast(c_ints(kmeta), ctypes.c_void_p), kw.data_ptr(),
+            kb.data_ptr(), kln.data_ptr(), kplan.data_ptr(), wkf.data_ptr(),
+            bkp.data_ptr(), dm_pad, int(score_act == "relu"),
+            float(bkg_score), float(eps), attn.data_ptr(), raw.data_ptr(),
+            ss.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = build.load()
+    if int8:
+        qp = pack_walk_q(calibrate_walk(rec, rayo, rays, kwalk, eps, cdt),
+                         kpd, dev)
+        rc = lib.papr_key_stream_i8_fwd(*args, *(t.data_ptr() for t in qp),
+                                        stream)
+        build.check(rc, "papr_key_stream_i8_fwd")
+        key_stream_i8_fwd.launches += 1
+    else:
+        build.check(lib.papr_key_stream_fwd(*args, stream),
+                    "papr_key_stream_fwd")
+        key_stream_fwd.launches += 1
     return attn, raw, ss
 
 
 key_stream_fwd.launches = 0
+
+
+def key_stream_i8_fwd(*args, **kwargs):
+    """``key_stream_fwd`` with the walk in int8 (the kernel
+    ``key_stream_i8_fwd`` in ``csrc/key_stream.cu``); ``launches`` counts
+    that kernel's launches."""
+    return key_stream_fwd(*args, int8=True, **kwargs)
+
+
+key_stream_i8_fwd.launches = 0
 
 
 def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
@@ -400,7 +589,8 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
     (raw / ss saved by the forward), the plain version for CPU tensors."""
     if not rec.is_cuda:
         return key_stream_bwd_plain(rec, rayo, rays, qq, kwalk, wk, bk,
-                                    dattn, score_act, bkg_score, eps, cdt)
+                                    dattn, score_act, bkg_score, eps, cdt,
+                                    raw_saved=raw)
     from ..kernels import build
 
     _check_score_act(score_act)
@@ -454,7 +644,9 @@ key_stream_bwd.launches = 0
 
 class KeyStream(torch.autograd.Function):
     """``key_stream_scores_rec`` with its backward; saves raw / ss from the
-    forward for the softmax backward, as the JAX kernel does."""
+    forward for the softmax backward, as the JAX kernel does. ``opts`` is
+    (walk, score_act, bkg_score, eps, cdt, int8); the backward takes no
+    ``int8``."""
 
     @staticmethod
     def forward(ctx, opts, rec, rayo, rays, qq, wk, bk, *tensors):
@@ -470,23 +662,26 @@ class KeyStream(torch.autograd.Function):
         rec, rayo, rays, qq, wk, bk, raw, ss, *tensors = ctx.saved_tensors
         kwalk = walk_with(ctx.opts[0], tensors)
         return (None, *key_stream_bwd(rec, rayo, rays, qq, kwalk, wk, bk, raw,
-                                      ss, dattn, *ctx.opts[1:]))
+                                      ss, dattn, *ctx.opts[1:5]))
 
 
 def key_stream_scores_rec(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
                           score_act="relu", bkg_score=5.0, eps=1e-6,
-                          cdt=torch.float32):
+                          cdt=torch.float32, int8=False):
     """Differentiable rec-native key stream (JAX ``key_stream_scores_rec``):
     rec (K, T, rp) gathered k-major, rayo / rays (T, 3) (rays normalized),
-    qq (T, dm) -> attn (T, K+1) fp32, background token last."""
+    qq (T, dm) -> attn (T, K+1) fp32, background token last. ``int8``: the
+    forward walk in int8, the backward unchanged (straight-through)."""
     return KeyStream.apply((kwalk, score_act, float(bkg_score), float(eps),
-                            cdt), rec, rayo, rays, qq, wk, bk,
+                            cdt, bool(int8)), rec, rayo, rays, qq, wk, bk,
                            *walk_tensors(kwalk))
 
 
-def _value_math(rec, rayo, rays, attn, vwalk, normalize, eps, cdt):
+def _value_math(rec, rayo, rays, attn, vwalk, normalize, eps, cdt,
+                int8=False):
     K = rec.shape[0]
-    y = _walk_rec(rec, rayo, rays, vwalk, eps, cdt, detach_pos=False)
+    y = _walk_rec(rec, rayo, rays, vwalk, eps, cdt, detach_pos=False,
+                  int8=int8)
     y = y.to(cdt).float()                                     # (K, T, C)
     w = attn[:, :K]
     if normalize:
@@ -496,11 +691,13 @@ def _value_math(rec, rayo, rays, attn, vwalk, normalize, eps, cdt):
 
 
 def value_stream_plain(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
-                       eps=1e-6, cdt=torch.float32):
+                       eps=1e-6, cdt=torch.float32, int8=False):
     """Plain PyTorch version of the value stream forward: rec (K, T, rp),
-    attn (T, K+1) -> fused (T, C) fp32."""
+    attn (T, K+1) -> fused (T, C) fp32. ``int8``: the int8 walk,
+    self-calibrated (``value_stream_fwd``)."""
     value_stream_plain.calls += 1
-    return _value_math(rec, rayo, rays, attn, vwalk, normalize, eps, cdt)
+    return _value_math(rec, rayo, rays, attn, vwalk, normalize, eps, cdt,
+                       int8)
 
 
 value_stream_plain.calls = 0
@@ -521,12 +718,14 @@ value_stream_bwd_plain.calls = 0
 
 
 def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
-                     eps=1e-6, cdt=torch.float32):
+                     eps=1e-6, cdt=torch.float32, int8=False):
     """Value stream forward -> fused (T, C) fp32: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. ``int8=True``
+    (``tpu.int8_train``): the walk's dense stack in int8, calibrated on this
+    call's own record (the kernel ``value_stream_i8_fwd``)."""
     if not rec.is_cuda:
         return value_stream_plain(rec, rayo, rays, attn, vwalk, normalize,
-                                  eps, cdt)
+                                  eps, cdt, int8)
     from ..kernels import build
 
     check_walk_for_kernel(vwalk, cdt, "value stream")
@@ -537,21 +736,40 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
     dev = rec.device
     rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
     attn = attn.float().contiguous()
-    vmeta, vw, vb, vln, vplan, _ = pack_walk(vwalk, len(vwalk.cols), dev)
+    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev)
     fused = torch.empty(T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32,
                         device=dev)
-    rc = build.load().papr_value_stream_fwd(
-        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
-        attn.data_ptr(), ctypes.cast(c_ints(vmeta), ctypes.c_void_p),
-        vw.data_ptr(), vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(),
-        int(bool(normalize)), float(eps), fused.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "papr_value_stream_fwd")
-    value_stream_fwd.launches += 1
+    args = (rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+            attn.data_ptr(), ctypes.cast(c_ints(vmeta), ctypes.c_void_p),
+            vw.data_ptr(), vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(),
+            int(bool(normalize)), float(eps), fused.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = build.load()
+    if int8:
+        qp = pack_walk_q(calibrate_walk(rec, rayo, rays, vwalk, eps, cdt),
+                         vpd, dev)
+        rc = lib.papr_value_stream_i8_fwd(*args, *(t.data_ptr() for t in qp),
+                                          stream)
+        build.check(rc, "papr_value_stream_i8_fwd")
+        value_stream_i8_fwd.launches += 1
+    else:
+        build.check(lib.papr_value_stream_fwd(*args, stream),
+                    "papr_value_stream_fwd")
+        value_stream_fwd.launches += 1
     return fused
 
 
 value_stream_fwd.launches = 0
+
+
+def value_stream_i8_fwd(*args, **kwargs):
+    """``value_stream_fwd`` with the walk in int8 (the kernel
+    ``value_stream_i8_fwd`` in ``csrc/value_stream.cu``); ``launches``
+    counts that kernel's launches."""
+    return value_stream_fwd(*args, int8=True, **kwargs)
+
+
+value_stream_i8_fwd.launches = 0
 
 
 def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
@@ -606,7 +824,8 @@ value_stream_bwd.launches = 0
 
 
 class ValueStream(torch.autograd.Function):
-    """``value_stream_fuse_rec`` with its backward."""
+    """``value_stream_fuse_rec`` with its backward. ``opts`` is (walk,
+    normalize, eps, cdt, int8); the backward takes no ``int8``."""
 
     @staticmethod
     def forward(ctx, opts, rec, rayo, rays, attn, *tensors):
@@ -620,15 +839,17 @@ class ValueStream(torch.autograd.Function):
         rec, rayo, rays, attn, *tensors = ctx.saved_tensors
         vwalk = walk_with(ctx.opts[0], tensors)
         return (None, *value_stream_bwd(rec, rayo, rays, attn, vwalk, dfused,
-                                        *ctx.opts[1:]))
+                                        *ctx.opts[1:4]))
 
 
 def value_stream_fuse_rec(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
-                          eps=1e-6, cdt=torch.float32):
+                          eps=1e-6, cdt=torch.float32, int8=False):
     """Differentiable rec-native value stream (JAX ``value_stream_fuse_rec``):
-    rec (K, T, rp), attn (T, K+1) -> fused (T, C) fp32."""
-    return ValueStream.apply((vwalk, bool(normalize), float(eps), cdt), rec,
-                             rayo, rays, attn, *walk_tensors(vwalk))
+    rec (K, T, rp), attn (T, K+1) -> fused (T, C) fp32. ``int8``: the
+    forward walk in int8, the backward unchanged (straight-through)."""
+    return ValueStream.apply((vwalk, bool(normalize), float(eps), cdt,
+                              bool(int8)), rec, rayo, rays, attn,
+                             *walk_tensors(vwalk))
 
 
 # ------------------------------------------------- query-folded key stream ----

@@ -25,8 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..model.papr import (composite_background, evaluate, forward,
-                          model_meta, render_foreground)
+from ..model.papr import (composite_background, eval_quant_params, evaluate,
+                          forward, model_meta, render_foreground)
 from ..nn.activations import build_activation
 from ..nn.mlp import policy_from_config
 from ..ops.geometry import get_rays
@@ -112,11 +112,22 @@ def _tiled_render_body(params, state, cfg, policy, rayo, rayd_tiles,
     meta = model_meta(cfg)
     N, ty, tx, th, tw, _ = rayd_tiles.shape
     flat = rayd_tiles.reshape(N, ty * tx, th, tw, 3)
+    # tpu.int8_eval: calibrate and quantize the walks ONCE per frame, on
+    # ~1024 strided rays of all tiles, not inside every tile's call
+    # (papr_tpu/train/step.py:209-219).
+    qp = None
+    if (bool(cfg.get_path("tpu.int8_eval", False))
+            and bool(cfg.get_path("tpu.eval_fused", True))):
+        all_rays = flat.reshape(-1, 3)
+        qp = eval_quant_params(params, state, cfg, rayo[0],
+                               all_rays[::max(1, all_rays.shape[0] // 1024)],
+                               policy=policy)
     fs, ats, sels = [], [], []
     for n in range(N):
         for t in range(ty * tx):
             out = evaluate(params, state, cfg, rayo[n:n + 1], flat[n, t][None],
-                           policy=policy, with_selected=extras)
+                           policy=policy, with_selected=extras,
+                           quant_params=qp)
             fs.append(out[0][0])
             ats.append(out[1][0])
             if extras:

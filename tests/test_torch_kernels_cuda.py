@@ -596,3 +596,231 @@ def test_stream_modes_training_step_on_card(dev, tpu, n_embed):
     assert [p.calls for p in plains] == before[1]
     assert fm.fused_mlp.launches == before[2] + n_embed
     assert fm.fused_mlp_bwd.launches == before[3] + n_embed
+
+
+# ------------------------------------------------------------ int8 walks ----
+# The int8 kernels (``attend_eval_i8``, ``key_stream_i8_fwd``,
+# ``value_stream_i8_fwd``; ``tpu.int8_eval`` / ``tpu.int8_train``) against
+# their plain versions on the same quantization. The integer products are
+# exact on both sides; they differ where an fp32 activation lands within an
+# ulp of a rounding boundary (``sincosf`` against ``torch.sin``, LayerNorm
+# summation order) and one quantized value flips by 1. Sound readings: fused
+# <= 3.7e-4, attn max abs <= 4.5e-5 (self-calibrated), raw 5.8e-4. Planted
+# faults: a layer quantizing the bf16-rounded activation reads attn 5.5e-3 to
+# 1.4e-2 and raw 1.3e-2; truncation instead of rounding fused 2.9e-2 and up;
+# the clamp at 128, a neighbour layer's dq and the bias before the
+# dequantization 4e-2 and up (PERF.md, Findings).
+
+I8_FUSED_REL = 2e-3
+I8_RAW_REL = 5e-3
+
+def _idx_form(rec):
+    """(K, T, rp) gathered records as the (P, rp) record + (T, K) indices the
+    index form takes."""
+    K, T, rp = rec.shape
+    idx = torch.arange(K * T, dtype=torch.int32, device=rec.device)
+    return rec.reshape(K * T, rp), idx.reshape(K, T).T.contiguous()
+
+
+@pytest.mark.parametrize("carried", [False, True],
+                         ids=["self-calibrated", "quant_params"])
+@pytest.mark.parametrize("T,K", [(256, 20), (100, 4)])
+def test_attend_eval_i8_kernel_matches_plain(dev, T, K, carried):
+    """Row 4q; T = 100 leaves an overhang tile. ``quant_params`` calibrated on
+    records pulled towards the rays, so some activations clip at +-127 (pulled
+    to 0.7 the key walk saturates, its output LayerNorm divides by a small
+    deviation and one flip moves an attention weight by 5.4e-3)."""
+    rng = np.random.default_rng(21)
+    rec, rayo, rays, qq, kw, vw, wk, bk = _stream_case(rng, dev, T, K)
+    qp = None
+    if carried:
+        near = rec.clone()
+        near[..., :3] *= 0.9
+        qp = tuple(sa.calibrate_walk(near, rayo, rays, w, 1e-6, torch.bfloat16)
+                   for w in (kw, vw))
+    record, idx = _idx_form(rec)
+    args = (record, idx, rayo, rays, qq, kw, wk, bk, vw, "relu", 5.0, True,
+            1e-6, torch.bfloat16, True, qp)
+    before = (sa.attend_eval_i8.launches, sa.attend_eval_idx.launches,
+              sa.attend_eval_plain.calls)
+    fg, ag = sa.attend_eval_idx(*args)
+    assert (sa.attend_eval_i8.launches, sa.attend_eval_idx.launches,
+            sa.attend_eval_plain.calls) == (before[0] + 1, before[1],
+                                            before[2])
+    fw, aw = sa.attend_eval_plain(*args)
+    print(f"attend_eval_i8 T={T} K={K} carried={carried}: fused rel "
+          f"{_rel(fg, fw):.3e}, attn max abs {float((ag - aw).abs().max()):.3e}")
+    assert _rel(fg, fw) <= I8_FUSED_REL
+    assert float((ag - aw).abs().max()) <= 5e-3
+    assert torch.isfinite(fg).all() and torch.isfinite(ag).all()
+    assert float(ag[5, K]) == 1.0 and float(fg[5].abs().max()) == 0.0
+    # not the bf16 kernel
+    fb, _ = sa.attend_eval_idx(*args[:-2])
+    assert _rel(fg, fb) > 1e-4
+
+
+@pytest.mark.parametrize("T,K", [(256, 20), (100, 4)])
+def test_key_stream_i8_kernel_matches_plain(dev, T, K):
+    """Row 5q forward, then the unchanged backward kernel on the int8
+    forward's saved dots and scores against the plain backward given the same
+    dots (the bf16 recompute, straight-through)."""
+    rng = np.random.default_rng(22)
+    rec, rayo, rays, qq, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    args = (rec, rayo, rays, qq, kw, wk, bk)
+    opts = ("relu", 5.0, 1e-6, torch.bfloat16)
+    before = (sa.key_stream_i8_fwd.launches, sa.key_stream_fwd.launches,
+              sa.key_stream_plain.calls)
+    attn, raw, ss = sa.key_stream_fwd(*args, *opts, int8=True)
+    assert (sa.key_stream_i8_fwd.launches, sa.key_stream_fwd.launches,
+            sa.key_stream_plain.calls) == (before[0] + 1, before[1],
+                                           before[2])
+    attn_p, raw_p, _ = sa.key_stream_plain(*args, *opts, int8=True)
+    print(f"key_stream_i8_fwd T={T} K={K}: attn max abs "
+          f"{float((attn - attn_p).abs().max()):.3e}, raw rel "
+          f"{_rel(raw, raw_p):.3e}")
+    assert float((attn - attn_p).abs().max()) <= 5e-3
+    assert _rel(raw, raw_p) <= I8_RAW_REL
+    alive = (rec[..., 4] > 0.5).T
+    assert torch.equal(ss, torch.where(alive, torch.clamp_min(raw, 0.0)
+                                       * rec[..., 3].T, sa.NEG_BIG))
+    assert float(attn[5, K]) == 1.0
+    raw_b = sa.key_stream_fwd(*args, *opts)[1]
+    assert _rel(raw, raw_b) > 1e-4                        # not the bf16 kernel
+    dattn = torch.as_tensor(rng.normal(size=(T, K + 1)).astype(np.float32),
+                            device=dev)
+    got = sa.key_stream_bwd(*args, raw, ss, dattn, *opts)
+    want = sa.key_stream_bwd_plain(*args, dattn, *opts, relu_on=raw > 0,
+                                   raw_saved=raw)
+    _close_all(_rec_lanes(got), _rec_lanes(want), BWD_REL,
+               f"key_stream_bwd after the int8 forward T={T}")
+
+
+@pytest.mark.parametrize("T,K,normalize", [(256, 20, True), (100, 4, False)])
+def test_value_stream_i8_kernel_matches_plain(dev, T, K, normalize):
+    """Row 6q forward."""
+    rng = np.random.default_rng(23)
+    rec, rayo, rays, _, _, vw, _, _ = _stream_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    args = (rec, rayo, rays, attn, vw)
+    opts = (normalize, 1e-6, torch.bfloat16)
+    before = (sa.value_stream_i8_fwd.launches, sa.value_stream_fwd.launches,
+              sa.value_stream_plain.calls)
+    fused = sa.value_stream_fwd(*args, *opts, int8=True)
+    assert (sa.value_stream_i8_fwd.launches, sa.value_stream_fwd.launches,
+            sa.value_stream_plain.calls) == (before[0] + 1, before[1],
+                                             before[2])
+    fused_p = sa.value_stream_plain(*args, *opts, int8=True)
+    print(f"value_stream_i8_fwd T={T} K={K}: fused rel "
+          f"{_rel(fused, fused_p):.3e}")
+    assert _rel(fused, fused_p) <= I8_FUSED_REL
+    assert float(fused[5].abs().max()) == 0.0
+    assert _rel(fused, sa.value_stream_fwd(*args, *opts)) > 1e-4
+
+
+def _bench_tool():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "torch_int8_walk_microbench.py")
+    spec = importlib.util.spec_from_file_location("torch_int8_walk_microbench",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("layers", [3, 8])
+def test_int8_walk_bench_kernels_match_plain(dev, layers):
+    """Row 12: the microbenchmark's four variants against their plain
+    versions, 212 rows (an overhang tile). ``int8raw`` is integers all the
+    way: equal. The scaled variants take the same fp32 operations in the same
+    order as their plain versions; bf16 differs by summation order."""
+    mb = _bench_tool()
+    x = torch.randn(212, mb.D, generator=torch.Generator().manual_seed(5)
+                    ).to(dev)
+    ws, bs = mb.make_weights(layers, dev)
+    bs = tuple(b + 0.05 for b in bs)
+    for kind, tol in (("bf16", 1e-2), ("int8", 1e-5), ("int8s", 1e-5),
+                      ("int8raw", 0.0)):
+        n = mb.int8_walk_bench.launches, mb.walk_bench_plain.calls
+        got = mb.int8_walk_bench(kind, x, ws, bs, 0.25)
+        assert (mb.int8_walk_bench.launches, mb.walk_bench_plain.calls) == (
+            n[0] + 1, n[1])
+        want = mb.walk_bench_plain(kind, x, ws, bs, 0.25)
+        assert got.shape == want.shape == (212, mb.D)
+        assert float(want.abs().max()) > 0
+        print(f"int8_walk_bench {kind} layers={layers}: rel "
+              f"{_rel(got, want):.3e}, equal {torch.equal(got, want)}")
+        assert _rel(got, want) <= tol, kind
+
+
+def _small_model(dev, **tpu):
+    cfg = load_config(overrides={
+        "use_amp": True, "max_num_pts": 2048,
+        "geoms": {"points": {"init_num": 2000, "select_k": 8}},
+        "tpu": {"topk_impl": "cull", "fused_attn": "streamrec", **tpu}})
+    params, state = create_model(cfg, seed=0, device=dev)
+    params["points_influ_scores"].normal_()
+    return cfg, params, state
+
+
+def test_int8_frame_on_card_launch_counts(dev):
+    """``int8_eval``: a 64 x 64 frame in 32 x 32 tiles launches the int8
+    one-shot kernel once per tile and the bf16 one never, calibrates once,
+    runs no plain version, and stays close to the bf16 frame."""
+    from papr_tpu_torch.model import papr as tpapr
+    cfg, params, state = _small_model(dev, int8_eval=True)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 35.0
+    before = (sa.attend_eval_i8.launches, sa.attend_eval_idx.launches,
+              sa.attend_eval_plain.calls, tpapr.eval_quant_params.calls,
+              sa.walk_amax.calls)
+    frame = render_frame(params, state, cfg, c2w, 60.0, 60.0, 64, 64, 32, 32)
+    after = (sa.attend_eval_i8.launches, sa.attend_eval_idx.launches,
+             sa.attend_eval_plain.calls, tpapr.eval_quant_params.calls,
+             sa.walk_amax.calls)
+    assert [a - b for a, b in zip(after, before)] == [4, 0, 0, 1, 2]
+    cfg_b, _, _ = _small_model(dev)
+    want = render_frame(params, state, cfg_b, c2w, 60.0, 60.0, 64, 64, 32, 32)
+    assert frame.shape == (64, 64, 3) and frame.dtype == np.uint8
+    diff = np.abs(frame.astype(np.int16) - want.astype(np.int16))
+    print(f"int8 frame vs bf16 frame: max diff {int(diff.max())}, within "
+          f"2/255 {float((diff.max(-1) <= 2).mean()):.4f}")
+    assert float((diff.max(-1) <= 8).mean()) >= 0.99
+
+
+def test_int8_train_step_on_card_launch_counts(dev):
+    """``int8_train``: one forward + backward launches each int8 stream
+    forward once, the bf16 forwards never, the unchanged backwards once, and
+    no plain version."""
+    from papr_tpu_torch.model.papr import forward
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.train.optim import tree_leaves, tree_map
+    cfg, params, state = _small_model(dev, int8_train=True)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 35.0
+    rayo, rayd = get_rays_np(32, 32, 30.0, 30.0, c2w[None])
+    fns = (sa.key_stream_i8_fwd, sa.value_stream_i8_fwd, sa.key_stream_bwd,
+           sa.value_stream_bwd, sa.key_stream_fwd, sa.value_stream_fwd)
+    plains = (sa.key_stream_plain, sa.value_stream_plain,
+              sa.key_stream_bwd_plain, sa.value_stream_bwd_plain,
+              fm.fused_mlp_plain, fm.fused_mlp_bwd_plain)
+    before = [f.launches for f in fns], [p.calls for p in plains]
+    live = {k: tree_map(lambda t: t.detach().requires_grad_(True), v)
+            for k, v in params.items()}
+    out = forward(live, state, cfg, torch.as_tensor(rayo, device=dev),
+                  torch.as_tensor(rayd, device=dev),
+                  policy=policy_from_config(cfg))
+    leaves = tree_leaves(live["attn"]) + [live["points"],
+                                          live["points_influ_scores"],
+                                          live["pc_feats"]]
+    grads = torch.autograd.grad(out.square().mean(), leaves)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert all(float(g.abs().max()) > 0 for g in grads[-3:])
+    assert [f.launches - b for f, b in zip(fns, before[0])] == [1, 1, 1, 1,
+                                                                0, 0]
+    assert [p.calls for p in plains] == before[1]

@@ -10,8 +10,9 @@ For the sound sources and for each fault: the package, ``chip_smoke.py``, the
 configs and the tests are copied into a temporary directory, one line of
 a CUDA source under ``csrc/`` is replaced there, the
 kernels are rebuilt, and the phase-2 comparison that holds the kernel
-(``chip_smoke.compare_cli_kernels`` or, for the cases named "stream",
-``chip_smoke.compare_train_kernels``; the flagship patch) and the small-shape
+(``chip_smoke.compare_cli_kernels``; for the cases named "stream",
+``chip_smoke.compare_train_kernels``; for those named "int8",
+``chip_smoke.compare_int8_kernels``; the flagship patch) and the small-shape
 ``cuda`` tests of those kernels run on the copy.
 The readings are how the comparisons' bounds were set between the sound
 kernels and the weakest fault caught (PERF.md, Findings). The repository's
@@ -28,11 +29,34 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (name, the line to replace, its replacement); the first cases are the sound
 # sources. Cases named "topk" patch topk_stream.cu, "embedder bwd"
 # fused_mlp_bwd.cu, "encoding" walk.cuh, "stream feat key" key_stream_feat.cu,
-# "stream q" key_stream_q.cu, "stream shared" stream_common.cuh, the others
-# fused_attn.cu.
+# "stream q" key_stream_q.cu, "stream shared" stream_common.cuh, "int8 walk"
+# walk.cuh, "int8 bench" int8_walk_bench.cu, the others fused_attn.cu.
 MUTS = [
     ("sound", None, None),
     ("sound stream", None, None),
+    ("int8 sound", None, None),
+    ("int8 walk: truncation instead of round-to-nearest",
+     "  return (q8)__float2int_rn(t);", "  return (q8)__float2int_rz(t);"),
+    ("int8 walk: clamp at 128 (wraps to -128)",
+     "  const float t = fminf(fmaxf(__fmul_rn(h, inv), -127.f), 127.f);",
+     "  const float t = fminf(fmaxf(__fmul_rn(h, inv), -128.f), 128.f);"),
+    ("int8 walk: dq of the layer before",
+     "    const float* dq = q.dq[l];",
+     "    const float* dq = q.dq[l > 0 && d.pd[l] == d.pd[l + 1] ? l - 1 : l];"),
+    ("int8 walk: the next layer quantizes the bf16-rounded activation (a "
+     "rounding point)",
+     "    for (int e = 0; e < 8; ++e) q[e] = quantize_value(v[e], "
+     "inv_next[col + e]);",
+     "    for (int e = 0; e < 8; ++e) q[e] = quantize_value(bf16_round(v[e]), "
+     "inv_next[col + e]);"),
+    ("int8 walk: bias added before the dequantization",
+     "    v[e] = __fadd_rn(__fmul_rn((float)a[e], dq[col + e]), "
+     "bias[col + e]);",
+     "    v[e] = __fmul_rn(__fadd_rn((float)a[e], bias[col + e]), "
+     "dq[col + e]);"),
+    ("int8 bench: the dynamic scale divides the amax by 128",
+     "      if (lane == 0) sx[r] = __fdiv_rn(fmaxf(m, 1e-12f), 127.f);",
+     "      if (lane == 0) sx[r] = __fdiv_rn(fmaxf(m, 1e-12f), 128.f);"),
     ("stream feat key bwd: d_influ without the score relu",
      "        ds[i] * (score_relu ? fmaxf(rw, 0.f) : rw);",
      "        ds[i] * rw;"),
@@ -123,11 +147,17 @@ TARGETS = {
          "phase 2 value_stream_feat", "phase 2 key_stream_bwd",
          "phase 2 value_stream_fwd"),
         "key_stream or value_stream"),
+    "compare_int8_kernels": (
+        ("phase 2 attend_eval_i8", "phase 2 key_stream_i8",
+         "phase 2 value_stream_i8", "phase 2 int8_walk_bench"),
+        "i8 or int8"),
 }
 
 
 def target_of(name: str) -> str:
-    return ("compare_train_kernels" if "stream" in name.split(":")[0]
+    head = name.split(":")[0]
+    return ("compare_int8_kernels" if "int8" in head
+            else "compare_train_kernels" if "stream" in head
             else "compare_cli_kernels")
 
 
@@ -145,7 +175,7 @@ def main() -> None:
 def run_case(name, old, new) -> None:
     root = tempfile.mkdtemp(prefix="mut_")
     skip = shutil.ignore_patterns("_build", "__pycache__")
-    for d in ("papr_tpu_torch", "configs", "tests"):
+    for d in ("papr_tpu_torch", "configs", "tests", "tools"):
         shutil.copytree(os.path.join(REPO, d), os.path.join(root, d),
                         ignore=skip)
     for f in ("chip_smoke.py", "pytest.ini"):
@@ -158,7 +188,9 @@ def run_case(name, old, new) -> None:
                                       ("encoding", "walk.cuh"),
                                       ("stream feat key", "key_stream_feat.cu"),
                                       ("stream q", "key_stream_q.cu"),
-                                      ("stream shared", "stream_common.cuh"))
+                                      ("stream shared", "stream_common.cuh"),
+                                      ("int8 walk", "walk.cuh"),
+                                      ("int8 bench", "int8_walk_bench.cu"))
                     if word in name), "fused_attn.cu")
         p = os.path.join(root, "papr_tpu_torch", "csrc", src)
         s = open(p).read()
@@ -176,11 +208,17 @@ def run_case(name, old, new) -> None:
         print("  rc", r.returncode, r.stderr[-1500:], flush=True)
     t = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
-         "-p", "no:cacheprovider", "tests/test_torch_kernels_cuda.py", "-k",
+         "-s", "-p", "no:cacheprovider", "tests/test_torch_kernels_cuda.py",
+         "-k",
          tests, "--tb=line"],
         cwd=root, capture_output=True, text=True)
     for line in t.stdout.splitlines():
-        if "Error" in line:
+        line = line.lstrip(".FEs")        # -s: pytest's progress marks
+        if "Error" in line or (target == "compare_int8_kernels"
+                               and line.startswith(("attend_eval_i8",
+                                                    "key_stream_i8",
+                                                    "value_stream_i8",
+                                                    "int8_walk_bench"))):
             print("  cuda tests: " + line[:400], flush=True)
     print(f"  cuda tests: exit code {t.returncode}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
