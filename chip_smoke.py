@@ -84,7 +84,21 @@ Phases (each prints a line; any failure exits non-zero):
    take effect once (bit-equal, one warning or none, the bf16 kernels); the
    microbenchmark through its entry point; then one 32x32 ``int8_train`` step
    against the plain fp32 path.
-8. Print the kernels' JSON line (each kernel's launches on its main path,
+8. The fp32 walks (``use_amp: false``) on ``configs/t2/Caterpillar.yml``'s
+   model (merged onto ``configs/default.yml``: 5 x 256 key / query stacks,
+   the 8-layer value stack to 32, k_L [4,4,4], q_L [4], v_L [4,4], k = 20,
+   5,000 cube points in 30,000 slots, background 4, 180x180 patches, MSE +
+   1e-2 LPIPS) seen around ``dataset/synth.py``'s sphere: the fp32 kernels
+   (``fused_mlp_f32`` fwd / bwd, ``attend_eval_f32``, the key / value streams
+   fwd / bwd, ``wgrad_f32`` beside one ``torch.matmul``) against their plain
+   fp32 versions at its shapes, with what one TF32 pass would read; the first
+   step's loss and gradients against the plain fp32 path, then 1 + 10 steps
+   under ``auto`` (ms/step, rays/s, kernel time, idle share, peak memory,
+   exact launch counts: fp32 kernels only, no plain version); a step with
+   embedder dropout; one 800x800 serving frame and one tiled frame at 100x100
+   tiles, the serving frame against the plain fp32 frame; then
+   ``configs/demo.yml`` untouched through ``cli.train`` and ``cli.test``.
+9. Print the kernels' JSON line (each kernel's launches on its main path,
    error, time, plain version's time and bound), then the result line.
 
 Imports nothing of JAX. Weights are random, from fixed seeds.
@@ -218,6 +232,39 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 FP32_FLOPS = 67e12
+# The fp32 walks' products are 3xTF32: three products at the 494.7 TFLOP/s
+# dense TF32 peak for each fp32-accurate one, ~165 TFLOP/s.
+F32_TC_FLOPS = 494.7e12 / 3
+
+# Phase 8: the fp32 kernels against their plain fp32 versions (TF32 off, so
+# true fp32 products) on the same inputs. Both sides compute in fp32; the
+# kernels' 3xTF32 products (~2^-21 relative each) sum in another order, so
+# now and then a hidden relu's input lands on the other side of 0 in one of
+# them, which moves that token's gradient by O(1). The backwards are held
+# on the rays whose relu inputs all stay F32_MARGIN x rms away from 0
+# (``walk_relu_margin``; the cotangent is zero on the others); the key
+# stream's score relu is given the kernel forward's pattern. Planted faults
+# (tools/torch_plant_faults.py "fp32"; PERF.md, Findings) read above these;
+# phase 8 also prints what a single TF32 pass reads on the same inputs (the
+# plain version with TF32 on), which must exceed them.
+# Sound: forwards <= 1.03e-6, attn <= 7.6e-6, backwards <= 3.7e-5 (84-99 %
+# of the rays held), wgrad 1.2e-6. The weakest fault each comparison
+# catches: the products accumulated in the tensor cores' own accumulator
+# (forwards 2.3e-5, attn 7.0e-5, backwards 8.4e-4, wgrad 5.3e-4) and a bf16
+# stash (backwards 5.5e-4); one TF32 pass reads 2.9e-4 (wgrad) to 8.6e-4.
+F32_FWD_REL = 1e-5
+F32_ATTN_ABS = 3e-5
+F32_BWD_REL = 1e-4
+F32_MARGIN = 1e-5
+F32_WGRAD_REL = 1e-5           # against the fp64 product of the operands
+# The first training step, kernel path against the plain fp32 path, whole
+# model: the relu flips are in here.
+F32_STEP_LOSS_REL = 1e-4
+F32_STEP_GRAD_REL = 1e-2
+F32_FRAME_MIN_CLOSE = 0.999    # serving frame, pixels within 1/255
+F32_FRAME_PSNR = 50.0
+CATERPILLAR = "configs/t2/Caterpillar.yml"
+CAT_STEPS = 10
 
 H = W = 800
 FOCAL = 700.0
@@ -2533,6 +2580,504 @@ def train_reference_check(device, modes=REF_MODES, phase: int = 4,
                  "the plain path")
 
 
+# ------------------------------------------------------------- phase 8 ----
+
+def f32_counters():
+    """The fp32 kernels of the ``use_amp: false`` path, their bf16 twins
+    (which must not launch there) and every plain version."""
+    from papr_tpu_torch.ops import fused_mlp as fm
+    from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops import tile_cull as tc
+    f32 = {"cull_select": tc.cull_select, "fused_mlp_f32": fm.fused_mlp_f32,
+           "fused_mlp_bwd_f32": fm.fused_mlp_bwd_f32,
+           "attend_eval_f32": sa.attend_eval_f32,
+           "key_stream_f32_fwd": sa.key_stream_f32_fwd,
+           "key_stream_f32_bwd": sa.key_stream_f32_bwd,
+           "value_stream_f32_fwd": sa.value_stream_f32_fwd,
+           "value_stream_f32_bwd": sa.value_stream_f32_bwd,
+           "wgrad_f32": fm.wgrad_f32}
+    bf16 = {"fused_mlp": fm.fused_mlp, "fused_mlp_bwd": fm.fused_mlp_bwd,
+            "attend_stream_eval": sa.attend_eval_idx,
+            "key_stream_fwd": sa.key_stream_fwd,
+            "key_stream_bwd": sa.key_stream_bwd,
+            "value_stream_fwd": sa.value_stream_fwd,
+            "value_stream_bwd": sa.value_stream_bwd, "wgrad": fm.wgrad}
+    return f32, bf16, counters()[1]
+
+
+def caterpillar_cfg(over=None, **tpu):
+    """``configs/t2/Caterpillar.yml`` merged onto ``configs/default.yml`` as
+    the loader merges them, with ``over`` and ``tpu`` on top."""
+    from papr_tpu_torch.config import load_config, merge_config
+    o = {"tpu": {"ray_chunk": 4096, **tpu}}
+    if over:
+        merge_config(o, over)
+    return load_config(CATERPILLAR, overrides=o)
+
+
+def sphere_view(cfg, device, theta: float = 0.6):
+    """``dataset/synth.py``'s sphere seen at 800x800 (focal 700) from an orbit
+    camera at 4 scene units, its position scaled by ``coord_scale`` as the
+    loader scales it: (c2w in the model's coordinates, rays_o (1, 3), rays_d
+    (1, H, W, 3), the sphere's RGB on white (1, H, W, 3)), on the card."""
+    import torch
+    from papr_tpu_torch.dataset.synth import _look_at, render_sphere
+    from papr_tpu_torch.ops.geometry import get_rays
+    c2w = _look_at(4.0 * np.array([np.sin(theta), 0.35, np.cos(theta)]))
+    rgba = render_sphere(c2w, H, W, FOCAL)
+    rgb = rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:])
+    c2w[:3, 3] *= float(cfg.dataset.coord_scale)
+    rayo, rayd = get_rays(H, W, torch.as_tensor(c2w, device=device),
+                          torch.tensor([FOCAL, FOCAL], device=device))
+    return (c2w, rayo, rayd[None].contiguous(),
+            torch.as_tensor(rgb[None].astype(np.float32), device=device))
+
+
+def crop(t, side: int):
+    """The central side x side crop of a (1, H, W, c) tensor."""
+    r0 = (H - side) // 2
+    return t[:, r0:r0 + side, r0:r0 + side].contiguous()
+
+
+def tf32_reading(fn, want) -> float:
+    """What a single TF32 pass reads: ``fn`` (a plain fp32 version) with
+    TF32 products on, its relative Frobenius error against ``want``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return rel_fro(got, want)
+
+
+def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
+                        n_time: int = 3) -> list:
+    """Phase 8: each fp32 kernel against its plain fp32 version at
+    Caterpillar's shapes: the query embedder on the frame's 640,000 rays,
+    its backward, the one-shot eval attention and the key / value streams
+    (forward and backward) on the 180x180 patch (T = 32,400, K = 20), and
+    the dW reduction on the key stack's (K * T, 256) x (K * T, 256)."""
+    import torch
+    from papr_tpu_torch.kernels import build
+    from papr_tpu_torch.ops import fused_mlp as fm
+    from papr_tpu_torch.ops import stream_attn as sa
+
+    f32 = torch.float32
+    k = int(cfg.geoms.points.select_k)
+    eps = float(cfg.eps)
+    score_act = cfg.models.attn.score_act
+    bkg = float(cfg.geoms.background.constant)
+    normalize = bool(cfg.models.normalize_topk_attn)
+    gen = torch.Generator(device=device).manual_seed(8)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    results, failed = [], []
+
+    def firm(cot, margin, what):
+        """The cotangent with the rows whose relu margin is under
+        F32_MARGIN zeroed."""
+        keep = margin >= F32_MARGIN
+        print(f"phase 8 {what}: rows held (relu margin >= {F32_MARGIN}) "
+              f"{float(keep.float().mean()):.4f}", flush=True)
+        return torch.where(keep[:, None], cot, 0.0)
+
+    def record(name, source, replaces, fn, plain, tol, labels, in_bytes,
+               flops, tf32=None, attn_tol=None, library=None):
+        g, w = fn(), plain()
+        torch.cuda.synchronize()
+        rels = _rels(g, w)
+        finite = all(bool(torch.isfinite(t).all()) for t in g)
+        ms, p_ms = cuda_ms(fn, n_time), cuda_ms(plain, 1)
+        work = bound(in_bytes + nbytes(*g), flops, F32_TC_FLOPS)
+        if library is not None:
+            work["library_ms"] = cuda_ms(library, n_time)
+        worst = max(rels)
+        line = (f"phase 8 {name}: rel Frobenius "
+                + ", ".join(f"{l} {r:.2e}" for l, r in zip(labels, rels))
+                + f" (max {worst:.3e}, need <= {tol}); finite {finite}")
+        ok = finite and worst <= tol and len(rels) == len(labels)
+        if attn_tol is not None:
+            a_abs = float((g[0] - w[0]).abs().max())
+            line += f"; attn max abs {a_abs:.3e} (need <= {attn_tol})"
+            ok &= a_abs <= attn_tol
+        if tf32 is not None:
+            t = tf32()
+            line += (f"; one TF32 pass would read {t:.3e} (need > {tol}, the "
+                     "bound catches it)")
+            ok &= t > tol
+        line += (f"; kernel {ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                 f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
+        if library is not None:
+            line += f", torch.matmul {work['library_ms']:.3f} ms"
+        print(line, flush=True)
+        if not ok:
+            failed.append(name)
+        results.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "max_abs_err": _max_abs(g, w),
+                        "max_rel_err": worst, "ms": ms, "plain_ms": p_ms,
+                        **work})
+        return g
+
+    # Row 2: the query embedder on the frame's rays.
+    qwalk = query_walk(params, cfg)
+    x = rayd.reshape(-1, 3).contiguous()
+    record("fused_mlp_f32", "papr_tpu_torch/csrc/fused_mlp.cu",
+           "papr_tpu/ops/fused_mlp.py:417",
+           lambda: [fm.fused_mlp_f32(x, qwalk)],
+           lambda: [fm.fused_mlp_plain(x, qwalk, f32)], F32_FWD_REL, ["y"],
+           nbytes(x) + walk_bytes(qwalk), x.shape[0] * walk_flops(qwalk),
+           tf32=lambda: tf32_reading(lambda: fm.fused_mlp_plain(x, qwalk, f32),
+                                     fm.fused_mlp_plain(x, qwalk, f32)))
+    # Row 3 on the patch's rays.
+    T = patch * patch
+    xp = crop(rayd, patch).reshape(T, 3)
+    dy = firm(randn(T, int(qwalk.ws[-1].shape[1])),
+              fm.walk_relu_margin(fm.encode_plain(xp, qwalk.cols), qwalk),
+              "fused_mlp_bwd_f32")
+    record("fused_mlp_bwd_f32", "papr_tpu_torch/csrc/fused_mlp_bwd.cu",
+           "papr_tpu/ops/fused_mlp.py:424",
+           lambda: (lambda r: [r[0]] + r[1])(fm.fused_mlp_bwd_f32(xp, dy,
+                                                                  qwalk)),
+           lambda: (lambda r: [r[0]] + r[1])(fm.fused_mlp_bwd_plain(
+               xp, dy, qwalk, f32)),
+           F32_BWD_REL, ["dx"] + walk_labels(qwalk),
+           nbytes(xp, dy) + walk_bytes(qwalk), 3 * T * walk_flops(qwalk))
+
+    idx, record_, rec, rayo_f, rays, rayd_f, qq, kwalk, vwalk = \
+        stream_patch_inputs(params, state, cfg, rayo, crop(rayd, patch))
+    wk, bk = params["attn"]["w_k"]["w"], params["attn"]["w_k"]["bias"]
+    # Row 4 on the patch (the one-shot eval attention reads the record by
+    # index).
+    eargs = (record_, idx, rayo_f, rays, qq, kwalk, wk, bk, vwalk, score_act,
+             bkg, normalize, eps)
+    e_flops = T * k * walk_flops(kwalk, wk, vwalk)
+    record("attend_eval_f32", "papr_tpu_torch/csrc/attend_eval.cu",
+           "papr_tpu/ops/stream_attn.py:1856",
+           lambda: list(sa.attend_eval_f32(*eargs)),
+           lambda: list(sa.attend_eval_plain(*eargs, f32)), F32_FWD_REL,
+           ["fused", "attn"],
+           nbytes(record_, idx, rayo_f, rays, qq) + walk_bytes(kwalk, vwalk),
+           e_flops, attn_tol=F32_ATTN_ABS,
+           tf32=lambda: tf32_reading(
+               lambda: sa.attend_eval_plain(*eargs, f32)[0],
+               sa.attend_eval_plain(*eargs, f32)[0]))
+    # Rows 5 and 6, forward and backward.
+    kargs = (rec, rayo_f, rays, qq, kwalk, wk, bk)
+    kopts = (score_act, bkg, eps)
+    attn, raw = record(
+        "key_stream_f32_fwd", "papr_tpu_torch/csrc/key_stream.cu",
+        "papr_tpu/ops/stream_attn.py:798",
+        lambda: list(sa.key_stream_f32_fwd(*kargs, *kopts))[:2],
+        lambda: list(sa.key_stream_plain(*kargs, *kopts, f32))[:2],
+        F32_FWD_REL, ["attn", "raw"],
+        nbytes(rec, rayo_f, rays, qq) + walk_bytes(kwalk),
+        T * k * walk_flops(kwalk, wk), attn_tol=F32_ATTN_ABS)
+    ss = sa.key_stream_f32_fwd(*kargs, *kopts)[2]
+    dattn = firm(randn(T, k + 1),
+                 sa.rec_relu_margin(rec, rayo_f, rays, kwalk, eps),
+                 "key_stream_f32_bwd")
+    record("key_stream_f32_bwd", "papr_tpu_torch/csrc/key_stream.cu",
+           "papr_tpu/ops/stream_attn.py:835",
+           lambda: rec_lanes(sa.key_stream_f32_bwd(*kargs, raw, ss, dattn,
+                                                   *kopts)),
+           lambda: rec_lanes(sa.key_stream_bwd_plain(
+               *kargs, dattn, *kopts, f32, relu_on=raw > 0)),
+           F32_BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "dqq", "dW_k", "db_k"]
+           + walk_labels(kwalk),
+           nbytes(rec, rayo_f, rays, qq, raw, ss, dattn) + walk_bytes(kwalk),
+           3 * T * k * walk_flops(kwalk, wk))
+    vargs = (rec, rayo_f, rays, attn, vwalk)
+    record("value_stream_f32_fwd", "papr_tpu_torch/csrc/value_stream.cu",
+           "papr_tpu/ops/stream_attn.py:1601",
+           lambda: [sa.value_stream_f32_fwd(*vargs, normalize, eps)],
+           lambda: [sa.value_stream_plain(*vargs, normalize, eps, f32)],
+           F32_FWD_REL, ["fused"],
+           nbytes(rec, rayo_f, rays, attn) + walk_bytes(vwalk),
+           T * k * walk_flops(vwalk))
+    dfused = firm(randn(T, int(vwalk.ws[-1].shape[1])),
+                  sa.rec_relu_margin(rec, rayo_f, rays, vwalk, eps),
+                  "value_stream_f32_bwd")
+    record("value_stream_f32_bwd", "papr_tpu_torch/csrc/value_stream.cu",
+           "papr_tpu/ops/stream_attn.py:1634",
+           lambda: rec_lanes(sa.value_stream_f32_bwd(*vargs, dfused,
+                                                     normalize, eps)),
+           lambda: rec_lanes(sa.value_stream_bwd_plain(*vargs, dfused,
+                                                       normalize, eps, f32)),
+           F32_BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "d_attn"]
+           + walk_labels(vwalk),
+           nbytes(rec, rayo_f, rays, attn, dfused) + walk_bytes(vwalk),
+           3 * T * k * walk_flops(vwalk))
+    del rec, record_, vargs, kargs, eargs
+    torch.cuda.empty_cache()
+
+    # The dW reduction on the key stack's stash shapes, fp32 operands,
+    # against their fp64 product, beside one torch.matmul (fp32).
+    N, D = k * T, int(kwalk.ws[1].shape[0])
+    hmat, dz = randn(N, D), randn(N, D)
+    lib = build.load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    record("wgrad_f32", "papr_tpu_torch/csrc/wgrad.cu",
+           "papr_tpu/ops/fused_mlp.py:424 (the dW accumulation of every TPU "
+           "backward body)",
+           lambda: [fm.wgrad_f32(lib, hmat.data_ptr(), dz.data_ptr(), N, D, D,
+                                 device, stream)],
+           lambda: [(hmat.double().T @ dz.double()).float()], F32_WGRAD_REL,
+           ["dW"], nbytes(hmat, dz), 2.0 * N * D * D,
+           library=lambda: torch.matmul(hmat.T, dz),
+           tf32=lambda: tf32_reading(lambda: torch.matmul(hmat.T, dz),
+                                     (hmat.double().T @ dz.double()).float()))
+    del hmat, dz
+    torch.cuda.empty_cache()
+    if failed:
+        fail(f"fp32 kernels disagree with their plain versions: {failed}")
+    return results
+
+
+def drive_fp32_path(device) -> dict:
+    """Phase 8: Caterpillar's model under ``use_amp: false`` and
+    ``fused_attn: auto`` on the card. Kernels against their plain versions,
+    the first step against the plain fp32 path, timed steps, a dropout step,
+    the serving and tiled frames; counters reset just before each timed part
+    and read just after."""
+    import torch
+    from papr_tpu_torch.model.papr import _kernel_mode
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops.geometry import get_rays_np
+    from papr_tpu_torch.train.losses import build_loss
+    from papr_tpu_torch.train.optim import (build_group_specs, tree_leaves,
+                                            tree_map)
+    from papr_tpu_torch.train.step import (loss_and_grads, make_opt_state,
+                                           make_train_step, render_frames,
+                                           render_full_image)
+
+    cfg = caterpillar_cfg()
+    policy = policy_from_config(cfg)
+    patch = int(cfg.dataset.patches.height)
+    k = int(cfg.geoms.points.select_k)
+    e = cfg.models.attn.embed
+    print(f"phase 8 config: {CATERPILLAR} on configs/default.yml: use_amp "
+          f"{cfg.use_amp} (compute {policy.compute_dtype}), fused_attn "
+          f"{cfg.get_path('tpu.fused_attn', 'auto')} -> "
+          f"{_kernel_mode(cfg, k, device, policy.compute_dtype)}, k {k}, "
+          f"{cfg.geoms.points.init_num} {cfg.geoms.points.init_type} points "
+          f"in {cfg.max_num_pts} slots, key / query {e.key.n_ff_layer} x "
+          f"{e.key.d_ff}, value {e.value.n_ff_layer} layers to "
+          f"{e.value.d_ff_out}, k_L {list(e.k_L)} q_L {list(e.q_L)} v_L "
+          f"{list(e.v_L)}, background {cfg.geoms.background.constant}, "
+          f"{patch}x{patch} patches, losses {dict(cfg.training.losses)}; "
+          f"the card's fp32 tensor-core rate used for bounds: 3xTF32 at "
+          f"{F32_TC_FLOPS / 1e12:.1f} TFLOP/s", flush=True)
+    if cfg.use_amp or policy.compute_dtype != torch.float32 or k != 20 \
+            or patch != 180:
+        fail("Caterpillar's config is not the one phase 8 drives")
+    params, state = build_model(cfg, device)
+    c2w, rayo, rayd, target = sphere_view(cfg, device)
+    results = compare_f32_kernels(params, state, cfg, device, rayo, rayd,
+                                  patch)
+    rayd_p, target_p = crop(rayd, patch), crop(target, patch)
+    f32k, bf16k, plains = f32_counters()
+    specs = build_group_specs(cfg)
+    loss_fn = build_loss(cfg, policy, device=device)
+
+    # The first step's loss and gradients against the plain fp32 path on the
+    # same weights and selection.
+    cat = lambda g: {key: torch.cat([t.float().reshape(-1)
+                                     for t in tree_leaves(v)])
+                     for key, v in g.items()}
+    lk, _, gk = loss_and_grads(params, state, cfg, rayo, rayd_p, target_p, c2w,
+                               loss_fn, specs, policy)
+    gk = cat(gk)
+    lp, _, gp = loss_and_grads(params, state, caterpillar_cfg(fused_attn=False),
+                               rayo, rayd_p, target_p, c2w, loss_fn, specs,
+                               policy)
+    gp = cat(gp)
+    loss_rel = abs(float(lk) - float(lp)) / max(abs(float(lp)), 1e-30)
+    errs = {key: rel_fro(gk[key], gp[key]) for key in gp}
+    finite = bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all())
+                                              for g in gk.values())
+    print(f"phase 8 reference: {patch}x{patch} patch, one step, fp32 kernel "
+          f"path vs fp32 plain path: loss {float(lk):.6f} vs {float(lp):.6f} "
+          f"(rel {loss_rel:.3e}, need <= {F32_STEP_LOSS_REL}); gradient rel "
+          "Frobenius " + ", ".join(f"{key} {v:.3e}" for key, v in errs.items())
+          + f" (need <= {F32_STEP_GRAD_REL}); finite {finite}", flush=True)
+    if not (finite and loss_rel <= F32_STEP_LOSS_REL
+            and max(errs.values()) <= F32_STEP_GRAD_REL):
+        fail("the fp32 training step disagrees with the plain fp32 path")
+    del gk, gp
+    torch.cuda.empty_cache()
+
+    # 1 + 10 steps under auto.
+    step_fn = make_train_step(cfg, loss_fn)
+    opt = make_opt_state(cfg, params)
+    before = _snapshot(params, specs)
+    params, opt, loss, _ = step_fn(params, opt, state, rayo, rayd_p, target_p,
+                                   c2w, 1000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters({**f32k, **bf16k}, plains)
+    losses = [loss]
+    t0 = time.perf_counter()
+    for i in range(CAT_STEPS):
+        params, opt, loss, pred = step_fn(params, opt, state, rayo, rayd_p,
+                                          target_p, c2w, 1001 + i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / CAT_STEPS * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = {n: fn.launches for n, fn in f32k.items()}
+    twins = {n: fn.launches for n, fn in bf16k.items()}
+    calls = {n: fn.calls for n, fn in plains.items() if fn.calls}
+    moved = {key: any(not torch.equal(a, b) for a, b in
+                      zip(before[key], tree_leaves(params[key])))
+             for key in before}
+    losses = [float(l) for l in losses]
+    wall, idle, spans = device_profile(
+        lambda: step_fn(params, opt, state, rayo, rayd_p, target_p, c2w, 1500))
+    split, kernel_ms = (stage_split(spans, TRAIN_STAGES, 1, TRAIN_OTHER)
+                        if spans else ("not measured", float("nan")))
+    if spans:
+        split += "; largest unstaged: " + largest_unstaged(spans,
+                                                           TRAIN_STAGES, 1)
+    print(f"phase 8 train {patch}x{patch} patch (T={patch * patch} rays, "
+          f"k={k}, fp32): {step_ms:.1f} ms/step over {CAT_STEPS} steps = "
+          f"{patch * patch / (step_ms / 1e3):.0f} rays/s; peak device memory "
+          f"{peak_gb:.2f} GiB; losses " + ", ".join(f"{l:.6f}" for l in losses)
+          + f"; groups moved {moved}", flush=True)
+    print(f"phase 8 profile: one step, {wall:.1f} ms under the profiler; "
+          f"device idle share {idle:.4f}; kernel time {kernel_ms:.3f} ms: "
+          f"{split}", flush=True)
+    print(f"phase 8 launches {got}; bf16 twins {twins}; plain-version calls "
+          f"{calls}", flush=True)
+    per_step = {n: 0 if n == "attend_eval_f32" else CAT_STEPS
+                for n in got if n != "wgrad_f32"}
+    if any(got[n] != v for n, v in per_step.items()) \
+            or got["wgrad_f32"] < CAT_STEPS or max(twins.values()) != 0 \
+            or calls:
+        fail("the fp32 step did not run exactly its fp32 kernels")
+    if not (all(np.isfinite(losses)) and all(moved.values())):
+        fail(f"fp32 training: losses {losses}, groups moved {moved}")
+
+    # One step with embedder dropout (the plain path, as in the JAX package).
+    dcfg = caterpillar_cfg({"models": {"attn": {"embed": {
+        n: {"dropout_ff": 0.1} for n in ("key", "query", "value")}}}})
+    dstep = make_train_step(dcfg, loss_fn)
+    dp = {key: tree_map(torch.clone, v) for key, v in params.items()}
+    dp, _, dloss, _ = dstep(dp, make_opt_state(dcfg, dp), state, rayo,
+                            crop(rayd, 64), crop(target, 64), c2w, 2000)
+    torch.cuda.synchronize()
+    print(f"phase 8 dropout step (dropout_ff 0.1 in all three embedders, "
+          f"64x64 patch, the plain path): loss {float(dloss):.6f}", flush=True)
+    if not np.isfinite(float(dloss)):
+        fail("the dropout step failed")
+    del dp, dstep
+    torch.cuda.empty_cache()
+
+    # One serving frame (one full-frame tile) and one tiled frame.
+    reset_counters({**f32k, **bf16k}, plains)
+    t0 = time.perf_counter()
+    frame = next(render_frames(params, state, cfg, [c2w], FOCAL, FOCAL, H, W,
+                               H, W))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    frame = next(render_frames(params, state, cfg, [c2w], FOCAL, FOCAL, H, W,
+                               H, W))
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    served = {n: fn.launches for n, fn in f32k.items()}
+    rayo_np, rayd_np = get_rays_np(H, W, FOCAL, FOCAL, c2w[None])
+    t0 = time.perf_counter()
+    tiled = render_full_image(params, state, cfg, rayo_np, rayd_np, 100, 100,
+                              rgb_only=True, rgb_uint8=True)["rgb"][0]
+    tiled_ms = (time.perf_counter() - t0) * 1e3
+    frames_l = {n: fn.launches for n, fn in f32k.items()}
+    twins = {n: fn.launches for n, fn in bf16k.items()}
+    calls = {n: fn.calls for n, fn in plains.items() if fn.calls}
+    plain = next(render_frames(params, state, caterpillar_cfg(fused_attn=False),
+                               [c2w], FOCAL, FOCAL, H, W, 200, 200))
+    diff = np.abs(frame.astype(np.int16) - plain.astype(np.int16))
+    close = float((diff.max(-1) <= 1).mean())
+    mse = float(np.mean((frame.astype(np.float64) - plain) ** 2)) / 255 ** 2
+    psnr = float("inf") if mse == 0 else -10 * np.log10(mse)
+    t_diff = np.abs(tiled.astype(np.int16) - frame.astype(np.int16))
+    print(f"phase 8 render_frames {H}x{W} (one full-frame tile, fp32): first "
+          f"{first_ms:.1f} ms, then {frame_ms:.1f} ms/frame; render_full_image "
+          f"100x100 tiles: {tiled_ms:.1f} ms; serving frame vs the plain fp32 "
+          f"frame: PSNR {psnr:.2f} dB (need >= {F32_FRAME_PSNR}), pixels within "
+          f"1/255 {close:.6f} (need >= {F32_FRAME_MIN_CLOSE}), max diff "
+          f"{int(diff.max())}; tiled vs serving within 2/255 "
+          f"{float((t_diff.max(-1) <= 2).mean()):.6f}; launches: two serving "
+          f"frames {served}, then with the tiled frame {frames_l}; bf16 twins "
+          f"{twins}; plain-version calls {calls}", flush=True)
+    for i, fr in enumerate((frame, tiled)):
+        if fr.shape != (H, W, 3) or fr.dtype != np.uint8 \
+                or int(fr.max()) == int(fr.min()):
+            fail(f"fp32 frame {i}: {fr.shape} {fr.dtype}")
+    if served["attend_eval_f32"] != 2 or served["fused_mlp_f32"] != 2 \
+            or frames_l["attend_eval_f32"] != 2 + (H // 100) * (W // 100) \
+            or max(twins.values()) != 0 or calls:
+        fail("the fp32 frames did not run exactly their fp32 kernels")
+    if psnr < F32_FRAME_PSNR or close < F32_FRAME_MIN_CLOSE:
+        fail("the fp32 serving frame disagrees with the plain fp32 frame")
+    # Each fp32 kernel's launches on this path: the timed steps and frames.
+    launches = {n: got[n] + frames_l[n] for n in got if n != "cull_select"}
+    return {"results": results, "launches": launches, "step_ms": step_ms,
+            "frame_ms": frame_ms}
+
+
+def drive_demo_cli() -> None:
+    """Phase 8: ``configs/demo.yml`` untouched through the command-line
+    entry points, in process so the counters can be read: the procedural
+    scene as its header says, ``cli.train`` (60 steps with evals, prune and
+    grow), then ``cli.test``."""
+    import os
+    import shutil
+
+    import torch
+    from papr_tpu_torch.cli import test as cli_test
+    from papr_tpu_torch.cli import train as cli_train
+    from papr_tpu_torch.config import load_config
+
+    cfg = load_config("configs/demo.yml")
+    r = subprocess.run([sys.executable, "-m", "papr_tpu_torch.dataset.synth",
+                        "--out", cfg.dataset.path], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode:
+        fail(f"the demo scene: {r.stderr[-2000:]}")
+    shutil.rmtree(os.path.join(cfg.save_dir, cfg.index), ignore_errors=True)
+    f32k, bf16k, plains = f32_counters()
+    reset_counters({**f32k, **bf16k}, plains)
+    out, err = sys.stdout, sys.stderr
+    t0 = time.perf_counter()
+    try:
+        params, opt, state, hist = cli_train.main(["--opt", "configs/demo.yml"])
+        train_s = time.perf_counter() - t0
+        results = cli_test.main(["--opt", "configs/demo.yml"])
+    finally:
+        sys.stdout, sys.stderr = out, err
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0 - train_s
+    got = {n: fn.launches for n, fn in f32k.items()}
+    twins = {n: fn.launches for n, fn in bf16k.items()}
+    calls = {n: fn.calls for n, fn in plains.items() if fn.calls}
+    means = next(iter(results.values()))
+    print(f"phase 8 configs/demo.yml (use_amp {cfg.use_amp}, fused_attn "
+          f"{cfg.get_path('tpu.fused_attn', 'auto')}), untouched: cli.train "
+          f"{int(cfg.training.steps)} steps in {train_s:.1f} s, last train "
+          f"losses {[round(float(x), 6) for x in hist['train_losses'][-2:]]}, "
+          f"eval PSNR {[round(float(x), 3) for x in hist['eval_psnrs']]}; "
+          f"cli.test in {test_s:.1f} s: PSNR {means['psnr']:.4f}, SSIM "
+          f"{means['ssim']:.4f}; launches {got}; bf16 twins {twins}; "
+          f"plain-version calls {calls}", flush=True)
+    if not (np.isfinite(means["psnr"]) and all(np.isfinite(
+            hist["train_losses"]))):
+        fail("configs/demo.yml did not train and test")
+    if min(got[n] for n in ("fused_mlp_f32", "fused_mlp_bwd_f32",
+                            "key_stream_f32_fwd", "key_stream_f32_bwd",
+                            "value_stream_f32_fwd", "value_stream_f32_bwd",
+                            "attend_eval_f32", "wgrad_f32")) <= 0 \
+            or max(twins.values()) != 0 or calls:
+        fail("configs/demo.yml did not run on the fp32 kernels alone")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2585,11 +3130,14 @@ def main() -> None:
     train_reference_check(device, REF_STREAM_MODES, phase=6)
     int8 = drive_int8_paths(device, cli.pop("model"))
     train_reference_check(device, REF_INT8_MODES, phase=7)
+    f32 = drive_fp32_path(device)
+    results += f32["results"]
+    drive_demo_cli()
 
     # Each kernel's launches on the main path that holds it: the serving
     # path and the training step (phases 3, 4), the command-line path, the
     # stream modes' steps and frames (phase 6), or the int8 frames, steps and
-    # microbenchmark (phase 7).
+    # microbenchmark (phase 7), the fp32 step and frames (phase 8).
     int8_only = ("attend_eval_i8", "key_stream_i8_fwd", "value_stream_i8_fwd",
                  "int8_walk_bench")
     cli_only = ("topk_stream", "fused_scores_fwd", "fused_scores_bwd")
@@ -2598,6 +3146,8 @@ def main() -> None:
                  "value_stream_feat_fwd", "value_stream_feat_bwd")
     for r in results:
         r["launches"] = (int8["launches"][r["name"]] if r["name"] in int8_only
+                         else f32["launches"][r["name"]]
+                         if r["name"] in f32["launches"]
                          else cli["launches"][r["name"]] if r["name"] in cli_only
                          else modes["launches"][r["name"]]
                          if r["name"] in mode_only

@@ -7,7 +7,7 @@ videos, with the flags, log files and output layout (under
 ``PAPR_PLATFORM=cpu`` asks for the CPU.
 
 Not ported yet: the exposure-control modes (``--exp [--random | --intrp]``,
-ROADMAP.md Queue 1 item 11) raise. The LPIPS columns need the converted VGG16
+ROADMAP.md Queue 1 item 2) raise. The LPIPS columns need the converted VGG16
 / AlexNet backbones, which the repository does not carry: they report nan
 with a warning, as ``test.py`` does without the weights.
 """
@@ -66,8 +66,9 @@ def make_lpips_metrics(device):
     except FileNotFoundError as e:
         print(f"WARNING: {e}\nWARNING: LPIPS-VGG metric will be nan.")
         vgg = lambda p, t: float("nan")
-    print("WARNING: the LPIPS-alex metric is not ported (ROADMAP.md Queue 1 "
-          "item 9b).\nWARNING: LPIPS-alex metric will be nan.")
+    print("WARNING: the LPIPS-alex metric is not ported (it needs downloaded "
+          "AlexNet weights: ROADMAP.md, blocked).\nWARNING: LPIPS-alex "
+          "metric will be nan.")
     alex = lambda p, t: float("nan")
     return alex, vgg
 
@@ -219,7 +220,7 @@ def main(argv=None):
     if cli.exp:
         raise NotImplementedError(
             "--exp / --intrp / --random: exposure control is not ported yet "
-            "(ROADMAP.md Queue 1 item 11)")
+            "(ROADMAP.md Queue 1 item 2)")
 
     base_cfg = load_config(cli.opt)
     log_dir = os.path.join(base_cfg.save_dir, base_cfg.index)

@@ -28,23 +28,31 @@
 // scores, the value rows rounded to bf16, softmax and fuse are this file's
 // one tile function, shared by both kernels. int8 halves the bytes of every
 // MMA operand; the WMMA instruction count per layer is the bf16 one.
+//
+// attend_eval_f32 is the same tile function on the fp32 walks (use_amp:
+// false; _ase_fwd_kernel with cdt = float32): both walks, the w_k product
+// and its bias in fp32 (walk.cuh's 3xTF32 products), the value rows not
+// rounded before the fuse; the same shared memory, byte for byte.
 
 #include "rec_stream.cuh"
+#include "stream_common.cuh"
 
 using namespace papr;
 
-// One tile of kRows rays. kq / vq: the walks' int8 forms, or null for the
-// bf16 walks (a compile-time constant in each kernel below).
+// One tile of kRows rays, Op the walks' operand type. kq / vq: the walks'
+// int8 forms, or null for the bf16 / fp32 walks (a compile-time constant in
+// each kernel below).
+template <class Op>
 __device__ __forceinline__ void attend_eval_tile(
     unsigned char* smem, const float* __restrict__ record, int rec_w,
     const int* __restrict__ idx, int T, int K, const float* __restrict__ rayo,
     const float* __restrict__ rays, const float* __restrict__ qq, int dm,
-    float sqrt_dm, const WalkDesc& kd, const WalkQuant* kq,
-    const __nv_bfloat16* __restrict__ wk, const float* __restrict__ bk,
-    int dm_pad, const WalkDesc& vd, const WalkQuant* vq, int score_relu,
+    float sqrt_dm, const WalkDescT<Op>& kd, const WalkQuant* kq,
+    const Op* __restrict__ wk, const float* __restrict__ bk,
+    int dm_pad, const WalkDescT<Op>& vd, const WalkQuant* vq, int score_relu,
     float bkg, int normalize, float eps, float* __restrict__ fused,
     float* __restrict__ attn) {
-  const WalkSmem S = walk_smem(smem);
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   float* C = S.C;
   float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
   float* m_run = geo + kRows * kGeo;                         // kRows
@@ -94,7 +102,8 @@ __device__ __forceinline__ void attend_eval_tile(
     // --- key walk -> w_k -> score column ---
     encode_rec(C, kd, geo, gidx, record, rec_w);
     __syncthreads();
-    if (kq) run_walk_q(S, kd, *kq, true);       // y_k rounded to bf16 in A[0]
+    if constexpr (kF32<Op>) run_walk(S, kd, true);   // y_k fp32 in C
+    else if (kq) run_walk_q(S, kd, *kq, true);  // y_k rounded to bf16 in A[0]
     else run_walk(S, kd, true);
     dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
     __syncthreads();
@@ -104,10 +113,9 @@ __device__ __forceinline__ void attend_eval_tile(
       if (t < T) {
         const float* qrow = qq + (size_t)t * dm;
         for (int c = lane; c < dm; c += 32) {
-          // nn/mlp.py linear_apply in bf16: matmul rounded to bf16, bias add
-          // in bf16, promoted to fp32 for the score.
-          const float kk = bf16_round(bf16_round(C[r * kCLd + c]) +
-                                      bf16_round(bk[c]));
+          // nn/mlp.py linear_apply in the compute type (bf16: matmul
+          // rounded to bf16, bias add in bf16), promoted to fp32.
+          const float kk = linear_c<Op>(C[r * kCLd + c], bk[c]);
           s += qrow[c] * kk;
         }
       }
@@ -124,7 +132,8 @@ __device__ __forceinline__ void attend_eval_tile(
     // --- value walk -> online softmax-weighted accumulation ---
     encode_rec(C, vd, geo, gidx, record, rec_w);
     __syncthreads();
-    if (vq) run_walk_q(S, vd, *vq);
+    if constexpr (kF32<Op>) run_walk(S, vd);
+    else if (vq) run_walk_q(S, vd, *vq);
     else run_walk(S, vd);
     for (int r = warp; r < kRows; r += kWarps) {
       const float s = ss[r * K + k];
@@ -132,7 +141,7 @@ __device__ __forceinline__ void attend_eval_tile(
       const float m_new = fmaxf(m_old, s);
       const float scale = expf(m_old - m_new), e = expf(s - m_new);
       for (int c = lane; c < cout; c += 32) {
-        const float yc = bf16_round(C[r * kCLd + c]);
+        const float yc = act_round<Op>(C[r * kCLd + c]);
         acc[r * cout + c] = acc[r * cout + c] * scale + e * yc;
       }
     }
@@ -160,14 +169,15 @@ __device__ __forceinline__ void attend_eval_tile(
   }
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 attend_eval_kernel(const float* __restrict__ record, int rec_w,
                    const int* __restrict__ idx, int T, int K,
                    const float* __restrict__ rayo,
                    const float* __restrict__ rays,
                    const float* __restrict__ qq, int dm, float sqrt_dm,
-                   WalkDesc kd, const __nv_bfloat16* __restrict__ wk,
-                   const float* __restrict__ bk, int dm_pad, WalkDesc vd,
+                   WalkDescT<Op> kd, const Op* __restrict__ wk,
+                   const float* __restrict__ bk, int dm_pad, WalkDescT<Op> vd,
                    int score_relu, float bkg, int normalize, float eps,
                    float* __restrict__ fused, float* __restrict__ attn) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -194,8 +204,9 @@ attend_eval_i8_kernel(const float* __restrict__ record, int rec_w,
                    normalize, eps, fused, attn);
 }
 
-// Shared launcher: kwq .. vdq all null launches the bf16 kernel, all given
-// the int8 one.
+// Shared launcher, Op the walks' operand type: kwq .. vdq all null launches
+// the bf16 (fp32) kernel, all given (bf16 only) the int8 one.
+template <class Op>
 static int launch_attend_eval(
     const float* record, int rec_w, const int* idx, int T, int K,
     const float* rayo, const float* rays, const float* qq, int dm,
@@ -206,13 +217,15 @@ static int launch_attend_eval(
     int normalize, float eps, void* fused, void* attn, bool int8,
     const void* kwq, const void* kinv, const void* kdq, const void* vwq,
     const void* vinv, const void* vdq, void* stream) {
-  WalkDesc kd, vd;
+  WalkDescT<Op> kd, vd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
   WalkQuant kq, vq;
-  if (int8) {
+  if constexpr (kF32<Op>) {
+    if (int8) return -205;
+  } else if (int8) {
     err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
     if (err) return err;
     err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
@@ -229,56 +242,59 @@ static int launch_attend_eval(
       ? cudaFuncSetAttribute(attend_eval_i8_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem)
-      : cudaFuncSetAttribute(attend_eval_kernel,
+      : cudaFuncSetAttribute(attend_eval_kernel<Op>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (T + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* wkp = static_cast<const __nv_bfloat16*>(wk);
+  const Op* wkp = static_cast<const Op*>(wk);
   const float* bkp = static_cast<const float*>(bk);
-  if (int8)
-    attend_eval_i8_kernel<<<grid, kThreads, smem, st>>>(
-        record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp,
-        bkp, dm_pad, vd, vq, score_relu, bkg, normalize, eps,
-        static_cast<float*>(fused), static_cast<float*>(attn));
-  else
-    attend_eval_kernel<<<grid, kThreads, smem, st>>>(
-        record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp,
-        dm_pad, vd, score_relu, bkg, normalize, eps,
-        static_cast<float*>(fused), static_cast<float*>(attn));
+  if constexpr (!kF32<Op>) {
+    if (int8) {
+      attend_eval_i8_kernel<<<grid, kThreads, smem, st>>>(
+          record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp,
+          bkp, dm_pad, vd, vq, score_relu, bkg, normalize, eps,
+          static_cast<float*>(fused), static_cast<float*>(attn));
+      return (int)cudaGetLastError();
+    }
+  }
+  attend_eval_kernel<Op><<<grid, kThreads, smem, st>>>(
+      record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp,
+      dm_pad, vd, score_relu, bkg, normalize, eps,
+      static_cast<float*>(fused), static_cast<float*>(attn));
   return (int)cudaGetLastError();
 }
 
-extern "C" int papr_attend_eval(
-    const float* record, int rec_w, const int* idx, int T, int K,
-    const float* rayo, const float* rays, const float* qq, int dm,
-    float sqrt_dm, const int* kmeta, const void* kw, const void* kb,
-    const void* kln, const void* kplan, const void* wk, const void* bk,
-    int dm_pad, const int* vmeta, const void* vw, const void* vb,
-    const void* vln, const void* vplan, int score_relu, float bkg,
-    int normalize, float eps, void* fused, void* attn, void* stream) {
-  return launch_attend_eval(record, rec_w, idx, T, K, rayo, rays, qq, dm,
-                            sqrt_dm, kmeta, kw, kb, kln, kplan, wk, bk,
-                            dm_pad, vmeta, vw, vb, vln, vplan, score_relu,
-                            bkg, normalize, eps, fused, attn, false, nullptr,
-                            nullptr, nullptr, nullptr, nullptr, nullptr,
-                            stream);
+#define ATTEND_EVAL_PARAMS                                                   \
+    const float* record, int rec_w, const int* idx, int T, int K,            \
+    const float* rayo, const float* rays, const float* qq, int dm,           \
+    float sqrt_dm, const int* kmeta, const void* kw, const void* kb,         \
+    const void* kln, const void* kplan, const void* wk, const void* bk,      \
+    int dm_pad, const int* vmeta, const void* vw, const void* vb,            \
+    const void* vln, const void* vplan, int score_relu, float bkg,           \
+    int normalize, float eps, void* fused, void* attn
+#define ATTEND_EVAL_ARGS                                                     \
+    record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb,    \
+    kln, kplan, wk, bk, dm_pad, vmeta, vw, vb, vln, vplan, score_relu, bkg,  \
+    normalize, eps, fused, attn
+
+extern "C" int papr_attend_eval(ATTEND_EVAL_PARAMS, void* stream) {
+  return launch_attend_eval<__nv_bfloat16>(
+      ATTEND_EVAL_ARGS, false, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, stream);
 }
 
-extern "C" int papr_attend_eval_i8(
-    const float* record, int rec_w, const int* idx, int T, int K,
-    const float* rayo, const float* rays, const float* qq, int dm,
-    float sqrt_dm, const int* kmeta, const void* kw, const void* kb,
-    const void* kln, const void* kplan, const void* wk, const void* bk,
-    int dm_pad, const int* vmeta, const void* vw, const void* vb,
-    const void* vln, const void* vplan, int score_relu, float bkg,
-    int normalize, float eps, void* fused, void* attn, const void* kwq,
-    const void* kinv, const void* kdq, const void* vwq, const void* vinv,
-    const void* vdq, void* stream) {
-  return launch_attend_eval(record, rec_w, idx, T, K, rayo, rays, qq, dm,
-                            sqrt_dm, kmeta, kw, kb, kln, kplan, wk, bk,
-                            dm_pad, vmeta, vw, vb, vln, vplan, score_relu,
-                            bkg, normalize, eps, fused, attn, true, kwq, kinv,
-                            kdq, vwq, vinv, vdq, stream);
+extern "C" int papr_attend_eval_f32(ATTEND_EVAL_PARAMS, void* stream) {
+  return launch_attend_eval<float>(
+      ATTEND_EVAL_ARGS, false, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, stream);
+}
+
+extern "C" int papr_attend_eval_i8(ATTEND_EVAL_PARAMS, const void* kwq,
+                                   const void* kinv, const void* kdq,
+                                   const void* vwq, const void* vinv,
+                                   const void* vdq, void* stream) {
+  return launch_attend_eval<__nv_bfloat16>(ATTEND_EVAL_ARGS, true, kwq, kinv,
+                                           kdq, vwq, vinv, vdq, stream);
 }

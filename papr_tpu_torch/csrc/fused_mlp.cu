@@ -16,16 +16,22 @@
 // shared by the 16 warps. The TPU kernel's 0/1 selection matmul for the
 // posenc becomes a direct per-column gather driven by a small column plan.
 // Not yet: wgmma / TMA, or more than one block per SM.
+//
+// fused_mlp_f32 is the same kernel on the fp32 walk (use_amp: false;
+// fused_mlp.py _cdt = float32): fp32 operands and activations, 3xTF32
+// products (walk.cuh), an fp32 output. Three tensor-core products per
+// fp32-accurate one: bound by operations at a third of the TF32 rate.
 
 #include "walk.cuh"
 
 using namespace papr;
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_fwd_kernel(const float* __restrict__ x, int R, int d_raw,
-                     WalkDesc d, __nv_bfloat16* __restrict__ y) {
+                     WalkDescT<Op> d, Op* __restrict__ y) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem s = walk_smem(smem);
+  const WalkSmemT<Op> s = walk_smem<Op>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = blockIdx.x * kRows;
 
@@ -38,25 +44,43 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, int R, int d_raw,
     const int row = r0 + r;
     if (row >= R) continue;
     for (int c = lane; c < dout; c += 32)
-      y[(size_t)row * dout + c] = __float2bfloat16_rn(s.C[r * kCLd + c]);
+      y[(size_t)row * dout + c] = to_act<Op>(s.C[r * kCLd + c]);
   }
+}
+
+template <class Op>
+static int launch_fused_mlp_fwd(const float* x, int R, int d_raw,
+                                const int* meta, const void* w_all,
+                                const void* b_all, const void* ln,
+                                const void* plan, void* y, void* stream) {
+  WalkDescT<Op> d;
+  int err = fill_walk(&d, meta, w_all, b_all, ln, plan);
+  if (err) return err;
+  if (R <= 0) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_mlp_fwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kWalkSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (R + kRows - 1) / kRows;
+  fused_mlp_fwd_kernel<Op><<<grid, kThreads, kWalkSmem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      x, R, d_raw, d, static_cast<Op*>(y));
+  return (int)cudaGetLastError();
 }
 
 extern "C" int papr_fused_mlp_fwd(const float* x, int R, int d_raw,
                                   const int* meta, const void* w_all,
                                   const void* b_all, const void* ln,
                                   const void* plan, void* y, void* stream) {
-  WalkDesc d;
-  int err = fill_walk(&d, meta, w_all, b_all, ln, plan);
-  if (err) return err;
-  if (R <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kWalkSmem);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (R + kRows - 1) / kRows;
-  fused_mlp_fwd_kernel<<<grid, kThreads, kWalkSmem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      x, R, d_raw, d, static_cast<__nv_bfloat16*>(y));
-  return (int)cudaGetLastError();
+  return launch_fused_mlp_fwd<__nv_bfloat16>(x, R, d_raw, meta, w_all, b_all,
+                                             ln, plan, y, stream);
+}
+
+extern "C" int papr_fused_mlp_f32_fwd(const float* x, int R, int d_raw,
+                                      const int* meta, const void* w_all,
+                                      const void* b_all, const void* ln,
+                                      const void* plan, void* y,
+                                      void* stream) {
+  return launch_fused_mlp_fwd<float>(x, R, d_raw, meta, w_all, b_all, ln,
+                                     plan, y, stream);
 }

@@ -31,21 +31,27 @@
 // walk on a quantization the wrapper calibrated on this call's record; the
 // raw dots and masked scores it saves are the int8 forward's. The backward
 // above takes no flag: it recomputes the walk in bf16 (straight-through).
+//
+// key_stream_f32_fwd / key_stream_f32_bwd are the same two kernels on the
+// fp32 walk (use_amp: false): fp32 walk, w_k product and bias (walk.cuh's
+// 3xTF32 products), fp32 stash and dW. Shared memory is the bf16 kernels'
+// byte for byte (walk.cuh), so key_rec_*_smem hold for both.
 
 #include "key_stream.cuh"
 
 using namespace papr;
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 key_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                const float* __restrict__ rayo, const float* __restrict__ rays,
                const float* __restrict__ qq, int dm, float sqrt_dm,
-               WalkDesc kd, const __nv_bfloat16* __restrict__ wk,
+               WalkDescT<Op> kd, const Op* __restrict__ wk,
                const float* __restrict__ bk, int dm_pad, int score_relu,
                float bkg, float eps, float* __restrict__ attn,
                float* __restrict__ raw, float* __restrict__ ss_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  key_rec_fwd_tile(walk_smem(smem), rec, rec_w, T, K, rayo, rays, qq, dm,
+  key_rec_fwd_tile(walk_smem<Op>(smem), rec, rec_w, T, K, rayo, rays, qq, dm,
                    sqrt_dm, kd, wk, bk, dm_pad, score_relu, bkg, eps, attn,
                    raw, ss_out);
 }
@@ -66,28 +72,31 @@ key_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                    raw, ss_out, &kq);
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 key_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
                const float* __restrict__ rayo, const float* __restrict__ rays,
                const float* __restrict__ qq, int dm, float sqrt_dm,
                const float* __restrict__ raw, const float* __restrict__ ss,
-               const float* __restrict__ dattn, WalkDesc kd, WalkBwd kb,
-               const __nv_bfloat16* __restrict__ wkf,
-               const __nv_bfloat16* __restrict__ wkb,
+               const float* __restrict__ dattn, WalkDescT<Op> kd,
+               WalkBwdT<Op> kb, const Op* __restrict__ wkf,
+               const Op* __restrict__ wkb,
                const float* __restrict__ bk, int dm_pad, int dbk_off,
                int score_relu, float bkg, float eps,
                const int* __restrict__ seg, int nsrc, float* drec,
                float* drayo, float* drays, float* dqq) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem S = walk_smem(smem);
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   key_rec_bwd_tile(S, rec, rec_w, T, Tp, K, rayo, rays, qq, dm, sqrt_dm, raw,
                    ss, dattn, kd, kb, wkf, wkb, bk, dm_pad, dbk_off,
                    score_relu, bkg, eps, seg, nsrc, drec, drayo, drays, dqq,
                    reinterpret_cast<float*>(S.extra));
 }
 
-// Shared launcher of the two forwards: with int8 the three quantization
-// buffers are read and the int8 kernel launched.
+// Shared launcher of the forwards: Op the walk's operand type; with int8
+// (bf16 only) the three quantization buffers are read and the int8 kernel
+// launched.
+template <class Op>
 static int launch_key_fwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* qq, int dm, float sqrt_dm,
@@ -96,11 +105,13 @@ static int launch_key_fwd(
     int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
     bool int8, const void* kwq, const void* kinv, const void* kdq,
     void* stream) {
-  WalkDesc kd;
+  WalkDescT<Op> kd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   WalkQuant kq;
-  if (int8) {
+  if constexpr (kF32<Op>) {
+    if (int8) return -205;
+  } else if (int8) {
     err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
     if (err) return err;
   }
@@ -113,24 +124,27 @@ static int launch_key_fwd(
       ? cudaFuncSetAttribute(key_i8_fwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem)
-      : cudaFuncSetAttribute(key_fwd_kernel,
+      : cudaFuncSetAttribute(key_fwd_kernel<Op>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (T + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* wkp = static_cast<const __nv_bfloat16*>(wk);
+  const Op* wkp = static_cast<const Op*>(wk);
   const float* bkp = static_cast<const float*>(bk);
-  if (int8)
-    key_i8_fwd_kernel<<<grid, kThreads, smem, st>>>(
-        rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp, bkp,
-        dm_pad, score_relu, bkg, eps, static_cast<float*>(attn),
-        static_cast<float*>(raw), static_cast<float*>(ss));
-  else
-    key_fwd_kernel<<<grid, kThreads, smem, st>>>(
-        rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp, dm_pad,
-        score_relu, bkg, eps, static_cast<float*>(attn),
-        static_cast<float*>(raw), static_cast<float*>(ss));
+  if constexpr (!kF32<Op>) {
+    if (int8) {
+      key_i8_fwd_kernel<<<grid, kThreads, smem, st>>>(
+          rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp, bkp,
+          dm_pad, score_relu, bkg, eps, static_cast<float*>(attn),
+          static_cast<float*>(raw), static_cast<float*>(ss));
+      return (int)cudaGetLastError();
+    }
+  }
+  key_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
+      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp, dm_pad,
+      score_relu, bkg, eps, static_cast<float*>(attn),
+      static_cast<float*>(raw), static_cast<float*>(ss));
   return (int)cudaGetLastError();
 }
 
@@ -141,10 +155,23 @@ extern "C" int papr_key_stream_fwd(
     const void* kplan, const void* wk, const void* bk, int dm_pad,
     int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
     void* stream) {
-  return launch_key_fwd(rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta,
-                        kw, kb, kln, kplan, wk, bk, dm_pad, score_relu, bkg,
-                        eps, attn, raw, ss, false, nullptr, nullptr, nullptr,
-                        stream);
+  return launch_key_fwd<__nv_bfloat16>(
+      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,
+      kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss, false,
+      nullptr, nullptr, nullptr, stream);
+}
+
+extern "C" int papr_key_stream_f32_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* qq, int dm, float sqrt_dm,
+    const int* kmeta, const void* kw, const void* kb, const void* kln,
+    const void* kplan, const void* wk, const void* bk, int dm_pad,
+    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
+    void* stream) {
+  return launch_key_fwd<float>(
+      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,
+      kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss, false,
+      nullptr, nullptr, nullptr, stream);
 }
 
 extern "C" int papr_key_stream_i8_fwd(
@@ -154,12 +181,15 @@ extern "C" int papr_key_stream_i8_fwd(
     const void* kplan, const void* wk, const void* bk, int dm_pad,
     int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
     const void* kwq, const void* kinv, const void* kdq, void* stream) {
-  return launch_key_fwd(rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta,
-                        kw, kb, kln, kplan, wk, bk, dm_pad, score_relu, bkg,
-                        eps, attn, raw, ss, true, kwq, kinv, kdq, stream);
+  return launch_key_fwd<__nv_bfloat16>(
+      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,
+      kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss, true, kwq,
+      kinv, kdq, stream);
 }
 
-extern "C" int papr_key_stream_bwd(
+// Launcher of the backward, Op the walk's operand type.
+template <class Op>
+static int launch_key_bwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* qq, int dm, float sqrt_dm,
     const float* raw, const float* ss, const float* dattn, const int* kmeta,
@@ -169,10 +199,10 @@ extern "C" int papr_key_stream_bwd(
     const long long* stash_off, const int* seg, int nsrc, float* drec,
     float* drayo, float* drays, float* dqq, float* part, int part_w,
     float* scratch, void* stream) {
-  WalkDesc kd;
+  WalkDescT<Op> kd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
-  WalkBwd wb;
+  WalkBwdT<Op> wb;
   err = fill_walk_bwd(&wb, kd, kmeta, kwt, stash, stash_off, kd.n + 1, part,
                       part_w, scratch);
   if (err) return err;
@@ -184,15 +214,39 @@ extern "C" int papr_key_stream_bwd(
   const size_t smem = key_rec_bwd_smem(K);
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      key_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      key_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int Tp = (T + kRows - 1) / kRows * kRows;
-  key_bwd_kernel<<<Tp / kRows, kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
+  key_bwd_kernel<Op><<<Tp / kRows, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       rec, rec_w, T, Tp, K, rayo, rays, qq, dm, sqrt_dm, raw, ss, dattn, kd,
-      wb, static_cast<const __nv_bfloat16*>(wkf),
-      static_cast<const __nv_bfloat16*>(wkb), static_cast<const float*>(bk),
-      dm_pad, dbk_off, score_relu, bkg, eps, seg, nsrc, drec, drayo, drays,
-      dqq);
+      wb, static_cast<const Op*>(wkf), static_cast<const Op*>(wkb),
+      static_cast<const float*>(bk), dm_pad, dbk_off, score_relu, bkg, eps,
+      seg, nsrc, drec, drayo, drays, dqq);
   return (int)cudaGetLastError();
+}
+
+#define KEY_BWD_PARAMS                                                       \
+    const float* rec, int rec_w, int T, int K, const float* rayo,            \
+    const float* rays, const float* qq, int dm, float sqrt_dm,               \
+    const float* raw, const float* ss, const float* dattn, const int* kmeta, \
+    const void* kw, const void* kb, const void* kln, const void* kplan,      \
+    const void* kwt, const void* wkf, const void* wkb, const void* bk,       \
+    int dm_pad, int score_relu, float bkg, float eps, void* stash,           \
+    const long long* stash_off, const int* seg, int nsrc, float* drec,       \
+    float* drayo, float* drays, float* dqq, float* part, int part_w,         \
+    float* scratch, void* stream
+#define KEY_BWD_ARGS                                                         \
+    rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, raw, ss, dattn, kmeta,    \
+    kw, kb, kln, kplan, kwt, wkf, wkb, bk, dm_pad, score_relu, bkg, eps,     \
+    stash, stash_off, seg, nsrc, drec, drayo, drays, dqq, part, part_w,      \
+    scratch, stream
+
+extern "C" int papr_key_stream_bwd(KEY_BWD_PARAMS) {
+  return launch_key_bwd<__nv_bfloat16>(KEY_BWD_ARGS);
+}
+
+extern "C" int papr_key_stream_f32_bwd(KEY_BWD_PARAMS) {
+  return launch_key_bwd<float>(KEY_BWD_ARGS);
 }

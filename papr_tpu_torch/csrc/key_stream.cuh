@@ -23,12 +23,13 @@ inline size_t key_rec_bwd_smem(int K) {
 // Per (ray, k): geometry -> key posenc -> walk -> w_k -> scaled dot with qq
 // -> score_act x influence, alive-masked; then the background-token softmax.
 // Writes attn (T, K+1), the raw dots and the masked scores (T, K). With kq
-// the walk's dense stack runs in int8 (walk.cuh run_walk_q).
+// the walk's dense stack runs in int8 (walk.cuh run_walk_q; bf16 walks only).
+template <class Op>
 __device__ __forceinline__ void key_rec_fwd_tile(
-    const WalkSmem& S, const float* __restrict__ rec, int rec_w, int T, int K,
-    const float* __restrict__ rayo, const float* __restrict__ rays,
-    const float* qq, int dm, float sqrt_dm, const WalkDesc& kd,
-    const __nv_bfloat16* __restrict__ wk, const float* __restrict__ bk,
+    const WalkSmemT<Op>& S, const float* __restrict__ rec, int rec_w, int T,
+    int K, const float* __restrict__ rayo, const float* __restrict__ rays,
+    const float* qq, int dm, float sqrt_dm, const WalkDescT<Op>& kd,
+    const Op* __restrict__ wk, const float* __restrict__ bk,
     int dm_pad, int score_relu, float bkg, float eps,
     float* __restrict__ attn, float* __restrict__ raw,
     float* __restrict__ ss_out, const WalkQuant* kq = nullptr) {
@@ -43,11 +44,13 @@ __device__ __forceinline__ void key_rec_fwd_tile(
     __syncthreads();
     encode_rec(C, kd, geo, gidx, rec, rec_w);
     __syncthreads();
-    if (kq) run_walk_q(S, kd, *kq, true);       // y_k rounded to bf16 in A[0]
+    if constexpr (kF32<Op>) run_walk(S, kd, true);   // y_k fp32 in C
+    else if (kq) run_walk_q(S, kd, *kq, true);  // y_k rounded to bf16 in A[0]
     else run_walk(S, kd, true);
     dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
     __syncthreads();
-    score_column(C, qq, bk, dm, sqrt_dm, t0, T, [&](int r, int t, float col) {
+    score_column<Op>(C, qq, bk, dm, sqrt_dm, t0, T,
+                     [&](int r, int t, float col) {
       raw[(size_t)t * K + k] = col;
       const float* gr = geo + r * kGeo;
       ss[r * K + k] = masked_score(col, score_relu, gr[9], gr[10] > 0.5f);
@@ -65,14 +68,15 @@ __device__ __forceinline__ void key_rec_fwd_tile(
 // in lanes 0:3 and d_influence in lane 3, and d_rayo / d_rays. `st` (4 x
 // kRows floats of shared memory, the LayerNorm statistics) is free again on
 // return; ends on a barrier.
+template <class Op>
 __device__ __forceinline__ void key_rec_bwd_tile(
-    const WalkSmem& S, const float* __restrict__ rec, int rec_w, int T,
+    const WalkSmemT<Op>& S, const float* __restrict__ rec, int rec_w, int T,
     int Tp, int K, const float* __restrict__ rayo,
     const float* __restrict__ rays, const float* qq, int dm, float sqrt_dm,
     const float* __restrict__ raw, const float* __restrict__ ss,
-    const float* __restrict__ dattn, const WalkDesc& kd, const WalkBwd& kb,
-    const __nv_bfloat16* __restrict__ wkf,
-    const __nv_bfloat16* __restrict__ wkb, const float* __restrict__ bk,
+    const float* __restrict__ dattn, const WalkDescT<Op>& kd,
+    const WalkBwdT<Op>& kb, const Op* __restrict__ wkf,
+    const Op* __restrict__ wkb, const float* __restrict__ bk,
     int dm_pad, int dbk_off, int score_relu, float bkg, float eps,
     const int* __restrict__ seg, int nsrc, float* drec, float* drayo,
     float* drays, float* dqq, float* st) {

@@ -18,7 +18,8 @@ constexpr int kNGeoSrc = 9;           // posenc sources 0..8: pos, proj, perp
 // Encoded columns of one walk from the per-row geometry: sources 0..8 are
 // [pos, proj, perp], source 9 + j is record lane 5 + j (point features).
 // Each lane reads its columns' plan once and walks the rows.
-__device__ __forceinline__ void encode_rec(float* C, const WalkDesc& d,
+template <class T>
+__device__ __forceinline__ void encode_rec(float* C, const WalkDescT<T>& d,
                                            const float* geo, const int* gidx,
                                            const float* __restrict__ record,
                                            int rec_w) {

@@ -31,6 +31,14 @@ __device__ __forceinline__ float linear_bf16(float acc, float bias) {
   return bf16_round(bf16_round(acc) + bf16_round(bias));
 }
 
+// linear_apply in the walk's compute type: bf16 as above, or fp32 (the
+// product plus the bias, one rounding).
+template <class Op>
+__device__ __forceinline__ float linear_c(float acc, float bias) {
+  if constexpr (kF32<Op>) return acc + bias;
+  else return linear_bf16(acc, bias);
+}
+
 // score_act x influence of one dot, NEG_BIG for a dead point.
 __device__ __forceinline__ float masked_score(float col, int score_relu,
                                               float influ, bool alive) {
@@ -42,7 +50,8 @@ __device__ __forceinline__ float masked_score(float col, int score_relu,
 // the block's rows; sink(r, t, q_t . kk_t / sqrt_dm) runs on lane 0 of the
 // row's warp for every ray t < T. qq may have been written by this block
 // earlier in the same kernel, so it is not read through the read-only path.
-template <class Sink>
+// Op: the walk's operand type (the projection's rounding).
+template <class Op = __nv_bfloat16, class Sink>
 __device__ __forceinline__ void score_column(const float* C, const float* qq,
                                              const float* __restrict__ bk,
                                              int dm, float sqrt_dm, int t0,
@@ -54,7 +63,7 @@ __device__ __forceinline__ void score_column(const float* C, const float* qq,
     const float* qrow = qq + (size_t)t * dm;
     float s = 0.f;
     for (int c = lane; c < dm; c += 32)
-      s += qrow[c] * linear_bf16(C[r * kCLd + c], bk[c]);
+      s += qrow[c] * linear_c<Op>(C[r * kCLd + c], bk[c]);
     s = warp_sum(s);
     if (lane == 0) sink(r, t, s / sqrt_dm);
   }
@@ -144,16 +153,18 @@ __device__ __forceinline__ float draw_of(float ds, float raw, float influ,
 }
 
 // Backward of the score head of one slot. On entry A[0] holds y_c (the walk
-// output in bf16) and draw[r] the gradient of each row's raw dot. Stashes
-// y_c as the head layer's input; recomputes kk = linear(y_c); dqq += draw kk;
-// dkk = draw qq goes fp32 into C (its column sums are db_k), bf16 into A[1]
-// and the stash (dW_k by wgrad.cu); leaves the gradient of the walk output,
-// dkk_c @ w_k^T, in C and ends on a barrier. The block owns its rays' rows of
-// dqq, so the sum over k needs no atomics.
+// output as the product's operand) and draw[r] the gradient of each row's
+// raw dot. Stashes y_c as the head layer's input; recomputes
+// kk = linear(y_c); dqq += draw kk; dkk = draw qq goes fp32 into C (its
+// column sums are db_k), rounded to Op into A[1] and the stash (dW_k by
+// wgrad.cu); leaves the gradient of the walk output, dkk_c @ w_k^T, in C
+// and ends on a barrier. The block owns its rays' rows of dqq, so the sum
+// over k needs no atomics.
+template <class Op>
 __device__ __forceinline__ void key_head_bwd(
-    const WalkSmem& S, const WalkDesc& kd, const WalkBwd& kb,
-    const TileCtx& ctx, const __nv_bfloat16* __restrict__ wkf,
-    const __nv_bfloat16* __restrict__ wkb, const float* __restrict__ bk,
+    const WalkSmemT<Op>& S, const WalkDescT<Op>& kd, const WalkBwdT<Op>& kb,
+    const TileCtx& ctx, const Op* __restrict__ wkf,
+    const Op* __restrict__ wkb, const float* __restrict__ bk,
     int dm, int dm_pad, int dbk_off, const float* qq, float* dqq,
     const float* draw, int t0, int T) {
   const int n = kd.n, pdn = kd.pd[n];
@@ -165,12 +176,12 @@ __device__ __forceinline__ void key_head_bwd(
     const int r = i / dm_pad, c = i - r * dm_pad, t = t0 + r;
     float dk = 0.f;
     if (t < T && c < dm) {
-      const float kk = linear_bf16(C[r * kCLd + c], bk[c]);
+      const float kk = linear_c<Op>(C[r * kCLd + c], bk[c]);
       dqq[(size_t)t * dm + c] += draw[r] * kk;
       dk = draw[r] * qq[(size_t)t * dm + c];
     }
     C[r * kCLd + c] = dk;
-    const __nv_bfloat16 h = __float2bfloat16_rn(dk);
+    const Op h = to_act<Op>(dk);
     S.A[1][r * kALd + c] = h;
     kb.dz[n][(ctx.row0 + r) * dm_pad + c] = h;
   }
@@ -198,7 +209,8 @@ __device__ __forceinline__ void fg_mass_rows(const float* __restrict__ attn,
 }
 
 // acc += (attn_k / den) * y_k, with the walk output y_k (fp32 in C) rounded
-// to bf16 and back as the materialized value embeddings are.
+// to Op and back as the materialized value embeddings are.
+template <class Op = __nv_bfloat16>
 __device__ __forceinline__ void fuse_step(const float* C, float* acc,
                                           const float* __restrict__ attn,
                                           const float* den, int k, int K,
@@ -209,14 +221,15 @@ __device__ __forceinline__ void fuse_step(const float* C, float* acc,
     if (t >= T) continue;
     const float w = attn[(size_t)t * (K + 1) + k] / den[r];
     for (int c = lane; c < cout; c += 32)
-      acc[r * cout + c] += w * bf16_round(C[r * kCLd + c]);
+      acc[r * cout + c] += w * act_round<Op>(C[r * kCLd + c]);
   }
 }
 
 // Backward of the fuse step of one slot: datt[r][k] = y_c . dfused (y fp32 in
-// C on entry), then C becomes the gradient of the walk output,
+// C on entry, rounded to Op), then C becomes the gradient of the walk output,
 // (attn_k / den) dfused, zero on overhang rows and pad lanes; ends on a
 // barrier.
+template <class Op = __nv_bfloat16>
 __device__ __forceinline__ void fuse_step_bwd(float* C, float* datt,
                                               const float* __restrict__ attn,
                                               const float* den,
@@ -229,7 +242,7 @@ __device__ __forceinline__ void fuse_step_bwd(float* C, float* datt,
     float s = 0.f;
     if (t < T)
       for (int c = lane; c < cout; c += 32)
-        s += bf16_round(C[r * kCLd + c]) * dfused[(size_t)t * cout + c];
+        s += act_round<Op>(C[r * kCLd + c]) * dfused[(size_t)t * cout + c];
     s = warp_sum(s);
     if (lane == 0) datt[r * K + k] = s;
   }

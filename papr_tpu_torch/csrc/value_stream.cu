@@ -25,20 +25,28 @@
 // stream_attn.py:1742-1746): the walk's dense stack runs walk.cuh's int8
 // walk on a quantization the wrapper calibrated on this call's record. The
 // backward takes no flag: it recomputes the walk in bf16 (straight-through).
+//
+// value_stream_f32_fwd / value_stream_f32_bwd are the same two kernels on
+// the fp32 walk (use_amp: false): fp32 walk (walk.cuh's 3xTF32 products),
+// value rows not rounded before the fuse, fp32 stash and dW; the same
+// shared memory.
 
 #include "rec_stream.cuh"
 #include "stream_common.cuh"
 
 using namespace papr;
 
-// The forward on one tile of kRows rays; vq: the walk's int8 form, or null
-// for the bf16 walk (a compile-time constant in each kernel below).
+// The forward on one tile of kRows rays, Op the walk's operand type; vq: the
+// walk's int8 form, or null for the bf16 / fp32 walk (a compile-time
+// constant in each kernel below).
+template <class Op>
 __device__ __forceinline__ void value_fwd_tile(
     unsigned char* smem, const float* __restrict__ rec, int rec_w, int T,
     int K, const float* __restrict__ rayo, const float* __restrict__ rays,
-    const float* __restrict__ attn, const WalkDesc& vd, const WalkQuant* vq,
-    int normalize, float eps, float* __restrict__ fused) {
-  const WalkSmem S = walk_smem(smem);
+    const float* __restrict__ attn, const WalkDescT<Op>& vd,
+    const WalkQuant* vq, int normalize, float eps,
+    float* __restrict__ fused) {
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   float* C = S.C;
   float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
   float* den = geo + kRows * kGeo;                           // kRows
@@ -56,9 +64,10 @@ __device__ __forceinline__ void value_fwd_tile(
     __syncthreads();
     encode_rec(C, vd, geo, gidx, rec, rec_w);
     __syncthreads();
-    if (vq) run_walk_q(S, vd, *vq);
+    if constexpr (kF32<Op>) run_walk(S, vd);
+    else if (vq) run_walk_q(S, vd, *vq);
     else run_walk(S, vd);
-    fuse_step(C, acc, attn, den, k, K, cout, t0, T);
+    fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);
     __syncthreads();
   }
   for (int r = warp; r < kRows; r += kWarps) {
@@ -69,12 +78,13 @@ __device__ __forceinline__ void value_fwd_tile(
   }
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                  const float* __restrict__ rayo,
                  const float* __restrict__ rays,
-                 const float* __restrict__ attn, WalkDesc vd, int normalize,
-                 float eps, float* __restrict__ fused) {
+                 const float* __restrict__ attn, WalkDescT<Op> vd,
+                 int normalize, float eps, float* __restrict__ fused) {
   extern __shared__ __align__(128) unsigned char smem[];
   value_fwd_tile(smem, rec, rec_w, T, K, rayo, rays, attn, vd, nullptr,
                  normalize, eps, fused);
@@ -91,17 +101,18 @@ value_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                  eps, fused);
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
                  int K, const float* __restrict__ rayo,
                  const float* __restrict__ rays,
                  const float* __restrict__ attn,
-                 const float* __restrict__ dfused, WalkDesc vd, WalkBwd vb,
-                 int normalize, float eps, const int* __restrict__ seg,
-                 int nsrc, float* drec, float* drayo, float* drays,
-                 float* __restrict__ dattn) {
+                 const float* __restrict__ dfused, WalkDescT<Op> vd,
+                 WalkBwdT<Op> vb, int normalize, float eps,
+                 const int* __restrict__ seg, int nsrc, float* drec,
+                 float* drayo, float* drays, float* __restrict__ dattn) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem S = walk_smem(smem);
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   float* C = S.C;
   float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
   float* datt = geo + kRows * kGeo;                          // kRows x K
@@ -124,9 +135,9 @@ value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
     const TileCtx ctx = tile_ctx(vd, vb, (size_t)k * Tp + t0, st);
     walk_fwd_stash(S, vd, vb, ctx, false);       // y fp32 in C
 
-    // d attn_k = y_c . dfused (y rounded to bf16 as in the forward), then
+    // d attn_k = y_c . dfused (y rounded to Op as in the forward), then
     // the upstream gradient of the walk output, w_k dfused.
-    fuse_step_bwd(C, datt, attn, den, dfused, k, K, cout, pdn, t0, T);
+    fuse_step_bwd<Op>(C, datt, attn, den, dfused, k, K, cout, pdn, t0, T);
     walk_bwd(S, vd, vb, ctx);
 
     pe_bwd_deriv(C, vd, [&](int r, int src) {
@@ -165,19 +176,23 @@ value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
   renorm_bwd_rows(datt, attn, den, normalize, K, t0, T, dattn);
 }
 
-// Shared launcher of the two forwards: with int8 the three quantization
-// buffers are read and the int8 kernel launched.
+// Shared launcher of the forwards, Op the walk's operand type: with int8
+// (bf16 only) the three quantization buffers are read and the int8 kernel
+// launched.
+template <class Op>
 static int launch_value_fwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* attn, const int* vmeta, const void* vw,
     const void* vb, const void* vln, const void* vplan, int normalize,
     float eps, void* fused, bool int8, const void* vwq, const void* vinv,
     const void* vdq, void* stream) {
-  WalkDesc vd;
+  WalkDescT<Op> vd;
   int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
   WalkQuant vq;
-  if (int8) {
+  if constexpr (kF32<Op>) {
+    if (int8) return -205;
+  } else if (int8) {
     err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
     if (err) return err;
   }
@@ -190,20 +205,23 @@ static int launch_value_fwd(
       ? cudaFuncSetAttribute(value_i8_fwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem)
-      : cudaFuncSetAttribute(value_fwd_kernel,
+      : cudaFuncSetAttribute(value_fwd_kernel<Op>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (T + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int8)
-    value_i8_fwd_kernel<<<grid, kThreads, smem, st>>>(
-        rec, rec_w, T, K, rayo, rays, attn, vd, vq, normalize, eps,
-        static_cast<float*>(fused));
-  else
-    value_fwd_kernel<<<grid, kThreads, smem, st>>>(
-        rec, rec_w, T, K, rayo, rays, attn, vd, normalize, eps,
-        static_cast<float*>(fused));
+  if constexpr (!kF32<Op>) {
+    if (int8) {
+      value_i8_fwd_kernel<<<grid, kThreads, smem, st>>>(
+          rec, rec_w, T, K, rayo, rays, attn, vd, vq, normalize, eps,
+          static_cast<float*>(fused));
+      return (int)cudaGetLastError();
+    }
+  }
+  value_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
+      rec, rec_w, T, K, rayo, rays, attn, vd, normalize, eps,
+      static_cast<float*>(fused));
   return (int)cudaGetLastError();
 }
 
@@ -212,9 +230,19 @@ extern "C" int papr_value_stream_fwd(
     const float* rays, const float* attn, const int* vmeta, const void* vw,
     const void* vb, const void* vln, const void* vplan, int normalize,
     float eps, void* fused, void* stream) {
-  return launch_value_fwd(rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb,
-                          vln, vplan, normalize, eps, fused, false, nullptr,
-                          nullptr, nullptr, stream);
+  return launch_value_fwd<__nv_bfloat16>(
+      rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,
+      normalize, eps, fused, false, nullptr, nullptr, nullptr, stream);
+}
+
+extern "C" int papr_value_stream_f32_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* attn, const int* vmeta, const void* vw,
+    const void* vb, const void* vln, const void* vplan, int normalize,
+    float eps, void* fused, void* stream) {
+  return launch_value_fwd<float>(
+      rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,
+      normalize, eps, fused, false, nullptr, nullptr, nullptr, stream);
 }
 
 extern "C" int papr_value_stream_i8_fwd(
@@ -223,12 +251,14 @@ extern "C" int papr_value_stream_i8_fwd(
     const void* vb, const void* vln, const void* vplan, int normalize,
     float eps, void* fused, const void* vwq, const void* vinv,
     const void* vdq, void* stream) {
-  return launch_value_fwd(rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb,
-                          vln, vplan, normalize, eps, fused, true, vwq, vinv,
-                          vdq, stream);
+  return launch_value_fwd<__nv_bfloat16>(
+      rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,
+      normalize, eps, fused, true, vwq, vinv, vdq, stream);
 }
 
-extern "C" int papr_value_stream_bwd(
+// Launcher of the backward, Op the walk's operand type.
+template <class Op>
+static int launch_value_bwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* attn, const float* dfused,
     const int* vmeta, const void* vw, const void* vb, const void* vln,
@@ -236,10 +266,10 @@ extern "C" int papr_value_stream_bwd(
     void* stash, const long long* stash_off, const int* seg, int nsrc,
     float* drec, float* drayo, float* drays, float* dattn, float* part,
     int part_w, float* scratch, void* stream) {
-  WalkDesc vd;
+  WalkDescT<Op> vd;
   int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
-  WalkBwd wb;
+  WalkBwdT<Op> wb;
   err = fill_walk_bwd(&wb, vd, vmeta, vwt, stash, stash_off, vd.n, part,
                       part_w, scratch);
   if (err) return err;
@@ -249,13 +279,34 @@ extern "C" int papr_value_stream_bwd(
       (kGeo + K + 1 + 4 + kNGeoSrc) + sizeof(int) * kRows;
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      value_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      value_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int Tp = (T + kRows - 1) / kRows * kRows;
-  value_bwd_kernel<<<Tp / kRows, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  value_bwd_kernel<Op><<<Tp / kRows, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       rec, rec_w, T, Tp, K, rayo, rays, attn, dfused, vd, wb, normalize, eps,
       seg, nsrc, drec, drayo, drays, dattn);
   return (int)cudaGetLastError();
+}
+
+#define VALUE_BWD_PARAMS                                                     \
+    const float* rec, int rec_w, int T, int K, const float* rayo,            \
+    const float* rays, const float* attn, const float* dfused,               \
+    const int* vmeta, const void* vw, const void* vb, const void* vln,       \
+    const void* vplan, const void* vwt, int normalize, float eps,            \
+    void* stash, const long long* stash_off, const int* seg, int nsrc,       \
+    float* drec, float* drayo, float* drays, float* dattn, float* part,      \
+    int part_w, float* scratch, void* stream
+#define VALUE_BWD_ARGS                                                       \
+    rec, rec_w, T, K, rayo, rays, attn, dfused, vmeta, vw, vb, vln, vplan,   \
+    vwt, normalize, eps, stash, stash_off, seg, nsrc, drec, drayo, drays,    \
+    dattn, part, part_w, scratch, stream
+
+extern "C" int papr_value_stream_bwd(VALUE_BWD_PARAMS) {
+  return launch_value_bwd<__nv_bfloat16>(VALUE_BWD_ARGS);
+}
+
+extern "C" int papr_value_stream_f32_bwd(VALUE_BWD_PARAMS) {
+  return launch_value_bwd<float>(VALUE_BWD_ARGS);
 }

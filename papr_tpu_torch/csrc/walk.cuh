@@ -20,6 +20,20 @@
 // allows one block per SM, so the block itself carries 16 warps (four per
 // scheduler) to hide the latency of the fragment loads and MMAs.
 //
+// The fp32 walk (use_amp: false; fused_mlp.py _cdt = float32) is the same
+// code instantiated with T = float: fp32 operands, fp32 accumulation, fp32
+// bias, activations left fp32 between layers. Each product is 3xTF32 on
+// WMMA m16n16k8: every operand x splits into hi = tf32(x) and
+// lo = tf32(x - hi), and lo*hi + hi*lo + hi*hi accumulate in fp32 (the
+// dropped lo*lo term is ~2^-22 relative), so the walk keeps fp32 accuracy
+// on the tensor cores; a single TF32 pass would keep ~3 decimal digits. Its
+// shared memory is the bf16 walk's 202,752 B laid out differently: the
+// activations live IN PLACE in C (A[0] and A[1] alias C: a dense layer's
+// epilogue runs after the last barrier of its chunk loop, when no warp reads
+// its input any more), and the weights are staged as fp32 in the same
+// double-buffered 64-row chunks over the 135,168 B that A[2] + W take in the
+// bf16 layout.
+//
 // The int8 walk (run_walk_q) is papr_tpu/ops/fused_mlp.py::walk_body_fwd_q:
 // [LayerNorm fp32] -> per layer the fp32 input quantized per column
 // (q = clip(round(h * inv), +-127)), int8 x int8 -> int32 on the tensor
@@ -38,6 +52,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace papr {
 
 constexpr int kRows = 64;              // tokens per block tile (4 WMMA row blocks)
@@ -55,6 +71,18 @@ constexpr size_t kABytes = sizeof(__nv_bfloat16) * kRows * kALd;
 constexpr size_t kCBytes = sizeof(float) * kRows * kCLd;
 constexpr size_t kWBytes = sizeof(__nv_bfloat16) * 2 * kWChunk * kWLd;
 constexpr size_t kWalkSmem = 2 * kABytes + kCBytes + kWBytes;
+// The fp32 walk: C, then two fp32 weight chunks, in the same bytes.
+static_assert(kALd == kCLd, "fp32 activations alias C");
+static_assert(kCBytes + sizeof(float) * 2 * kWChunk * kWLd == kWalkSmem,
+              "the fp32 walk fills the bf16 walk's shared memory");
+
+// T (the operand type of a walk, __nv_bfloat16 or float) as a flag.
+template <class T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+
+// Keeps a template argument out of deduction (a nullptr argument, say).
+template <class T>
+struct NoDeduce { using type = T; };
 
 // The int8 walk's layouts inside those buffers, in bytes. Activations:
 // kRows rows of kQLd (68 words: the 8 rows x 4 words of one fragment load
@@ -78,24 +106,28 @@ constexpr int kRowBlocksPerWarp = kRows / 16 / kWarpRows;
 static_assert(kWarps % 8 == 0 && kRows % (16 * kWarpRows) == 0,
               "dense_layer: whole row blocks per warp");
 
-// One walk's parameters, passed to the kernel by value.
-struct WalkDesc {
+// One walk's parameters, passed to the kernel by value; T is the operand
+// type of its weights (and of the activations it feeds the products).
+template <class T>
+struct WalkDescT {
   int n;                 // dense layers
   int d_enc;             // true encoded width (input LayerNorm statistics)
   int d_out;             // true output width (output LayerNorm statistics)
   int act, last_act;     // 0 = none, 1 = relu
   int has_li, has_lo;
   int pd[kMaxLayers + 1];                   // padded widths, multiples of 16
-  const __nv_bfloat16* w[kMaxLayers];       // (pd[i], pd[i+1]) input-major
+  const T* w[kMaxLayers];                   // (pd[i], pd[i+1]) input-major
   const float* b[kMaxLayers];               // (pd[i+1])
   const float* ln;       // li_a (pd[0]), li_b (pd[0]), lo_a (pd[n]), lo_b (pd[n])
   const float* plan;     // 3 rows of pd[0]: source index, frequency, kind
 };
+using WalkDesc = WalkDescT<__nv_bfloat16>;
 
 // Host side: meta = [n, d_enc, d_out, act, last_act, has_li, has_lo,
 // pd[0..n], w_off[0..n-1], b_off[0..n-1]] (offsets in elements).
 // Returns 0, or a negative code for a walk the kernels do not take.
-inline int fill_walk(WalkDesc* d, const int* meta, const void* w_all,
+template <class T>
+inline int fill_walk(WalkDescT<T>* d, const int* meta, const void* w_all,
                      const void* b_all, const void* ln, const void* plan) {
   d->n = meta[0];
   if (d->n < 1 || d->n > kMaxLayers) return -101;
@@ -114,7 +146,7 @@ inline int fill_walk(WalkDesc* d, const int* meta, const void* w_all,
   const int* b_off = w_off + d->n;
   for (int i = 0; i < d->n; ++i) {
     if (w_off[i] % 16 != 0) return -103;
-    d->w[i] = static_cast<const __nv_bfloat16*>(w_all) + w_off[i];
+    d->w[i] = static_cast<const T*>(w_all) + w_off[i];
     d->b[i] = static_cast<const float*>(b_all) + b_off[i];
   }
   d->ln = static_cast<const float*>(ln);
@@ -148,19 +180,28 @@ inline int fill_walk_quant(WalkQuant* q, const WalkDesc& d, const int* meta,
   return 0;
 }
 
-struct WalkSmem {
-  __nv_bfloat16* A[2];
+template <class T>
+struct WalkSmemT {
+  T* A[2];                // layer inputs (fp32: both alias C)
   float* C;
-  __nv_bfloat16* W;
+  T* W;
   unsigned char* extra;   // first byte after the walk's buffers
 };
+using WalkSmem = WalkSmemT<__nv_bfloat16>;
 
-__device__ __forceinline__ WalkSmem walk_smem(unsigned char* base) {
-  WalkSmem s;
-  s.A[0] = reinterpret_cast<__nv_bfloat16*>(base);
-  s.A[1] = reinterpret_cast<__nv_bfloat16*>(base + kABytes);
-  s.C = reinterpret_cast<float*>(base + 2 * kABytes);
-  s.W = reinterpret_cast<__nv_bfloat16*>(base + 2 * kABytes + kCBytes);
+template <class T = __nv_bfloat16>
+__device__ __forceinline__ WalkSmemT<T> walk_smem(unsigned char* base) {
+  WalkSmemT<T> s;
+  if constexpr (kF32<T>) {
+    s.C = reinterpret_cast<float*>(base);
+    s.A[0] = s.A[1] = s.C;
+    s.W = reinterpret_cast<float*>(base + kCBytes);
+  } else {
+    s.A[0] = reinterpret_cast<__nv_bfloat16*>(base);
+    s.A[1] = reinterpret_cast<__nv_bfloat16*>(base + kABytes);
+    s.C = reinterpret_cast<float*>(base + 2 * kABytes);
+    s.W = reinterpret_cast<__nv_bfloat16*>(base + 2 * kABytes + kCBytes);
+  }
   s.extra = base + kWalkSmem;
   return s;
 }
@@ -174,6 +215,134 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+
+// A value as the walk of operand type T holds it: rounded to bf16, or fp32
+// as it is.
+template <class T>
+__device__ __forceinline__ float act_round(float x) {
+  if constexpr (kF32<T>) return x;
+  else return bf16_round(x);
+}
+template <class T>
+__device__ __forceinline__ T to_act(float x) {
+  if constexpr (kF32<T>) return x;
+  else return __float2bfloat16_rn(x);
+}
+
+// Eight consecutive values (16 B of bf16, 32 B of fp32) to / from fp32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
+  __align__(16) __nv_bfloat16 h[8];
+  *reinterpret_cast<uint4*>(h) = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(h[e]);
+}
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(p);
+  *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(p + 4);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
+  __align__(16) __nv_bfloat16 h[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16_rn(v[e]);
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+}
+__device__ __forceinline__ void store8(float* p, const float v[8]) {
+  *reinterpret_cast<float4*>(p) = *reinterpret_cast<const float4*>(v);
+  *reinterpret_cast<float4*>(p + 4) = *reinterpret_cast<const float4*>(v + 4);
+}
+
+// ------------------------------------------------------------ products ----
+//
+// One warp-level product step per operand type: fragments of A (16 x kStep,
+// layout LA) and B (kStep x 16, row-major) from shared memory, accumulated
+// into a 16 x 16 fp32 fragment. bf16: one m16n16k16 MMA. fp32: 3xTF32 on
+// m16n16k8 (see the header): the split happens once per fragment load.
+template <class T, class LA = nvcuda::wmma::row_major>
+struct Mma;
+
+template <class LA>
+struct Mma<__nv_bfloat16, LA> {
+  static constexpr int kStep = 16;
+  using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
+                                     float>;
+  struct A {
+    nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
+                           __nv_bfloat16, LA> f;
+  };
+  struct B {
+    nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16,
+                           __nv_bfloat16, nvcuda::wmma::row_major> f;
+  };
+  static __device__ __forceinline__ void load(A& a, const __nv_bfloat16* p,
+                                              int ld) {
+    nvcuda::wmma::load_matrix_sync(a.f, p, ld);
+  }
+  static __device__ __forceinline__ void load(B& b, const __nv_bfloat16* p,
+                                              int ld) {
+    nvcuda::wmma::load_matrix_sync(b.f, p, ld);
+  }
+  static __device__ __forceinline__ void mma(Acc& c, const A& a, const B& b) {
+    nvcuda::wmma::mma_sync(c, a.f, b.f, c);
+  }
+};
+
+// hi = tf32(x), lo = tf32(x - hi) for every element of a loaded fragment.
+template <class F>
+__device__ __forceinline__ void split_tf32(F& hi, F& lo) {
+#pragma unroll
+  for (int t = 0; t < hi.num_elements; ++t) {
+    const float x = hi.x[t];
+    const float h = nvcuda::wmma::__float_to_tf32(x);
+    hi.x[t] = h;
+    lo.x[t] = nvcuda::wmma::__float_to_tf32(x - h);
+  }
+}
+
+// c += a * b as 3xTF32: the two cross terms first (the small ones), then
+// hi * hi. The tensor cores add into their accumulator rounding toward zero;
+// over a reduction of thousands of steps (a walk's dX, wgrad's tokens) that
+// bias adds up and, where a gradient sums many terms that cancel, reads as
+// 1e-3 or more. So each step's three products accumulate into a fresh
+// fragment, which joins c by fp32 adds that round to nearest.
+template <class Acc, class FA, class FB>
+__device__ __forceinline__ void mma_3xtf32(Acc& c, const FA& a_hi,
+                                           const FA& a_lo, const FB& b_hi,
+                                           const FB& b_lo) {
+  Acc t;
+  nvcuda::wmma::fill_fragment(t, 0.f);
+  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);
+  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);
+  nvcuda::wmma::mma_sync(t, a_hi, b_hi, t);
+#pragma unroll
+  for (int i = 0; i < t.num_elements; ++i) c.x[i] = __fadd_rn(c.x[i], t.x[i]);
+}
+
+template <class LA>
+struct Mma<float, LA> {
+  static constexpr int kStep = 8;
+  using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 8,
+                                     float>;
+  struct A {
+    nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 8,
+                           nvcuda::wmma::precision::tf32, LA> hi, lo;
+  };
+  struct B {
+    nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 8,
+                           nvcuda::wmma::precision::tf32,
+                           nvcuda::wmma::row_major> hi, lo;
+  };
+  static __device__ __forceinline__ void load(A& a, const float* p, int ld) {
+    nvcuda::wmma::load_matrix_sync(a.hi, p, ld);
+    split_tf32(a.hi, a.lo);
+  }
+  static __device__ __forceinline__ void load(B& b, const float* p, int ld) {
+    nvcuda::wmma::load_matrix_sync(b.hi, p, ld);
+    split_tf32(b.hi, b.lo);
+  }
+  static __device__ __forceinline__ void mma(Acc& c, const A& a, const B& b) {
+    mma_3xtf32(c, a.hi, a.lo, b.hi, b.lo);
+  }
+};
 
 // One posenc column (nn/posenc.py layout): the raw value itself, or
 // sin / cos of value * frequency. Precise sinf/cosf: frequencies reach 2^5
@@ -190,7 +359,8 @@ __device__ __forceinline__ float encode_value(float x, float freq, int kind) {
 // Encoded columns of a walk from raw feature rows: x is (R, d_raw) row-major,
 // the block's rows are r0 .. r0 + kRows - 1 (rows past R and pad lanes
 // encode as 0). Each lane reads its columns' plan once and walks the rows.
-__device__ __forceinline__ void encode_raw(float* C, const WalkDesc& d,
+template <class T>
+__device__ __forceinline__ void encode_raw(float* C, const WalkDescT<T>& d,
                                            const float* __restrict__ x,
                                            int r0, int R, int d_raw) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -223,10 +393,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Row-wise LayerNorm of C's first n_true lanes (one warp per row), written
-// as bf16 into A (out_bf16) or back into C; pad lanes up to pd become 0.
-// With mu_out / r_out the per-row mean and 1 / (std + eps) are kept for a
-// backward pass.
-__device__ __forceinline__ void layernorm_rows(float* C, __nv_bfloat16* A,
+// in the walk's operand type into A (out_bf16; fp32: A is C) or back into
+// C; pad lanes up to pd become 0. With mu_out / r_out the per-row mean and
+// 1 / (std + eps) are kept for a backward pass.
+template <class T>
+__device__ __forceinline__ void layernorm_rows(float* C, T* A,
                                                bool out_bf16, int n_true,
                                                int pd, const float* a,
                                                const float* b,
@@ -251,32 +422,37 @@ __device__ __forceinline__ void layernorm_rows(float* C, __nv_bfloat16* A,
     }
     for (int c = lane; c < pd; c += 32) {
       const float y = c < n_true ? (row[c] - mu) * rr * a[c] + b[c] : 0.f;
-      if (out_bf16) A[r * kALd + c] = __float2bfloat16_rn(y);
+      if (out_bf16) A[r * kALd + c] = to_act<T>(y);
       else row[c] = y;
     }
   }
 }
 
-__device__ __forceinline__ void to_bf16(const float* C, __nv_bfloat16* A,
-                                        int pd) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kRows; r += kWarps)
-    for (int c = lane; c < pd; c += 32)
-      A[r * kALd + c] = __float2bfloat16_rn(C[r * kCLd + c]);
+// C's fp32 tile as the next product's operand in A: rounded to bf16; the
+// fp32 walk's A is C itself, so nothing moves.
+template <class T>
+__device__ __forceinline__ void to_bf16(const float* C, T* A, int pd) {
+  if constexpr (!kF32<T>) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < kRows; r += kWarps)
+      for (int c = lane; c < pd; c += 32)
+        A[r * kALd + c] = __float2bfloat16_rn(C[r * kCLd + c]);
+  }
 }
 
 // Stage weight rows [k0, k0 + rows) of W (pd_out wide) into dst, 16 bytes
-// per cp.async, as one commit group. vshift = log2(pd_out / 8) when that is
-// a power of two (every width of the flagship), else -1.
-__device__ __forceinline__ void load_w_chunk(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* W, int k0,
+// per cp.async, as one commit group. vshift = log2(pd_out / (16 B of T))
+// when that is a power of two (every width of the flagship), else -1.
+template <class T>
+__device__ __forceinline__ void load_w_chunk(T* dst, const T* W, int k0,
                                              int rows, int pd_out,
                                              int vshift) {
-  const int vpr = pd_out >> 3;           // 8 bf16 per 16-byte vector
+  constexpr int kV = 16 / sizeof(T);     // elements per 16-byte vector
+  const int vpr = pd_out / kV;
   for (int v = threadIdx.x; v < rows * vpr; v += kThreads) {
     const int r = vshift >= 0 ? v >> vshift : v / vpr;
-    const int c8 = (v - r * vpr) << 3;
-    cp_async16(dst + r * kWLd + c8, W + (size_t)(k0 + r) * pd_out + c8);
+    const int c = (v - r * vpr) * kV;
+    cp_async16(dst + r * kWLd + c, W + (size_t)(k0 + r) * pd_out + c);
   }
   cp_async_commit();
 }
@@ -284,31 +460,34 @@ __device__ __forceinline__ void load_w_chunk(__nv_bfloat16* dst,
 // One dense layer: C[:, :pd_out] = A_in[:, :pd_in] @ W (+ bias, act).
 // W is staged chunk by chunk into shared memory and read by every warp.
 // Warp w owns the 16-wide column tiles w % 8 and w % 8 + 8 for its
-// kRowBlocksPerWarp 16-row blocks, so each 16-deep step loads
-// kRowBlocksPerWarp A and 2 B fragments for 2 * kRowBlocksPerWarp MMAs.
+// kRowBlocksPerWarp 16-row blocks, so each reduction step (Mma<T>::kStep
+// deep) loads kRowBlocksPerWarp A and 2 B fragments for
+// 2 * kRowBlocksPerWarp products.
 // Epilogue per warp, on its own tiles only: bias and activation, then either
-// rounded to bf16 into A_out (the next layer's input) or kept fp32 in C.
+// rounded to bf16 into A_out (the next layer's input) or kept fp32 in C. The
+// fp32 walk reads and writes C in place (A_in, A_out alias C): the
+// accumulators are stored only after the chunk loop's last barrier.
 // A_out / C are complete for other warps only after the caller's barrier;
 // the first barrier inside the next dense_layer serves for chained layers.
-__device__ __forceinline__ void dense_layer(const __nv_bfloat16* A_in,
-                                            float* C, __nv_bfloat16* A_out,
-                                            __nv_bfloat16* wbuf,
-                                            const __nv_bfloat16* __restrict__ W,
+template <class T>
+__device__ __forceinline__ void dense_layer(const T* A_in, float* C,
+                                            typename NoDeduce<T>::type* A_out,
+                                            T* wbuf, const T* __restrict__ W,
                                             const float* __restrict__ bias,
                                             int pd_in, int pd_out, int act) {
-  using namespace nvcuda;
+  using M = Mma<T>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wc = warp & 7;                             // column tiles wc, wc + 8
   const int rb0 = (warp >> 3) * kRowBlocksPerWarp;     // first row block
   const int nct = pd_out >> 4;
   const bool has0 = wc < nct, has1 = wc + 8 < nct;
-  const int vpr = pd_out >> 3;
+  const int vpr = pd_out / (16 / (int)sizeof(T));
   const int vshift = (vpr & (vpr - 1)) == 0 ? __ffs(vpr) - 1 : -1;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRowBlocksPerWarp][2];
+  typename M::Acc acc[kRowBlocksPerWarp][2];
 #pragma unroll
   for (int i = 0; i < kRowBlocksPerWarp; ++i) {
-    wmma::fill_fragment(acc[i][0], 0.f);
-    wmma::fill_fragment(acc[i][1], 0.f);
+    nvcuda::wmma::fill_fragment(acc[i][0], 0.f);
+    nvcuda::wmma::fill_fragment(acc[i][1], 0.f);
   }
 
   const int nchunks = (pd_in + kWChunk - 1) / kWChunk;
@@ -323,25 +502,23 @@ __device__ __forceinline__ void dense_layer(const __nv_bfloat16* A_in,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* wb = wbuf + (ch & 1) * kWChunk * kWLd;
+    const T* wb = wbuf + (ch & 1) * kWChunk * kWLd;
     const int rows = min(kWChunk, pd_in - ch * kWChunk);
-    // One 16-deep step: kRowBlocksPerWarp A and two B fragments.
+    // One reduction step: kRowBlocksPerWarp A and two B fragments.
     auto step = [&](int kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[kRowBlocksPerWarp];
+      typename M::A fa[kRowBlocksPerWarp];
 #pragma unroll
       for (int i = 0; i < kRowBlocksPerWarp; ++i)
-        wmma::load_matrix_sync(
-            fa[i], A_in + (rb0 + i) * 16 * kALd + ch * kWChunk + kk, kALd);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, wb + kk * kWLd + wc * 16, kWLd);
+        M::load(fa[i], A_in + (rb0 + i) * 16 * kALd + ch * kWChunk + kk, kALd);
+      typename M::B fb;
+      M::load(fb, wb + kk * kWLd + wc * 16, kWLd);
 #pragma unroll
-      for (int i = 0; i < kRowBlocksPerWarp; ++i)
-        wmma::mma_sync(acc[i][0], fa[i], fb, acc[i][0]);
+      for (int i = 0; i < kRowBlocksPerWarp; ++i) M::mma(acc[i][0], fa[i], fb);
       if (has1) {
-        wmma::load_matrix_sync(fb, wb + kk * kWLd + (wc + 8) * 16, kWLd);
+        M::load(fb, wb + kk * kWLd + (wc + 8) * 16, kWLd);
 #pragma unroll
         for (int i = 0; i < kRowBlocksPerWarp; ++i)
-          wmma::mma_sync(acc[i][1], fa[i], fb, acc[i][1]);
+          M::mma(acc[i][1], fa[i], fb);
       }
     };
     if (has0) {
@@ -349,9 +526,9 @@ __device__ __forceinline__ void dense_layer(const __nv_bfloat16* A_in,
       // step's fragment loads under the previous step's MMAs.
       if (rows == kWChunk) {
 #pragma unroll
-        for (int kk = 0; kk < kWChunk; kk += 16) step(kk);
+        for (int kk = 0; kk < kWChunk; kk += M::kStep) step(kk);
       } else {
-        for (int kk = 0; kk < rows; kk += 16) step(kk);
+        for (int kk = 0; kk < rows; kk += M::kStep) step(kk);
       }
     }
     __syncthreads();
@@ -363,8 +540,9 @@ __device__ __forceinline__ void dense_layer(const __nv_bfloat16* A_in,
 #pragma unroll
     for (int j = 0; j < 2; ++j)
       if (j == 0 || has1)
-        wmma::store_matrix_sync(C + (rb0 + i) * 16 * kCLd + (wc + 8 * j) * 16,
-                                acc[i][j], kCLd, wmma::mem_row_major);
+        nvcuda::wmma::store_matrix_sync(
+            C + (rb0 + i) * 16 * kCLd + (wc + 8 * j) * 16, acc[i][j], kCLd,
+            nvcuda::wmma::mem_row_major);
   __syncwarp();
   const int c0 = (lane & 1) * 8;
 #pragma unroll
@@ -376,31 +554,30 @@ __device__ __forceinline__ void dense_layer(const __nv_bfloat16* A_in,
       const int col = (wc + 8 * j) * 16 + c0;
       float* p = C + r * kCLd + col;
       float v[8];
-      *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(p);
-      *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(p + 4);
+      load8(p, v);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         if (bias) v[e] += bias[col + e];
         if (act == 1) v[e] = fmaxf(v[e], 0.f);
       }
-      if (A_out) {
-        __align__(16) __nv_bfloat16 h[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16_rn(v[e]);
-        *reinterpret_cast<uint4*>(A_out + r * kALd + col) =
-            *reinterpret_cast<const uint4*>(h);
+      if constexpr (kF32<T>) {
+        store8(p, v);              // fp32: the next layer reads C unrounded
+      } else if (A_out) {
+        store8(A_out + r * kALd + col, v);
       } else {
-        *reinterpret_cast<float4*>(p) = *reinterpret_cast<const float4*>(v);
-        *reinterpret_cast<float4*>(p + 4) = *reinterpret_cast<const float4*>(v + 4);
+        store8(p, v);
       }
     }
   }
 }
 
 // Runs a walk on the encoded fp32 tile in C (pad lanes zero). The output
-// (pd[n] lanes) is left fp32 in C, or, with out_bf16, rounded to bf16 into
-// A[0] (the output LayerNorm writes it there directly); ends on a barrier.
-__device__ __forceinline__ void run_walk(const WalkSmem& s, const WalkDesc& d,
+// (pd[n] lanes) is left fp32 in C, or, with out_bf16, as the next product's
+// operand in A[0] (bf16: rounded there by the output LayerNorm; fp32: C
+// itself); ends on a barrier.
+template <class T>
+__device__ __forceinline__ void run_walk(const WalkSmemT<T>& s,
+                                         const WalkDescT<T>& d,
                                          bool out_bf16 = false) {
   const int pd0 = d.pd[0], pdn = d.pd[d.n];
   if (d.has_li) layernorm_rows(s.C, s.A[0], true, d.d_enc, pd0, d.ln, d.ln + pd0);
@@ -605,7 +782,8 @@ __device__ __forceinline__ void run_walk_q(const WalkSmem& s, const WalkDesc& d,
   q8* Q[2] = {reinterpret_cast<q8*>(s.A[0]), reinterpret_cast<q8*>(s.A[1])};
   q8* wbuf = reinterpret_cast<q8*>(s.W);
   if (d.has_li) {
-    layernorm_rows(s.C, nullptr, false, d.d_enc, pd0, d.ln, d.ln + pd0);
+    layernorm_rows<__nv_bfloat16>(s.C, nullptr, false, d.d_enc, pd0, d.ln,
+                                  d.ln + pd0);
     __syncthreads();
   }
   {

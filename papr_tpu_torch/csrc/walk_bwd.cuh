@@ -5,12 +5,14 @@
 // It is papr_tpu/ops/fused_mlp.py::walk_body_bwd (with _ln_bwd and
 // _pe_freq_bwd) on one tile of kRows tokens, after a forward recompute that
 // keeps what the reverse walk needs. Rounding points are the TPU kernel's:
-// each layer's input hs[i] in bf16, dz = g * act'(.) rounded to bf16 before
-// both the dW and the dX product, fp32 accumulators, every gradient fp32.
+// each layer's input hs[i] in the operand type T, dz = g * act'(.) rounded
+// to T before both the dW and the dX product, fp32 accumulators, every
+// gradient fp32. With T = float (the fp32 walk) nothing is rounded: the
+// stash holds fp32 hs / dz (twice the bytes) and the products are 3xTF32.
 //
 // Where each piece goes:
-//   * the walk's inputs hs[i] and the bf16 dz[i] go to a device-memory
-//     stash, one (N, pd) bf16 matrix per layer, row = the token's stash row;
+//   * the walk's inputs hs[i] and dz[i] go to a device-memory stash, one
+//     (N, pd) matrix of T per layer, row = the token's stash row;
 //     dW_i = hs_i^T dz_i over all N tokens is formed afterwards by the
 //     split-K reduction kernel of wgrad.cu (a 256 x 256 fp32 partial per
 //     block would not fit in shared memory);
@@ -31,21 +33,25 @@
 
 namespace papr {
 
-struct WalkBwd {
-  const __nv_bfloat16* wt[kMaxLayers];  // W_i^T, (pd[i+1], pd[i]) input-major
-  __nv_bfloat16* hs[kMaxLayers + 1];    // stash of layer inputs, (N, width)
-  __nv_bfloat16* dz[kMaxLayers + 1];    // stash of bf16 output grads
+template <class T>
+struct WalkBwdT {
+  const T* wt[kMaxLayers];              // W_i^T, (pd[i+1], pd[i]) input-major
+  T* hs[kMaxLayers + 1];                // stash of layer inputs, (N, width)
+  T* dz[kMaxLayers + 1];                // stash of output grads (rounded to T)
   int b_off[kMaxLayers];                // db_i offset in a partial row
   int bias_len;                         // sum of pd[1..n]
   float* part;                          // (blocks, part_w) fp32 partial sums
   int part_w;
   float* scratch;                       // (blocks, kRows * (pd[0] + pd[n]))
 };
+using WalkBwd = WalkBwdT<__nv_bfloat16>;
 
 // Partial row layout: [db_0 .. db_{n-1} | ln_in a, b (pd[0] each) |
 // ln_out a, b (pd[n] each) | caller's extras]; the same layout as the
 // wrapper's packed biases followed by its packed LayerNorm table.
-inline int fill_walk_bwd(WalkBwd* b, const WalkDesc& d, const int* meta,
+template <class T>
+inline int fill_walk_bwd(WalkBwdT<T>* b, const WalkDescT<T>& d,
+                         const int* meta,
                          const void* wt_all, void* stash,
                          const long long* stash_off, int n_stash, float* part,
                          int part_w, float* scratch) {
@@ -54,14 +60,14 @@ inline int fill_walk_bwd(WalkBwd* b, const WalkDesc& d, const int* meta,
   const int* b_off = w_off + d.n;
   if (n_stash < d.n || n_stash > kMaxLayers + 1) return -111;
   for (int i = 0; i < d.n; ++i) {
-    b->wt[i] = static_cast<const __nv_bfloat16*>(wt_all) + w_off[i];
+    b->wt[i] = static_cast<const T*>(wt_all) + w_off[i];
     b->b_off[i] = b_off[i];
   }
   b->bias_len = b_off[d.n - 1] + pd[d.n];
   for (int i = 0; i < n_stash; ++i) {
     if (stash_off[i] % 8 != 0 || stash_off[n_stash + i] % 8 != 0) return -112;
-    b->hs[i] = static_cast<__nv_bfloat16*>(stash) + stash_off[i];
-    b->dz[i] = static_cast<__nv_bfloat16*>(stash) + stash_off[n_stash + i];
+    b->hs[i] = static_cast<T*>(stash) + stash_off[i];
+    b->dz[i] = static_cast<T*>(stash) + stash_off[n_stash + i];
   }
   if (part_w < b->bias_len + 2 * pd[0] + 2 * pd[d.n]) return -113;
   b->part = part;
@@ -81,8 +87,9 @@ struct TileCtx {
   float* st;
 };
 
-__device__ __forceinline__ TileCtx tile_ctx(const WalkDesc& d,
-                                            const WalkBwd& b, size_t row0,
+template <class T>
+__device__ __forceinline__ TileCtx tile_ctx(const WalkDescT<T>& d,
+                                            const WalkBwdT<T>& b, size_t row0,
                                             float* st) {
   const int pd0 = d.pd[0], pdn = d.pd[d.n];
   float* base = b.scratch + (size_t)blockIdx.x * kRows * (pd0 + pdn);
@@ -95,15 +102,16 @@ __device__ __forceinline__ TileCtx tile_ctx(const WalkDesc& d,
   return c;
 }
 
-// A (kRows x pd) bf16 tile -> stash rows [row0, row0 + kRows), 16 B a lane.
-__device__ __forceinline__ void stash_tile(const __nv_bfloat16* A,
-                                           __nv_bfloat16* dst, size_t row0,
+// A (kRows x pd) tile of T -> stash rows [row0, row0 + kRows), 16 B a lane.
+template <class T>
+__device__ __forceinline__ void stash_tile(const T* A, T* dst, size_t row0,
                                            int pd) {
-  const int vpr = pd >> 3;
+  constexpr int kV = 16 / sizeof(T);
+  const int vpr = pd / kV;
   for (int v = threadIdx.x; v < kRows * vpr; v += kThreads) {
-    const int r = v / vpr, c8 = (v - r * vpr) << 3;
-    *reinterpret_cast<uint4*>(dst + (row0 + r) * pd + c8) =
-        *reinterpret_cast<const uint4*>(A + r * kALd + c8);
+    const int r = v / vpr, c = (v - r * vpr) * kV;
+    uint4 u = *reinterpret_cast<const uint4*>(A + r * kALd + c);
+    *reinterpret_cast<uint4*>(dst + (row0 + r) * pd + c) = u;
   }
 }
 
@@ -126,10 +134,12 @@ __device__ __forceinline__ void colsum_add(const float* C, int pd,
 
 // Forward walk on the encoded fp32 tile in C (complete, pad lanes 0), as
 // run_walk, keeping what walk_bwd needs. Leaves the output in C (fp32) or,
-// with out_bf16, rounded to bf16 in A[0]; ends on a barrier.
-__device__ __forceinline__ void walk_fwd_stash(const WalkSmem& s,
-                                               const WalkDesc& d,
-                                               const WalkBwd& b,
+// with out_bf16, as the next product's operand in A[0] (bf16: rounded; fp32:
+// C itself); ends on a barrier.
+template <class T>
+__device__ __forceinline__ void walk_fwd_stash(const WalkSmemT<T>& s,
+                                               const WalkDescT<T>& d,
+                                               const WalkBwdT<T>& b,
                                                const TileCtx& x,
                                                bool out_bf16) {
   const int pd0 = d.pd[0], pdn = d.pd[d.n];
@@ -207,8 +217,11 @@ __device__ __forceinline__ void ln_bwd(float* C, const float* xsrc,
 // Reverse walk: C holds the gradient of the walk output (fp32, pd[n] lanes,
 // pad lanes 0, complete). Leaves the gradient of the encoding in C (pd[0]
 // lanes); parameter gradients go to the stash and the partial row.
-__device__ __forceinline__ void walk_bwd(const WalkSmem& s, const WalkDesc& d,
-                                         const WalkBwd& b, const TileCtx& x) {
+template <class T>
+__device__ __forceinline__ void walk_bwd(const WalkSmemT<T>& s,
+                                         const WalkDescT<T>& d,
+                                         const WalkBwdT<T>& b,
+                                         const TileCtx& x) {
   const int n = d.n, pd0 = d.pd[0], pdn = d.pd[n];
   const int L = b.bias_len;
   if (d.has_lo)
@@ -217,30 +230,28 @@ __device__ __forceinline__ void walk_bwd(const WalkSmem& s, const WalkDesc& d,
   for (int l = n - 1; l >= 0; --l) {
     const int po = d.pd[l + 1];
     const int act = l == n - 1 ? d.last_act : d.act;
-    const __nv_bfloat16* hnext = l == n - 1 ? nullptr : b.hs[l + 1];
+    const T* hnext = l == n - 1 ? nullptr : b.hs[l + 1];
     const int vpr = po >> 3;
     for (int v = threadIdx.x; v < kRows * vpr; v += kThreads) {
       const int r = v / vpr, c8 = (v - r * vpr) << 3;
       float* p = s.C + r * kCLd + c8;
-      __align__(16) __nv_bfloat16 hn[8];
-      if (act == 1 && hnext)
-        *reinterpret_cast<uint4*>(hn) = *reinterpret_cast<const uint4*>(
-            hnext + (x.row0 + r) * po + c8);
-      __align__(16) __nv_bfloat16 h[8];
+      float hn[8];
+      if (act == 1 && hnext) load8(hnext + (x.row0 + r) * po + c8, hn);
+      float h[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         float g = p[e];
         if (act == 1) {
-          const float a = hnext ? __bfloat162float(hn[e]) : x.zs[r * pdn + c8 + e];
+          const float a = hnext ? hn[e] : x.zs[r * pdn + c8 + e];
           if (!(a > 0.f)) g = 0.f;
         }
         p[e] = g;
-        h[e] = __float2bfloat16_rn(g);
+        h[e] = g;
       }
-      *reinterpret_cast<uint4*>(s.A[0] + r * kALd + c8) =
-          *reinterpret_cast<const uint4*>(h);
-      *reinterpret_cast<uint4*>(b.dz[l] + (x.row0 + r) * po + c8) =
-          *reinterpret_cast<const uint4*>(h);
+      // The dX product's operand (fp32: A[0] is C, which holds it already)
+      // and the dW stash, both rounded to T.
+      if constexpr (!kF32<T>) store8(s.A[0] + r * kALd + c8, h);
+      store8(b.dz[l] + (x.row0 + r) * po + c8, h);
     }
     __syncthreads();
     colsum_add(s.C, po, x.part + b.b_off[l]);
@@ -255,8 +266,8 @@ __device__ __forceinline__ void walk_bwd(const WalkSmem& s, const WalkDesc& d,
 // _pe_freq_bwd in place: C[r][c] *= d enc_c / d x_src(c) over the encoded
 // columns (1 for raw columns, freq cos / -freq sin for sin / cos columns).
 // src_val(r, src) returns the source value of row r.
-template <class SrcVal>
-__device__ __forceinline__ void pe_bwd_deriv(float* C, const WalkDesc& d,
+template <class T, class SrcVal>
+__device__ __forceinline__ void pe_bwd_deriv(float* C, const WalkDescT<T>& d,
                                              SrcVal src_val) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pd0 = d.pd[0];

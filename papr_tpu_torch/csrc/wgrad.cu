@@ -18,48 +18,53 @@
 // that share a token range run together and read it from L2. The fp32
 // partial tiles are summed by colsum_kernel (a fixed order: deterministic).
 // Not yet: wgmma / TMA, larger tiles.
+//
+// The fp32 form (the stashes of the fp32 walk backwards, use_amp: false) is
+// the same kernel on fp32 operands with walk.cuh's 3xTF32 products
+// (m16n16k8, three MMAs per step); it stages 16-token slices, so its shared
+// memory is the bf16 form's byte for byte.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "walk.cuh"
 
 namespace {
 
+using papr::cp_async16;
+using papr::Mma;
+
 constexpr int kT = 64;            // output tile edge
-constexpr int kK = 32;            // tokens per staged slice
-constexpr int kLdS = kT + 8;      // staged bf16 leading dim
+constexpr int kLdS = kT + 8;      // staged leading dim
 constexpr int kLdC = kT + 4;      // epilogue fp32 leading dim
 constexpr int kThreadsW = 128;
+// Tokens per staged slice: 64 bytes of each staged column.
+template <class Op>
+constexpr int kK = 64 / sizeof(Op);
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// Stage rows [n, n + kK) of a (N, width) bf16 matrix, columns [c0, c0 + kT),
-// zero outside [0, n_end) x [0, width).
-__device__ __forceinline__ void stage(__nv_bfloat16 (*dst)[kLdS],
-                                      const __nv_bfloat16* src, int width,
-                                      int n, int n_end, int c0) {
-  for (int v = threadIdx.x; v < kK * (kT / 8); v += kThreadsW) {
-    const int r = v / (kT / 8), c8 = (v % (kT / 8)) * 8;
-    if (n + r < n_end && c0 + c8 < width)
-      cp_async16(&dst[r][c8], src + (size_t)(n + r) * width + c0 + c8);
+// Stage rows [n, n + kK) of a (N, width) matrix of Op, columns
+// [c0, c0 + kT), zero outside [0, n_end) x [0, width).
+template <class Op>
+__device__ __forceinline__ void stage(Op (*dst)[kLdS], const Op* src,
+                                      int width, int n, int n_end, int c0) {
+  constexpr int kV = 16 / sizeof(Op);          // elements per 16 B
+  for (int v = threadIdx.x; v < kK<Op> * (kT / kV); v += kThreadsW) {
+    const int r = v / (kT / kV), c = (v % (kT / kV)) * kV;
+    if (n + r < n_end && c0 + c < width)
+      cp_async16(&dst[r][c], src + (size_t)(n + r) * width + c0 + c);
     else
-      *reinterpret_cast<uint4*>(&dst[r][c8]) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(&dst[r][c]) = make_uint4(0, 0, 0, 0);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreadsW)
-wgrad_kernel(const __nv_bfloat16* __restrict__ H,
-             const __nv_bfloat16* __restrict__ DZ, int N, int da, int db,
-             int n_per_split, float* __restrict__ part) {
+wgrad_kernel(const Op* __restrict__ H, const Op* __restrict__ DZ, int N,
+             int da, int db, int n_per_split, float* __restrict__ part) {
   using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 Hs[2][kK][kLdS];
-  __shared__ __align__(128) __nv_bfloat16 Ds[2][kK][kLdS];
+  // A = hs^T: element (a, n) sits at Hs[n][a], a column-major tile.
+  using M = Mma<Op, wmma::col_major>;
+  constexpr int KK = kK<Op>;
+  __shared__ __align__(128) Op Hs[2][KK][kLdS];
+  __shared__ __align__(128) Op Ds[2][KK][kLdS];
   __shared__ __align__(128) float Cs[kT][kLdC];
 
   const int tiles_b = (db + kT - 1) / kT;
@@ -69,13 +74,13 @@ wgrad_kernel(const __nv_bfloat16* __restrict__ H,
   const int warp = threadIdx.x >> 5;
   const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  typename M::Acc acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  const int steps = n1 > n0 ? (n1 - n0 + kK - 1) / kK : 0;
+  const int steps = n1 > n0 ? (n1 - n0 + KK - 1) / KK : 0;
   if (steps > 0) {
     stage(Hs[0], H, da, n0, n1, a0);
     stage(Ds[0], DZ, db, n0, n1, b0);
@@ -83,28 +88,25 @@ wgrad_kernel(const __nv_bfloat16* __restrict__ H,
   for (int s = 0; s < steps; ++s) {
     const int buf = s & 1;
     if (s + 1 < steps) {
-      stage(Hs[buf ^ 1], H, da, n0 + (s + 1) * kK, n1, a0);
-      stage(Ds[buf ^ 1], DZ, db, n0 + (s + 1) * kK, n1, b0);
+      stage(Hs[buf ^ 1], H, da, n0 + (s + 1) * KK, n1, a0);
+      stage(Ds[buf ^ 1], DZ, db, n0 + (s + 1) * KK, n1, b0);
       asm volatile("cp.async.wait_group 2;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kK; kk += 16) {
-      // A = hs^T: element (a, n) sits at Hs[n][a], a column-major tile.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
+    for (int kk = 0; kk < KK; kk += M::kStep) {
+      typename M::A fa[2];
+      typename M::B fb[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &Hs[buf][kk][wr + 16 * i], kLdS);
+      for (int i = 0; i < 2; ++i) M::load(fa[i], &Hs[buf][kk][wr + 16 * i], kLdS);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Ds[buf][kk][wc + 16 * j], kLdS);
+      for (int j = 0; j < 2; ++j) M::load(fb[j], &Ds[buf][kk][wc + 16 * j], kLdS);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int j = 0; j < 2; ++j) M::mma(acc[i][j], fa[i], fb[j]);
     }
     __syncthreads();
   }
@@ -143,20 +145,34 @@ extern "C" int papr_colsum(const float* part, int rows, int cols, float* out,
   return (int)cudaGetLastError();
 }
 
+template <class Op>
+static int launch_wgrad(const void* H, const void* DZ, int N, int da, int db,
+                        int splits, float* part, float* out, void* stream) {
+  if (N <= 0 || da <= 0 || db <= 0 || da % 8 || db % 8 || splits <= 0)
+    return -402;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per = ((N + splits - 1) / splits + kK<Op> - 1) / kK<Op> * kK<Op>;
+  const dim3 grid(((da + kT - 1) / kT) * ((db + kT - 1) / kT), splits);
+  wgrad_kernel<Op><<<grid, kThreadsW, 0, s>>>(static_cast<const Op*>(H),
+                                              static_cast<const Op*>(DZ), N,
+                                              da, db, per, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return papr_colsum(part, splits, da * db, out, stream);
+}
+
 // out (da, db) fp32 = H^T DZ for H (N, da), DZ (N, db) bf16 row-major, over
 // `splits` token ranges summed through part (splits * da * db fp32).
 extern "C" int papr_wgrad(const void* H, const void* DZ, int N, int da,
                           int db, int splits, float* part, float* out,
                           void* stream) {
-  if (N <= 0 || da <= 0 || db <= 0 || da % 8 || db % 8 || splits <= 0)
-    return -402;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per = ((N + splits - 1) / splits + kK - 1) / kK * kK;
-  const dim3 grid(((da + kT - 1) / kT) * ((db + kT - 1) / kT), splits);
-  wgrad_kernel<<<grid, kThreadsW, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(H),
-      static_cast<const __nv_bfloat16*>(DZ), N, da, db, per, part);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return papr_colsum(part, splits, da * db, out, stream);
+  return launch_wgrad<__nv_bfloat16>(H, DZ, N, da, db, splits, part, out,
+                                     stream);
+}
+
+// The same for fp32 H, DZ (3xTF32 products).
+extern "C" int papr_wgrad_f32(const void* H, const void* DZ, int N, int da,
+                              int db, int splits, float* part, float* out,
+                              void* stream) {
+  return launch_wgrad<float>(H, DZ, N, da, db, splits, part, out, stream);
 }

@@ -65,6 +65,16 @@ SIGNATURES = {
     "papr_fused_scores_bwd": [P] * 8 + [I] * 8 + [F, F, I] + [P] * 10,
 }
 
+# The fp32 forms take their bf16 twin's arguments (pointers to fp32 weights,
+# stashes and outputs where the bf16 form has bf16 ones).
+for _name in ("papr_fused_mlp_fwd", "papr_fused_mlp_bwd",
+              "papr_key_stream_fwd", "papr_key_stream_bwd",
+              "papr_value_stream_fwd", "papr_value_stream_bwd"):
+    _stem, _dir = _name.rsplit("_", 1)
+    SIGNATURES[f"{_stem}_f32_{_dir}"] = SIGNATURES[_name]
+SIGNATURES["papr_attend_eval_f32"] = SIGNATURES["papr_attend_eval"]
+SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
+
 # The int8 forms take their bf16 twin's arguments, then the walk's (two
 # walks': key, then value) int8 weights, inverse-scale rows and dequant rows,
 # then the stream.

@@ -69,7 +69,8 @@ def embed_kqv(params: dict, attn_cfg, k_features, q_features, v_features,
               k_extra=None, q_extra=None, v_extra=None, eps: float = 1e-6,
               policy: Policy = F32, fused: bool = False,
               skip_k: bool = False, skip_v: bool = False,
-              skip_q: bool = False):
+              skip_q: bool = False,
+              dropout_rng: torch.Generator | None = None):
     """Run the three geometric embedders -> (embed_k, embed_q, embed_v).
     Inputs are lists of geometric features (..., K, d_i) (query:
     (..., d_i)). With ``fused`` every embedder runs posenc + LN + dense
@@ -79,18 +80,21 @@ def embed_kqv(params: dict, attn_cfg, k_features, q_features, v_features,
     stacks. ``skip_k`` / ``skip_v`` / ``skip_q`` return that embedding as
     None: the stream kernels embed those tokens themselves
     (``ops/stream_attn.py``, ``ops/stream_feat.py``; ``skip_q`` is the
-    query-folded key stream)."""
+    query-folded key stream). ``dropout_rng`` (training) turns on each
+    embedder's dropout (rate ``embed.*.dropout_ff``); the three draw from it
+    in turn, key, query, value (the JAX package splits its key in three),
+    on the plain path."""
     e = attn_cfg.embed
 
     def run(ff_params, feats, Ls, extra, ff_cfg):
-        if fused:
+        if fused and dropout_rng is None:
             from ..ops.fused_mlp import fused_embedder_apply
             return fused_embedder_apply(ff_params, feats, extra, Ls, e,
                                         ff_cfg, policy)
         x = _encode(feats, Ls, e.embed_type, e.pe_factor, e.pe_mult_factor,
                     extra)
         return feedforward_apply(ff_params, policy.cast(x), ff_cfg,
-                                 ff_cfg.d_ff_out, eps, policy)
+                                 ff_cfg.d_ff_out, eps, policy, dropout_rng)
 
     return (None if skip_k else
             run(params["embed_k"], k_features, e.k_L, k_extra, e.key),

@@ -87,7 +87,7 @@ def random_lpips_params(seed: int = 0, use_real_lins: bool = False,
     """Seeded random backbone (no-torchvision fallback): the shapes and
     scales of the JAX package's ``random_lpips_params`` — N(0, 1) * 0.05
     kernels (drawn HWIO) and biases, U(0, 1) lin heads unless the real ones
-    are asked for. The bits differ from jax.random's."""
+    are asked for. The bits are not the ones jax.random draws."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     convs, in_c = [], 3

@@ -47,9 +47,20 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
 * Training selection reads ``tpu.cull_prefilter`` (default ``approx``, read
   as the exact top-k of the cone lower bounds, see ``ops/tile_cull.py``);
   eval pins ``tpu.cull_prefilter_eval`` like the JAX eval path.
-* Training raises for embedder dropout (``dropout_ff > 0``, ROADMAP.md
-  Queue 1 item 6); a ``tpu.mesh`` of more than one device raises
-  (single-card slice, Queue 1 item 12).
+* Compute dtype: ``use_amp: true`` runs the kernels in bf16. ``use_amp:
+  false`` runs them in fp32 where the kernel has its fp32 form (the fused
+  embedder forward and backward, the one-shot eval attention, the
+  record-native key / value streams forward and backward, ``wgrad``:
+  ``auto``, ``streamrec`` without a folded query, ``embed``, and
+  ``eval_fused: false``); on the card ``stream``, ``true``, ``score`` and
+  ``query_fold`` raise under fp32 (their kernels' fp32 forms are ROADMAP.md
+  Queue 2 item 1). On the CPU every mode runs its plain versions in either
+  dtype.
+* Embedder dropout (``dropout_ff > 0``): a training call given a dropout
+  generator (``train/step.py`` derives one from the seed and the step) takes
+  the plain path with dropout, as the JAX package's ``fusible`` does; eval
+  and render calls keep the kernels (dropout is off there). A ``tpu.mesh``
+  of more than one device raises (single-card slice, Queue 1 item 4).
 * ``int8_eval: true`` -> at eval, under ``streamrec`` with ``eval_fused``
   and no folded query, the one-shot eval attention runs both walks' dense
   stacks in int8 (``attend_eval_i8``), calibrated once per frame by
@@ -274,7 +285,7 @@ def _check_single_device(cfg) -> None:
     if data * rays > 1:
         raise NotImplementedError(
             f"tpu.mesh {data}x{rays}: the multi-device render is ROADMAP.md "
-            "Queue 1 item 12; this port renders on one card")
+            "Queue 1 item 4; this port renders on one card")
 
 
 def resolve_topk_impl(cfg, P: int) -> str:
@@ -349,26 +360,28 @@ def resolve_query_fold(cfg, fa) -> bool:
     return False
 
 
-def _check_train_knobs(cfg) -> None:
-    e = cfg.models.attn.embed
-    if any(float(e[n].dropout_ff) > 0 for n in ("key", "query", "value")):
-        raise NotImplementedError(
-            "embedder dropout (dropout_ff > 0) in training is ROADMAP.md "
-            "Queue 1 item 6")
-
-
-def _kernel_mode(cfg, k: int):
+def _kernel_mode(cfg, k: int, device=None, cdt=None, dropout=False):
     """The attention path of a selection of k points: ``tpu.fused_attn``
-    resolved against what the kernels cover (False: the plain path), and
-    whether the query chain folds into the key stream."""
-    from ..ops.fused_mlp import feedforward_fusible
+    resolved against what the kernels cover (False: the plain path; always
+    for a training call with ``dropout``), and whether the query chain folds
+    into the key stream. On a CUDA ``device`` with fp32 compute ``cdt`` a
+    mode whose kernels have no fp32 form yet raises."""
+    from ..ops.fused_mlp import FP32_TODO, feedforward_fusible
     e = cfg.models.attn.embed
-    fusible = (k <= 64 and not cfg.geoms.point_feats.use_inq
+    fusible = (not dropout and k <= 64 and not cfg.geoms.point_feats.use_inq
                and score_fusible(cfg.models.attn)
                and all(feedforward_fusible(c)
                        for c in (e.key, e.query, e.value)))
     fa = resolve_fused_attn(cfg, fusible)
-    return fa, fa is not False and resolve_query_fold(cfg, fa)
+    qfold = fa is not False and resolve_query_fold(cfg, fa)
+    if (cdt == torch.float32 and device is not None
+            and torch.device(device).type == "cuda"
+            and (fa in ("stream", True, "score") or qfold)):
+        mode = "streamrec + tpu.query_fold" if qfold else repr(fa)
+        raise NotImplementedError(
+            f"tpu.fused_attn: {mode} with use_amp: false on the card: "
+            + FP32_TODO)
+    return fa, qfold
 
 
 def _one_shot_eval(cfg, fa, qfold: bool) -> bool:
@@ -378,7 +391,7 @@ def _one_shot_eval(cfg, fa, qfold: bool) -> bool:
 
 
 def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
-            exact_select: bool = True, quant_params=None):
+            exact_select: bool = True, quant_params=None, dropout_rng=None):
     """Selection + attention + fusion.
 
     rays_o (N, 3), rays_d (N, H, W, 3) on the parameters' device ->
@@ -388,7 +401,9 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
     one-shot eval attention; training (False) takes ``tpu.cull_prefilter``
     and the differentiable key / value streams. ``quant_params``: a frame's
     ``eval_quant_params`` for the int8 one-shot kernel (without it
-    ``tpu.int8_eval`` calibrates on this call's inputs)."""
+    ``tpu.int8_eval`` calibrates on this call's inputs). ``dropout_rng``: a
+    ``torch.Generator`` for embedder dropout (training), which takes the
+    plain path."""
     meta = model_meta(cfg)
     _check_single_device(cfg)
     N, H, W, _ = rays_d.shape
@@ -434,7 +449,8 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
                                            k, eps, chunk) for i in range(N)])
     idx = idx.reshape(N, H, W, k)
 
-    fa, qfold = _kernel_mode(cfg, k)
+    fa, qfold = _kernel_mode(cfg, k, points.device, policy.compute_dtype,
+                             dropout=dropout_rng is not None)
     if fa in ("streamrec", "stream"):
         # The one-shot eval kernel serves streamrec only. tpu.eval_fused:
         # false, a folded query and ``stream`` take the two-kernel eval
@@ -507,7 +523,7 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
     attn_cfg = cfg.models.attn
     ek, eq, ev = embed_kqv(params["attn"], attn_cfg, k_feats, q_feats,
                            v_feats, k_extra, q_extra, v_extra, eps=eps,
-                           policy=policy)
+                           policy=policy, dropout_rng=dropout_rng)
     scores = score_tail(params["attn"], attn_cfg, ek, eq, policy)
     scores = scores * influ.float()
     scores = torch.where(sel_alive, scores, NEG_BIG)
@@ -848,16 +864,18 @@ def mapping_apply(params: dict, cfg, shading_code: torch.Tensor,
 
 
 def forward(params: dict, state: dict, cfg, rays_o, rays_d, c2w=None,
-            shading_code=None, policy: Policy = F32) -> torch.Tensor:
+            shading_code=None, policy: Policy = F32,
+            dropout_rng=None) -> torch.Tensor:
     """Full training forward -> RGB (N, H, W, 3) fp32, differentiable in
-    the parameters (reference models/model.py:494-560)."""
-    _check_train_knobs(cfg)
+    the parameters (reference models/model.py:494-560). ``dropout_rng``: a
+    ``torch.Generator`` that turns embedder dropout on (``dropout_ff > 0``;
+    the plain path)."""
     meta = model_meta(cfg)
     gamma = beta = None
     if shading_code is not None and meta.use_mapping_mlp:
         gamma, beta = mapping_apply(params, cfg, shading_code, policy)
     fused, attn, _ = _attend(params, state, cfg, rays_o, rays_d, policy,
-                             exact_select=False)
+                             exact_select=False, dropout_rng=dropout_rng)
     bkg_attn = attn[..., -1:]
     if meta.use_renderer:
         foreground = render_foreground(params, cfg, fused, gamma, beta, policy)
@@ -904,7 +922,8 @@ def eval_quant_params(params: dict, state: dict, cfg, rays_o, rays_sample,
     meta = model_meta(cfg)
     P = params["points"].shape[0]
     k = meta.select_k
-    fa, qfold = _kernel_mode(cfg, P if (k >= P or k < 0) else k)
+    fa, qfold = _kernel_mode(cfg, P if (k >= P or k < 0) else k,
+                             params["points"].device, policy.compute_dtype)
     if not _one_shot_eval(cfg, fa, qfold):
         return None
     eval_quant_params.calls += 1

@@ -5,7 +5,9 @@ JAX package builds, so converted JAX parameters drop in leaf by leaf. This is
 the unfused path; ``ops/fused_mlp.py`` holds the fused embedder kernel.
 
 Supported layer machinery: ``skip_layers``, ``half_layers``,
-``residual_layers``/``residual_dims`` and torch-style weight normalization.
+``residual_layers``/``residual_dims``, torch-style weight normalization and
+the FeedForward's dropout (training only, from an explicit
+``torch.Generator``).
 Matmuls run in ``policy.compute_dtype`` (bf16 when ``use_amp``); parameters
 are stored fp32.
 """
@@ -154,20 +156,36 @@ def feedforward_init(gen: torch.Generator, d_input: int, d_output: int,
     return p
 
 
+def dropout_keep(gen: torch.Generator, keep: float, shape,
+                 device) -> torch.Tensor:
+    """Bernoulli(keep) mask of ``shape`` drawn from ``gen`` (on ``device``):
+    the one place the FeedForward's dropout draws its randomness."""
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
 def feedforward_apply(params: dict, x: torch.Tensor, ff_cfg, d_output: int,
-                      eps: float = 1e-6, policy: Policy = F32) -> torch.Tensor:
-    """Eval-mode FeedForward (residual only when dims match). Dropout is a
-    training-time op and the port's slice is the render path."""
+                      eps: float = 1e-6, policy: Policy = F32,
+                      dropout_rng: torch.Generator | None = None
+                      ) -> torch.Tensor:
+    """FeedForward (residual only when dims match). With ``dropout_rng``
+    (training) and ``ff_cfg.dropout_ff > 0`` the dense stack's output is
+    dropped out before ``outnorm`` (``papr_tpu/nn/mlp.py``): kept with
+    probability 1 - rate and scaled by 1 / (1 - rate)."""
     def norm(name, t):
         return layernorm_apply(params[name], t, eps) if name in params else t
 
     def body(t):
-        return mlp_apply(
+        t = mlp_apply(
             params["mlp"], t, act_type=ff_cfg.ff_act,
             last_act_type=ff_cfg.ff_last_act, a=ff_cfg.ff_act_a,
             b=ff_cfg.ff_act_b, skip_layers=tuple(ff_cfg.skip_layers),
             residual_layers=tuple(ff_cfg.get("residual_layers", [])),
             policy=policy)
+        rate = float(ff_cfg.dropout_ff)
+        if rate > 0.0 and dropout_rng is not None:
+            keep = dropout_keep(dropout_rng, 1.0 - rate, t.shape, t.device)
+            t = torch.where(keep, t / (1.0 - rate), 0.0).to(t.dtype)
+        return t
 
     if ff_cfg.residual_ff and x.shape[-1] == d_output:
         return norm("outnorm", x + body(norm("innorm", x)))

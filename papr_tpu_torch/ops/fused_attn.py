@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from .fused_mlp import round_up, wgrad
+from .fused_mlp import FP32_TODO, round_up, wgrad
 
 NEG_BIG = -1e30
 
@@ -115,10 +115,8 @@ fused_scores_bwd_plain.calls = 0
 def _pack(embedk, embedq, wk, bk, wq, bq, influ, alive, cdt, what):
     """Checks and kernel layouts shared by both directions."""
     if cdt != torch.bfloat16:
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel runs bf16 compute (use_amp: true); "
-            "fp32 on the card is ROADMAP.md Queue 2 item 2b. Use "
-            "tpu.fused_attn: false for the plain fp32 path.")
+        raise NotImplementedError(f"{what}: the CUDA kernel runs bf16 "
+                                  f"compute (use_amp: true); {FP32_TODO}")
     K, T, Dk = embedk.shape
     Dq = embedq.shape[-1]
     dm = int(wk.shape[0])

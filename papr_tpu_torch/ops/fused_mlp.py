@@ -9,6 +9,12 @@ are the same functions in plain PyTorch, and ``fused_mlp_apply`` joins the
 two directions in an autograd ``Function``. A CPU tensor takes the plain
 version; a CUDA tensor takes the kernel or raises.
 
+The compute dtype picks the kernel, as ``_cdt`` picks the Pallas kernel's
+operand type: bf16 (``use_amp: true``) or fp32 (``use_amp: false``: the
+``_f32`` entry points, the same walk with fp32 operands and activations and
+3xTF32 products, ``csrc/walk.cuh``). ``fused_mlp_f32`` / ``fused_mlp_bwd_f32``
+/ ``wgrad_f32`` count the fp32 kernels' launches.
+
 Numerics follow the TPU kernel's walk (``walk_body_fwd``): the posenc is
 computed in fp32 from the raw features; the input LayerNorm runs on the fp32
 encoding; each dense layer takes operands in the compute dtype, accumulates
@@ -127,6 +133,27 @@ def walk_plain(enc: torch.Tensor, walk: Walk, cdt: torch.dtype,
     return z
 
 
+def walk_relu_margin(enc: torch.Tensor, walk: Walk) -> torch.Tensor:
+    """Per row of an fp32 encoding, how far the walk's relu pattern is from
+    flipping: the smallest |z| / rms(z) over the inputs z of its relus, in
+    the plain fp32 forward. Two fp32 forwards that sum in different orders
+    put a z within ~1e-6 rms of 0 on opposite sides now and then; on a row
+    whose margin is well above that, both forwards switch the same paths on,
+    so a backward kernel can be held to its plain version there at fp32
+    precision."""
+    h = ln_rows(enc, *walk.ln_in) if walk.ln_in is not None else enc
+    n = len(walk.ws)
+    margin = torch.full((enc.shape[0],), float("inf"), device=enc.device)
+    for i, (w, b) in enumerate(zip(walk.ws, walk.bs)):
+        z = h.float() @ w.float() + b.float()
+        act = walk.last_act if i == n - 1 else walk.act
+        if act == "relu":
+            rms = z.square().mean().sqrt().clamp_min(1e-30)
+            margin = torch.minimum(margin, (z.abs() / rms).amin(dim=-1))
+        h = _act(z, act)
+    return margin
+
+
 class WalkQuant(NamedTuple):
     """Int8 form of a walk's dense stack (``ops/stream_attn.py
     quantize_walk``): per layer the int8 weights, input-major (d_i, d_i+1),
@@ -186,9 +213,11 @@ def _plan_rows(cols, pd0: int, device) -> torch.Tensor:
     return plan.reshape(-1).to(device)
 
 
-def pack_walk(walk: Walk, d_enc: int, device) -> tuple:
-    """Kernel layout of a walk: widths padded to 16, all weights in one bf16
-    buffer and biases in one fp32 buffer (zero padding), the LayerNorm
+def pack_walk(walk: Walk, d_enc: int, device,
+              cdt: torch.dtype = torch.bfloat16) -> tuple:
+    """Kernel layout of a walk: widths padded to 16, all weights in one
+    buffer of the compute dtype ``cdt`` (bf16, or fp32 for the fp32 walk)
+    and biases in one fp32 buffer (zero padding), the LayerNorm
     tables, the posenc plan rows, and the int meta row ``csrc/walk.cuh``
     reads. Packed on every call (a few small copies): training rewrites the
     weights in place every step, which no cache key on the tensors' address
@@ -199,8 +228,8 @@ def pack_walk(walk: Walk, d_enc: int, device) -> tuple:
     pd = [round_up(d, _ALIGN) for d in dims]
     w_off, b_off, wparts, bparts, wo, bo = [], [], [], [], 0, 0
     for i, (w, b) in enumerate(zip(walk.ws, walk.bs)):
-        wp = torch.zeros(pd[i], pd[i + 1], dtype=torch.bfloat16, device=device)
-        wp[:dims[i], :dims[i + 1]] = w.to(device=device, dtype=torch.bfloat16)
+        wp = torch.zeros(pd[i], pd[i + 1], dtype=cdt, device=device)
+        wp[:dims[i], :dims[i + 1]] = w.to(device=device, dtype=cdt)
         bp = torch.zeros(pd[i + 1], dtype=torch.float32, device=device)
         bp[:dims[i + 1]] = b.to(device=device, dtype=torch.float32)
         wparts.append(wp.reshape(-1))
@@ -223,15 +252,16 @@ def pack_walk(walk: Walk, d_enc: int, device) -> tuple:
             _plan_rows(walk.cols, pd[0], torch.device(device)), pd)
 
 
-def pack_walk_t(walk: Walk, pd, device) -> torch.Tensor:
-    """The transposed weights W_i^T, each zero-padded to (pd[i+1], pd[i])
-    and laid out at the same offsets as ``pack_walk``'s weights: the reverse
-    walk's dX = dz @ W^T runs through the forward's dense layer on them."""
+def pack_walk_t(walk: Walk, pd, device,
+                cdt: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The transposed weights W_i^T in ``cdt``, each zero-padded to
+    (pd[i+1], pd[i]) and laid out at the same offsets as ``pack_walk``'s
+    weights: the reverse walk's dX = dz @ W^T runs through the forward's
+    dense layer on them."""
     parts = []
     for i, w in enumerate(walk.ws):
-        wt = torch.zeros(pd[i + 1], pd[i], dtype=torch.bfloat16, device=device)
-        wt[:w.shape[1], :w.shape[0]] = w.T.to(device=device,
-                                              dtype=torch.bfloat16)
+        wt = torch.zeros(pd[i + 1], pd[i], dtype=cdt, device=device)
+        wt[:w.shape[1], :w.shape[0]] = w.T.to(device=device, dtype=cdt)
         parts.append(wt.reshape(-1))
     return torch.cat(parts)
 
@@ -296,14 +326,16 @@ def walk_with(walk: Walk, tensors) -> Walk:
 
 class BwdBuffers:
     """Device buffers of one walk backward launch (``csrc/walk_bwd.cuh``):
-    the bf16 stash (one (N, width) matrix per layer input and per layer
-    output gradient, plus a caller's head layer), the per-block partial-sum
-    rows (biases, LayerNorms, then ``extra`` columns) and the per-block fp32
-    scratch. ``reduce`` runs the wgrad / colsum kernels afterwards."""
+    the stash in the compute dtype (one (N, width) matrix per layer input
+    and per layer output gradient, plus a caller's head layer; fp32 for the
+    fp32 walk, twice the bytes), the per-block partial-sum rows (biases,
+    LayerNorms, then ``extra`` columns) and the per-block fp32 scratch.
+    ``reduce`` runs the wgrad / colsum kernels afterwards."""
 
     def __init__(self, pd, N: int, nblk: int, device, head=None,
-                 extra: int = 0):
+                 extra: int = 0, cdt: torch.dtype = torch.bfloat16):
         self.pd, self.N, self.nblk, self.dev = list(pd), N, nblk, device
+        self.cdt = cdt
         n = len(pd) - 1
         self.hs_w = self.pd[:n] + ([head[0]] if head else [])
         self.dz_w = self.pd[1:] + ([head[1]] if head else [])
@@ -312,7 +344,7 @@ class BwdBuffers:
             offs.append(o)
             o += N * w
         self.offs = offs
-        self.stash = torch.empty(o, dtype=torch.bfloat16, device=device)
+        self.stash = torch.empty(o, dtype=cdt, device=device)
         self.off_arg = (ctypes.c_longlong * len(offs))(*offs)
         self.bias_len = sum(self.pd[1:])
         self.extra_off = self.bias_len + 2 * self.pd[0] + 2 * self.pd[-1]
@@ -327,9 +359,10 @@ class BwdBuffers:
         reduced partial row)."""
         from ..kernels import build
         m = len(self.hs_w)
-        base = self.stash.data_ptr()
-        dws = [wgrad(lib, base + 2 * self.offs[i], base + 2 * self.offs[m + i],
-                     self.N, self.hs_w[i], self.dz_w[i], self.dev, stream)
+        base, esz = self.stash.data_ptr(), self.stash.element_size()
+        dws = [wgrad(lib, base + esz * self.offs[i],
+                     base + esz * self.offs[m + i], self.N, self.hs_w[i],
+                     self.dz_w[i], self.dev, stream, self.cdt)
                for i in range(m)]
         psum = torch.empty(self.part_w, dtype=torch.float32, device=self.dev)
         build.check(lib.papr_colsum(self.part.data_ptr(), self.nblk,
@@ -357,10 +390,11 @@ class BwdBuffers:
 
 
 def wgrad(lib, h_ptr: int, dz_ptr: int, N: int, da: int, db: int, dev,
-          stream) -> torch.Tensor:
-    """dW (da, db) fp32 = H^T DZ for bf16 row-major H (N, da), DZ (N, db) at
-    the given device addresses (``csrc/wgrad.cu``: split-K partials summed in
-    a fixed order)."""
+          stream, cdt: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """dW (da, db) fp32 = H^T DZ for row-major H (N, da), DZ (N, db) of
+    ``cdt`` (bf16, or fp32 with 3xTF32 products) at the given device
+    addresses (``csrc/wgrad.cu``: split-K partials summed in a fixed
+    order)."""
     from ..kernels import build
     tiles = -(-da // 64) * -(-db // 64)
     # Enough token ranges for ~2 blocks per SM (132 SMs on an H100), each
@@ -368,27 +402,50 @@ def wgrad(lib, h_ptr: int, dz_ptr: int, N: int, da: int, db: int, dev,
     splits = max(1, min(-(-264 // tiles), -(-N // 256)))
     tmp = torch.empty(splits * da * db, dtype=torch.float32, device=dev)
     out = torch.empty(da, db, dtype=torch.float32, device=dev)
-    build.check(lib.papr_wgrad(h_ptr, dz_ptr, N, da, db, splits,
-                               tmp.data_ptr(), out.data_ptr(), stream),
-                "papr_wgrad")
-    wgrad.launches += 1
+    f32 = cdt == torch.float32
+    name = "papr_wgrad_f32" if f32 else "papr_wgrad"
+    build.check(getattr(lib, name)(h_ptr, dz_ptr, N, da, db, splits,
+                                   tmp.data_ptr(), out.data_ptr(), stream),
+                name)
+    if f32:
+        wgrad_f32.launches += 1
+    else:
+        wgrad.launches += 1
     return out
 
 
 wgrad.launches = 0
 
 
+def wgrad_f32(lib, h_ptr: int, dz_ptr: int, N: int, da: int, db: int, dev,
+              stream) -> torch.Tensor:
+    """``wgrad`` on fp32 operands (``papr_wgrad_f32``); ``launches`` counts
+    that kernel's launches."""
+    return wgrad(lib, h_ptr, dz_ptr, N, da, db, dev, stream, torch.float32)
+
+
+wgrad_f32.launches = 0
+
+
 def c_ints(vals) -> ctypes.Array:
     return (ctypes.c_int * len(vals))(*[int(v) for v in vals])
 
 
-def check_walk_for_kernel(walk: Walk, cdt: torch.dtype, what: str) -> None:
-    """What the CUDA walk takes: bf16 compute, relu/none, widths <= 256."""
-    if cdt != torch.bfloat16:
-        raise NotImplementedError(
-            f"{what}: the CUDA walk runs bf16 compute (use_amp: true); fp32 "
-            "walks on the card are ROADMAP.md Queue 2 item 2b. Use "
-            "tpu.fused_attn: false for the plain fp32 path.")
+# The raise of a kernel whose fp32 form is not written yet.
+FP32_TODO = ("its fp32 form (use_amp: false) is ROADMAP.md Queue 2 item 1 "
+             "(rows 7-10 of PERF.md's kernel table); use tpu.fused_attn: "
+             "auto / streamrec / embed, or false for the plain fp32 path")
+
+
+def check_walk_for_kernel(walk: Walk, cdt: torch.dtype, what: str,
+                          fp32: bool = False) -> None:
+    """What the CUDA walk takes: bf16 compute, or fp32 compute where the
+    caller's kernel has its fp32 form (``fp32``); relu/none; widths <= 256."""
+    if cdt == torch.float32 and not fp32:
+        raise NotImplementedError(f"{what}: {FP32_TODO}")
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"{what}: compute dtype {cdt} (the CUDA "
+                                  "walks run bf16 or fp32)")
     if walk.act not in _ACT_CODES or walk.last_act not in _ACT_CODES:
         raise NotImplementedError(f"{what}: activation {walk.act}/"
                                   f"{walk.last_act}")
@@ -417,28 +474,42 @@ def fused_mlp(x: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
         return fused_mlp_plain(x, walk, cdt)
     from ..kernels import build
 
-    check_walk_for_kernel(walk, cdt, "fused_mlp")
+    check_walk_for_kernel(walk, cdt, "fused_mlp", fp32=True)
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"fused_mlp takes (R, d_raw) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
     x = x.contiguous()
     R, d_raw = x.shape
-    meta, w_all, b_all, ln, plan, _ = pack_walk(walk, len(walk.cols), x.device)
+    meta, w_all, b_all, ln, plan, _ = pack_walk(walk, len(walk.cols), x.device,
+                                                cdt)
     if max(c[0] for c in walk.cols) >= d_raw:
         raise ValueError("posenc plan reads past the raw features")
     d_out = int(walk.ws[-1].shape[1])
-    y = torch.empty(R, d_out, dtype=torch.bfloat16, device=x.device)
-    lib = build.load()
-    rc = lib.papr_fused_mlp_fwd(
+    y = torch.empty(R, d_out, dtype=cdt, device=x.device)
+    f32 = cdt == torch.float32
+    name = "papr_fused_mlp_f32_fwd" if f32 else "papr_fused_mlp_fwd"
+    rc = getattr(build.load(), name)(
         x.data_ptr(), R, d_raw, ctypes.cast(c_ints(meta), ctypes.c_void_p),
         w_all.data_ptr(), b_all.data_ptr(), ln.data_ptr(), plan.data_ptr(),
         y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "papr_fused_mlp_fwd")
-    fused_mlp.launches += 1
+    build.check(rc, name)
+    if f32:
+        fused_mlp_f32.launches += 1
+    else:
+        fused_mlp.launches += 1
     return y
 
 
 fused_mlp.launches = 0
+
+
+def fused_mlp_f32(x: torch.Tensor, walk: Walk) -> torch.Tensor:
+    """``fused_mlp`` on the fp32 walk (the kernel ``fused_mlp_f32``);
+    ``launches`` counts that kernel's launches."""
+    return fused_mlp(x, walk, torch.float32)
+
+
+fused_mlp_f32.launches = 0
 
 
 def fused_mlp_bwd_plain(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
@@ -472,7 +543,7 @@ def fused_mlp_bwd(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
         return fused_mlp_bwd_plain(x, dy, walk, cdt)
     from ..kernels import build
 
-    check_walk_for_kernel(walk, cdt, "fused_mlp backward")
+    check_walk_for_kernel(walk, cdt, "fused_mlp backward", fp32=True)
     x = x.float().contiguous()
     R, d_raw = x.shape
     d_out = int(walk.ws[-1].shape[1])
@@ -481,28 +552,43 @@ def fused_mlp_bwd(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
                          f"{tuple(dy.shape)} {dy.device}")
     dy = dy.float().contiguous()
     dev = x.device
-    meta, w_all, b_all, ln, plan, pd = pack_walk(walk, len(walk.cols), dev)
-    wt_all = pack_walk_t(walk, pd, dev)
+    meta, w_all, b_all, ln, plan, pd = pack_walk(walk, len(walk.cols), dev,
+                                                 cdt)
+    wt_all = pack_walk_t(walk, pd, dev, cdt)
     seg = source_segments(walk.cols, d_raw, dev)
     nblk = -(-R // 64)
-    buf = BwdBuffers(pd, nblk * 64, nblk, dev)
+    buf = BwdBuffers(pd, nblk * 64, nblk, dev, cdt=cdt)
     dx = torch.empty(R, d_raw, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.papr_fused_mlp_bwd(
+    f32 = cdt == torch.float32
+    name = "papr_fused_mlp_f32_bwd" if f32 else "papr_fused_mlp_bwd"
+    rc = getattr(lib, name)(
         x.data_ptr(), R, d_raw, dy.data_ptr(),
         ctypes.cast(c_ints(meta), ctypes.c_void_p), w_all.data_ptr(),
         b_all.data_ptr(), ln.data_ptr(), plan.data_ptr(), wt_all.data_ptr(),
         buf.stash.data_ptr(), ctypes.cast(buf.off_arg, ctypes.c_void_p),
         seg.data_ptr(), dx.data_ptr(), buf.part.data_ptr(), buf.part_w,
         buf.scratch.data_ptr(), stream)
-    build.check(rc, "papr_fused_mlp_bwd")
+    build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
-    fused_mlp_bwd.launches += 1
+    if f32:
+        fused_mlp_bwd_f32.launches += 1
+    else:
+        fused_mlp_bwd.launches += 1
     return dx, buf.walk_grads(walk, dws, psum)
 
 
 fused_mlp_bwd.launches = 0
+
+
+def fused_mlp_bwd_f32(x: torch.Tensor, dy: torch.Tensor, walk: Walk):
+    """``fused_mlp_bwd`` on the fp32 walk (the kernel ``fused_mlp_f32_bwd``
+    and ``wgrad_f32``); ``launches`` counts that kernel's launches."""
+    return fused_mlp_bwd(x, dy, walk, torch.float32)
+
+
+fused_mlp_bwd_f32.launches = 0
 
 
 class FusedMLP(torch.autograd.Function):
@@ -538,8 +624,7 @@ def feedforward_fusible(ff_cfg) -> bool:
             and not tuple(ff_cfg.get("residual_layers", []))
             and not ff_cfg.use_wn
             and not ff_cfg.residual_ff
-            and float(ff_cfg.dropout_ff) == 0.0
-            and not ff_cfg.ff_act_trainable
+                and not ff_cfg.ff_act_trainable
             and ff_cfg.ff_act in ("relu", "none")
             and ff_cfg.ff_last_act in ("relu", "none")
             and float(ff_cfg.ff_act_a) == 1.0

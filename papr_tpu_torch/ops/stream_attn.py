@@ -39,6 +39,13 @@ Numerics follow ``_ase_fwd_kernel``: fp32 geometry and posenc; walks as in
 added in the compute dtype) promoted to fp32; ``qq``, scores and softmax
 fp32; the value output rounded to the compute dtype and back before the
 fuse; an all-dead ray divides by 1 when ``normalize`` holds.
+
+fp32 compute (``use_amp: false``): the one-shot eval attention and the two
+record-native training streams, forward and backward, have fp32 kernels
+(``attend_eval_f32``, ``key_stream_f32_fwd`` / ``_bwd``,
+``value_stream_f32_fwd`` / ``_bwd``: the same kernels on the fp32 walk,
+nothing rounded to bf16); the query-folded key stream does not yet
+(``fused_mlp.FP32_TODO``). The int8 walks run beside bf16 compute only.
 """
 
 from __future__ import annotations
@@ -52,7 +59,8 @@ import torch
 from .fused_mlp import (BwdBuffers, FrameQuant, Walk, WalkQuant, c_ints,
                         check_walk_for_kernel, encode_plain, pack_walk,
                         pack_walk_q, pack_walk_t, round_up, source_segments,
-                        walk_plain, walk_plain_q, walk_tensors, walk_with)
+                        walk_plain, walk_plain_q, walk_relu_margin,
+                        walk_tensors, walk_with)
 
 NEG_BIG = -1e30
 REC_POS, REC_INFLU, REC_ALIVE, REC_FEATS = 0, 3, 4, 5
@@ -183,6 +191,16 @@ def _calibrate_idx(record, idx, rayo, rays, walks, eps, cdt) -> tuple:
     return tuple(out)
 
 
+def _check_int8_cdt(int8: bool, cdt, what: str) -> None:
+    """The int8 kernels keep the bf16 kernels' w_k product and value
+    rounding: they run beside bf16 compute only."""
+    if int8 and cdt != torch.bfloat16:
+        raise NotImplementedError(
+            f"{what}: the int8 walks run beside bf16 compute (use_amp: "
+            "true); with use_amp: false leave tpu.int8_eval / int8_train "
+            "off (ROADMAP.md Queue 3 item 5)")
+
+
 def _run_walk_plain(enc, walk: Walk, cdt, quant: WalkQuant | None):
     return (walk_plain(enc, walk, cdt) if quant is None
             else walk_plain_q(enc, walk, quant))
@@ -259,8 +277,9 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
     from ..kernels import build
 
     _check_score_act(score_act)
-    check_walk_for_kernel(kwalk, cdt, "attend_stream_eval key walk")
-    check_walk_for_kernel(vwalk, cdt, "attend_stream_eval value walk")
+    check_walk_for_kernel(kwalk, cdt, "attend_stream_eval key walk", True)
+    check_walk_for_kernel(vwalk, cdt, "attend_stream_eval value walk", True)
+    _check_int8_cdt(int8, cdt, "attend_stream_eval")
     dev = record.device
     T, K = idx.shape
     P, rp = record.shape
@@ -286,11 +305,13 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
     record = record.contiguous()
     idx = idx.to(torch.int32).contiguous()
     rayo, rays, qq = rayo.contiguous(), rays.contiguous(), qq.contiguous()
-    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
-    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev)
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev,
+                                               cdt)
+    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev,
+                                               cdt)
     dm_pad = round_up(dm, 16)
-    wkT = torch.zeros(kpd[-1], dm_pad, dtype=torch.bfloat16, device=dev)
-    wkT[:d_k_out, :dm] = wk.T.to(device=dev, dtype=torch.bfloat16)
+    wkT = torch.zeros(kpd[-1], dm_pad, dtype=cdt, device=dev)
+    wkT[:d_k_out, :dm] = wk.T.to(device=dev, dtype=cdt)
     bkp = torch.zeros(dm_pad, dtype=torch.float32, device=dev)
     bkp[:dm] = bk.to(device=dev, dtype=torch.float32)
     C = int(vwalk.ws[-1].shape[1])
@@ -320,6 +341,10 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
             *args, *(t.data_ptr() for t in packs), stream)
         build.check(rc, "papr_attend_eval_i8")
         attend_eval_i8.launches += 1
+    elif cdt == torch.float32:
+        build.check(lib.papr_attend_eval_f32(*args, stream),
+                    "papr_attend_eval_f32")
+        attend_eval_f32.launches += 1
     else:
         build.check(lib.papr_attend_eval(*args, stream), "papr_attend_eval")
         attend_eval_idx.launches += 1
@@ -327,6 +352,20 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
 
 
 attend_eval_idx.launches = 0
+
+
+def attend_eval_f32(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
+                    vwalk: Walk, score_act="relu", bkg_score=5.0,
+                    normalize=True, eps=1e-6):
+    """``attend_eval_idx`` on the fp32 walks (the kernel ``attend_eval_f32``
+    in ``csrc/attend_eval.cu``); ``launches`` counts that kernel's
+    launches."""
+    return attend_eval_idx(record, idx, rayo, rays, qq, kwalk, wk, bk, vwalk,
+                           score_act, bkg_score, normalize, eps,
+                           torch.float32)
+
+
+attend_eval_f32.launches = 0
 
 
 def attend_eval_i8(*args, **kwargs):
@@ -376,20 +415,35 @@ def _geometry_km(rec, rayo, rays, eps):
     return sel, proj, v - proj
 
 
-def _walk_rec(rec, rayo, rays, walk: Walk, eps, cdt, detach_pos: bool,
-              int8: bool = False):
-    """Geometry + posenc + walk over every (k, t) token -> (K, T, d_out)
-    fp32. ``detach_pos`` detaches the position FEATURE (the key stream's
-    reference detach); proj / perp keep their gradient to the positions.
-    ``int8``: the int8 walk, calibrated on these inputs."""
+def _rec_encoding(rec, rayo, rays, walk: Walk, eps, detach_pos: bool):
+    """Geometry + posenc of every (k, t) token -> (K * T, d_enc) fp32.
+    ``detach_pos`` detaches the position FEATURE (the key stream's reference
+    detach); proj / perp keep their gradient to the positions."""
     K, T, rp = rec.shape
     sel, proj, perp = _geometry_km(rec, rayo, rays, eps)
     raw_in = torch.cat([sel.detach() if detach_pos else sel, proj, perp,
                         rec[..., REC_FEATS:]], dim=-1)
+    return encode_plain(raw_in.reshape(K * T, -1), walk.cols)
+
+
+def _walk_rec(rec, rayo, rays, walk: Walk, eps, cdt, detach_pos: bool,
+              int8: bool = False):
+    """Geometry + posenc + walk over every (k, t) token -> (K, T, d_out)
+    fp32. ``int8``: the int8 walk, calibrated on these inputs."""
+    K, T, _ = rec.shape
     quant = calibrate_walk(rec, rayo, rays, walk, eps, cdt) if int8 else None
-    y = _run_walk_plain(encode_plain(raw_in.reshape(K * T, -1), walk.cols),
+    y = _run_walk_plain(_rec_encoding(rec, rayo, rays, walk, eps, detach_pos),
                         walk, cdt, quant)
     return y.reshape(K, T, -1)
+
+
+@torch.no_grad()
+def rec_relu_margin(rec, rayo, rays, walk: Walk, eps=1e-6) -> torch.Tensor:
+    """``fused_mlp.walk_relu_margin`` of a stream's walk per ray: the
+    smallest over the ray's K tokens, (T,)."""
+    K, T, _ = rec.shape
+    enc = _rec_encoding(rec, rayo, rays, walk, eps, False)
+    return walk_relu_margin(enc, walk).reshape(K, T).amin(dim=0)
 
 
 def _score_softmax(y, qq, wk, bk, influ, alive, score_act, bkg_score, cdt,
@@ -503,15 +557,16 @@ def _nsrc(walk: Walk) -> int:
     return max(N_GEO, max(int(c[0]) for c in walk.cols) + 1)
 
 
-def _wk_packs(wk, bk, pdn, dev):
+def _wk_packs(wk, bk, pdn, dev, cdt=torch.bfloat16):
     """w_k as the forward's (pd_out, dm_pad) and the backward's
-    (dm_pad, pd_out) input-major bf16 layouts, and the padded fp32 bias."""
+    (dm_pad, pd_out) input-major layouts in ``cdt``, and the padded fp32
+    bias."""
     dm, d_out = wk.shape
     dm_pad = round_up(dm, 16)
-    wkf = torch.zeros(pdn, dm_pad, dtype=torch.bfloat16, device=dev)
-    wkf[:d_out, :dm] = wk.T.to(device=dev, dtype=torch.bfloat16)
-    wkb = torch.zeros(dm_pad, pdn, dtype=torch.bfloat16, device=dev)
-    wkb[:dm, :d_out] = wk.to(device=dev, dtype=torch.bfloat16)
+    wkf = torch.zeros(pdn, dm_pad, dtype=cdt, device=dev)
+    wkf[:d_out, :dm] = wk.T.to(device=dev, dtype=cdt)
+    wkb = torch.zeros(dm_pad, pdn, dtype=cdt, device=dev)
+    wkb[:dm, :d_out] = wk.to(device=dev, dtype=cdt)
     bkp = torch.zeros(dm_pad, dtype=torch.float32, device=dev)
     bkp[:dm] = bk.to(device=dev, dtype=torch.float32)
     return wkf, wkb, bkp, dm_pad
@@ -531,7 +586,8 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
     from ..kernels import build
 
     _check_score_act(score_act)
-    check_walk_for_kernel(kwalk, cdt, "key stream")
+    check_walk_for_kernel(kwalk, cdt, "key stream", fp32=True)
+    _check_int8_cdt(int8, cdt, "key stream")
     _check_rec_args(rec, rayo, rays, (kwalk,), "key stream")
     K, T, rp = rec.shape
     dm = int(wk.shape[0])
@@ -540,8 +596,9 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
     dev = rec.device
     rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
     qq = qq.float().contiguous()
-    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
-    wkf, _, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev,
+                                               cdt)
+    wkf, _, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev, cdt)
     attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     raw = torch.empty(T, K, dtype=torch.float32, device=dev)
     ss = torch.empty(T, K, dtype=torch.float32, device=dev)
@@ -561,6 +618,10 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
                                         stream)
         build.check(rc, "papr_key_stream_i8_fwd")
         key_stream_i8_fwd.launches += 1
+    elif cdt == torch.float32:
+        build.check(lib.papr_key_stream_f32_fwd(*args, stream),
+                    "papr_key_stream_f32_fwd")
+        key_stream_f32_fwd.launches += 1
     else:
         build.check(lib.papr_key_stream_fwd(*args, stream),
                     "papr_key_stream_fwd")
@@ -569,6 +630,18 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
 
 
 key_stream_fwd.launches = 0
+
+
+def key_stream_f32_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
+                       score_act="relu", bkg_score=5.0, eps=1e-6):
+    """``key_stream_fwd`` on the fp32 walk (the kernel
+    ``key_stream_f32_fwd`` in ``csrc/key_stream.cu``); ``launches`` counts
+    that kernel's launches."""
+    return key_stream_fwd(rec, rayo, rays, qq, kwalk, wk, bk, score_act,
+                          bkg_score, eps, torch.float32)
+
+
+key_stream_f32_fwd.launches = 0
 
 
 def key_stream_i8_fwd(*args, **kwargs):
@@ -594,7 +667,7 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
     from ..kernels import build
 
     _check_score_act(score_act)
-    check_walk_for_kernel(kwalk, cdt, "key stream backward")
+    check_walk_for_kernel(kwalk, cdt, "key stream backward", fp32=True)
     _check_rec_args(rec, rayo, rays, (kwalk,), "key stream backward")
     K, T, rp = rec.shape
     dm = int(wk.shape[0])
@@ -603,21 +676,24 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
     qq = qq.float().contiguous()
     raw, ss = raw.contiguous(), ss.contiguous()
     dattn = dattn.float().contiguous()
-    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
-    kwt = pack_walk_t(kwalk, kpd, dev)
-    wkf, wkb, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev,
+                                               cdt)
+    kwt = pack_walk_t(kwalk, kpd, dev, cdt)
+    wkf, wkb, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev, cdt)
     nsrc = _nsrc(kwalk)
     seg = source_segments(kwalk.cols, nsrc, dev)
     nblk = -(-T // 64)
     buf = BwdBuffers(kpd, K * nblk * 64, nblk, dev, head=(kpd[-1], dm_pad),
-                     extra=dm_pad)
+                     extra=dm_pad, cdt=cdt)
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     dqq = torch.zeros(T, dm, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.papr_key_stream_bwd(
+    f32 = cdt == torch.float32
+    name = "papr_key_stream_f32_bwd" if f32 else "papr_key_stream_bwd"
+    rc = getattr(lib, name)(
         rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
         qq.data_ptr(), dm, float(math.sqrt(dm)), raw.data_ptr(),
         ss.data_ptr(), dattn.data_ptr(),
@@ -629,9 +705,12 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
         seg.data_ptr(), nsrc, drec.data_ptr(), drayo.data_ptr(),
         drays.data_ptr(), dqq.data_ptr(), buf.part.data_ptr(), buf.part_w,
         buf.scratch.data_ptr(), stream)
-    build.check(rc, "papr_key_stream_bwd")
+    build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
-    key_stream_bwd.launches += 1
+    if f32:
+        key_stream_f32_bwd.launches += 1
+    else:
+        key_stream_bwd.launches += 1
     d_out = int(wk.shape[1])
     dwk = dws[-1][:d_out, :dm].T
     dbk = psum[buf.extra_off:buf.extra_off + dm]
@@ -640,6 +719,17 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
 
 
 key_stream_bwd.launches = 0
+
+
+def key_stream_f32_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss,
+                       dattn, score_act="relu", bkg_score=5.0, eps=1e-6):
+    """``key_stream_bwd`` on the fp32 walk (the kernel
+    ``key_stream_f32_bwd``); ``launches`` counts that kernel's launches."""
+    return key_stream_bwd(rec, rayo, rays, qq, kwalk, wk, bk, raw, ss, dattn,
+                          score_act, bkg_score, eps, torch.float32)
+
+
+key_stream_f32_bwd.launches = 0
 
 
 class KeyStream(torch.autograd.Function):
@@ -728,7 +818,8 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
                                   eps, cdt, int8)
     from ..kernels import build
 
-    check_walk_for_kernel(vwalk, cdt, "value stream")
+    check_walk_for_kernel(vwalk, cdt, "value stream", fp32=True)
+    _check_int8_cdt(int8, cdt, "value stream")
     _check_rec_args(rec, rayo, rays, (vwalk,), "value stream")
     K, T, rp = rec.shape
     if tuple(attn.shape) != (T, K + 1):
@@ -736,7 +827,8 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
     dev = rec.device
     rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
     attn = attn.float().contiguous()
-    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev)
+    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev,
+                                               cdt)
     fused = torch.empty(T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32,
                         device=dev)
     args = (rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
@@ -752,6 +844,10 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
                                           stream)
         build.check(rc, "papr_value_stream_i8_fwd")
         value_stream_i8_fwd.launches += 1
+    elif cdt == torch.float32:
+        build.check(lib.papr_value_stream_f32_fwd(*args, stream),
+                    "papr_value_stream_f32_fwd")
+        value_stream_f32_fwd.launches += 1
     else:
         build.check(lib.papr_value_stream_fwd(*args, stream),
                     "papr_value_stream_fwd")
@@ -760,6 +856,18 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
 
 
 value_stream_fwd.launches = 0
+
+
+def value_stream_f32_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
+                         eps=1e-6):
+    """``value_stream_fwd`` on the fp32 walk (the kernel
+    ``value_stream_f32_fwd`` in ``csrc/value_stream.cu``); ``launches``
+    counts that kernel's launches."""
+    return value_stream_fwd(rec, rayo, rays, attn, vwalk, normalize, eps,
+                            torch.float32)
+
+
+value_stream_f32_fwd.launches = 0
 
 
 def value_stream_i8_fwd(*args, **kwargs):
@@ -782,7 +890,7 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
                                       normalize, eps, cdt)
     from ..kernels import build
 
-    check_walk_for_kernel(vwalk, cdt, "value stream backward")
+    check_walk_for_kernel(vwalk, cdt, "value stream backward", fp32=True)
     _check_rec_args(rec, rayo, rays, (vwalk,), "value stream backward")
     K, T, rp = rec.shape
     C = int(vwalk.ws[-1].shape[1])
@@ -792,19 +900,22 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
     dfused = dfused.float().contiguous()
     if tuple(dfused.shape) != (T, C):
         raise ValueError(f"value stream backward: dfused want ({T}, {C})")
-    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev)
-    vwt = pack_walk_t(vwalk, vpd, dev)
+    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev,
+                                               cdt)
+    vwt = pack_walk_t(vwalk, vpd, dev, cdt)
     nsrc = _nsrc(vwalk)
     seg = source_segments(vwalk.cols, nsrc, dev)
     nblk = -(-T // 64)
-    buf = BwdBuffers(vpd, K * nblk * 64, nblk, dev)
+    buf = BwdBuffers(vpd, K * nblk * 64, nblk, dev, cdt=cdt)
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     dattn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.papr_value_stream_bwd(
+    f32 = cdt == torch.float32
+    name = "papr_value_stream_f32_bwd" if f32 else "papr_value_stream_bwd"
+    rc = getattr(lib, name)(
         rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
         attn.data_ptr(), dfused.data_ptr(),
         ctypes.cast(c_ints(vmeta), ctypes.c_void_p), vw.data_ptr(),
@@ -814,13 +925,28 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
         drec.data_ptr(), drayo.data_ptr(), drays.data_ptr(),
         dattn.data_ptr(), buf.part.data_ptr(), buf.part_w,
         buf.scratch.data_ptr(), stream)
-    build.check(rc, "papr_value_stream_bwd")
+    build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
-    value_stream_bwd.launches += 1
+    if f32:
+        value_stream_f32_bwd.launches += 1
+    else:
+        value_stream_bwd.launches += 1
     return [drec, drayo, drays, dattn] + buf.walk_grads(vwalk, dws, psum)
 
 
 value_stream_bwd.launches = 0
+
+
+def value_stream_f32_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
+                         normalize=True, eps=1e-6):
+    """``value_stream_bwd`` on the fp32 walk (the kernel
+    ``value_stream_f32_bwd``); ``launches`` counts that kernel's
+    launches."""
+    return value_stream_bwd(rec, rayo, rays, attn, vwalk, dfused, normalize,
+                            eps, torch.float32)
+
+
+value_stream_f32_bwd.launches = 0
 
 
 class ValueStream(torch.autograd.Function):

@@ -10,7 +10,7 @@ shapes (the padded point cloud) make resuming trivial; Adam's moments and
 step counts ARE restored on resume.
 
 The reference's ``model.pth`` layout (``import_torch`` / ``export_torch`` in
-the JAX package) is not ported yet: ROADMAP.md Queue 1 item 10b.
+the JAX package) is not ported yet: ROADMAP.md Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ def load_checkpoint(save_dir_or_file: str):
     if path.endswith((".pth", ".pt")):
         raise NotImplementedError(
             f"{path}: loading the reference's model.pth is ROADMAP.md Queue 1 "
-            "item 10b (model.pth interop); load a checkpoint.npz")
+            "item 3 (model.pth interop); load a checkpoint.npz")
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
     step = int(flat.pop("__step__"))

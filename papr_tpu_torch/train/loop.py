@@ -14,7 +14,7 @@ cadence, checkpointing, plots), as the JAX package re-orchestrated it:
 
 Runs on the card unless ``PAPR_PLATFORM=cpu`` asks for the CPU
 (``papr_tpu_torch/device.py``); a ``tpu.mesh`` of more than one device
-raises (ROADMAP.md Queue 1 item 12).
+raises (ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -136,7 +136,7 @@ def eval_step(step, params, state, cfg, dataset, eval_dataset, batch,
 
     _durable_dump(step, cfg, histories, state, eval_loss, eval_psnr, rgb)
 
-    if cfg.eval.save_fig:
+    if cfg.eval.save_fig and plots.available():
         os.makedirs(os.path.join(log_dir, "train_main_plots"), exist_ok=True)
         os.makedirs(os.path.join(log_dir, "train_pcd_plots"), exist_ok=True)
         coord_scale = cfg.dataset.coord_scale
@@ -201,7 +201,7 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
         if not os.path.isabs(load_path) and not os.path.exists(load_path):
             load_path = os.path.join(cfg.save_dir, load_path)
         # A reference model.pth raises in load_checkpoint (ROADMAP.md
-        # Queue 1 item 10b).
+        # Queue 1 item 3).
         if os.path.isdir(load_path) and not os.path.exists(
                 os.path.join(load_path, "checkpoint.npz")):
             load_path = os.path.join(load_path, "model.pth")
@@ -324,7 +324,8 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
                 start_time = time.time()
                 rays_in_window = 0
 
-            if ((step - 1) % 200 == 0) and cfg.eval.save_fig:
+            if ((step - 1) % 200 == 0) and cfg.eval.save_fig \
+                    and plots.available():
                 pt_plot_scale = 0.8 * cfg.dataset.coord_scale
                 if "Barn" in cfg.dataset.path:
                     pt_plot_scale *= 1.5

@@ -4,6 +4,8 @@
 * ``make_train_step``: forward, loss (MSE + LPIPS), the gradient of every
   trained parameter through autograd (the kernels' backwards on the card),
   and the per-group Adam update in place; eager, no ``torch.compile``.
+  Embedder dropout draws from a generator derived from (seed, step), so a
+  resumed run replays the same masks.
 
 * ``render_full_image``: host rays in (dataset-driven eval), edge-padded
   fixed-shape ray tiles, the attention pass per tile, untiling, one
@@ -34,16 +36,31 @@ from .optim import (apply_updates, build_group_specs, init_opt_state,
                     tree_leaves, tree_map)
 
 
+def dropout_generator(cfg, step: int, device):
+    """The embedder dropout's generator of one training step, or None when no
+    embedder has ``dropout_ff > 0``: seeded from (``cfg.seed``, step), as the
+    JAX step folds the step into ``PRNGKey(seed)``, so a resumed run replays
+    the same masks."""
+    e = cfg.models.attn.embed
+    if not any(float(e[n].dropout_ff) > 0 for n in ("key", "query", "value")):
+        return None
+    seed = np.random.SeedSequence([int(cfg.seed), int(step)]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def loss_and_grads(params, state, cfg, rayo, rayd, target, c2w, loss_fn,
-                   specs, policy, shading_code=None):
+                   specs, policy, shading_code=None, dropout_rng=None):
     """Forward + last activation + loss, and the loss's gradient for every
-    trained group (``specs``) -> (loss, pred, grads {key: tree})."""
+    trained group (``specs``) -> (loss, pred, grads {key: tree}).
+    ``dropout_rng``: the step's ``dropout_generator``."""
     last_act = build_activation(cfg.models.last_act)
     live = {key: tree_map(lambda t: t.detach().requires_grad_(True), p)
             if key in specs else p for key, p in params.items()}
     with torch.enable_grad():
         pred = last_act(forward(live, state, cfg, rayo, rayd, c2w,
-                                shading_code=shading_code, policy=policy))
+                                shading_code=shading_code, policy=policy,
+                                dropout_rng=dropout_rng))
         loss = loss_fn(pred, target)
         keys = [k for k in live if k in specs]
         flat = [x for k in keys for x in tree_leaves(live[k])]
@@ -81,9 +98,10 @@ def make_train_step(cfg, loss_fn=None):
             if dev not in loss_cache:
                 loss_cache[dev] = build_loss(cfg, policy, device=dev)
             fn = loss_cache[dev]
-        loss, pred, grads = loss_and_grads(params, state, cfg, rayo, rayd,
-                                           target, c2w, fn, specs, policy,
-                                           shading_code)
+        loss, pred, grads = loss_and_grads(
+            params, state, cfg, rayo, rayd, target, c2w, fn, specs, policy,
+            shading_code,
+            dropout_generator(cfg, step, params["points"].device))
         params, opt_state = apply_updates(params, grads, opt_state, specs,
                                           int(step))
         return params, opt_state, loss, pred

@@ -14,6 +14,24 @@ import io
 import numpy as np
 
 
+def available() -> bool:
+    """Whether the figures can be drawn: a host without matplotlib skips
+    the figures a config asks for (``eval.save_fig``), with one warning, and
+    the run goes on."""
+    import importlib.util
+    if importlib.util.find_spec("matplotlib") is not None:
+        return True
+    if not available.warned:
+        available.warned = True
+        import warnings
+        warnings.warn("matplotlib is not installed: the figures that "
+                      "eval.save_fig asks for are skipped")
+    return False
+
+
+available.warned = False
+
+
 def _plt():
     """matplotlib's pyplot on the Agg backend, imported at first use (the
     package imports without matplotlib; only the plots need it)."""

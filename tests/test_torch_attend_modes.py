@@ -157,7 +157,7 @@ def test_knobs_that_still_raise_name_their_roadmap_items(scene):
     params, state, tp, ts, rayo, rayd, _ = scene
     args = (torch.as_tensor(rayo), torch.as_tensor(rayd))
     jargs = (jnp.asarray(rayo), jnp.asarray(rayd))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tpapr.evaluate(tp, ts, load_config(overrides=_over(
             mesh={"data": 2, "rays": 1})), *args)
     over = _over(int8_eval=True)

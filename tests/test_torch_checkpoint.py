@@ -91,7 +91,7 @@ def test_save_is_atomic_and_pth_raises(tmp_path):
     ck.save_checkpoint(str(tmp_path), 2, params, opt, state)
     assert os.listdir(tmp_path) == ["checkpoint.npz"]      # no temp left
     assert ck.load_checkpoint(str(tmp_path))[0] == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         ck.load_checkpoint(str(tmp_path / "model.pth"))
 
 

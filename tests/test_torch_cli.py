@@ -118,4 +118,4 @@ def test_cli_refusals(trained):
         assert "Training finished!" not in r.stdout
     for flags in (["--exp"], ["--exp", "--intrp"]):
         r = _run("papr_tpu_torch.cli.test", ["--opt", opt] + flags, ok=False)
-        assert r.returncode != 0 and "Queue 1 item 11" in r.stderr
+        assert r.returncode != 0 and "Queue 1 item 2" in r.stderr

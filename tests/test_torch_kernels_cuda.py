@@ -80,8 +80,12 @@ def test_fused_mlp_kernel_matches_plain(dev):
     want = fm.fused_mlp_plain(x, walk, torch.bfloat16)
     assert got.dtype == torch.bfloat16 and got.shape == (1000, 256)
     assert _rel(got, want) <= 1e-2
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fm.fused_mlp(x, walk, torch.float32)
+    # fp32 compute has its own kernel now (held below); other dtypes raise.
+    got = fm.fused_mlp(x, walk, torch.float32)
+    assert got.dtype == torch.float32
+    assert _rel(got, fm.fused_mlp_plain(x, walk, torch.float32)) <= F32_REL
+    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+        fm.fused_mlp(x, walk, torch.float16)
 
 
 @pytest.mark.parametrize("normalize", [True, False])
@@ -824,3 +828,245 @@ def test_int8_train_step_on_card_launch_counts(dev):
     assert [f.launches - b for f, b in zip(fns, before[0])] == [1, 1, 1, 1,
                                                                 0, 0]
     assert [p.calls for p in plains] == before[1]
+
+
+# ------------------------------------------------------------ fp32 walks ----
+# The fp32 forms (use_amp: false: ``fused_mlp_f32`` / ``fused_mlp_f32_bwd``,
+# ``attend_eval_f32``, ``key_stream_f32_fwd`` / ``_bwd``,
+# ``value_stream_f32_fwd`` / ``_bwd``, ``wgrad_f32``) against their plain
+# fp32 versions (TF32 off: true fp32 products) on the same inputs. The
+# kernels' products are 3xTF32 (~2^-21 relative each) and sum in another
+# order, so now and then a hidden relu's input lands on the other side of 0
+# in one of them, which moves that token's gradient by O(1): the backward
+# is held on the rows whose relu inputs all stay F32_MARGIN x rms away from
+# 0 (``walk_relu_margin``; the cotangent is zero on the others), and the
+# key stream's score relu is given the kernel forward's pattern. Bounds from
+# planted faults (PERF.md, Findings): sound forwards <= 1.4e-6, attn <=
+# 6.9e-7, backwards <= 3.6e-6, wgrad 1.7e-7; the products accumulated in the
+# tensor cores' own accumulator read 5.5e-6-1.0e-5, 4.0e-6-6.0e-6, 1.0e-5-
+# 4.0e-3 and 4.2e-6, a bf16 stash 1.4e-3-1.8e-3 (backwards), single-pass
+# TF32, one cross term and bf16 rounding between layers 1.6e-4 and up.
+
+F32_REL = 5e-6
+F32_ATTN_ABS = 5e-6
+F32_BWD_REL = 1e-5
+F32_WGRAD_REL = 1e-6           # against the fp64 product
+F32_MARGIN = 1e-5
+F32_STEP_GRAD_REL = 1e-2       # the whole step, flips included
+
+
+def _firm(cot, margin):
+    """The cotangent with the rows whose relu margin is under F32_MARGIN
+    zeroed (at least half the rows kept)."""
+    keep = margin >= F32_MARGIN
+    assert float(keep.float().mean()) >= 0.5
+    return torch.where(keep[:, None], cot, 0.0)
+
+
+@pytest.mark.parametrize("R,norm", [(1000, True), (100, False)])
+def test_fused_mlp_f32_kernels_match_plain(dev, R, norm):
+    """Rows 2 and 3 in fp32 on the query stack; R = 100 leaves an overhang
+    tile of 36 rows."""
+    rng = np.random.default_rng(11)
+    _, cols = posenc_plan((3,), (6,), 1, 2.0, 1.0, 0)
+    walk = _walk(rng, cols, 5, 256, 256, norm, dev)
+    x = torch.as_tensor(rng.normal(size=(R, 3)).astype(np.float32), device=dev)
+    before = fm.fused_mlp_f32.launches, fm.fused_mlp_bwd_f32.launches
+    got = fm.fused_mlp_f32(x, walk)
+    want = fm.fused_mlp_plain(x, walk, torch.float32)
+    print(f"fused_mlp_f32 R={R}: rel Frobenius {_rel(got, want):.3e}")
+    assert got.dtype == torch.float32 and _rel(got, want) <= F32_REL
+    dy = torch.as_tensor(rng.normal(size=(R, 256)).astype(np.float32), device=dev)
+    dy = _firm(dy, fm.walk_relu_margin(fm.encode_plain(x, walk.cols), walk))
+    dx, grads = fm.fused_mlp_bwd_f32(x, dy, walk)
+    dxp, gp = fm.fused_mlp_bwd_plain(x, dy, walk, torch.float32)
+    _close_all([dx] + grads, [dxp] + gp, F32_BWD_REL, f"fused_mlp_f32_bwd R={R}")
+    assert (fm.fused_mlp_f32.launches, fm.fused_mlp_bwd_f32.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attend_eval_f32_kernel_matches_plain(dev, normalize):
+    """Row 4 in fp32 on the flagship walks, with an all-dead ray."""
+    rng = np.random.default_rng(12)
+    P, T, K, dm = 500, 300, 20, 256
+    record = np.zeros((P, 128), np.float32)
+    record[:, :3] = rng.normal(size=(P, 3))
+    record[:, 3] = rng.normal(size=P)
+    record[:, 4] = rng.random(P) > 0.2
+    record[:, 5:69] = rng.normal(size=(P, 64))
+    idx = rng.integers(0, P, size=(T, K)).astype(np.int32)
+    dead = np.where(record[:, 4] == 0)[0]
+    idx[5] = dead[:K]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    rayo = t(np.broadcast_to(rng.normal(size=(1, 3)) * 3, (T, 3)))
+    rays = rng.normal(size=(T, 3))
+    rays = t(rays / np.linalg.norm(rays, axis=-1, keepdims=True))
+    qq = t(rng.normal(size=(T, dm)))
+    kw = _walk(rng, sa.rec_pe_plan(True, (6, 6, 6), 1, 2.0, 1.0, 0), 5, 256,
+               256, True, dev)
+    vw = _walk(rng, sa.rec_pe_plan(False, (6, 6), 1, 2.0, 1.0, 64), 8, 256,
+               32, False, dev)
+    wk = t(rng.normal(size=(dm, 256)) / 16)
+    bk = t(rng.normal(size=dm) * 0.1)
+    args = (t(record), torch.as_tensor(idx, device=dev), rayo, rays, qq, kw,
+            wk, bk, vw, "relu", 5.0, normalize, 1e-6)
+    before = sa.attend_eval_f32.launches, sa.attend_eval_idx.launches
+    fg, ag = sa.attend_eval_f32(*args)
+    fw, aw = sa.attend_eval_plain(*args, torch.float32)
+    print(f"attend_eval_f32: fused rel {_rel(fg, fw):.3e}, attn max abs "
+          f"{float((ag - aw).abs().max()):.3e}")
+    assert _rel(fg, fw) <= F32_REL
+    assert float((ag - aw).abs().max()) <= F32_ATTN_ABS
+    assert float(ag[5, K]) == 1.0 and float(fg[5].abs().max()) == 0.0
+    assert (sa.attend_eval_f32.launches, sa.attend_eval_idx.launches) == (
+        before[0] + 1, before[1])
+    with pytest.raises(NotImplementedError, match="int8"):
+        sa.attend_eval_idx(*args, torch.float32, True)
+
+
+@pytest.mark.parametrize("T", [256, 100])
+def test_key_stream_f32_kernels_match_plain(dev, T):
+    """Row 5 in fp32, forward and backward (T = 100: an overhang tile)."""
+    rng = np.random.default_rng(13)
+    K = 20
+    rec, rayo, rays, qq, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    args = (rec, rayo, rays, qq, kw, wk, bk)
+    opts = ("relu", 5.0, 1e-6, torch.float32)
+    attn, raw, ss = sa.key_stream_f32_fwd(*args)
+    attn_p, raw_p, ss_p = sa.key_stream_plain(*args, *opts,
+                                              relu_on=None)
+    print(f"key_stream_f32_fwd T={T}: attn max abs "
+          f"{float((attn - attn_p).abs().max()):.3e}, raw rel "
+          f"{_rel(raw, raw_p):.3e}")
+    assert float((attn - attn_p).abs().max()) <= F32_ATTN_ABS
+    assert _rel(raw, raw_p) <= F32_REL
+    alive = (rec[..., 4] > 0.5).T
+    assert torch.equal(ss, torch.where(alive, torch.clamp_min(raw, 0.0)
+                                       * rec[..., 3].T, sa.NEG_BIG))
+    assert float(attn[5, K]) == 1.0
+    dattn = torch.as_tensor(rng.normal(size=(T, K + 1)).astype(np.float32),
+                            device=dev)
+    dattn = _firm(dattn, sa.rec_relu_margin(rec, rayo, rays, kw))
+    got = sa.key_stream_f32_bwd(*args, raw, ss, dattn)
+    want = sa.key_stream_bwd_plain(*args, dattn, *opts, relu_on=raw > 0)
+    _close_all(_rec_lanes(got), _rec_lanes(want), F32_BWD_REL,
+               f"key_stream_f32_bwd T={T}")
+    assert float(got[0][:, 5].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("T,normalize", [(256, True), (100, False)])
+def test_value_stream_f32_kernels_match_plain(dev, T, normalize):
+    """Row 6 in fp32, forward and backward, with an all-dead ray and an
+    overhang tile."""
+    rng = np.random.default_rng(14)
+    K = 20
+    rec, rayo, rays, _, _, vw, _, _ = _stream_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    args = (rec, rayo, rays, attn, vw)
+    fused = sa.value_stream_f32_fwd(*args, normalize)
+    fused_p = sa.value_stream_plain(*args, normalize, 1e-6, torch.float32)
+    print(f"value_stream_f32_fwd T={T}: fused rel {_rel(fused, fused_p):.3e}")
+    assert _rel(fused, fused_p) <= F32_REL
+    assert float(fused[5].abs().max()) == 0.0
+    dfused = torch.as_tensor(rng.normal(size=(T, 32)).astype(np.float32),
+                             device=dev)
+    dfused = _firm(dfused, sa.rec_relu_margin(rec, rayo, rays, vw))
+    got = sa.value_stream_f32_bwd(*args, dfused, normalize)
+    want = sa.value_stream_bwd_plain(*args, dfused, normalize, 1e-6,
+                                     torch.float32)
+    _close_all(_rec_lanes(got), _rec_lanes(want), F32_BWD_REL,
+               f"value_stream_f32_bwd T={T} normalize={normalize}")
+    assert float(got[0][:, 5].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("N,da,db", [(5000, 256, 256), (777, 48, 32)])
+def test_wgrad_f32_matches_fp64_product(dev, N, da, db):
+    """The fp32 dW reduction (3xTF32) against the fp64 product of the same
+    fp32 operands: fp32-level error, where one TF32 pass reads ~2e-4."""
+    from papr_tpu_torch.kernels import build
+    g = torch.Generator(device=dev).manual_seed(15)
+    h = torch.randn(N, da, generator=g, device=dev)
+    dz = torch.randn(N, db, generator=g, device=dev)
+    before = fm.wgrad_f32.launches
+    got = fm.wgrad_f32(build.load(), h.data_ptr(), dz.data_ptr(), N, da, db,
+                       dev, torch.cuda.current_stream(dev).cuda_stream)
+    want = (h.double().T @ dz.double()).float()
+    print(f"wgrad_f32 N={N} {da}x{db}: rel Frobenius {_rel(got, want):.3e}")
+    assert _rel(got, want) <= F32_WGRAD_REL
+    assert fm.wgrad_f32.launches == before + 1
+
+
+def _fp32_model(dev, **tpu):
+    cfg = load_config(overrides={
+        "use_amp": False, "max_num_pts": 2048,
+        "geoms": {"points": {"init_num": 2000, "select_k": 8}},
+        "tpu": {"topk_impl": "cull", **tpu}})
+    params, state = create_model(cfg, seed=0, device=dev)
+    params["points_influ_scores"].normal_()
+    return cfg, params, state
+
+
+def test_fp32_training_step_and_frame_on_card(dev):
+    """``use_amp: false`` with ``fused_attn: auto`` on the card: one forward +
+    backward runs the fp32 kernels (query embedder, key and value streams,
+    each way once; wgrad_f32), a tiled frame the fp32 one-shot kernel once a
+    tile, no bf16 kernel and no plain version; the gradients agree with the
+    plain fp32 path (``fused_attn: false``) on the same model. ``stream``,
+    ``true``, ``score`` and ``query_fold`` raise under fp32."""
+    from papr_tpu_torch.model.papr import forward
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.train.optim import tree_leaves, tree_map
+    cfg, params, state = _fp32_model(dev)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 35.0
+    rayo, rayd = get_rays_np(32, 32, 30.0, 30.0, c2w[None])
+    rayo, rayd = torch.as_tensor(rayo, device=dev), torch.as_tensor(rayd,
+                                                                    device=dev)
+    fns = (fm.fused_mlp_f32, fm.fused_mlp_bwd_f32, sa.key_stream_f32_fwd,
+           sa.key_stream_f32_bwd, sa.value_stream_f32_fwd,
+           sa.value_stream_f32_bwd, fm.wgrad_f32, fm.fused_mlp,
+           fm.fused_mlp_bwd, sa.key_stream_fwd, sa.key_stream_bwd,
+           sa.value_stream_fwd, sa.value_stream_bwd, fm.wgrad)
+    plains = (fm.fused_mlp_plain, fm.fused_mlp_bwd_plain, sa.key_stream_plain,
+              sa.key_stream_bwd_plain, sa.value_stream_plain,
+              sa.value_stream_bwd_plain, sa.attend_eval_plain)
+
+    def grads_of(c):
+        live = {k: tree_map(lambda t: t.detach().requires_grad_(True), v)
+                for k, v in params.items()}
+        out = forward(live, state, c, rayo, rayd,
+                      policy=policy_from_config(c))
+        leaves = tree_leaves(live["attn"]) + [live["points"],
+                                              live["points_influ_scores"],
+                                              live["pc_feats"]]
+        return out, torch.autograd.grad(out.square().mean(), leaves)
+
+    before = [f.launches for f in fns], [p.calls for p in plains]
+    out, grads = grads_of(cfg)
+    torch.cuda.synchronize()
+    got = [f.launches - b for f, b in zip(fns, before[0])]
+    assert got[:6] == [1] * 6 and got[6] >= 1 and got[7:] == [0] * 7, got
+    assert [p.calls for p in plains] == before[1]
+    ref_cfg = load_config(overrides={
+        "use_amp": False, "max_num_pts": 2048,
+        "geoms": {"points": {"init_num": 2000, "select_k": 8}},
+        "tpu": {"topk_impl": "cull", "fused_attn": False}})
+    out_p, grads_p = grads_of(ref_cfg)
+    print(f"fp32 step vs plain path: out rel {_rel(out, out_p):.3e}, grads "
+          f"max rel {max(_rel(g, w) for g, w in zip(grads, grads_p)):.3e}")
+    assert _rel(out, out_p) <= F32_REL
+    assert max(_rel(g, w) for g, w in zip(grads, grads_p)) <= F32_STEP_GRAD_REL
+
+    before = sa.attend_eval_f32.launches, sa.attend_eval_idx.launches
+    frame = render_frame(params, state, cfg, c2w, 60.0, 60.0, 64, 64, 32, 32)
+    assert frame.shape == (64, 64, 3) and frame.dtype == np.uint8
+    assert (sa.attend_eval_f32.launches - before[0],
+            sa.attend_eval_idx.launches - before[1]) == (4, 0)
+    for tpu in ({"fused_attn": "stream"}, {"fused_attn": True},
+                {"fused_attn": "score"}, {"query_fold": True}):
+        c, _, _ = _fp32_model(dev, **tpu)
+        with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+            forward(params, state, c, rayo, rayd, policy=policy_from_config(c))

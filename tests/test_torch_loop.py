@@ -149,5 +149,5 @@ def test_loop_needs_a_card_unless_asked_for_the_cpu(runs):
     over = dict(cfg)
     over["tpu"] = dict(over["tpu"], mesh={"data": 2, "rays": 1})
     from papr_tpu_torch.config import Config
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tloop.train_and_eval(Config(over), make_eval_config(Config(over)))

@@ -40,6 +40,21 @@ def _twalk(ff, ff_cfg, has_pos, Ls, extra):
                             cols)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's side runs on one intra-op thread. With the default thread
+    team, a loaded host hands the team fewer threads and the plain
+    version's sgemm / reductions sum in another order:
+    test_key_stream_forward_matches_jax[64-7-layernorm-0] read 1.32e-6 or
+    6.73e-6 against atol 1e-6 in 5 of 66 processes (3 of 30, 2 of 36), while
+    JAX's interpret-mode result was bit-equal in all 66; on one thread it
+    read 1.19e-7, bit-equal, in 36 of 36 processes under the same load."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flat_walk_grads(ws, bs, ln_in, ln_out):
     return (list(ws) + list(bs) + [t for ln in (ln_in, ln_out)
                                    if ln is not None for t in ln])

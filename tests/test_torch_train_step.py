@@ -223,10 +223,21 @@ def test_training_knobs_not_ported_raise():
     cfg = load_config(overrides={**_over("streamrec"), "models": {"attn": {
         "embed": {"key": {"dropout_ff": 0.1}}}}})
     tp, ts = tpapr.create_model(cfg, seed=0, device="cpu")
+    tp["points_influ_scores"] = torch.as_tensor(np.random.default_rng(0).normal(
+        size=tp["points_influ_scores"].shape).astype(np.float32))
     rayo, rayd = get_rays_np(8, 8, 10.0, 10.0, np.eye(4, dtype=np.float32)[None])
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tpapr.forward(tp, ts, cfg, torch.as_tensor(rayo),
-                      torch.as_tensor(rayd))
+    # Embedder dropout used to raise here; it is ported (held against the
+    # JAX package in test_torch_dropout.py): without a generator the forward
+    # is the one without dropout, with one it drops out.
+    plain = load_config(overrides={**_over("streamrec"), "models": {"attn": {
+        "embed": {"key": {"dropout_ff": 0.0}}}}})
+    args = (torch.as_tensor(rayo), torch.as_tensor(rayd))
+    want = tpapr.forward(tp, ts, plain, *args)
+    torch.testing.assert_close(tpapr.forward(tp, ts, cfg, *args), want,
+                               rtol=0, atol=0)
+    got = tpapr.forward(tp, ts, cfg, *args, dropout_rng=tstep.dropout_generator(
+        cfg, 3, "cpu"))
+    assert bool(torch.isfinite(got).all()) and not torch.equal(got, want)
     # int8_train used to raise here; it is ported and trains (held against
     # the JAX package in test_torch_int8_train.py): finite, and within int8's
     # distance (5 % of scale, the JAX tests' bound) of the fp32 forward.

@@ -12,8 +12,9 @@ a CUDA source under ``csrc/`` is replaced there, the
 kernels are rebuilt, and the phase-2 comparison that holds the kernel
 (``chip_smoke.compare_cli_kernels``; for the cases named "stream",
 ``chip_smoke.compare_train_kernels``; for those named "int8",
-``chip_smoke.compare_int8_kernels``; the flagship patch) and the small-shape
-``cuda`` tests of those kernels run on the copy.
+``chip_smoke.compare_int8_kernels``; the flagship patch; for those named
+"fp32", ``chip_smoke.compare_f32_kernels`` on Caterpillar's model and patch)
+and the small-shape ``cuda`` tests of those kernels run on the copy.
 The readings are how the comparisons' bounds were set between the sound
 kernels and the weakest fault caught (PERF.md, Findings). The repository's
 own sources are never touched.
@@ -30,11 +31,43 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # sources. Cases named "topk" patch topk_stream.cu, "embedder bwd"
 # fused_mlp_bwd.cu, "encoding" walk.cuh, "stream feat key" key_stream_feat.cu,
 # "stream q" key_stream_q.cu, "stream shared" stream_common.cuh, "int8 walk"
-# walk.cuh, "int8 bench" int8_walk_bench.cu, the others fused_attn.cu.
+# walk.cuh, "int8 bench" int8_walk_bench.cu, "fp32 walk" walk.cuh, "fp32
+# stash" walk_bwd.cuh, the others fused_attn.cu.
 MUTS = [
     ("sound", None, None),
     ("sound stream", None, None),
     ("int8 sound", None, None),
+    ("fp32 sound", None, None),
+    ("fp32 walk: single-pass TF32 (the lo terms dropped; wgrad.cu too)",
+     "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
+     "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
+    ("fp32 walk: only one of the two cross terms (wgrad.cu too)",
+     "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
+    ("fp32 walk: every product accumulated in the tensor cores' own "
+     "accumulator (no round-to-nearest add per step; wgrad.cu too)",
+     "  Acc t;\n"
+     "  nvcuda::wmma::fill_fragment(t, 0.f);\n"
+     "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
+     "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n"
+     "  nvcuda::wmma::mma_sync(t, a_hi, b_hi, t);\n"
+     "#pragma unroll\n"
+     "  for (int i = 0; i < t.num_elements; ++i) c.x[i] = __fadd_rn(c.x[i], "
+     "t.x[i]);",
+     "  nvcuda::wmma::mma_sync(c, a_lo, b_hi, c);\n"
+     "  nvcuda::wmma::mma_sync(c, a_hi, b_lo, c);\n"
+     "  nvcuda::wmma::mma_sync(c, a_hi, b_hi, c);"),
+    ("fp32 walk: bf16 rounding left between layers (a rounding point)",
+     "        store8(p, v);              // fp32: the next layer reads C "
+     "unrounded",
+     "        if (A_out) for (int e = 0; e < 8; ++e) v[e] = bf16_round(v[e]);\n"
+     "        store8(p, v);"),
+    ("fp32 stash: the backward stashes the layer inputs in bf16",
+     "    uint4 u = *reinterpret_cast<const uint4*>(A + r * kALd + c);",
+     "    uint4 u = *reinterpret_cast<const uint4*>(A + r * kALd + c);\n"
+     "    if constexpr (kF32<T>) {\n"
+     "      float* f = reinterpret_cast<float*>(&u);\n"
+     "      for (int e = 0; e < 4; ++e) f[e] = bf16_round(f[e]);\n"
+     "    }"),
     ("int8 walk: truncation instead of round-to-nearest",
      "  return (q8)__float2int_rn(t);", "  return (q8)__float2int_rz(t);"),
     ("int8 walk: clamp at 128 (wraps to -128)",
@@ -89,7 +122,7 @@ MUTS = [
      "    if (lane == 0) sink(r, t, s / sqrt_dm * 1.01f);"),
     ("stream shared fwd: value rows not rounded to bf16 before the fuse (a "
      "rounding point)",
-     "      acc[r * cout + c] += w * bf16_round(C[r * kCLd + c]);",
+     "      acc[r * cout + c] += w * act_round<Op>(C[r * kCLd + c]);",
      "      acc[r * cout + c] += w * C[r * kCLd + c];"),
     ("bwd: relu mask dropped",
      "        if (a.relu && !(sact > 0.f)) d_sact = 0.f;\n", ""),
@@ -133,9 +166,15 @@ sys.path.insert(0, ".")
 import chip_smoke as cs, torch
 cs.fail = lambda m: print("FAILS:", m)
 dev = torch.device("cuda", 0)
-cfg = cs.flagship_cfg()
-params, state = cs.build_model(cfg, dev)
-getattr(cs, sys.argv[1])(params, state, cfg, dev, n_time=1)
+if sys.argv[1] == "compare_f32_kernels":
+    cfg = cs.caterpillar_cfg()
+    params, state = cs.build_model(cfg, dev)
+    _, rayo, rayd, _ = cs.sphere_view(cfg, dev)
+    cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180, n_time=1)
+else:
+    cfg = cs.flagship_cfg()
+    params, state = cs.build_model(cfg, dev)
+    getattr(cs, sys.argv[1])(params, state, cfg, dev, n_time=1)
 '''
 # Per comparison: the lines of its output to show, the ``cuda`` tests to run.
 TARGETS = {
@@ -151,12 +190,14 @@ TARGETS = {
         ("phase 2 attend_eval_i8", "phase 2 key_stream_i8",
          "phase 2 value_stream_i8", "phase 2 int8_walk_bench"),
         "i8 or int8"),
+    "compare_f32_kernels": (("phase 8",), "f32 or fp32"),
 }
 
 
 def target_of(name: str) -> str:
     head = name.split(":")[0]
     return ("compare_int8_kernels" if "int8" in head
+            else "compare_f32_kernels" if "fp32" in head
             else "compare_train_kernels" if "stream" in head
             else "compare_cli_kernels")
 
@@ -190,7 +231,9 @@ def run_case(name, old, new) -> None:
                                       ("stream q", "key_stream_q.cu"),
                                       ("stream shared", "stream_common.cuh"),
                                       ("int8 walk", "walk.cuh"),
-                                      ("int8 bench", "int8_walk_bench.cu"))
+                                      ("int8 bench", "int8_walk_bench.cu"),
+                                      ("fp32 walk", "walk.cuh"),
+                                      ("fp32 stash", "walk_bwd.cuh"))
                     if word in name), "fused_attn.cu")
         p = os.path.join(root, "papr_tpu_torch", "csrc", src)
         s = open(p).read()
@@ -218,7 +261,8 @@ def run_case(name, old, new) -> None:
                                and line.startswith(("attend_eval_i8",
                                                     "key_stream_i8",
                                                     "value_stream_i8",
-                                                    "int8_walk_bench"))):
+                                                    "int8_walk_bench"))) \
+                or (target == "compare_f32_kernels" and "f32" in line):
             print("  cuda tests: " + line[:400], flush=True)
     print(f"  cuda tests: exit code {t.returncode}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
