@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render path, training step, command-line path,
-its two other training attention modes and its int8 walks on one NVIDIA GPU.
+its other training attention modes, its int8 walks and its fp32 walks in
+every mode on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -94,10 +95,22 @@ Phases (each prints a line; any failure exits non-zero):
    fp32 versions at its shapes, with what one TF32 pass would read; the first
    step's loss and gradients against the plain fp32 path, then 1 + 10 steps
    under ``auto`` (ms/step, rays/s, kernel time, idle share, peak memory,
-   exact launch counts: fp32 kernels only, no plain version); a step with
-   embedder dropout; one 800x800 serving frame and one tiled frame at 100x100
-   tiles, the serving frame against the plain fp32 frame; then
-   ``configs/demo.yml`` untouched through ``cli.train`` and ``cli.test``.
+   exact launch counts: fp32 kernels only, no plain version; the step's
+   kernels grouped by the operator that issued them, the cuBLAS gemv ones
+   first); a step with embedder dropout; one 800x800 serving frame and one
+   tiled frame at 100x100 tiles, the serving frame against the plain fp32
+   frame. Then the other modes under fp32 on the same model: their kernels
+   against their plain fp32 versions at Caterpillar's shapes (the
+   query-folded key stream, the feature streams, the fused scores on the
+   split path's embeddings, the embedder kernels on its key and value stacks,
+   the int8 walks with their fp32 epilogue), and for each of ``stream``,
+   ``true``, ``score``, ``streamrec`` + ``query_fold``, ``int8_eval`` and
+   ``int8_train`` one step against the plain fp32 path's, 1 + 5 timed steps
+   (ms/step, rays/s, peak memory, a profiled step's idle share) and a serving
+   and a tiled frame against ``auto``'s fp32 frames (the int8 frame: int8's
+   own distance), with exact launch counts (the mode's fp32 kernels, no bf16
+   kernel, no plain version); then ``configs/demo.yml`` untouched through
+   ``cli.train`` and ``cli.test``.
 9. Print the kernels' JSON line (each kernel's launches on its main path,
    error, time, plain version's time and bound), then the result line.
 
@@ -257,6 +270,14 @@ F32_ATTN_ABS = 3e-5
 F32_BWD_REL = 1e-4
 F32_MARGIN = 1e-5
 F32_WGRAD_REL = 1e-5           # against the fp64 product of the operands
+# The int8 walks beside fp32 compute against their plain versions, on
+# Caterpillar's model: the int8 flips of I8_* above with the fp32 epilogue
+# on both sides, held by the Frobenius norms (the attention's max abs is
+# printed: on this model one flip moves a near-tie ray's weight by up to
+# 3.4e-2) and by the median ray, which no flip reaches: fp32 noise, where a
+# bf16 rounding in the epilogue moves every ray.
+I8_F32_FUSED_REL = 1e-3
+I8_F32_MEDIAN_REL = 1e-5
 # The first training step, kernel path against the plain fp32 path, whole
 # model: the relu flips are in here.
 F32_STEP_LOSS_REL = 1e-4
@@ -2467,6 +2488,53 @@ def largest_unstaged(spans, stages, n: int, count: int = 3) -> str:
     return ", ".join(f"{k[:70]} {v / n / 1e3:.3f} ms" for k, v in top)
 
 
+def kernels_by_op(fn, pattern: str = "", count: int = 6) -> str:
+    """One call of fn under torch.profiler with input shapes and Python
+    stacks: the device time of the kernels whose name holds ``pattern``,
+    grouped by the operator that launched them, its input shapes and where
+    it came from (the nearest frames of this repository, or the autograd
+    node for a backward op): "op shapes <- origin x ms (n kernels)", largest
+    first; "not measured" when the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True, with_stack=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def origin(e):
+        node, p, top = None, e, e.name
+        while p is not None:
+            if node is None and "evaluate_function" in p.name:
+                node = p.name.split(": ", 1)[-1]
+            frames = [f for f in (p.stack or [])
+                      if "papr_tpu_torch" in f or "chip_smoke" in f]
+            if frames:
+                return " < ".join(frames[:3]) + (f" [{node}]" if node else "")
+            top = p.name
+            p = p.cpu_parent
+        return node or f"under {top}"
+
+    by = {}
+    for e in prof.events():
+        # The profiler's own bookkeeping spans claim every kernel.
+        if e.device_type != DeviceType.CPU or "Buffer" in e.name:
+            continue
+        hit = [kk for kk in getattr(e, "kernels", []) if pattern in kk.name]
+        if not hit:
+            continue
+        key = (e.name, str(e.input_shapes)[:80], origin(e))
+        t, n = by.get(key, (0.0, 0))
+        by[key] = (t + sum(kk.duration for kk in hit), n + len(hit))
+    if not by:
+        return "not measured"
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:count]
+    return "; ".join(f"{op} {shapes} <- {orig}: {t / 1e3:.3f} ms ({n} kernels)"
+                     for (op, shapes, orig), (t, n) in top)
+
+
 def profile_train_step(step_fn, params, opt, state, cfg, rayo, rayd, target,
                        c2w, loss_fn, policy) -> None:
     """Device-time split of one training step by stage (kernel names), the
@@ -2639,6 +2707,15 @@ def crop(t, side: int):
     return t[:, r0:r0 + side, r0:r0 + side].contiguous()
 
 
+def tokens_margin(x, walk):
+    """``walk_relu_margin`` of a walk over k-major raw features x (K, T, d),
+    per ray: the smallest over the ray's K tokens."""
+    from papr_tpu_torch.ops import fused_mlp as fm
+    K, T, d = x.shape
+    enc = fm.encode_plain(x.reshape(K * T, d), walk.cols)
+    return fm.walk_relu_margin(enc, walk).reshape(K, T).amin(dim=0)
+
+
 def tf32_reading(fn, want) -> float:
     """What a single TF32 pass reads: ``fn`` (a plain fp32 version) with
     TF32 products on, its relative Frobenius error against ``want``."""
@@ -2660,8 +2737,13 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
     the dW reduction on the key stack's (K * T, 256) x (K * T, 256)."""
     import torch
     from papr_tpu_torch.kernels import build
+    from papr_tpu_torch.model.papr import (_split_embeddings, _stream_inputs,
+                                           model_meta)
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops import fused_attn as fa
     from papr_tpu_torch.ops import fused_mlp as fm
     from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops import stream_feat as sf
 
     f32 = torch.float32
     k = int(cfg.geoms.points.select_k)
@@ -2682,13 +2764,18 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         return torch.where(keep[:, None], cot, 0.0)
 
     def record(name, source, replaces, fn, plain, tol, labels, in_bytes,
-               flops, tf32=None, attn_tol=None, library=None):
+               flops, tf32=None, attn_tol=None, library=None,
+               rate=F32_TC_FLOPS, stack_of=None, median=None):
+        """Kernel against its plain fp32 version; with ``stack_of`` the
+        reading goes into that kernel's record as a stack it also runs;
+        ``median`` (output index, bound): the median over rays of that
+        output row's relative error, held to the bound."""
         g, w = fn(), plain()
         torch.cuda.synchronize()
         rels = _rels(g, w)
         finite = all(bool(torch.isfinite(t).all()) for t in g)
         ms, p_ms = cuda_ms(fn, n_time), cuda_ms(plain, 1)
-        work = bound(in_bytes + nbytes(*g), flops, F32_TC_FLOPS)
+        work = bound(in_bytes + nbytes(*g), flops, rate)
         if library is not None:
             work["library_ms"] = cuda_ms(library, n_time)
         worst = max(rels)
@@ -2698,8 +2785,20 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         ok = finite and worst <= tol and len(rels) == len(labels)
         if attn_tol is not None:
             a_abs = float((g[0] - w[0]).abs().max())
-            line += f"; attn max abs {a_abs:.3e} (need <= {attn_tol})"
-            ok &= a_abs <= attn_tol
+            if attn_tol == "printed":
+                line += (f"; attn max abs {a_abs:.3e} (printed: a flipped "
+                         "quantized activation moves a near-tie ray)")
+            else:
+                line += f"; attn max abs {a_abs:.3e} (need <= {attn_tol})"
+                ok &= a_abs <= attn_tol
+        if median is not None:
+            i, m_tol = median
+            d = (g[i] - w[i]).norm(dim=-1)
+            n = w[i].norm(dim=-1)
+            med = float((d[n > 0] / n[n > 0]).median())
+            line += (f"; median ray {labels[i]} rel {med:.3e} (need <= "
+                     f"{m_tol})")
+            ok &= med <= m_tol
         if tf32 is not None:
             t = tf32()
             line += (f"; one TF32 pass would read {t:.3e} (need > {tol}, the "
@@ -2712,10 +2811,14 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         print(line, flush=True)
         if not ok:
             failed.append(name)
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "max_abs_err": _max_abs(g, w),
-                        "max_rel_err": worst, "ms": ms, "plain_ms": p_ms,
-                        **work})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "max_abs_err": _max_abs(g, w),
+                 "max_rel_err": worst, "ms": ms, "plain_ms": p_ms, **work}
+        if stack_of is None:
+            results.append(entry)
+        else:
+            owner = next(r for r in results if r["name"] == stack_of)
+            owner.setdefault("stacks", {})[name] = entry
         return g
 
     # Row 2: the query embedder on the frame's rays.
@@ -2807,8 +2910,218 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            + walk_labels(vwalk),
            nbytes(rec, rayo_f, rays, attn, dfused) + walk_bytes(vwalk),
            3 * T * k * walk_flops(vwalk))
-    del rec, record_, vargs, kargs, eargs
+    # Row 7 in fp32: the key stream with the query chain folded in (qq is
+    # never rounded); backward held on the rays whose key and query relus
+    # keep their margin.
+    a = params["attn"]
+    qargs = (rec, rayo_f, rays, rayd_f.contiguous(), kwalk, wk, bk, qwalk,
+             a["w_q"]["w"], a["w_q"]["bias"])
+    q_flops = T * (k * walk_flops(kwalk, wk)
+                   + walk_flops(qwalk, a["w_q"]["w"]))
+    q_bytes = nbytes(rec, rayo_f, rays, rayd_f) + walk_bytes(kwalk, qwalk)
+    attn_q, raw_q, qq_q = record(
+        "key_stream_q_f32_fwd", "papr_tpu_torch/csrc/key_stream_q.cu",
+        "papr_tpu/ops/stream_attn.py:1201",
+        lambda: (lambda r: [r[0], r[1], r[3]])(sa.key_stream_q_f32_fwd(
+            *qargs, *kopts)),
+        lambda: (lambda r: [r[0], r[1], r[3]])(sa.key_stream_q_plain(
+            *qargs, *kopts, f32)),
+        F32_FWD_REL, ["attn", "raw", "qq"], q_bytes, q_flops,
+        attn_tol=F32_ATTN_ABS)
+    ss_q = sa.key_stream_q_f32_fwd(*qargs, *kopts)[2]
+    margin_q = torch.minimum(
+        sa.rec_relu_margin(rec, rayo_f, rays, kwalk, eps),
+        fm.walk_relu_margin(fm.encode_plain(rayd_f, qwalk.cols), qwalk))
+    dattn_q = firm(randn(T, k + 1), margin_q, "key_stream_q_f32_bwd")
+    record("key_stream_q_f32_bwd", "papr_tpu_torch/csrc/key_stream_q.cu",
+           "papr_tpu/ops/stream_attn.py:1243",
+           lambda: rec_lanes(sa.key_stream_q_f32_bwd(
+               *qargs, qq_q, raw_q, ss_q, dattn_q, *kopts)),
+           lambda: rec_lanes(sa.key_stream_q_bwd_plain(
+               *qargs, dattn_q, *kopts, f32, relu_on=raw_q > 0)),
+           F32_BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "d_rayd", "dW_k",
+                                      "db_k", "dW_q", "db_q"]
+           + walk_labels(kwalk) + ["q." + l for l in walk_labels(qwalk)],
+           q_bytes + nbytes(qq_q, raw_q, ss_q, dattn_q), 3 * q_flops)
+    del qargs, attn_q, raw_q, qq_q, ss_q
+
+    # Rows 4q-6q beside fp32 compute: the int8 walks with the fp32 epilogue
+    # against the plain int8 walks in fp32 (the calibration is the same
+    # plain code on both sides). A flipped quantized activation moves a few
+    # rays by up to 1/127 of a term; the median ray has no flip and reads
+    # fp32 noise, where a bf16 rounding of the epilogue moves every ray.
+    qp = tuple(sa.calibrate_walk(rec, rayo_f, rays, w, eps, f32)
+               for w in (kwalk, vwalk))
+    e8 = eargs + (f32, True, qp)
+    i8_flops = T * k * walk_flops(kwalk, vwalk)
+    record("attend_eval_i8_f32", "papr_tpu_torch/csrc/attend_eval.cu",
+           "papr_tpu/ops/stream_attn.py:1856",
+           lambda: list(sa.attend_eval_idx(*e8)),
+           lambda: list(sa.attend_eval_plain(*e8)), I8_F32_FUSED_REL,
+           ["fused", "attn"],
+           nbytes(record_, idx, rayo_f, rays, qq) + walk_bytes(kwalk, vwalk),
+           i8_flops + T * k * walk_flops(wk) * INT8_OPS / F32_TC_FLOPS,
+           attn_tol="printed", rate=INT8_OPS, median=(0, I8_F32_MEDIAN_REL))
+    attn8 = record(
+        "key_stream_i8_f32_fwd", "papr_tpu_torch/csrc/key_stream.cu",
+        "papr_tpu/ops/stream_attn.py:798",
+        lambda: list(sa.key_stream_i8_f32_fwd(*kargs, *kopts))[:2],
+        lambda: list(sa.key_stream_plain(*kargs, *kopts, f32,
+                                         int8=True))[:2], I8_RAW_REL,
+        ["attn", "raw"], nbytes(rec, rayo_f, rays, qq) + walk_bytes(kwalk),
+        T * k * (walk_flops(kwalk) + walk_flops(wk) * INT8_OPS / F32_TC_FLOPS),
+        attn_tol="printed", rate=INT8_OPS,
+        median=(1, I8_F32_MEDIAN_REL))[0]
+    record("value_stream_i8_f32_fwd", "papr_tpu_torch/csrc/value_stream.cu",
+           "papr_tpu/ops/stream_attn.py:1601",
+           lambda: [sa.value_stream_i8_f32_fwd(rec, rayo_f, rays, attn8,
+                                               vwalk, normalize, eps)],
+           lambda: [sa.value_stream_plain(rec, rayo_f, rays, attn8, vwalk,
+                                          normalize, eps, f32, True)],
+           I8_F32_FUSED_REL, ["fused"],
+           nbytes(rec, rayo_f, rays, attn8) + walk_bytes(vwalk),
+           T * k * walk_flops(vwalk), rate=INT8_OPS,
+           median=(0, I8_F32_MEDIAN_REL))
+    del rec, record_, vargs, kargs, eargs, e8, attn8, qp
     torch.cuda.empty_cache()
+
+    # Rows 8 and 9 in fp32: the streams on raw feature tensors, on the inputs
+    # the model's own head builds (xk (K, T, 9), xv (K, T, 70)).
+    meta = model_meta(cfg)
+    rayd_c = crop(rayd, patch)
+    with torch.no_grad():
+        xk, kwalk_f, xv, vwalk_f, influ, sel_alive, _ = _stream_inputs(
+            params, cfg, meta, idx.reshape(1, patch, patch, k), rayo, rayd_c,
+            state["alive"], eps)
+    xk, xv = xk.contiguous(), xv.contiguous()
+    influ, sel_alive = influ.contiguous(), sel_alive.contiguous()
+    fargs = (xk, qq, kwalk_f, wk, bk, influ, sel_alive)
+    fopts = (score_act, bkg, f32)
+    cols = lambda n: (lambda g: [g[0][..., :n], g[0][..., n:]] + list(g[1:]))
+    attn_f, raw_f = record(
+        "key_stream_feat_f32_fwd", "papr_tpu_torch/csrc/key_stream_feat.cu",
+        "papr_tpu/ops/stream_attn.py:133",
+        lambda: list(sf.key_stream_feat_fwd(*fargs, *fopts)),
+        lambda: list(sf.key_stream_feat_plain(*fargs, *fopts)), F32_FWD_REL,
+        ["attn", "raw"],
+        nbytes(xk, qq, influ, sel_alive) + walk_bytes(kwalk_f),
+        T * k * walk_flops(kwalk_f, wk), attn_tol=F32_ATTN_ABS)
+    dattn_f = firm(randn(T, k + 1), tokens_margin(xk, kwalk_f),
+                   "key_stream_feat_f32_bwd")
+    record("key_stream_feat_f32_bwd", "papr_tpu_torch/csrc/key_stream_feat.cu",
+           "papr_tpu/ops/stream_attn.py:159",
+           lambda: cols(3)(sf.key_stream_feat_bwd(*fargs, raw_f, dattn_f,
+                                                  *fopts)),
+           lambda: cols(3)(sf.key_stream_feat_bwd_plain(
+               *fargs, dattn_f, *fopts, relu_on=raw_f > 0)),
+           F32_BWD_REL, ["dxk[position]", "dxk[proj, perp]", "dqq",
+                         "d_influ", "dW_k", "db_k"] + walk_labels(kwalk_f),
+           nbytes(xk, qq, influ, sel_alive, raw_f, dattn_f)
+           + walk_bytes(kwalk_f), 3 * T * k * walk_flops(kwalk_f, wk))
+    record("value_stream_feat_f32_fwd",
+           "papr_tpu_torch/csrc/value_stream_feat.cu",
+           "papr_tpu/ops/stream_attn.py:406",
+           lambda: [sf.value_stream_feat_fwd(xv, attn_f, vwalk_f, normalize,
+                                             f32)],
+           lambda: [sf.value_stream_feat_plain(xv, attn_f, vwalk_f,
+                                               normalize, f32)],
+           F32_FWD_REL, ["fused"], nbytes(xv, attn_f) + walk_bytes(vwalk_f),
+           T * k * walk_flops(vwalk_f))
+    dfused_f = firm(randn(T, int(vwalk_f.ws[-1].shape[1])),
+                    tokens_margin(xv, vwalk_f), "value_stream_feat_f32_bwd")
+    record("value_stream_feat_f32_bwd",
+           "papr_tpu_torch/csrc/value_stream_feat.cu",
+           "papr_tpu/ops/stream_attn.py:433",
+           lambda: cols(6)(sf.value_stream_feat_bwd(xv, attn_f, vwalk_f,
+                                                    dfused_f, normalize, f32)),
+           lambda: cols(6)(sf.value_stream_feat_bwd_plain(
+               xv, attn_f, vwalk_f, dfused_f, normalize, f32)),
+           F32_BWD_REL, ["dxv[proj, perp]", "dxv[point features]", "d_attn"]
+           + walk_labels(vwalk_f),
+           nbytes(xv, attn_f, dfused_f) + walk_bytes(vwalk_f),
+           3 * T * k * walk_flops(vwalk_f))
+    del xk, xv, fargs, attn_f, raw_f, dattn_f, dfused_f
+    torch.cuda.empty_cache()
+
+    # Row 10 in fp32, and rows 2 / 3 on the key and value stacks, on the
+    # embeddings the split-kernel path's own head builds under
+    # ``fused_attn: true`` (its fused embedder inputs recorded on the way).
+    stacks, apply = [], fm.fused_mlp_apply
+
+    def recording(x, walk, cdt):
+        stacks.append((x, walk))
+        return apply(x, walk, cdt)
+
+    fm.fused_mlp_apply = recording
+    try:
+        with torch.no_grad():
+            ek, eq, _, influ, sel_alive = _split_embeddings(
+                params, cfg, meta, idx.reshape(1, patch, patch, k), rayo,
+                rayd_c, state["alive"], eps, policy_from_config(cfg), True)
+    finally:
+        fm.fused_mlp_apply = apply
+    sargs = (ek.contiguous(), eq.contiguous(), wk, bk, a["w_q"]["w"],
+             a["w_q"]["bias"], influ.float().contiguous(), sel_alive.float())
+    sopts = (score_act, bkg, f32)
+    Dk, dm = int(ek.shape[-1]), int(wk.shape[0])
+    proj_flops = 2.0 * T * (k + 1) * Dk * dm
+    attn_s, raw_s = record(
+        "fused_scores_f32_fwd", "papr_tpu_torch/csrc/fused_attn.cu",
+        "papr_tpu/ops/fused_attn.py:116",
+        lambda: list(fa.fused_scores_f32_fwd(*sargs, *sopts[:2],
+                                                    with_raw=True)),
+        lambda: list(fa.fused_scores_plain(*sargs, *sopts)),
+        F32_FWD_REL, ["attn", "raw"], nbytes(*sargs), proj_flops,
+        attn_tol=F32_ATTN_ABS,
+        tf32=lambda: tf32_reading(
+            lambda: fa.fused_scores_plain(*sargs, *sopts)[1],
+            fa.fused_scores_plain(*sargs, *sopts)[1]))
+    dattn_s = randn(T, k + 1)
+    record("fused_scores_f32_bwd", "papr_tpu_torch/csrc/fused_attn.cu",
+           "papr_tpu/ops/fused_attn.py:125",
+           lambda: fa.fused_scores_f32_bwd(*sargs, dattn_s,
+                                                  *sopts[:2]),
+           lambda: fa.fused_scores_bwd_plain(
+               *sargs, dattn_s, *sopts, relu_on=raw_s > 0),
+           F32_BWD_REL, ["d_embedk", "d_embedq", "dW_k", "db_k", "dW_q",
+                         "db_q", "d_influ"],
+           nbytes(*sargs, dattn_s), 3 * proj_flops)
+    del ek, eq, sargs, attn_s, raw_s, dattn_s
+    torch.cuda.empty_cache()
+    by_name = dict(zip(("key", "query", "value"), stacks))
+    for name in ("key", "value"):
+        x, walk = by_name[name]
+        x = x.detach().contiguous()
+        n_geo = 1 + max(c[0] for c in walk.cols if c[2] == 1)
+        extras = n_geo < x.shape[1]
+        record(
+            f"fused_mlp_f32 ({name} stack)",
+            "papr_tpu_torch/csrc/fused_mlp.cu",
+            "papr_tpu/ops/fused_mlp.py:417",
+            lambda: [fm.fused_mlp_f32(x, walk)],
+            lambda: [fm.fused_mlp_plain(x, walk, f32)], F32_FWD_REL, ["y"],
+            nbytes(x) + walk_bytes(walk), x.shape[0] * walk_flops(walk),
+            stack_of="fused_mlp_f32")
+        dy = firm(randn(x.shape[0], int(walk.ws[-1].shape[1])),
+                  fm.walk_relu_margin(fm.encode_plain(x, walk.cols), walk),
+                  f"fused_mlp_bwd_f32 ({name} stack)")
+        split = lambda r: ([r[0][:, :n_geo]]
+                           + ([r[0][:, n_geo:]] if extras else [])
+                           + list(r[1]))
+        record(f"fused_mlp_bwd_f32 ({name} stack)",
+               "papr_tpu_torch/csrc/fused_mlp_bwd.cu",
+               "papr_tpu/ops/fused_mlp.py:424",
+               lambda: split(fm.fused_mlp_bwd_f32(x, dy, walk)),
+               lambda: split(fm.fused_mlp_bwd_plain(x, dy, walk, f32)),
+               F32_BWD_REL, ["dx[geometry]"]
+               + (["dx[point features]"] if extras else [])
+               + walk_labels(walk),
+               nbytes(x, dy) + walk_bytes(walk),
+               3 * x.shape[0] * walk_flops(walk),
+               stack_of="fused_mlp_bwd_f32")
+        del x, dy
+        torch.cuda.empty_cache()
+    del stacks, by_name
 
     # The dW reduction on the key stack's stash shapes, fp32 operands,
     # against their fp64 product, beside one torch.matmul (fp32).
@@ -2858,7 +3171,7 @@ def drive_fp32_path(device) -> dict:
     print(f"phase 8 config: {CATERPILLAR} on configs/default.yml: use_amp "
           f"{cfg.use_amp} (compute {policy.compute_dtype}), fused_attn "
           f"{cfg.get_path('tpu.fused_attn', 'auto')} -> "
-          f"{_kernel_mode(cfg, k, device, policy.compute_dtype)}, k {k}, "
+          f"{_kernel_mode(cfg, k)}, k {k}, "
           f"{cfg.geoms.points.init_num} {cfg.geoms.points.init_type} points "
           f"in {cfg.max_num_pts} slots, key / query {e.key.n_ff_layer} x "
           f"{e.key.d_ff}, value {e.value.n_ff_layer} layers to "
@@ -2891,6 +3204,7 @@ def drive_fp32_path(device) -> dict:
                                rayo, rayd_p, target_p, c2w, loss_fn, specs,
                                policy)
     gp = cat(gp)
+    ref = (float(lp), gp)
     loss_rel = abs(float(lk) - float(lp)) / max(abs(float(lp)), 1e-30)
     errs = {key: rel_fro(gk[key], gp[key]) for key in gp}
     finite = bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all())
@@ -2903,7 +3217,7 @@ def drive_fp32_path(device) -> dict:
     if not (finite and loss_rel <= F32_STEP_LOSS_REL
             and max(errs.values()) <= F32_STEP_GRAD_REL):
         fail("the fp32 training step disagrees with the plain fp32 path")
-    del gk, gp
+    del gk
     torch.cuda.empty_cache()
 
     # 1 + 10 steps under auto.
@@ -2948,6 +3262,12 @@ def drive_fp32_path(device) -> dict:
           f"{split}", flush=True)
     print(f"phase 8 launches {got}; bf16 twins {twins}; plain-version calls "
           f"{calls}", flush=True)
+    step_once = lambda: step_fn(params, opt, state, rayo, rayd_p, target_p,
+                                c2w, 1600)
+    print("phase 8 profile by issuing op, the gemv kernels: "
+          + kernels_by_op(step_once, "gemv"), flush=True)
+    print("phase 8 profile by issuing op, every kernel (largest 8): "
+          + kernels_by_op(step_once, "", 8), flush=True)
     per_step = {n: 0 if n == "attend_eval_f32" else CAT_STEPS
                 for n in got if n != "wgrad_f32"}
     if any(got[n] != v for n, v in per_step.items()) \
@@ -3020,7 +3340,255 @@ def drive_fp32_path(device) -> dict:
     # Each fp32 kernel's launches on this path: the timed steps and frames.
     launches = {n: got[n] + frames_l[n] for n in got if n != "cull_select"}
     return {"results": results, "launches": launches, "step_ms": step_ms,
-            "frame_ms": frame_ms}
+            "frame_ms": frame_ms, "ref": ref}
+
+
+# The int8 frame beside fp32 against the fp32 frame: int8's own distance on
+# Caterpillar's random model, which this only holds against a path broken
+# outright. The frame-level calibration samples 1,024 strided rays of the
+# whole 800x800 frame, few of them on the sphere: a sound run reads 35.4 dB,
+# max abs 38/255.
+I8_F32_FRAME_PSNR = 25.0
+# Phase 8's other attention modes under fp32: (name, tpu.*, launches of one
+# training step, of one frame's tile). A kernel not named launches 0 times
+# (wgrad_f32: at least once a step).
+F32_MODES = (
+    ("stream", {"fused_attn": "stream"},
+     {"fused_mlp_f32": 1, "fused_mlp_bwd_f32": 1, "key_stream_feat_f32_fwd": 1,
+      "key_stream_feat_f32_bwd": 1, "value_stream_feat_f32_fwd": 1,
+      "value_stream_feat_f32_bwd": 1},
+     {"fused_mlp_f32": 1, "key_stream_feat_f32_fwd": 1,
+      "value_stream_feat_f32_fwd": 1}),
+    ("true", {"fused_attn": True},
+     {"fused_mlp_f32": 3, "fused_mlp_bwd_f32": 3, "fused_scores_f32_fwd": 1,
+      "fused_scores_f32_bwd": 1},
+     {"fused_mlp_f32": 3, "fused_scores_f32_fwd": 1}),
+    ("score", {"fused_attn": "score"},
+     {"fused_scores_f32_fwd": 1, "fused_scores_f32_bwd": 1},
+     {"fused_scores_f32_fwd": 1}),
+    ("query_fold", {"fused_attn": "streamrec", "query_fold": True},
+     {"key_stream_q_f32_fwd": 1, "key_stream_q_f32_bwd": 1,
+      "value_stream_f32_fwd": 1, "value_stream_f32_bwd": 1},
+     {"key_stream_q_f32_fwd": 1, "value_stream_f32_fwd": 1}),
+    ("int8_eval", {"int8_eval": True},
+     {"fused_mlp_f32": 1, "fused_mlp_bwd_f32": 1, "key_stream_f32_fwd": 1,
+      "key_stream_f32_bwd": 1, "value_stream_f32_fwd": 1,
+      "value_stream_f32_bwd": 1},
+     {"fused_mlp_f32": 1, "attend_eval_i8_f32": 1}),
+    ("int8_train", {"int8_train": True},
+     {"fused_mlp_f32": 1, "fused_mlp_bwd_f32": 1, "key_stream_i8_f32_fwd": 1,
+      "key_stream_f32_bwd": 1, "value_stream_i8_f32_fwd": 1,
+      "value_stream_f32_bwd": 1},
+     {"fused_mlp_f32": 1, "attend_eval_f32": 1}),
+)
+MODE_STEPS = 5
+
+
+def f32_mode_counters():
+    """Every fp32 kernel phase 8's modes run, every bf16 (and bf16 int8)
+    kernel, which must not launch there, and every plain version."""
+    from papr_tpu_torch.ops import fused_attn as fa
+    from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops import stream_feat as sf
+    f32, bf16, plains = f32_counters()
+    f32.update({"attend_eval_i8_f32": sa.attend_eval_i8_f32,
+                "key_stream_i8_f32_fwd": sa.key_stream_i8_f32_fwd,
+                "value_stream_i8_f32_fwd": sa.value_stream_i8_f32_fwd,
+                "key_stream_q_f32_fwd": sa.key_stream_q_f32_fwd,
+                "key_stream_q_f32_bwd": sa.key_stream_q_f32_bwd,
+                "key_stream_feat_f32_fwd": sf.key_stream_feat_f32_fwd,
+                "key_stream_feat_f32_bwd": sf.key_stream_feat_f32_bwd,
+                "value_stream_feat_f32_fwd": sf.value_stream_feat_f32_fwd,
+                "value_stream_feat_f32_bwd": sf.value_stream_feat_f32_bwd,
+                "fused_scores_f32_fwd": fa.fused_scores_f32_fwd,
+                "fused_scores_f32_bwd": fa.fused_scores_f32_bwd})
+    bf16.update({"attend_eval_i8": sa.attend_eval_i8,
+                 "key_stream_i8_fwd": sa.key_stream_i8_fwd,
+                 "value_stream_i8_fwd": sa.value_stream_i8_fwd,
+                 "key_stream_q_fwd": sa.key_stream_q_fwd,
+                 "key_stream_q_bwd": sa.key_stream_q_bwd,
+                 "key_stream_feat_fwd": sf.key_stream_feat_fwd,
+                 "key_stream_feat_bwd": sf.key_stream_feat_bwd,
+                 "value_stream_feat_fwd": sf.value_stream_feat_fwd,
+                 "value_stream_feat_bwd": sf.value_stream_feat_bwd,
+                 "fused_scores_fwd": fa.fused_scores_fwd,
+                 "fused_scores_bwd": fa.fused_scores_bwd})
+    return f32, bf16, plains
+
+
+def drive_fp32_modes(device, ref) -> dict:
+    """Phase 8, the other attention modes under fp32 on Caterpillar's model
+    (fresh from its seeds, as the first step of ``drive_fp32_path`` saw it):
+    for each mode one step against the plain fp32 path's (``ref``), 1 +
+    MODE_STEPS timed steps (ms/step, rays/s, peak memory, a profiled step's
+    idle share), a serving frame and a tiled frame against ``auto``'s, with
+    exact launch counts: the mode's fp32 kernels, no bf16 kernel, no plain
+    version. Counters are reset just before each part and read just
+    after."""
+    import torch
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops.geometry import get_rays_np
+    from papr_tpu_torch.train.losses import build_loss
+    from papr_tpu_torch.train.optim import build_group_specs, tree_leaves
+    from papr_tpu_torch.train.step import (loss_and_grads, make_opt_state,
+                                           make_train_step, render_frames,
+                                           render_full_image)
+
+    cfg = caterpillar_cfg()
+    policy = policy_from_config(cfg)
+    patch = int(cfg.dataset.patches.height)
+    T = patch * patch
+    n_tiles = (H // 100) * (W // 100)
+    params0, state = build_model(cfg, device)
+    c2w, rayo, rayd, target = sphere_view(cfg, device)
+    rayd_p, target_p = crop(rayd, patch), crop(target, patch)
+    specs = build_group_specs(cfg)
+    loss_fn = build_loss(cfg, policy, device=device)
+    f32k, bf16k, plains = f32_mode_counters()
+    lp, gp = ref
+    launches = {n: 0 for n in f32k if n != "cull_select"}
+    out = {}
+
+    def read():
+        return ({n: fn.launches for n, fn in f32k.items() if fn.launches},
+                {n: fn.launches for n, fn in bf16k.items() if fn.launches},
+                {n: fn.calls for n, fn in plains.items() if fn.calls})
+
+    def frames(mcfg):
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            fr = next(render_frames(params0, state, mcfg, [c2w], FOCAL, FOCAL,
+                                    H, W, H, W))
+            first = (time.perf_counter() - t0) * 1e3
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fr = next(render_frames(params0, state, mcfg, [c2w], FOCAL, FOCAL,
+                                    H, W, H, W))
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rayo_np, rayd_np = get_rays_np(H, W, FOCAL, FOCAL, c2w[None])
+            t0 = time.perf_counter()
+            tiled = render_full_image(params0, state, mcfg, rayo_np, rayd_np,
+                                      100, 100, rgb_only=True,
+                                      rgb_uint8=True)["rgb"][0]
+            tiled_ms = (time.perf_counter() - t0) * 1e3
+        return fr, tiled, first, ms, tiled_ms, peak
+
+    def distance(a, b):
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(-1)
+        mse = float(np.mean((a.astype(np.float64) - b) ** 2)) / 255 ** 2
+        psnr = float("inf") if mse == 0 else -10 * np.log10(mse)
+        return psnr, float((d <= 1).mean()), float((d <= 2).mean()), \
+            int(d.max())
+
+    # The auto frames every mode's frames are held against.
+    auto_frame, auto_tiled = frames(cfg)[:2]
+    for name, tpu, per_step, per_tile in F32_MODES:
+        mcfg = caterpillar_cfg(**tpu)
+        # One step against the plain fp32 path on the same weights.
+        reset_counters({**f32k, **bf16k}, plains)
+        lk, _, gk = loss_and_grads(params0, state, mcfg, rayo, rayd_p,
+                                   target_p, c2w, loss_fn, specs, policy)
+        torch.cuda.synchronize()
+        once = read()
+        gk = {key: torch.cat([t.float().reshape(-1) for t in tree_leaves(v)])
+              for key, v in gk.items()}
+        loss_rel = abs(float(lk) - lp) / max(abs(lp), 1e-30)
+        errs = {key: rel_fro(gk[key], gp[key]) for key in gp}
+        finite = bool(torch.isfinite(lk)) and all(
+            bool(torch.isfinite(g).all()) for g in gk.values())
+        int8_step = name == "int8_train"
+        loss_tol = I8_STEP_LOSS_REL if int8_step else F32_STEP_LOSS_REL
+        print(f"phase 8 {name} reference: {patch}x{patch} patch, one step, "
+              f"fp32 kernel path vs fp32 plain path: loss {float(lk):.6f} vs "
+              f"{lp:.6f} (rel {loss_rel:.3e}, need <= {loss_tol}); gradient "
+              "rel Frobenius " + ", ".join(f"{key} {v:.3e}"
+                                           for key, v in errs.items())
+              + (" (int8's own distance, printed)" if int8_step
+                 else f" (need <= {F32_STEP_GRAD_REL})")
+              + f"; finite {finite}; launches {once[0]}", flush=True)
+        if not (finite and loss_rel <= loss_tol and (
+                int8_step or max(errs.values()) <= F32_STEP_GRAD_REL)):
+            fail(f"the fp32 {name} step disagrees with the plain fp32 path")
+        del gk
+        # 1 + MODE_STEPS timed steps from the same weights.
+        step_fn = make_train_step(mcfg, loss_fn)
+        params = build_model(mcfg, device)[0]           # params0, anew
+        opt = make_opt_state(mcfg, params)
+        params, opt, _, _ = step_fn(params, opt, state, rayo, rayd_p,
+                                    target_p, c2w, 1000)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters({**f32k, **bf16k}, plains)
+        t0 = time.perf_counter()
+        for i in range(MODE_STEPS):
+            params, opt, loss, _ = step_fn(params, opt, state, rayo, rayd_p,
+                                           target_p, c2w, 1001 + i)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / MODE_STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got, twins, calls = read()
+        for n in launches:
+            launches[n] += got.get(n, 0)
+        want = {n: v * MODE_STEPS for n, v in per_step.items()}
+        want["cull_select"] = MODE_STEPS
+        wg = got.pop("wgrad_f32", 0)
+        wall, idle, spans = device_profile(
+            lambda: step_fn(params, opt, state, rayo, rayd_p, target_p, c2w,
+                            1500))
+        split, kernel_ms = (stage_split(spans, TRAIN_STAGES, 1, TRAIN_OTHER)
+                            if spans else ("not measured", float("nan")))
+        print(f"phase 8 {name} train: {step_ms:.1f} ms/step over {MODE_STEPS} "
+              f"steps = {T / (step_ms / 1e3):.0f} rays/s; peak device memory "
+              f"{peak:.2f} GiB; last loss {float(loss):.6f}; profiled step "
+              f"{wall:.1f} ms, device idle share {idle:.4f}, kernel time "
+              f"{kernel_ms:.3f} ms: {split}; launches {got}, wgrad_f32 {wg}; "
+              f"bf16 kernels {twins}; plain-version calls {calls}", flush=True)
+        if got != want or wg < MODE_STEPS or twins or calls \
+                or not np.isfinite(float(loss)):
+            fail(f"the fp32 {name} steps did not run exactly their fp32 "
+                 f"kernels (want {want})")
+        del params, opt, step_fn
+        torch.cuda.empty_cache()
+        # A serving frame (one full-frame tile, twice) and a tiled frame.
+        reset_counters({**f32k, **bf16k}, plains)
+        fr, tiled, first_ms, frame_ms, tiled_ms, fpeak = frames(mcfg)
+        got, twins, calls = read()
+        for n in launches:
+            launches[n] += got.get(n, 0)
+        want = {n: v * (2 + n_tiles) for n, v in per_tile.items()}
+        want["cull_select"] = 2 + n_tiles
+        psnr, close1, close2, dmax = distance(fr, auto_frame)
+        t_psnr, t_close1, _, _ = distance(tiled, auto_tiled)
+        int8_frame = name == "int8_eval"
+        need = (f"PSNR >= {I8_F32_FRAME_PSNR}: int8's own distance, max "
+                "abs printed" if int8_frame else
+                f"PSNR >= {F32_FRAME_PSNR}, within 1/255 >= "
+                f"{F32_FRAME_MIN_CLOSE}")
+        print(f"phase 8 {name} frames {H}x{W}: serving first {first_ms:.1f} "
+              f"ms, then {frame_ms:.1f} ms/frame (peak {fpeak:.2f} GiB); "
+              f"tiled at 100x100 {tiled_ms:.1f} ms; against auto's fp32 "
+              f"frame: PSNR {psnr:.2f} dB, within 1/255 {close1:.6f}, within "
+              f"2/255 {close2:.6f}, max abs {dmax} ({need}); tiled against "
+              f"auto's tiled: PSNR {t_psnr:.2f} dB, within 1/255 "
+              f"{t_close1:.6f}; launches {got}; bf16 kernels {twins}; "
+              f"plain-version calls {calls}", flush=True)
+        for i, f_ in enumerate((fr, tiled)):
+            if f_.shape != (H, W, 3) or f_.dtype != np.uint8 \
+                    or int(f_.max()) == int(f_.min()):
+                fail(f"fp32 {name} frame {i}: {f_.shape} {f_.dtype}")
+        if got != want or twins or calls:
+            fail(f"the fp32 {name} frames did not run exactly their fp32 "
+                 f"kernels (want {want})")
+        ok = (psnr >= I8_F32_FRAME_PSNR if int8_frame else
+              psnr >= F32_FRAME_PSNR and close1 >= F32_FRAME_MIN_CLOSE
+              and t_psnr >= F32_FRAME_PSNR)
+        if not ok:
+            fail(f"the fp32 {name} frame disagrees with auto's fp32 frame")
+        out[name] = {"step_ms": step_ms, "frame_ms": frame_ms,
+                     "tiled_ms": tiled_ms, "peak_gib": peak, "idle": idle}
+        torch.cuda.empty_cache()
+    return {"modes": out, "launches": launches}
 
 
 def drive_demo_cli() -> None:
@@ -3132,6 +3700,7 @@ def main() -> None:
     train_reference_check(device, REF_INT8_MODES, phase=7)
     f32 = drive_fp32_path(device)
     results += f32["results"]
+    f32_modes = drive_fp32_modes(device, f32.pop("ref"))
     drive_demo_cli()
 
     # Each kernel's launches on the main path that holds it: the serving
@@ -3147,7 +3716,10 @@ def main() -> None:
     for r in results:
         r["launches"] = (int8["launches"][r["name"]] if r["name"] in int8_only
                          else f32["launches"][r["name"]]
+                         + f32_modes["launches"].get(r["name"], 0)
                          if r["name"] in f32["launches"]
+                         else f32_modes["launches"][r["name"]]
+                         if r["name"] in f32_modes["launches"]
                          else cli["launches"][r["name"]] if r["name"] in cli_only
                          else modes["launches"][r["name"]]
                          if r["name"] in mode_only

@@ -33,6 +33,10 @@
 // false; _ase_fwd_kernel with cdt = float32): both walks, the w_k product
 // and its bias in fp32 (walk.cuh's 3xTF32 products), the value rows not
 // rounded before the fuse; the same shared memory, byte for byte.
+// attend_eval_i8_f32 is the int8 kernel beside fp32 compute (int8_eval with
+// use_amp: false): the int8 walks unchanged, then the fp32 epilogue of
+// attend_eval_f32 (the 3xTF32 w_k product on the unrounded y_k, fp32 bias,
+// value rows not rounded), as _ase_fwd_kernel runs it with cdt = float32.
 
 #include "rec_stream.cuh"
 #include "stream_common.cuh"
@@ -53,6 +57,7 @@ __device__ __forceinline__ void attend_eval_tile(
     float bkg, int normalize, float eps, float* __restrict__ fused,
     float* __restrict__ attn) {
   const WalkSmemT<Op> S = walk_smem<Op>(smem);
+  const WalkSmem Q = walk_smem_q<Op>(smem);   // the int8 walks' (same C)
   float* C = S.C;
   float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
   float* m_run = geo + kRows * kGeo;                         // kRows
@@ -102,8 +107,9 @@ __device__ __forceinline__ void attend_eval_tile(
     // --- key walk -> w_k -> score column ---
     encode_rec(C, kd, geo, gidx, record, rec_w);
     __syncthreads();
-    if constexpr (kF32<Op>) run_walk(S, kd, true);   // y_k fp32 in C
-    else if (kq) run_walk_q(S, kd, *kq, true);  // y_k rounded to bf16 in A[0]
+    // y_k as the w_k product's operand: rounded to bf16 in A[0], or fp32 in
+    // C (the fp32 walk's A[0]).
+    if (kq) run_walk_q(Q, kd, *kq, !kF32<Op>);
     else run_walk(S, kd, true);
     dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
     __syncthreads();
@@ -132,8 +138,7 @@ __device__ __forceinline__ void attend_eval_tile(
     // --- value walk -> online softmax-weighted accumulation ---
     encode_rec(C, vd, geo, gidx, record, rec_w);
     __syncthreads();
-    if constexpr (kF32<Op>) run_walk(S, vd);
-    else if (vq) run_walk_q(S, vd, *vq);
+    if (vq) run_walk_q(Q, vd, *vq);
     else run_walk(S, vd);
     for (int r = warp; r < kRows; r += kWarps) {
       const float s = ss[r * K + k];
@@ -186,15 +191,17 @@ attend_eval_kernel(const float* __restrict__ record, int rec_w,
                    score_relu, bkg, normalize, eps, fused, attn);
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 attend_eval_i8_kernel(const float* __restrict__ record, int rec_w,
                       const int* __restrict__ idx, int T, int K,
                       const float* __restrict__ rayo,
                       const float* __restrict__ rays,
                       const float* __restrict__ qq, int dm, float sqrt_dm,
-                      WalkDesc kd, WalkQuant kq,
-                      const __nv_bfloat16* __restrict__ wk,
-                      const float* __restrict__ bk, int dm_pad, WalkDesc vd,
+                      WalkDescT<Op> kd, WalkQuant kq,
+                      const Op* __restrict__ wk,
+                      const float* __restrict__ bk, int dm_pad,
+                      WalkDescT<Op> vd,
                       WalkQuant vq, int score_relu, float bkg, int normalize,
                       float eps, float* __restrict__ fused,
                       float* __restrict__ attn) {
@@ -205,7 +212,8 @@ attend_eval_i8_kernel(const float* __restrict__ record, int rec_w,
 }
 
 // Shared launcher, Op the walks' operand type: kwq .. vdq all null launches
-// the bf16 (fp32) kernel, all given (bf16 only) the int8 one.
+// the bf16 (fp32) kernel, all given its int8 form with the bf16 (fp32)
+// epilogue.
 template <class Op>
 static int launch_attend_eval(
     const float* record, int rec_w, const int* idx, int T, int K,
@@ -223,9 +231,7 @@ static int launch_attend_eval(
   err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
   WalkQuant kq, vq;
-  if constexpr (kF32<Op>) {
-    if (int8) return -205;
-  } else if (int8) {
+  if (int8) {
     err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
     if (err) return err;
     err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
@@ -239,7 +245,7 @@ static int launch_attend_eval(
       (kGeo + 1 + K + vd.d_out) + sizeof(int) * kRows;
   if (smem > 232448) return -203;      // the H100's per-block maximum
   cudaError_t e = int8
-      ? cudaFuncSetAttribute(attend_eval_i8_kernel,
+      ? cudaFuncSetAttribute(attend_eval_i8_kernel<Op>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem)
       : cudaFuncSetAttribute(attend_eval_kernel<Op>,
@@ -250,14 +256,12 @@ static int launch_attend_eval(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Op* wkp = static_cast<const Op*>(wk);
   const float* bkp = static_cast<const float*>(bk);
-  if constexpr (!kF32<Op>) {
-    if (int8) {
-      attend_eval_i8_kernel<<<grid, kThreads, smem, st>>>(
-          record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp,
-          bkp, dm_pad, vd, vq, score_relu, bkg, normalize, eps,
-          static_cast<float*>(fused), static_cast<float*>(attn));
-      return (int)cudaGetLastError();
-    }
+  if (int8) {
+    attend_eval_i8_kernel<Op><<<grid, kThreads, smem, st>>>(
+        record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp,
+        bkp, dm_pad, vd, vq, score_relu, bkg, normalize, eps,
+        static_cast<float*>(fused), static_cast<float*>(attn));
+    return (int)cudaGetLastError();
   }
   attend_eval_kernel<Op><<<grid, kThreads, smem, st>>>(
       record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp,
@@ -297,4 +301,12 @@ extern "C" int papr_attend_eval_i8(ATTEND_EVAL_PARAMS, const void* kwq,
                                    const void* vdq, void* stream) {
   return launch_attend_eval<__nv_bfloat16>(ATTEND_EVAL_ARGS, true, kwq, kinv,
                                            kdq, vwq, vinv, vdq, stream);
+}
+
+extern "C" int papr_attend_eval_i8_f32(ATTEND_EVAL_PARAMS, const void* kwq,
+                                       const void* kinv, const void* kdq,
+                                       const void* vwq, const void* vinv,
+                                       const void* vdq, void* stream) {
+  return launch_attend_eval<float>(ATTEND_EVAL_ARGS, true, kwq, kinv, kdq,
+                                   vwq, vinv, vdq, stream);
 }

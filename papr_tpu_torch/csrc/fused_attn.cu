@@ -31,8 +31,17 @@
 // and embedq themselves are the other operand, so nothing else is stashed.
 // The bias gradients go to one partial-sum row per block, summed in a fixed
 // order by colsum (no float atomics anywhere).
+//
+// fused_scores_f32_fwd / _bwd are the same two kernels in fp32 (use_amp:
+// false; _fwd_kernel / _bwd_kernel with an fp32 compute type): embeddings,
+// weights and products in fp32 (walk.cuh's 3xTF32 products), the bias added
+// to the unrounded product, the dkk / dqq stashes and d_embedk / d_embedq
+// fp32 (dW through wgrad_f32). qq is not rounded, so it cannot sit in a bf16
+// tile: the fp32 walk's shared memory holds its operand in C itself, so qq
+// goes to a (T, pdm) fp32 device buffer that the block reads back (its own
+// rows, L2-resident) for every k; the shared memory is the bf16 kernels'.
 
-#include "walk.cuh"
+#include "stream_common.cuh"
 
 using namespace papr;
 
@@ -45,66 +54,85 @@ constexpr int kRowsPerWarp = kRows / kWarps;      // 4
 constexpr int kColsPerLane = kMaxWidth / 32;      // 8
 constexpr size_t kScoreSmem = kWalkSmem + sizeof(float) * kRows * kSLd;
 
+// Op: the operand type of embeddings and weights (bf16, or fp32).
+template <class Op>
 struct ScoreArgs {
-  const __nv_bfloat16* ek;    // (K, T, Dk) k-major
-  const __nv_bfloat16* eq;    // (T, Dq)
+  const Op* ek;               // (K, T, Dk) k-major
+  const Op* eq;               // (T, Dq)
   const float* influ;         // (T, K)
   const float* alive;         // (T, K) {0, 1}
-  const __nv_bfloat16* wkT;   // (pdk, pdm) input-major, zero padded
-  const __nv_bfloat16* wqT;   // (pdq, pdm)
+  const Op* wkT;              // (pdk, pdm) input-major, zero padded
+  const Op* wqT;              // (pdq, pdm)
   const float* bk;            // (pdm) zero padded
   const float* bq;            // (pdm)
+  float* qq;                  // fp32: (T, pdm) rows of qq (bf16: null)
   int T, K, Dk, Dq, dm, pdk, pdq, pdm;
   float rsqrt_dm, bkg;
   int relu;
 };
 
-// Rows [t0, t0 + kRows) of a row-major (T, D) bf16 matrix into A, pd lanes
-// per row, zero past T and past D.
-__device__ __forceinline__ void load_rows(__nv_bfloat16* A,
-                                          const __nv_bfloat16* __restrict__ src,
+// Rows [t0, t0 + kRows) of a row-major (T, D) matrix of Op into A, pd
+// lanes per row, zero past T and past D; 16 B (8 bf16, 4 fp32) a vector.
+template <class Op>
+__device__ __forceinline__ void load_rows(Op* A, const Op* __restrict__ src,
                                           int T, int D, int pd, int t0) {
-  const int vpr = pd >> 3;
-  const bool vec = (D & 7) == 0;
+  constexpr int kV = 16 / sizeof(Op);
+  const int vpr = pd / kV;
+  const bool vec = D % kV == 0;
   for (int v = threadIdx.x; v < kRows * vpr; v += kThreads) {
-    const int r = v / vpr, c8 = (v - r * vpr) << 3;
+    const int r = v / vpr, c0 = (v - r * vpr) * kV;
     const int t = t0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T && c8 < D) {
-      const __nv_bfloat16* p = src + (size_t)t * D + c8;
+    if (t < T && c0 < D) {
+      const Op* p = src + (size_t)t * D + c0;
       if (vec) {
         val = *reinterpret_cast<const uint4*>(p);
       } else {
-        __align__(16) __nv_bfloat16 h[8];
+        __align__(16) Op h[kV];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          h[e] = c8 + e < D ? p[e] : __float2bfloat16_rn(0.f);
+        for (int e = 0; e < kV; ++e) h[e] = c0 + e < D ? p[e] : to_act<Op>(0.f);
         val = *reinterpret_cast<const uint4*>(h);
       }
     }
-    *reinterpret_cast<uint4*>(A + r * kALd + c8) = val;
+    *reinterpret_cast<uint4*>(A + r * kALd + c0) = val;
   }
 }
 
-// _linear's epilogue on an fp32 accumulator: round, add the bias in bf16.
-__device__ __forceinline__ float linear_out(float acc, float bias) {
-  return bf16_round(bf16_round(acc) + bf16_round(bias));
+// qq of the block's row r, column c: bf16 in A[1] (exact: it was rounded
+// there), or fp32 from the device rows the block wrote (0 past T).
+template <class Op>
+__device__ __forceinline__ float qq_at(const WalkSmemT<Op>& s,
+                                       const ScoreArgs<Op>& a, int t0, int r,
+                                       int c) {
+  if constexpr (kF32<Op>) {
+    const int t = t0 + r;
+    return t < a.T ? a.qq[(size_t)t * a.pdm + c] : 0.f;
+  } else {
+    return __bfloat162float(s.A[1][r * kALd + c]);
+  }
 }
 
-// The shared forward head: qq into A[1] (bf16), the raw scaled dots of every
-// k into sS[r * kSLd + k]. Ends on a barrier.
-__device__ __forceinline__ void score_dots(const WalkSmem& s,
-                                           const ScoreArgs& a, int t0,
+// The shared forward head: qq (linear_apply in Op: _linear :77) into A[1]
+// or the device rows, the raw scaled dots of every k into sS[r * kSLd + k].
+// Ends on a barrier.
+template <class Op>
+__device__ __forceinline__ void score_dots(const WalkSmemT<Op>& s,
+                                           const ScoreArgs<Op>& a, int t0,
                                            float* sS) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   load_rows(s.A[0], a.eq, a.T, a.Dq, a.pdq, t0);
   dense_layer(s.A[0], s.C, nullptr, s.W, a.wqT, nullptr, a.pdq, a.pdm, 0);
   __syncthreads();
   for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp + i * kWarps;
-    for (int c = lane; c < a.pdm; c += 32)
-      s.A[1][r * kALd + c] =
-          __float2bfloat16_rn(linear_out(s.C[r * kCLd + c], a.bq[c]));
+    const int r = warp + i * kWarps, t = t0 + r;
+    for (int c = lane; c < a.pdm; c += 32) {
+      const float q = linear_c<Op>(s.C[r * kCLd + c], a.bq[c]);
+      if constexpr (kF32<Op>) {
+        if (t < a.T) a.qq[(size_t)t * a.pdm + c] = q;
+      } else {
+        s.A[1][r * kALd + c] = __float2bfloat16_rn(q);
+      }
+    }
   }
   __syncthreads();
   for (int k = 0; k < a.K; ++k) {
@@ -115,8 +143,7 @@ __device__ __forceinline__ void score_dots(const WalkSmem& s,
       const int r = warp + i * kWarps;
       float acc = 0.f;
       for (int c = lane; c < a.pdm; c += 32)
-        acc += __bfloat162float(s.A[1][r * kALd + c]) *
-               linear_out(s.C[r * kCLd + c], a.bk[c]);
+        acc += qq_at(s, a, t0, r, c) * linear_c<Op>(s.C[r * kCLd + c], a.bk[c]);
       acc = warp_sum(acc);
       if (lane == 0) sS[r * kSLd + k] = acc * a.rsqrt_dm;
     }
@@ -130,11 +157,12 @@ __device__ __forceinline__ float score_of(float raw, float influ, float alive,
   return alive > 0.5f ? sact * influ : kNegBig;
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_scores_fwd_kernel(ScoreArgs a, float* __restrict__ attn,
+fused_scores_fwd_kernel(ScoreArgs<Op> a, float* __restrict__ attn,
                         float* __restrict__ raw_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem s = walk_smem(smem);
+  const WalkSmemT<Op> s = walk_smem<Op>(smem);
   float* sS = reinterpret_cast<float*>(s.extra);
   const int t0 = blockIdx.x * kRows;
   score_dots(s, a, t0, sS);
@@ -159,15 +187,16 @@ fused_scores_fwd_kernel(ScoreArgs a, float* __restrict__ attn,
   o[a.K] = eb / z;
 }
 
+template <class Op>
 struct ScoreBwdArgs {
   const float* dattn;          // (T, K + 1)
-  const __nv_bfloat16* wkB;    // (pdm, pdk): w_k itself, input-major for dkk w_k
-  const __nv_bfloat16* wqB;    // (pdm, pdq)
-  __nv_bfloat16* dek;          // (K, T, Dk)
-  __nv_bfloat16* deq;          // (T, Dq)
+  const Op* wkB;               // (pdm, pdk): w_k itself, input-major for dkk w_k
+  const Op* wqB;               // (pdm, pdq)
+  Op* dek;                     // (K, T, Dk)
+  Op* deq;                     // (T, Dq)
   float* dinflu;               // (T, K)
-  __nv_bfloat16* dkk_stash;    // (K * T, pdm)
-  __nv_bfloat16* dqq_stash;    // (T, pdm)
+  Op* dkk_stash;               // (K * T, pdm)
+  Op* dqq_stash;               // (T, pdm)
   float* part;                 // (blocks, 2 * pdm): db_k, db_q partial rows
 };
 
@@ -181,10 +210,11 @@ __device__ __forceinline__ void reduce_warp_rows(const float* C, int pdm,
   }
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_scores_bwd_kernel(ScoreArgs a, ScoreBwdArgs b) {
+fused_scores_bwd_kernel(ScoreArgs<Op> a, ScoreBwdArgs<Op> b) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem s = walk_smem(smem);
+  const WalkSmemT<Op> s = walk_smem<Op>(smem);
   float* sS = reinterpret_cast<float*>(s.extra);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t0 = blockIdx.x * kRows;
@@ -248,11 +278,13 @@ fused_scores_bwd_kernel(ScoreArgs a, ScoreBwdArgs b) {
       for (int j = 0; j < kColsPerLane; ++j) {
         const int c = lane + 32 * j;
         if (c < a.pdm) {
-          const float kk = linear_out(s.C[r * kCLd + c], a.bk[c]);
-          const float dkk = dr * __bfloat162float(s.A[1][r * kALd + c]);
+          const float kk = linear_c<Op>(s.C[r * kCLd + c], a.bk[c]);
+          const float dkk = dr * qq_at(s, a, t0, r, c);
           dqq[i][j] += dr * kk;
           dbk[j] += dkk;
-          const __nv_bfloat16 h = __float2bfloat16_rn(dkk);
+          // The dX product's operand (fp32: C's own element, just read by
+          // this thread) and the dW_k stash, in Op.
+          const Op h = to_act<Op>(dkk);
           s.A[0][r * kALd + c] = h;
           if (t < a.T)
             b.dkk_stash[((size_t)k * a.T + t) * a.pdm + c] = h;
@@ -265,9 +297,8 @@ fused_scores_bwd_kernel(ScoreArgs a, ScoreBwdArgs b) {
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = warp + i * kWarps, t = t0 + r;
       if (t >= a.T) continue;
-      __nv_bfloat16* o = b.dek + ((size_t)k * a.T + t) * a.Dk;
-      for (int c = lane; c < a.Dk; c += 32)
-        o[c] = __float2bfloat16_rn(s.C[r * kCLd + c]);
+      Op* o = b.dek + ((size_t)k * a.T + t) * a.Dk;
+      for (int c = lane; c < a.Dk; c += 32) o[c] = to_act<Op>(s.C[r * kCLd + c]);
     }
     __syncthreads();
   }
@@ -282,7 +313,9 @@ fused_scores_bwd_kernel(ScoreArgs a, ScoreBwdArgs b) {
   reduce_warp_rows(s.C, a.pdm, part);
   __syncthreads();
 
-  // dqq: rounded once for d_eq and dW_q, unrounded for db_q.
+  // dqq: in Op for d_eq and dW_q (into A[0], which is C under fp32), fp32
+  // for db_q, whose per-warp rows go to the free weight buffer.
+  float* red = reinterpret_cast<float*>(s.W);
 #pragma unroll
   for (int j = 0; j < kColsPerLane; ++j) {
     const int c = lane + 32 * j;
@@ -291,47 +324,49 @@ fused_scores_bwd_kernel(ScoreArgs a, ScoreBwdArgs b) {
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = warp + i * kWarps, t = t0 + r;
       if (c < a.pdm) {
-        const __nv_bfloat16 h = __float2bfloat16_rn(dqq[i][j]);
+        const Op h = to_act<Op>(dqq[i][j]);
         s.A[0][r * kALd + c] = h;
         if (t < a.T) b.dqq_stash[(size_t)t * a.pdm + c] = h;
         dbq += dqq[i][j];
       }
     }
-    if (c < a.pdm) s.C[warp * kCLd + c] = dbq;
+    if (c < a.pdm) red[warp * kCLd + c] = dbq;
   }
   __syncthreads();
-  reduce_warp_rows(s.C, a.pdm, part + a.pdm);
+  reduce_warp_rows(red, a.pdm, part + a.pdm);
   __syncthreads();
   dense_layer(s.A[0], s.C, nullptr, s.W, b.wqB, nullptr, a.pdm, a.pdq, 0);
   __syncthreads();
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp + i * kWarps, t = t0 + r;
     if (t >= a.T) continue;
-    __nv_bfloat16* o = b.deq + (size_t)t * a.Dq;
-    for (int c = lane; c < a.Dq; c += 32)
-      o[c] = __float2bfloat16_rn(s.C[r * kCLd + c]);
+    Op* o = b.deq + (size_t)t * a.Dq;
+    for (int c = lane; c < a.Dq; c += 32) o[c] = to_act<Op>(s.C[r * kCLd + c]);
   }
 }
 
-int fill_args(ScoreArgs* a, const void* ek, const void* eq, const float* influ,
-              const float* alive, const void* wkT, const void* wqT,
-              const float* bk, const float* bq, int T, int K, int Dk, int Dq,
-              int dm, int pdk, int pdq, int pdm, float sqrt_dm, float bkg,
-              int relu) {
+template <class Op>
+int fill_args(ScoreArgs<Op>* a, const void* ek, const void* eq,
+              const float* influ, const float* alive, const void* wkT,
+              const void* wqT, const float* bk, const float* bq, int T, int K,
+              int Dk, int Dq, int dm, int pdk, int pdq, int pdm, float sqrt_dm,
+              float bkg, int relu, void* qq) {
   if (K < 1 || K > kMaxK) return -601;
   const int pds[3] = {pdk, pdq, pdm};
   for (int i = 0; i < 3; ++i)
     if (pds[i] <= 0 || pds[i] > kMaxWidth || pds[i] % 16 != 0) return -602;
   if (Dk > pdk || Dq > pdq || dm > pdm || Dk < 1 || Dq < 1 || dm < 1)
     return -603;
-  a->ek = static_cast<const __nv_bfloat16*>(ek);
-  a->eq = static_cast<const __nv_bfloat16*>(eq);
+  if (kF32<Op> && !qq) return -604;
+  a->ek = static_cast<const Op*>(ek);
+  a->eq = static_cast<const Op*>(eq);
   a->influ = influ;
   a->alive = alive;
-  a->wkT = static_cast<const __nv_bfloat16*>(wkT);
-  a->wqT = static_cast<const __nv_bfloat16*>(wqT);
+  a->wkT = static_cast<const Op*>(wkT);
+  a->wqT = static_cast<const Op*>(wqT);
   a->bk = bk;
   a->bq = bq;
+  a->qq = static_cast<float*>(qq);
   a->T = T; a->K = K; a->Dk = Dk; a->Dq = Dq; a->dm = dm;
   a->pdk = pdk; a->pdq = pdq; a->pdm = pdm;
   a->rsqrt_dm = 1.0f / sqrt_dm;
@@ -342,56 +377,86 @@ int fill_args(ScoreArgs* a, const void* ek, const void* eq, const float* influ,
 
 }  // namespace
 
-// attn (T, K + 1) fp32; raw_out (T, K) fp32 or null.
-extern "C" int papr_fused_scores_fwd(
-    const void* ek, const void* eq, const float* influ, const float* alive,
-    const void* wkT, const void* wqT, const float* bk, const float* bq, int T,
-    int K, int Dk, int Dq, int dm, int pdk, int pdq, int pdm, float sqrt_dm,
-    float bkg, int relu, float* attn, float* raw_out, void* stream) {
-  ScoreArgs a;
-  int err = fill_args(&a, ek, eq, influ, alive, wkT, wqT, bk, bq, T, K, Dk, Dq,
-                      dm, pdk, pdq, pdm, sqrt_dm, bkg, relu);
+#define SCORE_HEAD_PARAMS                                                    \
+    const void* ek, const void* eq, const float* influ, const float* alive,  \
+    const void* wkT, const void* wqT, const float* bk, const float* bq,      \
+    int T, int K, int Dk, int Dq, int dm, int pdk, int pdq, int pdm,         \
+    float sqrt_dm, float bkg, int relu
+#define SCORE_HEAD_ARGS                                                      \
+    ek, eq, influ, alive, wkT, wqT, bk, bq, T, K, Dk, Dq, dm, pdk, pdq, pdm, \
+    sqrt_dm, bkg, relu
+#define SCORE_BWD_PARAMS                                                     \
+    const float* dattn, const void* wkB, const void* wqB, void* dek,         \
+    void* deq, float* dinflu, void* dkk_stash, void* dqq_stash, float* part
+#define SCORE_BWD_ARGS                                                       \
+    dattn, wkB, wqB, dek, deq, dinflu, dkk_stash, dqq_stash, part
+
+// attn (T, K + 1) fp32; raw_out (T, K) fp32 or null; qq: the fp32 kernel's
+// (T, pdm) fp32 scratch (null for bf16).
+template <class Op>
+static int launch_fwd(SCORE_HEAD_PARAMS, float* attn, float* raw_out,
+                      void* qq, void* stream) {
+  ScoreArgs<Op> a;
+  int err = fill_args(&a, SCORE_HEAD_ARGS, qq);
   if (err) return err;
   if (T <= 0) return 0;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_scores_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_scores_fwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kScoreSmem);
   if (e != cudaSuccess) return (int)e;
-  fused_scores_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, kScoreSmem,
-                            static_cast<cudaStream_t>(stream)>>>(a, attn,
-                                                                 raw_out);
+  fused_scores_fwd_kernel<Op><<<(T + kRows - 1) / kRows, kThreads, kScoreSmem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      a, attn, raw_out);
   return (int)cudaGetLastError();
 }
 
-// part is (ceil(T / 64), 2 * pdm) fp32; the stashes are bf16 (K * T, pdm)
-// and (T, pdm); dek / deq are bf16 in the inputs' layouts.
-extern "C" int papr_fused_scores_bwd(
-    const void* ek, const void* eq, const float* influ, const float* alive,
-    const void* wkT, const void* wqT, const float* bk, const float* bq, int T,
-    int K, int Dk, int Dq, int dm, int pdk, int pdq, int pdm, float sqrt_dm,
-    float bkg, int relu, const float* dattn, const void* wkB, const void* wqB,
-    void* dek, void* deq, float* dinflu, void* dkk_stash, void* dqq_stash,
-    float* part, void* stream) {
-  ScoreArgs a;
-  int err = fill_args(&a, ek, eq, influ, alive, wkT, wqT, bk, bq, T, K, Dk, Dq,
-                      dm, pdk, pdq, pdm, sqrt_dm, bkg, relu);
+// part is (ceil(T / 64), 2 * pdm) fp32; the stashes are Op (K * T, pdm) and
+// (T, pdm); dek / deq are Op in the inputs' layouts.
+template <class Op>
+static int launch_bwd(SCORE_HEAD_PARAMS, SCORE_BWD_PARAMS, void* qq,
+                      void* stream) {
+  ScoreArgs<Op> a;
+  int err = fill_args(&a, SCORE_HEAD_ARGS, qq);
   if (err) return err;
   if (T <= 0) return 0;
-  ScoreBwdArgs b;
+  ScoreBwdArgs<Op> b;
   b.dattn = dattn;
-  b.wkB = static_cast<const __nv_bfloat16*>(wkB);
-  b.wqB = static_cast<const __nv_bfloat16*>(wqB);
-  b.dek = static_cast<__nv_bfloat16*>(dek);
-  b.deq = static_cast<__nv_bfloat16*>(deq);
+  b.wkB = static_cast<const Op*>(wkB);
+  b.wqB = static_cast<const Op*>(wqB);
+  b.dek = static_cast<Op*>(dek);
+  b.deq = static_cast<Op*>(deq);
   b.dinflu = dinflu;
-  b.dkk_stash = static_cast<__nv_bfloat16*>(dkk_stash);
-  b.dqq_stash = static_cast<__nv_bfloat16*>(dqq_stash);
+  b.dkk_stash = static_cast<Op*>(dkk_stash);
+  b.dqq_stash = static_cast<Op*>(dqq_stash);
   b.part = part;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_scores_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_scores_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kScoreSmem);
   if (e != cudaSuccess) return (int)e;
-  fused_scores_bwd_kernel<<<(T + kRows - 1) / kRows, kThreads, kScoreSmem,
-                            static_cast<cudaStream_t>(stream)>>>(a, b);
+  fused_scores_bwd_kernel<Op><<<(T + kRows - 1) / kRows, kThreads, kScoreSmem,
+                                static_cast<cudaStream_t>(stream)>>>(a, b);
   return (int)cudaGetLastError();
+}
+
+extern "C" int papr_fused_scores_fwd(SCORE_HEAD_PARAMS, float* attn,
+                                     float* raw_out, void* stream) {
+  return launch_fwd<__nv_bfloat16>(SCORE_HEAD_ARGS, attn, raw_out, nullptr,
+                                   stream);
+}
+
+extern "C" int papr_fused_scores_f32_fwd(SCORE_HEAD_PARAMS, float* attn,
+                                         float* raw_out, void* qq,
+                                         void* stream) {
+  return launch_fwd<float>(SCORE_HEAD_ARGS, attn, raw_out, qq, stream);
+}
+
+extern "C" int papr_fused_scores_bwd(SCORE_HEAD_PARAMS, SCORE_BWD_PARAMS,
+                                     void* stream) {
+  return launch_bwd<__nv_bfloat16>(SCORE_HEAD_ARGS, SCORE_BWD_ARGS, nullptr,
+                                   stream);
+}
+
+extern "C" int papr_fused_scores_f32_bwd(SCORE_HEAD_PARAMS, SCORE_BWD_PARAMS,
+                                         void* qq, void* stream) {
+  return launch_bwd<float>(SCORE_HEAD_ARGS, SCORE_BWD_ARGS, qq, stream);
 }

@@ -30,12 +30,16 @@
 // stream_attn.py:1013-1017): the walk's dense stack runs walk.cuh's int8
 // walk on a quantization the wrapper calibrated on this call's record; the
 // raw dots and masked scores it saves are the int8 forward's. The backward
-// above takes no flag: it recomputes the walk in bf16 (straight-through).
+// above takes no flag: it recomputes the walk in bf16 (straight-through; the
+// fp32 backward after key_stream_i8_f32_fwd).
 //
 // key_stream_f32_fwd / key_stream_f32_bwd are the same two kernels on the
 // fp32 walk (use_amp: false): fp32 walk, w_k product and bias (walk.cuh's
 // 3xTF32 products), fp32 stash and dW. Shared memory is the bf16 kernels'
 // byte for byte (walk.cuh), so key_rec_*_smem hold for both.
+// key_stream_i8_f32_fwd is the int8 forward beside fp32 compute: the int8
+// walk, then the fp32 w_k product and bias on the unrounded y_k; its
+// backward is key_stream_f32_bwd on the raw dots and scores it saved.
 
 #include "key_stream.cuh"
 
@@ -56,18 +60,19 @@ key_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                    raw, ss_out);
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 key_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                   const float* __restrict__ rayo,
                   const float* __restrict__ rays,
                   const float* __restrict__ qq, int dm, float sqrt_dm,
-                  WalkDesc kd, WalkQuant kq,
-                  const __nv_bfloat16* __restrict__ wk,
+                  WalkDescT<Op> kd, WalkQuant kq,
+                  const Op* __restrict__ wk,
                   const float* __restrict__ bk, int dm_pad, int score_relu,
                   float bkg, float eps, float* __restrict__ attn,
                   float* __restrict__ raw, float* __restrict__ ss_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  key_rec_fwd_tile(walk_smem(smem), rec, rec_w, T, K, rayo, rays, qq, dm,
+  key_rec_fwd_tile(walk_smem<Op>(smem), rec, rec_w, T, K, rayo, rays, qq, dm,
                    sqrt_dm, kd, wk, bk, dm_pad, score_relu, bkg, eps, attn,
                    raw, ss_out, &kq);
 }
@@ -94,8 +99,7 @@ key_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
 }
 
 // Shared launcher of the forwards: Op the walk's operand type; with int8
-// (bf16 only) the three quantization buffers are read and the int8 kernel
-// launched.
+// the three quantization buffers are read and the int8 kernel launched.
 template <class Op>
 static int launch_key_fwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
@@ -109,9 +113,7 @@ static int launch_key_fwd(
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   WalkQuant kq;
-  if constexpr (kF32<Op>) {
-    if (int8) return -205;
-  } else if (int8) {
+  if (int8) {
     err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
     if (err) return err;
   }
@@ -121,7 +123,7 @@ static int launch_key_fwd(
   const size_t smem = key_rec_fwd_smem(K);
   if (smem > 232448) return -203;
   cudaError_t e = int8
-      ? cudaFuncSetAttribute(key_i8_fwd_kernel,
+      ? cudaFuncSetAttribute(key_i8_fwd_kernel<Op>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem)
       : cudaFuncSetAttribute(key_fwd_kernel<Op>,
@@ -132,14 +134,12 @@ static int launch_key_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Op* wkp = static_cast<const Op*>(wk);
   const float* bkp = static_cast<const float*>(bk);
-  if constexpr (!kF32<Op>) {
-    if (int8) {
-      key_i8_fwd_kernel<<<grid, kThreads, smem, st>>>(
-          rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp, bkp,
-          dm_pad, score_relu, bkg, eps, static_cast<float*>(attn),
-          static_cast<float*>(raw), static_cast<float*>(ss));
-      return (int)cudaGetLastError();
-    }
+  if (int8) {
+    key_i8_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
+        rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp, bkp,
+        dm_pad, score_relu, bkg, eps, static_cast<float*>(attn),
+        static_cast<float*>(raw), static_cast<float*>(ss));
+    return (int)cudaGetLastError();
   }
   key_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
       rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp, dm_pad,
@@ -182,6 +182,19 @@ extern "C" int papr_key_stream_i8_fwd(
     int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
     const void* kwq, const void* kinv, const void* kdq, void* stream) {
   return launch_key_fwd<__nv_bfloat16>(
+      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,
+      kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss, true, kwq,
+      kinv, kdq, stream);
+}
+
+extern "C" int papr_key_stream_i8_f32_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* qq, int dm, float sqrt_dm,
+    const int* kmeta, const void* kw, const void* kb, const void* kln,
+    const void* kplan, const void* wk, const void* bk, int dm_pad,
+    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
+    const void* kwq, const void* kinv, const void* kdq, void* stream) {
+  return launch_key_fwd<float>(
       rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,
       kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss, true, kwq,
       kinv, kdq, stream);

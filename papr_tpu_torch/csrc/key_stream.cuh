@@ -23,7 +23,8 @@ inline size_t key_rec_bwd_smem(int K) {
 // Per (ray, k): geometry -> key posenc -> walk -> w_k -> scaled dot with qq
 // -> score_act x influence, alive-masked; then the background-token softmax.
 // Writes attn (T, K+1), the raw dots and the masked scores (T, K). With kq
-// the walk's dense stack runs in int8 (walk.cuh run_walk_q; bf16 walks only).
+// the walk's dense stack runs in int8 (walk.cuh run_walk_q), followed by the
+// w_k product in Op (bf16 on y_k rounded, fp32 on y_k as it is).
 template <class Op>
 __device__ __forceinline__ void key_rec_fwd_tile(
     const WalkSmemT<Op>& S, const float* __restrict__ rec, int rec_w, int T,
@@ -44,8 +45,10 @@ __device__ __forceinline__ void key_rec_fwd_tile(
     __syncthreads();
     encode_rec(C, kd, geo, gidx, rec, rec_w);
     __syncthreads();
-    if constexpr (kF32<Op>) run_walk(S, kd, true);   // y_k fp32 in C
-    else if (kq) run_walk_q(S, kd, *kq, true);  // y_k rounded to bf16 in A[0]
+    // y_k as the w_k product's operand: rounded to bf16 in A[0], or fp32 in
+    // C (the fp32 walk's A[0]); the int8 walk's buffers share the base.
+    if (kq) run_walk_q(walk_smem_q<Op>(S.extra - kWalkSmem), kd, *kq,
+                       !kF32<Op>);
     else run_walk(S, kd, true);
     dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
     __syncthreads();

@@ -22,21 +22,27 @@
 // block, every activation in shared memory, scores / dqq / ds owned by the
 // block (no atomics), dW through the bf16 stash and wgrad.cu. The encode
 // stage reads x[k, t, src] by the column plan, as the embedder kernel does.
+//
+// key_stream_feat_f32_fwd / _bwd are the same two kernels on the fp32 walk
+// (use_amp: false; _ks_*_kernel with cdt = float32): the walk, the w_k
+// product and its bias in fp32 (walk.cuh's 3xTF32 products; y_k is never
+// rounded), fp32 stashes and dW through wgrad_f32; the same shared memory.
 
 #include "stream_common.cuh"
 
 using namespace papr;
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 keyf_fwd_kernel(const float* __restrict__ x, int d_raw, int T, int K,
                 const float* __restrict__ qq, int dm, float sqrt_dm,
                 const float* __restrict__ influ,
-                const float* __restrict__ alive, WalkDesc kd,
-                const __nv_bfloat16* __restrict__ wk,
+                const float* __restrict__ alive, WalkDescT<Op> kd,
+                const Op* __restrict__ wk,
                 const float* __restrict__ bk, int dm_pad, int score_relu,
                 float bkg, float* __restrict__ attn, float* __restrict__ raw) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem S = walk_smem(smem);
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   float* C = S.C;
   float* ss = reinterpret_cast<float*>(S.extra);             // kRows x K
   const int t0 = blockIdx.x * kRows;
@@ -44,10 +50,11 @@ keyf_fwd_kernel(const float* __restrict__ x, int d_raw, int T, int K,
   for (int k = 0; k < K; ++k) {
     encode_raw(C, kd, x + (size_t)k * T * d_raw, t0, T, d_raw);
     __syncthreads();
-    run_walk(S, kd, true);                      // y_k rounded to bf16 in A[0]
+    run_walk(S, kd, true);             // y_k: bf16 in A[0], or fp32 in C
     dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
     __syncthreads();
-    score_column(C, qq, bk, dm, sqrt_dm, t0, T, [&](int r, int t, float col) {
+    score_column<Op>(C, qq, bk, dm, sqrt_dm, t0, T,
+                     [&](int r, int t, float col) {
       const size_t i = (size_t)t * K + k;
       raw[i] = col;
       ss[r * K + k] = masked_score(col, score_relu, influ[i], alive[i] > 0.5f);
@@ -57,21 +64,22 @@ keyf_fwd_kernel(const float* __restrict__ x, int d_raw, int T, int K,
   softmax_rows(ss, K, bkg, t0, T, attn, nullptr);
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 keyf_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp, int K,
                 const float* __restrict__ qq, int dm, float sqrt_dm,
                 const float* __restrict__ influ,
                 const float* __restrict__ alive,
                 const float* __restrict__ raw,
-                const float* __restrict__ dattn, WalkDesc kd, WalkBwd kb,
-                const __nv_bfloat16* __restrict__ wkf,
-                const __nv_bfloat16* __restrict__ wkb,
+                const float* __restrict__ dattn, WalkDescT<Op> kd,
+                WalkBwdT<Op> kb, const Op* __restrict__ wkf,
+                const Op* __restrict__ wkb,
                 const float* __restrict__ bk, int dm_pad, int dbk_off,
                 int score_relu, float bkg, const int* __restrict__ seg,
                 float* __restrict__ dx, float* dqq,
                 float* __restrict__ dinflu) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem S = walk_smem(smem);
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   float* C = S.C;
   float* st = reinterpret_cast<float*>(S.extra);             // 4 x kRows
   float* ds = st + 4 * kRows;                                // kRows x K
@@ -125,13 +133,25 @@ keyf_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp, int K,
   }
 }
 
-extern "C" int papr_key_stream_feat_fwd(
-    const float* x, int d_raw, int T, int K, const float* qq, int dm,
-    float sqrt_dm, const float* influ, const float* alive, const int* kmeta,
-    const void* kw, const void* kb, const void* kln, const void* kplan,
-    const void* wk, const void* bk, int dm_pad, int score_relu, float bkg,
-    void* attn, void* raw, void* stream) {
-  WalkDesc kd;
+#define KEYF_FWD_PARAMS                                                      \
+    const float* x, int d_raw, int T, int K, const float* qq, int dm,        \
+    float sqrt_dm, const float* influ, const float* alive, const int* kmeta, \
+    const void* kw, const void* kb, const void* kln, const void* kplan,      \
+    const void* wk, const void* bk, int dm_pad, int score_relu, float bkg,   \
+    void* attn, void* raw, void* stream
+#define KEYF_BWD_PARAMS                                                      \
+    const float* x, int d_raw, int T, int K, const float* qq, int dm,        \
+    float sqrt_dm, const float* influ, const float* alive, const float* raw, \
+    const float* dattn, const int* kmeta, const void* kw, const void* kb,    \
+    const void* kln, const void* kplan, const void* kwt, const void* wkf,    \
+    const void* wkb, const void* bk, int dm_pad, int score_relu, float bkg,  \
+    void* stash, const long long* stash_off, const int* seg, float* dx,      \
+    float* dqq, float* dinflu, float* part, int part_w, float* scratch,      \
+    void* stream
+
+template <class Op>
+static int launch_keyf_fwd(KEYF_FWD_PARAMS) {
+  WalkDescT<Op> kd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   err = check_score_head(dm, dm_pad, K);
@@ -141,30 +161,24 @@ extern "C" int papr_key_stream_feat_fwd(
   const size_t smem = kWalkSmem + sizeof(float) * kRows * K;
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      keyf_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      keyf_fwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  keyf_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
+  keyf_fwd_kernel<Op><<<(T + kRows - 1) / kRows, kThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       x, d_raw, T, K, qq, dm, sqrt_dm, influ, alive, kd,
-      static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
+      static_cast<const Op*>(wk), static_cast<const float*>(bk),
       dm_pad, score_relu, bkg, static_cast<float*>(attn),
       static_cast<float*>(raw));
   return (int)cudaGetLastError();
 }
 
-extern "C" int papr_key_stream_feat_bwd(
-    const float* x, int d_raw, int T, int K, const float* qq, int dm,
-    float sqrt_dm, const float* influ, const float* alive, const float* raw,
-    const float* dattn, const int* kmeta, const void* kw, const void* kb,
-    const void* kln, const void* kplan, const void* kwt, const void* wkf,
-    const void* wkb, const void* bk, int dm_pad, int score_relu, float bkg,
-    void* stash, const long long* stash_off, const int* seg, float* dx,
-    float* dqq, float* dinflu, float* part, int part_w, float* scratch,
-    void* stream) {
-  WalkDesc kd;
+template <class Op>
+static int launch_keyf_bwd(KEYF_BWD_PARAMS) {
+  WalkDescT<Op> kd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
-  WalkBwd wb;
+  WalkBwdT<Op> wb;
   err = fill_walk_bwd(&wb, kd, kmeta, kwt, stash, stash_off, kd.n + 1, part,
                       part_w, scratch);
   if (err) return err;
@@ -177,14 +191,39 @@ extern "C" int papr_key_stream_feat_bwd(
   const size_t smem = kWalkSmem + sizeof(float) * kRows * (4 + K + 1);
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      keyf_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      keyf_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int Tp = (T + kRows - 1) / kRows * kRows;
-  keyf_bwd_kernel<<<Tp / kRows, kThreads, smem,
+  keyf_bwd_kernel<Op><<<Tp / kRows, kThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       x, d_raw, T, Tp, K, qq, dm, sqrt_dm, influ, alive, raw, dattn, kd, wb,
-      static_cast<const __nv_bfloat16*>(wkf),
-      static_cast<const __nv_bfloat16*>(wkb), static_cast<const float*>(bk),
+      static_cast<const Op*>(wkf),
+      static_cast<const Op*>(wkb), static_cast<const float*>(bk),
       dm_pad, dbk_off, score_relu, bkg, seg, dx, dqq, dinflu);
   return (int)cudaGetLastError();
+}
+
+#define KEYF_FWD_ARGS                                                        \
+    x, d_raw, T, K, qq, dm, sqrt_dm, influ, alive, kmeta, kw, kb, kln,       \
+    kplan, wk, bk, dm_pad, score_relu, bkg, attn, raw, stream
+#define KEYF_BWD_ARGS                                                        \
+    x, d_raw, T, K, qq, dm, sqrt_dm, influ, alive, raw, dattn, kmeta, kw,    \
+    kb, kln, kplan, kwt, wkf, wkb, bk, dm_pad, score_relu, bkg, stash,       \
+    stash_off, seg, dx, dqq, dinflu, part, part_w, scratch, stream
+
+extern "C" int papr_key_stream_feat_fwd(KEYF_FWD_PARAMS) {
+  return launch_keyf_fwd<__nv_bfloat16>(KEYF_FWD_ARGS);
+}
+
+extern "C" int papr_key_stream_feat_f32_fwd(KEYF_FWD_PARAMS) {
+  return launch_keyf_fwd<float>(KEYF_FWD_ARGS);
+}
+
+extern "C" int papr_key_stream_feat_bwd(KEYF_BWD_PARAMS) {
+  return launch_keyf_bwd<__nv_bfloat16>(KEYF_BWD_ARGS);
+}
+
+extern "C" int papr_key_stream_feat_f32_bwd(KEYF_BWD_PARAMS) {
+  return launch_keyf_bwd<float>(KEYF_BWD_ARGS);
 }

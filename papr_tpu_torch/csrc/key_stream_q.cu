@@ -26,35 +26,44 @@
 // back only rows it wrote itself (L2-resident, 64 KB a tile), after a
 // barrier, through ordinary loads. The query stashes are T rows, not K * T:
 // the query walk has WalkBwd buffers of its own.
+//
+// key_stream_q_f32_fwd / key_stream_q_f32_bwd are the same two kernels on the
+// fp32 walks (use_amp: false; _ksrq_*_kernel with cdt = float32): the query
+// walk, w_q and its bias in fp32 (linear_c<float>: qq is never rounded), the
+// key walk and w_k as key_stream_f32_*, fp32 stashes (dqq included) and dW
+// through wgrad_f32. Shared memory is the bf16 kernels' byte for byte
+// (walk.cuh): the fp32 activations live in C, and qq / dqq stay in the
+// (T, dm) fp32 device buffers.
 
 #include "key_stream.cuh"
 
 using namespace papr;
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 keyq_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                 const float* __restrict__ rayo, const float* __restrict__ rays,
                 const float* __restrict__ rayd, int dm, float sqrt_dm,
-                WalkDesc kd, const __nv_bfloat16* __restrict__ wk,
-                const float* __restrict__ bk, WalkDesc qd,
-                const __nv_bfloat16* __restrict__ wq,
+                WalkDescT<Op> kd, const Op* __restrict__ wk,
+                const float* __restrict__ bk, WalkDescT<Op> qd,
+                const Op* __restrict__ wq,
                 const float* __restrict__ bq, int dm_pad, int score_relu,
                 float bkg, float eps, float* __restrict__ attn,
                 float* __restrict__ raw, float* __restrict__ ss_out,
                 float* qq) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem S = walk_smem(smem);
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   const int t0 = blockIdx.x * kRows;
 
   // The query chain, once per tile (_ksrq_fwd_kernel :1211-1215).
   encode_raw(S.C, qd, rayd, t0, T, 3);
   __syncthreads();
-  run_walk(S, qd, true);                        // eq rounded to bf16 in A[0]
+  run_walk(S, qd, true);              // eq: bf16 in A[0], or fp32 in C
   dense_layer(S.A[0], S.C, nullptr, S.W, wq, nullptr, qd.pd[qd.n], dm_pad, 0);
   __syncthreads();
   for (int i = threadIdx.x; i < kRows * dm; i += kThreads) {
     const int r = i / dm, c = i - r * dm, t = t0 + r;
-    if (t < T) qq[(size_t)t * dm + c] = linear_bf16(S.C[r * kCLd + c], bq[c]);
+    if (t < T) qq[(size_t)t * dm + c] = linear_c<Op>(S.C[r * kCLd + c], bq[c]);
   }
   __syncthreads();
 
@@ -62,22 +71,24 @@ keyq_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                    bk, dm_pad, score_relu, bkg, eps, attn, raw, ss_out);
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 keyq_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
                 const float* __restrict__ rayo, const float* __restrict__ rays,
                 const float* __restrict__ rayd, const float* __restrict__ qq,
                 int dm, float sqrt_dm, const float* __restrict__ raw,
                 const float* __restrict__ ss, const float* __restrict__ dattn,
-                WalkDesc kd, WalkBwd kb, const __nv_bfloat16* __restrict__ wkf,
-                const __nv_bfloat16* __restrict__ wkb,
-                const float* __restrict__ bk, WalkDesc qd, WalkBwd qb,
-                const __nv_bfloat16* __restrict__ wqb, int dm_pad, int dbk_off,
+                WalkDescT<Op> kd, WalkBwdT<Op> kb,
+                const Op* __restrict__ wkf, const Op* __restrict__ wkb,
+                const float* __restrict__ bk, WalkDescT<Op> qd,
+                WalkBwdT<Op> qb, const Op* __restrict__ wqb, int dm_pad,
+                int dbk_off,
                 int dbq_off, int score_relu, float bkg, float eps,
                 const int* __restrict__ seg, int nsrc,
                 const int* __restrict__ qseg, float* drec, float* drayo,
                 float* drays, float* __restrict__ drayd, float* dqq) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem S = walk_smem(smem);
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   float* C = S.C;
   float* st = reinterpret_cast<float*>(S.extra);             // 4 x kRows
   const int t0 = blockIdx.x * kRows;
@@ -95,11 +106,12 @@ keyq_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
   const TileCtx ctx = tile_ctx(qd, qb, (size_t)t0, st);
   walk_fwd_stash(S, qd, qb, ctx, true);          // eq_c in A[0]
   stash_tile(S.A[0], qb.hs[m], ctx.row0, pdm);
+  __syncthreads();                // fp32: A[0] is C, overwritten below
   for (int i = threadIdx.x; i < kRows * dm_pad; i += kThreads) {
     const int r = i / dm_pad, c = i - r * dm_pad, t = t0 + r;
     const float g = t < T && c < dm ? dqq[(size_t)t * dm + c] : 0.f;
     C[r * kCLd + c] = g;
-    const __nv_bfloat16 h = __float2bfloat16_rn(g);
+    const Op h = to_act<Op>(g);
     S.A[1][r * kALd + c] = h;
     qb.dz[m][(ctx.row0 + r) * dm_pad + c] = h;
   }
@@ -119,15 +131,42 @@ keyq_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
   });
 }
 
-extern "C" int papr_key_stream_q_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* rayd, int dm, float sqrt_dm,
-    const int* kmeta, const void* kw, const void* kb, const void* kln,
-    const void* kplan, const void* wk, const void* bk, const int* qmeta,
-    const void* qw, const void* qb, const void* qln, const void* qplan,
-    const void* wq, const void* bq, int dm_pad, int score_relu, float bkg,
-    float eps, void* attn, void* raw, void* ss, void* qq, void* stream) {
-  WalkDesc kd, qd;
+#define KEYQ_FWD_PARAMS                                                      \
+    const float* rec, int rec_w, int T, int K, const float* rayo,            \
+    const float* rays, const float* rayd, int dm, float sqrt_dm,             \
+    const int* kmeta, const void* kw, const void* kb, const void* kln,       \
+    const void* kplan, const void* wk, const void* bk, const int* qmeta,     \
+    const void* qw, const void* qb, const void* qln, const void* qplan,      \
+    const void* wq, const void* bq, int dm_pad, int score_relu, float bkg,   \
+    float eps, void* attn, void* raw, void* ss, void* qq, void* stream
+#define KEYQ_FWD_ARGS                                                        \
+    rec, rec_w, T, K, rayo, rays, rayd, dm, sqrt_dm, kmeta, kw, kb, kln,     \
+    kplan, wk, bk, qmeta, qw, qb, qln, qplan, wq, bq, dm_pad, score_relu,    \
+    bkg, eps, attn, raw, ss, qq, stream
+#define KEYQ_BWD_PARAMS                                                      \
+    const float* rec, int rec_w, int T, int K, const float* rayo,            \
+    const float* rays, const float* rayd, const float* qq, int dm,           \
+    float sqrt_dm, const float* raw, const float* ss, const float* dattn,    \
+    const int* kmeta, const void* kw, const void* kb, const void* kln,       \
+    const void* kplan, const void* kwt, const void* wkf, const void* wkb,    \
+    const void* bk, const int* qmeta, const void* qw, const void* qb,        \
+    const void* qln, const void* qplan, const void* qwt, const void* wqb,    \
+    int dm_pad, int score_relu, float bkg, float eps, void* kstash,          \
+    const long long* kstash_off, void* qstash, const long long* qstash_off,  \
+    const int* seg, int nsrc, const int* qseg, float* drec, float* drayo,    \
+    float* drays, float* drayd, float* dqq, float* kpart, int kpart_w,       \
+    float* kscratch, float* qpart, int qpart_w, float* qscratch,             \
+    void* stream
+#define KEYQ_BWD_ARGS                                                        \
+    rec, rec_w, T, K, rayo, rays, rayd, qq, dm, sqrt_dm, raw, ss, dattn,     \
+    kmeta, kw, kb, kln, kplan, kwt, wkf, wkb, bk, qmeta, qw, qb, qln, qplan, \
+    qwt, wqb, dm_pad, score_relu, bkg, eps, kstash, kstash_off, qstash,      \
+    qstash_off, seg, nsrc, qseg, drec, drayo, drays, drayd, dqq, kpart,      \
+    kpart_w, kscratch, qpart, qpart_w, qscratch, stream
+
+template <class Op>
+static int launch_keyq_fwd(KEYQ_FWD_PARAMS) {
+  WalkDescT<Op> kd, qd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   err = fill_walk(&qd, qmeta, qw, qb, qln, qplan);
@@ -138,39 +177,28 @@ extern "C" int papr_key_stream_q_fwd(
   const size_t smem = key_rec_fwd_smem(K);
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      keyq_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      keyq_fwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  keyq_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  keyq_fwd_kernel<Op><<<(T + kRows - 1) / kRows, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
       rec, rec_w, T, K, rayo, rays, rayd, dm, sqrt_dm, kd,
-      static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
-      qd, static_cast<const __nv_bfloat16*>(wq),
+      static_cast<const Op*>(wk), static_cast<const float*>(bk),
+      qd, static_cast<const Op*>(wq),
       static_cast<const float*>(bq), dm_pad, score_relu, bkg, eps,
       static_cast<float*>(attn), static_cast<float*>(raw),
       static_cast<float*>(ss), static_cast<float*>(qq));
   return (int)cudaGetLastError();
 }
 
-extern "C" int papr_key_stream_q_bwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* rayd, const float* qq, int dm,
-    float sqrt_dm, const float* raw, const float* ss, const float* dattn,
-    const int* kmeta, const void* kw, const void* kb, const void* kln,
-    const void* kplan, const void* kwt, const void* wkf, const void* wkb,
-    const void* bk, const int* qmeta, const void* qw, const void* qb,
-    const void* qln, const void* qplan, const void* qwt, const void* wqb,
-    int dm_pad, int score_relu, float bkg, float eps, void* kstash,
-    const long long* kstash_off, void* qstash, const long long* qstash_off,
-    const int* seg, int nsrc, const int* qseg, float* drec, float* drayo,
-    float* drays, float* drayd, float* dqq, float* kpart, int kpart_w,
-    float* kscratch, float* qpart, int qpart_w, float* qscratch,
-    void* stream) {
-  WalkDesc kd, qd;
+template <class Op>
+static int launch_keyq_bwd(KEYQ_BWD_PARAMS) {
+  WalkDescT<Op> kd, qd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   err = fill_walk(&qd, qmeta, qw, qb, qln, qplan);
   if (err) return err;
-  WalkBwd kwb, qwb;
+  WalkBwdT<Op> kwb, qwb;
   err = fill_walk_bwd(&kwb, kd, kmeta, kwt, kstash, kstash_off, kd.n + 1,
                       kpart, kpart_w, kscratch);
   if (err) return err;
@@ -186,16 +214,33 @@ extern "C" int papr_key_stream_q_bwd(
   const size_t smem = key_rec_bwd_smem(K);
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      keyq_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      keyq_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int Tp = (T + kRows - 1) / kRows * kRows;
-  keyq_bwd_kernel<<<Tp / kRows, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  keyq_bwd_kernel<Op><<<Tp / kRows, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
       rec, rec_w, T, Tp, K, rayo, rays, rayd, qq, dm, sqrt_dm, raw, ss, dattn,
-      kd, kwb, static_cast<const __nv_bfloat16*>(wkf),
-      static_cast<const __nv_bfloat16*>(wkb), static_cast<const float*>(bk),
-      qd, qwb, static_cast<const __nv_bfloat16*>(wqb), dm_pad, dbk_off,
+      kd, kwb, static_cast<const Op*>(wkf),
+      static_cast<const Op*>(wkb), static_cast<const float*>(bk),
+      qd, qwb, static_cast<const Op*>(wqb), dm_pad, dbk_off,
       dbq_off, score_relu, bkg, eps, seg, nsrc, qseg, drec, drayo, drays,
       drayd, dqq);
   return (int)cudaGetLastError();
+}
+
+extern "C" int papr_key_stream_q_fwd(KEYQ_FWD_PARAMS) {
+  return launch_keyq_fwd<__nv_bfloat16>(KEYQ_FWD_ARGS);
+}
+
+extern "C" int papr_key_stream_q_f32_fwd(KEYQ_FWD_PARAMS) {
+  return launch_keyq_fwd<float>(KEYQ_FWD_ARGS);
+}
+
+extern "C" int papr_key_stream_q_bwd(KEYQ_BWD_PARAMS) {
+  return launch_keyq_bwd<__nv_bfloat16>(KEYQ_BWD_ARGS);
+}
+
+extern "C" int papr_key_stream_q_f32_bwd(KEYQ_BWD_PARAMS) {
+  return launch_keyq_bwd<float>(KEYQ_BWD_ARGS);
 }

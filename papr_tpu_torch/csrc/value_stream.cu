@@ -24,12 +24,15 @@
 // value_stream_i8_fwd is the forward with int8=True (tpu.int8_train,
 // stream_attn.py:1742-1746): the walk's dense stack runs walk.cuh's int8
 // walk on a quantization the wrapper calibrated on this call's record. The
-// backward takes no flag: it recomputes the walk in bf16 (straight-through).
+// backward takes no flag: it recomputes the walk in bf16 (straight-through;
+// the fp32 backward after value_stream_i8_f32_fwd).
 //
 // value_stream_f32_fwd / value_stream_f32_bwd are the same two kernels on
 // the fp32 walk (use_amp: false): fp32 walk (walk.cuh's 3xTF32 products),
 // value rows not rounded before the fuse, fp32 stash and dW; the same
-// shared memory.
+// shared memory. value_stream_i8_f32_fwd is the int8 forward beside fp32
+// compute: the int8 walk, its fp32 rows fused unrounded; its backward is
+// value_stream_f32_bwd.
 
 #include "rec_stream.cuh"
 #include "stream_common.cuh"
@@ -47,7 +50,7 @@ __device__ __forceinline__ void value_fwd_tile(
     const WalkQuant* vq, int normalize, float eps,
     float* __restrict__ fused) {
   const WalkSmemT<Op> S = walk_smem<Op>(smem);
-  float* C = S.C;
+  float* C = S.C;                  // walk_smem_q<Op>'s C too
   float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
   float* den = geo + kRows * kGeo;                           // kRows
   const int cout = vd.d_out;
@@ -64,8 +67,7 @@ __device__ __forceinline__ void value_fwd_tile(
     __syncthreads();
     encode_rec(C, vd, geo, gidx, rec, rec_w);
     __syncthreads();
-    if constexpr (kF32<Op>) run_walk(S, vd);
-    else if (vq) run_walk_q(S, vd, *vq);
+    if (vq) run_walk_q(walk_smem_q<Op>(smem), vd, *vq);
     else run_walk(S, vd);
     fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);
     __syncthreads();
@@ -90,11 +92,13 @@ value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                  normalize, eps, fused);
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 value_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                     const float* __restrict__ rayo,
                     const float* __restrict__ rays,
-                    const float* __restrict__ attn, WalkDesc vd, WalkQuant vq,
+                    const float* __restrict__ attn, WalkDescT<Op> vd,
+                    WalkQuant vq,
                     int normalize, float eps, float* __restrict__ fused) {
   extern __shared__ __align__(128) unsigned char smem[];
   value_fwd_tile(smem, rec, rec_w, T, K, rayo, rays, attn, vd, &vq, normalize,
@@ -177,8 +181,7 @@ value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
 }
 
 // Shared launcher of the forwards, Op the walk's operand type: with int8
-// (bf16 only) the three quantization buffers are read and the int8 kernel
-// launched.
+// the three quantization buffers are read and the int8 kernel launched.
 template <class Op>
 static int launch_value_fwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
@@ -190,9 +193,7 @@ static int launch_value_fwd(
   int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
   WalkQuant vq;
-  if constexpr (kF32<Op>) {
-    if (int8) return -205;
-  } else if (int8) {
+  if (int8) {
     err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
     if (err) return err;
   }
@@ -202,7 +203,7 @@ static int launch_value_fwd(
       (kGeo + 1 + vd.d_out) + sizeof(int) * kRows;
   if (smem > 232448) return -203;
   cudaError_t e = int8
-      ? cudaFuncSetAttribute(value_i8_fwd_kernel,
+      ? cudaFuncSetAttribute(value_i8_fwd_kernel<Op>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem)
       : cudaFuncSetAttribute(value_fwd_kernel<Op>,
@@ -211,13 +212,11 @@ static int launch_value_fwd(
   if (e != cudaSuccess) return (int)e;
   const int grid = (T + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (!kF32<Op>) {
-    if (int8) {
-      value_i8_fwd_kernel<<<grid, kThreads, smem, st>>>(
-          rec, rec_w, T, K, rayo, rays, attn, vd, vq, normalize, eps,
-          static_cast<float*>(fused));
-      return (int)cudaGetLastError();
-    }
+  if (int8) {
+    value_i8_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
+        rec, rec_w, T, K, rayo, rays, attn, vd, vq, normalize, eps,
+        static_cast<float*>(fused));
+    return (int)cudaGetLastError();
   }
   value_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
       rec, rec_w, T, K, rayo, rays, attn, vd, normalize, eps,
@@ -252,6 +251,17 @@ extern "C" int papr_value_stream_i8_fwd(
     float eps, void* fused, const void* vwq, const void* vinv,
     const void* vdq, void* stream) {
   return launch_value_fwd<__nv_bfloat16>(
+      rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,
+      normalize, eps, fused, true, vwq, vinv, vdq, stream);
+}
+
+extern "C" int papr_value_stream_i8_f32_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* attn, const int* vmeta, const void* vw,
+    const void* vb, const void* vln, const void* vplan, int normalize,
+    float eps, void* fused, const void* vwq, const void* vinv,
+    const void* vdq, void* stream) {
+  return launch_value_fwd<float>(
       rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,
       normalize, eps, fused, true, vwq, vinv, vdq, stream);
 }

@@ -4,7 +4,7 @@
 // Forward replaces papr_tpu/ops/stream_attn.py::value_stream_fuse
 // (pallas_call at :555, kernel body _vs_fwd_kernel :406): per (ray, k) the
 // value posenc of xv[k, t] (6 -> 78, plus 64 pass-through point features) ->
-// 8-layer walk to 32 -> rounded to bf16 -> weighted by the renormalized
+// 8-layer walk to 32 -> rounded to the compute type -> weighted by the renormalized
 // foreground attention and summed over k: fused (T, C) fp32.
 //
 // Backward replaces _vs_bwd (pallas_call at :605, kernel body _vs_bwd_kernel
@@ -19,17 +19,24 @@
 // value_stream.cu's: one block of 512 threads per 64-ray tile, k inside the
 // block, every activation in shared memory, dW through the stash and
 // wgrad.cu; the fuse steps are shared with it (stream_common.cuh).
+//
+// value_stream_feat_f32_fwd / _bwd are the same two kernels on the fp32 walk
+// (use_amp: false; _vs_*_kernel with cdt = float32): the walk in fp32
+// (walk.cuh's 3xTF32 products), the value rows fused unrounded, fp32
+// stashes and dW through wgrad_f32; the same shared memory.
 
 #include "stream_common.cuh"
 
 using namespace papr;
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 valuef_fwd_kernel(const float* __restrict__ x, int d_raw, int T, int K,
-                  const float* __restrict__ attn, WalkDesc vd, int normalize,
+                  const float* __restrict__ attn, WalkDescT<Op> vd,
+                  int normalize,
                   float* __restrict__ fused) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem S = walk_smem(smem);
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   float* C = S.C;
   float* den = reinterpret_cast<float*>(S.extra);            // kRows
   const int cout = vd.d_out;
@@ -44,7 +51,7 @@ valuef_fwd_kernel(const float* __restrict__ x, int d_raw, int T, int K,
     encode_raw(C, vd, x + (size_t)k * T * d_raw, t0, T, d_raw);
     __syncthreads();
     run_walk(S, vd);
-    fuse_step(C, acc, attn, den, k, K, cout, t0, T);
+    fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);
     __syncthreads();
   }
   for (int i = threadIdx.x; i < kRows * cout; i += kThreads) {
@@ -53,14 +60,16 @@ valuef_fwd_kernel(const float* __restrict__ x, int d_raw, int T, int K,
   }
 }
 
+template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 valuef_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp,
                   int K, const float* __restrict__ attn,
-                  const float* __restrict__ dfused, WalkDesc vd, WalkBwd vb,
+                  const float* __restrict__ dfused, WalkDescT<Op> vd,
+                  WalkBwdT<Op> vb,
                   int normalize, const int* __restrict__ seg,
                   float* __restrict__ dx, float* __restrict__ dattn) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem S = walk_smem(smem);
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);
   float* C = S.C;
   float* st = reinterpret_cast<float*>(S.extra);             // 4 x kRows
   float* den = st + 4 * kRows;                               // kRows
@@ -78,7 +87,7 @@ valuef_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp,
     __syncthreads();
     const TileCtx ctx = tile_ctx(vd, vb, (size_t)k * Tp + t0, st);
     walk_fwd_stash(S, vd, vb, ctx, false);       // y fp32 in C
-    fuse_step_bwd(C, datt, attn, den, dfused, k, K, cout, pdn, t0, T);
+    fuse_step_bwd<Op>(C, datt, attn, den, dfused, k, K, cout, pdn, t0, T);
     walk_bwd(S, vd, vb, ctx);
 
     pe_bwd_deriv(C, vd, [&](int r, int src) {
@@ -96,11 +105,20 @@ valuef_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp,
   renorm_bwd_rows(datt, attn, den, normalize, K, t0, T, dattn);
 }
 
-extern "C" int papr_value_stream_feat_fwd(
-    const float* x, int d_raw, int T, int K, const float* attn,
-    const int* vmeta, const void* vw, const void* vb, const void* vln,
-    const void* vplan, int normalize, void* fused, void* stream) {
-  WalkDesc vd;
+#define VALUEF_FWD_PARAMS                                                    \
+    const float* x, int d_raw, int T, int K, const float* attn,              \
+    const int* vmeta, const void* vw, const void* vb, const void* vln,       \
+    const void* vplan, int normalize, void* fused, void* stream
+#define VALUEF_BWD_PARAMS                                                    \
+    const float* x, int d_raw, int T, int K, const float* attn,              \
+    const float* dfused, const int* vmeta, const void* vw, const void* vb,   \
+    const void* vln, const void* vplan, const void* vwt, int normalize,      \
+    void* stash, const long long* stash_off, const int* seg, float* dx,      \
+    float* dattn, float* part, int part_w, float* scratch, void* stream
+
+template <class Op>
+static int launch_valuef_fwd(VALUEF_FWD_PARAMS) {
+  WalkDescT<Op> vd;
   int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
   if (K <= 0 || K > 64) return -202;
@@ -109,25 +127,21 @@ extern "C" int papr_value_stream_feat_fwd(
   const size_t smem = kWalkSmem + sizeof(float) * kRows * (1 + vd.d_out);
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      valuef_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      valuef_fwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  valuef_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
+  valuef_fwd_kernel<Op><<<(T + kRows - 1) / kRows, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       x, d_raw, T, K, attn, vd, normalize, static_cast<float*>(fused));
   return (int)cudaGetLastError();
 }
 
-extern "C" int papr_value_stream_feat_bwd(
-    const float* x, int d_raw, int T, int K, const float* attn,
-    const float* dfused, const int* vmeta, const void* vw, const void* vb,
-    const void* vln, const void* vplan, const void* vwt, int normalize,
-    void* stash, const long long* stash_off, const int* seg, float* dx,
-    float* dattn, float* part, int part_w, float* scratch, void* stream) {
-  WalkDesc vd;
+template <class Op>
+static int launch_valuef_bwd(VALUEF_BWD_PARAMS) {
+  WalkDescT<Op> vd;
   int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
-  WalkBwd wb;
+  WalkBwdT<Op> wb;
   err = fill_walk_bwd(&wb, vd, vmeta, vwt, stash, stash_off, vd.n, part,
                       part_w, scratch);
   if (err) return err;
@@ -137,12 +151,36 @@ extern "C" int papr_value_stream_feat_bwd(
   const size_t smem = kWalkSmem + sizeof(float) * kRows * (4 + 1 + K);
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      valuef_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      valuef_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int Tp = (T + kRows - 1) / kRows * kRows;
-  valuef_bwd_kernel<<<Tp / kRows, kThreads, smem,
+  valuef_bwd_kernel<Op><<<Tp / kRows, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       x, d_raw, T, Tp, K, attn, dfused, vd, wb, normalize, seg, dx, dattn);
   return (int)cudaGetLastError();
+}
+
+#define VALUEF_FWD_ARGS                                                      \
+    x, d_raw, T, K, attn, vmeta, vw, vb, vln, vplan, normalize, fused,       \
+    stream
+#define VALUEF_BWD_ARGS                                                      \
+    x, d_raw, T, K, attn, dfused, vmeta, vw, vb, vln, vplan, vwt,            \
+    normalize, stash, stash_off, seg, dx, dattn, part, part_w, scratch,      \
+    stream
+
+extern "C" int papr_value_stream_feat_fwd(VALUEF_FWD_PARAMS) {
+  return launch_valuef_fwd<__nv_bfloat16>(VALUEF_FWD_ARGS);
+}
+
+extern "C" int papr_value_stream_feat_f32_fwd(VALUEF_FWD_PARAMS) {
+  return launch_valuef_fwd<float>(VALUEF_FWD_ARGS);
+}
+
+extern "C" int papr_value_stream_feat_bwd(VALUEF_BWD_PARAMS) {
+  return launch_valuef_bwd<__nv_bfloat16>(VALUEF_BWD_ARGS);
+}
+
+extern "C" int papr_value_stream_feat_f32_bwd(VALUEF_BWD_PARAMS) {
+  return launch_valuef_bwd<float>(VALUEF_BWD_ARGS);
 }

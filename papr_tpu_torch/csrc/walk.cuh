@@ -43,7 +43,10 @@
 // tile each), the int8 weights are staged into W; C holds the fp32 stage
 // values at both ends. Each layer's epilogue quantizes straight for the next
 // layer (the fp32 value it holds is the h the reference quantizes), so only
-// the first layer's input takes a separate quantize pass over C.
+// the first layer's input takes a separate quantize pass over C. Beside fp32
+// compute (use_amp: false) the same walk runs with C moved to the front
+// (walk_smem_q<float>) and leaves its fp32 output there, unrounded, for the
+// fp32 products that follow.
 
 #pragma once
 
@@ -164,7 +167,8 @@ struct WalkQuant {
 // Host side: the three packed buffers against the walk's meta row. The int8
 // weights sit at the bf16 weights' element offsets, the dequant rows at the
 // bias offsets, the inverse-scale rows back to back.
-inline int fill_walk_quant(WalkQuant* q, const WalkDesc& d, const int* meta,
+template <class T>
+inline int fill_walk_quant(WalkQuant* q, const WalkDescT<T>& d, const int* meta,
                            const void* wq_all, const void* inv_all,
                            const void* dq_all) {
   if (!wq_all || !inv_all || !dq_all) return -105;
@@ -204,6 +208,26 @@ __device__ __forceinline__ WalkSmemT<T> walk_smem(unsigned char* base) {
   }
   s.extra = base + kWalkSmem;
   return s;
+}
+
+// The int8 walk's buffers beside compute of operand type Op. bf16: the
+// bf16 walk's. fp32 (an fp32 epilogue after run_walk_q): C first, where the
+// fp32 walk keeps it, then the two int8 activation tiles and the int8 weight
+// chunks in the bytes that the fp32 walk's staged weights take afterwards;
+// the int8 walk's fp32 output is left in the C of walk_smem<float>.
+template <class Op>
+__device__ __forceinline__ WalkSmem walk_smem_q(unsigned char* base) {
+  if constexpr (kF32<Op>) {
+    WalkSmem s;
+    s.C = reinterpret_cast<float*>(base);
+    s.A[0] = reinterpret_cast<__nv_bfloat16*>(base + kCBytes);
+    s.A[1] = reinterpret_cast<__nv_bfloat16*>(base + kCBytes + kABytes);
+    s.W = reinterpret_cast<__nv_bfloat16*>(base + kCBytes + 2 * kABytes);
+    s.extra = base + kWalkSmem;
+    return s;
+  } else {
+    return walk_smem(base);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -774,8 +798,11 @@ __device__ __forceinline__ void walk_q_epilogue(int r, int col, const int* a,
 
 // Runs the int8 walk on the encoded fp32 tile in C (pad lanes zero); output
 // as run_walk: fp32 in C, or, with out_bf16, rounded to bf16 into A[0]; ends
-// on a barrier.
-__device__ __forceinline__ void run_walk_q(const WalkSmem& s, const WalkDesc& d,
+// on a barrier. T is the operand type of the walk's description, whose
+// biases, LayerNorms and widths the int8 walk reads (its weights: q's).
+template <class T>
+__device__ __forceinline__ void run_walk_q(const WalkSmem& s,
+                                           const WalkDescT<T>& d,
                                            const WalkQuant& q,
                                            bool out_bf16 = false) {
   const int pd0 = d.pd[0], pdn = d.pd[d.n];

@@ -66,23 +66,32 @@ SIGNATURES = {
 }
 
 # The fp32 forms take their bf16 twin's arguments (pointers to fp32 weights,
-# stashes and outputs where the bf16 form has bf16 ones).
+# stashes and outputs where the bf16 form has bf16 ones); the fused scores'
+# fp32 forms add the (T, pdm) fp32 qq buffer before the stream.
 for _name in ("papr_fused_mlp_fwd", "papr_fused_mlp_bwd",
               "papr_key_stream_fwd", "papr_key_stream_bwd",
-              "papr_value_stream_fwd", "papr_value_stream_bwd"):
+              "papr_value_stream_fwd", "papr_value_stream_bwd",
+              "papr_key_stream_q_fwd", "papr_key_stream_q_bwd",
+              "papr_key_stream_feat_fwd", "papr_key_stream_feat_bwd",
+              "papr_value_stream_feat_fwd", "papr_value_stream_feat_bwd",
+              "papr_fused_scores_fwd", "papr_fused_scores_bwd"):
     _stem, _dir = _name.rsplit("_", 1)
     SIGNATURES[f"{_stem}_f32_{_dir}"] = SIGNATURES[_name]
+for _dir in ("fwd", "bwd"):
+    _sig = SIGNATURES[f"papr_fused_scores_f32_{_dir}"]
+    SIGNATURES[f"papr_fused_scores_f32_{_dir}"] = _sig[:-1] + [P, P]
 SIGNATURES["papr_attend_eval_f32"] = SIGNATURES["papr_attend_eval"]
 SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
 
 # The int8 forms take their bf16 twin's arguments, then the walk's (two
 # walks': key, then value) int8 weights, inverse-scale rows and dequant rows,
-# then the stream.
+# then the stream; the ``_i8_f32`` forms (the fp32 epilogue) the same.
 for _name, _walks in (("papr_attend_eval", 2), ("papr_key_stream", 1),
                       ("papr_value_stream", 1)):
     _twin = _name + ("_fwd" if _walks == 1 else "")
-    _i8 = _name + ("_i8_fwd" if _walks == 1 else "_i8")
-    SIGNATURES[_i8] = SIGNATURES[_twin][:-1] + [P] * (3 * _walks + 1)
+    _sig = SIGNATURES[_twin][:-1] + [P] * (3 * _walks + 1)
+    for _i8 in ("_i8", "_i8_f32"):
+        SIGNATURES[_name + _i8 + ("_fwd" if _walks == 1 else "")] = _sig
 
 _lib = None
 

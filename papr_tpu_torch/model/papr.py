@@ -47,14 +47,11 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
 * Training selection reads ``tpu.cull_prefilter`` (default ``approx``, read
   as the exact top-k of the cone lower bounds, see ``ops/tile_cull.py``);
   eval pins ``tpu.cull_prefilter_eval`` like the JAX eval path.
-* Compute dtype: ``use_amp: true`` runs the kernels in bf16. ``use_amp:
-  false`` runs them in fp32 where the kernel has its fp32 form (the fused
-  embedder forward and backward, the one-shot eval attention, the
-  record-native key / value streams forward and backward, ``wgrad``:
-  ``auto``, ``streamrec`` without a folded query, ``embed``, and
-  ``eval_fused: false``); on the card ``stream``, ``true``, ``score`` and
-  ``query_fold`` raise under fp32 (their kernels' fp32 forms are ROADMAP.md
-  Queue 2 item 1). On the CPU every mode runs its plain versions in either
+* Compute dtype: ``use_amp: true`` runs the kernels in bf16, ``use_amp:
+  false`` in fp32: every kernel of every mode has both forms (the fp32 ones
+  are the same kernels on the fp32 walk, 3xTF32 products, nothing rounded
+  to bf16), and the int8 walks run beside either (their epilogue in the
+  compute dtype). On the CPU every mode runs its plain versions in either
   dtype.
 * Embedder dropout (``dropout_ff > 0``): a training call given a dropout
   generator (``train/step.py`` derives one from the seed and the step) takes
@@ -66,13 +63,15 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
   stacks in int8 (``attend_eval_i8``), calibrated once per frame by
   ``eval_quant_params`` in the tiled renders and per call otherwise. Under
   ``streamrec`` without the one-shot kernel (``eval_fused: false``,
-  ``query_fold``) and under ``stream`` it warns once and the bf16 kernels
-  run, bit-equal to the config without the knob. Training never reads it.
+  ``query_fold``) and under ``stream`` it warns once and the kernels
+  without int8 run, bit-equal to the config without the knob. Training
+  never reads it.
 * ``int8_train: true`` -> in training, under ``streamrec`` without a folded
   query, the key and value streams' forwards run their walks in int8
   (``key_stream_i8_fwd`` / ``value_stream_i8_fwd``, calibrated per call);
-  the backwards are the bf16 recompute, unchanged. Under ``query_fold`` or
-  ``stream`` it warns once and trains in bf16. Eval never reads it.
+  the backwards are the recompute in the compute dtype, unchanged. Under
+  ``query_fold`` or ``stream`` it warns once and trains without int8. Eval
+  never reads it.
 * Under ``true`` | ``embed`` | ``score`` | ``false`` neither int8 knob does
   or says anything, as in the JAX package.
 * The TPU tuning knobs (``fused_tile``, ``vmem_mb``, ``mxu_reduce``,
@@ -360,13 +359,13 @@ def resolve_query_fold(cfg, fa) -> bool:
     return False
 
 
-def _kernel_mode(cfg, k: int, device=None, cdt=None, dropout=False):
+def _kernel_mode(cfg, k: int, dropout=False):
     """The attention path of a selection of k points: ``tpu.fused_attn``
     resolved against what the kernels cover (False: the plain path; always
     for a training call with ``dropout``), and whether the query chain folds
-    into the key stream. On a CUDA ``device`` with fp32 compute ``cdt`` a
-    mode whose kernels have no fp32 form yet raises."""
-    from ..ops.fused_mlp import FP32_TODO, feedforward_fusible
+    into the key stream. Every mode has its kernels in bf16 and fp32, so the
+    answer depends on neither the device nor the compute dtype."""
+    from ..ops.fused_mlp import feedforward_fusible
     e = cfg.models.attn.embed
     fusible = (not dropout and k <= 64 and not cfg.geoms.point_feats.use_inq
                and score_fusible(cfg.models.attn)
@@ -374,13 +373,6 @@ def _kernel_mode(cfg, k: int, device=None, cdt=None, dropout=False):
                        for c in (e.key, e.query, e.value)))
     fa = resolve_fused_attn(cfg, fusible)
     qfold = fa is not False and resolve_query_fold(cfg, fa)
-    if (cdt == torch.float32 and device is not None
-            and torch.device(device).type == "cuda"
-            and (fa in ("stream", True, "score") or qfold)):
-        mode = "streamrec + tpu.query_fold" if qfold else repr(fa)
-        raise NotImplementedError(
-            f"tpu.fused_attn: {mode} with use_amp: false on the card: "
-            + FP32_TODO)
     return fa, qfold
 
 
@@ -449,8 +441,7 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
                                            k, eps, chunk) for i in range(N)])
     idx = idx.reshape(N, H, W, k)
 
-    fa, qfold = _kernel_mode(cfg, k, points.device, policy.compute_dtype,
-                             dropout=dropout_rng is not None)
+    fa, qfold = _kernel_mode(cfg, k, dropout=dropout_rng is not None)
     if fa in ("streamrec", "stream"):
         # The one-shot eval kernel serves streamrec only. tpu.eval_fused:
         # false, a folded query and ``stream`` take the two-kernel eval
@@ -460,7 +451,7 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
         # The int8 knobs (papr_tpu/model/papr.py:640-662): int8_eval lives
         # in the one-shot eval kernel only, int8_train in the two
         # record-native training forwards only; elsewhere on this branch one
-        # warning, then the bf16 kernels.
+        # warning, then the kernels without int8.
         int8_eval = bool(cfg.get_path("tpu.int8_eval", False))
         if int8_eval and exact_select and not eval_one:
             _warn_int8_ignored(
@@ -922,8 +913,7 @@ def eval_quant_params(params: dict, state: dict, cfg, rays_o, rays_sample,
     meta = model_meta(cfg)
     P = params["points"].shape[0]
     k = meta.select_k
-    fa, qfold = _kernel_mode(cfg, P if (k >= P or k < 0) else k,
-                             params["points"].device, policy.compute_dtype)
+    fa, qfold = _kernel_mode(cfg, P if (k >= P or k < 0) else k)
     if not _one_shot_eval(cfg, fa, qfold):
         return None
     eval_quant_params.calls += 1

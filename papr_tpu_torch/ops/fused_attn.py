@@ -17,7 +17,9 @@ The attention tail between the k / q embedder outputs and feature fusion:
 in plain PyTorch, and ``fused_scores`` joins the directions in an autograd
 ``Function``. A CPU tensor takes the plain version; a CUDA tensor takes the
 kernel or raises. The renormalize-and-fuse epilogue stays outside, as in the
-JAX package.
+JAX package. The compute dtype picks the kernel: bf16, or fp32
+(``use_amp: false``: ``fused_scores_f32_fwd`` / ``_bwd``, the same kernels
+with fp32 operands and 3xTF32 products, fp32 gradients and stashes).
 
 Numerics: scores and softmax in fp32; the two projections in the compute
 dtype with the bias added in the compute dtype (``nn/mlp.py linear_apply``),
@@ -31,7 +33,7 @@ import math
 
 import torch
 
-from .fused_mlp import FP32_TODO, round_up, wgrad
+from .fused_mlp import round_up, wgrad
 
 NEG_BIG = -1e30
 
@@ -113,10 +115,11 @@ fused_scores_bwd_plain.calls = 0
 
 
 def _pack(embedk, embedq, wk, bk, wq, bq, influ, alive, cdt, what):
-    """Checks and kernel layouts shared by both directions."""
-    if cdt != torch.bfloat16:
-        raise NotImplementedError(f"{what}: the CUDA kernel runs bf16 "
-                                  f"compute (use_amp: true); {FP32_TODO}")
+    """Checks and kernel layouts in the compute dtype ``cdt``, shared by
+    both directions."""
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"{what}: compute dtype {cdt} (the CUDA "
+                                  "kernels run bf16 or fp32)")
     K, T, Dk = embedk.shape
     Dq = embedq.shape[-1]
     dm = int(wk.shape[0])
@@ -137,11 +140,10 @@ def _pack(embedk, embedq, wk, bk, wq, bq, influ, alive, cdt, what):
             raise ValueError(f"{what}: {name} must be on the card")
     dev = embedk.device
     pdk, pdq, pdm = round_up(Dk, 16), round_up(Dq, 16), round_up(dm, 16)
-    bf = torch.bfloat16
 
     def padded(w, rows, cols):
-        out = torch.zeros(rows, cols, dtype=bf, device=dev)
-        out[:w.shape[0], :w.shape[1]] = w.to(device=dev, dtype=bf)
+        out = torch.zeros(rows, cols, dtype=cdt, device=dev)
+        out[:w.shape[0], :w.shape[1]] = w.to(device=dev, dtype=cdt)
         return out
 
     def padded_bias(b):
@@ -150,7 +152,7 @@ def _pack(embedk, embedq, wk, bk, wq, bq, influ, alive, cdt, what):
         return out
 
     return dict(
-        ek=embedk.to(bf).contiguous(), eq=embedq.to(bf).contiguous(),
+        ek=embedk.to(cdt).contiguous(), eq=embedq.to(cdt).contiguous(),
         influ=influ.float().contiguous(), alive=alive.float().contiguous(),
         wkT=padded(wk.T, pdk, pdm), wqT=padded(wq.T, pdq, pdm),
         wkB=padded(wk, pdm, pdk), wqB=padded(wq, pdm, pdq),
@@ -165,6 +167,14 @@ def _head_args(p, score_act, bkg_score):
             p["bk"].data_ptr(), p["bq"].data_ptr(), T, K, Dk, Dq, dm, pdk,
             pdq, pdm, float(math.sqrt(dm)), float(bkg_score),
             int(score_act == "relu"))
+
+
+def _qq_rows(p) -> torch.Tensor:
+    """The fp32 kernels' (T, pdm) buffer of qq rows: qq stays fp32 there,
+    as the fp32 walk's shared memory has no room for it beside the key
+    tile."""
+    T, pdm = p["dims"][0], p["dims"][7]
+    return torch.empty(T, pdm, dtype=torch.float32, device=p["dev"])
 
 
 def fused_scores_fwd(embedk, embedq, wk, bk, wq, bq, influ, alive,
@@ -187,16 +197,32 @@ def fused_scores_fwd(embedk, embedq, wk, bk, wq, bq, influ, alive,
     attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     raw = (torch.empty(T, K, dtype=torch.float32, device=dev)
            if with_raw else None)
-    rc = build.load().papr_fused_scores_fwd(
-        *_head_args(p, score_act, bkg_score), attn.data_ptr(),
-        raw.data_ptr() if with_raw else None,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "papr_fused_scores_fwd")
-    fused_scores_fwd.launches += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (*_head_args(p, score_act, bkg_score), attn.data_ptr(),
+            raw.data_ptr() if with_raw else None)
+    lib = build.load()
+    if cdt == torch.float32:
+        qq = _qq_rows(p)
+        rc = lib.papr_fused_scores_f32_fwd(*args, qq.data_ptr(), stream)
+        build.check(rc, "papr_fused_scores_f32_fwd")
+        fused_scores_f32_fwd.launches += 1
+    else:
+        build.check(lib.papr_fused_scores_fwd(*args, stream),
+                    "papr_fused_scores_fwd")
+        fused_scores_fwd.launches += 1
     return (attn, raw) if with_raw else attn
 
 
 fused_scores_fwd.launches = 0
+
+
+def fused_scores_f32_fwd(*args, **kwargs):
+    """``fused_scores_fwd`` in fp32 (the kernel ``fused_scores_f32_fwd`` in
+    ``csrc/fused_attn.cu``); ``launches`` counts that kernel's launches."""
+    return fused_scores_fwd(*args, cdt=torch.float32, **kwargs)
+
+
+fused_scores_f32_fwd.launches = 0
 
 
 def fused_scores_bwd(embedk, embedq, wk, bk, wq, bq, influ, alive, dattn,
@@ -224,35 +250,54 @@ def fused_scores_bwd(embedk, embedq, wk, bk, wq, bq, influ, alive, dattn,
                          f"on the card, got {tuple(dattn.shape)} "
                          f"{dattn.device}")
     dattn = dattn.float().contiguous()
-    bf = torch.bfloat16
     nblk = -(-T // 64)
-    dek = torch.empty(K, T, Dk, dtype=bf, device=dev)
-    deq = torch.empty(T, Dq, dtype=bf, device=dev)
+    # d_embedk / d_embedq and the dW stashes in the compute dtype (fp32:
+    # the dkk stash is K * T * pdm * 4 bytes).
+    dek = torch.empty(K, T, Dk, dtype=cdt, device=dev)
+    deq = torch.empty(T, Dq, dtype=cdt, device=dev)
     dinflu = torch.empty(T, K, dtype=torch.float32, device=dev)
-    dkk = torch.empty(K * T, pdm, dtype=bf, device=dev)
-    dqq = torch.empty(T, pdm, dtype=bf, device=dev)
+    dkk = torch.empty(K * T, pdm, dtype=cdt, device=dev)
+    dqq = torch.empty(T, pdm, dtype=cdt, device=dev)
     part = torch.empty(nblk, 2 * pdm, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.papr_fused_scores_bwd(
-        *_head_args(p, score_act, bkg_score), dattn.data_ptr(),
-        p["wkB"].data_ptr(), p["wqB"].data_ptr(), dek.data_ptr(),
-        deq.data_ptr(), dinflu.data_ptr(), dkk.data_ptr(), dqq.data_ptr(),
-        part.data_ptr(), stream)
-    build.check(rc, "papr_fused_scores_bwd")
+    args = (*_head_args(p, score_act, bkg_score), dattn.data_ptr(),
+            p["wkB"].data_ptr(), p["wqB"].data_ptr(), dek.data_ptr(),
+            deq.data_ptr(), dinflu.data_ptr(), dkk.data_ptr(), dqq.data_ptr(),
+            part.data_ptr())
+    f32 = cdt == torch.float32
+    if f32:
+        qq = _qq_rows(p)
+        rc = lib.papr_fused_scores_f32_bwd(*args, qq.data_ptr(), stream)
+        build.check(rc, "papr_fused_scores_f32_bwd")
+    else:
+        build.check(lib.papr_fused_scores_bwd(*args, stream),
+                    "papr_fused_scores_bwd")
     dwkT = wgrad(lib, p["ek"].data_ptr(), dkk.data_ptr(), K * T, Dk, pdm, dev,
-                 stream)
+                 stream, cdt)
     dwqT = wgrad(lib, p["eq"].data_ptr(), dqq.data_ptr(), T, Dq, pdm, dev,
-                 stream)
+                 stream, cdt)
     psum = torch.empty(2 * pdm, dtype=torch.float32, device=dev)
     build.check(lib.papr_colsum(part.data_ptr(), nblk, 2 * pdm,
                                 psum.data_ptr(), stream), "papr_colsum")
-    fused_scores_bwd.launches += 1
+    if f32:
+        fused_scores_f32_bwd.launches += 1
+    else:
+        fused_scores_bwd.launches += 1
     return [dek.to(embedk.dtype), deq.to(embedq.dtype), dwkT[:, :dm].T,
             psum[:dm], dwqT[:, :dm].T, psum[pdm:pdm + dm], dinflu]
 
 
 fused_scores_bwd.launches = 0
+
+
+def fused_scores_f32_bwd(*args, **kwargs):
+    """``fused_scores_bwd`` in fp32 (the kernel ``fused_scores_f32_bwd`` and
+    ``wgrad_f32``); ``launches`` counts that kernel's launches."""
+    return fused_scores_bwd(*args, cdt=torch.float32, **kwargs)
+
+
+fused_scores_f32_bwd.launches = 0
 
 
 class FusedScores(torch.autograd.Function):

@@ -431,18 +431,9 @@ def c_ints(vals) -> ctypes.Array:
     return (ctypes.c_int * len(vals))(*[int(v) for v in vals])
 
 
-# The raise of a kernel whose fp32 form is not written yet.
-FP32_TODO = ("its fp32 form (use_amp: false) is ROADMAP.md Queue 2 item 1 "
-             "(rows 7-10 of PERF.md's kernel table); use tpu.fused_attn: "
-             "auto / streamrec / embed, or false for the plain fp32 path")
-
-
-def check_walk_for_kernel(walk: Walk, cdt: torch.dtype, what: str,
-                          fp32: bool = False) -> None:
-    """What the CUDA walk takes: bf16 compute, or fp32 compute where the
-    caller's kernel has its fp32 form (``fp32``); relu/none; widths <= 256."""
-    if cdt == torch.float32 and not fp32:
-        raise NotImplementedError(f"{what}: {FP32_TODO}")
+def check_walk_for_kernel(walk: Walk, cdt: torch.dtype, what: str) -> None:
+    """What the CUDA walk takes: bf16 or fp32 compute (every walk kernel has
+    both forms); relu/none; widths <= 256."""
     if cdt not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"{what}: compute dtype {cdt} (the CUDA "
                                   "walks run bf16 or fp32)")
@@ -474,7 +465,7 @@ def fused_mlp(x: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
         return fused_mlp_plain(x, walk, cdt)
     from ..kernels import build
 
-    check_walk_for_kernel(walk, cdt, "fused_mlp", fp32=True)
+    check_walk_for_kernel(walk, cdt, "fused_mlp")
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"fused_mlp takes (R, d_raw) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -543,7 +534,7 @@ def fused_mlp_bwd(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
         return fused_mlp_bwd_plain(x, dy, walk, cdt)
     from ..kernels import build
 
-    check_walk_for_kernel(walk, cdt, "fused_mlp backward", fp32=True)
+    check_walk_for_kernel(walk, cdt, "fused_mlp backward")
     x = x.float().contiguous()
     R, d_raw = x.shape
     d_out = int(walk.ws[-1].shape[1])

@@ -40,12 +40,14 @@ added in the compute dtype) promoted to fp32; ``qq``, scores and softmax
 fp32; the value output rounded to the compute dtype and back before the
 fuse; an all-dead ray divides by 1 when ``normalize`` holds.
 
-fp32 compute (``use_amp: false``): the one-shot eval attention and the two
-record-native training streams, forward and backward, have fp32 kernels
+fp32 compute (``use_amp: false``): every kernel here has an fp32 form
 (``attend_eval_f32``, ``key_stream_f32_fwd`` / ``_bwd``,
-``value_stream_f32_fwd`` / ``_bwd``: the same kernels on the fp32 walk,
-nothing rounded to bf16); the query-folded key stream does not yet
-(``fused_mlp.FP32_TODO``). The int8 walks run beside bf16 compute only.
+``value_stream_f32_fwd`` / ``_bwd``, ``key_stream_q_f32_fwd`` / ``_bwd``:
+the same kernels on the fp32 walk, nothing rounded to bf16), and so has each
+int8 forward (``attend_eval_i8_f32``, ``key_stream_i8_f32_fwd``,
+``value_stream_i8_f32_fwd``: the int8 walk, then the fp32 ``w_k`` product
+and the unrounded value rows, as the JAX kernels compute them with an fp32
+compute dtype).
 """
 
 from __future__ import annotations
@@ -191,16 +193,6 @@ def _calibrate_idx(record, idx, rayo, rays, walks, eps, cdt) -> tuple:
     return tuple(out)
 
 
-def _check_int8_cdt(int8: bool, cdt, what: str) -> None:
-    """The int8 kernels keep the bf16 kernels' w_k product and value
-    rounding: they run beside bf16 compute only."""
-    if int8 and cdt != torch.bfloat16:
-        raise NotImplementedError(
-            f"{what}: the int8 walks run beside bf16 compute (use_amp: "
-            "true); with use_amp: false leave tpu.int8_eval / int8_train "
-            "off (ROADMAP.md Queue 3 item 5)")
-
-
 def _run_walk_plain(enc, walk: Walk, cdt, quant: WalkQuant | None):
     return (walk_plain(enc, walk, cdt) if quant is None
             else walk_plain_q(enc, walk, quant))
@@ -277,9 +269,8 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
     from ..kernels import build
 
     _check_score_act(score_act)
-    check_walk_for_kernel(kwalk, cdt, "attend_stream_eval key walk", True)
-    check_walk_for_kernel(vwalk, cdt, "attend_stream_eval value walk", True)
-    _check_int8_cdt(int8, cdt, "attend_stream_eval")
+    check_walk_for_kernel(kwalk, cdt, "attend_stream_eval key walk")
+    check_walk_for_kernel(vwalk, cdt, "attend_stream_eval value walk")
     dev = record.device
     T, K = idx.shape
     P, rp = record.shape
@@ -328,6 +319,7 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
             int(bool(normalize)), float(eps), fused.data_ptr(),
             attn.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
+    f32 = cdt == torch.float32
     if int8:
         packs = getattr(quant_params, "packs", None)
         if packs is None:
@@ -337,11 +329,14 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
             packs = pack_walk_q(kq, kpd, dev) + pack_walk_q(vq, vpd, dev)
             if isinstance(quant_params, FrameQuant):
                 quant_params.packs = packs      # this frame's other tiles
-        rc = lib.papr_attend_eval_i8(
-            *args, *(t.data_ptr() for t in packs), stream)
-        build.check(rc, "papr_attend_eval_i8")
-        attend_eval_i8.launches += 1
-    elif cdt == torch.float32:
+        name = "papr_attend_eval_i8_f32" if f32 else "papr_attend_eval_i8"
+        build.check(getattr(lib, name)(
+            *args, *(t.data_ptr() for t in packs), stream), name)
+        if f32:
+            attend_eval_i8_f32.launches += 1
+        else:
+            attend_eval_i8.launches += 1
+    elif f32:
         build.check(lib.papr_attend_eval_f32(*args, stream),
                     "papr_attend_eval_f32")
         attend_eval_f32.launches += 1
@@ -376,6 +371,15 @@ def attend_eval_i8(*args, **kwargs):
 
 
 attend_eval_i8.launches = 0
+
+
+def attend_eval_i8_f32(*args, **kwargs):
+    """``attend_eval_idx`` with both walks in int8 beside fp32 compute (the
+    kernel ``attend_eval_i8_f32``); ``launches`` counts its launches."""
+    return attend_eval_idx(*args, cdt=torch.float32, int8=True, **kwargs)
+
+
+attend_eval_i8_f32.launches = 0
 
 
 def attend_stream_eval(rec, rayo, rays, qq, kwalk: Walk, wk, bk, vwalk: Walk,
@@ -586,8 +590,7 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
     from ..kernels import build
 
     _check_score_act(score_act)
-    check_walk_for_kernel(kwalk, cdt, "key stream", fp32=True)
-    _check_int8_cdt(int8, cdt, "key stream")
+    check_walk_for_kernel(kwalk, cdt, "key stream")
     _check_rec_args(rec, rayo, rays, (kwalk,), "key stream")
     K, T, rp = rec.shape
     dm = int(wk.shape[0])
@@ -611,14 +614,19 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
             ss.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = build.load()
+    f32 = cdt == torch.float32
     if int8:
         qp = pack_walk_q(calibrate_walk(rec, rayo, rays, kwalk, eps, cdt),
                          kpd, dev)
-        rc = lib.papr_key_stream_i8_fwd(*args, *(t.data_ptr() for t in qp),
-                                        stream)
-        build.check(rc, "papr_key_stream_i8_fwd")
-        key_stream_i8_fwd.launches += 1
-    elif cdt == torch.float32:
+        name = ("papr_key_stream_i8_f32_fwd" if f32
+                else "papr_key_stream_i8_fwd")
+        build.check(getattr(lib, name)(*args, *(t.data_ptr() for t in qp),
+                                       stream), name)
+        if f32:
+            key_stream_i8_f32_fwd.launches += 1
+        else:
+            key_stream_i8_fwd.launches += 1
+    elif f32:
         build.check(lib.papr_key_stream_f32_fwd(*args, stream),
                     "papr_key_stream_f32_fwd")
         key_stream_f32_fwd.launches += 1
@@ -654,6 +662,15 @@ def key_stream_i8_fwd(*args, **kwargs):
 key_stream_i8_fwd.launches = 0
 
 
+def key_stream_i8_f32_fwd(*args, **kwargs):
+    """``key_stream_fwd`` with the walk in int8 beside fp32 compute (the
+    kernel ``key_stream_i8_f32_fwd``); ``launches`` counts its launches."""
+    return key_stream_fwd(*args, cdt=torch.float32, int8=True, **kwargs)
+
+
+key_stream_i8_f32_fwd.launches = 0
+
+
 def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
                    score_act="relu", bkg_score=5.0, eps=1e-6,
                    cdt=torch.float32):
@@ -667,7 +684,7 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
     from ..kernels import build
 
     _check_score_act(score_act)
-    check_walk_for_kernel(kwalk, cdt, "key stream backward", fp32=True)
+    check_walk_for_kernel(kwalk, cdt, "key stream backward")
     _check_rec_args(rec, rayo, rays, (kwalk,), "key stream backward")
     K, T, rp = rec.shape
     dm = int(wk.shape[0])
@@ -818,8 +835,7 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
                                   eps, cdt, int8)
     from ..kernels import build
 
-    check_walk_for_kernel(vwalk, cdt, "value stream", fp32=True)
-    _check_int8_cdt(int8, cdt, "value stream")
+    check_walk_for_kernel(vwalk, cdt, "value stream")
     _check_rec_args(rec, rayo, rays, (vwalk,), "value stream")
     K, T, rp = rec.shape
     if tuple(attn.shape) != (T, K + 1):
@@ -837,14 +853,19 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
             int(bool(normalize)), float(eps), fused.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = build.load()
+    f32 = cdt == torch.float32
     if int8:
         qp = pack_walk_q(calibrate_walk(rec, rayo, rays, vwalk, eps, cdt),
                          vpd, dev)
-        rc = lib.papr_value_stream_i8_fwd(*args, *(t.data_ptr() for t in qp),
-                                          stream)
-        build.check(rc, "papr_value_stream_i8_fwd")
-        value_stream_i8_fwd.launches += 1
-    elif cdt == torch.float32:
+        name = ("papr_value_stream_i8_f32_fwd" if f32
+                else "papr_value_stream_i8_fwd")
+        build.check(getattr(lib, name)(*args, *(t.data_ptr() for t in qp),
+                                       stream), name)
+        if f32:
+            value_stream_i8_f32_fwd.launches += 1
+        else:
+            value_stream_i8_fwd.launches += 1
+    elif f32:
         build.check(lib.papr_value_stream_f32_fwd(*args, stream),
                     "papr_value_stream_f32_fwd")
         value_stream_f32_fwd.launches += 1
@@ -880,6 +901,15 @@ def value_stream_i8_fwd(*args, **kwargs):
 value_stream_i8_fwd.launches = 0
 
 
+def value_stream_i8_f32_fwd(*args, **kwargs):
+    """``value_stream_fwd`` with the walk in int8 beside fp32 compute (the
+    kernel ``value_stream_i8_f32_fwd``); ``launches`` counts its launches."""
+    return value_stream_fwd(*args, cdt=torch.float32, int8=True, **kwargs)
+
+
+value_stream_i8_f32_fwd.launches = 0
+
+
 def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
                      normalize=True, eps=1e-6, cdt=torch.float32):
     """Value stream backward -> [d_rec (K, T, rp), d_rayo, d_rays (T, 3),
@@ -890,7 +920,7 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
                                       normalize, eps, cdt)
     from ..kernels import build
 
-    check_walk_for_kernel(vwalk, cdt, "value stream backward", fp32=True)
+    check_walk_for_kernel(vwalk, cdt, "value stream backward")
     _check_rec_args(rec, rayo, rays, (vwalk,), "value stream backward")
     K, T, rp = rec.shape
     C = int(vwalk.ws[-1].shape[1])
@@ -1065,16 +1095,20 @@ def key_stream_q_fwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
     dev = rec.device
     rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
     rayd = rayd.contiguous()
-    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
-    qmeta, qw, qb, qln, qplan, qpd = pack_walk(qwalk, len(qwalk.cols), dev)
-    wkf, _, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
-    wqf, _, bqp, _ = _wk_packs(wq, bq, qpd[-1], dev)
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev,
+                                               cdt)
+    qmeta, qw, qb, qln, qplan, qpd = pack_walk(qwalk, len(qwalk.cols), dev,
+                                               cdt)
+    wkf, _, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev, cdt)
+    wqf, _, bqp, _ = _wk_packs(wq, bq, qpd[-1], dev, cdt)
     attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     raw = torch.empty(T, K, dtype=torch.float32, device=dev)
     ss = torch.empty(T, K, dtype=torch.float32, device=dev)
     qq = torch.empty(T, dm, dtype=torch.float32, device=dev)
     vp = lambda a: ctypes.cast(c_ints(a), ctypes.c_void_p)
-    rc = build.load().papr_key_stream_q_fwd(
+    f32 = cdt == torch.float32
+    name = "papr_key_stream_q_f32_fwd" if f32 else "papr_key_stream_q_fwd"
+    rc = getattr(build.load(), name)(
         rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
         rayd.data_ptr(), dm, float(math.sqrt(dm)),
         vp(kmeta), kw.data_ptr(), kb.data_ptr(), kln.data_ptr(),
@@ -1084,12 +1118,25 @@ def key_stream_q_fwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
         int(score_act == "relu"), float(bkg_score), float(eps),
         attn.data_ptr(), raw.data_ptr(), ss.data_ptr(), qq.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "papr_key_stream_q_fwd")
-    key_stream_q_fwd.launches += 1
+    build.check(rc, name)
+    if f32:
+        key_stream_q_f32_fwd.launches += 1
+    else:
+        key_stream_q_fwd.launches += 1
     return attn, raw, ss, qq
 
 
 key_stream_q_fwd.launches = 0
+
+
+def key_stream_q_f32_fwd(*args, **kwargs):
+    """``key_stream_q_fwd`` on the fp32 walks (the kernel
+    ``key_stream_q_f32_fwd`` in ``csrc/key_stream_q.cu``); ``launches``
+    counts that kernel's launches."""
+    return key_stream_q_fwd(*args, cdt=torch.float32, **kwargs)
+
+
+key_stream_q_f32_fwd.launches = 0
 
 
 def key_stream_q_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
@@ -1117,20 +1164,23 @@ def key_stream_q_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
     rayd, qq = rayd.contiguous(), qq.float().contiguous()
     raw, ss = raw.contiguous(), ss.contiguous()
     dattn = dattn.float().contiguous()
-    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
-    qmeta, qw, qb, qln, qplan, qpd = pack_walk(qwalk, len(qwalk.cols), dev)
-    kwt, qwt = pack_walk_t(kwalk, kpd, dev), pack_walk_t(qwalk, qpd, dev)
-    wkf, wkb, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
-    _, wqb, _, _ = _wk_packs(wq, bq, qpd[-1], dev)
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev,
+                                               cdt)
+    qmeta, qw, qb, qln, qplan, qpd = pack_walk(qwalk, len(qwalk.cols), dev,
+                                               cdt)
+    kwt = pack_walk_t(kwalk, kpd, dev, cdt)
+    qwt = pack_walk_t(qwalk, qpd, dev, cdt)
+    wkf, wkb, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev, cdt)
+    _, wqb, _, _ = _wk_packs(wq, bq, qpd[-1], dev, cdt)
     nsrc = _nsrc(kwalk)
     seg = source_segments(kwalk.cols, nsrc, dev)
     qseg = source_segments(qwalk.cols, 3, dev)
     nblk = -(-T // 64)
     # Two walks' buffers: the key stashes hold K * T rows, the query's T.
     kbuf = BwdBuffers(kpd, K * nblk * 64, nblk, dev, head=(kpd[-1], dm_pad),
-                      extra=dm_pad)
+                      extra=dm_pad, cdt=cdt)
     qbuf = BwdBuffers(qpd, nblk * 64, nblk, dev, head=(qpd[-1], dm_pad),
-                      extra=dm_pad)
+                      extra=dm_pad, cdt=cdt)
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
@@ -1139,7 +1189,9 @@ def key_stream_q_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     vp = lambda a: ctypes.cast(a, ctypes.c_void_p)
-    rc = lib.papr_key_stream_q_bwd(
+    f32 = cdt == torch.float32
+    name = "papr_key_stream_q_f32_bwd" if f32 else "papr_key_stream_q_bwd"
+    rc = getattr(lib, name)(
         rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
         rayd.data_ptr(), qq.data_ptr(), dm, float(math.sqrt(dm)),
         raw.data_ptr(), ss.data_ptr(), dattn.data_ptr(),
@@ -1155,10 +1207,13 @@ def key_stream_q_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
         drayd.data_ptr(), dqq.data_ptr(), kbuf.part.data_ptr(), kbuf.part_w,
         kbuf.scratch.data_ptr(), qbuf.part.data_ptr(), qbuf.part_w,
         qbuf.scratch.data_ptr(), stream)
-    build.check(rc, "papr_key_stream_q_bwd")
+    build.check(rc, name)
     kdws, kpsum = kbuf.reduce(lib, stream)
     qdws, qpsum = qbuf.reduce(lib, stream)
-    key_stream_q_bwd.launches += 1
+    if f32:
+        key_stream_q_f32_bwd.launches += 1
+    else:
+        key_stream_q_bwd.launches += 1
     d_k, d_q = int(wk.shape[1]), int(wq.shape[1])
     return ([drec, drayo, drays, drayd,
              kdws[-1][:d_k, :dm].T, kpsum[kbuf.extra_off:kbuf.extra_off + dm],
@@ -1168,6 +1223,16 @@ def key_stream_q_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
 
 
 key_stream_q_bwd.launches = 0
+
+
+def key_stream_q_f32_bwd(*args, **kwargs):
+    """``key_stream_q_bwd`` on the fp32 walks (the kernel
+    ``key_stream_q_f32_bwd``); ``launches`` counts that kernel's
+    launches."""
+    return key_stream_q_bwd(*args, cdt=torch.float32, **kwargs)
+
+
+key_stream_q_f32_bwd.launches = 0
 
 
 class KeyStreamQ(torch.autograd.Function):

@@ -15,7 +15,11 @@ Each direction has a CUDA kernel (``csrc/key_stream_feat.cu``,
 ``csrc/value_stream_feat.cu``; weight gradients through ``csrc/wgrad.cu``)
 and a plain PyTorch version; a backward's plain version is the plain forward
 recomputed under autograd. A CPU tensor takes the plain version; a CUDA
-tensor takes the kernel or raises. Numerics as ``ops/stream_attn.py``.
+tensor takes the kernel or raises. Numerics as ``ops/stream_attn.py``; the
+compute dtype picks the kernel: bf16, or fp32 (``use_amp: false``: the
+``_f32`` entry points, the same kernels on the fp32 walk, counted apart by
+``key_stream_feat_f32_fwd`` / ``_bwd`` and ``value_stream_feat_f32_fwd`` /
+``_bwd``).
 
 The key backward returns ALL of dxk: the caller detaches the position
 columns before they enter xk (``model/papr.py``), so autograd drops that
@@ -121,11 +125,15 @@ def key_stream_feat_fwd(xk, qq, kwalk: Walk, wk, bk, influ, alive,
     dev = xk.device
     xk, qq = xk.contiguous(), qq.float().contiguous()
     influ, alive = influ.float().contiguous(), alive.float().contiguous()
-    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
-    wkf, _, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev,
+                                               cdt)
+    wkf, _, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev, cdt)
     attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     raw = torch.empty(T, K, dtype=torch.float32, device=dev)
-    rc = build.load().papr_key_stream_feat_fwd(
+    f32 = cdt == torch.float32
+    name = ("papr_key_stream_feat_f32_fwd" if f32
+            else "papr_key_stream_feat_fwd")
+    rc = getattr(build.load(), name)(
         xk.data_ptr(), d_raw, T, K, qq.data_ptr(), dm, float(math.sqrt(dm)),
         influ.data_ptr(), alive.data_ptr(),
         ctypes.cast(c_ints(kmeta), ctypes.c_void_p), kw.data_ptr(),
@@ -133,12 +141,25 @@ def key_stream_feat_fwd(xk, qq, kwalk: Walk, wk, bk, influ, alive,
         bkp.data_ptr(), dm_pad, int(score_act == "relu"), float(bkg_score),
         attn.data_ptr(), raw.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "papr_key_stream_feat_fwd")
-    key_stream_feat_fwd.launches += 1
+    build.check(rc, name)
+    if f32:
+        key_stream_feat_f32_fwd.launches += 1
+    else:
+        key_stream_feat_fwd.launches += 1
     return attn, raw
 
 
 key_stream_feat_fwd.launches = 0
+
+
+def key_stream_feat_f32_fwd(*args, **kwargs):
+    """``key_stream_feat_fwd`` on the fp32 walk (the kernel
+    ``key_stream_feat_f32_fwd`` in ``csrc/key_stream_feat.cu``);
+    ``launches`` counts that kernel's launches."""
+    return key_stream_feat_fwd(*args, cdt=torch.float32, **kwargs)
+
+
+key_stream_feat_f32_fwd.launches = 0
 
 
 def key_stream_feat_bwd(xk, qq, kwalk: Walk, wk, bk, influ, alive, raw, dattn,
@@ -161,19 +182,23 @@ def key_stream_feat_bwd(xk, qq, kwalk: Walk, wk, bk, influ, alive, raw, dattn,
     xk, qq = xk.contiguous(), qq.float().contiguous()
     influ, alive = influ.float().contiguous(), alive.float().contiguous()
     raw, dattn = raw.contiguous(), dattn.float().contiguous()
-    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev)
-    kwt = pack_walk_t(kwalk, kpd, dev)
-    wkf, wkb, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev)
+    kmeta, kw, kb, kln, kplan, kpd = pack_walk(kwalk, len(kwalk.cols), dev,
+                                               cdt)
+    kwt = pack_walk_t(kwalk, kpd, dev, cdt)
+    wkf, wkb, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev, cdt)
     seg = source_segments(kwalk.cols, d_raw, dev)
     nblk = -(-T // 64)
     buf = BwdBuffers(kpd, K * nblk * 64, nblk, dev, head=(kpd[-1], dm_pad),
-                     extra=dm_pad)
+                     extra=dm_pad, cdt=cdt)
     dxk = torch.empty(K, T, d_raw, dtype=torch.float32, device=dev)
     dqq = torch.zeros(T, dm, dtype=torch.float32, device=dev)
     dinflu = torch.empty(T, K, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.papr_key_stream_feat_bwd(
+    f32 = cdt == torch.float32
+    name = ("papr_key_stream_feat_f32_bwd" if f32
+            else "papr_key_stream_feat_bwd")
+    rc = getattr(lib, name)(
         xk.data_ptr(), d_raw, T, K, qq.data_ptr(), dm, float(math.sqrt(dm)),
         influ.data_ptr(), alive.data_ptr(), raw.data_ptr(), dattn.data_ptr(),
         ctypes.cast(c_ints(kmeta), ctypes.c_void_p), kw.data_ptr(),
@@ -183,9 +208,12 @@ def key_stream_feat_bwd(xk, qq, kwalk: Walk, wk, bk, influ, alive, raw, dattn,
         ctypes.cast(buf.off_arg, ctypes.c_void_p), seg.data_ptr(),
         dxk.data_ptr(), dqq.data_ptr(), dinflu.data_ptr(),
         buf.part.data_ptr(), buf.part_w, buf.scratch.data_ptr(), stream)
-    build.check(rc, "papr_key_stream_feat_bwd")
+    build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
-    key_stream_feat_bwd.launches += 1
+    if f32:
+        key_stream_feat_f32_bwd.launches += 1
+    else:
+        key_stream_feat_bwd.launches += 1
     d_out = int(wk.shape[1])
     return ([dxk, dqq, dinflu, dws[-1][:d_out, :dm].T,
              psum[buf.extra_off:buf.extra_off + dm]]
@@ -193,6 +221,15 @@ def key_stream_feat_bwd(xk, qq, kwalk: Walk, wk, bk, influ, alive, raw, dattn,
 
 
 key_stream_feat_bwd.launches = 0
+
+
+def key_stream_feat_f32_bwd(*args, **kwargs):
+    """``key_stream_feat_bwd`` on the fp32 walk (the kernel
+    ``key_stream_feat_f32_bwd``); ``launches`` counts its launches."""
+    return key_stream_feat_bwd(*args, cdt=torch.float32, **kwargs)
+
+
+key_stream_feat_f32_bwd.launches = 0
 
 
 class KeyStreamFeat(torch.autograd.Function):
@@ -275,21 +312,37 @@ def value_stream_feat_fwd(xv, attn, vwalk: Walk, normalize=True,
                          "on the card")
     dev = xv.device
     xv, attn = xv.contiguous(), attn.float().contiguous()
-    vmeta, vw, vb, vln, vplan, _ = pack_walk(vwalk, len(vwalk.cols), dev)
+    vmeta, vw, vb, vln, vplan, _ = pack_walk(vwalk, len(vwalk.cols), dev, cdt)
     fused = torch.empty(T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32,
                         device=dev)
-    rc = build.load().papr_value_stream_feat_fwd(
+    f32 = cdt == torch.float32
+    name = ("papr_value_stream_feat_f32_fwd" if f32
+            else "papr_value_stream_feat_fwd")
+    rc = getattr(build.load(), name)(
         xv.data_ptr(), d_raw, T, K, attn.data_ptr(),
         ctypes.cast(c_ints(vmeta), ctypes.c_void_p), vw.data_ptr(),
         vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(),
         int(bool(normalize)), fused.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "papr_value_stream_feat_fwd")
-    value_stream_feat_fwd.launches += 1
+    build.check(rc, name)
+    if f32:
+        value_stream_feat_f32_fwd.launches += 1
+    else:
+        value_stream_feat_fwd.launches += 1
     return fused
 
 
 value_stream_feat_fwd.launches = 0
+
+
+def value_stream_feat_f32_fwd(*args, **kwargs):
+    """``value_stream_feat_fwd`` on the fp32 walk (the kernel
+    ``value_stream_feat_f32_fwd`` in ``csrc/value_stream_feat.cu``);
+    ``launches`` counts that kernel's launches."""
+    return value_stream_feat_fwd(*args, cdt=torch.float32, **kwargs)
+
+
+value_stream_feat_f32_fwd.launches = 0
 
 
 def value_stream_feat_bwd(xv, attn, vwalk: Walk, dfused, normalize=True,
@@ -313,16 +366,20 @@ def value_stream_feat_bwd(xv, attn, vwalk: Walk, dfused, normalize=True,
     dev = xv.device
     xv, attn = xv.contiguous(), attn.float().contiguous()
     dfused = dfused.float().contiguous()
-    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev)
-    vwt = pack_walk_t(vwalk, vpd, dev)
+    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev,
+                                               cdt)
+    vwt = pack_walk_t(vwalk, vpd, dev, cdt)
     seg = source_segments(vwalk.cols, d_raw, dev)
     nblk = -(-T // 64)
-    buf = BwdBuffers(vpd, K * nblk * 64, nblk, dev)
+    buf = BwdBuffers(vpd, K * nblk * 64, nblk, dev, cdt=cdt)
     dxv = torch.empty(K, T, d_raw, dtype=torch.float32, device=dev)
     dattn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.papr_value_stream_feat_bwd(
+    f32 = cdt == torch.float32
+    name = ("papr_value_stream_feat_f32_bwd" if f32
+            else "papr_value_stream_feat_bwd")
+    rc = getattr(lib, name)(
         xv.data_ptr(), d_raw, T, K, attn.data_ptr(), dfused.data_ptr(),
         ctypes.cast(c_ints(vmeta), ctypes.c_void_p), vw.data_ptr(),
         vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(), vwt.data_ptr(),
@@ -330,13 +387,25 @@ def value_stream_feat_bwd(xv, attn, vwalk: Walk, dfused, normalize=True,
         ctypes.cast(buf.off_arg, ctypes.c_void_p), seg.data_ptr(),
         dxv.data_ptr(), dattn.data_ptr(), buf.part.data_ptr(), buf.part_w,
         buf.scratch.data_ptr(), stream)
-    build.check(rc, "papr_value_stream_feat_bwd")
+    build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
-    value_stream_feat_bwd.launches += 1
+    if f32:
+        value_stream_feat_f32_bwd.launches += 1
+    else:
+        value_stream_feat_bwd.launches += 1
     return [dxv, dattn] + buf.walk_grads(vwalk, dws, psum)
 
 
 value_stream_feat_bwd.launches = 0
+
+
+def value_stream_feat_f32_bwd(*args, **kwargs):
+    """``value_stream_feat_bwd`` on the fp32 walk (the kernel
+    ``value_stream_feat_f32_bwd``); ``launches`` counts its launches."""
+    return value_stream_feat_bwd(*args, cdt=torch.float32, **kwargs)
+
+
+value_stream_feat_f32_bwd.launches = 0
 
 
 class ValueStreamFeat(torch.autograd.Function):

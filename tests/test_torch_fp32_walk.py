@@ -3,10 +3,9 @@
 * The fp32 kernel layouts: ``pack_walk`` / ``pack_walk_t`` with fp32 compute
   hold the weights exactly (the bf16 packs hold their bf16 rounding), and the
   backward's stash is fp32.
-* The attention path on the card under fp32 (``model.papr._kernel_mode`` with
-  a CUDA device named, nothing launched): ``auto`` resolves to ``streamrec``
-  on the fp32 kernels, ``embed`` and ``false`` run, and ``stream``, ``true``,
-  ``score`` and ``query_fold`` raise with their ROADMAP item.
+* The attention path under fp32 (``model.papr._kernel_mode``, nothing
+  launched): every mode resolves as under bf16, and each fp32 kernel it
+  launches on the card has its entry point and launch counter.
 * Caterpillar's model (``configs/t2/Caterpillar.yml`` merged onto
   ``configs/default.yml``: fp32, k = 20, ``k_L [4,4,4]``, ``q_L [4]``,
   ``v_L [4,4]``, background constant 4) cut to 300 points and 2 layers of
@@ -130,7 +129,21 @@ def _cfg(amp=False, **tpu):
     return load_config(overrides={"use_amp": amp, "tpu": tpu})
 
 
-CUDA = torch.device("cuda", 0)       # named only: nothing runs on it
+# The fp32 entry points each mode launches on the card (training step and
+# its eval path), every one a kernel of csrc/ with its plain twin.
+FP32_KERNELS = {
+    "auto": ("fused_mlp_f32", "attend_eval_f32", "key_stream_f32",
+             "value_stream_f32", "wgrad_f32"),
+    "streamrec": ("fused_mlp_f32", "attend_eval_f32", "key_stream_f32",
+                  "value_stream_f32", "wgrad_f32"),
+    "embed": ("fused_mlp_f32", "wgrad_f32"),
+    "false": (),
+    "stream": ("fused_mlp_f32", "key_stream_feat_f32", "value_stream_feat_f32",
+               "wgrad_f32"),
+    "true": ("fused_mlp_f32", "fused_scores_f32", "wgrad_f32"),
+    "score": ("fused_scores_f32", "wgrad_f32"),
+    "query_fold": ("key_stream_q_f32", "value_stream_f32", "wgrad_f32"),
+}
 
 
 @pytest.mark.parametrize("tpu,want", [
@@ -138,48 +151,49 @@ CUDA = torch.device("cuda", 0)       # named only: nothing runs on it
     ({"fused_attn": "streamrec"}, ("streamrec", False)),
     ({"fused_attn": "embed"}, ("embed", False)),
     ({"fused_attn": False}, (False, False)),
-    ({"fused_attn": "stream"}, None),
-    ({"fused_attn": True}, None),
-    ({"fused_attn": "score"}, None),
-    ({"query_fold": True}, None),
+    ({"fused_attn": "stream"}, ("stream", False)),
+    ({"fused_attn": True}, (True, False)),
+    ({"fused_attn": "score"}, ("score", False)),
+    ({"query_fold": True}, ("streamrec", True)),
 ], ids=["auto", "streamrec", "embed", "false", "stream", "true", "score",
         "query_fold"])
-def test_kernel_mode_on_the_card_under_fp32(tpu, want):
-    """fp32 on the card: the modes whose kernels all have an fp32 form run
-    them; the others raise with the ROADMAP item that ports them. On the CPU
-    and under bf16 every mode resolves as before; a training call with
-    dropout takes the plain path."""
+def test_kernel_mode_on_the_card_under_fp32(tpu, want, request):
+    """fp32 on the card: every mode resolves as under bf16 and runs its own
+    kernels' fp32 forms, each an entry point of the library with its
+    launch counter; a training call with dropout takes the plain path."""
+    from papr_tpu_torch.kernels import build
+    from papr_tpu_torch.ops import fused_attn as fa
+    from papr_tpu_torch.ops import stream_feat as sf
+
     cfg = _cfg(**tpu)
-    if want is None:
-        with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-            tpapr._kernel_mode(cfg, 20, CUDA, torch.float32)
-        fa = cfg.get_path("tpu.fused_attn", "streamrec")
-        want_cpu = (fa if fa != "auto" else "streamrec",
-                    bool(tpu.get("query_fold")))
-    else:
-        assert tpapr._kernel_mode(cfg, 20, CUDA, torch.float32) == want
-        want_cpu = want
-    assert tpapr._kernel_mode(cfg, 20, "cpu", torch.float32) == want_cpu
-    bf = _cfg(amp=True, **tpu)
-    assert tpapr._kernel_mode(bf, 20, CUDA, torch.bfloat16) == want_cpu
-    assert tpapr._kernel_mode(cfg, 20, CUDA, torch.float32,
-                              dropout=True) == (False, False)
+    assert tpapr._kernel_mode(cfg, 20) == want
+    assert tpapr._kernel_mode(_cfg(amp=True, **tpu), 20) == want
+    assert tpapr._kernel_mode(cfg, 20, dropout=True) == (False, False)
+    mode = request.node.callspec.id
+    for stem in FP32_KERNELS[mode]:
+        wrappers = [getattr(m, n) for m in (fm, sa, sf, fa)
+                    for n in (stem, stem + "_fwd", stem + "_bwd")
+                    if hasattr(m, n)]
+        assert wrappers and all(w.launches >= 0 for w in wrappers), stem
+        assert any(n.startswith("papr_" + stem) for n in build.SIGNATURES)
 
 
 def test_fp32_kernels_of_rows_7_to_10_raise_on_the_card():
-    """The wrappers whose kernels have no fp32 form raise before anything
-    is launched; the fp32 ones pass the same check."""
+    """Every walk kernel takes fp32 compute as it takes bf16 (the checks of
+    rows 7-10 pass now); a compute dtype no kernel has still raises, and the
+    int8 walks' fp32 epilogue has entry points of its own."""
+    from papr_tpu_torch.kernels import build
+
     walk = _odd_walk(np.random.default_rng(1))
-    for fp32 in (False, True):
-        if fp32:
-            fm.check_walk_for_kernel(walk, torch.float32, "x", fp32=True)
-        else:
-            with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-                fm.check_walk_for_kernel(walk, torch.float32, "x")
+    for cdt in (torch.float32, torch.bfloat16):
+        fm.check_walk_for_kernel(walk, cdt, "x")
     with pytest.raises(NotImplementedError, match="bf16 or fp32"):
-        fm.check_walk_for_kernel(walk, torch.float16, "x", fp32=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        sa._check_int8_cdt(True, torch.float32, "x")
+        fm.check_walk_for_kernel(walk, torch.float16, "x")
+    for name in ("papr_attend_eval_i8_f32", "papr_key_stream_i8_f32_fwd",
+                 "papr_value_stream_i8_f32_fwd"):
+        assert build.SIGNATURES[name] == build.SIGNATURES[
+            name.replace("_f32", "")]
+    assert not hasattr(sa, "_check_int8_cdt") and not hasattr(fm, "FP32_TODO")
 
 
 # ------------------------------------------------- Caterpillar's model ----
@@ -219,7 +233,7 @@ def caterpillar():
 
 def test_caterpillar_model_step_matches_jax(caterpillar):
     jcfg, tcfg, params, state, tp, ts, c2w = caterpillar
-    assert tpapr._kernel_mode(tcfg, 20, "cpu", torch.float32)[0] == "streamrec"
+    assert tpapr._kernel_mode(tcfg, 20)[0] == "streamrec"
     rayo, rayd = get_rays_np(16, 16, 40.0, 40.0, c2w[None])
     target = np.random.default_rng(1).random((1, 16, 16, 3)).astype(np.float32)
     lp = random_lpips_params(jax.random.PRNGKey(0))

@@ -363,8 +363,8 @@ def test_fused_scores_fwd_kernel_matches_plain(dev, T, K, Dk, Dq, dm, act):
     assert float((got - want).abs().max()) <= 5e-3
     assert _rel(raw, raw_w) <= 1e-2
     assert float(got[3, K]) == 1.0
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fa.fused_scores_fwd(*args, act, 5.0, torch.float32)
+    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+        fa.fused_scores_fwd(*args, act, 5.0, torch.float16)
 
 
 @pytest.mark.parametrize("T,K,Dk,Dq,dm,act", [(300, 20, 256, 256, 256, "relu"),
@@ -921,8 +921,6 @@ def test_attend_eval_f32_kernel_matches_plain(dev, normalize):
     assert float(ag[5, K]) == 1.0 and float(fg[5].abs().max()) == 0.0
     assert (sa.attend_eval_f32.launches, sa.attend_eval_idx.launches) == (
         before[0] + 1, before[1])
-    with pytest.raises(NotImplementedError, match="int8"):
-        sa.attend_eval_idx(*args, torch.float32, True)
 
 
 @pytest.mark.parametrize("T", [256, 100])
@@ -1014,8 +1012,8 @@ def test_fp32_training_step_and_frame_on_card(dev):
     backward runs the fp32 kernels (query embedder, key and value streams,
     each way once; wgrad_f32), a tiled frame the fp32 one-shot kernel once a
     tile, no bf16 kernel and no plain version; the gradients agree with the
-    plain fp32 path (``fused_attn: false``) on the same model. ``stream``,
-    ``true``, ``score`` and ``query_fold`` raise under fp32."""
+    plain fp32 path (``fused_attn: false``) on the same model. The other
+    modes' fp32 kernels: ``test_fp32_modes_training_step_on_card``."""
     from papr_tpu_torch.model.papr import forward
     from papr_tpu_torch.nn.mlp import policy_from_config
     from papr_tpu_torch.train.optim import tree_leaves, tree_map
@@ -1065,8 +1063,313 @@ def test_fp32_training_step_and_frame_on_card(dev):
     assert frame.shape == (64, 64, 3) and frame.dtype == np.uint8
     assert (sa.attend_eval_f32.launches - before[0],
             sa.attend_eval_idx.launches - before[1]) == (4, 0)
-    for tpu in ({"fused_attn": "stream"}, {"fused_attn": True},
-                {"fused_attn": "score"}, {"query_fold": True}):
-        c, _, _ = _fp32_model(dev, **tpu)
-        with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
-            forward(params, state, c, rayo, rayd, policy=policy_from_config(c))
+
+
+# ------------------------------ fp32 forms of rows 7-10 and of the int8 walks
+# ``key_stream_q_f32_*`` (row 7), ``key_stream_feat_f32_*`` (row 8),
+# ``value_stream_feat_f32_*`` (row 9), ``fused_scores_f32_*`` (row 10) and
+# the int8 walks' fp32 epilogue (``attend_eval_i8_f32``,
+# ``key_stream_i8_f32_fwd``, ``value_stream_i8_f32_fwd``) against their plain
+# fp32 versions, with the F32_* bounds of the fp32 walks above (backwards on
+# the rays whose relu inputs all keep F32_MARGIN, the score relu given the
+# kernel forward's pattern) and the int8 bounds for the int8 forms. Planted
+# faults (PERF.md, Findings): a single TF32 pass in ``fused_attn.cu``, qq
+# rounded to bf16, a bf16 dkk stash and value rows rounded to bf16 each read
+# above these bounds.
+
+I8_F32_FUSED_REL = 1e-3        # the int8 flips: 3.7e-4 with the bf16 epilogue
+I8_F32_MEDIAN_REL = 1e-5       # the median ray: no flip, fp32 noise
+
+
+def _median_ray_rel(got, want):
+    """The median over rows of each row's relative error: a flipped
+    quantized activation moves a few rays, a rounding in the epilogue all."""
+    d, n = (got - want).norm(dim=-1), want.norm(dim=-1)
+    return float((d[n > 0] / n[n > 0]).median())
+
+
+def _tokens_margin(x, walk):
+    """``walk_relu_margin`` of a walk over k-major raw features x (K, T, d)
+    per ray: the smallest over the ray's K tokens."""
+    K, T, d = x.shape
+    enc = fm.encode_plain(x.reshape(K * T, d), walk.cols)
+    return fm.walk_relu_margin(enc, walk).reshape(K, T).amin(dim=0)
+
+
+@pytest.mark.parametrize("T", [256, 100])
+def test_key_stream_q_f32_kernels_match_plain(dev, T):
+    """Row 7 in fp32: qq, attn and raw; then every gradient (d_rayd, dW_q,
+    db_q and the query stack's included) on the rays whose key and query
+    relus keep their margin."""
+    from papr_tpu_torch.ops.fused_mlp import posenc_plan
+    rng = np.random.default_rng(31)
+    K = 20
+    rec, rayo, rays, _, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    rayd = rays * t(rng.uniform(0.5, 2.0, size=(T, 1)))
+    qw = _walk(rng, posenc_plan((3,), (4,), 1, 2.0, 1.0, 0)[1], 5, 256, 256,
+               True, dev)
+    wq = t(rng.normal(size=(256, 256)) / 16)
+    bq = t(rng.normal(size=256) * 0.1)
+    args = (rec, rayo, rays, rayd, kw, wk, bk, qw, wq, bq)
+    opts = ("relu", 5.0, 1e-6, torch.float32)
+    before = (sa.key_stream_q_f32_fwd.launches,
+              sa.key_stream_q_f32_bwd.launches, sa.key_stream_q_fwd.launches,
+              sa.key_stream_q_bwd.launches)
+    attn, raw, ss, qq = sa.key_stream_q_fwd(*args, *opts)
+    attn_p, raw_p, _, qq_p = sa.key_stream_q_plain(*args, *opts)
+    print(f"key_stream_q_f32_fwd T={T}: qq rel {_rel(qq, qq_p):.3e}, attn "
+          f"max abs {float((attn - attn_p).abs().max()):.3e}, raw rel "
+          f"{_rel(raw, raw_p):.3e}")
+    assert _rel(qq, qq_p) <= F32_REL and _rel(raw, raw_p) <= F32_REL
+    assert float((attn - attn_p).abs().max()) <= F32_ATTN_ABS
+    assert float(attn[5, K]) == 1.0
+    margin = torch.minimum(
+        sa.rec_relu_margin(rec, rayo, rays, kw),
+        fm.walk_relu_margin(fm.encode_plain(rayd, qw.cols), qw))
+    dattn = _firm(t(rng.normal(size=(T, K + 1))), margin)
+    got = sa.key_stream_q_bwd(*args, qq, raw, ss, dattn, *opts)
+    want = sa.key_stream_q_bwd_plain(*args, dattn, *opts, relu_on=raw > 0)
+    _close_all(_rec_lanes(got), _rec_lanes(want), F32_BWD_REL,
+               f"key_stream_q_f32_bwd T={T}")
+    assert (sa.key_stream_q_f32_fwd.launches, sa.key_stream_q_f32_bwd.launches,
+            sa.key_stream_q_fwd.launches, sa.key_stream_q_bwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+
+
+@pytest.mark.parametrize("T", [256, 100])
+def test_key_stream_feat_f32_kernels_match_plain(dev, T):
+    """Row 8 in fp32, forward and backward."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    rng = np.random.default_rng(32)
+    K = 20
+    xk, _, qq, influ, alive, kw, _, wk, bk = _feat_case(rng, dev, T, K)
+    args = (xk, qq, kw, wk, bk, influ, alive)
+    opts = ("relu", 5.0, torch.float32)
+    before = (sf.key_stream_feat_f32_fwd.launches,
+              sf.key_stream_feat_f32_bwd.launches,
+              sf.key_stream_feat_fwd.launches)
+    attn, raw = sf.key_stream_feat_fwd(*args, *opts)
+    attn_p, raw_p = sf.key_stream_feat_plain(*args, *opts)
+    print(f"key_stream_feat_f32_fwd T={T}: attn max abs "
+          f"{float((attn - attn_p).abs().max()):.3e}, raw rel "
+          f"{_rel(raw, raw_p):.3e}")
+    assert float((attn - attn_p).abs().max()) <= F32_ATTN_ABS
+    assert _rel(raw, raw_p) <= F32_REL
+    dattn = torch.as_tensor(rng.normal(size=(T, K + 1)).astype(np.float32),
+                            device=dev)
+    dattn = _firm(dattn, _tokens_margin(xk, kw))
+    split = lambda g: [g[0][..., :3], g[0][..., 3:]] + list(g[1:])
+    got = sf.key_stream_feat_bwd(*args, raw, dattn, *opts)
+    want = sf.key_stream_feat_bwd_plain(*args, dattn, *opts, relu_on=raw > 0)
+    _close_all(split(got), split(want), F32_BWD_REL,
+               f"key_stream_feat_f32_bwd T={T}")
+    assert (sf.key_stream_feat_f32_fwd.launches,
+            sf.key_stream_feat_f32_bwd.launches,
+            sf.key_stream_feat_fwd.launches) == (before[0] + 1, before[1] + 1,
+                                                 before[2])
+
+
+@pytest.mark.parametrize("T,normalize", [(256, True), (100, False)])
+def test_value_stream_feat_f32_kernels_match_plain(dev, T, normalize):
+    """Row 9 in fp32, forward and backward, the value rows unrounded."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    rng = np.random.default_rng(33)
+    K = 20
+    _, xv, _, _, _, _, vw, _, _ = _feat_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    opts = (normalize, torch.float32)
+    before = (sf.value_stream_feat_f32_fwd.launches,
+              sf.value_stream_feat_f32_bwd.launches,
+              sf.value_stream_feat_fwd.launches)
+    fused = sf.value_stream_feat_fwd(xv, attn, vw, *opts)
+    fused_p = sf.value_stream_feat_plain(xv, attn, vw, *opts)
+    print(f"value_stream_feat_f32_fwd T={T}: fused rel "
+          f"{_rel(fused, fused_p):.3e}")
+    assert _rel(fused, fused_p) <= F32_REL
+    assert float(fused[5].abs().max()) == 0.0
+    dfused = torch.as_tensor(rng.normal(size=(T, 32)).astype(np.float32),
+                             device=dev)
+    dfused = _firm(dfused, _tokens_margin(xv, vw))
+    split = lambda g: [g[0][..., :6], g[0][..., 6:]] + list(g[1:])
+    got = sf.value_stream_feat_bwd(xv, attn, vw, dfused, *opts)
+    want = sf.value_stream_feat_bwd_plain(xv, attn, vw, dfused, *opts)
+    _close_all(split(got), split(want), F32_BWD_REL,
+               f"value_stream_feat_f32_bwd T={T} normalize={normalize}")
+    assert (sf.value_stream_feat_f32_fwd.launches,
+            sf.value_stream_feat_f32_bwd.launches,
+            sf.value_stream_feat_fwd.launches) == (before[0] + 1,
+                                                   before[1] + 1, before[2])
+
+
+@pytest.mark.parametrize("T,K,Dk,Dq,dm,act", [(300, 20, 256, 256, 256, "relu"),
+                                              (100, 7, 48, 40, 32, "none")])
+def test_fused_scores_f32_kernels_match_plain(dev, T, K, Dk, Dq, dm, act):
+    """Row 10 in fp32: attn, raw and every gradient (fp32 d_embedk /
+    d_embedq, dW through wgrad_f32); the score relu given the kernel
+    forward's pattern."""
+    from papr_tpu_torch.ops import fused_attn as fa
+    rng = np.random.default_rng(34)
+    args = [a.float() for a in _score_inputs(rng, T, K, Dk, Dq, dm, dev)]
+    args[0] = torch.as_tensor(rng.normal(size=(K, T, Dk)).astype(np.float32),
+                              device=dev)
+    args[1] = torch.as_tensor(rng.normal(size=(T, Dq)).astype(np.float32),
+                              device=dev)
+    before = (fa.fused_scores_f32_fwd.launches,
+              fa.fused_scores_f32_bwd.launches, fa.fused_scores_fwd.launches,
+              fm.wgrad.launches)
+    got, raw = fa.fused_scores_fwd(*args, act, 5.0, torch.float32,
+                                   with_raw=True)
+    want, raw_w = fa.fused_scores_plain(*args, act, 5.0, torch.float32)
+    print(f"fused_scores_f32_fwd T={T}: attn max abs "
+          f"{float((got - want).abs().max()):.3e}, raw rel "
+          f"{_rel(raw, raw_w):.3e}")
+    assert float((got - want).abs().max()) <= F32_ATTN_ABS
+    assert _rel(raw, raw_w) <= F32_REL
+    assert float(got[3, K]) == 1.0
+    dattn = torch.as_tensor(rng.normal(size=(T, K + 1)).astype(np.float32),
+                            device=dev)
+    g = fa.fused_scores_bwd(*args, dattn, act, 5.0, torch.float32)
+    w = fa.fused_scores_bwd_plain(*args, dattn, act, 5.0, torch.float32,
+                                  relu_on=raw > 0)
+    assert g[0].dtype == torch.float32 and g[1].dtype == torch.float32
+    _close_all(g, w, F32_BWD_REL, f"fused_scores_f32_bwd T={T}")
+    assert float(g[6][3].abs().max()) == 0.0              # all-dead ray
+    assert (fa.fused_scores_f32_fwd.launches, fa.fused_scores_f32_bwd.launches,
+            fa.fused_scores_fwd.launches, fm.wgrad.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+
+
+def test_int8_walks_with_fp32_epilogue_match_plain(dev):
+    """Rows 4q-6q beside fp32 compute: the int8 kernels with the fp32
+    epilogue against the plain int8 walks with fp32 compute (the same
+    calibration on both sides), whole outputs to the int8 flips' bounds and
+    the median ray to fp32 noise (a bf16 rounding in the epilogue moves
+    every ray)."""
+    rng = np.random.default_rng(35)
+    T, K = 256, 20
+    rec, rayo, rays, qq, kw, vw, wk, bk = _stream_case(rng, dev, T, K)
+    record, idx = _idx_form(rec)
+    f32 = torch.float32
+    qp = tuple(sa.calibrate_walk(rec, rayo, rays, w, 1e-6, f32)
+               for w in (kw, vw))
+    args = (record, idx, rayo, rays, qq, kw, wk, bk, vw, "relu", 5.0, True,
+            1e-6)
+    before = (sa.attend_eval_i8_f32.launches, sa.attend_eval_i8.launches,
+              sa.key_stream_i8_f32_fwd.launches,
+              sa.value_stream_i8_f32_fwd.launches)
+    fg, ag = sa.attend_eval_idx(*args, f32, True, qp)
+    fw, aw = sa.attend_eval_plain(*args, f32, True, qp)
+    print(f"attend_eval_i8_f32: fused rel {_rel(fg, fw):.3e}, median ray "
+          f"{_median_ray_rel(fg, fw):.3e}, attn max abs "
+          f"{float((ag - aw).abs().max()):.3e}")
+    assert _rel(fg, fw) <= I8_F32_FUSED_REL
+    assert _median_ray_rel(fg, fw) <= I8_F32_MEDIAN_REL
+    assert float((ag - aw).abs().max()) <= 5e-3
+    sargs = (rec, rayo, rays, qq, kw, wk, bk)
+    attn, raw, ss = sa.key_stream_fwd(*sargs, "relu", 5.0, 1e-6, f32, True)
+    attn_p, raw_p, _ = sa.key_stream_plain(*sargs, "relu", 5.0, 1e-6, f32,
+                                           int8=True)
+    print(f"key_stream_i8_f32_fwd: attn max abs "
+          f"{float((attn - attn_p).abs().max()):.3e}, raw rel "
+          f"{_rel(raw, raw_p):.3e}, median ray "
+          f"{_median_ray_rel(raw, raw_p):.3e}")
+    assert float((attn - attn_p).abs().max()) <= 5e-3
+    assert _rel(raw, raw_p) <= I8_RAW_REL
+    assert _median_ray_rel(raw, raw_p) <= I8_F32_MEDIAN_REL
+    fused = sa.value_stream_fwd(rec, rayo, rays, attn, vw, True, 1e-6, f32,
+                                True)
+    fused_p = sa.value_stream_plain(rec, rayo, rays, attn, vw, True, 1e-6,
+                                    f32, True)
+    print(f"value_stream_i8_f32_fwd: fused rel {_rel(fused, fused_p):.3e}, "
+          f"median ray {_median_ray_rel(fused, fused_p):.3e}")
+    assert _rel(fused, fused_p) <= I8_F32_FUSED_REL
+    assert _median_ray_rel(fused, fused_p) <= I8_F32_MEDIAN_REL
+    assert (sa.attend_eval_i8_f32.launches, sa.attend_eval_i8.launches,
+            sa.key_stream_i8_f32_fwd.launches,
+            sa.value_stream_i8_f32_fwd.launches) == (
+        before[0] + 1, before[1], before[2] + 1, before[3] + 1)
+
+
+@pytest.mark.parametrize("tpu", [{"fused_attn": "stream"},
+                                 {"fused_attn": True}, {"fused_attn": "score"},
+                                 {"query_fold": True}, {"int8_train": True}],
+                         ids=["stream", "true", "score", "query_fold",
+                              "int8_train"])
+def test_fp32_modes_training_step_on_card(dev, tpu, request):
+    """``use_amp: false`` under every other mode on the card: forward and
+    gradients through the mode's fp32 kernels, no bf16 kernel and no plain
+    version; the gradients agree with the plain fp32 path (int8_train: the
+    straight-through int8 forward, held to the loss only)."""
+    from papr_tpu_torch.model.papr import forward
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.ops import fused_attn as fa
+    from papr_tpu_torch.ops import stream_feat as sf
+    from papr_tpu_torch.train.optim import tree_leaves, tree_map
+    cfg, params, state = _fp32_model(dev, **tpu)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 35.0
+    rayo, rayd = get_rays_np(32, 32, 30.0, 30.0, c2w[None])
+    rayo, rayd = torch.as_tensor(rayo, device=dev), torch.as_tensor(rayd,
+                                                                    device=dev)
+    f32 = (fm.fused_mlp_f32, fm.fused_mlp_bwd_f32, sa.key_stream_f32_fwd,
+           sa.key_stream_f32_bwd, sa.value_stream_f32_fwd,
+           sa.value_stream_f32_bwd, sa.key_stream_q_f32_fwd,
+           sa.key_stream_q_f32_bwd, sf.key_stream_feat_f32_fwd,
+           sf.key_stream_feat_f32_bwd, sf.value_stream_feat_f32_fwd,
+           sf.value_stream_feat_f32_bwd, fa.fused_scores_f32_fwd,
+           fa.fused_scores_f32_bwd, sa.key_stream_i8_f32_fwd,
+           sa.value_stream_i8_f32_fwd)
+    bf16 = (fm.fused_mlp, fm.fused_mlp_bwd, sa.key_stream_fwd,
+            sa.key_stream_bwd, sa.value_stream_fwd, sa.value_stream_bwd,
+            sa.key_stream_q_fwd, sa.key_stream_q_bwd, sf.key_stream_feat_fwd,
+            sf.key_stream_feat_bwd, sf.value_stream_feat_fwd,
+            sf.value_stream_feat_bwd, fa.fused_scores_fwd,
+            fa.fused_scores_bwd, sa.key_stream_i8_fwd, sa.value_stream_i8_fwd,
+            fm.wgrad)
+    plains = (fm.fused_mlp_plain, fm.fused_mlp_bwd_plain, sa.key_stream_plain,
+              sa.key_stream_bwd_plain, sa.value_stream_plain,
+              sa.value_stream_bwd_plain, sa.key_stream_q_plain,
+              sa.key_stream_q_bwd_plain, sf.key_stream_feat_plain,
+              sf.key_stream_feat_bwd_plain, sf.value_stream_feat_plain,
+              sf.value_stream_feat_bwd_plain, fa.fused_scores_plain,
+              fa.fused_scores_bwd_plain)
+    want = {"stream": (1, 1, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 0, 0, 0, 0),
+            "true": (3, 3) + (0,) * 10 + (1, 1, 0, 0),
+            "score": (0,) * 12 + (1, 1, 0, 0),
+            "query_fold": (0, 0, 0, 0, 1, 1, 1, 1) + (0,) * 8,
+            "int8_train": (1, 1, 0, 1, 0, 1) + (0,) * 8 + (1, 1)}
+    mode = request.node.callspec.id
+
+    def grads_of(c):
+        live = {k: tree_map(lambda t: t.detach().requires_grad_(True), v)
+                for k, v in params.items()}
+        out = forward(live, state, c, rayo, rayd,
+                      policy=policy_from_config(c))
+        leaves = tree_leaves(live["attn"]) + [live["points"],
+                                              live["points_influ_scores"],
+                                              live["pc_feats"]]
+        return out, torch.autograd.grad(out.square().mean(), leaves)
+
+    before = ([f.launches for f in f32], [f.launches for f in bf16],
+              [p.calls for p in plains], fm.wgrad_f32.launches)
+    out, grads = grads_of(cfg)
+    torch.cuda.synchronize()
+    got = tuple(f.launches - b for f, b in zip(f32, before[0]))
+    assert got == want[mode], (mode, got)
+    assert [f.launches for f in bf16] == before[1]
+    assert [p.calls for p in plains] == before[2]
+    assert fm.wgrad_f32.launches > before[3]
+    cfg_p, _, _ = _fp32_model(dev, fused_attn=False)
+    out_p, grads_p = grads_of(cfg_p)
+    rel = max(_rel(g, w) for g, w in zip(grads, grads_p))
+    print(f"fp32 {mode} step vs plain path: out rel {_rel(out, out_p):.3e}, "
+          f"grads max rel {rel:.3e}")
+    if mode == "int8_train":
+        assert _rel(out, out_p) <= I8_F32_FUSED_REL * 10
+    else:
+        assert _rel(out, out_p) <= F32_REL and rel <= F32_STEP_GRAD_REL
+

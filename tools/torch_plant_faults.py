@@ -30,9 +30,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (name, the line to replace, its replacement); the first cases are the sound
 # sources. Cases named "topk" patch topk_stream.cu, "embedder bwd"
 # fused_mlp_bwd.cu, "encoding" walk.cuh, "stream feat key" key_stream_feat.cu,
-# "stream q" key_stream_q.cu, "stream shared" stream_common.cuh, "int8 walk"
-# walk.cuh, "int8 bench" int8_walk_bench.cu, "fp32 walk" walk.cuh, "fp32
-# stash" walk_bwd.cuh, the others fused_attn.cu.
+# "stream feat value" value_stream_feat.cu, "stream q" key_stream_q.cu,
+# "stream shared" or "linear_bf16" stream_common.cuh, "int8 walk" walk.cuh,
+# "int8 bench" int8_walk_bench.cu, "int8 value" value_stream.cu, "int8
+# attend" attend_eval.cu, "fp32 walk" walk.cuh, "fp32 stash" walk_bwd.cuh,
+# the others fused_attn.cu.
 MUTS = [
     ("sound", None, None),
     ("sound stream", None, None),
@@ -68,6 +70,39 @@ MUTS = [
      "      float* f = reinterpret_cast<float*>(&u);\n"
      "      for (int e = 0; e < 4; ++e) f[e] = bf16_round(f[e]);\n"
      "    }"),
+    ("fp32 scores: the embeddings rounded to TF32 as they load (one operand "
+     "of a single TF32 pass)",
+     "    *reinterpret_cast<uint4*>(A + r * kALd + c0) = val;",
+     "    if constexpr (kF32<Op>) {\n"
+     "      float* f = reinterpret_cast<float*>(&val);\n"
+     "      for (int e = 0; e < 4; ++e)\n"
+     "        f[e] = nvcuda::wmma::__float_to_tf32(f[e]);\n"
+     "    }\n"
+     "    *reinterpret_cast<uint4*>(A + r * kALd + c0) = val;"),
+    ("fp32 scores: qq rounded to bf16",
+     "        if (t < a.T) a.qq[(size_t)t * a.pdm + c] = q;",
+     "        if (t < a.T) a.qq[(size_t)t * a.pdm + c] = bf16_round(q);"),
+    ("fp32 scores bwd: the dkk stash rounded to bf16",
+     "            b.dkk_stash[((size_t)k * a.T + t) * a.pdm + c] = h;",
+     "            b.dkk_stash[((size_t)k * a.T + t) * a.pdm + c] = "
+     "bf16_round(h);"),
+    ("fp32 stream q fwd: qq rounded to bf16",
+     "    if (t < T) qq[(size_t)t * dm + c] = linear_c<Op>(S.C[r * kCLd + c], "
+     "bq[c]);",
+     "    if (t < T) qq[(size_t)t * dm + c] = "
+     "bf16_round(linear_c<Op>(S.C[r * kCLd + c], bq[c]));"),
+    ("fp32 stream feat value fwd: the value rows rounded to bf16",
+     "    fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);",
+     "    fuse_step<__nv_bfloat16>(C, acc, attn, den, k, K, cout, t0, T);"),
+    ("fp32 epilogue of int8 value: its value rows rounded to bf16",
+     "    fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);",
+     "    if (vq) fuse_step<__nv_bfloat16>(C, acc, attn, den, k, K, cout, t0, "
+     "T);\n"
+     "    else fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);"),
+    ("fp32 epilogue of int8 attend: its value rows rounded to bf16",
+     "        const float yc = act_round<Op>(C[r * kCLd + c]);",
+     "        const float yc = vq ? bf16_round(C[r * kCLd + c])\n"
+     "                            : act_round<Op>(C[r * kCLd + c]);"),
     ("int8 walk: truncation instead of round-to-nearest",
      "  return (q8)__float2int_rn(t);", "  return (q8)__float2int_rz(t);"),
     ("int8 walk: clamp at 128 (wraps to -128)",
@@ -109,9 +144,9 @@ MUTS = [
      "    const float g = t < T && c < dm ? 1.05f * dqq[(size_t)t * dm + c] "
      ": 0.f;"),
     ("stream q fwd: b_q left out",
-     "    if (t < T) qq[(size_t)t * dm + c] = linear_bf16(S.C[r * kCLd + c], "
+     "    if (t < T) qq[(size_t)t * dm + c] = linear_c<Op>(S.C[r * kCLd + c], "
      "bq[c]);",
-     "    if (t < T) qq[(size_t)t * dm + c] = linear_bf16(S.C[r * kCLd + c], "
+     "    if (t < T) qq[(size_t)t * dm + c] = linear_c<Op>(S.C[r * kCLd + c], "
      "0.f);"),
     ("stream shared bwd: dqq keeps the last slot only (the query backward "
      "sees one k, not their sum)",
@@ -136,15 +171,18 @@ MUTS = [
      "          if (k + 1 < a.K) dqq[i][j] += dr * kk;"),
     ("bwd: db_k from the rounded dkk (a rounding point)",
      "          dbk[j] += dkk;", "          dbk[j] += bf16_round(dkk);"),
-    ("fwd+bwd: projection not rounded before the bias (a rounding point)",
+    ("fwd+bwd: projection not rounded before the bias (a rounding point; "
+     "linear_bf16, which the streams share)",
      "  return bf16_round(bf16_round(acc) + bf16_round(bias));",
      "  return bf16_round(acc + bf16_round(bias));"),
     ("fwd+bwd: score scale off by 1 %",
      "      if (lane == 0) sS[r * kSLd + k] = acc * a.rsqrt_dm;",
      "      if (lane == 0) sS[r * kSLd + k] = acc * a.rsqrt_dm * 1.01f;"),
     ("fwd+bwd: bias b_k left out",
-     "               linear_out(s.C[r * kCLd + c], a.bk[c]);",
-     "               linear_out(s.C[r * kCLd + c], 0.f);"),
+     "        acc += qq_at(s, a, t0, r, c) * linear_c<Op>(s.C[r * kCLd + c], "
+     "a.bk[c]);",
+     "        acc += qq_at(s, a, t0, r, c) * linear_c<Op>(s.C[r * kCLd + c], "
+     "0.f);"),
     ("embedder bwd: dx of raw columns 6 and up scaled by 1.05",
      "    if (row < R) dx[(size_t)row * d_raw + src] = v;",
      "    if (row < R) dx[(size_t)row * d_raw + src] = src >= 6 ? v * 1.05f : v;"),
@@ -196,8 +234,8 @@ TARGETS = {
 
 def target_of(name: str) -> str:
     head = name.split(":")[0]
-    return ("compare_int8_kernels" if "int8" in head
-            else "compare_f32_kernels" if "fp32" in head
+    return ("compare_f32_kernels" if "fp32" in head
+            else "compare_int8_kernels" if "int8" in head
             else "compare_train_kernels" if "stream" in head
             else "compare_cli_kernels")
 
@@ -228,10 +266,15 @@ def run_case(name, old, new) -> None:
                                       ("embedder bwd", "fused_mlp_bwd.cu"),
                                       ("encoding", "walk.cuh"),
                                       ("stream feat key", "key_stream_feat.cu"),
+                                      ("stream feat value",
+                                       "value_stream_feat.cu"),
                                       ("stream q", "key_stream_q.cu"),
                                       ("stream shared", "stream_common.cuh"),
+                                      ("linear_bf16", "stream_common.cuh"),
                                       ("int8 walk", "walk.cuh"),
                                       ("int8 bench", "int8_walk_bench.cu"),
+                                      ("int8 value", "value_stream.cu"),
+                                      ("int8 attend", "attend_eval.cu"),
                                       ("fp32 walk", "walk.cuh"),
                                       ("fp32 stash", "walk_bwd.cuh"))
                     if word in name), "fused_attn.cu")
