@@ -39,7 +39,8 @@ Phases (each prints a line; any failure exits non-zero):
    ``streamrec`` + ``cull`` and for ``fused_attn: true`` + ``topk_impl:
    pallas``.
    Phase 2 also holds the streaming top-k, the fused attention scores
-   (forward and backward), the dW reduction (beside one ``torch.matmul``)
+   (forward and backward), the dW reduction in bf16 and fp32 (each beside
+   one ``torch.matmul``; two runs bit-equal)
    and the embedder kernels on the key and value stacks (512,000 tokens
    with the point-feature columns, forward and backward) against their
    plain versions at the command-line path's shapes.
@@ -193,6 +194,13 @@ STACK_BWD_REL = 2e-2
 # The dW reduction against the fp32 product of the same bf16 operands (both
 # sum exact products in fp32; only the order differs).
 WGRAD_REL = 1e-4
+# The earlier WMMA kernels' times (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md):
+# K3 on phase 2's 25,600-ray block and per 800x800 frame, wgrad at phase 2's
+# and phase 8's shapes; printed beside the wgmma kernels' times.
+K3_WMMA_MS = 11.915
+K3_WMMA_FRAME_MS = 212.6
+WGRAD_WMMA_MS = 0.934
+WGRAD_F32_WMMA_MS = 4.819
 # Two-kernel eval frame against the one-shot kernel's frame.
 EVAL_TWO_MIN_CLOSE = 0.999
 # Tiled frames under ``stream`` and ``streamrec`` + ``query_fold`` against
@@ -524,6 +532,17 @@ def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
                             x.shape[0] * walk_flops(qwalk), BF16_FLOPS)})
 
     # K3: eval attention on the central 160x160 ray block.
+    results.append(compare_k3(params, state, cfg, device, n_time))
+    return results
+
+
+def compare_k3(params, state, cfg, device, n_time: int) -> dict:
+    """Phase 2, K3: the one-shot eval attention on the central 160x160 ray
+    block against its plain version."""
+    import torch
+    from papr_tpu_torch.model.papr import model_meta
+    from papr_tpu_torch.ops import stream_attn as sa
+    k = model_meta(cfg).select_k
     args, T = eval_block_args(params, state, cfg, device)
     record, idx, rayo_flat, rays, qq, kwalk, _, _, vwalk = args[:9]
     f_got, a_got = sa.attend_eval_idx(*args)
@@ -537,21 +556,21 @@ def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
     gflop = 2.0 * T * k * sum(
         int(w.shape[0]) * int(w.shape[1])
         for w in kwalk.ws + vwalk.ws + (params["attn"]["w_k"]["w"],)) / 1e9
+    k3_bound = bound(nbytes(record, idx, rayo_flat, rays, qq, f_got, a_got)
+                     + walk_bytes(kwalk, vwalk), gflop * 1e9, BF16_FLOPS)
     print(f"phase 2 K3 attend_eval: T={T} K={k}: fused rel Frobenius "
           f"{err:.3e} (need <= {K3_REL}), max abs {f_abs:.3e}; attn max abs "
           f"{a_abs:.3e} (need <= {K3_ATTN_ABS}); finite {finite}; kernel "
-          f"{ms:.3f} ms ({gflop / ms:.1f} TFLOP/s of walk matmuls), plain "
+          f"{ms:.3f} ms ({gflop / ms:.1f} TFLOP/s of walk matmuls; earlier "
+          f"WMMA kernel {K3_WMMA_MS} ms here, {K3_WMMA_FRAME_MS} ms an 800x800 "
+          f"frame), bound {k3_bound['bound_ms']:.4f} ms, plain "
           f"{plain_ms:.3f} ms", flush=True)
     if not (err <= K3_REL and a_abs <= K3_ATTN_ABS and finite):
         fail("K3 eval attention disagrees with its plain version")
-    results.append({"name": "attend_stream_eval", "route": "cuda",
-                    "source": "papr_tpu_torch/csrc/attend_eval.cu",
-                    "replaces": "papr_tpu/ops/stream_attn.py:1856",
-                    "max_abs_err": f_abs, "ms": ms, "plain_ms": plain_ms,
-                    **bound(nbytes(record, idx, rayo_flat, rays, qq, f_got,
-                                   a_got) + walk_bytes(kwalk, vwalk),
-                            gflop * 1e9, BF16_FLOPS)})
-    return results
+    return {"name": "attend_stream_eval", "route": "cuda",
+            "source": "papr_tpu_torch/csrc/attend_eval.cu",
+            "replaces": "papr_tpu/ops/stream_attn.py:1856",
+            "max_abs_err": f_abs, "ms": ms, "plain_ms": plain_ms, **k3_bound}
 
 
 def compare_cli_kernels(params, state, cfg, device, n_time: int = 3) -> list:
@@ -562,7 +581,6 @@ def compare_cli_kernels(params, state, cfg, device, n_time: int = 3) -> list:
     reduction (``csrc/wgrad.cu``) beside one ``torch.matmul`` on the same
     bf16 operands."""
     import torch
-    from papr_tpu_torch.kernels import build
     from papr_tpu_torch.model.papr import _split_embeddings, model_meta
     from papr_tpu_torch.nn.mlp import policy_from_config
     from papr_tpu_torch.ops import fused_attn as fa
@@ -680,37 +698,22 @@ def compare_cli_kernels(params, state, cfg, device, n_time: int = 3) -> list:
 
     # The dW reduction beside the one PyTorch call that computes the same
     # function: dW = H^T DZ over K * T tokens of bf16 operands.
-    N = k * T
-    hmat = ek.reshape(N, Dk).contiguous()
-    dz = torch.randn(N, dm, generator=gen, device=device).to(torch.bfloat16)
-    lib = build.load()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    run = lambda: fm.wgrad(lib, hmat.data_ptr(), dz.data_ptr(), N, Dk, dm,
-                           device, stream)
-    plain = lambda: torch.matmul(hmat.float().T, dz.float())
-    call = lambda: torch.matmul(hmat.T, dz)
-    got, want = run(), plain()
-    err = rel_fro(got, want)
-    ms, plain_ms = cuda_ms(run, n_time), cuda_ms(plain, 1)
-    lib_ms = cuda_ms(call, n_time)
-    work = bound(nbytes(hmat, dz, got), 2.0 * N * Dk * dm, BF16_FLOPS)
-    work["library_ms"] = lib_ms
-    print(f"phase 2 wgrad (dW = H^T DZ, N={N}, {Dk}x{dm}, bf16 operands): "
-          f"rel Frobenius {err:.3e} (need <= {WGRAD_REL}) against the fp32 "
-          f"product; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"torch.matmul on the same bf16 operands (bf16 output) "
-          f"{lib_ms:.3f} ms, bound {work['bound_ms']:.4f} ms "
-          f"({work['bound_by']})", flush=True)
-    if not (err <= WGRAD_REL):
+    hmat = ek.reshape(k * T, Dk).contiguous()
+    dz = torch.randn(k * T, dm, generator=gen, device=device).to(torch.bfloat16)
+    res = wgrad_check(device, hmat, dz, n_time)
+    if res["max_rel_err"] > WGRAD_REL or not res.pop("bit_equal"):
         failed.append("wgrad")
-    results.append({"name": "wgrad", "route": "cuda",
-                    "source": "papr_tpu_torch/csrc/wgrad.cu",
-                    "replaces": "papr_tpu/ops/fused_mlp.py:424 (the dW "
-                                "accumulation of every TPU backward body)",
-                    "max_abs_err": _max_abs([got], [want]),
-                    "max_rel_err": err, "ms": ms, "plain_ms": plain_ms,
-                    **work})
-    del ek, eq, hmat, dz, g, w, got, want
+    results.append(res)
+    # The fp32 form beside it, on random operands at phase 8's shape (its
+    # kernels-line entry is phase 8's, on Caterpillar's stash shapes).
+    del hmat, dz
+    h32 = torch.randn(648_000, 256, generator=gen, device=device)
+    dz32 = torch.randn(648_000, 256, generator=gen, device=device)
+    res = wgrad_check(device, h32, dz32, n_time)
+    if res["max_rel_err"] > F32_WGRAD_REL or not res["bit_equal"]:
+        failed.append("wgrad_f32")
+    del h32, dz32
+    del ek, eq, g, w
     torch.cuda.empty_cache()
 
     # The embedder kernels on the key and value stacks (K * T tokens, the
@@ -780,6 +783,69 @@ def compare_cli_kernels(params, state, cfg, device, n_time: int = 3) -> list:
     if failed:
         fail(f"kernels disagree with their plain versions: {failed}")
     return results, out_stacks
+
+
+def wgrad_check(device, hmat, dz, n_time: int, phase: int = 2) -> dict:
+    """dW = H^T DZ through ``fm.wgrad`` (bf16 operands, against their fp32
+    product) or ``fm.wgrad_f32`` (fp32 operands, against their fp64
+    product): error, two runs bit-equal, kernel time beside one
+    ``torch.matmul`` on the same operands and the bound. Returns the
+    kernels-line entry with ``bit_equal``."""
+    import torch
+    from papr_tpu_torch.kernels import build
+    from papr_tpu_torch.ops import fused_mlp as fm
+    f32 = hmat.dtype == torch.float32
+    (N, da), db = hmat.shape, dz.shape[1]
+    lib = build.load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = fm.wgrad_f32 if f32 else fm.wgrad
+    run = lambda: fn(lib, hmat.data_ptr(), dz.data_ptr(), N, da, db, device,
+                     stream)
+    plain = ((lambda: (hmat.double().T @ dz.double()).float()) if f32 else
+             (lambda: torch.matmul(hmat.float().T, dz.float())))
+    got, want = run(), plain()
+    err = rel_fro(got, want)
+    same = bool(torch.equal(got, run()))
+    ms, plain_ms = cuda_ms(run, n_time), cuda_ms(plain, 1)
+    lib_ms = cuda_ms(lambda: torch.matmul(hmat.T, dz), n_time)
+    work = bound(nbytes(hmat, dz, got), (3.0 if f32 else 1.0) * 2.0 * N * da
+                 * db, F32_TC_FLOPS * 3 if f32 else BF16_FLOPS)
+    work["library_ms"] = lib_ms
+    name = "wgrad_f32" if f32 else "wgrad"
+    print(f"phase {phase} {name} (dW = H^T DZ, N={N}, {da}x{db}, "
+          f"{hmat.dtype} operands): rel Frobenius {err:.3e} (need <= "
+          f"{F32_WGRAD_REL if f32 else WGRAD_REL}) against the "
+          f"{'fp64' if f32 else 'fp32'} product; two runs bit-equal {same}; "
+          f"kernel {ms:.3f} ms (earlier WMMA kernel "
+          f"{WGRAD_F32_WMMA_MS if f32 else WGRAD_WMMA_MS} ms), plain "
+          f"{plain_ms:.3f} ms, torch.matmul on the same operands "
+          f"{lib_ms:.3f} ms, bound {work['bound_ms']:.4f} ms "
+          f"({work['bound_by']})", flush=True)
+    return {"name": name, "route": "cuda",
+            "source": "papr_tpu_torch/csrc/wgrad.cu",
+            "replaces": "papr_tpu/ops/fused_mlp.py:424 (the dW accumulation "
+                        "of every TPU backward body)",
+            "max_abs_err": _max_abs([got], [want]), "max_rel_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bit_equal": same, **work}
+
+
+def compare_wgmma_kernels(params, state, cfg, device, n_time: int = 1):
+    """The two wgmma designs alone (``tools/torch_plant_faults.py``): K3 on
+    phase 2's eval block, ``wgrad`` on random bf16 operands at phase 2's
+    shape and ``wgrad_f32`` on random fp32 operands at phase 8's."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(6)
+    compare_k3(params, state, cfg, device, n_time)
+    for N, cdt in ((512_000, torch.bfloat16), (648_000, torch.float32)):
+        hmat = torch.randn(N, 256, generator=gen, device=device).to(cdt)
+        dz = torch.randn(N, 256, generator=gen, device=device).to(cdt)
+        res = wgrad_check(device, hmat, dz, n_time,
+                          8 if cdt == torch.float32 else 2)
+        tol = F32_WGRAD_REL if cdt == torch.float32 else WGRAD_REL
+        if res["max_rel_err"] > tol or not res["bit_equal"]:
+            fail(f"{res['name']} disagrees with its plain version")
+        del hmat, dz
+        torch.cuda.empty_cache()
 
 
 def training_patch(device, seed: int = 0):
@@ -2452,7 +2518,7 @@ TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("key stream bwd (features)", "keyf_bwd_kernel"),
                 ("value stream fwd (features)", "valuef_fwd_kernel"),
                 ("value stream bwd (features)", "valuef_bwd_kernel"),
-                ("dW reduction (wgrad)", "wgrad_kernel"),
+                ("dW reduction (wgrad)", "wgrad_"),
                 ("dW reduction (wgrad)", "colsum_kernel"),
                 ("selection (prefilter sort / top-k)", "ort"),
                 ("selection (prefilter sort / top-k)", "topk"),
@@ -3139,6 +3205,13 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            library=lambda: torch.matmul(hmat.T, dz),
            tf32=lambda: tf32_reading(lambda: torch.matmul(hmat.T, dz),
                                      (hmat.double().T @ dz.double()).float()))
+    run = lambda: fm.wgrad_f32(lib, hmat.data_ptr(), dz.data_ptr(), N, D, D,
+                               device, stream)
+    same = bool(torch.equal(run(), run()))
+    print(f"phase 8 wgrad_f32: two runs bit-equal {same} (earlier WMMA "
+          f"kernel {WGRAD_F32_WMMA_MS} ms on these shapes)", flush=True)
+    if not same:
+        failed.append("wgrad_f32 (two runs differ)")
     del hmat, dz
     torch.cuda.empty_cache()
     if failed:

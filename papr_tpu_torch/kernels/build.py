@@ -32,8 +32,8 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "papr_cull_topk": [P, P, P, I, I, I, I, I, I, P, P],
     "papr_fused_mlp_fwd": [P, I, I, P, P, P, P, P, P, P],
-    "papr_attend_eval": [P, I, P, I, I, P, P, P, I, F, P, P, P, P, P, P, P,
-                         I, P, P, P, P, P, I, F, I, F, P, P, P],
+    "papr_attend_eval_f32": [P, I, P, I, I, P, P, P, I, F, P, P, P, P, P, P,
+                             P, I, P, P, P, P, P, I, F, I, F, P, P, P],
     "papr_fused_mlp_bwd": [P, I, I, P, P, P, P, P, P, P, P, P, P, P, P, I, P,
                            P],
     "papr_wgrad": [P, P, I, I, I, I, P, P, P],
@@ -80,7 +80,10 @@ for _name in ("papr_fused_mlp_fwd", "papr_fused_mlp_bwd",
 for _dir in ("fwd", "bwd"):
     _sig = SIGNATURES[f"papr_fused_scores_f32_{_dir}"]
     SIGNATURES[f"papr_fused_scores_f32_{_dir}"] = _sig[:-1] + [P, P]
-SIGNATURES["papr_attend_eval_f32"] = SIGNATURES["papr_attend_eval"]
+# The bf16 one-shot eval attention (on wgmma) takes the tile function's
+# arguments, then its packed weights and their size in bytes.
+SIGNATURES["papr_attend_eval"] = SIGNATURES["papr_attend_eval_f32"][:-1] + [
+    P, I, P]
 SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
 
 # The int8 forms take their bf16 twin's arguments, then the walk's (two
@@ -88,7 +91,7 @@ SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
 # then the stream; the ``_i8_f32`` forms (the fp32 epilogue) the same.
 for _name, _walks in (("papr_attend_eval", 2), ("papr_key_stream", 1),
                       ("papr_value_stream", 1)):
-    _twin = _name + ("_fwd" if _walks == 1 else "")
+    _twin = _name + ("_fwd" if _walks == 1 else "_f32")
     _sig = SIGNATURES[_twin][:-1] + [P] * (3 * _walks + 1)
     for _i8 in ("_i8", "_i8_f32"):
         SIGNATURES[_name + _i8 + ("_fwd" if _walks == 1 else "")] = _sig

@@ -266,6 +266,50 @@ def pack_walk_t(walk: Walk, pd, device,
     return torch.cat(parts)
 
 
+def wgmma_tile_n(pd_out: int) -> int:
+    """The packed width of a layer's chunks for the wgmma walk
+    (``csrc/walk_wgmma.cuh wg_tile_n``): the narrowest of 32 / 64 / 128 / 256
+    that holds pd_out."""
+    return next(n for n in (32, 64, 128, 256) if pd_out <= n)
+
+
+@functools.lru_cache(maxsize=16)
+def _wgmma_index(dims: tuple, device) -> torch.Tensor:
+    """Where each element of ``pack_walk_wgmma``'s image comes from in the
+    matrices' flat concatenation (row-major (pd_in, pd_out) each), or the
+    zero slot past its end. The layout is a function of the widths only."""
+    total = sum(a * b for a, b in dims)
+    parts, base = [], 0
+    for a, b in dims:
+        ni, nch = wgmma_tile_n(b), -(-a // 64)
+        c = torch.arange(nch).view(nch, 1, 1, 1)
+        n = torch.arange(ni).view(1, ni, 1, 1)
+        p = torch.arange(8).view(1, 1, 8, 1)
+        e = torch.arange(8).view(1, 1, 1, 8)
+        k = c * 64 + (p ^ (n % 8)) * 8 + e      # the 128-byte swizzle
+        src = torch.where((k < a) & (n < b), base + k * b + n,
+                          torch.full_like(k, total))
+        parts.append(src.reshape(-1))
+        base += a * b
+    return torch.cat(parts).to(device)
+
+
+def pack_walk_wgmma(mats, device) -> torch.Tensor:
+    """Weights of the bf16 wgmma walk (``csrc/walk_wgmma.cuh``), from the
+    input-major (pd_in, pd_out) matrices in the order the kernel streams
+    them: per layer, ceil(pd_in / 64) chunks of ``wgmma_tile_n(pd_out)``
+    rows of 64 bf16 along the input axis (K-major, zero beyond the
+    matrix), each row's 16-byte groups XOR-swizzled by row % 8, so one TMA
+    bulk copy lands a chunk in shared memory as wgmma reads it. One gather
+    per call (the weights change every training step, so the image is never
+    cached; only its index map, which depends on the widths alone)."""
+    dims = tuple((int(m.shape[0]), int(m.shape[1])) for m in mats)
+    flat = torch.cat([m.reshape(-1).to(device=device, dtype=torch.bfloat16)
+                      for m in mats]
+                     + [torch.zeros(1, dtype=torch.bfloat16, device=device)])
+    return flat[_wgmma_index(dims, torch.device(device))]
+
+
 def pack_walk_q(quant: WalkQuant, pd, device) -> tuple:
     """Kernel layout of a quantized walk (``csrc/walk.cuh WalkQuant``): the
     int8 weights OUTPUT-major, W_i^T zero-padded to (pd[i+1], pd[i]), in one
@@ -389,20 +433,26 @@ class BwdBuffers:
         return out
 
 
+def wgrad_splits(N: int, da: int, db: int, f32: bool) -> int:
+    """Token ranges of one ``wgrad`` launch (``csrc/wgrad.cu``): enough
+    blocks of (128 rows, tile_n columns) x range for one per SM of an H100
+    (132), each range at least eight stages of tokens."""
+    tile_n = 64 if db <= 64 else (128 if f32 or db <= 128 else 256)
+    tiles = -(-da // 128) * -(-db // tile_n)
+    return max(1, min(-(-132 // tiles), -(-N // (8 * (32 if f32 else 64)))))
+
+
 def wgrad(lib, h_ptr: int, dz_ptr: int, N: int, da: int, db: int, dev,
           stream, cdt: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """dW (da, db) fp32 = H^T DZ for row-major H (N, da), DZ (N, db) of
     ``cdt`` (bf16, or fp32 with 3xTF32 products) at the given device
-    addresses (``csrc/wgrad.cu``: split-K partials summed in a fixed
-    order)."""
+    addresses (``csrc/wgrad.cu``: wgmma on TMA-fed tiles, split-K partials
+    summed in a fixed order)."""
     from ..kernels import build
-    tiles = -(-da // 64) * -(-db // 64)
-    # Enough token ranges for ~2 blocks per SM (132 SMs on an H100), each
-    # range at least 256 tokens.
-    splits = max(1, min(-(-264 // tiles), -(-N // 256)))
+    f32 = cdt == torch.float32
+    splits = wgrad_splits(N, da, db, f32)
     tmp = torch.empty(splits * da * db, dtype=torch.float32, device=dev)
     out = torch.empty(da, db, dtype=torch.float32, device=dev)
-    f32 = cdt == torch.float32
     name = "papr_wgrad_f32" if f32 else "papr_wgrad"
     build.check(getattr(lib, name)(h_ptr, dz_ptr, N, da, db, splits,
                                    tmp.data_ptr(), out.data_ptr(), stream),

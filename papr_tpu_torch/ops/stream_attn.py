@@ -60,9 +60,9 @@ import torch
 
 from .fused_mlp import (BwdBuffers, FrameQuant, Walk, WalkQuant, c_ints,
                         check_walk_for_kernel, encode_plain, pack_walk,
-                        pack_walk_q, pack_walk_t, round_up, source_segments,
-                        walk_plain, walk_plain_q, walk_relu_margin,
-                        walk_tensors, walk_with)
+                        pack_walk_q, pack_walk_t, pack_walk_wgmma, round_up,
+                        source_segments, walk_plain, walk_plain_q,
+                        walk_relu_margin, walk_tensors, walk_with)
 
 NEG_BIG = -1e30
 REC_POS, REC_INFLU, REC_ALIVE, REC_FEATS = 0, 3, 4, 5
@@ -341,12 +341,27 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
                     "papr_attend_eval_f32")
         attend_eval_f32.launches += 1
     else:
-        build.check(lib.papr_attend_eval(*args, stream), "papr_attend_eval")
+        mats = ([kw[o:o + a * b].view(a, b) for a, b, o in _layer_offsets(kpd)]
+                + [wkT]
+                + [vw[o:o + a * b].view(a, b) for a, b, o in _layer_offsets(vpd)])
+        wpack = pack_walk_wgmma(mats, dev)
+        build.check(lib.papr_attend_eval(*args, wpack.data_ptr(),
+                                         2 * wpack.numel(), stream),
+                    "papr_attend_eval")
         attend_eval_idx.launches += 1
     return fused, attn
 
 
 attend_eval_idx.launches = 0
+
+
+def _layer_offsets(pd):
+    """(pd_in, pd_out, offset) of each layer in ``pack_walk``'s weights."""
+    out, o = [], 0
+    for a, b in zip(pd[:-1], pd[1:]):
+        out.append((a, b, o))
+        o += a * b
+    return out
 
 
 def attend_eval_f32(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,

@@ -49,9 +49,10 @@ def test_port_leaves_jax_out_of_sys_modules():
 
 
 def test_no_jax_in_port_sources():
-    paths = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tools", "torch_int8_walk_microbench.py"),
-             os.path.join(ROOT, "tools", "torch_plant_faults.py")] + [
+    tools = os.path.join(ROOT, "tools")
+    paths = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(tools, n) for n in sorted(os.listdir(tools))
+        if n.startswith("torch_") and n.endswith(".py")] + [
         os.path.join(d, n) for d, _, files in
         os.walk(os.path.join(ROOT, "papr_tpu_torch"))
         for n in files if n.endswith(".py")]

@@ -89,9 +89,12 @@ def test_fused_mlp_kernel_matches_plain(dev):
 
 
 @pytest.mark.parametrize("normalize", [True, False])
-def test_attend_eval_kernel_matches_plain(dev, normalize):
+@pytest.mark.parametrize("T,K", [(300, 20), (131, 1), (200, 7), (257, 33)])
+def test_attend_eval_kernel_matches_plain(dev, normalize, T, K):
+    """The bf16 one-shot eval attention (wgmma, 128 rays a block) at ragged
+    ray counts, with an all-dead ray (row 5)."""
     rng = np.random.default_rng(2)
-    P, T, K, dm = 500, 300, 20, 256
+    P, dm = 500, 256
     record = np.zeros((P, 128), np.float32)
     record[:, :3] = rng.normal(size=(P, 3))
     record[:, 3] = rng.normal(size=P)
@@ -99,7 +102,7 @@ def test_attend_eval_kernel_matches_plain(dev, normalize):
     record[:, 5:69] = rng.normal(size=(P, 64))
     idx = rng.integers(0, P, size=(T, K)).astype(np.int32)
     dead = np.where(record[:, 4] == 0)[0]
-    idx[5] = dead[:K] if len(dead) >= K else idx[5]     # an all-dead ray
+    idx[5] = np.resize(dead, K)                         # an all-dead ray
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
     rayo = t(np.broadcast_to(rng.normal(size=(1, 3)) * 3, (T, 3)))
     rays = rng.normal(size=(T, 3))
@@ -113,11 +116,17 @@ def test_attend_eval_kernel_matches_plain(dev, normalize):
     bk = t(rng.normal(size=dm) * 0.1)
     args = (t(record), torch.as_tensor(idx, device=dev), rayo, rays, qq, kw,
             wk, bk, vw, "relu", 5.0, normalize, 1e-6, torch.bfloat16)
+    before = sa.attend_eval_idx.launches
     fg, ag = sa.attend_eval_idx(*args)
     fw, aw = sa.attend_eval_plain(*args)
+    print(f"attend_eval T={T} K={K} normalize={normalize}: fused rel "
+          f"{_rel(fg, fw):.3e}, attn max abs {float((ag - aw).abs().max()):.3e}")
+    assert sa.attend_eval_idx.launches == before + 1
     assert _rel(fg, fw) <= 1e-2
     assert float((ag - aw).abs().max()) <= 5e-3
     assert torch.isfinite(fg).all() and torch.isfinite(ag).all()
+    # The all-dead ray: all attention on the background token.
+    assert float(ag[5, :K].abs().max()) == 0.0 and float(ag[5, K]) == 1.0
 
 
 def test_wrappers_check_inputs(dev):
@@ -851,6 +860,7 @@ F32_REL = 5e-6
 F32_ATTN_ABS = 5e-6
 F32_BWD_REL = 1e-5
 F32_WGRAD_REL = 1e-6           # against the fp64 product
+WGRAD_REL = 1e-5               # bf16 operands, against the fp64 product
 F32_MARGIN = 1e-5
 F32_STEP_GRAD_REL = 1e-2       # the whole step, flips included
 
@@ -980,21 +990,80 @@ def test_value_stream_f32_kernels_match_plain(dev, T, normalize):
     assert float(got[0][:, 5].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("N,da,db", [(5000, 256, 256), (777, 48, 32)])
+# Every (da, db) the walks stash: the flagship's key (posenc 117 -> 128),
+# query (39 -> 48) and value (142 -> 144, out 32) stacks, the score head
+# (256 x 256), Caterpillar's key / query / value encodings (81 -> 96, 27 ->
+# 32, 118 -> 128); a ragged N, and a short one.
+WGRAD_SHAPES = [(5001, 128, 256), (5001, 256, 256), (5001, 144, 256),
+                (5001, 256, 32), (5001, 48, 256), (5001, 96, 256),
+                (5001, 32, 256), (777, 48, 32)]
+
+
+def _wgrad_case(dev, N, da, db, cdt, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(N, da, generator=g, device=dev).to(cdt)
+    dz = torch.randn(N, db, generator=g, device=dev).to(cdt)
+    return h, dz, (h.double().T @ dz.double()).float()
+
+
+@pytest.mark.parametrize("N,da,db", WGRAD_SHAPES)
+def test_wgrad_matches_fp64_product(dev, N, da, db):
+    """The bf16 dW reduction (wgmma on TMA tiles) against the fp64 product
+    of the same bf16 operands: every product is exact in fp32, so only the
+    fp32 summation order separates them; two runs are bit-equal."""
+    from papr_tpu_torch.kernels import build
+    h, dz, want = _wgrad_case(dev, N, da, db, torch.bfloat16, 14)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    run = lambda: fm.wgrad(build.load(), h.data_ptr(), dz.data_ptr(), N, da,
+                           db, dev, stream)
+    before = fm.wgrad.launches
+    got = run()
+    print(f"wgrad N={N} {da}x{db}: rel Frobenius {_rel(got, want):.3e}")
+    assert _rel(got, want) <= WGRAD_REL
+    assert torch.equal(got, run())
+    assert fm.wgrad.launches == before + 2
+
+
+@pytest.mark.parametrize("N,da,db", WGRAD_SHAPES + [(5000, 256, 256)])
 def test_wgrad_f32_matches_fp64_product(dev, N, da, db):
     """The fp32 dW reduction (3xTF32) against the fp64 product of the same
-    fp32 operands: fp32-level error, where one TF32 pass reads ~2e-4."""
+    fp32 operands: fp32-level error, where one TF32 pass reads ~2e-4; two
+    runs are bit-equal."""
     from papr_tpu_torch.kernels import build
-    g = torch.Generator(device=dev).manual_seed(15)
-    h = torch.randn(N, da, generator=g, device=dev)
-    dz = torch.randn(N, db, generator=g, device=dev)
+    h, dz, want = _wgrad_case(dev, N, da, db, torch.float32, 15)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    run = lambda: fm.wgrad_f32(build.load(), h.data_ptr(), dz.data_ptr(), N,
+                               da, db, dev, stream)
     before = fm.wgrad_f32.launches
-    got = fm.wgrad_f32(build.load(), h.data_ptr(), dz.data_ptr(), N, da, db,
-                       dev, torch.cuda.current_stream(dev).cuda_stream)
-    want = (h.double().T @ dz.double()).float()
+    got = run()
     print(f"wgrad_f32 N={N} {da}x{db}: rel Frobenius {_rel(got, want):.3e}")
     assert _rel(got, want) <= F32_WGRAD_REL
-    assert fm.wgrad_f32.launches == before + 1
+    assert torch.equal(got, run())
+    assert fm.wgrad_f32.launches == before + 2
+
+
+def test_wgmma_kernels_run_on_hgmma(dev):
+    """The built library's SASS: the bf16 one-shot eval attention and both
+    dW reductions issue Hopper's warpgroup MMAs (HGMMA)."""
+    import os
+    import shutil
+    import subprocess
+    from papr_tpu_torch.kernels import build
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    assert tool, "cuobjdump not found (set CUDA_HOME)"
+    sass = subprocess.run([tool, "-sass", build.build()], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = body
+    for kernel in ("attend_eval_wgmma_kernel", "wgrad_bf16_kernel",
+                   "wgrad_f32_kernel"):
+        bodies = [b for n, b in funcs.items() if kernel in n]
+        assert bodies, f"{kernel} not in the library"
+        assert all("HGMMA" in b for b in bodies), f"{kernel}: no HGMMA"
 
 
 def _fp32_model(dev, **tpu):

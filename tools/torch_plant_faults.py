@@ -13,7 +13,9 @@ kernels are rebuilt, and the phase-2 comparison that holds the kernel
 (``chip_smoke.compare_cli_kernels``; for the cases named "stream",
 ``chip_smoke.compare_train_kernels``; for those named "int8",
 ``chip_smoke.compare_int8_kernels``; the flagship patch; for those named
-"fp32", ``chip_smoke.compare_f32_kernels`` on Caterpillar's model and patch)
+"fp32", ``chip_smoke.compare_f32_kernels`` on Caterpillar's model and patch;
+for those named "wgmma", ``chip_smoke.compare_wgmma_kernels``: K3 on the
+eval block, ``wgrad`` / ``wgrad_f32`` at phase 2's / phase 8's shapes)
 and the small-shape ``cuda`` tests of those kernels run on the copy.
 The readings are how the comparisons' bounds were set between the sound
 kernels and the weakest fault caught (PERF.md, Findings). The repository's
@@ -34,19 +36,76 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # "stream shared" or "linear_bf16" stream_common.cuh, "int8 walk" walk.cuh,
 # "int8 bench" int8_walk_bench.cu, "int8 value" value_stream.cu, "int8
 # attend" attend_eval.cu, "fp32 walk" walk.cuh, "fp32 stash" walk_bwd.cuh,
-# the others fused_attn.cu.
+# "wgmma wgrad" wgrad.cu, "wgmma walk" walk_wgmma.cuh, "wgmma attend"
+# attend_eval.cu, the others fused_attn.cu.
 MUTS = [
     ("sound", None, None),
     ("sound stream", None, None),
     ("int8 sound", None, None),
     ("fp32 sound", None, None),
-    ("fp32 walk: single-pass TF32 (the lo terms dropped; wgrad.cu too)",
+    ("wgmma sound", None, None),
+    ("wgmma wgrad: one split's partial dropped from the sum",
+     "  for (int r = 0; r < rows; ++r) s += part[(size_t)r * cols + c];",
+     "  for (int r = 0; r < rows - (rows > 1); ++r) s += part[(size_t)r * cols "
+     "+ c];"),
+    ("wgmma wgrad: the second token range off by one tile",
+     "        const int n = n0 + s * kKB16;",
+     "        const int n = n0 + s * kKB16 + (blockIdx.y == 1 ? kKB16 : 0);"),
+    ("wgmma wgrad fp32: the tensor cores' own accumulator (no fresh "
+     "accumulator per stage, no round-to-nearest adds)",
+     "        wgmma_ss_tf32<BN>(acc, dal, dbh, j > 0);\n"
+     "        wgmma_ss_tf32<BN>(acc, dah, dbl, 1);\n"
+     "        wgmma_ss_tf32<BN>(acc, dah, dbh, 1);\n"
+     "      }\n"
+     "      wgmma_commit();\n"
+     "      wgmma_wait<0>();\n"
+     "      reg_fence(acc);\n"
+     "#pragma unroll\n"
+     "      for (int i = 0; i < BN / 2; ++i) sum[i] = __fadd_rn(sum[i], "
+     "acc[i]);",
+     "        wgmma_ss_tf32<BN>(acc, dal, dbh, 1);\n"
+     "        wgmma_ss_tf32<BN>(acc, dah, dbl, 1);\n"
+     "        wgmma_ss_tf32<BN>(acc, dah, dbh, 1);\n"
+     "      }\n"
+     "      wgmma_commit();\n"
+     "      wgmma_wait<0>();\n"
+     "      reg_fence(acc);\n"
+     "#pragma unroll\n"
+     "      for (int i = 0; i < BN / 2; ++i) sum[i] = acc[i];"),
+    ("wgmma wgrad fp32: single-pass TF32 (the lo terms dropped)",
+     "        wgmma_ss_tf32<BN>(acc, dal, dbh, j > 0);\n"
+     "        wgmma_ss_tf32<BN>(acc, dah, dbl, 1);\n"
+     "        wgmma_ss_tf32<BN>(acc, dah, dbh, 1);\n",
+     "        wgmma_ss_tf32<BN>(acc, dah, dbh, j > 0);\n"),
+    ("wgmma walk: the second weight chunk read from the first one's stage "
+     "(a stale stage)",
+     "        real ? ring.base + st * kWStageBytes : zero, 16, 1024);",
+     "        real ? ring.base + (ring.i == 1 ? 0 : st) * kWStageBytes : zero, "
+     "16, 1024);"),
+    ("wgmma walk: LayerNorm with the biased variance (the output "
+     "LayerNorm)",
+     "    const float var = quad_sum(v) / (float)(n_true > 1 ? n_true - 1 : "
+     "1);",
+     "    const float var = quad_sum(v) / (float)n_true;"),
+    ("wgmma walk: activations rounded to bf16 before the bias (a rounding "
+     "point)",
+     "      float v0 = acc[4 * j + 2 * h] + b.x;",
+     "      float v0 = bf16_round(acc[4 * j + 2 * h]) + b.x;"),
+    ("wgmma attend: one k step's value row left out of the fuse",
+     "                arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);",
+     "                arow[c1] = arow[c1] * scale + (k == 1 ? 0.f : e) * "
+     "bf16_round(acc[i]);"),
+    ("wgmma attend: value rows not rounded to bf16 before the fuse (a "
+     "rounding point)",
+     "                arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);",
+     "                arow[c1] = arow[c1] * scale + e * acc[i];"),
+    ("fp32 walk: single-pass TF32 (the lo terms dropped)",
      "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
      "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
-    ("fp32 walk: only one of the two cross terms (wgrad.cu too)",
+    ("fp32 walk: only one of the two cross terms",
      "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
     ("fp32 walk: every product accumulated in the tensor cores' own "
-     "accumulator (no round-to-nearest add per step; wgrad.cu too)",
+     "accumulator (no round-to-nearest add per step)",
      "  Acc t;\n"
      "  nvcuda::wmma::fill_fragment(t, 0.f);\n"
      "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
@@ -209,6 +268,10 @@ if sys.argv[1] == "compare_f32_kernels":
     params, state = cs.build_model(cfg, dev)
     _, rayo, rayd, _ = cs.sphere_view(cfg, dev)
     cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180, n_time=1)
+elif sys.argv[1] == "compare_wgmma_kernels":
+    cfg = cs.flagship_cfg()
+    params, state = cs.build_model(cfg, dev)
+    cs.compare_wgmma_kernels(params, state, cfg, dev)
 else:
     cfg = cs.flagship_cfg()
     params, state = cs.build_model(cfg, dev)
@@ -229,12 +292,16 @@ TARGETS = {
          "phase 2 value_stream_i8", "phase 2 int8_walk_bench"),
         "i8 or int8"),
     "compare_f32_kernels": (("phase 8",), "f32 or fp32"),
+    "compare_wgmma_kernels": (("phase 2 K3", "phase 2 wgrad",
+                               "phase 8 wgrad_f32"),
+                              "attend_eval_kernel or wgrad or hgmma"),
 }
 
 
 def target_of(name: str) -> str:
     head = name.split(":")[0]
-    return ("compare_f32_kernels" if "fp32" in head
+    return ("compare_wgmma_kernels" if "wgmma" in head
+            else "compare_f32_kernels" if "fp32" in head
             else "compare_int8_kernels" if "int8" in head
             else "compare_train_kernels" if "stream" in head
             else "compare_cli_kernels")
@@ -262,7 +329,10 @@ def run_case(name, old, new) -> None:
     target = target_of(name)
     shown, tests = TARGETS[target]
     if old is not None:
-        src = next((f for word, f in (("topk", "topk_stream.cu"),
+        src = next((f for word, f in (("wgmma wgrad", "wgrad.cu"),
+                                      ("wgmma walk", "walk_wgmma.cuh"),
+                                      ("wgmma attend", "attend_eval.cu"),
+                                      ("topk", "topk_stream.cu"),
                                       ("embedder bwd", "fused_mlp_bwd.cu"),
                                       ("encoding", "walk.cuh"),
                                       ("stream feat key", "key_stream_feat.cu"),
@@ -305,7 +375,9 @@ def run_case(name, old, new) -> None:
                                                     "key_stream_i8",
                                                     "value_stream_i8",
                                                     "int8_walk_bench"))) \
-                or (target == "compare_f32_kernels" and "f32" in line):
+                or (target == "compare_f32_kernels" and "f32" in line) \
+                or (target == "compare_wgmma_kernels"
+                    and line.startswith(("attend_eval T", "wgrad"))):
             print("  cuda tests: " + line[:400], flush=True)
     print(f"  cuda tests: exit code {t.returncode}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
