@@ -22,7 +22,9 @@ Phases (each prints a line; any failure exits non-zero):
    record-native streams, the key stream with the query chain folded in
    (``tpu.query_fold``) and the streams on raw feature tensors
    (``tpu.fused_attn: stream``, dx per column group). Print errors and
-   times.
+   times; the bf16 record-native stream backwards (on wgmma) also hold the
+   median ray's error and print the kernel alone beside the whole call,
+   the bound and the earlier WMMA kernel's times.
 3. Render 1 + 3 orbit frames at 800x800 through ``render_frames`` (one
    full-frame tile) and one frame through ``render_full_image`` with the
    config's 100x100 test tiles; check the frames, that every kernel of the
@@ -150,6 +152,16 @@ FWD_REL = 5e-3         # sound <= 2.1e-3 (raw); a score scale off by 1 %: 1.0e-2
 SS_REL = 3e-2          # masked scores keep ~6 % of the dots: ~5x raw's error
 RELU_MIN_AGREE = 0.99  # share of alive scores whose relu the forwards agree on
 BWD_REL = 4e-2
+# The bf16 stream backwards on wgmma (rows 5, 6) also hold the MEDIAN of the
+# per-ray relative error of d_rec and of the per-row error of the walk
+# gradients (a row of a matrix, an entry of a vector), per kernel: a
+# rounding-point fault moves every ray a little, which a Frobenius norm
+# dominated by a few relu flips does not show. Sound (d_rec, walk): key
+# 4.9e-3 / 1.58e-2, value 1.91e-2 / 1.04e-2; dz truncated to bf16 instead of
+# rounded: key 1.49e-2 / 1.71e-2, value 2.99e-2 / 1.74e-2, under BWD_REL
+# (PERF.md, Findings: the planted-fault readings).
+BWD_MEDIAN_REL = {"key_stream_bwd": (1e-2, 2.5e-2),
+                  "value_stream_bwd": (2.5e-2, 1.4e-2)}
 # The streams of ``fused_attn: stream`` and ``query_fold``. The folded key
 # stream holds FWD_REL / BWD_REL as the record-native one (sound: raw 2.1e-3,
 # qq 2.9e-4, gradients <= 3.12e-2; the query backward fed 1.05 dqq reads
@@ -201,6 +213,11 @@ K3_WMMA_MS = 11.915
 K3_WMMA_FRAME_MS = 212.6
 WGRAD_WMMA_MS = 0.934
 WGRAD_F32_WMMA_MS = 4.819
+# The bf16 key / value stream backwards' WMMA kernels (PRs 2-8) on phase
+# 2's patch: the whole call (PR 8's run) and the kernel alone (its profiler
+# span, tools/torch_stream_bwd_ablate.py on the parent tree in PR 9).
+STREAM_BWD_WMMA_MS = {"key_stream_bwd": (24.596, 18.738),
+                      "value_stream_bwd": (23.592, 16.277)}
 # Two-kernel eval frame against the one-shot kernel's frame.
 EVAL_TWO_MIN_CLOSE = 0.999
 # Tiled frames under ``stream`` and ``streamrec`` + ``query_fold`` against
@@ -894,6 +911,31 @@ def rec_lanes(grads) -> list:
 REC_LABELS = ["d_rec[0:3]", "d_rec[3]", "d_rec[4:]"]
 
 
+def median_rels(got, want, n_walk: int) -> tuple:
+    """Of a stream backward's ``rec_lanes`` outputs: (the median over rays of
+    d_rec's relative error, each ray's K x lanes entries together; the
+    median over the rows of the last ``n_walk`` outputs, the walk
+    gradients). Rays and rows whose plain value is 0 are left out."""
+    import torch
+
+    def med(d, n):
+        keep = n > 0
+        return float((d[keep] / n[keep]).median())
+
+    def per_ray(lanes):
+        x = torch.cat([t.reshape(t.shape[0], t.shape[1], -1) for t in lanes],
+                      -1)
+        return x.transpose(0, 1).reshape(x.shape[1], -1)
+
+    g, w = per_ray(got[:3]), per_ray(want[:3])
+    rec = med((g - w).norm(dim=-1), w.norm(dim=-1))
+    rows = lambda t: t.reshape(t.shape[0], -1) if t.dim() > 1 else t[:, None]
+    d = torch.cat([(rows(a) - rows(b)).norm(dim=-1)
+                   for a, b in zip(got[-n_walk:], want[-n_walk:])])
+    n = torch.cat([rows(b).norm(dim=-1) for b in want[-n_walk:]])
+    return rec, med(d, n)
+
+
 def stream_patch_inputs(params, state, cfg, rayo, rayd):
     """The record-native streams' inputs on a training patch, as the model's
     own head builds them: the selection (T, K), the (P, 128) record, its
@@ -974,11 +1016,15 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     randn = lambda *shape: torch.randn(*shape, generator=gen, device=device)
 
     def record_case(name, source, replaces, fn, plain, tol, labels, in_bytes,
-                    flops, fwd_tol=None):
+                    flops, fwd_tol=None, n_walk=0, span=None):
         """Kernel against its plain version (the same bf16 compute): every
         output's relative Frobenius error held to ``tol``. ``in_bytes`` and
         ``flops`` (bf16 tensor-core work) give the bound; the outputs' bytes
-        are added here."""
+        are added here. With ``n_walk`` (the stream backwards on wgmma), the
+        medians of ``median_rels`` are held to BWD_MEDIAN_REL[name]; with
+        ``span`` (a kernel name pattern) the kernel alone is timed too (its
+        profiler span), and the bound and the WMMA kernel's times printed
+        beside."""
         g = fn()
         w = plain()
         torch.cuda.synchronize()
@@ -987,11 +1033,30 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         ms = cuda_ms(fn, n_time)
         p_ms = cuda_ms(plain, 1)
         worst = max(rels)
-        print(f"phase 2 {name}: T={T} K={k}: rel Frobenius "
-              + ", ".join(f"{l} {r:.2e}" for l, r in zip(labels, rels))
-              + f" (max {worst:.3e}, need <= {tol}); finite {finite}; "
-              f"kernel {ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
-        if not (finite and worst <= tol and len(rels) == len(labels)):
+        ok = finite and worst <= tol and len(rels) == len(labels)
+        line = (f"phase 2 {name}: T={T} K={k}: rel Frobenius "
+                + ", ".join(f"{l} {r:.2e}" for l, r in zip(labels, rels))
+                + f" (max {worst:.3e}, need <= {tol}); finite {finite}")
+        if n_walk:
+            m_rec, m_walk = median_rels(g, w, n_walk)
+            t_rec, t_walk = BWD_MEDIAN_REL[name]
+            line += (f"; median ray d_rec rel {m_rec:.3e} (need <= {t_rec}), "
+                     f"median row of the walk gradients {m_walk:.3e} (need "
+                     f"<= {t_walk})")
+            ok &= m_rec <= t_rec and m_walk <= t_walk
+        work = bound(in_bytes + nbytes(*g), flops, BF16_FLOPS)
+        line += f"; kernel {ms:.3f} ms, plain {p_ms:.3f} ms"
+        alone = None
+        if span is not None:
+            alone = kernel_span_ms(fn, span)
+            old_call, old_alone = STREAM_BWD_WMMA_MS[name]
+            line += (f"; kernel alone {alone:.3f} ms (the rest of the call "
+                     f"{ms - alone:.3f} ms: packs, wgrad, colsum, host), bound "
+                     f"{work['bound_ms']:.4f} ms ({work['bound_by']}); WMMA "
+                     f"kernel (PRs 2-8): call {old_call} ms, alone {old_alone} "
+                     "ms")
+        print(line, flush=True)
+        if not ok:
             failed.append(name)
         if fwd_tol is not None:
             a_abs = float((g[0] - w[0]).abs().max())
@@ -1001,8 +1066,9 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
                 failed.append(name + " attn")
         out[name] = {"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "max_abs_err": _max_abs(g, w),
-                     "max_rel_err": worst, "ms": ms, "plain_ms": p_ms,
-                     **bound(in_bytes + nbytes(*g), flops, BF16_FLOPS)}
+                     "max_rel_err": worst, "ms": ms, "plain_ms": p_ms, **work}
+        if alone is not None:
+            out[name]["kernel_alone_ms"] = alone
         return g
 
     dy = randn(T, int(qwalk.ws[-1].shape[1]))
@@ -1053,7 +1119,8 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "dqq", "dW_k", "db_k"]
         + walk_labels(kwalk),
         nbytes(rec, rayo_f, rays, qq, raw, ss, dattn) + walk_bytes(kwalk),
-        3 * T * k * walk_flops(kwalk, wk))
+        3 * T * k * walk_flops(kwalk, wk), n_walk=len(walk_labels(kwalk)),
+        span="key_bwd_")
     vargs = (rec, rayo_f, rays, attn, vwalk)
     vopts = (normalize, eps, cdt)
     record_case(
@@ -1072,7 +1139,8 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "d_attn"]
         + walk_labels(vwalk),
         nbytes(rec, rayo_f, rays, attn, dfused) + walk_bytes(vwalk),
-        3 * T * k * walk_flops(vwalk))
+        3 * T * k * walk_flops(vwalk), n_walk=len(walk_labels(vwalk)),
+        span="value_bwd_")
     torch.cuda.empty_cache()
 
     # The key stream with the query chain folded in (tpu.query_fold): the
@@ -2509,9 +2577,9 @@ TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("key stream fwd", "key_fwd_kernel"),
                 ("key stream fwd (int8)", "key_i8_fwd_kernel"),
                 ("value stream fwd (int8)", "value_i8_fwd_kernel"),
-                ("key stream bwd", "key_bwd_kernel"),
+                ("key stream bwd", "key_bwd_"),
                 ("value stream fwd", "value_fwd_kernel"),
-                ("value stream bwd", "value_bwd_kernel"),
+                ("value stream bwd", "value_bwd_"),
                 ("key stream fwd (query folded)", "keyq_fwd_kernel"),
                 ("key stream bwd (query folded)", "keyq_bwd_kernel"),
                 ("key stream fwd (features)", "keyf_fwd_kernel"),

@@ -17,7 +17,9 @@
 //
 // What bounds it on the H100: the walks, ~1.4 MFLOP of bf16 tensor-core
 // work per (ray, k) token forward and ~3x that backward (recompute, dX,
-// and dW in wgrad.cu); compute bound. What the design does about it: as in
+// and dW in wgrad.cu); compute bound. The bf16 backward
+// (key_bwd_wgmma_kernel) runs on wgmma + TMA, 128 rays a block
+// (walk_wgmma_bwd.cuh). The other kernels: as in
 // attend_eval.cu, one block of 512 threads per 64-ray tile loops over k
 // inside the block (the TPU grid's sequential k axis, which carried the
 // scores and the dqq / d_rayo / d_rays sums in resident output blocks; here
@@ -42,6 +44,7 @@
 // backward is key_stream_f32_bwd on the raw dots and scores it saved.
 
 #include "key_stream.cuh"
+#include "walk_wgmma_bwd.cuh"
 
 using namespace papr;
 
@@ -240,7 +243,7 @@ static int launch_key_bwd(
   return (int)cudaGetLastError();
 }
 
-#define KEY_BWD_PARAMS                                                       \
+#define KEY_BWD_PARAMS_NS                                                    \
     const float* rec, int rec_w, int T, int K, const float* rayo,            \
     const float* rays, const float* qq, int dm, float sqrt_dm,               \
     const float* raw, const float* ss, const float* dattn, const int* kmeta, \
@@ -249,15 +252,70 @@ static int launch_key_bwd(
     int dm_pad, int score_relu, float bkg, float eps, void* stash,           \
     const long long* stash_off, const int* seg, int nsrc, float* drec,       \
     float* drayo, float* drays, float* dqq, float* part, int part_w,         \
-    float* scratch, void* stream
+    float* scratch
+#define KEY_BWD_PARAMS KEY_BWD_PARAMS_NS, void* stream
 #define KEY_BWD_ARGS                                                         \
     rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, raw, ss, dattn, kmeta,    \
     kw, kb, kln, kplan, kwt, wkf, wkb, bk, dm_pad, score_relu, bkg, eps,     \
     stash, stash_off, seg, nsrc, drec, drayo, drays, dqq, part, part_w,      \
     scratch, stream
 
-extern "C" int papr_key_stream_bwd(KEY_BWD_PARAMS) {
-  return launch_key_bwd<__nv_bfloat16>(KEY_BWD_ARGS);
+__global__ void __launch_bounds__(kWgThreads, 1)
+key_bwd_wgmma_kernel(const __grid_constant__ StreamBwdWg p) {
+  stream_bwd_wg<true>(p);
+}
+
+// The bf16 backward on wgmma: the fp32 kernel's arguments (its kwt / wkf /
+// wkb weights unread: the packed image replaces them; part has 8 rows a
+// block of 128 rays, scratch StreamBwdWg::scr_wg floats a warpgroup), then
+// the packed weights (forward layers, w_k, w_k^T, W_l^T for l = n-1 .. 0;
+// ops/stream_attn.py key_stream_bwd) and their size in bytes.
+extern "C" int papr_key_stream_bwd(KEY_BWD_PARAMS_NS, const void* wpack,
+                                   long long wbytes, void* stream) {
+  (void)kwt;
+  (void)wkf;
+  (void)wkb;
+  StreamBwdWg p{};
+  size_t smem = 0;
+  int err = check_score_head(dm, dm_pad, K);
+  if (err) return err;
+  err = fill_stream_bwd_wg(&p, kmeta, kw, kb, kln, kplan, dm_pad, wpack,
+                           wbytes, stash, stash_off, part, part_w, scratch,
+                           K, &smem);
+  if (err) return err;
+  p.dbk_off = p.bias_len + 2 * p.d.pd[0] + 2 * p.d.pd[p.d.n];
+  if (nsrc > 32 * kSrcPerLane) return -208;
+  if (T <= 0) return 0;
+  p.rec = rec;
+  p.rec_w = rec_w;
+  p.T = T;
+  p.Tp = (T + kWgTile - 1) / kWgTile * kWgTile;
+  p.rayo = rayo;
+  p.rays = rays;
+  p.eps = eps;
+  p.seg = seg;
+  p.nsrc = nsrc;
+  p.drec = drec;
+  p.drayo = drayo;
+  p.drays = drays;
+  p.qq = qq;
+  p.dm = dm;
+  p.sqrt_dm = sqrt_dm;
+  p.raw = raw;
+  p.ss = ss;
+  p.dattn = dattn;
+  p.bk = static_cast<const float*>(bk);
+  p.dm_pad = dm_pad;
+  p.score_relu = score_relu;
+  p.bkg = bkg;
+  p.dqq = dqq;
+  cudaError_t e = cudaFuncSetAttribute(
+      key_bwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  key_bwd_wgmma_kernel<<<p.Tp / kWgTile, kWgThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int papr_key_stream_f32_bwd(KEY_BWD_PARAMS) {

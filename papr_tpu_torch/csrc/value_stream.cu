@@ -16,10 +16,11 @@
 // the walk, as in the TPU kernel.
 //
 // What bounds it on the H100: the walk, ~1.2 MFLOP of bf16 tensor-core work
-// per token forward and ~3x that backward; compute bound. The design is
-// key_stream.cu's: one block of 512 threads per 64-ray tile, k inside the
-// block, every activation in shared memory, dW through the stash and
-// wgrad.cu.
+// per token forward and ~3x that backward; compute bound. The bf16
+// backward (value_bwd_wgmma_kernel) runs on wgmma + TMA, 128 rays a block
+// (walk_wgmma_bwd.cuh); the other kernels keep key_stream.cu's design: one
+// block of 512 threads per 64-ray tile, k inside the block, every
+// activation in shared memory. dW goes through the stash and wgrad.cu.
 //
 // value_stream_i8_fwd is the forward with int8=True (tpu.int8_train,
 // stream_attn.py:1742-1746): the walk's dense stack runs walk.cuh's int8
@@ -36,6 +37,7 @@
 
 #include "rec_stream.cuh"
 #include "stream_common.cuh"
+#include "walk_wgmma_bwd.cuh"
 
 using namespace papr;
 
@@ -300,21 +302,65 @@ static int launch_value_bwd(
   return (int)cudaGetLastError();
 }
 
-#define VALUE_BWD_PARAMS                                                     \
+#define VALUE_BWD_PARAMS_NS                                                  \
     const float* rec, int rec_w, int T, int K, const float* rayo,            \
     const float* rays, const float* attn, const float* dfused,               \
     const int* vmeta, const void* vw, const void* vb, const void* vln,       \
     const void* vplan, const void* vwt, int normalize, float eps,            \
     void* stash, const long long* stash_off, const int* seg, int nsrc,       \
     float* drec, float* drayo, float* drays, float* dattn, float* part,      \
-    int part_w, float* scratch, void* stream
+    int part_w, float* scratch
+#define VALUE_BWD_PARAMS VALUE_BWD_PARAMS_NS, void* stream
 #define VALUE_BWD_ARGS                                                       \
     rec, rec_w, T, K, rayo, rays, attn, dfused, vmeta, vw, vb, vln, vplan,   \
     vwt, normalize, eps, stash, stash_off, seg, nsrc, drec, drayo, drays,    \
     dattn, part, part_w, scratch, stream
 
-extern "C" int papr_value_stream_bwd(VALUE_BWD_PARAMS) {
-  return launch_value_bwd<__nv_bfloat16>(VALUE_BWD_ARGS);
+__global__ void __launch_bounds__(kWgThreads, 1)
+value_bwd_wgmma_kernel(const __grid_constant__ StreamBwdWg p) {
+  stream_bwd_wg<false>(p);
+}
+
+// The bf16 backward on wgmma: the fp32 kernel's arguments (its vwt unread:
+// the packed image replaces it; part has 8 rows a block of 128 rays,
+// scratch StreamBwdWg::scr_wg floats a warpgroup), then the packed weights
+// (forward layers, then W_l^T for l = n-1 .. 0; ops/stream_attn.py
+// value_stream_bwd) and their size in bytes.
+extern "C" int papr_value_stream_bwd(VALUE_BWD_PARAMS_NS, const void* wpack,
+                                     long long wbytes, void* stream) {
+  (void)vwt;
+  StreamBwdWg p{};
+  size_t smem = 0;
+  if (K <= 0 || K > 64) return -202;
+  int err = fill_stream_bwd_wg(&p, vmeta, vw, vb, vln, vplan, 0, wpack,
+                               wbytes, stash, stash_off, part, part_w,
+                               scratch, K, &smem);
+  if (err) return err;
+  if (nsrc > 32 * kSrcPerLane) return -208;
+  if (T <= 0) return 0;
+  p.rec = rec;
+  p.rec_w = rec_w;
+  p.T = T;
+  p.Tp = (T + kWgTile - 1) / kWgTile * kWgTile;
+  p.rayo = rayo;
+  p.rays = rays;
+  p.eps = eps;
+  p.seg = seg;
+  p.nsrc = nsrc;
+  p.drec = drec;
+  p.drayo = drayo;
+  p.drays = drays;
+  p.attn = attn;
+  p.dfused = dfused;
+  p.normalize = normalize;
+  p.dattn_out = dattn;
+  cudaError_t e = cudaFuncSetAttribute(
+      value_bwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  value_bwd_wgmma_kernel<<<p.Tp / kWgTile, kWgThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int papr_value_stream_f32_bwd(VALUE_BWD_PARAMS) {

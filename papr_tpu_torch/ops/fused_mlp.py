@@ -374,10 +374,13 @@ class BwdBuffers:
     and per layer output gradient, plus a caller's head layer; fp32 for the
     fp32 walk, twice the bytes), the per-block partial-sum rows (biases,
     LayerNorms, then ``extra`` columns) and the per-block fp32 scratch.
-    ``reduce`` runs the wgrad / colsum kernels afterwards."""
+    ``reduce`` runs the wgrad / colsum kernels afterwards. ``nblk`` is the
+    number of partial rows; ``scratch`` the scratch floats, by default the
+    WMMA walk's (nblk, 64 * (pd[0] + pd[-1]))."""
 
     def __init__(self, pd, N: int, nblk: int, device, head=None,
-                 extra: int = 0, cdt: torch.dtype = torch.bfloat16):
+                 extra: int = 0, cdt: torch.dtype = torch.bfloat16,
+                 scratch: int | None = None):
         self.pd, self.N, self.nblk, self.dev = list(pd), N, nblk, device
         self.cdt = cdt
         n = len(pd) - 1
@@ -395,8 +398,10 @@ class BwdBuffers:
         self.part_w = self.extra_off + extra
         self.part = torch.zeros(nblk, self.part_w, dtype=torch.float32,
                                 device=device)
-        self.scratch = torch.empty(nblk * 64 * (self.pd[0] + self.pd[-1]),
-                                   dtype=torch.float32, device=device)
+        if scratch is None:
+            scratch = nblk * 64 * (self.pd[0] + self.pd[-1])
+        self.scratch = torch.empty(scratch, dtype=torch.float32,
+                                   device=device)
 
     def reduce(self, lib, stream):
         """-> (dW per stashed layer as (hs width, dz width) fp32, the

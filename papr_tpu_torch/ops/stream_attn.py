@@ -591,6 +591,47 @@ def _wk_packs(wk, bk, pdn, dev, cdt=torch.bfloat16):
     return wkf, wkb, bkp, dm_pad
 
 
+_WG_TILE = 128          # rays a block of the bf16 backwards on wgmma
+_WG_PART_ROWS = 8       # their partial-sum rows a block: one a warp
+
+
+def _check_pe_pairs(walk: Walk, what: str) -> None:
+    """The bf16 backwards take a posenc column's derivative from its
+    partner in the saved encoding (sin then cos of one source and frequency,
+    adjacent, as ``posenc_plan`` / ``rec_pe_plan`` lay them out)."""
+    cols = [(int(a), float(f), int(k)) for a, f, k in walk.cols]
+    for c, (src, f, kind) in enumerate(cols):
+        mate = c + 1 if kind == 1 else c - 1
+        if kind and not (0 <= mate < len(cols)
+                         and cols[mate] == (src, f, 3 - kind)):
+            raise NotImplementedError(
+                f"{what}: posenc column {c} has no sin / cos partner beside "
+                "it")
+
+
+def bwd_wgmma_pack(w, wt, pd, dev, head=()) -> torch.Tensor:
+    """The bf16 backwards' weight image (``csrc/walk_wgmma_bwd.cuh``) in the
+    order a k step streams it: the forward layers (``pack_walk``'s ``w``),
+    the head's pair (key: w_k, w_k^T), then W_l^T for l = n-1 .. 0
+    (``pack_walk_t``'s ``wt``), through ``pack_walk_wgmma``."""
+    offs = _layer_offsets(pd)
+    mats = ([w[o:o + a * b].view(a, b) for a, b, o in offs] + list(head)
+            + [wt[o:o + a * b].view(b, a) for a, b, o in reversed(offs)])
+    return pack_walk_wgmma(mats, dev)
+
+
+def bwd_wgmma_buffers(walk: Walk, pd, K: int, T: int, dev, head=None,
+                      extra: int = 0) -> BwdBuffers:
+    """``BwdBuffers`` of a bf16 backward on wgmma: stash rows k * Tp + t (T
+    padded to the 128-ray block), one partial row a warp (8 a block), and a
+    scratch slice a warpgroup: its 64 rows of the fp32 encoding and, with an
+    output LayerNorm, its fp32 input (128 x 128 floats)."""
+    nblk = -(-T // _WG_TILE)
+    per_wg = 64 * pd[0] + (128 * 128 if walk.ln_out is not None else 0)
+    return BwdBuffers(pd, K * nblk * _WG_TILE, _WG_PART_ROWS * nblk, dev,
+                      head=head, extra=extra, scratch=2 * nblk * per_wg)
+
+
 def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
                    score_act="relu", bkg_score=5.0, eps=1e-6,
                    cdt=torch.float32, int8=False):
@@ -714,16 +755,24 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
     wkf, wkb, bkp, dm_pad = _wk_packs(wk, bk, kpd[-1], dev, cdt)
     nsrc = _nsrc(kwalk)
     seg = source_segments(kwalk.cols, nsrc, dev)
-    nblk = -(-T // 64)
-    buf = BwdBuffers(kpd, K * nblk * 64, nblk, dev, head=(kpd[-1], dm_pad),
-                     extra=dm_pad, cdt=cdt)
+    f32 = cdt == torch.float32
+    if f32:
+        nblk = -(-T // 64)
+        buf = BwdBuffers(kpd, K * nblk * 64, nblk, dev,
+                         head=(kpd[-1], dm_pad), extra=dm_pad, cdt=cdt)
+        tail = ()
+    else:
+        _check_pe_pairs(kwalk, "key stream backward")
+        buf = bwd_wgmma_buffers(kwalk, kpd, K, T, dev, head=(kpd[-1], dm_pad),
+                                extra=dm_pad)
+        wpack = bwd_wgmma_pack(kw, kwt, kpd, dev, (wkf, wkb))
+        tail = (wpack.data_ptr(), 2 * wpack.numel())
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     dqq = torch.zeros(T, dm, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    f32 = cdt == torch.float32
     name = "papr_key_stream_f32_bwd" if f32 else "papr_key_stream_bwd"
     rc = getattr(lib, name)(
         rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
@@ -736,7 +785,7 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
         buf.stash.data_ptr(), ctypes.cast(buf.off_arg, ctypes.c_void_p),
         seg.data_ptr(), nsrc, drec.data_ptr(), drayo.data_ptr(),
         drays.data_ptr(), dqq.data_ptr(), buf.part.data_ptr(), buf.part_w,
-        buf.scratch.data_ptr(), stream)
+        buf.scratch.data_ptr(), *tail, stream)
     build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
     if f32:
@@ -950,15 +999,26 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
     vwt = pack_walk_t(vwalk, vpd, dev, cdt)
     nsrc = _nsrc(vwalk)
     seg = source_segments(vwalk.cols, nsrc, dev)
-    nblk = -(-T // 64)
-    buf = BwdBuffers(vpd, K * nblk * 64, nblk, dev, cdt=cdt)
+    f32 = cdt == torch.float32
+    if f32:
+        nblk = -(-T // 64)
+        buf = BwdBuffers(vpd, K * nblk * 64, nblk, dev, cdt=cdt)
+        tail = ()
+    else:
+        _check_pe_pairs(vwalk, "value stream backward")
+        if vpd[-1] > 128:
+            raise NotImplementedError(
+                f"value stream backward: bf16 value rows of {vpd[-1]} > 128 "
+                "(one wgmma pass)")
+        buf = bwd_wgmma_buffers(vwalk, vpd, K, T, dev)
+        wpack = bwd_wgmma_pack(vw, vwt, vpd, dev)
+        tail = (wpack.data_ptr(), 2 * wpack.numel())
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     dattn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    f32 = cdt == torch.float32
     name = "papr_value_stream_f32_bwd" if f32 else "papr_value_stream_bwd"
     rc = getattr(lib, name)(
         rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
@@ -969,7 +1029,7 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
         ctypes.cast(buf.off_arg, ctypes.c_void_p), seg.data_ptr(), nsrc,
         drec.data_ptr(), drayo.data_ptr(), drays.data_ptr(),
         dattn.data_ptr(), buf.part.data_ptr(), buf.part_w,
-        buf.scratch.data_ptr(), stream)
+        buf.scratch.data_ptr(), *tail, stream)
     build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
     if f32:

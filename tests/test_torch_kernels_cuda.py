@@ -313,6 +313,95 @@ def test_value_stream_kernels_match_plain(dev, T, normalize):
     assert float(got[0][:, 5].abs().max()) == 0.0
 
 
+# The bf16 stream backwards on wgmma also hold the median of the per-ray
+# relative error of d_rec and of the per-row error of the walk gradients: a
+# rounding-point fault moves every ray a little. Sound <= 8.2e-3 (value walk
+# rows, T=200 K=7); dz truncated to bf16 instead of rounded reads d_rec
+# 1.44e-2 (key) / 2.32e-2 (value) and above (PERF.md, Findings).
+BWD_MEDIAN_REL = 1e-2
+
+
+def _median_rels(got, want, n_walk):
+    """(median over rays of d_rec's relative error, each ray's K x lanes
+    entries together; median over the rows of the last n_walk outputs, the
+    walk gradients: a row of a matrix, an entry of a vector), on
+    ``_rec_lanes`` outputs; zero rays and rows left out."""
+    def med(d, n):
+        return float((d[n > 0] / n[n > 0]).median())
+
+    def per_ray(lanes):
+        x = torch.cat([t.reshape(t.shape[0], t.shape[1], -1) for t in lanes],
+                      -1)
+        return x.transpose(0, 1).reshape(x.shape[1], -1)
+
+    g, w = per_ray(got[:3]), per_ray(want[:3])
+    rows = lambda t: t.reshape(t.shape[0], -1) if t.dim() > 1 else t[:, None]
+    d = torch.cat([(rows(a) - rows(b)).norm(dim=-1)
+                   for a, b in zip(got[-n_walk:], want[-n_walk:])])
+    n = torch.cat([rows(b).norm(dim=-1) for b in want[-n_walk:]])
+    return med((g - w).norm(dim=-1), w.norm(dim=-1)), med(d, n)
+
+
+def _n_walk(walk):
+    return len(fm.walk_tensors(walk))
+
+
+@pytest.mark.parametrize("T,K", [(300, 20), (131, 1), (200, 7), (257, 33)])
+def test_key_stream_bwd_wgmma_matches_plain(dev, T, K):
+    """Row 5's bf16 backward on wgmma: ragged T (not a multiple of the
+    128-ray block), K from 1 to 33, an all-dead ray (5), the cotangent kept
+    on rays whose relu inputs stay 1e-5 rms from 0; one launch."""
+    rng = np.random.default_rng(100 + T + K)
+    rec, rayo, rays, qq, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    args = (rec, rayo, rays, qq, kw, wk, bk)
+    opts = ("relu", 5.0, 1e-6, torch.bfloat16)
+    _, raw, ss = sa.key_stream_fwd(*args, *opts)
+    dattn = torch.as_tensor(rng.normal(size=(T, K + 1)).astype(np.float32),
+                            device=dev)
+    dattn = _firm(dattn, sa.rec_relu_margin(rec, rayo, rays, kw))
+    before = sa.key_stream_bwd.launches
+    got = sa.key_stream_bwd(*args, raw, ss, dattn, *opts)
+    assert sa.key_stream_bwd.launches == before + 1
+    want = sa.key_stream_bwd_plain(*args, dattn, *opts, relu_on=raw > 0)
+    got, want = _rec_lanes(got), _rec_lanes(want)
+    _close_all(got, want, BWD_REL, f"key_stream_bwd T={T} K={K}")
+    med = _median_rels(got, want, _n_walk(kw))
+    print(f"key_stream_bwd T={T} K={K}: median ray d_rec {med[0]:.2e}, "
+          f"median row of the walk gradients {med[1]:.2e}")
+    assert max(med) <= BWD_MEDIAN_REL
+    assert float(got[0][:, 5].abs().max()) == 0.0     # the all-dead ray
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("T,K", [(300, 20), (131, 1), (200, 7), (257, 33)])
+def test_value_stream_bwd_wgmma_matches_plain(dev, T, K, normalize):
+    """Row 6's bf16 backward on wgmma, as the key's above; ray 5 has no
+    foreground mass (divides by 1: no gradient into its walk)."""
+    rng = np.random.default_rng(200 + T + K)
+    rec, rayo, rays, _, _, vw, _, _ = _stream_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    args = (rec, rayo, rays, attn, vw)
+    opts = (normalize, 1e-6, torch.bfloat16)
+    dfused = torch.as_tensor(rng.normal(size=(T, 32)).astype(np.float32),
+                             device=dev)
+    dfused = _firm(dfused, sa.rec_relu_margin(rec, rayo, rays, vw))
+    before = sa.value_stream_bwd.launches
+    got = sa.value_stream_bwd(*args, dfused, *opts)
+    assert sa.value_stream_bwd.launches == before + 1
+    want = sa.value_stream_bwd_plain(*args, dfused, *opts)
+    got, want = _rec_lanes(got), _rec_lanes(want)
+    _close_all(got, want, BWD_REL,
+               f"value_stream_bwd T={T} K={K} normalize={normalize}")
+    med = _median_rels(got, want, _n_walk(vw))
+    print(f"value_stream_bwd T={T} K={K} normalize={normalize}: median ray "
+          f"d_rec {med[0]:.2e}, median row of the walk gradients "
+          f"{med[1]:.2e}")
+    assert max(med) <= BWD_MEDIAN_REL
+    assert float(got[0][:, 5].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("P,R,k,n_alive", [(3000, 777, 20, 2800),
                                            (4096, 64, 8, 4096),
                                            (2500, 130, 20, 12)])
@@ -1043,8 +1132,9 @@ def test_wgrad_f32_matches_fp64_product(dev, N, da, db):
 
 
 def test_wgmma_kernels_run_on_hgmma(dev):
-    """The built library's SASS: the bf16 one-shot eval attention and both
-    dW reductions issue Hopper's warpgroup MMAs (HGMMA)."""
+    """The built library's SASS: the bf16 one-shot eval attention, the bf16
+    key / value stream backwards and both dW reductions issue Hopper's
+    warpgroup MMAs (HGMMA)."""
     import os
     import shutil
     import subprocess
@@ -1059,7 +1149,8 @@ def test_wgmma_kernels_run_on_hgmma(dev):
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         funcs[name.strip()] = body
-    for kernel in ("attend_eval_wgmma_kernel", "wgrad_bf16_kernel",
+    for kernel in ("attend_eval_wgmma_kernel", "key_bwd_wgmma_kernel",
+                   "value_bwd_wgmma_kernel", "wgrad_bf16_kernel",
                    "wgrad_f32_kernel"):
         bodies = [b for n, b in funcs.items() if kernel in n]
         assert bodies, f"{kernel} not in the library"

@@ -36,7 +36,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # "stream shared" or "linear_bf16" stream_common.cuh, "int8 walk" walk.cuh,
 # "int8 bench" int8_walk_bench.cu, "int8 value" value_stream.cu, "int8
 # attend" attend_eval.cu, "fp32 walk" walk.cuh, "fp32 stash" walk_bwd.cuh,
-# "wgmma wgrad" wgrad.cu, "wgmma walk" walk_wgmma.cuh, "wgmma attend"
+# "wgmma wgrad" wgrad.cu, "wgmma walk" and "bwd wgmma walk" walk_wgmma.cuh,
+# "bwd wgmma" walk_wgmma_bwd.cuh (the bf16 stream backwards), "wgmma attend"
 # attend_eval.cu, the others fused_attn.cu.
 MUTS = [
     ("sound", None, None),
@@ -44,6 +45,33 @@ MUTS = [
     ("int8 sound", None, None),
     ("fp32 sound", None, None),
     ("wgmma sound", None, None),
+    ("bwd wgmma sound", None, None),
+    ("bwd wgmma: dz truncated to bf16 (toward zero) before the dX product "
+     "and the stash (a rounding point)",
+     "  round_pass(acc, w);\n  stash_w(w, dz, srow0, width, c0);",
+     "  for (int i = 0; i < 32; ++i)\n"
+     "    w[i] = (__float_as_uint(acc[2 * i]) >> 16) |\n"
+     "           (__float_as_uint(acc[2 * i + 1]) & 0xffff0000u);\n"
+     "  stash_w(w, dz, srow0, width, c0);"),
+    ("bwd wgmma: db summed from the bf16-rounded dz instead of the fp32 "
+     "gradient (a rounding point)",
+     "  colsum_pass([&](int i) { return acc[i]; }, part_db + c0, width - c0);",
+     "  colsum_pass([&](int i) { return bf16_round(acc[i]); }, part_db + c0, "
+     "width - c0);"),
+    ("bwd wgmma: the relu mask of the layer above (off by one layer)",
+     "          l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;",
+     "          l > 0 && d.act == 1 ? masks + l * 512 : nullptr;"),
+    ("bwd wgmma: one pass of the output LayerNorm's db column sums dropped",
+     "  colsum_pass([&](int i) { return acc[i]; }, part_b + c1, n_true - c1);",
+     ""),
+    ("bwd wgmma walk: the second weight chunk read from the first one's "
+     "stage (a stale stage, W and W^T alike)",
+     "        real ? ring.base + st * kWStageBytes : zero, 16, 1024);",
+     "        real ? ring.base + (ring.i == 1 ? 0 : st) * kWStageBytes : zero, "
+     "16, 1024);"),
+    ("bwd wgmma: the posenc derivative with sin and cos swapped",
+     "        xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;",
+     "        xp[m] = kind == 1 ? x[c] : kind == 2 ? x[c] : 1.f;"),
     ("wgmma wgrad: one split's partial dropped from the sum",
      "  for (int r = 0; r < rows; ++r) s += part[(size_t)r * cols + c];",
      "  for (int r = 0; r < rows - (rows > 1); ++r) s += part[(size_t)r * cols "
@@ -295,12 +323,16 @@ TARGETS = {
     "compare_wgmma_kernels": (("phase 2 K3", "phase 2 wgrad",
                                "phase 8 wgrad_f32"),
                               "attend_eval_kernel or wgrad or hgmma"),
+    # compare_train_kernels, read for the two bf16 stream backwards only.
+    "stream_bwd": (("phase 2 key_stream_bwd", "phase 2 value_stream_bwd"),
+                   "stream_bwd_wgmma"),
 }
 
 
 def target_of(name: str) -> str:
     head = name.split(":")[0]
-    return ("compare_wgmma_kernels" if "wgmma" in head
+    return ("stream_bwd" if head.startswith("bwd wgmma")
+            else "compare_wgmma_kernels" if "wgmma" in head
             else "compare_f32_kernels" if "fp32" in head
             else "compare_int8_kernels" if "int8" in head
             else "compare_train_kernels" if "stream" in head
@@ -329,7 +361,9 @@ def run_case(name, old, new) -> None:
     target = target_of(name)
     shown, tests = TARGETS[target]
     if old is not None:
-        src = next((f for word, f in (("wgmma wgrad", "wgrad.cu"),
+        src = next((f for word, f in (("bwd wgmma walk", "walk_wgmma.cuh"),
+                                      ("bwd wgmma", "walk_wgmma_bwd.cuh"),
+                                      ("wgmma wgrad", "wgrad.cu"),
                                       ("wgmma walk", "walk_wgmma.cuh"),
                                       ("wgmma attend", "attend_eval.cu"),
                                       ("topk", "topk_stream.cu"),
@@ -355,7 +389,8 @@ def run_case(name, old, new) -> None:
                              f"{src}; bring MUTS up to date")
         open(p, "w").write(s.replace(old, new))
     print(f"===== {name}", flush=True)
-    r = subprocess.run([sys.executable, "-c", RUN, target], cwd=root,
+    fn = "compare_train_kernels" if target == "stream_bwd" else target
+    r = subprocess.run([sys.executable, "-c", RUN, fn], cwd=root,
                        capture_output=True, text=True)
     for line in r.stdout.splitlines():
         if line.startswith(shown + ("FAILS",)):
@@ -377,7 +412,10 @@ def run_case(name, old, new) -> None:
                                                     "int8_walk_bench"))) \
                 or (target == "compare_f32_kernels" and "f32" in line) \
                 or (target == "compare_wgmma_kernels"
-                    and line.startswith(("attend_eval T", "wgrad"))):
+                    and line.startswith(("attend_eval T", "wgrad"))) \
+                or (target == "stream_bwd"
+                    and line.startswith(("key_stream_bwd T",
+                                         "value_stream_bwd T"))):
             print("  cuda tests: " + line[:400], flush=True)
     print(f"  cuda tests: exit code {t.returncode}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
