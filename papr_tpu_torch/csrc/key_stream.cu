@@ -265,13 +265,31 @@ key_bwd_wgmma_kernel(const __grid_constant__ StreamBwdWg p) {
   stream_bwd_wg<true>(p);
 }
 
+// The per-ray sums of the split tiles' second parts (zero elsewhere) added
+// to the first parts', after key_bwd_wgmma_kernel.
+__global__ void key_bwd_combine_kernel(float* dqq, const float* dqq_aux,
+                                       int n_qq, float* drayo,
+                                       const float* drayo_aux, float* drays,
+                                       const float* drays_aux, int n_ray) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_qq; i += stride)
+    dqq[i] += dqq_aux[i];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_ray; i += stride) {
+    drayo[i] += drayo_aux[i];
+    drays[i] += drays_aux[i];
+  }
+}
+
 // The bf16 backward on wgmma: the fp32 kernel's arguments (its kwt / wkf /
-// wkb weights unread: the packed image replaces them; part has 8 rows a
-// block of 128 rays, scratch StreamBwdWg::scr_wg floats a warpgroup), then
-// the packed weights (forward layers, w_k, w_k^T, W_l^T for l = n-1 .. 0;
-// ops/stream_attn.py key_stream_bwd) and their size in bytes.
+// wkb weights unread: the packed image replaces them; part has 8 rows and
+// scratch 2 StreamBwdWg::scr_wg floats a block), then the packed weights
+// (forward layers, w_k, w_k^T, W_l^T for l = n-1 .. 0; ops/stream_attn.py
+// key_stream_bwd) and their size in bytes, the grid (1 .. the number of
+// 128-ray tiles) and the zeroed aux buffers of dqq, d_rayo, d_rays.
 extern "C" int papr_key_stream_bwd(KEY_BWD_PARAMS_NS, const void* wpack,
-                                   long long wbytes, void* stream) {
+                                   long long wbytes, int grid, float* dqq_aux,
+                                   float* drayo_aux, float* drays_aux,
+                                   void* stream) {
   (void)kwt;
   (void)wkf;
   (void)wkb;
@@ -309,12 +327,23 @@ extern "C" int papr_key_stream_bwd(KEY_BWD_PARAMS_NS, const void* wpack,
   p.score_relu = score_relu;
   p.bkg = bkg;
   p.dqq = dqq;
+  if (grid < 1 || grid > p.Tp / kWgTile) return -209;
+  p.n_units = p.Tp / kWgTile * K;
+  p.grid = grid;
+  p.dqq_aux = dqq_aux;
+  p.drayo_aux = drayo_aux;
+  p.drays_aux = drays_aux;
   cudaError_t e = cudaFuncSetAttribute(
       key_bwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  key_bwd_wgmma_kernel<<<p.Tp / kWgTile, kWgThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  key_bwd_wgmma_kernel<<<grid, kWgThreads, smem, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  key_bwd_combine_kernel<<<256, 256, 0, st>>>(dqq, dqq_aux, T * dm, drayo,
+                                               drayo_aux, drays, drays_aux,
+                                               T * 3);
   return (int)cudaGetLastError();
 }
 

@@ -321,13 +321,53 @@ value_bwd_wgmma_kernel(const __grid_constant__ StreamBwdWg p) {
   stream_bwd_wg<false>(p);
 }
 
+// After value_bwd_wgmma_kernel, a warp per ray: the split tiles' second
+// parts of d_rayo / d_rays (zero elsewhere) added to the first parts', and
+// the renormalization backward (_vsr_bwd_kernel :1681-1690) of the ray's
+// datt row, with the safe denominator (1 for all-dead rays).
+__global__ void value_bwd_combine_kernel(const float* __restrict__ datt,
+                                         const float* __restrict__ attn,
+                                         int normalize, int T, int K,
+                                         float* __restrict__ dattn,
+                                         float* drayo, const float* drayo_aux,
+                                         float* drays,
+                                         const float* drays_aux) {
+  const int lane = threadIdx.x & 31;
+  const int nw = gridDim.x * blockDim.x >> 5;
+  for (int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; t < T;
+       t += nw) {
+    if (lane < 3) {
+      drayo[(size_t)t * 3 + lane] += drayo_aux[(size_t)t * 3 + lane];
+      drays[(size_t)t * 3 + lane] += drays_aux[(size_t)t * 3 + lane];
+    }
+    const float* arow = attn + (size_t)t * (K + 1);
+    const float* drow = datt + (size_t)t * K;
+    float sfg = 0.f;
+    for (int k = lane; k < K; k += 32) sfg += arow[k];
+    sfg = warp_sum(sfg);
+    const float den = normalize && sfg > 0.f ? sfg : 1.f;
+    float inner = 0.f;
+    if (normalize) {
+      for (int k = lane; k < K; k += 32) inner += drow[k] * arow[k];
+      inner = warp_sum(inner) / den;
+    }
+    float* out = dattn + (size_t)t * (K + 1);
+    for (int k = lane; k < K; k += 32)
+      out[k] = normalize ? (drow[k] - inner) / den : drow[k];
+    if (lane == 0) out[K] = 0.f;
+  }
+}
+
 // The bf16 backward on wgmma: the fp32 kernel's arguments (its vwt unread:
-// the packed image replaces it; part has 8 rows a block of 128 rays,
-// scratch StreamBwdWg::scr_wg floats a warpgroup), then the packed weights
-// (forward layers, then W_l^T for l = n-1 .. 0; ops/stream_attn.py
-// value_stream_bwd) and their size in bytes.
+// the packed image replaces it; part has 8 rows and scratch 2
+// StreamBwdWg::scr_wg floats a block), then the packed weights (forward
+// layers, then W_l^T for l = n-1 .. 0; ops/stream_attn.py value_stream_bwd)
+// and their size in bytes, the grid (1 .. the number of 128-ray tiles), a
+// (T, K) datt buffer and the zeroed aux buffers of d_rayo, d_rays.
 extern "C" int papr_value_stream_bwd(VALUE_BWD_PARAMS_NS, const void* wpack,
-                                     long long wbytes, void* stream) {
+                                     long long wbytes, int grid, float* datt,
+                                     float* drayo_aux, float* drays_aux,
+                                     void* stream) {
   (void)vwt;
   StreamBwdWg p{};
   size_t smem = 0;
@@ -353,13 +393,23 @@ extern "C" int papr_value_stream_bwd(VALUE_BWD_PARAMS_NS, const void* wpack,
   p.attn = attn;
   p.dfused = dfused;
   p.normalize = normalize;
-  p.dattn_out = dattn;
+  p.datt = datt;
+  if (grid < 1 || grid > p.Tp / kWgTile) return -209;
+  p.n_units = p.Tp / kWgTile * K;
+  p.grid = grid;
+  p.drayo_aux = drayo_aux;
+  p.drays_aux = drays_aux;
   cudaError_t e = cudaFuncSetAttribute(
       value_bwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  value_bwd_wgmma_kernel<<<p.Tp / kWgTile, kWgThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  value_bwd_wgmma_kernel<<<grid, kWgThreads, smem, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  value_bwd_combine_kernel<<<(T + 7) / 8, 256, 0, st>>>(
+      datt, attn, normalize, T, K, dattn, drayo, drayo_aux, drays,
+      drays_aux);
   return (int)cudaGetLastError();
 }
 

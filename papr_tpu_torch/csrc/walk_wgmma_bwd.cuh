@@ -11,7 +11,7 @@
 // the position FEATURE gradient dropped; all-dead rays divide by 1.
 //
 // Layout (walk_wgmma.cuh's): a block is two warpgroups of 64 rays each (128
-// rays a block, 256 threads); a warpgroup loops over k for its rays, and
+// rays a tile, 256 threads); a warpgroup loops over k for its rays, and
 // both read one TMA-fed ring of 64-row weight chunks: per k step the forward
 // layers, then (key) w_k and w_k^T, then the reverse walk's W_l^T from
 // l = n - 1 down to 0, all packed on the host into wgmma's K-major
@@ -30,6 +30,13 @@
 //   * LayerNorm backward on the accumulator (row reductions over the four
 //     threads of a quad); the output LayerNorm's fp32 input goes to a
 //     per-warpgroup device scratch slice in the accumulator's own layout.
+// The grid is persistent: at most one block an SM, each taking an even,
+// contiguous share of the (tile, k) units in tile-major order (200 tiles of
+// a 25,600-ray patch would leave a second wave of 68 blocks on 132 SMs); a
+// tile split between two blocks has the per-ray sums of its second part
+// (dqq, d_rayo, d_rays) in aux buffers that a small combine kernel adds,
+// and the value walk's renormalization backward runs there too, on datt
+// rows the main kernel writes to device memory.
 // Column sums are reduced over the warp's 16 rows by a reduce-scatter of
 // shuffles (28 a pass) and added, in a fixed order and without atomics, to
 // the warp's own partial row (8 rows a block; colsum in wgrad.cu sums the
@@ -92,7 +99,14 @@ struct StreamBwdWg {
   const float* attn;
   const float* dfused;
   int normalize;
-  float* dattn_out;
+  float* datt;                           // (T, K): d attn_k before renorm
+  // The persistent grid: n_units = tiles * K (tile, k) units over grid
+  // blocks; the second part of a split tile writes these instead of dqq /
+  // drayo / drays.
+  int n_units, grid;
+  float* dqq_aux;
+  float* drayo_aux;
+  float* drays_aux;
 };
 
 // Host side: the walk, its product sequence (forward layers, then the head
@@ -150,7 +164,7 @@ inline int fill_stream_bwd_wg(StreamBwdWg* p, const int* meta, const void* w,
   p->e_floats = kWgRows * p->ld > kParkWords * 128 ? kWgRows * p->ld
                                                    : kParkWords * 128;
   p->wg_floats = kWgRows * kGeo + p->e_floats + n * 4 * 128 +
-                 kWgRows * (2 + kNGeoSrc + K + 2);
+                 kWgRows * (2 + kNGeoSrc + (head_pd ? K : 0) + 2);
   p->wg_floats += p->wg_floats & 1;
   p->n_prm = 5 * d.pd[0] + 2 * d.pd[n] + head_pd;
   p->n_prm += p->n_prm & 1;
@@ -598,8 +612,15 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
     mbar_fence_init();
   }
   __syncthreads();
+  // The block's share of the (tile, k) units, in tile-major order: a
+  // contiguous range of at least K units, so a tile is split between at
+  // most two blocks; the part without k = 0 writes the per-ray sums to the
+  // aux buffers (added by the combine kernel).
+  const long long n_units = p.n_units;
+  const int u_begin = (int)(n_units * blockIdx.x / p.grid);
+  const int u_end = (int)(n_units * (blockIdx.x + 1) / p.grid);
   WgRing rg{ring, full, released, p.stages, 0, p.n_chunks,
-            p.n_chunks * p.K, p.chunks, p.w};
+            p.n_chunks * (u_end - u_begin), p.chunks, p.w};
   if (tid == 0)
     for (int j = 0; j < p.stages && j < rg.total; ++j) wg_issue(rg, j);
 
@@ -608,15 +629,14 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
   const int g = lane >> 2, q = lane & 3, row0 = 16 * w;
   const int n = d.n, pd0 = d.pd[0], pdn = d.pd[n], K = p.K, T = p.T;
   const int ld = p.ld, L = p.bias_len;
-  const int rbase = blockIdx.x * kWgTile + wg * kWgRows;
   const int rl[2] = {row0 + g, row0 + g + 8};
   float* geo = tiles + wg * p.wg_floats;          // kWgRows x kGeo
   float* E = geo + kWgRows * kGeo;                // rows / parking slices
   uint32_t* masks = reinterpret_cast<uint32_t*>(E + p.e_floats);
   float* st = reinterpret_cast<float*>(masks + n * 4 * 128);  // mu, r in
   float* dgeo = st + 2 * kWgRows;                 // kWgRows x 9
-  float* rowk = dgeo + kWgRows * kNGeoSrc;        // ds (key) / datt (value)
-  float* r1 = rowk + kWgRows * K;                 // draw (key) / den (value)
+  float* rowk = dgeo + kWgRows * kNGeoSrc;        // ds (key)
+  float* r1 = rowk + kWgRows * (kKey ? K : 0);    // draw (key) / den (value)
   float* r2 = r1 + kWgRows;                       // d influence (key)
   float* park = E;
   uint32_t* park_u = reinterpret_cast<uint32_t*>(E);
@@ -626,48 +646,6 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
   float* zs_s = enc_s + kWgRows * pd0;
   const float* lo_a = lns + 2 * pd0;
   const float* lo_b = lo_a + pdn;
-
-  // Per ray: the softmax backward (key) or the safe denominator (value).
-  for (int r = row0; r < row0 + 16; ++r) {
-    const int t = rbase + r;
-    if (kKey) {
-      float* dsr = rowk + r * K;
-      if (t >= T) {
-        for (int k = lane; k < K; k += 32) dsr[k] = 0.f;
-        continue;
-      }
-      const float* drow = p.dattn + (size_t)t * (K + 1);
-      float m = p.bkg;
-      for (int k = lane; k < K; k += 32) {
-        const float s = p.ss[(size_t)t * K + k];
-        dsr[k] = s;
-        m = fmaxf(m, s);
-      }
-      m = warp_max(m);
-      float z = 0.f, in = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float e = expf(dsr[k] - m);
-        z += e;
-        in += e * drow[k];
-      }
-      const float eb = expf(p.bkg - m);
-      z = warp_sum(z) + eb;
-      const float inner = (warp_sum(in) + eb * drow[K]) / z;
-      for (int k = lane; k < K; k += 32) {
-        const float s = dsr[k];
-        const float fg = expf(s - m) / z;
-        dsr[k] = s > 0.5f * kNegBig ? fg * (drow[k] - inner) : 0.f;
-      }
-    } else {
-      float sfg = 0.f;
-      if (t < T)
-        for (int k = lane; k < K; k += 32)
-          sfg += p.attn[(size_t)t * (K + 1) + k];
-      sfg = warp_sum(sfg);
-      if (lane == 0) r1[r] = p.normalize && sfg > 0.f ? sfg : 1.f;
-    }
-  }
-  __syncwarp();
 
   // The posenc segments of the lane's sources (for the per-source sums).
   int seg0[kSrcPerLane], seg1[kSrcPerLane];
@@ -685,330 +663,363 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
   for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
   float mo[2] = {0.f, 0.f}, ro[2] = {1.f, 1.f};
 
-  for (int k = 0; k < K; ++k) {
-    const size_t srow0 = (size_t)k * p.Tp + rbase;
-    // --- geometry of the warp's rows (ops/geometry.py) ---
-    if (lane < 16) {
-      const int r = row0 + lane, t = rbase + r;
-      const bool valid = t < T;
-      const int gi = valid ? k * T + t : 0;
-      const float* rw = p.rec + (size_t)gi * p.rec_w;
-      float o[3], dr[3], v[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        o[j] = valid ? p.rayo[(size_t)t * 3 + j] : 0.f;
-        dr[j] = valid ? p.rays[(size_t)t * 3 + j] : 0.f;
-        v[j] = rw[j] - o[j];
-      }
-      const float t_al = v[0] * dr[0] + v[1] * dr[1] + v[2] * dr[2];
-      const float dd = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2];
-      const float cc = t_al / (dd + p.eps);
-      float* gr = geo + r * kGeo;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float proj = dr[j] * cc;
-        gr[j] = rw[j];
-        gr[3 + j] = proj;
-        gr[6 + j] = v[j] - proj;
-      }
-      gr[9] = rw[3];
-      gr[10] = rw[4];
-      gr[11] = __int_as_float(gi);
+  for (int u = u_begin; u < u_end;) {
+    const int tile = u / K, k0 = u - tile * K;
+    const int k1 = k0 + (u_end - u < K - k0 ? u_end - u : K - k0);
+    u += k1 - k0;
+    const int rbase = tile * kWgTile + wg * kWgRows;
+    float* dqq_o = k0 ? p.dqq_aux : p.dqq;
+    float* drayo_o = k0 ? p.drayo_aux : p.drayo;
+    float* drays_o = k0 ? p.drays_aux : p.drays;
+
+    // Per ray: the softmax backward (key) or the safe denominator (value).
+    for (int r = row0; r < row0 + 16; ++r) {
+      const int t = rbase + r;
       if (kKey) {
-        const float raw = valid ? p.raw[(size_t)t * K + k] : 0.f;
-        const float ds = rowk[r * K + k];
-        r2[r] = ds * (p.score_relu ? fmaxf(raw, 0.f) : raw);
-        r1[r] = draw_of(ds, raw, rw[3], p.score_relu, p.sqrt_dm);
+        float* dsr = rowk + r * K;
+        if (t >= T) {
+          for (int k = lane; k < K; k += 32) dsr[k] = 0.f;
+          continue;
+        }
+        const float* drow = p.dattn + (size_t)t * (K + 1);
+        float m = p.bkg;
+        for (int k = lane; k < K; k += 32) {
+          const float s = p.ss[(size_t)t * K + k];
+          dsr[k] = s;
+          m = fmaxf(m, s);
+        }
+        m = warp_max(m);
+        float z = 0.f, in = 0.f;
+        for (int k = lane; k < K; k += 32) {
+          const float e = expf(dsr[k] - m);
+          z += e;
+          in += e * drow[k];
+        }
+        const float eb = expf(p.bkg - m);
+        z = warp_sum(z) + eb;
+        const float inner = (warp_sum(in) + eb * drow[K]) / z;
+        for (int k = lane; k < K; k += 32) {
+          const float s = dsr[k];
+          const float fg = expf(s - m) / z;
+          dsr[k] = s > 0.5f * kNegBig ? fg * (drow[k] - inner) : 0.f;
+        }
+      } else {
+        float sfg = 0.f;
+        if (t < T)
+          for (int k = lane; k < K; k += 32)
+            sfg += p.attn[(size_t)t * (K + 1) + k];
+        sfg = warp_sum(sfg);
+        if (lane == 0) r1[r] = p.normalize && sfg > 0.f ? sfg : 1.f;
       }
     }
     __syncwarp();
 
-    // --- the encoding: fp32 to the scratch, input LayerNorm, bf16 ---
-    wgb_encode(E, ld, d, plan, geo, p.rec, p.rec_w, row0);
-    __syncwarp();
-    for (int r = row0; r < row0 + 16; ++r)
-      for (int c = lane; c < pd0; c += 32) enc_s[r * pd0 + c] = E[r * ld + c];
-    wgb_rows_to_bf16(E, ld, d, lns, st, row0);
-    stash_rows(E, ld, p.hs[0], srow0, pd0, row0);
-    smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
-              pd0, A);
-    // Every warp has read its rows before any thread parks over them.
-    named_sync(2 + wg, 128);
+    for (int k = k0; k < k1; ++k) {
+      const size_t srow0 = (size_t)k * p.Tp + rbase;
+      // --- geometry of the warp's rows (ops/geometry.py) ---
+      if (lane < 16) {
+        const int r = row0 + lane, t = rbase + r;
+        const bool valid = t < T;
+        const int gi = valid ? k * T + t : 0;
+        const float* rw = p.rec + (size_t)gi * p.rec_w;
+        float o[3], dr[3], v[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          o[j] = valid ? p.rayo[(size_t)t * 3 + j] : 0.f;
+          dr[j] = valid ? p.rays[(size_t)t * 3 + j] : 0.f;
+          v[j] = rw[j] - o[j];
+        }
+        const float t_al = v[0] * dr[0] + v[1] * dr[1] + v[2] * dr[2];
+        const float dd = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2];
+        const float cc = t_al / (dd + p.eps);
+        float* gr = geo + r * kGeo;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float proj = dr[j] * cc;
+          gr[j] = rw[j];
+          gr[3 + j] = proj;
+          gr[6 + j] = v[j] - proj;
+        }
+        gr[9] = rw[3];
+        gr[10] = rw[4];
+        gr[11] = __int_as_float(gi);
+        if (kKey) {
+          const float raw = valid ? p.raw[(size_t)t * K + k] : 0.f;
+          const float ds = rowk[r * K + k];
+          r2[r] = ds * (p.score_relu ? fmaxf(raw, 0.f) : raw);
+          r1[r] = draw_of(ds, raw, rw[3], p.score_relu, p.sqrt_dm);
+        }
+      }
+      __syncwarp();
 
-    // --- forward recompute: stash, relu masks; the last layer's fp32
-    // output in acc (and, for a 256-wide layer, its first pass parked) ---
-    bool two = false;
-    for (int l = 0; l < n; ++l) {
-      const bool last = l + 1 == n;
-      const WgLayer& Ly = p.layers[l];
-      const int np = Ly.ni > kPassN ? 2 : 1;
-      const int act = last ? d.last_act : d.act;
-      uint32_t* mk = act == 1 ? masks + l * 512 : nullptr;
-      if (l > 0) stash_a(A, p.hs[l], srow0, d.pd[l]);
-      for (int pp = 0; pp < np; ++pp) {
-        wgb_pass(acc, A, rg, Ly, zero);
-        acc_bias_act(acc, d.b[l] + kPassN * pp,
-                     pp + 1 < np ? kPassN : Ly.pd_out - kPassN * pp, act);
-        if (mk) store_mask(acc, mk, pp);
-        if (last) {
-          if (d.has_lo) save_slice(acc, zs_s, pp);
-          if (pp + 1 < np) park_f32(acc, park);
-        } else if (pp + 1 < np) {
-          park_bf16(acc, park_u);
-        } else if (np == 2) {
+      // --- the encoding: fp32 to the scratch, input LayerNorm, bf16 ---
+      wgb_encode(E, ld, d, plan, geo, p.rec, p.rec_w, row0);
+      __syncwarp();
+      for (int r = row0; r < row0 + 16; ++r)
+        for (int c = lane; c < pd0; c += 32) enc_s[r * pd0 + c] = E[r * ld + c];
+      wgb_rows_to_bf16(E, ld, d, lns, st, row0);
+      stash_rows(E, ld, p.hs[0], srow0, pd0, row0);
+      smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
+                pd0, A);
+      // Every warp has read its rows before any thread parks over them.
+      named_sync(2 + wg, 128);
+
+      // --- forward recompute: stash, relu masks; the last layer's fp32
+      // output in acc (and, for a 256-wide layer, its first pass parked) ---
+      bool two = false;
+      for (int l = 0; l < n; ++l) {
+        const bool last = l + 1 == n;
+        const WgLayer& Ly = p.layers[l];
+        const int np = Ly.ni > kPassN ? 2 : 1;
+        const int act = last ? d.last_act : d.act;
+        uint32_t* mk = act == 1 ? masks + l * 512 : nullptr;
+        if (l > 0) stash_a(A, p.hs[l], srow0, d.pd[l]);
+        for (int pp = 0; pp < np; ++pp) {
+          wgb_pass(acc, A, rg, Ly, zero);
+          acc_bias_act(acc, d.b[l] + kPassN * pp,
+                       pp + 1 < np ? kPassN : Ly.pd_out - kPassN * pp, act);
+          if (mk) store_mask(acc, mk, pp);
+          if (last) {
+            if (d.has_lo) save_slice(acc, zs_s, pp);
+            if (pp + 1 < np) park_f32(acc, park);
+          } else if (pp + 1 < np) {
+            park_bf16(acc, park_u);
+          } else if (np == 2) {
+            acc_to_a<32>(acc, A);
+            unpark_bf16(park_u, A);
+          } else {
+            acc_to_a<0>(acc, A);
+          }
+        }
+        two = np == 2;
+      }
+      uint32_t* mz = d.last_act == 1 ? masks + (n - 1) * 512 : nullptr;
+      if (d.has_lo)
+        acc_layernorm_st(acc, two ? park : nullptr, d.d_out, lo_a, lo_b, mo, ro);
+
+      if (kKey) {
+        // --- the score head: kk = y w_k + b_k, dqq += draw kk, dkk = draw
+        // qq (db_k its column sums, dz of the head), then dkk w_k^T ---
+        if (two) {
           acc_to_a<32>(acc, A);
-          unpark_bf16(park_u, A);
+#pragma unroll
+          for (int i = 0; i < kAccRegs / 2; ++i)
+            A[i] = pack_bf16(park[(2 * i) * 128 + t_in],
+                             park[(2 * i + 1) * 128 + t_in]);
         } else {
           acc_to_a<0>(acc, A);
         }
-      }
-      two = np == 2;
-    }
-    uint32_t* mz = d.last_act == 1 ? masks + (n - 1) * 512 : nullptr;
-    if (d.has_lo)
-      acc_layernorm_st(acc, two ? park : nullptr, d.d_out, lo_a, lo_b, mo, ro);
-
-    if (kKey) {
-      // --- the score head: kk = y w_k + b_k, dqq += draw kk, dkk = draw
-      // qq (db_k its column sums, dz of the head), then dkk w_k^T ---
-      if (two) {
-        acc_to_a<32>(acc, A);
+        stash_a(A, p.hs[n], srow0, pdn);
+        const WgLayer& H = p.layers[n];
+        const int hpn = H.ni > kPassN ? 2 : 1;
+        for (int hp = 0; hp < hpn; ++hp) {
+          wgb_pass(acc, A, rg, H, zero);
+          // 16 registers at a time: their qq and dqq are loaded before any
+          // dqq is written back.
 #pragma unroll
-        for (int i = 0; i < kAccRegs / 2; ++i)
-          A[i] = pack_bf16(park[(2 * i) * 128 + t_in],
-                           park[(2 * i + 1) * 128 + t_in]);
+          for (int i0 = 0; i0 < kAccRegs; i0 += 16) {
+            float qv[16], dv[16];
+#pragma unroll
+            for (int ii = 0; ii < 16; ++ii) {
+              const int i = i0 + ii, t = rbase + rl[(i >> 1) & 1];
+              const int c = kPassN * hp + 8 * (i >> 2) + 2 * q + (i & 1);
+              const bool in = t < T && c < p.dm;
+              qv[ii] = in ? p.qq[(size_t)t * p.dm + c] : 0.f;
+              dv[ii] = in ? dqq_o[(size_t)t * p.dm + c] : 0.f;
+            }
+#pragma unroll
+            for (int ii = 0; ii < 16; ++ii) {
+              const int i = i0 + ii, r = rl[(i >> 1) & 1], t = rbase + r;
+              const int c = kPassN * hp + 8 * (i >> 2) + 2 * q + (i & 1);
+              const bool in = t < T && c < p.dm;
+              if (in)
+                dqq_o[(size_t)t * p.dm + c] =
+                    dv[ii] + r1[r] * linear_bf16(acc[i], bks[c]);
+              acc[i] = in ? r1[r] * qv[ii] : 0.f;
+            }
+          }
+          colsum_pass([&](int i) { return acc[i]; },
+                      prow + p.dbk_off + kPassN * hp, p.dm_pad - kPassN * hp);
+          uint32_t w[32];
+          round_pass(acc, w);
+          stash_w(w, p.dz[n], srow0, p.dm_pad, kPassN * hp);
+          place_words(w, A, park_u, hp + 1 < hpn ? 2 : hp);
+        }
+        if (hpn == 2) unpark_bf16(park_u, A);
+        const WgLayer& HB = p.layers[n + 1];
+        for (int bp = 0; bp < (two ? 2 : 1); ++bp) {
+          wgb_pass(acc, A, rg, HB, zero);
+          if (two && bp == 0) park_f32(acc, park);
+        }
       } else {
-        acc_to_a<0>(acc, A);
-      }
-      stash_a(A, p.hs[n], srow0, pdn);
-      const WgLayer& H = p.layers[n];
-      const int hpn = H.ni > kPassN ? 2 : 1;
-      for (int hp = 0; hp < hpn; ++hp) {
-        wgb_pass(acc, A, rg, H, zero);
-        // 16 registers at a time: their qq and dqq are loaded before any
-        // dqq is written back.
+        // --- the fuse step: datt_k = bf16(y) . dfused, then the gradient of
+        // y, (attn_k / den) dfused ---
+        const int cout = d.d_out;
+        float s[2] = {0.f, 0.f};
 #pragma unroll
-        for (int i0 = 0; i0 < kAccRegs; i0 += 16) {
-          float qv[16], dv[16];
-#pragma unroll
-          for (int ii = 0; ii < 16; ++ii) {
-            const int i = i0 + ii, t = rbase + rl[(i >> 1) & 1];
-            const int c = kPassN * hp + 8 * (i >> 2) + 2 * q + (i & 1);
-            const bool in = t < T && c < p.dm;
-            qv[ii] = in ? p.qq[(size_t)t * p.dm + c] : 0.f;
-            dv[ii] = in ? p.dqq[(size_t)t * p.dm + c] : 0.f;
+        for (int i = 0; i < kAccRegs; ++i) {
+          const int h = (i >> 1) & 1, t = rbase + rl[h];
+          const int c = 8 * (i >> 2) + 2 * q + (i & 1);
+          float gv = 0.f;
+          if (t < T && c < cout) {
+            const float df = p.dfused[(size_t)t * cout + c];
+            s[h] += bf16_round(acc[i]) * df;
+            gv = p.attn[(size_t)t * (K + 1) + k] / r1[rl[h]] * df;
           }
-#pragma unroll
-          for (int ii = 0; ii < 16; ++ii) {
-            const int i = i0 + ii, r = rl[(i >> 1) & 1], t = rbase + r;
-            const int c = kPassN * hp + 8 * (i >> 2) + 2 * q + (i & 1);
-            const bool in = t < T && c < p.dm;
-            if (in)
-              p.dqq[(size_t)t * p.dm + c] =
-                  dv[ii] + r1[r] * linear_bf16(acc[i], bks[c]);
-            acc[i] = in ? r1[r] * qv[ii] : 0.f;
-          }
+          acc[i] = gv;
         }
-        colsum_pass([&](int i) { return acc[i]; },
-                    prow + p.dbk_off + kPassN * hp, p.dm_pad - kPassN * hp);
-        uint32_t w[32];
-        round_pass(acc, w);
-        stash_w(w, p.dz[n], srow0, p.dm_pad, kPassN * hp);
-        place_words(w, A, park_u, hp + 1 < hpn ? 2 : hp);
-      }
-      if (hpn == 2) unpark_bf16(park_u, A);
-      const WgLayer& HB = p.layers[n + 1];
-      for (int bp = 0; bp < (two ? 2 : 1); ++bp) {
-        wgb_pass(acc, A, rg, HB, zero);
-        if (two && bp == 0) park_f32(acc, park);
-      }
-    } else {
-      // --- the fuse step: datt_k = bf16(y) . dfused, then the gradient of
-      // y, (attn_k / den) dfused ---
-      const int cout = d.d_out;
-      float s[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < kAccRegs; ++i) {
-        const int h = (i >> 1) & 1, t = rbase + rl[h];
-        const int c = 8 * (i >> 2) + 2 * q + (i & 1);
-        float gv = 0.f;
-        if (t < T && c < cout) {
-          const float df = p.dfused[(size_t)t * cout + c];
-          s[h] += bf16_round(acc[i]) * df;
-          gv = p.attn[(size_t)t * (K + 1) + k] / r1[rl[h]] * df;
+        for (int h = 0; h < 2; ++h) {
+          const float v = quad_sum(s[h]);
+          if (q == 0 && rbase + rl[h] < T)
+            p.datt[(size_t)(rbase + rl[h]) * K + k] = v;
         }
-        acc[i] = gv;
       }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float v = quad_sum(s[h]);
-        if (q == 0) rowk[rl[h] * K + k] = v;
-      }
-    }
-    if (d.has_lo)
-      acc_ln_bwd(acc, two ? park : nullptr, zs_s, mo, ro, d.d_out, lo_a,
-                 prow + L + 2 * pd0, prow + L + 2 * pd0 + pdn);
+      if (d.has_lo)
+        acc_ln_bwd(acc, two ? park : nullptr, zs_s, mo, ro, d.d_out, lo_a,
+                   prow + L + 2 * pd0, prow + L + 2 * pd0 + pdn);
 
-    // --- the reverse walk: the last layer's epilogue (its second pass
-    // first, from acc; then the first, from the parking slots), then per
-    // layer l the product dz_l W_l^T and layer l - 1's epilogue; layer 0's
-    // product is the encoding's gradient, fp32 into the warp's rows of E ---
-    for (int pp = two ? 1 : 0; pp >= 0; --pp) {
-      if (pp == 0 && two)
+      // --- the reverse walk: the last layer's epilogue (its second pass
+      // first, from acc; then the first, from the parking slots), then per
+      // layer l the product dz_l W_l^T and layer l - 1's epilogue; layer 0's
+      // product is the encoding's gradient, fp32 into the warp's rows of E ---
+      for (int pp = two ? 1 : 0; pp >= 0; --pp) {
+        if (pp == 0 && two)
 #pragma unroll
-        for (int i = 0; i < kAccRegs; ++i) acc[i] = park[i * 128 + t_in];
-      rev_epilogue(acc, A, park_u, pp, mz, pp, pdn, prow + p.b_off[n - 1],
-                   p.dz[n - 1], srow0);
-    }
-    const int rev0 = n + (kKey ? 2 : 0);
-    for (int l = n - 1; l >= 0; --l) {
-      const WgLayer& R = p.layers[rev0 + (n - 1 - l)];
-      const int np = R.ni > kPassN ? 2 : 1;
-      const uint32_t* ml =
-          l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;
-      // Before E's rows are written: no thread reads a parking slot any
-      // more.
-      if (l == 0) named_sync(2 + wg, 128);
-      for (int pp = 0; pp < np; ++pp) {
-        wgb_pass(acc, A, rg, R, zero);
-        if (l > 0) {
-          rev_epilogue(acc, A, park_u, np == 2 ? 2 - pp : 0, ml, pp, d.pd[l],
-                       prow + p.b_off[l - 1], p.dz[l - 1], srow0);
-        } else {
+          for (int i = 0; i < kAccRegs; ++i) acc[i] = park[i * 128 + t_in];
+        rev_epilogue(acc, A, park_u, pp, mz, pp, pdn, prow + p.b_off[n - 1],
+                     p.dz[n - 1], srow0);
+      }
+      const int rev0 = n + (kKey ? 2 : 0);
+      for (int l = n - 1; l >= 0; --l) {
+        const WgLayer& R = p.layers[rev0 + (n - 1 - l)];
+        const int np = R.ni > kPassN ? 2 : 1;
+        const uint32_t* ml =
+            l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;
+        // Before E's rows are written: no thread reads a parking slot any
+        // more.
+        if (l == 0) named_sync(2 + wg, 128);
+        for (int pp = 0; pp < np; ++pp) {
+          wgb_pass(acc, A, rg, R, zero);
+          if (l > 0) {
+            rev_epilogue(acc, A, park_u, np == 2 ? 2 - pp : 0, ml, pp, d.pd[l],
+                         prow + p.b_off[l - 1], p.dz[l - 1], srow0);
+          } else {
 #pragma unroll
-          for (int i = 0; i < kAccRegs; ++i) {
-            const int c = kPassN * pp + 8 * (i >> 2) + 2 * q + (i & 1);
-            if (c < pd0) E[rl[(i >> 1) & 1] * ld + c] = acc[i];
+            for (int i = 0; i < kAccRegs; ++i) {
+              const int c = kPassN * pp + 8 * (i >> 2) + 2 * q + (i & 1);
+              if (c < pd0) E[rl[(i >> 1) & 1] * ld + c] = acc[i];
+            }
           }
         }
+        if (l > 0 && np == 2) unpark_bf16(park_u, A);
       }
-      if (l > 0 && np == 2) unpark_bf16(park_u, A);
-    }
-    __syncwarp();
+      __syncwarp();
 
-    // --- per warp: input LayerNorm backward, posenc derivative, source
-    // sums, geometry backward ---
-    float sa[kMaxWidth / 32], sb[kMaxWidth / 32];
+      // --- per warp: input LayerNorm backward, posenc derivative, source
+      // sums, geometry backward ---
+      float sa[kMaxWidth / 32], sb[kMaxWidth / 32];
 #pragma unroll
-    for (int m = 0; m < kMaxWidth / 32; ++m) sa[m] = sb[m] = 0.f;
-    const int nt = d.d_enc;
-    constexpr int kM = kMaxWidth / 32;
-    for (int r = row0; r < row0 + 16; ++r) {
-      float* row = E + r * ld;
-      const float* x = enc_s + r * pd0;
-      // The row's gradient, its saved encoding and each column's sin / cos
-      // partner, loaded before anything is written.
-      float gv[kM], xv[kM], xp[kM], fq[kM];
-#pragma unroll
-      for (int m = 0; m < kM; ++m) {
-        const int c = lane + 32 * m;
-        const int kind = c < nt ? (int)plan[2 * pd0 + c] : 0;
-        gv[m] = c < pd0 ? row[c] : 0.f;
-        xv[m] = c < nt ? x[c] : 0.f;
-        xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;
-        fq[m] = kind == 1 ? plan[pd0 + c] : kind == 2 ? -plan[pd0 + c] : 1.f;
-      }
-      if (d.has_li) {
-        const float m0 = st[r], qv = st[kWgRows + r];
-        float cs = 0.f;
+      for (int m = 0; m < kMaxWidth / 32; ++m) sa[m] = sb[m] = 0.f;
+      const int nt = d.d_enc;
+      constexpr int kM = kMaxWidth / 32;
+      for (int r = row0; r < row0 + 16; ++r) {
+        float* row = E + r * ld;
+        const float* x = enc_s + r * pd0;
+        // The row's gradient, its saved encoding and each column's sin / cos
+        // partner, loaded before anything is written.
+        float gv[kM], xv[kM], xp[kM], fq[kM];
 #pragma unroll
         for (int m = 0; m < kM; ++m) {
           const int c = lane + 32 * m;
-          if (c < nt) cs += gv[m] * lns[c] * (xv[m] - m0);
+          const int kind = c < nt ? (int)plan[2 * pd0 + c] : 0;
+          gv[m] = c < pd0 ? row[c] : 0.f;
+          xv[m] = c < nt ? x[c] : 0.f;
+          xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;
+          fq[m] = kind == 1 ? plan[pd0 + c] : kind == 2 ? -plan[pd0 + c] : 1.f;
         }
-        cs = warp_sum(cs);
-        const float sd = 1.f / qv - kLnEps;
-        const float denom = (float)(nt > 1 ? nt - 1 : 1) * fmaxf(sd, 1e-30f);
-        const float wr = sd > 0.f ? -cs * qv * qv / denom : 0.f;
-        float sum = 0.f;
+        if (d.has_li) {
+          const float m0 = st[r], qv = st[kWgRows + r];
+          float cs = 0.f;
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            const int c = lane + 32 * m;
+            if (c < nt) cs += gv[m] * lns[c] * (xv[m] - m0);
+          }
+          cs = warp_sum(cs);
+          const float sd = 1.f / qv - kLnEps;
+          const float denom = (float)(nt > 1 ? nt - 1 : 1) * fmaxf(sd, 1e-30f);
+          const float wr = sd > 0.f ? -cs * qv * qv / denom : 0.f;
+          float sum = 0.f;
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            const int c = lane + 32 * m;
+            if (c < nt) {
+              const float gg = gv[m], xm = xv[m] - m0;
+              sa[m] += gg * xm * qv;
+              sb[m] += gg;
+              gv[m] = gg * lns[c] * qv + wr * xm;
+              sum += gv[m];
+            }
+          }
+          const float mean = warp_sum(sum) / (float)nt;
+#pragma unroll
+          for (int m = 0; m < kM; ++m)
+            gv[m] = lane + 32 * m < nt ? gv[m] - mean : 0.f;
+        }
+        // _pe_freq_bwd: d sin / dx = freq cos, d cos / dx = -freq sin, from
+        // the partner column of the saved encoding (sin, cos adjacent).
 #pragma unroll
         for (int m = 0; m < kM; ++m) {
+          const int c = lane + 32 * m;
+          if (c < pd0) row[c] = gv[m] * fq[m] * xp[m];
+        }
+        __syncwarp();
+        const int gi = __float_as_int(geo[r * kGeo + 11]);
+#pragma unroll
+        for (int j = 0; j < kSrcPerLane; ++j) {
+          const int s = lane + 32 * j;
+          if (s >= p.nsrc) continue;
+          float v = 0.f;
+          for (int c = seg0[j]; c < seg1[j]; ++c) v += row[c];
+          if (s < kNGeoSrc) dgeo[r * kNGeoSrc + s] = v;
+          else if (rbase + r < T)
+            p.drec[(size_t)gi * p.rec_w + 5 + (s - kNGeoSrc)] = v;
+        }
+        __syncwarp();
+      }
+      if (d.has_li)
+#pragma unroll
+        for (int m = 0; m < kMaxWidth / 32; ++m) {
           const int c = lane + 32 * m;
           if (c < nt) {
-            const float gg = gv[m], xm = xv[m] - m0;
-            sa[m] += gg * xm * qv;
-            sb[m] += gg;
-            gv[m] = gg * lns[c] * qv + wr * xm;
-            sum += gv[m];
+            prow[L + c] += sa[m];
+            prow[L + pd0 + c] += sb[m];
           }
         }
-        const float mean = warp_sum(sum) / (float)nt;
+      if (lane < 16 && rbase + row0 + lane < T) {
+        const int r = row0 + lane, t = rbase + r;
+        const int gi = __float_as_int(geo[r * kGeo + 11]);
+        float o[3], dr[3], dsel[3], dry[3];
 #pragma unroll
-        for (int m = 0; m < kM; ++m)
-          gv[m] = lane + 32 * m < nt ? gv[m] - mean : 0.f;
-      }
-      // _pe_freq_bwd: d sin / dx = freq cos, d cos / dx = -freq sin, from
-      // the partner column of the saved encoding (sin, cos adjacent).
-#pragma unroll
-      for (int m = 0; m < kM; ++m) {
-        const int c = lane + 32 * m;
-        if (c < pd0) row[c] = gv[m] * fq[m] * xp[m];
-      }
-      __syncwarp();
-      const int gi = __float_as_int(geo[r * kGeo + 11]);
-#pragma unroll
-      for (int j = 0; j < kSrcPerLane; ++j) {
-        const int s = lane + 32 * j;
-        if (s >= p.nsrc) continue;
-        float v = 0.f;
-        for (int c = seg0[j]; c < seg1[j]; ++c) v += row[c];
-        if (s < kNGeoSrc) dgeo[r * kNGeoSrc + s] = v;
-        else if (rbase + r < T)
-          p.drec[(size_t)gi * p.rec_w + 5 + (s - kNGeoSrc)] = v;
-      }
-      __syncwarp();
-    }
-    if (d.has_li)
-#pragma unroll
-      for (int m = 0; m < kMaxWidth / 32; ++m) {
-        const int c = lane + 32 * m;
-        if (c < nt) {
-          prow[L + c] += sa[m];
-          prow[L + pd0 + c] += sb[m];
+        for (int j = 0; j < 3; ++j) {
+          o[j] = p.rayo[(size_t)t * 3 + j];
+          dr[j] = p.rays[(size_t)t * 3 + j];
         }
-      }
-    if (lane < 16 && rbase + row0 + lane < T) {
-      const int r = row0 + lane, t = rbase + r;
-      const int gi = __float_as_int(geo[r * kGeo + 11]);
-      float o[3], dr[3], dsel[3], dry[3];
+        float* drow = p.drec + (size_t)gi * p.rec_w;
+        // Sources 0..2 (the position feature) are dropped: detached.
+        geom_bwd_row(p.rec + (size_t)gi * p.rec_w, o, dr,
+                     dgeo + r * kNGeoSrc + 3, dgeo + r * kNGeoSrc + 6, p.eps,
+                     dsel, dry);
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        o[j] = p.rayo[(size_t)t * 3 + j];
-        dr[j] = p.rays[(size_t)t * 3 + j];
+        for (int j = 0; j < 3; ++j) {
+          drow[j] = dsel[j];
+          drayo_o[(size_t)t * 3 + j] -= dsel[j];
+          drays_o[(size_t)t * 3 + j] += dry[j];
+        }
+        if (kKey) drow[3] = r2[r];
       }
-      float* drow = p.drec + (size_t)gi * p.rec_w;
-      // Sources 0..2 (the position feature) are dropped: detached.
-      geom_bwd_row(p.rec + (size_t)gi * p.rec_w, o, dr,
-                   dgeo + r * kNGeoSrc + 3, dgeo + r * kNGeoSrc + 6, p.eps,
-                   dsel, dry);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        drow[j] = dsel[j];
-        p.drayo[(size_t)t * 3 + j] -= dsel[j];
-        p.drays[(size_t)t * 3 + j] += dry[j];
-      }
-      if (kKey) drow[3] = r2[r];
-    }
-    __syncwarp();
-  }
-
-  if (!kKey) {
-    // Renormalization backward (_vsr_bwd_kernel :1681-1690) per ray.
-    for (int r = row0; r < row0 + 16; ++r) {
-      const int t = rbase + r;
-      if (t >= T) continue;
-      const float* arow = p.attn + (size_t)t * (K + 1);
-      float* drow = p.dattn_out + (size_t)t * (K + 1);
-      const float den = r1[r];
-      float inner = 0.f;
-      if (p.normalize) {
-        for (int k = lane; k < K; k += 32) inner += rowk[r * K + k] * arow[k];
-        inner = warp_sum(inner) / den;
-      }
-      for (int k = lane; k < K; k += 32)
-        drow[k] = p.normalize ? (rowk[r * K + k] - inner) / den
-                              : rowk[r * K + k];
-      if (lane == 0) drow[K] = 0.f;
+      __syncwarp();
     }
   }
 }

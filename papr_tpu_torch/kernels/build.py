@@ -86,9 +86,11 @@ SIGNATURES["papr_attend_eval"] = SIGNATURES["papr_attend_eval_f32"][:-1] + [
     P, I, P]
 SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
 # The bf16 stream backwards (on wgmma) take the fp32 forms' arguments, then
-# their packed weights and its size in bytes.
+# their packed weights and its size in bytes, the grid and three device
+# buffers (per-ray sums of split tiles; the value's datt rows).
 for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd"):
-    SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, P]
+    SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P,
+                                                  P, P, P]
 
 # The int8 forms take their bf16 twin's arguments, then the walk's (two
 # walks': key, then value) int8 weights, inverse-scale rows and dequant rows,

@@ -591,8 +591,9 @@ def _wk_packs(wk, bk, pdn, dev, cdt=torch.bfloat16):
     return wkf, wkb, bkp, dm_pad
 
 
-_WG_TILE = 128          # rays a block of the bf16 backwards on wgmma
+_WG_TILE = 128          # rays a tile of the bf16 backwards on wgmma
 _WG_PART_ROWS = 8       # their partial-sum rows a block: one a warp
+_WG_GRID = 132          # their persistent grid at most: an H100's SMs
 
 
 def _check_pe_pairs(walk: Walk, what: str) -> None:
@@ -620,16 +621,22 @@ def bwd_wgmma_pack(w, wt, pd, dev, head=()) -> torch.Tensor:
     return pack_walk_wgmma(mats, dev)
 
 
+def bwd_wgmma_grid(T: int) -> int:
+    """Blocks of a bf16 backward on wgmma: one an SM, at most one a tile."""
+    return min(_WG_GRID, -(-T // _WG_TILE))
+
+
 def bwd_wgmma_buffers(walk: Walk, pd, K: int, T: int, dev, head=None,
                       extra: int = 0) -> BwdBuffers:
     """``BwdBuffers`` of a bf16 backward on wgmma: stash rows k * Tp + t (T
-    padded to the 128-ray block), one partial row a warp (8 a block), and a
+    padded to the 128-ray tile), one partial row a warp (8 a block), and a
     scratch slice a warpgroup: its 64 rows of the fp32 encoding and, with an
     output LayerNorm, its fp32 input (128 x 128 floats)."""
-    nblk = -(-T // _WG_TILE)
+    grid = bwd_wgmma_grid(T)
     per_wg = 64 * pd[0] + (128 * 128 if walk.ln_out is not None else 0)
-    return BwdBuffers(pd, K * nblk * _WG_TILE, _WG_PART_ROWS * nblk, dev,
-                      head=head, extra=extra, scratch=2 * nblk * per_wg)
+    return BwdBuffers(pd, K * -(-T // _WG_TILE) * _WG_TILE,
+                      _WG_PART_ROWS * grid, dev, head=head, extra=extra,
+                      scratch=2 * grid * per_wg)
 
 
 def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
@@ -766,7 +773,10 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
         buf = bwd_wgmma_buffers(kwalk, kpd, K, T, dev, head=(kpd[-1], dm_pad),
                                 extra=dm_pad)
         wpack = bwd_wgmma_pack(kw, kwt, kpd, dev, (wkf, wkb))
-        tail = (wpack.data_ptr(), 2 * wpack.numel())
+        aux = [torch.zeros(T, w, dtype=torch.float32, device=dev)
+               for w in (dm, 3, 3)]
+        tail = (wpack.data_ptr(), 2 * wpack.numel(), bwd_wgmma_grid(T),
+                *(a.data_ptr() for a in aux))
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
@@ -1012,7 +1022,11 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
                 "(one wgmma pass)")
         buf = bwd_wgmma_buffers(vwalk, vpd, K, T, dev)
         wpack = bwd_wgmma_pack(vw, vwt, vpd, dev)
-        tail = (wpack.data_ptr(), 2 * wpack.numel())
+        aux = [torch.empty(T, K, dtype=torch.float32, device=dev)] + [
+            torch.zeros(T, 3, dtype=torch.float32, device=dev)
+            for _ in range(2)]
+        tail = (wpack.data_ptr(), 2 * wpack.numel(), bwd_wgmma_grid(T),
+                *(a.data_ptr() for a in aux))
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)

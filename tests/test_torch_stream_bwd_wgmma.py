@@ -7,9 +7,10 @@
   ``pack_walk_t`` packs, in the order a k step streams them (an unpacking
   written independently of the packer).
 - The wrappers reach the bf16 entry points with their signature's argument
-  count, the packed weights and their size last, stash rows for T padded to
-  the 128-ray block, one partial row a warp (8 a block) and the scratch the
-  kernel reads; the fp32 forms keep their own entry points and buffers.
+  count, the packed weights, their size, the persistent grid and three
+  device buffers last; stash rows for T padded to the 128-ray tile, one
+  partial row a warp (8 a block) and the scratch the kernel reads; the fp32
+  forms keep their own entry points and buffers.
 - ``BwdBuffers`` of the new kernels: stash offsets as ``reduce`` reads them.
 - A posenc without adjacent sin / cos pairs is refused.
 
@@ -116,11 +117,12 @@ def test_key_bwd_bf16_reaches_the_wgmma_entry_point(lib, norm):
           [len(kw.cols)] + [int(w.shape[1]) for w in kw.ws]]
     dims = (list(zip(pd[:-1], pd[1:])) + [(pd[-1], 48), (48, pd[-1])]
             + [(b, a_) for a_, b in reversed(list(zip(pd[:-1], pd[1:])))])
-    assert a[-2] == sum(math.ceil(x / 64) * fm.wgmma_tile_n(y) * 128
+    # ..., the pack, its bytes, the grid, three device buffers, the stream.
+    assert a[-6] == sum(math.ceil(x / 64) * fm.wgmma_tile_n(y) * 128
                         for x, y in dims)
-    # part: 8 rows a 128-ray block; scratch per warpgroup: 64 encoded rows
-    # and, with an output LayerNorm, its 128 x 128 fp32 slice.
     nblk = math.ceil(T / 128)
+    assert a[-5] == nblk == sa.bwd_wgmma_grid(T)
+    # part: 8 rows a block; stash rows for T padded to the 128-ray tile.
     wgrads = [c[1] for c in lib.calls if c[0] == "papr_wgrad"]
     assert len(wgrads) == len(kw.ws) + 1
     assert all(c[2] == K * nblk * 128 for c in wgrads)
@@ -141,8 +143,18 @@ def test_value_bwd_bf16_reaches_the_wgmma_entry_point(lib, norm):
           [len(vw.cols)] + [int(w.shape[1]) for w in vw.ws]]
     fwd = list(zip(pd[:-1], pd[1:]))
     dims = fwd + [(b, a_) for a_, b in reversed(fwd)]
-    assert a[-2] == sum(math.ceil(x / 64) * fm.wgmma_tile_n(y) * 128
+    assert a[-6] == sum(math.ceil(x / 64) * fm.wgmma_tile_n(y) * 128
                         for x, y in dims)
+    assert a[-5] == math.ceil(T / 128)
+
+
+@pytest.mark.parametrize("T,grid", [(25_600, 132), (300, 3), (1, 1),
+                                    (16_896, 132), (16_768, 131)])
+def test_bwd_wgmma_grid(T, grid):
+    """One block an SM of an H100, never more blocks than 128-ray tiles (a
+    block's share of the (tile, k) units is then at least K long, so a tile
+    is split between at most two blocks)."""
+    assert sa.bwd_wgmma_grid(T) == grid
 
 
 def test_fp32_backwards_keep_their_entry_points(lib):
@@ -164,6 +176,11 @@ def test_bwd_buffers_of_the_wgmma_kernels():
     assert buf.scratch.numel() == 2 * 2 * (64 * 32 + 128 * 128)
     bare = sa.bwd_wgmma_buffers(walk._replace(ln_out=None), pd, 3, 200, "cpu")
     assert bare.scratch.numel() == 2 * 2 * 64 * 32
+    # A patch of 200 tiles: the persistent grid's 132 blocks hold the
+    # partial rows and scratch; the stash keeps a row per (k, ray).
+    big = sa.bwd_wgmma_buffers(walk, pd, 2, 25_600, "cpu")
+    assert big.N == 2 * 25_600 and big.nblk == 8 * 132
+    assert big.scratch.numel() == 2 * 132 * (64 * 32 + 128 * 128)
 
 
 def test_posenc_without_pairs_is_refused(lib):

@@ -59,8 +59,8 @@ MUTS = [
      "  colsum_pass([&](int i) { return bf16_round(acc[i]); }, part_db + c0, "
      "width - c0);"),
     ("bwd wgmma: the relu mask of the layer above (off by one layer)",
-     "          l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;",
-     "          l > 0 && d.act == 1 ? masks + l * 512 : nullptr;"),
+     "            l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;",
+     "            l > 0 && d.act == 1 ? masks + l * 512 : nullptr;"),
     ("bwd wgmma: one pass of the output LayerNorm's db column sums dropped",
      "  colsum_pass([&](int i) { return acc[i]; }, part_b + c1, n_true - c1);",
      ""),
@@ -70,8 +70,8 @@ MUTS = [
      "        real ? ring.base + (ring.i == 1 ? 0 : st) * kWStageBytes : zero, "
      "16, 1024);"),
     ("bwd wgmma: the posenc derivative with sin and cos swapped",
-     "        xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;",
-     "        xp[m] = kind == 1 ? x[c] : kind == 2 ? x[c] : 1.f;"),
+     "          xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;",
+     "          xp[m] = kind == 1 ? x[c] : kind == 2 ? x[c] : 1.f;"),
     ("wgmma wgrad: one split's partial dropped from the sum",
      "  for (int r = 0; r < rows; ++r) s += part[(size_t)r * cols + c];",
      "  for (int r = 0; r < rows - (rows > 1); ++r) s += part[(size_t)r * cols "

@@ -100,7 +100,8 @@ _CS = ("__device__ __forceinline__ void colsum_pass(Val val, float* dst, int nco
        "  const int lane = threadIdx.x & 31, q = lane & 3;")
 _LB = ("                                           float* part_b) {\n"
        "  const int t = threadIdx.x & 127, q = t & 3;")
-_ROWS = "    for (int r = row0; r < row0 + 16; ++r) {\n      float* row = E + r * ld;"
+_ROWS = ("      for (int r = row0; r < row0 + 16; ++r) {\n"
+         "        float* row = E + r * ld;")
 WGMMA = [
     ("wgmma: whole kernel", []),
     ("wgmma: no products", [("walk_wgmma.cuh", _MMA,
@@ -122,8 +123,8 @@ WGMMA = [
     ("wgmma: no per-warp tail (input LayerNorm bwd, posenc derivative, "
      "source sums)",
      [("walk_wgmma_bwd.cuh", _ROWS,
-       "    for (int r = row0; r < row0 + 16 && d.n < 0; ++r) {\n"
-       "      float* row = E + r * ld;")]),
+       "      for (int r = row0; r < row0 + 16 && d.n < 0; ++r) {\n"
+       "        float* row = E + r * ld;")]),
 ]
 
 
