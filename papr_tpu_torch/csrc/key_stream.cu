@@ -18,8 +18,8 @@
 // What bounds it on the H100: the walks, ~1.4 MFLOP of bf16 tensor-core
 // work per (ray, k) token forward and ~3x that backward (recompute, dX,
 // and dW in wgrad.cu); compute bound. The bf16 backward
-// (key_bwd_wgmma_kernel) runs on wgmma + TMA, 128 rays a block
-// (walk_wgmma_bwd.cuh). The other kernels: as in
+// (key_bwd_wgmma_kernel) runs on wgmma + TMA, 128-ray tiles on a persistent
+// grid (walk_wgmma_bwd.cuh). The other kernels: as in
 // attend_eval.cu, one block of 512 threads per 64-ray tile loops over k
 // inside the block (the TPU grid's sequential k axis, which carried the
 // scores and the dqq / d_rayo / d_rays sums in resident output blocks; here

@@ -17,10 +17,11 @@
 //
 // What bounds it on the H100: the walk, ~1.2 MFLOP of bf16 tensor-core work
 // per token forward and ~3x that backward; compute bound. The bf16
-// backward (value_bwd_wgmma_kernel) runs on wgmma + TMA, 128 rays a block
-// (walk_wgmma_bwd.cuh); the other kernels keep key_stream.cu's design: one
-// block of 512 threads per 64-ray tile, k inside the block, every
-// activation in shared memory. dW goes through the stash and wgrad.cu.
+// backward (value_bwd_wgmma_kernel) runs on wgmma + TMA, 128-ray tiles on a
+// persistent grid (walk_wgmma_bwd.cuh); the other kernels keep
+// key_stream.cu's design: one block of 512 threads per 64-ray tile, k
+// inside the block, every activation in shared memory. dW goes through the
+// stash and wgrad.cu.
 //
 // value_stream_i8_fwd is the forward with int8=True (tpu.int8_train,
 // stream_attn.py:1742-1746): the walk's dense stack runs walk.cuh's int8
