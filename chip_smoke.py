@@ -14,7 +14,8 @@ Phases (each prints a line; any failure exits non-zero):
    main paths' shapes (the flagship model: 30k-point cube init, k = 20,
    bf16; the orbit pose of ``bench.py`` with focal 700 at 800x800):
    cull selection on the full frame, the query embedder on its 640,000
-   rays, the eval attention on a 160x160 ray block; then, on a 160x160
+   rays, the eval attention on a 160x160 ray block (and, on its rays, the
+   bf16 stream forwards against it: they run its walk code); then, on a 160x160
    training patch cropped at a seeded offset from the same frame, the
    training selection (exact 'approx' prefilter, one 2048-wide chunk), the
    query embedder backward and the key / value streams forward and
@@ -22,9 +23,9 @@ Phases (each prints a line; any failure exits non-zero):
    record-native streams, the key stream with the query chain folded in
    (``tpu.query_fold``) and the streams on raw feature tensors
    (``tpu.fused_attn: stream``, dx per column group). Print errors and
-   times; the bf16 record-native stream backwards (on wgmma) also hold the
-   median ray's error and print the kernel alone beside the whole call,
-   the bound and the earlier WMMA kernel's times.
+   times; the bf16 record-native stream forwards and backwards (on wgmma)
+   print the kernel alone beside the whole call, the bound and the earlier
+   WMMA kernel's times, and the backwards also hold the median ray's error.
 3. Render 1 + 3 orbit frames at 800x800 through ``render_frames`` (one
    full-frame tile) and one frame through ``render_full_image`` with the
    config's 100x100 test tiles; check the frames, that every kernel of the
@@ -35,7 +36,8 @@ Phases (each prints a line; any failure exits non-zero):
    seeded random VGG16 backbone): 1 warm-up and 5 timed steps (ms/step,
    rays/s, peak memory); check the loss and gradients are finite, every
    trained group moved, every training kernel launched on each step and no
-   plain version ran; profile one step by stage; prune + grow and one more
+   plain version ran; profile one step by stage (the stream kernels named:
+   the bf16 forwards' and backwards' wgmma kernels); prune + grow and one more
    step on a fresh optimizer state; then one 32x32 step of the kernel path
    against the plain fp32 path (loss and per-group gradients), for
    ``streamrec`` + ``cull`` and for ``fused_attn: true`` + ``topk_impl:
@@ -218,6 +220,12 @@ WGRAD_F32_WMMA_MS = 4.819
 # span, tools/torch_stream_bwd_ablate.py on the parent tree in PR 9).
 STREAM_BWD_WMMA_MS = {"key_stream_bwd": (24.596, 18.738),
                       "value_stream_bwd": (23.592, 16.277)}
+# The bf16 key / value stream forwards' earlier WMMA kernels (NVIDIA H100
+# 80GB HBM3, 700 W): the whole call on phase 2's patch and the kernel alone
+# on its shapes (its profiler span, tools/torch_stream_fwd_ablate.py on the
+# tree before the redesign).
+STREAM_FWD_WMMA_MS = {"key_stream_fwd": (5.721, 5.445),
+                      "value_stream_fwd": (6.229, 5.950)}
 # Two-kernel eval frame against the one-shot kernel's frame.
 EVAL_TWO_MIN_CLOSE = 0.999
 # Tiled frames under ``stream`` and ``streamrec`` + ``query_fold`` against
@@ -550,6 +558,7 @@ def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
 
     # K3: eval attention on the central 160x160 ray block.
     results.append(compare_k3(params, state, cfg, device, n_time))
+    compare_fwd_with_k3(params, state, cfg, device)
     return results
 
 
@@ -588,6 +597,36 @@ def compare_k3(params, state, cfg, device, n_time: int) -> dict:
             "source": "papr_tpu_torch/csrc/attend_eval.cu",
             "replaces": "papr_tpu/ops/stream_attn.py:1856",
             "max_abs_err": f_abs, "ms": ms, "plain_ms": plain_ms, **k3_bound}
+
+
+def compare_fwd_with_k3(params, state, cfg, device) -> None:
+    """Phase 2: the bf16 stream forwards against K3 on K3's ray block, the
+    record gathered k-major by K3's indices (the three kernels run
+    walk_wgmma.cuh's forward walk): the key forward's attention against
+    K3's, and the value forward on K3's attention against K3's fused
+    features (K3 sums with an online softmax, the value forward renormalizes
+    the attention it is given)."""
+    import torch
+    from papr_tpu_torch.ops import stream_attn as sa
+    args, T = eval_block_args(params, state, cfg, device)
+    (record, idx, rayo_f, rays, qq, kwalk, wk, bk, vwalk, score_act, bkg,
+     normalize, eps, cdt) = args
+    fused3, attn3 = sa.attend_eval_idx(*args)
+    rec = record[idx.T.long()].contiguous()               # (K, T, 128)
+    attn = sa.key_stream_fwd(rec, rayo_f, rays, qq, kwalk, wk, bk, score_act,
+                             bkg, eps, cdt)[0]
+    fused = sa.value_stream_fwd(rec, rayo_f, rays, attn3, vwalk, normalize,
+                                eps, cdt)
+    a_abs = float((attn - attn3).abs().max())
+    f_rel = rel_fro(fused, fused3)
+    print(f"phase 2 stream forwards against K3 (T={T} K={idx.shape[1]}): key "
+          f"attn bit-equal to K3's {torch.equal(attn, attn3)} (max abs "
+          f"{a_abs:.3e}, need <= {K3_ATTN_ABS}); value fused on K3's attn "
+          f"bit-equal to K3's {torch.equal(fused, fused3)} (rel Frobenius "
+          f"{f_rel:.3e}, need <= {FWD_REL})", flush=True)
+    if not (a_abs <= K3_ATTN_ABS and f_rel <= FWD_REL):
+        fail("the stream forwards disagree with K3 on K3's rays")
+    del rec
 
 
 def compare_cli_kernels(params, state, cfg, device, n_time: int = 3) -> list:
@@ -1022,7 +1061,8 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         ``flops`` (bf16 tensor-core work) give the bound; the outputs' bytes
         are added here. With ``n_walk`` (the stream backwards on wgmma), the
         medians of ``median_rels`` are held to BWD_MEDIAN_REL[name]; with
-        ``span`` (a kernel name pattern) the kernel alone is timed too (its
+        ``span`` (a kernel name pattern: the wgmma kernel and the small
+        kernel launched after it) the kernel alone is timed too (its
         profiler span), and the bound and the WMMA kernel's times printed
         beside."""
         g = fn()
@@ -1047,7 +1087,7 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         work = bound(in_bytes + nbytes(*g), flops, BF16_FLOPS)
         line += f"; kernel {ms:.3f} ms, plain {p_ms:.3f} ms"
         alone = None
-        if span is not None:
+        if span is not None and name in STREAM_BWD_WMMA_MS:
             alone = kernel_span_ms(fn, span)
             old_call, old_alone = STREAM_BWD_WMMA_MS[name]
             line += (f"; kernel alone {alone:.3f} ms (the rest of the call "
@@ -1055,6 +1095,15 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
                      f"{work['bound_ms']:.4f} ms ({work['bound_by']}); WMMA "
                      f"kernel (PRs 2-8): call {old_call} ms, alone {old_alone} "
                      "ms")
+        elif span is not None:
+            ran = []
+            alone = kernel_span_ms(fn, span, names=ran)
+            old_call, old_alone = STREAM_FWD_WMMA_MS[name]
+            line += (f"; kernel alone {alone:.3f} ms ({' + '.join(ran)}; the "
+                     f"rest of the call {ms - alone:.3f} ms: packs, host), "
+                     f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}); "
+                     f"the earlier WMMA forward: call {old_call} ms, alone "
+                     f"{old_alone} ms")
         print(line, flush=True)
         if not ok:
             failed.append(name)
@@ -1088,7 +1137,7 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         lambda: list(sa.key_stream_fwd(*kargs, *kopts))[:2],
         lambda: list(sa.key_stream_plain(*kargs, *kopts))[:2], FWD_REL,
         ["attn", "raw"], nbytes(rec, rayo_f, rays, qq) + walk_bytes(kwalk),
-        T * k * walk_flops(kwalk, wk))
+        T * k * walk_flops(kwalk, wk), span="key_fwd_")
     # The saved scores: exactly act(raw) x influence of the kernel's own
     # raw, and against the plain version's on the alive scores whose relu
     # both forwards agree on (the rest differ by a switched-off score).
@@ -1129,7 +1178,7 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         lambda: [sa.value_stream_fwd(*vargs, *vopts)],
         lambda: [sa.value_stream_plain(*vargs, *vopts)], FWD_REL, ["fused"],
         nbytes(rec, rayo_f, rays, attn) + walk_bytes(vwalk),
-        T * k * walk_flops(vwalk))
+        T * k * walk_flops(vwalk), span="value_fwd_")
     dfused = randn(T, int(vwalk.ws[-1].shape[1]))
     record_case(
         "value_stream_bwd", "papr_tpu_torch/csrc/value_stream.cu",
@@ -1160,14 +1209,16 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         FWD_REL, ["attn", "raw", "qq"], q_bytes, q_flops,
         fwd_tol=STREAM_ATTN_ABS)
     ss_q = sa.key_stream_q_fwd(*qargs, *kopts)[2]
-    # On its own qq the folded kernel is the unfolded kernel.
+    # On its own qq the folded kernel computes the unfolded kernel's function
+    # (the bf16 unfolded forward runs on wgmma: another summation order).
     attn_u, raw_u, ss_u = sa.key_stream_fwd(rec, rayo_f, rays, qq_q, kwalk,
                                             wk, bk, *kopts)
-    same_fn = (torch.equal(attn_q, attn_u) and torch.equal(raw_q, raw_u)
-               and torch.equal(ss_q, ss_u))
-    print(f"phase 2 key_stream_q_fwd on its own qq equals key_stream_fwd bit "
-          f"for bit: {same_fn}", flush=True)
-    if not same_fn:
+    u_attn = float((attn_q - attn_u).abs().max())
+    u_raw = rel_fro(raw_q, raw_u)
+    print(f"phase 2 key_stream_q_fwd on its own qq against key_stream_fwd: "
+          f"attn max abs {u_attn:.3e} (need <= {STREAM_ATTN_ABS}), raw rel "
+          f"Frobenius {u_raw:.3e} (need <= {FWD_REL})", flush=True)
+    if not (u_attn <= STREAM_ATTN_ABS and u_raw <= FWD_REL):
         failed.append("key_stream_q_fwd vs key_stream_fwd")
     relu_q = raw_q > 0
     record_case(
@@ -1242,14 +1293,17 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     return out
 
 
-def kernel_span_ms(fn, pattern: str, n: int = 3) -> float:
+def kernel_span_ms(fn, pattern: str, n: int = 3, names=None) -> float:
     """Device time per call of the kernels whose name holds ``pattern``, over
     n calls of fn under the profiler (after one warm-up): a wrapper's kernel
-    without the small launches around it. NaN if the profiler saw none."""
+    without the small launches around it. NaN if the profiler saw none.
+    ``names``, a list, receives those kernels' names (without arguments)."""
     fn()
     _, _, spans = device_profile(lambda: [fn() for _ in range(n)])
-    hit = [e0 - s0 for s0, e0, name in spans if pattern in name]
-    return sum(hit) / n / 1e3 if hit else float("nan")
+    hit = [(e0 - s0, name) for s0, e0, name in spans if pattern in name]
+    if names is not None:
+        names.extend(sorted({name.split("(")[0] for _, name in hit}))
+    return sum(t for t, _ in hit) / n / 1e3 if hit else float("nan")
 
 
 def load_tool(name: str):
@@ -2574,11 +2628,11 @@ TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("embedder bwd", "fused_mlp_bwd_kernel"),
                 ("fused scores fwd", "fused_scores_fwd_kernel"),
                 ("fused scores bwd", "fused_scores_bwd_kernel"),
-                ("key stream fwd", "key_fwd_kernel"),
+                ("key stream fwd", "key_fwd_"),
                 ("key stream fwd (int8)", "key_i8_fwd_kernel"),
                 ("value stream fwd (int8)", "value_i8_fwd_kernel"),
                 ("key stream bwd", "key_bwd_"),
-                ("value stream fwd", "value_fwd_kernel"),
+                ("value stream fwd", "value_fwd_"),
                 ("value stream bwd", "value_bwd_"),
                 ("key stream fwd (query folded)", "keyq_fwd_kernel"),
                 ("key stream bwd (query folded)", "keyq_bwd_kernel"),
@@ -2690,6 +2744,14 @@ def profile_train_step(step_fn, params, opt, state, cfg, rayo, rayd, target,
     print(f"phase 4 profile: one step, {wall_ms:.1f} ms under the profiler; "
           f"device idle share {idle:.4f}; kernel time {total:.3f} ms: "
           f"{split}", flush=True)
+    # The bf16 stream forwards and backwards ran their wgmma kernels.
+    names = {n for _, _, n in spans}
+    wg = {k: any(k in n for n in names)
+          for k in ("key_fwd_wgmma_kernel", "value_fwd_wgmma_kernel",
+                    "key_bwd_wgmma_kernel", "value_bwd_wgmma_kernel")}
+    print(f"phase 4 profile names the stream wgmma kernels: {wg}", flush=True)
+    if not all(wg.values()):
+        fail(f"the training step did not run the stream wgmma kernels: {wg}")
 
     feats = torch.randn(1, PATCH, PATCH,
                         int(cfg.models.attn.embed.value.d_ff_out),

@@ -18,11 +18,12 @@
 // (K, T, 128) tensor (6.55 GB at one 800x800 tile).
 //
 // attend_eval_wgmma_kernel (bf16, papr_attend_eval; below) runs the walks
-// on wgmma with the activations in registers (walk_wgmma.cuh), 128 rays a
-// block. The other forms share one tile function on walk.cuh's WMMA walk:
-// one block of 512 threads per 64-ray tile, every activation in shared
-// memory, each layer's weights staged by cp.async once per (tile, k) step
-// and shared by the 16 warps.
+// on wgmma with the activations in registers, 128 rays a block, on
+// walk_wgmma.cuh's forward walk, the code the bf16 stream forwards
+// (key_stream.cu, value_stream.cu) run too. The int8 and fp32 forms share
+// one tile function on walk.cuh's WMMA walk: one block of 512 threads per
+// 64-ray tile, every activation in shared memory, each layer's weights
+// staged by cp.async once per (tile, k) step and shared by the 16 warps.
 //
 // attend_eval_i8 is the same call with quant=True (tpu.int8_eval): both
 // walks' dense stacks run walk.cuh's int8 walk (walk_body_fwd_q in
@@ -217,20 +218,14 @@ attend_eval_i8_kernel(const float* __restrict__ record, int rec_w,
 
 // ------------------------------------------------- bf16: on wgmma + TMA ----
 //
-// The bf16 kernel (papr_attend_eval) is the same function on walk_wgmma.cuh:
-// a block of two warpgroups takes 128 rays; each warpgroup owns 64 of them
-// and loops over k, and the two read every layer's packed weight chunks (key
-// layers, w_k, value layers, once per k) from one TMA-fed ring. A warp owns
-// 16 rays end to end: it writes their geometry and posenc to its rows of
-// shared memory (lanes over columns, as encode_rec), takes the input
-// LayerNorm there and rounds to bf16 in place, loads the A fragments, and
-// from then on the layers, the output LayerNorm, the w_k product, the
-// score and the online softmax run on the accumulator in registers; only
-// warp barriers inside a warpgroup, and one per k step over the warpgroup
-// (the parking slices). The rounding points are the tile function's:
-// activations bf16 between layers, fp32 bias, LayerNorm statistics in fp32
-// with the unbiased std, y_k rounded to bf16 before w_k, the value rows
-// rounded before the fuse.
+// The bf16 kernel (papr_attend_eval) is the same function on walk_wgmma.cuh's
+// forward walk, which the bf16 stream forwards (key_stream.cu,
+// value_stream.cu) run too: a block of two warpgroups takes 128 rays; each
+// warpgroup owns 64 of them and loops over k, and the two read every
+// layer's packed weight chunks (key layers, w_k, value layers, once per k)
+// from one TMA-fed ring. A token's record row is idx[t * K + k]. After the
+// key walk and the score, the value walk's fp32 rows, rounded to bf16, go
+// into a background-seeded online softmax.
 
 struct EvalWg {
   const float* record;
@@ -259,174 +254,43 @@ struct EvalWg {
   int wg_floats;                 // per-warpgroup tiles, floats
   int e_floats;                  // of which the encoding / parking tile
   int nb[2], nln[2], nplan[2];   // parameter rows staged (key, value)
+  int n_prm;                     // all staged parameter floats
 };
-
-constexpr int kMaxStages = 8;    // weight ring depth at most
-constexpr int kGeoW = 12;        // geometry row: sel, proj, perp, influ,
-                                 // alive, record row (as int bits)
-
-// The warp's 16 rows of one walk's posenc into E (fp32, ld floats a row),
-// lanes over columns; pad lanes 0.
-__device__ __forceinline__ void wg_encode(float* E, int ld, const WalkDesc& d,
-                                          const float* plan, const float* geo,
-                                          const float* __restrict__ record,
-                                          int rec_w, int row0) {
-  const int lane = threadIdx.x & 31, pd0 = d.pd[0];
-  for (int c = lane; c < pd0; c += 32) {
-    const bool live = c < d.d_enc;
-    const int src = live ? (int)plan[c] : 0;
-    const float freq = live ? plan[pd0 + c] : 0.f;
-    const int kind = live ? (int)plan[2 * pd0 + c] : 0;
-    for (int r = row0; r < row0 + 16; ++r) {
-      float v = 0.f;
-      if (live) {
-        const float* gr = geo + r * kGeoW;
-        const float x = src < kNGeoSrc
-            ? gr[src]
-            : record[(size_t)__float_as_int(gr[11]) * rec_w + 5 +
-                     (src - kNGeoSrc)];
-        v = encode_value(x, freq, kind);
-      }
-      E[r * ld + c] = v;
-    }
-  }
-}
-
-// The warp's 16 encoded rows through the input LayerNorm (or as they are)
-// and rounded to bf16 in place: row r's bf16 values at the start of its
-// fp32 row.
-__device__ __forceinline__ void wg_rows_to_bf16(float* E, int ld,
-                                                const WalkDesc& d,
-                                                const float* ln, int row0) {
-  const int lane = threadIdx.x & 31, pd0 = d.pd[0], n = d.d_enc;
-  for (int r = row0; r < row0 + 16; ++r) {
-    float* row = E + r * ld;
-    float v[kMaxWidth / 32];
-#pragma unroll
-    for (int m = 0; m < kMaxWidth / 32; ++m) {
-      const int c = lane + 32 * m;
-      v[m] = c < pd0 ? row[c] : 0.f;
-    }
-    if (d.has_li) {
-      float s = 0.f;
-#pragma unroll
-      for (int m = 0; m < kMaxWidth / 32; ++m)
-        if (lane + 32 * m < n) s += v[m];
-      const float mu = warp_sum(s) / (float)n;
-      float q = 0.f;
-#pragma unroll
-      for (int m = 0; m < kMaxWidth / 32; ++m)
-        if (lane + 32 * m < n) {
-          const float dv = v[m] - mu;
-          q += dv * dv;
-        }
-      const float var = warp_sum(q) / (float)(n > 1 ? n - 1 : 1);
-      const float rr = 1.f / (sqrtf(var) + kLnEps);
-#pragma unroll
-      for (int m = 0; m < kMaxWidth / 32; ++m) {
-        const int c = lane + 32 * m;
-        v[m] = c < n ? (v[m] - mu) * rr * ln[c] + ln[pd0 + c] : 0.f;
-      }
-    }
-    __syncwarp();
-    __nv_bfloat16* rb = reinterpret_cast<__nv_bfloat16*>(row);
-#pragma unroll
-    for (int m = 0; m < kMaxWidth / 32; ++m) {
-      const int c = lane + 32 * m;
-      if (c < pd0) rb[c] = __float2bfloat16_rn(v[m]);
-    }
-  }
-  __syncwarp();
-}
-
-// One dense layer of a walk, A -> A: bias, activation, then (ln_a) the
-// walk's output LayerNorm over n_true columns; a 256-wide layer in two
-// passes, the first one's output parked meanwhile (bf16, or fp32 for the
-// LayerNorm).
-__device__ __forceinline__ void wg_dense(float (&acc)[kAccRegs],
-                                         uint32_t (&A)[kARegs], WgRing& rg,
-                                         const unsigned char* zero,
-                                         float* park, const WgLayer& L,
-                                         const float* bias, int act,
-                                         const float* ln_a,
-                                         const float* ln_b, int n_true) {
-  if (L.ni <= kPassN) {
-    wg_pass(acc, A, rg, L, zero);
-    acc_bias_act(acc, bias, L.pd_out, act);
-    if (ln_a) acc_layernorm(acc, nullptr, n_true, ln_a, ln_b);
-    acc_to_a<0>(acc, A);
-    return;
-  }
-  wg_pass(acc, A, rg, L, zero);
-  acc_bias_act(acc, bias, kPassN, act);
-  if (ln_a) park_f32(acc, park);
-  else park_bf16(acc, reinterpret_cast<uint32_t*>(park));
-  wg_pass(acc, A, rg, L, zero);
-  acc_bias_act(acc, bias + kPassN, L.pd_out - kPassN, act);
-  if (ln_a) {
-    acc_layernorm(acc, park, n_true, ln_a, ln_b);
-    acc_to_a<32>(acc, A);
-    const int t = threadIdx.x & 127;
-#pragma unroll
-    for (int i = 0; i < kAccRegs / 2; ++i)
-      A[i] = pack_bf16(park[(2 * i) * 128 + t], park[(2 * i + 1) * 128 + t]);
-  } else {
-    acc_to_a<32>(acc, A);
-    unpark_bf16(reinterpret_cast<const uint32_t*>(park), A);
-  }
-}
 
 __global__ void __launch_bounds__(kWgThreads, 1)
 attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* zero = smem;                     // one zero chunk
-  unsigned char* ring = smem + kWStageBytes;
-  float* tiles = reinterpret_cast<float*>(ring + p.stages * kWStageBytes);
+  const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm);
   // Parameter rows: key biases, LayerNorms, plan, then b_k, then value.
-  float* kbias = tiles + 2 * p.wg_floats;
+  float* kbias = sm.prm;
   float* kln = kbias + p.nb[0];
   float* kplan = kln + p.nln[0];
   float* bks = kplan + p.nplan[0];
   float* vbias = bks + p.dm_pad;
   float* vln = vbias + p.nb[1];
   float* vplan = vln + p.nln[1];
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      (reinterpret_cast<uintptr_t>(vplan + p.nplan[1]) + 7) & ~uintptr_t(7));
-  int* released = reinterpret_cast<int*>(full + p.stages);
-  const int tid = threadIdx.x;
   {
-    const float* src[7] = {p.kd.b[0], p.kd.ln, p.kd.plan, p.bk,
-                           p.vd.b[0], p.vd.ln, p.vd.plan};
-    float* dst[7] = {kbias, kln, kplan, bks, vbias, vln, vplan};
+    const float* const src[7] = {p.kd.b[0], p.kd.ln, p.kd.plan, p.bk,
+                                 p.vd.b[0], p.vd.ln, p.vd.plan};
     const int cnt[7] = {p.nb[0], p.nln[0], p.nplan[0], p.dm_pad,
                         p.nb[1], p.nln[1], p.nplan[1]};
-#pragma unroll
-    for (int a = 0; a < 7; ++a)
-      for (int i = tid; i < cnt[a]; i += kWgThreads) dst[a][i] = src[a][i];
+    wg_prologue(sm, p.stages, src, cnt);
   }
-  for (int i = tid; i < kWStageBytes / 16; i += kWgThreads)
-    reinterpret_cast<uint4*>(zero)[i] = make_uint4(0, 0, 0, 0);
-  fence_async_smem();
-  if (tid < p.stages) released[tid] = 0;
-  if (tid == 0) {
-    for (int s = 0; s < p.stages; ++s) mbar_init(&full[s], 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
+  const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int n_key = p.kd.n;
-  WgRing rg{ring, full, released, p.stages, 0, p.n_chunks,
+  WgRing rg{sm.ring, sm.full, sm.released, p.stages, 0, p.n_chunks,
             p.n_chunks * p.K, p.chunks, p.w};
-  if (tid == 0)
-    for (int j = 0; j < p.stages && j < rg.total; ++j) wg_issue(rg, j);
+  wg_ring_start(rg);
+  const WgWalk kw{&p.kd, kbias, kln, kplan, p.layers};
+  const WgWalk vw{&p.vd, vbias, vln, vplan, p.layers + n_key + 1};
   {
     const int t_in = tid & 127, w = t_in >> 5, lane = t_in & 31;
     const int g = lane >> 2, q = lane & 3;
     const int row0 = 16 * w;                            // the warp's rows
     const int ld = p.ld;
-    float* geo = tiles + wg * p.wg_floats;              // kWgRows x kGeoW
-    float* E = geo + kWgRows * kGeoW;                   // kWgRows x ld
+    float* geo = sm.tiles + wg * p.wg_floats;           // kWgRows x kGeo
+    float* E = geo + kWgRows * kGeo;                    // kWgRows x ld
     const int cout = p.vd.d_out;
     float* accv = E + p.e_floats;                       // kWgRows x cout
     const int rbase = blockIdx.x * kWgTile + wg * kWgRows;
@@ -447,144 +311,59 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
       // Every warp of the warpgroup is done with the parking slices (they
       // overlap the encoding rows) before any writes its encoding.
       named_sync(2 + wg, 128);
-      // --- geometry of the warp's rows (ops/geometry.py) ---
-      if (lane < 16) {
-        const int r = row0 + lane, t = rbase + r;
-        const bool valid = t < T;
-        const int gi = valid ? p.idx[(size_t)t * K + k] : 0;
-        const float* rec = p.record + (size_t)gi * p.rec_w;
-        float o[3], dr[3], v[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          o[j] = valid ? p.rayo[(size_t)t * 3 + j] : 0.f;
-          dr[j] = valid ? p.rays[(size_t)t * 3 + j] : 0.f;
-          v[j] = rec[j] - o[j];
-        }
-        const float t_al = v[0] * dr[0] + v[1] * dr[1] + v[2] * dr[2];
-        const float dd = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2];
-        const float cc = t_al / (dd + p.eps);
-        float* gr = geo + r * kGeoW;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float proj = dr[j] * cc;
-          gr[j] = rec[j];
-          gr[3 + j] = proj;
-          gr[6 + j] = v[j] - proj;
-        }
-        gr[9] = rec[3];
-        gr[10] = rec[4];
-        gr[11] = __int_as_float(gi);
-      }
-      __syncwarp();
+      wg_geometry(geo, p.record, p.rec_w, p.rayo, p.rays, T, rbase, row0,
+                  p.eps, [&](int t) { return p.idx[(size_t)t * K + k]; });
 
       // --- key walk -> w_k -> score ---
-      wg_encode(E, ld, p.kd, kplan, geo, p.record, p.rec_w, row0);
-      __syncwarp();
-      wg_rows_to_bf16(E, ld, p.kd, kln, row0);
-      smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld),
-                4 * ld, p.kd.pd[0], A);
-      for (int l = 0; l < n_key; ++l) {
-        const bool last = l + 1 == n_key;
-        const bool ln = last && p.kd.has_lo;
-        wg_dense(acc, A, rg, zero, park_f, p.layers[l],
-                 kbias + (p.kd.b[l] - p.kd.b[0]),
-                 last ? p.kd.last_act : p.kd.act,
-                 ln ? kln + 2 * p.kd.pd[0] : nullptr,
-                 kln + 2 * p.kd.pd[0] + p.kd.pd[n_key], p.kd.d_out);
-      }
-      {
-        const WgLayer& L = p.layers[n_key];
-        float s[2] = {0.f, 0.f};
-        for (int pass = 0; pass < (L.ni > kPassN ? 2 : 1); ++pass) {
-          wg_pass(acc, A, rg, L, zero);
+      wg_walk(acc, A, rg, sm.zero, E, ld, kw, geo, p.record, p.rec_w, row0,
+              false);
+      float col[2];
+      wg_score(acc, A, rg, sm.zero, p.layers[n_key], p.qq, p.dm, bks,
+               p.sqrt_dm, T, rbase, rl, col);
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int t = rbase + rl[h];
-            if (t >= T) continue;
-            const float* qrow = p.qq + (size_t)t * p.dm;
-#pragma unroll
-            for (int j = 0; j < kAccRegs / 4; ++j)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int c = kPassN * pass + 8 * j + 2 * q + e;
-                if (c < p.dm)
-                  s[h] += qrow[c] * linear_bf16(acc[4 * j + 2 * h + e], bks[c]);
-              }
-          }
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int t = rbase + rl[h];
-          const float col = quad_sum(s[h]) / p.sqrt_dm;
-          const float sact = p.score_relu ? fmaxf(col, 0.f) : col;
-          const float* gr = geo + rl[h] * kGeoW;
-          ss[h] = gr[10] > 0.5f ? sact * gr[9] : kNegBig;
-          if (q == 0 && t < T) p.attn[(size_t)t * (K + 1) + k] = ss[h];
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int t = rbase + rl[h];
+        const float* gr = geo + rl[h] * kGeo;
+        ss[h] = masked_score(col[h], p.score_relu, gr[9], gr[10] > 0.5f);
+        if (q == 0 && t < T) p.attn[(size_t)t * (K + 1) + k] = ss[h];
       }
 
-      // --- value walk -> online softmax-weighted accumulation ---
-      wg_encode(E, ld, p.vd, vplan, geo, p.record, p.rec_w, row0);
-      __syncwarp();
-      wg_rows_to_bf16(E, ld, p.vd, vln, row0);
-      smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld),
-                4 * ld, p.vd.pd[0], A);
-      const int nv = p.vd.n;
-      for (int l = 0; l + 1 < nv; ++l)
-        wg_dense(acc, A, rg, zero, park_f, p.layers[n_key + 1 + l],
-                 vbias + (p.vd.b[l] - p.vd.b[0]), p.vd.act, nullptr, nullptr,
-                 0);
-      {
-        // The last value layer: fp32 rows (LayerNorm'd if the walk has
-        // one), rounded to bf16 as the fuse reads them.
-        const WgLayer& L = p.layers[n_key + nv];
-        const float* bias = vbias + (p.vd.b[nv - 1] - p.vd.b[0]);
-        const int act = p.vd.last_act;
-        const bool two = L.ni > kPassN;
-        const float* lo = vln + 2 * p.vd.pd[0];
-        wg_pass(acc, A, rg, L, zero);
-        acc_bias_act(acc, bias, two ? kPassN : L.pd_out, act);
-        if (two) {
-          park_f32(acc, park_f);
-          wg_pass(acc, A, rg, L, zero);
-          acc_bias_act(acc, bias + kPassN, L.pd_out - kPassN, act);
-        }
-        if (p.vd.has_lo)
-          acc_layernorm(acc, two ? park_f : nullptr, p.vd.d_out, lo,
-                        lo + p.vd.pd[nv]);
-        const int tt = tid & 127;
+      // --- value walk -> online softmax-weighted accumulation of its fp32
+      // rows, rounded to bf16 as the fuse reads them ---
+      const bool two = wg_walk(acc, A, rg, sm.zero, E, ld, vw, geo, p.record,
+                               p.rec_w, row0, true);
+      const int tt = tid & 127;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float m_new = fmaxf(m_run[h], ss[h]);
-          const float scale = expf(m_run[h] - m_new);
-          const float e = expf(ss[h] - m_new);
-          float* arow = accv + rl[h] * cout;
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m_run[h], ss[h]);
+        const float scale = expf(m_run[h] - m_new);
+        const float e = expf(ss[h] - m_new);
+        float* arow = accv + rl[h] * cout;
 #pragma unroll
-          for (int j = 0; j < kAccRegs / 4; ++j)
+        for (int j = 0; j < kAccRegs / 4; ++j)
 #pragma unroll
-            for (int x = 0; x < 2; ++x) {
-              const int i = 4 * j + 2 * h + x, c = 8 * j + 2 * q + x;
-              if (two && c < cout)
-                arow[c] = arow[c] * scale + e * bf16_round(park_f[i * 128 + tt]);
-              const int c1 = (two ? kPassN : 0) + c;
-              if (c1 < cout)
-                arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);
-            }
-          m_run[h] = m_new;
-        }
+          for (int x = 0; x < 2; ++x) {
+            const int i = 4 * j + 2 * h + x, c = 8 * j + 2 * q + x;
+            if (two && c < cout)
+              arow[c] = arow[c] * scale + e * bf16_round(park_f[i * 128 + tt]);
+            const int c1 = (two ? kPassN : 0) + c;
+            if (c1 < cout)
+              arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);
+          }
+        m_run[h] = m_new;
       }
     }
 
     // --- background-token softmax, renormalized fuse (warp per row) ---
     if (q == 0) {
-      geo[rl[0] * kGeoW + 11] = m_run[0];
-      geo[rl[1] * kGeoW + 11] = m_run[1];
+      geo[rl[0] * kGeo + 11] = m_run[0];
+      geo[rl[1] * kGeo + 11] = m_run[1];
     }
     __syncwarp();
     for (int r = row0; r < row0 + 16; ++r) {
       const int t = rbase + r;
       if (t >= T) continue;
-      const float m = geo[r * kGeoW + 11];
+      const float m = geo[r * kGeo + 11];
       float* arow = p.attn + (size_t)t * (K + 1);
       float z = 0.f;
       for (int k = lane; k < K; k += 32) z += expf(arow[k] - m);
@@ -618,43 +397,25 @@ static int launch_attend_eval_wgmma(
   if (K <= 0 || K > 128) return -202;
   if (T <= 0) return 0;
   int dims[kWgMaxLayers][2], n = 0;
-  for (int i = 0; i < p.kd.n; ++i, ++n) {
-    dims[n][0] = p.kd.pd[i];
-    dims[n][1] = p.kd.pd[i + 1];
-  }
+  wg_walk_dims(dims, &n, p.kd);
   dims[n][0] = p.kd.pd[p.kd.n];
   dims[n++][1] = dm_pad;
-  for (int i = 0; i < p.vd.n; ++i, ++n) {
-    dims[n][0] = p.vd.pd[i];
-    dims[n][1] = p.vd.pd[i + 1];
-  }
+  wg_walk_dims(dims, &n, p.vd);
   if (wg_plan(p.layers, dims, n) != wbytes || !wpack ||
       reinterpret_cast<uintptr_t>(wpack) % 16)
     return -204;
   p.n_chunks = wg_chunks(p.chunks, p.layers, n);
-  const WalkDesc* d[2] = {&p.kd, &p.vd};
-  for (int h = 0; h < 2; ++h) {
-    int nb = 0;
-    for (int i = 1; i <= d[h]->n; ++i) nb += d[h]->pd[i];
-    p.nb[h] = nb;
-    p.nln[h] = 2 * d[h]->pd[0] + 2 * d[h]->pd[d[h]->n];
-    p.nplan[h] = 3 * d[h]->pd[0];
-  }
+  wg_walk_rows(p.kd, &p.nb[0], &p.nln[0], &p.nplan[0]);
+  wg_walk_rows(p.vd, &p.nb[1], &p.nln[1], &p.nplan[1]);
+  p.n_prm = p.nb[0] + p.nln[0] + p.nplan[0] + dm_pad + p.nb[1] + p.nln[1] +
+            p.nplan[1];
   const int pd0 = p.kd.pd[0] > p.vd.pd[0] ? p.kd.pd[0] : p.vd.pd[0];
-  p.ld = (pd0 + 31) / 32 * 32 + 4;      // 16-byte rows on distinct banks
-  // The encoding tile doubles as the parking slices between two passes.
-  const int e_floats = kWgRows * p.ld > kParkWords * 128
-      ? kWgRows * p.ld : kParkWords * 128;
-  p.wg_floats = kWgRows * kGeoW + e_floats + kWgRows * p.vd.d_out;
-  p.e_floats = e_floats;
-  const size_t rest = 1024 + kWStageBytes + sizeof(float) * (
-      2 * (size_t)p.wg_floats +
-      p.nb[0] + p.nln[0] + p.nplan[0] + dm_pad + p.nb[1] + p.nln[1] +
-      p.nplan[1]) + 8 + kMaxStages * (sizeof(uint64_t) + sizeof(int));
-  if (rest + 2 * (size_t)kWStageBytes > 232448) return -203;
-  p.stages = (int)((232448 - rest) / kWStageBytes);
-  if (p.stages > kMaxStages) p.stages = kMaxStages;
-  const size_t smem = rest + (size_t)p.stages * kWStageBytes;
+  p.ld = wg_ld(pd0);
+  p.e_floats = wg_e_floats(p.ld);
+  p.wg_floats = kWgRows * kGeo + p.e_floats + kWgRows * p.vd.d_out;
+  size_t smem = 0;
+  err = wg_ring_fit(wg_smem_rest(2 * p.wg_floats, p.n_prm), &p.stages, &smem);
+  if (err) return err;
   p.record = record;
   p.rec_w = rec_w;
   p.idx = idx;

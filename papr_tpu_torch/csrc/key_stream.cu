@@ -17,28 +17,37 @@
 //
 // What bounds it on the H100: the walks, ~1.4 MFLOP of bf16 tensor-core
 // work per (ray, k) token forward and ~3x that backward (recompute, dX,
-// and dW in wgrad.cu); compute bound. The bf16 backward
-// (key_bwd_wgmma_kernel) runs on wgmma + TMA, 128-ray tiles on a persistent
-// grid (walk_wgmma_bwd.cuh). The other kernels: as in
-// attend_eval.cu, one block of 512 threads per 64-ray tile loops over k
-// inside the block (the TPU grid's sequential k axis, which carried the
-// scores and the dqq / d_rayo / d_rays sums in resident output blocks; here
-// the block owns its rays' rows, so they accumulate without atomics), and
-// every activation stays in shared memory. The record is read pre-gathered
+// and dW in wgrad.cu); compute bound. The record is read pre-gathered
 // k-major, (K, T, rec_w), the JAX kernels' layout; d_rec is a plain
-// (K, T, rec_w) output that autograd scatter-adds into the (P, rec_w) record.
+// (K, T, rec_w) output that autograd scatter-adds into the (P, rec_w)
+// record.
+//
+// bf16, the training path's forms, run on wgmma + TMA with 128-ray tiles on
+// a persistent grid over (tile, k) units (one block an SM), the
+// activations in registers between layers and the weights in a TMA-fed
+// ring: the forward (key_fwd_wgmma_kernel, papr_key_stream_fwd) on
+// walk_wgmma.cuh's forward walk, the code of the one-shot eval attention
+// (attend_eval.cu), followed by a small kernel for the softmax; the
+// backward (key_bwd_wgmma_kernel, papr_key_stream_bwd) on
+// walk_wgmma_bwd.cuh.
+//
+// The other forms keep walk.cuh's WMMA walk, as attend_eval.cu's int8 and
+// fp32 forms do: one block of 512 threads per 64-ray tile loops over k
+// inside the block (the TPU grid's sequential k axis, which carried the
+// scores and the dqq / d_rayo / d_rays sums in resident output blocks;
+// here the block owns its rays' rows, so they accumulate without atomics),
+// and every activation stays in shared memory.
 //
 // key_stream_i8_fwd is the forward with int8=True (tpu.int8_train,
 // stream_attn.py:1013-1017): the walk's dense stack runs walk.cuh's int8
 // walk on a quantization the wrapper calibrated on this call's record; the
 // raw dots and masked scores it saves are the int8 forward's. The backward
-// above takes no flag: it recomputes the walk in bf16 (straight-through; the
+// takes no flag: it recomputes the walk in bf16 (straight-through; the
 // fp32 backward after key_stream_i8_f32_fwd).
 //
-// key_stream_f32_fwd / key_stream_f32_bwd are the same two kernels on the
-// fp32 walk (use_amp: false): fp32 walk, w_k product and bias (walk.cuh's
-// 3xTF32 products), fp32 stash and dW. Shared memory is the bf16 kernels'
-// byte for byte (walk.cuh), so key_rec_*_smem hold for both.
+// key_stream_f32_fwd / key_stream_f32_bwd are the WMMA kernels on the fp32
+// walk (use_amp: false): fp32 walk, w_k product and bias (walk.cuh's
+// 3xTF32 products), fp32 stash and dW; key_rec_*_smem hold for them.
 // key_stream_i8_f32_fwd is the int8 forward beside fp32 compute: the int8
 // walk, then the fp32 w_k product and bias on the unrounded y_k; its
 // backward is key_stream_f32_bwd on the raw dots and scores it saved.
@@ -125,13 +134,17 @@ static int launch_key_fwd(
   if (T <= 0) return 0;
   const size_t smem = key_rec_fwd_smem(K);
   if (smem > 232448) return -203;
-  cudaError_t e = int8
-      ? cudaFuncSetAttribute(key_i8_fwd_kernel<Op>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem)
-      : cudaFuncSetAttribute(key_fwd_kernel<Op>,
+  cudaError_t e;
+  if (int8)
+    e = cudaFuncSetAttribute(key_i8_fwd_kernel<Op>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
+  else if constexpr (kF32<Op>)
+    e = cudaFuncSetAttribute(key_fwd_kernel<Op>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  else
+    return -205;
   if (e != cudaSuccess) return (int)e;
   const int grid = (T + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -144,24 +157,99 @@ static int launch_key_fwd(
         static_cast<float*>(raw), static_cast<float*>(ss));
     return (int)cudaGetLastError();
   }
-  key_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
-      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp, dm_pad,
-      score_relu, bkg, eps, static_cast<float*>(attn),
-      static_cast<float*>(raw), static_cast<float*>(ss));
-  return (int)cudaGetLastError();
+  // The tile function's own kernel runs the fp32 walk only; the bf16 walk
+  // runs key_fwd_wgmma_kernel.
+  if constexpr (kF32<Op>) {
+    key_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
+        rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp, dm_pad,
+        score_relu, bkg, eps, static_cast<float*>(attn),
+        static_cast<float*>(raw), static_cast<float*>(ss));
+    return (int)cudaGetLastError();
+  } else {
+    return -205;
+  }
 }
 
+__global__ void __launch_bounds__(kWgThreads, 1)
+key_fwd_wgmma_kernel(const __grid_constant__ StreamFwdWg p) {
+  stream_fwd_wg<true>(p);
+}
+
+// After key_fwd_wgmma_kernel, a warp per ray: the background-token softmax
+// (stream_attn.py _softmax_s) of the ray's K masked scores -> attn (T, K+1),
+// background last.
+__global__ void key_fwd_softmax_kernel(const float* __restrict__ ss, int T,
+                                       int K, float bkg,
+                                       float* __restrict__ attn) {
+  const int lane = threadIdx.x & 31;
+  const int nw = gridDim.x * blockDim.x >> 5;
+  for (int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; t < T;
+       t += nw) {
+    const float* srow = ss + (size_t)t * K;
+    float m = bkg;
+    for (int k = lane; k < K; k += 32) m = fmaxf(m, srow[k]);
+    m = warp_max(m);
+    float z = 0.f;
+    for (int k = lane; k < K; k += 32) z += expf(srow[k] - m);
+    z = warp_sum(z);
+    const float eb = expf(bkg - m);
+    const float denom = z + eb;
+    float* arow = attn + (size_t)t * (K + 1);
+    for (int k = lane; k < K; k += 32) arow[k] = expf(srow[k] - m) / denom;
+    if (lane == 0) arow[K] = eb / denom;
+  }
+}
+
+// The bf16 forward on wgmma: the fp32 kernel's arguments (its wk unread:
+// the packed image replaces it), then the packed weights (the walk's
+// layers, then w_k; ops/stream_attn.py key_stream_fwd) and their size in
+// bytes, and the grid (1 .. the number of 128-ray tiles).
 extern "C" int papr_key_stream_fwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* qq, int dm, float sqrt_dm,
     const int* kmeta, const void* kw, const void* kb, const void* kln,
     const void* kplan, const void* wk, const void* bk, int dm_pad,
     int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
-    void* stream) {
-  return launch_key_fwd<__nv_bfloat16>(
-      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,
-      kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss, false,
-      nullptr, nullptr, nullptr, stream);
+    const void* wpack, long long wbytes, int grid, void* stream) {
+  (void)wk;
+  StreamFwdWg p{};
+  size_t smem = 0;
+  int err = check_score_head(dm, dm_pad, K);
+  if (err) return err;
+  err = fill_stream_fwd_wg(&p, kmeta, kw, kb, kln, kplan, dm_pad, wpack,
+                           wbytes, &smem);
+  if (err) return err;
+  if (T <= 0) return 0;
+  const int tiles = (T + kWgTile - 1) / kWgTile;
+  if (grid < 1 || grid > tiles) return -209;
+  p.rec = rec;
+  p.rec_w = rec_w;
+  p.T = T;
+  p.K = K;
+  p.rayo = rayo;
+  p.rays = rays;
+  p.eps = eps;
+  p.n_units = tiles * K;
+  p.grid = grid;
+  p.qq = qq;
+  p.dm = dm;
+  p.sqrt_dm = sqrt_dm;
+  p.bk = static_cast<const float*>(bk);
+  p.dm_pad = dm_pad;
+  p.score_relu = score_relu;
+  p.raw = static_cast<float*>(raw);
+  p.ss = static_cast<float*>(ss);
+  cudaError_t e = cudaFuncSetAttribute(
+      key_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  key_fwd_wgmma_kernel<<<grid, kWgThreads, smem, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  key_fwd_softmax_kernel<<<(T + 7) / 8, 256, 0, st>>>(
+      static_cast<const float*>(ss), T, K, bkg, static_cast<float*>(attn));
+  return (int)cudaGetLastError();
 }
 
 extern "C" int papr_key_stream_f32_fwd(

@@ -16,10 +16,14 @@
 // the walk, as in the TPU kernel.
 //
 // What bounds it on the H100: the walk, ~1.2 MFLOP of bf16 tensor-core work
-// per token forward and ~3x that backward; compute bound. The bf16
-// backward (value_bwd_wgmma_kernel) runs on wgmma + TMA, 128-ray tiles on a
-// persistent grid (walk_wgmma_bwd.cuh); the other kernels keep
-// key_stream.cu's design: one block of 512 threads per 64-ray tile, k
+// per token forward and ~3x that backward; compute bound. bf16, the
+// training path's forms, run on wgmma + TMA with 128-ray tiles on a
+// persistent grid over (tile, k) units: the forward (value_fwd_wgmma_kernel,
+// papr_value_stream_fwd) on walk_wgmma.cuh's forward walk, the code of the
+// one-shot eval attention (attend_eval.cu), each block's per-ray sums added
+// into the zeroed output; the backward (value_bwd_wgmma_kernel,
+// papr_value_stream_bwd) on walk_wgmma_bwd.cuh. The other forms keep
+// key_stream.cu's WMMA design: one block of 512 threads per 64-ray tile, k
 // inside the block, every activation in shared memory. dW goes through the
 // stash and wgrad.cu.
 //
@@ -29,12 +33,11 @@
 // backward takes no flag: it recomputes the walk in bf16 (straight-through;
 // the fp32 backward after value_stream_i8_f32_fwd).
 //
-// value_stream_f32_fwd / value_stream_f32_bwd are the same two kernels on
-// the fp32 walk (use_amp: false): fp32 walk (walk.cuh's 3xTF32 products),
-// value rows not rounded before the fuse, fp32 stash and dW; the same
-// shared memory. value_stream_i8_f32_fwd is the int8 forward beside fp32
-// compute: the int8 walk, its fp32 rows fused unrounded; its backward is
-// value_stream_f32_bwd.
+// value_stream_f32_fwd / value_stream_f32_bwd are the WMMA kernels on the
+// fp32 walk (use_amp: false): fp32 walk (walk.cuh's 3xTF32 products), value
+// rows not rounded before the fuse, fp32 stash and dW.
+// value_stream_i8_f32_fwd is the int8 forward beside fp32 compute: the int8
+// walk, its fp32 rows fused unrounded; its backward is value_stream_f32_bwd.
 
 #include "rec_stream.cuh"
 #include "stream_common.cuh"
@@ -205,13 +208,17 @@ static int launch_value_fwd(
   const size_t smem = kWalkSmem + sizeof(float) * kRows *
       (kGeo + 1 + vd.d_out) + sizeof(int) * kRows;
   if (smem > 232448) return -203;
-  cudaError_t e = int8
-      ? cudaFuncSetAttribute(value_i8_fwd_kernel<Op>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem)
-      : cudaFuncSetAttribute(value_fwd_kernel<Op>,
+  cudaError_t e;
+  if (int8)
+    e = cudaFuncSetAttribute(value_i8_fwd_kernel<Op>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
+  else if constexpr (kF32<Op>)
+    e = cudaFuncSetAttribute(value_fwd_kernel<Op>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  else
+    return -205;
   if (e != cudaSuccess) return (int)e;
   const int grid = (T + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -221,20 +228,61 @@ static int launch_value_fwd(
         static_cast<float*>(fused));
     return (int)cudaGetLastError();
   }
-  value_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
-      rec, rec_w, T, K, rayo, rays, attn, vd, normalize, eps,
-      static_cast<float*>(fused));
-  return (int)cudaGetLastError();
+  // The tile function's own kernel runs the fp32 walk only; the bf16 walk
+  // runs value_fwd_wgmma_kernel.
+  if constexpr (kF32<Op>) {
+    value_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
+        rec, rec_w, T, K, rayo, rays, attn, vd, normalize, eps,
+        static_cast<float*>(fused));
+    return (int)cudaGetLastError();
+  } else {
+    return -205;
+  }
 }
 
+__global__ void __launch_bounds__(kWgThreads, 1)
+value_fwd_wgmma_kernel(const __grid_constant__ StreamFwdWg p) {
+  stream_fwd_wg<false>(p);
+}
+
+// The bf16 forward on wgmma: the fp32 kernel's arguments, fused zeroed by
+// the caller (each block adds its rays' sums), then the packed weights of
+// the walk's layers (ops/stream_attn.py value_stream_fwd) and their size in
+// bytes, and the grid (1 .. the number of 128-ray tiles).
 extern "C" int papr_value_stream_fwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* attn, const int* vmeta, const void* vw,
     const void* vb, const void* vln, const void* vplan, int normalize,
-    float eps, void* fused, void* stream) {
-  return launch_value_fwd<__nv_bfloat16>(
-      rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,
-      normalize, eps, fused, false, nullptr, nullptr, nullptr, stream);
+    float eps, void* fused, const void* wpack, long long wbytes, int grid,
+    void* stream) {
+  StreamFwdWg p{};
+  size_t smem = 0;
+  if (K <= 0 || K > 64) return -202;
+  int err = fill_stream_fwd_wg(&p, vmeta, vw, vb, vln, vplan, 0, wpack,
+                               wbytes, &smem);
+  if (err) return err;
+  if (T <= 0) return 0;
+  const int tiles = (T + kWgTile - 1) / kWgTile;
+  if (grid < 1 || grid > tiles) return -209;
+  p.rec = rec;
+  p.rec_w = rec_w;
+  p.T = T;
+  p.K = K;
+  p.rayo = rayo;
+  p.rays = rays;
+  p.eps = eps;
+  p.n_units = tiles * K;
+  p.grid = grid;
+  p.attn = attn;
+  p.normalize = normalize;
+  p.fused = static_cast<float*>(fused);
+  cudaError_t e = cudaFuncSetAttribute(
+      value_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  value_fwd_wgmma_kernel<<<grid, kWgThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int papr_value_stream_f32_fwd(

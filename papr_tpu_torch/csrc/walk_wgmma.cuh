@@ -1,6 +1,12 @@
-// The walk on wgmma (Hopper): the layers of the bf16 one-shot eval attention
-// (attend_eval.cu attend_eval_wgmma_kernel). The other walk kernels keep
-// walk.cuh's WMMA layers.
+// The walk on wgmma (Hopper), the bf16 forward walk of three kernels: the
+// one-shot eval attention (attend_eval.cu attend_eval_wgmma_kernel) and the
+// record-native training stream forwards (key_stream.cu
+// key_fwd_wgmma_kernel, value_stream.cu value_fwd_wgmma_kernel), which run
+// the same code below from the geometry rows to the walks' outputs; the
+// bf16 stream backwards build on its ring and layers (walk_wgmma_bwd.cuh).
+// The fp32 and int8 forms of these kernels, and the other walk kernels
+// (key_stream_q.cu, key_stream_feat.cu, value_stream_feat.cu, fused_mlp*.cu),
+// keep walk.cuh's WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
 // ptxas may give a thread up to 255 registers). Within a warpgroup the
@@ -30,7 +36,8 @@
 #pragma once
 
 #include "hopper.cuh"
-#include "walk.cuh"
+#include "rec_stream.cuh"
+#include "stream_common.cuh"
 
 namespace papr {
 
@@ -324,6 +331,559 @@ inline int wg_chunks(WgChunk* out, const WgLayer* layers, int n) {
         out[m] = {l.off + c * l.ni * 128 + p * kWStageBytes, bytes};
   }
   return m;
+}
+
+// ------------------------------------------- the bf16 forward kernels ----
+//
+// What K3 and the two stream forwards share. They differ only in where a
+// token's record row comes from (K3: idx[t * K + k] of the (P, rp) record;
+// the streams: k * T + t of the pre-gathered k-major (K, T, rp) record), a
+// functor of the geometry, and in what they do with the walks' outputs.
+// Per k step a warp owns 16 rays end to end: it writes their geometry and
+// posenc to its rows of shared memory (lanes over columns, as encode_rec),
+// takes the input LayerNorm there and rounds to bf16 in place, loads the A
+// fragments, and from then on the layers, the output LayerNorm, the w_k
+// product and the score run on the accumulator in registers; only warp
+// barriers inside a warpgroup, and one per k step over the warpgroup (the
+// parking slices overlap the encoding rows). The rounding points are the
+// JAX kernels': activations bf16 between layers, fp32 bias, LayerNorm
+// statistics in fp32 with the unbiased std, y_k rounded to bf16 before w_k,
+// the value rows rounded before the fuse (by the caller).
+
+constexpr int kMaxStages = 8;    // weight ring depth at most
+
+// One walk as a kernel reads it: its descriptor (the kernel's parameters:
+// the device offsets of its biases), its bias / LayerNorm / plan rows staged
+// in shared memory, and its layers' entries in the kernel's layer table.
+struct WgWalk {
+  const WalkDesc* d;
+  const float* bias;             // d->b[0] .. (every layer's, in order)
+  const float* ln;               // d->ln
+  const float* plan;             // d->plan
+  const WgLayer* layers;         // d->n entries
+};
+
+// The block's shared memory: a zero chunk and the weight ring (1024-byte
+// aligned), tile_floats floats of per-warpgroup tiles, n_prm floats of
+// parameter rows, then one mbarrier and one release counter a ring slot.
+struct WgSmem {
+  unsigned char* zero;
+  unsigned char* ring;
+  float* tiles;
+  float* prm;
+  uint64_t* full;
+  int* released;
+};
+
+__device__ __forceinline__ WgSmem wg_smem(unsigned char* raw, int stages,
+                                          int tile_floats, int n_prm) {
+  WgSmem s;
+  unsigned char* smem = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  s.zero = smem;
+  s.ring = smem + kWStageBytes;
+  s.tiles = reinterpret_cast<float*>(s.ring + stages * kWStageBytes);
+  s.prm = s.tiles + tile_floats;
+  s.full = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(s.prm + n_prm) + 7) & ~uintptr_t(7));
+  s.released = reinterpret_cast<int*>(s.full + stages);
+  return s;
+}
+
+// Host side: the bytes of that layout besides the ring's slots.
+inline size_t wg_smem_rest(int tile_floats, int n_prm) {
+  return 1024 + kWStageBytes + sizeof(float) * ((size_t)tile_floats + n_prm) +
+         8 + kMaxStages * (sizeof(uint64_t) + sizeof(int));
+}
+
+// Host side: the ring depth that fills the H100's 232,448 bytes a block
+// (at most kMaxStages) and the block's bytes; -203 if two slots do not fit.
+inline int wg_ring_fit(size_t rest, int* stages, size_t* smem) {
+  if (rest + 2 * (size_t)kWStageBytes > 232448) return -203;
+  *stages = (int)((232448 - rest) / kWStageBytes);
+  if (*stages > kMaxStages) *stages = kMaxStages;
+  *smem = rest + (size_t)*stages * kWStageBytes;
+  return 0;
+}
+
+// Host side: walk d's layers (pd[i] -> pd[i + 1]) appended to dims at *n.
+inline void wg_walk_dims(int (*dims)[2], int* n, const WalkDesc& d) {
+  for (int i = 0; i < d.n; ++i, ++*n) {
+    dims[*n][0] = d.pd[i];
+    dims[*n][1] = d.pd[i + 1];
+  }
+}
+
+// Host side: the floats of walk d's staged rows (biases, LayerNorms, plan).
+inline void wg_walk_rows(const WalkDesc& d, int* nb, int* nln, int* nplan) {
+  int b = 0;
+  for (int i = 1; i <= d.n; ++i) b += d.pd[i];
+  *nb = b;
+  *nln = 2 * d.pd[0] + 2 * d.pd[d.n];
+  *nplan = 3 * d.pd[0];
+}
+
+// Host side: floats a row of the encoding tile (16-byte rows on distinct
+// banks) and of the tile, which doubles as the parking slices.
+inline int wg_ld(int pd0) { return (pd0 + 31) / 32 * 32 + 4; }
+inline int wg_e_floats(int ld) {
+  return kWgRows * ld > kParkWords * 128 ? kWgRows * ld : kParkWords * 128;
+}
+
+// The block's set-up: the n parameter arrays src[a] (cnt[a] floats each)
+// copied into consecutive rows at s.prm, the zero chunk, the ring's
+// barriers and counters; ends on a barrier. Then wg_ring_start.
+template <int N>
+__device__ __forceinline__ void wg_prologue(const WgSmem& s, int stages,
+                                            const float* const (&src)[N],
+                                            const int (&cnt)[N]) {
+  const int tid = threadIdx.x;
+  float* dst = s.prm;
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    for (int i = tid; i < cnt[a]; i += kWgThreads) dst[i] = src[a][i];
+    dst += cnt[a];
+  }
+  for (int i = tid; i < kWStageBytes / 16; i += kWgThreads)
+    reinterpret_cast<uint4*>(s.zero)[i] = make_uint4(0, 0, 0, 0);
+  fence_async_smem();
+  if (tid < stages) s.released[tid] = 0;
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(&s.full[st], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// Thread 0 fills the ring's slots with the stream's first chunks.
+__device__ __forceinline__ void wg_ring_start(const WgRing& rg) {
+  if (threadIdx.x == 0)
+    for (int j = 0; j < rg.stages && j < rg.total; ++j) wg_issue(rg, j);
+}
+
+// The geometry rows (ops/geometry.py point_ray_geometry) of the warp's 16
+// rays rbase + row0 + r: sel, proj, perp, influence, alive, and the record
+// row (int bits) of each ray's point, row_of(t) for a ray t < T (an overhang
+// ray reads row 0 with a zero ray: finite values). Ends on a warp barrier.
+template <class RowOf>
+__device__ __forceinline__ void wg_geometry(float* geo,
+                                            const float* __restrict__ record,
+                                            int rec_w,
+                                            const float* __restrict__ rayo,
+                                            const float* __restrict__ rays,
+                                            int T, int rbase, int row0,
+                                            float eps, RowOf row_of) {
+  const int lane = threadIdx.x & 31;
+  if (lane < 16) {
+    const int r = row0 + lane, t = rbase + r;
+    const bool valid = t < T;
+    const int gi = valid ? row_of(t) : 0;
+    const float* rec = record + (size_t)gi * rec_w;
+    float o[3], dr[3], v[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      o[j] = valid ? rayo[(size_t)t * 3 + j] : 0.f;
+      dr[j] = valid ? rays[(size_t)t * 3 + j] : 0.f;
+      v[j] = rec[j] - o[j];
+    }
+    const float t_al = v[0] * dr[0] + v[1] * dr[1] + v[2] * dr[2];
+    const float dd = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2];
+    const float cc = t_al / (dd + eps);
+    float* gr = geo + r * kGeo;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float proj = dr[j] * cc;
+      gr[j] = rec[j];
+      gr[3 + j] = proj;
+      gr[6 + j] = v[j] - proj;
+    }
+    gr[9] = rec[3];
+    gr[10] = rec[4];
+    gr[11] = __int_as_float(gi);
+  }
+  __syncwarp();
+}
+
+// The warp's 16 rows of one walk's posenc into E (fp32, ld floats a row),
+// lanes over columns; pad lanes 0.
+__device__ __forceinline__ void wg_encode(float* E, int ld, const WalkDesc& d,
+                                          const float* plan, const float* geo,
+                                          const float* __restrict__ record,
+                                          int rec_w, int row0) {
+  const int lane = threadIdx.x & 31, pd0 = d.pd[0];
+  for (int c = lane; c < pd0; c += 32) {
+    const bool live = c < d.d_enc;
+    const int src = live ? (int)plan[c] : 0;
+    const float freq = live ? plan[pd0 + c] : 0.f;
+    const int kind = live ? (int)plan[2 * pd0 + c] : 0;
+    for (int r = row0; r < row0 + 16; ++r) {
+      float v = 0.f;
+      if (live) {
+        const float* gr = geo + r * kGeo;
+        const float x = src < kNGeoSrc
+            ? gr[src]
+            : record[(size_t)__float_as_int(gr[11]) * rec_w + 5 +
+                     (src - kNGeoSrc)];
+        v = encode_value(x, freq, kind);
+      }
+      E[r * ld + c] = v;
+    }
+  }
+}
+
+// The warp's 16 encoded rows through the input LayerNorm (or as they are)
+// and rounded to bf16 in place: row r's bf16 values at the start of its
+// fp32 row.
+__device__ __forceinline__ void wg_rows_to_bf16(float* E, int ld,
+                                                const WalkDesc& d,
+                                                const float* ln, int row0) {
+  const int lane = threadIdx.x & 31, pd0 = d.pd[0], n = d.d_enc;
+  for (int r = row0; r < row0 + 16; ++r) {
+    float* row = E + r * ld;
+    float v[kMaxWidth / 32];
+#pragma unroll
+    for (int m = 0; m < kMaxWidth / 32; ++m) {
+      const int c = lane + 32 * m;
+      v[m] = c < pd0 ? row[c] : 0.f;
+    }
+    if (d.has_li) {
+      float s = 0.f;
+#pragma unroll
+      for (int m = 0; m < kMaxWidth / 32; ++m)
+        if (lane + 32 * m < n) s += v[m];
+      const float mu = warp_sum(s) / (float)n;
+      float q = 0.f;
+#pragma unroll
+      for (int m = 0; m < kMaxWidth / 32; ++m)
+        if (lane + 32 * m < n) {
+          const float dv = v[m] - mu;
+          q += dv * dv;
+        }
+      const float var = warp_sum(q) / (float)(n > 1 ? n - 1 : 1);
+      const float rr = 1.f / (sqrtf(var) + kLnEps);
+#pragma unroll
+      for (int m = 0; m < kMaxWidth / 32; ++m) {
+        const int c = lane + 32 * m;
+        v[m] = c < n ? (v[m] - mu) * rr * ln[c] + ln[pd0 + c] : 0.f;
+      }
+    }
+    __syncwarp();
+    __nv_bfloat16* rb = reinterpret_cast<__nv_bfloat16*>(row);
+#pragma unroll
+    for (int m = 0; m < kMaxWidth / 32; ++m) {
+      const int c = lane + 32 * m;
+      if (c < pd0) rb[c] = __float2bfloat16_rn(v[m]);
+    }
+  }
+  __syncwarp();
+}
+
+// One dense layer of a walk, A -> A: bias, activation, then (ln_a) the
+// walk's output LayerNorm over n_true columns; a 256-wide layer in two
+// passes, the first one's output parked meanwhile (bf16, or fp32 for the
+// LayerNorm).
+__device__ __forceinline__ void wg_dense(float (&acc)[kAccRegs],
+                                         uint32_t (&A)[kARegs], WgRing& rg,
+                                         const unsigned char* zero,
+                                         float* park, const WgLayer& L,
+                                         const float* bias, int act,
+                                         const float* ln_a,
+                                         const float* ln_b, int n_true) {
+  if (L.ni <= kPassN) {
+    wg_pass(acc, A, rg, L, zero);
+    acc_bias_act(acc, bias, L.pd_out, act);
+    if (ln_a) acc_layernorm(acc, nullptr, n_true, ln_a, ln_b);
+    acc_to_a<0>(acc, A);
+    return;
+  }
+  wg_pass(acc, A, rg, L, zero);
+  acc_bias_act(acc, bias, kPassN, act);
+  if (ln_a) park_f32(acc, park);
+  else park_bf16(acc, reinterpret_cast<uint32_t*>(park));
+  wg_pass(acc, A, rg, L, zero);
+  acc_bias_act(acc, bias + kPassN, L.pd_out - kPassN, act);
+  if (ln_a) {
+    acc_layernorm(acc, park, n_true, ln_a, ln_b);
+    acc_to_a<32>(acc, A);
+    const int t = threadIdx.x & 127;
+#pragma unroll
+    for (int i = 0; i < kAccRegs / 2; ++i)
+      A[i] = pack_bf16(park[(2 * i) * 128 + t], park[(2 * i + 1) * 128 + t]);
+  } else {
+    acc_to_a<32>(acc, A);
+    unpark_bf16(reinterpret_cast<const uint32_t*>(park), A);
+  }
+}
+
+// A walk over the warp's 16 rows (geometry in geo): posenc into E, the
+// input LayerNorm, the dense layers and the output LayerNorm. Without
+// rows_f32 the output, rounded to bf16, is left in the A fragments (y_k as
+// the w_k product's operand; returns false). With rows_f32 the last layer's
+// fp32 output (LayerNorm'd if the walk has one) is left in acc for columns
+// 0..127, or, for a 256-wide last layer (returns true), columns 128.. in acc
+// and 0..127 parked fp32 at E (the value rows before their rounding).
+__device__ __forceinline__ bool wg_walk(float (&acc)[kAccRegs],
+                                        uint32_t (&A)[kARegs], WgRing& rg,
+                                        const unsigned char* zero, float* E,
+                                        int ld, const WgWalk& w,
+                                        const float* geo,
+                                        const float* __restrict__ record,
+                                        int rec_w, int row0, bool rows_f32) {
+  const WalkDesc& d = *w.d;
+  const int n = d.n;
+  wg_encode(E, ld, d, w.plan, geo, record, rec_w, row0);
+  __syncwarp();
+  wg_rows_to_bf16(E, ld, d, w.ln, row0);
+  smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
+            d.pd[0], A);
+  const float* lo = w.ln + 2 * d.pd[0];
+  for (int l = 0; l + 1 < n; ++l)
+    wg_dense(acc, A, rg, zero, E, w.layers[l], w.bias + (d.b[l] - d.b[0]),
+             d.act, nullptr, nullptr, 0);
+  const WgLayer& L = w.layers[n - 1];
+  const float* bias = w.bias + (d.b[n - 1] - d.b[0]);
+  if (!rows_f32) {
+    wg_dense(acc, A, rg, zero, E, L, bias, d.last_act,
+             d.has_lo ? lo : nullptr, lo + d.pd[n], d.d_out);
+    return false;
+  }
+  const bool two = L.ni > kPassN;
+  wg_pass(acc, A, rg, L, zero);
+  acc_bias_act(acc, bias, two ? kPassN : L.pd_out, d.last_act);
+  if (two) {
+    park_f32(acc, E);
+    wg_pass(acc, A, rg, L, zero);
+    acc_bias_act(acc, bias + kPassN, L.pd_out - kPassN, d.last_act);
+  }
+  if (d.has_lo) acc_layernorm(acc, two ? E : nullptr, d.d_out, lo, lo + d.pd[n]);
+  return two;
+}
+
+// The w_k product of y_k (the A fragments) and the scaled dot with each of
+// the thread's two rays' query: col[h] = q_t . linear_bf16(y_k w_k, b_k) /
+// sqrt_dm for ray rbase + rl[h] (0 past T); bks: b_k in shared memory.
+__device__ __forceinline__ void wg_score(float (&acc)[kAccRegs],
+                                         uint32_t (&A)[kARegs], WgRing& rg,
+                                         const unsigned char* zero,
+                                         const WgLayer& L,
+                                         const float* __restrict__ qq, int dm,
+                                         const float* bks, float sqrt_dm,
+                                         int T, int rbase,
+                                         const int (&rl)[2],
+                                         float (&col)[2]) {
+  const int q = threadIdx.x & 3;
+  float s[2] = {0.f, 0.f};
+  for (int pass = 0; pass < (L.ni > kPassN ? 2 : 1); ++pass) {
+    wg_pass(acc, A, rg, L, zero);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = rbase + rl[h];
+      if (t >= T) continue;
+      const float* qrow = qq + (size_t)t * dm;
+#pragma unroll
+      for (int j = 0; j < kAccRegs / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = kPassN * pass + 8 * j + 2 * q + e;
+          if (c < dm)
+            s[h] += qrow[c] * linear_bf16(acc[4 * j + 2 * h + e], bks[c]);
+        }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) col[h] = quad_sum(s[h]) / sqrt_dm;
+}
+
+// --------------------------------------------- the bf16 stream forwards ----
+//
+// key_fwd_wgmma_kernel (key_stream.cu) and value_fwd_wgmma_kernel
+// (value_stream.cu) on the walk above: the record read pre-gathered k-major
+// (K, T, rec_w), a token's row k * T + t. The grid is persistent, as the
+// backwards' (walk_wgmma_bwd.cuh): each block takes an even, contiguous
+// share of the (tile, k) units in tile-major order, so with grid <= tiles a
+// tile is split between at most two blocks; grid = tiles is one block a
+// tile. The key forward writes each (ray, k)'s raw dot and masked score, and
+// a small kernel after it takes the background-token softmax over a ray's K
+// scores (a split ray's come from two blocks). The value forward adds each
+// part's per-ray sum into the zeroed fused rows with atomicAdd: at most two
+// addends on 0, so the result does not depend on their order.
+
+struct StreamFwdWg {
+  const float* rec;                      // (K, T, rec_w) k-major
+  int rec_w, T, K;
+  const float* rayo;
+  const float* rays;
+  WalkDesc d;
+  float eps;
+  WgLayer layers[kWgMaxLayers];          // the walk, then (key) w_k
+  WgChunk chunks[kWgMaxChunks];          // the chunk stream of one k step
+  int n_chunks, stages;
+  const unsigned char* w;                // the packed weights
+  int ld, e_floats, wg_floats;           // shared memory layout (floats)
+  int nb, nln, nplan, n_prm;             // staged parameter rows (floats)
+  int n_units, grid;                     // (tile, k) units over grid blocks
+  // key
+  const float* qq;
+  int dm;
+  float sqrt_dm;
+  const float* bk;
+  int dm_pad, score_relu;
+  float* raw;                            // (T, K)
+  float* ss;                             // (T, K)
+  // value
+  const float* attn;                     // (T, K + 1)
+  int normalize;
+  float* fused;                          // (T, d_out), zero on entry
+};
+
+// Host side: the walk, its layer table (with head_pd > 0, the key's w_k
+// (pd[n] -> head_pd) after it), the chunk stream and the shared-memory
+// layout. Returns 0 or a negative code; *smem gets the block's bytes.
+inline int fill_stream_fwd_wg(StreamFwdWg* p, const int* meta, const void* w,
+                              const void* b, const void* ln, const void* plan,
+                              int head_pd, const void* wpack,
+                              long long wbytes, size_t* smem) {
+  int err = fill_walk(&p->d, meta, w, b, ln, plan);
+  if (err) return err;
+  const WalkDesc& d = p->d;
+  int dims[kWgMaxLayers][2], m = 0;
+  wg_walk_dims(dims, &m, d);
+  if (head_pd) {
+    dims[m][0] = d.pd[d.n];
+    dims[m++][1] = head_pd;
+  }
+  if (wg_plan(p->layers, dims, m) != wbytes || !wpack ||
+      reinterpret_cast<uintptr_t>(wpack) % 16)
+    return -204;
+  p->n_chunks = wg_chunks(p->chunks, p->layers, m);
+  p->w = static_cast<const unsigned char*>(wpack);
+  wg_walk_rows(d, &p->nb, &p->nln, &p->nplan);
+  p->n_prm = p->nb + p->nln + p->nplan + head_pd;
+  p->ld = wg_ld(d.pd[0]);
+  p->e_floats = wg_e_floats(p->ld);
+  // value: the fused rows and the safe denominators of the warpgroup's rays
+  p->wg_floats = kWgRows * kGeo + p->e_floats +
+                 (head_pd ? 0 : kWgRows * (d.d_out + 1));
+  return wg_ring_fit(wg_smem_rest(2 * p->wg_floats, p->n_prm), &p->stages,
+                     smem);
+}
+
+// The forward of the record-native key stream (kKey: the score head) or
+// value stream (the fuse) on the block's share of the (tile, k) units.
+template <bool kKey>
+__device__ __forceinline__ void stream_fwd_wg(const StreamFwdWg& p) {
+  extern __shared__ unsigned char smem_raw[];
+  const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm);
+  // Parameter rows: biases, LayerNorms, plan, then (key) b_k.
+  float* bias = sm.prm;
+  float* lns = bias + p.nb;
+  float* plan = lns + p.nln;
+  float* bks = plan + p.nplan;
+  {
+    const float* const src[4] = {p.d.b[0], p.d.ln, p.d.plan, p.bk};
+    const int cnt[4] = {p.nb, p.nln, p.nplan, kKey ? p.dm_pad : 0};
+    wg_prologue(sm, p.stages, src, cnt);
+  }
+  const long long n_units = p.n_units;
+  const int u_begin = (int)(n_units * blockIdx.x / p.grid);
+  const int u_end = (int)(n_units * (blockIdx.x + 1) / p.grid);
+  WgRing rg{sm.ring, sm.full, sm.released, p.stages, 0, p.n_chunks,
+            p.n_chunks * (u_end - u_begin), p.chunks, p.w};
+  wg_ring_start(rg);
+  const WgWalk walk{&p.d, bias, lns, plan, p.layers};
+
+  const int tid = threadIdx.x, wg = tid >> 7, t_in = tid & 127;
+  const int w = t_in >> 5, lane = t_in & 31, g = lane >> 2, q = lane & 3;
+  const int row0 = 16 * w, ld = p.ld, T = p.T, K = p.K, cout = p.d.d_out;
+  const int rl[2] = {row0 + g, row0 + g + 8};
+  float* geo = sm.tiles + wg * p.wg_floats;       // kWgRows x kGeo
+  float* E = geo + kWgRows * kGeo;                // rows / parking slices
+  float* accv = E + p.e_floats;                   // value: kWgRows x cout
+  float* den = accv + kWgRows * cout;             // value: kWgRows
+  uint32_t A[kARegs];
+  float acc[kAccRegs];
+#pragma unroll
+  for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+
+  for (int u = u_begin; u < u_end;) {
+    const int tile = u / K, k0 = u - tile * K;
+    const int k1 = k0 + (u_end - u < K - k0 ? u_end - u : K - k0);
+    u += k1 - k0;
+    const int rbase = tile * kWgTile + wg * kWgRows;
+    if (!kKey) {
+      // Per ray of the warp: the safe denominator (_vsr_fwd_kernel: the
+      // foreground mass under normalize, 1 where it is 0 or without
+      // normalize) and the part's fused row zeroed.
+      for (int r = row0; r < row0 + 16; ++r) {
+        const int t = rbase + r;
+        float sfg = 0.f;
+        if (t < T)
+          for (int k = lane; k < K; k += 32)
+            sfg += p.attn[(size_t)t * (K + 1) + k];
+        sfg = warp_sum(sfg);
+        if (lane == 0) den[r] = p.normalize && sfg > 0.f ? sfg : 1.f;
+      }
+      for (int i = lane; i < 16 * cout; i += 32) accv[row0 * cout + i] = 0.f;
+      __syncwarp();
+    }
+    for (int k = k0; k < k1; ++k) {
+      // Every warp of the warpgroup is done with the parking slices (they
+      // overlap the encoding rows) before any writes its encoding.
+      named_sync(2 + wg, 128);
+      wg_geometry(geo, p.rec, p.rec_w, p.rayo, p.rays, T, rbase, row0, p.eps,
+                  [&](int t) { return k * T + t; });
+      if (kKey) {
+        // --- walk -> w_k -> the raw dot and the masked score ---
+        wg_walk(acc, A, rg, sm.zero, E, ld, walk, geo, p.rec, p.rec_w, row0,
+                false);
+        float col[2];
+        wg_score(acc, A, rg, sm.zero, p.layers[p.d.n], p.qq, p.dm, bks,
+                 p.sqrt_dm, T, rbase, rl, col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = rbase + rl[h];
+          const float* gr = geo + rl[h] * kGeo;
+          if (q == 0 && t < T) {
+            p.raw[(size_t)t * K + k] = col[h];
+            p.ss[(size_t)t * K + k] =
+                masked_score(col[h], p.score_relu, gr[9], gr[10] > 0.5f);
+          }
+        }
+      } else {
+        // --- walk -> value rows rounded to bf16 -> (attn_k / den) x rows ---
+        const bool two = wg_walk(acc, A, rg, sm.zero, E, ld, walk, geo, p.rec,
+                                 p.rec_w, row0, true);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = rbase + rl[h];
+          const float a =
+              t < T ? p.attn[(size_t)t * (K + 1) + k] / den[rl[h]] : 0.f;
+          float* arow = accv + rl[h] * cout;
+#pragma unroll
+          for (int j = 0; j < kAccRegs / 4; ++j)
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int i = 4 * j + 2 * h + x, c = 8 * j + 2 * q + x;
+              if (two && c < cout)
+                arow[c] += a * bf16_round(E[i * 128 + t_in]);
+              const int c1 = (two ? kPassN : 0) + c;
+              if (c1 < cout) arow[c1] += a * bf16_round(acc[i]);
+            }
+        }
+      }
+    }
+    if (!kKey) {
+      // The part's sums of the warp's rays into fused (lanes over columns).
+      __syncwarp();
+      for (int r = row0; r < row0 + 16; ++r) {
+        const int t = rbase + r;
+        if (t >= T) break;
+        for (int c = lane; c < cout; c += 32)
+          atomicAdd(&p.fused[(size_t)t * cout + c], accv[r * cout + c]);
+      }
+    }
+  }
 }
 
 }  // namespace papr

@@ -85,19 +85,23 @@ for _dir in ("fwd", "bwd"):
 SIGNATURES["papr_attend_eval"] = SIGNATURES["papr_attend_eval_f32"][:-1] + [
     P, I, P]
 SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
-# The bf16 stream backwards (on wgmma) take the fp32 forms' arguments, then
-# their packed weights and its size in bytes, the grid and three device
-# buffers (per-ray sums of split tiles; the value's datt rows).
+# The bf16 stream forwards and backwards (on wgmma) take the fp32 forms'
+# arguments, then their packed weights, its size in bytes and the grid; the
+# backwards then three device buffers (per-ray sums of split tiles; the
+# value's datt rows).
+for _name in ("papr_key_stream_fwd", "papr_value_stream_fwd"):
+    SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P]
 for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P,
                                                   P, P, P]
 
-# The int8 forms take their bf16 twin's arguments, then the walk's (two
-# walks': key, then value) int8 weights, inverse-scale rows and dequant rows,
-# then the stream; the ``_i8_f32`` forms (the fp32 epilogue) the same.
+# The int8 forms take their fp32 twin's arguments (the bf16 form's before
+# its wgmma arguments), then the walk's (two walks': key, then value) int8
+# weights, inverse-scale rows and dequant rows, then the stream; the
+# ``_i8_f32`` forms (the fp32 epilogue) the same.
 for _name, _walks in (("papr_attend_eval", 2), ("papr_key_stream", 1),
                       ("papr_value_stream", 1)):
-    _twin = _name + ("_fwd" if _walks == 1 else "_f32")
+    _twin = _name + ("_f32_fwd" if _walks == 1 else "_f32")
     _sig = SIGNATURES[_twin][:-1] + [P] * (3 * _walks + 1)
     for _i8 in ("_i8", "_i8_f32"):
         SIGNATURES[_name + _i8 + ("_fwd" if _walks == 1 else "")] = _sig

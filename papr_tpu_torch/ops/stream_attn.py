@@ -341,10 +341,8 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
                     "papr_attend_eval_f32")
         attend_eval_f32.launches += 1
     else:
-        mats = ([kw[o:o + a * b].view(a, b) for a, b, o in _layer_offsets(kpd)]
-                + [wkT]
-                + [vw[o:o + a * b].view(a, b) for a, b, o in _layer_offsets(vpd)])
-        wpack = pack_walk_wgmma(mats, dev)
+        wpack = pack_walk_wgmma(_walk_mats(kw, kpd) + [wkT]
+                                + _walk_mats(vw, vpd), dev)
         build.check(lib.papr_attend_eval(*args, wpack.data_ptr(),
                                          2 * wpack.numel(), stream),
                     "papr_attend_eval")
@@ -362,6 +360,11 @@ def _layer_offsets(pd):
         out.append((a, b, o))
         o += a * b
     return out
+
+
+def _walk_mats(w, pd) -> list:
+    """The input-major (pd_in, pd_out) matrices of ``pack_walk``'s weights."""
+    return [w[o:o + a * b].view(a, b) for a, b, o in _layer_offsets(pd)]
 
 
 def attend_eval_f32(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
@@ -420,9 +423,11 @@ def attend_stream_eval(rec, rayo, rays, qq, kwalk: Walk, wk, bk, vwalk: Walk,
 # JAX kernels read it: d_rec comes out as a plain (K, T, rp) tensor and
 # autograd scatter-adds it into the (P, rp) point record through the gather.
 # Each direction has a CUDA kernel (``csrc/key_stream.cu``,
-# ``csrc/value_stream.cu``, weight gradients through ``csrc/wgrad.cu``) and a
-# plain version; a backward's plain version is the plain forward recomputed
-# under autograd, independent of the kernels' hand derivation.
+# ``csrc/value_stream.cu``, weight gradients through ``csrc/wgrad.cu``; the
+# bf16 forms on wgmma, their weights packed per call by ``fwd_wgmma_pack`` /
+# ``bwd_wgmma_pack``) and a plain version; a backward's plain version is the
+# plain forward recomputed under autograd, independent of the kernels' hand
+# derivation.
 
 def _geometry_km(rec, rayo, rays, eps):
     """point_ray_geometry on (K, T, 3) selections against (T, 3) rays."""
@@ -610,13 +615,20 @@ def _check_pe_pairs(walk: Walk, what: str) -> None:
                 "it")
 
 
+def fwd_wgmma_pack(w, pd, dev, head=()) -> torch.Tensor:
+    """The bf16 stream forwards' weight image (``csrc/walk_wgmma.cuh``) in
+    the order a k step streams it: the walk's layers (``pack_walk``'s
+    ``w``), then the head (key: w_k), through ``pack_walk_wgmma``."""
+    return pack_walk_wgmma(_walk_mats(w, pd) + list(head), dev)
+
+
 def bwd_wgmma_pack(w, wt, pd, dev, head=()) -> torch.Tensor:
     """The bf16 backwards' weight image (``csrc/walk_wgmma_bwd.cuh``) in the
     order a k step streams it: the forward layers (``pack_walk``'s ``w``),
     the head's pair (key: w_k, w_k^T), then W_l^T for l = n-1 .. 0
     (``pack_walk_t``'s ``wt``), through ``pack_walk_wgmma``."""
     offs = _layer_offsets(pd)
-    mats = ([w[o:o + a * b].view(a, b) for a, b, o in offs] + list(head)
+    mats = (_walk_mats(w, pd) + list(head)
             + [wt[o:o + a * b].view(b, a) for a, b, o in reversed(offs)])
     return pack_walk_wgmma(mats, dev)
 
@@ -624,6 +636,11 @@ def bwd_wgmma_pack(w, wt, pd, dev, head=()) -> torch.Tensor:
 def bwd_wgmma_grid(T: int) -> int:
     """Blocks of a bf16 backward on wgmma: one an SM, at most one a tile."""
     return min(_WG_GRID, -(-T // _WG_TILE))
+
+
+def fwd_wgmma_grid(T: int) -> int:
+    """Blocks of a bf16 stream forward on wgmma: as the backwards'."""
+    return bwd_wgmma_grid(T)
 
 
 def bwd_wgmma_buffers(walk: Walk, pd, K: int, T: int, dev, head=None,
@@ -694,7 +711,10 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
                     "papr_key_stream_f32_fwd")
         key_stream_f32_fwd.launches += 1
     else:
-        build.check(lib.papr_key_stream_fwd(*args, stream),
+        wpack = fwd_wgmma_pack(kw, kpd, dev, (wkf,))
+        build.check(lib.papr_key_stream_fwd(*args, wpack.data_ptr(),
+                                            2 * wpack.numel(),
+                                            fwd_wgmma_grid(T), stream),
                     "papr_key_stream_fwd")
         key_stream_fwd.launches += 1
     return attn, raw, ss
@@ -919,15 +939,16 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
     attn = attn.float().contiguous()
     vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev,
                                                cdt)
-    fused = torch.empty(T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32,
-                        device=dev)
+    f32 = cdt == torch.float32
+    # The bf16 kernel adds each block's per-ray sums into a zeroed output.
+    fused = (torch.empty if int8 or f32 else torch.zeros)(
+        T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32, device=dev)
     args = (rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
             attn.data_ptr(), ctypes.cast(c_ints(vmeta), ctypes.c_void_p),
             vw.data_ptr(), vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(),
             int(bool(normalize)), float(eps), fused.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = build.load()
-    f32 = cdt == torch.float32
     if int8:
         qp = pack_walk_q(calibrate_walk(rec, rayo, rays, vwalk, eps, cdt),
                          vpd, dev)
@@ -944,7 +965,10 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
                     "papr_value_stream_f32_fwd")
         value_stream_f32_fwd.launches += 1
     else:
-        build.check(lib.papr_value_stream_fwd(*args, stream),
+        wpack = fwd_wgmma_pack(vw, vpd, dev)
+        build.check(lib.papr_value_stream_fwd(*args, wpack.data_ptr(),
+                                              2 * wpack.numel(),
+                                              fwd_wgmma_grid(T), stream),
                     "papr_value_stream_fwd")
         value_stream_fwd.launches += 1
     return fused

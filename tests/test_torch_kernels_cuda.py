@@ -313,6 +313,120 @@ def test_value_stream_kernels_match_plain(dev, T, normalize):
     assert float(got[0][:, 5].abs().max()) == 0.0
 
 
+# The bf16 stream forwards on wgmma: chip_smoke's bounds (relative
+# Frobenius of attn, raw and fused; the masked scores on the alive scores
+# whose relu both forwards agree on). The key's raw dots here are held
+# tighter: sound <= 7.5e-4; y_k truncated to bf16 before w_k (a rounding
+# point) reads 3.5e-3 and above (PERF.md, Findings).
+FWD_REL = 5e-3
+FWD_RAW_REL = 2e-3
+SS_REL = 3e-2
+
+
+def _fwd_grid(monkeypatch, grid):
+    """A grid smaller than the tiles: each block's share of the (tile, k)
+    units then splits tiles between two blocks."""
+    if grid is not None:
+        monkeypatch.setattr(sa, "fwd_wgmma_grid", lambda T: grid)
+
+
+@pytest.mark.parametrize("score_act", ["relu", "none"])
+@pytest.mark.parametrize("T,K,grid", [(300, 20, None), (100, 7, None),
+                                      (257, 1, None), (300, 7, 2),
+                                      (131, 20, 1)])
+def test_key_stream_fwd_wgmma_matches_plain(dev, monkeypatch, T, K, grid,
+                                            score_act):
+    """Row 5's bf16 forward on wgmma: ragged T (not a multiple of the
+    128-ray tile, and below it), K = 1 / 7 / 20, both score_act values, an
+    all-dead ray (5) and, with T > 128, a whole warpgroup of all-dead rays
+    (64..127); a grid that splits tiles between blocks; one launch."""
+    rng = np.random.default_rng(300 + T + K)
+    rec, rayo, rays, qq, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    if T > 128:
+        rec[:, 64:128, 4] = 0.0
+    _fwd_grid(monkeypatch, grid)
+    args = (rec, rayo, rays, qq, kw, wk, bk)
+    opts = (score_act, 5.0, 1e-6, torch.bfloat16)
+    before = sa.key_stream_fwd.launches
+    attn, raw, ss = sa.key_stream_fwd(*args, *opts)
+    assert sa.key_stream_fwd.launches == before + 1
+    attn_p, raw_p, ss_p = sa.key_stream_plain(*args, *opts)
+    rels = _rel(attn, attn_p), _rel(raw, raw_p)
+    print(f"key_stream_fwd wgmma T={T} K={K} grid={grid} {score_act}: attn "
+          f"{rels[0]:.2e}, raw {rels[1]:.2e}")
+    assert rels[0] <= FWD_REL and rels[1] <= FWD_RAW_REL
+    alive = (rec[..., 4] > 0.5).T
+    sact = torch.clamp_min(raw, 0.0) if score_act == "relu" else raw
+    assert torch.equal(ss, torch.where(alive, sact * rec[..., 3].T,
+                                       sa.NEG_BIG))
+    same = ((raw > 0) == (raw_p > 0) if score_act == "relu"
+            else torch.ones_like(alive))
+    assert float(same[alive].float().mean()) >= 0.99
+    assert _rel(ss[alive & same], ss_p[alive & same]) <= SS_REL
+    dead = ~alive.any(dim=1)
+    assert bool(dead[5]) and (T <= 128 or bool(dead[64:128].all()))
+    assert bool((attn[dead, K] == 1.0).all())
+    assert float(attn[dead, :K].abs().max()) == 0.0
+    assert torch.allclose(attn.sum(-1), torch.ones(T, device=dev), atol=1e-5)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("T,K,grid", [(300, 20, None), (100, 7, None),
+                                      (257, 1, None), (300, 7, 2),
+                                      (131, 20, 1)])
+def test_value_stream_fwd_wgmma_matches_plain(dev, monkeypatch, T, K, grid,
+                                              normalize):
+    """Row 6's bf16 forward on wgmma, as the key's above: ray 5 and, with T
+    > 128, rays 64..127 have no foreground mass (divide by 1); split tiles
+    add two blocks' sums."""
+    rng = np.random.default_rng(400 + T + K)
+    rec, rayo, rays, _, _, vw, _, _ = _stream_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    if T > 128:
+        a[64:128, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    _fwd_grid(monkeypatch, grid)
+    args = (rec, rayo, rays, attn, vw)
+    opts = (normalize, 1e-6, torch.bfloat16)
+    before = sa.value_stream_fwd.launches
+    fused = sa.value_stream_fwd(*args, *opts)
+    assert sa.value_stream_fwd.launches == before + 1
+    fused_p = sa.value_stream_plain(*args, *opts)
+    rel = _rel(fused, fused_p)
+    print(f"value_stream_fwd wgmma T={T} K={K} grid={grid} normalize="
+          f"{normalize}: fused {rel:.2e}")
+    assert rel <= FWD_REL and bool(torch.isfinite(fused).all())
+    assert float(fused[5].abs().max()) == 0.0
+    if T > 128:
+        assert float(fused[64:128].abs().max()) == 0.0
+    # Deterministic: the split tiles' two sums land in either order.
+    assert torch.equal(fused, sa.value_stream_fwd(*args, *opts))
+
+
+def test_stream_fwd_wgmma_against_k3(dev):
+    """The stream forwards run K3's walk code: on one ray set, the key
+    forward's attention is K3's bit for bit, and the value forward on K3's
+    attention is K3's fused up to the fuse's arithmetic (K3 sums with an
+    online softmax, the stream renormalizes the attention it is given)."""
+    rng = np.random.default_rng(21)
+    T, K, P = 300, 20, 900
+    rec, rayo, rays, qq, kw, vw, wk, bk = _stream_case(rng, dev, T, K)
+    record = torch.zeros(P, 128, device=dev)
+    idx = torch.as_tensor(rng.integers(0, P, size=(T, K)), device=dev)
+    record[idx.T.reshape(-1)] = rec.reshape(K * T, 128)
+    rec = record[idx.T]                        # (K, T, 128), idx's rows
+    fused3, attn3 = sa.attend_eval_idx(record, idx, rayo, rays, qq, kw, wk,
+                                       bk, vw, "relu", 5.0, True, 1e-6,
+                                       torch.bfloat16)
+    attn = sa.key_stream_fwd(rec, rayo, rays, qq, kw, wk, bk, "relu", 5.0,
+                             1e-6, torch.bfloat16)[0]
+    assert torch.equal(attn, attn3)
+    fused = sa.value_stream_fwd(rec, rayo, rays, attn3, vw, True, 1e-6,
+                                torch.bfloat16)
+    assert _rel(fused, fused3) <= 1e-5
+
+
 # The bf16 stream backwards on wgmma also hold the median of the per-ray
 # relative error of d_rec and of the per-row error of the walk gradients: a
 # rounding-point fault moves every ray a little. Sound <= 8.2e-3 (value walk
@@ -632,11 +746,15 @@ def test_key_stream_q_kernels_match_plain(dev, T):
     assert float((attn - attn_p).abs().max()) <= 5e-3
     assert _rel(raw, raw_p) <= 1e-2
     assert float(attn[5, K]) == 1.0
-    # the same function as the unfolded kernel on the kernel's own qq
+    # the same function as the unfolded kernel on the kernel's own qq (the
+    # bf16 unfolded forward runs on wgmma: another summation order)
     attn_u, raw_u, ss_u = sa.key_stream_fwd(rec, rayo, rays, qq, kw, wk, bk,
                                             *opts)
-    assert torch.equal(attn, attn_u) and torch.equal(raw, raw_u)
-    assert torch.equal(ss, ss_u)
+    assert float((attn - attn_u).abs().max()) <= 5e-3
+    assert _rel(raw, raw_u) <= FWD_REL
+    alive = (rec[..., 4] > 0.5).T
+    assert torch.equal(ss, torch.where(alive, torch.clamp_min(raw, 0.0)
+                                       * rec[..., 3].T, sa.NEG_BIG))
     dattn = t(rng.normal(size=(T, K + 1)))
     got = sa.key_stream_q_bwd(*args, qq, raw, ss, dattn, *opts)
     want = sa.key_stream_q_bwd_plain(*args, dattn, *opts, relu_on=raw > 0)
@@ -1133,8 +1251,8 @@ def test_wgrad_f32_matches_fp64_product(dev, N, da, db):
 
 def test_wgmma_kernels_run_on_hgmma(dev):
     """The built library's SASS: the bf16 one-shot eval attention, the bf16
-    key / value stream backwards and both dW reductions issue Hopper's
-    warpgroup MMAs (HGMMA)."""
+    key / value stream forwards and backwards and both dW reductions issue
+    Hopper's warpgroup MMAs (HGMMA)."""
     import os
     import shutil
     import subprocess
@@ -1149,7 +1267,8 @@ def test_wgmma_kernels_run_on_hgmma(dev):
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         funcs[name.strip()] = body
-    for kernel in ("attend_eval_wgmma_kernel", "key_bwd_wgmma_kernel",
+    for kernel in ("attend_eval_wgmma_kernel", "key_fwd_wgmma_kernel",
+                   "value_fwd_wgmma_kernel", "key_bwd_wgmma_kernel",
                    "value_bwd_wgmma_kernel", "wgrad_bf16_kernel",
                    "wgrad_f32_kernel"):
         bodies = [b for n, b in funcs.items() if kernel in n]

@@ -3,15 +3,30 @@ process, for a parent / change / change / parent run on one card:
 
     python tools/torch_ab_kernels.py <tree>      # needs a card and nvcc
 
+    python tools/torch_ab_kernels.py <tree> --digest-only
+
 <tree> is a checkout holding ``chip_smoke.py`` and ``papr_tpu_torch/`` (for
 the parent, ``git archive`` of it unpacked into a git-ignored directory);
-its kernels are built from its own sources. Prints chip_smoke's phase 2
-lines (the flagship's kernels) and phase 8 lines (Caterpillar's fp32
-kernels); a comparison that fails prints ``FAILS:`` and the run goes on.
+its kernels are built from its own sources. Prints digests (equal
+digests: bit-equal outputs) of the bf16 one-shot eval attention's outputs
+on phase 2's eval block and of the bf16 stream backwards' outputs on phase
+2's training patch, fed the plain forwards' raw dots, scores and attention
+and seeded cotangents (inputs both trees compute alike); then chip_smoke's
+phase 2 lines (the flagship's kernels) and phase 8 lines (Caterpillar's
+fp32 kernels); a comparison that fails prints ``FAILS:`` and the run goes
+on. ``--digest-only`` stops after the digests.
 """
 
+import hashlib
 import os
 import sys
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def main() -> None:
@@ -21,12 +36,43 @@ def main() -> None:
     import torch
     import chip_smoke as cs
     from papr_tpu_torch.kernels import build
+    from papr_tpu_torch.ops import stream_attn as sa
 
     cs.fail = lambda m: print("FAILS:", m, flush=True)
     build.load()
     dev = torch.device("cuda", 0)
     cfg = cs.flagship_cfg()
     params, state = cs.build_model(cfg, dev)
+    args, T = cs.eval_block_args(params, state, cfg, dev)
+    print(f"K3 bf16 outputs on the eval block (T={T}): sha256 "
+          f"{digest(sa.attend_eval_idx(*args))}", flush=True)
+    del args
+    rayo, rayd = cs.training_patch(dev)
+    _, _, rec, rayo_f, rays, _, qq, kwalk, vwalk = cs.stream_patch_inputs(
+        params, state, cfg, rayo, rayd)
+    a = params["attn"]
+    kopts = (cfg.models.attn.score_act, float(cfg.geoms.background.constant),
+             float(cfg.eps), torch.bfloat16)
+    attn, raw, ss = sa.key_stream_plain(rec, rayo_f, rays, qq, kwalk,
+                                        a["w_k"]["w"], a["w_k"]["bias"],
+                                        *kopts)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dattn = torch.randn(attn.shape, generator=g, device=dev)
+    dfused = torch.randn(attn.shape[0], int(vwalk.ws[-1].shape[1]),
+                         generator=g, device=dev)
+    print("bf16 stream backwards on the training patch: key sha256 "
+          + digest(sa.key_stream_bwd(rec, rayo_f, rays, qq, kwalk,
+                                     a["w_k"]["w"], a["w_k"]["bias"], raw,
+                                     ss, dattn, *kopts))
+          + ", value sha256 "
+          + digest(sa.value_stream_bwd(rec, rayo_f, rays, attn, vwalk, dfused,
+                                       bool(cfg.models.normalize_topk_attn),
+                                       float(cfg.eps), torch.bfloat16)),
+          flush=True)
+    del rec, attn, raw, ss, dattn, dfused
+    torch.cuda.empty_cache()
+    if "--digest-only" in sys.argv:
+        return
     cs.compare_kernels(params, state, cfg, dev)
     cs.compare_train_kernels(params, state, cfg, dev)
     cs.compare_cli_kernels(params, state, cfg, dev)

@@ -36,8 +36,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # "stream shared" or "linear_bf16" stream_common.cuh, "int8 walk" walk.cuh,
 # "int8 bench" int8_walk_bench.cu, "int8 value" value_stream.cu, "int8
 # attend" attend_eval.cu, "fp32 walk" walk.cuh, "fp32 stash" walk_bwd.cuh,
-# "wgmma wgrad" wgrad.cu, "wgmma walk" and "bwd wgmma walk" walk_wgmma.cuh,
-# "bwd wgmma" walk_wgmma_bwd.cuh (the bf16 stream backwards), "wgmma attend"
+# "wgmma wgrad" wgrad.cu, "wgmma walk", "bwd wgmma walk" and "fwd wgmma"
+# (the bf16 stream forwards, on K3's walk) walk_wgmma.cuh, "bwd wgmma"
+# walk_wgmma_bwd.cuh (the bf16 stream backwards), "wgmma attend"
 # attend_eval.cu, the others fused_attn.cu.
 MUTS = [
     ("sound", None, None),
@@ -46,6 +47,34 @@ MUTS = [
     ("fp32 sound", None, None),
     ("wgmma sound", None, None),
     ("bwd wgmma sound", None, None),
+    ("fwd wgmma sound", None, None),
+    ("fwd wgmma: the second weight chunk read from the first one's stage "
+     "(a stale stage)",
+     "        real ? ring.base + st * kWStageBytes : zero, 16, 1024);",
+     "        real ? ring.base + (ring.i == 1 ? 0 : st) * kWStageBytes : zero, "
+     "16, 1024);"),
+    ("fwd wgmma: the activation of the wrong layer (layer 0 takes the last "
+     "layer's: no relu)",
+     "    wg_dense(acc, A, rg, zero, E, w.layers[l], w.bias + (d.b[l] - d.b[0]),\n"
+     "             d.act, nullptr, nullptr, 0);",
+     "    wg_dense(acc, A, rg, zero, E, w.layers[l], w.bias + (d.b[l] - d.b[0]),\n"
+     "             l == 0 ? d.last_act : d.act, nullptr, nullptr, 0);"),
+    ("fwd wgmma: the output LayerNorm without its first pass (statistics and "
+     "scaling of columns 128.. only)",
+     "    acc_layernorm(acc, park, n_true, ln_a, ln_b);",
+     "    acc_layernorm(acc, nullptr, n_true, ln_a, ln_b);"),
+    ("fwd wgmma: score scale off by 1 %",
+     "  for (int h = 0; h < 2; ++h) col[h] = quad_sum(s[h]) / sqrt_dm;",
+     "  for (int h = 0; h < 2; ++h) col[h] = quad_sum(s[h]) / sqrt_dm * 1.01f;"),
+    ("fwd wgmma: posenc with sin and cos swapped",
+     "        v = encode_value(x, freq, kind);",
+     "        v = encode_value(x, freq, kind == 1 ? 2 : kind == 2 ? 1 : kind);"),
+    ("fwd wgmma: y_k truncated to bf16 (toward zero) before w_k instead of "
+     "rounded, its first 128 columns (a rounding point; wgmma takes no "
+     "unrounded operand)",
+     "      A[i] = pack_bf16(park[(2 * i) * 128 + t], park[(2 * i + 1) * 128 + t]);",
+     "      A[i] = (__float_as_uint(park[(2 * i) * 128 + t]) >> 16) |\n"
+     "             (__float_as_uint(park[(2 * i + 1) * 128 + t]) & 0xffff0000u);"),
     ("bwd wgmma: dz truncated to bf16 (toward zero) before the dX product "
      "and the stash (a rounding point)",
      "  round_pass(acc, w);\n  stash_w(w, dz, srow0, width, c0);",
@@ -120,13 +149,13 @@ MUTS = [
      "      float v0 = acc[4 * j + 2 * h] + b.x;",
      "      float v0 = bf16_round(acc[4 * j + 2 * h]) + b.x;"),
     ("wgmma attend: one k step's value row left out of the fuse",
-     "                arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);",
-     "                arow[c1] = arow[c1] * scale + (k == 1 ? 0.f : e) * "
+     "              arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);",
+     "              arow[c1] = arow[c1] * scale + (k == 1 ? 0.f : e) * "
      "bf16_round(acc[i]);"),
     ("wgmma attend: value rows not rounded to bf16 before the fuse (a "
      "rounding point)",
-     "                arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);",
-     "                arow[c1] = arow[c1] * scale + e * acc[i];"),
+     "              arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);",
+     "              arow[c1] = arow[c1] * scale + e * acc[i];"),
     ("fp32 walk: single-pass TF32 (the lo terms dropped)",
      "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
      "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
@@ -326,12 +355,17 @@ TARGETS = {
     # compare_train_kernels, read for the two bf16 stream backwards only.
     "stream_bwd": (("phase 2 key_stream_bwd", "phase 2 value_stream_bwd"),
                    "stream_bwd_wgmma"),
+    # compare_train_kernels, read for the two bf16 stream forwards (and the
+    # folded key stream held against the key forward).
+    "stream_fwd": (("phase 2 key_stream_fwd", "phase 2 value_stream_fwd",
+                    "phase 2 key_stream_q_fwd on"), "stream_fwd_wgmma"),
 }
 
 
 def target_of(name: str) -> str:
     head = name.split(":")[0]
-    return ("stream_bwd" if head.startswith("bwd wgmma")
+    return ("stream_fwd" if head.startswith("fwd wgmma")
+            else "stream_bwd" if head.startswith("bwd wgmma")
             else "compare_wgmma_kernels" if "wgmma" in head
             else "compare_f32_kernels" if "fp32" in head
             else "compare_int8_kernels" if "int8" in head
@@ -361,7 +395,8 @@ def run_case(name, old, new) -> None:
     target = target_of(name)
     shown, tests = TARGETS[target]
     if old is not None:
-        src = next((f for word, f in (("bwd wgmma walk", "walk_wgmma.cuh"),
+        src = next((f for word, f in (("fwd wgmma", "walk_wgmma.cuh"),
+                                      ("bwd wgmma walk", "walk_wgmma.cuh"),
                                       ("bwd wgmma", "walk_wgmma_bwd.cuh"),
                                       ("wgmma wgrad", "wgrad.cu"),
                                       ("wgmma walk", "walk_wgmma.cuh"),
@@ -389,7 +424,8 @@ def run_case(name, old, new) -> None:
                              f"{src}; bring MUTS up to date")
         open(p, "w").write(s.replace(old, new))
     print(f"===== {name}", flush=True)
-    fn = "compare_train_kernels" if target == "stream_bwd" else target
+    fn = ("compare_train_kernels" if target in ("stream_bwd", "stream_fwd")
+          else target)
     r = subprocess.run([sys.executable, "-c", RUN, fn], cwd=root,
                        capture_output=True, text=True)
     for line in r.stdout.splitlines():
@@ -415,7 +451,10 @@ def run_case(name, old, new) -> None:
                     and line.startswith(("attend_eval T", "wgrad"))) \
                 or (target == "stream_bwd"
                     and line.startswith(("key_stream_bwd T",
-                                         "value_stream_bwd T"))):
+                                         "value_stream_bwd T"))) \
+                or (target == "stream_fwd"
+                    and line.startswith(("key_stream_fwd wgmma",
+                                         "value_stream_fwd wgmma"))):
             print("  cuda tests: " + line[:400], flush=True)
     print(f"  cuda tests: exit code {t.returncode}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
