@@ -633,14 +633,10 @@ def bwd_wgmma_pack(w, wt, pd, dev, head=()) -> torch.Tensor:
     return pack_walk_wgmma(mats, dev)
 
 
-def bwd_wgmma_grid(T: int) -> int:
-    """Blocks of a bf16 backward on wgmma: one an SM, at most one a tile."""
+def wgmma_grid(T: int) -> int:
+    """Blocks of a bf16 stream forward or backward on wgmma: one an SM, at
+    most one a tile."""
     return min(_WG_GRID, -(-T // _WG_TILE))
-
-
-def fwd_wgmma_grid(T: int) -> int:
-    """Blocks of a bf16 stream forward on wgmma: as the backwards'."""
-    return bwd_wgmma_grid(T)
 
 
 def bwd_wgmma_buffers(walk: Walk, pd, K: int, T: int, dev, head=None,
@@ -649,7 +645,7 @@ def bwd_wgmma_buffers(walk: Walk, pd, K: int, T: int, dev, head=None,
     padded to the 128-ray tile), one partial row a warp (8 a block), and a
     scratch slice a warpgroup: its 64 rows of the fp32 encoding and, with an
     output LayerNorm, its fp32 input (128 x 128 floats)."""
-    grid = bwd_wgmma_grid(T)
+    grid = wgmma_grid(T)
     per_wg = 64 * pd[0] + (128 * 128 if walk.ln_out is not None else 0)
     return BwdBuffers(pd, K * -(-T // _WG_TILE) * _WG_TILE,
                       _WG_PART_ROWS * grid, dev, head=head, extra=extra,
@@ -714,7 +710,7 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
         wpack = fwd_wgmma_pack(kw, kpd, dev, (wkf,))
         build.check(lib.papr_key_stream_fwd(*args, wpack.data_ptr(),
                                             2 * wpack.numel(),
-                                            fwd_wgmma_grid(T), stream),
+                                            wgmma_grid(T), stream),
                     "papr_key_stream_fwd")
         key_stream_fwd.launches += 1
     return attn, raw, ss
@@ -795,7 +791,7 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
         wpack = bwd_wgmma_pack(kw, kwt, kpd, dev, (wkf, wkb))
         aux = [torch.zeros(T, w, dtype=torch.float32, device=dev)
                for w in (dm, 3, 3)]
-        tail = (wpack.data_ptr(), 2 * wpack.numel(), bwd_wgmma_grid(T),
+        tail = (wpack.data_ptr(), 2 * wpack.numel(), wgmma_grid(T),
                 *(a.data_ptr() for a in aux))
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
@@ -968,7 +964,7 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
         wpack = fwd_wgmma_pack(vw, vpd, dev)
         build.check(lib.papr_value_stream_fwd(*args, wpack.data_ptr(),
                                               2 * wpack.numel(),
-                                              fwd_wgmma_grid(T), stream),
+                                              wgmma_grid(T), stream),
                     "papr_value_stream_fwd")
         value_stream_fwd.launches += 1
     return fused
@@ -1049,7 +1045,7 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
         aux = [torch.empty(T, K, dtype=torch.float32, device=dev)] + [
             torch.zeros(T, 3, dtype=torch.float32, device=dev)
             for _ in range(2)]
-        tail = (wpack.data_ptr(), 2 * wpack.numel(), bwd_wgmma_grid(T),
+        tail = (wpack.data_ptr(), 2 * wpack.numel(), wgmma_grid(T),
                 *(a.data_ptr() for a in aux))
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)

@@ -321,13 +321,18 @@ def test_value_stream_kernels_match_plain(dev, T, normalize):
 FWD_REL = 5e-3
 FWD_RAW_REL = 2e-3
 SS_REL = 3e-2
+# The folded key stream (row 7, WMMA) on its own qq against the unfolded
+# bf16 key forward (wgmma): one function, one set of rounding points, two
+# summation orders; chip_smoke's Q_UNFOLD_ABS / Q_UNFOLD_REL.
+Q_UNFOLD_ABS = 5e-4
+Q_UNFOLD_REL = 5e-4
 
 
 def _fwd_grid(monkeypatch, grid):
     """A grid smaller than the tiles: each block's share of the (tile, k)
     units then splits tiles between two blocks."""
     if grid is not None:
-        monkeypatch.setattr(sa, "fwd_wgmma_grid", lambda T: grid)
+        monkeypatch.setattr(sa, "wgmma_grid", lambda T: grid)
 
 
 @pytest.mark.parametrize("score_act", ["relu", "none"])
@@ -750,8 +755,11 @@ def test_key_stream_q_kernels_match_plain(dev, T):
     # bf16 unfolded forward runs on wgmma: another summation order)
     attn_u, raw_u, ss_u = sa.key_stream_fwd(rec, rayo, rays, qq, kw, wk, bk,
                                             *opts)
-    assert float((attn - attn_u).abs().max()) <= 5e-3
-    assert _rel(raw, raw_u) <= FWD_REL
+    u_attn = float((attn - attn_u).abs().max())
+    u_raw = _rel(raw, raw_u)
+    print(f"key_stream_q T={T} against the unfolded forward: attn max abs "
+          f"{u_attn:.2e}, raw {u_raw:.2e}")
+    assert u_attn <= Q_UNFOLD_ABS and u_raw <= Q_UNFOLD_REL
     alive = (rec[..., 4] > 0.5).T
     assert torch.equal(ss, torch.where(alive, torch.clamp_min(raw, 0.0)
                                        * rec[..., 3].T, sa.NEG_BIG))
@@ -1276,6 +1284,17 @@ def test_wgmma_kernels_run_on_hgmma(dev):
         assert all("HGMMA" in b for b in bodies), f"{kernel}: no HGMMA"
 
 
+def _leaf_names(tree, path="") -> list:
+    """Names of ``tree_leaves(tree)``'s leaves, in its order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k],
+                                                             f"{path}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{path}[{i}]")]
+    return [path]
+
+
 def _fp32_model(dev, **tpu):
     cfg = load_config(overrides={
         "use_amp": False, "max_num_pts": 2048,
@@ -1644,11 +1663,17 @@ def test_fp32_modes_training_step_on_card(dev, tpu, request):
     assert fm.wgrad_f32.launches > before[3]
     cfg_p, _, _ = _fp32_model(dev, fused_attn=False)
     out_p, grads_p = grads_of(cfg_p)
-    rel = max(_rel(g, w) for g, w in zip(grads, grads_p))
+    rels = [_rel(g, w) for g, w in zip(grads, grads_p)]
+    names = _leaf_names(params["attn"], "attn") + [
+        "points", "points_influ_scores", "pc_feats"]
+    top = sorted(zip(rels, names), reverse=True)[:3]
+    rel, worst = top[0]
     print(f"fp32 {mode} step vs plain path: out rel {_rel(out, out_p):.3e}, "
-          f"grads max rel {rel:.3e}")
+          f"grads max rel {rel:.3e}; largest: "
+          + ", ".join(f"{n} {r:.3e}" for r, n in top))
     if mode == "int8_train":
         assert _rel(out, out_p) <= I8_F32_FUSED_REL * 10
     else:
-        assert _rel(out, out_p) <= F32_REL and rel <= F32_STEP_GRAD_REL
+        assert _rel(out, out_p) <= F32_REL
+        assert rel <= F32_STEP_GRAD_REL, (worst, rel)
 

@@ -99,7 +99,7 @@ def test_key_fwd_bf16_reaches_the_wgmma_entry_point(lib, norm):
     pd = _pd(key[4])
     dims = list(zip(pd[:-1], pd[1:])) + [(pd[-1], fm.round_up(dm, 16))]
     assert a[-3] == _bytes(dims)
-    assert a[-2] == math.ceil(T / 128) == sa.fwd_wgmma_grid(T)
+    assert a[-2] == math.ceil(T / 128) == sa.wgmma_grid(T)
     assert len(a) - 4 == len(build.SIGNATURES["papr_key_stream_f32_fwd"]) - 1
     assert (attn.shape, raw.shape, ss.shape) == ((T, K + 1), (T, K), (T, K))
 
@@ -164,4 +164,4 @@ def test_fwd_wgmma_grid(T, grid):
     tile is then split between at most two blocks: at most two sums into a
     ray's fused row, and the key's softmax over scores that two blocks
     wrote)."""
-    assert sa.fwd_wgmma_grid(T) == grid
+    assert sa.wgmma_grid(T) == grid

@@ -32,7 +32,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (name, the line to replace, its replacement); the first cases are the sound
 # sources. Cases named "topk" patch topk_stream.cu, "embedder bwd"
 # fused_mlp_bwd.cu, "encoding" walk.cuh, "stream feat key" key_stream_feat.cu,
-# "stream feat value" value_stream_feat.cu, "stream q" key_stream_q.cu,
+# "stream feat value" value_stream_feat.cu, "stream q walk" key_stream.cuh
+# (the folded key stream's WMMA walk), "stream q" key_stream_q.cu,
 # "stream shared" or "linear_bf16" stream_common.cuh, "int8 walk" walk.cuh,
 # "int8 bench" int8_walk_bench.cu, "int8 value" value_stream.cu, "int8
 # attend" attend_eval.cu, "fp32 walk" walk.cuh, "fp32 stash" walk_bwd.cuh,
@@ -75,6 +76,18 @@ MUTS = [
      "      A[i] = pack_bf16(park[(2 * i) * 128 + t], park[(2 * i + 1) * 128 + t]);",
      "      A[i] = (__float_as_uint(park[(2 * i) * 128 + t]) >> 16) |\n"
      "             (__float_as_uint(park[(2 * i + 1) * 128 + t]) & 0xffff0000u);"),
+    ("stream q walk fwd: y_k truncated to bf16 (toward zero) before w_k "
+     "instead of rounded (a rounding point of the folded key stream, held "
+     "against the unfolded key forward)",
+     "    else run_walk(S, kd, true);\n",
+     "    else run_walk(S, kd, kF32<Op>);\n"
+     "    if constexpr (!kF32<Op>) if (!kq) {\n"
+     "      const int pd = kd.pd[kd.n];\n"
+     "      for (int i = threadIdx.x; i < kRows * pd; i += kThreads)\n"
+     "        S.A[0][(i / pd) * kALd + i % pd] =\n"
+     "            __float2bfloat16_rz(C[(i / pd) * kCLd + i % pd]);\n"
+     "      __syncthreads();\n"
+     "    }\n"),
     ("bwd wgmma: dz truncated to bf16 (toward zero) before the dX product "
      "and the stash (a rounding point)",
      "  round_pass(acc, w);\n  stash_w(w, dz, srow0, width, c0);",
@@ -407,6 +420,7 @@ def run_case(name, old, new) -> None:
                                       ("stream feat key", "key_stream_feat.cu"),
                                       ("stream feat value",
                                        "value_stream_feat.cu"),
+                                      ("stream q walk", "key_stream.cuh"),
                                       ("stream q", "key_stream_q.cu"),
                                       ("stream shared", "stream_common.cuh"),
                                       ("linear_bf16", "stream_common.cuh"),
@@ -447,6 +461,8 @@ def run_case(name, old, new) -> None:
                                                     "value_stream_i8",
                                                     "int8_walk_bench"))) \
                 or (target == "compare_f32_kernels" and "f32" in line) \
+                or (target == "compare_train_kernels"
+                    and line.startswith("key_stream_q T")) \
                 or (target == "compare_wgmma_kernels"
                     and line.startswith(("attend_eval T", "wgrad"))) \
                 or (target == "stream_bwd"

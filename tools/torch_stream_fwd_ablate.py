@@ -87,15 +87,15 @@ def main() -> None:
     cases = (("key", "key_fwd", lambda: sa.key_stream_fwd(*key)),
              ("value", "value_fwd", lambda: [sa.value_stream_fwd(*value)]))
     grids = [("", None)]
-    if hasattr(sa, "fwd_wgmma_grid"):
+    if hasattr(sa, "wgmma_grid"):
         tiles = -(-T // 128)
-        grids = [(f" (grid {sa.fwd_wgmma_grid(T)}: persistent)", None),
+        grids = [(f" (grid {sa.wgmma_grid(T)}: persistent)", None),
                  (f" (grid {tiles}: one block a tile)", tiles)]
     sound = {}
     for label, grid in grids:
-        real = getattr(sa, "fwd_wgmma_grid", None)
+        real = getattr(sa, "wgmma_grid", None)
         if grid is not None:
-            sa.fwd_wgmma_grid = lambda T: grid
+            sa.wgmma_grid = lambda T: grid
         for what, pat, fn in cases:
             sound.setdefault(what, [g.clone() for g in fn()])
             k_ms, _, o_ms, whole = _split(fn, pat)
@@ -104,7 +104,7 @@ def main() -> None:
                   f"{o_ms:.3f}, host / gaps {whole - k_ms - o_ms:.3f}",
                   flush=True)
         if real is not None:
-            sa.fwd_wgmma_grid = real
+            sa.wgmma_grid = real
     csrc = os.path.join(tree, "papr_tpu_torch", "csrc")
     if opt.split_only or not os.path.exists(os.path.join(csrc,
                                                          "walk_wgmma.cuh")):
