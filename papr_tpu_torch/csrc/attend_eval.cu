@@ -315,8 +315,8 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
                   p.eps, [&](int t) { return p.idx[(size_t)t * K + k]; });
 
       // --- key walk -> w_k -> score ---
-      wg_walk(acc, A, rg, sm.zero, E, ld, kw, geo, p.record, p.rec_w, row0,
-              false);
+      wg_walk(acc, A, rg, sm.zero, E, ld, kw, row0, false,
+              RecSrc{geo, p.record, p.rec_w});
       float col[2];
       wg_score(acc, A, rg, sm.zero, p.layers[n_key], p.qq, p.dm, bks,
                p.sqrt_dm, T, rbase, rl, col);
@@ -330,8 +330,8 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
 
       // --- value walk -> online softmax-weighted accumulation of its fp32
       // rows, rounded to bf16 as the fuse reads them ---
-      const bool two = wg_walk(acc, A, rg, sm.zero, E, ld, vw, geo, p.record,
-                               p.rec_w, row0, true);
+      const bool two = wg_walk(acc, A, rg, sm.zero, E, ld, vw, row0, true,
+                               RecSrc{geo, p.record, p.rec_w});
       const int tt = tid & 127;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {

@@ -5,23 +5,39 @@
 // Replaces papr_tpu/ops/fused_mlp.py::_fused_bwd_inner (pallas_call at :598,
 // kernel body _bwd_kernel :424). On the training path it is the query
 // embedder's backward: x (R, 3) fp32 ray directions and dy (R, 256) ->
-// dx (R, 3), dW / db per layer, dLN in / out.
+// dx (R, 3), dW / db per layer, dLN in / out; under fused_attn: true|embed
+// also the key and value stacks'.
 //
 // What bounds it on the H100: the recompute and the dX products, ~2x the
-// forward's tensor-core work per row, plus the stash traffic (the layer
-// inputs and bf16 output gradients, ~4.5 KB a row written once and read
-// once by wgrad.cu). What the design does about it: one block of 512
-// threads per 64-row tile keeps every activation and gradient of the tile in
-// shared memory (walk_bwd.cuh); the weights of the forward and the
-// transposed weights of the reverse walk are staged per layer as in the
-// forward kernel. The TPU kernel's grid-resident dW / db / dLN accumulators
-// become the stash + split-K reduction and per-block partial rows.
+// forward's tensor-core work per row (the dW products are wgrad.cu's), plus
+// the stash traffic (the layer inputs and bf16 output gradients, ~4.5 KB a
+// row written once and read once by wgrad.cu).
 //
-// fused_mlp_f32_bwd is the same kernel on the fp32 walk (use_amp: false):
-// 3xTF32 products, fp32 stash (twice the bytes) reduced by wgrad.cu's fp32
-// form.
+// The bf16 kernel (papr_fused_mlp_bwd, fused_mlp_bwd_wgmma_kernel) runs the
+// pieces of the bf16 stream backwards (walk_wgmma_bwd.cuh) on the raw
+// feature rows: a block of two warpgroups takes 128-row tiles of a
+// persistent grid (one block an SM, an even contiguous share of the tiles
+// each; a tile is never split, so every dx row has one writer); per tile a
+// warpgroup encodes its 64 rows (the fp32 encoding to a scratch slice for
+// the posenc derivative and the input LayerNorm), recomputes the forward on
+// wgmma with the activations in registers (the layer inputs to the stash,
+// relu patterns as bit masks, the output LayerNorm's fp32 input to the
+// scratch), takes dy into the accumulator, the output LayerNorm's backward
+// on it, and the reverse walk on register-A wgmma with W^T through the same
+// TMA-fed ring (dz rounded to bf16 for the dX product and the stash, db
+// summed from the fp32 dz into a partial row a warp); then per warp the
+// input LayerNorm's backward, the posenc derivative and the per-source sums
+// into dx. The rounding points are JAX's (walk_body_bwd): each layer's input
+// bf16, dz rounded to bf16 for both products, db from the fp32 dz, every
+// gradient fp32.
+//
+// fused_mlp_f32_bwd is the WMMA walk (walk_bwd.cuh) with fp32 operands
+// (use_amp: false): one block of 512 threads per 64-row tile keeps every
+// activation and gradient of the tile in shared memory, 3xTF32 products, an
+// fp32 stash (twice the bytes) reduced by wgrad.cu's fp32 form.
 
 #include "walk_bwd.cuh"
+#include "walk_wgmma_bwd.cuh"
 
 using namespace papr;
 
@@ -97,16 +113,215 @@ static int launch_fused_mlp_bwd(const float* x, int R, int d_raw,
     const float* x, int R, int d_raw, const float* dy, const int* meta,      \
     const void* w_all, const void* b_all, const void* ln, const void* plan,  \
     const void* wt_all, void* stash, const long long* stash_off,             \
-    const int* seg, float* dx, float* part, int part_w, float* scratch,      \
-    void* stream
+    const int* seg, float* dx, float* part, int part_w, float* scratch
 #define FUSED_MLP_BWD_ARGS                                                   \
     x, R, d_raw, dy, meta, w_all, b_all, ln, plan, wt_all, stash, stash_off, \
     seg, dx, part, part_w, scratch, stream
 
-extern "C" int papr_fused_mlp_bwd(FUSED_MLP_BWD_PARAMS) {
-  return launch_fused_mlp_bwd<__nv_bfloat16>(FUSED_MLP_BWD_ARGS);
+extern "C" int papr_fused_mlp_f32_bwd(FUSED_MLP_BWD_PARAMS, void* stream) {
+  return launch_fused_mlp_bwd<float>(FUSED_MLP_BWD_ARGS);
 }
 
-extern "C" int papr_fused_mlp_f32_bwd(FUSED_MLP_BWD_PARAMS) {
-  return launch_fused_mlp_bwd<float>(FUSED_MLP_BWD_ARGS);
+// ------------------------------------------- bf16: on wgmma + TMA ----
+
+struct EmbedBwdWg {
+  const float* x;                        // (R, d_raw) raw features
+  int R, d_raw;
+  const float* dy;                       // (R, d_out) fp32
+  WalkDesc d;                            // bias / LayerNorm / plan pointers
+  WgLayer layers[kWgMaxLayers];          // forward layers, W_l^T l = n-1..0
+  WgChunk chunks[kWgMaxChunks];          // the chunk stream of one tile
+  int n_chunks, stages;
+  const unsigned char* w;                // the packed weights
+  __nv_bfloat16* hs[kMaxLayers];         // stash (N, width) per layer
+  __nv_bfloat16* dz[kMaxLayers];
+  int b_off[kMaxLayers];
+  int bias_len;
+  float* part;                           // (grid * 8, part_w)
+  int part_w;
+  float* scratch;                        // scr_wg floats per warpgroup
+  int scr_wg;
+  const int* seg;                        // posenc segments of the d_raw sources
+  float* dx;                             // (R, d_raw)
+  int ld, e_floats, wg_floats;           // shared memory layout (floats)
+  int nln, nplan, n_prm;                 // staged LayerNorms, plan (floats)
+  int tiles, grid;                       // 128-row tiles over grid blocks
+};
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+fused_mlp_bwd_wgmma_kernel(const __grid_constant__ EmbedBwdWg p) {
+  extern __shared__ unsigned char smem_raw[];
+  const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm);
+  float* lns = sm.prm;
+  float* plan = lns + p.nln;
+  {
+    const float* const src[2] = {p.d.ln, p.d.plan};
+    const int cnt[2] = {p.nln, p.nplan};
+    wg_prologue(sm, p.stages, src, cnt);
+  }
+  const int t_begin = (int)((long long)p.tiles * blockIdx.x / p.grid);
+  const int t_end = (int)((long long)p.tiles * (blockIdx.x + 1) / p.grid);
+  WgRing rg{sm.ring, sm.full, sm.released, p.stages, 0, p.n_chunks,
+            p.n_chunks * (t_end - t_begin), p.chunks, p.w};
+  wg_ring_start(rg);
+
+  const WalkDesc& d = p.d;
+  const int tid = threadIdx.x, wg = tid >> 7, t_in = tid & 127;
+  const int w = t_in >> 5, lane = t_in & 31, g = lane >> 2, q = lane & 3;
+  const int row0 = 16 * w;
+  const int n = d.n, pd0 = d.pd[0], pdn = d.pd[n], L = p.bias_len;
+  const int ld = p.ld, R = p.R, d_raw = p.d_raw, d_out = d.d_out;
+  const int rl[2] = {row0 + g, row0 + g + 8};
+  float* E = sm.tiles + wg * p.wg_floats;         // rows / parking slices
+  uint32_t* masks = reinterpret_cast<uint32_t*>(E + p.e_floats);
+  float* st = reinterpret_cast<float*>(masks + n * 4 * 128);  // mu, r in
+  float* park = E;
+  float* prow =
+      p.part + (size_t)(blockIdx.x * kBwdPartRows + 4 * wg + w) * p.part_w;
+  float* enc_s = p.scratch + (size_t)(blockIdx.x * 2 + wg) * p.scr_wg;
+  float* zs_s = enc_s + kWgRows * pd0;
+  const float* lo_a = lns + 2 * pd0;
+  const float* lo_b = lo_a + pdn;
+  const float* __restrict__ x = p.x;
+  const float* __restrict__ dy = p.dy;
+
+  // The posenc segments of the lane's sources (for the per-source sums).
+  int seg0[kSrcPerLane], seg1[kSrcPerLane];
+#pragma unroll
+  for (int j = 0; j < kSrcPerLane; ++j) {
+    const int s = lane + 32 * j;
+    seg0[j] = s < d_raw ? p.seg[s] : 0;
+    seg1[j] = s < d_raw ? p.seg[d_raw + s] : 0;
+  }
+  uint32_t A[kARegs];
+  float acc[kAccRegs];
+#pragma unroll
+  for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+  float mo[2] = {0.f, 0.f}, ro[2] = {1.f, 1.f};
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int rbase = tile * kWgTile + wg * kWgRows;
+    const size_t srow0 = (size_t)rbase;
+    // --- the encoding: fp32 to the scratch, input LayerNorm, bf16 ---
+    wgb_encode(E, ld, d, plan, row0, [&](int r, int src) {
+      const int row = rbase + r;
+      return row < R ? x[(size_t)row * d_raw + src] : 0.f;
+    });
+    __syncwarp();
+    for (int r = row0; r < row0 + 16; ++r)
+      for (int c = lane; c < pd0; c += 32) enc_s[r * pd0 + c] = E[r * ld + c];
+    wgb_rows_to_bf16(E, ld, d, lns, st, row0);
+    stash_rows(E, ld, p.hs[0], srow0, pd0, row0);
+    smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
+              pd0, A);
+    // Every warp has read its rows before any thread parks over them.
+    named_sync(2 + wg, 128);
+
+    // --- forward recompute; the output LayerNorm's statistics ---
+    const bool two = wgb_fwd(acc, A, rg, sm.zero, d, p.layers, p.hs, srow0,
+                             masks, park, zs_s);
+    if (d.has_lo)
+      acc_layernorm_st(acc, two ? park : nullptr, d_out, lo_a, lo_b, mo, ro);
+
+    // --- dy in the accumulator's layout (with two, columns 0..127 parked);
+    // overhang rows and pad columns zero ---
+#pragma unroll
+    for (int i = 0; i < kAccRegs; ++i) {
+      const int row = rbase + rl[(i >> 1) & 1];
+      const int c = 8 * (i >> 2) + 2 * q + (i & 1);
+      const int c1 = (two ? kPassN : 0) + c;
+      if (two)
+        park[i * 128 + t_in] =
+            row < R && c < d_out ? dy[(size_t)row * d_out + c] : 0.f;
+      acc[i] = row < R && c1 < d_out ? dy[(size_t)row * d_out + c1] : 0.f;
+    }
+    if (d.has_lo)
+      acc_ln_bwd(acc, two ? park : nullptr, zs_s, mo, ro, d_out, lo_a,
+                 prow + L + 2 * pd0, prow + L + 2 * pd0 + pdn);
+
+    // --- the reverse walk; layer 0's product is the encoding's gradient,
+    // fp32 into the warp's rows of E ---
+    wgb_rev(acc, A, rg, sm.zero, d, p.layers + n, p.dz, p.b_off, prow, srow0,
+            masks, park, two, E, ld);
+    __syncwarp();
+
+    // --- per warp: input LayerNorm backward, posenc derivative, the
+    // per-source sums into dx ---
+    wgb_in_bwd(E, ld, d, enc_s, st, lns, plan, prow, L, row0, seg0, seg1,
+               d_raw, [&](int r, int src, float v) {
+                 const int row = rbase + r;
+                 if (row < R) p.dx[(size_t)row * d_raw + src] = v;
+               });
+  }
+}
+
+// The bf16 backward on wgmma: the fp32 form's arguments (w_all / wt_all
+// unread: the packed image replaces them; the stash rows are the 128-row
+// tiles', part has 8 rows and scratch 2 scr_wg floats a block, scr_wg =
+// 64 pd[0] (+ 128 x 128 with an output LayerNorm)), then the packed weights
+// (ops/fused_mlp.py pack_embed_wgmma: the forward layers, then W_l^T for
+// l = n-1 .. 0) and their size in bytes, and the grid (1 .. the number of
+// 128-row tiles).
+extern "C" int papr_fused_mlp_bwd(FUSED_MLP_BWD_PARAMS, const void* wpack,
+                                  long long wbytes, int grid, void* stream) {
+  (void)wt_all;
+  EmbedBwdWg p;
+  int err = fill_walk(&p.d, meta, w_all, b_all, ln, plan);
+  if (err) return err;
+  const WalkDesc& d = p.d;
+  const int n = d.n;
+  if (2 * n > kWgMaxLayers) return -206;
+  if (d_raw > 32 * kSrcPerLane) return -208;
+  int dims[kWgMaxLayers][2], m = 0;
+  wg_walk_dims(dims, &m, d);
+  for (int l = n - 1; l >= 0; --l, ++m) {
+    dims[m][0] = d.pd[l + 1];
+    dims[m][1] = d.pd[l];
+  }
+  if (wg_plan(p.layers, dims, m) != wbytes || !wpack ||
+      reinterpret_cast<uintptr_t>(wpack) % 16)
+    return -204;
+  p.n_chunks = wg_chunks(p.chunks, p.layers, m);
+  p.w = static_cast<const unsigned char*>(wpack);
+  for (int i = 0; i < n; ++i) {
+    if (stash_off[i] % 8 != 0 || stash_off[n + i] % 8 != 0) return -112;
+    p.hs[i] = static_cast<__nv_bfloat16*>(stash) + stash_off[i];
+    p.dz[i] = static_cast<__nv_bfloat16*>(stash) + stash_off[n + i];
+  }
+  const int* b_off = meta + 7 + (n + 1) + n;
+  for (int i = 0; i < n; ++i) p.b_off[i] = b_off[i];
+  p.bias_len = b_off[n - 1] + d.pd[n];
+  if (part_w < p.bias_len + 2 * d.pd[0] + 2 * d.pd[n]) return -113;
+  p.part = part;
+  p.part_w = part_w;
+  p.scratch = scratch;
+  p.scr_wg = kWgRows * d.pd[0] + (d.has_lo ? kZsFloats : 0);
+  int nb;
+  wg_walk_rows(d, &nb, &p.nln, &p.nplan);
+  p.n_prm = p.nln + p.nplan;
+  p.ld = wg_ld(d.pd[0]);
+  p.e_floats = wg_e_floats(p.ld);
+  p.wg_floats = p.e_floats + n * 4 * 128 + 2 * kWgRows;
+  size_t smem = 0;
+  err = wg_ring_fit(wg_smem_rest(2 * p.wg_floats, p.n_prm), &p.stages, &smem);
+  if (err) return err;
+  if (R <= 0) return 0;
+  p.tiles = (R + kWgTile - 1) / kWgTile;
+  if (grid < 1 || grid > p.tiles) return -209;
+  p.grid = grid;
+  p.x = x;
+  p.R = R;
+  p.d_raw = d_raw;
+  p.dy = dy;
+  p.seg = seg;
+  p.dx = dx;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_mlp_bwd_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_mlp_bwd_wgmma_kernel<<<grid, kWgThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -1,12 +1,13 @@
-// The walk on wgmma (Hopper), the bf16 forward walk of three kernels: the
-// one-shot eval attention (attend_eval.cu attend_eval_wgmma_kernel) and the
+// The walk on wgmma (Hopper), the bf16 forward walk of four kernels: the
+// one-shot eval attention (attend_eval.cu attend_eval_wgmma_kernel), the
 // record-native training stream forwards (key_stream.cu
 // key_fwd_wgmma_kernel, value_stream.cu value_fwd_wgmma_kernel), which run
-// the same code below from the geometry rows to the walks' outputs; the
-// bf16 stream backwards build on its ring and layers (walk_wgmma_bwd.cuh).
-// The fp32 and int8 forms of these kernels, and the other walk kernels
-// (key_stream_q.cu, key_stream_feat.cu, value_stream_feat.cu, fused_mlp*.cu),
-// keep walk.cuh's WMMA layers.
+// the same code below from the geometry rows to the walks' outputs, and the
+// fused embedder forward (fused_mlp.cu fused_mlp_fwd_wgmma_kernel), whose
+// posenc sources are raw feature rows; the bf16 stream and embedder
+// backwards build on its ring and layers (walk_wgmma_bwd.cuh). The fp32 and
+// int8 forms of these kernels, and the other walk kernels (key_stream_q.cu,
+// key_stream_feat.cu, value_stream_feat.cu), keep walk.cuh's WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
 // ptxas may give a thread up to 255 registers). Within a warpgroup the
@@ -335,10 +336,13 @@ inline int wg_chunks(WgChunk* out, const WgLayer* layers, int n) {
 
 // ------------------------------------------- the bf16 forward kernels ----
 //
-// What K3 and the two stream forwards share. They differ only in where a
-// token's record row comes from (K3: idx[t * K + k] of the (P, rp) record;
-// the streams: k * T + t of the pre-gathered k-major (K, T, rp) record), a
-// functor of the geometry, and in what they do with the walks' outputs.
+// What K3 and the two stream forwards share; the embedder forward (K2,
+// fused_mlp.cu) runs wg_walk on raw feature rows (its posenc sources a
+// functor, RecSrc here) and writes its output with wg_store_rows. K3 and the
+// streams differ only in where a token's record row comes from (K3:
+// idx[t * K + k] of the (P, rp) record; the streams: k * T + t of the
+// pre-gathered k-major (K, T, rp) record), a functor of the geometry, and in
+// what they do with the walks' outputs.
 // Per k step a warp owns 16 rays end to end: it writes their geometry and
 // posenc to its rows of shared memory (lanes over columns, as encode_rec),
 // takes the input LayerNorm there and rounds to bf16 in place, loads the A
@@ -503,12 +507,28 @@ __device__ __forceinline__ void wg_geometry(float* geo,
   __syncwarp();
 }
 
+// The record walks' posenc sources (K3, the stream forwards and backwards):
+// row r's geometry values (sources < kNGeoSrc), then its record row's point
+// features.
+struct RecSrc {
+  const float* geo;
+  const float* __restrict__ record;
+  int rec_w;
+  __device__ __forceinline__ float operator()(int r, int src) const {
+    const float* gr = geo + r * kGeo;
+    return src < kNGeoSrc
+        ? gr[src]
+        : record[(size_t)__float_as_int(gr[11]) * rec_w + 5 + (src - kNGeoSrc)];
+  }
+};
+
 // The warp's 16 rows of one walk's posenc into E (fp32, ld floats a row),
-// lanes over columns; pad lanes 0.
+// lanes over columns; pad lanes 0. src_val(r, src): row r's source value
+// (RecSrc, or the embedder's raw feature row).
+template <class Src>
 __device__ __forceinline__ void wg_encode(float* E, int ld, const WalkDesc& d,
-                                          const float* plan, const float* geo,
-                                          const float* __restrict__ record,
-                                          int rec_w, int row0) {
+                                          const float* plan, int row0,
+                                          const Src& src_val) {
   const int lane = threadIdx.x & 31, pd0 = d.pd[0];
   for (int c = lane; c < pd0; c += 32) {
     const bool live = c < d.d_enc;
@@ -518,11 +538,7 @@ __device__ __forceinline__ void wg_encode(float* E, int ld, const WalkDesc& d,
     for (int r = row0; r < row0 + 16; ++r) {
       float v = 0.f;
       if (live) {
-        const float* gr = geo + r * kGeo;
-        const float x = src < kNGeoSrc
-            ? gr[src]
-            : record[(size_t)__float_as_int(gr[11]) * rec_w + 5 +
-                     (src - kNGeoSrc)];
+        const float x = src_val(r, src);
         v = encode_value(x, freq, kind);
       }
       E[r * ld + c] = v;
@@ -614,23 +630,22 @@ __device__ __forceinline__ void wg_dense(float (&acc)[kAccRegs],
   }
 }
 
-// A walk over the warp's 16 rows (geometry in geo): posenc into E, the
+// A walk over the warp's 16 rows (sources src_val): posenc into E, the
 // input LayerNorm, the dense layers and the output LayerNorm. Without
 // rows_f32 the output, rounded to bf16, is left in the A fragments (y_k as
 // the w_k product's operand; returns false). With rows_f32 the last layer's
 // fp32 output (LayerNorm'd if the walk has one) is left in acc for columns
 // 0..127, or, for a 256-wide last layer (returns true), columns 128.. in acc
 // and 0..127 parked fp32 at E (the value rows before their rounding).
+template <class Src>
 __device__ __forceinline__ bool wg_walk(float (&acc)[kAccRegs],
                                         uint32_t (&A)[kARegs], WgRing& rg,
                                         const unsigned char* zero, float* E,
-                                        int ld, const WgWalk& w,
-                                        const float* geo,
-                                        const float* __restrict__ record,
-                                        int rec_w, int row0, bool rows_f32) {
+                                        int ld, const WgWalk& w, int row0,
+                                        bool rows_f32, const Src& src_val) {
   const WalkDesc& d = *w.d;
   const int n = d.n;
-  wg_encode(E, ld, d, w.plan, geo, record, rec_w, row0);
+  wg_encode(E, ld, d, w.plan, row0, src_val);
   __syncwarp();
   wg_rows_to_bf16(E, ld, d, w.ln, row0);
   smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
@@ -656,6 +671,62 @@ __device__ __forceinline__ bool wg_walk(float (&acc)[kAccRegs],
   }
   if (d.has_lo) acc_layernorm(acc, two ? E : nullptr, d.d_out, lo, lo + d.pd[n]);
   return two;
+}
+
+// The walk's fp32 output as wg_walk leaves it with rows_f32 (columns 0..127
+// in acc; with two, columns 0..127 parked fp32 at E and 128.. in acc),
+// rounded to bf16 into the A fragments, then written to the warpgroup's rows
+// rbase + r < R of y (d_out wide): each thread's words go to its rows of a
+// staging tile over E (512 bytes a row, the 16-byte groups XOR-swizzled by
+// row % 8, so a warp's stores hit 32 distinct banks), then each warp copies
+// its 16 rows out, 16 bytes a lane where the row width allows (rows are
+// contiguous in y). The caller's next warpgroup barrier guards E.
+__device__ __forceinline__ void wg_store_rows(const float (&acc)[kAccRegs],
+                                              uint32_t (&A)[kARegs], float* E,
+                                              bool two,
+                                              __nv_bfloat16* __restrict__ y,
+                                              int rbase, int R, int d_out) {
+  const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int row0 = 16 * (t >> 5);
+  if (two) {
+    acc_to_a<32>(acc, A);
+#pragma unroll
+    for (int i = 0; i < kAccRegs / 2; ++i)
+      A[i] = pack_bf16(E[(2 * i) * 128 + t], E[(2 * i + 1) * 128 + t]);
+  } else {
+    acc_to_a<0>(acc, A);
+  }
+  // Every thread has read its parked pass before the staging tile covers it.
+  named_sync(2 + (threadIdx.x >> 7), 128);
+  unsigned char* stg = reinterpret_cast<unsigned char*>(E);
+#pragma unroll
+  for (int i = 0; i < kARegs; ++i) {
+    if (i >= 32 && !two) break;
+    // Word i: pass i / 32, row g + 8 (i % 2), 16-byte group 16 (i / 32) +
+    // (i % 32) / 2, bytes 4 q ..
+    const int r = row0 + g + 8 * (i & 1);
+    const int grp = 16 * (i >> 5) + ((i & 31) >> 1);
+    *reinterpret_cast<uint32_t*>(stg + r * 512 + ((grp ^ g) << 4) + 4 * q) =
+        A[i];
+  }
+  __syncwarp();
+  const int rows = R - (rbase + row0) < 16 ? R - (rbase + row0) : 16;
+  if (d_out % 8 == 0) {
+    const int upr = d_out / 8;
+    for (int u = lane; u < rows * upr; u += 32) {
+      const int rr = row0 + u / upr, c = u % upr;
+      *reinterpret_cast<uint4*>(y + (size_t)(rbase + rr) * d_out + 8 * c) =
+          *reinterpret_cast<const uint4*>(stg + rr * 512 +
+                                          ((c ^ (rr & 7)) << 4));
+    }
+  } else {
+    for (int u = lane; u < rows * d_out; u += 32) {
+      const int rr = row0 + u / d_out, c = u % d_out;
+      y[(size_t)(rbase + rr) * d_out + c] =
+          *reinterpret_cast<const __nv_bfloat16*>(
+              stg + rr * 512 + (((c >> 3) ^ (rr & 7)) << 4) + 2 * (c & 7));
+    }
+  }
 }
 
 // The w_k product of y_k (the A fragments) and the scaled dot with each of
@@ -835,8 +906,8 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWg& p) {
                   [&](int t) { return k * T + t; });
       if (kKey) {
         // --- walk -> w_k -> the raw dot and the masked score ---
-        wg_walk(acc, A, rg, sm.zero, E, ld, walk, geo, p.rec, p.rec_w, row0,
-                false);
+        wg_walk(acc, A, rg, sm.zero, E, ld, walk, row0, false,
+                RecSrc{geo, p.rec, p.rec_w});
         float col[2];
         wg_score(acc, A, rg, sm.zero, p.layers[p.d.n], p.qq, p.dm, bks,
                  p.sqrt_dm, T, rbase, rl, col);
@@ -852,8 +923,8 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWg& p) {
         }
       } else {
         // --- walk -> value rows rounded to bf16 -> (attn_k / den) x rows ---
-        const bool two = wg_walk(acc, A, rg, sm.zero, E, ld, walk, geo, p.rec,
-                                 p.rec_w, row0, true);
+        const bool two = wg_walk(acc, A, rg, sm.zero, E, ld, walk, row0, true,
+                                 RecSrc{geo, p.rec, p.rec_w});
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int t = rbase + rl[h];

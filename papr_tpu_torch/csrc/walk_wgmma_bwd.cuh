@@ -1,8 +1,11 @@
 // The bf16 record-native stream backwards on wgmma (Hopper): the walk's
 // forward recompute and its reverse walk for key_stream.cu
 // (papr_key_stream_bwd, key_bwd_wgmma_kernel) and value_stream.cu
-// (papr_value_stream_bwd, value_bwd_wgmma_kernel). The fp32 backwards and
-// the other walk backwards keep walk_bwd.cuh's WMMA layers.
+// (papr_value_stream_bwd, value_bwd_wgmma_kernel); the bf16 embedder
+// backward (fused_mlp_bwd.cu fused_mlp_bwd_wgmma_kernel) runs the same
+// pieces (wgb_encode, wgb_fwd, wgb_rev, wgb_in_bwd) on raw feature rows. The
+// fp32 backwards and the other walk backwards keep walk_bwd.cuh's WMMA
+// layers.
 //
 // The function is walk_bwd.cuh's, with its rounding points: each layer's
 // input hs[i] rounded to bf16 (and stashed), dz = g * act'(.) rounded to
@@ -180,16 +183,15 @@ inline int fill_stream_bwd_wg(StreamBwdWg* p, const int* meta, const void* w,
 }
 
 // The warp's 16 rows of the walk's posenc into E (fp32, ld floats a row),
-// lanes over columns; pad lanes 0. geo row r: sel, proj, perp, influence,
-// alive, the record row (int bits); plan: the posenc plan (shared memory).
-// A column's 16 sources are loaded together (the record's reads overlap)
-// and parked in E, then encoded in place row by row (one copy of the
-// sin / cos code).
+// lanes over columns; pad lanes 0. src_val(r, src): row r's source value
+// (walk_wgmma.cuh RecSrc, or the embedder's raw feature row); plan: the
+// posenc plan (shared memory). A column's 16 sources are loaded together
+// (the reads overlap) and parked in E, then encoded in place row by row (one
+// copy of the sin / cos code).
+template <class Src>
 __device__ __forceinline__ void wgb_encode(float* E, int ld, const WalkDesc& d,
-                                           const float* plan,
-                                           const float* geo,
-                                           const float* __restrict__ rec,
-                                           int rec_w, int row0) {
+                                           const float* plan, int row0,
+                                           const Src& src_val) {
   const int lane = threadIdx.x & 31, pd0 = d.pd[0];
   for (int c = lane; c < pd0; c += 32) {
     const bool live = c < d.d_enc;
@@ -198,13 +200,7 @@ __device__ __forceinline__ void wgb_encode(float* E, int ld, const WalkDesc& d,
     const int kind = live ? (int)plan[2 * pd0 + c] : 0;
     float x[16];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float* gr = geo + (row0 + i) * kGeo;
-      x[i] = !live ? 0.f
-           : src < kNGeoSrc
-           ? gr[src]
-           : rec[(size_t)__float_as_int(gr[11]) * rec_w + 5 + (src - kNGeoSrc)];
-    }
+    for (int i = 0; i < 16; ++i) x[i] = live ? src_val(row0 + i, src) : 0.f;
 #pragma unroll
     for (int i = 0; i < 16; ++i) E[(row0 + i) * ld + c] = x[i];
 #pragma unroll 1
@@ -578,6 +574,201 @@ __device__ __forceinline__ void save_slice(const float (&acc)[kAccRegs],
   for (int i = 0; i < kAccRegs; ++i) zs[(kAccRegs * p + i) * 128 + t] = acc[i];
 }
 
+// The forward recompute of walk d on the warpgroup's rows from the A
+// fragments of its bf16 input (which the caller stashes): each later layer's
+// input to the stash hs[l] (rows srow0 ..), its relu pattern to masks (512
+// words a layer), with an output LayerNorm the last layer's fp32 output to
+// the scratch slice zs_s; the last layer's fp32 output is left in acc, a
+// 256-wide one's first pass parked fp32 at park. Returns whether the last
+// layer took two passes.
+__device__ __forceinline__ bool wgb_fwd(float (&acc)[kAccRegs],
+                                        uint32_t (&A)[kARegs], WgRing& rg,
+                                        const unsigned char* zero,
+                                        const WalkDesc& d,
+                                        const WgLayer* layers,
+                                        __nv_bfloat16* const* hs,
+                                        size_t srow0, uint32_t* masks,
+                                        float* park, float* zs_s) {
+  const int n = d.n;
+  uint32_t* park_u = reinterpret_cast<uint32_t*>(park);
+  bool two = false;
+  for (int l = 0; l < n; ++l) {
+    const bool last = l + 1 == n;
+    const WgLayer& Ly = layers[l];
+    const int np = Ly.ni > kPassN ? 2 : 1;
+    const int act = last ? d.last_act : d.act;
+    uint32_t* mk = act == 1 ? masks + l * 512 : nullptr;
+    if (l > 0) stash_a(A, hs[l], srow0, d.pd[l]);
+    for (int pp = 0; pp < np; ++pp) {
+      wgb_pass(acc, A, rg, Ly, zero);
+      acc_bias_act(acc, d.b[l] + kPassN * pp,
+                   pp + 1 < np ? kPassN : Ly.pd_out - kPassN * pp, act);
+      if (mk) store_mask(acc, mk, pp);
+      if (last) {
+        if (d.has_lo) save_slice(acc, zs_s, pp);
+        if (pp + 1 < np) park_f32(acc, park);
+      } else if (pp + 1 < np) {
+        park_bf16(acc, park_u);
+      } else if (np == 2) {
+        acc_to_a<32>(acc, A);
+        unpark_bf16(park_u, A);
+      } else {
+        acc_to_a<0>(acc, A);
+      }
+    }
+    two = np == 2;
+  }
+  return two;
+}
+
+// The reverse walk from the gradient of the walk's output (in acc; with
+// two, its first 128 columns parked fp32 at park): the last layer's
+// epilogue (its second pass first, from acc; then the first, from the
+// parking slots), then per layer l the product dz_l W_l^T (rev: the W_l^T
+// layers from l = n - 1 down) and layer l - 1's epilogue; layer 0's product
+// is the encoding's gradient, fp32 into the warp's rows of E.
+__device__ __forceinline__ void wgb_rev(float (&acc)[kAccRegs],
+                                        uint32_t (&A)[kARegs], WgRing& rg,
+                                        const unsigned char* zero,
+                                        const WalkDesc& d, const WgLayer* rev,
+                                        __nv_bfloat16* const* dz,
+                                        const int* b_off, float* prow,
+                                        size_t srow0, const uint32_t* masks,
+                                        float* park, bool two, float* E,
+                                        int ld) {
+  const int n = d.n, pd0 = d.pd[0], pdn = d.pd[n];
+  const int wg = threadIdx.x >> 7, t_in = threadIdx.x & 127;
+  const int lane = t_in & 31, g = lane >> 2, q = lane & 3;
+  const int row0 = 16 * (t_in >> 5);
+  const int rl[2] = {row0 + g, row0 + g + 8};
+  uint32_t* park_u = reinterpret_cast<uint32_t*>(park);
+  const uint32_t* mz = d.last_act == 1 ? masks + (n - 1) * 512 : nullptr;
+  for (int pp = two ? 1 : 0; pp >= 0; --pp) {
+    if (pp == 0 && two)
+#pragma unroll
+      for (int i = 0; i < kAccRegs; ++i) acc[i] = park[i * 128 + t_in];
+    rev_epilogue(acc, A, park_u, pp, mz, pp, pdn, prow + b_off[n - 1],
+                 dz[n - 1], srow0);
+  }
+  for (int l = n - 1; l >= 0; --l) {
+    const WgLayer& R = rev[n - 1 - l];
+    const int np = R.ni > kPassN ? 2 : 1;
+    const uint32_t* ml =
+        l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;
+    // Before E's rows are written: no thread reads a parking slot any
+    // more.
+    if (l == 0) named_sync(2 + wg, 128);
+    for (int pp = 0; pp < np; ++pp) {
+      wgb_pass(acc, A, rg, R, zero);
+      if (l > 0) {
+        rev_epilogue(acc, A, park_u, np == 2 ? 2 - pp : 0, ml, pp, d.pd[l],
+                     prow + b_off[l - 1], dz[l - 1], srow0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kAccRegs; ++i) {
+          const int c = kPassN * pp + 8 * (i >> 2) + 2 * q + (i & 1);
+          if (c < pd0) E[rl[(i >> 1) & 1] * ld + c] = acc[i];
+        }
+      }
+    }
+    if (l > 0 && np == 2) unpark_bf16(park_u, A);
+  }
+}
+
+// Per warp, on its 16 rows of E (the fp32 gradient of the encoding): the
+// input LayerNorm's backward (statistics st: mean at st[r], 1 / (std + eps)
+// at st[kWgRows + r]; its da / db added to prow[L ..], prow[L + pd0 ..]),
+// the posenc derivative (the saved encoding enc_s's sin / cos partner,
+// JAX's _pe_freq_bwd, instead of a fresh sincosf), then each of the lane's
+// sources s < nsrc summed over its segment [seg0, seg1) and handed to
+// sink(r, s, value).
+template <class Sink>
+__device__ __forceinline__ void wgb_in_bwd(float* E, int ld, const WalkDesc& d,
+                                           const float* enc_s, const float* st,
+                                           const float* lns, const float* plan,
+                                           float* prow, int L, int row0,
+                                           const int (&seg0)[kSrcPerLane],
+                                           const int (&seg1)[kSrcPerLane],
+                                           int nsrc, const Sink& sink) {
+  const int lane = threadIdx.x & 31, pd0 = d.pd[0];
+  float sa[kMaxWidth / 32], sb[kMaxWidth / 32];
+#pragma unroll
+  for (int m = 0; m < kMaxWidth / 32; ++m) sa[m] = sb[m] = 0.f;
+  const int nt = d.d_enc;
+  constexpr int kM = kMaxWidth / 32;
+  for (int r = row0; r < row0 + 16; ++r) {
+    float* row = E + r * ld;
+    const float* x = enc_s + r * pd0;
+    // The row's gradient, its saved encoding and each column's sin / cos
+    // partner, loaded before anything is written.
+    float gv[kM], xv[kM], xp[kM], fq[kM];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int c = lane + 32 * m;
+      const int kind = c < nt ? (int)plan[2 * pd0 + c] : 0;
+      gv[m] = c < pd0 ? row[c] : 0.f;
+      xv[m] = c < nt ? x[c] : 0.f;
+      xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;
+      fq[m] = kind == 1 ? plan[pd0 + c] : kind == 2 ? -plan[pd0 + c] : 1.f;
+    }
+    if (d.has_li) {
+      const float m0 = st[r], qv = st[kWgRows + r];
+      float cs = 0.f;
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        const int c = lane + 32 * m;
+        if (c < nt) cs += gv[m] * lns[c] * (xv[m] - m0);
+      }
+      cs = warp_sum(cs);
+      const float sd = 1.f / qv - kLnEps;
+      const float denom = (float)(nt > 1 ? nt - 1 : 1) * fmaxf(sd, 1e-30f);
+      const float wr = sd > 0.f ? -cs * qv * qv / denom : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        const int c = lane + 32 * m;
+        if (c < nt) {
+          const float gg = gv[m], xm = xv[m] - m0;
+          sa[m] += gg * xm * qv;
+          sb[m] += gg;
+          gv[m] = gg * lns[c] * qv + wr * xm;
+          sum += gv[m];
+        }
+      }
+      const float mean = warp_sum(sum) / (float)nt;
+#pragma unroll
+      for (int m = 0; m < kM; ++m)
+        gv[m] = lane + 32 * m < nt ? gv[m] - mean : 0.f;
+    }
+    // _pe_freq_bwd: d sin / dx = freq cos, d cos / dx = -freq sin, from
+    // the partner column of the saved encoding (sin, cos adjacent).
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int c = lane + 32 * m;
+      if (c < pd0) row[c] = gv[m] * fq[m] * xp[m];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kSrcPerLane; ++j) {
+      const int s = lane + 32 * j;
+      if (s >= nsrc) continue;
+      float v = 0.f;
+      for (int c = seg0[j]; c < seg1[j]; ++c) v += row[c];
+      sink(r, s, v);
+    }
+    __syncwarp();
+  }
+  if (d.has_li)
+#pragma unroll
+    for (int m = 0; m < kMaxWidth / 32; ++m) {
+      const int c = lane + 32 * m;
+      if (c < nt) {
+        prow[L + c] += sa[m];
+        prow[L + pd0 + c] += sb[m];
+      }
+    }
+}
+
 // The backward of the record-native key stream (kKey: the score head,
 // key_stream.cu) or value stream (the fuse step, value_stream.cu) on one
 // block of kWgTile rays; see the header.
@@ -753,7 +944,7 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
       __syncwarp();
 
       // --- the encoding: fp32 to the scratch, input LayerNorm, bf16 ---
-      wgb_encode(E, ld, d, plan, geo, p.rec, p.rec_w, row0);
+      wgb_encode(E, ld, d, plan, row0, RecSrc{geo, p.rec, p.rec_w});
       __syncwarp();
       for (int r = row0; r < row0 + 16; ++r)
         for (int c = lane; c < pd0; c += 32) enc_s[r * pd0 + c] = E[r * ld + c];
@@ -766,34 +957,8 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
 
       // --- forward recompute: stash, relu masks; the last layer's fp32
       // output in acc (and, for a 256-wide layer, its first pass parked) ---
-      bool two = false;
-      for (int l = 0; l < n; ++l) {
-        const bool last = l + 1 == n;
-        const WgLayer& Ly = p.layers[l];
-        const int np = Ly.ni > kPassN ? 2 : 1;
-        const int act = last ? d.last_act : d.act;
-        uint32_t* mk = act == 1 ? masks + l * 512 : nullptr;
-        if (l > 0) stash_a(A, p.hs[l], srow0, d.pd[l]);
-        for (int pp = 0; pp < np; ++pp) {
-          wgb_pass(acc, A, rg, Ly, zero);
-          acc_bias_act(acc, d.b[l] + kPassN * pp,
-                       pp + 1 < np ? kPassN : Ly.pd_out - kPassN * pp, act);
-          if (mk) store_mask(acc, mk, pp);
-          if (last) {
-            if (d.has_lo) save_slice(acc, zs_s, pp);
-            if (pp + 1 < np) park_f32(acc, park);
-          } else if (pp + 1 < np) {
-            park_bf16(acc, park_u);
-          } else if (np == 2) {
-            acc_to_a<32>(acc, A);
-            unpark_bf16(park_u, A);
-          } else {
-            acc_to_a<0>(acc, A);
-          }
-        }
-        two = np == 2;
-      }
-      uint32_t* mz = d.last_act == 1 ? masks + (n - 1) * 512 : nullptr;
+      const bool two = wgb_fwd(acc, A, rg, zero, d, p.layers, p.hs, srow0,
+                               masks, park, zs_s);
       if (d.has_lo)
         acc_layernorm_st(acc, two ? park : nullptr, d.d_out, lo_a, lo_b, mo, ro);
 
@@ -879,124 +1044,23 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
         acc_ln_bwd(acc, two ? park : nullptr, zs_s, mo, ro, d.d_out, lo_a,
                    prow + L + 2 * pd0, prow + L + 2 * pd0 + pdn);
 
-      // --- the reverse walk: the last layer's epilogue (its second pass
-      // first, from acc; then the first, from the parking slots), then per
-      // layer l the product dz_l W_l^T and layer l - 1's epilogue; layer 0's
-      // product is the encoding's gradient, fp32 into the warp's rows of E ---
-      for (int pp = two ? 1 : 0; pp >= 0; --pp) {
-        if (pp == 0 && two)
-#pragma unroll
-          for (int i = 0; i < kAccRegs; ++i) acc[i] = park[i * 128 + t_in];
-        rev_epilogue(acc, A, park_u, pp, mz, pp, pdn, prow + p.b_off[n - 1],
-                     p.dz[n - 1], srow0);
-      }
-      const int rev0 = n + (kKey ? 2 : 0);
-      for (int l = n - 1; l >= 0; --l) {
-        const WgLayer& R = p.layers[rev0 + (n - 1 - l)];
-        const int np = R.ni > kPassN ? 2 : 1;
-        const uint32_t* ml =
-            l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;
-        // Before E's rows are written: no thread reads a parking slot any
-        // more.
-        if (l == 0) named_sync(2 + wg, 128);
-        for (int pp = 0; pp < np; ++pp) {
-          wgb_pass(acc, A, rg, R, zero);
-          if (l > 0) {
-            rev_epilogue(acc, A, park_u, np == 2 ? 2 - pp : 0, ml, pp, d.pd[l],
-                         prow + p.b_off[l - 1], p.dz[l - 1], srow0);
-          } else {
-#pragma unroll
-            for (int i = 0; i < kAccRegs; ++i) {
-              const int c = kPassN * pp + 8 * (i >> 2) + 2 * q + (i & 1);
-              if (c < pd0) E[rl[(i >> 1) & 1] * ld + c] = acc[i];
-            }
-          }
-        }
-        if (l > 0 && np == 2) unpark_bf16(park_u, A);
-      }
+      // --- the reverse walk; layer 0's product is the encoding's gradient,
+      // fp32 into the warp's rows of E ---
+      wgb_rev(acc, A, rg, zero, d, p.layers + n + (kKey ? 2 : 0), p.dz,
+              p.b_off, prow, srow0, masks, park, two, E, ld);
       __syncwarp();
 
       // --- per warp: input LayerNorm backward, posenc derivative, source
       // sums, geometry backward ---
-      float sa[kMaxWidth / 32], sb[kMaxWidth / 32];
-#pragma unroll
-      for (int m = 0; m < kMaxWidth / 32; ++m) sa[m] = sb[m] = 0.f;
-      const int nt = d.d_enc;
-      constexpr int kM = kMaxWidth / 32;
-      for (int r = row0; r < row0 + 16; ++r) {
-        float* row = E + r * ld;
-        const float* x = enc_s + r * pd0;
-        // The row's gradient, its saved encoding and each column's sin / cos
-        // partner, loaded before anything is written.
-        float gv[kM], xv[kM], xp[kM], fq[kM];
-#pragma unroll
-        for (int m = 0; m < kM; ++m) {
-          const int c = lane + 32 * m;
-          const int kind = c < nt ? (int)plan[2 * pd0 + c] : 0;
-          gv[m] = c < pd0 ? row[c] : 0.f;
-          xv[m] = c < nt ? x[c] : 0.f;
-          xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;
-          fq[m] = kind == 1 ? plan[pd0 + c] : kind == 2 ? -plan[pd0 + c] : 1.f;
-        }
-        if (d.has_li) {
-          const float m0 = st[r], qv = st[kWgRows + r];
-          float cs = 0.f;
-#pragma unroll
-          for (int m = 0; m < kM; ++m) {
-            const int c = lane + 32 * m;
-            if (c < nt) cs += gv[m] * lns[c] * (xv[m] - m0);
-          }
-          cs = warp_sum(cs);
-          const float sd = 1.f / qv - kLnEps;
-          const float denom = (float)(nt > 1 ? nt - 1 : 1) * fmaxf(sd, 1e-30f);
-          const float wr = sd > 0.f ? -cs * qv * qv / denom : 0.f;
-          float sum = 0.f;
-#pragma unroll
-          for (int m = 0; m < kM; ++m) {
-            const int c = lane + 32 * m;
-            if (c < nt) {
-              const float gg = gv[m], xm = xv[m] - m0;
-              sa[m] += gg * xm * qv;
-              sb[m] += gg;
-              gv[m] = gg * lns[c] * qv + wr * xm;
-              sum += gv[m];
-            }
-          }
-          const float mean = warp_sum(sum) / (float)nt;
-#pragma unroll
-          for (int m = 0; m < kM; ++m)
-            gv[m] = lane + 32 * m < nt ? gv[m] - mean : 0.f;
-        }
-        // _pe_freq_bwd: d sin / dx = freq cos, d cos / dx = -freq sin, from
-        // the partner column of the saved encoding (sin, cos adjacent).
-#pragma unroll
-        for (int m = 0; m < kM; ++m) {
-          const int c = lane + 32 * m;
-          if (c < pd0) row[c] = gv[m] * fq[m] * xp[m];
-        }
-        __syncwarp();
-        const int gi = __float_as_int(geo[r * kGeo + 11]);
-#pragma unroll
-        for (int j = 0; j < kSrcPerLane; ++j) {
-          const int s = lane + 32 * j;
-          if (s >= p.nsrc) continue;
-          float v = 0.f;
-          for (int c = seg0[j]; c < seg1[j]; ++c) v += row[c];
-          if (s < kNGeoSrc) dgeo[r * kNGeoSrc + s] = v;
-          else if (rbase + r < T)
-            p.drec[(size_t)gi * p.rec_w + 5 + (s - kNGeoSrc)] = v;
-        }
-        __syncwarp();
-      }
-      if (d.has_li)
-#pragma unroll
-        for (int m = 0; m < kMaxWidth / 32; ++m) {
-          const int c = lane + 32 * m;
-          if (c < nt) {
-            prow[L + c] += sa[m];
-            prow[L + pd0 + c] += sb[m];
-          }
-        }
+      wgb_in_bwd(E, ld, d, enc_s, st, lns, plan, prow, L, row0, seg0, seg1,
+                 p.nsrc, [&](int r, int src, float v) {
+                   if (src < kNGeoSrc) {
+                     dgeo[r * kNGeoSrc + src] = v;
+                   } else if (rbase + r < T) {
+                     const int gi = __float_as_int(geo[r * kGeo + 11]);
+                     p.drec[(size_t)gi * p.rec_w + 5 + (src - kNGeoSrc)] = v;
+                   }
+                 });
       if (lane < 16 && rbase + row0 + lane < T) {
         const int r = row0 + lane, t = rbase + r;
         const int gi = __float_as_int(geo[r * kGeo + 11]);

@@ -85,11 +85,12 @@ for _dir in ("fwd", "bwd"):
 SIGNATURES["papr_attend_eval"] = SIGNATURES["papr_attend_eval_f32"][:-1] + [
     P, I, P]
 SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
-# The bf16 stream forwards and backwards (on wgmma) take the fp32 forms'
-# arguments, then their packed weights, its size in bytes and the grid; the
-# backwards then three device buffers (per-ray sums of split tiles; the
-# value's datt rows).
-for _name in ("papr_key_stream_fwd", "papr_value_stream_fwd"):
+# The bf16 stream forwards and backwards and the bf16 embedder (on wgmma)
+# take the fp32 forms' arguments, then their packed weights, its size in
+# bytes and the grid; the stream backwards then three device buffers
+# (per-ray sums of split tiles; the value's datt rows).
+for _name in ("papr_key_stream_fwd", "papr_value_stream_fwd",
+              "papr_fused_mlp_fwd", "papr_fused_mlp_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P]
 for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P,

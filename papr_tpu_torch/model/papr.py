@@ -90,7 +90,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..nn.mlp import F32, Policy, linear_apply, mlp_apply, mlp_init
+from ..nn.mlp import (F32, Policy, linear_apply, mlp_apply, mlp_init,
+                      policy_from_config)
 from ..nn.unet import small_unet_apply, small_unet_init
 from ..ops.geometry import normalize_vector, point_ray_geometry
 from ..ops.topk import select_topk
@@ -873,6 +874,58 @@ def forward(params: dict, state: dict, cfg, rays_o, rays_d, c2w=None,
     else:
         foreground = fused
     return composite_background(cfg, params, foreground, bkg_attn)
+
+
+def ray_margin(params: dict, state: dict, cfg, rays_o,
+               rays_d) -> torch.Tensor:
+    """Per ray of ``forward`` (N * H * W, in its order): the smallest
+    ``fused_mlp.walk_relu_margin`` over the walks the mode's kernels run for
+    it (the query embedder or the folded query walk; the key and value walks
+    over its K tokens, record-native, on feature tensors or as embedder
+    stacks), on the inputs those kernels are given in one forward under the
+    config's policy. A ray whose margin is small has a relu input that two
+    correct forwards may round to opposite sides of 0."""
+    from ..ops import fused_mlp as fm
+    from ..ops import stream_attn as sa
+    from ..ops import stream_feat as sf
+    seen, real = [], {}
+
+    def record(mod, name):
+        real[(mod, name)] = getattr(mod, name)
+
+        def fn(*args, **kwargs):
+            seen.append((name, args))
+            return real[(mod, name)](*args, **kwargs)
+        setattr(mod, name, fn)
+
+    for mod, name in ((fm, "fused_mlp"), (sa, "key_stream_fwd"),
+                      (sa, "key_stream_q_fwd"), (sa, "value_stream_fwd"),
+                      (sf, "key_stream_feat_fwd"),
+                      (sf, "value_stream_feat_fwd")):
+        record(mod, name)
+    try:
+        with torch.no_grad():
+            forward(params, state, cfg, rays_o, rays_d,
+                    policy=policy_from_config(cfg))
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    eps = float(cfg.eps)
+    T = rays_d.reshape(-1, 3).shape[0]
+    margin = torch.full((T,), float("inf"), device=rays_d.device)
+    rows = lambda x, w: fm.walk_relu_margin(fm.encode_plain(x, w.cols), w)
+    for name, a in seen:
+        if name == "fused_mlp":          # ray-major rows: a ray's tokens
+            m = rows(a[0], a[1]).reshape(T, -1).amin(dim=1)
+        elif name in ("key_stream_feat_fwd", "value_stream_feat_fwd"):
+            K, _, d = a[0].shape         # k-major (K, T, d) features
+            m = rows(a[0].reshape(K * T, d), a[2]).reshape(K, T).amin(dim=0)
+        else:                            # record-native (K, T, rp) streams
+            m = sa.rec_relu_margin(a[0], a[1], a[2], a[4], eps)
+            if name == "key_stream_q_fwd":
+                m = torch.minimum(m, rows(a[3], a[7]))
+        margin = torch.minimum(margin, m)
+    return margin
 
 
 def evaluate(params: dict, state: dict, cfg, rays_o, rays_d,

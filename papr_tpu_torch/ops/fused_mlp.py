@@ -4,7 +4,9 @@
 ``fused_mlp`` is the wrapper of the CUDA kernel in ``csrc/fused_mlp.cu``
 (the port of the Pallas ``_fwd_kernel``); ``fused_mlp_bwd`` wraps the
 backward (``csrc/fused_mlp_bwd.cu`` + the dW reduction in ``csrc/wgrad.cu``,
-the port of ``_bwd_kernel``); ``fused_mlp_plain`` / ``fused_mlp_bwd_plain``
+the port of ``_bwd_kernel``); the bf16 forms run on wgmma
+(``csrc/walk_wgmma.cuh`` / ``walk_wgmma_bwd.cuh``, weights packed by
+``pack_embed_wgmma``); ``fused_mlp_plain`` / ``fused_mlp_bwd_plain``
 are the same functions in plain PyTorch, and ``fused_mlp_apply`` joins the
 two directions in an autograd ``Function``. A CPU tensor takes the plain
 version; a CUDA tensor takes the kernel or raises.
@@ -111,23 +113,85 @@ def _act(z: torch.Tensor, kind: str) -> torch.Tensor:
     raise NotImplementedError(kind)
 
 
+# The gradients of the plain versions. Autograd's own rule rounds a
+# gradient wherever the forward cast to the compute dtype (a bf16 tensor's
+# gradient is bf16); the TPU kernels' backwards (walk_body_bwd) keep every
+# gradient fp32 and round only dz, for the dX and dW products, taking db from
+# the fp32 dz. With ``kernel_grads=True`` the plain versions take their
+# gradients at those rounding points (same forward values): a cast passes its
+# gradient through in fp32, a dense layer rounds dz for its two products only.
+# The checks hold the kernels' bias gradients to these.
+
+
+class _CastST(torch.autograd.Function):
+    """x rounded to cdt, kept fp32; the gradient passes through in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, cdt):
+        return x.to(cdt).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _DenseST(torch.autograd.Function):
+    """h @ w + b on operands rounded to cdt (fp32 products); backward as
+    walk_body_bwd: dz rounded to cdt for dX and dW, db from the fp32 dz."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, cdt):
+        h32, wc = h.to(cdt).float(), w.to(cdt).float()
+        ctx.save_for_backward(h32, wc)
+        ctx.cdt, ctx.has_b = cdt, b is not None
+        z = h32 @ wc
+        return z + b.float() if b is not None else z
+
+    @staticmethod
+    def backward(ctx, g):
+        h32, wc = ctx.saved_tensors
+        gc = g.to(ctx.cdt).float()
+        dw = h32.reshape(-1, h32.shape[-1]).T @ gc.reshape(-1, gc.shape[-1])
+        db = g.reshape(-1, g.shape[-1]).sum(0) if ctx.has_b else None
+        return gc @ wc.T, dw, db, None
+
+
+def cast_c(x: torch.Tensor, cdt: torch.dtype,
+           kernel_grads: bool = False) -> torch.Tensor:
+    """x rounded to the compute dtype (a bf16 tensor, or with
+    ``kernel_grads`` fp32 with a pass-through gradient)."""
+    return _CastST.apply(x, cdt) if kernel_grads else x.to(cdt)
+
+
+def dense_c(h, w, b, cdt: torch.dtype,
+            kernel_grads: bool = False) -> torch.Tensor:
+    """h @ w (+ b) in fp32 on operands rounded to the compute dtype; with
+    ``kernel_grads`` the backward of ``_DenseST``."""
+    if kernel_grads:
+        return _DenseST.apply(h, w, b, cdt)
+    z = h.float() @ w.to(cdt).float()
+    return z + b.float() if b is not None else z
+
+
 def walk_plain(enc: torch.Tensor, walk: Walk, cdt: torch.dtype,
-               inputs: list | None = None) -> torch.Tensor:
+               inputs: list | None = None,
+               kernel_grads: bool = False) -> torch.Tensor:
     """Dense walk on an fp32 encoding; returns the fp32 output (before any
     final cast). Operands are rounded to ``cdt``; products accumulate in
     fp32 (exact fp32 matmul of the rounded operands). With ``inputs`` (a
-    list) each dense layer's input, in ``cdt``, is appended to it."""
+    list) each dense layer's input, in ``cdt``, is appended to it;
+    ``kernel_grads``: gradients at the TPU kernels' rounding points."""
     h = ln_rows(enc, *walk.ln_in) if walk.ln_in is not None else enc
-    h = h.to(cdt)
+    h = cast_c(h, cdt, kernel_grads)
     n = len(walk.ws)
     z = None
     for i, (w, b) in enumerate(zip(walk.ws, walk.bs)):
         if inputs is not None:
             inputs.append(h)
-        z = h.float() @ w.to(cdt).float() + b.float()
+        z = dense_c(h, w, b, cdt, kernel_grads)
         z = _act(z, walk.last_act if i == n - 1 else walk.act)
         if i < n - 1:
-            h = z.to(cdt)
+            h = cast_c(z, cdt, kernel_grads)
     if walk.ln_out is not None:
         z = ln_rows(z, *walk.ln_out)
     return z
@@ -273,27 +337,6 @@ def wgmma_tile_n(pd_out: int) -> int:
     return next(n for n in (32, 64, 128, 256) if pd_out <= n)
 
 
-@functools.lru_cache(maxsize=16)
-def _wgmma_index(dims: tuple, device) -> torch.Tensor:
-    """Where each element of ``pack_walk_wgmma``'s image comes from in the
-    matrices' flat concatenation (row-major (pd_in, pd_out) each), or the
-    zero slot past its end. The layout is a function of the widths only."""
-    total = sum(a * b for a, b in dims)
-    parts, base = [], 0
-    for a, b in dims:
-        ni, nch = wgmma_tile_n(b), -(-a // 64)
-        c = torch.arange(nch).view(nch, 1, 1, 1)
-        n = torch.arange(ni).view(1, ni, 1, 1)
-        p = torch.arange(8).view(1, 1, 8, 1)
-        e = torch.arange(8).view(1, 1, 1, 8)
-        k = c * 64 + (p ^ (n % 8)) * 8 + e      # the 128-byte swizzle
-        src = torch.where((k < a) & (n < b), base + k * b + n,
-                          torch.full_like(k, total))
-        parts.append(src.reshape(-1))
-        base += a * b
-    return torch.cat(parts).to(device)
-
-
 def pack_walk_wgmma(mats, device) -> torch.Tensor:
     """Weights of the bf16 wgmma walk (``csrc/walk_wgmma.cuh``), from the
     input-major (pd_in, pd_out) matrices in the order the kernel streams
@@ -303,11 +346,145 @@ def pack_walk_wgmma(mats, device) -> torch.Tensor:
     bulk copy lands a chunk in shared memory as wgmma reads it. One gather
     per call (the weights change every training step, so the image is never
     cached; only its index map, which depends on the widths alone)."""
-    dims = tuple((int(m.shape[0]), int(m.shape[1])) for m in mats)
+    ents, base = [], 0
+    for m in mats:
+        a, b = int(m.shape[0]), int(m.shape[1])
+        ents.append((a, b, base, b, 1))
+        base += a * b
     flat = torch.cat([m.reshape(-1).to(device=device, dtype=torch.bfloat16)
                       for m in mats]
                      + [torch.zeros(1, dtype=torch.bfloat16, device=device)])
-    return flat[_wgmma_index(dims, torch.device(device))]
+    return flat[_gather_index(tuple(ents), base, torch.device(device))]
+
+
+_WG_TILE = 128          # rows (rays, tokens) a tile of the bf16 wgmma kernels
+_WG_PART_ROWS = 8       # their backwards' partial-sum rows a block: a warp's
+_WG_GRID = 132          # their persistent grid at most: an H100's SMs
+
+
+def wgmma_grid(T: int) -> int:
+    """Blocks of a bf16 wgmma walk kernel on T rows (rays, tokens): one an
+    SM, at most one a 128-row tile."""
+    return min(_WG_GRID, -(-T // _WG_TILE))
+
+
+def check_pe_pairs(walk: Walk, what: str) -> None:
+    """The bf16 backwards take a posenc column's derivative from its
+    partner in the saved encoding (sin then cos of one source and frequency,
+    adjacent, as ``posenc_plan`` / ``rec_pe_plan`` lay them out)."""
+    cols = [(int(a), float(f), int(k)) for a, f, k in walk.cols]
+    for c, (src, f, kind) in enumerate(cols):
+        mate = c + 1 if kind == 1 else c - 1
+        if kind and not (0 <= mate < len(cols)
+                         and cols[mate] == (src, f, 3 - kind)):
+            raise NotImplementedError(
+                f"{what}: posenc column {c} has no sin / cos partner beside "
+                "it")
+
+
+@functools.lru_cache(maxsize=16)
+def _gather_index(entries: tuple, total: int, device) -> torch.Tensor:
+    """Where each element of a wgmma weight image comes from in a flat source
+    buffer, or its zero slot ``total``: per entry (a, b, base, sk, sn) the
+    matrix M (a x b, input-major) with M[k, n] at base + k * sk + n * sn,
+    in ceil(a / 64) chunks of ``wgmma_tile_n(b)`` rows of 64 along k, each
+    row's 16-byte groups XOR-swizzled by row % 8 (the 128-byte swizzle)."""
+    parts = []
+    for a, b, base, sk, sn in entries:
+        ni, nch = wgmma_tile_n(b), -(-a // 64)
+        c = torch.arange(nch).view(nch, 1, 1, 1)
+        n = torch.arange(ni).view(1, ni, 1, 1)
+        p = torch.arange(8).view(1, 1, 8, 1)
+        e = torch.arange(8).view(1, 1, 1, 8)
+        k = c * 64 + (p ^ (n % 8)) * 8 + e
+        src = torch.where((k < a) & (n < b), base + k * sk + n * sn,
+                          torch.full_like(k, total))
+        parts.append(src.reshape(-1))
+    return torch.cat(parts).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _zero(device, dtype) -> torch.Tensor:
+    return torch.zeros(1, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _embed_layout(dims: tuple, has_li: bool, has_lo: bool, backward: bool,
+                  device) -> tuple:
+    """What the bf16 embedder kernels' packs take from a walk of widths
+    ``dims`` (encoding, then each layer's output), a function of the widths
+    alone: the padded widths pd, the tail of the meta row (pd, ``pack_walk``'s
+    weight and bias offsets), the gather index of the weight image from the
+    weights concatenated as stored (W_i^T, output-major: nn/mlp.py's
+    layout) -- the forward layers, then with ``backward`` W_l^T for
+    l = n-1 .. 0 from the same values -- and the gather index of the bias
+    rows then the LayerNorm table (``pack_walk``'s layouts) from the biases
+    then the LayerNorms' (a, b) that exist, concatenated."""
+    n = len(dims) - 1
+    pd = [round_up(d, _ALIGN) for d in dims]
+    bases, o = [], 0
+    for i in range(n):
+        bases.append(o)
+        o += dims[i] * dims[i + 1]
+    ents = [(dims[i], dims[i + 1], bases[i], 1, dims[i]) for i in range(n)]
+    if backward:
+        ents += [(dims[l + 1], dims[l], bases[l], dims[l], 1)
+                 for l in reversed(range(n))]
+    widx = _gather_index(tuple(ents), o, device)
+    n_src = sum(dims[1:]) + 2 * (dims[0] * has_li + dims[-1] * has_lo)
+    bsrc, o = [], 0
+
+    def rows(width, d, present):
+        nonlocal o
+        c = torch.arange(width)
+        if not present:
+            return torch.full_like(c, n_src)
+        out = torch.where(c < d, o + c, torch.full_like(c, n_src))
+        o += d
+        return out
+
+    for i in range(n):
+        bsrc.append(rows(pd[i + 1], dims[i + 1], True))
+    for present, width, d in ((has_li, pd[0], dims[0]),
+                              (has_lo, pd[-1], dims[-1])):
+        bsrc += [rows(width, d, present), rows(width, d, present)]
+    w_off, b_off, wo, bo = [], [], 0, 0
+    for i in range(n):
+        w_off.append(wo)
+        b_off.append(bo)
+        wo += pd[i] * pd[i + 1]
+        bo += pd[i + 1]
+    return (pd, pd + w_off + b_off, widx, torch.cat(bsrc).to(device),
+            sum(pd[1:]))
+
+
+def pack_embed_wgmma(walk: Walk, device, backward: bool = False) -> tuple:
+    """The bf16 embedder kernels' operands (``csrc/fused_mlp.cu`` /
+    ``fused_mlp_bwd.cu`` on ``walk_wgmma.cuh``): (meta, b_all, ln, plan,
+    wpack, pd) with ``pack_walk``'s meta row, bias rows, LayerNorm table and
+    plan rows, and the weight image (``pack_walk_wgmma``'s layout: the
+    forward layers, then with ``backward`` W_l^T for l = n-1 .. 0). Packed
+    on every call (training rewrites the weights in place; see
+    ``pack_walk``), in a fixed handful of device operations whatever the
+    depth: one concatenation and one gather each for the weights and for the
+    biases with the LayerNorms; the plan rows are cached on the device."""
+    dims = (len(walk.cols),) + tuple(int(w.shape[1]) for w in walk.ws)
+    device = torch.device(device)
+    lns = [t for ln in (walk.ln_in, walk.ln_out) if ln is not None for t in ln]
+    pd, tail, widx, bidx, nb = _embed_layout(
+        dims, walk.ln_in is not None, walk.ln_out is not None, backward,
+        device)
+    flat = torch.cat([w.T.reshape(-1) for w in walk.ws]
+                     + [_zero(device, walk.ws[0].dtype)])
+    wpack = flat.to(torch.bfloat16).index_select(0, widx)
+    vec = torch.cat([b.reshape(-1).float() for b in walk.bs]
+                    + [t.reshape(-1).float() for t in lns]
+                    + [_zero(device, torch.float32)]).index_select(0, bidx)
+    meta = [len(walk.ws), dims[0], dims[-1], _ACT_CODES[walk.act],
+            _ACT_CODES[walk.last_act], int(walk.ln_in is not None),
+            int(walk.ln_out is not None)] + tail
+    return (meta, vec[:nb], vec[nb:], _plan_rows(walk.cols, pd[0], device),
+            wpack, pd)
 
 
 def pack_walk_q(quant: WalkQuant, pd, device) -> tuple:
@@ -335,7 +512,13 @@ def pack_walk_q(quant: WalkQuant, pd, device) -> tuple:
 def source_segments(cols, nsrc: int, device) -> torch.Tensor:
     """int32 [start_0..start_{nsrc-1}, end_0..end_{nsrc-1}]: the encoded
     columns of each raw source, contiguous in the posenc layout (the
-    backward kernels sum a source's gradient over its segment)."""
+    backward kernels sum a source's gradient over its segment). Cached on
+    the device (read only): no host-to-device copy a call."""
+    return _segments(tuple(tuple(c) for c in cols), nsrc, torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _segments(cols, nsrc: int, device) -> torch.Tensor:
     start, end = [0] * nsrc, [0] * nsrc
     for c, (src, _, _) in enumerate(cols):
         src = int(src)
@@ -438,6 +621,20 @@ class BwdBuffers:
         return out
 
 
+def bwd_wgmma_buffers(walk: Walk, pd, K: int, T: int, dev, head=None,
+                      extra: int = 0) -> BwdBuffers:
+    """``BwdBuffers`` of a bf16 backward on wgmma over K x T rows (the
+    streams: K tokens a ray; the embedder: K = 1): stash rows k * Tp + t (T
+    padded to the 128-row tile), one partial row a warp (8 a block), and a
+    scratch slice a warpgroup: its 64 rows of the fp32 encoding and, with an
+    output LayerNorm, its fp32 input (128 x 128 floats)."""
+    grid = wgmma_grid(T)
+    per_wg = 64 * pd[0] + (128 * 128 if walk.ln_out is not None else 0)
+    return BwdBuffers(pd, K * -(-T // _WG_TILE) * _WG_TILE,
+                      _WG_PART_ROWS * grid, dev, head=head, extra=extra,
+                      scratch=2 * grid * per_wg)
+
+
 def wgrad_splits(N: int, da: int, db: int, f32: bool) -> int:
     """Token ranges of one ``wgrad`` launch (``csrc/wgrad.cu``): enough
     blocks of (128 rows, tile_n columns) x range for one per SM of an H100
@@ -514,8 +711,9 @@ fused_mlp_plain.calls = 0
 
 def fused_mlp(x: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
     """Fused embedder forward, (R, d_raw) fp32 raw features -> (R, d_out)
-    in ``cdt``: the CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor."""
+    in ``cdt``: the CUDA kernel for a CUDA tensor (bf16: on wgmma,
+    ``papr_fused_mlp_fwd``; fp32: the WMMA walk, ``papr_fused_mlp_f32_fwd``),
+    the plain version for a CPU tensor."""
     if not x.is_cuda:
         return fused_mlp_plain(x, walk, cdt)
     from ..kernels import build
@@ -526,23 +724,29 @@ def fused_mlp(x: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
                          f"{tuple(x.shape)} {x.dtype}")
     x = x.contiguous()
     R, d_raw = x.shape
-    meta, w_all, b_all, ln, plan, _ = pack_walk(walk, len(walk.cols), x.device,
-                                                cdt)
     if max(c[0] for c in walk.cols) >= d_raw:
         raise ValueError("posenc plan reads past the raw features")
     d_out = int(walk.ws[-1].shape[1])
     y = torch.empty(R, d_out, dtype=cdt, device=x.device)
-    f32 = cdt == torch.float32
-    name = "papr_fused_mlp_f32_fwd" if f32 else "papr_fused_mlp_fwd"
-    rc = getattr(build.load(), name)(
-        x.data_ptr(), R, d_raw, ctypes.cast(c_ints(meta), ctypes.c_void_p),
-        w_all.data_ptr(), b_all.data_ptr(), ln.data_ptr(), plan.data_ptr(),
-        y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, name)
-    if f32:
+    lib = build.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if cdt == torch.float32:
+        meta, w_all, b_all, ln, plan, _ = pack_walk(walk, len(walk.cols),
+                                                    x.device, cdt)
+        build.check(lib.papr_fused_mlp_f32_fwd(
+            x.data_ptr(), R, d_raw, ctypes.cast(c_ints(meta), ctypes.c_void_p),
+            w_all.data_ptr(), b_all.data_ptr(), ln.data_ptr(), plan.data_ptr(),
+            y.data_ptr(), stream), "papr_fused_mlp_f32_fwd")
         fused_mlp_f32.launches += 1
-    else:
-        fused_mlp.launches += 1
+        return y
+    meta, b_all, ln, plan, wpack, _ = pack_embed_wgmma(walk, x.device)
+    # w_all (unread by the wgmma kernel): the packed image's address.
+    build.check(lib.papr_fused_mlp_fwd(
+        x.data_ptr(), R, d_raw, ctypes.cast(c_ints(meta), ctypes.c_void_p),
+        wpack.data_ptr(), b_all.data_ptr(), ln.data_ptr(), plan.data_ptr(),
+        y.data_ptr(), wpack.data_ptr(), 2 * wpack.numel(), wgmma_grid(R),
+        stream), "papr_fused_mlp_fwd")
+    fused_mlp.launches += 1
     return y
 
 
@@ -559,16 +763,18 @@ fused_mlp_f32.launches = 0
 
 
 def fused_mlp_bwd_plain(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
-                        cdt: torch.dtype):
+                        cdt: torch.dtype, kernel_grads: bool = False):
     """Plain PyTorch version of the embedder backward: the plain forward
     recomputed under autograd. Returns (dx, [grads in walk_tensors
-    order])."""
+    order]); ``kernel_grads``: at the TPU kernels' rounding points
+    (``_DenseST``) instead of autograd's."""
     fused_mlp_bwd_plain.calls += 1
     leaves = [t.detach().requires_grad_(True)
               for t in [x.float()] + walk_tensors(walk)]
     with torch.enable_grad():
         y = walk_plain(encode_plain(leaves[0], walk.cols),
-                       walk_with(walk, leaves[1:]), cdt).to(cdt)
+                       walk_with(walk, leaves[1:]), cdt,
+                       kernel_grads=kernel_grads).to(cdt)
         grads = torch.autograd.grad(y, leaves, dy.to(y.dtype),
                                     allow_unused=True)
     grads = [torch.zeros_like(l) if g is None else g
@@ -579,12 +785,25 @@ def fused_mlp_bwd_plain(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
 fused_mlp_bwd_plain.calls = 0
 
 
+def embed_bwd_prep(walk: Walk, R: int, d_raw: int, dev) -> tuple:
+    """What the bf16 embedder backward reads besides its inputs: the packed
+    walk (``pack_embed_wgmma``, both directions), the posenc source segments
+    and the ``BwdBuffers`` (stash rows of R padded to the 128-row tile, the
+    persistent grid's partial rows and scratch) -> (meta, b_all, ln, plan,
+    wpack, seg, buf)."""
+    meta, b_all, ln, plan, wpack, pd = pack_embed_wgmma(walk, dev, True)
+    return (meta, b_all, ln, plan, wpack,
+            source_segments(walk.cols, d_raw, dev),
+            bwd_wgmma_buffers(walk, pd, 1, R, dev))
+
+
 def fused_mlp_bwd(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
                   cdt: torch.dtype):
     """Embedder backward, (R, d_raw) raw features and (R, d_out) output
     gradient -> (dx fp32, [dW, db, dLN in walk_tensors order] fp32): the
-    CUDA kernels (``csrc/fused_mlp_bwd.cu`` + ``csrc/wgrad.cu``) for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    CUDA kernels for a CUDA tensor (bf16: ``papr_fused_mlp_bwd`` on wgmma;
+    fp32: the WMMA walk, ``papr_fused_mlp_f32_bwd``; then ``wgrad`` per
+    layer and ``colsum``), the plain version for a CPU tensor."""
     if not x.is_cuda:
         return fused_mlp_bwd_plain(x, dy, walk, cdt)
     from ..kernels import build
@@ -598,27 +817,40 @@ def fused_mlp_bwd(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
                          f"{tuple(dy.shape)} {dy.device}")
     dy = dy.float().contiguous()
     dev = x.device
-    meta, w_all, b_all, ln, plan, pd = pack_walk(walk, len(walk.cols), dev,
-                                                 cdt)
-    wt_all = pack_walk_t(walk, pd, dev, cdt)
-    seg = source_segments(walk.cols, d_raw, dev)
-    nblk = -(-R // 64)
-    buf = BwdBuffers(pd, nblk * 64, nblk, dev, cdt=cdt)
     dx = torch.empty(R, d_raw, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    f32 = cdt == torch.float32
-    name = "papr_fused_mlp_f32_bwd" if f32 else "papr_fused_mlp_bwd"
+    if cdt == torch.float32:
+        meta, w_all, b_all, ln, plan, pd = pack_walk(walk, len(walk.cols),
+                                                     dev, cdt)
+        wt_all = pack_walk_t(walk, pd, dev, cdt)
+        seg = source_segments(walk.cols, d_raw, dev)
+        nblk = -(-R // 64)
+        buf = BwdBuffers(pd, nblk * 64, nblk, dev, cdt=cdt)
+        w_ptr, wt_ptr, tail = w_all.data_ptr(), wt_all.data_ptr(), ()
+        name = "papr_fused_mlp_f32_bwd"
+    else:
+        check_pe_pairs(walk, "fused_mlp backward")
+        if d_raw > 96:
+            raise NotImplementedError(f"fused_mlp backward: {d_raw} raw "
+                                      "columns (the bf16 kernel sums up to "
+                                      "96 sources)")
+        meta, b_all, ln, plan, wpack, seg, buf = embed_bwd_prep(walk, R,
+                                                                d_raw, dev)
+        # w_all / wt_all (unread by the wgmma kernel): the image's address.
+        w_ptr = wt_ptr = wpack.data_ptr()
+        tail = (wpack.data_ptr(), 2 * wpack.numel(), wgmma_grid(R))
+        name = "papr_fused_mlp_bwd"
     rc = getattr(lib, name)(
         x.data_ptr(), R, d_raw, dy.data_ptr(),
-        ctypes.cast(c_ints(meta), ctypes.c_void_p), w_all.data_ptr(),
-        b_all.data_ptr(), ln.data_ptr(), plan.data_ptr(), wt_all.data_ptr(),
-        buf.stash.data_ptr(), ctypes.cast(buf.off_arg, ctypes.c_void_p),
-        seg.data_ptr(), dx.data_ptr(), buf.part.data_ptr(), buf.part_w,
-        buf.scratch.data_ptr(), stream)
+        ctypes.cast(c_ints(meta), ctypes.c_void_p), w_ptr, b_all.data_ptr(),
+        ln.data_ptr(), plan.data_ptr(), wt_ptr, buf.stash.data_ptr(),
+        ctypes.cast(buf.off_arg, ctypes.c_void_p), seg.data_ptr(),
+        dx.data_ptr(), buf.part.data_ptr(), buf.part_w,
+        buf.scratch.data_ptr(), *tail, stream)
     build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
-    if f32:
+    if cdt == torch.float32:
         fused_mlp_bwd_f32.launches += 1
     else:
         fused_mlp_bwd.launches += 1

@@ -58,10 +58,12 @@ import math
 
 import torch
 
-from .fused_mlp import (BwdBuffers, FrameQuant, Walk, WalkQuant, c_ints,
-                        check_walk_for_kernel, encode_plain, pack_walk,
-                        pack_walk_q, pack_walk_t, pack_walk_wgmma, round_up,
-                        source_segments, walk_plain, walk_plain_q,
+from . import fused_mlp as fm
+from .fused_mlp import (BwdBuffers, FrameQuant, Walk, WalkQuant,
+                        bwd_wgmma_buffers, c_ints, cast_c, check_pe_pairs,
+                        check_walk_for_kernel, dense_c, encode_plain,
+                        pack_walk, pack_walk_q, pack_walk_t, pack_walk_wgmma,
+                        round_up, source_segments, walk_plain, walk_plain_q,
                         walk_relu_margin, walk_tensors, walk_with)
 
 NEG_BIG = -1e30
@@ -193,8 +195,10 @@ def _calibrate_idx(record, idx, rayo, rays, walks, eps, cdt) -> tuple:
     return tuple(out)
 
 
-def _run_walk_plain(enc, walk: Walk, cdt, quant: WalkQuant | None):
-    return (walk_plain(enc, walk, cdt) if quant is None
+def _run_walk_plain(enc, walk: Walk, cdt, quant: WalkQuant | None,
+                    kernel_grads: bool = False):
+    return (walk_plain(enc, walk, cdt, kernel_grads=kernel_grads)
+            if quant is None
             else walk_plain_q(enc, walk, quant))
 
 
@@ -451,13 +455,14 @@ def _rec_encoding(rec, rayo, rays, walk: Walk, eps, detach_pos: bool):
 
 
 def _walk_rec(rec, rayo, rays, walk: Walk, eps, cdt, detach_pos: bool,
-              int8: bool = False):
+              int8: bool = False, kernel_grads: bool = False):
     """Geometry + posenc + walk over every (k, t) token -> (K, T, d_out)
-    fp32. ``int8``: the int8 walk, calibrated on these inputs."""
+    fp32. ``int8``: the int8 walk, calibrated on these inputs;
+    ``kernel_grads``: gradients at the TPU kernels' rounding points."""
     K, T, _ = rec.shape
     quant = calibrate_walk(rec, rayo, rays, walk, eps, cdt) if int8 else None
     y = _run_walk_plain(_rec_encoding(rec, rayo, rays, walk, eps, detach_pos),
-                        walk, cdt, quant)
+                        walk, cdt, quant, kernel_grads)
     return y.reshape(K, T, -1)
 
 
@@ -471,18 +476,20 @@ def rec_relu_margin(rec, rayo, rays, walk: Walk, eps=1e-6) -> torch.Tensor:
 
 
 def _score_softmax(y, qq, wk, bk, influ, alive, score_act, bkg_score, cdt,
-                   relu_on=None, raw_saved=None):
+                   relu_on=None, raw_saved=None, kernel_grads=False):
     """The key streams' tail on the walk outputs y (K, T, d_out) fp32:
     ``w_k`` in the compute dtype, the scaled dot with qq (T, dm), score_act x
     influence (T, K) masked by alive (T, K) bool, and the background-token
     softmax -> attn (T, K+1), raw dots (T, K), masked scores (T, K).
     With ``raw_saved`` (T, K) the dots take a saved forward's values and keep
     this computation's gradient: what a backward that recomputes the walk
-    does with the raw dots its forward saved."""
+    does with the raw dots its forward saved. ``kernel_grads``: gradients
+    at the TPU kernels' rounding points."""
     _check_score_act(score_act)
     dm = wk.shape[0]
-    kk = (y.to(cdt).float() @ wk.to(cdt).float().T).to(cdt)
-    kk = (kk + bk.to(cdt)).float()                            # (K, T, dm)
+    c = lambda t: cast_c(t, cdt, kernel_grads)
+    kk = c(dense_c(c(y), wk.T, None, cdt, kernel_grads))
+    kk = c(kk + c(bk)).float()                                # (K, T, dm)
     raw = ((qq.float()[None] * kk).sum(-1) / math.sqrt(dm)).T  # (T, K)
     if raw_saved is not None:
         # Straight-through: the saved forward's values, this walk's gradient.
@@ -502,12 +509,13 @@ def _score_softmax(y, qq, wk, bk, influ, alive, score_act, bkg_score, cdt,
 
 
 def _key_math(rec, rayo, rays, qq, kwalk, wk, bk, score_act, bkg_score, eps,
-              cdt, relu_on=None, int8=False, raw_saved=None):
+              cdt, relu_on=None, int8=False, raw_saved=None,
+              kernel_grads=False):
     y = _walk_rec(rec, rayo, rays, kwalk, eps, cdt, detach_pos=True,
-                  int8=int8)
+                  int8=int8, kernel_grads=kernel_grads)
     return _score_softmax(y, qq, wk, bk, rec[..., REC_INFLU].T,
                           (rec[..., REC_ALIVE] > 0.5).T, score_act,
-                          bkg_score, cdt, relu_on, raw_saved)
+                          bkg_score, cdt, relu_on, raw_saved, kernel_grads)
 
 
 def key_stream_plain(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
@@ -545,17 +553,20 @@ def _grads_of(fn, tensors, cotangent):
 
 def key_stream_bwd_plain(rec, rayo, rays, qq, kwalk: Walk, wk, bk, dattn,
                          score_act="relu", bkg_score=5.0, eps=1e-6,
-                         cdt=torch.float32, relu_on=None, raw_saved=None):
+                         cdt=torch.float32, relu_on=None, raw_saved=None,
+                         kernel_grads=False):
     """Plain version of the key stream backward -> [d_rec, d_rayo, d_rays,
     dqq, dwk, dbk, walk grads (walk_tensors order)]; ``relu_on`` as in
     ``key_stream_plain``. ``raw_saved`` (T, K): the raw dots the forward
     saved; the walk is recomputed in ``cdt`` whatever the forward ran, and
     the score and softmax backward read the saved dots (as the kernel does:
-    straight-through around an int8 forward)."""
+    straight-through around an int8 forward). ``kernel_grads``: at the TPU
+    kernels' rounding points (``fused_mlp._DenseST``) instead of
+    autograd's."""
     key_stream_bwd_plain.calls += 1
     fn = lambda r, o, d, q, w, b, *wt: _key_math(
         r, o, d, q, walk_with(kwalk, wt), w, b, score_act, bkg_score, eps,
-        cdt, relu_on, raw_saved=raw_saved)[0]
+        cdt, relu_on, raw_saved=raw_saved, kernel_grads=kernel_grads)[0]
     return _grads_of(fn, [rec, rayo, rays, qq, wk, bk] + walk_tensors(kwalk),
                      dattn)
 
@@ -596,25 +607,6 @@ def _wk_packs(wk, bk, pdn, dev, cdt=torch.bfloat16):
     return wkf, wkb, bkp, dm_pad
 
 
-_WG_TILE = 128          # rays a tile of the bf16 backwards on wgmma
-_WG_PART_ROWS = 8       # their partial-sum rows a block: one a warp
-_WG_GRID = 132          # their persistent grid at most: an H100's SMs
-
-
-def _check_pe_pairs(walk: Walk, what: str) -> None:
-    """The bf16 backwards take a posenc column's derivative from its
-    partner in the saved encoding (sin then cos of one source and frequency,
-    adjacent, as ``posenc_plan`` / ``rec_pe_plan`` lay them out)."""
-    cols = [(int(a), float(f), int(k)) for a, f, k in walk.cols]
-    for c, (src, f, kind) in enumerate(cols):
-        mate = c + 1 if kind == 1 else c - 1
-        if kind and not (0 <= mate < len(cols)
-                         and cols[mate] == (src, f, 3 - kind)):
-            raise NotImplementedError(
-                f"{what}: posenc column {c} has no sin / cos partner beside "
-                "it")
-
-
 def fwd_wgmma_pack(w, pd, dev, head=()) -> torch.Tensor:
     """The bf16 stream forwards' weight image (``csrc/walk_wgmma.cuh``) in
     the order a k step streams it: the walk's layers (``pack_walk``'s
@@ -631,25 +623,6 @@ def bwd_wgmma_pack(w, wt, pd, dev, head=()) -> torch.Tensor:
     mats = (_walk_mats(w, pd) + list(head)
             + [wt[o:o + a * b].view(b, a) for a, b, o in reversed(offs)])
     return pack_walk_wgmma(mats, dev)
-
-
-def wgmma_grid(T: int) -> int:
-    """Blocks of a bf16 stream forward or backward on wgmma: one an SM, at
-    most one a tile."""
-    return min(_WG_GRID, -(-T // _WG_TILE))
-
-
-def bwd_wgmma_buffers(walk: Walk, pd, K: int, T: int, dev, head=None,
-                      extra: int = 0) -> BwdBuffers:
-    """``BwdBuffers`` of a bf16 backward on wgmma: stash rows k * Tp + t (T
-    padded to the 128-ray tile), one partial row a warp (8 a block), and a
-    scratch slice a warpgroup: its 64 rows of the fp32 encoding and, with an
-    output LayerNorm, its fp32 input (128 x 128 floats)."""
-    grid = wgmma_grid(T)
-    per_wg = 64 * pd[0] + (128 * 128 if walk.ln_out is not None else 0)
-    return BwdBuffers(pd, K * -(-T // _WG_TILE) * _WG_TILE,
-                      _WG_PART_ROWS * grid, dev, head=head, extra=extra,
-                      scratch=2 * grid * per_wg)
 
 
 def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
@@ -710,7 +683,7 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
         wpack = fwd_wgmma_pack(kw, kpd, dev, (wkf,))
         build.check(lib.papr_key_stream_fwd(*args, wpack.data_ptr(),
                                             2 * wpack.numel(),
-                                            wgmma_grid(T), stream),
+                                            fm.wgmma_grid(T), stream),
                     "papr_key_stream_fwd")
         key_stream_fwd.launches += 1
     return attn, raw, ss
@@ -785,13 +758,13 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
                          head=(kpd[-1], dm_pad), extra=dm_pad, cdt=cdt)
         tail = ()
     else:
-        _check_pe_pairs(kwalk, "key stream backward")
+        check_pe_pairs(kwalk, "key stream backward")
         buf = bwd_wgmma_buffers(kwalk, kpd, K, T, dev, head=(kpd[-1], dm_pad),
                                 extra=dm_pad)
         wpack = bwd_wgmma_pack(kw, kwt, kpd, dev, (wkf, wkb))
         aux = [torch.zeros(T, w, dtype=torch.float32, device=dev)
                for w in (dm, 3, 3)]
-        tail = (wpack.data_ptr(), 2 * wpack.numel(), wgmma_grid(T),
+        tail = (wpack.data_ptr(), 2 * wpack.numel(), fm.wgmma_grid(T),
                 *(a.data_ptr() for a in aux))
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
@@ -875,11 +848,11 @@ def key_stream_scores_rec(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
 
 
 def _value_math(rec, rayo, rays, attn, vwalk, normalize, eps, cdt,
-                int8=False):
+                int8=False, kernel_grads=False):
     K = rec.shape[0]
     y = _walk_rec(rec, rayo, rays, vwalk, eps, cdt, detach_pos=False,
-                  int8=int8)
-    y = y.to(cdt).float()                                     # (K, T, C)
+                  int8=int8, kernel_grads=kernel_grads)
+    y = cast_c(y, cdt, kernel_grads).float()                  # (K, T, C)
     w = attn[:, :K]
     if normalize:
         s = w.sum(dim=1, keepdim=True)
@@ -901,12 +874,15 @@ value_stream_plain.calls = 0
 
 
 def value_stream_bwd_plain(rec, rayo, rays, attn, vwalk: Walk, dfused,
-                           normalize=True, eps=1e-6, cdt=torch.float32):
+                           normalize=True, eps=1e-6, cdt=torch.float32,
+                           kernel_grads=False):
     """Plain version of the value stream backward -> [d_rec, d_rayo,
-    d_rays, d_attn, walk grads]."""
+    d_rays, d_attn, walk grads]; ``kernel_grads`` as in
+    ``key_stream_bwd_plain``."""
     value_stream_bwd_plain.calls += 1
     fn = lambda r, o, d, a, *wt: _value_math(
-        r, o, d, a, walk_with(vwalk, wt), normalize, eps, cdt)
+        r, o, d, a, walk_with(vwalk, wt), normalize, eps, cdt,
+        kernel_grads=kernel_grads)
     return _grads_of(fn, [rec, rayo, rays, attn] + walk_tensors(vwalk),
                      dfused)
 
@@ -964,7 +940,7 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
         wpack = fwd_wgmma_pack(vw, vpd, dev)
         build.check(lib.papr_value_stream_fwd(*args, wpack.data_ptr(),
                                               2 * wpack.numel(),
-                                              wgmma_grid(T), stream),
+                                              fm.wgmma_grid(T), stream),
                     "papr_value_stream_fwd")
         value_stream_fwd.launches += 1
     return fused
@@ -1035,7 +1011,7 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
         buf = BwdBuffers(vpd, K * nblk * 64, nblk, dev, cdt=cdt)
         tail = ()
     else:
-        _check_pe_pairs(vwalk, "value stream backward")
+        check_pe_pairs(vwalk, "value stream backward")
         if vpd[-1] > 128:
             raise NotImplementedError(
                 f"value stream backward: bf16 value rows of {vpd[-1]} > 128 "
@@ -1045,7 +1021,7 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
         aux = [torch.empty(T, K, dtype=torch.float32, device=dev)] + [
             torch.zeros(T, 3, dtype=torch.float32, device=dev)
             for _ in range(2)]
-        tail = (wpack.data_ptr(), 2 * wpack.numel(), wgmma_grid(T),
+        tail = (wpack.data_ptr(), 2 * wpack.numel(), fm.wgmma_grid(T),
                 *(a.data_ptr() for a in aux))
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)

@@ -121,7 +121,7 @@ def test_key_bwd_bf16_reaches_the_wgmma_entry_point(lib, norm):
     assert a[-6] == sum(math.ceil(x / 64) * fm.wgmma_tile_n(y) * 128
                         for x, y in dims)
     nblk = math.ceil(T / 128)
-    assert a[-5] == nblk == sa.wgmma_grid(T)
+    assert a[-5] == nblk == fm.wgmma_grid(T)
     # part: 8 rows a block; stash rows for T padded to the 128-ray tile.
     wgrads = [c[1] for c in lib.calls if c[0] == "papr_wgrad"]
     assert len(wgrads) == len(kw.ws) + 1
@@ -154,7 +154,7 @@ def test_bwd_wgmma_grid(T, grid):
     """One block an SM of an H100, never more blocks than 128-ray tiles (a
     block's share of the (tile, k) units is then at least K long, so a tile
     is split between at most two blocks)."""
-    assert sa.wgmma_grid(T) == grid
+    assert fm.wgmma_grid(T) == grid
 
 
 def test_fp32_backwards_keep_their_entry_points(lib):

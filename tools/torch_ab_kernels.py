@@ -5,16 +5,22 @@ process, for a parent / change / change / parent run on one card:
 
     python tools/torch_ab_kernels.py <tree> --digest-only
 
+    python tools/torch_ab_kernels.py <tree> --frames
+
 <tree> is a checkout holding ``chip_smoke.py`` and ``papr_tpu_torch/`` (for
 the parent, ``git archive`` of it unpacked into a git-ignored directory);
 its kernels are built from its own sources. Prints digests (equal
 digests: bit-equal outputs) of the bf16 one-shot eval attention's outputs
-on phase 2's eval block and of the bf16 stream backwards' outputs on phase
-2's training patch, fed the plain forwards' raw dots, scores and attention
-and seeded cotangents (inputs both trees compute alike); then chip_smoke's
-phase 2 lines (the flagship's kernels) and phase 8 lines (Caterpillar's
+on phase 2's eval block and of the bf16 stream forwards' and backwards'
+outputs on phase 2's training patch (queries from the plain query
+embedder; the value forward fed the plain key forward's attention; the
+backwards the plain forwards' raw dots, scores and attention and seeded
+cotangents: inputs both trees compute alike); then chip_smoke's phase 2
+lines (the flagship's kernels) and phase 8 lines (Caterpillar's
 fp32 kernels); a comparison that fails prints ``FAILS:`` and the run goes
-on. ``--digest-only`` stops after the digests.
+on. ``--digest-only`` stops after the digests; ``--frames`` runs instead
+chip_smoke's phase 3 (an 800x800 serving frame and the 100x100-tiled
+frame, host clock) twice on the tree.
 """
 
 import hashlib
@@ -38,18 +44,31 @@ def main() -> None:
     from papr_tpu_torch.kernels import build
     from papr_tpu_torch.ops import stream_attn as sa
 
+    from papr_tpu_torch.ops import fused_mlp as fm
+
     cs.fail = lambda m: print("FAILS:", m, flush=True)
     build.load()
     dev = torch.device("cuda", 0)
     cfg = cs.flagship_cfg()
     params, state = cs.build_model(cfg, dev)
-    args, T = cs.eval_block_args(params, state, cfg, dev)
+    if "--frames" in sys.argv:
+        for _ in range(2):
+            cs.drive_main_path(params, state, cfg, dev)
+        return
+    # The digested kernels' inputs come from the plain query embedder, so
+    # that they do not depend on the tree's K2.
+    k2 = fm.fused_mlp
+    fm.fused_mlp = fm.fused_mlp_plain
+    try:
+        args, T = cs.eval_block_args(params, state, cfg, dev)
+        rayo, rayd = cs.training_patch(dev)
+        _, _, rec, rayo_f, rays, _, qq, kwalk, vwalk = cs.stream_patch_inputs(
+            params, state, cfg, rayo, rayd)
+    finally:
+        fm.fused_mlp = k2
     print(f"K3 bf16 outputs on the eval block (T={T}): sha256 "
           f"{digest(sa.attend_eval_idx(*args))}", flush=True)
     del args
-    rayo, rayd = cs.training_patch(dev)
-    _, _, rec, rayo_f, rays, _, qq, kwalk, vwalk = cs.stream_patch_inputs(
-        params, state, cfg, rayo, rayd)
     a = params["attn"]
     kopts = (cfg.models.attn.score_act, float(cfg.geoms.background.constant),
              float(cfg.eps), torch.bfloat16)
@@ -60,6 +79,14 @@ def main() -> None:
     dattn = torch.randn(attn.shape, generator=g, device=dev)
     dfused = torch.randn(attn.shape[0], int(vwalk.ws[-1].shape[1]),
                          generator=g, device=dev)
+    print("bf16 stream forwards on the training patch: key sha256 "
+          + digest(sa.key_stream_fwd(rec, rayo_f, rays, qq, kwalk,
+                                     a["w_k"]["w"], a["w_k"]["bias"], *kopts))
+          + ", value sha256 "
+          + digest([sa.value_stream_fwd(rec, rayo_f, rays, attn, vwalk,
+                                        bool(cfg.models.normalize_topk_attn),
+                                        float(cfg.eps), torch.bfloat16)]),
+          flush=True)
     print("bf16 stream backwards on the training patch: key sha256 "
           + digest(sa.key_stream_bwd(rec, rayo_f, rays, qq, kwalk,
                                      a["w_k"]["w"], a["w_k"]["bias"], raw,

@@ -1,6 +1,7 @@
 """The run-to-run spread of one fp32 training step's gradients on the card.
 
     python tools/torch_grad_spread.py [--mode query_fold] [--reps 4] [--seed 0]
+    python tools/torch_grad_spread.py [--mode query_fold] --seeds 40
 
 The model and view of ``tests/test_torch_kernels_cuda.py``'s fp32 step
 tests (``use_amp: false``, 2,000 points, k = 8, a 32x32 view, the loss
@@ -16,6 +17,16 @@ runs, and between a path's run on filled memory and its first run. A group
 whose runs of one path differ as much as the paths do is set by that
 path's nondeterministic steps; one that moves on filled memory reads
 memory that nothing wrote.
+
+With ``--seeds N`` it draws the influence scores from a ``torch.Generator``
+seeded 0 .. N-1 instead and, per seed, compares the two paths' gradients
+once with the whole loss and once with the loss held to the rays whose
+walks' relu inputs all stay ``--margin`` x rms from 0 (``model.papr
+.ray_margin``: the smallest ``walk_relu_margin`` over the query walk and the
+ray's K tokens of the key and value walks, on the inputs the kernels were
+given). A gradient
+whose tail goes with the rays left out comes from a hidden relu that the
+two fp32 forwards round to opposite sides of 0.
 """
 
 import argparse
@@ -29,7 +40,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from papr_tpu_torch.config import load_config  # noqa: E402
-from papr_tpu_torch.model.papr import create_model, forward  # noqa: E402
+from papr_tpu_torch.model.papr import (create_model, forward,  # noqa: E402
+                                       ray_margin)
 from papr_tpu_torch.nn.mlp import policy_from_config  # noqa: E402
 from papr_tpu_torch.ops.geometry import get_rays_np  # noqa: E402
 from papr_tpu_torch.train.optim import tree_leaves, tree_map  # noqa: E402
@@ -54,11 +66,48 @@ def rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def sweep(opt, dev, cfg, cfg_p, params, state, rayo, rayd, names) -> None:
+    """``--seeds``: per seed, the two paths against each other with the
+    whole loss and with the loss held to the rays of margin >= --margin."""
+    print(f"mode {opt.mode}: kernels against plain per seed, whole loss | "
+          f"loss held to rays of relu margin >= {opt.margin}")
+
+    def grads_of(c, keep):
+        live = {k: tree_map(lambda t: t.detach().requires_grad_(True), v)
+                for k, v in params.items()}
+        out = forward(live, state, c, rayo, rayd,
+                      policy=policy_from_config(c))
+        leaves = tree_leaves(live["attn"]) + [live["points"],
+                                              live["points_influ_scores"],
+                                              live["pc_feats"]]
+        w = out.square() * keep.reshape(*out.shape[:-1], 1)
+        return torch.autograd.grad(w.mean(), leaves)
+
+    pi = names.index("points")
+    for seed in range(opt.seeds):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params["points_influ_scores"].normal_(generator=gen)
+        margin = ray_margin(params, state, cfg, rayo, rayd)
+        held = (margin >= opt.margin).float()
+        line = []
+        for keep in (torch.ones_like(held), held):
+            g, w = grads_of(cfg, keep), grads_of(cfg_p, keep)
+            rels = [rel(a, b) for a, b in zip(g, w)]
+            worst = max(range(len(rels)), key=rels.__getitem__)
+            line.append(f"points {rels[pi]:.3e}, worst {names[worst]} "
+                        f"{rels[worst]:.3e}")
+        print(f"seed {seed}: {line[0]} | {line[1]} ({int(held.sum())} of "
+              f"{held.numel()} rays held; least margin "
+              f"{float(margin.min()):.2e})", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="query_fold", choices=sorted(MODES))
     ap.add_argument("--reps", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seeds", type=int, default=0)
+    ap.add_argument("--margin", type=float, default=1e-5)
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -82,6 +131,9 @@ def main() -> None:
     rayd = torch.as_tensor(rayd, device=dev)
     names = leaf_names(params["attn"], "attn") + [
         "points", "points_influ_scores", "pc_feats"]
+    if opt.seeds:
+        sweep(opt, dev, cfg, cfg_p, params, state, rayo, rayd, names)
+        return
 
     def grads_of(c):
         live = {k: tree_map(lambda t: t.detach().requires_grad_(True), v)

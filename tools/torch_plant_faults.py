@@ -15,7 +15,10 @@ kernels are rebuilt, and the phase-2 comparison that holds the kernel
 ``chip_smoke.compare_int8_kernels``; the flagship patch; for those named
 "fp32", ``chip_smoke.compare_f32_kernels`` on Caterpillar's model and patch;
 for those named "wgmma", ``chip_smoke.compare_wgmma_kernels``: K3 on the
-eval block, ``wgrad`` / ``wgrad_f32`` at phase 2's / phase 8's shapes)
+eval block, ``wgrad`` / ``wgrad_f32`` at phase 2's / phase 8's shapes; for
+those named "embed wgmma", ``chip_smoke.compare_embed_kernels``: the bf16
+embedder forward and backward on wgmma, and with them the other
+comparisons whose kernels run the planted line, on the same build)
 and the small-shape ``cuda`` tests of those kernels run on the copy.
 The readings are how the comparisons' bounds were set between the sound
 kernels and the weakest fault caught (PERF.md, Findings). The repository's
@@ -40,15 +43,46 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # "wgmma wgrad" wgrad.cu, "wgmma walk", "bwd wgmma walk" and "fwd wgmma"
 # (the bf16 stream forwards, on K3's walk) walk_wgmma.cuh, "bwd wgmma"
 # walk_wgmma_bwd.cuh (the bf16 stream backwards), "wgmma attend"
-# attend_eval.cu, the others fused_attn.cu.
+# attend_eval.cu, "embed wgmma bwd" walk_wgmma_bwd.cuh, "embed wgmma"
+# walk_wgmma.cuh, the others fused_attn.cu. A fourth element names every
+# comparison (TARGETS) that reads the case's build, where the planted line
+# runs in more than one kernel; the sound sources run once, read by every
+# comparison the picked cases need.
 MUTS = [
-    ("sound", None, None),
-    ("sound stream", None, None),
-    ("int8 sound", None, None),
-    ("fp32 sound", None, None),
-    ("wgmma sound", None, None),
-    ("bwd wgmma sound", None, None),
-    ("fwd wgmma sound", None, None),
+    ("embed wgmma: the second weight chunk read from the first one's stage "
+     "(a stale stage)",
+     "        real ? ring.base + st * kWStageBytes : zero, 16, 1024);",
+     "        real ? ring.base + (ring.i == 1 ? 0 : st) * kWStageBytes : zero, "
+     "16, 1024);", ("embed", "stream_fwd", "stream_bwd")),
+    ("embed wgmma: the output LayerNorm with the biased variance (the "
+     "forward walk's: K2, K3, the stream forwards)",
+     "    const float var = quad_sum(v) / (float)(n_true > 1 ? n_true - 1 : "
+     "1);",
+     "    const float var = quad_sum(v) / (float)n_true;",
+     ("embed", "stream_fwd", "compare_wgmma_kernels")),
+    ("embed wgmma: activations rounded to bf16 before the bias (a rounding "
+     "point; every wgmma forward walk and recompute)",
+     "      float v0 = acc[4 * j + 2 * h] + b.x;",
+     "      float v0 = bf16_round(acc[4 * j + 2 * h]) + b.x;",
+     ("embed", "stream_fwd", "stream_bwd", "compare_wgmma_kernels")),
+    ("embed wgmma bwd: db summed from the bf16-rounded dz instead of the "
+     "fp32 dz (a rounding point)",
+     "  colsum_pass([&](int i) { return acc[i]; }, part_db + c0, width - c0);",
+     "  colsum_pass([&](int i) { return bf16_round(acc[i]); }, part_db + c0, "
+     "width - c0);", ("embed", "stream_bwd")),
+    ("embed wgmma: posenc with sin and cos swapped (the forward walk's "
+     "encoding)",
+     "        v = encode_value(x, freq, kind);",
+     "        v = encode_value(x, freq, kind == 1 ? 2 : kind == 2 ? 1 : kind);",
+     ("embed", "stream_fwd")),
+    ("embed wgmma bwd: the posenc derivative with sin and cos swapped",
+     "      xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;",
+     "      xp[m] = kind == 1 ? x[c] : kind == 2 ? x[c] : 1.f;",
+     ("embed", "stream_bwd")),
+    ("fwd wgmma: value rows not rounded to bf16 before the fuse (a rounding "
+     "point)",
+     "              if (c1 < cout) arow[c1] += a * bf16_round(acc[i]);",
+     "              if (c1 < cout) arow[c1] += a * acc[i];"),
     ("fwd wgmma: the second weight chunk read from the first one's stage "
      "(a stale stage)",
      "        real ? ring.base + st * kWStageBytes : zero, 16, 1024);",
@@ -101,8 +135,8 @@ MUTS = [
      "  colsum_pass([&](int i) { return bf16_round(acc[i]); }, part_db + c0, "
      "width - c0);"),
     ("bwd wgmma: the relu mask of the layer above (off by one layer)",
-     "            l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;",
-     "            l > 0 && d.act == 1 ? masks + l * 512 : nullptr;"),
+     "        l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;",
+     "        l > 0 && d.act == 1 ? masks + l * 512 : nullptr;"),
     ("bwd wgmma: one pass of the output LayerNorm's db column sums dropped",
      "  colsum_pass([&](int i) { return acc[i]; }, part_b + c1, n_true - c1);",
      ""),
@@ -112,8 +146,8 @@ MUTS = [
      "        real ? ring.base + (ring.i == 1 ? 0 : st) * kWStageBytes : zero, "
      "16, 1024);"),
     ("bwd wgmma: the posenc derivative with sin and cos swapped",
-     "          xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;",
-     "          xp[m] = kind == 1 ? x[c] : kind == 2 ? x[c] : 1.f;"),
+     "      xp[m] = kind == 1 ? x[c + 1] : kind == 2 ? x[c - 1] : 1.f;",
+     "      xp[m] = kind == 1 ? x[c] : kind == 2 ? x[c] : 1.f;"),
     ("wgmma wgrad: one split's partial dropped from the sum",
      "  for (int r = 0; r < rows; ++r) s += part[(size_t)r * cols + c];",
      "  for (int r = 0; r < rows - (rows > 1); ++r) s += part[(size_t)r * cols "
@@ -313,13 +347,16 @@ MUTS = [
      "        acc += qq_at(s, a, t0, r, c) * linear_c<Op>(s.C[r * kCLd + c], "
      "0.f);"),
     ("embedder bwd: dx of raw columns 6 and up scaled by 1.05",
-     "    if (row < R) dx[(size_t)row * d_raw + src] = v;",
-     "    if (row < R) dx[(size_t)row * d_raw + src] = src >= 6 ? v * 1.05f : v;"),
+     "                 if (row < R) p.dx[(size_t)row * d_raw + src] = v;",
+     "                 if (row < R) p.dx[(size_t)row * d_raw + src] = "
+     "src >= 6 ? v * 1.05f : v;", ("embed",)),
     ("embedder bwd: dx of raw columns 6 and up scaled by 1.01",
-     "    if (row < R) dx[(size_t)row * d_raw + src] = v;",
-     "    if (row < R) dx[(size_t)row * d_raw + src] = src >= 6 ? v * 1.01f : v;"),
+     "                 if (row < R) p.dx[(size_t)row * d_raw + src] = v;",
+     "                 if (row < R) p.dx[(size_t)row * d_raw + src] = "
+     "src >= 6 ? v * 1.01f : v;", ("embed",)),
     ("encoding: un-encoded (pass-through) columns scaled by 1.01, fwd + bwd",
-     "  if (kind == 0) return x;", "  if (kind == 0) return x * 1.01f;"),
+     "  if (kind == 0) return x;", "  if (kind == 0) return x * 1.01f;",
+     ("embed",)),
     ("topk: one point of the first chunk skipped",
      "    for (int j = 0; j < n; ++j) {\n      const float tt",
      "    for (int j = 0; j < n - (base == 0); ++j) {\n      const float tt"),
@@ -372,12 +409,27 @@ TARGETS = {
     # folded key stream held against the key forward).
     "stream_fwd": (("phase 2 key_stream_fwd", "phase 2 value_stream_fwd",
                     "phase 2 key_stream_q_fwd on"), "stream_fwd_wgmma"),
+    "embed": (("phase 2 K2", "phase 2 fused_mlp"),
+              "fused_mlp_wgmma or fused_mlp_bwd_wgmma"),
 }
+# The comparison function each target runs, and the cuda test lines shown.
+FN = {"stream_bwd": "compare_train_kernels",
+      "stream_fwd": "compare_train_kernels",
+      "embed": "compare_embed_kernels"}
+TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
+                                       "value_stream_i8", "int8_walk_bench"),
+              "compare_f32_kernels": ("f32",),
+              "compare_train_kernels": ("key_stream_q T",),
+              "compare_wgmma_kernels": ("attend_eval T", "wgrad"),
+              "stream_bwd": ("key_stream_bwd T", "value_stream_bwd T"),
+              "stream_fwd": ("key_stream_fwd wgmma", "value_stream_fwd wgmma"),
+              "embed": ("fused_mlp wgmma", "fused_mlp_bwd wgmma")}
 
 
 def target_of(name: str) -> str:
     head = name.split(":")[0]
-    return ("stream_fwd" if head.startswith("fwd wgmma")
+    return ("embed" if head.startswith("embed wgmma")
+            else "stream_fwd" if head.startswith("fwd wgmma")
             else "stream_bwd" if head.startswith("bwd wgmma")
             else "compare_wgmma_kernels" if "wgmma" in head
             else "compare_f32_kernels" if "fp32" in head
@@ -386,18 +438,50 @@ def target_of(name: str) -> str:
             else "compare_cli_kernels")
 
 
+def targets_of(m) -> tuple:
+    return m[3] if len(m) > 3 else (target_of(m[0]),)
+
+
 def main() -> None:
     words = sys.argv[1:]
-    picked = [m for m in MUTS if m[1] is not None
-              and (not words or any(w in m[0] for w in words))]
-    targets = {target_of(m[0]) for m in picked}
-    for m in MUTS:
-        # The sound sources run once for each comparison a picked case needs.
-        if m in picked or (m[1] is None and target_of(m[0]) in targets):
-            run_case(*m)
+    picked = [m for m in MUTS if not words or any(w in m[0] for w in words)]
+    needed = []
+    for m in picked:
+        needed += [t for t in targets_of(m) if t not in needed]
+    run_case("sound", None, None, tuple(needed))
+    for m in picked:
+        run_case(*m[:3], targets_of(m))
 
 
-def run_case(name, old, new) -> None:
+def source_of(name: str) -> str:
+    return next((f for word, f in (("embed wgmma bwd", "walk_wgmma_bwd.cuh"),
+                                   ("embed wgmma", "walk_wgmma.cuh"),
+                                   ("fwd wgmma", "walk_wgmma.cuh"),
+                                   ("bwd wgmma walk", "walk_wgmma.cuh"),
+                                   ("bwd wgmma", "walk_wgmma_bwd.cuh"),
+                                   ("wgmma wgrad", "wgrad.cu"),
+                                   ("wgmma walk", "walk_wgmma.cuh"),
+                                   ("wgmma attend", "attend_eval.cu"),
+                                   ("topk", "topk_stream.cu"),
+                                   ("embedder bwd", "fused_mlp_bwd.cu"),
+                                   ("encoding", "walk.cuh"),
+                                   ("stream feat key", "key_stream_feat.cu"),
+                                   ("stream feat value",
+                                    "value_stream_feat.cu"),
+                                   ("stream q walk", "key_stream.cuh"),
+                                   ("stream q", "key_stream_q.cu"),
+                                   ("stream shared", "stream_common.cuh"),
+                                   ("linear_bf16", "stream_common.cuh"),
+                                   ("int8 walk", "walk.cuh"),
+                                   ("int8 bench", "int8_walk_bench.cu"),
+                                   ("int8 value", "value_stream.cu"),
+                                   ("int8 attend", "attend_eval.cu"),
+                                   ("fp32 walk", "walk.cuh"),
+                                   ("fp32 stash", "walk_bwd.cuh"))
+                 if word in name), "fused_attn.cu")
+
+
+def run_case(name, old, new, targets) -> None:
     root = tempfile.mkdtemp(prefix="mut_")
     skip = shutil.ignore_patterns("_build", "__pycache__")
     for d in ("papr_tpu_torch", "configs", "tests", "tools"):
@@ -405,32 +489,8 @@ def run_case(name, old, new) -> None:
                         ignore=skip)
     for f in ("chip_smoke.py", "pytest.ini"):
         shutil.copy(os.path.join(REPO, f), root)
-    target = target_of(name)
-    shown, tests = TARGETS[target]
     if old is not None:
-        src = next((f for word, f in (("fwd wgmma", "walk_wgmma.cuh"),
-                                      ("bwd wgmma walk", "walk_wgmma.cuh"),
-                                      ("bwd wgmma", "walk_wgmma_bwd.cuh"),
-                                      ("wgmma wgrad", "wgrad.cu"),
-                                      ("wgmma walk", "walk_wgmma.cuh"),
-                                      ("wgmma attend", "attend_eval.cu"),
-                                      ("topk", "topk_stream.cu"),
-                                      ("embedder bwd", "fused_mlp_bwd.cu"),
-                                      ("encoding", "walk.cuh"),
-                                      ("stream feat key", "key_stream_feat.cu"),
-                                      ("stream feat value",
-                                       "value_stream_feat.cu"),
-                                      ("stream q walk", "key_stream.cuh"),
-                                      ("stream q", "key_stream_q.cu"),
-                                      ("stream shared", "stream_common.cuh"),
-                                      ("linear_bf16", "stream_common.cuh"),
-                                      ("int8 walk", "walk.cuh"),
-                                      ("int8 bench", "int8_walk_bench.cu"),
-                                      ("int8 value", "value_stream.cu"),
-                                      ("int8 attend", "attend_eval.cu"),
-                                      ("fp32 walk", "walk.cuh"),
-                                      ("fp32 stash", "walk_bwd.cuh"))
-                    if word in name), "fused_attn.cu")
+        src = source_of(name)
         p = os.path.join(root, "papr_tpu_torch", "csrc", src)
         s = open(p).read()
         if old not in s:
@@ -438,39 +498,29 @@ def run_case(name, old, new) -> None:
                              f"{src}; bring MUTS up to date")
         open(p, "w").write(s.replace(old, new))
     print(f"===== {name}", flush=True)
-    fn = ("compare_train_kernels" if target in ("stream_bwd", "stream_fwd")
-          else target)
-    r = subprocess.run([sys.executable, "-c", RUN, fn], cwd=root,
-                       capture_output=True, text=True)
-    for line in r.stdout.splitlines():
-        if line.startswith(shown + ("FAILS",)):
-            print("  " + line[:1600], flush=True)
-    if r.returncode:
-        print("  rc", r.returncode, r.stderr[-1500:], flush=True)
+    # Each comparison function once, showing the lines of every target that
+    # reads it; one pytest run over every target's tests.
+    fns = {}
+    for t in targets:
+        fns.setdefault(FN.get(t, t), []).extend(TARGETS[t][0])
+    for fn, shown in fns.items():
+        r = subprocess.run([sys.executable, "-c", RUN, fn], cwd=root,
+                           capture_output=True, text=True)
+        for line in r.stdout.splitlines():
+            if line.startswith(tuple(shown) + ("FAILS",)):
+                print("  " + line[:1600], flush=True)
+        if r.returncode:
+            print("  rc", r.returncode, r.stderr[-1500:], flush=True)
+    tests = " or ".join(f"({TARGETS[t][1]})" for t in targets)
+    lines = tuple(l for t in targets for l in TEST_LINES.get(t, ()))
     t = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
          "-s", "-p", "no:cacheprovider", "tests/test_torch_kernels_cuda.py",
-         "-k",
-         tests, "--tb=line"],
+         "-k", tests, "--tb=line"],
         cwd=root, capture_output=True, text=True)
     for line in t.stdout.splitlines():
         line = line.lstrip(".FEs")        # -s: pytest's progress marks
-        if "Error" in line or (target == "compare_int8_kernels"
-                               and line.startswith(("attend_eval_i8",
-                                                    "key_stream_i8",
-                                                    "value_stream_i8",
-                                                    "int8_walk_bench"))) \
-                or (target == "compare_f32_kernels" and "f32" in line) \
-                or (target == "compare_train_kernels"
-                    and line.startswith("key_stream_q T")) \
-                or (target == "compare_wgmma_kernels"
-                    and line.startswith(("attend_eval T", "wgrad"))) \
-                or (target == "stream_bwd"
-                    and line.startswith(("key_stream_bwd T",
-                                         "value_stream_bwd T"))) \
-                or (target == "stream_fwd"
-                    and line.startswith(("key_stream_fwd wgmma",
-                                         "value_stream_fwd wgmma"))):
+        if "Error" in line or (lines and line.startswith(lines)):
             print("  cuda tests: " + line[:400], flush=True)
     print(f"  cuda tests: exit code {t.returncode}", flush=True)
     shutil.rmtree(root, ignore_errors=True)

@@ -74,6 +74,7 @@ def main() -> None:
     sys.path.insert(0, tree)
     import torch
     from papr_tpu_torch.kernels import build
+    from papr_tpu_torch.ops import fused_mlp as fm
     from papr_tpu_torch.ops import stream_attn as sa
 
     dev = torch.device("cuda", 0)
@@ -86,16 +87,18 @@ def main() -> None:
     T = key[0].shape[1]
     cases = (("key", "key_fwd", lambda: sa.key_stream_fwd(*key)),
              ("value", "value_fwd", lambda: [sa.value_stream_fwd(*value)]))
+    # The grid rule: fused_mlp's, or stream_attn's on an older tree.
+    rule = next((m for m in (fm, sa) if hasattr(m, "wgmma_grid")), None)
     grids = [("", None)]
-    if hasattr(sa, "wgmma_grid"):
+    if rule is not None:
         tiles = -(-T // 128)
-        grids = [(f" (grid {sa.wgmma_grid(T)}: persistent)", None),
+        grids = [(f" (grid {rule.wgmma_grid(T)}: persistent)", None),
                  (f" (grid {tiles}: one block a tile)", tiles)]
     sound = {}
     for label, grid in grids:
-        real = getattr(sa, "wgmma_grid", None)
+        real = getattr(rule, "wgmma_grid", None)
         if grid is not None:
-            sa.wgmma_grid = lambda T: grid
+            rule.wgmma_grid = lambda T: grid
         for what, pat, fn in cases:
             sound.setdefault(what, [g.clone() for g in fn()])
             k_ms, _, o_ms, whole = _split(fn, pat)
@@ -104,7 +107,7 @@ def main() -> None:
                   f"{o_ms:.3f}, host / gaps {whole - k_ms - o_ms:.3f}",
                   flush=True)
         if real is not None:
-            sa.wgmma_grid = real
+            rule.wgmma_grid = real
     csrc = os.path.join(tree, "papr_tpu_torch", "csrc")
     if opt.split_only or not os.path.exists(os.path.join(csrc,
                                                          "walk_wgmma.cuh")):
