@@ -13,7 +13,9 @@ Phases (each prints a line; any failure exits non-zero):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (the flagship model: 30k-point cube init, k = 20,
    bf16; the orbit pose of ``bench.py`` with focal 700 at 800x800):
-   cull selection on the full frame, the query embedder on its 640,000
+   cull selection on the full frame (the candidates each tile scans before
+   the early exit, the bound of that work, the earlier kernel's time beside
+   the new one; at the training shape too), the query embedder on its 640,000
    rays, the eval attention on a 160x160 ray block (and, on its rays, the
    bf16 stream forwards against it: they run its walk code); then, on a 160x160
    training patch cropped at a seeded offset from the same frame, the
@@ -149,6 +151,14 @@ K3_ATTN_ABS = 5e-3        # max abs error of attn
 # not rounded before the fuse (K3 5.4e-4, value 5.4e-4).
 FWD_MEDIAN_REL = {"attend_stream_eval": 1e-3, "key_stream_fwd": 3.5e-3,
                   "value_stream_fwd": 1e-3, "fused_mlp": 5e-4}
+# K3's two faults the median ray misses, caught by two more statistics:
+# the median ray of attn (sound 0: most rays' attention is bit-equal; the
+# output LayerNorm's biased variance moves every ray's scores, 1.9e-5) and
+# the fused error of the ray at the 5th percentile (the rays whose 40 walks
+# all round alike read ~0; a rounding point moved, such as the value rows
+# not rounded before the fuse, moves every ray) (PERF.md, Findings).
+K3_ATTN_MEDIAN_REL = 5e-6
+K3_FUSED_Q05_REL = 1e-5
 # K2, the embedder forward (query stack, 640,000 rays): relative Frobenius
 # error of the bf16 output (sound 2.1e-4; the variance fault 3.3e-3,
 # activations rounded before the bias 5.0e-3), and its median row above.
@@ -258,6 +268,17 @@ WGRAD_REL = 1e-4
 # and phase 8's shapes; printed beside the wgmma kernels' times.
 K3_WMMA_MS = 11.915
 K3_WMMA_FRAME_MS = 212.6
+# The earlier K1 (one thread a ray, 512-wide chunks, an exit test after each)
+# at the serving and training shapes, and the earlier fp32 K3 (3xTF32 on
+# walk.cuh's WMMA walk) at phase 8's 32,400 rays and an 800x800 frame
+# (tools/torch_k1_ablate.py, tools/torch_k3_ablate.py --f32 on that tree,
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
+K1_EARLIER_MS = {"serving": 0.5011, "training": 0.1637}
+K3_F32_WMMA_MS = 40.421
+K3_F32_WMMA_FRAME_MS = 762.6
+# The fp32 frames on Caterpillar's model with that K3 (phase 8, NVIDIA H100
+# 80GB HBM3, 700.00 W): serving, 100x100-tiled.
+F32_FRAME_WMMA_MS = (807.5, 1378.4)
 WGRAD_WMMA_MS = 0.934
 WGRAD_F32_WMMA_MS = 4.819
 # The bf16 WMMA kernels before their wgmma redesigns (NVIDIA H100 80GB HBM3,
@@ -514,6 +535,54 @@ def eval_block_args(params, state, cfg, device):
             bool(cfg.models.normalize_topk_attn), eps, cdt), T
 
 
+K1_STAGE = 64         # candidates between K1's exit tests (csrc/cull_topk.cu)
+
+
+def cull_scanned(tiles, f, recs, k: int, step: int, early_exit: bool,
+                 batch: int = 64):
+    """The candidates each tile's stage 3 scans with the early exit tested
+    after every ``step`` (the exit decides on the data alone: after a prefix,
+    every ray's k-th smallest distinct packed distance so far strictly below
+    the packed lower bound of the next candidate), as a list of counts."""
+    import torch
+    from papr_tpu_torch.ops.tile_cull import smallest_packed
+    from papr_tpu_torch.ops.topk import MAXI, VAL_MASK
+    T = tiles.shape[0]
+    M = recs.shape[-1]
+    if not early_exit:
+        return [M] * T
+    out = []
+    for s0 in range(0, T, batch):
+        d, fr, rc = tiles[s0:s0 + batch], f[s0:s0 + batch], recs[s0:s0 + batch]
+        done = torch.full((d.shape[0],), M, device=tiles.device)
+        for e in range(step, M, step):
+            kth = (smallest_packed(d, fr, rc[..., :e], k)[..., -1] if e >= k
+                   else torch.full(d.shape[:2], MAXI, device=d.device))
+            lb = rc[:, 5, e].contiguous().view(torch.int32) & VAL_MASK
+            stop = (kth.amax(dim=-1) < lb) & (done == M)
+            done = torch.where(stop, torch.full_like(done, e), done)
+            if bool((done < M).all()):
+                break
+        out += [int(x) for x in done.tolist()]
+    return out
+
+
+def cull_bound(tiles, f, recs, k: int, scanned) -> dict:
+    """K1's bound from the candidates its data needs scanned: their records
+    (five 4-byte rows) with the rays, their scale and the output, or 9 fp32
+    operations a (ray, candidate) pair, whichever is larger."""
+    T, TR, _ = tiles.shape
+    cand = float(sum(scanned))
+    return bound(cand * 5 * 4 + (tiles.numel() + f.numel() + T * TR * k) * 4,
+                 9.0 * TR * cand, FP32_FLOPS)
+
+
+def cull_histogram(scanned, step: int, M: int) -> str:
+    """"[n_1, n_2, ...]": tiles that scanned step, 2 step, .. candidates."""
+    return str([sum(1 for c in scanned if c == e)
+                for e in range(step, M + 1, step)])
+
+
 # ------------------------------------------------------------------ phases --
 
 def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
@@ -567,22 +636,34 @@ def compare_kernels(params, state, cfg, device, n_time: int = 5) -> list:
     ms = cuda_ms(lambda: tc.cull_select(tiles, f, recs, k, chunk, ee), n_time)
     plain_ms = cuda_ms(
         lambda: tc.cull_select_plain(tiles, f, recs, k, chunk, ee), 2)
-    print(f"phase 2 K1 cull_select: tiles={tuple(tiles.shape)} M={recs.shape[-1]} "
+    # The early exit makes the work depend on the data: the candidates each
+    # tile scans with the exit tested after every K1_STAGE (this kernel) and
+    # after every chunk (the earlier kernel, the JAX kernel's granularity).
+    M = recs.shape[-1]
+    scanned = cull_scanned(tiles, f, recs, k, K1_STAGE, ee)
+    scanned_chunk = cull_scanned(tiles, f, recs, k, chunk, ee)
+    k1_bound = cull_bound(tiles, f, recs, k, scanned)
+    print(f"phase 2 K1 cull_select: tiles={tuple(tiles.shape)} M={M} "
           f"k={k} chunk={chunk} early_exit={ee}: equal sets {frac_eq:.6f} "
           f"(need >= {K1_MIN_EQUAL}), other rays near-ties only: {ties_ok}, "
-          f"max |dist diff| {k1_err:.3g}; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms", flush=True)
+          f"max |dist diff| {k1_err:.3g}; kernel {ms:.3f} ms (earlier kernel "
+          f"{K1_EARLIER_MS['serving']} ms), plain {plain_ms:.3f} ms; "
+          f"candidates a tile scans, exit tested every {K1_STAGE}: "
+          f"{cull_histogram(scanned, K1_STAGE, M)} tiles at {K1_STAGE}, "
+          f"{2 * K1_STAGE}, .. (mean {sum(scanned) / len(scanned):.1f}); "
+          f"every {chunk}: {cull_histogram(scanned_chunk, chunk, M)} (mean "
+          f"{sum(scanned_chunk) / len(scanned_chunk):.1f}); bound from the "
+          f"candidates scanned {k1_bound['bound_ms']:.4f} ms "
+          f"({k1_bound['bound_by']}; the earlier granularity "
+          f"{cull_bound(tiles, f, recs, k, scanned_chunk)['bound_ms']:.4f})",
+          flush=True)
     if frac_eq < K1_MIN_EQUAL or not ties_ok:
         fail("K1 cull selection disagrees with its plain version")
-    # The early exit makes the work depend on the data: every tile scans at
-    # least its first chunk, which is what the operations count here.
-    n_first = tiles.shape[0] * tiles.shape[1] * min(chunk, recs.shape[-1])
     results.append({"name": "cull_select", "route": "cuda",
                     "source": "papr_tpu_torch/csrc/cull_topk.cu",
                     "replaces": "papr_tpu/ops/tile_cull.py:110",
                     "max_abs_err": k1_err, "ms": ms, "plain_ms": plain_ms,
-                    **bound(nbytes(tiles, f, recs, got), 9.0 * n_first,
-                            FP32_FLOPS)})
+                    **k1_bound})
 
     # K3: eval attention on the central 160x160 ray block.
     results.append(compare_k3(params, state, cfg, device, n_time))
@@ -603,6 +684,10 @@ def compare_k3(params, state, cfg, device, n_time: int) -> dict:
     f_want, a_want = sa.attend_eval_plain(*args)
     err = rel_fro(f_got, f_want)
     med = median_row_rels([f_got], [f_want])[0]
+    ray_rel = lambda g, w: (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(
+        1e-30)
+    a_med = float(ray_rel(a_got, a_want).median())
+    f_q05 = float(torch.quantile(ray_rel(f_got, f_want), 0.05))
     f_abs = float((f_got - f_want).abs().max().item())
     a_abs = float((a_got - a_want).abs().max().item())
     finite = bool(torch.isfinite(f_got).all() and torch.isfinite(a_got).all())
@@ -617,12 +702,15 @@ def compare_k3(params, state, cfg, device, n_time: int) -> dict:
     print(f"phase 2 K3 attend_eval: T={T} K={k}: fused rel Frobenius "
           f"{err:.3e} (need <= {K3_REL}), median ray {med:.3e} (need <= "
           f"{t_med}), max abs {f_abs:.3e}; attn max abs "
-          f"{a_abs:.3e} (need <= {K3_ATTN_ABS}); finite {finite}; kernel "
+          f"{a_abs:.3e} (need <= {K3_ATTN_ABS}), median attn ray {a_med:.3e} "
+          f"(need <= {K3_ATTN_MEDIAN_REL}); fused at the 5th-percentile ray "
+          f"{f_q05:.3e} (need <= {K3_FUSED_Q05_REL}); finite {finite}; kernel "
           f"{ms:.3f} ms ({gflop / ms:.1f} TFLOP/s of walk matmuls; earlier "
           f"WMMA kernel {K3_WMMA_MS} ms here, {K3_WMMA_FRAME_MS} ms an 800x800 "
           f"frame), bound {k3_bound['bound_ms']:.4f} ms, plain "
           f"{plain_ms:.3f} ms", flush=True)
     if not (err <= K3_REL and med <= t_med and a_abs <= K3_ATTN_ABS
+            and a_med <= K3_ATTN_MEDIAN_REL and f_q05 <= K3_FUSED_Q05_REL
             and finite):
         fail("K3 eval attention disagrees with its plain version")
     return {"name": "attend_stream_eval", "route": "cuda",
@@ -1178,14 +1266,19 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     ms = cuda_ms(lambda: tc.cull_select(tiles, f, recs, k, chunk, ee), n_time)
     plain_ms = cuda_ms(
         lambda: tc.cull_select_plain(tiles, f, recs, k, chunk, ee), 1)
+    tb = cull_bound(tiles, f, recs, k, cull_scanned(tiles, f, recs, k,
+                                                    K1_STAGE, ee))
     print(f"phase 2 K1 cull_select (training): tiles={tuple(tiles.shape)} "
           f"M={recs.shape[-1]} chunk={chunk} early_exit={ee}: equal sets "
-          f"{frac:.6f} (need >= {K1_TRAIN_MIN_EQUAL}); kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms", flush=True)
+          f"{frac:.6f} (need >= {K1_TRAIN_MIN_EQUAL}); kernel {ms:.3f} ms "
+          f"(earlier kernel {K1_EARLIER_MS['training']} ms), plain "
+          f"{plain_ms:.3f} ms, bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}: every "
+          f"candidate scanned)", flush=True)
     if chunk != 2048 or ee or frac < K1_TRAIN_MIN_EQUAL:
         failed.append("cull_select (training shape)")
     out["cull_select"] = {"equal_sets_train": frac, "ms_train": ms,
-                          "plain_ms_train": plain_ms}
+                          "plain_ms_train": plain_ms,
+                          "bound_ms_train": tb["bound_ms"]}
 
     idx, record, rec, rayo_f, rays, rayd_f, qq, kwalk, vwalk = \
         stream_patch_inputs(params, state, cfg, rayo, rayd)
@@ -3111,7 +3204,7 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
 
     def record(name, source, replaces, fn, plain, tol, labels, in_bytes,
                flops, tf32=None, attn_tol=None, library=None,
-               rate=F32_TC_FLOPS, stack_of=None, median=None):
+               rate=F32_TC_FLOPS, stack_of=None, median=None, earlier=None):
         """Kernel against its plain fp32 version; with ``stack_of`` the
         reading goes into that kernel's record as a stack it also runs;
         ``median`` (output index, bound): the median over rays of that
@@ -3150,7 +3243,10 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
             line += (f"; one TF32 pass would read {t:.3e} (need > {tol}, the "
                      "bound catches it)")
             ok &= t > tol
-        line += (f"; kernel {ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        line += f"; kernel {ms:.3f} ms"
+        if earlier is not None:
+            line += f" ({earlier})"
+        line += (f", plain {p_ms:.3f} ms, bound "
                  f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
         if library is not None:
             line += f", torch.matmul {work['library_ms']:.3f} ms"
@@ -3209,7 +3305,9 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            e_flops, attn_tol=F32_ATTN_ABS,
            tf32=lambda: tf32_reading(
                lambda: sa.attend_eval_plain(*eargs, f32)[0],
-               sa.attend_eval_plain(*eargs, f32)[0]))
+               sa.attend_eval_plain(*eargs, f32)[0]),
+           earlier=f"3xTF32 on WMMA before: {K3_F32_WMMA_MS} ms here, "
+                   f"{K3_F32_WMMA_FRAME_MS} ms at an 800x800 frame's rays")
     # Rows 5 and 6, forward and backward.
     kargs = (rec, rayo_f, rays, qq, kwalk, wk, bk)
     kopts = (score_act, bkg, eps)
@@ -3672,8 +3770,10 @@ def drive_fp32_path(device) -> dict:
     psnr = float("inf") if mse == 0 else -10 * np.log10(mse)
     t_diff = np.abs(tiled.astype(np.int16) - frame.astype(np.int16))
     print(f"phase 8 render_frames {H}x{W} (one full-frame tile, fp32): first "
-          f"{first_ms:.1f} ms, then {frame_ms:.1f} ms/frame; render_full_image "
-          f"100x100 tiles: {tiled_ms:.1f} ms; serving frame vs the plain fp32 "
+          f"{first_ms:.1f} ms, then {frame_ms:.1f} ms/frame (with the WMMA "
+          f"K3: {F32_FRAME_WMMA_MS[0]}); render_full_image 100x100 tiles: "
+          f"{tiled_ms:.1f} ms ({F32_FRAME_WMMA_MS[1]}); serving frame vs the "
+          f"plain fp32 "
           f"frame: PSNR {psnr:.2f} dB (need >= {F32_FRAME_PSNR}), pixels within "
           f"1/255 {close:.6f} (need >= {F32_FRAME_MIN_CLOSE}), max diff "
           f"{int(diff.max())}; tiled vs serving within 2/255 "

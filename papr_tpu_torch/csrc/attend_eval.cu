@@ -17,30 +17,28 @@
 // record rows by index from the (P, 128) record instead of a pre-gathered
 // (K, T, 128) tensor (6.55 GB at one 800x800 tile).
 //
-// attend_eval_wgmma_kernel (bf16, papr_attend_eval; below) runs the walks
-// on wgmma with the activations in registers, 128 rays a block, on
-// walk_wgmma.cuh's forward walk, the code the bf16 stream forwards
-// (key_stream.cu, value_stream.cu) run too. The int8 and fp32 forms share
-// one tile function on walk.cuh's WMMA walk: one block of 512 threads per
-// 64-ray tile, every activation in shared memory, each layer's weights
-// staged by cp.async once per (tile, k) step and shared by the 16 warps.
+// attend_eval_wgmma_kernel (below) runs the walks on wgmma, 128 rays a
+// block, on walk_wgmma.cuh's forward walk, the code the bf16 stream
+// forwards (key_stream.cu, value_stream.cu) run too: in bf16
+// (papr_attend_eval) with the activations in registers, in fp32
+// (papr_attend_eval_f32: use_amp: false, _ase_fwd_kernel with cdt =
+// float32) with the activations in shared memory and 3xTF32 products; both
+// walks, the w_k product and its bias in fp32 there, the value rows not
+// rounded before the fuse.
 //
 // attend_eval_i8 is the same call with quant=True (tpu.int8_eval): both
 // walks' dense stacks run walk.cuh's int8 walk (walk_body_fwd_q in
-// papr_tpu/ops/fused_mlp.py:322) on a quantization the wrapper calibrated;
-// geometry, posenc, LayerNorms, the bf16 w_k product on y_k rounded to bf16,
-// scores, the value rows rounded to bf16, softmax and fuse are this file's
-// one tile function, shared by both kernels. int8 halves the bytes of every
-// MMA operand; the WMMA instruction count per layer is the bf16 one.
-//
-// attend_eval_f32 is the same tile function on the fp32 walks (use_amp:
-// false; _ase_fwd_kernel with cdt = float32): both walks, the w_k product
-// and its bias in fp32 (walk.cuh's 3xTF32 products), the value rows not
-// rounded before the fuse; the same shared memory, byte for byte.
+// papr_tpu/ops/fused_mlp.py:322) on a quantization the wrapper calibrated,
+// on one tile function: one block of 512 threads per 64-ray tile, every
+// activation in shared memory, each layer's weights staged by cp.async once
+// per (tile, k) step and shared by the 16 warps; geometry, posenc,
+// LayerNorms, the bf16 w_k product on y_k rounded to bf16, scores, the
+// value rows rounded to bf16, softmax and fuse. int8 halves the bytes of
+// every MMA operand; the WMMA instruction count per layer is the bf16 one.
 // attend_eval_i8_f32 is the int8 kernel beside fp32 compute (int8_eval with
-// use_amp: false): the int8 walks unchanged, then the fp32 epilogue of
-// attend_eval_f32 (the 3xTF32 w_k product on the unrounded y_k, fp32 bias,
-// value rows not rounded), as _ase_fwd_kernel runs it with cdt = float32.
+// use_amp: false): the int8 walks unchanged, then the fp32 epilogue (the
+// 3xTF32 w_k product on the unrounded y_k, fp32 bias, value rows not
+// rounded), as _ase_fwd_kernel runs it with cdt = float32.
 
 #include "rec_stream.cuh"
 #include "stream_common.cuh"
@@ -48,21 +46,20 @@
 
 using namespace papr;
 
-// One tile of kRows rays, Op the walks' operand type. kq / vq: the walks'
-// int8 forms, or null for the bf16 / fp32 walks (a compile-time constant in
-// each kernel below).
+// One tile of kRows rays of the int8 kernels, Op the epilogue's operand
+// type; kq / vq: the walks' int8 forms.
 template <class Op>
 __device__ __forceinline__ void attend_eval_tile(
     unsigned char* smem, const float* __restrict__ record, int rec_w,
     const int* __restrict__ idx, int T, int K, const float* __restrict__ rayo,
     const float* __restrict__ rays, const float* __restrict__ qq, int dm,
-    float sqrt_dm, const WalkDescT<Op>& kd, const WalkQuant* kq,
+    float sqrt_dm, const WalkDescT<Op>& kd, const WalkQuant& kq,
     const Op* __restrict__ wk, const float* __restrict__ bk,
-    int dm_pad, const WalkDescT<Op>& vd, const WalkQuant* vq, int score_relu,
+    int dm_pad, const WalkDescT<Op>& vd, const WalkQuant& vq, int score_relu,
     float bkg, int normalize, float eps, float* __restrict__ fused,
     float* __restrict__ attn) {
-  const WalkSmemT<Op> S = walk_smem<Op>(smem);
-  const WalkSmem Q = walk_smem_q<Op>(smem);   // the int8 walks' (same C)
+  const WalkSmemT<Op> S = walk_smem<Op>(smem);   // the epilogue's
+  const WalkSmem Q = walk_smem_q<Op>(smem);      // the int8 walks' (same C)
   float* C = S.C;
   float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
   float* m_run = geo + kRows * kGeo;                         // kRows
@@ -113,9 +110,8 @@ __device__ __forceinline__ void attend_eval_tile(
     encode_rec(C, kd, geo, gidx, record, rec_w);
     __syncthreads();
     // y_k as the w_k product's operand: rounded to bf16 in A[0], or fp32 in
-    // C (the fp32 walk's A[0]).
-    if (kq) run_walk_q(Q, kd, *kq, !kF32<Op>);
-    else run_walk(S, kd, true);
+    // C (the fp32 epilogue's A[0]).
+    run_walk_q(Q, kd, kq, !kF32<Op>);
     dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
     __syncthreads();
     for (int r = warp; r < kRows; r += kWarps) {
@@ -143,8 +139,7 @@ __device__ __forceinline__ void attend_eval_tile(
     // --- value walk -> online softmax-weighted accumulation ---
     encode_rec(C, vd, geo, gidx, record, rec_w);
     __syncthreads();
-    if (vq) run_walk_q(Q, vd, *vq);
-    else run_walk(S, vd);
+    run_walk_q(Q, vd, vq);
     for (int r = warp; r < kRows; r += kWarps) {
       const float s = ss[r * K + k];
       const float m_old = m_run[r];
@@ -181,23 +176,6 @@ __device__ __forceinline__ void attend_eval_tile(
 
 template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
-attend_eval_kernel(const float* __restrict__ record, int rec_w,
-                   const int* __restrict__ idx, int T, int K,
-                   const float* __restrict__ rayo,
-                   const float* __restrict__ rays,
-                   const float* __restrict__ qq, int dm, float sqrt_dm,
-                   WalkDescT<Op> kd, const Op* __restrict__ wk,
-                   const float* __restrict__ bk, int dm_pad, WalkDescT<Op> vd,
-                   int score_relu, float bkg, int normalize, float eps,
-                   float* __restrict__ fused, float* __restrict__ attn) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  attend_eval_tile(smem, record, rec_w, idx, T, K, rayo, rays, qq, dm,
-                   sqrt_dm, kd, nullptr, wk, bk, dm_pad, vd, nullptr,
-                   score_relu, bkg, normalize, eps, fused, attn);
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads, 1)
 attend_eval_i8_kernel(const float* __restrict__ record, int rec_w,
                       const int* __restrict__ idx, int T, int K,
                       const float* __restrict__ rayo,
@@ -212,20 +190,23 @@ attend_eval_i8_kernel(const float* __restrict__ record, int rec_w,
                       float* __restrict__ attn) {
   extern __shared__ __align__(128) unsigned char smem[];
   attend_eval_tile(smem, record, rec_w, idx, T, K, rayo, rays, qq, dm,
-                   sqrt_dm, kd, &kq, wk, bk, dm_pad, vd, &vq, score_relu, bkg,
+                   sqrt_dm, kd, kq, wk, bk, dm_pad, vd, vq, score_relu, bkg,
                    normalize, eps, fused, attn);
 }
 
-// ------------------------------------------------- bf16: on wgmma + TMA ----
+// ------------------------------------------ bf16 and fp32: on wgmma + TMA --
 //
-// The bf16 kernel (papr_attend_eval) is the same function on walk_wgmma.cuh's
-// forward walk, which the bf16 stream forwards (key_stream.cu,
-// value_stream.cu) run too: a block of two warpgroups takes 128 rays; each
-// warpgroup owns 64 of them and loops over k, and the two read every
+// The bf16 kernel (papr_attend_eval) and the fp32 kernel
+// (papr_attend_eval_f32) are the same function on walk_wgmma.cuh's forward
+// walk, which the bf16 stream forwards (key_stream.cu, value_stream.cu) run
+// too, in its two operand forms: a block of two warpgroups takes 128 rays;
+// each warpgroup owns 64 of them and loops over k, and the two read every
 // layer's packed weight chunks (key layers, w_k, value layers, once per k)
 // from one TMA-fed ring. A token's record row is idx[t * K + k]. After the
-// key walk and the score, the value walk's fp32 rows, rounded to bf16, go
-// into a background-seeded online softmax.
+// key walk and the score, the value walk's fp32 rows (rounded to bf16 in
+// the bf16 form) go into a background-seeded online softmax. The fp32 form
+// reads its parameter rows from global memory: its shared memory holds the
+// fp32 activations (walk_wgmma.cuh, the fp32 operand form).
 
 struct EvalWg {
   const float* record;
@@ -246,7 +227,7 @@ struct EvalWg {
   float* fused;
   float* attn;
   WgLayer layers[kWgMaxLayers];
-  WgChunk chunks[kWgMaxChunks];  // the weight stream of one k step
+  WgChunk chunks[kWgMaxChunksF32];  // the weight stream of one k step
   int n_chunks;
   const unsigned char* w;        // the packed weights of every layer
   int stages;                    // weight ring depth
@@ -257,10 +238,18 @@ struct EvalWg {
   int n_prm;                     // all staged parameter floats
 };
 
+template <class Op>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
+  constexpr bool f32 = kF32<Op>;
   extern __shared__ unsigned char smem_raw[];
   const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm);
+  if constexpr (f32) {
+    // Every E column a product reads is finite from the start (columns
+    // past a walk's input width meet zero weight rows).
+    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)
+      sm.tiles[i] = 0.f;
+  }
   // Parameter rows: key biases, LayerNorms, plan, then b_k, then value.
   float* kbias = sm.prm;
   float* kln = kbias + p.nb[0];
@@ -272,7 +261,7 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
   {
     const float* const src[7] = {p.kd.b[0], p.kd.ln, p.kd.plan, p.bk,
                                  p.vd.b[0], p.vd.ln, p.vd.plan};
-    const int cnt[7] = {p.nb[0], p.nln[0], p.nplan[0], p.dm_pad,
+    const int cnt[7] = {p.nb[0], p.nln[0], p.nplan[0], f32 ? 0 : p.dm_pad,
                         p.nb[1], p.nln[1], p.nplan[1]};
     wg_prologue(sm, p.stages, src, cnt);
   }
@@ -282,8 +271,11 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
   WgRing rg{sm.ring, sm.full, sm.released, p.stages, 0, p.n_chunks,
             p.n_chunks * p.K, p.chunks, p.w};
   wg_ring_start(rg);
-  const WgWalk kw{&p.kd, kbias, kln, kplan, p.layers};
-  const WgWalk vw{&p.vd, vbias, vln, vplan, p.layers + n_key + 1};
+  const WgWalk kw{&p.kd, f32 ? p.kd.b[0] : kbias, f32 ? p.kd.ln : kln,
+                  f32 ? p.kd.plan : kplan, p.layers};
+  const WgWalk vw{&p.vd, f32 ? p.vd.b[0] : vbias, f32 ? p.vd.ln : vln,
+                  f32 ? p.vd.plan : vplan, p.layers + n_key + 1};
+  const float* bkr = f32 ? p.bk : bks;
   {
     const int t_in = tid & 127, w = t_in >> 5, lane = t_in & 31;
     const int g = lane >> 2, q = lane & 3;
@@ -300,12 +292,19 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
     float m_run[2] = {p.bkg, p.bkg};
     float ss[2];
     float* park_f = E;                                  // between passes
-    uint32_t A[kARegs];
-    float acc[kAccRegs];
+    // The operand form's registers: bf16, a pass's accumulator and the A
+    // fragments; fp32, a whole layer's accumulator (A: the rows of E).
+    constexpr int kAcc = f32 ? kOutRegs : kAccRegs;
+    std::conditional_t<f32, WgRowsA, uint32_t[kARegs]> A;
+    float acc[kAcc];
+    if constexpr (f32) {
+      A = WgRowsA{E, row0};
+    } else {
 #pragma unroll
-    for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+      for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+    }
 #pragma unroll
-    for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
     for (int k = 0; k < K; ++k) {
       // Every warp of the warpgroup is done with the parking slices (they
@@ -318,7 +317,7 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
       wg_walk(acc, A, rg, sm.zero, E, ld, kw, row0, false,
               RecSrc{geo, p.record, p.rec_w});
       float col[2];
-      wg_score(acc, A, rg, sm.zero, p.layers[n_key], p.qq, p.dm, bks,
+      wg_score(acc, A, rg, sm.zero, p.layers[n_key], p.qq, p.dm, bkr,
                p.sqrt_dm, T, rbase, rl, col);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -329,7 +328,7 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
       }
 
       // --- value walk -> online softmax-weighted accumulation of its fp32
-      // rows, rounded to bf16 as the fuse reads them ---
+      // rows (rounded to bf16 in the bf16 form) as the fuse reads them ---
       const bool two = wg_walk(acc, A, rg, sm.zero, E, ld, vw, row0, true,
                                RecSrc{geo, p.record, p.rec_w});
       const int tt = tid & 127;
@@ -340,15 +339,16 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
         const float e = expf(ss[h] - m_new);
         float* arow = accv + rl[h] * cout;
 #pragma unroll
-        for (int j = 0; j < kAccRegs / 4; ++j)
+        for (int j = 0; j < kAcc / 4; ++j)
 #pragma unroll
           for (int x = 0; x < 2; ++x) {
             const int i = 4 * j + 2 * h + x, c = 8 * j + 2 * q + x;
             if (two && c < cout)
-              arow[c] = arow[c] * scale + e * bf16_round(park_f[i * 128 + tt]);
+              arow[c] = arow[c] * scale +
+                        e * act_round<Op>(park_f[i * 128 + tt]);
             const int c1 = (two ? kPassN : 0) + c;
             if (c1 < cout)
-              arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);
+              arow[c1] = arow[c1] * scale + e * act_round<Op>(acc[i]);
           }
         m_run[h] = m_new;
       }
@@ -379,6 +379,7 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
   }
 }
 
+template <class Op>
 static int launch_attend_eval_wgmma(
     const float* record, int rec_w, const int* idx, int T, int K,
     const float* rayo, const float* rays, const float* qq, int dm,
@@ -387,6 +388,7 @@ static int launch_attend_eval_wgmma(
     const int* vmeta, const void* vw, const void* vb, const void* vln,
     const void* vplan, int score_relu, float bkg, int normalize, float eps,
     void* fused, void* attn, const void* wpack, int wbytes, void* stream) {
+  constexpr bool f32 = kF32<Op>;
   EvalWg p;
   int err = fill_walk(&p.kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
@@ -401,17 +403,27 @@ static int launch_attend_eval_wgmma(
   dims[n][0] = p.kd.pd[p.kd.n];
   dims[n++][1] = dm_pad;
   wg_walk_dims(dims, &n, p.vd);
-  if (wg_plan(p.layers, dims, n) != wbytes || !wpack ||
-      reinterpret_cast<uintptr_t>(wpack) % 16)
+  const long long need = f32 ? wg_plan_f32(p.layers, dims, n)
+                              : wg_plan(p.layers, dims, n);
+  if (need != wbytes || !wpack || reinterpret_cast<uintptr_t>(wpack) % 16)
     return -204;
-  p.n_chunks = wg_chunks(p.chunks, p.layers, n);
-  wg_walk_rows(p.kd, &p.nb[0], &p.nln[0], &p.nplan[0]);
-  wg_walk_rows(p.vd, &p.nb[1], &p.nln[1], &p.nplan[1]);
-  p.n_prm = p.nb[0] + p.nln[0] + p.nplan[0] + dm_pad + p.nb[1] + p.nln[1] +
-            p.nplan[1];
-  const int pd0 = p.kd.pd[0] > p.vd.pd[0] ? p.kd.pd[0] : p.vd.pd[0];
-  p.ld = wg_ld(pd0);
-  p.e_floats = wg_e_floats(p.ld);
+  if constexpr (f32) {
+    // Every stage full, in stream order; parameter rows read in place.
+    p.n_chunks = wg_chunks_f32(p.chunks, need);
+    for (int i = 0; i < 2; ++i) p.nb[i] = p.nln[i] = p.nplan[i] = 0;
+    p.n_prm = 0;
+    p.ld = kF32Ld;
+    p.e_floats = kWgRows * kF32Ld;
+  } else {
+    p.n_chunks = wg_chunks(p.chunks, p.layers, n);
+    wg_walk_rows(p.kd, &p.nb[0], &p.nln[0], &p.nplan[0]);
+    wg_walk_rows(p.vd, &p.nb[1], &p.nln[1], &p.nplan[1]);
+    p.n_prm = p.nb[0] + p.nln[0] + p.nplan[0] + dm_pad + p.nb[1] + p.nln[1] +
+              p.nplan[1];
+    const int pd0 = p.kd.pd[0] > p.vd.pd[0] ? p.kd.pd[0] : p.vd.pd[0];
+    p.ld = wg_ld(pd0);
+    p.e_floats = wg_e_floats(p.ld);
+  }
   p.wg_floats = kWgRows * kGeo + p.e_floats + kWgRows * p.vd.d_out;
   size_t smem = 0;
   err = wg_ring_fit(wg_smem_rest(2 * p.wg_floats, p.n_prm), &p.stages, &smem);
@@ -436,40 +448,36 @@ static int launch_attend_eval_wgmma(
   p.attn = static_cast<float*>(attn);
   p.w = static_cast<const unsigned char*>(wpack);
   cudaError_t e = cudaFuncSetAttribute(
-      attend_eval_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attend_eval_wgmma_kernel<Op>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  attend_eval_wgmma_kernel<<<(T + kWgTile - 1) / kWgTile, kWgThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(p);
+  attend_eval_wgmma_kernel<Op><<<(T + kWgTile - 1) / kWgTile, kWgThreads,
+                                 smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Shared launcher, Op the walks' operand type: kwq .. vdq all null launches
-// the bf16 (fp32) kernel, all given its int8 form with the bf16 (fp32)
-// epilogue.
+// The int8 kernels' launcher, Op the epilogue's operand type (bf16 or fp32).
 template <class Op>
-static int launch_attend_eval(
+static int launch_attend_eval_i8(
     const float* record, int rec_w, const int* idx, int T, int K,
     const float* rayo, const float* rays, const float* qq, int dm,
     float sqrt_dm, const int* kmeta, const void* kw, const void* kb,
     const void* kln, const void* kplan, const void* wk, const void* bk,
     int dm_pad, const int* vmeta, const void* vw, const void* vb,
     const void* vln, const void* vplan, int score_relu, float bkg,
-    int normalize, float eps, void* fused, void* attn, bool int8,
-    const void* kwq, const void* kinv, const void* kdq, const void* vwq,
-    const void* vinv, const void* vdq, void* stream) {
+    int normalize, float eps, void* fused, void* attn, const void* kwq,
+    const void* kinv, const void* kdq, const void* vwq, const void* vinv,
+    const void* vdq, void* stream) {
   WalkDescT<Op> kd, vd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
   WalkQuant kq, vq;
-  if (int8) {
-    err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
-    if (err) return err;
-    err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
-    if (err) return err;
-  }
+  err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
+  if (err) return err;
+  err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
+  if (err) return err;
   if (dm_pad <= 0 || dm_pad > kMaxWidth || dm_pad % 16 != 0 || dm > dm_pad)
     return -201;
   if (K <= 0 || K > 128) return -202;
@@ -481,32 +489,15 @@ static int launch_attend_eval(
   const int grid = (T + kRows - 1) / kRows;
   const Op* wkp = static_cast<const Op*>(wk);
   const float* bkp = static_cast<const float*>(bk);
-  if (int8) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attend_eval_i8_kernel<Op>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attend_eval_i8_kernel<Op><<<grid, kThreads, smem, st>>>(
-        record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp,
-        bkp, dm_pad, vd, vq, score_relu, bkg, normalize, eps,
-        static_cast<float*>(fused), static_cast<float*>(attn));
-    return (int)cudaGetLastError();
-  }
-  // The tile function's own kernel runs the fp32 walks only; the bf16
-  // walks run attend_eval_wgmma_kernel.
-  if constexpr (kF32<Op>) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attend_eval_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attend_eval_kernel<Op><<<grid, kThreads, smem, st>>>(
-        record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp,
-        dm_pad, vd, score_relu, bkg, normalize, eps,
-        static_cast<float*>(fused), static_cast<float*>(attn));
-    return (int)cudaGetLastError();
-  } else {
-    return -205;
-  }
+  cudaError_t e = cudaFuncSetAttribute(
+      attend_eval_i8_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  attend_eval_i8_kernel<Op><<<grid, kThreads, smem, st>>>(
+      record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp, bkp,
+      dm_pad, vd, vq, score_relu, bkg, normalize, eps,
+      static_cast<float*>(fused), static_cast<float*>(attn));
+  return (int)cudaGetLastError();
 }
 
 #define ATTEND_EVAL_PARAMS                                                   \
@@ -522,36 +513,37 @@ static int launch_attend_eval(
     kln, kplan, wk, bk, dm_pad, vmeta, vw, vb, vln, vplan, score_relu, bkg,  \
     normalize, eps, fused, attn
 
-// The bf16 kernel on wgmma: the tile function's arguments (w_k through
-// wpack), then the packed weights of every layer (ops/stream_attn.py
-// pack_walk_wgmma) and their size in bytes.
+// The kernels on wgmma: the tile function's arguments (w_k unread), then
+// the packed weights of every layer (bf16: ops/fused_mlp.py
+// pack_walk_wgmma; fp32: pack_walk_wgmma_f32) and their size in bytes.
+#define ATTEND_EVAL_WGMMA_ARGS                                               \
+    record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb,    \
+    kln, kplan, bk, dm_pad, vmeta, vw, vb, vln, vplan, score_relu, bkg,      \
+    normalize, eps, fused, attn, wpack, wbytes, stream
 extern "C" int papr_attend_eval(ATTEND_EVAL_PARAMS, const void* wpack,
                                 int wbytes, void* stream) {
   (void)wk;
-  return launch_attend_eval_wgmma(
-      record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb,
-      kln, kplan, bk, dm_pad, vmeta, vw, vb, vln, vplan, score_relu, bkg,
-      normalize, eps, fused, attn, wpack, wbytes, stream);
+  return launch_attend_eval_wgmma<__nv_bfloat16>(ATTEND_EVAL_WGMMA_ARGS);
 }
 
-extern "C" int papr_attend_eval_f32(ATTEND_EVAL_PARAMS, void* stream) {
-  return launch_attend_eval<float>(
-      ATTEND_EVAL_ARGS, false, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, stream);
+extern "C" int papr_attend_eval_f32(ATTEND_EVAL_PARAMS, const void* wpack,
+                                    int wbytes, void* stream) {
+  (void)wk;
+  return launch_attend_eval_wgmma<float>(ATTEND_EVAL_WGMMA_ARGS);
 }
 
 extern "C" int papr_attend_eval_i8(ATTEND_EVAL_PARAMS, const void* kwq,
                                    const void* kinv, const void* kdq,
                                    const void* vwq, const void* vinv,
                                    const void* vdq, void* stream) {
-  return launch_attend_eval<__nv_bfloat16>(ATTEND_EVAL_ARGS, true, kwq, kinv,
-                                           kdq, vwq, vinv, vdq, stream);
+  return launch_attend_eval_i8<__nv_bfloat16>(ATTEND_EVAL_ARGS, kwq, kinv,
+                                              kdq, vwq, vinv, vdq, stream);
 }
 
 extern "C" int papr_attend_eval_i8_f32(ATTEND_EVAL_PARAMS, const void* kwq,
                                        const void* kinv, const void* kdq,
                                        const void* vwq, const void* vinv,
                                        const void* vdq, void* stream) {
-  return launch_attend_eval<float>(ATTEND_EVAL_ARGS, true, kwq, kinv, kdq,
-                                   vwq, vinv, vdq, stream);
+  return launch_attend_eval_i8<float>(ATTEND_EVAL_ARGS, kwq, kinv, kdq,
+                                      vwq, vinv, vdq, stream);
 }

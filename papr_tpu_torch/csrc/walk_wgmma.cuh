@@ -5,9 +5,11 @@
 // the same code below from the geometry rows to the walks' outputs, and the
 // fused embedder forward (fused_mlp.cu fused_mlp_fwd_wgmma_kernel), whose
 // posenc sources are raw feature rows; the bf16 stream and embedder
-// backwards build on its ring and layers (walk_wgmma_bwd.cuh). The fp32 and
-// int8 forms of these kernels, and the other walk kernels (key_stream_q.cu,
-// key_stream_feat.cu, value_stream_feat.cu), keep walk.cuh's WMMA layers.
+// backwards build on its ring and layers (walk_wgmma_bwd.cuh). The fp32
+// one-shot eval attention runs the same walk in its fp32 operand form
+// (below: fp32 activations, 3xTF32 products). The int8 forms, the other
+// fp32 forms and the other walk kernels (key_stream_q.cu,
+// key_stream_feat.cu, value_stream_feat.cu) keep walk.cuh's WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
 // ptxas may give a thread up to 255 registers). Within a warpgroup the
@@ -175,14 +177,16 @@ __device__ __forceinline__ void wg_pass(float (&acc)[kAccRegs],
 }
 
 // acc + bias, then the activation, on the pass's columns < pd (pd relative
-// to the pass); columns >= pd become 0.
-__device__ __forceinline__ void acc_bias_act(float (&acc)[kAccRegs],
+// to the pass); columns >= pd become 0. N: the accumulator's registers (a
+// bf16 pass's 64, or the fp32 form's whole 256-wide layer, 128).
+template <int N>
+__device__ __forceinline__ void acc_bias_act(float (&acc)[N],
                                              const float* bias, int pd,
                                              int act) {
   const int q = threadIdx.x & 3;
-  const bool full = pd >= kPassN;
+  const bool full = pd >= 2 * N;
 #pragma unroll
-  for (int j = 0; j < kAccRegs / 4; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const int c = 8 * j + 2 * q;
     const bool in = full || c < pd;
     const float2 b = in ? *reinterpret_cast<const float2*>(bias + c)
@@ -245,12 +249,12 @@ __device__ __forceinline__ void park_f32(const float (&acc)[kAccRegs],
 
 // The walk's LayerNorm (walk.cuh layernorm_rows) on the thread's two rows:
 // fp32 statistics over the first n_true columns, unbiased std,
-// 1 / (std + eps); columns >= n_true become 0. With park, the row's first
-// 128 columns are the parked first pass (normalized in place there) and acc
-// holds columns 128..; without, acc holds columns 0...
-__device__ __forceinline__ void acc_layernorm(float (&acc)[kAccRegs],
-                                              float* park, int n_true,
-                                              const float* a,
+// 1 / (std + eps); columns >= n_true become 0. With park (bf16 form), the
+// row's first 128 columns are the parked first pass (normalized in place
+// there) and acc holds columns 128..; without, acc holds columns 0...
+template <int N>
+__device__ __forceinline__ void acc_layernorm(float (&acc)[N], float* park,
+                                              int n_true, const float* a,
                                               const float* b) {
   const int t = threadIdx.x & 127, q = t & 3;
   const int c1 = park ? kPassN : 0;
@@ -258,7 +262,7 @@ __device__ __forceinline__ void acc_layernorm(float (&acc)[kAccRegs],
   for (int h = 0; h < 2; ++h) {
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < kAccRegs / 4; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * q + e, i = 4 * j + 2 * h + e;
@@ -268,7 +272,7 @@ __device__ __forceinline__ void acc_layernorm(float (&acc)[kAccRegs],
     const float mu = quad_sum(s) / (float)n_true;
     float v = 0.f;
 #pragma unroll
-    for (int j = 0; j < kAccRegs / 4; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * q + e, i = 4 * j + 2 * h + e;
@@ -284,7 +288,7 @@ __device__ __forceinline__ void acc_layernorm(float (&acc)[kAccRegs],
     const float var = quad_sum(v) / (float)(n_true > 1 ? n_true - 1 : 1);
     const float rr = 1.f / (sqrtf(var) + kLnEps);
 #pragma unroll
-    for (int j = 0; j < kAccRegs / 4; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * q + e, i = 4 * j + 2 * h + e;
@@ -547,11 +551,12 @@ __device__ __forceinline__ void wg_encode(float* E, int ld, const WalkDesc& d,
 }
 
 // The warp's 16 encoded rows through the input LayerNorm (or as they are)
-// and rounded to bf16 in place: row r's bf16 values at the start of its
-// fp32 row.
-__device__ __forceinline__ void wg_rows_to_bf16(float* E, int ld,
-                                                const WalkDesc& d,
-                                                const float* ln, int row0) {
+// and, in the bf16 form (Op), rounded to bf16 in place: row r's bf16 values
+// at the start of its fp32 row; the fp32 form keeps them fp32.
+template <class Op>
+__device__ __forceinline__ void wg_rows_in(float* E, int ld,
+                                           const WalkDesc& d, const float* ln,
+                                           int row0) {
   const int lane = threadIdx.x & 31, pd0 = d.pd[0], n = d.d_enc;
   for (int r = row0; r < row0 + 16; ++r) {
     float* row = E + r * ld;
@@ -583,14 +588,30 @@ __device__ __forceinline__ void wg_rows_to_bf16(float* E, int ld,
       }
     }
     __syncwarp();
-    __nv_bfloat16* rb = reinterpret_cast<__nv_bfloat16*>(row);
+    if constexpr (kF32<Op>) {
 #pragma unroll
-    for (int m = 0; m < kMaxWidth / 32; ++m) {
-      const int c = lane + 32 * m;
-      if (c < pd0) rb[c] = __float2bfloat16_rn(v[m]);
+      for (int m = 0; m < kMaxWidth / 32; ++m) {
+        const int c = lane + 32 * m;
+        if (c < pd0) row[c] = v[m];
+      }
+    } else {
+      __nv_bfloat16* rb = reinterpret_cast<__nv_bfloat16*>(row);
+#pragma unroll
+      for (int m = 0; m < kMaxWidth / 32; ++m) {
+        const int c = lane + 32 * m;
+        if (c < pd0) rb[c] = __float2bfloat16_rn(v[m]);
+      }
     }
   }
   __syncwarp();
+}
+
+// The bf16 form's A fragments of the warp's encoded rows.
+__device__ __forceinline__ void wg_load_a(const float* E, int ld,
+                                          const WalkDesc& d, int row0,
+                                          uint32_t (&A)[kARegs]) {
+  smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
+            d.pd[0], A);
 }
 
 // One dense layer of a walk, A -> A: bias, activation, then (ln_a) the
@@ -630,26 +651,255 @@ __device__ __forceinline__ void wg_dense(float (&acc)[kAccRegs],
   }
 }
 
+// ------------------------------------------------ the fp32 operand form --
+//
+// The same walk with fp32 activations and 3xTF32 products (use_amp: false;
+// attend_eval.cu's fp32 kernel). A 256-wide fp32 activation is 128
+// registers a thread, so a layer's input stays in the warpgroup's rows of
+// shared memory (E, kF32Ld floats a row; each warp reads and writes only
+// its own 16 rows) and only its output lives in registers: acc[4 j + 2 h +
+// e] holds row 16 w + g + 8 h, column 8 j + 2 q + e of the whole layer (the
+// bf16 pass layout over 256 columns). A layer runs as four 64-wide passes
+// (m64n64k8), each over the input's 32-deep chunks; per chunk the thread
+// loads its A fragments from E, splits each value into hi = tf32(x), lo =
+// tf32(x - hi) (cvt.rna, as walk.cuh's split_tf32), and issues lo.hi,
+// hi.lo, hi.hi for each k8 step into a fresh m64n64 accumulator, which
+// joins acc by adds that round to nearest (the tensor cores' accumulator
+// rounds toward zero; wgrad.cu's fp32 form joins each stage the same way).
+// A (pass, chunk) of the weights is one 16 KB stage: 64 output rows of 32
+// tf32 along K (K-major, 128-byte swizzle), hi then lo, in the order the
+// walk consumes them (ops/fused_mlp.py pack_walk_wgmma_f32), so the ring's
+// chunk table is every stage in turn (wg_chunks_f32). A tf32 A fragment
+// holds columns q and q + 4 of each k8 group where the accumulator holds
+// 2 q and 2 q + 1: the packer permutes each 8-row K group of the weights
+// so that k = q reads input column 2 q and k = q + 4 reads 2 q + 1, so a
+// thread reads its fragment as one float2 a row and writes its output the
+// same way (no shuffles; kF32Ld = 8 mod 32 keeps both free of bank
+// conflicts). Passes past a layer's width run no chunk (ptxas keeps the
+// products asynchronous: each chunk's end waits for them). After the last
+// product the epilogue (bias, activation, LayerNorm) runs on acc and,
+// unless the caller reads the rows, they go back to E in place.
+
+constexpr int kOutRegs = kMaxWidth / 2;        // a 256-wide layer, fp32
+constexpr int kF32Ld = kMaxWidth + 8;          // floats a row of E
+constexpr int kF32PassN = 64;                  // m64n64k8
+constexpr int kF32ChunkK = 32;                 // K rows a stage (128 bytes)
+constexpr int kF32Sub = 4;                     // k8 steps a fresh accumulator
+static_assert(2 * kF32PassN * kF32ChunkK * 4 == kWStageBytes,
+              "an fp32 stage is one pass's hi and lo chunk");
+
+// The A operand of the fp32 form: the warp's rows row0 .. row0 + 15 of E.
+struct WgRowsA {
+  float* E;
+  int row0;
+};
+
+// The operand type of a form, from its A operand.
+template <class AOp>
+struct WgForm {
+  using Op = __nv_bfloat16;
+};
+template <>
+struct WgForm<WgRowsA> {
+  using Op = float;
+};
+
+// Host side: the fp32 image's layer table (dims as wg_plan); returns its
+// size in bytes: per layer ceil(pd_out / 64) passes of ceil(pd_in / 32)
+// stages.
+inline long long wg_plan_f32(WgLayer* l, const int (*dims)[2], int n) {
+  long long off = 0;
+  for (int i = 0; i < n; ++i) {
+    l[i].off = (int)off;
+    l[i].pd_in = dims[i][0];
+    l[i].pd_out = dims[i][1];
+    l[i].ni = (dims[i][1] + kF32PassN - 1) / kF32PassN * kF32PassN;
+    off += (long long)((dims[i][0] + kF32ChunkK - 1) / kF32ChunkK) *
+           (l[i].ni / kF32PassN) * kWStageBytes;
+  }
+  return off;
+}
+
+// The longest per-k stream of the fp32 image: every layer 256 wide.
+constexpr int kWgMaxChunksF32 =
+    kWgMaxLayers * (kMaxWidth / kF32ChunkK) * (kMaxWidth / kF32PassN);
+static_assert(kWgMaxChunksF32 >= kWgMaxChunks, "");
+
+// Host side: the fp32 image's per-k chunk stream (bytes of it, from
+// wg_plan_f32): every stage full, in the order the walk consumes them;
+// returns its length.
+inline int wg_chunks_f32(WgChunk* out, long long bytes) {
+  const int m = (int)(bytes / kWStageBytes);
+  for (int i = 0; i < m; ++i) out[i] = {i * kWStageBytes, kWStageBytes};
+  return m;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// acc (every output column of layer L, before its bias) = the warp's rows
+// of E x W, as above. Each stage goes back to the ring once its products
+// are done.
+__device__ __forceinline__ void wg_gemm_f32(float (&acc)[kOutRegs],
+                                            const float* E, int row0,
+                                            WgRing& ring, const WgLayer& L) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const float* r0 = E + (row0 + g) * kF32Ld + 2 * q;
+  const float* r1 = r0 + 8 * kF32Ld;
+  const int nch = (L.pd_in + kF32ChunkK - 1) / kF32ChunkK;
+  const int np = L.ni / kF32PassN;
+  float f[kF32PassN / 2];
+#pragma unroll
+  for (int i = 0; i < kF32PassN / 2; ++i) f[i] = 0.f;
+#pragma unroll
+  for (int p = 0; p < kMaxWidth / kF32PassN; ++p) {
+#pragma unroll
+    for (int i = 0; i < kF32PassN / 2; ++i) acc[32 * p + i] = 0.f;
+    for (int c = 0; c < (p < np ? nch : 0); ++c) {
+      const int st = ring.i % ring.stages;
+      const unsigned char* hi = ring.base + st * kWStageBytes;
+      const uint64_t dh = sw128_desc(hi, 16, 1024);
+      const uint64_t dl = sw128_desc(hi + kWStageBytes / 2, 16, 1024);
+#pragma unroll
+      for (int sub = 0; sub < kF32ChunkK / 8 / kF32Sub; ++sub) {
+        // Rows g and g + 8, k8 steps sub * kF32Sub .. of chunk c.
+        uint32_t ah[kF32Sub][4], al[kF32Sub][4];
+#pragma unroll
+        for (int s = 0; s < kF32Sub; ++s) {
+          const int k = c * kF32ChunkK + 8 * (sub * kF32Sub + s);
+          const float2 x0 = *reinterpret_cast<const float2*>(r0 + k);
+          const float2 x1 = *reinterpret_cast<const float2*>(r1 + k);
+          split_tf32(x0.x, ah[s][0], al[s][0]);
+          split_tf32(x1.x, ah[s][1], al[s][1]);
+          split_tf32(x0.y, ah[s][2], al[s][2]);
+          split_tf32(x1.y, ah[s][3], al[s][3]);
+        }
+        if (sub == 0)
+          mbar_wait(&ring.full[st], (ring.i / ring.stages) & 1);
+        reg_fence(f);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kF32Sub; ++s) {
+          const int kk = 2 * (sub * kF32Sub + s);     // 32 bytes a k8 step
+          wgmma_rs_tf32_n64(f, al[s][0], al[s][1], al[s][2], al[s][3],
+                            dh + kk, s > 0);
+          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],
+                            dl + kk, 1);
+          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],
+                            dh + kk, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(f);
+#pragma unroll
+        for (int i = 0; i < kF32PassN / 2; ++i)
+          acc[32 * p + i] = __fadd_rn(acc[32 * p + i], f[i]);
+      }
+      wg_release(ring, ring.i);
+      ++ring.i;
+    }
+  }
+}
+
+// The fp32 form's rows of acc back into the warp's rows of E (the next
+// product's A).
+__device__ __forceinline__ void wg_rows_out(const float (&acc)[kOutRegs],
+                                            float* E, int row0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float* r0 = E + (row0 + g) * kF32Ld + 2 * q;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kOutRegs / 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(r0 + 8 * h * kF32Ld + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  __syncwarp();
+}
+
+// The fp32 form needs no A fragments: the products read E.
+__device__ __forceinline__ void wg_load_a(const float*, int, const WalkDesc&,
+                                          int, WgRowsA&) {}
+
+// One dense layer of the fp32 form, E -> E: products, bias, activation,
+// then (ln_a) the output LayerNorm over n_true columns.
+__device__ __forceinline__ void wg_dense(float (&acc)[kOutRegs], WgRowsA& A,
+                                         WgRing& rg,
+                                         const unsigned char*, float*,
+                                         const WgLayer& L, const float* bias,
+                                         int act, const float* ln_a,
+                                         const float* ln_b, int n_true) {
+  wg_gemm_f32(acc, A.E, A.row0, rg, L);
+  acc_bias_act(acc, bias, L.pd_out, act);
+  if (ln_a) acc_layernorm(acc, nullptr, n_true, ln_a, ln_b);
+  wg_rows_out(acc, A.E, A.row0);
+}
+
+// The fp32 form's last layer whose rows the caller reads: all of them left
+// in acc (returns false).
+__device__ __forceinline__ bool wg_dense_rows(float (&acc)[kOutRegs],
+                                              WgRowsA& A, WgRing& rg,
+                                              const unsigned char*,
+                                              float*, const WgLayer& L,
+                                              const float* bias, int act,
+                                              const float* ln_a,
+                                              const float* ln_b, int n_true) {
+  wg_gemm_f32(acc, A.E, A.row0, rg, L);
+  acc_bias_act(acc, bias, L.pd_out, act);
+  if (ln_a) acc_layernorm(acc, nullptr, n_true, ln_a, ln_b);
+  return false;
+}
+
+// The last layer of a walk whose fp32 output the caller reads (the value
+// rows, K2's rows): columns 0..127 left in acc, or, for a 256-wide layer
+// (returns true), columns 128.. in acc and 0..127 parked fp32 at E; the
+// output LayerNorm taken when ln_a is given.
+__device__ __forceinline__ bool wg_dense_rows(float (&acc)[kAccRegs],
+                                              uint32_t (&A)[kARegs],
+                                              WgRing& rg,
+                                              const unsigned char* zero,
+                                              float* E, const WgLayer& L,
+                                              const float* bias, int act,
+                                              const float* ln_a,
+                                              const float* ln_b, int n_true) {
+  const bool two = L.ni > kPassN;
+  wg_pass(acc, A, rg, L, zero);
+  acc_bias_act(acc, bias, two ? kPassN : L.pd_out, act);
+  if (two) {
+    park_f32(acc, E);
+    wg_pass(acc, A, rg, L, zero);
+    acc_bias_act(acc, bias + kPassN, L.pd_out - kPassN, act);
+  }
+  if (ln_a) acc_layernorm(acc, two ? E : nullptr, n_true, ln_a, ln_b);
+  return two;
+}
+
 // A walk over the warp's 16 rows (sources src_val): posenc into E, the
-// input LayerNorm, the dense layers and the output LayerNorm. Without
-// rows_f32 the output, rounded to bf16, is left in the A fragments (y_k as
-// the w_k product's operand; returns false). With rows_f32 the last layer's
-// fp32 output (LayerNorm'd if the walk has one) is left in acc for columns
-// 0..127, or, for a 256-wide last layer (returns true), columns 128.. in acc
-// and 0..127 parked fp32 at E (the value rows before their rounding).
-template <class Src>
-__device__ __forceinline__ bool wg_walk(float (&acc)[kAccRegs],
-                                        uint32_t (&A)[kARegs], WgRing& rg,
+// input LayerNorm, the dense layers and the output LayerNorm, in either
+// operand form: bf16 (acc a pass's 64 registers, A the register fragments)
+// or fp32 (acc a whole layer's 128, A the warp's rows of E: WgRowsA, below).
+// Without rows_f32 the output is left as the next product's A operand (y_k
+// for the w_k product: bf16, rounded, in the A fragments; fp32 in E;
+// returns false). With rows_f32 the last layer's fp32 output (LayerNorm'd
+// if the walk has one) is left in acc for columns 0..127 (fp32: all of
+// them), or, for a 256-wide last layer in the bf16 form (returns true),
+// columns 128.. in acc and 0..127 parked fp32 at E (the value rows before
+// their rounding).
+template <int N, class AOp, class Src>
+__device__ __forceinline__ bool wg_walk(float (&acc)[N], AOp& A, WgRing& rg,
                                         const unsigned char* zero, float* E,
                                         int ld, const WgWalk& w, int row0,
                                         bool rows_f32, const Src& src_val) {
+  using Op = typename WgForm<AOp>::Op;
   const WalkDesc& d = *w.d;
   const int n = d.n;
   wg_encode(E, ld, d, w.plan, row0, src_val);
   __syncwarp();
-  wg_rows_to_bf16(E, ld, d, w.ln, row0);
-  smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
-            d.pd[0], A);
+  wg_rows_in<Op>(E, ld, d, w.ln, row0);
+  wg_load_a(E, ld, d, row0, A);
   const float* lo = w.ln + 2 * d.pd[0];
   for (int l = 0; l + 1 < n; ++l)
     wg_dense(acc, A, rg, zero, E, w.layers[l], w.bias + (d.b[l] - d.b[0]),
@@ -661,16 +911,8 @@ __device__ __forceinline__ bool wg_walk(float (&acc)[kAccRegs],
              d.has_lo ? lo : nullptr, lo + d.pd[n], d.d_out);
     return false;
   }
-  const bool two = L.ni > kPassN;
-  wg_pass(acc, A, rg, L, zero);
-  acc_bias_act(acc, bias, two ? kPassN : L.pd_out, d.last_act);
-  if (two) {
-    park_f32(acc, E);
-    wg_pass(acc, A, rg, L, zero);
-    acc_bias_act(acc, bias + kPassN, L.pd_out - kPassN, d.last_act);
-  }
-  if (d.has_lo) acc_layernorm(acc, two ? E : nullptr, d.d_out, lo, lo + d.pd[n]);
-  return two;
+  return wg_dense_rows(acc, A, rg, zero, E, L, bias, d.last_act,
+                       d.has_lo ? lo : nullptr, lo + d.pd[n], d.d_out);
 }
 
 // The walk's fp32 output as wg_walk leaves it with rows_f32 (columns 0..127
@@ -759,6 +1001,38 @@ __device__ __forceinline__ void wg_score(float (&acc)[kAccRegs],
             s[h] += qrow[c] * linear_bf16(acc[4 * j + 2 * h + e], bks[c]);
         }
     }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) col[h] = quad_sum(s[h]) / sqrt_dm;
+}
+
+// The fp32 form's w_k product of y_k (the warp's rows of E) and the scaled
+// dot with each of the thread's two rays' query, as above with the bias
+// added in fp32 (linear_c<float>).
+__device__ __forceinline__ void wg_score(float (&acc)[kOutRegs], WgRowsA& A,
+                                         WgRing& rg, const unsigned char*,
+                                         const WgLayer& L,
+                                         const float* __restrict__ qq, int dm,
+                                         const float* bks, float sqrt_dm,
+                                         int T, int rbase,
+                                         const int (&rl)[2],
+                                         float (&col)[2]) {
+  const int q = threadIdx.x & 3;
+  wg_gemm_f32(acc, A.E, A.row0, rg, L);
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = rbase + rl[h];
+    if (t >= T) continue;
+    const float* qrow = qq + (size_t)t * dm;
+#pragma unroll
+    for (int j = 0; j < kOutRegs / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * q + e;
+        if (c < dm)
+          s[h] += qrow[c] * linear_c<float>(acc[4 * j + 2 * h + e], bks[c]);
+      }
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) col[h] = quad_sum(s[h]) / sqrt_dm;

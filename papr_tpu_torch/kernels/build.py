@@ -80,10 +80,12 @@ for _name in ("papr_fused_mlp_fwd", "papr_fused_mlp_bwd",
 for _dir in ("fwd", "bwd"):
     _sig = SIGNATURES[f"papr_fused_scores_f32_{_dir}"]
     SIGNATURES[f"papr_fused_scores_f32_{_dir}"] = _sig[:-1] + [P, P]
-# The bf16 one-shot eval attention (on wgmma) takes the tile function's
-# arguments, then its packed weights and their size in bytes.
-SIGNATURES["papr_attend_eval"] = SIGNATURES["papr_attend_eval_f32"][:-1] + [
-    P, I, P]
+# The one-shot eval attention (bf16 and fp32, both on wgmma) takes the int8
+# tile function's arguments, then its packed weights and their size in
+# bytes.
+_ATTEND = SIGNATURES["papr_attend_eval_f32"]
+SIGNATURES["papr_attend_eval"] = _ATTEND[:-1] + [P, I, P]
+SIGNATURES["papr_attend_eval_f32"] = _ATTEND[:-1] + [P, I, P]
 SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
 # The bf16 stream forwards and backwards and the bf16 embedder (on wgmma)
 # take the fp32 forms' arguments, then their packed weights, its size in
@@ -97,13 +99,14 @@ for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd"):
                                                   P, P, P]
 
 # The int8 forms take their fp32 twin's arguments (the bf16 form's before
-# its wgmma arguments), then the walk's (two walks': key, then value) int8
-# weights, inverse-scale rows and dequant rows, then the stream; the
-# ``_i8_f32`` forms (the fp32 epilogue) the same.
+# its wgmma arguments; the eval attention's: those before its packed
+# weights), then the walk's (two walks': key, then value) int8 weights,
+# inverse-scale rows and dequant rows, then the stream; the ``_i8_f32``
+# forms (the fp32 epilogue) the same.
 for _name, _walks in (("papr_attend_eval", 2), ("papr_key_stream", 1),
                       ("papr_value_stream", 1)):
-    _twin = _name + ("_f32_fwd" if _walks == 1 else "_f32")
-    _sig = SIGNATURES[_twin][:-1] + [P] * (3 * _walks + 1)
+    _twin = (SIGNATURES[_name + "_f32_fwd"] if _walks == 1 else _ATTEND)
+    _sig = _twin[:-1] + [P] * (3 * _walks + 1)
     for _i8 in ("_i8", "_i8_f32"):
         SIGNATURES[_name + _i8 + ("_fwd" if _walks == 1 else "")] = _sig
 

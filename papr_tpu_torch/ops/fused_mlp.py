@@ -357,6 +357,57 @@ def pack_walk_wgmma(mats, device) -> torch.Tensor:
     return flat[_gather_index(tuple(ents), base, torch.device(device))]
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds them."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_walk_wgmma_f32(mats, device) -> torch.Tensor:
+    """Weights of the fp32 wgmma walk (``csrc/walk_wgmma.cuh``, the fp32
+    operand form), from the input-major (pd_in, pd_out) fp32 matrices in the
+    order the kernel streams them: per matrix, ceil(pd_out / 64) passes of
+    ceil(pd_in / 32) stages, each stage the 64 output rows of 32 tf32 along
+    the input axis (K-major, zero beyond the matrix) as a hi image,
+    ``tf32_rna(w)``, then a lo image, ``tf32_rna(w - hi)``; each row's
+    16-byte groups XOR-swizzled by row % 8, and in each 8-deep group input
+    row 2 q at position q, 2 q + 1 at q + 4 (a tf32 A fragment's columns q,
+    q + 4 are the accumulator's 2 q, 2 q + 1). One gather per call; the
+    index map depends on the widths alone."""
+    dims = tuple((int(m.shape[0]), int(m.shape[1])) for m in mats)
+    flat = torch.cat([m.reshape(-1).to(device=device, dtype=torch.float32)
+                      for m in mats]
+                     + [torch.zeros(1, dtype=torch.float32, device=device)])
+    g = flat[_gather_index_f32(dims, torch.device(device))].view(-1, 2048)
+    hi = tf32_rna(g)
+    return torch.stack([hi, tf32_rna(g - hi)], dim=1).reshape(-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _gather_index_f32(dims: tuple, device) -> torch.Tensor:
+    """Where each element of ``pack_walk_wgmma_f32``'s stages (before the
+    hi / lo split) comes from in the matrices concatenated flat, or the zero
+    slot after them."""
+    total = sum(a * b for a, b in dims)
+    parts, base = [], 0
+    n = torch.arange(64).view(64, 1)
+    pos = torch.arange(32).view(1, 32)            # 4-byte slot in the row
+    kk = ((pos // 4) ^ (n % 8)) * 4 + pos % 4     # logical k in the chunk
+    lk = kk % 8
+    phys = kk - lk + torch.where(lk < 4, 2 * lk, 2 * (lk - 4) + 1)
+    for a, b in dims:
+        for p in range(-(-b // 64)):
+            for c in range(-(-a // 32)):
+                k, col = 32 * c + phys, 64 * p + n
+                parts.append(torch.where((k < a) & (col < b),
+                                         base + k * b + col,
+                                         torch.full_like(k, total))
+                             .reshape(-1))
+        base += a * b
+    return torch.cat(parts).to(device)
+
+
 _WG_TILE = 128          # rows (rays, tokens) a tile of the bf16 wgmma kernels
 _WG_PART_ROWS = 8       # their backwards' partial-sum rows a block: a warp's
 _WG_GRID = 132          # their persistent grid at most: an H100's SMs

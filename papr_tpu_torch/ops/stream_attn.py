@@ -63,6 +63,7 @@ from .fused_mlp import (BwdBuffers, FrameQuant, Walk, WalkQuant,
                         bwd_wgmma_buffers, c_ints, cast_c, check_pe_pairs,
                         check_walk_for_kernel, dense_c, encode_plain,
                         pack_walk, pack_walk_q, pack_walk_t, pack_walk_wgmma,
+                        pack_walk_wgmma_f32,
                         round_up, source_segments, walk_plain, walk_plain_q,
                         walk_relu_margin, walk_tensors, walk_with)
 
@@ -340,17 +341,17 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
             attend_eval_i8_f32.launches += 1
         else:
             attend_eval_i8.launches += 1
-    elif f32:
-        build.check(lib.papr_attend_eval_f32(*args, stream),
-                    "papr_attend_eval_f32")
-        attend_eval_f32.launches += 1
     else:
-        wpack = pack_walk_wgmma(_walk_mats(kw, kpd) + [wkT]
-                                + _walk_mats(vw, vpd), dev)
-        build.check(lib.papr_attend_eval(*args, wpack.data_ptr(),
-                                         2 * wpack.numel(), stream),
-                    "papr_attend_eval")
-        attend_eval_idx.launches += 1
+        mats = _walk_mats(kw, kpd) + [wkT] + _walk_mats(vw, vpd)
+        name = "papr_attend_eval_f32" if f32 else "papr_attend_eval"
+        wpack = (pack_walk_wgmma_f32 if f32 else pack_walk_wgmma)(mats, dev)
+        build.check(getattr(lib, name)(
+            *args, wpack.data_ptr(), wpack.numel() * wpack.element_size(),
+            stream), name)
+        if f32:
+            attend_eval_f32.launches += 1
+        else:
+            attend_eval_idx.launches += 1
     return fused, attn
 
 

@@ -82,6 +82,21 @@ def pack(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------- stage 3 ----
 
+def smallest_packed(tiles, f, recs, k: int) -> torch.Tensor:
+    """tiles (b, TR, 3), f (b, TR), recs (b, 8, M) -> (b, TR, k) int32: each
+    ray's k smallest distinct packed distances over all M candidates,
+    ascending (MAXI where fewer than k exist)."""
+    t = (tiles[..., 0:1] * recs[:, None, 0] + tiles[..., 1:2] * recs[:, None, 1]
+         + tiles[..., 2:3] * recs[:, None, 2])                  # (b, TR, M)
+    dist = torch.clamp_min(recs[:, None, 3] - t * t * f[..., None], 0.0)
+    packed = pack(dist, recs[:, None, 4].to(torch.int32))
+    srt = torch.sort(packed, dim=-1).values
+    dup = torch.zeros_like(srt, dtype=torch.bool)
+    dup[..., 1:] = srt[..., 1:] == srt[..., :-1]
+    srt = torch.where(dup, MAXI, srt)
+    return torch.topk(srt, k, dim=-1, largest=False, sorted=True).values
+
+
 def cull_select_plain(tiles, f, recs, k: int, chunk: int, early_exit: bool,
                       tile_batch: int = 64) -> torch.Tensor:
     """Plain PyTorch version of stage 3: tiles (T, TR, 3), f (T, TR), recs
@@ -90,22 +105,9 @@ def cull_select_plain(tiles, f, recs, k: int, chunk: int, early_exit: bool,
     than k exist). The early exit is sound, so this version scans every
     candidate and gives the same result."""
     cull_select_plain.calls += 1
-    T, TR, _ = tiles.shape
-    out = []
-    for s in range(0, T, tile_batch):
-        d = tiles[s:s + tile_batch]
-        rc = recs[s:s + tile_batch]
-        fr = f[s:s + tile_batch, :, None]
-        t = (d[..., 0:1] * rc[:, None, 0] + d[..., 1:2] * rc[:, None, 1]
-             + d[..., 2:3] * rc[:, None, 2])                   # (b, TR, M)
-        dist = torch.clamp_min(rc[:, None, 3] - t * t * fr, 0.0)
-        packed = pack(dist, rc[:, None, 4].to(torch.int32))
-        srt = torch.sort(packed, dim=-1).values
-        dup = torch.zeros_like(srt, dtype=torch.bool)
-        dup[..., 1:] = srt[..., 1:] == srt[..., :-1]
-        srt = torch.where(dup, MAXI, srt)
-        best = torch.topk(srt, k, dim=-1, largest=False, sorted=True).values
-        out.append(best & IDX_MASK)
+    out = [smallest_packed(tiles[s:s + tile_batch], f[s:s + tile_batch],
+                           recs[s:s + tile_batch], k) & IDX_MASK
+           for s in range(0, tiles.shape[0], tile_batch)]
     return torch.cat(out, dim=0).to(torch.int32)
 
 

@@ -71,6 +71,73 @@ def test_cull_kernel_bit_equal_to_plain(dev, M, k):
     assert torch.equal(tc.cull_select(tiles, f, recs, k, chunk, False), want)
 
 
+def _frame_cull_case(dev, shape, k, seed=4, block=16, prefilter=None):
+    """Stage 3's inputs at a frame's shape: 30,000 points in a cube seen by a
+    camera at 4 units (800x800 rays, focal 700); ``serving``: the whole
+    frame, the sorted prefilter and the early exit (2500 tiles, chunk 512);
+    ``training``: a 160x160 crop, the exact top-k prefilter (100 tiles, one
+    2048 chunk); ``block``, ``prefilter``: another ray tile edge or
+    prefilter. Then every 64th candidate duplicated into the next slot
+    (index and all) and every 64th + 32 copied with its own index (a tied
+    distance), the lower bounds kept ascending and below the distances."""
+    rng = np.random.default_rng(seed)
+    pts = torch.as_tensor(rng.uniform(-1, 1, size=(30_000, 3))
+                          .astype(np.float32), device=dev)
+    alive = torch.as_tensor(rng.random(30_000) > 0.1, device=dev)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [0.3, -0.2, 4.0]
+    rayo, rayd = get_rays_np(800, 800, 700.0, 700.0, c2w[None])
+    rayd = torch.as_tensor(rayd[0], device=dev)
+    if shape == "training":
+        rayd = rayd[300:460, 330:490].contiguous()
+    tiles, f, recs, chunk, ee, _ = tc.cull_inputs(
+        pts, alive, torch.as_tensor(rayo[0].reshape(-1)[:3], device=dev),
+        rayd, M=2048, block=block, prefilter=prefilter or (
+            "packsort" if shape == "serving" else "approx"))
+    M = recs.shape[-1]
+    j = torch.arange(0, M - 1, 64, device=dev)
+    recs[:, :4, j + 1] = recs[:, :4, j]
+    recs[:, 4, j + 1] = recs[:, 4, j]                  # duplicates
+    recs[:, 5, j + 1] = recs[:, 5, j]
+    t = j[j + 33 < M] + 32
+    recs[:, :4, t + 1] = recs[:, :4, t]                # tied distances
+    recs[:, 5, t + 1] = recs[:, 5, t]
+    return tiles, f, recs, chunk, ee
+
+
+@pytest.mark.parametrize("k", [8, 16, 20, 30, 32, 64])
+@pytest.mark.parametrize("shape", ["serving", "training"])
+def test_cull_kernel_bit_equal_at_frame_shapes(dev, shape, k):
+    """K1 at the serving and training shapes, bit-equal to its plain version
+    (with duplicate candidates and tied distances), one launch counted."""
+    tiles, f, recs, chunk, ee = _frame_cull_case(dev, shape, k)
+    assert (chunk, ee) == ((512, True) if shape == "serving" else (2048,
+                                                                    False))
+    n = tc.cull_select.launches
+    got = tc.cull_select(tiles, f, recs, k, chunk, ee)
+    want = tc.cull_select_plain(tiles, f, recs, k, chunk, ee)
+    assert tc.cull_select.launches == n + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("block", [4, 6, 8, 32])
+def test_cull_kernel_bit_equal_at_other_ray_tiles(dev, block, early_exit):
+    """K1 at ray tiles of block x block rays (``tpu.cull_block``): 16, 36
+    and 64 rays, fewer threads than a stage's candidates at one or two
+    threads a ray, and 1024, a tile over four blocks, on the training crop
+    with and without the early exit, bit-equal to its plain version at
+    k = 8, 20, 32 and 64."""
+    tiles, f, recs, chunk, ee = _frame_cull_case(
+        dev, "training", 0, block=block,
+        prefilter="packsort" if early_exit else "approx")
+    assert tiles.shape[1] == block * block and ee == early_exit
+    for k in (8, 20, 32, 64):
+        got = tc.cull_select(tiles, f, recs, k, chunk, ee)
+        want = tc.cull_select_plain(tiles, f, recs, k, chunk, ee)
+        assert torch.equal(got, want), (block, early_exit, k)
+
+
 def test_fused_mlp_kernel_matches_plain(dev):
     rng = np.random.default_rng(1)
     _, cols = posenc_plan((3,), (6,), 1, 2.0, 1.0, 0)
@@ -1295,6 +1362,55 @@ def test_attend_eval_f32_kernel_matches_plain(dev, normalize):
     assert float(ag[5, K]) == 1.0 and float(fg[5].abs().max()) == 0.0
     assert (sa.attend_eval_f32.launches, sa.attend_eval_idx.launches) == (
         before[0] + 1, before[1])
+
+
+def _f32_eval_case(rng, dev, T, K, dm=256):
+    """The fp32 eval attention's inputs on the flagship walks, with a ray
+    whose K points are all dead."""
+    P = 500
+    record = np.zeros((P, 128), np.float32)
+    record[:, :3] = rng.normal(size=(P, 3))
+    record[:, 3] = rng.normal(size=P)
+    record[:, 4] = rng.random(P) > 0.2
+    record[:, 5:69] = rng.normal(size=(P, 64))
+    idx = rng.integers(0, P, size=(T, K)).astype(np.int32)
+    idx[5] = np.where(record[:, 4] == 0)[0][:K]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    rays = rng.normal(size=(T, 3))
+    kw = _walk(rng, sa.rec_pe_plan(True, (6, 6, 6), 1, 2.0, 1.0, 0), 5, 256,
+               256, True, dev)
+    vw = _walk(rng, sa.rec_pe_plan(False, (6, 6), 1, 2.0, 1.0, 64), 8, 256,
+               32, False, dev)
+    return (t(record), torch.as_tensor(idx, device=dev),
+            t(np.broadcast_to(rng.normal(size=(1, 3)) * 3, (T, 3))),
+            t(rays / np.linalg.norm(rays, axis=-1, keepdims=True)),
+            t(rng.normal(size=(T, dm))), kw, t(rng.normal(size=(dm, 256)) / 16),
+            t(rng.normal(size=dm) * 0.1), vw)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("T,K", [(300, 20), (131, 8), (257, 30), (1, 8)])
+def test_attend_eval_f32_wgmma_matches_plain(dev, T, K, normalize):
+    """Row 4 in fp32 on wgmma (3xTF32, walk_wgmma.cuh's fp32 form) at T not
+    a multiple of its 128-ray tile, K 8 / 20 / 30 (configs/nerfsyn/hotdog.yml
+    selects 30): fused and attn to the fp32 bounds, the all-dead ray's
+    background weight 1 and fused 0, one launch counted."""
+    rng = np.random.default_rng(T + K)
+    args = _f32_eval_case(rng, dev, max(T, 6), K)
+    args = tuple(a[:T] if i in (1, 2, 3, 4) else a for i, a in enumerate(args))
+    args = args + ("relu", 5.0, normalize, 1e-6)
+    n = sa.attend_eval_f32.launches
+    fg, ag = sa.attend_eval_f32(*args)
+    fw, aw = sa.attend_eval_plain(*args, torch.float32)
+    a_abs = float((ag - aw).abs().max())
+    print(f"attend_eval_f32 wgmma T={T} K={K} normalize={normalize}: fused "
+          f"rel {_rel(fg, fw):.3e}, attn max abs {a_abs:.3e}")
+    assert sa.attend_eval_f32.launches == n + 1
+    assert bool(torch.isfinite(fg).all() and torch.isfinite(ag).all())
+    assert _rel(fg, fw) <= F32_REL and a_abs <= F32_ATTN_ABS
+    if T > 5:
+        assert float(ag[5, K]) == 1.0 and float(fg[5].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("T", [256, 100])

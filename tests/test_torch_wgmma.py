@@ -5,9 +5,9 @@ one-shot eval attention, ``csrc/wgrad.cu``), on the CPU.
   ``pack_walk`` packs (an unpacking written independently of the packer),
   follows the weights when they change (nothing stale is cached), and has
   the size the kernel's layer table (``wg_plan``) computes.
-- The bf16 eval attention wrapper reaches ``papr_attend_eval`` with its
-  signature's argument count, the packed weights and their size; the fp32
-  form keeps the tile function's arguments.
+- The eval attention wrapper reaches ``papr_attend_eval`` (bf16) and
+  ``papr_attend_eval_f32`` with their signatures' argument count, the packed
+  weights (``pack_walk_wgmma``, ``pack_walk_wgmma_f32``) and their size.
 - ``wgrad`` / ``BwdBuffers.reduce`` reach ``papr_wgrad`` / ``papr_wgrad_f32``
   once per stashed layer, at ``BwdBuffers``' offsets, with the split count
   ``wgrad_splits`` gives and a partial buffer of that many (da, db) tiles.
@@ -198,10 +198,24 @@ def test_attend_eval_bf16_launches_the_wgmma_entry_point(lib):
                         for x, y in dims)
 
 
-def test_attend_eval_f32_keeps_the_tile_kernel(lib):
-    args, _ = _eval_args(torch.float32)
+def test_attend_eval_f32_launches_the_wgmma_entry_point(lib):
+    args, (kw, vw, dm) = _eval_args(torch.float32)
+    n = sa.attend_eval_f32.launches
     sa.attend_eval_idx(*args)
-    assert [c[0] for c in lib.calls] == ["papr_attend_eval_f32"]
+    assert sa.attend_eval_f32.launches == n + 1
+    (name, a), = lib.calls
+    assert name == "papr_attend_eval_f32"
+    # The fp32 image (pack_walk_wgmma_f32) and its size close the argument
+    # list: per layer ceil(pd_out / 64) passes of ceil(pd_in / 32) 16 KB
+    # stages, in the order the kernel streams them.
+    kpd = [fm.round_up(d, 16) for d in
+           [len(kw.cols)] + [int(w.shape[1]) for w in kw.ws]]
+    vpd = [fm.round_up(d, 16) for d in
+           [len(vw.cols)] + [int(w.shape[1]) for w in vw.ws]]
+    dims = (list(zip(kpd[:-1], kpd[1:])) + [(kpd[-1], fm.round_up(dm, 16))]
+            + list(zip(vpd[:-1], vpd[1:])))
+    assert a[-2] == sum(math.ceil(x / 32) * math.ceil(y / 64) * 16384
+                        for x, y in dims)
 
 
 @pytest.mark.parametrize("N,da,db,f32,want", [

@@ -11,11 +11,15 @@ process, for a parent / change / change / parent run on one card:
 the parent, ``git archive`` of it unpacked into a git-ignored directory);
 its kernels are built from its own sources. Prints digests (equal
 digests: bit-equal outputs) of the bf16 one-shot eval attention's outputs
-on phase 2's eval block and of the bf16 stream forwards' and backwards'
+on phase 2's eval block, of the bf16 stream forwards' and backwards'
 outputs on phase 2's training patch (queries from the plain query
 embedder; the value forward fed the plain key forward's attention; the
 backwards the plain forwards' raw dots, scores and attention and seeded
-cotangents: inputs both trees compute alike); then chip_smoke's phase 2
+cotangents: inputs both trees compute alike), of the bf16 query embedder's
+forward (K2) and backward (row 3) on the patch's rays (a seeded
+cotangent), and of the culled top-k's stage 3 (K1) at the serving shape
+(the 800x800 orbit frame, early exit) and the training shape (the patch,
+one 2048 chunk); then chip_smoke's phase 2
 lines (the flagship's kernels) and phase 8 lines (Caterpillar's
 fp32 kernels); a comparison that fails prints ``FAILS:`` and the run goes
 on. ``--digest-only`` stops after the digests; ``--frames`` runs instead
@@ -97,6 +101,32 @@ def main() -> None:
                                        float(cfg.eps), torch.bfloat16)),
           flush=True)
     del rec, attn, raw, ss, dattn, dfused
+    qwalk = cs.query_walk(params, cfg)
+    x = rayd.reshape(-1, 3).contiguous()
+    dy = torch.randn(x.shape[0], int(qwalk.ws[-1].shape[1]), generator=g,
+                     device=dev)
+    print("bf16 query embedder on the training patch's rays: K2 sha256 "
+          + digest([fm.fused_mlp(x, qwalk, torch.bfloat16)])
+          + ", row 3 sha256 "
+          + digest((lambda r: [r[0]] + list(r[1]))(
+              fm.fused_mlp_bwd(x, dy, qwalk, torch.bfloat16))), flush=True)
+    from papr_tpu_torch.model.papr import model_meta
+    from papr_tpu_torch.ops import tile_cull as tc
+    from papr_tpu_torch.ops.geometry import get_rays
+    k = model_meta(cfg).select_k
+    pts, alive = params["points"], state["alive"]
+    c2w = torch.as_tensor(cs.orbit(0.0), device=dev)
+    focal = torch.tensor([cs.FOCAL, cs.FOCAL], device=dev)
+    frame_o, frame_d = get_rays(cs.H, cs.W, c2w, focal)
+    for name, (o, d, pre) in (("serving", (frame_o[0], frame_d, "packsort")),
+                              ("training", (rayo[0], rayd[0], "approx"))):
+        tiles, f, recs, chunk, ee, _ = tc.cull_inputs(
+            pts, alive, o, d, M=2048, block=16, eps=float(cfg.eps),
+            prefilter=pre, early_exit=True)
+        print(f"K1 at the {name} shape (tiles {tuple(tiles.shape)}, chunk "
+              f"{chunk}, early exit {ee}): sha256 "
+              + digest([tc.cull_select(tiles, f, recs, k, chunk, ee)]),
+              flush=True)
     torch.cuda.empty_cache()
     if "--digest-only" in sys.argv:
         return

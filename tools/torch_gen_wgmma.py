@@ -8,7 +8,9 @@ Shapes: bf16 with both operands from shared memory and the transpose bits
 as immediates (``csrc/wgrad.cu``: MN-major H and DZ tiles), bf16 with A
 from registers (``csrc/attend_eval.cu``: activations kept in registers,
 K-major weights), tf32 with both operands from shared memory (K-major,
-``csrc/wgrad.cu``'s fp32 form).
+``csrc/wgrad.cu``'s fp32 form), tf32 with A from registers (the fp32 form of
+``csrc/walk_wgmma.cuh``'s walk: fp32 activations split into hi / lo
+fragments, K-major weights).
 """
 
 import os
@@ -16,10 +18,12 @@ import os
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "papr_tpu_torch", "csrc", "wgmma.cuh")
 # The widths each kernel issues: wgrad's bf16 tiles 64 / 128 / 256 and fp32
-# tiles 64 / 128; the eval attention's 128-wide passes.
+# tiles 64 / 128; the eval attention's 128-wide passes; the fp32 walk's
+# 64-wide passes.
 SS_BF16_NS = (64, 128, 256)
 RS_BF16_NS = (128,)
 SS_TF32_NS = (64, 128)
+RS_TF32_NS = (64,)
 
 
 def regs(first, n):
@@ -63,6 +67,24 @@ __device__ __forceinline__ void wgmma_rs_bf16_n{n}(float (&d)[M],
 """
 
 
+def rs_tf32(n):
+    nd = n // 2
+    return f"""template <int M>
+__device__ __forceinline__ void wgmma_rs_tf32_n{n}(float (&d)[M],
+    uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t b,
+    int scale_d) {{
+  static_assert(M >= {nd}, "accumulator too small");
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{nd + 5}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 "
+      "{{{regs(0, nd)}}}, {{%{nd}, %{nd + 1}, %{nd + 2}, %{nd + 3}}}, "
+      "%{nd + 4}, p, 1, 1;\\n}}\\n"
+      : {dlist(nd)}
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+}}
+"""
+
+
 def ss_tf32(n):
     nd = n // 2
     return f"""template <>
@@ -90,6 +112,9 @@ HEAD = """// Generated by tools/torch_gen_wgmma.py; do not edit by hand.
 //     mma.m16n8k16 A layout per warp), B K-major from shared memory, k = 16;
 //     D is the first N / 2 registers of an accumulator array of any size M.
 //   wgmma_ss_tf32<N>: A and B K-major from shared memory, k = 8.
+//   wgmma_rs_tf32_n<N>: A from registers (four tf32 a thread, the
+//     mma.m16n8k8 tf32 A layout per warp: rows g, g + 8, columns q, q + 4),
+//     B K-major from shared memory, k = 8; D as wgmma_rs_bf16_n<N>.
 
 #pragma once
 
@@ -112,6 +137,7 @@ def main():
     body += [ss_bf16(n) for n in SS_BF16_NS]
     body += [rs_bf16(n) for n in RS_BF16_NS]
     body += [ss_tf32(n) for n in SS_TF32_NS]
+    body += [rs_tf32(n) for n in RS_TF32_NS]
     body.append("}  // namespace papr\n")
     with open(OUT, "w") as f:
         f.write("\n".join(body))

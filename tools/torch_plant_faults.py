@@ -40,7 +40,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # "stream shared" or "linear_bf16" stream_common.cuh, "int8 walk" walk.cuh,
 # "int8 bench" int8_walk_bench.cu, "int8 value" value_stream.cu, "int8
 # attend" attend_eval.cu, "fp32 walk" walk.cuh, "fp32 stash" walk_bwd.cuh,
-# "wgmma wgrad" wgrad.cu, "wgmma walk", "bwd wgmma walk" and "fwd wgmma"
+# "wgmma wgrad" wgrad.cu, "wgmma walk" (with "fp32 wgmma walk", the fp32
+# form), "bwd wgmma walk" and "fwd wgmma"
 # (the bf16 stream forwards, on K3's walk) walk_wgmma.cuh, "bwd wgmma"
 # walk_wgmma_bwd.cuh (the bf16 stream backwards), "wgmma attend"
 # attend_eval.cu, "embed wgmma bwd" walk_wgmma_bwd.cuh, "embed wgmma"
@@ -48,6 +49,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # comparison (TARGETS) that reads the case's build, where the planted line
 # runs in more than one kernel; the sound sources run once, read by every
 # comparison the picked cases need.
+# The fp32 wgmma walk's three products of a k8 step (walk_wgmma.cuh).
+_F32_WG_PRODUCTS = (
+    "          wgmma_rs_tf32_n64(f, al[s][0], al[s][1], al[s][2], al[s][3],\n"
+    "                            dh + kk, s > 0);\n"
+    "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+    "                            dl + kk, 1);\n"
+    "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+    "                            dh + kk, 1);\n")
 MUTS = [
     ("embed wgmma: the second weight chunk read from the first one's stage "
      "(a stale stage)",
@@ -203,6 +212,20 @@ MUTS = [
      "rounding point)",
      "              arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);",
      "              arow[c1] = arow[c1] * scale + e * acc[i];"),
+    ("fp32 wgmma walk: single-pass TF32 (the lo terms dropped; the fp32 "
+     "one-shot eval attention)",
+     _F32_WG_PRODUCTS,
+     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+     "                            dh + kk, s > 0);\n",
+     ("compare_f32_kernels",)),
+    ("fp32 wgmma walk: the lo.hi term dropped (one cross term; the fp32 "
+     "one-shot eval attention)",
+     _F32_WG_PRODUCTS,
+     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+     "                            dl + kk, s > 0);\n"
+     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+     "                            dh + kk, 1);\n",
+     ("compare_f32_kernels",)),
     ("fp32 walk: single-pass TF32 (the lo terms dropped)",
      "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
      "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
