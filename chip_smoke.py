@@ -99,7 +99,10 @@ Phases (each prints a line; any failure exits non-zero):
    1e-2 LPIPS) seen around ``dataset/synth.py``'s sphere: the fp32 kernels
    (``fused_mlp_f32`` fwd / bwd, ``attend_eval_f32``, the key / value streams
    fwd / bwd, ``wgrad_f32`` beside one ``torch.matmul``) against their plain
-   fp32 versions at its shapes, with what one TF32 pass would read; the first
+   fp32 versions at its shapes, with what one TF32 pass would read (the
+   stream backwards, on wgmma: also each kernel alone, its profiler span,
+   beside the earlier WMMA kernel's times, their walk gradients at a tighter
+   bound, and the key's median dqq ray); the first
    step's loss and gradients against the plain fp32 path, then 1 + 10 steps
    under ``auto`` (ms/step, rays/s, kernel time, idle share, peak memory,
    exact launch counts: fp32 kernels only, no plain version; the step's
@@ -281,6 +284,12 @@ K3_F32_WMMA_FRAME_MS = 762.6
 F32_FRAME_WMMA_MS = (807.5, 1378.4)
 WGRAD_WMMA_MS = 0.934
 WGRAD_F32_WMMA_MS = 4.819
+# The fp32 stream backwards on walk_bwd.cuh's WMMA walk before their wgmma
+# redesign, (whole call, kernel alone: its profiler span) ms at phase 8's
+# shapes (tools/torch_stream_bwd_ablate.py --f32 on that tree, Caterpillar's
+# walks with random weights; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
+F32_BWD_WMMA_MS = {"key_stream_f32_bwd": (53.692, 47.031),
+                   "value_stream_f32_bwd": (58.484, 50.305)}
 # The bf16 WMMA kernels before their wgmma redesigns (NVIDIA H100 80GB HBM3,
 # 700 W), (whole call, kernel alone: its profiler span) ms, measured on the
 # tree before each redesign (PERF.md §6): the key / value stream forwards
@@ -366,7 +375,7 @@ F32_TC_FLOPS = 494.7e12 / 3
 # (tools/torch_plant_faults.py "fp32"; PERF.md, Findings) read above these;
 # phase 8 also prints what a single TF32 pass reads on the same inputs (the
 # plain version with TF32 on), which must exceed them.
-# Sound: forwards <= 1.03e-6, attn <= 7.6e-6, backwards <= 3.7e-5 (84-99 %
+# Sound: forwards <= 1.03e-6, attn <= 7.6e-6, backwards <= 3.7e-5 (75-99 %
 # of the rays held), wgrad 1.2e-6. The weakest fault each comparison
 # catches: the products accumulated in the tensor cores' own accumulator
 # (forwards 2.3e-5, attn 7.0e-5, backwards 8.4e-4, wgrad 5.3e-4) and a bf16
@@ -374,6 +383,17 @@ F32_TC_FLOPS = 494.7e12 / 3
 F32_FWD_REL = 1e-5
 F32_ATTN_ABS = 3e-5
 F32_BWD_REL = 1e-4
+# The fp32 stream backwards on wgmma also hold their walk's gradients (W, b,
+# LayerNorm) to a tighter bound: sound key <= 6.8e-6, value <= 1.7e-6; the
+# products accumulated in the tensor cores' own accumulator across the
+# whole K move the value's to 3.7e-5 (its geometry lanes stay under
+# F32_BWD_REL). The key's walk gradients move by less than their sound
+# spread (sums over 648,000 tokens, cancelling), so the key also holds the
+# median ray of dqq, which reads its forward recompute's products: sound
+# 9.6e-7, that fault 3.1e-6 (PERF.md, Findings). The plain key backward
+# reads the kernel forward's raw dots (raw_saved), as the kernel does.
+F32_BWD_WALK_REL = 2e-5
+F32_DQQ_MEDIAN_REL = 2e-6
 F32_MARGIN = 1e-5
 F32_WGRAD_REL = 1e-5           # against the fp64 product of the operands
 # The int8 walks beside fp32 compute against their plain versions, on
@@ -3204,11 +3224,15 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
 
     def record(name, source, replaces, fn, plain, tol, labels, in_bytes,
                flops, tf32=None, attn_tol=None, library=None,
-               rate=F32_TC_FLOPS, stack_of=None, median=None, earlier=None):
+               rate=F32_TC_FLOPS, stack_of=None, median=None, earlier=None,
+               span=None, n_walk=0):
         """Kernel against its plain fp32 version; with ``stack_of`` the
         reading goes into that kernel's record as a stack it also runs;
         ``median`` (output index, bound): the median over rays of that
-        output row's relative error, held to the bound."""
+        output row's relative error, held to the bound; ``span`` (a kernel
+        name pattern) times the kernel alone too (its profiler span), beside
+        F32_BWD_WMMA_MS[name]; the last ``n_walk`` outputs (a walk's
+        gradients) are held to F32_BWD_WALK_REL too."""
         g, w = fn(), plain()
         torch.cuda.synchronize()
         rels = _rels(g, w)
@@ -3230,6 +3254,11 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
             else:
                 line += f"; attn max abs {a_abs:.3e} (need <= {attn_tol})"
                 ok &= a_abs <= attn_tol
+        if n_walk:
+            w_max = max(rels[-n_walk:])
+            line += (f"; the walk's gradients max {w_max:.3e} (need <= "
+                     f"{F32_BWD_WALK_REL})")
+            ok &= w_max <= F32_BWD_WALK_REL
         if median is not None:
             i, m_tol = median
             d = (g[i] - w[i]).norm(dim=-1)
@@ -3246,6 +3275,16 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         line += f"; kernel {ms:.3f} ms"
         if earlier is not None:
             line += f" ({earlier})"
+        alone = None
+        if span is not None:
+            ran = []
+            alone = kernel_span_ms(fn, span, names=ran)
+            old_call, old_alone = F32_BWD_WMMA_MS[name]
+            line += (f"; kernel alone {alone:.3f} ms ({' + '.join(ran)}; the "
+                     f"rest of the call {ms - alone:.3f} ms: wgrad_f32, "
+                     f"colsum, the combine kernel, packs, host; the earlier "
+                     f"WMMA kernel: call {old_call} ms, alone {old_alone} "
+                     "ms)")
         line += (f", plain {p_ms:.3f} ms, bound "
                  f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
         if library is not None:
@@ -3256,6 +3295,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "max_abs_err": _max_abs(g, w),
                  "max_rel_err": worst, "ms": ms, "plain_ms": p_ms, **work}
+        if alone is not None:
+            entry["kernel_alone_ms"] = alone
         if stack_of is None:
             results.append(entry)
         else:
@@ -3328,11 +3369,12 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            lambda: rec_lanes(sa.key_stream_f32_bwd(*kargs, raw, ss, dattn,
                                                    *kopts)),
            lambda: rec_lanes(sa.key_stream_bwd_plain(
-               *kargs, dattn, *kopts, f32, relu_on=raw > 0)),
+               *kargs, dattn, *kopts, f32, relu_on=raw > 0, raw_saved=raw)),
            F32_BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "dqq", "dW_k", "db_k"]
            + walk_labels(kwalk),
            nbytes(rec, rayo_f, rays, qq, raw, ss, dattn) + walk_bytes(kwalk),
-           3 * T * k * walk_flops(kwalk, wk))
+           3 * T * k * walk_flops(kwalk, wk), span="key_bwd_wgmma_f32",
+           n_walk=len(walk_labels(kwalk)), median=(5, F32_DQQ_MEDIAN_REL))
     vargs = (rec, rayo_f, rays, attn, vwalk)
     record("value_stream_f32_fwd", "papr_tpu_torch/csrc/value_stream.cu",
            "papr_tpu/ops/stream_attn.py:1601",
@@ -3353,7 +3395,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            F32_BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "d_attn"]
            + walk_labels(vwalk),
            nbytes(rec, rayo_f, rays, attn, dfused) + walk_bytes(vwalk),
-           3 * T * k * walk_flops(vwalk))
+           3 * T * k * walk_flops(vwalk), span="value_bwd_wgmma_f32",
+           n_walk=len(walk_labels(vwalk)))
     # Row 7 in fp32: the key stream with the query chain folded in (qq is
     # never rounded); backward held on the rays whose key and query relus
     # keep their margin.

@@ -212,7 +212,7 @@ fused_mlp_bwd_wgmma_kernel(const __grid_constant__ EmbedBwdWg p) {
     __syncwarp();
     for (int r = row0; r < row0 + 16; ++r)
       for (int c = lane; c < pd0; c += 32) enc_s[r * pd0 + c] = E[r * ld + c];
-    wgb_rows_to_bf16(E, ld, d, lns, st, row0);
+    wgb_rows_in_st<__nv_bfloat16>(E, ld, d, lns, st, row0);
     stash_rows(E, ld, p.hs[0], srow0, pd0, row0);
     smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
               pd0, A);

@@ -29,10 +29,13 @@
 // walk_wgmma.cuh's forward walk, the code of the one-shot eval attention
 // (attend_eval.cu), followed by a small kernel for the softmax; the
 // backward (key_bwd_wgmma_kernel, papr_key_stream_bwd) on
-// walk_wgmma_bwd.cuh.
+// walk_wgmma_bwd.cuh. The fp32 backward (key_bwd_wgmma_f32_kernel,
+// papr_key_stream_f32_bwd) is the same function of walk_wgmma_bwd.cuh in
+// walk_wgmma.cuh's fp32 operand form (3xTF32 m64n64k8, the layer inputs
+// fp32 in shared memory, fp32 stash).
 //
-// The other forms keep walk.cuh's WMMA walk, as attend_eval.cu's int8 and
-// fp32 forms do: one block of 512 threads per 64-ray tile loops over k
+// The fp32 and int8 forwards keep walk.cuh's WMMA walk, as attend_eval.cu's
+// int8 form does: one block of 512 threads per 64-ray tile loops over k
 // inside the block (the TPU grid's sequential k axis, which carried the
 // scores and the dqq / d_rayo / d_rays sums in resident output blocks;
 // here the block owns its rays' rows, so they accumulate without atomics),
@@ -45,9 +48,10 @@
 // takes no flag: it recomputes the walk in bf16 (straight-through; the
 // fp32 backward after key_stream_i8_f32_fwd).
 //
-// key_stream_f32_fwd / key_stream_f32_bwd are the WMMA kernels on the fp32
-// walk (use_amp: false): fp32 walk, w_k product and bias (walk.cuh's
-// 3xTF32 products), fp32 stash and dW; key_rec_*_smem hold for them.
+// key_stream_f32_fwd is the WMMA kernel on the fp32 walk (use_amp: false):
+// fp32 walk, w_k product and bias (walk.cuh's 3xTF32 products);
+// key_rec_fwd_smem holds for it. key_stream_f32_bwd (wgmma, above) stashes
+// fp32 for the fp32 dW (wgrad.cu).
 // key_stream_i8_f32_fwd is the int8 forward beside fp32 compute: the int8
 // walk, then the fp32 w_k product and bias on the unrounded y_k; its
 // backward is key_stream_f32_bwd on the raw dots and scores it saved.
@@ -87,27 +91,6 @@ key_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
   key_rec_fwd_tile(walk_smem<Op>(smem), rec, rec_w, T, K, rayo, rays, qq, dm,
                    sqrt_dm, kd, wk, bk, dm_pad, score_relu, bkg, eps, attn,
                    raw, ss_out, &kq);
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads, 1)
-key_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
-               const float* __restrict__ rayo, const float* __restrict__ rays,
-               const float* __restrict__ qq, int dm, float sqrt_dm,
-               const float* __restrict__ raw, const float* __restrict__ ss,
-               const float* __restrict__ dattn, WalkDescT<Op> kd,
-               WalkBwdT<Op> kb, const Op* __restrict__ wkf,
-               const Op* __restrict__ wkb,
-               const float* __restrict__ bk, int dm_pad, int dbk_off,
-               int score_relu, float bkg, float eps,
-               const int* __restrict__ seg, int nsrc, float* drec,
-               float* drayo, float* drays, float* dqq) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmemT<Op> S = walk_smem<Op>(smem);
-  key_rec_bwd_tile(S, rec, rec_w, T, Tp, K, rayo, rays, qq, dm, sqrt_dm, raw,
-                   ss, dattn, kd, kb, wkf, wkb, bk, dm_pad, dbk_off,
-                   score_relu, bkg, eps, seg, nsrc, drec, drayo, drays, dqq,
-                   reinterpret_cast<float*>(S.extra));
 }
 
 // Shared launcher of the forwards: Op the walk's operand type; with int8
@@ -291,66 +274,23 @@ extern "C" int papr_key_stream_i8_f32_fwd(
       kinv, kdq, stream);
 }
 
-// Launcher of the backward, Op the walk's operand type.
-template <class Op>
-static int launch_key_bwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* qq, int dm, float sqrt_dm,
-    const float* raw, const float* ss, const float* dattn, const int* kmeta,
-    const void* kw, const void* kb, const void* kln, const void* kplan,
-    const void* kwt, const void* wkf, const void* wkb, const void* bk,
-    int dm_pad, int score_relu, float bkg, float eps, void* stash,
-    const long long* stash_off, const int* seg, int nsrc, float* drec,
-    float* drayo, float* drays, float* dqq, float* part, int part_w,
-    float* scratch, void* stream) {
-  WalkDescT<Op> kd;
-  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
-  if (err) return err;
-  WalkBwdT<Op> wb;
-  err = fill_walk_bwd(&wb, kd, kmeta, kwt, stash, stash_off, kd.n + 1, part,
-                      part_w, scratch);
-  if (err) return err;
-  err = check_score_head(dm, dm_pad, K);
-  if (err) return err;
-  const int dbk_off = wb.bias_len + 2 * kd.pd[0] + 2 * kd.pd[kd.n];
-  if (part_w < dbk_off + dm_pad) return -204;
-  if (T <= 0) return 0;
-  const size_t smem = key_rec_bwd_smem(K);
-  if (smem > 232448) return -203;
-  cudaError_t e = cudaFuncSetAttribute(
-      key_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int Tp = (T + kRows - 1) / kRows * kRows;
-  key_bwd_kernel<Op><<<Tp / kRows, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      rec, rec_w, T, Tp, K, rayo, rays, qq, dm, sqrt_dm, raw, ss, dattn, kd,
-      wb, static_cast<const Op*>(wkf), static_cast<const Op*>(wkb),
-      static_cast<const float*>(bk), dm_pad, dbk_off, score_relu, bkg, eps,
-      seg, nsrc, drec, drayo, drays, dqq);
-  return (int)cudaGetLastError();
-}
-
 #define KEY_BWD_PARAMS_NS                                                    \
     const float* rec, int rec_w, int T, int K, const float* rayo,            \
     const float* rays, const float* qq, int dm, float sqrt_dm,               \
     const float* raw, const float* ss, const float* dattn, const int* kmeta, \
     const void* kw, const void* kb, const void* kln, const void* kplan,      \
-    const void* kwt, const void* wkf, const void* wkb, const void* bk,       \
-    int dm_pad, int score_relu, float bkg, float eps, void* stash,           \
-    const long long* stash_off, const int* seg, int nsrc, float* drec,       \
-    float* drayo, float* drays, float* dqq, float* part, int part_w,         \
-    float* scratch
-#define KEY_BWD_PARAMS KEY_BWD_PARAMS_NS, void* stream
-#define KEY_BWD_ARGS                                                         \
-    rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, raw, ss, dattn, kmeta,    \
-    kw, kb, kln, kplan, kwt, wkf, wkb, bk, dm_pad, score_relu, bkg, eps,     \
-    stash, stash_off, seg, nsrc, drec, drayo, drays, dqq, part, part_w,      \
-    scratch, stream
-
+    const void* bk, int dm_pad, int score_relu, float bkg, float eps,        \
+    void* stash, const long long* stash_off, const int* seg, int nsrc,       \
+    float* drec, float* drayo, float* drays, float* dqq, float* part,        \
+    int part_w, float* scratch
 __global__ void __launch_bounds__(kWgThreads, 1)
 key_bwd_wgmma_kernel(const __grid_constant__ StreamBwdWg p) {
   stream_bwd_wg<true>(p);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+key_bwd_wgmma_f32_kernel(const __grid_constant__ StreamBwdWgT<float> p) {
+  stream_bwd_wg<true, float>(p);
 }
 
 // The per-ray sums of the split tiles' second parts (zero elsewhere) added
@@ -368,20 +308,20 @@ __global__ void key_bwd_combine_kernel(float* dqq, const float* dqq_aux,
   }
 }
 
-// The bf16 backward on wgmma: the fp32 kernel's arguments (its kwt / wkf /
-// wkb weights unread: the packed image replaces them; part has 8 rows and
-// scratch 2 StreamBwdWg::scr_wg floats a block), then the packed weights
-// (forward layers, w_k, w_k^T, W_l^T for l = n-1 .. 0; ops/stream_attn.py
-// key_stream_bwd) and their size in bytes, the grid (1 .. the number of
-// 128-ray tiles) and the zeroed aux buffers of dqq, d_rayo, d_rays.
-extern "C" int papr_key_stream_bwd(KEY_BWD_PARAMS_NS, const void* wpack,
-                                   long long wbytes, int grid, float* dqq_aux,
-                                   float* drayo_aux, float* drays_aux,
-                                   void* stream) {
-  (void)kwt;
-  (void)wkf;
-  (void)wkb;
-  StreamBwdWg p{};
+// The backward on wgmma, Op the operand form: the walk (its weights only
+// through the packed image) and score head, the stash and partial rows
+// (part has 8 rows and scratch 2 StreamBwdWgT::scr_wg floats a block), then
+// the packed weights (forward layers, w_k, w_k^T, W_l^T for l = n-1 .. 0;
+// ops/stream_attn.py key_stream_bwd: bf16 pack_walk_wgmma's image, fp32
+// pack_walk_wgmma_f32's) and their size in bytes, the grid
+// (1 .. the number of 128-ray tiles) and the zeroed aux buffers of dqq,
+// d_rayo, d_rays.
+template <class Op>
+static int launch_key_bwd_wg(KEY_BWD_PARAMS_NS, const void* wpack,
+                             long long wbytes, int grid, float* dqq_aux,
+                             float* drayo_aux, float* drays_aux,
+                             void* stream) {
+  StreamBwdWgT<Op> p{};
   size_t smem = 0;
   int err = check_score_head(dm, dm_pad, K);
   if (err) return err;
@@ -421,12 +361,14 @@ extern "C" int papr_key_stream_bwd(KEY_BWD_PARAMS_NS, const void* wpack,
   p.dqq_aux = dqq_aux;
   p.drayo_aux = drayo_aux;
   p.drays_aux = drays_aux;
+  void (*kernel)(StreamBwdWgT<Op>);
+  if constexpr (kF32<Op>) kernel = key_bwd_wgmma_f32_kernel;
+  else kernel = key_bwd_wgmma_kernel;
   cudaError_t e = cudaFuncSetAttribute(
-      key_bwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  key_bwd_wgmma_kernel<<<grid, kWgThreads, smem, st>>>(p);
+  kernel<<<grid, kWgThreads, smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   key_bwd_combine_kernel<<<256, 256, 0, st>>>(dqq, dqq_aux, T * dm, drayo,
@@ -435,6 +377,19 @@ extern "C" int papr_key_stream_bwd(KEY_BWD_PARAMS_NS, const void* wpack,
   return (int)cudaGetLastError();
 }
 
-extern "C" int papr_key_stream_f32_bwd(KEY_BWD_PARAMS) {
-  return launch_key_bwd<float>(KEY_BWD_ARGS);
+#define KEY_BWD_WG_PARAMS                                                    \
+    KEY_BWD_PARAMS_NS, const void* wpack, long long wbytes, int grid,       \
+    float* dqq_aux, float* drayo_aux, float* drays_aux, void* stream
+#define KEY_BWD_WG_ARGS                                                      \
+    rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, raw, ss, dattn, kmeta,    \
+    kw, kb, kln, kplan, bk, dm_pad, score_relu, bkg, eps, stash, stash_off,  \
+    seg, nsrc, drec, drayo, drays, dqq, part, part_w, scratch, wpack,        \
+    wbytes, grid, dqq_aux, drayo_aux, drays_aux, stream
+
+extern "C" int papr_key_stream_bwd(KEY_BWD_WG_PARAMS) {
+  return launch_key_bwd_wg<__nv_bfloat16>(KEY_BWD_WG_ARGS);
+}
+
+extern "C" int papr_key_stream_f32_bwd(KEY_BWD_WG_PARAMS) {
+  return launch_key_bwd_wg<float>(KEY_BWD_WG_ARGS);
 }

@@ -22,7 +22,9 @@
 // papr_value_stream_fwd) on walk_wgmma.cuh's forward walk, the code of the
 // one-shot eval attention (attend_eval.cu), each block's per-ray sums added
 // into the zeroed output; the backward (value_bwd_wgmma_kernel,
-// papr_value_stream_bwd) on walk_wgmma_bwd.cuh. The other forms keep
+// papr_value_stream_bwd) on walk_wgmma_bwd.cuh, and so does the fp32
+// backward (value_bwd_wgmma_f32_kernel, papr_value_stream_f32_bwd) in
+// walk_wgmma.cuh's fp32 operand form. The fp32 and int8 forwards keep
 // key_stream.cu's WMMA design: one block of 512 threads per 64-ray tile, k
 // inside the block, every activation in shared memory. dW goes through the
 // stash and wgrad.cu.
@@ -33,9 +35,10 @@
 // backward takes no flag: it recomputes the walk in bf16 (straight-through;
 // the fp32 backward after value_stream_i8_f32_fwd).
 //
-// value_stream_f32_fwd / value_stream_f32_bwd are the WMMA kernels on the
-// fp32 walk (use_amp: false): fp32 walk (walk.cuh's 3xTF32 products), value
-// rows not rounded before the fuse, fp32 stash and dW.
+// value_stream_f32_fwd is the WMMA kernel on the fp32 walk (use_amp:
+// false): fp32 walk (walk.cuh's 3xTF32 products), value rows not rounded
+// before the fuse; value_stream_f32_bwd (wgmma) the same rounding points,
+// an fp32 stash for the fp32 dW.
 // value_stream_i8_f32_fwd is the int8 forward beside fp32 compute: the int8
 // walk, its fp32 rows fused unrounded; its backward is value_stream_f32_bwd.
 
@@ -109,81 +112,6 @@ value_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
   extern __shared__ __align__(128) unsigned char smem[];
   value_fwd_tile(smem, rec, rec_w, T, K, rayo, rays, attn, vd, &vq, normalize,
                  eps, fused);
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads, 1)
-value_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp,
-                 int K, const float* __restrict__ rayo,
-                 const float* __restrict__ rays,
-                 const float* __restrict__ attn,
-                 const float* __restrict__ dfused, WalkDescT<Op> vd,
-                 WalkBwdT<Op> vb, int normalize, float eps,
-                 const int* __restrict__ seg, int nsrc, float* drec,
-                 float* drayo, float* drays, float* __restrict__ dattn) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmemT<Op> S = walk_smem<Op>(smem);
-  float* C = S.C;
-  float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
-  float* datt = geo + kRows * kGeo;                          // kRows x K
-  float* den = datt + kRows * K;                             // kRows
-  float* st = den + kRows;                                   // 4 x kRows
-  float* dgeo = st + 4 * kRows;                              // kRows x 9
-  int* gidx = reinterpret_cast<int*>(dgeo + kRows * kNGeoSrc);
-  const int t0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int cout = vd.d_out, pdn = vd.pd[vd.n];
-
-  // Safe denominator (_vsr_bwd_kernel :1659-1663): 1 for all-dead rays.
-  fg_mass_rows(attn, K, t0, T, normalize, den);
-
-  for (int k = 0; k < K; ++k) {
-    geometry_rows(geo, gidx, rec, rec_w, T, k, t0, rayo, rays, eps);
-    __syncthreads();
-    encode_rec(C, vd, geo, gidx, rec, rec_w);
-    __syncthreads();
-    const TileCtx ctx = tile_ctx(vd, vb, (size_t)k * Tp + t0, st);
-    walk_fwd_stash(S, vd, vb, ctx, false);       // y fp32 in C
-
-    // d attn_k = y_c . dfused (y rounded to Op as in the forward), then
-    // the upstream gradient of the walk output, w_k dfused.
-    fuse_step_bwd<Op>(C, datt, attn, den, dfused, k, K, cout, pdn, t0, T);
-    walk_bwd(S, vd, vb, ctx);
-
-    pe_bwd_deriv(C, vd, [&](int r, int src) {
-      return src < kNGeoSrc ? geo[r * kGeo + src]
-          : rec[(size_t)gidx[r] * rec_w + 5 + (src - kNGeoSrc)];
-    });
-    __syncthreads();
-    pe_source_sums(C, seg, nsrc, [&](int r, int src, float v) {
-      if (src < kNGeoSrc) dgeo[r * kNGeoSrc + src] = v;
-      else if (t0 + r < T) drec[(size_t)gidx[r] * rec_w + 5 + (src - kNGeoSrc)] = v;
-    });
-    __syncthreads();
-    if (tid < kRows && t0 + tid < T) {
-      const int t = t0 + tid;
-      float o[3], dr[3], dsel[3], dry[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        o[j] = rayo[(size_t)t * 3 + j];
-        dr[j] = rays[(size_t)t * 3 + j];
-      }
-      float* prow = drec + (size_t)gidx[tid] * rec_w;
-      geom_bwd_row(rec + (size_t)gidx[tid] * rec_w, o, dr,
-                   dgeo + tid * kNGeoSrc + 3, dgeo + tid * kNGeoSrc + 6, eps,
-                   dsel, dry);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        prow[j] = dsel[j];
-        drayo[(size_t)t * 3 + j] -= dsel[j];
-        drays[(size_t)t * 3 + j] += dry[j];
-      }
-    }
-    __syncthreads();
-  }
-
-  // Renormalization backward (_vsr_bwd_kernel :1681-1690).
-  renorm_bwd_rows(datt, attn, den, normalize, K, t0, T, dattn);
 }
 
 // Shared launcher of the forwards, Op the walk's operand type: with int8
@@ -317,57 +245,22 @@ extern "C" int papr_value_stream_i8_f32_fwd(
       normalize, eps, fused, true, vwq, vinv, vdq, stream);
 }
 
-// Launcher of the backward, Op the walk's operand type.
-template <class Op>
-static int launch_value_bwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* attn, const float* dfused,
-    const int* vmeta, const void* vw, const void* vb, const void* vln,
-    const void* vplan, const void* vwt, int normalize, float eps,
-    void* stash, const long long* stash_off, const int* seg, int nsrc,
-    float* drec, float* drayo, float* drays, float* dattn, float* part,
-    int part_w, float* scratch, void* stream) {
-  WalkDescT<Op> vd;
-  int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
-  if (err) return err;
-  WalkBwdT<Op> wb;
-  err = fill_walk_bwd(&wb, vd, vmeta, vwt, stash, stash_off, vd.n, part,
-                      part_w, scratch);
-  if (err) return err;
-  if (K <= 0 || K > 64) return -202;
-  if (T <= 0) return 0;
-  const size_t smem = kWalkSmem + sizeof(float) * kRows *
-      (kGeo + K + 1 + 4 + kNGeoSrc) + sizeof(int) * kRows;
-  if (smem > 232448) return -203;
-  cudaError_t e = cudaFuncSetAttribute(
-      value_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int Tp = (T + kRows - 1) / kRows * kRows;
-  value_bwd_kernel<Op><<<Tp / kRows, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      rec, rec_w, T, Tp, K, rayo, rays, attn, dfused, vd, wb, normalize, eps,
-      seg, nsrc, drec, drayo, drays, dattn);
-  return (int)cudaGetLastError();
-}
-
 #define VALUE_BWD_PARAMS_NS                                                  \
     const float* rec, int rec_w, int T, int K, const float* rayo,            \
     const float* rays, const float* attn, const float* dfused,               \
     const int* vmeta, const void* vw, const void* vb, const void* vln,       \
-    const void* vplan, const void* vwt, int normalize, float eps,            \
-    void* stash, const long long* stash_off, const int* seg, int nsrc,       \
-    float* drec, float* drayo, float* drays, float* dattn, float* part,      \
-    int part_w, float* scratch
-#define VALUE_BWD_PARAMS VALUE_BWD_PARAMS_NS, void* stream
-#define VALUE_BWD_ARGS                                                       \
-    rec, rec_w, T, K, rayo, rays, attn, dfused, vmeta, vw, vb, vln, vplan,   \
-    vwt, normalize, eps, stash, stash_off, seg, nsrc, drec, drayo, drays,    \
-    dattn, part, part_w, scratch, stream
-
+    const void* vplan, int normalize, float eps, void* stash,                \
+    const long long* stash_off, const int* seg, int nsrc, float* drec,       \
+    float* drayo, float* drays, float* dattn, float* part, int part_w,       \
+    float* scratch
 __global__ void __launch_bounds__(kWgThreads, 1)
 value_bwd_wgmma_kernel(const __grid_constant__ StreamBwdWg p) {
   stream_bwd_wg<false>(p);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+value_bwd_wgmma_f32_kernel(const __grid_constant__ StreamBwdWgT<float> p) {
+  stream_bwd_wg<false, float>(p);
 }
 
 // After value_bwd_wgmma_kernel, a warp per ray: the split tiles' second
@@ -407,18 +300,20 @@ __global__ void value_bwd_combine_kernel(const float* __restrict__ datt,
   }
 }
 
-// The bf16 backward on wgmma: the fp32 kernel's arguments (its vwt unread:
-// the packed image replaces it; part has 8 rows and scratch 2
-// StreamBwdWg::scr_wg floats a block), then the packed weights (forward
-// layers, then W_l^T for l = n-1 .. 0; ops/stream_attn.py value_stream_bwd)
-// and their size in bytes, the grid (1 .. the number of 128-ray tiles), a
-// (T, K) datt buffer and the zeroed aux buffers of d_rayo, d_rays.
-extern "C" int papr_value_stream_bwd(VALUE_BWD_PARAMS_NS, const void* wpack,
-                                     long long wbytes, int grid, float* datt,
-                                     float* drayo_aux, float* drays_aux,
-                                     void* stream) {
-  (void)vwt;
-  StreamBwdWg p{};
+// The backward on wgmma, Op the operand form: the walk (its weights only
+// through the packed image), the stash and partial rows (part has 8 rows
+// and scratch 2 StreamBwdWgT::scr_wg floats a block), then the packed
+// weights (forward layers, then W_l^T for l = n-1 .. 0; ops/stream_attn.py
+// value_stream_bwd: bf16 pack_walk_wgmma's image, fp32
+// pack_walk_wgmma_f32's) and their size in bytes, the grid (1 .. the number
+// of 128-ray tiles), a (T, K) datt buffer and the zeroed aux buffers of
+// d_rayo, d_rays.
+template <class Op>
+static int launch_value_bwd_wg(VALUE_BWD_PARAMS_NS, const void* wpack,
+                               long long wbytes, int grid, float* datt,
+                               float* drayo_aux, float* drays_aux,
+                               void* stream) {
+  StreamBwdWgT<Op> p{};
   size_t smem = 0;
   if (K <= 0 || K > 64) return -202;
   int err = fill_stream_bwd_wg(&p, vmeta, vw, vb, vln, vplan, 0, wpack,
@@ -448,12 +343,14 @@ extern "C" int papr_value_stream_bwd(VALUE_BWD_PARAMS_NS, const void* wpack,
   p.grid = grid;
   p.drayo_aux = drayo_aux;
   p.drays_aux = drays_aux;
+  void (*kernel)(StreamBwdWgT<Op>);
+  if constexpr (kF32<Op>) kernel = value_bwd_wgmma_f32_kernel;
+  else kernel = value_bwd_wgmma_kernel;
   cudaError_t e = cudaFuncSetAttribute(
-      value_bwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  value_bwd_wgmma_kernel<<<grid, kWgThreads, smem, st>>>(p);
+  kernel<<<grid, kWgThreads, smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   value_bwd_combine_kernel<<<(T + 7) / 8, 256, 0, st>>>(
@@ -462,6 +359,19 @@ extern "C" int papr_value_stream_bwd(VALUE_BWD_PARAMS_NS, const void* wpack,
   return (int)cudaGetLastError();
 }
 
-extern "C" int papr_value_stream_f32_bwd(VALUE_BWD_PARAMS) {
-  return launch_value_bwd<float>(VALUE_BWD_ARGS);
+#define VALUE_BWD_WG_PARAMS                                                  \
+    VALUE_BWD_PARAMS_NS, const void* wpack, long long wbytes, int grid,     \
+    float* datt, float* drayo_aux, float* drays_aux, void* stream
+#define VALUE_BWD_WG_ARGS                                                    \
+    rec, rec_w, T, K, rayo, rays, attn, dfused, vmeta, vw, vb, vln, vplan,   \
+    normalize, eps, stash, stash_off, seg, nsrc, drec, drayo, drays, dattn,  \
+    part, part_w, scratch, wpack, wbytes, grid, datt, drayo_aux, drays_aux,  \
+    stream
+
+extern "C" int papr_value_stream_bwd(VALUE_BWD_WG_PARAMS) {
+  return launch_value_bwd_wg<__nv_bfloat16>(VALUE_BWD_WG_ARGS);
+}
+
+extern "C" int papr_value_stream_f32_bwd(VALUE_BWD_WG_PARAMS) {
+  return launch_value_bwd_wg<float>(VALUE_BWD_WG_ARGS);
 }

@@ -1,10 +1,13 @@
-// The bf16 record-native stream backwards on wgmma (Hopper): the walk's
-// forward recompute and its reverse walk for key_stream.cu
-// (papr_key_stream_bwd, key_bwd_wgmma_kernel) and value_stream.cu
-// (papr_value_stream_bwd, value_bwd_wgmma_kernel); the bf16 embedder
-// backward (fused_mlp_bwd.cu fused_mlp_bwd_wgmma_kernel) runs the same
-// pieces (wgb_encode, wgb_fwd, wgb_rev, wgb_in_bwd) on raw feature rows. The
-// fp32 backwards and the other walk backwards keep walk_bwd.cuh's WMMA
+// The record-native stream backwards on wgmma (Hopper): the walk's forward
+// recompute and its reverse walk for key_stream.cu (bf16:
+// papr_key_stream_bwd, key_bwd_wgmma_kernel; fp32: papr_key_stream_f32_bwd,
+// key_bwd_wgmma_f32_kernel) and value_stream.cu (papr_value_stream_bwd,
+// value_bwd_wgmma_kernel; papr_value_stream_f32_bwd,
+// value_bwd_wgmma_f32_kernel), one function (stream_bwd_wg) in the two
+// operand forms of walk_wgmma.cuh; the bf16 embedder backward
+// (fused_mlp_bwd.cu fused_mlp_bwd_wgmma_kernel) runs the same pieces
+// (wgb_encode, wgb_fwd, wgb_rev, wgb_in_bwd) on raw feature rows. The fp32
+// embedder backward and the other walk backwards keep walk_bwd.cuh's WMMA
 // layers.
 //
 // The function is walk_bwd.cuh's, with its rounding points: each layer's
@@ -46,7 +49,30 @@
 // rows). The input LayerNorm's backward, the posenc derivative (the saved
 // encoding's sin / cos partner, JAX's _pe_freq_bwd, instead of a fresh
 // sincosf), the per-source sums and the geometry backward run per warp on
-// its 16 rows of shared memory, lanes over columns.
+// its 16 rows of shared memory, lanes over columns. The key's softmax
+// backward keeps three numbers a ray (max, sum, inner product) and forms
+// each (ray, k)'s score gradient when its k comes, so shared memory does not
+// grow with K; a relu mask slot a relu layer.
+//
+// The fp32 form (use_amp: false; walk_wgmma.cuh's fp32 operand form) is the
+// function of walk_bwd.cuh with T = float: nothing rounded, the stash fp32.
+// A 256-wide fp32 activation does not fit in registers beside an
+// accumulator, so both directions keep a layer's input in the warpgroup's
+// rows of shared memory E (kF32Ld floats a row, each warp its own 16 rows)
+// and only its output in registers: a whole layer's 128-register
+// accumulator, four m64n64k8 3xTF32 passes (wg_gemm_f32: the A fragments
+// loaded from E and split hi / lo, a fresh accumulator per 32-deep chunk
+// joined by round-to-nearest adds), W (forward) and W_l^T (reverse) through
+// the same TMA ring as 16 KB hi / lo stages of ops/fused_mlp.py
+// pack_walk_wgmma_f32's image. Each epilogue runs on the accumulator as the
+// bf16 form's does on a pass (bias and relu mask; column sums; the output
+// LayerNorm and its backward as quad reductions), then writes the rows
+// back to E (the next product's operand), from where each warp copies them
+// to the stash, 16 bytes a lane (coalesced); no zero chunk (the fp32
+// products skip the passes past a layer's width). Shared memory (two
+// warpgroups): E 2 x 66 KB, the relu masks 2 KB a relu layer, the geometry
+// and per-ray rows, at least two 16 KB ring stages (three at Caterpillar's
+// and the flagship's walks).
 
 #pragma once
 
@@ -61,7 +87,9 @@ constexpr int kBwdPartRows = 8;          // partial rows a block: one a warp
 constexpr int kZsFloats = 2 * kAccRegs * 128;   // one warpgroup's z slice
 constexpr int kSrcPerLane = 3;           // posenc sources <= 96
 
-struct StreamBwdWg {
+// The kernel's parameters, Op the operand form's type (bf16, or fp32).
+template <class Op>
+struct StreamBwdWgT {
   const float* rec;                      // (K, T, rec_w) k-major
   int rec_w, T, Tp, K;                   // Tp: T padded to kWgTile
   const float* rayo;
@@ -69,11 +97,12 @@ struct StreamBwdWg {
   WalkDesc d;                            // bias / LayerNorm / plan pointers
   float eps;
   WgLayer layers[kWgMaxLayers];          // the per-k product sequence
-  WgChunk chunks[kWgMaxChunks];          // its chunk stream
+  WgChunk chunks[kF32<Op> ? kWgMaxChunksF32 : kWgMaxChunks];  // its stream
   int n_chunks, stages;
   const unsigned char* w;                // the packed weights
-  __nv_bfloat16* hs[kMaxLayers + 1];     // stash (N, width) per layer
-  __nv_bfloat16* dz[kMaxLayers + 1];
+  Op* hs[kMaxLayers + 1];                // stash (N, width) per layer
+  Op* dz[kMaxLayers + 1];
+  int n_mask;                            // relu mask slots (4 x 128 words)
   int b_off[kMaxLayers];
   int bias_len;
   float* part;                           // (blocks * 8, part_w)
@@ -111,15 +140,18 @@ struct StreamBwdWg {
   float* drayo_aux;
   float* drays_aux;
 };
+using StreamBwdWg = StreamBwdWgT<__nv_bfloat16>;
 
 // Host side: the walk, its product sequence (forward layers, then the head
 // pair w_k (pd[n] -> head_pd) and w_k^T when head_pd > 0, then W_l^T for
-// l = n - 1 .. 0), the stash, the partial rows and the shared-memory
-// layout. Returns 0 or a negative code; *smem gets the block's bytes.
-inline int fill_stream_bwd_wg(StreamBwdWg* p, const int* meta, const void* w,
-                              const void* b, const void* ln, const void* plan,
-                              int head_pd, const void* wpack,
-                              long long wbytes, void* stash,
+// l = n - 1 .. 0) in the form's image (wg_plan / wg_plan_f32), the stash,
+// the partial rows and the shared-memory layout. Returns 0 or a negative
+// code; *smem gets the block's bytes.
+template <class Op>
+inline int fill_stream_bwd_wg(StreamBwdWgT<Op>* p, const int* meta,
+                              const void* w, const void* b, const void* ln,
+                              const void* plan, int head_pd,
+                              const void* wpack, long long wbytes, void* stash,
                               const long long* stash_off, float* part,
                               int part_w, float* scratch, int K,
                               size_t* smem) {
@@ -144,16 +176,19 @@ inline int fill_stream_bwd_wg(StreamBwdWg* p, const int* meta, const void* w,
     dims[m][0] = d.pd[l + 1];
     dims[m][1] = d.pd[l];
   }
-  if (wg_plan(p->layers, dims, m) != wbytes || !wpack ||
-      reinterpret_cast<uintptr_t>(wpack) % 16)
+  constexpr bool f32 = kF32<Op>;
+  const long long need = f32 ? wg_plan_f32(p->layers, dims, m)
+                             : wg_plan(p->layers, dims, m);
+  if (need != wbytes || !wpack || reinterpret_cast<uintptr_t>(wpack) % 16)
     return -204;
-  p->n_chunks = wg_chunks(p->chunks, p->layers, m);
+  p->n_chunks = f32 ? wg_chunks_f32(p->chunks, need)
+                    : wg_chunks(p->chunks, p->layers, m);
   p->w = static_cast<const unsigned char*>(wpack);
   const int n_stash = n + (head_pd ? 1 : 0);
   for (int i = 0; i < n_stash; ++i) {
     if (stash_off[i] % 8 != 0 || stash_off[n_stash + i] % 8 != 0) return -112;
-    p->hs[i] = static_cast<__nv_bfloat16*>(stash) + stash_off[i];
-    p->dz[i] = static_cast<__nv_bfloat16*>(stash) + stash_off[n_stash + i];
+    p->hs[i] = static_cast<Op*>(stash) + stash_off[i];
+    p->dz[i] = static_cast<Op*>(stash) + stash_off[n_stash + i];
   }
   const int* b_off = meta + 7 + (n + 1) + n;
   for (int i = 0; i < n; ++i) p->b_off[i] = b_off[i];
@@ -163,15 +198,24 @@ inline int fill_stream_bwd_wg(StreamBwdWg* p, const int* meta, const void* w,
   p->part_w = part_w;
   p->scratch = scratch;
   p->scr_wg = kWgRows * d.pd[0] + (d.has_lo ? kZsFloats : 0);
-  p->ld = (d.pd[0] + 31) / 32 * 32 + 4;      // 16-byte rows, distinct banks
-  p->e_floats = kWgRows * p->ld > kParkWords * 128 ? kWgRows * p->ld
-                                                   : kParkWords * 128;
-  p->wg_floats = kWgRows * kGeo + p->e_floats + n * 4 * 128 +
-                 kWgRows * (2 + kNGeoSrc + (head_pd ? K : 0) + 2);
-  p->wg_floats += p->wg_floats & 1;
+  if constexpr (f32) {
+    p->ld = kF32Ld;                          // E in the fp32 form's rows
+    p->e_floats = kWgRows * kF32Ld;
+  } else {
+    p->ld = (d.pd[0] + 31) / 32 * 32 + 4;    // 16-byte rows, distinct banks
+    p->e_floats = kWgRows * p->ld > kParkWords * 128 ? kWgRows * p->ld
+                                                     : kParkWords * 128;
+  }
+  // A mask slot a relu layer (the last layer only with a relu last_act);
+  // the key's softmax backward three numbers a ray.
+  p->n_mask = d.last_act == 1 ? n : n - 1;
+  p->wg_floats = kWgRows * kGeo + p->e_floats + p->n_mask * 4 * 128 +
+                 kWgRows * (2 + kNGeoSrc + (head_pd ? 3 : 0) + 2);
+  p->wg_floats = (p->wg_floats + 3) & ~3;   // E 16-byte aligned in both
   p->n_prm = 5 * d.pd[0] + 2 * d.pd[n] + head_pd;
   p->n_prm += p->n_prm & 1;
-  const size_t rest = 1024 + kWStageBytes + sizeof(float) *
+  // The fp32 form has no zero chunk.
+  const size_t rest = 1024 + (f32 ? 0 : kWStageBytes) + sizeof(float) *
       (2 * (size_t)p->wg_floats + p->n_prm) +
       kBwdMaxStages * (sizeof(uint64_t) + sizeof(int));
   if (rest + 2 * (size_t)kWStageBytes > 232448) return -203;
@@ -212,12 +256,14 @@ __device__ __forceinline__ void wgb_encode(float* E, int ld, const WalkDesc& d,
 }
 
 // The warp's 16 encoded rows through the input LayerNorm (ln: the walk's
-// LayerNorm table; statistics to st[r] / st[kWgRows + r]) or as they are, rounded to bf16 in place: row r's
-// bf16 values at the start of its fp32 row.
-__device__ __forceinline__ void wgb_rows_to_bf16(float* E, int ld,
-                                                 const WalkDesc& d,
-                                                 const float* ln, float* st,
-                                                 int row0) {
+// LayerNorm table; statistics to st[r] / st[kWgRows + r]) or as they are,
+// in place: the bf16 form (Op) rounds them, row r's bf16 values at the
+// start of its fp32 row; the fp32 form keeps them fp32.
+template <class Op>
+__device__ __forceinline__ void wgb_rows_in_st(float* E, int ld,
+                                               const WalkDesc& d,
+                                               const float* ln, float* st,
+                                               int row0) {
   const int lane = threadIdx.x & 31, pd0 = d.pd[0], n = d.d_enc;
   for (int r = row0; r < row0 + 16; ++r) {
     float* row = E + r * ld;
@@ -253,11 +299,19 @@ __device__ __forceinline__ void wgb_rows_to_bf16(float* E, int ld,
       }
     }
     __syncwarp();
-    __nv_bfloat16* rb = reinterpret_cast<__nv_bfloat16*>(row);
+    if constexpr (kF32<Op>) {
 #pragma unroll
-    for (int m = 0; m < kMaxWidth / 32; ++m) {
-      const int c = lane + 32 * m;
-      if (c < pd0) rb[c] = __float2bfloat16_rn(v[m]);
+      for (int m = 0; m < kMaxWidth / 32; ++m) {
+        const int c = lane + 32 * m;
+        if (c < pd0) row[c] = v[m];
+      }
+    } else {
+      __nv_bfloat16* rb = reinterpret_cast<__nv_bfloat16*>(row);
+#pragma unroll
+      for (int m = 0; m < kMaxWidth / 32; ++m) {
+        const int c = lane + 32 * m;
+        if (c < pd0) rb[c] = __float2bfloat16_rn(v[m]);
+      }
     }
   }
   __syncwarp();
@@ -274,6 +328,19 @@ __device__ __forceinline__ void stash_rows(const float* E, int ld,
       *reinterpret_cast<uint4*>(dst + (srow0 + r) * pd + 8 * u) =
           *reinterpret_cast<const uint4*>(
               reinterpret_cast<const __nv_bfloat16*>(E + r * ld) + 8 * u);
+}
+
+// The fp32 form: the warp's 16 rows of E (pd wide, kF32Ld floats a row) to
+// stash rows srow0 + r, 16 bytes a lane (a warp's store covers 512
+// contiguous bytes of a row).
+__device__ __forceinline__ void stash_rows_f32(const float* E, float* dst,
+                                               size_t srow0, int pd,
+                                               int row0) {
+  const int lane = threadIdx.x & 31, upr = pd / 4;
+  for (int r = row0; r < row0 + 16; ++r)
+    for (int u = lane; u < upr; u += 32)
+      *reinterpret_cast<float4*>(dst + (srow0 + r) * pd + 4 * u) =
+          *reinterpret_cast<const float4*>(E + r * kF32Ld + 4 * u);
 }
 
 // One pass's 32 bf16x2 words (word i: row g + 8 (i & 1), columns
@@ -344,18 +411,23 @@ __device__ __forceinline__ void wgb_pass(float (&acc)[kAccRegs],
 }
 
 // The relu pattern of a pass (acc > 0) as two words a thread: bit i of word
-// 2 p + (i >> 5) for register i.
-__device__ __forceinline__ void store_mask(const float (&acc)[kAccRegs],
+// 2 p + (i >> 5) for register i (the fp32 form's whole layer: its two
+// halves as passes p, p + 1).
+template <int N>
+__device__ __forceinline__ void store_mask(const float (&acc)[N],
                                            uint32_t* mask, int p) {
   const int t = threadIdx.x & 127;
-  uint32_t w0 = 0u, w1 = 0u;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    w0 |= (acc[i] > 0.f ? 1u : 0u) << i;
-    w1 |= (acc[32 + i] > 0.f ? 1u : 0u) << i;
+  for (int hh = 0; hh < N / kAccRegs; ++hh) {
+    uint32_t w0 = 0u, w1 = 0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      w0 |= (acc[kAccRegs * hh + i] > 0.f ? 1u : 0u) << i;
+      w1 |= (acc[kAccRegs * hh + 32 + i] > 0.f ? 1u : 0u) << i;
+    }
+    mask[(2 * (p + hh)) * 128 + t] = w0;
+    mask[(2 * (p + hh) + 1) * 128 + t] = w1;
   }
-  mask[(2 * p) * 128 + t] = w0;
-  mask[(2 * p + 1) * 128 + t] = w1;
 }
 
 // Column sums over the warp's 16 rows of a pass's values val(i) (register i
@@ -400,6 +472,16 @@ __device__ __forceinline__ void colsum_pass(Val val, float* dst, int ncol) {
   }
 }
 
+// colsum_pass over a whole layer of the fp32 form (val(i), i < kOutRegs):
+// its two halves, the second only where ncol reaches it.
+template <class Val>
+__device__ __forceinline__ void colsum_layer(Val val, float* dst, int ncol) {
+  colsum_pass([&](int i) { return val(i); }, dst, ncol);
+  if (ncol > kPassN)
+    colsum_pass([&](int i) { return val(kAccRegs + i); }, dst + kPassN,
+                ncol - kPassN);
+}
+
 // The reverse walk's epilogue on the fp32 gradient of layer l's output,
 // pass p (columns 128 p ..) in acc: columns >= width and, with a mask, the
 // relu's dead outputs become 0; the column sums go to db (part_db); the
@@ -429,9 +511,11 @@ __device__ __forceinline__ void rev_epilogue(float (&acc)[kAccRegs],
 }
 
 // The walk's output LayerNorm (walk.cuh layernorm_rows) on the thread's two
-// rows, as walk_wgmma.cuh acc_layernorm, keeping each row's mean and
+// rows, as walk_wgmma.cuh acc_layernorm (N: a bf16 pass's registers, or the
+// fp32 form's whole layer without park), keeping each row's mean and
 // 1 / (std + eps) in mu / rr for the backward.
-__device__ __forceinline__ void acc_layernorm_st(float (&acc)[kAccRegs],
+template <int N>
+__device__ __forceinline__ void acc_layernorm_st(float (&acc)[N],
                                                  float* park, int n_true,
                                                  const float* a,
                                                  const float* b,
@@ -443,7 +527,7 @@ __device__ __forceinline__ void acc_layernorm_st(float (&acc)[kAccRegs],
   for (int h = 0; h < 2; ++h) {
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < kAccRegs / 4; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * q + e, i = 4 * j + 2 * h + e;
@@ -453,7 +537,7 @@ __device__ __forceinline__ void acc_layernorm_st(float (&acc)[kAccRegs],
     const float m = quad_sum(s) / (float)n_true;
     float v = 0.f;
 #pragma unroll
-    for (int j = 0; j < kAccRegs / 4; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * q + e, i = 4 * j + 2 * h + e;
@@ -471,7 +555,7 @@ __device__ __forceinline__ void acc_layernorm_st(float (&acc)[kAccRegs],
     mu[h] = m;
     rr[h] = r;
 #pragma unroll
-    for (int j = 0; j < kAccRegs / 4; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * q + e, i = 4 * j + 2 * h + e;
@@ -487,13 +571,15 @@ __device__ __forceinline__ void acc_layernorm_st(float (&acc)[kAccRegs],
 
 // _ln_bwd (walk_bwd.cuh ln_bwd) on the accumulator: the gradient g of the
 // LayerNorm's output in acc (columns 128.. with park holding columns 0..127
-// as fp32 slices, or columns 0.. without park) becomes the gradient of its
-// input, in place; da = sum g (z - mu) r and db = sum g over the warp's rows
-// go to part_a / part_b. z, the fp32 input, is read from the scratch slice
-// zs (pass p's register i at (64 p + i) * 128 + t); where parked values are
+// as fp32 slices, or columns 0.. without park; N = kOutRegs: the fp32
+// form's whole layer, without park) becomes the gradient of its input, in
+// place; da = sum g (z - mu) r and db = sum g over the warp's rows go to
+// part_a / part_b. z, the fp32 input, is read from the scratch slice zs
+// (pass p's register i at (64 p + i) * 128 + t); where parked values are
 // written back, 16 at a time after their z is loaded. a (the LayerNorm's
 // gain) lies in shared memory.
-__device__ __forceinline__ void acc_ln_bwd(float (&acc)[kAccRegs], float* park,
+template <int N>
+__device__ __forceinline__ void acc_ln_bwd(float (&acc)[N], float* park,
                                            const float* zs,
                                            const float (&mu)[2],
                                            const float (&rr)[2], int n_true,
@@ -513,11 +599,17 @@ __device__ __forceinline__ void acc_ln_bwd(float (&acc)[kAccRegs], float* park,
     for (int i = 0; i < kAccRegs; ++i)
       if (col(i) < n_true) cs[hrow(i)] += park[i * 128 + t] * a[col(i)] * zm(i);
   }
-  colsum_pass([&](int i) { return acc[i] * zm(z1 + i) * rr[hrow(i)]; },
-              part_a + c1, n_true - c1);
-  colsum_pass([&](int i) { return acc[i]; }, part_b + c1, n_true - c1);
 #pragma unroll
-  for (int i = 0; i < kAccRegs; ++i)
+  for (int hp = 0; hp < N / kAccRegs; ++hp) {
+    const int o = kAccRegs * hp, co = c1 + kPassN * hp;
+    if (co >= n_true) break;
+    colsum_pass(
+        [&](int i) { return acc[o + i] * zm(z1 + o + i) * rr[hrow(i)]; },
+        part_a + co, n_true - co);
+    colsum_pass([&](int i) { return acc[o + i]; }, part_b + co, n_true - co);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
     if (c1 + col(i) < n_true) cs[hrow(i)] += acc[i] * a[c1 + col(i)] * zm(z1 + i);
   float wr[2], sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -529,7 +621,7 @@ __device__ __forceinline__ void acc_ln_bwd(float (&acc)[kAccRegs], float* park,
     wr[h] = sd > 0.f ? -c * rr[h] * rr[h] / denom : 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < kAccRegs; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int h = hrow(i);
     if (c1 + col(i) < n_true) {
       acc[i] = acc[i] * a[c1 + col(i)] * rr[h] + wr[h] * zm(z1 + i);
@@ -557,7 +649,7 @@ __device__ __forceinline__ void acc_ln_bwd(float (&acc)[kAccRegs], float* park,
 #pragma unroll
   for (int h = 0; h < 2; ++h) mean[h] = quad_sum(sum[h]) / (float)n_true;
 #pragma unroll
-  for (int i = 0; i < kAccRegs; ++i) {
+  for (int i = 0; i < N; ++i) {
     if (park) {
       float& x = park[i * 128 + t];
       x = col(i) < n_true ? x - mean[hrow(i)] : 0.f;
@@ -566,12 +658,14 @@ __device__ __forceinline__ void acc_ln_bwd(float (&acc)[kAccRegs], float* park,
   }
 }
 
-// The fp32 pass in acc to the scratch slice (pass p).
-__device__ __forceinline__ void save_slice(const float (&acc)[kAccRegs],
-                                           float* zs, int p) {
+// The fp32 pass in acc (the fp32 form: the whole layer, p = 0) to the
+// scratch slice (pass p).
+template <int N>
+__device__ __forceinline__ void save_slice(const float (&acc)[N], float* zs,
+                                           int p) {
   const int t = threadIdx.x & 127;
 #pragma unroll
-  for (int i = 0; i < kAccRegs; ++i) zs[(kAccRegs * p + i) * 128 + t] = acc[i];
+  for (int i = 0; i < N; ++i) zs[(N * p + i) * 128 + t] = acc[i];
 }
 
 // The forward recompute of walk d on the warpgroup's rows from the A
@@ -675,6 +769,87 @@ __device__ __forceinline__ void wgb_rev(float (&acc)[kAccRegs],
   }
 }
 
+// The fp32 form's forward recompute of walk d on the warp's rows of E (the
+// layer-0 input there, stashed by the caller): each layer's whole output in
+// acc, its relu pattern to masks (slot l, 512 words), each later layer's
+// input back to E and from there to the stash hs[l]; with an output
+// LayerNorm the last layer's output to the scratch slice zs_s. The last
+// layer's output is left in acc; returns false (nothing parked).
+__device__ __forceinline__ bool wgb_fwd(float (&acc)[kOutRegs], WgRowsA& A,
+                                        WgRing& rg, const unsigned char*,
+                                        const WalkDesc& d,
+                                        const WgLayer* layers,
+                                        float* const* hs, size_t srow0,
+                                        uint32_t* masks, float*,
+                                        float* zs_s) {
+  const int n = d.n;
+  for (int l = 0; l < n; ++l) {
+    const bool last = l + 1 == n;
+    const int act = last ? d.last_act : d.act;
+    wg_gemm_f32(acc, A.E, A.row0, rg, layers[l]);
+    acc_bias_act(acc, d.b[l], layers[l].pd_out, act);
+    if (act == 1) store_mask(acc, masks + l * 512, 0);
+    if (!last) {
+      wg_rows_out(acc, A.E, A.row0);
+      stash_rows_f32(A.E, hs[l + 1], srow0, d.pd[l + 1], A.row0);
+    } else if (d.has_lo) {
+      save_slice(acc, zs_s, 0);
+    }
+  }
+  return false;
+}
+
+// The fp32 form's reverse-walk epilogue on the gradient of a layer's output
+// (width columns, every column in acc): the relu's dead outputs (mask) and
+// columns >= width become 0, the column sums go to db (part_db), the rows
+// back to E (the next product's operand) and from there to the dz stash.
+__device__ __forceinline__ void rev_epilogue(float (&acc)[kOutRegs],
+                                             WgRowsA& A,
+                                             const uint32_t* mask, int width,
+                                             float* part_db, float* dz,
+                                             size_t srow0) {
+  const int t = threadIdx.x & 127, q = t & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const uint32_t m0 = mask ? mask[(2 * hh) * 128 + t] : ~0u;
+    const uint32_t m1 = mask ? mask[(2 * hh + 1) * 128 + t] : ~0u;
+#pragma unroll
+    for (int i = 0; i < kAccRegs; ++i) {
+      const int c = kPassN * hh + 8 * (i >> 2) + 2 * q + (i & 1);
+      const uint32_t bit = i < 32 ? (m0 >> i) & 1u : (m1 >> (i - 32)) & 1u;
+      float& x = acc[kAccRegs * hh + i];
+      x = c < width && bit ? x : 0.f;
+    }
+  }
+  colsum_layer([&](int i) { return acc[i]; }, part_db, width);
+  wg_rows_out(acc, A.E, A.row0);
+  stash_rows_f32(A.E, dz, srow0, width, A.row0);
+}
+
+// The fp32 form's reverse walk from the gradient of the walk's output (in
+// acc): the last layer's epilogue, then per layer l the product dz_l W_l^T
+// (rev: the W_l^T layers from l = n - 1 down) and layer l - 1's epilogue;
+// layer 0's product, the encoding's gradient, goes to the warp's rows of E.
+__device__ __forceinline__ void wgb_rev(float (&acc)[kOutRegs], WgRowsA& A,
+                                        WgRing& rg, const unsigned char*,
+                                        const WalkDesc& d, const WgLayer* rev,
+                                        float* const* dz, const int* b_off,
+                                        float* prow, size_t srow0,
+                                        const uint32_t* masks, float*, bool,
+                                        float*, int) {
+  const int n = d.n;
+  rev_epilogue(acc, A, d.last_act == 1 ? masks + (n - 1) * 512 : nullptr,
+               d.pd[n], prow + b_off[n - 1], dz[n - 1], srow0);
+  for (int l = n - 1; l >= 0; --l) {
+    wg_gemm_f32(acc, A.E, A.row0, rg, rev[n - 1 - l]);
+    if (l > 0)
+      rev_epilogue(acc, A, d.act == 1 ? masks + (l - 1) * 512 : nullptr,
+                   d.pd[l], prow + b_off[l - 1], dz[l - 1], srow0);
+    else
+      wg_rows_out(acc, A.E, A.row0);
+  }
+}
+
 // Per warp, on its 16 rows of E (the fp32 gradient of the encoding): the
 // input LayerNorm's backward (statistics st: mean at st[r], 1 / (std + eps)
 // at st[kWgRows + r]; its da / db added to prow[L ..], prow[L + pd0 ..]),
@@ -770,15 +945,17 @@ __device__ __forceinline__ void wgb_in_bwd(float* E, int ld, const WalkDesc& d,
 }
 
 // The backward of the record-native key stream (kKey: the score head,
-// key_stream.cu) or value stream (the fuse step, value_stream.cu) on one
-// block of kWgTile rays; see the header.
-template <bool kKey>
-__device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
+// key_stream.cu) or value stream (the fuse step, value_stream.cu) on the
+// block's share of the (tile, k) units, in either operand form (Op: bf16,
+// or fp32); see the header.
+template <bool kKey, class Op = __nv_bfloat16>
+__device__ __forceinline__ void stream_bwd_wg(const StreamBwdWgT<Op>& p) {
+  constexpr bool f32 = kF32<Op>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* zero = smem;                     // one zero chunk
-  unsigned char* ring = smem + kWStageBytes;
+  unsigned char* zero = smem;                     // bf16: one zero chunk
+  unsigned char* ring = smem + (f32 ? 0 : kWStageBytes);
   float* tiles = reinterpret_cast<float*>(ring + p.stages * kWStageBytes);
   // The walk's LayerNorm table, its posenc plan, then b_k (key).
   float* lns = tiles + 2 * p.wg_floats;
@@ -794,8 +971,14 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
     if (kKey)
       for (int i = tid; i < p.dm_pad; i += kWgThreads) bks[i] = p.bk[i];
   }
-  for (int i = tid; i < kWStageBytes / 16; i += kWgThreads)
-    reinterpret_cast<uint4*>(zero)[i] = make_uint4(0, 0, 0, 0);
+  if constexpr (f32) {
+    // Every E column a product reads is finite from the start (columns
+    // past a layer's input width meet zero weight rows).
+    for (int i = tid; i < 2 * p.wg_floats; i += kWgThreads) tiles[i] = 0.f;
+  } else {
+    for (int i = tid; i < kWStageBytes / 16; i += kWgThreads)
+      reinterpret_cast<uint4*>(zero)[i] = make_uint4(0, 0, 0, 0);
+  }
   fence_async_smem();
   if (tid < p.stages) released[tid] = 0;
   if (tid == 0) {
@@ -824,10 +1007,11 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
   float* geo = tiles + wg * p.wg_floats;          // kWgRows x kGeo
   float* E = geo + kWgRows * kGeo;                // rows / parking slices
   uint32_t* masks = reinterpret_cast<uint32_t*>(E + p.e_floats);
-  float* st = reinterpret_cast<float*>(masks + n * 4 * 128);  // mu, r in
+  float* st = reinterpret_cast<float*>(masks + p.n_mask * 4 * 128);  // mu, r in
   float* dgeo = st + 2 * kWgRows;                 // kWgRows x 9
-  float* rowk = dgeo + kWgRows * kNGeoSrc;        // ds (key)
-  float* r1 = rowk + kWgRows * (kKey ? K : 0);    // draw (key) / den (value)
+  // key: the softmax backward's max, sum and inner product (rows of kWgRows)
+  float* rowk = dgeo + kWgRows * kNGeoSrc;
+  float* r1 = rowk + kWgRows * (kKey ? 3 : 0);    // draw / den
   float* r2 = r1 + kWgRows;                       // d influence (key)
   float* park = E;
   uint32_t* park_u = reinterpret_cast<uint32_t*>(E);
@@ -846,12 +1030,19 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
     seg0[j] = s < p.nsrc ? p.seg[s] : 0;
     seg1[j] = s < p.nsrc ? p.seg[p.nsrc + s] : 0;
   }
-  uint32_t A[kARegs];
-  float acc[kAccRegs];
+  // The form's registers: bf16, a pass's accumulator and the A fragments;
+  // fp32, a whole layer's accumulator (A: the warp's rows of E).
+  constexpr int kAcc = f32 ? kOutRegs : kAccRegs;
+  std::conditional_t<f32, WgRowsA, uint32_t[kARegs]> A;
+  float acc[kAcc];
+  if constexpr (f32) {
+    A = WgRowsA{E, row0};
+  } else {
 #pragma unroll
-  for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+    for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+  }
 #pragma unroll
-  for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   float mo[2] = {0.f, 0.f}, ro[2] = {1.f, 1.f};
 
   for (int u = u_begin; u < u_end;) {
@@ -867,32 +1058,28 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
     for (int r = row0; r < row0 + 16; ++r) {
       const int t = rbase + r;
       if (kKey) {
-        float* dsr = rowk + r * K;
-        if (t >= T) {
-          for (int k = lane; k < K; k += 32) dsr[k] = 0.f;
-          continue;
+        // The softmax backward's numbers of the ray; each (ray, k)'s ds is
+        // formed from them when its k comes.
+        float m = p.bkg, z = 1.f, inner = 0.f;
+        if (t < T) {
+          const float* drow = p.dattn + (size_t)t * (K + 1);
+          const float* srow = p.ss + (size_t)t * K;
+          for (int k = lane; k < K; k += 32) m = fmaxf(m, srow[k]);
+          m = warp_max(m);
+          float zs = 0.f, in = 0.f;
+          for (int k = lane; k < K; k += 32) {
+            const float e = expf(srow[k] - m);
+            zs += e;
+            in += e * drow[k];
+          }
+          const float eb = expf(p.bkg - m);
+          z = warp_sum(zs) + eb;
+          inner = (warp_sum(in) + eb * drow[K]) / z;
         }
-        const float* drow = p.dattn + (size_t)t * (K + 1);
-        float m = p.bkg;
-        for (int k = lane; k < K; k += 32) {
-          const float s = p.ss[(size_t)t * K + k];
-          dsr[k] = s;
-          m = fmaxf(m, s);
-        }
-        m = warp_max(m);
-        float z = 0.f, in = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          const float e = expf(dsr[k] - m);
-          z += e;
-          in += e * drow[k];
-        }
-        const float eb = expf(p.bkg - m);
-        z = warp_sum(z) + eb;
-        const float inner = (warp_sum(in) + eb * drow[K]) / z;
-        for (int k = lane; k < K; k += 32) {
-          const float s = dsr[k];
-          const float fg = expf(s - m) / z;
-          dsr[k] = s > 0.5f * kNegBig ? fg * (drow[k] - inner) : 0.f;
+        if (lane == 0) {
+          rowk[r] = m;
+          rowk[kWgRows + r] = z;
+          rowk[2 * kWgRows + r] = inner;
         }
       } else {
         float sfg = 0.f;
@@ -936,24 +1123,35 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
         gr[11] = __int_as_float(gi);
         if (kKey) {
           const float raw = valid ? p.raw[(size_t)t * K + k] : 0.f;
-          const float ds = rowk[r * K + k];
+          const float s = valid ? p.ss[(size_t)t * K + k] : kNegBig;
+          const float ds =
+              s > 0.5f * kNegBig
+                  ? expf(s - rowk[r]) / rowk[kWgRows + r] *
+                        (p.dattn[(size_t)t * (K + 1) + k] -
+                         rowk[2 * kWgRows + r])
+                  : 0.f;
           r2[r] = ds * (p.score_relu ? fmaxf(raw, 0.f) : raw);
           r1[r] = draw_of(ds, raw, rw[3], p.score_relu, p.sqrt_dm);
         }
       }
       __syncwarp();
 
-      // --- the encoding: fp32 to the scratch, input LayerNorm, bf16 ---
+      // --- the encoding: fp32 to the scratch, input LayerNorm, the layer-0
+      // operand (bf16: rounded, the A fragments; fp32: E as it is) ---
       wgb_encode(E, ld, d, plan, row0, RecSrc{geo, p.rec, p.rec_w});
       __syncwarp();
       for (int r = row0; r < row0 + 16; ++r)
         for (int c = lane; c < pd0; c += 32) enc_s[r * pd0 + c] = E[r * ld + c];
-      wgb_rows_to_bf16(E, ld, d, lns, st, row0);
-      stash_rows(E, ld, p.hs[0], srow0, pd0, row0);
-      smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
-                pd0, A);
-      // Every warp has read its rows before any thread parks over them.
-      named_sync(2 + wg, 128);
+      wgb_rows_in_st<Op>(E, ld, d, lns, st, row0);
+      if constexpr (f32) {
+        stash_rows_f32(E, p.hs[0], srow0, pd0, row0);
+      } else {
+        stash_rows(E, ld, p.hs[0], srow0, pd0, row0);
+        smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld),
+                  4 * ld, pd0, A);
+        // Every warp has read its rows before any thread parks over them.
+        named_sync(2 + wg, 128);
+      }
 
       // --- forward recompute: stash, relu masks; the last layer's fp32
       // output in acc (and, for a 256-wide layer, its first pass parked) ---
@@ -962,7 +1160,40 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
       if (d.has_lo)
         acc_layernorm_st(acc, two ? park : nullptr, d.d_out, lo_a, lo_b, mo, ro);
 
-      if (kKey) {
+      if constexpr (kKey && f32) {
+        // --- the score head as below, fp32: y and dkk through E to the
+        // stash and the products, the bias added unrounded ---
+        wg_rows_out(acc, E, row0);
+        stash_rows_f32(E, p.hs[n], srow0, pdn, row0);
+        wg_gemm_f32(acc, E, row0, rg, p.layers[n]);
+#pragma unroll
+        for (int i0 = 0; i0 < kAcc; i0 += 16) {
+          float qv[16], dv[16];
+#pragma unroll
+          for (int ii = 0; ii < 16; ++ii) {
+            const int i = i0 + ii, t = rbase + rl[(i >> 1) & 1];
+            const int c = 8 * (i >> 2) + 2 * q + (i & 1);
+            const bool in = t < T && c < p.dm;
+            qv[ii] = in ? p.qq[(size_t)t * p.dm + c] : 0.f;
+            dv[ii] = in ? dqq_o[(size_t)t * p.dm + c] : 0.f;
+          }
+#pragma unroll
+          for (int ii = 0; ii < 16; ++ii) {
+            const int i = i0 + ii, r = rl[(i >> 1) & 1], t = rbase + r;
+            const int c = 8 * (i >> 2) + 2 * q + (i & 1);
+            const bool in = t < T && c < p.dm;
+            if (in)
+              dqq_o[(size_t)t * p.dm + c] =
+                  dv[ii] + r1[r] * linear_c<float>(acc[i], bks[c]);
+            acc[i] = in ? r1[r] * qv[ii] : 0.f;
+          }
+        }
+        colsum_layer([&](int i) { return acc[i]; }, prow + p.dbk_off,
+                     p.dm_pad);
+        wg_rows_out(acc, E, row0);
+        stash_rows_f32(E, p.dz[n], srow0, p.dm_pad, row0);
+        wg_gemm_f32(acc, E, row0, rg, p.layers[n + 1]);
+      } else if constexpr (kKey) {
         // --- the score head: kk = y w_k + b_k, dqq += draw kk, dkk = draw
         // qq (db_k its column sums, dz of the head), then dkk w_k^T ---
         if (two) {
@@ -1017,18 +1248,18 @@ __device__ __forceinline__ void stream_bwd_wg(const StreamBwdWg& p) {
           if (two && bp == 0) park_f32(acc, park);
         }
       } else {
-        // --- the fuse step: datt_k = bf16(y) . dfused, then the gradient of
-        // y, (attn_k / den) dfused ---
+        // --- the fuse step: datt_k = y . dfused (y rounded to bf16 in the
+        // bf16 form), then the gradient of y, (attn_k / den) dfused ---
         const int cout = d.d_out;
         float s[2] = {0.f, 0.f};
 #pragma unroll
-        for (int i = 0; i < kAccRegs; ++i) {
+        for (int i = 0; i < kAcc; ++i) {
           const int h = (i >> 1) & 1, t = rbase + rl[h];
           const int c = 8 * (i >> 2) + 2 * q + (i & 1);
           float gv = 0.f;
           if (t < T && c < cout) {
             const float df = p.dfused[(size_t)t * cout + c];
-            s[h] += bf16_round(acc[i]) * df;
+            s[h] += act_round<Op>(acc[i]) * df;
             gv = p.attn[(size_t)t * (K + 1) + k] / r1[rl[h]] * df;
           }
           acc[i] = gv;

@@ -41,10 +41,10 @@ SIGNATURES = {
     "papr_key_stream_fwd": [P, I, I, I, P, P, P, I, F, P, P, P, P, P, P, P, I,
                             I, F, F, P, P, P, P],
     "papr_key_stream_bwd": [P, I, I, I, P, P, P, I, F, P, P, P,   # ..dattn
-                            P, P, P, P, P, P, P, P, P, I, I, F, F,  # ..eps
+                            P, P, P, P, P, P, I, I, F, F,  # ..eps
                             P, P, P, I, P, P, P, P, P, I, P, P],
     "papr_value_stream_fwd": [P, I, I, I, P, P, P, P, P, P, P, P, I, F, P, P],
-    "papr_value_stream_bwd": [P, I, I, I, P, P, P, P, P, P, P, P, P, P, I, F,
+    "papr_value_stream_bwd": [P, I, I, I, P, P, P, P, P, P, P, P, P, I, F,
                               P, P, P, I, P, P, P, P, P, I, P, P],
     "papr_key_stream_q_fwd": [P, I, I, I, P, P, P, I, F] + [P] * 14    # ..bq
                              + [I, I, F, F] + [P] * 5,
@@ -87,14 +87,16 @@ _ATTEND = SIGNATURES["papr_attend_eval_f32"]
 SIGNATURES["papr_attend_eval"] = _ATTEND[:-1] + [P, I, P]
 SIGNATURES["papr_attend_eval_f32"] = _ATTEND[:-1] + [P, I, P]
 SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
-# The bf16 stream forwards and backwards and the bf16 embedder (on wgmma)
-# take the fp32 forms' arguments, then their packed weights, its size in
-# bytes and the grid; the stream backwards then three device buffers
+# The bf16 stream forwards and the bf16 embedder (on wgmma) take the WMMA
+# forms' arguments, then their packed weights, its size in bytes and the
+# grid; the stream backwards (bf16 and fp32, both on wgmma, their weights
+# read only from the packed image) the same, then three device buffers
 # (per-ray sums of split tiles; the value's datt rows).
 for _name in ("papr_key_stream_fwd", "papr_value_stream_fwd",
               "papr_fused_mlp_fwd", "papr_fused_mlp_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P]
-for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd"):
+for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd",
+              "papr_key_stream_f32_bwd", "papr_value_stream_f32_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P,
                                                   P, P, P]
 

@@ -673,17 +673,19 @@ class BwdBuffers:
 
 
 def bwd_wgmma_buffers(walk: Walk, pd, K: int, T: int, dev, head=None,
-                      extra: int = 0) -> BwdBuffers:
-    """``BwdBuffers`` of a bf16 backward on wgmma over K x T rows (the
-    streams: K tokens a ray; the embedder: K = 1): stash rows k * Tp + t (T
-    padded to the 128-row tile), one partial row a warp (8 a block), and a
-    scratch slice a warpgroup: its 64 rows of the fp32 encoding and, with an
-    output LayerNorm, its fp32 input (128 x 128 floats)."""
+                      extra: int = 0,
+                      cdt: torch.dtype = torch.bfloat16) -> BwdBuffers:
+    """``BwdBuffers`` of a backward on wgmma over K x T rows (the streams: K
+    tokens a ray; the embedder: K = 1): the stash in ``cdt`` (bf16, or fp32
+    for the fp32 stream backwards) with rows k * Tp + t (T padded to the
+    128-row tile), one partial row a warp (8 a block), and a scratch slice a
+    warpgroup: its 64 rows of the fp32 encoding and, with an output
+    LayerNorm, its fp32 input (128 x 128 floats)."""
     grid = wgmma_grid(T)
     per_wg = 64 * pd[0] + (128 * 128 if walk.ln_out is not None else 0)
     return BwdBuffers(pd, K * -(-T // _WG_TILE) * _WG_TILE,
                       _WG_PART_ROWS * grid, dev, head=head, extra=extra,
-                      scratch=2 * grid * per_wg)
+                      cdt=cdt, scratch=2 * grid * per_wg)
 
 
 def wgrad_splits(N: int, da: int, db: int, f32: bool) -> int:

@@ -430,7 +430,8 @@ def attend_stream_eval(rec, rayo, rays, qq, kwalk: Walk, wk, bk, vwalk: Walk,
 # Each direction has a CUDA kernel (``csrc/key_stream.cu``,
 # ``csrc/value_stream.cu``, weight gradients through ``csrc/wgrad.cu``; the
 # bf16 forms on wgmma, their weights packed per call by ``fwd_wgmma_pack`` /
-# ``bwd_wgmma_pack``) and a plain version; a backward's plain version is the
+# ``bwd_wgmma_pack``; the fp32 backwards on wgmma too, packed by
+# ``bwd_wgmma_pack_f32``) and a plain version; a backward's plain version is the
 # plain forward recomputed under autograd, independent of the kernels' hand
 # derivation.
 
@@ -615,15 +616,28 @@ def fwd_wgmma_pack(w, pd, dev, head=()) -> torch.Tensor:
     return pack_walk_wgmma(_walk_mats(w, pd) + list(head), dev)
 
 
-def bwd_wgmma_pack(w, wt, pd, dev, head=()) -> torch.Tensor:
-    """The bf16 backwards' weight image (``csrc/walk_wgmma_bwd.cuh``) in the
-    order a k step streams it: the forward layers (``pack_walk``'s ``w``),
-    the head's pair (key: w_k, w_k^T), then W_l^T for l = n-1 .. 0
-    (``pack_walk_t``'s ``wt``), through ``pack_walk_wgmma``."""
+def _bwd_mats(w, wt, pd, head) -> list:
+    """The backwards' matrices in the order a k step streams them: the
+    forward layers (``pack_walk``'s ``w``), the head's pair (key: w_k,
+    w_k^T), then W_l^T for l = n-1 .. 0 (``pack_walk_t``'s ``wt``)."""
     offs = _layer_offsets(pd)
-    mats = (_walk_mats(w, pd) + list(head)
+    return (_walk_mats(w, pd) + list(head)
             + [wt[o:o + a * b].view(b, a) for a, b, o in reversed(offs)])
-    return pack_walk_wgmma(mats, dev)
+
+
+def bwd_wgmma_pack(w, wt, pd, dev, head=()) -> torch.Tensor:
+    """The bf16 backwards' weight image (``csrc/walk_wgmma_bwd.cuh``) of
+    ``_bwd_mats``, through ``pack_walk_wgmma``."""
+    return pack_walk_wgmma(_bwd_mats(w, wt, pd, head), dev)
+
+
+def bwd_wgmma_pack_f32(w, wt, pd, dev, head=()) -> torch.Tensor:
+    """The fp32 backwards' weight image (``csrc/walk_wgmma_bwd.cuh``, the
+    fp32 operand form) of ``_bwd_mats`` on the fp32 packs, through
+    ``pack_walk_wgmma_f32``: 16 KB hi / lo stages, each 8-row K group
+    permuted, in stream order (the kernel's chunk table is every stage in
+    turn)."""
+    return pack_walk_wgmma_f32(_bwd_mats(w, wt, pd, head), dev)
 
 
 def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
@@ -753,20 +767,15 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
     nsrc = _nsrc(kwalk)
     seg = source_segments(kwalk.cols, nsrc, dev)
     f32 = cdt == torch.float32
-    if f32:
-        nblk = -(-T // 64)
-        buf = BwdBuffers(kpd, K * nblk * 64, nblk, dev,
-                         head=(kpd[-1], dm_pad), extra=dm_pad, cdt=cdt)
-        tail = ()
-    else:
-        check_pe_pairs(kwalk, "key stream backward")
-        buf = bwd_wgmma_buffers(kwalk, kpd, K, T, dev, head=(kpd[-1], dm_pad),
-                                extra=dm_pad)
-        wpack = bwd_wgmma_pack(kw, kwt, kpd, dev, (wkf, wkb))
-        aux = [torch.zeros(T, w, dtype=torch.float32, device=dev)
-               for w in (dm, 3, 3)]
-        tail = (wpack.data_ptr(), 2 * wpack.numel(), fm.wgmma_grid(T),
-                *(a.data_ptr() for a in aux))
+    check_pe_pairs(kwalk, "key stream backward")
+    buf = bwd_wgmma_buffers(kwalk, kpd, K, T, dev, head=(kpd[-1], dm_pad),
+                            extra=dm_pad, cdt=cdt)
+    wpack = (bwd_wgmma_pack_f32 if f32 else bwd_wgmma_pack)(
+        kw, kwt, kpd, dev, (wkf, wkb))
+    aux = [torch.zeros(T, w, dtype=torch.float32, device=dev)
+           for w in (dm, 3, 3)]
+    tail = (wpack.data_ptr(), wpack.numel() * wpack.element_size(),
+            fm.wgmma_grid(T), *(a.data_ptr() for a in aux))
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
@@ -779,9 +788,8 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
         qq.data_ptr(), dm, float(math.sqrt(dm)), raw.data_ptr(),
         ss.data_ptr(), dattn.data_ptr(),
         ctypes.cast(c_ints(kmeta), ctypes.c_void_p), kw.data_ptr(),
-        kb.data_ptr(), kln.data_ptr(), kplan.data_ptr(), kwt.data_ptr(),
-        wkf.data_ptr(), wkb.data_ptr(), bkp.data_ptr(), dm_pad,
-        int(score_act == "relu"), float(bkg_score), float(eps),
+        kb.data_ptr(), kln.data_ptr(), kplan.data_ptr(), bkp.data_ptr(),
+        dm_pad, int(score_act == "relu"), float(bkg_score), float(eps),
         buf.stash.data_ptr(), ctypes.cast(buf.off_arg, ctypes.c_void_p),
         seg.data_ptr(), nsrc, drec.data_ptr(), drayo.data_ptr(),
         drays.data_ptr(), dqq.data_ptr(), buf.part.data_ptr(), buf.part_w,
@@ -1007,23 +1015,17 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
     nsrc = _nsrc(vwalk)
     seg = source_segments(vwalk.cols, nsrc, dev)
     f32 = cdt == torch.float32
-    if f32:
-        nblk = -(-T // 64)
-        buf = BwdBuffers(vpd, K * nblk * 64, nblk, dev, cdt=cdt)
-        tail = ()
-    else:
-        check_pe_pairs(vwalk, "value stream backward")
-        if vpd[-1] > 128:
-            raise NotImplementedError(
-                f"value stream backward: bf16 value rows of {vpd[-1]} > 128 "
-                "(one wgmma pass)")
-        buf = bwd_wgmma_buffers(vwalk, vpd, K, T, dev)
-        wpack = bwd_wgmma_pack(vw, vwt, vpd, dev)
-        aux = [torch.empty(T, K, dtype=torch.float32, device=dev)] + [
-            torch.zeros(T, 3, dtype=torch.float32, device=dev)
-            for _ in range(2)]
-        tail = (wpack.data_ptr(), 2 * wpack.numel(), fm.wgmma_grid(T),
-                *(a.data_ptr() for a in aux))
+    check_pe_pairs(vwalk, "value stream backward")
+    if vpd[-1] > 128:
+        raise NotImplementedError(
+            f"value stream backward: value rows of {vpd[-1]} > 128 (one "
+            "wgmma pass of the bf16 form; the fp32 form takes the same)")
+    buf = bwd_wgmma_buffers(vwalk, vpd, K, T, dev, cdt=cdt)
+    wpack = (bwd_wgmma_pack_f32 if f32 else bwd_wgmma_pack)(vw, vwt, vpd, dev)
+    aux = [torch.empty(T, K, dtype=torch.float32, device=dev)] + [
+        torch.zeros(T, 3, dtype=torch.float32, device=dev) for _ in range(2)]
+    tail = (wpack.data_ptr(), wpack.numel() * wpack.element_size(),
+            fm.wgmma_grid(T), *(a.data_ptr() for a in aux))
     drec = torch.zeros(K, T, rp, dtype=torch.float32, device=dev)
     drayo = torch.zeros(T, 3, dtype=torch.float32, device=dev)
     drays = torch.zeros(T, 3, dtype=torch.float32, device=dev)
@@ -1035,7 +1037,7 @@ def value_stream_bwd(rec, rayo, rays, attn, vwalk: Walk, dfused,
         rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
         attn.data_ptr(), dfused.data_ptr(),
         ctypes.cast(c_ints(vmeta), ctypes.c_void_p), vw.data_ptr(),
-        vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(), vwt.data_ptr(),
+        vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(),
         int(bool(normalize)), float(eps), buf.stash.data_ptr(),
         ctypes.cast(buf.off_arg, ctypes.c_void_p), seg.data_ptr(), nsrc,
         drec.data_ptr(), drayo.data_ptr(), drays.data_ptr(),

@@ -1290,6 +1290,10 @@ def test_int8_train_step_on_card_launch_counts(dev):
 F32_REL = 5e-6
 F32_ATTN_ABS = 5e-6
 F32_BWD_REL = 1e-5
+# The key's fp32 backward on wgmma: the median ray of dqq (its forward
+# recompute's products; sound 6.9e-7-1.2e-6, the products accumulated in the
+# tensor cores' own accumulator across the whole K 3.3e-6-3.8e-6).
+F32_DQQ_MEDIAN_REL = 2e-6
 F32_WGRAD_REL = 1e-6           # against the fp64 product
 WGRAD_REL = 1e-5               # bf16 operands, against the fp64 product
 F32_MARGIN = 1e-5
@@ -1468,6 +1472,126 @@ def test_value_stream_f32_kernels_match_plain(dev, T, normalize):
     _close_all(_rec_lanes(got), _rec_lanes(want), F32_BWD_REL,
                f"value_stream_f32_bwd T={T} normalize={normalize}")
     assert float(got[0][:, 5].abs().max()) == 0.0
+
+
+# The fp32 stream backwards on wgmma (walk_wgmma_bwd.cuh in the fp32 operand
+# form): T not a multiple of the 128-ray tile (and under it), K from 1 to
+# 33, a grid smaller than the tiles (a tile split between two blocks, its
+# second part's per-ray sums added by the combine kernel).
+F32_BWD_CASES = [(300, 20, None), (131, 1, None), (200, 7, None),
+                 (257, 33, None), (300, 7, 2), (131, 20, 1)]
+
+
+@pytest.mark.parametrize("T,K,grid", F32_BWD_CASES)
+def test_key_stream_f32_bwd_wgmma_matches_plain(dev, monkeypatch, T, K, grid):
+    """Row 5's fp32 backward on wgmma against the plain fp32 backward on the
+    held rays (relu inputs 1e-5 rms from 0; the plain softmax backward reads
+    the kernel forward's raw dots, as the kernel does), every output at
+    F32_BWD_REL and the median ray of dqq at F32_DQQ_MEDIAN_REL;
+    an all-dead ray (5) and, with T > 128, a warpgroup of all-dead rays
+    (64..127) get no gradient; one launch counted."""
+    rng = np.random.default_rng(500 + T + K)
+    rec, rayo, rays, qq, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    if T > 128:
+        rec[:, 64:128, 4] = 0.0
+    _fwd_grid(monkeypatch, grid)
+    args = (rec, rayo, rays, qq, kw, wk, bk)
+    _, raw, ss = sa.key_stream_f32_fwd(*args)
+    dattn = torch.as_tensor(rng.normal(size=(T, K + 1)).astype(np.float32),
+                            device=dev)
+    dattn = _firm(dattn, sa.rec_relu_margin(rec, rayo, rays, kw))
+    before = sa.key_stream_f32_bwd.launches, sa.key_stream_bwd.launches
+    got = sa.key_stream_f32_bwd(*args, raw, ss, dattn)
+    assert (sa.key_stream_f32_bwd.launches, sa.key_stream_bwd.launches) == (
+        before[0] + 1, before[1])
+    want = sa.key_stream_bwd_plain(*args, dattn, "relu", 5.0, 1e-6,
+                                   torch.float32, relu_on=raw > 0,
+                                   raw_saved=raw)
+    _close_all(_rec_lanes(got), _rec_lanes(want), F32_BWD_REL,
+               f"key_stream_f32_bwd wgmma T={T} K={K} grid={grid}")
+    med = _median_row_rels([got[3]], [want[3]])[0]
+    print(f"key_stream_f32_bwd wgmma T={T} K={K} grid={grid}: median ray "
+          f"dqq {med:.2e}")
+    assert med <= F32_DQQ_MEDIAN_REL
+    dead = [5] + (list(range(64, 128)) if T > 128 else [])
+    assert float(got[0][:, dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("T,K,grid", F32_BWD_CASES)
+def test_value_stream_f32_bwd_wgmma_matches_plain(dev, monkeypatch, T, K,
+                                                  grid, normalize):
+    """Row 6's fp32 backward on wgmma, as the key's above; rays with no
+    foreground mass (5, and 64..127 with T > 128) divide by 1: no gradient
+    into their walks."""
+    rng = np.random.default_rng(600 + T + K)
+    rec, rayo, rays, _, _, vw, _, _ = _stream_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    if T > 128:
+        a[64:128, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    _fwd_grid(monkeypatch, grid)
+    args = (rec, rayo, rays, attn, vw)
+    dfused = torch.as_tensor(rng.normal(size=(T, 32)).astype(np.float32),
+                             device=dev)
+    dfused = _firm(dfused, sa.rec_relu_margin(rec, rayo, rays, vw))
+    before = sa.value_stream_f32_bwd.launches, sa.value_stream_bwd.launches
+    got = sa.value_stream_f32_bwd(*args, dfused, normalize)
+    assert (sa.value_stream_f32_bwd.launches,
+            sa.value_stream_bwd.launches) == (before[0] + 1, before[1])
+    want = sa.value_stream_bwd_plain(*args, dfused, normalize, 1e-6,
+                                     torch.float32)
+    _close_all(_rec_lanes(got), _rec_lanes(want), F32_BWD_REL,
+               f"value_stream_f32_bwd wgmma T={T} K={K} grid={grid} "
+               f"normalize={normalize}")
+    dead = [5] + (list(range(64, 128)) if T > 128 else [])
+    assert float(got[0][:, dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("stream", ["key", "value"])
+def test_stream_f32_bwd_wgmma_on_demo_widths(dev, stream):
+    """The fp32 backwards on ``configs/demo.yml``'s narrow walks (key 3 x
+    64, d_model 64; value 3 layers to 32, 16 point features; posenc orders
+    4): one-pass layers and a 64-wide head, against the plain fp32
+    backward on the held rays."""
+    rng = np.random.default_rng(700)
+    T, K, dm = 300, 8, 64
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    rec = np.zeros((K, T, 32), np.float32)
+    rec[..., :3] = rng.normal(size=(K, T, 3))
+    rec[..., 3] = rng.normal(size=(K, T))
+    rec[..., 4] = rng.random((K, T)) > 0.2
+    rec[..., 5:21] = rng.normal(size=(K, T, 16))
+    rec = t(rec)
+    rayo = t(np.broadcast_to(rng.normal(size=(1, 3)) * 3, (T, 3)))
+    rays = rng.normal(size=(T, 3))
+    rays = t(rays / np.linalg.norm(rays, axis=-1, keepdims=True))
+    if stream == "key":
+        kw = _walk(rng, sa.rec_pe_plan(True, (4, 4, 4), 1, 2.0, 1.0, 0), 3,
+                   64, 64, True, dev)
+        args = (rec, rayo, rays, t(rng.normal(size=(T, dm))), kw,
+                t(rng.normal(size=(dm, 64)) / 8), t(rng.normal(size=dm) * 0.1))
+        _, raw, ss = sa.key_stream_f32_fwd(*args)
+        dattn = _firm(t(rng.normal(size=(T, K + 1))),
+                      sa.rec_relu_margin(rec, rayo, rays, kw))
+        got = sa.key_stream_f32_bwd(*args, raw, ss, dattn)
+        want = sa.key_stream_bwd_plain(*args, dattn, "relu", 5.0, 1e-6,
+                                       torch.float32, relu_on=raw > 0,
+                                       raw_saved=raw)
+    else:
+        vw = _walk(rng, sa.rec_pe_plan(False, (4, 4), 1, 2.0, 1.0, 16), 3,
+                   64, 32, False, dev)
+        a = rng.random((T, K + 1)).astype(np.float32)
+        args = (rec, rayo, rays, t(a / a.sum(-1, keepdims=True)), vw)
+        dfused = _firm(t(rng.normal(size=(T, 32))),
+                       sa.rec_relu_margin(rec, rayo, rays, vw))
+        got = sa.value_stream_f32_bwd(*args, dfused, True)
+        want = sa.value_stream_bwd_plain(*args, dfused, True, 1e-6,
+                                         torch.float32)
+    _close_all(_rec_lanes(got), _rec_lanes(want), F32_BWD_REL,
+               f"{stream}_stream_f32_bwd wgmma demo widths")
 
 
 # Every (da, db) the walks stash: the flagship's key (posenc 117 -> 128),

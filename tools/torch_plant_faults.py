@@ -43,7 +43,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # "wgmma wgrad" wgrad.cu, "wgmma walk" (with "fp32 wgmma walk", the fp32
 # form), "bwd wgmma walk" and "fwd wgmma"
 # (the bf16 stream forwards, on K3's walk) walk_wgmma.cuh, "bwd wgmma"
-# walk_wgmma_bwd.cuh (the bf16 stream backwards), "wgmma attend"
+# walk_wgmma_bwd.cuh (the bf16 stream backwards; "fp32 bwd wgmma" the fp32
+# ones), "wgmma attend"
 # attend_eval.cu, "embed wgmma bwd" walk_wgmma_bwd.cuh, "embed wgmma"
 # walk_wgmma.cuh, the others fused_attn.cu. A fourth element names every
 # comparison (TARGETS) that reads the case's build, where the planted line
@@ -57,6 +58,15 @@ _F32_WG_PRODUCTS = (
     "                            dl + kk, 1);\n"
     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
     "                            dh + kk, 1);\n")
+# Their join into the layer's accumulator after each 32-deep chunk.
+_F32_WG_JOIN = (
+    "        }\n"
+    "        wgmma_commit();\n"
+    "        wgmma_wait<0>();\n"
+    "        reg_fence(f);\n"
+    "#pragma unroll\n"
+    "        for (int i = 0; i < kF32PassN / 2; ++i)\n"
+    "          acc[32 * p + i] = __fadd_rn(acc[32 * p + i], f[i]);\n")
 MUTS = [
     ("embed wgmma: the second weight chunk read from the first one's stage "
      "(a stale stage)",
@@ -147,7 +157,8 @@ MUTS = [
      "        l > 0 && d.act == 1 ? masks + (l - 1) * 512 : nullptr;",
      "        l > 0 && d.act == 1 ? masks + l * 512 : nullptr;"),
     ("bwd wgmma: one pass of the output LayerNorm's db column sums dropped",
-     "  colsum_pass([&](int i) { return acc[i]; }, part_b + c1, n_true - c1);",
+     "    colsum_pass([&](int i) { return acc[o + i]; }, part_b + co, n_true "
+     "- co);",
      ""),
     ("bwd wgmma walk: the second weight chunk read from the first one's "
      "stage (a stale stage, W and W^T alike)",
@@ -205,27 +216,53 @@ MUTS = [
      "      float v0 = acc[4 * j + 2 * h] + b.x;",
      "      float v0 = bf16_round(acc[4 * j + 2 * h]) + b.x;"),
     ("wgmma attend: one k step's value row left out of the fuse",
-     "              arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);",
+     "              arow[c1] = arow[c1] * scale + e * act_round<Op>(acc[i]);",
      "              arow[c1] = arow[c1] * scale + (k == 1 ? 0.f : e) * "
-     "bf16_round(acc[i]);"),
+     "act_round<Op>(acc[i]);"),
     ("wgmma attend: value rows not rounded to bf16 before the fuse (a "
      "rounding point)",
-     "              arow[c1] = arow[c1] * scale + e * bf16_round(acc[i]);",
+     "              arow[c1] = arow[c1] * scale + e * act_round<Op>(acc[i]);",
      "              arow[c1] = arow[c1] * scale + e * acc[i];"),
     ("fp32 wgmma walk: single-pass TF32 (the lo terms dropped; the fp32 "
-     "one-shot eval attention)",
+     "one-shot eval attention and the fp32 stream backwards)",
      _F32_WG_PRODUCTS,
      "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
      "                            dh + kk, s > 0);\n",
      ("compare_f32_kernels",)),
     ("fp32 wgmma walk: the lo.hi term dropped (one cross term; the fp32 "
-     "one-shot eval attention)",
+     "one-shot eval attention and the fp32 stream backwards)",
      _F32_WG_PRODUCTS,
      "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
      "                            dl + kk, s > 0);\n"
      "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
      "                            dh + kk, 1);\n",
      ("compare_f32_kernels",)),
+    ("fp32 wgmma walk: the tensor cores' own accumulator across the whole "
+     "K (no fresh accumulator per 32-deep chunk joined by round-to-nearest "
+     "adds; the fp32 one-shot eval attention and the fp32 stream backwards)",
+     _F32_WG_PRODUCTS + _F32_WG_JOIN,
+     _F32_WG_PRODUCTS.replace("dh + kk, s > 0);",
+                              "dh + kk, s > 0 || sub > 0 || c > 0);")
+     + _F32_WG_JOIN.replace("__fadd_rn(acc[32 * p + i], f[i])", "f[i]"),
+     ("compare_f32_kernels",)),
+    ("fp32 bwd wgmma: the layer inputs and dz stashed in bf16 (the fp32 "
+     "stream backwards' stash)",
+     "      *reinterpret_cast<float4*>(dst + (srow0 + r) * pd + 4 * u) =\n"
+     "          *reinterpret_cast<const float4*>(E + r * kF32Ld + 4 * u);",
+     "      {\n"
+     "        float4 v = *reinterpret_cast<const float4*>(E + r * kF32Ld + "
+     "4 * u);\n"
+     "        v.x = bf16_round(v.x);\n        v.y = bf16_round(v.y);\n"
+     "        v.z = bf16_round(v.z);\n        v.w = bf16_round(v.w);\n"
+     "        *reinterpret_cast<float4*>(dst + (srow0 + r) * pd + 4 * u) = "
+     "v;\n      }",
+     ("f32_stream_bwd",)),
+    ("fp32 bwd wgmma: db summed from the bf16-rounded dz (the fp32 stream "
+     "backwards)",
+     "  colsum_layer([&](int i) { return acc[i]; }, part_db, width);",
+     "  colsum_layer([&](int i) { return bf16_round(acc[i]); }, part_db, "
+     "width);",
+     ("f32_stream_bwd",)),
     ("fp32 walk: single-pass TF32 (the lo terms dropped)",
      "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
      "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
@@ -425,6 +462,9 @@ TARGETS = {
     "compare_wgmma_kernels": (("phase 2 K3", "phase 2 wgrad",
                                "phase 8 wgrad_f32"),
                               "attend_eval_kernel or wgrad or hgmma"),
+    # compare_f32_kernels, read for the two fp32 stream backwards only.
+    "f32_stream_bwd": (("phase 8 key_stream_f32_bwd",
+                        "phase 8 value_stream_f32_bwd"), "f32_bwd_wgmma"),
     # compare_train_kernels, read for the two bf16 stream backwards only.
     "stream_bwd": (("phase 2 key_stream_bwd", "phase 2 value_stream_bwd"),
                    "stream_bwd_wgmma"),
@@ -436,12 +476,16 @@ TARGETS = {
               "fused_mlp_wgmma or fused_mlp_bwd_wgmma"),
 }
 # The comparison function each target runs, and the cuda test lines shown.
-FN = {"stream_bwd": "compare_train_kernels",
+FN = {"f32_stream_bwd": "compare_f32_kernels",
+      "stream_bwd": "compare_train_kernels",
       "stream_fwd": "compare_train_kernels",
       "embed": "compare_embed_kernels"}
 TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                                        "value_stream_i8", "int8_walk_bench"),
-              "compare_f32_kernels": ("f32",),
+              "compare_f32_kernels": ("f32", "key_stream_f32_bwd wgmma",
+                                      "value_stream_f32_bwd wgmma"),
+              "f32_stream_bwd": ("key_stream_f32_bwd wgmma",
+                                 "value_stream_f32_bwd wgmma"),
               "compare_train_kernels": ("key_stream_q T",),
               "compare_wgmma_kernels": ("attend_eval T", "wgrad"),
               "stream_bwd": ("key_stream_bwd T", "value_stream_bwd T"),
@@ -543,7 +587,8 @@ def run_case(name, old, new, targets) -> None:
         cwd=root, capture_output=True, text=True)
     for line in t.stdout.splitlines():
         line = line.lstrip(".FEs")        # -s: pytest's progress marks
-        if "Error" in line or (lines and line.startswith(lines)):
+        if "Error" in line or ": assert " in line or (
+                lines and line.startswith(lines)):
             print("  cuda tests: " + line[:400], flush=True)
     print(f"  cuda tests: exit code {t.returncode}", flush=True)
     shutil.rmtree(root, ignore_errors=True)

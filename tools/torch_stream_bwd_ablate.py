@@ -1,17 +1,23 @@
-"""Where the bf16 stream backwards spend their time: the key and value
-stream backwards (``csrc/key_stream.cu`` / ``csrc/value_stream.cu``,
+"""Where the stream backwards spend their time: the key and value stream
+backwards (``csrc/key_stream.cu`` / ``csrc/value_stream.cu``,
 ``papr_key_stream_bwd`` / ``papr_value_stream_bwd``) timed whole and with
 one part taken out at a time, and the whole wrapper call split into the
-kernel alone, the dW reduction (``wgrad`` + ``colsum``) and the rest (packs,
-allocations, zero fills), on phase 2's shapes (T = 25,600 rays, K = 20,
-30,000 points, the flagship's walks with random weights).
+kernel alone, the dW reduction (``wgrad`` + ``colsum``), the other device
+kernels (packs, zero fills, the combine kernel) and the host, on phase 2's
+shapes (T = 25,600 rays, K = 20, 30,000 points, the flagship's walks with
+random weights). With ``--f32`` the fp32 backwards (``use_amp: false``,
+``papr_key_stream_f32_bwd`` / ``papr_value_stream_f32_bwd``) at phase 8's
+shapes: Caterpillar's 180 x 180 patch (T = 32,400, K = 20, 5,000 points)
+and Caterpillar's walks (key posenc orders 4, 4, 4; value 4, 4 and 64 point
+features) with random weights.
 
-    python tools/torch_stream_bwd_ablate.py [--tree DIR] [--split-only]
+    python tools/torch_stream_bwd_ablate.py [--f32] [--tree DIR] [--split-only]
 
 ``--tree`` takes the sources and the package from another checkout (for
 example an unpacked parent commit); the variants follow that tree's design
-(``WGMMA`` where ``csrc/walk_wgmma_bwd.cuh`` exists, else the parent's
-``WMMA``). Each
+(bf16: ``WGMMA`` where ``csrc/walk_wgmma_bwd.cuh`` exists, else ``WMMA``;
+fp32: ``WGMMA_F32`` where that header has the fp32 form (``StreamBwdWgT``), else
+``WMMA_F32``, the WMMA kernels of ``walk_bwd.cuh``). Each
 variant is a copy of the CUDA sources with lines replaced, built alone
 (``key_stream.cu``, ``value_stream.cu``, ``wgrad.cu``) and loaded in place of
 the library; the wrapper and its inputs are the same for all. A variant
@@ -88,6 +94,24 @@ WMMA = [
        _BODY(_GEOM, "  for (int j = 0; j < 3; ++j) dsel[j] = drays[j] = 0.f;\n"
              "  if (eps > -1.f) return;"))]),
 ]
+# The fp32 backwards on the same WMMA walk (walk_bwd.cuh with float
+# operands, 3xTF32 m16n16k8): the parts the fp32 redesign has to move.
+_NO_REC = [("walk_bwd.cuh", _REC, "    if (l < 0)" + _REC[3:]),
+           ("stream_common.cuh", _HEAD_F, "  if (pdn < 0)" + _HEAD_F[1:])]
+_NO_REV = [("walk_bwd.cuh", _REV, "    if (l < 0)" + _REV[3:]),
+           ("stream_common.cuh", _HEAD_B, "  if (pdn < 0)" + _HEAD_B[1:])]
+WMMA_F32 = [
+    ("fp32 WMMA: whole kernel", []),
+    ("fp32 WMMA: no products", _NO_REC + _NO_REV),
+    ("fp32 WMMA: no weight staging waits", WMMA[3][1]),
+    ("fp32 WMMA: no stash / scratch stores", WMMA[5][1]),
+    ("fp32 WMMA: no LayerNorm backwards",
+     [("walk_bwd.cuh", _LNB, _BODY(_LNB, "  if (pd > 0) return;"))]),
+    ("fp32 WMMA: no column sums",
+     [("walk_bwd.cuh", _COLSUM, _BODY(_COLSUM, "  if (pd > 0) return;"))]),
+    ("fp32 WMMA: no posenc / geometry backward",
+     WMMA[7][1] + WMMA[8][1]),
+]
 # This PR's wgmma design (walk_wgmma_bwd.cuh on walk_wgmma.cuh's layers).
 _MMA = "      wgmma_rs_bf16_n128(acc, A[4 * kb], A[4 * kb + 1], A[4 * kb + 2],"
 _WAIT = "    if (real) mbar_wait(&ring.full[st], (ring.i / ring.stages) & 1);"
@@ -126,6 +150,33 @@ WGMMA = [
        "  for (int r = row0; r < row0 + 16 && d.n < 0; ++r) {\n"
        "    float* row = E + r * ld;\n    const float* x = enc_s")]),
 ]
+# The fp32 backwards on wgmma (the same walk in walk_wgmma.cuh's fp32
+# operand form: 3xTF32 m64n64k8, the layer inputs fp32 in shared memory).
+_F32_MMA = ("          const int kk = 2 * (sub * kF32Sub + s);     // 32 bytes "
+            "a k8 step\n")
+_F32_NO_MMA = [("walk_wgmma.cuh", _F32_MMA,
+                _F32_MMA + "          if (kk >= 0) continue;\n")]
+_F32_NO_WAIT = [("walk_wgmma.cuh", "          mbar_wait(&ring.full[st], "
+                 "(ring.i / ring.stages) & 1);\n", ""),
+                ("walk_wgmma.cuh", _REFILL, "")]
+_SF = ("                                               int row0) {\n"
+       "  const int lane = threadIdx.x & 31, upr = pd / 4;")
+WGMMA_F32 = [
+    ("fp32 wgmma: whole kernel", []),
+    ("fp32 wgmma: no products", _F32_NO_MMA),
+    ("fp32 wgmma: no waits for weights", _F32_NO_WAIT),
+    ("fp32 wgmma: no products, no waits", _F32_NO_MMA + _F32_NO_WAIT),
+    ("fp32 wgmma: no stash stores",
+     [("walk_wgmma_bwd.cuh", _SF, _BODY(_SF, "  if (pd > 0) return;"))]),
+    ("fp32 wgmma: no column sums",
+     [("walk_wgmma_bwd.cuh", _CS, _BODY(_CS, "  if (ncol > -1000) return;"))]),
+    ("fp32 wgmma: no output LayerNorm backward",
+     [("walk_wgmma_bwd.cuh", _LB, _BODY(_LB, "  if (n_true > 0) return;"))]),
+    ("fp32 wgmma: no posenc / geometry backward (the per-warp tail)",
+     [("walk_wgmma_bwd.cuh", _ROWS,
+       "  for (int r = row0; r < row0 + 16 && d.n < 0; ++r) {\n"
+       "    float* row = E + r * ld;\n    const float* x = enc_s")]),
+]
 
 
 def _walk(rng, cols, n, d_ff, d_out, norm, dev):
@@ -144,11 +195,14 @@ def _walk(rng, cols, n, d_ff, d_out, norm, dev):
                 "none", tuple(cols))
 
 
-def inputs(dev, T=25_600, K=20, P=30_000, dm=256, seed=2):
-    """The two backwards' arguments on phase 2's shapes: (key args, value
-    args), each ending in the compute options."""
+def inputs(dev, f32=False, seed=2):
+    """The two backwards' arguments: (key args, value args), each ending in
+    the compute options; bf16 on phase 2's shapes and the flagship's walks,
+    fp32 (``f32``) on phase 8's and Caterpillar's walks."""
     import torch
     from papr_tpu_torch.ops import stream_attn as sa
+    T, P, L = (32_400, 5_000, 4) if f32 else (25_600, 30_000, 6)
+    K, dm = 20, 256
     rng = np.random.default_rng(seed)
     record = np.zeros((P, 128), np.float32)
     record[:, :3] = rng.normal(size=(P, 3))
@@ -163,12 +217,12 @@ def inputs(dev, T=25_600, K=20, P=30_000, dm=256, seed=2):
     rayo = t(np.broadcast_to(rng.normal(size=(1, 3)) * 3, (T, 3)))
     rays = t(rays / np.linalg.norm(rays, axis=-1, keepdims=True))
     qq = t(rng.normal(size=(T, dm)))
-    kwalk = _walk(rng, sa.rec_pe_plan(True, (6, 6, 6), 1, 2.0, 1.0, 0), 5,
+    kwalk = _walk(rng, sa.rec_pe_plan(True, (L, L, L), 1, 2.0, 1.0, 0), 5,
                   256, 256, True, dev)
     wk, bk = t(rng.normal(size=(dm, 256)) / 16), t(rng.normal(size=dm) * 0.1)
-    vwalk = _walk(rng, sa.rec_pe_plan(False, (6, 6), 1, 2.0, 1.0, 64), 8, 256,
+    vwalk = _walk(rng, sa.rec_pe_plan(False, (L, L), 1, 2.0, 1.0, 64), 8, 256,
                   32, False, dev)
-    cdt = torch.bfloat16
+    cdt = torch.float32 if f32 else torch.bfloat16
     attn, raw, ss = sa.key_stream_fwd(rec, rayo, rays, qq, kwalk, wk, bk,
                                       "relu", 5.0, 1e-6, cdt)
     dattn = t(rng.normal(size=(T, K + 1)))
@@ -196,7 +250,7 @@ def _split(fn, name: str, n: int = 3):
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.end - e.time_range.start
-        if name in e.name:
+        if name in e.name and "combine" not in e.name:
             kern += us
         elif "wgrad" in e.name or "colsum" in e.name:
             red += us
@@ -216,6 +270,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--split-only", action="store_true")
+    ap.add_argument("--f32", action="store_true")
     opt = ap.parse_args()
     tree = os.path.abspath(opt.tree)
     sys.path.insert(0, tree)
@@ -228,14 +283,15 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"{smi}; tree {tree}", flush=True)
-    key, value = inputs(dev)
+    key, value = inputs(dev, opt.f32)
     cases = (("key", "key_bwd", lambda: sa.key_stream_bwd(*key)),
              ("value", "value_bwd", lambda: sa.value_stream_bwd(*value)))
+    form = "fp32" if opt.f32 else "bf16"
     sound = {}
     for what, pat, fn in cases:
         sound[what] = [g.clone() for g in fn()]
         k_ms, r_ms, o_ms, whole = _split(fn, pat)
-        print(f"{what} stream backward, whole call {whole:.3f} ms: kernel "
+        print(f"{form} {what} stream backward, whole call {whole:.3f} ms: kernel "
               f"alone {k_ms:.3f}, wgrad + colsum {r_ms:.3f}, other device "
               f"kernels {o_ms:.3f}, host / gaps "
               f"{whole - k_ms - r_ms - o_ms:.3f}", flush=True)
@@ -248,9 +304,13 @@ def main() -> None:
     subprocess.run([nvcc, *build.NVCC_FLAGS, "-c", "-o", wg_obj,
                     os.path.join(csrc, "wgrad.cu")], check=True,
                    capture_output=True)
-    # The tree's design: the wgmma backwards where their header exists.
-    variants = (WGMMA if os.path.exists(os.path.join(csrc, "walk_wgmma_bwd.cuh"))
-                else WMMA)
+    # The tree's design: the wgmma backwards where their header has them.
+    hdr = os.path.join(csrc, "walk_wgmma_bwd.cuh")
+    hdr = open(hdr).read() if os.path.exists(hdr) else ""
+    if opt.f32:
+        variants = WGMMA_F32 if "StreamBwdWgT" in hdr else WMMA_F32
+    else:
+        variants = WGMMA if hdr else WMMA
     procs, runs = {}, []
     for i, (name, subs) in enumerate(variants):
         src = os.path.join(root, str(i))
@@ -289,7 +349,8 @@ def main() -> None:
                        check=True, capture_output=True)
         lib = ctypes.CDLL(so)
         for fname in ("papr_key_stream_bwd", "papr_value_stream_bwd",
-                      "papr_wgrad", "papr_colsum"):
+                      "papr_key_stream_f32_bwd", "papr_value_stream_f32_bwd",
+                      "papr_wgrad", "papr_wgrad_f32", "papr_colsum"):
             getattr(lib, fname).argtypes = build.SIGNATURES[fname]
             getattr(lib, fname).restype = ctypes.c_int
         build._lib = lib           # the wrappers load this build
