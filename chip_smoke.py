@@ -100,9 +100,12 @@ Phases (each prints a line; any failure exits non-zero):
    (``fused_mlp_f32`` fwd / bwd, ``attend_eval_f32``, the key / value streams
    fwd / bwd, ``wgrad_f32`` beside one ``torch.matmul``) against their plain
    fp32 versions at its shapes, with what one TF32 pass would read (the
-   stream backwards, on wgmma: also each kernel alone, its profiler span,
-   beside the earlier WMMA kernel's times, their walk gradients at a tighter
-   bound, and the key's median dqq ray); the first
+   stream forwards and backwards, on wgmma: also each kernel alone, its
+   profiler span, beside the earlier WMMA kernel's times, and a median-ray
+   bound: the forwards' raw / fused, the key backward's dqq; the backwards'
+   walk gradients at a tighter bound; the forwards against the fp32 K3 on
+   its rays, the key's attention bit for bit, and at ``configs/demo.yml``'s
+   widths); the first
    step's loss and gradients against the plain fp32 path, then 1 + 10 steps
    under ``auto`` (ms/step, rays/s, kernel time, idle share, peak memory,
    exact launch counts: fp32 kernels only, no plain version; the step's
@@ -290,6 +293,11 @@ WGRAD_F32_WMMA_MS = 4.819
 # walks with random weights; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
 F32_BWD_WMMA_MS = {"key_stream_f32_bwd": (53.692, 47.031),
                    "value_stream_f32_bwd": (58.484, 50.305)}
+# The fp32 stream forwards on walk.cuh's WMMA walk before their wgmma
+# redesign (the key's softmax inside the kernel), the same readings
+# (tools/torch_stream_fwd_ablate.py --f32 on that tree; PERF.md §6).
+F32_FWD_WMMA_MS = {"key_stream_f32_fwd": (18.304, 17.861),
+                   "value_stream_f32_fwd": (21.857, 21.403)}
 # The bf16 WMMA kernels before their wgmma redesigns (NVIDIA H100 80GB HBM3,
 # 700 W), (whole call, kernel alone: its profiler span) ms, measured on the
 # tree before each redesign (PERF.md §6): the key / value stream forwards
@@ -394,6 +402,20 @@ F32_BWD_REL = 1e-4
 # reads the kernel forward's raw dots (raw_saved), as the kernel does.
 F32_BWD_WALK_REL = 2e-5
 F32_DQQ_MEDIAN_REL = 2e-6
+# A fault only in the reverse walk's products (dz_l W_l^T) moves neither dqq
+# nor the last layer's gradients, and the per-ray statistics of d_rec /
+# d_rayo / d_rays drown in the geometry backward's noise on this view
+# (median ray of d_rec[0:3]: sound 2.16e-5, that fault 2.29e-5). The walk's
+# input-side gradients, which the whole reverse chain feeds (b0 and the
+# input LayerNorm's), resolve it: sound key <= 1.49e-6, value <= 1.46e-6;
+# the reverse products in the tensor cores' own accumulator 6.56e-6 /
+# 8.81e-6, the forward and reverse products so 3.67e-6 / 2.08e-5 (PERF.md,
+# Findings).
+F32_BWD_IN_REL = 3e-6
+# The fp32 stream forwards on wgmma also hold the median ray's relative
+# error (the key: raw; the value: fused), as phase 2's bf16 forwards do
+# (PERF.md, Findings).
+F32_FWD_MEDIAN_REL = 3e-6
 F32_MARGIN = 1e-5
 F32_WGRAD_REL = 1e-5           # against the fp64 product of the operands
 # The int8 walks beside fp32 compute against their plain versions, on
@@ -768,6 +790,34 @@ def compare_fwd_with_k3(params, state, cfg, device) -> None:
     if not (same and f_rel <= K3_FUSED_REL):
         fail("the stream forwards disagree with K3 on K3's rays")
     del rec
+
+
+def compare_f32_fwd_with_k3(eargs, rec) -> bool:
+    """Phase 8: the fp32 stream forwards against the fp32 K3 on K3's rays,
+    the record gathered k-major by K3's indices (``rec``; the three kernels
+    run walk_wgmma.cuh's fp32 forward walk): the key forward's attention
+    against K3's bit for bit (one walk, one softmax), and the value forward
+    on K3's attention against K3's fused features within K3_FUSED_REL (K3
+    sums with an online softmax, the value forward renormalizes the
+    attention it is given)."""
+    import torch
+    from papr_tpu_torch.ops import stream_attn as sa
+    (record, idx, rayo_f, rays, qq, kwalk, wk, bk, vwalk, score_act, bkg,
+     normalize, eps) = eargs
+    fused3, attn3 = sa.attend_eval_f32(*eargs)
+    attn = sa.key_stream_f32_fwd(rec, rayo_f, rays, qq, kwalk, wk, bk,
+                                 score_act, bkg, eps)[0]
+    fused = sa.value_stream_f32_fwd(rec, rayo_f, rays, attn3, vwalk,
+                                    normalize, eps)
+    same = torch.equal(attn, attn3)
+    a_abs = float((attn - attn3).abs().max())
+    f_rel = rel_fro(fused, fused3)
+    print(f"phase 8 fp32 stream forwards against the fp32 K3 (T="
+          f"{idx.shape[0]} K={idx.shape[1]}): key attn bit-equal to K3's "
+          f"{same} (need True; max abs {a_abs:.3e}); value fused on K3's "
+          f"attn rel Frobenius {f_rel:.3e} (need <= {K3_FUSED_REL})",
+          flush=True)
+    return same and f_rel <= K3_FUSED_REL
 
 
 def compare_cli_kernels(params, state, cfg, device, n_time: int = 3) -> list:
@@ -3195,6 +3245,7 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
     (forward and backward) on the 180x180 patch (T = 32,400, K = 20), and
     the dW reduction on the key stack's (K * T, 256) x (K * T, 256)."""
     import torch
+    from papr_tpu_torch.config import load_config
     from papr_tpu_torch.kernels import build
     from papr_tpu_torch.model.papr import (_split_embeddings, _stream_inputs,
                                            model_meta)
@@ -3225,14 +3276,16 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
     def record(name, source, replaces, fn, plain, tol, labels, in_bytes,
                flops, tf32=None, attn_tol=None, library=None,
                rate=F32_TC_FLOPS, stack_of=None, median=None, earlier=None,
-               span=None, n_walk=0):
+               span=None, n_walk=0, hold_in=False):
         """Kernel against its plain fp32 version; with ``stack_of`` the
         reading goes into that kernel's record as a stack it also runs;
         ``median`` (output index, bound): the median over rays of that
-        output row's relative error, held to the bound; ``span`` (a kernel
-        name pattern) times the kernel alone too (its profiler span), beside
-        F32_BWD_WMMA_MS[name]; the last ``n_walk`` outputs (a walk's
-        gradients) are held to F32_BWD_WALK_REL too."""
+        output row's relative error, held to the bound; ``span`` (a
+        kernel name pattern) times the kernel alone too (its profiler span),
+        beside F32_BWD_WMMA_MS[name] / F32_FWD_WMMA_MS[name]; the last
+        ``n_walk`` outputs (a walk's gradients) are held to
+        F32_BWD_WALK_REL too; ``hold_in`` holds the walk's input-side
+        gradients (b0, ln_in.a, ln_in.b) to F32_BWD_IN_REL."""
         g, w = fn(), plain()
         torch.cuda.synchronize()
         rels = _rels(g, w)
@@ -3259,6 +3312,12 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
             line += (f"; the walk's gradients max {w_max:.3e} (need <= "
                      f"{F32_BWD_WALK_REL})")
             ok &= w_max <= F32_BWD_WALK_REL
+        if hold_in:
+            ins = [r for l, r in zip(labels, rels)
+                   if l in ("b0", "ln_in.a", "ln_in.b")]
+            line += (f"; the walk's input-side gradients (b0, ln_in) max "
+                     f"{max(ins):.3e} (need <= {F32_BWD_IN_REL})")
+            ok &= max(ins) <= F32_BWD_IN_REL
         if median is not None:
             i, m_tol = median
             d = (g[i] - w[i]).norm(dim=-1)
@@ -3279,12 +3338,14 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         if span is not None:
             ran = []
             alone = kernel_span_ms(fn, span, names=ran)
-            old_call, old_alone = F32_BWD_WMMA_MS[name]
+            old_call, old_alone = {**F32_BWD_WMMA_MS, **F32_FWD_WMMA_MS}[name]
+            rest = ("wgrad_f32, colsum, the combine kernel, packs, host"
+                    if name.endswith("_bwd") else
+                    "the pack, the output's allocation, host")
             line += (f"; kernel alone {alone:.3f} ms ({' + '.join(ran)}; the "
-                     f"rest of the call {ms - alone:.3f} ms: wgrad_f32, "
-                     f"colsum, the combine kernel, packs, host; the earlier "
-                     f"WMMA kernel: call {old_call} ms, alone {old_alone} "
-                     "ms)")
+                     f"rest of the call {ms - alone:.3f} ms: {rest}; the "
+                     f"earlier WMMA kernel: call {old_call} ms, alone "
+                     f"{old_alone} ms)")
         line += (f", plain {p_ms:.3f} ms, bound "
                  f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
         if library is not None:
@@ -3359,7 +3420,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         lambda: list(sa.key_stream_plain(*kargs, *kopts, f32))[:2],
         F32_FWD_REL, ["attn", "raw"],
         nbytes(rec, rayo_f, rays, qq) + walk_bytes(kwalk),
-        T * k * walk_flops(kwalk, wk), attn_tol=F32_ATTN_ABS)
+        T * k * walk_flops(kwalk, wk), attn_tol=F32_ATTN_ABS,
+        span="key_fwd", median=(1, F32_FWD_MEDIAN_REL))
     ss = sa.key_stream_f32_fwd(*kargs, *kopts)[2]
     dattn = firm(randn(T, k + 1),
                  sa.rec_relu_margin(rec, rayo_f, rays, kwalk, eps),
@@ -3374,7 +3436,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            + walk_labels(kwalk),
            nbytes(rec, rayo_f, rays, qq, raw, ss, dattn) + walk_bytes(kwalk),
            3 * T * k * walk_flops(kwalk, wk), span="key_bwd_wgmma_f32",
-           n_walk=len(walk_labels(kwalk)), median=(5, F32_DQQ_MEDIAN_REL))
+           n_walk=len(walk_labels(kwalk)), median=(5, F32_DQQ_MEDIAN_REL),
+           hold_in=True)
     vargs = (rec, rayo_f, rays, attn, vwalk)
     record("value_stream_f32_fwd", "papr_tpu_torch/csrc/value_stream.cu",
            "papr_tpu/ops/stream_attn.py:1601",
@@ -3382,7 +3445,41 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            lambda: [sa.value_stream_plain(*vargs, normalize, eps, f32)],
            F32_FWD_REL, ["fused"],
            nbytes(rec, rayo_f, rays, attn) + walk_bytes(vwalk),
-           T * k * walk_flops(vwalk))
+           T * k * walk_flops(vwalk), span="value_fwd_wgmma_f32",
+           median=(0, F32_FWD_MEDIAN_REL))
+    if not compare_f32_fwd_with_k3(eargs, rec):
+        failed.append("the fp32 stream forwards against the fp32 K3")
+    # The two forwards at configs/demo.yml's widths (key 3 x 64, value 3
+    # layers to 32 on 16 point features: an 80-wide value encoding, whose
+    # last 32-deep chunk reads E columns past it), on the same patch.
+    cfg_d = load_config("configs/demo.yml")
+    params_d, state_d = build_model(cfg_d, device)
+    _, record_d, rec_d, rayo_d, rays_d, _, qq_d, kwalk_d, vwalk_d = \
+        stream_patch_inputs(params_d, state_d, cfg_d, rayo, crop(rayd, patch))
+    ad = params_d["attn"]
+    dkargs = (rec_d, rayo_d, rays_d, qq_d, kwalk_d, ad["w_k"]["w"],
+              ad["w_k"]["bias"])
+    k_d = int(rec_d.shape[0])
+    attn_d = record(
+        "key_stream_f32_fwd (demo widths)", "papr_tpu_torch/csrc/key_stream.cu",
+        "papr_tpu/ops/stream_attn.py:798",
+        lambda: list(sa.key_stream_f32_fwd(*dkargs, *kopts))[:2],
+        lambda: list(sa.key_stream_plain(*dkargs, *kopts, f32))[:2],
+        F32_FWD_REL, ["attn", "raw"],
+        nbytes(rec_d, rayo_d, rays_d, qq_d) + walk_bytes(kwalk_d),
+        T * k_d * walk_flops(kwalk_d, ad["w_k"]["w"]), attn_tol=F32_ATTN_ABS,
+        median=(1, F32_FWD_MEDIAN_REL), stack_of="key_stream_f32_fwd")[0]
+    dvargs = (rec_d, rayo_d, rays_d, attn_d, vwalk_d)
+    record("value_stream_f32_fwd (demo widths)",
+           "papr_tpu_torch/csrc/value_stream.cu",
+           "papr_tpu/ops/stream_attn.py:1601",
+           lambda: [sa.value_stream_f32_fwd(*dvargs, normalize, eps)],
+           lambda: [sa.value_stream_plain(*dvargs, normalize, eps, f32)],
+           F32_FWD_REL, ["fused"],
+           nbytes(rec_d, rayo_d, rays_d, attn_d) + walk_bytes(vwalk_d),
+           T * k_d * walk_flops(vwalk_d), median=(0, F32_FWD_MEDIAN_REL),
+           stack_of="value_stream_f32_fwd")
+    del params_d, state_d, record_d, rec_d, dkargs, dvargs, attn_d
     dfused = firm(randn(T, int(vwalk.ws[-1].shape[1])),
                   sa.rec_relu_margin(rec, rayo_f, rays, vwalk, eps),
                   "value_stream_f32_bwd")
@@ -3396,7 +3493,7 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            + walk_labels(vwalk),
            nbytes(rec, rayo_f, rays, attn, dfused) + walk_bytes(vwalk),
            3 * T * k * walk_flops(vwalk), span="value_bwd_wgmma_f32",
-           n_walk=len(walk_labels(vwalk)))
+           n_walk=len(walk_labels(vwalk)), hold_in=True)
     # Row 7 in fp32: the key stream with the query chain folded in (qq is
     # never rounded); backward held on the rays whose key and query relus
     # keep their margin.

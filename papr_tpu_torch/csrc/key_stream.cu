@@ -22,24 +22,25 @@
 // (K, T, rec_w) output that autograd scatter-adds into the (P, rec_w)
 // record.
 //
-// bf16, the training path's forms, run on wgmma + TMA with 128-ray tiles on
-// a persistent grid over (tile, k) units (one block an SM), the
-// activations in registers between layers and the weights in a TMA-fed
-// ring: the forward (key_fwd_wgmma_kernel, papr_key_stream_fwd) on
-// walk_wgmma.cuh's forward walk, the code of the one-shot eval attention
+// bf16 and fp32, the training path's forms, run on wgmma + TMA with 128-ray
+// tiles on a persistent grid over (tile, k) units (one block an SM) and the
+// weights in a TMA-fed ring: the forward (key_fwd_wgmma_kernel,
+// papr_key_stream_fwd; key_fwd_wgmma_f32_kernel, papr_key_stream_f32_fwd)
+// on walk_wgmma.cuh's forward walk, the code of the one-shot eval attention
 // (attend_eval.cu), followed by a small kernel for the softmax; the
-// backward (key_bwd_wgmma_kernel, papr_key_stream_bwd) on
-// walk_wgmma_bwd.cuh. The fp32 backward (key_bwd_wgmma_f32_kernel,
-// papr_key_stream_f32_bwd) is the same function of walk_wgmma_bwd.cuh in
-// walk_wgmma.cuh's fp32 operand form (3xTF32 m64n64k8, the layer inputs
-// fp32 in shared memory, fp32 stash).
+// backward (key_bwd_wgmma_kernel, papr_key_stream_bwd;
+// key_bwd_wgmma_f32_kernel, papr_key_stream_f32_bwd) on walk_wgmma_bwd.cuh.
+// Each fp32 kernel is its bf16 twin's function in walk_wgmma.cuh's fp32
+// operand form (3xTF32 m64n64k8, the layer inputs fp32 in shared memory,
+// fp32 stash); the bf16 form keeps the activations in registers between
+// layers.
 //
-// The fp32 and int8 forwards keep walk.cuh's WMMA walk, as attend_eval.cu's
-// int8 form does: one block of 512 threads per 64-ray tile loops over k
-// inside the block (the TPU grid's sequential k axis, which carried the
-// scores and the dqq / d_rayo / d_rays sums in resident output blocks;
-// here the block owns its rays' rows, so they accumulate without atomics),
-// and every activation stays in shared memory.
+// The int8 forwards keep walk.cuh's WMMA walk, as attend_eval.cu's int8
+// form does: one block of 512 threads per 64-ray tile loops over k inside
+// the block (the TPU grid's sequential k axis, which carried the scores
+// and the dqq / d_rayo / d_rays sums in resident output blocks; here the
+// block owns its rays' rows, so they accumulate without atomics), and
+// every activation stays in shared memory.
 //
 // key_stream_i8_fwd is the forward with int8=True (tpu.int8_train,
 // stream_attn.py:1013-1017): the walk's dense stack runs walk.cuh's int8
@@ -48,10 +49,9 @@
 // takes no flag: it recomputes the walk in bf16 (straight-through; the
 // fp32 backward after key_stream_i8_f32_fwd).
 //
-// key_stream_f32_fwd is the WMMA kernel on the fp32 walk (use_amp: false):
-// fp32 walk, w_k product and bias (walk.cuh's 3xTF32 products);
-// key_rec_fwd_smem holds for it. key_stream_f32_bwd (wgmma, above) stashes
-// fp32 for the fp32 dW (wgrad.cu).
+// key_stream_f32_fwd (use_amp: false): fp32 walk, w_k product and bias
+// (3xTF32 products, wgmma, above); key_stream_f32_bwd stashes fp32 for the
+// fp32 dW (wgrad.cu).
 // key_stream_i8_f32_fwd is the int8 forward beside fp32 compute: the int8
 // walk, then the fp32 w_k product and bias on the unrounded y_k; its
 // backward is key_stream_f32_bwd on the raw dots and scores it saved.
@@ -60,21 +60,6 @@
 #include "walk_wgmma_bwd.cuh"
 
 using namespace papr;
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads, 1)
-key_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
-               const float* __restrict__ rayo, const float* __restrict__ rays,
-               const float* __restrict__ qq, int dm, float sqrt_dm,
-               WalkDescT<Op> kd, const Op* __restrict__ wk,
-               const float* __restrict__ bk, int dm_pad, int score_relu,
-               float bkg, float eps, float* __restrict__ attn,
-               float* __restrict__ raw, float* __restrict__ ss_out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  key_rec_fwd_tile(walk_smem<Op>(smem), rec, rec_w, T, K, rayo, rays, qq, dm,
-                   sqrt_dm, kd, wk, bk, dm_pad, score_relu, bkg, eps, attn,
-                   raw, ss_out);
-}
 
 template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -93,69 +78,49 @@ key_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                    raw, ss_out, &kq);
 }
 
-// Shared launcher of the forwards: Op the walk's operand type; with int8
-// the three quantization buffers are read and the int8 kernel launched.
+// Launcher of the int8 forwards on walk.cuh (key_rec_fwd_tile), Op the
+// epilogue's operand type (bf16, or fp32 beside the int8 walk).
 template <class Op>
-static int launch_key_fwd(
+static int launch_key_i8_fwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* qq, int dm, float sqrt_dm,
     const int* kmeta, const void* kw, const void* kb, const void* kln,
     const void* kplan, const void* wk, const void* bk, int dm_pad,
     int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
-    bool int8, const void* kwq, const void* kinv, const void* kdq,
-    void* stream) {
+    const void* kwq, const void* kinv, const void* kdq, void* stream) {
   WalkDescT<Op> kd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   WalkQuant kq;
-  if (int8) {
-    err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
-    if (err) return err;
-  }
+  err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
+  if (err) return err;
   err = check_score_head(dm, dm_pad, K);
   if (err) return err;
   if (T <= 0) return 0;
   const size_t smem = key_rec_fwd_smem(K);
   if (smem > 232448) return -203;
-  cudaError_t e;
-  if (int8)
-    e = cudaFuncSetAttribute(key_i8_fwd_kernel<Op>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  else if constexpr (kF32<Op>)
-    e = cudaFuncSetAttribute(key_fwd_kernel<Op>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  else
-    return -205;
+  cudaError_t e = cudaFuncSetAttribute(
+      key_i8_fwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (T + kRows - 1) / kRows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Op* wkp = static_cast<const Op*>(wk);
-  const float* bkp = static_cast<const float*>(bk);
-  if (int8) {
-    key_i8_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
-        rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp, bkp,
-        dm_pad, score_relu, bkg, eps, static_cast<float*>(attn),
-        static_cast<float*>(raw), static_cast<float*>(ss));
-    return (int)cudaGetLastError();
-  }
-  // The tile function's own kernel runs the fp32 walk only; the bf16 walk
-  // runs key_fwd_wgmma_kernel.
-  if constexpr (kF32<Op>) {
-    key_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
-        rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wkp, bkp, dm_pad,
-        score_relu, bkg, eps, static_cast<float*>(attn),
-        static_cast<float*>(raw), static_cast<float*>(ss));
-    return (int)cudaGetLastError();
-  } else {
-    return -205;
-  }
+  key_i8_fwd_kernel<Op><<<grid, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq,
+      static_cast<const Op*>(wk), static_cast<const float*>(bk), dm_pad,
+      score_relu, bkg, eps, static_cast<float*>(attn),
+      static_cast<float*>(raw), static_cast<float*>(ss));
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kWgThreads, 1)
 key_fwd_wgmma_kernel(const __grid_constant__ StreamFwdWg p) {
   stream_fwd_wg<true>(p);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+key_fwd_wgmma_f32_kernel(const __grid_constant__ StreamFwdWgT<float> p) {
+  stream_fwd_wg<true, float>(p);
 }
 
 // After key_fwd_wgmma_kernel, a warp per ray: the background-token softmax
@@ -183,19 +148,26 @@ __global__ void key_fwd_softmax_kernel(const float* __restrict__ ss, int T,
   }
 }
 
-// The bf16 forward on wgmma: the fp32 kernel's arguments (its wk unread:
-// the packed image replaces it), then the packed weights (the walk's
-// layers, then w_k; ops/stream_attn.py key_stream_fwd) and their size in
+#define KEY_FWD_PARAMS                                                       \
+    const float* rec, int rec_w, int T, int K, const float* rayo,            \
+    const float* rays, const float* qq, int dm, float sqrt_dm,               \
+    const int* kmeta, const void* kw, const void* kb, const void* kln,       \
+    const void* kplan, const void* wk, const void* bk, int dm_pad,           \
+    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss
+#define KEY_FWD_ARGS                                                         \
+    rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,       \
+    kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss
+
+// The forward on wgmma, Op the operand form: the int8 forms' arguments (wk
+// unread: the packed image replaces it), then the packed weights (the
+// walk's layers, then w_k; ops/stream_attn.py key_stream_fwd: bf16
+// pack_walk_wgmma's image, fp32 pack_walk_wgmma_f32's) and their size in
 // bytes, and the grid (1 .. the number of 128-ray tiles).
-extern "C" int papr_key_stream_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* qq, int dm, float sqrt_dm,
-    const int* kmeta, const void* kw, const void* kb, const void* kln,
-    const void* kplan, const void* wk, const void* bk, int dm_pad,
-    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
-    const void* wpack, long long wbytes, int grid, void* stream) {
+template <class Op>
+static int launch_key_fwd_wg(KEY_FWD_PARAMS, const void* wpack,
+                             long long wbytes, int grid, void* stream) {
   (void)wk;
-  StreamFwdWg p{};
+  StreamFwdWgT<Op> p{};
   size_t smem = 0;
   int err = check_score_head(dm, dm_pad, K);
   if (err) return err;
@@ -222,12 +194,14 @@ extern "C" int papr_key_stream_fwd(
   p.score_relu = score_relu;
   p.raw = static_cast<float*>(raw);
   p.ss = static_cast<float*>(ss);
+  void (*kernel)(StreamFwdWgT<Op>);
+  if constexpr (kF32<Op>) kernel = key_fwd_wgmma_f32_kernel;
+  else kernel = key_fwd_wgmma_kernel;
   cudaError_t e = cudaFuncSetAttribute(
-      key_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  key_fwd_wgmma_kernel<<<grid, kWgThreads, smem, st>>>(p);
+  kernel<<<grid, kWgThreads, smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   key_fwd_softmax_kernel<<<(T + 7) / 8, 256, 0, st>>>(
@@ -235,43 +209,30 @@ extern "C" int papr_key_stream_fwd(
   return (int)cudaGetLastError();
 }
 
-extern "C" int papr_key_stream_f32_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* qq, int dm, float sqrt_dm,
-    const int* kmeta, const void* kw, const void* kb, const void* kln,
-    const void* kplan, const void* wk, const void* bk, int dm_pad,
-    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
-    void* stream) {
-  return launch_key_fwd<float>(
-      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,
-      kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss, false,
-      nullptr, nullptr, nullptr, stream);
+extern "C" int papr_key_stream_fwd(KEY_FWD_PARAMS, const void* wpack,
+                                   long long wbytes, int grid,
+                                   void* stream) {
+  return launch_key_fwd_wg<__nv_bfloat16>(KEY_FWD_ARGS, wpack, wbytes, grid,
+                                          stream);
 }
 
-extern "C" int papr_key_stream_i8_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* qq, int dm, float sqrt_dm,
-    const int* kmeta, const void* kw, const void* kb, const void* kln,
-    const void* kplan, const void* wk, const void* bk, int dm_pad,
-    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
-    const void* kwq, const void* kinv, const void* kdq, void* stream) {
-  return launch_key_fwd<__nv_bfloat16>(
-      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,
-      kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss, true, kwq,
-      kinv, kdq, stream);
+extern "C" int papr_key_stream_f32_fwd(KEY_FWD_PARAMS, const void* wpack,
+                                       long long wbytes, int grid,
+                                       void* stream) {
+  return launch_key_fwd_wg<float>(KEY_FWD_ARGS, wpack, wbytes, grid, stream);
 }
 
-extern "C" int papr_key_stream_i8_f32_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* qq, int dm, float sqrt_dm,
-    const int* kmeta, const void* kw, const void* kb, const void* kln,
-    const void* kplan, const void* wk, const void* bk, int dm_pad,
-    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss,
-    const void* kwq, const void* kinv, const void* kdq, void* stream) {
-  return launch_key_fwd<float>(
-      rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,
-      kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss, true, kwq,
-      kinv, kdq, stream);
+extern "C" int papr_key_stream_i8_fwd(KEY_FWD_PARAMS, const void* kwq,
+                                      const void* kinv, const void* kdq,
+                                      void* stream) {
+  return launch_key_i8_fwd<__nv_bfloat16>(KEY_FWD_ARGS, kwq, kinv, kdq,
+                                          stream);
+}
+
+extern "C" int papr_key_stream_i8_f32_fwd(KEY_FWD_PARAMS, const void* kwq,
+                                          const void* kinv, const void* kdq,
+                                          void* stream) {
+  return launch_key_i8_fwd<float>(KEY_FWD_ARGS, kwq, kinv, kdq, stream);
 }
 
 #define KEY_BWD_PARAMS_NS                                                    \

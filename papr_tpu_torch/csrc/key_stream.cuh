@@ -1,10 +1,10 @@
 // The record-native key stream on one tile of kRows rays: the forward k loop
 // with its softmax, and the backward k loop from the softmax backward to
 // d_rec / d_rayo / d_rays / dqq. The forward is shared by key_stream.cu's
-// fp32 and int8 forwards (the query projected outside the kernel) and
+// int8 forwards (the query projected outside the kernel) and
 // key_stream_q.cu (the query chain inside it), which differ only in where qq
-// comes from; the backward is key_stream_q.cu's (key_stream.cu's backwards
-// run walk_wgmma_bwd.cuh).
+// comes from; the backward is key_stream_q.cu's (key_stream.cu's bf16 and
+// fp32 forwards and backwards run walk_wgmma.cuh / walk_wgmma_bwd.cuh).
 
 #pragma once
 

@@ -16,18 +16,19 @@
 // the walk, as in the TPU kernel.
 //
 // What bounds it on the H100: the walk, ~1.2 MFLOP of bf16 tensor-core work
-// per token forward and ~3x that backward; compute bound. bf16, the
-// training path's forms, run on wgmma + TMA with 128-ray tiles on a
+// per token forward and ~3x that backward; compute bound. bf16 and fp32,
+// the training path's forms, run on wgmma + TMA with 128-ray tiles on a
 // persistent grid over (tile, k) units: the forward (value_fwd_wgmma_kernel,
-// papr_value_stream_fwd) on walk_wgmma.cuh's forward walk, the code of the
-// one-shot eval attention (attend_eval.cu), each block's per-ray sums added
-// into the zeroed output; the backward (value_bwd_wgmma_kernel,
-// papr_value_stream_bwd) on walk_wgmma_bwd.cuh, and so does the fp32
-// backward (value_bwd_wgmma_f32_kernel, papr_value_stream_f32_bwd) in
-// walk_wgmma.cuh's fp32 operand form. The fp32 and int8 forwards keep
-// key_stream.cu's WMMA design: one block of 512 threads per 64-ray tile, k
-// inside the block, every activation in shared memory. dW goes through the
-// stash and wgrad.cu.
+// papr_value_stream_fwd; value_fwd_wgmma_f32_kernel,
+// papr_value_stream_f32_fwd) on walk_wgmma.cuh's forward walk, the code of
+// the one-shot eval attention (attend_eval.cu), each block's per-ray sums
+// added into the zeroed output; the backward (value_bwd_wgmma_kernel,
+// papr_value_stream_bwd; value_bwd_wgmma_f32_kernel,
+// papr_value_stream_f32_bwd) on walk_wgmma_bwd.cuh. Each fp32 kernel is its
+// bf16 twin's function in walk_wgmma.cuh's fp32 operand form. The int8
+// forwards keep key_stream.cu's WMMA design: one block of 512 threads per
+// 64-ray tile, k inside the block, every activation in shared memory. dW
+// goes through the stash and wgrad.cu.
 //
 // value_stream_i8_fwd is the forward with int8=True (tpu.int8_train,
 // stream_attn.py:1742-1746): the walk's dense stack runs walk.cuh's int8
@@ -35,10 +36,9 @@
 // backward takes no flag: it recomputes the walk in bf16 (straight-through;
 // the fp32 backward after value_stream_i8_f32_fwd).
 //
-// value_stream_f32_fwd is the WMMA kernel on the fp32 walk (use_amp:
-// false): fp32 walk (walk.cuh's 3xTF32 products), value rows not rounded
-// before the fuse; value_stream_f32_bwd (wgmma) the same rounding points,
-// an fp32 stash for the fp32 dW.
+// value_stream_f32_fwd (use_amp: false): fp32 walk (3xTF32 products,
+// wgmma), value rows not rounded before the fuse; value_stream_f32_bwd the
+// same rounding points, an fp32 stash for the fp32 dW.
 // value_stream_i8_f32_fwd is the int8 forward beside fp32 compute: the int8
 // walk, its fp32 rows fused unrounded; its backward is value_stream_f32_bwd.
 
@@ -48,15 +48,14 @@
 
 using namespace papr;
 
-// The forward on one tile of kRows rays, Op the walk's operand type; vq: the
-// walk's int8 form, or null for the bf16 / fp32 walk (a compile-time
-// constant in each kernel below).
+// The int8 forward on one tile of kRows rays, Op the epilogue's operand
+// type (bf16, or fp32 beside the int8 walk).
 template <class Op>
 __device__ __forceinline__ void value_fwd_tile(
     unsigned char* smem, const float* __restrict__ rec, int rec_w, int T,
     int K, const float* __restrict__ rayo, const float* __restrict__ rays,
     const float* __restrict__ attn, const WalkDescT<Op>& vd,
-    const WalkQuant* vq, int normalize, float eps,
+    const WalkQuant& vq, int normalize, float eps,
     float* __restrict__ fused) {
   const WalkSmemT<Op> S = walk_smem<Op>(smem);
   float* C = S.C;                  // walk_smem_q<Op>'s C too
@@ -76,8 +75,7 @@ __device__ __forceinline__ void value_fwd_tile(
     __syncthreads();
     encode_rec(C, vd, geo, gidx, rec, rec_w);
     __syncthreads();
-    if (vq) run_walk_q(walk_smem_q<Op>(smem), vd, *vq);
-    else run_walk(S, vd);
+    run_walk_q(walk_smem_q<Op>(smem), vd, vq);
     fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);
     __syncthreads();
   }
@@ -91,18 +89,6 @@ __device__ __forceinline__ void value_fwd_tile(
 
 template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
-value_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
-                 const float* __restrict__ rayo,
-                 const float* __restrict__ rays,
-                 const float* __restrict__ attn, WalkDescT<Op> vd,
-                 int normalize, float eps, float* __restrict__ fused) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  value_fwd_tile(smem, rec, rec_w, T, K, rayo, rays, attn, vd, nullptr,
-                 normalize, eps, fused);
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads, 1)
 value_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                     const float* __restrict__ rayo,
                     const float* __restrict__ rays,
@@ -110,62 +96,46 @@ value_i8_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                     WalkQuant vq,
                     int normalize, float eps, float* __restrict__ fused) {
   extern __shared__ __align__(128) unsigned char smem[];
-  value_fwd_tile(smem, rec, rec_w, T, K, rayo, rays, attn, vd, &vq, normalize,
+  value_fwd_tile(smem, rec, rec_w, T, K, rayo, rays, attn, vd, vq, normalize,
                  eps, fused);
 }
 
-// Shared launcher of the forwards, Op the walk's operand type: with int8
-// the three quantization buffers are read and the int8 kernel launched.
+#define VALUE_FWD_PARAMS                                                     \
+    const float* rec, int rec_w, int T, int K, const float* rayo,            \
+    const float* rays, const float* attn, const int* vmeta, const void* vw,  \
+    const void* vb, const void* vln, const void* vplan, int normalize,       \
+    float eps, void* fused
+#define VALUE_FWD_ARGS                                                       \
+    rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,           \
+    normalize, eps, fused
+
+// Launcher of the int8 forwards on walk.cuh (value_fwd_tile), Op the
+// epilogue's operand type.
 template <class Op>
-static int launch_value_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* attn, const int* vmeta, const void* vw,
-    const void* vb, const void* vln, const void* vplan, int normalize,
-    float eps, void* fused, bool int8, const void* vwq, const void* vinv,
-    const void* vdq, void* stream) {
+static int launch_value_i8_fwd(VALUE_FWD_PARAMS, const void* vwq,
+                               const void* vinv, const void* vdq,
+                               void* stream) {
   WalkDescT<Op> vd;
   int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
   if (err) return err;
   WalkQuant vq;
-  if (int8) {
-    err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
-    if (err) return err;
-  }
+  err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
+  if (err) return err;
   if (K <= 0 || K > 64) return -202;
   if (T <= 0) return 0;
   const size_t smem = kWalkSmem + sizeof(float) * kRows *
       (kGeo + 1 + vd.d_out) + sizeof(int) * kRows;
   if (smem > 232448) return -203;
-  cudaError_t e;
-  if (int8)
-    e = cudaFuncSetAttribute(value_i8_fwd_kernel<Op>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  else if constexpr (kF32<Op>)
-    e = cudaFuncSetAttribute(value_fwd_kernel<Op>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  else
-    return -205;
+  cudaError_t e = cudaFuncSetAttribute(
+      value_i8_fwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (T + kRows - 1) / kRows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int8) {
-    value_i8_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
-        rec, rec_w, T, K, rayo, rays, attn, vd, vq, normalize, eps,
-        static_cast<float*>(fused));
-    return (int)cudaGetLastError();
-  }
-  // The tile function's own kernel runs the fp32 walk only; the bf16 walk
-  // runs value_fwd_wgmma_kernel.
-  if constexpr (kF32<Op>) {
-    value_fwd_kernel<Op><<<grid, kThreads, smem, st>>>(
-        rec, rec_w, T, K, rayo, rays, attn, vd, normalize, eps,
-        static_cast<float*>(fused));
-    return (int)cudaGetLastError();
-  } else {
-    return -205;
-  }
+  value_i8_fwd_kernel<Op><<<grid, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      rec, rec_w, T, K, rayo, rays, attn, vd, vq, normalize, eps,
+      static_cast<float*>(fused));
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -173,17 +143,20 @@ value_fwd_wgmma_kernel(const __grid_constant__ StreamFwdWg p) {
   stream_fwd_wg<false>(p);
 }
 
-// The bf16 forward on wgmma: the fp32 kernel's arguments, fused zeroed by
-// the caller (each block adds its rays' sums), then the packed weights of
-// the walk's layers (ops/stream_attn.py value_stream_fwd) and their size in
-// bytes, and the grid (1 .. the number of 128-ray tiles).
-extern "C" int papr_value_stream_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* attn, const int* vmeta, const void* vw,
-    const void* vb, const void* vln, const void* vplan, int normalize,
-    float eps, void* fused, const void* wpack, long long wbytes, int grid,
-    void* stream) {
-  StreamFwdWg p{};
+__global__ void __launch_bounds__(kWgThreads, 1)
+value_fwd_wgmma_f32_kernel(const __grid_constant__ StreamFwdWgT<float> p) {
+  stream_fwd_wg<false, float>(p);
+}
+
+// The forward on wgmma, Op the operand form: the int8 forms' arguments,
+// fused zeroed by the caller (each block adds its rays' sums), then the
+// packed weights of the walk's layers (ops/stream_attn.py value_stream_fwd:
+// bf16 pack_walk_wgmma's image, fp32 pack_walk_wgmma_f32's) and their size
+// in bytes, and the grid (1 .. the number of 128-ray tiles).
+template <class Op>
+static int launch_value_fwd_wg(VALUE_FWD_PARAMS, const void* wpack,
+                               long long wbytes, int grid, void* stream) {
+  StreamFwdWgT<Op> p{};
   size_t smem = 0;
   if (K <= 0 || K > 64) return -202;
   int err = fill_stream_fwd_wg(&p, vmeta, vw, vb, vln, vplan, 0, wpack,
@@ -204,45 +177,42 @@ extern "C" int papr_value_stream_fwd(
   p.attn = attn;
   p.normalize = normalize;
   p.fused = static_cast<float*>(fused);
+  void (*kernel)(StreamFwdWgT<Op>);
+  if constexpr (kF32<Op>) kernel = value_fwd_wgmma_f32_kernel;
+  else kernel = value_fwd_wgmma_kernel;
   cudaError_t e = cudaFuncSetAttribute(
-      value_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  value_fwd_wgmma_kernel<<<grid, kWgThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
-extern "C" int papr_value_stream_f32_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* attn, const int* vmeta, const void* vw,
-    const void* vb, const void* vln, const void* vplan, int normalize,
-    float eps, void* fused, void* stream) {
-  return launch_value_fwd<float>(
-      rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,
-      normalize, eps, fused, false, nullptr, nullptr, nullptr, stream);
+extern "C" int papr_value_stream_fwd(VALUE_FWD_PARAMS, const void* wpack,
+                                     long long wbytes, int grid,
+                                     void* stream) {
+  return launch_value_fwd_wg<__nv_bfloat16>(VALUE_FWD_ARGS, wpack, wbytes,
+                                            grid, stream);
 }
 
-extern "C" int papr_value_stream_i8_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* attn, const int* vmeta, const void* vw,
-    const void* vb, const void* vln, const void* vplan, int normalize,
-    float eps, void* fused, const void* vwq, const void* vinv,
-    const void* vdq, void* stream) {
-  return launch_value_fwd<__nv_bfloat16>(
-      rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,
-      normalize, eps, fused, true, vwq, vinv, vdq, stream);
+extern "C" int papr_value_stream_f32_fwd(VALUE_FWD_PARAMS, const void* wpack,
+                                         long long wbytes, int grid,
+                                         void* stream) {
+  return launch_value_fwd_wg<float>(VALUE_FWD_ARGS, wpack, wbytes, grid,
+                                    stream);
 }
 
-extern "C" int papr_value_stream_i8_f32_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* attn, const int* vmeta, const void* vw,
-    const void* vb, const void* vln, const void* vplan, int normalize,
-    float eps, void* fused, const void* vwq, const void* vinv,
-    const void* vdq, void* stream) {
-  return launch_value_fwd<float>(
-      rec, rec_w, T, K, rayo, rays, attn, vmeta, vw, vb, vln, vplan,
-      normalize, eps, fused, true, vwq, vinv, vdq, stream);
+extern "C" int papr_value_stream_i8_fwd(VALUE_FWD_PARAMS, const void* vwq,
+                                        const void* vinv, const void* vdq,
+                                        void* stream) {
+  return launch_value_i8_fwd<__nv_bfloat16>(VALUE_FWD_ARGS, vwq, vinv, vdq,
+                                            stream);
+}
+
+extern "C" int papr_value_stream_i8_f32_fwd(VALUE_FWD_PARAMS,
+                                            const void* vwq,
+                                            const void* vinv,
+                                            const void* vdq, void* stream) {
+  return launch_value_i8_fwd<float>(VALUE_FWD_ARGS, vwq, vinv, vdq, stream);
 }
 
 #define VALUE_BWD_PARAMS_NS                                                  \

@@ -6,10 +6,13 @@
 // fused embedder forward (fused_mlp.cu fused_mlp_fwd_wgmma_kernel), whose
 // posenc sources are raw feature rows; the bf16 stream and embedder
 // backwards build on its ring and layers (walk_wgmma_bwd.cuh). The fp32
-// one-shot eval attention runs the same walk in its fp32 operand form
-// (below: fp32 activations, 3xTF32 products). The int8 forms, the other
-// fp32 forms and the other walk kernels (key_stream_q.cu,
-// key_stream_feat.cu, value_stream_feat.cu) keep walk.cuh's WMMA layers.
+// one-shot eval attention and the fp32 stream forwards
+// (key_fwd_wgmma_f32_kernel, value_fwd_wgmma_f32_kernel: the same function
+// as the bf16 ones) run the same walk in its fp32 operand form (below: fp32
+// activations, 3xTF32 products), and so do the fp32 stream backwards
+// (walk_wgmma_bwd.cuh). The int8 forms, the fp32 embedder and the other
+// walk kernels (key_stream_q.cu, key_stream_feat.cu, value_stream_feat.cu)
+// keep walk.cuh's WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
 // ptxas may give a thread up to 255 registers). Within a warpgroup the
@@ -371,9 +374,11 @@ struct WgWalk {
   const WgLayer* layers;         // d->n entries
 };
 
-// The block's shared memory: a zero chunk and the weight ring (1024-byte
-// aligned), tile_floats floats of per-warpgroup tiles, n_prm floats of
-// parameter rows, then one mbarrier and one release counter a ring slot.
+// The block's shared memory: a zero chunk (the bf16 form's products past a
+// layer's width read it; the fp32 form has none: zero null) and the weight
+// ring (1024-byte aligned), tile_floats floats of per-warpgroup tiles,
+// n_prm floats of parameter rows, then one mbarrier and one release counter
+// a ring slot.
 struct WgSmem {
   unsigned char* zero;
   unsigned char* ring;
@@ -384,11 +389,12 @@ struct WgSmem {
 };
 
 __device__ __forceinline__ WgSmem wg_smem(unsigned char* raw, int stages,
-                                          int tile_floats, int n_prm) {
+                                          int tile_floats, int n_prm,
+                                          bool zero = true) {
   WgSmem s;
   unsigned char* smem = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-  s.zero = smem;
-  s.ring = smem + kWStageBytes;
+  s.zero = zero ? smem : nullptr;
+  s.ring = smem + (zero ? kWStageBytes : 0);
   s.tiles = reinterpret_cast<float*>(s.ring + stages * kWStageBytes);
   s.prm = s.tiles + tile_floats;
   s.full = reinterpret_cast<uint64_t*>(
@@ -398,9 +404,10 @@ __device__ __forceinline__ WgSmem wg_smem(unsigned char* raw, int stages,
 }
 
 // Host side: the bytes of that layout besides the ring's slots.
-inline size_t wg_smem_rest(int tile_floats, int n_prm) {
-  return 1024 + kWStageBytes + sizeof(float) * ((size_t)tile_floats + n_prm) +
-         8 + kMaxStages * (sizeof(uint64_t) + sizeof(int));
+inline size_t wg_smem_rest(int tile_floats, int n_prm, bool zero = true) {
+  return 1024 + (zero ? kWStageBytes : 0) +
+         sizeof(float) * ((size_t)tile_floats + n_prm) + 8 +
+         kMaxStages * (sizeof(uint64_t) + sizeof(int));
 }
 
 // Host side: the ring depth that fills the H100's 232,448 bytes a block
@@ -438,8 +445,8 @@ inline int wg_e_floats(int ld) {
 }
 
 // The block's set-up: the n parameter arrays src[a] (cnt[a] floats each)
-// copied into consecutive rows at s.prm, the zero chunk, the ring's
-// barriers and counters; ends on a barrier. Then wg_ring_start.
+// copied into consecutive rows at s.prm, the zero chunk (if any), the
+// ring's barriers and counters; ends on a barrier. Then wg_ring_start.
 template <int N>
 __device__ __forceinline__ void wg_prologue(const WgSmem& s, int stages,
                                             const float* const (&src)[N],
@@ -451,8 +458,9 @@ __device__ __forceinline__ void wg_prologue(const WgSmem& s, int stages,
     for (int i = tid; i < cnt[a]; i += kWgThreads) dst[i] = src[a][i];
     dst += cnt[a];
   }
-  for (int i = tid; i < kWStageBytes / 16; i += kWgThreads)
-    reinterpret_cast<uint4*>(s.zero)[i] = make_uint4(0, 0, 0, 0);
+  if (s.zero)
+    for (int i = tid; i < kWStageBytes / 16; i += kWgThreads)
+      reinterpret_cast<uint4*>(s.zero)[i] = make_uint4(0, 0, 0, 0);
   fence_async_smem();
   if (tid < stages) s.released[tid] = 0;
   if (tid == 0) {
@@ -1038,21 +1046,28 @@ __device__ __forceinline__ void wg_score(float (&acc)[kOutRegs], WgRowsA& A,
   for (int h = 0; h < 2; ++h) col[h] = quad_sum(s[h]) / sqrt_dm;
 }
 
-// --------------------------------------------- the bf16 stream forwards ----
+// ---------------------------------------------- the stream forwards ----
 //
-// key_fwd_wgmma_kernel (key_stream.cu) and value_fwd_wgmma_kernel
-// (value_stream.cu) on the walk above: the record read pre-gathered k-major
-// (K, T, rec_w), a token's row k * T + t. The grid is persistent, as the
-// backwards' (walk_wgmma_bwd.cuh): each block takes an even, contiguous
-// share of the (tile, k) units in tile-major order, so with grid <= tiles a
-// tile is split between at most two blocks; grid = tiles is one block a
-// tile. The key forward writes each (ray, k)'s raw dot and masked score, and
-// a small kernel after it takes the background-token softmax over a ray's K
-// scores (a split ray's come from two blocks). The value forward adds each
-// part's per-ray sum into the zeroed fused rows with atomicAdd: at most two
-// addends on 0, so the result does not depend on their order.
+// key_fwd_wgmma_kernel / key_fwd_wgmma_f32_kernel (key_stream.cu) and
+// value_fwd_wgmma_kernel / value_fwd_wgmma_f32_kernel (value_stream.cu) on
+// the walk above, in its bf16 or fp32 operand form (the forms of the bf16 and
+// the fp32 K3): the record read pre-gathered k-major (K, T, rec_w), a
+// token's row k * T + t. The grid is persistent, as the backwards'
+// (walk_wgmma_bwd.cuh): each block takes an even, contiguous share of the
+// (tile, k) units in tile-major order, so with grid <= tiles a tile is split
+// between at most two blocks; grid = tiles is one block a tile. The key
+// forward writes each (ray, k)'s raw dot and masked score, and a small
+// kernel after it takes the background-token softmax over a ray's K scores
+// (a split ray's come from two blocks). The value forward adds each part's
+// per-ray sum into the zeroed fused rows with atomicAdd: at most two addends
+// on 0, so the result does not depend on their order (but a split ray's sum
+// over k is rounded once at the split, where _vsr_fwd_kernel sums all K in
+// order). The fp32 form reads its parameter rows (biases, LayerNorms, plan,
+// b_k) in place and has no zero chunk: its shared memory holds the fp32
+// activations.
 
-struct StreamFwdWg {
+template <class Op>
+struct StreamFwdWgT {
   const float* rec;                      // (K, T, rec_w) k-major
   int rec_w, T, K;
   const float* rayo;
@@ -1060,7 +1075,7 @@ struct StreamFwdWg {
   WalkDesc d;
   float eps;
   WgLayer layers[kWgMaxLayers];          // the walk, then (key) w_k
-  WgChunk chunks[kWgMaxChunks];          // the chunk stream of one k step
+  WgChunk chunks[kF32<Op> ? kWgMaxChunksF32 : kWgMaxChunks];  // one k step
   int n_chunks, stages;
   const unsigned char* w;                // the packed weights
   int ld, e_floats, wg_floats;           // shared memory layout (floats)
@@ -1079,14 +1094,19 @@ struct StreamFwdWg {
   int normalize;
   float* fused;                          // (T, d_out), zero on entry
 };
+using StreamFwdWg = StreamFwdWgT<__nv_bfloat16>;
 
 // Host side: the walk, its layer table (with head_pd > 0, the key's w_k
-// (pd[n] -> head_pd) after it), the chunk stream and the shared-memory
-// layout. Returns 0 or a negative code; *smem gets the block's bytes.
-inline int fill_stream_fwd_wg(StreamFwdWg* p, const int* meta, const void* w,
-                              const void* b, const void* ln, const void* plan,
-                              int head_pd, const void* wpack,
-                              long long wbytes, size_t* smem) {
+// (pd[n] -> head_pd) after it) in the form's image (wg_plan / wg_plan_f32),
+// the chunk stream and the shared-memory layout. Returns 0 or a negative
+// code; *smem gets the block's bytes.
+template <class Op>
+inline int fill_stream_fwd_wg(StreamFwdWgT<Op>* p, const int* meta,
+                              const void* w, const void* b, const void* ln,
+                              const void* plan, int head_pd,
+                              const void* wpack, long long wbytes,
+                              size_t* smem) {
+  constexpr bool f32 = kF32<Op>;
   int err = fill_walk(&p->d, meta, w, b, ln, plan);
   if (err) return err;
   const WalkDesc& d = p->d;
@@ -1096,36 +1116,54 @@ inline int fill_stream_fwd_wg(StreamFwdWg* p, const int* meta, const void* w,
     dims[m][0] = d.pd[d.n];
     dims[m++][1] = head_pd;
   }
-  if (wg_plan(p->layers, dims, m) != wbytes || !wpack ||
-      reinterpret_cast<uintptr_t>(wpack) % 16)
+  const long long need = f32 ? wg_plan_f32(p->layers, dims, m)
+                             : wg_plan(p->layers, dims, m);
+  if (need != wbytes || !wpack || reinterpret_cast<uintptr_t>(wpack) % 16)
     return -204;
-  p->n_chunks = wg_chunks(p->chunks, p->layers, m);
+  p->n_chunks = f32 ? wg_chunks_f32(p->chunks, need)
+                    : wg_chunks(p->chunks, p->layers, m);
   p->w = static_cast<const unsigned char*>(wpack);
-  wg_walk_rows(d, &p->nb, &p->nln, &p->nplan);
-  p->n_prm = p->nb + p->nln + p->nplan + head_pd;
-  p->ld = wg_ld(d.pd[0]);
-  p->e_floats = wg_e_floats(p->ld);
+  if constexpr (f32) {
+    // Parameter rows read in place; E in the fp32 form's rows.
+    p->nb = p->nln = p->nplan = p->n_prm = 0;
+    p->ld = kF32Ld;
+    p->e_floats = kWgRows * kF32Ld;
+  } else {
+    wg_walk_rows(d, &p->nb, &p->nln, &p->nplan);
+    p->n_prm = p->nb + p->nln + p->nplan + head_pd;
+    p->ld = wg_ld(d.pd[0]);
+    p->e_floats = wg_e_floats(p->ld);
+  }
   // value: the fused rows and the safe denominators of the warpgroup's rays
   p->wg_floats = kWgRows * kGeo + p->e_floats +
                  (head_pd ? 0 : kWgRows * (d.d_out + 1));
-  return wg_ring_fit(wg_smem_rest(2 * p->wg_floats, p->n_prm), &p->stages,
-                     smem);
+  return wg_ring_fit(wg_smem_rest(2 * p->wg_floats, p->n_prm, !f32),
+                     &p->stages, smem);
 }
 
 // The forward of the record-native key stream (kKey: the score head) or
-// value stream (the fuse) on the block's share of the (tile, k) units.
-template <bool kKey>
-__device__ __forceinline__ void stream_fwd_wg(const StreamFwdWg& p) {
+// value stream (the fuse) on the block's share of the (tile, k) units, in
+// either operand form (Op: bf16, or fp32).
+template <bool kKey, class Op = __nv_bfloat16>
+__device__ __forceinline__ void stream_fwd_wg(const StreamFwdWgT<Op>& p) {
+  constexpr bool f32 = kF32<Op>;
   extern __shared__ unsigned char smem_raw[];
-  const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm);
-  // Parameter rows: biases, LayerNorms, plan, then (key) b_k.
+  const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm,
+                            !f32);
+  if constexpr (f32) {
+    // Every E column a product reads is finite from the start (columns
+    // past a walk's input width meet zero weight rows).
+    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)
+      sm.tiles[i] = 0.f;
+  }
+  // Parameter rows (bf16 form): biases, LayerNorms, plan, then (key) b_k.
   float* bias = sm.prm;
   float* lns = bias + p.nb;
   float* plan = lns + p.nln;
   float* bks = plan + p.nplan;
   {
     const float* const src[4] = {p.d.b[0], p.d.ln, p.d.plan, p.bk};
-    const int cnt[4] = {p.nb, p.nln, p.nplan, kKey ? p.dm_pad : 0};
+    const int cnt[4] = {p.nb, p.nln, p.nplan, kKey && !f32 ? p.dm_pad : 0};
     wg_prologue(sm, p.stages, src, cnt);
   }
   const long long n_units = p.n_units;
@@ -1134,7 +1172,9 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWg& p) {
   WgRing rg{sm.ring, sm.full, sm.released, p.stages, 0, p.n_chunks,
             p.n_chunks * (u_end - u_begin), p.chunks, p.w};
   wg_ring_start(rg);
-  const WgWalk walk{&p.d, bias, lns, plan, p.layers};
+  const WgWalk walk{&p.d, f32 ? p.d.b[0] : bias, f32 ? p.d.ln : lns,
+                    f32 ? p.d.plan : plan, p.layers};
+  const float* bkr = f32 ? p.bk : bks;
 
   const int tid = threadIdx.x, wg = tid >> 7, t_in = tid & 127;
   const int w = t_in >> 5, lane = t_in & 31, g = lane >> 2, q = lane & 3;
@@ -1144,12 +1184,19 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWg& p) {
   float* E = geo + kWgRows * kGeo;                // rows / parking slices
   float* accv = E + p.e_floats;                   // value: kWgRows x cout
   float* den = accv + kWgRows * cout;             // value: kWgRows
-  uint32_t A[kARegs];
-  float acc[kAccRegs];
+  // The operand form's registers: bf16, a pass's accumulator and the A
+  // fragments; fp32, a whole layer's accumulator (A: the rows of E).
+  constexpr int kAcc = f32 ? kOutRegs : kAccRegs;
+  std::conditional_t<f32, WgRowsA, uint32_t[kARegs]> A;
+  float acc[kAcc];
+  if constexpr (f32) {
+    A = WgRowsA{E, row0};
+  } else {
 #pragma unroll
-  for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+    for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+  }
 #pragma unroll
-  for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
   for (int u = u_begin; u < u_end;) {
     const int tile = u / K, k0 = u - tile * K;
@@ -1183,7 +1230,7 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWg& p) {
         wg_walk(acc, A, rg, sm.zero, E, ld, walk, row0, false,
                 RecSrc{geo, p.rec, p.rec_w});
         float col[2];
-        wg_score(acc, A, rg, sm.zero, p.layers[p.d.n], p.qq, p.dm, bks,
+        wg_score(acc, A, rg, sm.zero, p.layers[p.d.n], p.qq, p.dm, bkr,
                  p.sqrt_dm, T, rbase, rl, col);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -1196,7 +1243,8 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWg& p) {
           }
         }
       } else {
-        // --- walk -> value rows rounded to bf16 -> (attn_k / den) x rows ---
+        // --- walk -> value rows (rounded to bf16 in the bf16 form) ->
+        // (attn_k / den) x rows ---
         const bool two = wg_walk(acc, A, rg, sm.zero, E, ld, walk, row0, true,
                                  RecSrc{geo, p.rec, p.rec_w});
 #pragma unroll
@@ -1206,14 +1254,14 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWg& p) {
               t < T ? p.attn[(size_t)t * (K + 1) + k] / den[rl[h]] : 0.f;
           float* arow = accv + rl[h] * cout;
 #pragma unroll
-          for (int j = 0; j < kAccRegs / 4; ++j)
+          for (int j = 0; j < kAcc / 4; ++j)
 #pragma unroll
             for (int x = 0; x < 2; ++x) {
               const int i = 4 * j + 2 * h + x, c = 8 * j + 2 * q + x;
               if (two && c < cout)
-                arow[c] += a * bf16_round(E[i * 128 + t_in]);
+                arow[c] += a * act_round<Op>(E[i * 128 + t_in]);
               const int c1 = (two ? kPassN : 0) + c;
-              if (c1 < cout) arow[c1] += a * bf16_round(acc[i]);
+              if (c1 < cout) arow[c1] += a * act_round<Op>(acc[i]);
             }
         }
       }

@@ -87,12 +87,17 @@ _ATTEND = SIGNATURES["papr_attend_eval_f32"]
 SIGNATURES["papr_attend_eval"] = _ATTEND[:-1] + [P, I, P]
 SIGNATURES["papr_attend_eval_f32"] = _ATTEND[:-1] + [P, I, P]
 SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
-# The bf16 stream forwards and the bf16 embedder (on wgmma) take the WMMA
-# forms' arguments, then their packed weights, its size in bytes and the
-# grid; the stream backwards (bf16 and fp32, both on wgmma, their weights
-# read only from the packed image) the same, then three device buffers
-# (per-ray sums of split tiles; the value's datt rows).
+# The int8 stream forwards' stem: the stream forwards' arguments before
+# their wgmma tail.
+_I8_STEM = {_name: SIGNATURES[_name][:-1] for _name in
+            ("papr_key_stream_fwd", "papr_value_stream_fwd")}
+# The stream forwards (bf16 and fp32, both on wgmma) and the bf16 embedder
+# take the WMMA forms' arguments, then their packed weights, its size in
+# bytes and the grid; the stream backwards (bf16 and fp32, both on wgmma,
+# their weights read only from the packed image) the same, then three
+# device buffers (per-ray sums of split tiles; the value's datt rows).
 for _name in ("papr_key_stream_fwd", "papr_value_stream_fwd",
+              "papr_key_stream_f32_fwd", "papr_value_stream_f32_fwd",
               "papr_fused_mlp_fwd", "papr_fused_mlp_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P]
 for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd",
@@ -100,15 +105,15 @@ for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd",
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P,
                                                   P, P, P]
 
-# The int8 forms take their fp32 twin's arguments (the bf16 form's before
-# its wgmma arguments; the eval attention's: those before its packed
-# weights), then the walk's (two walks': key, then value) int8 weights,
-# inverse-scale rows and dequant rows, then the stream; the ``_i8_f32``
-# forms (the fp32 epilogue) the same.
+# The int8 forms take the wgmma forms' arguments before their wgmma tail
+# (the eval attention's: those before its packed weights), then the walk's
+# (two walks': key, then value) int8 weights, inverse-scale rows and
+# dequant rows, then the stream; the ``_i8_f32`` forms (the fp32 epilogue)
+# the same.
 for _name, _walks in (("papr_attend_eval", 2), ("papr_key_stream", 1),
                       ("papr_value_stream", 1)):
-    _twin = (SIGNATURES[_name + "_f32_fwd"] if _walks == 1 else _ATTEND)
-    _sig = _twin[:-1] + [P] * (3 * _walks + 1)
+    _stem = _I8_STEM[_name + "_fwd"] if _walks == 1 else _ATTEND[:-1]
+    _sig = _stem + [P] * (3 * _walks + 1)
     for _i8 in ("_i8", "_i8_f32"):
         SIGNATURES[_name + _i8 + ("_fwd" if _walks == 1 else "")] = _sig
 

@@ -70,6 +70,9 @@ from .fused_mlp import (BwdBuffers, FrameQuant, Walk, WalkQuant,
 NEG_BIG = -1e30
 REC_POS, REC_INFLU, REC_ALIVE, REC_FEATS = 0, 3, 4, 5
 N_GEO = 9                      # raw sources [pos(3), proj(3), perp(3)]
+# The widest value rows the fp32 value forward takes (csrc/walk_wgmma.cuh:
+# its per-ray fuse rows sit beside the fp32 activations in shared memory).
+F32_FWD_MAX_ROWS = 96
 
 
 @functools.lru_cache(maxsize=None)
@@ -429,8 +432,8 @@ def attend_stream_eval(rec, rayo, rays, qq, kwalk: Walk, wk, bk, vwalk: Walk,
 # autograd scatter-adds it into the (P, rp) point record through the gather.
 # Each direction has a CUDA kernel (``csrc/key_stream.cu``,
 # ``csrc/value_stream.cu``, weight gradients through ``csrc/wgrad.cu``; the
-# bf16 forms on wgmma, their weights packed per call by ``fwd_wgmma_pack`` /
-# ``bwd_wgmma_pack``; the fp32 backwards on wgmma too, packed by
+# bf16 and fp32 forms on wgmma, their weights packed per call by
+# ``fwd_wgmma_pack`` / ``bwd_wgmma_pack`` and ``fwd_wgmma_pack_f32`` /
 # ``bwd_wgmma_pack_f32``) and a plain version; a backward's plain version is the
 # plain forward recomputed under autograd, independent of the kernels' hand
 # derivation.
@@ -616,6 +619,13 @@ def fwd_wgmma_pack(w, pd, dev, head=()) -> torch.Tensor:
     return pack_walk_wgmma(_walk_mats(w, pd) + list(head), dev)
 
 
+def fwd_wgmma_pack_f32(w, pd, dev, head=()) -> torch.Tensor:
+    """The fp32 stream forwards' weight image (``csrc/walk_wgmma.cuh``, the
+    fp32 operand form) of the walk's layers and then the head (key: w_k),
+    through ``pack_walk_wgmma_f32``: 16 KB hi / lo stages in stream order."""
+    return pack_walk_wgmma_f32(_walk_mats(w, pd) + list(head), dev)
+
+
 def _bwd_mats(w, wt, pd, head) -> list:
     """The backwards' matrices in the order a k step streams them: the
     forward layers (``pack_walk``'s ``w``), the head's pair (key: w_k,
@@ -690,17 +700,17 @@ def key_stream_fwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk,
             key_stream_i8_f32_fwd.launches += 1
         else:
             key_stream_i8_fwd.launches += 1
-    elif f32:
-        build.check(lib.papr_key_stream_f32_fwd(*args, stream),
-                    "papr_key_stream_f32_fwd")
-        key_stream_f32_fwd.launches += 1
     else:
-        wpack = fwd_wgmma_pack(kw, kpd, dev, (wkf,))
-        build.check(lib.papr_key_stream_fwd(*args, wpack.data_ptr(),
-                                            2 * wpack.numel(),
-                                            fm.wgmma_grid(T), stream),
-                    "papr_key_stream_fwd")
-        key_stream_fwd.launches += 1
+        wpack = (fwd_wgmma_pack_f32 if f32 else fwd_wgmma_pack)(
+            kw, kpd, dev, (wkf,))
+        name = "papr_key_stream_f32_fwd" if f32 else "papr_key_stream_fwd"
+        build.check(getattr(lib, name)(
+            *args, wpack.data_ptr(), wpack.numel() * wpack.element_size(),
+            fm.wgmma_grid(T), stream), name)
+        if f32:
+            key_stream_f32_fwd.launches += 1
+        else:
+            key_stream_fwd.launches += 1
     return attn, raw, ss
 
 
@@ -921,8 +931,13 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
     vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev,
                                                cdt)
     f32 = cdt == torch.float32
-    # The bf16 kernel adds each block's per-ray sums into a zeroed output.
-    fused = (torch.empty if int8 or f32 else torch.zeros)(
+    if f32 and not int8 and vpd[-1] > F32_FWD_MAX_ROWS:
+        raise NotImplementedError(
+            f"value stream: value rows of {vpd[-1]} > {F32_FWD_MAX_ROWS} "
+            "(the fp32 forward keeps its fuse rows beside the fp32 "
+            "activations in shared memory)")
+    # The wgmma kernels add each block's per-ray sums into a zeroed output.
+    fused = (torch.empty if int8 else torch.zeros)(
         T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32, device=dev)
     args = (rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
             attn.data_ptr(), ctypes.cast(c_ints(vmeta), ctypes.c_void_p),
@@ -941,17 +956,17 @@ def value_stream_fwd(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
             value_stream_i8_f32_fwd.launches += 1
         else:
             value_stream_i8_fwd.launches += 1
-    elif f32:
-        build.check(lib.papr_value_stream_f32_fwd(*args, stream),
-                    "papr_value_stream_f32_fwd")
-        value_stream_f32_fwd.launches += 1
     else:
-        wpack = fwd_wgmma_pack(vw, vpd, dev)
-        build.check(lib.papr_value_stream_fwd(*args, wpack.data_ptr(),
-                                              2 * wpack.numel(),
-                                              fm.wgmma_grid(T), stream),
-                    "papr_value_stream_fwd")
-        value_stream_fwd.launches += 1
+        wpack = (fwd_wgmma_pack_f32 if f32 else fwd_wgmma_pack)(vw, vpd, dev)
+        name = ("papr_value_stream_f32_fwd" if f32
+                else "papr_value_stream_fwd")
+        build.check(getattr(lib, name)(
+            *args, wpack.data_ptr(), wpack.numel() * wpack.element_size(),
+            fm.wgmma_grid(T), stream), name)
+        if f32:
+            value_stream_f32_fwd.launches += 1
+        else:
+            value_stream_fwd.launches += 1
     return fused
 
 

@@ -331,6 +331,18 @@ def _embed_case(rng, dev, stack, R, norm):
     return walk, x
 
 
+def _ray_median(got, want):
+    """The median over rays of the relative error of a (K, T, ...) or (T,
+    ...) output, each ray's entries together (rays whose plain value is 0
+    left out)."""
+    g, w = got.float(), want.float()
+    if g.dim() == 3:
+        g, w = g.transpose(0, 1), w.transpose(0, 1)
+    g, w = g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)
+    d, n = (g - w).norm(dim=-1), w.norm(dim=-1)
+    return float((d[n > 0] / n[n > 0]).median())
+
+
 def _median_row_rels(got, want):
     """Median over rows of each row's relative error, for each output (a
     vector: its entries), rows whose plain value is 0 left out."""
@@ -1294,6 +1306,11 @@ F32_BWD_REL = 1e-5
 # recompute's products; sound 6.9e-7-1.2e-6, the products accumulated in the
 # tensor cores' own accumulator across the whole K 3.3e-6-3.8e-6).
 F32_DQQ_MEDIAN_REL = 2e-6
+# ... and the median ray of d_rec[0:3], the geometry gradient, which the
+# whole reverse walk feeds: sound 1.05e-6-2.31e-6, the reverse walk's
+# products in the tensor cores' own accumulator 7.30e-6-9.31e-6, the
+# forward and reverse products so 4.42e-6-6.32e-6 (PERF.md, Findings).
+F32_GEO_MEDIAN_REL = 4e-6
 F32_WGRAD_REL = 1e-6           # against the fp64 product
 WGRAD_REL = 1e-5               # bf16 operands, against the fp64 product
 F32_MARGIN = 1e-5
@@ -1474,6 +1491,180 @@ def test_value_stream_f32_kernels_match_plain(dev, T, normalize):
     assert float(got[0][:, 5].abs().max()) == 0.0
 
 
+# The fp32 stream forwards on wgmma (walk_wgmma.cuh's fp32 operand form, the
+# fp32 K3's walk): chip_smoke's phase 8 bounds (relative Frobenius of raw
+# and fused, attn's max abs) and its median-ray bound; ragged T, K 1 / 7 /
+# 20, a grid that splits tiles.
+F32_FWD_REL = 1e-5
+F32_FWD_ATTN_ABS = 3e-5
+F32_FWD_MEDIAN_REL = 3e-6
+F32_FWD_CASES = [(300, 20, None), (100, 7, None), (257, 1, None),
+                 (300, 7, 2), (131, 20, 1)]
+
+
+@pytest.mark.parametrize("score_act", ["relu", "none"])
+@pytest.mark.parametrize("T,K,grid", F32_FWD_CASES)
+def test_key_stream_f32_fwd_wgmma_matches_plain(dev, monkeypatch, T, K, grid,
+                                                score_act):
+    """Row 5's fp32 forward on wgmma against the plain fp32 forward: attn,
+    raw and the median ray of raw at the fp32 bounds, the masked scores
+    exactly from raw; an all-dead ray (5) and, with T > 128, a warpgroup of
+    all-dead rays (64..127); one launch counted as fp32."""
+    rng = np.random.default_rng(800 + T + K)
+    rec, rayo, rays, qq, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    if T > 128:
+        rec[:, 64:128, 4] = 0.0
+    _fwd_grid(monkeypatch, grid)
+    args = (rec, rayo, rays, qq, kw, wk, bk)
+    before = sa.key_stream_f32_fwd.launches, sa.key_stream_fwd.launches
+    attn, raw, ss = sa.key_stream_f32_fwd(*args, score_act, 5.0, 1e-6)
+    assert (sa.key_stream_f32_fwd.launches, sa.key_stream_fwd.launches) == (
+        before[0] + 1, before[1])
+    attn_p, raw_p, _ = sa.key_stream_plain(*args, score_act, 5.0, 1e-6,
+                                           torch.float32)
+    a_abs = float((attn - attn_p).abs().max())
+    med = _median_row_rels([raw], [raw_p])[0]
+    print(f"key_stream_f32_fwd wgmma T={T} K={K} grid={grid} {score_act}: "
+          f"attn max abs {a_abs:.2e}, raw {_rel(raw, raw_p):.2e}, median ray "
+          f"raw {med:.2e}")
+    assert bool(torch.isfinite(attn).all() and torch.isfinite(raw).all())
+    assert a_abs <= F32_FWD_ATTN_ABS and _rel(raw, raw_p) <= F32_FWD_REL
+    assert med <= F32_FWD_MEDIAN_REL
+    alive = (rec[..., 4] > 0.5).T
+    sact = torch.clamp_min(raw, 0.0) if score_act == "relu" else raw
+    assert torch.equal(ss, torch.where(alive, sact * rec[..., 3].T,
+                                       sa.NEG_BIG))
+    dead = ~alive.any(dim=1)
+    assert bool(dead[5]) and (T <= 128 or bool(dead[64:128].all()))
+    assert bool((attn[dead, K] == 1.0).all())
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("T,K,grid", F32_FWD_CASES)
+def test_value_stream_f32_fwd_wgmma_matches_plain(dev, monkeypatch, T, K,
+                                                  grid, normalize):
+    """Row 6's fp32 forward on wgmma, as the key's above (the value rows
+    fused unrounded): ray 5 and, with T > 128, rays 64..127 have no
+    foreground mass; split tiles add two blocks' sums, in either order."""
+    rng = np.random.default_rng(900 + T + K)
+    rec, rayo, rays, _, _, vw, _, _ = _stream_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    if T > 128:
+        a[64:128, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    _fwd_grid(monkeypatch, grid)
+    args = (rec, rayo, rays, attn, vw, normalize)
+    before = sa.value_stream_f32_fwd.launches, sa.value_stream_fwd.launches
+    fused = sa.value_stream_f32_fwd(*args)
+    assert (sa.value_stream_f32_fwd.launches,
+            sa.value_stream_fwd.launches) == (before[0] + 1, before[1])
+    fused_p = sa.value_stream_plain(*args, 1e-6, torch.float32)
+    med = _median_row_rels([fused], [fused_p])[0]
+    print(f"value_stream_f32_fwd wgmma T={T} K={K} grid={grid} normalize="
+          f"{normalize}: fused {_rel(fused, fused_p):.2e}, median ray "
+          f"{med:.2e}")
+    assert bool(torch.isfinite(fused).all())
+    assert _rel(fused, fused_p) <= F32_FWD_REL and med <= F32_FWD_MEDIAN_REL
+    assert float(fused[5].abs().max()) == 0.0
+    if T > 128:
+        assert float(fused[64:128].abs().max()) == 0.0
+    assert torch.equal(fused, sa.value_stream_f32_fwd(*args))
+
+
+def _f32_fwd_case(dev, T, K, P, rp, kL, vL, n_feat, d_ff, dm, seed):
+    """Records gathered k-major from a (P, rp) point table (alive 80 %),
+    rays, qq and the walks at the given widths (key n_ff 3 or 5 with
+    LayerNorms, value to 32), drawn on the card from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    table = torch.zeros(P, rp, device=dev)
+    table[:, :4] = rn(P, 4)
+    table[:, 4] = (torch.rand(P, generator=g, device=dev) > 0.2).float()
+    table[:, 5:5 + n_feat] = rn(P, n_feat)
+    idx = torch.randint(0, P, (K, T), generator=g, device=dev)
+    rec = table[idx].contiguous()
+    rays = rn(T, 3)
+    rays = rays / rays.norm(dim=-1, keepdim=True)
+    rng = np.random.default_rng(seed)
+    n_key = 5 if d_ff == 256 else 3
+    n_val = 8 if d_ff == 256 else 3
+    kw = _walk(rng, sa.rec_pe_plan(True, kL, 1, 2.0, 1.0, 0), n_key, d_ff,
+               d_ff, True, dev)
+    vw = _walk(rng, sa.rec_pe_plan(False, vL, 1, 2.0, 1.0, n_feat), n_val,
+               d_ff, 32, False, dev)
+    wk = rn(dm, d_ff) / math.sqrt(d_ff)
+    return (rec, (rn(1, 3) * 3).expand(T, 3).contiguous(), rays, rn(T, dm),
+            kw, wk, rn(dm) * 0.1, vw)
+
+
+# (T, K, P, the walks' widths): phase 8's (Caterpillar's 180 x 180 patch,
+# its 5,000 points and walks: key encoding 81, value 118 with 64 point
+# features), configs/demo.yml's (key 3 x 64, d_model 64; value 3 layers on a
+# 70-wide encoding with 16 point features, padded to 80: its last 32-deep
+# chunk reads E columns past the encoding) and a narrow key whose 45-wide
+# encoding (48 padded) does the same.
+F32_FWD_WIDTHS = {
+    "phase 8": (32_400, 20, 5_000, (4, 4, 4), (4, 4), 64, 256, 256),
+    "demo": (4_096, 8, 400, (4, 4, 4), (4, 4), 16, 64, 64),
+    "narrow key": (1_000, 8, 400, (2, 2, 2), (2, 2), 4, 64, 64),
+}
+
+
+@pytest.mark.parametrize("stream", ["key", "value"])
+@pytest.mark.parametrize("widths", list(F32_FWD_WIDTHS))
+def test_stream_f32_fwd_wgmma_at_shipped_widths(dev, widths, stream):
+    """Both fp32 forwards against their plain fp32 versions at phase 8's
+    shapes and at ``configs/demo.yml``'s widths (and a narrow key): the
+    fp32 bounds and the median ray."""
+    T, K, P, kL, vL, n_feat, d_ff, dm = F32_FWD_WIDTHS[widths]
+    rec, rayo, rays, qq, kw, wk, bk, vw = _f32_fwd_case(
+        dev, T, K, P, 128, kL, vL, n_feat, d_ff, dm, 31)
+    kargs = (rec, rayo, rays, qq, kw, wk, bk, "relu", 5.0, 1e-6)
+    if stream == "key":
+        attn, raw, _ = sa.key_stream_f32_fwd(*kargs)
+        attn_p, raw_p, _ = sa.key_stream_plain(*kargs, torch.float32)
+        a_abs = float((attn - attn_p).abs().max())
+        rel, med = _rel(raw, raw_p), _median_row_rels([raw], [raw_p])[0]
+        print(f"key_stream_f32_fwd wgmma {widths} widths: attn max abs "
+              f"{a_abs:.2e}, raw {rel:.2e}, median ray raw {med:.2e}")
+        assert a_abs <= F32_FWD_ATTN_ABS
+    else:
+        attn = sa.key_stream_plain(*kargs, torch.float32)[0]
+        args = (rec, rayo, rays, attn, vw, True)
+        fused = sa.value_stream_f32_fwd(*args)
+        fused_p = sa.value_stream_plain(*args, 1e-6, torch.float32)
+        rel, med = _rel(fused, fused_p), _median_row_rels([fused],
+                                                          [fused_p])[0]
+        print(f"value_stream_f32_fwd wgmma {widths} widths: fused "
+              f"{rel:.2e}, median ray {med:.2e}")
+    assert rel <= F32_FWD_REL and med <= F32_FWD_MEDIAN_REL
+
+
+def test_stream_f32_fwd_wgmma_against_k3(dev):
+    """The fp32 stream forwards run the fp32 K3's walk code: on one ray
+    set (the record gathered k-major by K3's indices), the key forward's
+    attention is K3's bit for bit, and the value forward on K3's attention
+    is K3's fused up to the fuse's arithmetic."""
+    rng = np.random.default_rng(22)
+    T, K, P = 300, 20, 900
+    rec, rayo, rays, qq, kw, vw, wk, bk = _stream_case(rng, dev, T, K)
+    record = torch.zeros(P, 128, device=dev)
+    idx = torch.as_tensor(rng.integers(0, P, size=(T, K)), device=dev)
+    record[idx.T.reshape(-1)] = rec.reshape(K * T, 128)
+    rec = record[idx.T]                        # (K, T, 128), idx's rows
+    fused3, attn3 = sa.attend_eval_f32(record, idx, rayo, rays, qq, kw, wk,
+                                       bk, vw, "relu", 5.0, True, 1e-6)
+    attn = sa.key_stream_f32_fwd(rec, rayo, rays, qq, kw, wk, bk, "relu",
+                                 5.0, 1e-6)[0]
+    a_abs = float((attn - attn3).abs().max())
+    fused = sa.value_stream_f32_fwd(rec, rayo, rays, attn3, vw, True, 1e-6)
+    print(f"fp32 stream forwards against the fp32 K3: attn max abs "
+          f"{a_abs:.2e}, fused {_rel(fused, fused3):.2e}")
+    assert torch.equal(attn, attn3)
+    assert _rel(fused, fused3) <= 1e-5
+
+
 # The fp32 stream backwards on wgmma (walk_wgmma_bwd.cuh in the fp32 operand
 # form): T not a multiple of the 128-ray tile (and under it), K from 1 to
 # 33, a grid smaller than the tiles (a tile split between two blocks, its
@@ -1487,7 +1678,8 @@ def test_key_stream_f32_bwd_wgmma_matches_plain(dev, monkeypatch, T, K, grid):
     """Row 5's fp32 backward on wgmma against the plain fp32 backward on the
     held rays (relu inputs 1e-5 rms from 0; the plain softmax backward reads
     the kernel forward's raw dots, as the kernel does), every output at
-    F32_BWD_REL and the median ray of dqq at F32_DQQ_MEDIAN_REL;
+    F32_BWD_REL, the median ray of dqq at F32_DQQ_MEDIAN_REL and of
+    d_rec[0:3] at F32_GEO_MEDIAN_REL;
     an all-dead ray (5) and, with T > 128, a warpgroup of all-dead rays
     (64..127) get no gradient; one launch counted."""
     rng = np.random.default_rng(500 + T + K)
@@ -1510,9 +1702,12 @@ def test_key_stream_f32_bwd_wgmma_matches_plain(dev, monkeypatch, T, K, grid):
     _close_all(_rec_lanes(got), _rec_lanes(want), F32_BWD_REL,
                f"key_stream_f32_bwd wgmma T={T} K={K} grid={grid}")
     med = _median_row_rels([got[3]], [want[3]])[0]
+    geo = _ray_median(got[0][..., :3], want[0][..., :3])
+    rays_m = [_ray_median(a, b) for a, b in zip(got[1:3], want[1:3])]
     print(f"key_stream_f32_bwd wgmma T={T} K={K} grid={grid}: median ray "
-          f"dqq {med:.2e}")
-    assert med <= F32_DQQ_MEDIAN_REL
+          f"dqq {med:.2e}, d_rec[0:3] {geo:.2e}; (printed) d_rayo "
+          f"{rays_m[0]:.2e}, d_rays {rays_m[1]:.2e}")
+    assert med <= F32_DQQ_MEDIAN_REL and geo <= F32_GEO_MEDIAN_REL
     dead = [5] + (list(range(64, 128)) if T > 128 else [])
     assert float(got[0][:, dead].abs().max()) == 0.0
 

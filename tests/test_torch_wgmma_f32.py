@@ -7,6 +7,9 @@ the fp32 one-shot eval attention), on the CPU.
   permuted), gives hi + lo equal to the fp32 weights to fp32 rounding, hi and
   lo on the TF32 grid, zeros beyond each matrix, and the size the kernel's
   layer table (``wg_plan_f32``) computes.
+- ``fwd_wgmma_pack_f32`` (the fp32 stream forwards' image) unpacks to the
+  walk's layers as ``pack_walk`` packs them and then ``w_k``, in stream
+  order, for the flagship's, Caterpillar's and narrow walks.
 - A product emulated the way the kernel issues it (a thread's A fragment
   read as one float2 a row: logical k = q from input column 2 q, q + 4 from
   2 q + 1; the B stage as packed) equals the unpermuted product of the same
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from papr_tpu_torch.ops import fused_mlp as fm
+from papr_tpu_torch.ops import stream_attn as sa
 
 
 def _perm(l):
@@ -143,3 +147,48 @@ def test_product_from_the_permuted_image_equals_the_plain_product(a, b):
     # 3xTF32 is fp32-accurate: against the fp64 product of the fp32 values.
     exact = x[:, :a].double() @ w.double()
     assert float((want - exact).norm() / exact.norm()) < 1e-6
+
+
+@pytest.mark.parametrize("dims,head", [
+    ((117, 256, 256, 256, 256, 256), 256),   # the flagship's key walk, w_k
+    ((142, 256, 256, 256, 256, 256, 256, 256, 32), 0),   # its value walk
+    ((81, 256, 256, 256, 256, 256), 256),    # Caterpillar's key walk, w_k
+    ((20, 48, 16), 40),
+])
+def test_fwd_pack_f32_unpacks_to_the_walk_then_w_k(dims, head):
+    """Per matrix in stream order (the walk's layers, then w_k): hi on the
+    TF32 grid and equal to the rounded weight, hi + lo the fp32 weight to
+    fp32 rounding, zero beyond it, and the size ``wg_plan_f32`` computes;
+    each layer is ``pack_walk``'s, the walk's weight in its corner."""
+    rng = np.random.default_rng(sum(dims) + head)
+    t = lambda a: torch.as_tensor(a.astype(np.float32))
+    ws = tuple(t(rng.normal(size=(dims[i], dims[i + 1])))
+               for i in range(len(dims) - 1))
+    bs = tuple(t(rng.normal(size=d)) for d in dims[1:])
+    walk = fm.Walk(ws, bs, None, None, "relu", "none",
+                   ((0, 0.0, 0),) * dims[0])
+    f32 = torch.float32
+    _, w, _, _, _, pd = fm.pack_walk(walk, dims[0], "cpu", f32)
+    wk = ()
+    if head:
+        wk = (t(rng.normal(size=(pd[-1], head))),)
+    buf = sa.fwd_wgmma_pack_f32(w, pd, "cpu", wk)
+    assert buf.dtype == f32
+    order = list(zip(pd[:-1], pd[1:])) + [tuple(h.shape) for h in wk]
+    want, o = [], 0
+    for i, (a, b) in enumerate(zip(pd[:-1], pd[1:])):
+        m = w[o:o + a * b].view(a, b)
+        n_in, n_out = ws[i].shape
+        assert torch.equal(m[:n_in, :n_out], ws[i])
+        assert not m[n_in:].any() and not m[:, n_out:].any()
+        want.append(m)
+        o += a * b
+    want += list(wk)
+    for st, m, (a, b) in zip(_stages(buf, order), want, order):
+        hi, lo, lg, inside = _unpack(st, a, b)
+        assert not lg[~inside].any()
+        assert torch.equal(hi, fm.tf32_rna(m))
+        err = ((hi.double() + lo.double()) - m.double()).abs()
+        assert bool((err <= 2.0 ** -21 * m.double().abs()).all())
+    assert 4 * buf.numel() == sum(math.ceil(a / 32) * math.ceil(b / 64)
+                                  * 16384 for a, b in order)

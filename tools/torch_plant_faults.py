@@ -13,8 +13,11 @@ kernels are rebuilt, and the phase-2 comparison that holds the kernel
 (``chip_smoke.compare_cli_kernels``; for the cases named "stream",
 ``chip_smoke.compare_train_kernels``; for those named "int8",
 ``chip_smoke.compare_int8_kernels``; the flagship patch; for those named
-"fp32", ``chip_smoke.compare_f32_kernels`` on Caterpillar's model and patch;
-for those named "wgmma", ``chip_smoke.compare_wgmma_kernels``: K3 on the
+"fp32", ``chip_smoke.compare_f32_kernels`` on Caterpillar's model and patch
+(for "fp32 fwd wgmma" and "fp32 bwd wgmma", its comparisons up to the fp32
+stream rows only: that run stops before phase 8's closing "FAILS" line, so
+a comparison that fails shows as a reading above its "need <=" bound); for
+those named "wgmma", ``chip_smoke.compare_wgmma_kernels``: K3 on the
 eval block, ``wgrad`` / ``wgrad_f32`` at phase 2's / phase 8's shapes; for
 those named "embed wgmma", ``chip_smoke.compare_embed_kernels``: the bf16
 embedder forward and backward on wgmma, and with them the other
@@ -67,6 +70,48 @@ _F32_WG_JOIN = (
     "#pragma unroll\n"
     "        for (int i = 0; i < kF32PassN / 2; ++i)\n"
     "          acc[32 * p + i] = __fadd_rn(acc[32 * p + i], f[i]);\n")
+# The fp32 reverse walk's header and product (walk_wgmma_bwd.cuh wgb_rev),
+# and wg_gemm_f32 (walk_wgmma.cuh) with its products accumulated in the
+# tensor cores' own accumulator across the whole K, renamed: a fault only in
+# the fp32 backwards' reverse products (dz_l W_l^T).
+_F32_REV = (
+    "// The fp32 form's reverse walk from the gradient of the walk's output (in\n"
+    "// acc): the last layer's epilogue, then per layer l the product dz_l W_l^T\n"
+    "// (rev: the W_l^T layers from l = n - 1 down) and layer l - 1's epilogue;\n"
+    "// layer 0's product, the encoding's gradient, goes to the warp's rows of E.\n"
+    "__device__ __forceinline__ void wgb_rev(float (&acc)[kOutRegs], WgRowsA& A,\n"
+    "                                        WgRing& rg, const unsigned char*,\n"
+    "                                        const WalkDesc& d, const WgLayer* rev,\n"
+    "                                        float* const* dz, const int* b_off,\n"
+    "                                        float* prow, size_t srow0,\n"
+    "                                        const uint32_t* masks, float*, bool,\n"
+    "                                        float*, int) {\n"
+    "  const int n = d.n;\n"
+    "  rev_epilogue(acc, A, d.last_act == 1 ? masks + (n - 1) * 512 : nullptr,\n"
+    "               d.pd[n], prow + b_off[n - 1], dz[n - 1], srow0);\n"
+    "  for (int l = n - 1; l >= 0; --l) {\n"
+    "    wg_gemm_f32(acc, A.E, A.row0, rg, rev[n - 1 - l]);\n")
+
+
+def _f32_gemm_own_acc(name: str) -> str:
+    """wg_gemm_f32's text (walk_wgmma.cuh) as ``name``, its products
+    accumulated in the tensor cores' own accumulator across the whole K."""
+    src = open(os.path.join(REPO, "papr_tpu_torch", "csrc",
+                            "walk_wgmma.cuh")).read()
+    head = "__device__ __forceinline__ void wg_gemm_f32("
+    body = src[src.index(head):src.index("\n}\n", src.index(head)) + 3]
+    for old, new in ((_F32_WG_PRODUCTS, _F32_WG_PRODUCTS.replace(
+            "dh + kk, s > 0);", "dh + kk, s > 0 || sub > 0 || c > 0);")),
+                     (_F32_WG_JOIN, _F32_WG_JOIN.replace(
+                         "__fadd_rn(acc[32 * p + i], f[i])", "f[i]"))):
+        assert body.count(old) == 1, "bring _F32_WG_* up to date"
+        body = body.replace(old, new)
+    return body.replace("void wg_gemm_f32(", f"void {name}(") + "\n"
+
+
+# The fp32 stream forwards' value fuse (walk_wgmma.cuh stream_fwd_wg).
+_F32_FWD_FUSE = ("              if (c1 < cout) arow[c1] += a * "
+                 "act_round<Op>(acc[i]);")
 MUTS = [
     ("embed wgmma: the second weight chunk read from the first one's stage "
      "(a stale stage)",
@@ -263,6 +308,51 @@ MUTS = [
      "  colsum_layer([&](int i) { return bf16_round(acc[i]); }, part_db, "
      "width);",
      ("f32_stream_bwd",)),
+    ("fp32 bwd wgmma: the reverse walk's products (dz_l W_l^T) in the tensor "
+     "cores' own accumulator across the whole K (only there)",
+     _F32_REV,
+     _f32_gemm_own_acc("wg_gemm_f32_rev") + _F32_REV.replace(
+         "    wg_gemm_f32(acc,", "    wg_gemm_f32_rev(acc,"),
+     ("f32_stream_bwd",)),
+    ("fp32 fwd wgmma: single-pass TF32 (the lo terms dropped; the fp32 "
+     "stream forwards and the fp32 K3)",
+     _F32_WG_PRODUCTS,
+     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+     "                            dh + kk, s > 0);\n",
+     ("f32_stream_fwd",)),
+    ("fp32 fwd wgmma: the lo.hi term dropped (one cross term; the fp32 "
+     "stream forwards and the fp32 K3)",
+     _F32_WG_PRODUCTS,
+     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+     "                            dl + kk, s > 0);\n"
+     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+     "                            dh + kk, 1);\n",
+     ("f32_stream_fwd",)),
+    ("fp32 fwd wgmma: the value rows rounded to bf16 before the fuse (a "
+     "rounding point)",
+     _F32_FWD_FUSE, _F32_FWD_FUSE.replace("act_round<Op>(acc[i])",
+                                          "bf16_round(acc[i])"),
+     ("f32_stream_fwd",)),
+    ("fp32 fwd wgmma: y_k rounded to bf16 before the w_k product (a rounding "
+     "point; the fp32 K3's score too)",
+     "  const int q = threadIdx.x & 3;\n"
+     "  wg_gemm_f32(acc, A.E, A.row0, rg, L);\n",
+     "  const int q = threadIdx.x & 3;\n"
+     "  for (int r = A.row0; r < A.row0 + 16; ++r)\n"
+     "    for (int c = threadIdx.x & 31; c < L.pd_in; c += 32)\n"
+     "      A.E[r * kF32Ld + c] = bf16_round(A.E[r * kF32Ld + c]);\n"
+     "  __syncwarp();\n"
+     "  wg_gemm_f32(acc, A.E, A.row0, rg, L);\n",
+     ("f32_stream_fwd",)),
+    ("fp32 fwd wgmma: E left stale at the start (NaN where it is zeroed)",
+     "      sm.tiles[i] = 0.f;",
+     "      sm.tiles[i] = __int_as_float(0x7fc00000);",
+     ("f32_stream_fwd",)),
+    ("fp32 fwd wgmma: E not zeroed at the start (whatever the block's shared "
+     "memory held)",
+     "    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)\n"
+     "      sm.tiles[i] = 0.f;\n", "",
+     ("f32_stream_fwd",)),
     ("fp32 walk: single-pass TF32 (the lo terms dropped)",
      "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
      "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
@@ -430,11 +520,29 @@ sys.path.insert(0, ".")
 import chip_smoke as cs, torch
 cs.fail = lambda m: print("FAILS:", m)
 dev = torch.device("cuda", 0)
-if sys.argv[1] == "compare_f32_kernels":
+if sys.argv[1] in ("compare_f32_kernels", "compare_f32_streams"):
     cfg = cs.caterpillar_cfg()
     params, state = cs.build_model(cfg, dev)
     _, rayo, rayd, _ = cs.sphere_view(cfg, dev)
-    cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180, n_time=1)
+    if sys.argv[1] == "compare_f32_streams":
+        # Phase 8's comparisons up to the fp32 stream rows (5f / 6f): the
+        # run stops where row 7f's would start.
+        from papr_tpu_torch.ops import stream_attn as sa
+
+        class Stop(Exception):
+            pass
+
+        def stop(*a, **k):
+            raise Stop
+        sa.key_stream_q_f32_fwd = stop
+        try:
+            cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180,
+                                   n_time=1)
+        except Stop:
+            pass
+    else:
+        cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180,
+                               n_time=1)
 elif sys.argv[1] == "compare_wgmma_kernels":
     cfg = cs.flagship_cfg()
     params, state = cs.build_model(cfg, dev)
@@ -462,9 +570,15 @@ TARGETS = {
     "compare_wgmma_kernels": (("phase 2 K3", "phase 2 wgrad",
                                "phase 8 wgrad_f32"),
                               "attend_eval_kernel or wgrad or hgmma"),
-    # compare_f32_kernels, read for the two fp32 stream backwards only.
+    # compare_f32_kernels up to rows 5f / 6f (compare_f32_streams), read for
+    # the two fp32 stream backwards only.
     "f32_stream_bwd": (("phase 8 key_stream_f32_bwd",
                         "phase 8 value_stream_f32_bwd"), "f32_bwd_wgmma"),
+    # The same run, read for the two fp32 stream forwards (at phase 8's and
+    # configs/demo.yml's widths, and against the fp32 K3).
+    "f32_stream_fwd": (("phase 8 key_stream_f32_fwd",
+                        "phase 8 value_stream_f32_fwd",
+                        "phase 8 fp32 stream forwards"), "f32_fwd_wgmma"),
     # compare_train_kernels, read for the two bf16 stream backwards only.
     "stream_bwd": (("phase 2 key_stream_bwd", "phase 2 value_stream_bwd"),
                    "stream_bwd_wgmma"),
@@ -476,7 +590,8 @@ TARGETS = {
               "fused_mlp_wgmma or fused_mlp_bwd_wgmma"),
 }
 # The comparison function each target runs, and the cuda test lines shown.
-FN = {"f32_stream_bwd": "compare_f32_kernels",
+FN = {"f32_stream_bwd": "compare_f32_streams",
+      "f32_stream_fwd": "compare_f32_streams",
       "stream_bwd": "compare_train_kernels",
       "stream_fwd": "compare_train_kernels",
       "embed": "compare_embed_kernels"}
@@ -486,6 +601,9 @@ TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                                       "value_stream_f32_bwd wgmma"),
               "f32_stream_bwd": ("key_stream_f32_bwd wgmma",
                                  "value_stream_f32_bwd wgmma"),
+              "f32_stream_fwd": ("key_stream_f32_fwd wgmma",
+                                 "value_stream_f32_fwd wgmma",
+                                 "fp32 stream forwards"),
               "compare_train_kernels": ("key_stream_q T",),
               "compare_wgmma_kernels": ("attend_eval T", "wgrad"),
               "stream_bwd": ("key_stream_bwd T", "value_stream_bwd T"),

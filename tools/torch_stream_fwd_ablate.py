@@ -1,24 +1,32 @@
-"""Where the bf16 stream forwards spend their time: the key and value stream
+"""Where the stream forwards spend their time: the key and value stream
 forwards (``csrc/key_stream.cu`` / ``csrc/value_stream.cu``,
 ``papr_key_stream_fwd`` / ``papr_value_stream_fwd``) timed whole, on both
 grids where the tree has the persistent one, and with one part taken out at
 a time, on phase 2's shapes (T = 25,600 rays, K = 20, 30,000 points, the
 flagship's walks with random weights; the inputs of
-``tools/torch_stream_bwd_ablate.py``).
+``tools/torch_stream_bwd_ablate.py``). With ``--f32`` the fp32 forwards
+(``use_amp: false``, ``papr_key_stream_f32_fwd`` /
+``papr_value_stream_f32_fwd``) at phase 8's shapes: Caterpillar's 180 x 180
+patch (T = 32,400, K = 20, 5,000 points) and Caterpillar's walks with
+random weights.
 
-    python tools/torch_stream_fwd_ablate.py [--tree DIR] [--split-only]
+    python tools/torch_stream_fwd_ablate.py [--f32] [--tree DIR] [--split-only]
 
 ``--tree`` takes the sources and the package from another checkout (for
-example an unpacked parent commit, whose bf16 forwards are the WMMA
-kernels: only their whole-call and kernel-alone times are read). Each
-variant is a copy of the CUDA sources with lines replaced, built alone
-(``key_stream.cu``, ``value_stream.cu``, ``wgrad.cu``) and loaded in place
-of the library; the wrapper and its inputs are the same for all. A variant
-computes the wrong function (its error against the sound build is printed):
-it is a timing probe, not a kernel. Prints one line a variant: the kernel
-alone (its ``torch.profiler`` span: the wgmma kernel and, for the key, the
+example an unpacked parent commit); the variants follow that tree's design
+(bf16: the wgmma forwards' parts; fp32: ``WGMMA_F32`` where
+``key_stream.cu`` has ``key_fwd_wgmma_f32_kernel``, else ``WMMA_F32``, the
+WMMA kernels of ``walk.cuh``, whose key takes its softmax inside the
+kernel). Each variant is a copy of the CUDA sources with lines replaced
+(every occurrence), built alone (``key_stream.cu``, ``value_stream.cu``,
+``wgrad.cu``) and loaded in place of the library; the wrapper and its
+inputs are the same for all. A variant computes the wrong function (its
+error against the sound build is printed): it is a timing probe, not a
+kernel. Prints one line a variant: the kernel alone (its
+``torch.profiler`` span: the walk kernel and, for the key on wgmma, the
 softmax kernel after it; 3 calls after a warm-up), the whole call (CUDA
-events), the error, and ptxas's spill lines.
+events), the error, and ptxas's spill lines; the sound build's whole call
+is split into each device kernel's span and the host.
 """
 
 import argparse
@@ -32,8 +40,9 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
-from torch_stream_bwd_ablate import (_BODY, _MMA, _REFILL, _WAIT,  # noqa: E402
-                                     _split, inputs)
+from torch_stream_bwd_ablate import (_BODY, _F32_NO_MMA,  # noqa: E402
+                                     _F32_NO_WAIT, _MMA, _REFILL, _WAIT,
+                                     WMMA, _split, inputs)
 
 _SCORE = ("          if (c < dm)\n"
           "            s[h] += qrow[c] * linear_bf16(acc[4 * j + 2 * h + e], "
@@ -65,10 +74,78 @@ VARIANTS = [
 ]
 
 
+# The fp32 forwards on walk.cuh's WMMA walk (3xTF32 m16n16k8, one block of
+# 512 threads a 64-ray tile, the key's softmax inside the kernel).
+_W_MMA = ("    if (has0) {\n      // A full chunk unrolls at compile time, so "
+          "the scheduler")
+_SOFTMAX = "                                             float* __restrict__ ss_out) {\n"
+_FUSE_STEP = ("                                          int cout, int t0, "
+              "int T) {\n")
+_SINCOS = [("walk.cuh", "  sincosf(x * freq, &s, &c);",
+            "  s = x * freq;\n  c = s;")]
+_W_NO_MMA = [("walk.cuh", _W_MMA, _W_MMA.replace("(has0)",
+                                                 "(has0 && pd_in < 0)"))]
+WMMA_F32 = [
+    ("fp32 WMMA: whole kernel", []),
+    ("fp32 WMMA: no products", _W_NO_MMA),
+    ("fp32 WMMA: no weight staging waits", WMMA[3][1]),
+    ("fp32 WMMA: no products, no waits", _W_NO_MMA + WMMA[3][1]),
+    ("fp32 WMMA: no softmax (key)",
+     [("stream_common.cuh", _SOFTMAX, _SOFTMAX + "  if (K > -1) return;\n")]),
+    ("fp32 WMMA: no posenc sin / cos", _SINCOS),
+    ("fp32 WMMA: no fuse step (value)",
+     [("stream_common.cuh", _FUSE_STEP,
+       _FUSE_STEP + "  if (cout > -1) return;\n")]),
+]
+# The fp32 forwards on wgmma (walk_wgmma.cuh's fp32 operand form, the walk
+# of the fp32 K3).
+_F32_SCORE = ("        if (c < dm)\n"
+              "          s[h] += qrow[c] * linear_c<float>(acc[4 * j + 2 * h + e], "
+              "bks[c]);\n")
+_F32_FUSE = ("              if (c1 < cout) arow[c1] += a * "
+             "act_round<Op>(acc[i]);\n")
+WGMMA_F32 = [
+    ("fp32 wgmma: whole kernel", []),
+    ("fp32 wgmma: no products", _F32_NO_MMA),
+    ("fp32 wgmma: no waits for weights", _F32_NO_WAIT),
+    ("fp32 wgmma: no products, no waits", _F32_NO_MMA + _F32_NO_WAIT),
+    ("fp32 wgmma: no posenc sin / cos", _SINCOS),
+    ("fp32 wgmma: no output LayerNorm (key)",
+     [("walk_wgmma.cuh", _LN, _BODY(_LN, "  if (n_true > 0) return;"))]),
+    ("fp32 wgmma: no score dot (key)", [("walk_wgmma.cuh", _F32_SCORE, "")]),
+    ("fp32 wgmma: no fuse accumulation (value)",
+     [("walk_wgmma.cuh", _F32_FUSE, "")]),
+    ("fp32 wgmma: no fused write-out (value)",
+     [("walk_wgmma.cuh", _FUSE, "")]),
+]
+
+
+def _spans(fn, n: int = 3) -> dict:
+    """Each device kernel's ms per call (its torch.profiler span), by name
+    without its arguments."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            name = e.name.split("(")[0].split("<")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + us / n / 1e3
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--split-only", action="store_true")
+    ap.add_argument("--f32", action="store_true")
     opt = ap.parse_args()
     tree = os.path.abspath(opt.tree)
     sys.path.insert(0, tree)
@@ -82,15 +159,21 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"{smi}; tree {tree}", flush=True)
-    key, value = inputs(dev)
+    key, value = inputs(dev, opt.f32)
     key, value = key[:7] + key[10:], value[:5] + value[6:]
     T = key[0].shape[1]
     cases = (("key", "key_fwd", lambda: sa.key_stream_fwd(*key)),
              ("value", "value_fwd", lambda: [sa.value_stream_fwd(*value)]))
+    csrc = os.path.join(tree, "papr_tpu_torch", "csrc")
+    # The tree's design: the fp32 forwards on wgmma where key_stream.cu has
+    # their kernel; the bf16 ones where walk_wgmma.cuh exists.
+    f32_wg = "key_fwd_wgmma_f32_kernel" in open(
+        os.path.join(csrc, "key_stream.cu")).read()
+    form = "fp32 " if opt.f32 else ""
     # The grid rule: fused_mlp's, or stream_attn's on an older tree.
     rule = next((m for m in (fm, sa) if hasattr(m, "wgmma_grid")), None)
     grids = [("", None)]
-    if rule is not None:
+    if rule is not None and (f32_wg or not opt.f32):
         tiles = -(-T // 128)
         grids = [(f" (grid {rule.wgmma_grid(T)}: persistent)", None),
                  (f" (grid {tiles}: one block a tile)", tiles)]
@@ -102,16 +185,22 @@ def main() -> None:
         for what, pat, fn in cases:
             sound.setdefault(what, [g.clone() for g in fn()])
             k_ms, _, o_ms, whole = _split(fn, pat)
-            print(f"{what} stream forward{label}, whole call {whole:.3f} ms: "
-                  f"kernel alone {k_ms:.3f}, other device kernels "
-                  f"{o_ms:.3f}, host / gaps {whole - k_ms - o_ms:.3f}",
-                  flush=True)
+            spans = ", ".join(f"{n} {ms:.3f}" for n, ms in
+                              sorted(_spans(fn).items(), key=lambda x: -x[1])
+                              if ms >= 0.01)
+            print(f"{form}{what} stream forward{label}, whole call "
+                  f"{whole:.3f} ms: kernel alone {k_ms:.3f}, other device "
+                  f"kernels {o_ms:.3f}, host / gaps {whole - k_ms - o_ms:.3f}"
+                  f" (spans: {spans})", flush=True)
         if real is not None:
             rule.wgmma_grid = real
-    csrc = os.path.join(tree, "papr_tpu_torch", "csrc")
     if opt.split_only or not os.path.exists(os.path.join(csrc,
                                                          "walk_wgmma.cuh")):
         return
+    if opt.f32:
+        variants = WGMMA_F32 if f32_wg else WMMA_F32
+    else:
+        variants = VARIANTS
     nvcc = build._nvcc()
     root = tempfile.mkdtemp(prefix="stream_fwd_ablate_")
     wg_obj = os.path.join(root, "wgrad.o")
@@ -119,20 +208,20 @@ def main() -> None:
                     os.path.join(csrc, "wgrad.cu")], check=True,
                    capture_output=True)
     procs, runs = {}, []
-    for i, (name, subs) in enumerate(VARIANTS):
+    for i, (name, subs) in enumerate(variants):
         src = os.path.join(root, str(i))
         shutil.copytree(csrc, src)
         missing = False
         for f, old, new in subs:
             p = os.path.join(src, f)
             s = open(p).read()
-            if s.count(old) != 1:
+            if old not in s:
                 missing = True
                 break
             open(p, "w").write(s.replace(old, new))
         if missing:
             print(f"{name}: skipped (its lines are not in this tree's "
-                  f"sources once)", flush=True)
+                  f"sources)", flush=True)
             continue
         runs.append((i, name))
         for cu in ("key_stream", "value_stream"):
@@ -155,7 +244,8 @@ def main() -> None:
                         os.path.join(root, f"{i}.value_stream.o")],
                        check=True, capture_output=True)
         lib = ctypes.CDLL(so)
-        for fname in ("papr_key_stream_fwd", "papr_value_stream_fwd"):
+        for fname in ("papr_key_stream_fwd", "papr_value_stream_fwd",
+                      "papr_key_stream_f32_fwd", "papr_value_stream_f32_fwd"):
             getattr(lib, fname).argtypes = build.SIGNATURES[fname]
             getattr(lib, fname).restype = ctypes.c_int
         build._lib = lib           # the wrappers load this build
