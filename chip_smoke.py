@@ -298,6 +298,17 @@ F32_BWD_WMMA_MS = {"key_stream_f32_bwd": (53.692, 47.031),
 # (tools/torch_stream_fwd_ablate.py --f32 on that tree; PERF.md §6).
 F32_FWD_WMMA_MS = {"key_stream_f32_fwd": (18.304, 17.861),
                    "value_stream_f32_fwd": (21.857, 21.403)}
+# The fp32 embedder (rows 2f / 3f) on walk.cuh / walk_bwd.cuh's WMMA walk
+# before its wgmma redesign, the same readings at phase 8's shapes and
+# Caterpillar's widths (tools/torch_embed_ablate.py --f32 on that tree,
+# random weights: the query stack forward on 640,000 rays, backward on
+# 32,400; the key / value stacks of ``true`` on 648,000 tokens; PERF.md §6).
+F32_EMBED_WMMA_MS = {"fused_mlp_f32": (13.523, 13.134),
+                     "fused_mlp_bwd_f32": (2.552, 1.736),
+                     "fused_mlp_f32 (key stack)": (14.510, 14.128),
+                     "fused_mlp_f32 (value stack)": (20.930, 20.596),
+                     "fused_mlp_bwd_f32 (key stack)": (41.089, 36.003),
+                     "fused_mlp_bwd_f32 (value stack)": (54.434, 46.341)}
 # The bf16 WMMA kernels before their wgmma redesigns (NVIDIA H100 80GB HBM3,
 # 700 W), (whole call, kernel alone: its profiler span) ms, measured on the
 # tree before each redesign (PERF.md §6): the key / value stream forwards
@@ -3282,7 +3293,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         ``median`` (output index, bound): the median over rays of that
         output row's relative error, held to the bound; ``span`` (a
         kernel name pattern) times the kernel alone too (its profiler span),
-        beside F32_BWD_WMMA_MS[name] / F32_FWD_WMMA_MS[name]; the last
+        beside its earlier WMMA kernel's (F32_BWD_WMMA_MS, F32_FWD_WMMA_MS
+        or F32_EMBED_WMMA_MS by name); the last
         ``n_walk`` outputs (a walk's gradients) are held to
         F32_BWD_WALK_REL too; ``hold_in`` holds the walk's input-side
         gradients (b0, ln_in.a, ln_in.b) to F32_BWD_IN_REL."""
@@ -3338,9 +3350,10 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         if span is not None:
             ran = []
             alone = kernel_span_ms(fn, span, names=ran)
-            old_call, old_alone = {**F32_BWD_WMMA_MS, **F32_FWD_WMMA_MS}[name]
+            old_call, old_alone = {**F32_BWD_WMMA_MS, **F32_FWD_WMMA_MS,
+                                   **F32_EMBED_WMMA_MS}[name]
             rest = ("wgrad_f32, colsum, the combine kernel, packs, host"
-                    if name.endswith("_bwd") else
+                    if "_bwd" in name else
                     "the pack, the output's allocation, host")
             line += (f"; kernel alone {alone:.3f} ms ({' + '.join(ran)}; the "
                      f"rest of the call {ms - alone:.3f} ms: {rest}; the "
@@ -3374,7 +3387,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            lambda: [fm.fused_mlp_plain(x, qwalk, f32)], F32_FWD_REL, ["y"],
            nbytes(x) + walk_bytes(qwalk), x.shape[0] * walk_flops(qwalk),
            tf32=lambda: tf32_reading(lambda: fm.fused_mlp_plain(x, qwalk, f32),
-                                     fm.fused_mlp_plain(x, qwalk, f32)))
+                                     fm.fused_mlp_plain(x, qwalk, f32)),
+           span="fused_mlp_fwd_wgmma_f32", median=(0, F32_FWD_MEDIAN_REL))
     # Row 3 on the patch's rays.
     T = patch * patch
     xp = crop(rayd, patch).reshape(T, 3)
@@ -3388,7 +3402,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            lambda: (lambda r: [r[0]] + r[1])(fm.fused_mlp_bwd_plain(
                xp, dy, qwalk, f32)),
            F32_BWD_REL, ["dx"] + walk_labels(qwalk),
-           nbytes(xp, dy) + walk_bytes(qwalk), 3 * T * walk_flops(qwalk))
+           nbytes(xp, dy) + walk_bytes(qwalk), 3 * T * walk_flops(qwalk),
+           span="fused_mlp_bwd_wgmma_f32", hold_in=True)
 
     idx, record_, rec, rayo_f, rays, rayd_f, qq, kwalk, vwalk = \
         stream_patch_inputs(params, state, cfg, rayo, crop(rayd, patch))
@@ -3685,7 +3700,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
             lambda: [fm.fused_mlp_f32(x, walk)],
             lambda: [fm.fused_mlp_plain(x, walk, f32)], F32_FWD_REL, ["y"],
             nbytes(x) + walk_bytes(walk), x.shape[0] * walk_flops(walk),
-            stack_of="fused_mlp_f32")
+            stack_of="fused_mlp_f32", span="fused_mlp_fwd_wgmma_f32",
+            median=(0, F32_FWD_MEDIAN_REL))
         dy = firm(randn(x.shape[0], int(walk.ws[-1].shape[1])),
                   fm.walk_relu_margin(fm.encode_plain(x, walk.cols), walk),
                   f"fused_mlp_bwd_f32 ({name} stack)")
@@ -3702,7 +3718,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
                + walk_labels(walk),
                nbytes(x, dy) + walk_bytes(walk),
                3 * x.shape[0] * walk_flops(walk),
-               stack_of="fused_mlp_bwd_f32")
+               stack_of="fused_mlp_bwd_f32", span="fused_mlp_bwd_wgmma_f32",
+               hold_in=True)
         del x, dy
         torch.cuda.empty_cache()
     del stacks, by_name

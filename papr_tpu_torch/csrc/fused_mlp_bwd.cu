@@ -31,110 +31,43 @@
 // bf16, dz rounded to bf16 for both products, db from the fp32 dz, every
 // gradient fp32.
 //
-// fused_mlp_f32_bwd is the WMMA walk (walk_bwd.cuh) with fp32 operands
-// (use_amp: false): one block of 512 threads per 64-row tile keeps every
-// activation and gradient of the tile in shared memory, 3xTF32 products, an
-// fp32 stash (twice the bytes) reduced by wgrad.cu's fp32 form.
+// The fp32 kernel (papr_fused_mlp_f32_bwd, fused_mlp_bwd_wgmma_f32_kernel;
+// use_amp: false) is the same function in walk_wgmma_bwd.cuh's fp32 operand
+// form, the fp32 stream backwards' pieces: each layer's input fp32 in the
+// warp's rows of shared memory E (kF32Ld floats a row), its output in a
+// 128-register accumulator, 3xTF32 m64n64k8 products on W and W_l^T split
+// into hi / lo at pack time, the rows stashed fp32 from E (16 bytes a lane)
+// and reduced by wgrad.cu's fp32 form; no zero chunk, E zeroed once at the
+// start. The rounding points are JAX's walk_body_bwd in fp32: nothing is
+// rounded.
 
-#include "walk_bwd.cuh"
 #include "walk_wgmma_bwd.cuh"
 
 using namespace papr;
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mlp_bwd_kernel(const float* __restrict__ x, int R, int d_raw,
-                     const float* __restrict__ dy, WalkDescT<Op> d,
-                     WalkBwdT<Op> b, const int* __restrict__ seg,
-                     float* __restrict__ dx) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmemT<Op> s = walk_smem<Op>(smem);
-  float* st = reinterpret_cast<float*>(s.extra);            // 4 x kRows
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * kRows;
-  const int pdn = d.pd[d.n];
-
-  encode_raw(s.C, d, x, r0, R, d_raw);
-  __syncthreads();
-  const TileCtx ctx = tile_ctx(d, b, (size_t)r0, st);
-  walk_fwd_stash(s, d, b, ctx, false);
-
-  // Upstream gradient; overhang rows and pad lanes are zero.
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int row = r0 + r;
-    for (int c = lane; c < pdn; c += 32)
-      s.C[r * kCLd + c] = row < R && c < d.d_out
-          ? dy[(size_t)row * d.d_out + c] : 0.f;
-  }
-  __syncthreads();
-  walk_bwd(s, d, b, ctx);
-
-  pe_bwd_deriv(s.C, d, [&](int r, int src) {
-    const int row = r0 + r;
-    return row < R ? x[(size_t)row * d_raw + src] : 0.f;
-  });
-  __syncthreads();
-  pe_source_sums(s.C, seg, d_raw, [&](int r, int src, float v) {
-    const int row = r0 + r;
-    if (row < R) dx[(size_t)row * d_raw + src] = v;
-  });
-}
-
-template <class Op>
-static int launch_fused_mlp_bwd(const float* x, int R, int d_raw,
-                                const float* dy, const int* meta,
-                                const void* w_all, const void* b_all,
-                                const void* ln, const void* plan,
-                                const void* wt_all, void* stash,
-                                const long long* stash_off, const int* seg,
-                                float* dx, float* part, int part_w,
-                                float* scratch, void* stream) {
-  WalkDescT<Op> d;
-  int err = fill_walk(&d, meta, w_all, b_all, ln, plan);
-  if (err) return err;
-  WalkBwdT<Op> b;
-  err = fill_walk_bwd(&b, d, meta, wt_all, stash, stash_off, d.n, part,
-                      part_w, scratch);
-  if (err) return err;
-  if (R <= 0) return 0;
-  const size_t smem = kWalkSmem + sizeof(float) * 4 * kRows;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (R + kRows - 1) / kRows;
-  fused_mlp_bwd_kernel<Op><<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, R, d_raw, dy, d, b, seg, dx);
-  return (int)cudaGetLastError();
-}
 
 #define FUSED_MLP_BWD_PARAMS                                                 \
     const float* x, int R, int d_raw, const float* dy, const int* meta,      \
     const void* w_all, const void* b_all, const void* ln, const void* plan,  \
     const void* wt_all, void* stash, const long long* stash_off,             \
     const int* seg, float* dx, float* part, int part_w, float* scratch
-#define FUSED_MLP_BWD_ARGS                                                   \
+#define FUSED_MLP_BWD_ARGS_NS                                                \
     x, R, d_raw, dy, meta, w_all, b_all, ln, plan, wt_all, stash, stash_off, \
-    seg, dx, part, part_w, scratch, stream
+    seg, dx, part, part_w, scratch
 
-extern "C" int papr_fused_mlp_f32_bwd(FUSED_MLP_BWD_PARAMS, void* stream) {
-  return launch_fused_mlp_bwd<float>(FUSED_MLP_BWD_ARGS);
-}
+// --------------------------------- bf16 and fp32: on wgmma + TMA ----
 
-// ------------------------------------------- bf16: on wgmma + TMA ----
-
-struct EmbedBwdWg {
+template <class Op>
+struct EmbedBwdWgT {
   const float* x;                        // (R, d_raw) raw features
   int R, d_raw;
   const float* dy;                       // (R, d_out) fp32
   WalkDesc d;                            // bias / LayerNorm / plan pointers
   WgLayer layers[kWgMaxLayers];          // forward layers, W_l^T l = n-1..0
-  WgChunk chunks[kWgMaxChunks];          // the chunk stream of one tile
+  WgChunk chunks[kF32<Op> ? kWgMaxChunksF32 : kWgMaxChunks];  // one tile's
   int n_chunks, stages;
   const unsigned char* w;                // the packed weights
-  __nv_bfloat16* hs[kMaxLayers];         // stash (N, width) per layer
-  __nv_bfloat16* dz[kMaxLayers];
+  Op* hs[kMaxLayers];                    // stash (N, width) per layer
+  Op* dz[kMaxLayers];
   int b_off[kMaxLayers];
   int bias_len;
   float* part;                           // (grid * 8, part_w)
@@ -144,14 +77,26 @@ struct EmbedBwdWg {
   const int* seg;                        // posenc segments of the d_raw sources
   float* dx;                             // (R, d_raw)
   int ld, e_floats, wg_floats;           // shared memory layout (floats)
+  int n_mask;                            // relu mask slots (4 x 128 words)
   int nln, nplan, n_prm;                 // staged LayerNorms, plan (floats)
   int tiles, grid;                       // 128-row tiles over grid blocks
 };
+using EmbedBwdWg = EmbedBwdWgT<__nv_bfloat16>;
 
-__global__ void __launch_bounds__(kWgThreads, 1)
-fused_mlp_bwd_wgmma_kernel(const __grid_constant__ EmbedBwdWg p) {
+// The embedder backward on the block's share of the 128-row tiles, in
+// either operand form (Op: bf16, or fp32); see the header.
+template <class Op>
+__device__ __forceinline__ void embed_bwd_wg(const EmbedBwdWgT<Op>& p) {
+  constexpr bool f32 = kF32<Op>;
   extern __shared__ unsigned char smem_raw[];
-  const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm);
+  const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm,
+                            !f32);
+  if constexpr (f32) {
+    // Every E column a product reads is finite from the start (columns
+    // past a layer's input width meet zero weight rows).
+    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)
+      sm.tiles[i] = 0.f;
+  }
   float* lns = sm.prm;
   float* plan = lns + p.nln;
   {
@@ -174,7 +119,7 @@ fused_mlp_bwd_wgmma_kernel(const __grid_constant__ EmbedBwdWg p) {
   const int rl[2] = {row0 + g, row0 + g + 8};
   float* E = sm.tiles + wg * p.wg_floats;         // rows / parking slices
   uint32_t* masks = reinterpret_cast<uint32_t*>(E + p.e_floats);
-  float* st = reinterpret_cast<float*>(masks + n * 4 * 128);  // mu, r in
+  float* st = reinterpret_cast<float*>(masks + p.n_mask * 4 * 128);  // mu, r in
   float* park = E;
   float* prow =
       p.part + (size_t)(blockIdx.x * kBwdPartRows + 4 * wg + w) * p.part_w;
@@ -193,18 +138,26 @@ fused_mlp_bwd_wgmma_kernel(const __grid_constant__ EmbedBwdWg p) {
     seg0[j] = s < d_raw ? p.seg[s] : 0;
     seg1[j] = s < d_raw ? p.seg[d_raw + s] : 0;
   }
-  uint32_t A[kARegs];
-  float acc[kAccRegs];
+  // The operand form's registers: bf16, a pass's accumulator and the A
+  // fragments; fp32, a whole layer's accumulator (A: the warp's rows of E).
+  constexpr int kAcc = f32 ? kOutRegs : kAccRegs;
+  std::conditional_t<f32, WgRowsA, uint32_t[kARegs]> A;
+  float acc[kAcc];
+  if constexpr (f32) {
+    A = WgRowsA{E, row0};
+  } else {
 #pragma unroll
-  for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+    for (int i = 0; i < kARegs; ++i) A[i] = 0u;
+  }
 #pragma unroll
-  for (int i = 0; i < kAccRegs; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   float mo[2] = {0.f, 0.f}, ro[2] = {1.f, 1.f};
 
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int rbase = tile * kWgTile + wg * kWgRows;
     const size_t srow0 = (size_t)rbase;
-    // --- the encoding: fp32 to the scratch, input LayerNorm, bf16 ---
+    // --- the encoding: fp32 to the scratch, input LayerNorm, the layer-0
+    // operand (bf16: rounded, the A fragments; fp32: E as it is) ---
     wgb_encode(E, ld, d, plan, row0, [&](int r, int src) {
       const int row = rbase + r;
       return row < R ? x[(size_t)row * d_raw + src] : 0.f;
@@ -212,12 +165,16 @@ fused_mlp_bwd_wgmma_kernel(const __grid_constant__ EmbedBwdWg p) {
     __syncwarp();
     for (int r = row0; r < row0 + 16; ++r)
       for (int c = lane; c < pd0; c += 32) enc_s[r * pd0 + c] = E[r * ld + c];
-    wgb_rows_in_st<__nv_bfloat16>(E, ld, d, lns, st, row0);
-    stash_rows(E, ld, p.hs[0], srow0, pd0, row0);
-    smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld), 4 * ld,
-              pd0, A);
-    // Every warp has read its rows before any thread parks over them.
-    named_sync(2 + wg, 128);
+    wgb_rows_in_st<Op>(E, ld, d, lns, st, row0);
+    if constexpr (f32) {
+      stash_rows_f32(E, p.hs[0], srow0, pd0, row0);
+    } else {
+      stash_rows(E, ld, p.hs[0], srow0, pd0, row0);
+      smem_to_a(reinterpret_cast<const unsigned char*>(E + row0 * ld),
+                4 * ld, pd0, A);
+      // Every warp has read its rows before any thread parks over them.
+      named_sync(2 + wg, 128);
+    }
 
     // --- forward recompute; the output LayerNorm's statistics ---
     const bool two = wgb_fwd(acc, A, rg, sm.zero, d, p.layers, p.hs, srow0,
@@ -228,7 +185,7 @@ fused_mlp_bwd_wgmma_kernel(const __grid_constant__ EmbedBwdWg p) {
     // --- dy in the accumulator's layout (with two, columns 0..127 parked);
     // overhang rows and pad columns zero ---
 #pragma unroll
-    for (int i = 0; i < kAccRegs; ++i) {
+    for (int i = 0; i < kAcc; ++i) {
       const int row = rbase + rl[(i >> 1) & 1];
       const int c = 8 * (i >> 2) + 2 * q + (i & 1);
       const int c1 = (two ? kPassN : 0) + c;
@@ -257,17 +214,25 @@ fused_mlp_bwd_wgmma_kernel(const __grid_constant__ EmbedBwdWg p) {
   }
 }
 
-// The bf16 backward on wgmma: the fp32 form's arguments (w_all / wt_all
-// unread: the packed image replaces them; the stash rows are the 128-row
-// tiles', part has 8 rows and scratch 2 scr_wg floats a block, scr_wg =
-// 64 pd[0] (+ 128 x 128 with an output LayerNorm)), then the packed weights
-// (ops/fused_mlp.py pack_embed_wgmma: the forward layers, then W_l^T for
-// l = n-1 .. 0) and their size in bytes, and the grid (1 .. the number of
-// 128-row tiles).
-extern "C" int papr_fused_mlp_bwd(FUSED_MLP_BWD_PARAMS, const void* wpack,
-                                  long long wbytes, int grid, void* stream) {
+__global__ void __launch_bounds__(kWgThreads, 1)
+fused_mlp_bwd_wgmma_kernel(const __grid_constant__ EmbedBwdWg p) {
+  embed_bwd_wg(p);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+fused_mlp_bwd_wgmma_f32_kernel(const __grid_constant__ EmbedBwdWgT<float> p) {
+  embed_bwd_wg(p);
+}
+
+// Host side: the walk, its product sequence (the forward layers, then W_l^T
+// for l = n - 1 .. 0) in the form's image (wg_plan / wg_plan_f32), the
+// stash, the partial rows and the shared-memory layout, then the launch.
+template <class Op>
+static int launch_embed_bwd(FUSED_MLP_BWD_PARAMS, const void* wpack,
+                            long long wbytes, int grid, void* stream) {
+  constexpr bool f32 = kF32<Op>;
   (void)wt_all;
-  EmbedBwdWg p;
+  EmbedBwdWgT<Op> p;
   int err = fill_walk(&p.d, meta, w_all, b_all, ln, plan);
   if (err) return err;
   const WalkDesc& d = p.d;
@@ -280,15 +245,17 @@ extern "C" int papr_fused_mlp_bwd(FUSED_MLP_BWD_PARAMS, const void* wpack,
     dims[m][0] = d.pd[l + 1];
     dims[m][1] = d.pd[l];
   }
-  if (wg_plan(p.layers, dims, m) != wbytes || !wpack ||
-      reinterpret_cast<uintptr_t>(wpack) % 16)
+  const long long need = f32 ? wg_plan_f32(p.layers, dims, m)
+                             : wg_plan(p.layers, dims, m);
+  if (need != wbytes || !wpack || reinterpret_cast<uintptr_t>(wpack) % 16)
     return -204;
-  p.n_chunks = wg_chunks(p.chunks, p.layers, m);
+  p.n_chunks = f32 ? wg_chunks_f32(p.chunks, need)
+                   : wg_chunks(p.chunks, p.layers, m);
   p.w = static_cast<const unsigned char*>(wpack);
   for (int i = 0; i < n; ++i) {
     if (stash_off[i] % 8 != 0 || stash_off[n + i] % 8 != 0) return -112;
-    p.hs[i] = static_cast<__nv_bfloat16*>(stash) + stash_off[i];
-    p.dz[i] = static_cast<__nv_bfloat16*>(stash) + stash_off[n + i];
+    p.hs[i] = static_cast<Op*>(stash) + stash_off[i];
+    p.dz[i] = static_cast<Op*>(stash) + stash_off[n + i];
   }
   const int* b_off = meta + 7 + (n + 1) + n;
   for (int i = 0; i < n; ++i) p.b_off[i] = b_off[i];
@@ -301,11 +268,21 @@ extern "C" int papr_fused_mlp_bwd(FUSED_MLP_BWD_PARAMS, const void* wpack,
   int nb;
   wg_walk_rows(d, &nb, &p.nln, &p.nplan);
   p.n_prm = p.nln + p.nplan;
-  p.ld = wg_ld(d.pd[0]);
-  p.e_floats = wg_e_floats(p.ld);
-  p.wg_floats = p.e_floats + n * 4 * 128 + 2 * kWgRows;
+  if constexpr (f32) {
+    // E in the fp32 form's rows; a mask slot a relu layer (the last layer
+    // only with a relu last_act).
+    p.ld = kF32Ld;
+    p.e_floats = kWgRows * kF32Ld;
+    p.n_mask = d.last_act == 1 ? n : n - 1;
+  } else {
+    p.ld = wg_ld(d.pd[0]);
+    p.e_floats = wg_e_floats(p.ld);
+    p.n_mask = n;
+  }
+  p.wg_floats = p.e_floats + p.n_mask * 4 * 128 + 2 * kWgRows;
   size_t smem = 0;
-  err = wg_ring_fit(wg_smem_rest(2 * p.wg_floats, p.n_prm), &p.stages, &smem);
+  err = wg_ring_fit(wg_smem_rest(2 * p.wg_floats, p.n_prm, !f32), &p.stages,
+                    &smem);
   if (err) return err;
   if (R <= 0) return 0;
   p.tiles = (R + kWgTile - 1) / kWgTile;
@@ -317,11 +294,33 @@ extern "C" int papr_fused_mlp_bwd(FUSED_MLP_BWD_PARAMS, const void* wpack,
   p.dy = dy;
   p.seg = seg;
   p.dx = dx;
+  void (*kernel)(EmbedBwdWgT<Op>);
+  if constexpr (f32) kernel = fused_mlp_bwd_wgmma_f32_kernel;
+  else kernel = fused_mlp_bwd_wgmma_kernel;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_bwd_wgmma_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fused_mlp_bwd_wgmma_kernel<<<grid, kWgThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The backward on wgmma, bf16 (papr_fused_mlp_bwd) and fp32
+// (papr_fused_mlp_f32_bwd): the walk's meta row and parameter rows (w_all /
+// wt_all unread: the packed image replaces them), the stash in the form's
+// type (rows of the 128-row tiles), part (8 rows a block), scratch (2 scr_wg
+// floats a block, scr_wg = 64 pd[0] (+ 128 x 128 with an output
+// LayerNorm)), then the packed weights (ops/fused_mlp.py pack_embed_wgmma:
+// the forward layers, then W_l^T for l = n-1 .. 0; fp32: hi / lo stages)
+// and their size in bytes, and the grid (1 .. the number of 128-row tiles).
+extern "C" int papr_fused_mlp_bwd(FUSED_MLP_BWD_PARAMS, const void* wpack,
+                                  long long wbytes, int grid, void* stream) {
+  return launch_embed_bwd<__nv_bfloat16>(FUSED_MLP_BWD_ARGS_NS, wpack,
+                                         wbytes, grid, stream);
+}
+
+extern "C" int papr_fused_mlp_f32_bwd(FUSED_MLP_BWD_PARAMS,
+                                      const void* wpack, long long wbytes,
+                                      int grid, void* stream) {
+  return launch_embed_bwd<float>(FUSED_MLP_BWD_ARGS_NS, wpack, wbytes, grid,
+                                 stream);
 }

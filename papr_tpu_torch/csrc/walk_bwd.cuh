@@ -1,7 +1,7 @@
-// Backward of an embedder walk on WMMA, shared by the fp32 fused embedder
-// backward (fused_mlp_bwd.cu) and the folded and feature stream backwards
-// (key_stream_q.cu, key_stream_feat.cu, value_stream_feat.cu); the key /
-// value stream backwards run walk_wgmma_bwd.cuh.
+// Backward of an embedder walk on WMMA, shared by the folded and feature
+// stream backwards (key_stream_q.cu, key_stream_feat.cu,
+// value_stream_feat.cu); the embedder and the key / value stream backwards
+// run walk_wgmma_bwd.cuh.
 //
 // It is papr_tpu/ops/fused_mlp.py::walk_body_bwd (with _ln_bwd and
 // _pe_freq_bwd) on one tile of kRows tokens, after a forward recompute that

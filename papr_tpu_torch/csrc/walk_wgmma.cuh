@@ -10,9 +10,10 @@
 // (key_fwd_wgmma_f32_kernel, value_fwd_wgmma_f32_kernel: the same function
 // as the bf16 ones) run the same walk in its fp32 operand form (below: fp32
 // activations, 3xTF32 products), and so do the fp32 stream backwards
-// (walk_wgmma_bwd.cuh). The int8 forms, the fp32 embedder and the other
-// walk kernels (key_stream_q.cu, key_stream_feat.cu, value_stream_feat.cu)
-// keep walk.cuh's WMMA layers.
+// (walk_wgmma_bwd.cuh), the fp32 embedder forward
+// (fused_mlp_fwd_wgmma_f32_kernel, the bf16 embedder's function) and its
+// backward. The int8 forms and the other walk kernels (key_stream_q.cu,
+// key_stream_feat.cu, value_stream_feat.cu) keep walk.cuh's WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
 // ptxas may give a thread up to 255 registers). Within a warpgroup the
@@ -975,6 +976,34 @@ __device__ __forceinline__ void wg_store_rows(const float (&acc)[kAccRegs],
       y[(size_t)(rbase + rr) * d_out + c] =
           *reinterpret_cast<const __nv_bfloat16*>(
               stg + rr * 512 + (((c >> 3) ^ (rr & 7)) << 4) + 2 * (c & 7));
+    }
+  }
+}
+
+// The fp32 form's output (every column in acc, as wg_walk leaves it with
+// rows_f32) written to the warpgroup's rows rbase + r < R of y (d_out wide,
+// fp32): the thread's values to the warp's rows of E (wg_rows_out), then
+// each warp copies its 16 rows out, 16 bytes a lane where the row width
+// allows (rows are contiguous in y; E's rows are 16-byte aligned).
+__device__ __forceinline__ void wg_store_rows(const float (&acc)[kOutRegs],
+                                              WgRowsA& A, float*, bool,
+                                              float* __restrict__ y,
+                                              int rbase, int R, int d_out) {
+  const int lane = threadIdx.x & 31, row0 = A.row0;
+  wg_rows_out(acc, A.E, row0);
+  const float* E = A.E;
+  const int rows = R - (rbase + row0) < 16 ? R - (rbase + row0) : 16;
+  if (d_out % 4 == 0) {
+    const int upr = d_out / 4;
+    for (int u = lane; u < rows * upr; u += 32) {
+      const int rr = row0 + u / upr, c = u % upr;
+      *reinterpret_cast<float4*>(y + (size_t)(rbase + rr) * d_out + 4 * c) =
+          *reinterpret_cast<const float4*>(E + rr * kF32Ld + 4 * c);
+    }
+  } else {
+    for (int u = lane; u < rows * d_out; u += 32) {
+      const int rr = row0 + u / d_out, c = u % d_out;
+      y[(size_t)(rbase + rr) * d_out + c] = E[rr * kF32Ld + c];
     }
   }
 }

@@ -91,14 +91,15 @@ SIGNATURES["papr_wgrad_f32"] = SIGNATURES["papr_wgrad"]
 # their wgmma tail.
 _I8_STEM = {_name: SIGNATURES[_name][:-1] for _name in
             ("papr_key_stream_fwd", "papr_value_stream_fwd")}
-# The stream forwards (bf16 and fp32, both on wgmma) and the bf16 embedder
-# take the WMMA forms' arguments, then their packed weights, its size in
-# bytes and the grid; the stream backwards (bf16 and fp32, both on wgmma,
-# their weights read only from the packed image) the same, then three
-# device buffers (per-ray sums of split tiles; the value's datt rows).
+# The stream forwards and the embedder (bf16 and fp32, all on wgmma) take
+# the WMMA forms' arguments, then their packed weights, its size in bytes
+# and the grid; the stream backwards (bf16 and fp32, both on wgmma, their
+# weights read only from the packed image) the same, then three device
+# buffers (per-ray sums of split tiles; the value's datt rows).
 for _name in ("papr_key_stream_fwd", "papr_value_stream_fwd",
               "papr_key_stream_f32_fwd", "papr_value_stream_f32_fwd",
-              "papr_fused_mlp_fwd", "papr_fused_mlp_bwd"):
+              "papr_fused_mlp_fwd", "papr_fused_mlp_bwd",
+              "papr_fused_mlp_f32_fwd", "papr_fused_mlp_f32_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P]
 for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd",
               "papr_key_stream_f32_bwd", "papr_value_stream_f32_bwd"):

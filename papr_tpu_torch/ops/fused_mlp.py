@@ -4,7 +4,7 @@
 ``fused_mlp`` is the wrapper of the CUDA kernel in ``csrc/fused_mlp.cu``
 (the port of the Pallas ``_fwd_kernel``); ``fused_mlp_bwd`` wraps the
 backward (``csrc/fused_mlp_bwd.cu`` + the dW reduction in ``csrc/wgrad.cu``,
-the port of ``_bwd_kernel``); the bf16 forms run on wgmma
+the port of ``_bwd_kernel``); both forms run on wgmma
 (``csrc/walk_wgmma.cuh`` / ``walk_wgmma_bwd.cuh``, weights packed by
 ``pack_embed_wgmma``); ``fused_mlp_plain`` / ``fused_mlp_bwd_plain``
 are the same functions in plain PyTorch, and ``fused_mlp_apply`` joins the
@@ -13,9 +13,10 @@ version; a CUDA tensor takes the kernel or raises.
 
 The compute dtype picks the kernel, as ``_cdt`` picks the Pallas kernel's
 operand type: bf16 (``use_amp: true``) or fp32 (``use_amp: false``: the
-``_f32`` entry points, the same walk with fp32 operands and activations and
-3xTF32 products, ``csrc/walk.cuh``). ``fused_mlp_f32`` / ``fused_mlp_bwd_f32``
-/ ``wgrad_f32`` count the fp32 kernels' launches.
+``_f32`` entry points, the same functions in the walk's fp32 operand form:
+fp32 activations and 3xTF32 products on weights split into hi / lo at pack
+time). ``fused_mlp_f32`` / ``fused_mlp_bwd_f32`` / ``wgrad_f32`` count the
+fp32 kernels' launches.
 
 Numerics follow the TPU kernel's walk (``walk_body_fwd``): the posenc is
 computed in fp32 from the raw features; the input LayerNorm runs on the fp32
@@ -375,36 +376,49 @@ def pack_walk_wgmma_f32(mats, device) -> torch.Tensor:
     row 2 q at position q, 2 q + 1 at q + 4 (a tf32 A fragment's columns q,
     q + 4 are the accumulator's 2 q, 2 q + 1). One gather per call; the
     index map depends on the widths alone."""
-    dims = tuple((int(m.shape[0]), int(m.shape[1])) for m in mats)
+    ents, base = [], 0
+    for m in mats:
+        a, b = int(m.shape[0]), int(m.shape[1])
+        ents.append((a, b, base, b, 1))
+        base += a * b
     flat = torch.cat([m.reshape(-1).to(device=device, dtype=torch.float32)
                       for m in mats]
                      + [torch.zeros(1, dtype=torch.float32, device=device)])
-    g = flat[_gather_index_f32(dims, torch.device(device))].view(-1, 2048)
+    return split_tf32_stages(
+        flat[_gather_index_f32(tuple(ents), base, torch.device(device))])
+
+
+def split_tf32_stages(g: torch.Tensor) -> torch.Tensor:
+    """An fp32 image gathered as stages of 64 x 32 values -> each stage's hi
+    image, ``tf32_rna(g)``, then its lo image, ``tf32_rna(g - hi)``."""
+    g = g.view(-1, 2048)
     hi = tf32_rna(g)
     return torch.stack([hi, tf32_rna(g - hi)], dim=1).reshape(-1)
 
 
 @functools.lru_cache(maxsize=16)
-def _gather_index_f32(dims: tuple, device) -> torch.Tensor:
-    """Where each element of ``pack_walk_wgmma_f32``'s stages (before the
-    hi / lo split) comes from in the matrices concatenated flat, or the zero
-    slot after them."""
-    total = sum(a * b for a, b in dims)
-    parts, base = [], 0
+def _gather_index_f32(entries: tuple, total: int, device) -> torch.Tensor:
+    """Where each element of an fp32 wgmma image's stages (before the hi /
+    lo split) comes from in a flat source buffer, or its zero slot
+    ``total``: per entry (a, b, base, sk, sn) the matrix M (a x b,
+    input-major) with M[k, n] at base + k * sk + n * sn, in
+    ``pack_walk_wgmma_f32``'s layout (per matrix ceil(b / 64) passes of
+    ceil(a / 32) stages of 64 output rows x 32 along k, 16-byte groups
+    XOR-swizzled by row % 8, each 8-deep k group permuted)."""
+    parts = []
     n = torch.arange(64).view(64, 1)
     pos = torch.arange(32).view(1, 32)            # 4-byte slot in the row
     kk = ((pos // 4) ^ (n % 8)) * 4 + pos % 4     # logical k in the chunk
     lk = kk % 8
     phys = kk - lk + torch.where(lk < 4, 2 * lk, 2 * (lk - 4) + 1)
-    for a, b in dims:
+    for a, b, base, sk, sn in entries:
         for p in range(-(-b // 64)):
             for c in range(-(-a // 32)):
                 k, col = 32 * c + phys, 64 * p + n
                 parts.append(torch.where((k < a) & (col < b),
-                                         base + k * b + col,
+                                         base + k * sk + col * sn,
                                          torch.full_like(k, total))
                              .reshape(-1))
-        base += a * b
     return torch.cat(parts).to(device)
 
 
@@ -461,11 +475,12 @@ def _zero(device, dtype) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=32)
 def _embed_layout(dims: tuple, has_li: bool, has_lo: bool, backward: bool,
-                  device) -> tuple:
-    """What the bf16 embedder kernels' packs take from a walk of widths
-    ``dims`` (encoding, then each layer's output), a function of the widths
-    alone: the padded widths pd, the tail of the meta row (pd, ``pack_walk``'s
-    weight and bias offsets), the gather index of the weight image from the
+                  device, f32: bool = False) -> tuple:
+    """What the embedder kernels' packs take from a walk of widths ``dims``
+    (encoding, then each layer's output), a function of the widths alone:
+    the padded widths pd, the tail of the meta row (pd, ``pack_walk``'s
+    weight and bias offsets), the gather index of the weight image
+    (``f32``: the fp32 form's stages before their hi / lo split) from the
     weights concatenated as stored (W_i^T, output-major: nn/mlp.py's
     layout) -- the forward layers, then with ``backward`` W_l^T for
     l = n-1 .. 0 from the same values -- and the gather index of the bias
@@ -481,7 +496,8 @@ def _embed_layout(dims: tuple, has_li: bool, has_lo: bool, backward: bool,
     if backward:
         ents += [(dims[l + 1], dims[l], bases[l], dims[l], 1)
                  for l in reversed(range(n))]
-    widx = _gather_index(tuple(ents), o, device)
+    widx = (_gather_index_f32 if f32 else _gather_index)(tuple(ents), o,
+                                                          device)
     n_src = sum(dims[1:]) + 2 * (dims[0] * has_li + dims[-1] * has_lo)
     bsrc, o = [], 0
 
@@ -509,25 +525,32 @@ def _embed_layout(dims: tuple, has_li: bool, has_lo: bool, backward: bool,
             sum(pd[1:]))
 
 
-def pack_embed_wgmma(walk: Walk, device, backward: bool = False) -> tuple:
-    """The bf16 embedder kernels' operands (``csrc/fused_mlp.cu`` /
+def pack_embed_wgmma(walk: Walk, device, backward: bool = False,
+                     cdt: torch.dtype = torch.bfloat16) -> tuple:
+    """The embedder kernels' operands (``csrc/fused_mlp.cu`` /
     ``fused_mlp_bwd.cu`` on ``walk_wgmma.cuh``): (meta, b_all, ln, plan,
     wpack, pd) with ``pack_walk``'s meta row, bias rows, LayerNorm table and
-    plan rows, and the weight image (``pack_walk_wgmma``'s layout: the
-    forward layers, then with ``backward`` W_l^T for l = n-1 .. 0). Packed
-    on every call (training rewrites the weights in place; see
+    plan rows, and the weight image of the forward layers, then with
+    ``backward`` W_l^T for l = n-1 .. 0: bf16 in ``pack_walk_wgmma``'s
+    layout, or (``cdt`` fp32) hi / lo stages in ``pack_walk_wgmma_f32``'s.
+    Packed on every call (training rewrites the weights in place; see
     ``pack_walk``), in a fixed handful of device operations whatever the
-    depth: one concatenation and one gather each for the weights and for the
-    biases with the LayerNorms; the plan rows are cached on the device."""
+    depth: one concatenation and one gather each for the weights (fp32:
+    then one hi / lo split) and for the biases with the LayerNorms; the
+    plan rows are cached on the device."""
+    f32 = cdt == torch.float32
     dims = (len(walk.cols),) + tuple(int(w.shape[1]) for w in walk.ws)
     device = torch.device(device)
     lns = [t for ln in (walk.ln_in, walk.ln_out) if ln is not None for t in ln]
     pd, tail, widx, bidx, nb = _embed_layout(
         dims, walk.ln_in is not None, walk.ln_out is not None, backward,
-        device)
+        device, f32)
     flat = torch.cat([w.T.reshape(-1) for w in walk.ws]
                      + [_zero(device, walk.ws[0].dtype)])
-    wpack = flat.to(torch.bfloat16).index_select(0, widx)
+    if f32:
+        wpack = split_tf32_stages(flat.float().index_select(0, widx))
+    else:
+        wpack = flat.to(torch.bfloat16).index_select(0, widx)
     vec = torch.cat([b.reshape(-1).float() for b in walk.bs]
                     + [t.reshape(-1).float() for t in lns]
                     + [_zero(device, torch.float32)]).index_select(0, bidx)
@@ -764,9 +787,9 @@ fused_mlp_plain.calls = 0
 
 def fused_mlp(x: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
     """Fused embedder forward, (R, d_raw) fp32 raw features -> (R, d_out)
-    in ``cdt``: the CUDA kernel for a CUDA tensor (bf16: on wgmma,
-    ``papr_fused_mlp_fwd``; fp32: the WMMA walk, ``papr_fused_mlp_f32_fwd``),
-    the plain version for a CPU tensor."""
+    in ``cdt``: the CUDA kernel on wgmma for a CUDA tensor (bf16:
+    ``papr_fused_mlp_fwd``; fp32: ``papr_fused_mlp_f32_fwd``), the plain
+    version for a CPU tensor."""
     if not x.is_cuda:
         return fused_mlp_plain(x, walk, cdt)
     from ..kernels import build
@@ -783,23 +806,20 @@ def fused_mlp(x: torch.Tensor, walk: Walk, cdt: torch.dtype) -> torch.Tensor:
     y = torch.empty(R, d_out, dtype=cdt, device=x.device)
     lib = build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if cdt == torch.float32:
-        meta, w_all, b_all, ln, plan, _ = pack_walk(walk, len(walk.cols),
-                                                    x.device, cdt)
-        build.check(lib.papr_fused_mlp_f32_fwd(
-            x.data_ptr(), R, d_raw, ctypes.cast(c_ints(meta), ctypes.c_void_p),
-            w_all.data_ptr(), b_all.data_ptr(), ln.data_ptr(), plan.data_ptr(),
-            y.data_ptr(), stream), "papr_fused_mlp_f32_fwd")
-        fused_mlp_f32.launches += 1
-        return y
-    meta, b_all, ln, plan, wpack, _ = pack_embed_wgmma(walk, x.device)
-    # w_all (unread by the wgmma kernel): the packed image's address.
-    build.check(lib.papr_fused_mlp_fwd(
+    f32 = cdt == torch.float32
+    meta, b_all, ln, plan, wpack, _ = pack_embed_wgmma(walk, x.device,
+                                                       cdt=cdt)
+    name = "papr_fused_mlp_f32_fwd" if f32 else "papr_fused_mlp_fwd"
+    # w_all (unread by the wgmma kernels): the packed image's address.
+    build.check(getattr(lib, name)(
         x.data_ptr(), R, d_raw, ctypes.cast(c_ints(meta), ctypes.c_void_p),
         wpack.data_ptr(), b_all.data_ptr(), ln.data_ptr(), plan.data_ptr(),
-        y.data_ptr(), wpack.data_ptr(), 2 * wpack.numel(), wgmma_grid(R),
-        stream), "papr_fused_mlp_fwd")
-    fused_mlp.launches += 1
+        y.data_ptr(), wpack.data_ptr(),
+        wpack.numel() * wpack.element_size(), wgmma_grid(R), stream), name)
+    if f32:
+        fused_mlp_f32.launches += 1
+    else:
+        fused_mlp.launches += 1
     return y
 
 
@@ -838,25 +858,28 @@ def fused_mlp_bwd_plain(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
 fused_mlp_bwd_plain.calls = 0
 
 
-def embed_bwd_prep(walk: Walk, R: int, d_raw: int, dev) -> tuple:
-    """What the bf16 embedder backward reads besides its inputs: the packed
-    walk (``pack_embed_wgmma``, both directions), the posenc source segments
-    and the ``BwdBuffers`` (stash rows of R padded to the 128-row tile, the
-    persistent grid's partial rows and scratch) -> (meta, b_all, ln, plan,
-    wpack, seg, buf)."""
-    meta, b_all, ln, plan, wpack, pd = pack_embed_wgmma(walk, dev, True)
+def embed_bwd_prep(walk: Walk, R: int, d_raw: int, dev,
+                   cdt: torch.dtype = torch.bfloat16) -> tuple:
+    """What the embedder backward reads besides its inputs: the packed walk
+    (``pack_embed_wgmma``, both directions, in ``cdt``'s form), the posenc
+    source segments and the ``BwdBuffers`` (a ``cdt`` stash with rows of R
+    padded to the 128-row tile, the persistent grid's partial rows and
+    scratch) -> (meta, b_all, ln, plan, wpack, seg, buf)."""
+    meta, b_all, ln, plan, wpack, pd = pack_embed_wgmma(walk, dev, True, cdt)
     return (meta, b_all, ln, plan, wpack,
             source_segments(walk.cols, d_raw, dev),
-            bwd_wgmma_buffers(walk, pd, 1, R, dev))
+            bwd_wgmma_buffers(walk, pd, 1, R, dev, cdt=cdt))
 
 
 def fused_mlp_bwd(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
                   cdt: torch.dtype):
     """Embedder backward, (R, d_raw) raw features and (R, d_out) output
     gradient -> (dx fp32, [dW, db, dLN in walk_tensors order] fp32): the
-    CUDA kernels for a CUDA tensor (bf16: ``papr_fused_mlp_bwd`` on wgmma;
-    fp32: the WMMA walk, ``papr_fused_mlp_f32_bwd``; then ``wgrad`` per
-    layer and ``colsum``), the plain version for a CPU tensor."""
+    CUDA kernels for a CUDA tensor (on wgmma, bf16: ``papr_fused_mlp_bwd``,
+    fp32: ``papr_fused_mlp_f32_bwd``; then ``wgrad`` per layer and
+    ``colsum``), the plain version for a CPU tensor. Both kernels take a
+    walk whose posenc sin / cos columns sit in adjacent pairs and at most 96
+    raw columns; another raises ``NotImplementedError``."""
     if not x.is_cuda:
         return fused_mlp_bwd_plain(x, dy, walk, cdt)
     from ..kernels import build
@@ -873,37 +896,27 @@ def fused_mlp_bwd(x: torch.Tensor, dy: torch.Tensor, walk: Walk,
     dx = torch.empty(R, d_raw, dtype=torch.float32, device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if cdt == torch.float32:
-        meta, w_all, b_all, ln, plan, pd = pack_walk(walk, len(walk.cols),
-                                                     dev, cdt)
-        wt_all = pack_walk_t(walk, pd, dev, cdt)
-        seg = source_segments(walk.cols, d_raw, dev)
-        nblk = -(-R // 64)
-        buf = BwdBuffers(pd, nblk * 64, nblk, dev, cdt=cdt)
-        w_ptr, wt_ptr, tail = w_all.data_ptr(), wt_all.data_ptr(), ()
-        name = "papr_fused_mlp_f32_bwd"
-    else:
-        check_pe_pairs(walk, "fused_mlp backward")
-        if d_raw > 96:
-            raise NotImplementedError(f"fused_mlp backward: {d_raw} raw "
-                                      "columns (the bf16 kernel sums up to "
-                                      "96 sources)")
-        meta, b_all, ln, plan, wpack, seg, buf = embed_bwd_prep(walk, R,
-                                                                d_raw, dev)
-        # w_all / wt_all (unread by the wgmma kernel): the image's address.
-        w_ptr = wt_ptr = wpack.data_ptr()
-        tail = (wpack.data_ptr(), 2 * wpack.numel(), wgmma_grid(R))
-        name = "papr_fused_mlp_bwd"
+    f32 = cdt == torch.float32
+    check_pe_pairs(walk, "fused_mlp backward")
+    if d_raw > 96:
+        raise NotImplementedError(f"fused_mlp backward: {d_raw} raw columns "
+                                  "(the kernel sums up to 96 sources)")
+    meta, b_all, ln, plan, wpack, seg, buf = embed_bwd_prep(walk, R, d_raw,
+                                                            dev, cdt)
+    # w_all / wt_all (unread by the wgmma kernels): the image's address.
+    wp = wpack.data_ptr()
+    name = "papr_fused_mlp_f32_bwd" if f32 else "papr_fused_mlp_bwd"
     rc = getattr(lib, name)(
         x.data_ptr(), R, d_raw, dy.data_ptr(),
-        ctypes.cast(c_ints(meta), ctypes.c_void_p), w_ptr, b_all.data_ptr(),
-        ln.data_ptr(), plan.data_ptr(), wt_ptr, buf.stash.data_ptr(),
+        ctypes.cast(c_ints(meta), ctypes.c_void_p), wp, b_all.data_ptr(),
+        ln.data_ptr(), plan.data_ptr(), wp, buf.stash.data_ptr(),
         ctypes.cast(buf.off_arg, ctypes.c_void_p), seg.data_ptr(),
         dx.data_ptr(), buf.part.data_ptr(), buf.part_w,
-        buf.scratch.data_ptr(), *tail, stream)
+        buf.scratch.data_ptr(), wp, wpack.numel() * wpack.element_size(),
+        wgmma_grid(R), stream)
     build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
-    if cdt == torch.float32:
+    if f32:
         fused_mlp_bwd_f32.launches += 1
     else:
         fused_mlp_bwd.launches += 1

@@ -11,7 +11,8 @@ on ``walk_wgmma.cuh`` / ``walk_wgmma_bwd.cuh``), on the CPU.
 - The bf16 wrappers reach the new entry points with their signature's
   argument count, the packed weights, their size and the persistent grid
   last; the backward's stash rows for R padded to the 128-row tile and one
-  partial row a warp; the fp32 forms keep their WMMA entry points.
+  partial row a warp; the fp32 forms keep their entry points, which take
+  the same tail (their image: ``test_torch_fused_mlp_f32_wgmma.py``).
 - A walk the bf16 backward does not take is refused; the posenc segments
   are made on the device once; the stream wrappers launch on the one grid
   rule, ``fused_mlp.wgmma_grid``.
@@ -162,15 +163,40 @@ def test_fused_mlp_bwd_bf16_reaches_the_wgmma_entry_point(lib, name, R):
     assert lib.calls[-1][1][1] == 8 * grid
 
 
-def test_fp32_embedder_keeps_its_entry_points(lib):
-    walk, d_raw = _stack("query")
-    x = _card(torch.zeros(100, d_raw))
-    dy = _card(torch.zeros(100, 256))
-    fm.fused_mlp(x, _card_walk(walk), torch.float32)
-    fm.fused_mlp_bwd(x, dy, _card_walk(walk), torch.float32)
+@pytest.mark.parametrize("R", [100, 25_600])
+@pytest.mark.parametrize("name", ["query", "key", "value"])
+def test_fp32_embedder_keeps_its_entry_points(lib, name, R):
+    """The fp32 forms keep their entry points, now with the wgmma tail: the
+    fp32 image's bytes (hi / lo stages) and the persistent grid; the
+    backward's fp32 stash rows for R padded to the 128-row tile, reduced by
+    ``wgrad_f32``, and one partial row a warp."""
+    walk, d_raw = _stack(name)
+    d_out = int(walk.ws[-1].shape[1])
+    x = _card(torch.zeros(R, d_raw))
+    dy = _card(torch.zeros(R, d_out))
+    n = fm.fused_mlp_f32.launches, fm.fused_mlp_bwd_f32.launches
+    y = fm.fused_mlp(x, _card_walk(walk), torch.float32)
+    dx, grads = fm.fused_mlp_bwd(x, dy, _card_walk(walk), torch.float32)
+    assert (fm.fused_mlp_f32.launches, fm.fused_mlp_bwd_f32.launches) == (
+        n[0] + 1, n[1] + 1)
+    assert y.dtype == torch.float32 and y.shape == (R, d_out)
+    assert dx.shape == (R, d_raw)
     names = [c[0] for c in lib.calls if "fused_mlp" in c[0]]
     assert names == ["papr_fused_mlp_f32_fwd", "papr_fused_mlp_f32_bwd"]
-    assert [c[0] for c in lib.calls].count("papr_wgrad_f32") == 5
+    assert [c[0] for c in lib.calls].count("papr_wgrad_f32") == len(walk.ws)
+    assert "papr_wgrad" not in [c[0] for c in lib.calls]
+    grid = fm.wgmma_grid(R)
+    pd = lambda d: fm.round_up(d, 16)
+    for (entry, a), bwd in zip(lib.calls[:1] + lib.calls[1:2], (False, True)):
+        assert len(a) == len(build.SIGNATURES[entry])
+        dims = _dims(walk, bwd)
+        assert a[-3] == sum(math.ceil(pd(i) / 32) * math.ceil(pd(o) / 64)
+                            * 16384 for i, o in dims)
+        assert a[-2] == grid
+    tiles = math.ceil(R / 128)
+    wgrads = [c[1] for c in lib.calls if c[0] == "papr_wgrad_f32"]
+    assert all(w[2] == tiles * 128 for w in wgrads)
+    assert lib.calls[-1][1][1] == 8 * grid
 
 
 def test_bwd_refuses_what_the_bf16_kernel_does_not_take(lib):

@@ -4,9 +4,14 @@
 and ``colsum``), bf16, on the main path's shapes with the flagship's widths
 and random weights: the query stack on an 800x800 frame's 640,000 rays
 (forward) and a 160x160 patch's 25,600 rays (backward), and, under
-``tpu.fused_attn: true``, the key and value stacks on 512,000 tokens.
+``tpu.fused_attn: true``, the key and value stacks on 512,000 tokens. With
+``--f32`` the fp32 kernels (``use_amp: false``, ``papr_fused_mlp_f32_fwd`` /
+``papr_fused_mlp_f32_bwd``, then ``wgrad_f32``) at phase 8's shapes and
+Caterpillar's widths (``configs/t2/Caterpillar.yml``: q_L [4], k_L [4, 4,
+4], v_L [4, 4]): the query stack on 640,000 rays forward and a 180x180
+patch's 32,400 backward, the key and value stacks on 648,000 tokens.
 
-    python tools/torch_embed_ablate.py [--tree DIR] [--split-only]
+    python tools/torch_embed_ablate.py [--f32] [--tree DIR] [--split-only]
 
 Each call is split into the kernel alone (its ``torch.profiler`` span), the
 dW reduction (``wgrad`` + ``colsum``), the other device kernels (packs,
@@ -15,7 +20,9 @@ three); the backward's host-side preparation (packs, plan rows, buffers)
 is also timed alone. ``--tree`` takes the sources and the package from
 another checkout (for example an unpacked parent commit); the variants
 follow that tree's design (``WGMMA`` where ``fused_mlp.cu`` has the wgmma
-entry point, else the ``WMMA`` walk of ``walk.cuh`` / ``walk_bwd.cuh``).
+entry point, else the ``WMMA`` walk of ``walk.cuh`` / ``walk_bwd.cuh``;
+with ``--f32``, ``WGMMA_F32`` where it has ``fused_mlp_fwd_wgmma_f32_kernel``,
+else ``WMMA``).
 Each variant is a copy of the CUDA sources with lines replaced (one part
 taken out: the products, the weight staging, the posenc, the LayerNorms,
 the stash stores), built alone (``fused_mlp.cu``, ``fused_mlp_bwd.cu``,
@@ -41,8 +48,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
-from torch_stream_bwd_ablate import (_BODY, _LB, _LNB, _MMA, _REFILL,  # noqa: E402
-                                     _SAVE, _SR, _STASH, _SW, _WAIT, _split)
+from torch_stream_bwd_ablate import (_BODY, _F32_NO_MMA,  # noqa: E402
+                                     _F32_NO_WAIT, _LB, _LNB, _MMA, _REFILL,
+                                     _SAVE, _SF, _SR, _STASH, _SW, _WAIT,
+                                     _split)
 
 _SINCOS = [("walk.cuh", "  sincosf(x * freq, &s, &c);",
             "  s = x * freq;\n  c = s;")]
@@ -103,6 +112,24 @@ WGMMA = [
      [("walk_wgmma.cuh", _OUT, _BODY(_OUT, "  if (d_out > 0) return;"))]),
 ]
 
+_OUT_F32 = (" " * 46 + "int rbase, int R, int d_out) {\n"
+            "  const int lane = threadIdx.x & 31, row0 = A.row0;")
+# The fp32 embedder on wgmma (walk_wgmma.cuh's fp32 operand form: 3xTF32
+# m64n64k8, the layer inputs fp32 in shared memory).
+WGMMA_F32 = [
+    ("fp32 wgmma: whole kernel", []),
+    ("fp32 wgmma: no products", _F32_NO_MMA),
+    ("fp32 wgmma: no waits for weights", _F32_NO_WAIT),
+    ("fp32 wgmma: no products, no waits", _F32_NO_MMA + _F32_NO_WAIT),
+    ("fp32 wgmma: no posenc sin / cos", _SINCOS),
+    ("fp32 wgmma: no output LayerNorm (forward, recompute, backward)",
+     WGMMA[5][1]),
+    ("fp32 wgmma: no stash stores",
+     [("walk_wgmma_bwd.cuh", _SF, _BODY(_SF, "  if (pd > 0) return;"))]),
+    ("fp32 wgmma: no output rows written (forward)",
+     [("walk_wgmma.cuh", _OUT_F32, _BODY(_OUT_F32, "  if (d_out > 0) return;"))]),
+]
+
 
 def _walk(rng, cols, n, d_ff, d_out, norm, dev):
     import torch
@@ -119,13 +146,15 @@ def _walk(rng, cols, n, d_ff, d_out, norm, dev):
                 "none", tuple(cols))
 
 
-def stacks(dev, seed=4):
+def stacks(dev, seed=4, f32=False):
     """{name: (walk, x forward, x backward, dy)}: the query stack (ray
     directions; 640,000 rays forward, 25,600 backward) and the key and
     value stacks of ``fused_attn: true`` (512,000 tokens both ways; the
     value's 64 point-feature columns pass through), the flagship's widths
     (``configs/default.yml``: q_L [6], k_L [6, 6, 6], v_L [6, 6], 5 x 256
-    with LayerNorms; the value 8 layers to 32 without)."""
+    with LayerNorms; the value 8 layers to 32 without). ``f32``: phase 8's
+    shapes and Caterpillar's orders (posenc order 4; 32,400 rays backward,
+    648,000 tokens a stack)."""
     import torch
     from papr_tpu_torch.ops.fused_mlp import posenc_plan
     rng = np.random.default_rng(seed)
@@ -137,37 +166,43 @@ def stacks(dev, seed=4):
         return t(d / np.linalg.norm(d, axis=-1, keepdims=True))
 
     out = {}
-    q = _walk(rng, posenc_plan((3,), (6,), 1, 2.0, 1.0, 0)[1], 5, 256, 256,
+    L, rb, nt = (4, 32_400, 648_000) if f32 else (6, 25_600, 512_000)
+    q = _walk(rng, posenc_plan((3,), (L,), 1, 2.0, 1.0, 0)[1], 5, 256, 256,
               True, dev)
-    out["query"] = (q, dirs(640_000), dirs(25_600),
-                    t(rng.normal(size=(25_600, 256))))
-    k = _walk(rng, posenc_plan((3, 3, 3), (6, 6, 6), 1, 2.0, 1.0, 0)[1], 5,
+    out["query"] = (q, dirs(640_000), dirs(rb), t(rng.normal(size=(rb, 256))))
+    k = _walk(rng, posenc_plan((3, 3, 3), (L, L, L), 1, 2.0, 1.0, 0)[1], 5,
               256, 256, True, dev)
-    xk = t(rng.normal(size=(512_000, 9)))
-    out["key"] = (k, xk, xk, t(rng.normal(size=(512_000, 256))))
-    v = _walk(rng, posenc_plan((3, 3), (6, 6), 1, 2.0, 1.0, 64)[1], 8, 256,
+    xk = t(rng.normal(size=(nt, 9)))
+    out["key"] = (k, xk, xk, t(rng.normal(size=(nt, 256))))
+    v = _walk(rng, posenc_plan((3, 3), (L, L), 1, 2.0, 1.0, 64)[1], 8, 256,
               32, False, dev)
-    xv = t(rng.normal(size=(512_000, 70)))
-    out["value"] = (v, xv, xv, t(rng.normal(size=(512_000, 32))))
+    xv = t(rng.normal(size=(nt, 70)))
+    out["value"] = (v, xv, xv, t(rng.normal(size=(nt, 32))))
     return out
 
 
-def prep_ms(fm, walk, x, n=20) -> float:
+def prep_ms(fm, walk, x, cdt, n=20) -> float:
     """Host clock per call of the backward wrapper's preparation alone
-    (packs, plan rows, buffers), synchronized."""
+    (packs, plan rows, buffers), synchronized: ``embed_bwd_prep`` where the
+    tree's wrapper has it for this compute dtype, else the WMMA walk's
+    packs and buffers."""
+    import inspect
     import torch
     dev = x.device
     R = x.shape[0]
-    if hasattr(fm, "embed_bwd_prep"):
-        fn = lambda: fm.embed_bwd_prep(walk, R, x.shape[1], dev)
+    prep = getattr(fm, "embed_bwd_prep", None)
+    if prep is not None and (cdt == torch.bfloat16
+                             or "cdt" in inspect.signature(prep).parameters):
+        extra = {} if cdt == torch.bfloat16 else {"cdt": cdt}
+        fn = lambda: prep(walk, R, x.shape[1], dev, **extra)
     else:
         def fn():
             meta, w, b, ln, plan, pd = fm.pack_walk(walk, len(walk.cols), dev,
-                                                    torch.bfloat16)
-            fm.pack_walk_t(walk, pd, dev)
+                                                    cdt)
+            fm.pack_walk_t(walk, pd, dev, cdt)
             fm.source_segments(walk.cols, x.shape[1], dev)
             nblk = -(-R // 64)
-            fm.BwdBuffers(pd, nblk * 64, nblk, dev)
+            fm.BwdBuffers(pd, nblk * 64, nblk, dev, cdt=cdt)
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -181,6 +216,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--split-only", action="store_true")
+    ap.add_argument("--f32", action="store_true")
     opt = ap.parse_args()
     tree = os.path.abspath(opt.tree)
     sys.path.insert(0, tree)
@@ -193,8 +229,9 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"{smi}; tree {tree}", flush=True)
-    cdt = torch.bfloat16
-    st = stacks(dev)
+    cdt = torch.float32 if opt.f32 else torch.bfloat16
+    st = stacks(dev, f32=opt.f32)
+    form = "fp32 " if opt.f32 else ""
     cases = {}
     for name, (walk, xf, xb, dy) in st.items():
         cases[(name, "fwd")] = (lambda w=walk, x=xf: [fm.fused_mlp(x, w, cdt)])
@@ -206,20 +243,23 @@ def main() -> None:
         sound[(name, way)] = [g.clone() for g in fn()]
         k_ms, r_ms, o_ms, whole = _split(fn, f"fused_mlp_{way}")
         rows = st[name][1 if way == "fwd" else 2].shape[0]
-        line = (f"{name} stack {way} ({rows} rows), whole call {whole:.3f} "
+        line = (f"{form}{name} stack {way} ({rows} rows), whole call {whole:.3f} "
                 f"ms: kernel alone {k_ms:.3f}, wgrad + colsum {r_ms:.3f}, "
                 f"other device kernels {o_ms:.3f}, host / gaps "
                 f"{whole - k_ms - r_ms - o_ms:.3f}")
         if way == "bwd":
             line += (f"; the wrapper's preparation alone (host clock) "
-                     f"{prep_ms(fm, st[name][0], st[name][2]):.3f}")
+                     f"{prep_ms(fm, st[name][0], st[name][2], cdt):.3f}")
         print(line, flush=True)
     if opt.split_only:
         return
     csrc = os.path.join(tree, "papr_tpu_torch", "csrc")
-    variants = (WGMMA if "fused_mlp_fwd_wgmma_kernel" in open(
-        os.path.join(csrc, "fused_mlp.cu")).read()
-                else WMMA)
+    src_fwd = open(os.path.join(csrc, "fused_mlp.cu")).read()
+    if opt.f32:
+        variants = (WGMMA_F32 if "fused_mlp_fwd_wgmma_f32_kernel" in src_fwd
+                    else WMMA)
+    else:
+        variants = WGMMA if "fused_mlp_fwd_wgmma_kernel" in src_fwd else WMMA
     nvcc = build._nvcc()
     root = tempfile.mkdtemp(prefix="embed_ablate_")
     wg_obj = os.path.join(root, "wgrad.o")
@@ -273,7 +313,7 @@ def main() -> None:
                             / max(float(w.float().norm()), 1e-30))
                       for g, w in zip(got, sound[key]))
             k_ms, _, _, whole = _split(cases[key], f"fused_mlp_{key[1]}")
-            parts.append(f"{key[1]} kernel {k_ms:.3f} ms (call {whole:.3f}), "
+            parts.append(f"{form}{key[1]} kernel {k_ms:.3f} ms (call {whole:.3f}), "
                          f"max rel {err:.1e}")
         spills = [l.strip() for cu in cus for l in logs[(i, cu)].splitlines()
                   if "spill" in l and " 0 bytes spill" not in l]

@@ -21,7 +21,9 @@ those named "wgmma", ``chip_smoke.compare_wgmma_kernels``: K3 on the
 eval block, ``wgrad`` / ``wgrad_f32`` at phase 2's / phase 8's shapes; for
 those named "embed wgmma", ``chip_smoke.compare_embed_kernels``: the bf16
 embedder forward and backward on wgmma, and with them the other
-comparisons whose kernels run the planted line, on the same build)
+comparisons whose kernels run the planted line, on the same build; for
+"fp32 embed wgmma", ``chip_smoke.compare_f32_kernels`` up to the fp32
+embedder's rows 2f / 3f on the query stack)
 and the small-shape ``cuda`` tests of those kernels run on the copy.
 The readings are how the comparisons' bounds were set between the sound
 kernels and the weakest fault caught (PERF.md, Findings). The repository's
@@ -49,7 +51,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # walk_wgmma_bwd.cuh (the bf16 stream backwards; "fp32 bwd wgmma" the fp32
 # ones), "wgmma attend"
 # attend_eval.cu, "embed wgmma bwd" walk_wgmma_bwd.cuh, "embed wgmma"
-# walk_wgmma.cuh, the others fused_attn.cu. A fourth element names every
+# walk_wgmma.cuh, "fp32 embed wgmma fwd" fused_mlp.cu, "fp32 embed wgmma
+# bwd" fused_mlp_bwd.cu, "fp32 embed wgmma walk" walk_wgmma.cuh, "fp32
+# embed wgmma stash" and "fp32 embed wgmma rev" walk_wgmma_bwd.cuh, the
+# others fused_attn.cu. A fourth element names every
 # comparison (TARGETS) that reads the case's build, where the planted line
 # runs in more than one kernel; the sound sources run once, read by every
 # comparison the picked cases need.
@@ -145,7 +150,7 @@ MUTS = [
      ("embed", "stream_bwd")),
     ("fwd wgmma: value rows not rounded to bf16 before the fuse (a rounding "
      "point)",
-     "              if (c1 < cout) arow[c1] += a * bf16_round(acc[i]);",
+     "              if (c1 < cout) arow[c1] += a * act_round<Op>(acc[i]);",
      "              if (c1 < cout) arow[c1] += a * acc[i];"),
     ("fwd wgmma: the second weight chunk read from the first one's stage "
      "(a stale stage)",
@@ -353,6 +358,59 @@ MUTS = [
      "    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)\n"
      "      sm.tiles[i] = 0.f;\n", "",
      ("f32_stream_fwd",)),
+    ("fp32 embed wgmma walk: single-pass TF32 (the lo terms dropped, in "
+     "every fp32 wgmma product)",
+     _F32_WG_PRODUCTS,
+     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+     "                            dh + kk, s > 0);\n",
+     ("f32_embed",)),
+    ("fp32 embed wgmma walk: the lo.hi term dropped (one cross term)",
+     _F32_WG_PRODUCTS,
+     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+     "                            dl + kk, s > 0);\n"
+     "          wgmma_rs_tf32_n64(f, ah[s][0], ah[s][1], ah[s][2], ah[s][3],\n"
+     "                            dh + kk, 1);\n",
+     ("f32_embed",)),
+    ("fp32 embed wgmma walk: the tensor cores' own accumulator across the "
+     "whole K (forward and reverse products)",
+     _F32_WG_PRODUCTS + _F32_WG_JOIN,
+     _F32_WG_PRODUCTS.replace("dh + kk, s > 0);",
+                              "dh + kk, s > 0 || sub > 0 || c > 0);")
+     + _F32_WG_JOIN.replace("__fadd_rn(acc[32 * p + i], f[i])", "f[i]"),
+     ("f32_embed",)),
+    ("fp32 embed wgmma rev: the reverse walk's products (dz_l W_l^T) in the "
+     "tensor cores' own accumulator across the whole K (only there)",
+     _F32_REV,
+     _f32_gemm_own_acc("wg_gemm_f32_rev") + _F32_REV.replace(
+         "    wg_gemm_f32(acc,", "    wg_gemm_f32_rev(acc,"),
+     ("f32_embed",)),
+    ("fp32 embed wgmma stash: the layer inputs and dz stashed in bf16",
+     "      *reinterpret_cast<float4*>(dst + (srow0 + r) * pd + 4 * u) =\n"
+     "          *reinterpret_cast<const float4*>(E + r * kF32Ld + 4 * u);",
+     "      {\n"
+     "        float4 v = *reinterpret_cast<const float4*>(E + r * kF32Ld + "
+     "4 * u);\n"
+     "        v.x = bf16_round(v.x);\n        v.y = bf16_round(v.y);\n"
+     "        v.z = bf16_round(v.z);\n        v.w = bf16_round(v.w);\n"
+     "        *reinterpret_cast<float4*>(dst + (srow0 + r) * pd + 4 * u) = "
+     "v;\n      }",
+     ("f32_embed",)),
+    ("fp32 embed wgmma fwd: E left stale at the start (NaN where it is "
+     "zeroed)",
+     "      sm.tiles[i] = 0.f;", "      sm.tiles[i] = __int_as_float(0x7fc00000);",
+     ("f32_embed",)),
+    ("fp32 embed wgmma bwd: E left stale at the start (NaN where it is "
+     "zeroed)",
+     "      sm.tiles[i] = 0.f;", "      sm.tiles[i] = __int_as_float(0x7fc00000);",
+     ("f32_embed",)),
+    ("fp32 embed wgmma fwd: E not zeroed at the start (whatever the block's "
+     "shared memory held)",
+     "    for (int i = threadIdx.x; i < 2 * p.e_floats; i += kWgThreads)\n"
+     "      sm.tiles[i] = 0.f;\n", "", ("f32_embed",)),
+    ("fp32 embed wgmma bwd: E not zeroed at the start (whatever the block's "
+     "shared memory held)",
+     "    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)\n"
+     "      sm.tiles[i] = 0.f;\n", "", ("f32_embed",)),
     ("fp32 walk: single-pass TF32 (the lo terms dropped)",
      "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
      "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
@@ -543,6 +601,25 @@ if sys.argv[1] in ("compare_f32_kernels", "compare_f32_streams"):
     else:
         cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180,
                                n_time=1)
+elif sys.argv[1] == "compare_f32_embed":
+    # Phase 8's comparisons of the fp32 embedder on the query stack (rows
+    # 2f / 3f): the run stops where row 4f's would start.
+    cfg = cs.caterpillar_cfg()
+    params, state = cs.build_model(cfg, dev)
+    _, rayo, rayd, _ = cs.sphere_view(cfg, dev)
+    from papr_tpu_torch.ops import stream_attn as sa
+
+    class Stop(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Stop
+    sa.attend_eval_f32 = stop
+    try:
+        cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180,
+                               n_time=1)
+    except Stop:
+        pass
 elif sys.argv[1] == "compare_wgmma_kernels":
     cfg = cs.flagship_cfg()
     params, state = cs.build_model(cfg, dev)
@@ -588,13 +665,19 @@ TARGETS = {
                     "phase 2 key_stream_q_fwd on"), "stream_fwd_wgmma"),
     "embed": (("phase 2 K2", "phase 2 fused_mlp"),
               "fused_mlp_wgmma or fused_mlp_bwd_wgmma"),
+    # compare_f32_kernels up to rows 2f / 3f (compare_f32_embed), and the
+    # fp32 embedder's cuda cases (the query, key and value stacks, small
+    # grids, an overhang tile).
+    "f32_embed": (("phase 8 fused_mlp_f32", "phase 8 fused_mlp_bwd_f32"),
+                  "fused_mlp_f32"),
 }
 # The comparison function each target runs, and the cuda test lines shown.
 FN = {"f32_stream_bwd": "compare_f32_streams",
       "f32_stream_fwd": "compare_f32_streams",
       "stream_bwd": "compare_train_kernels",
       "stream_fwd": "compare_train_kernels",
-      "embed": "compare_embed_kernels"}
+      "embed": "compare_embed_kernels",
+      "f32_embed": "compare_f32_embed"}
 TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                                        "value_stream_i8", "int8_walk_bench"),
               "compare_f32_kernels": ("f32", "key_stream_f32_bwd wgmma",
@@ -608,7 +691,8 @@ TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
               "compare_wgmma_kernels": ("attend_eval T", "wgrad"),
               "stream_bwd": ("key_stream_bwd T", "value_stream_bwd T"),
               "stream_fwd": ("key_stream_fwd wgmma", "value_stream_fwd wgmma"),
-              "embed": ("fused_mlp wgmma", "fused_mlp_bwd wgmma")}
+              "embed": ("fused_mlp wgmma", "fused_mlp_bwd wgmma"),
+              "f32_embed": ("fused_mlp_f32",)}
 
 
 def target_of(name: str) -> str:
@@ -639,7 +723,16 @@ def main() -> None:
 
 
 def source_of(name: str) -> str:
-    return next((f for word, f in (("embed wgmma bwd", "walk_wgmma_bwd.cuh"),
+    return next((f for word, f in (("fp32 embed wgmma fwd", "fused_mlp.cu"),
+                                   ("fp32 embed wgmma bwd",
+                                    "fused_mlp_bwd.cu"),
+                                   ("fp32 embed wgmma walk",
+                                    "walk_wgmma.cuh"),
+                                   ("fp32 embed wgmma stash",
+                                    "walk_wgmma_bwd.cuh"),
+                                   ("fp32 embed wgmma rev",
+                                    "walk_wgmma_bwd.cuh"),
+                                   ("embed wgmma bwd", "walk_wgmma_bwd.cuh"),
                                    ("embed wgmma", "walk_wgmma.cuh"),
                                    ("fwd wgmma", "walk_wgmma.cuh"),
                                    ("bwd wgmma walk", "walk_wgmma.cuh"),
