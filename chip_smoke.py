@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render path, training step, command-line path,
-its other training attention modes, its int8 walks and its fp32 walks in
-every mode on one NVIDIA GPU.
+its other training attention modes, its int8 walks, its fp32 walks in
+every mode and its exposure-control path on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -124,7 +124,24 @@ Phases (each prints a line; any failure exits non-zero):
    own distance), with exact launch counts (the mode's fp32 kernels, no bf16
    kernel, no plain version); then ``configs/demo.yml`` untouched through
    ``cli.train`` and ``cli.test``.
-9. Print the kernels' JSON line (each kernel's launches on its main path,
+9. Exposure control and the reference checkpoint format, on
+   ``configs/t2_sphere_exposure.yml`` (bf16, FiLM live at the UNet's input)
+   and ``configs/t2/Caterpillar_exposure_control.yml`` (fp32, FiLM off as
+   the reference ships it), widths untouched, around a synth t2 sphere
+   written with per-image exposure gains (the cuts are printed): a seeded
+   model written as a model.pth by ``export_torch`` is the pretrained
+   ``load_path``; the first step with a shading code against the plain
+   fp32 path (32x32, phase 4's / phase 8's bounds); the candidate scores
+   and pick against the plain fp32 path on one sample patch; one resample
+   and one step with exact launch counts (no plain version, no twin of
+   the other dtype), timed (render and batched decode; the step beside the
+   same model's step without a code); then ``cli.exposure`` (3 steps,
+   resamples at 0 and 2, an eval) and ``cli.test --exp`` (t2_sphere: also
+   ``--random`` and ``--intrp``; Caterpillar: from the finetuned model.pth)
+   in process, the counters reset just before and read just after; the
+   finetuned model through ``export_torch`` / ``import_torch``: a test
+   frame at 100x100 tiles and the codes bit-equal.
+10. Print the kernels' JSON line (each kernel's launches on its main path,
    error, time, plain version's time and bound), then the result line.
 
 Imports nothing of JAX. Weights are random, from fixed seeds.
@@ -425,8 +442,14 @@ F32_DQQ_MEDIAN_REL = 2e-6
 F32_BWD_IN_REL = 3e-6
 # The fp32 stream forwards on wgmma also hold the median ray's relative
 # error (the key: raw; the value: fused), as phase 2's bf16 forwards do
-# (PERF.md, Findings).
+# (PERF.md, Findings). So do the `true` mode's key and value embedder stacks:
+# the value stack's sound median row reads 1.69e-6, too close to 2e-6.
 F32_FWD_MEDIAN_REL = 3e-6
+# The fp32 embedder's median row on the query stack (row 2f), as the `cuda`
+# tests hold it (tools/torch_plant_faults.py "fp32 embed wgmma"): sound
+# 6.11e-7; the products in the tensor cores' own accumulator 2.70e-6, which
+# F32_FWD_MEDIAN_REL let through and this bound catches (PERF.md, Findings).
+F32_EMBED_MEDIAN_REL = 2e-6
 F32_MARGIN = 1e-5
 F32_WGRAD_REL = 1e-5           # against the fp64 product of the operands
 # The int8 walks beside fp32 compute against their plain versions, on
@@ -3120,50 +3143,76 @@ REF_STREAM_MODES = (("stream + cull", {"topk_impl": "cull",
 
 
 def train_reference_check(device, modes=REF_MODES, phase: int = 4,
-                          side: int = 32) -> None:
-    """One training step's loss and gradients at a 32x32 patch, flagship
-    widths: each bf16 kernel path of ``modes`` against the plain fp32 path
-    (tpu.fused_attn: false, use_amp: false) on the same weights and the
-    same selection."""
+                          side: int = 32, make_cfg=flagship_cfg, view=None,
+                          code=None, bounds=(TRAIN_REF_LOSS_REL,
+                                             TRAIN_REF_GRAD_REL),
+                          dtype: str = "bf16", group_bounds=None,
+                          compute_plain: bool = False) -> None:
+    """One training step's loss and gradients at a 32x32 patch: each kernel
+    path of ``modes`` (``make_cfg(**tpu)``: by default the flagship widths,
+    bf16) against the plain fp32 path (``make_cfg(amp=False, ...)`` with
+    tpu.fused_attn: false) on the same weights and the same selection.
+    ``view``: (rays_o, rays_d, target, c2w) of the patch (default a crop of
+    the orbit camera's rays and a random target); ``code``: the shading code
+    both steps take; ``bounds``: (loss, gradient) relative bounds, and
+    ``group_bounds`` a gradient bound for a named group instead;
+    ``compute_plain``: also print what the plain path in the kernel path's
+    compute dtype reads against the plain fp32 path."""
     import torch
     from papr_tpu_torch.nn.mlp import policy_from_config
     from papr_tpu_torch.train.losses import build_loss
     from papr_tpu_torch.train.optim import build_group_specs, tree_leaves
     from papr_tpu_torch.train.step import loss_and_grads
 
-    rayo, rayd = training_patch(device, seed=1)
-    rayd = rayd[:, :side, :side].contiguous()
-    gen = torch.Generator(device=device).manual_seed(5)
-    target = torch.rand(1, side, side, 3, generator=gen, device=device)
+    if view is None:
+        rayo, rayd = training_patch(device, seed=1)
+        rayd = rayd[:, :side, :side].contiguous()
+        gen = torch.Generator(device=device).manual_seed(5)
+        target = torch.rand(1, side, side, 3, generator=gen, device=device)
+        c2w = orbit(0.0)
+    else:
+        rayo, rayd, target, c2w = view
+    if code is not None:
+        code = torch.as_tensor(code, device=device)
 
     def step(cfg):
         params, state = build_model(cfg, device)
         policy = policy_from_config(cfg)
         loss, _, grads = loss_and_grads(
-            params, state, cfg, rayo, rayd, target, orbit(0.0),
+            params, state, cfg, rayo, rayd, target, c2w,
             build_loss(cfg, policy, device=device), build_group_specs(cfg),
-            policy)
+            policy, shading_code=code)
         return float(loss), {k: torch.cat([g.float().reshape(-1)
                                            for g in tree_leaves(v)])
                              for k, v in grads.items()}
 
     # Each kernel path against the plain path on the same selection.
+    loss_bound, grad_bound = bounds
     for name, tpu in modes:
-        lk, gk = step(flagship_cfg(**tpu))
-        lp, gp = step(flagship_cfg(amp=False, **{**tpu, "fused_attn": False}))
+        lk, gk = step(make_cfg(**tpu))
+        lp, gp = step(make_cfg(amp=False, **{**tpu, "fused_attn": False}))
         loss_rel = abs(lk - lp) / max(abs(lp), 1e-30)
         errs = {k: rel_fro(gk[k], gp[k]) for k in gp}
+        limit = {k: (group_bounds or {}).get(k, grad_bound) for k in gp}
         finite = np.isfinite(lk) and all(bool(torch.isfinite(g).all())
                                          for g in gk.values())
-        print(f"phase {phase} reference: {side}x{side} patch, one step, bf16 kernel "
-              f"path ({name}) vs fp32 plain path: loss {lk:.6f} vs {lp:.6f} "
-              f"(rel {loss_rel:.3e}, need <= {TRAIN_REF_LOSS_REL}); gradient "
-              "rel Frobenius "
+        print(f"phase {phase} reference: {rayd.shape[1]}x{rayd.shape[2]} "
+              f"patch, one step, {dtype} kernel path ({name}) vs fp32 plain "
+              f"path: loss {lk:.6f} vs {lp:.6f} (rel {loss_rel:.3e}, need <= "
+              f"{loss_bound}); gradient rel Frobenius "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + f" (need <= {TRAIN_REF_GRAD_REL}); finite {finite}",
-              flush=True)
-        if not (finite and loss_rel <= TRAIN_REF_LOSS_REL
-                and max(errs.values()) <= TRAIN_REF_GRAD_REL):
+              + f" (need <= {grad_bound}"
+              + "".join(f", {k} <= {v}" for k, v in (group_bounds or {})
+                        .items()) + f"); finite {finite}", flush=True)
+        if compute_plain:
+            lc, gc = step(make_cfg(**{**tpu, "fused_attn": False}))
+            print(f"phase {phase} reference: the {dtype} plain path "
+                  f"(fused_attn false) vs fp32 plain path: loss rel "
+                  f"{abs(lc - lp) / max(abs(lp), 1e-30):.3e}; gradient rel "
+                  "Frobenius " + ", ".join(f"{k} {rel_fro(gc[k], gp[k]):.3e}"
+                                           for k in gp), flush=True)
+        if not (finite and loss_rel <= loss_bound
+                and all(errs[k] <= limit[k] for k in errs)):
             fail(f"the training step's kernel path ({name}) disagrees with "
                  "the plain path")
 
@@ -3388,7 +3437,7 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            nbytes(x) + walk_bytes(qwalk), x.shape[0] * walk_flops(qwalk),
            tf32=lambda: tf32_reading(lambda: fm.fused_mlp_plain(x, qwalk, f32),
                                      fm.fused_mlp_plain(x, qwalk, f32)),
-           span="fused_mlp_fwd_wgmma_f32", median=(0, F32_FWD_MEDIAN_REL))
+           span="fused_mlp_fwd_wgmma_f32", median=(0, F32_EMBED_MEDIAN_REL))
     # Row 3 on the patch's rays.
     T = patch * patch
     xp = crop(rayd, patch).reshape(T, 3)
@@ -4256,6 +4305,464 @@ def drive_demo_cli() -> None:
         fail("configs/demo.yml did not run on the fp32 kernels alone")
 
 
+# ------------------------------------------------------------- phase 9 ----
+
+# The two exposure-control configurations phase 9 drives, untouched apart
+# from the cuts it prints: (label, config file).
+EXPOSURE_CONFIGS = (("t2_sphere_exposure", "configs/t2_sphere_exposure.yml"),
+                    ("Caterpillar_exposure_control",
+                     "configs/t2/Caterpillar_exposure_control.yml"))
+# The synth t2 scene's image size: the t2 loader resizes every image to the
+# Tanks&Temples shape over the factor (640 x 1088 at factor 2), so it is
+# written at that size.
+EXP_HW = (640, 1088)
+EXP_VIEWS = (3, 1)        # its train and test views
+EXP_JITTER = 0.4          # per-train-image exposure gain exp(U(-0.4, 0.4))
+EXP_STEPS = 3             # finetune steps
+EXP_RESAMPLE_ITER = 2     # resamples at steps 0 and 2
+EXP_TIMED = 3             # timed steps with and without a code
+# Candidate scores (MSE against the image) of the kernel path against the
+# plain fp32 path on one sample patch: the small frame's bound under bf16,
+# the fp32 step's loss bound under fp32.
+EXP_SCORE_REL = {"bf16": REF_REL, "fp32": F32_STEP_LOSS_REL}
+# The bf16 first step's mapping MLP gradient against the plain fp32 path:
+# it reaches the codes through the FiLM product's gradient, a sum over the
+# patch of bf16 products that cancel, then 8 bf16 layers; the bf16 plain
+# path reads as much on its own (printed beside it; PERF.md, Findings).
+EXP_MAPPING_GRAD_REL = 2e-1
+# A configuration's model without exposure control (no mapping MLP, no FiLM).
+NO_EXPOSURE = {"exposure_control": {"use": False}, "models": {"renderer": {
+    "generator": {"small_unet": {"affine_layer": -1}}}}}
+
+
+def exposure_cfg(path: str, scene: str, save_dir: str, load_path: str,
+                 over=None):
+    """``path`` merged onto ``configs/default.yml`` with phase 9's cuts: the
+    synth t2 scene for every split, EXP_STEPS steps, a resample every
+    EXP_RESAMPLE_ITER steps, one eval at the end, ``save_dir`` and
+    ``load_path``; ``over`` on top."""
+    from papr_tpu_torch.config import load_config, merge_config
+    o = {"save_dir": save_dir, "load_path": load_path,
+         "dataset": {"path": scene},
+         "exposure_control": {"shading_code_resample_iter": EXP_RESAMPLE_ITER},
+         "training": {"steps": EXP_STEPS},
+         "eval": {"dataset": {"path": scene}, "step": EXP_STEPS},
+         "test": {"datasets": [{"name": "testset", "path": scene}]}}
+    if over:
+        merge_config(o, over)
+    return load_config(path, overrides=o)
+
+
+def write_cfg(cfg, path: str) -> str:
+    """``cfg`` as the YAML file a user passes with --opt."""
+    import yaml
+    with open(path, "w") as f:
+        yaml.safe_dump(json.loads(json.dumps(cfg)), f)
+    return path
+
+
+def same_pick(plain, kern, tol: float) -> bool:
+    """The kernel path picks the plain path's best candidate, or, where
+    other plain scores lie within ``tol`` of the best, one of those."""
+    plain, kern = np.asarray(plain), np.asarray(kern)
+    best = plain.min()
+    tied = np.flatnonzero(plain <= best + tol * abs(best))
+    return int(np.argmin(kern)) in tied.tolist()
+
+
+def in_process(fn, label: str):
+    """Run a CLI's main (which points sys.stdout / sys.stderr at its log
+    files) with its output echoed under ``label``; the streams restored."""
+    import contextlib
+    import io
+    out, err = sys.stdout, sys.stderr
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+    finally:
+        sys.stdout, sys.stderr = out, err
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"phase 9 {label} | {line}", flush=True)
+    return res, text
+
+
+def drive_exposure_config(device, label: str, path: str, scene: str,
+                          root: str, card: str) -> dict:
+    """Phase 9 on one configuration: the first step against the plain fp32
+    path, the candidate scores and pick against the plain fp32 path, exact
+    launches and times of one step (beside the step without a code) and of
+    one resample, then ``cli.exposure`` and ``cli.test --exp`` in process
+    with the counters reset just before and read just after, and the
+    model.pth round trip. -> {"launches": the CLI runs' launches}."""
+    import math
+    import os
+
+    import torch
+    from papr_tpu_torch.cli import exposure as cli_exposure
+    from papr_tpu_torch.cli import test as cli_test
+    from papr_tpu_torch.dataset import get_dataset
+    from papr_tpu_torch.model.papr import create_model, mapping_apply
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.train import checkpoint as ck
+    from papr_tpu_torch.train.exposure import (_candidate_scores_fn,
+                                               render_attention,
+                                               resample_shading_codes)
+    from papr_tpu_torch.train.losses import build_loss
+    from papr_tpu_torch.train.optim import tree_map
+    from papr_tpu_torch.train.step import (make_opt_state, make_train_step,
+                                           render_full_image)
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    save_dir = os.path.join(root, "experiments")
+    pre_pth = os.path.join(root, f"{label}_pretrained.pth")
+    cfg = exposure_cfg(path, scene, save_dir, pre_pth)
+    amp = bool(cfg.use_amp)
+    dtype = "bf16" if amp else "fp32"
+    policy = policy_from_config(cfg)
+    ec = cfg.exposure_control
+    su = cfg.models.renderer.generator.small_unet
+    e = cfg.models.attn.embed
+    seed = int(cfg.seed)
+    print(f"phase 9 config: {path} on configs/default.yml: use_amp {amp} "
+          f"({dtype}), {cfg.geoms.points.init_num} {cfg.geoms.points.init_type}"
+          f" points in {cfg.max_num_pts} slots, k {cfg.geoms.points.select_k}, "
+          f"key / query {e.key.n_ff_layer} x {e.key.d_ff}, value "
+          f"{e.value.n_ff_layer} layers to {e.value.d_ff_out}, k_L "
+          f"{list(e.k_L)} q_L {list(e.q_L)} v_L {list(e.v_L)}, "
+          f"{cfg.dataset.patches.height}x{cfg.dataset.patches.width} patches, "
+          f"affine_layer {su.affine_layer} (FiLM "
+          f"{'live' if int(su.affine_layer) >= 0 else 'off'}), shading codes "
+          f"{ec.shading_code_dim} wide, {ec.shading_code_num_samples} "
+          f"candidates by {ec.shading_code_resample_select_by} at "
+          f"{ec.shading_code_resample_size}x{ec.shading_code_resample_size}, "
+          f"mapping MLP {ec.mapping_mlp.num_layers} x {ec.mapping_mlp.dim} -> "
+          f"{ec.mapping_mlp.out_dim}, losses {dict(cfg.training.losses)}; cuts: "
+          f"the synth t2 sphere ({EXP_VIEWS[0]} train + {EXP_VIEWS[1]} test "
+          f"views at {EXP_HW[0]}x{EXP_HW[1]}, factor {cfg.dataset.factor}, "
+          f"exposure jitter {EXP_JITTER}) for the dataset, eval and test "
+          f"paths; steps {EXP_STEPS}; shading_code_resample_iter "
+          f"{EXP_RESAMPLE_ITER}; eval.step {EXP_STEPS}; load_path a model.pth "
+          f"the port wrote of a seeded model; widths untouched", flush=True)
+
+    f32k, bf16k, plains = f32_counters()
+    if amp:
+        kernels = {"cull_select": f32k["cull_select"], **bf16k}
+        twins = {n: fn for n, fn in f32k.items() if n != "cull_select"}
+    else:
+        kernels, twins = f32k, bf16k
+    eval_k = next(n for n in kernels if n.startswith("attend"))
+    embed_k = "fused_mlp" if amp else "fused_mlp_f32"
+
+    def read(fns):
+        return {n: fn.launches for n, fn in fns.items()}
+
+    def plain_calls():
+        return {n: fn.calls for n, fn in plains.items() if fn.calls}
+
+    # The "pretrained" model.pth: phase 8's seeded Caterpillar model for
+    # Caterpillar's config, the seeded model of t2_sphere_exposure.yml
+    # without exposure control for the other: no mapping MLP in either.
+    if label.startswith("Caterpillar"):
+        pre_cfg = caterpillar_cfg()
+    else:
+        pre_cfg = exposure_cfg(path, scene, save_dir, "", NO_EXPOSURE)
+    pp, ps = build_model(pre_cfg, device)
+    ck.export_torch(pre_pth, pp, ps, pre_cfg, step=0)
+    del pp, ps
+
+    # The first step against the plain fp32 path, 32x32, one shading code.
+    dim = int(ec.shading_code_dim)
+    code = (np.random.default_rng(7).standard_normal(dim).astype(np.float32)
+            * float(ec.shading_code_scale))
+    c2w_v, rayo_v, rayd_v, target_v = sphere_view(cfg, device)
+    make = lambda amp=amp, **tpu: exposure_cfg(
+        path, scene, save_dir, pre_pth, {"use_amp": amp, "tpu": tpu})
+    train_reference_check(
+        device, (("auto", {}),), phase=9, make_cfg=make,
+        view=(rayo_v, crop(rayd_v, 32), crop(target_v, 32), c2w_v), code=code,
+        bounds=((TRAIN_REF_LOSS_REL, TRAIN_REF_GRAD_REL) if amp
+                else (F32_STEP_LOSS_REL, F32_STEP_GRAD_REL)), dtype=dtype,
+        group_bounds={"mapping_mlp": EXP_MAPPING_GRAD_REL} if amp else None,
+        compute_plain=amp)
+    del rayd_v, target_v
+    torch.cuda.empty_cache()
+
+    # The model as the finetune starts it: the pretrained file through
+    # import_torch, the mapping MLP fresh.
+    params, state = create_model(cfg, seed=seed, device=device)
+    params, state, _ = cli_exposure.load_pretrained(cfg, params, state)
+    sample_ds = get_dataset(cli_exposure.sample_config(cfg).dataset,
+                            mode="train", seed=seed)
+    _, _, img, rayd_s, rayo_s = sample_ds[0]
+    img, rayd_s, rayo_s = img[None], rayd_s[None], rayo_s[None]
+    n_cand = int(ec.shading_code_num_samples)
+    cands = (np.random.default_rng(8).standard_normal((n_cand, dim))
+             .astype(np.float32) * float(ec.shading_code_scale))
+
+    # Candidate scores: the kernel path against the plain fp32 path on the
+    # same sample patch and candidates.
+    plain_cfg = exposure_cfg(path, scene, save_dir, pre_pth,
+                             {"use_amp": False, "tpu": {"fused_attn": False}})
+    score_k = _candidate_scores_fn(cfg)
+    sk = score_k(params, *render_attention(params, state, cfg, rayo_s, rayd_s),
+                 img, cands)
+    sp = _candidate_scores_fn(plain_cfg)(
+        params, *render_attention(params, state, plain_cfg, rayo_s, rayd_s),
+        img, cands)
+    tol = EXP_SCORE_REL[dtype]
+    rel = np.abs(sk - sp) / np.maximum(np.abs(sp), 1e-30)
+    pick_ok = same_pick(sp, sk, tol)
+    print(f"phase 9 candidate scores ({label}, {n_cand} candidates, "
+          f"{img.shape[1]}x{img.shape[2]} sample patch, by "
+          f"{ec.shading_code_resample_select_by}): {dtype} kernel path "
+          f"[{', '.join(f'{v:.7f}' for v in sk)}] vs fp32 plain path "
+          f"[{', '.join(f'{v:.7f}' for v in sp)}]: max rel {rel.max():.3e} "
+          f"(need <= {tol}); picks {int(np.argmin(sk))} vs "
+          f"{int(np.argmin(sp))} (the plain scores within {tol} of its best: "
+          f"{np.flatnonzero(sp <= sp.min() + tol * abs(sp.min())).tolist()})",
+          flush=True)
+    if not (np.isfinite(sk).all() and rel.max() <= tol and pick_ok):
+        fail(f"{label}: the candidate scores disagree with the plain path")
+
+    # One resample of one image: exact launches, render and decode timed.
+    th, tw = int(cfg.eval.max_height), int(cfg.eval.max_width)
+    size = int(ec.shading_code_resample_size)
+    tiles = math.ceil(size / th) * math.ceil(size / tw)
+    codes = np.zeros((len(sample_ds), dim), np.float32)
+    rng = np.random.default_rng(9)
+    resample_shading_codes(codes, cfg, params, state, sample_ds, 0, 0, rng,
+                           score_k)
+    torch.cuda.synchronize()
+    reset_counters({**kernels, **twins}, plains)
+    resample_shading_codes(codes, cfg, params, state, sample_ds, 1, 0, rng,
+                           score_k)
+    torch.cuda.synchronize()
+    got, tw_l, calls = read(kernels), read(twins), plain_calls()
+    want = {n: (tiles if n in ("cull_select", embed_k, eval_k) else 0)
+            for n in kernels}
+    render_ms, decode_ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fused, bkg = render_attention(params, state, cfg, rayo_s, rayd_s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        score_k(params, fused, bkg, img, cands)
+        torch.cuda.synchronize()
+        render_ms.append((t1 - t0) * 1e3)
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+    decode = lambda: score_k(params, fused, bkg, img, cands)
+    by_name = {}
+    for t0, t1, name in device_profile(decode)[2]:
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + t1 - t0, n + 1)
+    by_op = (kernels_by_op(decode, "", 3) + "; by kernel name: " + "; ".join(
+        f"{name[:70]} x {n}: {t / 1e3:.3f} ms" for name, (t, n) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][0])[:3]))
+    print(f"phase 9 resample ({label}, one image, {size}x{size} at {th}x{tw} "
+          f"tiles = {tiles} tiles, {n_cand} candidates): render "
+          f"{render_ms[-1]:.2f} ms (first {render_ms[0]:.2f}), batched decode "
+          f"{decode_ms[-1]:.2f} ms (first {decode_ms[0]:.2f}); launches {got} "
+          f"(want {want}); twins {tw_l}; plain-version calls {calls}; the "
+          f"decode by issuing op: {by_op}", flush=True)
+    if got != want or max(tw_l.values()) != 0 or calls:
+        fail(f"{label}: one resample did not run exactly its kernels")
+    del fused, bkg
+
+    # One finetune step with a code: exact launches; then ms/step with a
+    # code beside the same model's step with exposure control off.
+    ds = get_dataset(cfg.dataset, mode="train", seed=seed)
+    _, _, timg, trayd, trayo = ds[0]
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.float32)[None],
+                                    device=device)
+    timg, trayd, trayo, tc2w = dev(timg), dev(trayd), dev(trayo), \
+        ds.get_c2w(0)
+    loss_fn = build_loss(cfg, policy, device=device)
+    code_t = torch.as_tensor(code, device=device)
+    runs = {}
+    for name, run_cfg, p0, c in (
+            ("with a code", cfg, params, code_t),
+            ("without", exposure_cfg(path, scene, save_dir, pre_pth,
+                                     NO_EXPOSURE),
+             {k: v for k, v in params.items() if k != "mapping_mlp"}, None)):
+        p = {k: tree_map(torch.clone, v) for k, v in p0.items()}
+        step_fn = make_train_step(run_cfg, loss_fn)
+        opt = make_opt_state(run_cfg, p)
+        p, opt, loss, _ = step_fn(p, opt, state, trayo, trayd, timg, tc2w,
+                                  1000, shading_code=c)
+        torch.cuda.synchronize()
+        reset_counters({**kernels, **twins}, plains)
+        p, opt, loss, _ = step_fn(p, opt, state, trayo, trayd, timg, tc2w,
+                                  1001, shading_code=c)
+        torch.cuda.synchronize()
+        one = (read(kernels), read(twins), plain_calls())
+        t0 = time.perf_counter()
+        for i in range(EXP_TIMED):
+            p, opt, loss, _ = step_fn(p, opt, state, trayo, trayd, timg,
+                                      tc2w, 1002 + i, shading_code=c)
+        torch.cuda.synchronize()
+        runs[name] = ((time.perf_counter() - t0) / EXP_TIMED * 1e3,
+                      float(loss), one)
+        del p, opt
+    got, tw_l, calls = runs["with a code"][2]
+    want = {n: (0 if n == eval_k else 1) for n in kernels
+            if not n.startswith("wgrad")}
+    print(f"phase 9 finetune step ({label}, {timg.shape[1]}x{timg.shape[2]} "
+          f"patch, {dtype}): with a code {runs['with a code'][0]:.1f} ms/step, "
+          f"without (exposure control off: no mapping MLP, no FiLM; the same "
+          f"weights otherwise) "
+          f"{runs['without'][0]:.1f} ms/step over {EXP_TIMED} steps; losses "
+          f"{runs['with a code'][1]:.6f} / {runs['without'][1]:.6f}; launches "
+          f"of one step {got} (want {want}, wgrad >= 1); twins {tw_l}; "
+          f"plain-version calls {calls}; {card}", flush=True)
+    wg = "wgrad" if amp else "wgrad_f32"
+    if any(got[n] != v for n, v in want.items()) or got[wg] < 1 \
+            or max(tw_l.values()) != 0 or calls \
+            or not np.isfinite(runs["with a code"][1]):
+        fail(f"{label}: one finetune step did not run exactly its kernels")
+    del params, state
+    torch.cuda.empty_cache()
+
+    # The command-line path: cli.exposure, then the finetuned model.pth
+    # round trip, then cli.test --exp.
+    opt_path = write_cfg(cfg, os.path.join(root, f"{label}.yml"))
+    reset_counters({**kernels, **twins}, plains)
+    t0 = time.perf_counter()
+    (fp, fo, fs, fcodes, hist), text = in_process(
+        lambda: cli_exposure.main(["--opt", opt_path]), "cli.exposure")
+    torch.cuda.synchronize()
+    finetune_s = time.perf_counter() - t0
+    n_res = text.count("Resampling shading codes")
+    if "Training finished!" not in text or n_res != math.ceil(
+            EXP_STEPS / EXP_RESAMPLE_ITER) or not all(
+            np.isfinite(hist["train_losses"] + hist["eval_losses"])):
+        fail(f"{label}: cli.exposure did not finetune")
+    print(f"phase 9 cli.exposure ({label}): {EXP_STEPS} steps, {n_res} "
+          f"resamples of {len(sample_ds)} codes, one eval, in {finetune_s:.1f} "
+          f"s; eval PSNR {[round(float(x), 3) for x in hist['eval_psnrs']]}",
+          flush=True)
+    del fp, fo, fs
+    cli_launches = read(kernels)
+
+    # model.pth round trip on the card: the finetuned checkpoint's test frame
+    # at the test tiles, exported and imported, bit for bit; the codes too.
+    log_dir = os.path.join(save_dir, cfg.index)
+    step_f, tree = ck.load_checkpoint(log_dir)
+    p0, s0 = create_model(cfg, seed=seed, device=device)
+    params = ck.restore_into(p0, tree["params"])
+    state = ck.restore_into(s0, tree["state"])
+    test_ds = get_dataset(cfg.dataset, mode="test", seed=seed)
+    timg_np, trayd_np, trayo_np = test_ds.get_full_img(0)
+    eval_code = tree["extras"]["eval_shading_codes"][0]
+    tth, ttw = int(cfg.test.max_height), int(cfg.test.max_width)
+
+    def frame(p, s):
+        g, b = mapping_apply(p, cfg, eval_code)
+        t0 = time.perf_counter()
+        rgb = render_full_image(p, s, cfg, trayo_np, trayd_np, tth, ttw,
+                                gamma=g, beta=b)["rgb"]
+        return rgb, (time.perf_counter() - t0) * 1e3
+
+    before, _ = frame(params, state)
+    pth = os.path.join(root, f"{label}_finetuned.pth")
+    ck.export_torch(pth, params, state, cfg, step=step_f, extras=tree["extras"])
+    p1, s1 = create_model(cfg, seed=seed + 1, device=device)
+    step_i, p1, s1, extras = ck.import_torch(pth, p1, s1, cfg)
+    after, _ = frame(p1, s1)
+    after, frame_ms = frame(p1, s1)
+    codes_equal = all(np.array_equal(extras[k].cpu().numpy(), tree["extras"][k])
+                      for k in tree["extras"])
+    print(f"phase 9 model.pth round trip ({label}): step {step_i}, a "
+          f"{timg_np.shape[1]}x{timg_np.shape[2]} test frame at {tth}x{ttw} "
+          f"tiles bit-equal {np.array_equal(before, after)} (max diff "
+          f"{float(np.abs(before - after).max()):.3e}), codes bit-equal "
+          f"{codes_equal}; one --exp frame {frame_ms:.1f} ms; {card}",
+          flush=True)
+    if not (np.array_equal(before, after) and codes_equal
+            and step_i == step_f and np.isfinite(after).all()):
+        fail(f"{label}: the model.pth round trip changed the model")
+    del params, state, p0, s0, p1, s1, tree
+    torch.cuda.empty_cache()
+
+    # cli.test --exp: the finetuned checkpoint (t2_sphere: all three modes),
+    # or the exported model.pth as the config's test.load_path (Caterpillar).
+    if label.startswith("Caterpillar"):
+        opt_path = write_cfg(exposure_cfg(path, scene, save_dir, pre_pth,
+                                          {"test": {"load_path": pth}}),
+                             os.path.join(root, f"{label}_test.yml"))
+        modes = (("--exp", ["--exp"], "exposure_control_test", 1),)
+    else:
+        modes = (("--exp", ["--exp"], "exposure_control_test", 1),
+                 ("--exp --random", ["--exp", "--random", "--num_samples",
+                                     "2"], "exposure_control_random_scale1.0",
+                  2),
+                 ("--exp --intrp", ["--exp", "--intrp", "--num_samples", "2",
+                                    "--num_intrp", "2"],
+                  "exposure_control_intrp_scale1.0", 2))
+    for name, flags, out_dir, frames in modes:
+        t0 = time.perf_counter()
+        res, text = in_process(
+            lambda: cli_test.main(["--opt", opt_path] + flags),
+            f"cli.test {name}")
+        torch.cuda.synchronize()
+        means = next(iter(res.values()))
+        written = os.listdir(os.path.join(log_dir, "test", out_dir))
+        n_png = sum(f.endswith("-predrgb.png") for f in written)
+        print(f"phase 9 cli.test {name} ({label}): {frames} frame(s) in "
+              f"{time.perf_counter() - t0:.1f} s, PSNR {means['psnr']:.4f}, "
+              f"{n_png} predrgb PNGs in test/{out_dir}", flush=True)
+        if "Avg test loss" not in text or not np.isfinite(means["psnr"]) \
+                or text.count("Test frame:") != frames or n_png != frames:
+            fail(f"{label}: cli.test {name} did not render")
+    torch.cuda.synchronize()
+    launches = read(kernels)
+    tw_l, calls = read(twins), plain_calls()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 9 launches of the command-line runs ({label}): finetune "
+          f"{cli_launches}, with the tests {launches}; twins {tw_l}; "
+          f"plain-version calls {calls}; peak device memory {peak_gb:.2f} GiB;"
+          f" {time.perf_counter() - t_phase:.1f} s for this configuration; "
+          f"{card}", flush=True)
+    if min(launches.values()) <= 0 or max(tw_l.values()) != 0 or calls:
+        fail(f"{label}: the command-line path did not run exactly its kernels")
+    return {"launches": launches}
+
+
+def drive_exposure_path(device, card: str) -> dict:
+    """Phase 9: exposure control and the reference checkpoint format on
+    ``configs/t2_sphere_exposure.yml`` (bf16, FiLM live) and
+    ``configs/t2/Caterpillar_exposure_control.yml`` (fp32, FiLM off as the
+    reference ships it), on a synth t2 sphere written with per-image
+    exposure gains. -> {"launches": each kernel's launches in the
+    command-line runs of both}."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="papr_chip_smoke_exp_")
+    scene = os.path.join(root, "t2_sphere")
+    r = subprocess.run([sys.executable, "-m", "papr_tpu_torch.dataset.synth",
+                        "--format", "t2", "--exposure_jitter",
+                        str(EXP_JITTER), "--height", str(EXP_HW[0]),
+                        "--width", str(EXP_HW[1]), "--n_train",
+                        str(EXP_VIEWS[0]), "--n_test", str(EXP_VIEWS[1]),
+                        "--out", scene], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode:
+        fail(f"the exposure scene: {r.stderr[-2000:]}")
+    launches = {}
+    for label, path in EXPOSURE_CONFIGS:
+        got = drive_exposure_config(device, label, path, scene, root, card)
+        for n, v in got["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    print(f"phase 9 exposure path: both configurations in "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    return {"launches": launches}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4313,11 +4820,13 @@ def main() -> None:
     results += f32["results"]
     f32_modes = drive_fp32_modes(device, f32.pop("ref"))
     drive_demo_cli()
+    exposure = drive_exposure_path(device, card)
 
     # Each kernel's launches on the main path that holds it: the serving
     # path and the training step (phases 3, 4), the command-line path, the
     # stream modes' steps and frames (phase 6), or the int8 frames, steps and
-    # microbenchmark (phase 7), the fp32 step and frames (phase 8).
+    # microbenchmark (phase 7), the fp32 step and frames (phase 8); and the
+    # exposure path's command-line runs (phase 9).
     int8_only = ("attend_eval_i8", "key_stream_i8_fwd", "value_stream_i8_fwd",
                  "int8_walk_bench")
     cli_only = ("topk_stream", "fused_scores_fwd", "fused_scores_bwd")
@@ -4340,6 +4849,11 @@ def main() -> None:
             r["launches_stream_modes"] = modes["launches"][r["name"]]
         if cli["launches"].get(r["name"], 0) > 0:
             r["launches_command_line_path"] = cli["launches"][r["name"]]
+        # Phase 9 drives the main path's kernels of both dtypes through the
+        # exposure CLIs.
+        if exposure["launches"].get(r["name"], 0) > 0:
+            r["launches"] += exposure["launches"][r["name"]]
+            r["launches_exposure_path"] = exposure["launches"][r["name"]]
         missing = [key for key in ("name", "route", "source", "replaces",
                                    "launches", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by",

@@ -3,13 +3,15 @@
 Renders the test split tile by tile and reports loss / PSNR / SSIM per frame
 and averaged; writes predrgb / depth / fgrgb / bkgmask PNGs and optional
 videos, with the flags, log files and output layout (under
-<save_dir>/<index>/test) of the repository's ``test.py``. Runs on the GPU;
-``PAPR_PLATFORM=cpu`` asks for the CPU.
+<save_dir>/<index>/test) of the repository's ``test.py``, including its three
+exposure-control modes (``--exp [--random | --intrp]``). Runs on the GPU;
+``PAPR_PLATFORM=cpu`` asks for the CPU. ``test.load_path`` is a
+``checkpoint.npz`` (or a directory with one) or the reference's
+``model.pth``.
 
-Not ported yet: the exposure-control modes (``--exp [--random | --intrp]``,
-ROADMAP.md Queue 1 item 2) raise. The LPIPS columns need the converted VGG16
-/ AlexNet backbones, which the repository does not carry: they report nan
-with a warning, as ``test.py`` does without the weights.
+The LPIPS columns need the converted VGG16 / AlexNet backbones, which the
+repository does not carry: they report nan with a warning, as ``test.py``
+does without the weights.
 """
 
 import argparse
@@ -80,37 +82,46 @@ def _imwrite(path: str, arr: np.ndarray) -> None:
 
 
 def load_test_model(cfg, resume_step: int, device):
-    """The model of ``cfg`` with the checkpoint ``test.load_path`` (default
-    <save_dir>/<index>) restored: ``checkpoint_<resume_step>.npz`` when that
-    snapshot exists, else ``checkpoint.npz``. -> (params, state, step)."""
+    """The model of ``cfg`` with ``test.load_path`` (default
+    <save_dir>/<index>) restored, routed as ``test.py`` routes it: a
+    ``checkpoint.npz`` (``checkpoint_<resume_step>.npz`` when that snapshot
+    exists) or a directory with one through ``load_checkpoint``, anything
+    else through ``import_torch``. -> (params, state, step, extras)."""
     from ..model.papr import create_model
-    from ..train.checkpoint import load_checkpoint, restore_into
+    from ..train.checkpoint import (import_torch, is_native, load_checkpoint,
+                                    restore_into)
 
     params, state = create_model(cfg, seed=int(cfg.seed), device=device)
     load_path = cfg.test.load_path or os.path.join(cfg.save_dir, cfg.index)
     if not os.path.isabs(load_path) and not os.path.exists(load_path):
         alt = os.path.join(cfg.save_dir, load_path)
         load_path = alt if os.path.exists(alt) else load_path
-    if os.path.isdir(load_path):
-        snap = os.path.join(load_path, f"checkpoint_{resume_step}.npz")
-        if os.path.exists(snap):
-            load_path = snap
-        elif not os.path.exists(os.path.join(load_path, "checkpoint.npz")):
-            load_path = os.path.join(load_path, "model.pth")   # raises below
-    step, tree = load_checkpoint(load_path)
-    params = restore_into(params, tree["params"])
-    state = restore_into(state, tree["state"])
+    if is_native(load_path):
+        # Honour --resume <step> like the reference's model_<step>.pth
+        # (reference test.py:320).
+        if not load_path.endswith(".npz"):
+            snap = os.path.join(load_path, f"checkpoint_{resume_step}.npz")
+            if os.path.exists(snap):
+                load_path = snap
+        step, tree = load_checkpoint(load_path)
+        params = restore_into(params, tree["params"])
+        state = restore_into(state, tree["state"])
+        extras = tree.get("extras", {})
+    else:
+        step, params, state, extras = import_torch(load_path, params, state,
+                                                   cfg)
     print(f"!!!!! Loaded model from {load_path} at step {step}")
-    return params, state, step
+    return params, state, step, extras
 
 
-def run_test(cfg, save_name, mode, resume_step):
+def run_test(cfg, save_name, mode, resume_step, cli=None):
     """Render ``mode``'s split of ``cfg.dataset`` and report the metrics ->
-    their means."""
+    their means. ``cli``: the parsed flags (the exposure-control modes)."""
     import torch
 
     from ..dataset import get_dataset, get_loader
     from ..device import platform_device
+    from ..model.papr import mapping_apply
     from ..nn.mlp import policy_from_config
     from ..train.losses import build_loss
     from ..train.step import render_full_image
@@ -118,21 +129,37 @@ def run_test(cfg, save_name, mode, resume_step):
     from ..utils.metrics import psnr_np, ssim_np
 
     dev = platform_device()
-    params, state, resume_step = load_test_model(cfg, resume_step, dev)
+    cli = cli or parse_args([])
+    params, state, resume_step, extras = load_test_model(cfg, resume_step,
+                                                         dev)
     dataset = get_dataset(cfg.dataset, mode=mode, seed=int(cfg.seed))
     loader = get_loader(dataset, cfg.dataset, mode="test")
     loss_fn = build_loss(cfg, policy_from_config(cfg), device=dev)
     lpips_alex, lpips_vgg = make_lpips_metrics(dev)
     host = lambda t: t.detach().cpu().numpy()
 
+    if cli.exp:
+        # Loaded and printed only: plain --exp draws its own code below
+        # (test.py:121-126, :226-228).
+        key = "train_shading_codes" if mode == "train" else "eval_shading_codes"
+        shading_codes = extras.get(key)
+        if shading_codes is not None:
+            print(f"Using {key}: {tuple(shading_codes.shape)}")
+
     stats = {"loss": [], "psnr": [], "ssim": [], "lpips_alex": [], "lpips_vgg": []}
     frames = {}
+    rng = np.random.default_rng(cli.seed)
 
-    def one_frame(frame, i, batch):
+    def one_frame(frame, i, batch, code=None, suffix=""):
+        gamma = beta = None
         code_mean = 0.0
+        if code is not None:
+            code = np.asarray(code, np.float32).reshape(-1)
+            code_mean = float(code.mean())
+            gamma, beta = mapping_apply(params, cfg, code)
         out = render_full_image(params, state, cfg, batch.rayo, batch.rayd,
                                 int(cfg.test.max_height), int(cfg.test.max_width),
-                                with_depth=True)
+                                with_depth=True, gamma=gamma, beta=beta)
         rgb = np.clip(out["rgb"], 0, 1)
         img = batch.image
         with torch.no_grad():
@@ -150,7 +177,12 @@ def run_test(cfg, save_name, mode, resume_step):
               f"test_lpips_vgg: {stats['lpips_vgg'][-1]:.4f}")
 
         if cfg.test.save_fig:
-            log_dir = os.path.join(cfg.save_dir, cfg.index, "test", "images")
+            dir_name = "images"
+            if code is not None:
+                dir_name = (f"exposure_control_{suffix}_scale{cli.scale}"
+                            if suffix in ("intrp", "random")
+                            else f"exposure_control_{suffix}")
+            log_dir = os.path.join(cfg.save_dir, cfg.index, "test", dir_name)
             os.makedirs(log_dir, exist_ok=True)
             tag = (f"test-{frame:04d}-{i:02d}-codeMean{code_mean:.4f}"
                    f"-PSNR{stats['psnr'][-1]:.3f}-SSIM{stats['ssim'][-1]:.4f}"
@@ -190,8 +222,36 @@ def run_test(cfg, save_name, mode, resume_step):
                 out["attn"][0, ..., 0], influ)
             frames.setdefault("featattn", []).append(np.asarray(panel.convert("RGB")))
 
-    for frame, batch in enumerate(loader):
-        one_frame(frame, 0, batch)
+    if cli.exp:
+        dim = int(cfg.exposure_control.shading_code_dim)
+        if cli.random:
+            for frame, batch in enumerate(loader):
+                if frame != cli.view:
+                    continue
+                for i in range(cli.num_samples):
+                    code = rng.standard_normal(dim).astype(np.float32) * cli.scale
+                    one_frame(frame, i, batch, code, "random")
+        elif cli.intrp:
+            ids = [cli.start_index, cli.end_index]
+            latents = []
+            for i in range(cli.num_samples):
+                code = rng.standard_normal(dim).astype(np.float32) * cli.scale
+                if i in ids:
+                    latents.append(code)
+            for frame, batch in enumerate(loader):
+                if frame != cli.view:
+                    continue
+                for j in range(cli.num_intrp):
+                    code = latents[0] + (latents[1] - latents[0]) * (j + 1) / cli.num_intrp
+                    one_frame(frame, j, batch, code, "intrp")
+        else:
+            # ONE random code at --scale for every frame (test.py:226-228).
+            code = rng.standard_normal(dim).astype(np.float32) * cli.scale
+            for frame, batch in enumerate(loader):
+                one_frame(frame, 0, batch, code, "test")
+    else:
+        for frame, batch in enumerate(loader):
+            one_frame(frame, 0, batch)
 
     means = {k: float(np.mean(v)) if v else float("nan") for k, v in stats.items()}
     if frames:
@@ -217,10 +277,6 @@ def main(argv=None):
         assert cli.exp, "--intrp/--random require --exp"
     assert not (cli.intrp and cli.random), \
         "Cannot do interpolation and random exposure at the same time."
-    if cli.exp:
-        raise NotImplementedError(
-            "--exp / --intrp / --random: exposure control is not ported yet "
-            "(ROADMAP.md Queue 1 item 2)")
 
     base_cfg = load_config(cli.opt)
     log_dir = os.path.join(base_cfg.save_dir, base_cfg.index)
@@ -235,8 +291,11 @@ def main(argv=None):
     for entry in base_cfg.test.datasets:
         entry = Config(entry)
         cfg = make_test_config(base_cfg, entry)
+        if cli.exp:
+            assert cfg.models.use_renderer, \
+                "Only renderer-based models support exposure control"
         results[entry.name] = run_test(cfg, entry.name, entry.mode,
-                                       cli.resume)
+                                       cli.resume, cli)
     return results
 
 

@@ -104,14 +104,21 @@ def make_demo_scene(out_dir: str, n_train: int = 6, n_test: int = 2,
 
 
 def make_demo_scene_t2(out_dir: str, n_train: int = 4, n_test: int = 2,
-                       H: int = 64, W: int = 64, seed: int = 0) -> str:
+                       H: int = 64, W: int = 64, seed: int = 0,
+                       exposure_jitter: float = 0.0) -> str:
     """Same sphere scene in Tanks&Temples/NSVF layout (rgb/ + pose/ +
     intrinsics.txt; 0*=train, 1*=test prefixes; poses are OpenCV-style so the
-    loader's blender2opencv flip recovers them)."""
+    loader's blender2opencv flip recovers them).
+
+    ``exposure_jitter > 0`` multiplies each TRAIN image, background included,
+    by a random gain exp(U(-j, j)), as an auto-exposure capture differs from
+    frame to frame; the test images stay neutral and the cameras equal the
+    neutral generation of the same seed."""
     from PIL import Image
 
     from .loaders import BLENDER2OPENCV
     rng = np.random.default_rng(seed)
+    g_rng = np.random.default_rng(seed + 7919)
     focal = 0.5 * W / np.tan(0.4)
     os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "pose"), exist_ok=True)
@@ -125,6 +132,10 @@ def make_demo_scene_t2(out_dir: str, n_train: int = 4, n_test: int = 2,
             c2w = _look_at(eye)
             rgba = render_sphere(c2w, H, W, focal)
             rgb = rgba[..., :3] * rgba[..., 3:] + (1 - rgba[..., 3:])
+            if exposure_jitter and split == "train":
+                g = float(np.exp(g_rng.uniform(-exposure_jitter,
+                                               exposure_jitter)))
+                rgb = np.clip(rgb * g, 0.0, 1.0)
             name = f"{prefix}_{k:04d}"
             Image.fromarray((rgb * 255).astype(np.uint8)).save(
                 os.path.join(out_dir, "rgb", f"{name}.png"))
@@ -148,14 +159,14 @@ if __name__ == "__main__":
     ap.add_argument("--n_test", type=int, default=2)
     ap.add_argument("--format", choices=["synthetic", "t2"], default="synthetic")
     ap.add_argument("--exposure_jitter", type=float, default=0.0,
-                    help="per-train-image exposure gain exp(U(-j, j)) "
-                         "(synthetic format only)")
+                    help="per-train-image exposure gain exp(U(-j, j))")
     args = ap.parse_args()
     H = args.height or args.size
     W = args.width or args.size
     if args.format == "t2":
         print(make_demo_scene_t2(args.out, n_train=args.n_train,
-                                 n_test=args.n_test, H=H, W=W))
+                                 n_test=args.n_test, H=H, W=W,
+                                 exposure_jitter=args.exposure_jitter))
     else:
         print(make_demo_scene(args.out, n_train=args.n_train,
                               n_test=args.n_test, H=H, W=W,

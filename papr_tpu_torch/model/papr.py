@@ -846,9 +846,12 @@ def render_foreground(params: dict, cfg, fused: torch.Tensor, gamma=None,
 def mapping_apply(params: dict, cfg, shading_code: torch.Tensor,
                   policy: Policy = F32):
     """Shading code -> (gamma, beta) FiLM pair (reference models/mlp.py:62-78
-    and models/model.py:495-499)."""
+    and models/model.py:495-499). ``shading_code``: (dim,) or (N, dim), a
+    tensor or a host array (moved to the model's device)."""
     mm = cfg.exposure_control.mapping_mlp
-    affine = mlp_apply(params["mapping_mlp"], shading_code.float(),
+    code = torch.as_tensor(shading_code, dtype=torch.float32,
+                           device=params["points"].device)
+    affine = mlp_apply(params["mapping_mlp"], code,
                        act_type=mm.act, last_act_type=mm.last_act,
                        policy=policy)
     half = affine.shape[-1] // 2

@@ -182,9 +182,12 @@ def small_unet_init(gen, n_channels: int, n_classes: int,
 
 
 def _film(x: torch.Tensor, gamma, beta) -> torch.Tensor:
+    """FiLM: x * gamma + beta per channel. gamma / beta (C,) modulate every
+    sample alike; (N, C) modulate sample n of x (N, H, W, C) with row n, so
+    N shading codes decode as one batch."""
     c = x.shape[-1]
-    return (x * gamma.reshape(1, 1, 1, c).to(x.dtype)
-            + beta.reshape(1, 1, 1, c).to(x.dtype))
+    return (x * gamma.reshape(-1, 1, 1, c).to(x.dtype)
+            + beta.reshape(-1, 1, 1, c).to(x.dtype))
 
 
 def small_unet_apply(params: dict, x: torch.Tensor, *, bilinear: bool = False,

@@ -9,8 +9,10 @@ packages and the optimizer state has the same {group: {m, v, t}} shape, so a
 shapes (the padded point cloud) make resuming trivial; Adam's moments and
 step counts ARE restored on resume.
 
-The reference's ``model.pth`` layout (``import_torch`` / ``export_torch`` in
-the JAX package) is not ported yet: ROADMAP.md Queue 1 item 3.
+Interop: ``import_torch`` / ``export_torch`` read and write the reference's
+``model.pth`` layout through ``model/torch_convert.py``, so pretrained
+reference checkpoints load here and the port's models load in the reference
+and in the JAX package.
 """
 
 from __future__ import annotations
@@ -93,10 +95,6 @@ def load_checkpoint(save_dir_or_file: str):
     path = save_dir_or_file
     if os.path.isdir(path):
         path = os.path.join(path, "checkpoint.npz")
-    if path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"{path}: loading the reference's model.pth is ROADMAP.md Queue 1 "
-            "item 3 (model.pth interop); load a checkpoint.npz")
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
     step = int(flat.pop("__step__"))
@@ -132,3 +130,41 @@ def restore_into(template, loaded):
         return type(ref)(arr)
 
     return _unflatten({k: restore(t_flat[k], l_flat[k]) for k in t_flat})
+
+
+# ------------------------------------------------------- reference interop --
+
+def is_native(path: str) -> bool:
+    """A ``checkpoint.npz`` file, or a directory holding one: the native
+    format. Anything else is read as the reference's ``model.pth``."""
+    return path.endswith(".npz") or os.path.exists(
+        os.path.join(path, "checkpoint.npz"))
+
+
+def import_torch(path: str, params, state, cfg):
+    """Load a reference model.pth / model_<step>.pth into (params, state) on
+    their device. Accepts a directory (tries model.pth inside) or a file.
+    Returns (step, params, state, extras); extras holds the shading codes
+    the file carries."""
+    from ..model.torch_convert import (from_torch_state_dict,
+                                       load_torch_checkpoint)
+    if os.path.isdir(path):
+        path = os.path.join(path, "model.pth")
+    step, sd = load_torch_checkpoint(path)
+    params, state, extras = from_torch_state_dict(params, state, cfg, sd)
+    return step, params, state, extras
+
+
+def export_torch(path: str, params, state, cfg, step: int = 0,
+                 extras: dict | None = None):
+    """Write a reference-compatible {str(step): state_dict} model.pth (CPU
+    tensors). ``extras``' shading codes go in under their own keys, as the
+    reference's exposure-control models carry them."""
+    from ..model.torch_convert import CODE_KEYS, to_torch_state_dict
+    sd = {k: v.cpu() for k, v in to_torch_state_dict(params, state,
+                                                      cfg).items()}
+    for key in CODE_KEYS:
+        if extras and key in extras:
+            sd[key] = torch.as_tensor(np.asarray(_to_numpy(extras[key]),
+                                                 np.float32))
+    torch.save({str(step): sd}, path)

@@ -33,8 +33,8 @@ from ..model.papr import _check_single_device, create_model
 from ..nn.activations import build_activation
 from ..nn.mlp import policy_from_config
 from ..utils import plots
-from .checkpoint import (load_checkpoint, load_histories, restore_into,
-                         save_checkpoint)
+from .checkpoint import (import_torch, is_native, load_checkpoint,
+                         load_histories, restore_into, save_checkpoint)
 from .losses import build_loss, psnr
 from .optim import build_group_specs, current_lrs, init_opt_state
 from .points_host import add_points, prune_points
@@ -200,14 +200,12 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
         load_path = cfg.load_path
         if not os.path.isabs(load_path) and not os.path.exists(load_path):
             load_path = os.path.join(cfg.save_dir, load_path)
-        # A reference model.pth raises in load_checkpoint (ROADMAP.md
-        # Queue 1 item 3).
-        if os.path.isdir(load_path) and not os.path.exists(
-                os.path.join(load_path, "checkpoint.npz")):
-            load_path = os.path.join(load_path, "model.pth")
-        s, tree = load_checkpoint(load_path)
-        params = restore_into(params, tree["params"])
-        state = restore_into(state, tree["state"])
+        if is_native(load_path):
+            s, tree = load_checkpoint(load_path)
+            params = restore_into(params, tree["params"])
+            state = restore_into(state, tree["state"])
+        else:   # the reference's model.pth (a file, or a directory with one)
+            s, params, state, _ = import_torch(load_path, params, state, cfg)
         print(f"!!!!! Loaded model from {cfg.load_path} at step {s}")
 
     loss_fn = build_loss(cfg, policy_from_config(cfg), device=dev)

@@ -1,6 +1,8 @@
 """``papr_tpu_torch/train/checkpoint.py``: bit-equal round trip, interchange
 of ``checkpoint.npz`` with ``papr_tpu.train.checkpoint`` in both directions,
-and a resume that restores Adam's moments and step counts."""
+a resume that restores Adam's moments and step counts, and a reference
+``model.pth`` beside the native file (``tests/test_torch_model_pth.py`` holds
+that format against JAX's)."""
 
 import os
 
@@ -91,8 +93,19 @@ def test_save_is_atomic_and_pth_raises(tmp_path):
     ck.save_checkpoint(str(tmp_path), 2, params, opt, state)
     assert os.listdir(tmp_path) == ["checkpoint.npz"]      # no temp left
     assert ck.load_checkpoint(str(tmp_path))[0] == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ck.load_checkpoint(str(tmp_path / "model.pth"))
+    # A reference model.pth beside it loads (through import_torch) into a
+    # fresh model: the same live points and weights.
+    pth = str(tmp_path / "model.pth")
+    ck.export_torch(pth, params, state, cfg, step=2)
+    assert ck.is_native(str(tmp_path)) and not ck.is_native(pth)
+    fresh_p, fresh_s = tpapr.create_model(cfg, seed=9, device="cpu")
+    step, got_p, got_s, extras = ck.import_torch(pth, fresh_p, fresh_s, cfg)
+    assert step == 2 and extras == {}
+    alive = state["alive"]
+    assert int(got_s["alive"].sum()) == int(alive.sum())
+    assert torch.equal(got_p["points"][:int(alive.sum())],
+                       params["points"][alive])
+    assert torch.equal(got_p["attn"]["w_k"]["w"], params["attn"]["w_k"]["w"])
 
 
 def test_port_checkpoint_loads_in_jax(tmp_path):

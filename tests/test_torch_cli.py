@@ -1,5 +1,6 @@
 """The port's command-line entry points as subprocesses on a tiny procedural
-scene (``PAPR_PLATFORM=cpu``): train, resume, test; then the refusals."""
+scene (``PAPR_PLATFORM=cpu``): train, resume, test; then the refusal without
+a card, and the exposure-control test modes from a model.pth."""
 
 import os
 import subprocess
@@ -104,10 +105,15 @@ def test_test_cli(trained):
 
 def test_cli_refusals(trained):
     """No card and no PAPR_PLATFORM: an error, not a quiet CPU run (where a
-    card exists this run trains on it). The exposure modes name their
-    ROADMAP item."""
+    card exists this run trains on it). The exposure modes run, on the
+    trained model exported as a reference model.pth (its mapping MLP fresh
+    at the import)."""
     import torch
-    _, opt, _ = trained
+
+    from papr_tpu_torch.config import load_config
+    from papr_tpu_torch.model.papr import create_model
+    from papr_tpu_torch.train import checkpoint as ck
+    root, opt, _ = trained
     r = _run("papr_tpu_torch.cli.train", ["--opt", opt, "--resume", "1"],
              platform=None, ok=False)
     if torch.cuda.is_available():
@@ -116,6 +122,24 @@ def test_cli_refusals(trained):
         assert r.returncode != 0
         assert "PAPR_PLATFORM=cpu" in r.stderr
         assert "Training finished!" not in r.stdout
-    for flags in (["--exp"], ["--exp", "--intrp"]):
-        r = _run("papr_tpu_torch.cli.test", ["--opt", opt] + flags, ok=False)
-        assert r.returncode != 0 and "Queue 1 item 2" in r.stderr
+    cfg = load_config(opt)
+    params, state = create_model(cfg, seed=0, device="cpu")
+    _, tree = ck.load_checkpoint(str(root / "experiments" / "smoke"))
+    pth = str(root / "smoke_model.pth")
+    ck.export_torch(pth, ck.restore_into(params, tree["params"]),
+                    ck.restore_into(state, tree["state"]), cfg, step=8)
+    with open(opt) as f:
+        exp = yaml.safe_load(f)
+    exp.update(index="smoke_exp_test", exposure_control={
+        "use": True, "shading_code_dim": 8,
+        "mapping_mlp": {"num_layers": 2, "dim": 16, "out_dim": 32}})
+    exp["models"]["renderer"] = {"generator": {"small_unet": {
+        "affine_layer": 0}}}
+    exp["test"]["load_path"] = pth
+    exp_opt = str(root / "smoke_exp_test.yml")
+    with open(exp_opt, "w") as f:
+        yaml.safe_dump(exp, f)
+    for flags, frames in ((["--exp"], 2), (["--exp", "--intrp"], 10)):
+        out = _run("papr_tpu_torch.cli.test", ["--opt", exp_opt] + flags).stdout
+        assert f"Loaded model from {pth} at step 8" in out
+        assert out.count("Test frame:") == frames and "Avg test loss" in out

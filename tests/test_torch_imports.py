@@ -29,7 +29,8 @@ MODULES = ["papr_tpu_torch", "papr_tpu_torch.config", "papr_tpu_torch.convert",
            "papr_tpu_torch.train.loop", "papr_tpu_torch.train.losses",
            "papr_tpu_torch.train.optim", "papr_tpu_torch.train.points_host",
            "papr_tpu_torch.model.lpips", "papr_tpu_torch.cli.train",
-           "papr_tpu_torch.cli.test"]
+           "papr_tpu_torch.cli.test", "papr_tpu_torch.model.torch_convert",
+           "papr_tpu_torch.train.exposure", "papr_tpu_torch.cli.exposure"]
 # Imported only inside the functions that need them.
 LAZY = ("matplotlib", "PIL", "imageio", "triton")
 
