@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render path, training step, command-line path,
 its other training attention modes, its int8 walks, its fp32 walks in
-every mode and its exposure-control path on one NVIDIA GPU.
+every mode, its exposure-control path and its (data, rays) mesh on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -141,8 +142,25 @@ Phases (each prints a line; any failure exits non-zero):
    in process, the counters reset just before and read just after; the
    finetuned model through ``export_torch`` / ``import_torch``: a test
    frame at 100x100 tiles and the codes bit-equal.
-10. Print the kernels' JSON line (each kernel's launches on its main path,
-   error, time, plain version's time and bound), then the result line.
+10. The (data, rays) mesh (``papr_tpu_torch/parallel``) on the card: the
+   one-rank references in this process, then two ranks sharing the card
+   over gloo (``--mesh-rank``, a file:// rendezvous, each rank with a hard
+   time limit): (a) phase 4's flagship step on data = 1, rays = 2, its loss
+   and every group's gradient against one rank's, 1 + 5 timed steps with
+   exact per-rank launches and no plain version, the parameters bit-equal
+   across the ranks; (b) phase 8's fp32 Caterpillar step on data = 2, rays
+   = 1 with a batch of two against one rank at phase 8's bounds; (c) on (a)'s
+   model an 800x800 serving frame (one tile, wrapped onto both ranks) and a
+   frame at 100x100 tiles (32 a rank), bit-equal to one rank's, exact
+   per-rank launches; which collectives gloo runs on CUDA tensors. Then (d)
+   ``cli.train`` (a prune + grow event, evals) and ``cli.test`` on a synth
+   sphere under ``torchrun`` on two ranks against one rank (losses within
+   rel 1e-4, the test metrics equal; rank 1 writes nothing under the run's
+   directory, ``tools/torch_rank_audit.py``), and (e) the collectives under
+   NCCL at world size 1 against gloo.
+11. Print the kernels' JSON line (each kernel's launches on its main path,
+   and on phase 10's ranks, error, time, plain version's time and bound),
+   then the card and the result line.
 
 Imports nothing of JAX. Weights are random, from fixed seeds.
 """
@@ -4370,7 +4388,7 @@ def same_pick(plain, kern, tol: float) -> bool:
     return int(np.argmin(kern)) in tied.tolist()
 
 
-def in_process(fn, label: str):
+def in_process(fn, label: str, phase: int = 9):
     """Run a CLI's main (which points sys.stdout / sys.stderr at its log
     files) with its output echoed under ``label``; the streams restored."""
     import contextlib
@@ -4384,7 +4402,7 @@ def in_process(fn, label: str):
         sys.stdout, sys.stderr = out, err
     text = buf.getvalue()
     for line in text.splitlines():
-        print(f"phase 9 {label} | {line}", flush=True)
+        print(f"phase {phase} {label} | {line}", flush=True)
     return res, text
 
 
@@ -4763,6 +4781,537 @@ def drive_exposure_path(device, card: str) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------------------ phase 10 ----
+
+# Phase 10: the (data, rays) mesh on the card. Two ranks share cuda:0 and so
+# talk over gloo (NCCL refuses two ranks on one device); they meet through a
+# file:// rendezvous and run ``python3 chip_smoke.py --mesh-rank``.
+MESH_STEPS = 5            # timed steps after one warm-up, on two ranks
+MESH_RANK_TIMEOUT = 420   # s, each rank (the library is built: no nvcc)
+MESH_CLI_TIMEOUT = 420    # s, each torchrun launch
+MESH_HW = 320             # the command-line sphere's views
+MESH_CLI_STEPS = 12       # evals at 5 and 10, prune + grow at 10
+# One step on the flagship patch, two ranks (data = 1, rays = 2) against one
+# rank on the card. One rank repeats its step bit for bit (the second
+# one-rank run is printed beside). Two ranks order some fp32 sums otherwise:
+# the stream kernels' persistent grids split a ray's K units between blocks
+# at other places for half the rays, the points' gradients and every dW sum
+# half the tokens before the ranks add them; the bf16 roundings of the UNet
+# and LPIPS that such a difference flips carry it into every gradient.
+# Sound (NVIDIA H100 80GB HBM3, 700 W; the same on two machines): loss
+# 1.18e-6; gradients points 6.3e-3, pc_feats 2.1e-3, influence 1.2e-3,
+# attn and renderer 5.7e-4 (fp32, (b): <= 3.2e-5). A UNet gradient counted
+# on both ranks reads 1, the ray blocks' attention gradients averaged
+# instead of summed 0.5 (PERF.md, Findings).
+MESH_LOSS_REL = 1e-5
+MESH_GRAD_REL = 2e-2
+# Each rank's launches in Caterpillar's fp32 step on its image.
+MESH_F32_STEP_LAUNCHES = {"cull_select": 1, "fused_mlp_f32": 1,
+                          "fused_mlp_bwd_f32": 1, "attend_eval_f32": 0,
+                          "key_stream_f32_fwd": 1, "key_stream_f32_bwd": 1,
+                          "value_stream_f32_fwd": 1,
+                          "value_stream_f32_bwd": 1, "wgrad_f32": 19}
+# Each rank's launches in one training step on its block: phase 4's.
+MESH_STEP_LAUNCHES = {"cull_select": 1, "fused_mlp": 1, "fused_mlp_bwd": 1,
+                      "key_stream_fwd": 1, "key_stream_bwd": 1,
+                      "value_stream_fwd": 1, "value_stream_bwd": 1,
+                      "wgrad": 19}
+MESH_CAT_VIEWS = (0.6, 1.4)   # the fp32 batch: two views of the sphere
+
+
+def mesh_flagship(device, **tpu):
+    """Phase 10 a / c: phase 4's seeded flagship model, 160x160 patch and
+    random target, made alike in every process."""
+    import torch
+    cfg = flagship_cfg(**tpu)
+    params, state = build_model(cfg, device)
+    rayo, rayd = training_patch(device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    target = torch.rand(1, PATCH, PATCH, 3, generator=gen, device=device)
+    return cfg, params, state, rayo, rayd, target, orbit(0.0)
+
+
+def mesh_caterpillar(device, **tpu):
+    """Phase 10 b: Caterpillar's seeded model (phase 8's) and a batch of two
+    180x180 crops of the synth sphere seen from two cameras."""
+    import torch
+    cfg = caterpillar_cfg({"dataset": {"batch_size": 2}}, **tpu)
+    params, state = build_model(cfg, device)
+    side = int(cfg.dataset.patches.height)
+    views = [sphere_view(cfg, device, th) for th in MESH_CAT_VIEWS]
+    rayo = torch.cat([v[1] for v in views])
+    rayd = torch.cat([crop(v[2], side) for v in views])
+    target = torch.cat([crop(v[3], side) for v in views])
+    c2w = np.stack([v[0] for v in views]).astype(np.float32)
+    return cfg, params, state, rayo, rayd, target, c2w
+
+
+def mesh_step_grads(cfg, params, state, rayo, rayd, target, c2w, device,
+                    plan=None):
+    """One step's loss and each group's gradient (flat, on the host), on one
+    rank or on this rank's block of ``plan``."""
+    import torch
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.train.losses import build_loss
+    from papr_tpu_torch.train.optim import build_group_specs, tree_leaves
+    from papr_tpu_torch.train.step import loss_and_grads
+    policy = policy_from_config(cfg)
+    if plan is not None:
+        rayo, rayd = plan.batch_block(rayo), plan.ray_block(rayd)
+        target, c2w = plan.batch_block(target), plan.batch_block(c2w)
+    loss, _, grads = loss_and_grads(
+        params, state, cfg, rayo, rayd, target, c2w,
+        build_loss(cfg, policy, device=device), build_group_specs(cfg),
+        policy, mesh=plan.mesh if plan is not None else None)
+    return float(loss), {k: torch.cat([g.float().reshape(-1)
+                                       for g in tree_leaves(v)]).cpu()
+                         for k, v in grads.items()}
+
+
+def mesh_frames(params, state, cfg):
+    """Phase 10 c: one 800x800 serving frame (one tile) and one frame at the
+    config's 100x100 test tiles (64 tiles), both uint8, with each one's
+    launches on this process."""
+    from papr_tpu_torch.ops.geometry import get_rays_np
+    from papr_tpu_torch.train.step import render_frame, render_full_image
+    kernels, plains = counters()
+    reset_counters(kernels, plains)
+    serving = render_frame(params, state, cfg, orbit(0.3), FOCAL, FOCAL, H, W)
+    one = ({n: fn.launches for n, fn in kernels.items()},
+           {n: fn.calls for n, fn in plains.items() if fn.calls})
+    reset_counters(kernels, plains)
+    rayo, rayd = get_rays_np(H, W, FOCAL, FOCAL, orbit(0.3)[None])
+    tiled = render_full_image(params, state, cfg, rayo, rayd,
+                              int(cfg.test.max_height),
+                              int(cfg.test.max_width), rgb_only=True,
+                              rgb_uint8=True)["rgb"][0]
+    tiles = ({n: fn.launches for n, fn in kernels.items()},
+             {n: fn.calls for n, fn in plains.items() if fn.calls})
+    return serving, tiled, one, tiles
+
+
+def params_digest(params) -> str:
+    import hashlib
+    from papr_tpu_torch.train.optim import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(params):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gloo_cuda_probe(device) -> dict:
+    """Which collectives gloo runs on CUDA tensors in this build: each call
+    on a two-element tensor, 'ok' or the error's first words."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(2, device=device)
+    world = dist.get_world_size()
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(2 * world, device=device), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device=device), torch.ones(2 * world,
+                                                      device=device)),
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:80]}"
+    return out
+
+
+def mesh_rank(tmp: str, rank: str, world: str) -> None:
+    """One rank of phase 10 a-c (``python3 chip_smoke.py --mesh-rank <tmp>
+    <rank> <world>``): joins the gloo group through ``<tmp>/pg``, writes its
+    readings to ``<tmp>/rank<rank>.pt``."""
+    import os
+
+    import torch
+    from papr_tpu_torch.kernels import build
+    from papr_tpu_torch.parallel import mesh as pmesh
+    from papr_tpu_torch.train.losses import build_loss
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.train.step import make_opt_state, make_train_step
+
+    pmesh.init_ranks(f"file://{tmp}/pg", int(rank), int(world))
+    device = torch.device("cuda", torch.cuda.current_device())
+    build.load()
+    out = {"gloo_cuda": gloo_cuda_probe(device)}
+
+    # a / c: the flagship model on (data = 1, rays = 2).
+    cfg, params, state, rayo, rayd, target, c2w = mesh_flagship(
+        device, mesh={"data": 1, "rays": 2})
+    plan = pmesh.make_plan(pmesh.mesh_from_config(cfg))
+    out["frames"] = mesh_frames(params, state, cfg)
+    out["a"] = mesh_step_grads(cfg, params, state, rayo, rayd, target, c2w,
+                               device, plan)
+    step_fn = make_train_step(cfg, build_loss(cfg, policy_from_config(cfg),
+                                              device=device), sharding=plan)
+    opt = make_opt_state(cfg, params)
+    block = (plan.batch_block(rayo), plan.ray_block(rayd),
+             plan.batch_block(target), c2w)
+    params, opt, loss, _ = step_fn(params, opt, state, *block, 1000)
+    kernels, plains = counters(training=True)
+    torch.cuda.synchronize()
+    reset_counters(kernels, plains)
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(MESH_STEPS):
+        params, opt, loss, pred = step_fn(params, opt, state, *block,
+                                          1001 + i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    out["timed"] = {
+        "ms": (time.perf_counter() - t0) / MESH_STEPS * 1e3,
+        "losses": [float(x) for x in losses],
+        "pred": tuple(pred.shape),
+        "launches": {n: fn.launches for n, fn in kernels.items()},
+        "plain": {n: fn.calls for n, fn in plains.items() if fn.calls},
+        "digest": params_digest(params)}
+    del params, opt, state, pred
+    torch.cuda.empty_cache()
+
+    # b: Caterpillar's fp32 model on (data = 2, rays = 1), a batch of two.
+    cat = mesh_caterpillar(device, mesh={"data": 2, "rays": 1})
+    f32k, bf16k, plains = f32_counters()
+    reset_counters({**f32k, **bf16k}, plains)
+    out["b"] = mesh_step_grads(*cat, device, pmesh.make_plan(
+        pmesh.mesh_from_config(cat[0])))
+    out["b_launches"] = {n: fn.launches for n, fn in f32k.items()}
+    out["b_others"] = {n: fn.launches for n, fn in bf16k.items()
+                       if fn.launches}
+    out["b_others"].update({n: fn.calls for n, fn in plains.items()
+                            if fn.calls})
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt.tmp"))
+    os.replace(os.path.join(tmp, f"rank{rank}.pt.tmp"),
+               os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def wait_ranks(procs, logs, limit: float, label: str) -> None:
+    """Wait for every process; one that fails or outlives ``limit`` seconds
+    fails the phase (the others are killed)."""
+    deadline = time.monotonic() + limit
+    while True:
+        rcs = [p.poll() for p in procs]
+        bad = [i for i, rc in enumerate(rcs) if rc not in (None, 0)]
+        late = time.monotonic() > deadline
+        if bad or late or all(rc == 0 for rc in rcs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if bad or late:
+        i = bad[0] if bad else 0
+        with open(logs[i]) as f:
+            tail = f.read()[-3000:]
+        fail(f"{label} {i} {'exited ' + str(rcs[i]) if bad else 'timed out'}"
+             f":\n{tail}")
+
+
+def mesh_check_step(label, want, got, loss_bound, grad_bound,
+                    again=None) -> None:
+    """Two ranks' loss and gradients (each rank's, after the reduction)
+    against one rank's; the ranks' gradients bit-equal. ``again``: a second
+    one-rank run, whose distance from the first (one rank's own spread) is
+    printed beside."""
+    import torch
+    (lw, gw), (l0, g0), (l1, g1) = want, got[0], got[1]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    loss_rel = max(rel(l0, lw), rel(l1, lw))
+    errs = {k: rel_fro(g0[k], gw[k]) for k in gw}
+    same = l0 == l1 and all(torch.equal(g0[k], g1[k]) for k in g0)
+    finite = np.isfinite(l0) and all(bool(torch.isfinite(g).all())
+                                     for g in g0.values())
+    spread = ""
+    if again is not None:
+        spread = (f"; one rank against itself: loss rel "
+                  f"{rel(again[0], lw):.3e}, gradients "
+                  + ", ".join(f"{k} {rel_fro(again[1][k], gw[k]):.3e}"
+                              for k in gw))
+    print(f"phase 10 {label}: one step, two ranks vs one rank on the card: "
+          f"loss {l0:.7f} vs {lw:.7f} (rel {loss_rel:.3e}, need <= "
+          f"{loss_bound}); gradient rel Frobenius "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (need <= {grad_bound}){spread}; the ranks' loss and "
+          f"gradients bit-equal: {same}; finite {finite}", flush=True)
+    if not (finite and same and loss_rel <= loss_bound
+            and max(errs.values()) <= grad_bound):
+        fail(f"phase 10 {label}: two ranks disagree with one")
+
+
+def drive_mesh_cli(root: str, card: str) -> None:
+    """Phase 10 d: ``cli.train`` on the synth sphere (phase 5's config, the
+    main path's modes) under two ranks (data = 1, rays = 2) against one rank
+    in process, then ``cli.test`` under two ranks against one rank on the
+    two ranks' checkpoint; ``tools/torch_rank_audit.py`` refuses any write
+    by rank 1 under the run's directory."""
+    import copy
+    import os
+    import re
+
+    from papr_tpu_torch.cli import test as cli_test
+    from papr_tpu_torch.cli import train as cli_train
+    from papr_tpu_torch.config import Config
+    from papr_tpu_torch.dataset.synth import make_demo_scene
+
+    scene = make_demo_scene(os.path.join(root, "scene"), n_train=4, n_test=1,
+                            H=MESH_HW, W=MESH_HW)
+    tpu = {"topk_impl": "cull", "fused_attn": "streamrec"}
+    one = cli_config(scene, os.path.join(root, "one"), MESH_CLI_STEPS, **tpu)
+    two = cli_config(scene, os.path.join(root, "two"), MESH_CLI_STEPS,
+                     mesh={"data": 1, "rays": 2}, **tpu)
+    opt1 = write_cfg(one, os.path.join(root, "one.yml"))
+    opt2 = write_cfg(two, os.path.join(root, "two.yml"))
+    test1 = copy.deepcopy(dict(one))
+    test1["test"]["load_path"] = os.path.join(two.save_dir, two.index)
+    opt_t = write_cfg(Config(test1), os.path.join(root, "test1.yml"))
+
+    def torchrun(module, opt, label):
+        log = os.path.join(root, f"{label}.log")
+        with open(log, "w") as f:
+            p = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node=2", "tools/torch_rank_audit.py",
+                 two.save_dir, module, "--opt", opt], stdout=f,
+                stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        wait_ranks([p], [log], MESH_CLI_TIMEOUT, f"torchrun {label}")
+        with open(log) as f:
+            text = f.read()
+        return text, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    (_, _, _, hist1), _ = in_process(lambda: cli_train.main(["--opt", opt1]),
+                                     "cli.train one rank", phase=10)
+    one_s = time.perf_counter() - t0
+    text, two_s = torchrun("papr_tpu_torch.cli.train", opt2, "train")
+    m = re.findall(r"Eval step: (\d+) train_loss: ([\d.eE+-]+) eval_loss: "
+                   r"([\d.eE+-]+) eval_psnr: ([\d.eE+-]+)", text)
+    events = re.findall(r"(Pruned|Added) (\d+) points", text)
+    if not m or "Training finished!" not in text:
+        fail(f"phase 10 d: cli.train under two ranks:\n{text[-3000:]}")
+    step2, tl2, el2 = int(m[-1][0]), float(m[-1][1]), float(m[-1][2])
+    tl1, el1 = hist1["train_losses"][-1], hist1["eval_losses"][-1]
+    rel_t = abs(tl2 - tl1) / max(abs(tl1), 1e-30)
+    rel_e = abs(el2 - el1) / max(abs(el1), 1e-30)
+    print(f"phase 10 d: cli.train {MESH_CLI_STEPS} steps on the {MESH_HW}x"
+          f"{MESH_HW} sphere (prune + grow at 10: {events}), two ranks "
+          f"under torchrun in {two_s:.1f} s (startup included) vs one rank "
+          f"in process in {one_s:.1f} s: final train loss {tl2:.6f} vs "
+          f"{tl1:.6f} (rel {rel_t:.3e}), eval loss {el2:.6f} vs {el1:.6f} "
+          f"(rel {rel_e:.3e}; need <= 1e-4); rank 1 wrote nothing under the "
+          f"run's directory (audited); {card}", flush=True)
+    if step2 != hist1["steps"][-1] or "Pruned" not in text \
+            or "Added" not in text or rel_t > 1e-4 or rel_e > 1e-4:
+        fail("phase 10 d: two ranks trained otherwise than one")
+    text, test_s = torchrun("papr_tpu_torch.cli.test", opt2, "test")
+    res1, _ = in_process(lambda: cli_test.main(["--opt", opt_t]),
+                         "cli.test one rank", phase=10)
+    got = re.findall(r"Avg test loss: ([\d.eE+-]+), test PSNR: "
+                     r"([\d.eE+-]+)", text)
+    want = next(iter(res1.values()))
+    print(f"phase 10 d: cli.test on the two ranks' checkpoint under two ranks "
+          f"in {test_s:.1f} s: {got} vs one rank: loss {want['loss']:.4f}, "
+          f"PSNR {want['psnr']:.4f}", flush=True)
+    if got != [(f"{want['loss']:.4f}", f"{want['psnr']:.4f}")] \
+            or text.count("Avg test loss") != 1:
+        fail("phase 10 d: cli.test under two ranks reports otherwise than "
+             "one rank")
+
+
+def mesh_collectives(device) -> dict:
+    """The collectives of ``parallel/collectives.py`` on a one-rank mesh of
+    the running group, on fixed CUDA tensors -> their results (host)."""
+    import torch
+    from papr_tpu_torch.parallel import collectives as coll
+    from papr_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh(1, 1)
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn(2, 8, 5, 7, generator=gen, device=device,
+                    requires_grad=True)
+    y = coll.gather_rows(x, mesh)
+    (gx,) = torch.autograd.grad((y * y).sum(), x)
+    grads = [torch.randn(33, generator=gen, device=device),
+             torch.randn(4, 4, generator=gen, device=device)]
+    coll.reduce_gradients(grads, mesh)
+    tree = {"a": torch.randn(6, generator=gen, device=device),
+            "b": torch.rand(5, generator=gen, device=device) > 0.5}
+    coll.replicate(mesh, tree)
+    coll.barrier(mesh)
+    host = lambda t: t.detach().cpu()
+    return {"rows": host(y), "rows_grad": host(gx),
+            "batch": host(coll.gather_batch(x.detach(), mesh)),
+            "world": host(coll.gather_world(x.detach(), mesh)),
+            "mean": host(coll.mean_over_data(x.detach().sum(), mesh)),
+            "grads": [host(g) for g in grads],
+            "tree": {k: host(v) for k, v in tree.items()},
+            "x": host(x)}
+
+
+def drive_nccl_world1(device, root: str) -> None:
+    """Phase 10 e: NCCL initialised at world size 1 on the card (one rank,
+    one card) runs every collective, which must give what gloo gives."""
+    import torch
+    import torch.distributed as dist
+    from papr_tpu_torch.parallel import mesh as pmesh
+    pmesh.init_ranks(f"file://{root}/nccl", 0, 1)
+    backend = dist.get_backend()
+    try:
+        nccl = mesh_collectives(device)
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", init_method=f"file://{root}/gloo",
+                            rank=0, world_size=1)
+    try:
+        gloo = mesh_collectives(device)
+    finally:
+        dist.destroy_process_group()
+    flat = lambda r: [t for v in r.values() for t in
+                      (v.values() if isinstance(v, dict) else
+                       v if isinstance(v, list) else [v])]
+    same = all(torch.equal(a, b) for a, b in zip(flat(nccl), flat(gloo)))
+    exact = (torch.equal(nccl["rows"], nccl["x"])
+             and torch.equal(nccl["rows_grad"], 2 * nccl["x"]))
+    version = (".".join(map(str, torch.cuda.nccl.version()))
+               if backend == "nccl" else "not initialised")
+    print(f"phase 10 e: the collectives under {backend} (NCCL {version}) "
+          f"at world size 1 "
+          f"on the card vs gloo: bit-equal {same}; the row gather and its "
+          f"reduce-scatter exact {exact}", flush=True)
+    if backend != "nccl" or not (same and exact):
+        fail("phase 10 e: the collectives under NCCL differ from gloo")
+
+
+def drive_mesh_path(device, card: str) -> dict:
+    """Phase 10: the (data, rays) mesh on the card. One-rank references in
+    this process, then two ranks sharing the card (a: the flagship step on
+    data = 1, rays = 2; b: Caterpillar's fp32 step on data = 2, rays = 1;
+    c: the serving and tiled frames), then the command-line path under
+    torchrun (d) and NCCL at world size 1 (e). -> {"launches": each
+    kernel's launches on the two ranks (a's timed steps, b's step, c's
+    frames)}."""
+    import os
+    import tempfile
+
+    import torch
+
+    t_start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="papr_chip_smoke_mesh_")
+    # One rank: the references.
+    cfg, params, state, rayo, rayd, target, c2w = mesh_flagship(device)
+    ref_frames = mesh_frames(params, state, cfg)
+    ref_a = mesh_step_grads(cfg, params, state, rayo, rayd, target, c2w,
+                            device)
+    ref_a2 = mesh_step_grads(cfg, params, state, rayo, rayd, target, c2w,
+                             device)
+    del params, state
+    ref_b = mesh_step_grads(*mesh_caterpillar(device), device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # Two ranks sharing the card.
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(2):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 root, str(r), "2"], stdout=f, stderr=subprocess.STDOUT))
+    wait_ranks(procs, logs, MESH_RANK_TIMEOUT, "rank")
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        path = os.path.join(root, f"rank{r}.pt")
+        if not os.path.exists(path):
+            fail(f"phase 10: rank {r} left no result")
+        ranks.append(torch.load(path, weights_only=False))
+    with open(logs[0]) as f:
+        head = [l.strip() for l in f if l.startswith("Process group")]
+    print(f"phase 10 two ranks on {card} (one card, shared): {head}; "
+          f"both ran in {ranks_s:.1f} s (start-up, model builds and every "
+          f"reading included); gloo on CUDA tensors: {ranks[0]['gloo_cuda']}",
+          flush=True)
+
+    # a: the step against one rank; timed steps; exact launches; params.
+    mesh_check_step("a (flagship, bf16, data = 1, rays = 2)", ref_a,
+                    [r["a"] for r in ranks], MESH_LOSS_REL, MESH_GRAD_REL,
+                    ref_a2)
+    t = [r["timed"] for r in ranks]
+    want = {n: MESH_STEPS * v for n, v in MESH_STEP_LAUNCHES.items()}
+    print(f"phase 10 a: 1 + {MESH_STEPS} steps, two ranks sharing one card "
+          f"(not a scaling figure): {t[0]['ms']:.1f} / {t[1]['ms']:.1f} "
+          f"ms/step on ranks 0 / 1; losses {t[0]['losses']}; pred "
+          f"{t[0]['pred']}; launches per rank {t[0]['launches']} / "
+          f"{t[1]['launches']} (want {want}); plain-version calls "
+          f"{t[0]['plain']} / {t[1]['plain']}; parameters bit-equal across "
+          f"ranks after the steps: {t[0]['digest'] == t[1]['digest']}",
+          flush=True)
+    if any(x["launches"] != want or x["plain"] for x in t) \
+            or t[0]["digest"] != t[1]["digest"] \
+            or t[0]["losses"] != t[1]["losses"] \
+            or t[0]["pred"] != (1, PATCH, PATCH, 3):
+        fail("phase 10 a: the ranks' steps")
+
+    # b: Caterpillar's fp32 step against one rank, phase 8's bounds.
+    mesh_check_step("b (Caterpillar, fp32, data = 2, rays = 1, batch 2)",
+                    ref_b, [r["b"] for r in ranks], F32_STEP_LOSS_REL,
+                    F32_STEP_GRAD_REL)
+    f32_got = [r["b_launches"] for r in ranks]
+    others = [r["b_others"] for r in ranks]
+    print(f"phase 10 b: launches per rank {f32_got[0]} / {f32_got[1]} (want "
+          f"{MESH_F32_STEP_LAUNCHES}); bf16 twins and plain versions "
+          f"{others[0]} / {others[1]}", flush=True)
+    if any(x != MESH_F32_STEP_LAUNCHES for x in f32_got) or any(others):
+        fail("phase 10 b: the fp32 step's launches")
+
+    # c: frames bit-equal to one rank's; exact per-rank launches.
+    serve_w, tiled_w = ref_frames[0], ref_frames[1]
+    n_tiles = (H // int(cfg.test.max_height)) * (W // int(cfg.test.max_width))
+    want_one = {"cull_select": 1, "fused_mlp": 1, "attend_stream_eval": 1}
+    want_tiles = {n: n_tiles // 2 for n in want_one}
+    ok = True
+    for r, x in enumerate(ranks):
+        serve, tiled, one, tiles = x["frames"]
+        ok &= (np.array_equal(serve, serve_w)
+               and np.array_equal(tiled, tiled_w) and one[0] == want_one and tiles[0] == want_tiles
+               and not one[1] and not tiles[1])
+        print(f"phase 10 c rank {r}: {H}x{W} serving frame (one tile, "
+              f"wrapped onto both ranks) bit-equal to one rank's: "
+              f"{np.array_equal(serve, serve_w)}, launches {one[0]}; frame "
+              f"at {cfg.test.max_height}x{cfg.test.max_width} tiles "
+              f"({n_tiles} tiles, {n_tiles // 2} a rank) bit-equal: "
+              f"{np.array_equal(tiled, tiled_w)}, launches {tiles[0]} (want "
+              f"{want_one} / {want_tiles}); plain-version calls {one[1]} / "
+              f"{tiles[1]}", flush=True)
+    if not ok:
+        fail("phase 10 c: the sharded frames")
+
+    launches = {}
+    for x in ranks:
+        for d in (x["timed"]["launches"], x["b_launches"], x["frames"][2][0],
+                  x["frames"][3][0]):
+            for n, v in d.items():
+                launches[n] = launches.get(n, 0) + v
+    del ranks
+    torch.cuda.empty_cache()
+    drive_mesh_cli(root, card)
+    drive_nccl_world1(device, root)
+    print(f"phase 10 mesh path: {time.perf_counter() - t_start:.1f} s; "
+          f"{card}", flush=True)
+    return {"launches": launches}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4821,6 +5370,7 @@ def main() -> None:
     f32_modes = drive_fp32_modes(device, f32.pop("ref"))
     drive_demo_cli()
     exposure = drive_exposure_path(device, card)
+    mesh = drive_mesh_path(device, card)
 
     # Each kernel's launches on the main path that holds it: the serving
     # path and the training step (phases 3, 4), the command-line path, the
@@ -4854,6 +5404,9 @@ def main() -> None:
         if exposure["launches"].get(r["name"], 0) > 0:
             r["launches"] += exposure["launches"][r["name"]]
             r["launches_exposure_path"] = exposure["launches"][r["name"]]
+        # Phase 10: both ranks' launches (the timed steps, the fp32 step,
+        # the frames).
+        r["launches_mesh_path"] = mesh["launches"].get(r["name"], 0)
         missing = [key for key in ("name", "route", "source", "replaces",
                                    "launches", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by",
@@ -4869,4 +5422,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(*sys.argv[2:5])
+    else:
+        main()

@@ -8,7 +8,10 @@ UNet, resampling each image's code by best-of-N search every
 ``shading_code_resample_iter`` steps (reference :184-218). The pretrained
 ``load_path`` is a ``checkpoint.npz`` (restored leaf by leaf where shapes
 match, the mapping MLP fresh) or a reference ``model.pth``. Runs on the GPU;
-``PAPR_PLATFORM=cpu`` asks for the CPU.
+``PAPR_PLATFORM=cpu`` asks for the CPU. Under ``torchrun`` with a
+``tpu.mesh`` of that many devices the resample and eval renders spread their
+tiles over the ranks; the finetune step is not sharded (as in the JAX
+package): every rank runs it alike. Rank 0 alone writes.
 """
 
 import argparse
@@ -21,6 +24,7 @@ import time
 import numpy as np
 
 from ..config import Config, load_config, make_eval_config
+from ..parallel.mesh import init_ranks, process_rank, quiet_unless_main
 from ..utils.logging import Logger, setup_seed, snapshot_code
 
 
@@ -53,17 +57,23 @@ def main(argv=None):
     eval_cfg = make_eval_config(cfg)
     sample_cfg = sample_config(cfg)
 
-    log_dir = os.path.join(cfg.save_dir, cfg.index)
-    os.makedirs(log_dir, exist_ok=True)
-    sys.stdout = Logger(os.path.join(log_dir, "train.log"), sys.stdout)
-    sys.stderr = Logger(os.path.join(log_dir, "train_error.log"), sys.stderr)
-    shutil.copyfile(__file__, os.path.join(log_dir, os.path.basename(__file__)))
-    if cli.opt:
-        shutil.copyfile(cli.opt, os.path.join(log_dir, os.path.basename(cli.opt)))
-    snapshot_code(".", os.path.join(log_dir, "code.zip"))
+    init_ranks()
+    if process_rank() == 0:
+        log_dir = os.path.join(cfg.save_dir, cfg.index)
+        os.makedirs(log_dir, exist_ok=True)
+        sys.stdout = Logger(os.path.join(log_dir, "train.log"), sys.stdout)
+        sys.stderr = Logger(os.path.join(log_dir, "train_error.log"),
+                            sys.stderr)
+        shutil.copyfile(__file__,
+                        os.path.join(log_dir, os.path.basename(__file__)))
+        if cli.opt:
+            shutil.copyfile(cli.opt,
+                            os.path.join(log_dir, os.path.basename(cli.opt)))
+        snapshot_code(".", os.path.join(log_dir, "code.zip"))
     setup_seed(cfg.seed)
 
-    return run(cfg, eval_cfg, sample_cfg, cli.resume)
+    with quiet_unless_main():
+        return run(cfg, eval_cfg, sample_cfg, cli.resume)
 
 
 def load_pretrained(cfg, params, state):
@@ -98,7 +108,7 @@ def run(cfg, eval_cfg, sample_cfg, resume):
     from ..dataset import get_dataset, get_loader
     from ..dataset.dataset import device_prefetch
     from ..device import platform_device
-    from ..model.papr import _check_single_device, create_model
+    from ..model.papr import create_model
     from ..nn.activations import build_activation
     from ..nn.mlp import policy_from_config
     from ..train.checkpoint import (load_checkpoint, load_histories,
@@ -107,10 +117,13 @@ def run(cfg, eval_cfg, sample_cfg, resume):
                                   resample_shading_codes)
     from ..train.loop import eval_step
     from ..train.losses import build_loss
+    from ..parallel.collectives import barrier, replicate
     from ..train.optim import build_group_specs, current_lrs, init_opt_state
-    from ..train.step import make_train_step
+    from ..train.step import _render_mesh, make_train_step
 
-    _check_single_device(cfg)
+    # The ranks the renders spread over, or None: one process.
+    mesh = _render_mesh(cfg)
+    main = mesh is None or mesh.rank == 0
     dev = platform_device()
     log_dir = os.path.join(cfg.save_dir, cfg.index)
     dataset = get_dataset(cfg.dataset, mode="train", seed=int(cfg.seed))
@@ -128,6 +141,8 @@ def run(cfg, eval_cfg, sample_cfg, resume):
 
     start_step = 0
     codes = None
+    if resume > 0:
+        barrier(mesh)    # rank 0's checkpoint is complete before any reads it
     if resume > 0 and os.path.exists(os.path.join(log_dir, "checkpoint.npz")):
         start_step, tree = load_checkpoint(log_dir)
         params = restore_into(params, tree["params"])
@@ -148,6 +163,7 @@ def run(cfg, eval_cfg, sample_cfg, resume):
                                                      cfg),
         }
     print("!!!!! train_shading_codes:", codes["train_shading_codes"].shape)
+    replicate(mesh, params, opt_state, state)
 
     loss_fn = build_loss(cfg, policy_from_config(cfg), device=dev)
     train_step = make_train_step(cfg, loss_fn=loss_fn)
@@ -202,17 +218,20 @@ def run(cfg, eval_cfg, sample_cfg, resume):
                 eval_code = codes["eval_shading_codes"][int(cfg.eval.img_idx)]
                 eval_step(step, params, state, cfg, dataset, eval_dataset,
                           batch, loss_fn, pred_np, histories, log_dir,
-                          eval_shading_code=eval_code)
-                save_checkpoint(log_dir, step, params, opt_state, state,
-                                extras=codes, histories=histories,
-                                keep_snapshot=(step % 50000 == 0))
+                          eval_shading_code=eval_code, write=main)
+                if main:
+                    save_checkpoint(log_dir, step, params, opt_state, state,
+                                    extras=codes, histories=histories,
+                                    keep_snapshot=(step % 50000 == 0))
                 avg_loss, eval_cnt = 0.0, 0
 
             if step >= tr.steps:
                 break
 
-    save_checkpoint(log_dir, step, params, opt_state, state, extras=codes,
-                    histories=histories)
+    if main:
+        save_checkpoint(log_dir, step, params, opt_state, state,
+                        extras=codes, histories=histories)
+    barrier(mesh)
     print("Training finished!")
     return params, opt_state, state, codes, histories
 

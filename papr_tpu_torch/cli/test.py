@@ -7,7 +7,9 @@ videos, with the flags, log files and output layout (under
 exposure-control modes (``--exp [--random | --intrp]``). Runs on the GPU;
 ``PAPR_PLATFORM=cpu`` asks for the CPU. ``test.load_path`` is a
 ``checkpoint.npz`` (or a directory with one) or the reference's
-``model.pth``.
+``model.pth``. Under ``torchrun`` with a ``tpu.mesh`` of that many devices
+every rank renders its share of each frame's tiles (``train/step.py``) and
+computes the same metrics; rank 0 alone prints and writes.
 
 The LPIPS columns need the converted VGG16 / AlexNet backbones, which the
 repository does not carry: they report nan with a warning, as ``test.py``
@@ -22,6 +24,7 @@ import sys
 import numpy as np
 
 from ..config import Config, load_config, make_test_config
+from ..parallel.mesh import init_ranks, process_rank, quiet_unless_main
 from ..utils.logging import Logger, setup_seed
 
 
@@ -130,6 +133,7 @@ def run_test(cfg, save_name, mode, resume_step, cli=None):
 
     dev = platform_device()
     cli = cli or parse_args([])
+    main = process_rank() == 0
     params, state, resume_step, extras = load_test_model(cfg, resume_step,
                                                          dev)
     dataset = get_dataset(cfg.dataset, mode=mode, seed=int(cfg.seed))
@@ -176,7 +180,7 @@ def run_test(cfg, save_name, mode, resume_step, cli=None):
               f"test_lpips_alex: {stats['lpips_alex'][-1]:.4f}, "
               f"test_lpips_vgg: {stats['lpips_vgg'][-1]:.4f}")
 
-        if cfg.test.save_fig:
+        if cfg.test.save_fig and main:
             dir_name = "images"
             if code is not None:
                 dir_name = (f"exposure_control_{suffix}_scale{cli.scale}"
@@ -199,7 +203,7 @@ def run_test(cfg, save_name, mode, resume_step, cli=None):
             _imwrite(os.path.join(log_dir, f"{tag}-bkgmask.png"),
                      (np.clip(bkg_mask, 0, 1) * 255).astype(np.uint8))
 
-        if cfg.test.save_video and cfg.test.plots.pcrgb:
+        if cfg.test.save_video and cfg.test.plots.pcrgb and main:
             alive = host(state["alive"])
             pts = host(params["points"])[alive]
             influ = host(params["points_influ_scores"])[alive, 0]
@@ -212,7 +216,8 @@ def run_test(cfg, save_name, mode, resume_step, cli=None):
                 cfg.dataset.coord_scale * scale_mult, influ)
             frames.setdefault("pcrgb", []).append(np.asarray(panel.convert("RGB")))
 
-        if cfg.test.save_video and cfg.test.plots.get("featattn", False):
+        if (cfg.test.save_video and cfg.test.plots.get("featattn", False)
+                and main):
             alive = host(state["alive"])
             pts = host(params["points"])[alive]
             influ = host(params["points_influ_scores"])[alive, 0]
@@ -279,23 +284,28 @@ def main(argv=None):
         "Cannot do interpolation and random exposure at the same time."
 
     base_cfg = load_config(cli.opt)
-    log_dir = os.path.join(base_cfg.save_dir, base_cfg.index)
-    os.makedirs(log_dir, exist_ok=True)
-    sys.stdout = Logger(os.path.join(log_dir, "test.log"), sys.stdout)
-    sys.stderr = Logger(os.path.join(log_dir, "test_error.log"), sys.stderr)
-    if cli.opt:
-        shutil.copyfile(cli.opt, os.path.join(log_dir, os.path.basename(cli.opt)))
+    init_ranks()
+    if process_rank() == 0:
+        log_dir = os.path.join(base_cfg.save_dir, base_cfg.index)
+        os.makedirs(log_dir, exist_ok=True)
+        sys.stdout = Logger(os.path.join(log_dir, "test.log"), sys.stdout)
+        sys.stderr = Logger(os.path.join(log_dir, "test_error.log"),
+                            sys.stderr)
+        if cli.opt:
+            shutil.copyfile(cli.opt,
+                            os.path.join(log_dir, os.path.basename(cli.opt)))
     setup_seed(base_cfg.seed)
 
     results = {}
-    for entry in base_cfg.test.datasets:
-        entry = Config(entry)
-        cfg = make_test_config(base_cfg, entry)
-        if cli.exp:
-            assert cfg.models.use_renderer, \
-                "Only renderer-based models support exposure control"
-        results[entry.name] = run_test(cfg, entry.name, entry.mode,
-                                       cli.resume, cli)
+    with quiet_unless_main():
+        for entry in base_cfg.test.datasets:
+            entry = Config(entry)
+            cfg = make_test_config(base_cfg, entry)
+            if cli.exp:
+                assert cfg.models.use_renderer, \
+                    "Only renderer-based models support exposure control"
+            results[entry.name] = run_test(cfg, entry.name, entry.mode,
+                                           cli.resume, cli)
     return results
 
 

@@ -2,7 +2,12 @@
 
 The flags, config files, log files and output layout (under
 <save_dir>/<index>) of the repository's ``train.py``. Runs on the GPU;
-``PAPR_PLATFORM=cpu`` asks for the CPU (e.g. for CI).
+``PAPR_PLATFORM=cpu`` asks for the CPU (e.g. for CI). A config whose
+``tpu.mesh`` names N > 1 devices runs as N ranks (``parallel/mesh.py``):
+
+    torchrun --standalone --nproc_per_node=N -m papr_tpu_torch.cli.train --opt <yml>
+
+Rank 0 alone writes the logs, plots and checkpoints.
 """
 
 import argparse
@@ -11,6 +16,7 @@ import shutil
 import sys
 
 from ..config import load_config, make_eval_config
+from ..parallel.mesh import init_ranks, process_rank
 from ..train.loop import train_and_eval
 from ..utils.logging import Logger, setup_seed, snapshot_code
 
@@ -27,15 +33,19 @@ def main(argv=None):
     cfg = load_config(args.opt)
     eval_cfg = make_eval_config(cfg)
 
-    log_dir = os.path.join(cfg.save_dir, cfg.index)
-    os.makedirs(log_dir, exist_ok=True)
-    sys.stdout = Logger(os.path.join(log_dir, "train.log"), sys.stdout)
-    sys.stderr = Logger(os.path.join(log_dir, "train_error.log"), sys.stderr)
-
-    shutil.copyfile(__file__, os.path.join(log_dir, os.path.basename(__file__)))
-    if args.opt:
-        shutil.copyfile(args.opt, os.path.join(log_dir, os.path.basename(args.opt)))
-    snapshot_code(".", os.path.join(log_dir, "code.zip"))
+    init_ranks()
+    if process_rank() == 0:
+        log_dir = os.path.join(cfg.save_dir, cfg.index)
+        os.makedirs(log_dir, exist_ok=True)
+        sys.stdout = Logger(os.path.join(log_dir, "train.log"), sys.stdout)
+        sys.stderr = Logger(os.path.join(log_dir, "train_error.log"),
+                            sys.stderr)
+        shutil.copyfile(__file__,
+                        os.path.join(log_dir, os.path.basename(__file__)))
+        if args.opt:
+            shutil.copyfile(args.opt,
+                            os.path.join(log_dir, os.path.basename(args.opt)))
+        snapshot_code(".", os.path.join(log_dir, "code.zip"))
 
     setup_seed(cfg.seed)
     return train_and_eval(cfg, eval_cfg, resume=args.resume)

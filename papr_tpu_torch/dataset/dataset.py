@@ -202,11 +202,14 @@ class Loader:
             return
         q: queue.Queue = queue.Queue(maxsize=self._prefetch)
         SENTINEL = object()
+        failed = []
 
         def worker():
             try:
                 for b in self._epoch_batches():
                     q.put(b)
+            except Exception as e:     # re-raised in the consumer below
+                failed.append(e)
             finally:
                 q.put(SENTINEL)
 
@@ -217,9 +220,14 @@ class Loader:
             if item is SENTINEL:
                 break
             yield item
+        # A batch that cannot be built (a patch as large as its image) ends
+        # the run here; swallowed, it would end every epoch empty and a
+        # training loop would spin on them forever.
+        if failed:
+            raise failed[0]
 
 
-def device_prefetch(loader, depth: int = 2, device=None):
+def device_prefetch(loader, depth: int = 2, device=None, plan=None):
     """Wrap a Batch iterator so host-to-device copies overlap compute.
 
     Each batch's arrays become pinned host tensors copied to ``device``
@@ -227,19 +235,31 @@ def device_prefetch(loader, depth: int = 2, device=None):
     flight. A batch's pinned tensors stay referenced until the consumer asks
     for the next batch, i.e. until the step that consumes it has been
     enqueued. On the CPU the tensors are handed over as they are.
+
+    With a ``ShardingPlan`` every rank iterates the same seeded loader and
+    keeps its block: ``rayd`` the data shard's images at its patch rows
+    (``plan.ray_block``), ``image`` (the target: the loss covers the whole
+    patch), ``rayo``, ``c2w`` and the indices its data shard's images
+    (``plan.batch_block``).
     """
     import collections
 
     dev = resolve_device(device)
     pin = dev.type == "cuda"
+    keep = lambda name, x: x
+    if plan is not None:
+        keep = lambda name, x: (plan.ray_block(x) if name == "rayd"
+                                else plan.batch_block(x))
 
     def to_device(b: Batch):
         host = {}
         for name in ("image", "rayd", "rayo", "c2w"):
-            t = torch.from_numpy(np.ascontiguousarray(getattr(b, name)))
+            t = torch.from_numpy(np.ascontiguousarray(keep(name,
+                                                           getattr(b, name))))
             host[name] = t.pin_memory() if pin else t
         moved = {n: t.to(dev, non_blocking=True) for n, t in host.items()}
-        return Batch(img_idx=b.img_idx, patch_idx=b.patch_idx, **moved), host
+        return Batch(img_idx=keep("img_idx", b.img_idx),
+                     patch_idx=keep("patch_idx", b.patch_idx), **moved), host
 
     pending = collections.deque()
     it = iter(loader)

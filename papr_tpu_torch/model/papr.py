@@ -56,8 +56,14 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
 * Embedder dropout (``dropout_ff > 0``): a training call given a dropout
   generator (``train/step.py`` derives one from the seed and the step) takes
   the plain path with dropout, as the JAX package's ``fusible`` does; eval
-  and render calls keep the kernels (dropout is off there). A ``tpu.mesh``
-  of more than one device raises (single-card slice, Queue 1 item 4).
+  and render calls keep the kernels (dropout is off there).
+* ``tpu.mesh`` (data, rays): ``forward(..., mesh=)`` runs ``_attend`` on
+  this rank's block of the batch (images over ``data``, patch rows over
+  ``rays``) with the kernels live, and gathers the fused features and
+  attention back to the data group's whole patch for the UNet
+  (``_attend_spmd``, ``parallel/``); a single ``evaluate`` or ``forward``
+  call without ``mesh`` is local. The tiled renders shard their tiles over
+  the ranks (``train/step.py``); ``tpu.force_local`` keeps them on one.
 * ``int8_eval: true`` -> at eval, under ``streamrec`` with ``eval_fused``
   and no folded query, the one-shot eval attention runs both walks' dense
   stacks in int8 (``attend_eval_i8``), calibrated once per frame by
@@ -75,8 +81,8 @@ Device-aware reading of the ``tpu.*`` keys (the port adds no config group):
 * Under ``true`` | ``embed`` | ``score`` | ``false`` neither int8 knob does
   or says anything, as in the JAX package.
 * The TPU tuning knobs (``fused_tile``, ``vmem_mb``, ``mxu_reduce``,
-  ``force_local``, ``remat_embed``, ``donate_state``) select no computation
-  and have no meaning on the card.
+  ``remat_embed``, ``donate_state``) select no computation and have no
+  meaning on the card.
 """
 
 from __future__ import annotations
@@ -279,15 +285,6 @@ def _point_record(params, alive, meta, pcf) -> torch.Tensor:
     return record.contiguous()
 
 
-def _check_single_device(cfg) -> None:
-    data = int(cfg.get_path("tpu.mesh.data", 1))
-    rays = int(cfg.get_path("tpu.mesh.rays", 1))
-    if data * rays > 1:
-        raise NotImplementedError(
-            f"tpu.mesh {data}x{rays}: the multi-device render is ROADMAP.md "
-            "Queue 1 item 4; this port renders on one card")
-
-
 def resolve_topk_impl(cfg, P: int) -> str:
     """``tpu.topk_impl`` -> 'cull', 'pallas' or 'xla' (see module
     docstring)."""
@@ -398,7 +395,6 @@ def _attend(params: dict, state: dict, cfg, rays_o, rays_d, policy: Policy,
     ``torch.Generator`` for embedder dropout (training), which takes the
     plain path."""
     meta = model_meta(cfg)
-    _check_single_device(cfg)
     N, H, W, _ = rays_d.shape
     points, alive = params["points"], state["alive"]
     if rays_d.device != points.device or rays_o.device != points.device:
@@ -858,19 +854,51 @@ def mapping_apply(params: dict, cfg, shading_code: torch.Tensor,
     return affine[..., :half], affine[..., half:]
 
 
+def _attend_spmd(params: dict, state: dict, cfg, rays_o, rays_d,
+                 policy: Policy, mesh, dropout_rng=None):
+    """``_attend`` on this rank's block of a (data, rays) mesh
+    (``papr_tpu/model/papr.py _attend_spmd``): rays_o (n, 3) and rays_d
+    (n, h, W, 3) are the block (the data shard's images, the rays index's
+    patch rows), run through the training path with the kernels live; the
+    fused features and attention are gathered along the rows to the data
+    group's whole patch, (n, h * rays, W, ...), differentiably (the
+    backward sums the cotangents over the rays group); the selection
+    indices stay the block's. Embedder dropout draws the whole batch's masks
+    and keeps the block's, so they equal one device's."""
+    from ..nn.mlp import BlockGenerator
+    from ..parallel.collectives import gather_rows
+
+    n, h = rays_d.shape[:2]
+    d, q = mesh.coords
+    if dropout_rng is not None:
+        dropout_rng = BlockGenerator(dropout_rng, n * mesh.data,
+                                     h * mesh.rays, d * n, q * h)
+    fused, attn, idx = _attend(params, state, cfg, rays_o, rays_d, policy,
+                               exact_select=False, dropout_rng=dropout_rng)
+    both = gather_rows(torch.cat([fused, attn], dim=-1), mesh)
+    return both[..., :fused.shape[-1]], both[..., fused.shape[-1]:], idx
+
+
 def forward(params: dict, state: dict, cfg, rays_o, rays_d, c2w=None,
             shading_code=None, policy: Policy = F32,
-            dropout_rng=None) -> torch.Tensor:
+            dropout_rng=None, mesh=None) -> torch.Tensor:
     """Full training forward -> RGB (N, H, W, 3) fp32, differentiable in
     the parameters (reference models/model.py:494-560). ``dropout_rng``: a
     ``torch.Generator`` that turns embedder dropout on (``dropout_ff > 0``;
-    the plain path)."""
+    the plain path). With a (data, rays) ``mesh`` of more than one device,
+    rays_o / rays_d are this rank's block and the attention runs on it
+    (``_attend_spmd``); the UNet and the result cover the data group's whole
+    patch, (n, h * rays, W, 3)."""
     meta = model_meta(cfg)
     gamma = beta = None
     if shading_code is not None and meta.use_mapping_mlp:
         gamma, beta = mapping_apply(params, cfg, shading_code, policy)
-    fused, attn, _ = _attend(params, state, cfg, rays_o, rays_d, policy,
-                             exact_select=False, dropout_rng=dropout_rng)
+    if mesh is not None and mesh.size > 1:
+        fused, attn, _ = _attend_spmd(params, state, cfg, rays_o, rays_d,
+                                      policy, mesh, dropout_rng)
+    else:
+        fused, attn, _ = _attend(params, state, cfg, rays_o, rays_d, policy,
+                                 exact_select=False, dropout_rng=dropout_rng)
     bkg_attn = attn[..., -1:]
     if meta.use_renderer:
         foreground = render_foreground(params, cfg, fused, gamma, beta, policy)

@@ -156,10 +156,28 @@ def feedforward_init(gen: torch.Generator, d_input: int, d_output: int,
     return p
 
 
-def dropout_keep(gen: torch.Generator, keep: float, shape,
-                 device) -> torch.Tensor:
-    """Bernoulli(keep) mask of ``shape`` drawn from ``gen`` (on ``device``):
-    the one place the FeedForward's dropout draws its randomness."""
+@dataclass(frozen=True)
+class BlockGenerator:
+    """A dropout generator for one rank's block of a batch: the masks are
+    drawn for the whole (batch, rows, ...) token array, as one device draws
+    them, and the block at (``batch_start``, ``row_start``) is kept."""
+    generator: torch.Generator
+    batch: int
+    rows: int
+    batch_start: int
+    row_start: int
+
+
+def dropout_keep(gen, keep: float, shape, device) -> torch.Tensor:
+    """Bernoulli(keep) mask of ``shape`` drawn from ``gen`` (a
+    ``torch.Generator`` or a ``BlockGenerator``; on ``device``): the one
+    place the FeedForward's dropout draws its randomness."""
+    if isinstance(gen, BlockGenerator):
+        n, h = shape[0], shape[1]
+        full = torch.rand((gen.batch, gen.rows) + tuple(shape[2:]),
+                          generator=gen.generator, device=device)
+        return full[gen.batch_start:gen.batch_start + n,
+                    gen.row_start:gen.row_start + h] < keep
     return torch.rand(shape, generator=gen, device=device) < keep
 
 

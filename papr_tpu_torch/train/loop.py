@@ -13,8 +13,11 @@ cadence, checkpointing, plots), as the JAX package re-orchestrated it:
     drops them).
 
 Runs on the card unless ``PAPR_PLATFORM=cpu`` asks for the CPU
-(``papr_tpu_torch/device.py``); a ``tpu.mesh`` of more than one device
-raises (ROADMAP.md Queue 1 item 4).
+(``papr_tpu_torch/device.py``). A ``tpu.mesh`` of more than one device runs
+one rank per device, launched by ``torchrun`` (``parallel/mesh.py``): batch
+images over ``data``, patch rows over ``rays``, parameters replicated and
+re-broadcast from rank 0 after every host event; rank 0 alone prints and
+writes. In one process such a mesh raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -29,9 +32,11 @@ import torch
 from ..dataset import get_dataset, get_loader
 from ..dataset.dataset import device_prefetch
 from ..device import platform_device
-from ..model.papr import _check_single_device, create_model
+from ..model.papr import create_model
 from ..nn.activations import build_activation
 from ..nn.mlp import policy_from_config
+from ..parallel import mesh as pmesh
+from ..parallel.collectives import barrier, replicate
 from ..utils import plots
 from .checkpoint import (import_torch, is_native, load_checkpoint,
                          load_histories, restore_into, save_checkpoint)
@@ -106,12 +111,15 @@ def _durable_dump(step, cfg, histories, state, eval_loss, eval_psnr, rgb):
 
 
 def eval_step(step, params, state, cfg, dataset, eval_dataset, batch,
-              loss_fn, train_pred, histories, log_dir, eval_shading_code=None):
+              loss_fn, train_pred, histories, log_dir, eval_shading_code=None,
+              write: bool = True):
     """Render the eval view, log metrics, save plots + checkpoint.
 
     Reference: train.py:29-152. ``eval_shading_code`` drives the FiLM path
     during exposure finetuning (the reference's eval renders unmodulated,
     which crashes for affine_layer >= 0 — here the eval image's code is used).
+    Every rank of a mesh renders its tiles and computes the same metrics;
+    only the one with ``write`` writes files.
     """
     gamma = beta = None
     if eval_shading_code is not None:
@@ -134,6 +142,8 @@ def eval_step(step, params, state, cfg, dataset, eval_dataset, batch,
     print(f"Eval step: {step} train_loss: {histories['train_losses'][-1]:.6f} "
           f"eval_loss: {eval_loss:.6f} eval_psnr: {eval_psnr:.4f}")
 
+    if not write:
+        return
     _durable_dump(step, cfg, histories, state, eval_loss, eval_psnr, rgb)
 
     if cfg.eval.save_fig and plots.available():
@@ -168,15 +178,49 @@ def eval_step(step, params, state, cfg, dataset, eval_dataset, batch,
                               f"{cfg.index}_iter_{step}.png"))
 
 
+def _mesh_plan(cfg):
+    """The (data, rays) ``ShardingPlan`` of ``tpu.mesh``, or None
+    (``papr_tpu/train/loop.py _mesh_plan``): batch images over 'data',
+    patch rows over 'rays', one rank per device. Raises ``ValueError`` when
+    the batch or the patch does not split, or when the ranks running are
+    not the mesh's (``parallel/mesh.py make_mesh``)."""
+    data = int(cfg.get_path("tpu.mesh.data", 1))
+    rays = int(cfg.get_path("tpu.mesh.rays", 1))
+    pmesh.init_ranks()
+    if data * rays <= 1 and pmesh.process_count() <= 1:
+        return None
+    bs = int(cfg.dataset.batch_size)
+    ph = int(cfg.dataset.patches.height)
+    if bs % data != 0:
+        raise ValueError(f"dataset.batch_size={bs} must be divisible by "
+                         f"tpu.mesh.data={data}")
+    if ph % rays != 0:
+        raise ValueError(f"dataset.patches.height={ph} must be divisible by "
+                         f"tpu.mesh.rays={rays}")
+    plan = pmesh.make_plan(pmesh.mesh_from_config(cfg))
+    if plan.mesh.rank == 0:
+        print(f"Multi-chip: mesh=(data={data}, rays={rays}) over "
+              f"{data * rays} devices")
+    return plan
+
+
 def train_and_eval(cfg, eval_cfg, resume: int = 0):
     """Train ``cfg`` with the eval / checkpoint cadence of the reference
-    loop -> (params, opt_state, state, histories)."""
-    _check_single_device(cfg)
+    loop -> (params, opt_state, state, histories). Under a mesh every rank
+    returns the same replicated result."""
+    plan = _mesh_plan(cfg)
+    with pmesh.quiet_unless_main():
+        return _train_and_eval(cfg, eval_cfg, resume, plan)
+
+
+def _train_and_eval(cfg, eval_cfg, resume: int, plan):
     dev = platform_device()
+    mesh = plan.mesh if plan is not None else None
+    main = mesh is None or mesh.rank == 0
     log_dir = os.path.join(cfg.save_dir, cfg.index)
-    os.makedirs(log_dir, exist_ok=True)
     test_dir = os.path.join(log_dir, "test")
-    os.makedirs(test_dir, exist_ok=True)
+    if main:
+        os.makedirs(test_dir, exist_ok=True)
 
     dataset = get_dataset(cfg.dataset, mode="train", seed=int(cfg.seed))
     eval_dataset = get_dataset(eval_cfg.dataset, mode="test")
@@ -189,6 +233,8 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
     histories = {"steps": [], "train_losses": [], "eval_losses": [],
                  "eval_psnrs": [], "pt_lrs": [], "attn_lrs": []}
     start_step = 0
+    if resume > 0:
+        barrier(mesh)    # rank 0's checkpoint is complete before any reads it
     if resume > 0 and os.path.exists(os.path.join(log_dir, "checkpoint.npz")):
         start_step, tree = load_checkpoint(log_dir)
         params = restore_into(params, tree["params"])
@@ -207,9 +253,10 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
         else:   # the reference's model.pth (a file, or a directory with one)
             s, params, state, _ = import_torch(load_path, params, state, cfg)
         print(f"!!!!! Loaded model from {cfg.load_path} at step {s}")
+    replicate(mesh, params, opt_state, state)
 
     loss_fn = build_loss(cfg, policy_from_config(cfg), device=dev)
-    train_step = make_train_step(cfg, loss_fn=loss_fn)
+    train_step = make_train_step(cfg, loss_fn=loss_fn, sharding=plan)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     last_act = build_activation(cfg.models.last_act)
     np_rng = np.random.default_rng(int(cfg.seed) + 1)
@@ -227,12 +274,14 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
     # torch.profiler chrome trace into <log_dir>/profile (the reference has
     # only wall-clock prints, train.py:257-260).
     profile_start = int(cfg.get_path("tpu.profile_start", -1))
+    if not main:
+        profile_start = -1
     profile_len = int(cfg.get_path("tpu.profile_steps", 10))
     profiler = None
 
     print("Start step:", start_step, "Total steps:", tr.steps)
     while step < tr.steps:
-        for batch in device_prefetch(trainloader, device=dev):
+        for batch in device_prefetch(trainloader, device=dev, plan=plan):
             if profile_start >= 0 and step == profile_start:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if dev.type == "cuda":
@@ -280,6 +329,7 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
                 # = the reference's clear_optimizer + init_optimizers(step):
                 # moments reset; schedules continue from the global step.
                 opt_state = init_opt_state(params, specs)
+                replicate(mesh, params, opt_state, state)
 
             # ---- the device step ----
             params, opt_state, loss, pred = train_step(
@@ -289,7 +339,8 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
             # wait for the card every step. The 200-step print and the eval
             # boundary synchronize instead.
             avg_train_loss = avg_train_loss + loss
-            rays_in_window += batch.rayd[..., 0].numel()
+            rays_in_window += batch.rayd[..., 0].numel() * (
+                mesh.size if mesh is not None else 1)
             step += 1
             eval_step_cnt += 1
 
@@ -314,15 +365,17 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
                 histories["steps"].append(step)
                 pred_np = _host(last_act(pred))
                 eval_step(step, params, state, cfg, dataset, eval_dataset,
-                          batch, loss_fn, pred_np, histories, log_dir)
-                save_checkpoint(log_dir, step, params, opt_state, state,
-                                histories=histories,
-                                keep_snapshot=(step % 50000 == 0))
+                          batch, loss_fn, pred_np, histories, log_dir,
+                          write=main)
+                if main:
+                    save_checkpoint(log_dir, step, params, opt_state, state,
+                                    histories=histories,
+                                    keep_snapshot=(step % 50000 == 0))
                 avg_train_loss, eval_step_cnt = 0.0, 0
                 start_time = time.time()
                 rays_in_window = 0
 
-            if ((step - 1) % 200 == 0) and cfg.eval.save_fig \
+            if ((step - 1) % 200 == 0) and main and cfg.eval.save_fig \
                     and plots.available():
                 pt_plot_scale = 0.8 * cfg.dataset.coord_scale
                 if "Barn" in cfg.dataset.path:
@@ -342,7 +395,7 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
             if step >= tr.steps:
                 break
 
-    if cfg.eval.save_fig and pc_frames:
+    if cfg.eval.save_fig and pc_frames and main:
         from ..utils.video import write_video
         out = write_video(os.path.join(test_dir, f"{cfg.index}-pc.mp4"),
                           pc_frames, fps=30)
@@ -350,7 +403,9 @@ def train_and_eval(cfg, eval_cfg, resume: int = 0):
 
     if profiler is not None:
         profiler.stop()
-    save_checkpoint(log_dir, step, params, opt_state, state,
-                    histories=histories)
+    if main:
+        save_checkpoint(log_dir, step, params, opt_state, state,
+                        histories=histories)
+    barrier(mesh)
     print("Training finished!")
     return params, opt_state, state, histories

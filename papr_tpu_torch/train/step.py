@@ -5,7 +5,10 @@
   trained parameter through autograd (the kernels' backwards on the card),
   and the per-group Adam update in place; eager, no ``torch.compile``.
   Embedder dropout draws from a generator derived from (seed, step), so a
-  resumed run replays the same masks.
+  resumed run replays the same masks. With a (data, rays) ``sharding``
+  plan each rank takes its block of the batch (``parallel/``): the
+  attention on its rays, the UNet and the loss on its data group's patch,
+  and the gradients summed over the ranks (``reduce_gradients``).
 
 * ``render_full_image``: host rays in (dataset-driven eval), edge-padded
   fixed-shape ray tiles, the attention pass per tile, untiling, one
@@ -18,8 +21,10 @@
 
 Tiles are edge-padded, never zero-padded: a zero ray direction in the
 overhang would poison the culled selection's cone bounds for every valid ray
-sharing a pixel block with it. Multi-device (sharded) rendering is not
-ported: a ``tpu.mesh`` of more than one device raises.
+sharing a pixel block with it. When ``tpu.mesh`` names more than one device
+and that many ranks run, the renders spread the tile list over the ranks
+(``_sharded_tile_attend``) and every rank decodes the gathered feature map;
+the frames are bit-equal to one rank's.
 """
 
 from __future__ import annotations
@@ -50,23 +55,36 @@ def dropout_generator(cfg, step: int, device):
 
 
 def loss_and_grads(params, state, cfg, rayo, rayd, target, c2w, loss_fn,
-                   specs, policy, shading_code=None, dropout_rng=None):
+                   specs, policy, shading_code=None, dropout_rng=None,
+                   mesh=None):
     """Forward + last activation + loss, and the loss's gradient for every
     trained group (``specs``) -> (loss, pred, grads {key: tree}).
-    ``dropout_rng``: the step's ``dropout_generator``."""
+    ``dropout_rng``: the step's ``dropout_generator``. With a ``mesh``,
+    rayd is this rank's (n, h, W, 3) block and target its data group's
+    (n, H, W, 3) patch; the loss is the mean over data groups of each
+    group's loss, the gradients are the global loss's on every rank, and
+    pred is the whole batch's."""
+    from ..parallel.collectives import (gather_batch, mean_over_data,
+                                        reduce_gradients)
     last_act = build_activation(cfg.models.last_act)
     live = {key: tree_map(lambda t: t.detach().requires_grad_(True), p)
             if key in specs else p for key, p in params.items()}
     with torch.enable_grad():
         pred = last_act(forward(live, state, cfg, rayo, rayd, c2w,
                                 shading_code=shading_code, policy=policy,
-                                dropout_rng=dropout_rng))
+                                dropout_rng=dropout_rng, mesh=mesh))
         loss = loss_fn(pred, target)
         keys = [k for k in live if k in specs]
         flat = [x for k in keys for x in tree_leaves(live[k])]
-        gflat = torch.autograd.grad(loss, flat, allow_unused=True)
+        # Each of a data group's ``rays`` ranks holds the same loss.
+        scale = mesh.rays if mesh is not None else 1
+        gflat = torch.autograd.grad(loss / scale, flat, allow_unused=True)
     gflat = [torch.zeros_like(x) if g is None else g
              for g, x in zip(gflat, flat)]
+    if mesh is not None:
+        reduce_gradients(gflat, mesh)
+        loss = mean_over_data(loss, mesh)
+        pred = gather_batch(pred.detach(), mesh)
     grads, i = {}, 0
     for k in keys:
         n = len(tree_leaves(live[k]))
@@ -76,7 +94,7 @@ def loss_and_grads(params, state, cfg, rayo, rayd, target, c2w, loss_fn,
     return loss.detach(), pred.detach(), grads
 
 
-def make_train_step(cfg, loss_fn=None):
+def make_train_step(cfg, loss_fn=None, sharding=None):
     """-> step(params, opt_state, state, rayo, rayd, target, c2w, step,
     shading_code=None) -> (params, opt_state, loss, pred).
 
@@ -84,8 +102,13 @@ def make_train_step(cfg, loss_fn=None):
     device; ``step`` is the global step the schedules read. The update is in
     place (the returned params / opt_state are the ones passed in). With no
     ``loss_fn`` the config's loss is built with the LPIPS fallback
-    (``train/losses.py``)."""
+    (``train/losses.py``). With a ``ShardingPlan`` (``parallel/mesh.py``)
+    the arrays are this rank's blocks (``device_prefetch(plan=)``: rayd
+    ``plan.ray_block``, the rest ``plan.batch_block``); every rank returns
+    the global loss and the whole batch's pred and applies the same
+    update."""
     from .losses import build_loss
+    mesh = sharding.mesh if sharding is not None else None
     policy = policy_from_config(cfg)
     specs = build_group_specs(cfg)
     loss_cache = {}
@@ -101,7 +124,7 @@ def make_train_step(cfg, loss_fn=None):
         loss, pred, grads = loss_and_grads(
             params, state, cfg, rayo, rayd, target, c2w, fn, specs, policy,
             shading_code,
-            dropout_generator(cfg, step, params["points"].device))
+            dropout_generator(cfg, step, params["points"].device), mesh)
         params, opt_state = apply_updates(params, grads, opt_state, specs,
                                           int(step))
         return params, opt_state, loss, pred
@@ -121,12 +144,77 @@ def _untile(x: torch.Tensor, N: int, ty: int, tx: int) -> torch.Tensor:
     return x.reshape(N, ty * th, tx * tw, *x.shape[5:])
 
 
+def _render_mesh(cfg):
+    """The mesh for sharded tile rendering, or None (papr_tpu/train/step.py
+    ``_render_mesh``): when ``tpu.mesh`` names more than one device and as
+    many ranks run, full-image renders spread the flattened tile list over
+    every rank (the reference's tiled eval is embarrassingly parallel over
+    tiles), each keeping its kernels. ``tpu.force_local``, or fewer ranks
+    than the mesh names, renders on one rank."""
+    from ..parallel import mesh as pmesh
+    data = int(cfg.get_path("tpu.mesh.data", 1))
+    rays = int(cfg.get_path("tpu.mesh.rays", 1))
+    if data * rays <= 1 or bool(cfg.get_path("tpu.force_local", False)):
+        return None
+    if pmesh.process_count() < data * rays:
+        return None
+    return pmesh.make_mesh(data, rays)
+
+
+def wrap_index(G: int, D: int) -> np.ndarray:
+    """The global tile list padded to a multiple of ``D`` ranks by wrapping
+    (``arange(Gp) % G``): rank r renders entries [r * Gp / D, (r + 1) * Gp /
+    D). Wrapped tiles are real rays, so no NaN hazard; their results are
+    cropped."""
+    return np.arange(-(-G // D) * D) % G
+
+
+def _sharded_tile_attend(params, state, cfg, policy, rayo, flat, mesh,
+                         extras: bool, quant_params=None):
+    """Tile-sharded attention pass (papr_tpu/train/step.py
+    ``_sharded_tile_attend``): this rank evaluates its share of the wrapped
+    tile list with the kernels live; the results are gathered over the
+    world in rank order and cropped -> (f, a, s) shaped like the one-rank
+    pass (s None without ``extras``). ``quant_params`` (the frame's int8
+    calibration) is computed alike on every rank, so every tile is
+    quantized as on one rank."""
+    from ..parallel.collectives import gather_world
+
+    N, T = flat.shape[:2]
+    G = N * T
+    gidx = wrap_index(G, mesh.size)
+    per = len(gidx) // mesh.size
+    mine = gidx[mesh.rank * per:(mesh.rank + 1) * per]
+    outs = []
+    for g in mine:
+        n, t = divmod(int(g), T)
+        out = evaluate(params, state, cfg, rayo[n:n + 1], flat[n, t][None],
+                       policy=policy, with_selected=extras,
+                       quant_params=quant_params)
+        parts = [out[0][0], out[1][0]]
+        if extras:
+            parts.append(out[2][0].flatten(-2))
+        outs.append(torch.cat([x.reshape(*x.shape[:2], -1) for x in parts],
+                              dim=-1))
+    allt = gather_world(torch.stack(outs), mesh)[:G]   # (G, th, tw, width)
+    th, tw = allt.shape[1:3]
+    C, K1 = out[0].shape[-1], out[1].shape[-2]
+    f = allt[..., :C].reshape(N, T, th, tw, 1, C)
+    a = allt[..., C:C + K1].reshape(N, T, th, tw, K1, 1)
+    s = (allt[..., C + K1:].reshape(N, T, th, tw, K1 - 1, 3)
+         if extras else None)
+    return f, a, s
+
+
 def _tiled_render_body(params, state, cfg, policy, rayo, rayd_tiles,
                        gamma, beta, extras: bool, run_unet: bool,
-                       rgb8: bool):
+                       rgb8: bool, mesh=None):
     """Attention pass over every tile + full-image UNet + composite.
 
-    rayo (N, 3), rayd_tiles (N, ty, tx, th, tw, 3) on the model's device."""
+    rayo (N, 3), rayd_tiles (N, ty, tx, th, tw, 3) on the model's device.
+    With a ``mesh`` of more than one device the tiles are spread over the
+    ranks (``_sharded_tile_attend``) and every rank decodes the gathered
+    feature map."""
     meta = model_meta(cfg)
     N, ty, tx, th, tw, _ = rayd_tiles.shape
     flat = rayd_tiles.reshape(N, ty * tx, th, tw, 3)
@@ -140,20 +228,26 @@ def _tiled_render_body(params, state, cfg, policy, rayo, rayd_tiles,
         qp = eval_quant_params(params, state, cfg, rayo[0],
                                all_rays[::max(1, all_rays.shape[0] // 1024)],
                                policy=policy)
-    fs, ats, sels = [], [], []
-    for n in range(N):
-        for t in range(ty * tx):
-            out = evaluate(params, state, cfg, rayo[n:n + 1], flat[n, t][None],
-                           policy=policy, with_selected=extras,
-                           quant_params=qp)
-            fs.append(out[0][0])
-            ats.append(out[1][0])
-            if extras:
-                sels.append(out[2][0])
-    stack = lambda xs: torch.stack(xs).reshape(N, ty * tx, *xs[0].shape)
-    fused = _untile(stack(fs), N, ty, tx)          # (N, Hp, Wp, 1, C)
-    attn = _untile(stack(ats), N, ty, tx)          # (N, Hp, Wp, k+1, 1)
-    selected = _untile(stack(sels), N, ty, tx) if extras else None
+    if mesh is not None and mesh.size > 1:
+        f, a, s = _sharded_tile_attend(params, state, cfg, policy, rayo, flat,
+                                       mesh, extras, qp)
+    else:
+        fs, ats, sels = [], [], []
+        for n in range(N):
+            for t in range(ty * tx):
+                out = evaluate(params, state, cfg, rayo[n:n + 1],
+                               flat[n, t][None], policy=policy,
+                               with_selected=extras, quant_params=qp)
+                fs.append(out[0][0])
+                ats.append(out[1][0])
+                if extras:
+                    sels.append(out[2][0])
+        stack = lambda xs: torch.stack(xs).reshape(N, ty * tx, *xs[0].shape)
+        f, a = stack(fs), stack(ats)
+        s = stack(sels) if extras else None
+    fused = _untile(f, N, ty, tx)                  # (N, Hp, Wp, 1, C)
+    attn = _untile(a, N, ty, tx)                   # (N, Hp, Wp, k+1, 1)
+    selected = _untile(s, N, ty, tx) if extras else None
     if not run_unet:
         return fused, attn, selected
     if meta.use_renderer:
@@ -189,7 +283,8 @@ def render_frame_async(params, state, cfg, c2w, focal_x: float,
     ty, tx = Hp // tile_h, Wp // tile_w
     tiles = rayd.reshape(ty, tile_h, tx, tile_w, 3).permute(0, 2, 1, 3, 4)
     rgb = _tiled_render_body(params, state, cfg, policy, rayo, tiles[None],
-                             None, None, False, True, True)[0]
+                             None, None, False, True, True,
+                             mesh=_render_mesh(cfg))[0]
     return rgb[0, :H, :W]
 
 
@@ -241,10 +336,12 @@ def render_full_image(params, state, cfg, rayo, rayd, tile_h: int,
     rayo_t = torch.as_tensor(np.asarray(rayo, np.float32), device=dev)
     tiles_t = torch.as_tensor(np.ascontiguousarray(tiles), device=dev)
     crop = lambda x: x[:, :H, :W].cpu().numpy()
+    mesh = _render_mesh(cfg)
 
     if attention_only:
         f, a, s = _tiled_render_body(params, state, cfg, policy, rayo_t,
-                                     tiles_t, None, None, True, False, False)
+                                     tiles_t, None, None, True, False, False,
+                                     mesh=mesh)
         out = {"fused": crop(f), "attn": crop(a), "selected": crop(s)}
         if with_depth:
             out["depth"] = attention_depth(np.asarray(rayo), out["selected"],
@@ -252,7 +349,7 @@ def render_full_image(params, state, cfg, rayo, rayd, tile_h: int,
         return out
     res = _tiled_render_body(params, state, cfg, policy, rayo_t, tiles_t,
                              gamma, beta, extras, True,
-                             rgb_uint8 and not extras)
+                             rgb_uint8 and not extras, mesh=mesh)
     if rgb_only and not extras:
         return {"rgb": crop(res[0])}
     out = {"rgb": crop(res[0]), "foreground": crop(res[1]),

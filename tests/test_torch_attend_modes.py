@@ -149,17 +149,19 @@ def test_evaluate_matches_jax(scene, tpu, plains):
 
 
 def test_knobs_that_still_raise_name_their_roadmap_items(scene):
-    """The mesh still raises with its roadmap item. The two int8 knobs, which
-    used to, run: ``evaluate`` under ``int8_eval`` and ``forward`` under
+    """No knob raises any more. The mesh, which used to, leaves a single
+    ``evaluate`` call local: bit-equal to the call without it. The two int8
+    knobs run: ``evaluate`` under ``int8_eval`` and ``forward`` under
     ``int8_train`` agree with the JAX package's int8 kernels (exact integer
     products on both sides: fused <= 2e-3 of its scale, attention and rgb
     atol 1e-3) and differ from the fp32 path."""
     params, state, tp, ts, rayo, rayd, _ = scene
     args = (torch.as_tensor(rayo), torch.as_tensor(rayd))
     jargs = (jnp.asarray(rayo), jnp.asarray(rayd))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tpapr.evaluate(tp, ts, load_config(overrides=_over(
-            mesh={"data": 2, "rays": 1})), *args)
+    on_mesh = tpapr.evaluate(tp, ts, load_config(overrides=_over(
+        mesh={"data": 2, "rays": 1})), *args)
+    alone = tpapr.evaluate(tp, ts, load_config(overrides=_over()), *args)
+    assert all(torch.equal(a, b) for a, b in zip(on_mesh, alone))
     over = _over(int8_eval=True)
     calls = sa.attend_eval_plain.calls
     tf, ta = tpapr.evaluate(tp, ts, load_config(overrides=over), *args)

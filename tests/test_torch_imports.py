@@ -30,7 +30,9 @@ MODULES = ["papr_tpu_torch", "papr_tpu_torch.config", "papr_tpu_torch.convert",
            "papr_tpu_torch.train.optim", "papr_tpu_torch.train.points_host",
            "papr_tpu_torch.model.lpips", "papr_tpu_torch.cli.train",
            "papr_tpu_torch.cli.test", "papr_tpu_torch.model.torch_convert",
-           "papr_tpu_torch.train.exposure", "papr_tpu_torch.cli.exposure"]
+           "papr_tpu_torch.train.exposure", "papr_tpu_torch.cli.exposure",
+           "papr_tpu_torch.parallel", "papr_tpu_torch.parallel.mesh",
+           "papr_tpu_torch.parallel.collectives"]
 # Imported only inside the functions that need them.
 LAZY = ("matplotlib", "PIL", "imageio", "triton")
 

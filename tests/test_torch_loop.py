@@ -12,6 +12,7 @@ same number of points pruned and added."""
 
 import os
 import re
+import threading
 
 import numpy as np
 import pytest
@@ -146,8 +147,35 @@ def test_loop_needs_a_card_unless_asked_for_the_cpu(runs):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="PAPR_PLATFORM=cpu"):
             tloop.train_and_eval(cfg, make_eval_config(cfg))
+    # A mesh in one process does not train on one device: it names the
+    # ranks it needs and how to launch them.
     over = dict(cfg)
-    over["tpu"] = dict(over["tpu"], mesh={"data": 2, "rays": 1})
+    over["tpu"] = dict(over["tpu"], mesh={"data": 1, "rays": 2})
     from papr_tpu_torch.config import Config
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match=r"needs 2 devices but only 1 .*"
+                                         r"torchrun .*--nproc_per_node=2"):
         tloop.train_and_eval(Config(over), make_eval_config(Config(over)))
+
+
+def test_a_patch_as_large_as_its_image_raises(tmp_path, monkeypatch):
+    """A training patch as large as its image cannot be cropped (the
+    reference draws its corner from [0, H - ph)). The loader's worker thread
+    fails; its error reaches ``train_and_eval`` within seconds instead of
+    ending every epoch empty, which would loop forever."""
+    scene = make_demo_scene(str(tmp_path / "scene"), n_train=2, n_test=1,
+                            H=16, W=16)
+    cfg = load_config(overrides=_over(scene, str(tmp_path / "run"), ""))
+    monkeypatch.setenv("PAPR_PLATFORM", "cpu")
+    box = {}
+
+    def run():
+        try:
+            tloop.train_and_eval(cfg, make_eval_config(cfg))
+        except BaseException as e:   # handed to the test's thread
+            box["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(120)
+    assert not t.is_alive(), "train_and_eval hangs on empty epochs"
+    assert isinstance(box.get("error"), ValueError), box

@@ -145,12 +145,13 @@ def test_create_model_tree_matches_jax():
     pytest.param({"fused_attn": "stream"}, None, id="tpu2-fused_attn"),
     pytest.param({"int8_eval": True}, None, id="tpu3-int8_eval"),
     pytest.param({"query_fold": True}, None, id="tpu4-query_fold"),
-    pytest.param({"mesh": {"data": 2, "rays": 1}}, "mesh", id="tpu5-mesh"),
+    pytest.param({"mesh": {"data": 2, "rays": 1}}, None, id="tpu5-mesh"),
 ])
 def test_unported_tpu_values_raise(models, tpu, match):
     """A value that names something not ported raises with its name. The
     values ported since (``match`` None: the exact selection for ``approx``,
-    the feature streams, the folded query) run instead, and agree with the
+    the feature streams, the folded query, the mesh, under which a single
+    ``evaluate`` call is local) run instead, and agree with the
     default kernel path (fp32: attention mass atol 2e-5; the exact selection
     may swap near-tied points against the culled one, so ``approx`` compares
     no more than that). ``int8_eval`` runs the int8 one-shot attention, which
