@@ -330,9 +330,12 @@ F32_BWD_WMMA_MS = {"key_stream_f32_bwd": (53.692, 47.031),
                    "value_stream_f32_bwd": (58.484, 50.305)}
 # The fp32 stream forwards on walk.cuh's WMMA walk before their wgmma
 # redesign (the key's softmax inside the kernel), the same readings
-# (tools/torch_stream_fwd_ablate.py --f32 on that tree; PERF.md §6).
+# (tools/torch_stream_fwd_ablate.py --f32 on that tree; the feature
+# streams' with --feat --f32; PERF.md §6).
 F32_FWD_WMMA_MS = {"key_stream_f32_fwd": (18.304, 17.861),
-                   "value_stream_f32_fwd": (21.857, 21.403)}
+                   "value_stream_f32_fwd": (21.857, 21.403),
+                   "key_stream_feat_f32_fwd": (18.285, 18.017),
+                   "value_stream_feat_f32_fwd": (21.713, 21.149)}
 # The fp32 embedder (rows 2f / 3f) on walk.cuh / walk_bwd.cuh's WMMA walk
 # before its wgmma redesign, the same readings at phase 8's shapes and
 # Caterpillar's widths (tools/torch_embed_ablate.py --f32 on that tree,
@@ -461,7 +464,11 @@ F32_BWD_IN_REL = 3e-6
 # The fp32 stream forwards on wgmma also hold the median ray's relative
 # error (the key: raw; the value: fused), as phase 2's bf16 forwards do
 # (PERF.md, Findings). So do the `true` mode's key and value embedder stacks:
-# the value stack's sound median row reads 1.69e-6, too close to 2e-6.
+# the value stack's sound median row reads 1.69e-6, too close to 2e-6. The
+# feature forwards (rows 8f / 9f) read sound 7.80e-7 / 1.495e-6; their
+# products in the tensor cores' own accumulator across K read 1.358e-6 /
+# 1.226e-5 (the value catches it, the key alone would not;
+# tools/torch_plant_faults.py "fp32 feat fwd wgmma").
 F32_FWD_MEDIAN_REL = 3e-6
 # The fp32 embedder's median row on the query stack (row 2f), as the `cuda`
 # tests hold it (tools/torch_plant_faults.py "fp32 embed wgmma"): sound
@@ -870,6 +877,28 @@ def compare_f32_fwd_with_k3(eargs, rec) -> bool:
           f"attn rel Frobenius {f_rel:.3e} (need <= {K3_FUSED_REL})",
           flush=True)
     return same and f_rel <= K3_FUSED_REL
+
+
+def compare_feat_onehot(xv, vwalk, k0: int = 7) -> bool:
+    """Phase 8: the fp32 value forward on raw features (row 9f, its wgmma
+    walk) with the attention one-hot at slot k0 and normalize off, against
+    the fp32 embedder (row 2f: the same wg_walk) on the rows xv[k0]: one
+    weight of 1 and K - 1 of 0, so the fuse adds nothing to the walk's
+    rows, which must come out bit-equal."""
+    import torch
+    from papr_tpu_torch.ops import fused_mlp as fm
+    from papr_tpu_torch.ops import stream_feat as sf
+    K, T, _ = xv.shape
+    onehot = torch.zeros(T, K + 1, device=xv.device)
+    onehot[:, k0] = 1.0
+    fused = sf.value_stream_feat_fwd(xv, onehot, vwalk, False, torch.float32)
+    rows = fm.fused_mlp_f32(xv[k0].contiguous(), vwalk)
+    same = torch.equal(fused, rows)
+    print(f"phase 8 value_stream_feat_f32_fwd on a one-hot attn (slot {k0}, "
+          f"normalize off) against fused_mlp_f32 on xv[{k0}] (T={T}): "
+          f"bit-equal {same} (need True; max abs "
+          f"{float((fused - rows).abs().max()):.3e})", flush=True)
+    return same
 
 
 def compare_cli_kernels(params, state, cfg, device, n_time: int = 3) -> list:
@@ -1656,14 +1685,17 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     return out
 
 
-def kernel_span_ms(fn, pattern: str, n: int = 3, names=None) -> float:
-    """Device time per call of the kernels whose name holds ``pattern``, over
-    n calls of fn under the profiler (after one warm-up): a wrapper's kernel
-    without the small launches around it. NaN if the profiler saw none.
-    ``names``, a list, receives those kernels' names (without arguments)."""
+def kernel_span_ms(fn, pattern, n: int = 3, names=None) -> float:
+    """Device time per call of the kernels whose name holds ``pattern`` (a
+    string, or a tuple of strings: any of them), over n calls of fn under
+    the profiler (after one warm-up): a wrapper's kernel without the small
+    launches around it. NaN if the profiler saw none. ``names``, a list,
+    receives those kernels' names (without arguments)."""
+    pats = (pattern,) if isinstance(pattern, str) else tuple(pattern)
     fn()
     _, _, spans = device_profile(lambda: [fn() for _ in range(n)])
-    hit = [(e0 - s0, name) for s0, e0, name in spans if pattern in name]
+    hit = [(e0 - s0, name) for s0, e0, name in spans
+           if any(p in name for p in pats)]
     if names is not None:
         names.extend(sorted({name.split("(")[0] for _, name in hit}))
     return sum(t for t, _ in hit) / n / 1e3 if hit else float("nan")
@@ -2985,12 +3017,21 @@ FRAME_STAGES = (("K3 attend_eval_i8", "attend_eval_i8"),
                 ("K3 attend_eval", "attend_eval"), ("K2 fused_mlp", "fused_mlp"),
                 ("K1 cull", "cull_topk"), ("sort", "Sort"),
                 ("conv (cuDNN)", "fprop"), ("gemm", "gemm"))
+# The stream frame's: the feature forwards (wgmma, or the WMMA kernels of an
+# earlier tree) and the key's softmax kernel, then a frame's.
+FEAT_FRAME_STAGES = (("key stream fwd (features)", "key_feat_fwd_"),
+                     ("key stream fwd (features)", "keyf_fwd_kernel"),
+                     ("key softmax", "key_fwd_softmax"),
+                     ("value stream fwd (features)", "value_feat_fwd_"),
+                     ("value stream fwd (features)", "valuef_fwd_kernel")) \
+    + FRAME_STAGES
 TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("selection (streaming top-k kernel)", "topk_stream"),
                 ("embedder fwd", "fused_mlp_fwd_"),
                 ("embedder bwd", "fused_mlp_bwd_"),
                 ("fused scores fwd", "fused_scores_fwd_kernel"),
                 ("fused scores bwd", "fused_scores_bwd_kernel"),
+                ("key softmax", "key_fwd_softmax"),
                 ("key stream fwd", "key_fwd_"),
                 ("key stream fwd (int8)", "key_i8_fwd_kernel"),
                 ("value stream fwd (int8)", "value_i8_fwd_kernel"),
@@ -3000,8 +3041,10 @@ TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("key stream fwd (query folded)", "keyq_fwd_kernel"),
                 ("key stream bwd (query folded)", "keyq_bwd_kernel"),
                 ("key stream fwd (features)", "keyf_fwd_kernel"),
+                ("key stream fwd (features)", "key_feat_fwd_"),
                 ("key stream bwd (features)", "keyf_bwd_kernel"),
                 ("value stream fwd (features)", "valuef_fwd_kernel"),
+                ("value stream fwd (features)", "value_feat_fwd_"),
                 ("value stream bwd (features)", "valuef_bwd_kernel"),
                 ("dW reduction (wgrad)", "wgrad_"),
                 ("dW reduction (wgrad)", "colsum_kernel"),
@@ -3671,7 +3714,9 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         lambda: list(sf.key_stream_feat_plain(*fargs, *fopts)), F32_FWD_REL,
         ["attn", "raw"],
         nbytes(xk, qq, influ, sel_alive) + walk_bytes(kwalk_f),
-        T * k * walk_flops(kwalk_f, wk), attn_tol=F32_ATTN_ABS)
+        T * k * walk_flops(kwalk_f, wk), attn_tol=F32_ATTN_ABS,
+        span=("key_feat_fwd", "key_fwd_softmax"),
+        median=(1, F32_FWD_MEDIAN_REL))
     dattn_f = firm(randn(T, k + 1), tokens_margin(xk, kwalk_f),
                    "key_stream_feat_f32_bwd")
     record("key_stream_feat_f32_bwd", "papr_tpu_torch/csrc/key_stream_feat.cu",
@@ -3692,7 +3737,10 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            lambda: [sf.value_stream_feat_plain(xv, attn_f, vwalk_f,
                                                normalize, f32)],
            F32_FWD_REL, ["fused"], nbytes(xv, attn_f) + walk_bytes(vwalk_f),
-           T * k * walk_flops(vwalk_f))
+           T * k * walk_flops(vwalk_f), span="value_feat_fwd",
+           median=(0, F32_FWD_MEDIAN_REL))
+    if not compare_feat_onehot(xv, vwalk_f):
+        failed.append("the fp32 value forward (features) on a one-hot attn")
     dfused_f = firm(randn(T, int(vwalk_f.ws[-1].shape[1])),
                     tokens_margin(xv, vwalk_f), "value_stream_feat_f32_bwd")
     record("value_stream_feat_f32_bwd",
@@ -4262,6 +4310,15 @@ def drive_fp32_modes(device, ref) -> dict:
               and t_psnr >= F32_FRAME_PSNR)
         if not ok:
             fail(f"the fp32 {name} frame disagrees with auto's fp32 frame")
+        if name == "stream":
+            # One more serving frame under the profiler: its device time by
+            # kernel, the feature forwards' kernels named.
+            with torch.no_grad():
+                _, _, fsp = device_profile(lambda: next(render_frames(
+                    params0, state, mcfg, [c2w], FOCAL, FOCAL, H, W, H, W)))
+            print("phase 8 stream frame profile (one serving frame): "
+                  + (stage_split(fsp, FEAT_FRAME_STAGES, 1)[0] if fsp
+                     else "not measured"), flush=True)
         out[name] = {"step_ms": step_ms, "frame_ms": frame_ms,
                      "tiled_ms": tiled_ms, "peak_gib": peak, "idle": idle}
         torch.cuda.empty_cache()

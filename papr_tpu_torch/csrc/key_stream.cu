@@ -123,31 +123,6 @@ key_fwd_wgmma_f32_kernel(const __grid_constant__ StreamFwdWgT<float> p) {
   stream_fwd_wg<true, float>(p);
 }
 
-// After key_fwd_wgmma_kernel, a warp per ray: the background-token softmax
-// (stream_attn.py _softmax_s) of the ray's K masked scores -> attn (T, K+1),
-// background last.
-__global__ void key_fwd_softmax_kernel(const float* __restrict__ ss, int T,
-                                       int K, float bkg,
-                                       float* __restrict__ attn) {
-  const int lane = threadIdx.x & 31;
-  const int nw = gridDim.x * blockDim.x >> 5;
-  for (int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; t < T;
-       t += nw) {
-    const float* srow = ss + (size_t)t * K;
-    float m = bkg;
-    for (int k = lane; k < K; k += 32) m = fmaxf(m, srow[k]);
-    m = warp_max(m);
-    float z = 0.f;
-    for (int k = lane; k < K; k += 32) z += expf(srow[k] - m);
-    z = warp_sum(z);
-    const float eb = expf(bkg - m);
-    const float denom = z + eb;
-    float* arow = attn + (size_t)t * (K + 1);
-    for (int k = lane; k < K; k += 32) arow[k] = expf(srow[k] - m) / denom;
-    if (lane == 0) arow[K] = eb / denom;
-  }
-}
-
 #define KEY_FWD_PARAMS                                                       \
     const float* rec, int rec_w, int T, int K, const float* rayo,            \
     const float* rays, const float* qq, int dm, float sqrt_dm,               \
@@ -162,64 +137,38 @@ __global__ void key_fwd_softmax_kernel(const float* __restrict__ ss, int T,
 // unread: the packed image replaces it), then the packed weights (the
 // walk's layers, then w_k; ops/stream_attn.py key_stream_fwd: bf16
 // pack_walk_wgmma's image, fp32 pack_walk_wgmma_f32's) and their size in
-// bytes, and the grid (1 .. the number of 128-ray tiles).
+// bytes, and the grid (1 .. the number of 128-ray tiles); the softmax
+// kernel after it (walk_wgmma.cuh launch_key_fwd_wg).
 template <class Op>
-static int launch_key_fwd_wg(KEY_FWD_PARAMS, const void* wpack,
-                             long long wbytes, int grid, void* stream) {
+static int launch_key_rec_fwd_wg(KEY_FWD_PARAMS, const void* wpack,
+                                 long long wbytes, int grid, void* stream) {
   (void)wk;
   StreamFwdWgT<Op> p{};
-  size_t smem = 0;
-  int err = check_score_head(dm, dm_pad, K);
-  if (err) return err;
-  err = fill_stream_fwd_wg(&p, kmeta, kw, kb, kln, kplan, dm_pad, wpack,
-                           wbytes, &smem);
-  if (err) return err;
-  if (T <= 0) return 0;
-  const int tiles = (T + kWgTile - 1) / kWgTile;
-  if (grid < 1 || grid > tiles) return -209;
   p.rec = rec;
   p.rec_w = rec_w;
-  p.T = T;
-  p.K = K;
   p.rayo = rayo;
   p.rays = rays;
   p.eps = eps;
-  p.n_units = tiles * K;
-  p.grid = grid;
-  p.qq = qq;
-  p.dm = dm;
-  p.sqrt_dm = sqrt_dm;
-  p.bk = static_cast<const float*>(bk);
-  p.dm_pad = dm_pad;
-  p.score_relu = score_relu;
-  p.raw = static_cast<float*>(raw);
-  p.ss = static_cast<float*>(ss);
   void (*kernel)(StreamFwdWgT<Op>);
   if constexpr (kF32<Op>) kernel = key_fwd_wgmma_f32_kernel;
   else kernel = key_fwd_wgmma_kernel;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernel<<<grid, kWgThreads, smem, st>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  key_fwd_softmax_kernel<<<(T + 7) / 8, 256, 0, st>>>(
-      static_cast<const float*>(ss), T, K, bkg, static_cast<float*>(attn));
-  return (int)cudaGetLastError();
+  return launch_key_fwd_wg(p, kernel, T, K, kmeta, kw, kb, kln, kplan, qq,
+                           dm, sqrt_dm, bk, dm_pad, score_relu, bkg, attn,
+                           raw, ss, wpack, wbytes, grid, stream);
 }
 
 extern "C" int papr_key_stream_fwd(KEY_FWD_PARAMS, const void* wpack,
                                    long long wbytes, int grid,
                                    void* stream) {
-  return launch_key_fwd_wg<__nv_bfloat16>(KEY_FWD_ARGS, wpack, wbytes, grid,
-                                          stream);
+  return launch_key_rec_fwd_wg<__nv_bfloat16>(KEY_FWD_ARGS, wpack, wbytes,
+                                              grid, stream);
 }
 
 extern "C" int papr_key_stream_f32_fwd(KEY_FWD_PARAMS, const void* wpack,
                                        long long wbytes, int grid,
                                        void* stream) {
-  return launch_key_fwd_wg<float>(KEY_FWD_ARGS, wpack, wbytes, grid, stream);
+  return launch_key_rec_fwd_wg<float>(KEY_FWD_ARGS, wpack, wbytes, grid,
+                                      stream);
 }
 
 extern "C" int papr_key_stream_i8_fwd(KEY_FWD_PARAMS, const void* kwq,

@@ -17,18 +17,36 @@
 // columns before they enter xk, so autograd drops them there.
 //
 // What bounds it on the H100: the walks, as key_stream.cu (compute bound);
-// xk adds 36 B a token to read and dxk as much to write. The design is
-// key_stream.cu's: one block of 512 threads per 64-ray tile, k inside the
+// xk adds 36 B a token to read and dxk as much to write. The design of the
+// bf16 forward and of both backwards is the WMMA one of PRs 1-7 (walk.cuh /
+// walk_bwd.cuh): one block of 512 threads per 64-ray tile, k inside the
 // block, every activation in shared memory, scores / dqq / ds owned by the
 // block (no atomics), dW through the bf16 stash and wgrad.cu. The encode
 // stage reads x[k, t, src] by the column plan, as the embedder kernel does.
 //
-// key_stream_feat_f32_fwd / _bwd are the same two kernels on the fp32 walk
-// (use_amp: false; _ks_*_kernel with cdt = float32): the walk, the w_k
-// product and its bias in fp32 (walk.cuh's 3xTF32 products; y_k is never
-// rounded), fp32 stashes and dW through wgrad_f32; the same shared memory.
+// key_stream_feat_f32_bwd is the same backward on the fp32 walk (use_amp:
+// false; _ks_bwd_kernel with cdt = float32): the walk, the w_k product and
+// its bias in fp32 (walk.cuh's 3xTF32 products; y_k is never rounded), fp32
+// stashes and dW through wgrad_f32; the same shared memory.
+//
+// key_stream_feat_f32_fwd (_ks_fwd_kernel with cdt = float32) runs on wgmma:
+// key_feat_fwd_wgmma_f32_kernel is walk_wgmma.cuh's stream_fwd_wg, the fp32
+// record key forward's function (key_stream.cu key_fwd_wgmma_f32_kernel),
+// with the token source FeatTok: per k step a warpgroup encodes its 64 rays'
+// rows of xk[k] (scalar loads by the column plan) into fp32 shared memory,
+// and the walk and the w_k product run as 3xTF32 m64n64k8 products on the
+// TMA-fed weight ring (ops/stream_attn.py fwd_wgmma_pack_f32), 128 rays a
+// block on a persistent grid over (tile, k) units; the raw dot and the
+// masked score (influence and alive from the (T, K) arrays) go to raw / ss,
+// and key_fwd_softmax_kernel takes the softmax after it. Against the WMMA
+// kernel no rounding point moved (fp32 activations and scores, 3xTF32
+// products): the partial products join the fp32 sum by round-to-nearest
+// adds once per 32-deep chunk instead of once per 8-deep step, and the
+// masked scores pass through ss in device memory (fp32, unchanged) to a
+// softmax kernel of their own. Bound by operations (three tensor-core
+// products per fp32-accurate one); xk adds 36 B a token.
 
-#include "stream_common.cuh"
+#include "walk_wgmma.cuh"
 
 using namespace papr;
 
@@ -133,12 +151,13 @@ keyf_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp, int K,
   }
 }
 
-#define KEYF_FWD_PARAMS                                                      \
+#define KEYF_FWD_PARAMS_NS                                                   \
     const float* x, int d_raw, int T, int K, const float* qq, int dm,        \
     float sqrt_dm, const float* influ, const float* alive, const int* kmeta, \
     const void* kw, const void* kb, const void* kln, const void* kplan,      \
     const void* wk, const void* bk, int dm_pad, int score_relu, float bkg,   \
-    void* attn, void* raw, void* stream
+    void* attn, void* raw
+#define KEYF_FWD_PARAMS KEYF_FWD_PARAMS_NS, void* stream
 #define KEYF_BWD_PARAMS                                                      \
     const float* x, int d_raw, int T, int K, const float* qq, int dm,        \
     float sqrt_dm, const float* influ, const float* alive, const float* raw, \
@@ -204,6 +223,11 @@ static int launch_keyf_bwd(KEYF_BWD_PARAMS) {
   return (int)cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(kWgThreads, 1)
+key_feat_fwd_wgmma_f32_kernel(const __grid_constant__ StreamFwdWgT<float> p) {
+  stream_fwd_wg<true, float, FeatTok>(p);
+}
+
 #define KEYF_FWD_ARGS                                                        \
     x, d_raw, T, K, qq, dm, sqrt_dm, influ, alive, kmeta, kw, kb, kln,       \
     kplan, wk, bk, dm_pad, score_relu, bkg, attn, raw, stream
@@ -216,8 +240,27 @@ extern "C" int papr_key_stream_feat_fwd(KEYF_FWD_PARAMS) {
   return launch_keyf_fwd<__nv_bfloat16>(KEYF_FWD_ARGS);
 }
 
-extern "C" int papr_key_stream_feat_f32_fwd(KEYF_FWD_PARAMS) {
-  return launch_keyf_fwd<float>(KEYF_FWD_ARGS);
+// The fp32 forward on wgmma: the bf16 form's arguments before its stream (wk
+// unread: the packed image replaces it), the (T, K) masked scores ss, then
+// the packed weights (the walk's layers, then w_k; ops/stream_attn.py
+// fwd_wgmma_pack_f32), their size in bytes and the grid (1 .. the number of
+// 128-ray tiles); the softmax kernel after it (walk_wgmma.cuh
+// launch_key_fwd_wg).
+extern "C" int papr_key_stream_feat_f32_fwd(KEYF_FWD_PARAMS_NS, void* ss,
+                                            const void* wpack,
+                                            long long wbytes, int grid,
+                                            void* stream) {
+  (void)wk;
+  if (d_raw <= 0 || d_raw > kMaxWidth) return -205;
+  StreamFwdWgT<float> p{};
+  p.x = x;
+  p.d_raw = d_raw;
+  p.influ = influ;
+  p.alive = alive;
+  return launch_key_fwd_wg(p, key_feat_fwd_wgmma_f32_kernel, T, K, kmeta, kw,
+                           kb, kln, kplan, qq, dm, sqrt_dm, bk, dm_pad,
+                           score_relu, bkg, attn, raw, ss, wpack, wbytes,
+                           grid, stream);
 }
 
 extern "C" int papr_key_stream_feat_bwd(KEYF_BWD_PARAMS) {

@@ -157,34 +157,20 @@ template <class Op>
 static int launch_value_fwd_wg(VALUE_FWD_PARAMS, const void* wpack,
                                long long wbytes, int grid, void* stream) {
   StreamFwdWgT<Op> p{};
-  size_t smem = 0;
-  if (K <= 0 || K > 64) return -202;
-  int err = fill_stream_fwd_wg(&p, vmeta, vw, vb, vln, vplan, 0, wpack,
-                               wbytes, &smem);
-  if (err) return err;
-  if (T <= 0) return 0;
-  const int tiles = (T + kWgTile - 1) / kWgTile;
-  if (grid < 1 || grid > tiles) return -209;
   p.rec = rec;
   p.rec_w = rec_w;
-  p.T = T;
-  p.K = K;
   p.rayo = rayo;
   p.rays = rays;
   p.eps = eps;
-  p.n_units = tiles * K;
-  p.grid = grid;
   p.attn = attn;
   p.normalize = normalize;
   p.fused = static_cast<float*>(fused);
   void (*kernel)(StreamFwdWgT<Op>);
   if constexpr (kF32<Op>) kernel = value_fwd_wgmma_f32_kernel;
   else kernel = value_fwd_wgmma_kernel;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch_stream_fwd_wg<false>(p, kernel, T, K, vmeta, vw, vb, vln,
+                                     vplan, wpack, wbytes, grid,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int papr_value_stream_fwd(VALUE_FWD_PARAMS, const void* wpack,

@@ -15,17 +15,37 @@
 // (foreground mass exactly 0) divide by 1: zero gradient into the walk.
 //
 // What bounds it on the H100: the walk, as value_stream.cu (compute bound);
-// xv adds 280 B a token to read and dxv as much to write. The design is
-// value_stream.cu's: one block of 512 threads per 64-ray tile, k inside the
+// xv adds 280 B a token to read and dxv as much to write. The design of the
+// bf16 forward and of both backwards is the WMMA one of PRs 1-7 (walk.cuh /
+// walk_bwd.cuh): one block of 512 threads per 64-ray tile, k inside the
 // block, every activation in shared memory, dW through the stash and
-// wgrad.cu; the fuse steps are shared with it (stream_common.cuh).
+// wgrad.cu; the fuse steps are shared with value_stream.cu's int8 forms
+// (stream_common.cuh).
 //
-// value_stream_feat_f32_fwd / _bwd are the same two kernels on the fp32 walk
-// (use_amp: false; _vs_*_kernel with cdt = float32): the walk in fp32
-// (walk.cuh's 3xTF32 products), the value rows fused unrounded, fp32
-// stashes and dW through wgrad_f32; the same shared memory.
+// value_stream_feat_f32_bwd is the same backward on the fp32 walk (use_amp:
+// false; _vs_bwd_kernel with cdt = float32): the walk in fp32 (walk.cuh's
+// 3xTF32 products), fp32 stashes and dW through wgrad_f32; the same shared
+// memory.
+//
+// value_stream_feat_f32_fwd (_vs_fwd_kernel with cdt = float32) runs on
+// wgmma: value_feat_fwd_wgmma_f32_kernel is walk_wgmma.cuh's stream_fwd_wg,
+// the fp32 record value forward's function (value_stream.cu
+// value_fwd_wgmma_f32_kernel), with the token source FeatTok: per k step a
+// warpgroup encodes its 64 rays' rows of xv[k] (scalar loads by the column
+// plan: 6 posenc sources, then the point features passed through), the
+// walk runs as 3xTF32 m64n64k8 products on the TMA-fed weight ring
+// (ops/stream_attn.py fwd_wgmma_pack_f32) and its fp32 rows, unrounded, are
+// weighted by the renormalized foreground attention into per-ray sums in
+// shared memory; 128 rays a block on a persistent grid over (tile, k)
+// units, each block adding its rays' sums into the zeroed output with
+// atomicAdd. Against the WMMA kernel no rounding point moved in the walk
+// (its partial products join the fp32 sum once per 32-deep chunk instead of
+// once per 8-deep step); a ray split between two blocks sums its K terms in
+// two parts, added once (at most two addends on 0: order-free), where the
+// WMMA kernel sums all K in order. Bound by operations (three tensor-core
+// products per fp32-accurate one); xv adds 280 B a token.
 
-#include "stream_common.cuh"
+#include "walk_wgmma.cuh"
 
 using namespace papr;
 
@@ -105,10 +125,11 @@ valuef_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp,
   renorm_bwd_rows(datt, attn, den, normalize, K, t0, T, dattn);
 }
 
-#define VALUEF_FWD_PARAMS                                                    \
+#define VALUEF_FWD_PARAMS_NS                                                 \
     const float* x, int d_raw, int T, int K, const float* attn,              \
     const int* vmeta, const void* vw, const void* vb, const void* vln,       \
-    const void* vplan, int normalize, void* fused, void* stream
+    const void* vplan, int normalize, void* fused
+#define VALUEF_FWD_PARAMS VALUEF_FWD_PARAMS_NS, void* stream
 #define VALUEF_BWD_PARAMS                                                    \
     const float* x, int d_raw, int T, int K, const float* attn,              \
     const float* dfused, const int* vmeta, const void* vw, const void* vb,   \
@@ -161,6 +182,12 @@ static int launch_valuef_bwd(VALUEF_BWD_PARAMS) {
   return (int)cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(kWgThreads, 1)
+value_feat_fwd_wgmma_f32_kernel(
+    const __grid_constant__ StreamFwdWgT<float> p) {
+  stream_fwd_wg<false, float, FeatTok>(p);
+}
+
 #define VALUEF_FWD_ARGS                                                      \
     x, d_raw, T, K, attn, vmeta, vw, vb, vln, vplan, normalize, fused,       \
     stream
@@ -173,8 +200,25 @@ extern "C" int papr_value_stream_feat_fwd(VALUEF_FWD_PARAMS) {
   return launch_valuef_fwd<__nv_bfloat16>(VALUEF_FWD_ARGS);
 }
 
-extern "C" int papr_value_stream_feat_f32_fwd(VALUEF_FWD_PARAMS) {
-  return launch_valuef_fwd<float>(VALUEF_FWD_ARGS);
+// The fp32 forward on wgmma: the bf16 form's arguments before its stream,
+// fused zeroed by the caller (each block adds its rays' sums), then the
+// packed weights of the walk's layers (ops/stream_attn.py
+// fwd_wgmma_pack_f32), their size in bytes and the grid (1 .. the number of
+// 128-ray tiles).
+extern "C" int papr_value_stream_feat_f32_fwd(VALUEF_FWD_PARAMS_NS,
+                                              const void* wpack,
+                                              long long wbytes, int grid,
+                                              void* stream) {
+  if (d_raw <= 0 || d_raw > kMaxWidth) return -205;
+  StreamFwdWgT<float> p{};
+  p.x = x;
+  p.d_raw = d_raw;
+  p.attn = attn;
+  p.normalize = normalize;
+  p.fused = static_cast<float*>(fused);
+  return launch_stream_fwd_wg<false>(p, value_feat_fwd_wgmma_f32_kernel, T, K,
+                                     vmeta, vw, vb, vln, vplan, wpack, wbytes,
+                                     grid, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int papr_value_stream_feat_bwd(VALUEF_BWD_PARAMS) {

@@ -12,8 +12,12 @@
 // activations, 3xTF32 products), and so do the fp32 stream backwards
 // (walk_wgmma_bwd.cuh), the fp32 embedder forward
 // (fused_mlp_fwd_wgmma_f32_kernel, the bf16 embedder's function) and its
-// backward. The int8 forms and the other walk kernels (key_stream_q.cu,
-// key_stream_feat.cu, value_stream_feat.cu) keep walk.cuh's WMMA layers.
+// backward, and the fp32 feature stream forwards (key_stream_feat.cu
+// key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
+// value_feat_fwd_wgmma_f32_kernel: the stream forwards' function with raw
+// (K, T, d) feature rows as the posenc sources, FeatTok). The int8 forms and
+// the other walk kernels (key_stream_q.cu, the bf16 forms and the backwards
+// of key_stream_feat.cu / value_stream_feat.cu) keep walk.cuh's WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
 // ptxas may give a thread up to 255 registers). Within a warpgroup the
@@ -535,9 +539,24 @@ struct RecSrc {
   }
 };
 
+// The feature walks' posenc sources (the fp32 feature stream forwards): row
+// r's column src of its token's raw feature row, x[k, rbase + r, :] of the
+// k-major (K, T, d_raw) features (xk [pos, proj, perp], xv [proj, perp,
+// point features?]: the plan's source ids are x's columns, as for K2's raw
+// rows), read in place by scalar loads (rows of 9 or 70 floats are not
+// 16-byte aligned); an overhang ray reads 0.
+struct FeatSrc {
+  const float* __restrict__ xk;        // x + k * T * d_raw
+  int d_raw, T, rbase;
+  __device__ __forceinline__ float operator()(int r, int src) const {
+    const int t = rbase + r;
+    return t < T ? xk[(size_t)t * d_raw + src] : 0.f;
+  }
+};
+
 // The warp's 16 rows of one walk's posenc into E (fp32, ld floats a row),
 // lanes over columns; pad lanes 0. src_val(r, src): row r's source value
-// (RecSrc, or the embedder's raw feature row).
+// (RecSrc, FeatSrc, or the embedder's raw feature row).
 template <class Src>
 __device__ __forceinline__ void wg_encode(float* E, int ld, const WalkDesc& d,
                                           const float* plan, int row0,
@@ -1081,7 +1100,13 @@ __device__ __forceinline__ void wg_score(float (&acc)[kOutRegs], WgRowsA& A,
 // value_fwd_wgmma_kernel / value_fwd_wgmma_f32_kernel (value_stream.cu) on
 // the walk above, in its bf16 or fp32 operand form (the forms of the bf16 and
 // the fp32 K3): the record read pre-gathered k-major (K, T, rec_w), a
-// token's row k * T + t. The grid is persistent, as the backwards'
+// token's row k * T + t. The fp32 feature streams (key_stream_feat.cu
+// key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
+// value_feat_fwd_wgmma_f32_kernel) are the same function with another
+// token source (the policy Tok): the raw feature row x[k, t, :] of a
+// (K, T, d_raw) tensor built in torch as the posenc sources, influence and
+// alive from (T, K) arrays, no geometry stage (its shared-memory rows stay
+// in the layout, unused). The grid is persistent, as the backwards'
 // (walk_wgmma_bwd.cuh): each block takes an even, contiguous share of the
 // (tile, k) units in tile-major order, so with grid <= tiles a tile is split
 // between at most two blocks; grid = tiles is one block a tile. The key
@@ -1122,6 +1147,11 @@ struct StreamFwdWgT {
   const float* attn;                     // (T, K + 1)
   int normalize;
   float* fused;                          // (T, d_out), zero on entry
+  // the feature token source (FeatTok), in place of rec / rayo / rays
+  const float* x;                        // (K, T, d_raw) k-major
+  int d_raw;
+  const float* influ;                    // (T, K)
+  const float* alive;                    // (T, K)
 };
 using StreamFwdWg = StreamFwdWgT<__nv_bfloat16>;
 
@@ -1170,10 +1200,57 @@ inline int fill_stream_fwd_wg(StreamFwdWgT<Op>* p, const int* meta,
                      &p->stages, smem);
 }
 
-// The forward of the record-native key stream (kKey: the score head) or
-// value stream (the fuse) on the block's share of the (tile, k) units, in
-// either operand form (Op: bf16, or fp32).
-template <bool kKey, class Op = __nv_bfloat16>
+// Where a stream forward's (t, k) tokens come from (stream_fwd_wg's source
+// policy): stage(p, geo, rbase, row0, k) prepares the warp's 16 rays of step
+// k (ends on a warp barrier), src(p, geo, rbase, k) is the walk's posenc
+// sources, mask(p, geo, r, t, k) the (influence, alive) pair of ray t = rbase
+// + r. RecTok: the record (K3's geometry rows, the record's point features,
+// record lanes 3-4 through geo[9] / geo[10]).
+struct RecTok {
+  template <class P>
+  static __device__ __forceinline__ void stage(const P& p, float* geo,
+                                               int rbase, int row0, int k) {
+    const int T = p.T;
+    wg_geometry(geo, p.rec, p.rec_w, p.rayo, p.rays, T, rbase, row0, p.eps,
+                [&](int t) { return k * T + t; });
+  }
+  template <class P>
+  static __device__ __forceinline__ RecSrc src(const P& p, const float* geo,
+                                               int, int) {
+    return RecSrc{geo, p.rec, p.rec_w};
+  }
+  template <class P>
+  static __device__ __forceinline__ float2 mask(const P&, const float* geo,
+                                                int r, int, int) {
+    const float* gr = geo + r * kGeo;
+    return make_float2(gr[9], gr[10]);
+  }
+};
+
+// FeatTok: the raw feature rows (FeatSrc), influence and alive from the
+// (T, K) arrays; nothing to stage.
+struct FeatTok {
+  template <class P>
+  static __device__ __forceinline__ void stage(const P&, float*, int, int,
+                                               int) {}
+  template <class P>
+  static __device__ __forceinline__ FeatSrc src(const P& p, const float*,
+                                                int rbase, int k) {
+    return FeatSrc{p.x + (size_t)k * p.T * p.d_raw, p.d_raw, p.T, rbase};
+  }
+  template <class P>
+  static __device__ __forceinline__ float2 mask(const P& p, const float*, int,
+                                                int t, int k) {
+    const size_t i = (size_t)t * p.K + k;
+    return make_float2(p.influ[i], p.alive[i]);
+  }
+};
+
+// The forward of a key stream (kKey: the score head) or value stream (the
+// fuse) on the block's share of the (tile, k) units, in either operand form
+// (Op: bf16, or fp32), its tokens from the source Tok (the record, or raw
+// feature rows).
+template <bool kKey, class Op = __nv_bfloat16, class Tok = RecTok>
 __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWgT<Op>& p) {
   constexpr bool f32 = kF32<Op>;
   extern __shared__ unsigned char smem_raw[];
@@ -1252,30 +1329,29 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWgT<Op>& p) {
       // Every warp of the warpgroup is done with the parking slices (they
       // overlap the encoding rows) before any writes its encoding.
       named_sync(2 + wg, 128);
-      wg_geometry(geo, p.rec, p.rec_w, p.rayo, p.rays, T, rbase, row0, p.eps,
-                  [&](int t) { return k * T + t; });
+      Tok::stage(p, geo, rbase, row0, k);
       if (kKey) {
         // --- walk -> w_k -> the raw dot and the masked score ---
         wg_walk(acc, A, rg, sm.zero, E, ld, walk, row0, false,
-                RecSrc{geo, p.rec, p.rec_w});
+                Tok::src(p, geo, rbase, k));
         float col[2];
         wg_score(acc, A, rg, sm.zero, p.layers[p.d.n], p.qq, p.dm, bkr,
                  p.sqrt_dm, T, rbase, rl, col);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int t = rbase + rl[h];
-          const float* gr = geo + rl[h] * kGeo;
           if (q == 0 && t < T) {
+            const float2 ia = Tok::mask(p, geo, rl[h], t, k);
             p.raw[(size_t)t * K + k] = col[h];
             p.ss[(size_t)t * K + k] =
-                masked_score(col[h], p.score_relu, gr[9], gr[10] > 0.5f);
+                masked_score(col[h], p.score_relu, ia.x, ia.y > 0.5f);
           }
         }
       } else {
         // --- walk -> value rows (rounded to bf16 in the bf16 form) ->
         // (attn_k / den) x rows ---
         const bool two = wg_walk(acc, A, rg, sm.zero, E, ld, walk, row0, true,
-                                 RecSrc{geo, p.rec, p.rec_w});
+                                 Tok::src(p, geo, rbase, k));
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int t = rbase + rl[h];
@@ -1306,6 +1382,103 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWgT<Op>& p) {
       }
     }
   }
+}
+
+// After a key stream forward on wgmma (key_stream.cu key_fwd_wgmma_kernel /
+// key_fwd_wgmma_f32_kernel, key_stream_feat.cu
+// key_feat_fwd_wgmma_f32_kernel), a warp per ray: the background-token
+// softmax (stream_attn.py _softmax_s) of the ray's K masked scores -> attn
+// (T, K+1), background last. A template so that each file that launches it
+// instantiates its own copy.
+template <int = 0>
+__global__ void key_fwd_softmax_kernel(const float* __restrict__ ss, int T,
+                                       int K, float bkg,
+                                       float* __restrict__ attn) {
+  const int lane = threadIdx.x & 31;
+  const int nw = gridDim.x * blockDim.x >> 5;
+  for (int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; t < T;
+       t += nw) {
+    const float* srow = ss + (size_t)t * K;
+    float m = bkg;
+    for (int k = lane; k < K; k += 32) m = fmaxf(m, srow[k]);
+    m = warp_max(m);
+    float z = 0.f;
+    for (int k = lane; k < K; k += 32) z += expf(srow[k] - m);
+    z = warp_sum(z);
+    const float eb = expf(bkg - m);
+    const float denom = z + eb;
+    float* arow = attn + (size_t)t * (K + 1);
+    for (int k = lane; k < K; k += 32) arow[k] = expf(srow[k] - m) / denom;
+    if (lane == 0) arow[K] = eb / denom;
+  }
+}
+
+// Host side of the stream forwards on wgmma, common to their entry points:
+// p holds the token source's fields (RecTok: rec, rec_w, rayo, rays, eps;
+// FeatTok: x, d_raw, influ, alive) and the head's (key: qq ... ss, set by
+// launch_key_fwd_wg; value: attn, normalize and fused, zeroed by the
+// caller). Checks K (and the key's score head), lays out the walk and its
+// image (fill_stream_fwd_wg: the packed weights and their bytes) and
+// launches kernel on grid blocks (1 .. the number of 128-ray tiles).
+// Returns 0, a negative code, or the CUDA error.
+template <bool kKey, class Op>
+inline int launch_stream_fwd_wg(StreamFwdWgT<Op> p,
+                                void (*kernel)(StreamFwdWgT<Op>), int T,
+                                int K, const int* meta, const void* w,
+                                const void* b, const void* ln,
+                                const void* plan, const void* wpack,
+                                long long wbytes, int grid,
+                                cudaStream_t st) {
+  int err = kKey ? check_score_head(p.dm, p.dm_pad, K)
+                 : (K <= 0 || K > 64 ? -202 : 0);
+  if (err) return err;
+  size_t smem = 0;
+  err = fill_stream_fwd_wg(&p, meta, w, b, ln, plan, kKey ? p.dm_pad : 0,
+                           wpack, wbytes, &smem);
+  if (err) return err;
+  if (T <= 0) return 0;
+  const int tiles = (T + kWgTile - 1) / kWgTile;
+  if (grid < 1 || grid > tiles) return -209;
+  p.T = T;
+  p.K = K;
+  p.n_units = tiles * K;
+  p.grid = grid;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, kWgThreads, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The key's: the score head's arguments into p, the forward (its raw dots
+// and masked scores into raw / ss, (T, K)), then key_fwd_softmax_kernel over
+// ss into attn (T, K + 1).
+template <class Op>
+inline int launch_key_fwd_wg(StreamFwdWgT<Op> p,
+                             void (*kernel)(StreamFwdWgT<Op>), int T, int K,
+                             const int* kmeta, const void* kw,
+                             const void* kb, const void* kln,
+                             const void* kplan, const float* qq, int dm,
+                             float sqrt_dm, const void* bk, int dm_pad,
+                             int score_relu, float bkg, void* attn,
+                             void* raw, void* ss, const void* wpack,
+                             long long wbytes, int grid, void* stream) {
+  p.qq = qq;
+  p.dm = dm;
+  p.sqrt_dm = sqrt_dm;
+  p.bk = static_cast<const float*>(bk);
+  p.dm_pad = dm_pad;
+  p.score_relu = score_relu;
+  p.raw = static_cast<float*>(raw);
+  p.ss = static_cast<float*>(ss);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_stream_fwd_wg<true>(p, kernel, T, K, kmeta, kw, kb,
+                                             kln, kplan, wpack, wbytes, grid,
+                                             st);
+  if (err || T <= 0) return err;
+  key_fwd_softmax_kernel<0><<<(T + 7) / 8, 256, 0, st>>>(
+      p.ss, T, K, bkg, static_cast<float*>(attn));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace papr

@@ -105,6 +105,15 @@ for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd",
               "papr_key_stream_f32_bwd", "papr_value_stream_f32_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P,
                                                   P, P, P]
+# The fp32 feature stream forwards (on wgmma) take the bf16 forms'
+# arguments before the stream, then (key) the (T, K) masked scores, the
+# packed weights, their size in bytes, the grid and the stream.
+SIGNATURES["papr_key_stream_feat_f32_fwd"] = (
+    SIGNATURES["papr_key_stream_feat_fwd"][:-1] + [P, P, ctypes.c_longlong,
+                                                   I, P])
+SIGNATURES["papr_value_stream_feat_f32_fwd"] = (
+    SIGNATURES["papr_value_stream_feat_fwd"][:-1] + [P, ctypes.c_longlong, I,
+                                                     P])
 
 # The int8 forms take the wgmma forms' arguments before their wgmma tail
 # (the eval attention's: those before its packed weights), then the walk's

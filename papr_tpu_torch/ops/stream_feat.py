@@ -17,9 +17,15 @@ and a plain PyTorch version; a backward's plain version is the plain forward
 recomputed under autograd. A CPU tensor takes the plain version; a CUDA
 tensor takes the kernel or raises. Numerics as ``ops/stream_attn.py``; the
 compute dtype picks the kernel: bf16, or fp32 (``use_amp: false``: the
-``_f32`` entry points, the same kernels on the fp32 walk, counted apart by
-``key_stream_feat_f32_fwd`` / ``_bwd`` and ``value_stream_feat_f32_fwd`` /
-``_bwd``).
+``_f32`` entry points, counted apart by ``key_stream_feat_f32_fwd`` /
+``_bwd`` and ``value_stream_feat_f32_fwd`` / ``_bwd``). The fp32 forwards
+run on wgmma (``csrc/walk_wgmma.cuh`` ``stream_fwd_wg``, the record
+streams' function with the feature rows as its token source): they take the
+fp32 weight image of ``stream_attn.fwd_wgmma_pack_f32`` and the persistent
+grid, the key writes its masked scores to a (T, K) buffer that a softmax
+kernel reads, the value adds into a zeroed output; K <= 64 and value rows
+<= ``F32_FWD_MAX_ROWS`` wide, refused before any launch. The bf16 forwards
+and both backwards keep the WMMA walk.
 
 The key backward returns ALL of dxk: the caller detaches the position
 columns before they enter xk (``model/papr.py``), so autograd drops that
@@ -33,11 +39,12 @@ import math
 
 import torch
 
+from . import fused_mlp as fm
 from .fused_mlp import (BwdBuffers, Walk, c_ints, check_walk_for_kernel,
                         encode_plain, pack_walk, pack_walk_t,
                         source_segments, walk_plain, walk_tensors, walk_with)
-from .stream_attn import (_check_score_act, _grads_of, _score_softmax,
-                          _wk_packs)
+from .stream_attn import (F32_FWD_MAX_ROWS, _check_score_act, _grads_of,
+                          _score_softmax, _wk_packs, fwd_wgmma_pack_f32)
 
 
 def _walk_feat(x, walk: Walk, cdt):
@@ -131,16 +138,25 @@ def key_stream_feat_fwd(xk, qq, kwalk: Walk, wk, bk, influ, alive,
     attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
     raw = torch.empty(T, K, dtype=torch.float32, device=dev)
     f32 = cdt == torch.float32
-    name = ("papr_key_stream_feat_f32_fwd" if f32
-            else "papr_key_stream_feat_fwd")
-    rc = getattr(build.load(), name)(
-        xk.data_ptr(), d_raw, T, K, qq.data_ptr(), dm, float(math.sqrt(dm)),
-        influ.data_ptr(), alive.data_ptr(),
-        ctypes.cast(c_ints(kmeta), ctypes.c_void_p), kw.data_ptr(),
-        kb.data_ptr(), kln.data_ptr(), kplan.data_ptr(), wkf.data_ptr(),
-        bkp.data_ptr(), dm_pad, int(score_act == "relu"), float(bkg_score),
-        attn.data_ptr(), raw.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (xk.data_ptr(), d_raw, T, K, qq.data_ptr(), dm,
+            float(math.sqrt(dm)), influ.data_ptr(), alive.data_ptr(),
+            ctypes.cast(c_ints(kmeta), ctypes.c_void_p), kw.data_ptr(),
+            kb.data_ptr(), kln.data_ptr(), kplan.data_ptr(), wkf.data_ptr(),
+            bkp.data_ptr(), dm_pad, int(score_act == "relu"),
+            float(bkg_score), attn.data_ptr(), raw.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if f32:
+        # The wgmma forward: its masked scores, then the walk's layers and
+        # w_k as one fp32 image, its bytes and the grid.
+        ss = torch.empty(T, K, dtype=torch.float32, device=dev)
+        wpack = fwd_wgmma_pack_f32(kw, kpd, dev, (wkf,))
+        name = "papr_key_stream_feat_f32_fwd"
+        rc = build.load().papr_key_stream_feat_f32_fwd(
+            *args, ss.data_ptr(), wpack.data_ptr(),
+            wpack.numel() * wpack.element_size(), fm.wgmma_grid(T), stream)
+    else:
+        name = "papr_key_stream_feat_fwd"
+        rc = build.load().papr_key_stream_feat_fwd(*args, stream)
     build.check(rc, name)
     if f32:
         key_stream_feat_f32_fwd.launches += 1
@@ -154,7 +170,8 @@ key_stream_feat_fwd.launches = 0
 
 def key_stream_feat_f32_fwd(*args, **kwargs):
     """``key_stream_feat_fwd`` on the fp32 walk (the kernel
-    ``key_stream_feat_f32_fwd`` in ``csrc/key_stream_feat.cu``);
+    ``key_stream_feat_f32_fwd`` in ``csrc/key_stream_feat.cu``:
+    ``key_feat_fwd_wgmma_f32_kernel``, then the softmax kernel);
     ``launches`` counts that kernel's launches."""
     return key_stream_feat_fwd(*args, cdt=torch.float32, **kwargs)
 
@@ -312,18 +329,31 @@ def value_stream_feat_fwd(xv, attn, vwalk: Walk, normalize=True,
                          "on the card")
     dev = xv.device
     xv, attn = xv.contiguous(), attn.float().contiguous()
-    vmeta, vw, vb, vln, vplan, _ = pack_walk(vwalk, len(vwalk.cols), dev, cdt)
-    fused = torch.empty(T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32,
-                        device=dev)
+    vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev,
+                                               cdt)
     f32 = cdt == torch.float32
-    name = ("papr_value_stream_feat_f32_fwd" if f32
-            else "papr_value_stream_feat_fwd")
-    rc = getattr(build.load(), name)(
-        xv.data_ptr(), d_raw, T, K, attn.data_ptr(),
-        ctypes.cast(c_ints(vmeta), ctypes.c_void_p), vw.data_ptr(),
-        vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(),
-        int(bool(normalize)), fused.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    if f32 and vpd[-1] > F32_FWD_MAX_ROWS:
+        raise NotImplementedError(
+            f"value stream (features): value rows of {vpd[-1]} > "
+            f"{F32_FWD_MAX_ROWS} (the fp32 forward keeps its fuse rows beside "
+            "the fp32 activations in shared memory)")
+    # The wgmma forward adds each block's per-ray sums into a zeroed output.
+    fused = (torch.zeros if f32 else torch.empty)(
+        T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32, device=dev)
+    args = (xv.data_ptr(), d_raw, T, K, attn.data_ptr(),
+            ctypes.cast(c_ints(vmeta), ctypes.c_void_p), vw.data_ptr(),
+            vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(),
+            int(bool(normalize)), fused.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if f32:
+        wpack = fwd_wgmma_pack_f32(vw, vpd, dev)
+        name = "papr_value_stream_feat_f32_fwd"
+        rc = build.load().papr_value_stream_feat_f32_fwd(
+            *args, wpack.data_ptr(), wpack.numel() * wpack.element_size(),
+            fm.wgmma_grid(T), stream)
+    else:
+        name = "papr_value_stream_feat_fwd"
+        rc = build.load().papr_value_stream_feat_fwd(*args, stream)
     build.check(rc, name)
     if f32:
         value_stream_feat_f32_fwd.launches += 1
@@ -337,8 +367,9 @@ value_stream_feat_fwd.launches = 0
 
 def value_stream_feat_f32_fwd(*args, **kwargs):
     """``value_stream_feat_fwd`` on the fp32 walk (the kernel
-    ``value_stream_feat_f32_fwd`` in ``csrc/value_stream_feat.cu``);
-    ``launches`` counts that kernel's launches."""
+    ``value_stream_feat_f32_fwd`` in ``csrc/value_stream_feat.cu``:
+    ``value_feat_fwd_wgmma_f32_kernel``); ``launches`` counts that kernel's
+    launches."""
     return value_stream_feat_fwd(*args, cdt=torch.float32, **kwargs)
 
 

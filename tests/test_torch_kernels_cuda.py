@@ -1880,8 +1880,8 @@ def test_wgrad_f32_matches_fp64_product(dev, N, da, db):
 def test_wgmma_kernels_run_on_hgmma(dev):
     """The built library's SASS: the one-shot eval attention, the key /
     value stream forwards and backwards and the embedder forward and
-    backward (bf16 and fp32) and both dW reductions issue Hopper's
-    warpgroup MMAs (HGMMA)."""
+    backward (bf16 and fp32), the fp32 feature stream forwards and both dW
+    reductions issue Hopper's warpgroup MMAs (HGMMA)."""
     import os
     import shutil
     import subprocess
@@ -1903,7 +1903,8 @@ def test_wgmma_kernels_run_on_hgmma(dev):
                    "wgrad_f32_kernel", "fused_mlp_fwd_wgmma_f32_kernel",
                    "fused_mlp_bwd_wgmma_f32_kernel", "key_fwd_wgmma_f32_kernel",
                    "value_fwd_wgmma_f32_kernel", "key_bwd_wgmma_f32_kernel",
-                   "value_bwd_wgmma_f32_kernel"):
+                   "value_bwd_wgmma_f32_kernel", "key_feat_fwd_wgmma_f32_kernel",
+                   "value_feat_fwd_wgmma_f32_kernel"):
         bodies = [b for n, b in funcs.items() if kernel in n]
         assert bodies, f"{kernel} not in the library"
         assert all("HGMMA" in b for b in bodies), f"{kernel}: no HGMMA"
@@ -2151,6 +2152,295 @@ def test_value_stream_feat_f32_kernels_match_plain(dev, T, normalize):
             sf.value_stream_feat_f32_bwd.launches,
             sf.value_stream_feat_fwd.launches) == (before[0] + 1,
                                                    before[1] + 1, before[2])
+
+
+# The fp32 feature stream forwards on wgmma (rows 8f / 9f fwd:
+# key_feat_fwd_wgmma_f32_kernel, value_feat_fwd_wgmma_f32_kernel, the record
+# streams' stream_fwd_wg with the raw feature rows as its token source):
+# F32_FWD_CASES' T / K / grids, the record forwards' bounds, an all-dead ray
+# and an all-dead warpgroup.
+
+def _interpose(monkeypatch, name, wrap):
+    """``build.load()`` returns the library with its entry point ``name``
+    replaced by ``wrap(entry)``."""
+    from papr_tpu_torch.kernels import build
+    lib = build.load()
+
+    class Interposed:
+        def __getattr__(self, attr):
+            fn = getattr(lib, attr)
+            return wrap(fn) if attr == name else fn
+    monkeypatch.setattr(build, "load", lambda: Interposed())
+
+
+@pytest.mark.parametrize("score_act", ["relu", "none"])
+@pytest.mark.parametrize("T,K,grid", F32_FWD_CASES)
+def test_key_stream_feat_f32_fwd_wgmma_matches_plain(dev, monkeypatch, T, K,
+                                                     grid, score_act):
+    """Row 8's fp32 forward on wgmma against the plain fp32 forward: attn,
+    raw and the median ray of raw at the fp32 bounds; the masked scores the
+    kernel hands the softmax kernel exactly from raw, influence and alive;
+    ray 5 and, with T > 128, rays 64..127 (a warpgroup) all dead; one
+    launch counted as fp32."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    rng = np.random.default_rng(1800 + T + K)
+    xk, _, qq, influ, alive, kw, _, wk, bk = _feat_case(rng, dev, T, K)
+    if T > 128:
+        alive[64:128] = 0.0
+    _fwd_grid(monkeypatch, grid)
+    args = (xk, qq, kw, wk, bk, influ, alive, score_act, 5.0)
+    # The masked scores the kernel hands the softmax kernel: the entry
+    # point's (T, K) buffer (its fifth argument from the end) is this one.
+    ss = torch.full((T, K), float("nan"), device=dev)
+    _interpose(monkeypatch, "papr_key_stream_feat_f32_fwd",
+               lambda fn: lambda *a: fn(*a[:-5], ss.data_ptr(), *a[-4:]))
+    before = (sf.key_stream_feat_f32_fwd.launches,
+              sf.key_stream_feat_fwd.launches)
+    attn, raw = sf.key_stream_feat_fwd(*args, torch.float32)
+    assert (sf.key_stream_feat_f32_fwd.launches,
+            sf.key_stream_feat_fwd.launches) == (before[0] + 1, before[1])
+    attn_p, raw_p = sf.key_stream_feat_plain(*args, torch.float32)
+    a_abs = float((attn - attn_p).abs().max())
+    med = _median_row_rels([raw], [raw_p])[0]
+    print(f"key_stream_feat_f32_fwd wgmma T={T} K={K} grid={grid} "
+          f"{score_act}: attn max abs {a_abs:.2e}, raw {_rel(raw, raw_p):.2e}, "
+          f"median ray raw {med:.2e}")
+    assert bool(torch.isfinite(attn).all() and torch.isfinite(raw).all())
+    assert a_abs <= F32_FWD_ATTN_ABS and _rel(raw, raw_p) <= F32_FWD_REL
+    assert med <= F32_FWD_MEDIAN_REL
+    live = alive > 0.5
+    sact = torch.clamp_min(raw, 0.0) if score_act == "relu" else raw
+    assert torch.equal(ss, torch.where(live, sact * influ, sa.NEG_BIG))
+    dead = ~live.any(dim=1)
+    assert bool(dead[5]) and (T <= 128 or bool(dead[64:128].all()))
+    assert bool((attn[dead, K] == 1.0).all())
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("T,K,grid", F32_FWD_CASES)
+def test_value_stream_feat_f32_fwd_wgmma_matches_plain(dev, monkeypatch, T, K,
+                                                       grid, normalize):
+    """Row 9's fp32 forward on wgmma, as the key's above (the value rows
+    fused unrounded): ray 5 and, with T > 128, rays 64..127 have no
+    foreground mass and read exactly 0; split tiles add two blocks' sums,
+    in either order (a rerun is bit-equal); one launch counted as fp32."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    rng = np.random.default_rng(1900 + T + K)
+    _, xv, _, _, _, _, vw, _, _ = _feat_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[5, :K] = 0.0
+    if T > 128:
+        a[64:128, :K] = 0.0
+    attn = torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev)
+    _fwd_grid(monkeypatch, grid)
+    args = (xv, attn, vw, normalize)
+    before = (sf.value_stream_feat_f32_fwd.launches,
+              sf.value_stream_feat_fwd.launches)
+    fused = sf.value_stream_feat_f32_fwd(*args)
+    assert (sf.value_stream_feat_f32_fwd.launches,
+            sf.value_stream_feat_fwd.launches) == (before[0] + 1, before[1])
+    fused_p = sf.value_stream_feat_plain(*args, torch.float32)
+    med = _median_row_rels([fused], [fused_p])[0]
+    print(f"value_stream_feat_f32_fwd wgmma T={T} K={K} grid={grid} "
+          f"normalize={normalize}: fused {_rel(fused, fused_p):.2e}, median "
+          f"ray {med:.2e}")
+    assert bool(torch.isfinite(fused).all())
+    assert _rel(fused, fused_p) <= F32_FWD_REL and med <= F32_FWD_MEDIAN_REL
+    assert float(fused[5].abs().max()) == 0.0
+    if T > 128:
+        assert float(fused[64:128].abs().max()) == 0.0
+    assert torch.equal(fused, sf.value_stream_feat_f32_fwd(*args))
+
+
+@pytest.mark.parametrize("stream", ["key", "value"])
+def test_stream_feat_f32_fwd_wgmma_at_caterpillar_widths(dev, stream):
+    """Both fp32 feature forwards at phase 8's shapes and Caterpillar's
+    widths (T = 32,400, K = 20; xk 9 columns, a key encoding of 81, 5 x
+    256 with LayerNorms and w_k 256 x 256; xv 6 + 64 columns, a value
+    encoding of 118, 8 layers to 32), drawn on the card from a seeded
+    generator: the fp32 bounds and the median ray."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    T, K, L, n_feat = 32_400, 20, 4, 64
+    g = torch.Generator(device=dev).manual_seed(41)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    rng = np.random.default_rng(41)
+    if stream == "key":
+        kw = _walk(rng, posenc_plan((3, 3, 3), (L, L, L), 1, 2.0, 1.0, 0)[1],
+                   5, 256, 256, True, dev)
+        alive = (torch.rand(T, K, generator=g, device=dev) > 0.2).float()
+        args = (rn(K, T, 9), rn(T, 256), kw, rn(256, 256) / 16, rn(256) * 0.1,
+                rn(T, K), alive, "relu", 5.0, torch.float32)
+        attn, raw = sf.key_stream_feat_fwd(*args)
+        attn_p, raw_p = sf.key_stream_feat_plain(*args)
+        a_abs = float((attn - attn_p).abs().max())
+        rel, med = _rel(raw, raw_p), _median_row_rels([raw], [raw_p])[0]
+        print(f"key_stream_feat_f32_fwd wgmma at Caterpillar's widths: attn "
+              f"max abs {a_abs:.2e}, raw {rel:.2e}, median ray raw {med:.2e}")
+        assert a_abs <= F32_FWD_ATTN_ABS
+    else:
+        vw = _walk(rng, posenc_plan((3, 3), (L, L), 1, 2.0, 1.0, n_feat)[1], 8,
+                   256, 32, False, dev)
+        w = torch.rand(T, K + 1, generator=g, device=dev)
+        args = (rn(K, T, 6 + n_feat), w / w.sum(-1, keepdim=True), vw, True,
+                torch.float32)
+        fused = sf.value_stream_feat_fwd(*args)
+        fused_p = sf.value_stream_feat_plain(*args)
+        rel, med = _rel(fused, fused_p), _median_row_rels([fused],
+                                                          [fused_p])[0]
+        print(f"value_stream_feat_f32_fwd wgmma at Caterpillar's widths: "
+              f"fused {rel:.2e}, median ray {med:.2e}")
+    assert rel <= F32_FWD_REL and med <= F32_FWD_MEDIAN_REL
+
+
+@pytest.mark.parametrize("norm,grid", [(False, None), (True, None),
+                                       (False, 2)])
+def test_value_stream_feat_f32_fwd_one_hot_is_the_embedder(dev, monkeypatch,
+                                                          norm, grid):
+    """The value forward on a one-hot attention (slot 3, normalize off) is
+    the fp32 embedder (row 2f: the same wg_walk) on the rows xv[3], bit for
+    bit: the fuse adds one weight of 1 and K - 1 of 0 to each row, into a
+    zeroed output (split tiles: a second part of 0)."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    rng = np.random.default_rng(1950 + int(norm))
+    T, K, k0 = 300, 7, 3
+    _, xv, _, _, _, _, vw, _, _ = _feat_case(rng, dev, T, K)
+    if norm:
+        vw = _walk(rng, vw.cols, 8, 256, 32, True, dev)
+    onehot = torch.zeros(T, K + 1, device=dev)
+    onehot[:, k0] = 1.0
+    _fwd_grid(monkeypatch, grid)
+    fused = sf.value_stream_feat_f32_fwd(xv, onehot, vw, False)
+    rows = fm.fused_mlp_f32(xv[k0].contiguous(), vw)
+    print(f"value_stream_feat_f32_fwd one-hot norm={norm} grid={grid}: max "
+          f"abs against fused_mlp_f32 {float((fused - rows).abs().max()):.3e}")
+    assert torch.equal(fused, rows)
+
+
+QNAN = 0x7FC00000
+
+
+@pytest.fixture(scope="module")
+def smem_aid(tmp_path_factory):
+    """tests/smem_fill.cu, a check aid that is no part of the port's
+    library, built alone by nvcc into a temporary directory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel vs plain version)")
+    import ctypes
+    import os
+    import subprocess
+    from papr_tpu_torch.kernels import build
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "smem_fill.cu")
+    so = str(tmp_path_factory.mktemp("smem_fill") / "libsmem_fill.so")
+    r = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                        so, src], capture_output=True, text=True)
+    assert r.returncode == 0, (r.stdout + r.stderr)[-4000:]
+    lib = ctypes.CDLL(so)
+    I, P = ctypes.c_int, ctypes.c_void_p
+    for name, args in (("papr_smem_fill", [I, P]),
+                       ("papr_smem_probe", [I, P, P]),
+                       ("papr_smem_words", [])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return lib
+
+
+def _poison(monkeypatch, aid, entry):
+    """Just before each call of the entry point, on the launch's stream:
+    every SM's shared memory set to NaN (papr_smem_fill), then read back by
+    a kernel that only reads it (papr_smem_probe), so the entry's kernel is
+    the next to find the fill. Returns a check to call after the calls: it
+    fails unless each call found the fill whole on every SM, and says so."""
+    from papr_tpu_torch.kernels import build
+    words = aid.papr_smem_words()
+    assert words > 0, f"papr_smem_words failed with code {-words}"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    counts = torch.zeros(sms, dtype=torch.int32, device="cuda")
+    calls = []
+
+    def wrap(fn):
+        def launch(*args):
+            build.check(aid.papr_smem_fill(QNAN, args[-1]), "papr_smem_fill")
+            build.check(aid.papr_smem_probe(QNAN, counts.data_ptr(),
+                                            args[-1]), "papr_smem_probe")
+            calls.append(entry)
+            return fn(*args)
+        return launch
+    _interpose(monkeypatch, entry, wrap)
+
+    def survived():
+        torch.cuda.synchronize()
+        n = len(calls)
+        text = (f"{n} poisoned launches, the fill found on each SM "
+                f"{int(counts.min())}-{int(counts.max())} of {n} x {words} "
+                f"words, {sms} SMs")
+        assert n >= 1 and bool((counts == n * words).all()), text
+        return text
+    return survived
+
+
+@pytest.mark.parametrize("stream", ["key", "value"])
+def test_stream_feat_f32_fwd_wgmma_after_nan_shared_memory(dev, monkeypatch,
+                                                          smem_aid, stream):
+    """Every SM's shared memory set to NaN just before each launch of the
+    forward: its activation tiles are zeroed at the start, so the
+    encoding's columns past its width that the first 32-deep chunk
+    products read (a 45-wide key encoding: columns 48..63; the 142-wide
+    value encoding: 144..159) meet zeros, and the outputs hold at the fp32
+    bounds (with the zeroing taken out they read NaN)."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    rng = np.random.default_rng(1990)
+    T, K = 300, 7
+    xk, xv, qq, influ, alive, _, vw, wk, bk = _feat_case(rng, dev, T, K)
+    survived = _poison(monkeypatch, smem_aid,
+                       f"papr_{stream}_stream_feat_f32_fwd")
+    if stream == "key":
+        kw = _walk(rng, posenc_plan((3, 3, 3), (2, 2, 2), 1, 2.0, 1.0, 0)[1],
+                   5, 256, 256, True, dev)
+        args = (xk, qq, kw, wk, bk, influ, alive, "relu", 5.0, torch.float32)
+        got, want = sf.key_stream_feat_fwd(*args)[1], \
+            sf.key_stream_feat_plain(*args)[1]
+    else:
+        a = torch.as_tensor(rng.random((T, K + 1)), dtype=torch.float32,
+                            device=dev)
+        args = (xv, a / a.sum(-1, keepdim=True), vw, True, torch.float32)
+        got, want = sf.value_stream_feat_fwd(*args), \
+            sf.value_stream_feat_plain(*args)
+    print(f"{stream}_stream_feat_f32_fwd after NaN shared memory: "
+          f"{survived()}; finite {bool(torch.isfinite(got).all())}, rel "
+          f"{_rel(got, want):.2e}")
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= F32_FWD_REL
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_fused_mlp_f32_after_nan_shared_memory(dev, monkeypatch, smem_aid,
+                                               direction):
+    """The fp32 embedder (rows 2f / 3f) on the value stack, whose 142-wide
+    encoding leaves columns 144..159 of its last 32-deep chunk to the
+    zeroed tiles, launched right after every SM's shared memory is set to
+    NaN: the outputs finite and at the fp32 bounds."""
+    rng = np.random.default_rng(1995)
+    walk, x = _embed_case(rng, dev, "value", 300, False)
+    survived = _poison(monkeypatch, smem_aid,
+                       f"papr_fused_mlp_f32_{direction}")
+    name = f"fused_mlp_f32 {direction} after NaN shared memory"
+    if direction == "fwd":
+        got = [fm.fused_mlp_f32(x, walk)]
+        want = [fm.fused_mlp_plain(x, walk, torch.float32)]
+        tol = F32_REL
+    else:
+        dy = torch.as_tensor(rng.normal(size=(300, 32)).astype(np.float32),
+                             device=dev)
+        dy = _firm(dy, fm.walk_relu_margin(fm.encode_plain(x, walk.cols),
+                                           walk))
+        dx, grads = fm.fused_mlp_bwd_f32(x, dy, walk)
+        dxp, gp = fm.fused_mlp_bwd_plain(x, dy, walk, torch.float32)
+        got, want, tol = [dx] + grads, [dxp] + gp, F32_BWD_REL
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    print(f"{name}: {survived()}; finite {finite}")
+    assert finite
+    _close_all(got, want, tol, name)
 
 
 @pytest.mark.parametrize("T,K,Dk,Dq,dm,act", [(300, 20, 256, 256, 256, "relu"),

@@ -1,0 +1,232 @@
+"""The host side of the fp32 feature stream forwards on wgmma
+(``papr_key_stream_feat_f32_fwd`` / ``papr_value_stream_feat_f32_fwd``
+launch ``key_feat_fwd_wgmma_f32_kernel`` / ``value_feat_fwd_wgmma_f32_kernel``,
+``csrc/walk_wgmma.cuh`` ``stream_fwd_wg`` with the raw feature rows as its
+token source), on the CPU.
+
+- The fp32 wrappers of ``ops/stream_feat.py`` reach the new entry points
+  with their signature's argument count: the bf16 forms' arguments before
+  the stream, then (key) the (T, K) masked scores, the packed weights, their
+  size and the grid; one launch counted as fp32.
+- The value's output starts zeroed (each block adds its rays' sums).
+- The image they pass unpacks to the feature walk's layers (``pack_walk``'s
+  fp32 weights) and then (key) ``w_k``, in the order a k step streams them.
+- K over 64 and fp32 value rows over ``F32_FWD_MAX_ROWS`` are refused
+  before any launch.
+- The bf16 feature forwards keep their entry points and argument lists.
+
+Wrappers run on CPU tensors that read as CUDA tensors, against the stand-in
+library of ``tests/test_torch_wgmma.py`` (nothing runs on a card). The
+plain feature paths are held against JAX by ``tests/test_torch_stream_feat.py``.
+"""
+
+import ctypes
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from papr_tpu_torch.kernels import build
+from papr_tpu_torch.ops import fused_mlp as fm
+from papr_tpu_torch.ops import stream_feat as sf
+from test_torch_stream_bwd_wgmma import _walk
+from test_torch_wgmma import _card, lib  # noqa: F401
+from test_torch_wgmma_f32 import _stages, _unpack
+
+P, LL = build.P, ctypes.c_longlong
+KEY, VALUE = "papr_key_stream_feat", "papr_value_stream_feat"
+
+
+def _f32_bytes(dims):
+    """The fp32 image's size (``wg_plan_f32``): per matrix ceil(pd_out / 64)
+    passes of ceil(pd_in / 32) 16 KB stages."""
+    return sum(math.ceil(a / 32) * math.ceil(b / 64) * 16384 for a, b in dims)
+
+
+def _pd(walk):
+    return [fm.round_up(d, 16)
+            for d in [len(walk.cols)] + [int(w.shape[1]) for w in walk.ws]]
+
+
+def _feat_args(norm, K=6, T=300, dm=40, width=24, key_dims=(64, 80),
+               L=2):
+    """Raw key features (K, T, 9) and value features (K, T, 6 + 4), qq,
+    influence and alive (T, K), the feature walks (posenc_plan's columns,
+    as model/papr.py builds them) on tensors that read as CUDA tensors."""
+    rng = np.random.default_rng(17 + K + T)
+    t = lambda a: _card(torch.as_tensor(np.ascontiguousarray(a, np.float32)))
+    dk, kcols = fm.posenc_plan((3, 3, 3), (L, L, L), 1, 2.0, 1.0, 0)
+    dv, vcols = fm.posenc_plan((3, 3), (L, L), 1, 2.0, 1.0, 4)
+    card = lambda w: fm.walk_with(w, [_card(x) for x in fm.walk_tensors(w)])
+    kw = card(_walk(rng, kcols, key_dims, norm))
+    vw = card(_walk(rng, vcols, (48, width), norm))
+    key = (t(rng.normal(size=(K, T, dk))), t(rng.normal(size=(T, dm))), kw,
+           t(rng.normal(size=(dm, key_dims[-1]))), t(rng.normal(size=dm)),
+           t(rng.normal(size=(T, K))), t(rng.random((T, K)) > 0.2))
+    value = (t(rng.normal(size=(K, T, dv))), t(rng.random(size=(T, K + 1))),
+             vw)
+    return key, value, (K, T, dm)
+
+
+def _grid(monkeypatch, grid):
+    if grid is not None:
+        monkeypatch.setattr(fm, "wgmma_grid", lambda T: grid)
+    return grid
+
+
+@pytest.mark.parametrize("norm,grid", [(True, None), (False, None),
+                                       (True, 2)])
+def test_key_feat_fwd_f32_reaches_the_wgmma_entry_point(lib, monkeypatch,
+                                                        norm, grid):
+    """One launch counted as fp32; the bf16 form's arguments (features,
+    d_raw, T, K, ..., attn, raw), then ss, the fp32 image of the walk and
+    w_k (its byte size), the grid (``fm.wgmma_grid``, read through the
+    module) and the stream."""
+    key, _, (K, T, dm) = _feat_args(norm)
+    grid = _grid(monkeypatch, grid)
+    n = sf.key_stream_feat_f32_fwd.launches, sf.key_stream_feat_fwd.launches
+    attn, raw = sf.key_stream_feat_f32_fwd(*key, "relu", 5.0)
+    assert (sf.key_stream_feat_f32_fwd.launches,
+            sf.key_stream_feat_fwd.launches) == (n[0] + 1, n[1])
+    (name, a), = lib.calls
+    assert name == f"{KEY}_f32_fwd"
+    assert len(a) == len(build.SIGNATURES[f"{KEY}_fwd"]) + 4
+    assert tuple(a[1:4]) == (9, T, K)
+    assert (a[19], a[20]) == (attn.data_ptr(), raw.data_ptr())
+    assert a[-5] not in (a[19], a[20])                     # ss of its own
+    pd = _pd(key[2])
+    dims = list(zip(pd[:-1], pd[1:])) + [(pd[-1], fm.round_up(dm, 16))]
+    assert a[-3] == _f32_bytes(dims)
+    assert a[-2] == (grid or math.ceil(T / 128)) == fm.wgmma_grid(T)
+    assert (attn.shape, raw.shape) == ((T, K + 1), (T, K))
+
+
+@pytest.mark.parametrize("norm,grid", [(True, None), (False, 1)])
+def test_value_feat_fwd_f32_reaches_the_wgmma_entry_point(lib, monkeypatch,
+                                                          norm, grid):
+    """One launch counted as fp32, the fp32 image of the walk, the grid;
+    the output it is handed is zero (the kernel adds each block's sums; the
+    stand-in writes nothing)."""
+    _, value, (K, T, _) = _feat_args(norm)
+    grid = _grid(monkeypatch, grid)
+    n = (sf.value_stream_feat_f32_fwd.launches,
+         sf.value_stream_feat_fwd.launches)
+    fused = sf.value_stream_feat_f32_fwd(*value, True)
+    assert (sf.value_stream_feat_f32_fwd.launches,
+            sf.value_stream_feat_fwd.launches) == (n[0] + 1, n[1])
+    (name, a), = lib.calls
+    assert name == f"{VALUE}_f32_fwd"
+    assert len(a) == len(build.SIGNATURES[f"{VALUE}_fwd"]) + 3
+    assert tuple(a[1:4]) == (10, T, K)
+    pd = _pd(value[2])
+    assert a[-3] == _f32_bytes(list(zip(pd[:-1], pd[1:])))
+    assert a[-2] == (grid or math.ceil(T / 128))
+    assert fused.shape == (T, 24) and fused.dtype == torch.float32
+    assert not fused.any() and a[-5] == fused.data_ptr()
+
+
+@pytest.mark.parametrize("stream,widths", [
+    ("key", "narrow"), ("value", "narrow"), ("key", "Caterpillar")])
+def test_feat_pack_unpacks_to_the_walk_then_w_k(lib, monkeypatch, stream,
+                                                widths):
+    """The image the wrapper passes (its pointer) holds, per matrix in
+    stream order, hi = tf32(w) and hi + lo = w to fp32 rounding of the
+    feature walk's layers (``pack_walk``'s, the walk's weight in the
+    corner) and then (key) w_k as (d_out, d_model), zero beyond each."""
+    if widths == "Caterpillar":          # key 81 -> 5 x 256, w_k 256 wide
+        key, value, (K, T, dm) = _feat_args(True, K=2, T=10, dm=256,
+                                            key_dims=(256,) * 5, L=4)
+    else:
+        key, value, (K, T, dm) = _feat_args(True)
+    packs = []
+    real = sf.fwd_wgmma_pack_f32
+
+    def recording(*args, **kwargs):
+        packs.append(real(*args, **kwargs))
+        return packs[-1]
+    monkeypatch.setattr(sf, "fwd_wgmma_pack_f32", recording)
+    if stream == "key":
+        sf.key_stream_feat_f32_fwd(*key, "relu", 5.0)
+        walk, wk = key[2], key[3]
+    else:
+        sf.value_stream_feat_f32_fwd(*value, True)
+        walk, wk = value[2], None
+    (buf,), ((_, a),) = packs, lib.calls
+    assert a[-4] == buf.data_ptr() and buf.dtype == torch.float32
+    pd = _pd(walk)
+    want = []
+    for w, (p_in, p_out) in zip(walk.ws, zip(pd[:-1], pd[1:])):
+        m = torch.zeros(p_in, p_out)
+        m[:w.shape[0], :w.shape[1]] = w
+        want.append(m)
+    if wk is not None:
+        m = torch.zeros(pd[-1], fm.round_up(dm, 16))
+        m[:wk.shape[1], :dm] = wk.T
+        want.append(m)
+    order = [tuple(m.shape) for m in want]
+    assert 4 * buf.numel() == a[-3] == _f32_bytes(order)
+    for st, m, (p_in, p_out) in zip(_stages(buf, order), want, order):
+        hi, lo, lg, inside = _unpack(st, p_in, p_out)
+        assert not lg[~inside].any()
+        assert torch.equal(hi, fm.tf32_rna(m))
+        err = ((hi.double() + lo.double()) - m.double()).abs()
+        assert bool((err <= 2.0 ** -21 * m.double().abs()).all())
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_more_than_64_slots_are_refused(lib, cdt):
+    """K over 64 (the kernels' range): refused in both forms, no launch."""
+    key, value, _ = _feat_args(True, K=65, T=20)
+    with pytest.raises(NotImplementedError, match="K <= 64"):
+        sf.key_stream_feat_fwd(*key, "relu", 5.0, cdt)
+    with pytest.raises(NotImplementedError, match="K <= 64"):
+        sf.value_stream_feat_fwd(*value, True, cdt)
+    assert not lib.calls
+
+
+@pytest.mark.parametrize("width,refused", [(96, False), (112, True),
+                                           (256, True)])
+def test_f32_value_rows_over_the_limit_are_refused(lib, width, refused):
+    """The fp32 value forward takes value rows up to ``F32_FWD_MAX_ROWS``
+    (96) wide and refuses wider ones before any launch; the bf16 form takes
+    them."""
+    _, value, _ = _feat_args(True, width=width)
+    if refused:
+        with pytest.raises(NotImplementedError, match=f"{width} > 96"):
+            sf.value_stream_feat_fwd(*value, True, torch.float32)
+        assert not lib.calls
+    else:
+        sf.value_stream_feat_fwd(*value, True, torch.float32)
+        assert [c[0] for c in lib.calls] == [f"{VALUE}_f32_fwd"]
+    lib.calls.clear()
+    sf.value_stream_feat_fwd(*value, True, torch.bfloat16)
+    assert [c[0] for c in lib.calls] == [f"{VALUE}_fwd"]
+
+
+def test_bf16_feature_forwards_keep_their_entry_points(lib):
+    """The bf16 forwards stay on the WMMA kernels: their entry points, their
+    argument lists (no wgmma tail), their counters; the fp32 forms' lists
+    are theirs before the stream plus the tail."""
+    key, value, (K, T, _) = _feat_args(True)
+    n = (sf.key_stream_feat_fwd.launches, sf.value_stream_feat_fwd.launches,
+         sf.key_stream_feat_f32_fwd.launches,
+         sf.value_stream_feat_f32_fwd.launches)
+    attn, raw = sf.key_stream_feat_fwd(*key, "relu", 5.0, torch.bfloat16)
+    sf.value_stream_feat_fwd(*value, True, torch.bfloat16)
+    assert [c[0] for c in lib.calls] == [f"{KEY}_fwd", f"{VALUE}_fwd"]
+    (_, ka), (_, va) = lib.calls
+    assert (len(ka), len(va)) == (22, 13)
+    assert (ka[-3], ka[-2]) == (attn.data_ptr(), raw.data_ptr())
+    assert (sf.key_stream_feat_fwd.launches, sf.value_stream_feat_fwd.launches,
+            sf.key_stream_feat_f32_fwd.launches,
+            sf.value_stream_feat_f32_fwd.launches) == (n[0] + 1, n[1] + 1,
+                                                       n[2], n[3])
+    sig = build.SIGNATURES
+    assert sig[f"{KEY}_f32_fwd"] == sig[f"{KEY}_fwd"][:-1] + [P, P, LL,
+                                                              build.I, P]
+    assert sig[f"{VALUE}_f32_fwd"] == sig[f"{VALUE}_fwd"][:-1] + [P, LL,
+                                                                  build.I, P]
+    # The backwards keep one argument list for both forms.
+    for stem in (KEY, VALUE):
+        assert sig[f"{stem}_f32_bwd"] == sig[f"{stem}_bwd"]

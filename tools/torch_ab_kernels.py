@@ -10,10 +10,11 @@ process, for a parent / change / change / parent run on one card:
 <tree> is a checkout holding ``chip_smoke.py`` and ``papr_tpu_torch/`` (for
 the parent, ``git archive`` of it unpacked into a git-ignored directory);
 its kernels are built from its own sources. Prints digests (equal
-digests: bit-equal outputs) of the bf16 one-shot eval attention's outputs
-on phase 2's eval block, of the bf16 stream forwards' and backwards'
-outputs on phase 2's training patch (queries from the plain query
-embedder; the value forward fed the plain key forward's attention; the
+digests: bit-equal outputs) of the bf16 and fp32 one-shot eval attention's
+outputs on phase 2's eval block, of the bf16 stream forwards' and
+backwards' and the fp32 stream forwards' outputs on phase 2's training
+patch (queries from the plain query embedder; the value forwards fed the
+plain key forward's attention in their dtype; the
 backwards the plain forwards' raw dots, scores and attention and seeded
 cotangents: inputs both trees compute alike), of the bf16 query embedder's
 forward (K2) and backward (row 3) on the patch's rays (a seeded
@@ -72,6 +73,9 @@ def main() -> None:
         fm.fused_mlp = k2
     print(f"K3 bf16 outputs on the eval block (T={T}): sha256 "
           f"{digest(sa.attend_eval_idx(*args))}", flush=True)
+    print(f"K3 fp32 outputs on the eval block (T={T}): sha256 "
+          f"{digest(sa.attend_eval_idx(*args[:-1], torch.float32))}",
+          flush=True)
     del args
     a = params["attn"]
     kopts = (cfg.models.attn.score_act, float(cfg.geoms.background.constant),
@@ -100,7 +104,19 @@ def main() -> None:
                                        bool(cfg.models.normalize_topk_attn),
                                        float(cfg.eps), torch.bfloat16)),
           flush=True)
-    del rec, attn, raw, ss, dattn, dfused
+    kopts32 = kopts[:3] + (torch.float32,)
+    attn32 = sa.key_stream_plain(rec, rayo_f, rays, qq, kwalk, a["w_k"]["w"],
+                                 a["w_k"]["bias"], *kopts32)[0]
+    print("fp32 stream forwards on the training patch: key sha256 "
+          + digest(sa.key_stream_fwd(rec, rayo_f, rays, qq, kwalk,
+                                     a["w_k"]["w"], a["w_k"]["bias"],
+                                     *kopts32))
+          + ", value sha256 "
+          + digest([sa.value_stream_fwd(rec, rayo_f, rays, attn32, vwalk,
+                                        bool(cfg.models.normalize_topk_attn),
+                                        float(cfg.eps), torch.float32)]),
+          flush=True)
+    del rec, attn, raw, ss, dattn, dfused, attn32
     qwalk = cs.query_walk(params, cfg)
     x = rayd.reshape(-1, 3).contiguous()
     dy = torch.randn(x.shape[0], int(qwalk.ws[-1].shape[1]), generator=g,

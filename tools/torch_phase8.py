@@ -5,12 +5,16 @@ serving and tiled frames) on one source tree, in its own process, then the
 CUDA caching allocator's counters; for a parent / change / change / parent
 comparison of the fp32 step on one card:
 
-    python tools/torch_phase8.py [<tree>]      # needs a card and nvcc
+    python tools/torch_phase8.py [<tree>] [--mode NAME ...]   # card, nvcc
 
 <tree> is a checkout holding ``chip_smoke.py`` and ``papr_tpu_torch/`` (for
 the parent, ``git archive`` of it unpacked into a git-ignored directory);
-its kernels are built from its own sources. A failed comparison prints
-``FAILS:`` and the phase goes on.
+its kernels are built from its own sources. With ``--mode``, phase 8's runs
+of those attention modes under fp32 follow (``chip_smoke.drive_fp32_modes``
+on the tree's ``F32_MODES`` of those names, e.g. ``stream``: a step against
+the plain fp32 step, 1 + 5 timed steps with their profile, a serving and a
+tiled frame against ``auto``'s). A failed comparison prints ``FAILS:`` and
+the phase goes on.
 """
 
 import os
@@ -18,9 +22,12 @@ import sys
 
 
 def main() -> None:
-    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                           os.path.dirname(os.path.dirname(
-                               os.path.abspath(__file__))))
+    args = sys.argv[1:]
+    modes = [args[i + 1] for i, a in enumerate(args[:-1]) if a == "--mode"]
+    trees = [a for i, a in enumerate(args)
+             if a != "--mode" and (i == 0 or args[i - 1] != "--mode")]
+    tree = os.path.abspath(trees[0] if trees else os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
     os.chdir(tree)
     sys.path.insert(0, tree)
     import torch
@@ -30,7 +37,10 @@ def main() -> None:
     cs.fail = lambda m: print("FAILS:", m, flush=True)
     build.load()
     print(f"== tree {tree}", flush=True)
-    cs.drive_fp32_path(torch.device("cuda", 0))
+    f32 = cs.drive_fp32_path(torch.device("cuda", 0))
+    if modes:
+        cs.F32_MODES = tuple(m for m in cs.F32_MODES if m[0] in modes)
+        cs.drive_fp32_modes(torch.device("cuda", 0), f32["ref"])
     st = torch.cuda.memory_stats()
     print("allocator: retries", st["num_alloc_retries"], "device allocs",
           st["num_device_alloc"], "device frees", st["num_device_free"],

@@ -358,6 +358,33 @@ MUTS = [
      "    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)\n"
      "      sm.tiles[i] = 0.f;\n", "",
      ("f32_stream_fwd",)),
+    ("fp32 feat fwd wgmma: FeatSrc reads slot k - 1's feature rows",
+     "    return FeatSrc{p.x + (size_t)k * p.T * p.d_raw, p.d_raw, p.T, rbase};",
+     "    return FeatSrc{p.x + (size_t)(k > 0 ? k - 1 : 0) * p.T * p.d_raw, "
+     "p.d_raw, p.T, rbase};", ("f32_feat_fwd",)),
+    ("fp32 feat fwd wgmma: influence from slot k + 1",
+     "    return make_float2(p.influ[i], p.alive[i]);",
+     "    return make_float2(p.influ[(size_t)t * p.K + (k + 1) % p.K], "
+     "p.alive[i]);", ("f32_feat_fwd",)),
+    ("fp32 feat fwd wgmma: alive ignored",
+     "    return make_float2(p.influ[i], p.alive[i]);",
+     "    return make_float2(p.influ[i], 1.f);", ("f32_feat_fwd",)),
+    ("fp32 feat fwd wgmma: the tensor cores' own accumulator across the "
+     "whole K (every fp32 wgmma product; read on the feature forwards)",
+     _F32_WG_PRODUCTS + _F32_WG_JOIN,
+     _F32_WG_PRODUCTS.replace("dh + kk, s > 0);",
+                              "dh + kk, s > 0 || sub > 0 || c > 0);")
+     + _F32_WG_JOIN.replace("__fadd_rn(acc[32 * p + i], f[i])", "f[i]"),
+     ("f32_feat_fwd",)),
+    ("fp32 feat fwd wgmma: the value rows rounded to bf16 before the fuse "
+     "(a rounding point; the record value forward's too)",
+     _F32_FWD_FUSE, _F32_FWD_FUSE.replace("act_round<Op>(acc[i])",
+                                          "bf16_round(acc[i])"),
+     ("f32_feat_fwd",)),
+    ("fp32 feat fwd wgmma: E not zeroed at the start (whatever the block's "
+     "shared memory held: NaN, in the cuda cases that fill it first)",
+     "    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)\n"
+     "      sm.tiles[i] = 0.f;\n", "", ("f32_feat_fwd",)),
     ("fp32 embed wgmma walk: single-pass TF32 (the lo terms dropped, in "
      "every fp32 wgmma product)",
      _F32_WG_PRODUCTS,
@@ -462,9 +489,6 @@ MUTS = [
      "bq[c]);",
      "    if (t < T) qq[(size_t)t * dm + c] = "
      "bf16_round(linear_c<Op>(S.C[r * kCLd + c], bq[c]));"),
-    ("fp32 stream feat value fwd: the value rows rounded to bf16",
-     "    fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);",
-     "    fuse_step<__nv_bfloat16>(C, acc, attn, den, k, K, cout, t0, T);"),
     ("fp32 epilogue of int8 value: its value rows rounded to bf16",
      "    fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);",
      "    if (vq) fuse_step<__nv_bfloat16>(C, acc, attn, den, k, K, cout, t0, "
@@ -620,6 +644,25 @@ elif sys.argv[1] == "compare_f32_embed":
                                n_time=1)
     except Stop:
         pass
+elif sys.argv[1] == "compare_f32_feat":
+    # Phase 8's comparisons up to rows 8f / 9f fwd and the one-hot check:
+    # the run stops where row 9f bwd's would start.
+    cfg = cs.caterpillar_cfg()
+    params, state = cs.build_model(cfg, dev)
+    _, rayo, rayd, _ = cs.sphere_view(cfg, dev)
+    from papr_tpu_torch.ops import stream_feat as sf
+
+    class Stop(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Stop
+    sf.value_stream_feat_bwd = stop
+    try:
+        cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180,
+                               n_time=1)
+    except Stop:
+        pass
 elif sys.argv[1] == "compare_wgmma_kernels":
     cfg = cs.flagship_cfg()
     params, state = cs.build_model(cfg, dev)
@@ -665,6 +708,11 @@ TARGETS = {
                     "phase 2 key_stream_q_fwd on"), "stream_fwd_wgmma"),
     "embed": (("phase 2 K2", "phase 2 fused_mlp"),
               "fused_mlp_wgmma or fused_mlp_bwd_wgmma"),
+    # compare_f32_kernels up to rows 8f / 9f fwd and the one-hot check
+    # (compare_f32_feat), and the fp32 feature streams' cuda cases (the
+    # WMMA-era ones at F32_REL too, and the NaN-filled shared memory).
+    "f32_feat_fwd": (("phase 8 key_stream_feat_f32_fwd",
+                      "phase 8 value_stream_feat_f32_fwd"), "feat_f32"),
     # compare_f32_kernels up to rows 2f / 3f (compare_f32_embed), and the
     # fp32 embedder's cuda cases (the query, key and value stacks, small
     # grids, an overhang tile).
@@ -677,7 +725,8 @@ FN = {"f32_stream_bwd": "compare_f32_streams",
       "stream_bwd": "compare_train_kernels",
       "stream_fwd": "compare_train_kernels",
       "embed": "compare_embed_kernels",
-      "f32_embed": "compare_f32_embed"}
+      "f32_embed": "compare_f32_embed",
+      "f32_feat_fwd": "compare_f32_feat"}
 TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                                        "value_stream_i8", "int8_walk_bench"),
               "compare_f32_kernels": ("f32", "key_stream_f32_bwd wgmma",
@@ -692,7 +741,9 @@ TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
               "stream_bwd": ("key_stream_bwd T", "value_stream_bwd T"),
               "stream_fwd": ("key_stream_fwd wgmma", "value_stream_fwd wgmma"),
               "embed": ("fused_mlp wgmma", "fused_mlp_bwd wgmma"),
-              "f32_embed": ("fused_mlp_f32",)}
+              "f32_embed": ("fused_mlp_f32",),
+              "f32_feat_fwd": ("key_stream_feat_f32_fwd",
+                               "value_stream_feat_f32_fwd")}
 
 
 def target_of(name: str) -> str:
