@@ -115,7 +115,8 @@ Phases (each prints a line; any failure exits non-zero):
    tiled frame at 100x100 tiles, the serving frame against the plain fp32
    frame. Then the other modes under fp32 on the same model: their kernels
    against their plain fp32 versions at Caterpillar's shapes (the
-   query-folded key stream, the feature streams, the fused scores on the
+   query-folded key stream, its key outputs also against the fp32 key
+   stream's on its own qq bit for bit, the feature streams, the fused scores on the
    split path's embeddings, the embedder kernels on its key and value stacks,
    the int8 walks with their fp32 epilogue), and for each of ``stream``,
    ``true``, ``score``, ``streamrec`` + ``query_fold``, ``int8_eval`` and
@@ -123,7 +124,9 @@ Phases (each prints a line; any failure exits non-zero):
    (ms/step, rays/s, peak memory, a profiled step's idle share) and a serving
    and a tiled frame against ``auto``'s fp32 frames (the int8 frame: int8's
    own distance), with exact launch counts (the mode's fp32 kernels, no bf16
-   kernel, no plain version); then ``configs/demo.yml`` untouched through
+   kernel, no plain version; the ``stream`` and ``query_fold`` serving
+   frames profiled by kernel, the ``query_fold`` step's and frame's folded
+   key stream kernels named); then ``configs/demo.yml`` untouched through
    ``cli.train`` and ``cli.test``.
 9. Exposure control and the reference checkpoint format, on
    ``configs/t2_sphere_exposure.yml`` (bf16, FiLM live at the UNet's input)
@@ -327,12 +330,16 @@ WGRAD_F32_WMMA_MS = 4.819
 # shapes (tools/torch_stream_bwd_ablate.py --f32 on that tree, Caterpillar's
 # walks with random weights; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
 F32_BWD_WMMA_MS = {"key_stream_f32_bwd": (53.692, 47.031),
-                   "value_stream_f32_bwd": (58.484, 50.305)}
+                   "value_stream_f32_bwd": (58.484, 50.305),
+                   "key_stream_q_f32_bwd": (56.791, 49.642)}
 # The fp32 stream forwards on walk.cuh's WMMA walk before their wgmma
 # redesign (the key's softmax inside the kernel), the same readings
 # (tools/torch_stream_fwd_ablate.py --f32 on that tree; the feature
-# streams' with --feat --f32; PERF.md §6).
+# streams' with --feat --f32; PERF.md §6). The folded key stream's (row 7f,
+# both directions): phase 8's call on that tree, and as alone its kernel's
+# span in phase 8's profiled query_fold step.
 F32_FWD_WMMA_MS = {"key_stream_f32_fwd": (18.304, 17.861),
+                   "key_stream_q_f32_fwd": (19.931, 19.476),
                    "value_stream_f32_fwd": (21.857, 21.403),
                    "key_stream_feat_f32_fwd": (18.285, 18.017),
                    "value_stream_feat_f32_fwd": (21.713, 21.149)}
@@ -3025,6 +3032,13 @@ FEAT_FRAME_STAGES = (("key stream fwd (features)", "key_feat_fwd_"),
                      ("value stream fwd (features)", "value_feat_fwd_"),
                      ("value stream fwd (features)", "valuef_fwd_kernel")) \
     + FRAME_STAGES
+# The query_fold frame's: the fp32 query chain and the key forward it feeds
+# (wgmma), or the folded WMMA kernel of an earlier tree, then a frame's.
+FOLD_FRAME_STAGES = (("query chain fwd (query folded)", "query_head_fwd_"),
+                     ("key stream fwd (query folded, WMMA)", "keyq_fwd_kernel"),
+                     ("key softmax", "key_fwd_softmax"),
+                     ("key stream fwd", "key_fwd_"),
+                     ("value stream fwd", "value_fwd_")) + FRAME_STAGES
 TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("selection (streaming top-k kernel)", "topk_stream"),
                 ("embedder fwd", "fused_mlp_fwd_"),
@@ -3040,6 +3054,8 @@ TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("value stream bwd", "value_bwd_"),
                 ("key stream fwd (query folded)", "keyq_fwd_kernel"),
                 ("key stream bwd (query folded)", "keyq_bwd_kernel"),
+                ("query chain fwd (query folded)", "query_head_fwd_"),
+                ("query chain bwd (query folded)", "query_head_bwd_"),
                 ("key stream fwd (features)", "keyf_fwd_kernel"),
                 ("key stream fwd (features)", "key_feat_fwd_"),
                 ("key stream bwd (features)", "keyf_bwd_kernel"),
@@ -3628,6 +3644,10 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
     q_flops = T * (k * walk_flops(kwalk, wk)
                    + walk_flops(qwalk, a["w_q"]["w"]))
     q_bytes = nbytes(rec, rayo_f, rays, rayd_f) + walk_bytes(kwalk, qwalk)
+    # On wgmma (the fp32 embedder's walk with w_q as its head, then row 5f's
+    # kernels): qq's median row held as row 2f's; the plain backward reads
+    # the kernel forward's raw dots, as row 5f's does; the key's outputs bit
+    # for bit row 5f's on the fold's own qq and dattn.
     attn_q, raw_q, qq_q = record(
         "key_stream_q_f32_fwd", "papr_tpu_torch/csrc/key_stream_q.cu",
         "papr_tpu/ops/stream_attn.py:1201",
@@ -3636,8 +3656,16 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         lambda: (lambda r: [r[0], r[1], r[3]])(sa.key_stream_q_plain(
             *qargs, *kopts, f32)),
         F32_FWD_REL, ["attn", "raw", "qq"], q_bytes, q_flops,
-        attn_tol=F32_ATTN_ABS)
+        attn_tol=F32_ATTN_ABS, span=("query_head_fwd", "key_fwd"),
+        median=(2, F32_EMBED_MEDIAN_REL))
     ss_q = sa.key_stream_q_f32_fwd(*qargs, *kopts)[2]
+    kargs_q = (rec, rayo_f, rays, qq_q, kwalk, wk, bk)
+    same = [torch.equal(a_, b_) for a_, b_ in zip(
+        (attn_q, raw_q, ss_q), sa.key_stream_f32_fwd(*kargs_q, *kopts))]
+    print(f"phase 8 key_stream_q_f32_fwd on its own qq against "
+          f"key_stream_f32_fwd: attn, raw, ss bit-equal {same}", flush=True)
+    if not all(same):
+        failed.append("key_stream_q_f32_fwd vs key_stream_f32_fwd")
     margin_q = torch.minimum(
         sa.rec_relu_margin(rec, rayo_f, rays, kwalk, eps),
         fm.walk_relu_margin(fm.encode_plain(rayd_f, qwalk.cols), qwalk))
@@ -3647,12 +3675,26 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
            lambda: rec_lanes(sa.key_stream_q_f32_bwd(
                *qargs, qq_q, raw_q, ss_q, dattn_q, *kopts)),
            lambda: rec_lanes(sa.key_stream_q_bwd_plain(
-               *qargs, dattn_q, *kopts, f32, relu_on=raw_q > 0)),
+               *qargs, dattn_q, *kopts, f32, relu_on=raw_q > 0,
+               raw_saved=raw_q)),
            F32_BWD_REL, REC_LABELS + ["d_rayo", "d_rays", "d_rayd", "dW_k",
                                       "db_k", "dW_q", "db_q"]
            + walk_labels(kwalk) + ["q." + l for l in walk_labels(qwalk)],
-           q_bytes + nbytes(qq_q, raw_q, ss_q, dattn_q), 3 * q_flops)
-    del qargs, attn_q, raw_q, qq_q, ss_q
+           q_bytes + nbytes(qq_q, raw_q, ss_q, dattn_q), 3 * q_flops,
+           span=("key_bwd_wgmma_f32", "query_head_bwd"))
+    got_q = sa.key_stream_q_f32_bwd(*qargs, qq_q, raw_q, ss_q, dattn_q,
+                                    *kopts)
+    got_5 = sa.key_stream_f32_bwd(*kargs_q, raw_q, ss_q, dattn_q, *kopts)
+    nk = len(walk_labels(kwalk))
+    same = [torch.equal(a_, b_) for a_, b_ in zip(
+        got_q[:3] + got_q[4:6] + got_q[8:8 + nk], got_5[:3] + got_5[4:])]
+    print(f"phase 8 key_stream_q_f32_bwd on its own qq against "
+          f"key_stream_f32_bwd: d_rec, d_rayo, d_rays, dW_k, db_k and the key "
+          f"walk's {nk} gradients bit-equal {all(same)} "
+          f"({sum(same)} of {len(same)})", flush=True)
+    if not all(same) or len(same) != 5 + nk:
+        failed.append("key_stream_q_f32_bwd vs key_stream_f32_bwd")
+    del qargs, kargs_q, attn_q, raw_q, qq_q, ss_q, got_q, got_5
 
     # Rows 4q-6q beside fp32 compute: the int8 walks with the fp32 epilogue
     # against the plain int8 walks in fp32 (the calibration is the same
@@ -4310,15 +4352,38 @@ def drive_fp32_modes(device, ref) -> dict:
               and t_psnr >= F32_FRAME_PSNR)
         if not ok:
             fail(f"the fp32 {name} frame disagrees with auto's fp32 frame")
-        if name == "stream":
+        if name in ("stream", "query_fold"):
             # One more serving frame under the profiler: its device time by
-            # kernel, the feature forwards' kernels named.
+            # kernel, the mode's forwards' kernels named.
             with torch.no_grad():
                 _, _, fsp = device_profile(lambda: next(render_frames(
                     params0, state, mcfg, [c2w], FOCAL, FOCAL, H, W, H, W)))
-            print("phase 8 stream frame profile (one serving frame): "
-                  + (stage_split(fsp, FEAT_FRAME_STAGES, 1)[0] if fsp
+            stages = FEAT_FRAME_STAGES if name == "stream" \
+                else FOLD_FRAME_STAGES
+            print(f"phase 8 {name} frame profile (one serving frame): "
+                  + (stage_split(fsp, stages, 1)[0] if fsp
                      else "not measured"), flush=True)
+        if name == "query_fold":
+            # The step's and the frame's folded key stream kernels by name:
+            # the fp32 query chain and row 5f's kernels, no WMMA keyq_*;
+            # each profile that saw the device names the kernels it ran.
+            names = sorted({n_.split("(")[0].replace("void ", "")
+                            for _, _, n_ in list(spans or []) + list(fsp or [])
+                            if any(p_ in n_ for p_ in (
+                                "query_head", "key_fwd", "key_bwd",
+                                "keyq_"))})
+            need = ((["query_head_fwd", "query_head_bwd", "key_fwd_wgmma_f32",
+                      "key_bwd_wgmma_f32"] if spans else [])
+                    + (["query_head_fwd", "key_fwd_wgmma_f32"] if fsp
+                       else []))
+            print("phase 8 query_fold kernels (profiled step and frame): "
+                  + (", ".join(names) if need else
+                     "not measured (no device time in either profile)"),
+                  flush=True)
+            if any("keyq_" in n_ for n_ in names) or not all(
+                    any(w_ in n_ for n_ in names) for w_ in need):
+                fail("the fp32 query_fold path did not run the wgmma "
+                     "kernels of row 7f")
         out[name] = {"step_ms": step_ms, "frame_ms": frame_ms,
                      "tiled_ms": tiled_ms, "peak_gib": peak, "idle": idle}
         torch.cuda.empty_cache()

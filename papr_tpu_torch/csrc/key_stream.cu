@@ -123,16 +123,6 @@ key_fwd_wgmma_f32_kernel(const __grid_constant__ StreamFwdWgT<float> p) {
   stream_fwd_wg<true, float>(p);
 }
 
-#define KEY_FWD_PARAMS                                                       \
-    const float* rec, int rec_w, int T, int K, const float* rayo,            \
-    const float* rays, const float* qq, int dm, float sqrt_dm,               \
-    const int* kmeta, const void* kw, const void* kb, const void* kln,       \
-    const void* kplan, const void* wk, const void* bk, int dm_pad,           \
-    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss
-#define KEY_FWD_ARGS                                                         \
-    rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,       \
-    kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss
-
 // The forward on wgmma, Op the operand form: the int8 forms' arguments (wk
 // unread: the packed image replaces it), then the packed weights (the
 // walk's layers, then w_k; ops/stream_attn.py key_stream_fwd: bf16
@@ -184,15 +174,6 @@ extern "C" int papr_key_stream_i8_f32_fwd(KEY_FWD_PARAMS, const void* kwq,
   return launch_key_i8_fwd<float>(KEY_FWD_ARGS, kwq, kinv, kdq, stream);
 }
 
-#define KEY_BWD_PARAMS_NS                                                    \
-    const float* rec, int rec_w, int T, int K, const float* rayo,            \
-    const float* rays, const float* qq, int dm, float sqrt_dm,               \
-    const float* raw, const float* ss, const float* dattn, const int* kmeta, \
-    const void* kw, const void* kb, const void* kln, const void* kplan,      \
-    const void* bk, int dm_pad, int score_relu, float bkg, float eps,        \
-    void* stash, const long long* stash_off, const int* seg, int nsrc,       \
-    float* drec, float* drayo, float* drays, float* dqq, float* part,        \
-    int part_w, float* scratch
 __global__ void __launch_bounds__(kWgThreads, 1)
 key_bwd_wgmma_kernel(const __grid_constant__ StreamBwdWg p) {
   stream_bwd_wg<true>(p);
@@ -286,15 +267,6 @@ static int launch_key_bwd_wg(KEY_BWD_PARAMS_NS, const void* wpack,
                                                T * 3);
   return (int)cudaGetLastError();
 }
-
-#define KEY_BWD_WG_PARAMS                                                    \
-    KEY_BWD_PARAMS_NS, const void* wpack, long long wbytes, int grid,       \
-    float* dqq_aux, float* drayo_aux, float* drays_aux, void* stream
-#define KEY_BWD_WG_ARGS                                                      \
-    rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, raw, ss, dattn, kmeta,    \
-    kw, kb, kln, kplan, bk, dm_pad, score_relu, bkg, eps, stash, stash_off,  \
-    seg, nsrc, drec, drayo, drays, dqq, part, part_w, scratch, wpack,        \
-    wbytes, grid, dqq_aux, drayo_aux, drays_aux, stream
 
 extern "C" int papr_key_stream_bwd(KEY_BWD_WG_PARAMS) {
   return launch_key_bwd_wg<__nv_bfloat16>(KEY_BWD_WG_ARGS);

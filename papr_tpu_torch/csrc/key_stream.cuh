@@ -1,10 +1,12 @@
-// The record-native key stream on one tile of kRows rays: the forward k loop
-// with its softmax, and the backward k loop from the softmax backward to
-// d_rec / d_rayo / d_rays / dqq. The forward is shared by key_stream.cu's
-// int8 forwards (the query projected outside the kernel) and
-// key_stream_q.cu (the query chain inside it), which differ only in where qq
-// comes from; the backward is key_stream_q.cu's (key_stream.cu's bf16 and
-// fp32 forwards and backwards run walk_wgmma.cuh / walk_wgmma_bwd.cuh).
+// The record-native key stream on one tile of kRows rays (walk.cuh's WMMA
+// walk): the forward k loop with its softmax, and the backward k loop from
+// the softmax backward to d_rec / d_rayo / d_rays / dqq. The forward is
+// shared by key_stream.cu's int8 forwards (the query projected outside the
+// kernel) and key_stream_q.cu's bf16 form (the query chain inside it),
+// which differ only in where qq comes from; the backward is key_stream_q.cu's
+// bf16 form (key_stream.cu's bf16 and fp32 forwards and backwards run
+// walk_wgmma.cuh / walk_wgmma_bwd.cuh, and so does the fp32 folded key
+// stream, through key_stream.cu's entry points declared at the end).
 
 #pragma once
 
@@ -153,3 +155,40 @@ __device__ __forceinline__ void key_rec_bwd_tile(
 }
 
 }  // namespace papr
+
+// The record-native key stream's C entry points (key_stream.cu): the int8
+// and wgmma forwards' arguments, the backward's; the fp32 wgmma forms are
+// what the folded key stream's fp32 form (key_stream_q.cu) runs after
+// (forward) and before (backward) its query chain.
+#define KEY_FWD_PARAMS                                                       \
+    const float* rec, int rec_w, int T, int K, const float* rayo,            \
+    const float* rays, const float* qq, int dm, float sqrt_dm,               \
+    const int* kmeta, const void* kw, const void* kb, const void* kln,       \
+    const void* kplan, const void* wk, const void* bk, int dm_pad,           \
+    int score_relu, float bkg, float eps, void* attn, void* raw, void* ss
+#define KEY_FWD_ARGS                                                         \
+    rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb, kln,       \
+    kplan, wk, bk, dm_pad, score_relu, bkg, eps, attn, raw, ss
+
+#define KEY_BWD_PARAMS_NS                                                    \
+    const float* rec, int rec_w, int T, int K, const float* rayo,            \
+    const float* rays, const float* qq, int dm, float sqrt_dm,               \
+    const float* raw, const float* ss, const float* dattn, const int* kmeta, \
+    const void* kw, const void* kb, const void* kln, const void* kplan,      \
+    const void* bk, int dm_pad, int score_relu, float bkg, float eps,        \
+    void* stash, const long long* stash_off, const int* seg, int nsrc,       \
+    float* drec, float* drayo, float* drays, float* dqq, float* part,        \
+    int part_w, float* scratch
+#define KEY_BWD_WG_PARAMS                                                    \
+    KEY_BWD_PARAMS_NS, const void* wpack, long long wbytes, int grid,       \
+    float* dqq_aux, float* drayo_aux, float* drays_aux, void* stream
+#define KEY_BWD_WG_ARGS                                                      \
+    rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, raw, ss, dattn, kmeta,    \
+    kw, kb, kln, kplan, bk, dm_pad, score_relu, bkg, eps, stash, stash_off,  \
+    seg, nsrc, drec, drayo, drays, dqq, part, part_w, scratch, wpack,        \
+    wbytes, grid, dqq_aux, drayo_aux, drays_aux, stream
+
+extern "C" int papr_key_stream_f32_fwd(KEY_FWD_PARAMS, const void* wpack,
+                                       long long wbytes, int grid,
+                                       void* stream);
+extern "C" int papr_key_stream_f32_bwd(KEY_BWD_WG_PARAMS);

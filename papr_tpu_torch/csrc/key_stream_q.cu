@@ -2,68 +2,92 @@
 // backward (tpu.query_fold with the record-native streams).
 //
 // Forward replaces papr_tpu/ops/stream_attn.py::key_stream_scores_recq
-// (pallas_call at :1440, kernel body _ksrq_fwd_kernel :1201): per ray tile
-// first the query walk on the RAW ray direction (posenc 39 -> LN -> 5 x 256
-// -> LN) and qq = linear(eq, w_q) with the linear layer's own bf16 epilogue,
-// written out as the fp32 (T, dm) residual; then the record-native key loop
-// of key_stream.cu against that qq. Outputs attn (T, K+1), raw, ss (T, K)
-// and qq (T, dm).
+// (pallas_call at :1440, kernel body _ksrq_fwd_kernel :1201): the query
+// walk on the RAW ray direction (posenc 39 -> LN -> 5 x 256 -> LN) and qq =
+// linear(eq, w_q), written out as the fp32 (T, dm) residual; then the
+// record-native key loop against that qq. Outputs attn (T, K+1), raw, ss
+// (T, K) and qq (T, dm).
 //
 // Backward replaces _ksrq_bwd (pallas_call at :1547, kernel body
-// _ksrq_bwd_kernel :1243): the key loop's backward (key_stream.cuh) sums dqq
-// over k into the block's own rows; then, ONCE per tile, the query backward:
-// recompute the query walk, dW_q / db_q from the bf16 dqq stash and the fp32
-// column sums, dX through w_q^T and the reverse walk, the posenc backward to
-// d_rayd (T, 3).
+// _ksrq_bwd_kernel :1243): the key loop's backward sums dqq over k; then,
+// once per ray, the query backward: dW_q / db_q from the stashed eq and
+// dqq, dX through w_q^T and the reverse walk, the posenc backward to d_rayd
+// (T, 3).
 //
 // What bounds it on the H100: the key walks, as key_stream.cu; the query
-// chain adds one walk per K key walks (5 % at K = 20). What the design does
-// about it: the fold removes the query embedder's two launches and the w_q
-// matmuls of a step, not work. Shared memory is full with one walk's buffers
-// (two activation tiles, the accumulator, the staged weights), so the query
-// and key walks take turns in them, one staged layer at a time, and qq / dqq
-// live in the (T, dm) device buffers the kernel writes anyway: a block reads
-// back only rows it wrote itself (L2-resident, 64 KB a tile), after a
-// barrier, through ordinary loads. The query stashes are T rows, not K * T:
-// the query walk has WalkBwd buffers of its own.
+// chain adds one walk per K key walks (5 % at K = 20). The fold removes the
+// query embedder's launches and the w_q matmuls of a step, not work.
 //
-// key_stream_q_f32_fwd / key_stream_q_f32_bwd are the same two kernels on the
-// fp32 walks (use_amp: false; _ksrq_*_kernel with cdt = float32): the query
-// walk, w_q and its bias in fp32 (linear_c<float>: qq is never rounded), the
-// key walk and w_k as key_stream_f32_*, fp32 stashes (dqq included) and dW
-// through wgrad_f32. Shared memory is the bf16 kernels' byte for byte
-// (walk.cuh): the fp32 activations live in C, and qq / dqq stay in the
-// (T, dm) fp32 device buffers.
+// fp32 (key_stream_q_f32_fwd / key_stream_q_f32_bwd; use_amp: false,
+// _ksrq_*_kernel with cdt = float32): two walks on walk_wgmma.cuh's fp32
+// operand form (3xTF32 m64n64k8 products, fresh accumulators joined every 32
+// of depth), launched in turn on one stream:
+//   * forward, one entry point: the query chain on the fp32 embedder's walk
+//     with w_q as its head (embed_wgmma.cuh embed_fwd_wg<float, true>,
+//     query_head_fwd_wgmma_f32_kernel: 128-ray tiles of a persistent grid,
+//     the walk's output left in E, one more layer of the image, b_q added in
+//     fp32, qq never rounded), then the record-native key forward on that
+//     qq through key_stream.cu's own entry point (key_fwd_wgmma_f32_kernel,
+//     then key_fwd_softmax_kernel), so attn / raw / ss are bit-equal to
+//     key_stream_f32_fwd's on the same qq;
+//   * backward, two entry points called in turn by the wrapper
+//     (ops/stream_attn.py): key_stream.cu's papr_key_stream_f32_bwd
+//     (key_bwd_wgmma_f32_kernel and its combine kernel: d_rec, d_rayo, d_rays
+//     and dqq summed over k, bit-equal to key_stream_f32_bwd's), then
+//     papr_key_stream_q_f32_bwd, the query backward on the embedder's
+//     backward with the head (embed_bwd_wg<float, true>,
+//     query_head_bwd_wgmma_f32_kernel): the recomputed eq stashed for dW_q,
+//     dqq's column sums for db_q and dqq stashed, dqq w_q (the image's
+//     w_q^T layer) into the reverse walk, the posenc backward summed per raw
+//     column into d_rayd. dW of both walks and of w_k / w_q: wgrad_f32 on
+//     the stashes, after each launch.
+// The images are the wrapper's: the query walk then w_q (forward), the
+// query walk, w_q^T, W_l^T for l = n-1 .. 0 (backward); the key's as
+// key_stream.cu's. The rounding points are JAX's fp32 _ksrq_*_kernel:
+// nothing is rounded.
+//
+// bf16 (key_stream_q_fwd / key_stream_q_bwd): kernels on walk.cuh's WMMA
+// layers, one block of 512 threads a 64-ray tile: first the query
+// walk and qq = linear(eq, w_q) with the linear layer's own bf16 epilogue,
+// then the key loop of key_stream.cuh against that qq. Shared memory is full
+// with one walk's buffers (two activation tiles, the accumulator, the staged
+// weights), so the query and key walks take turns in them, one staged layer
+// at a time, and qq / dqq live in the (T, dm) device buffers the kernel
+// writes anyway: a block reads back only rows it wrote itself (L2-resident,
+// 64 KB a tile), after a barrier, through ordinary loads. The query stashes
+// are T rows, not K * T: the query walk has WalkBwd buffers of its own.
 
+#include "embed_wgmma.cuh"
 #include "key_stream.cuh"
 
 using namespace papr;
 
-template <class Op>
+// ------------------------------------------------- bf16: on WMMA walks ----
+
 __global__ void __launch_bounds__(kThreads, 1)
 keyq_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                 const float* __restrict__ rayo, const float* __restrict__ rays,
                 const float* __restrict__ rayd, int dm, float sqrt_dm,
-                WalkDescT<Op> kd, const Op* __restrict__ wk,
-                const float* __restrict__ bk, WalkDescT<Op> qd,
-                const Op* __restrict__ wq,
+                WalkDesc kd, const __nv_bfloat16* __restrict__ wk,
+                const float* __restrict__ bk, WalkDesc qd,
+                const __nv_bfloat16* __restrict__ wq,
                 const float* __restrict__ bq, int dm_pad, int score_relu,
                 float bkg, float eps, float* __restrict__ attn,
                 float* __restrict__ raw, float* __restrict__ ss_out,
                 float* qq) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmemT<Op> S = walk_smem<Op>(smem);
+  const WalkSmem S = walk_smem(smem);
   const int t0 = blockIdx.x * kRows;
 
   // The query chain, once per tile (_ksrq_fwd_kernel :1211-1215).
   encode_raw(S.C, qd, rayd, t0, T, 3);
   __syncthreads();
-  run_walk(S, qd, true);              // eq: bf16 in A[0], or fp32 in C
+  run_walk(S, qd, true);              // eq in A[0]
   dense_layer(S.A[0], S.C, nullptr, S.W, wq, nullptr, qd.pd[qd.n], dm_pad, 0);
   __syncthreads();
   for (int i = threadIdx.x; i < kRows * dm; i += kThreads) {
     const int r = i / dm, c = i - r * dm, t = t0 + r;
-    if (t < T) qq[(size_t)t * dm + c] = linear_c<Op>(S.C[r * kCLd + c], bq[c]);
+    if (t < T) qq[(size_t)t * dm + c] = linear_bf16(S.C[r * kCLd + c], bq[c]);
   }
   __syncthreads();
 
@@ -71,24 +95,23 @@ keyq_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
                    bk, dm_pad, score_relu, bkg, eps, attn, raw, ss_out);
 }
 
-template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
 keyq_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
                 const float* __restrict__ rayo, const float* __restrict__ rays,
                 const float* __restrict__ rayd, const float* __restrict__ qq,
                 int dm, float sqrt_dm, const float* __restrict__ raw,
                 const float* __restrict__ ss, const float* __restrict__ dattn,
-                WalkDescT<Op> kd, WalkBwdT<Op> kb,
-                const Op* __restrict__ wkf, const Op* __restrict__ wkb,
-                const float* __restrict__ bk, WalkDescT<Op> qd,
-                WalkBwdT<Op> qb, const Op* __restrict__ wqb, int dm_pad,
-                int dbk_off,
-                int dbq_off, int score_relu, float bkg, float eps,
-                const int* __restrict__ seg, int nsrc,
+                WalkDesc kd, WalkBwd kb,
+                const __nv_bfloat16* __restrict__ wkf,
+                const __nv_bfloat16* __restrict__ wkb,
+                const float* __restrict__ bk, WalkDesc qd, WalkBwd qb,
+                const __nv_bfloat16* __restrict__ wqb, int dm_pad,
+                int dbk_off, int dbq_off, int score_relu, float bkg,
+                float eps, const int* __restrict__ seg, int nsrc,
                 const int* __restrict__ qseg, float* drec, float* drayo,
                 float* drays, float* __restrict__ drayd, float* dqq) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmemT<Op> S = walk_smem<Op>(smem);
+  const WalkSmem S = walk_smem(smem);
   float* C = S.C;
   float* st = reinterpret_cast<float*>(S.extra);             // 4 x kRows
   const int t0 = blockIdx.x * kRows;
@@ -106,12 +129,12 @@ keyq_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
   const TileCtx ctx = tile_ctx(qd, qb, (size_t)t0, st);
   walk_fwd_stash(S, qd, qb, ctx, true);          // eq_c in A[0]
   stash_tile(S.A[0], qb.hs[m], ctx.row0, pdm);
-  __syncthreads();                // fp32: A[0] is C, overwritten below
+  __syncthreads();
   for (int i = threadIdx.x; i < kRows * dm_pad; i += kThreads) {
     const int r = i / dm_pad, c = i - r * dm_pad, t = t0 + r;
     const float g = t < T && c < dm ? dqq[(size_t)t * dm + c] : 0.f;
     C[r * kCLd + c] = g;
-    const Op h = to_act<Op>(g);
+    const __nv_bfloat16 h = __float2bfloat16_rn(g);
     S.A[1][r * kALd + c] = h;
     qb.dz[m][(ctx.row0 + r) * dm_pad + c] = h;
   }
@@ -131,42 +154,15 @@ keyq_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
   });
 }
 
-#define KEYQ_FWD_PARAMS                                                      \
-    const float* rec, int rec_w, int T, int K, const float* rayo,            \
-    const float* rays, const float* rayd, int dm, float sqrt_dm,             \
-    const int* kmeta, const void* kw, const void* kb, const void* kln,       \
-    const void* kplan, const void* wk, const void* bk, const int* qmeta,     \
-    const void* qw, const void* qb, const void* qln, const void* qplan,      \
-    const void* wq, const void* bq, int dm_pad, int score_relu, float bkg,   \
-    float eps, void* attn, void* raw, void* ss, void* qq, void* stream
-#define KEYQ_FWD_ARGS                                                        \
-    rec, rec_w, T, K, rayo, rays, rayd, dm, sqrt_dm, kmeta, kw, kb, kln,     \
-    kplan, wk, bk, qmeta, qw, qb, qln, qplan, wq, bq, dm_pad, score_relu,    \
-    bkg, eps, attn, raw, ss, qq, stream
-#define KEYQ_BWD_PARAMS                                                      \
-    const float* rec, int rec_w, int T, int K, const float* rayo,            \
-    const float* rays, const float* rayd, const float* qq, int dm,           \
-    float sqrt_dm, const float* raw, const float* ss, const float* dattn,    \
-    const int* kmeta, const void* kw, const void* kb, const void* kln,       \
-    const void* kplan, const void* kwt, const void* wkf, const void* wkb,    \
-    const void* bk, const int* qmeta, const void* qw, const void* qb,        \
-    const void* qln, const void* qplan, const void* qwt, const void* wqb,    \
-    int dm_pad, int score_relu, float bkg, float eps, void* kstash,          \
-    const long long* kstash_off, void* qstash, const long long* qstash_off,  \
-    const int* seg, int nsrc, const int* qseg, float* drec, float* drayo,    \
-    float* drays, float* drayd, float* dqq, float* kpart, int kpart_w,       \
-    float* kscratch, float* qpart, int qpart_w, float* qscratch,             \
-    void* stream
-#define KEYQ_BWD_ARGS                                                        \
-    rec, rec_w, T, K, rayo, rays, rayd, qq, dm, sqrt_dm, raw, ss, dattn,     \
-    kmeta, kw, kb, kln, kplan, kwt, wkf, wkb, bk, qmeta, qw, qb, qln, qplan, \
-    qwt, wqb, dm_pad, score_relu, bkg, eps, kstash, kstash_off, qstash,      \
-    qstash_off, seg, nsrc, qseg, drec, drayo, drays, drayd, dqq, kpart,      \
-    kpart_w, kscratch, qpart, qpart_w, qscratch, stream
-
-template <class Op>
-static int launch_keyq_fwd(KEYQ_FWD_PARAMS) {
-  WalkDescT<Op> kd, qd;
+extern "C" int papr_key_stream_q_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* rayd, int dm, float sqrt_dm,
+    const int* kmeta, const void* kw, const void* kb, const void* kln,
+    const void* kplan, const void* wk, const void* bk, const int* qmeta,
+    const void* qw, const void* qb, const void* qln, const void* qplan,
+    const void* wq, const void* bq, int dm_pad, int score_relu, float bkg,
+    float eps, void* attn, void* raw, void* ss, void* qq, void* stream) {
+  WalkDesc kd, qd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   err = fill_walk(&qd, qmeta, qw, qb, qln, qplan);
@@ -177,28 +173,40 @@ static int launch_keyq_fwd(KEYQ_FWD_PARAMS) {
   const size_t smem = key_rec_fwd_smem(K);
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      keyq_fwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      keyq_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  keyq_fwd_kernel<Op><<<(T + kRows - 1) / kRows, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  keyq_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
       rec, rec_w, T, K, rayo, rays, rayd, dm, sqrt_dm, kd,
-      static_cast<const Op*>(wk), static_cast<const float*>(bk),
-      qd, static_cast<const Op*>(wq),
+      static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
+      qd, static_cast<const __nv_bfloat16*>(wq),
       static_cast<const float*>(bq), dm_pad, score_relu, bkg, eps,
       static_cast<float*>(attn), static_cast<float*>(raw),
       static_cast<float*>(ss), static_cast<float*>(qq));
   return (int)cudaGetLastError();
 }
 
-template <class Op>
-static int launch_keyq_bwd(KEYQ_BWD_PARAMS) {
-  WalkDescT<Op> kd, qd;
+extern "C" int papr_key_stream_q_bwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* rayd, const float* qq, int dm,
+    float sqrt_dm, const float* raw, const float* ss, const float* dattn,
+    const int* kmeta, const void* kw, const void* kb, const void* kln,
+    const void* kplan, const void* kwt, const void* wkf, const void* wkb,
+    const void* bk, const int* qmeta, const void* qw, const void* qb,
+    const void* qln, const void* qplan, const void* qwt, const void* wqb,
+    int dm_pad, int score_relu, float bkg, float eps, void* kstash,
+    const long long* kstash_off, void* qstash, const long long* qstash_off,
+    const int* seg, int nsrc, const int* qseg, float* drec, float* drayo,
+    float* drays, float* drayd, float* dqq, float* kpart, int kpart_w,
+    float* kscratch, float* qpart, int qpart_w, float* qscratch,
+    void* stream) {
+  WalkDesc kd, qd;
   int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
   if (err) return err;
   err = fill_walk(&qd, qmeta, qw, qb, qln, qplan);
   if (err) return err;
-  WalkBwdT<Op> kwb, qwb;
+  WalkBwd kwb, qwb;
   err = fill_walk_bwd(&kwb, kd, kmeta, kwt, kstash, kstash_off, kd.n + 1,
                       kpart, kpart_w, kscratch);
   if (err) return err;
@@ -214,33 +222,98 @@ static int launch_keyq_bwd(KEYQ_BWD_PARAMS) {
   const size_t smem = key_rec_bwd_smem(K);
   if (smem > 232448) return -203;
   cudaError_t e = cudaFuncSetAttribute(
-      keyq_bwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      keyq_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int Tp = (T + kRows - 1) / kRows * kRows;
-  keyq_bwd_kernel<Op><<<Tp / kRows, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  keyq_bwd_kernel<<<Tp / kRows, kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
       rec, rec_w, T, Tp, K, rayo, rays, rayd, qq, dm, sqrt_dm, raw, ss, dattn,
-      kd, kwb, static_cast<const Op*>(wkf),
-      static_cast<const Op*>(wkb), static_cast<const float*>(bk),
-      qd, qwb, static_cast<const Op*>(wqb), dm_pad, dbk_off,
+      kd, kwb, static_cast<const __nv_bfloat16*>(wkf),
+      static_cast<const __nv_bfloat16*>(wkb), static_cast<const float*>(bk),
+      qd, qwb, static_cast<const __nv_bfloat16*>(wqb), dm_pad, dbk_off,
       dbq_off, score_relu, bkg, eps, seg, nsrc, qseg, drec, drayo, drays,
       drayd, dqq);
   return (int)cudaGetLastError();
 }
 
-extern "C" int papr_key_stream_q_fwd(KEYQ_FWD_PARAMS) {
-  return launch_keyq_fwd<__nv_bfloat16>(KEYQ_FWD_ARGS);
+// ------------------------------------------------ fp32: on wgmma + TMA ----
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+query_head_fwd_wgmma_f32_kernel(const __grid_constant__ EmbedFwdWgT<float> p) {
+  embed_fwd_wg<float, true>(p);
 }
 
-extern "C" int papr_key_stream_q_f32_fwd(KEYQ_FWD_PARAMS) {
-  return launch_keyq_fwd<float>(KEYQ_FWD_ARGS);
+__global__ void __launch_bounds__(kWgThreads, 1)
+query_head_bwd_wgmma_f32_kernel(const __grid_constant__ EmbedBwdWgT<float> p) {
+  embed_bwd_wg<float, true>(p);
 }
 
-extern "C" int papr_key_stream_q_bwd(KEYQ_BWD_PARAMS) {
-  return launch_keyq_bwd<__nv_bfloat16>(KEYQ_BWD_ARGS);
+// The fp32 forward: the key's arguments as papr_key_stream_f32_fwd takes
+// them (qq its output here, the key's image kpack / kbytes: the key walk,
+// then w_k; ops/stream_attn.py fwd_wgmma_pack_f32), the raw ray directions
+// rayd, the query walk and b_q, its image qpack / qbytes (the query walk,
+// then w_q), and the grid (1 .. the number of 128-ray tiles; both launches
+// take it).
+extern "C" int papr_key_stream_q_f32_fwd(
+    const float* rec, int rec_w, int T, int K, const float* rayo,
+    const float* rays, const float* rayd, int dm, float sqrt_dm,
+    const int* kmeta, const void* kw, const void* kb, const void* kln,
+    const void* kplan, const void* bk, const int* qmeta, const void* qw,
+    const void* qb, const void* qln, const void* qplan, const void* bq,
+    int dm_pad, int score_relu, float bkg, float eps, void* attn, void* raw,
+    void* ss, void* qq, const void* kpack, long long kbytes,
+    const void* qpack, long long qbytes, int grid, void* stream) {
+  int err = check_score_head(dm, dm_pad, K);
+  if (err) return err;
+  EmbedFwdWgT<float> p{};
+  size_t smem = 0;
+  err = fill_embed_fwd_wg(&p, qmeta, qw, qb, qln, qplan, dm_pad, qpack,
+                          qbytes, &smem);
+  if (err) return err;
+  if (T <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(qq) % 16) return -210;
+  p.x = rayd;
+  p.d_raw = 3;
+  p.hb = static_cast<const float*>(bq);
+  p.hy = static_cast<float*>(qq);
+  p.d_head = dm;
+  err = launch_embed_fwd_wg(p, query_head_fwd_wgmma_f32_kernel, T, grid,
+                            smem, static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  return papr_key_stream_f32_fwd(
+      rec, rec_w, T, K, rayo, rays, static_cast<const float*>(qq), dm,
+      sqrt_dm, kmeta, kw, kb, kln, kplan, nullptr, bk, dm_pad, score_relu,
+      bkg, eps, attn, raw, ss, kpack, kbytes, grid, stream);
 }
 
-extern "C" int papr_key_stream_q_f32_bwd(KEYQ_BWD_PARAMS) {
-  return launch_keyq_bwd<float>(KEYQ_BWD_ARGS);
+// The fp32 query backward, after papr_key_stream_f32_bwd has summed dqq
+// (T, dm) over k: the raw ray directions rayd, the query walk, the stash
+// (fp32 over T rows with w_q, ops/fused_mlp.py bwd_wgmma_buffers) and the
+// posenc segments of rayd's three sources, dqq, d_rayd (T, 3), the partial
+// rows and scratch, the image (the query walk, w_q^T, W_l^T for
+// l = n-1 .. 0) and its bytes, and the grid.
+extern "C" int papr_key_stream_q_f32_bwd(
+    const float* rayd, int T, int dm, const int* qmeta, const void* qw,
+    const void* qb, const void* qln, const void* qplan, int dm_pad,
+    void* qstash, const long long* qstash_off, const int* qseg,
+    const float* dqq, float* drayd, float* qpart, int qpart_w,
+    float* qscratch, const void* qpack, long long qbytes, int grid,
+    void* stream) {
+  int err = check_score_head(dm, dm_pad, 1);
+  if (err) return err;
+  EmbedBwdWgT<float> p{};
+  size_t smem = 0;
+  err = fill_embed_bwd_wg(&p, qmeta, qw, qb, qln, qplan, 3, dm_pad, qpack,
+                          qbytes, qstash, qstash_off, qpart, qpart_w,
+                          qscratch, &smem);
+  if (err) return err;
+  if (T <= 0) return 0;
+  p.x = rayd;
+  p.dy = dqq;
+  p.d_head = dm;
+  p.seg = qseg;
+  p.dx = drayd;
+  return launch_embed_bwd_wg(p, query_head_bwd_wgmma_f32_kernel, T, grid,
+                             smem, static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,11 @@
 // Embedder "walk" building blocks on WMMA, shared by the int8 walks (the
 // one-shot eval attention, attend_eval.cu, and the stream forwards), the
-// folded stream kernels (key_stream_q.cu), the feature stream kernels but
-// their fp32 forwards (key_stream_feat.cu, value_stream_feat.cu: the bf16
-// forwards and both backwards), the fused scores (fused_attn.cu) and the
-// int8 walk microbenchmark; the embedder, K3, the key / value streams and
-// the fp32 feature stream forwards run walk_wgmma.cuh.
+// bf16 folded stream kernels (key_stream_q.cu), the feature stream kernels
+// but their fp32 forwards (key_stream_feat.cu, value_stream_feat.cu: the
+// bf16 forwards and both backwards), the fused scores (fused_attn.cu) and
+// the int8 walk microbenchmark; the embedder, K3, the key / value streams,
+// the fp32 folded key stream and the fp32 feature stream forwards run
+// walk_wgmma.cuh.
 //
 // A walk is papr_tpu/ops/fused_mlp.py::walk_body_fwd: [LayerNorm] -> dense
 // stack (bf16 operands, fp32 accumulate, fp32 bias, relu/none, activations

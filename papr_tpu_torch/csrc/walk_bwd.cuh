@@ -1,7 +1,7 @@
-// Backward of an embedder walk on WMMA, shared by the folded and feature
-// stream backwards (key_stream_q.cu, key_stream_feat.cu,
-// value_stream_feat.cu); the embedder and the key / value stream backwards
-// run walk_wgmma_bwd.cuh.
+// Backward of an embedder walk on WMMA, shared by the bf16 folded stream
+// backward (key_stream_q.cu) and the feature stream backwards
+// (key_stream_feat.cu, value_stream_feat.cu); the embedder, the key / value
+// stream backwards and the fp32 folded key stream's run walk_wgmma_bwd.cuh.
 //
 // It is papr_tpu/ops/fused_mlp.py::walk_body_bwd (with _ln_bwd and
 // _pe_freq_bwd) on one tile of kRows tokens, after a forward recompute that

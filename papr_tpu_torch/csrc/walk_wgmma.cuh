@@ -12,12 +12,16 @@
 // activations, 3xTF32 products), and so do the fp32 stream backwards
 // (walk_wgmma_bwd.cuh), the fp32 embedder forward
 // (fused_mlp_fwd_wgmma_f32_kernel, the bf16 embedder's function) and its
-// backward, and the fp32 feature stream forwards (key_stream_feat.cu
-// key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
+// backward (both in embed_wgmma.cuh), the fp32 folded key stream
+// (key_stream_q.cu: the embedder's walk with w_q as a head,
+// query_head_fwd_wgmma_f32_kernel / query_head_bwd_wgmma_f32_kernel, then
+// key_stream.cu's fp32 kernels), and the fp32 feature stream forwards
+// (key_stream_feat.cu key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
 // value_feat_fwd_wgmma_f32_kernel: the stream forwards' function with raw
 // (K, T, d) feature rows as the posenc sources, FeatTok). The int8 forms and
-// the other walk kernels (key_stream_q.cu, the bf16 forms and the backwards
-// of key_stream_feat.cu / value_stream_feat.cu) keep walk.cuh's WMMA layers.
+// the other walk kernels (the bf16 forms of key_stream_q.cu, the bf16 forms
+// and the backwards of key_stream_feat.cu / value_stream_feat.cu) keep
+// walk.cuh's WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
 // ptxas may give a thread up to 255 registers). Within a warpgroup the

@@ -4,11 +4,12 @@
 // key_bwd_wgmma_f32_kernel) and value_stream.cu (papr_value_stream_bwd,
 // value_bwd_wgmma_kernel; papr_value_stream_f32_bwd,
 // value_bwd_wgmma_f32_kernel), one function (stream_bwd_wg) in the two
-// operand forms of walk_wgmma.cuh; the embedder backward (fused_mlp_bwd.cu
-// fused_mlp_bwd_wgmma_kernel, fused_mlp_bwd_wgmma_f32_kernel: one function
-// in the two forms) runs the same pieces (wgb_encode, wgb_fwd, wgb_rev,
-// wgb_in_bwd) on raw feature rows. The other walk backwards keep
-// walk_bwd.cuh's WMMA layers.
+// operand forms of walk_wgmma.cuh; the embedder backward (embed_wgmma.cuh
+// embed_bwd_wg: fused_mlp_bwd.cu fused_mlp_bwd_wgmma_kernel,
+// fused_mlp_bwd_wgmma_f32_kernel, and with w_q as a head the fp32 folded key
+// stream's query backward, key_stream_q.cu query_head_bwd_wgmma_f32_kernel)
+// runs the same pieces (wgb_encode, wgb_fwd, wgb_rev, wgb_in_bwd) on raw
+// feature rows. The other walk backwards keep walk_bwd.cuh's WMMA layers.
 //
 // The function is walk_bwd.cuh's, with its rounding points: each layer's
 // input hs[i] rounded to bf16 (and stashed), dz = g * act'(.) rounded to

@@ -71,7 +71,6 @@ SIGNATURES = {
 for _name in ("papr_fused_mlp_fwd", "papr_fused_mlp_bwd",
               "papr_key_stream_fwd", "papr_key_stream_bwd",
               "papr_value_stream_fwd", "papr_value_stream_bwd",
-              "papr_key_stream_q_fwd", "papr_key_stream_q_bwd",
               "papr_key_stream_feat_fwd", "papr_key_stream_feat_bwd",
               "papr_value_stream_feat_fwd", "papr_value_stream_feat_bwd",
               "papr_fused_scores_fwd", "papr_fused_scores_bwd"):
@@ -105,6 +104,19 @@ for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd",
               "papr_key_stream_f32_bwd", "papr_value_stream_f32_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P,
                                                   P, P, P]
+# The fp32 folded key stream (on wgmma). Forward: the bf16 form's arguments
+# without w_k and w_q (the images hold them), then the key's packed weights
+# and their size in bytes, the query's and theirs, the grid and the stream.
+# Backward: the query's half alone (papr_key_stream_f32_bwd runs the key's
+# first): rayd, T, d_model, the query walk, dm_pad, its stash, the posenc
+# segments, dqq, d_rayd, the partial rows and scratch, the packed weights,
+# their size in bytes, the grid and the stream.
+_LL = ctypes.c_longlong
+SIGNATURES["papr_key_stream_q_f32_fwd"] = (
+    [P, I, I, I, P, P, P, I, F] + [P] * 12 + [I, I, F, F] + [P] * 4
+    + [P, _LL, P, _LL, I, P])
+SIGNATURES["papr_key_stream_q_f32_bwd"] = (
+    [P, I, I] + [P] * 5 + [I] + [P] * 6 + [I, P, P, _LL, I, P])
 # The fp32 feature stream forwards (on wgmma) take the bf16 forms'
 # arguments before the stream, then (key) the (T, K) masked scores, the
 # packed weights, their size in bytes, the grid and the stream.

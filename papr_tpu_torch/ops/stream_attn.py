@@ -42,8 +42,10 @@ fuse; an all-dead ray divides by 1 when ``normalize`` holds.
 
 fp32 compute (``use_amp: false``): every kernel here has an fp32 form
 (``attend_eval_f32``, ``key_stream_f32_fwd`` / ``_bwd``,
-``value_stream_f32_fwd`` / ``_bwd``, ``key_stream_q_f32_fwd`` / ``_bwd``:
-the same kernels on the fp32 walk, nothing rounded to bf16), and so has each
+``value_stream_f32_fwd`` / ``_bwd``: the same kernels on the fp32 walk,
+nothing rounded to bf16; ``key_stream_q_f32_fwd`` / ``_bwd``: the fp32
+embedder's walk with ``w_q`` as its head, then the fp32 key stream's own
+kernels, in one entry point each), and so has each
 int8 forward (``attend_eval_i8_f32``, ``key_stream_i8_f32_fwd``,
 ``value_stream_i8_f32_fwd``: the int8 walk, then the fp32 ``w_k`` product
 and the unrounded value rows, as the JAX kernels compute them with an fp32
@@ -758,11 +760,26 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
         return key_stream_bwd_plain(rec, rayo, rays, qq, kwalk, wk, bk,
                                     dattn, score_act, bkg_score, eps, cdt,
                                     raw_saved=raw)
+    what = "key stream backward"
+    _check_score_act(score_act)
+    check_walk_for_kernel(kwalk, cdt, what)
+    _check_rec_args(rec, rayo, rays, (kwalk,), what)
+    out = _key_bwd_launch(rec, rayo, rays, qq, kwalk, wk, bk, raw, ss, dattn,
+                          score_act, bkg_score, eps, cdt, what)
+    if cdt == torch.float32:
+        key_stream_f32_bwd.launches += 1
+    else:
+        key_stream_bwd.launches += 1
+    return out
+
+
+def _key_bwd_launch(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
+                    score_act, bkg_score, eps, cdt, what):
+    """``key_stream_bwd``'s launch on checked CUDA arguments (its entry
+    point, then the dW reduction), counted by the caller: the key stream
+    backward's and the fp32 folded key stream backward's key half."""
     from ..kernels import build
 
-    _check_score_act(score_act)
-    check_walk_for_kernel(kwalk, cdt, "key stream backward")
-    _check_rec_args(rec, rayo, rays, (kwalk,), "key stream backward")
     K, T, rp = rec.shape
     dm = int(wk.shape[0])
     dev = rec.device
@@ -777,7 +794,7 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
     nsrc = _nsrc(kwalk)
     seg = source_segments(kwalk.cols, nsrc, dev)
     f32 = cdt == torch.float32
-    check_pe_pairs(kwalk, "key stream backward")
+    check_pe_pairs(kwalk, what)
     buf = bwd_wgmma_buffers(kwalk, kpd, K, T, dev, head=(kpd[-1], dm_pad),
                             extra=dm_pad, cdt=cdt)
     wpack = (bwd_wgmma_pack_f32 if f32 else bwd_wgmma_pack)(
@@ -806,10 +823,6 @@ def key_stream_bwd(rec, rayo, rays, qq, kwalk: Walk, wk, bk, raw, ss, dattn,
         buf.scratch.data_ptr(), *tail, stream)
     build.check(rc, name)
     dws, psum = buf.reduce(lib, stream)
-    if f32:
-        key_stream_f32_bwd.launches += 1
-    else:
-        key_stream_bwd.launches += 1
     d_out = int(wk.shape[1])
     dwk = dws[-1][:d_out, :dm].T
     dbk = psum[buf.extra_off:buf.extra_off + dm]
@@ -1114,10 +1127,14 @@ def value_stream_fuse_rec(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
 # ------------------------------------------------- query-folded key stream ----
 #
 # ``key_stream_scores_recq``: the record-native key stream with the query
-# chain (posenc of the RAW ray direction -> query embedder -> ``w_q``) inside
-# the kernel (``csrc/key_stream_q.cu``). The forward also returns qq (T, dm)
-# as a residual; the backward sums dqq over k and runs the query backward once
-# per ray tile, giving dW_q / db_q, the query stack's gradients and d_rayd.
+# chain (posenc of the RAW ray direction -> query embedder -> ``w_q``) folded
+# in (``csrc/key_stream_q.cu``; bf16: inside one WMMA kernel; fp32: the query
+# chain on the fp32 embedder's wgmma walk with ``w_q`` as its head and the
+# fp32 key stream's kernels: forward, one entry point; backward, the key
+# stream's fp32 entry point, then the query's). The forward also returns qq
+# (T, dm) as a residual; the backward sums dqq over k and runs the query
+# backward once per ray, giving dW_q / db_q, the query stack's gradients and
+# d_rayd.
 
 def _query_math(rayd, qwalk, wq, bq, cdt):
     """posenc -> query walk -> ``w_q`` in the compute dtype (nn/mlp.py
@@ -1145,16 +1162,19 @@ key_stream_q_plain.calls = 0
 def key_stream_q_bwd_plain(rec, rayo, rays, rayd, kwalk: Walk, wk, bk,
                            qwalk: Walk, wq, bq, dattn, score_act="relu",
                            bkg_score=5.0, eps=1e-6, cdt=torch.float32,
-                           relu_on=None):
+                           relu_on=None, raw_saved=None):
     """Plain version of the query-folded backward -> [d_rec, d_rayo, d_rays,
-    d_rayd, dwk, dbk, dwq, dbq, key walk grads, query walk grads]."""
+    d_rayd, dwk, dbk, dwq, dbq, key walk grads, query walk grads];
+    ``relu_on`` and ``raw_saved`` (the raw dots the forward saved, which
+    the score and softmax backward read) as in ``key_stream_bwd_plain``."""
     key_stream_q_bwd_plain.calls += 1
     nk = len(walk_tensors(kwalk))
 
     def fn(r, o, d, rd, w, b, w2, b2, *wt):
         qq = _query_math(rd, walk_with(qwalk, wt[nk:]), w2, b2, cdt)
         return _key_math(r, o, d, qq, walk_with(kwalk, wt[:nk]), w, b,
-                         score_act, bkg_score, eps, cdt, relu_on)[0]
+                         score_act, bkg_score, eps, cdt, relu_on,
+                         raw_saved=raw_saved)[0]
 
     return _grads_of(fn, [rec, rayo, rays, rayd, wk, bk, wq, bq]
                      + walk_tensors(kwalk) + walk_tensors(qwalk), dattn)
@@ -1210,21 +1230,33 @@ def key_stream_q_fwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
     qq = torch.empty(T, dm, dtype=torch.float32, device=dev)
     vp = lambda a: ctypes.cast(c_ints(a), ctypes.c_void_p)
     f32 = cdt == torch.float32
-    name = "papr_key_stream_q_f32_fwd" if f32 else "papr_key_stream_q_fwd"
-    rc = getattr(build.load(), name)(
-        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
-        rayd.data_ptr(), dm, float(math.sqrt(dm)),
-        vp(kmeta), kw.data_ptr(), kb.data_ptr(), kln.data_ptr(),
-        kplan.data_ptr(), wkf.data_ptr(), bkp.data_ptr(),
-        vp(qmeta), qw.data_ptr(), qb.data_ptr(), qln.data_ptr(),
-        qplan.data_ptr(), wqf.data_ptr(), bqp.data_ptr(), dm_pad,
-        int(score_act == "relu"), float(bkg_score), float(eps),
-        attn.data_ptr(), raw.data_ptr(), ss.data_ptr(), qq.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, name)
+    # The fp32 form reads w_k and w_q from its images.
+    wk_arg = () if f32 else (wkf.data_ptr(),)
+    wq_arg = () if f32 else (wqf.data_ptr(),)
+    args = (rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+            rayd.data_ptr(), dm, float(math.sqrt(dm)),
+            vp(kmeta), kw.data_ptr(), kb.data_ptr(), kln.data_ptr(),
+            kplan.data_ptr(), *wk_arg, bkp.data_ptr(),
+            vp(qmeta), qw.data_ptr(), qb.data_ptr(), qln.data_ptr(),
+            qplan.data_ptr(), *wq_arg, bqp.data_ptr(), dm_pad,
+            int(score_act == "relu"), float(bkg_score), float(eps),
+            attn.data_ptr(), raw.data_ptr(), ss.data_ptr(), qq.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = build.load()
     if f32:
+        # The query walk then w_q, and the key walk then w_k, as the fp32
+        # wgmma forwards stream them.
+        kimg = fwd_wgmma_pack_f32(kw, kpd, dev, (wkf,))
+        qimg = fwd_wgmma_pack_f32(qw, qpd, dev, (wqf,))
+        name = "papr_key_stream_q_f32_fwd"
+        build.check(getattr(lib, name)(
+            *args, kimg.data_ptr(), kimg.numel() * kimg.element_size(),
+            qimg.data_ptr(), qimg.numel() * qimg.element_size(),
+            fm.wgmma_grid(T), stream), name)
         key_stream_q_f32_fwd.launches += 1
     else:
+        name = "papr_key_stream_q_fwd"
+        build.check(getattr(lib, name)(*args, stream), name)
         key_stream_q_fwd.launches += 1
     return attn, raw, ss, qq
 
@@ -1261,6 +1293,10 @@ def key_stream_q_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
     _check_rec_args(rec, rayo, rays, (kwalk,), what)
     K, T, rp = rec.shape
     _check_query_args(rayd, qwalk, wk, wq, T, cdt, what)
+    if cdt == torch.float32:
+        return _key_stream_q_f32_bwd(rec, rayo, rays, rayd, kwalk, wk, bk,
+                                     qwalk, wq, bq, qq, raw, ss, dattn,
+                                     score_act, bkg_score, eps, what)
     dm = int(wk.shape[0])
     dev = rec.device
     rec, rayo, rays = rec.contiguous(), rayo.contiguous(), rays.contiguous()
@@ -1292,9 +1328,8 @@ def key_stream_q_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     vp = lambda a: ctypes.cast(a, ctypes.c_void_p)
-    f32 = cdt == torch.float32
-    name = "papr_key_stream_q_f32_bwd" if f32 else "papr_key_stream_q_bwd"
-    rc = getattr(lib, name)(
+    name = "papr_key_stream_q_bwd"
+    build.check(getattr(lib, name)(
         rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
         rayd.data_ptr(), qq.data_ptr(), dm, float(math.sqrt(dm)),
         raw.data_ptr(), ss.data_ptr(), dattn.data_ptr(),
@@ -1309,20 +1344,65 @@ def key_stream_q_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
         drec.data_ptr(), drayo.data_ptr(), drays.data_ptr(),
         drayd.data_ptr(), dqq.data_ptr(), kbuf.part.data_ptr(), kbuf.part_w,
         kbuf.scratch.data_ptr(), qbuf.part.data_ptr(), qbuf.part_w,
-        qbuf.scratch.data_ptr(), stream)
-    build.check(rc, name)
+        qbuf.scratch.data_ptr(), stream), name)
     kdws, kpsum = kbuf.reduce(lib, stream)
     qdws, qpsum = qbuf.reduce(lib, stream)
-    if f32:
-        key_stream_q_f32_bwd.launches += 1
-    else:
-        key_stream_q_bwd.launches += 1
+    key_stream_q_bwd.launches += 1
     d_k, d_q = int(wk.shape[1]), int(wq.shape[1])
     return ([drec, drayo, drays, drayd,
              kdws[-1][:d_k, :dm].T, kpsum[kbuf.extra_off:kbuf.extra_off + dm],
              qdws[-1][:d_q, :dm].T, qpsum[qbuf.extra_off:qbuf.extra_off + dm]]
             + kbuf.walk_grads(kwalk, kdws, kpsum)
             + qbuf.walk_grads(qwalk, qdws, qpsum))
+
+
+def _key_stream_q_f32_bwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk,
+                          qwalk: Walk, wq, bq, qq, raw, ss, dattn, score_act,
+                          bkg_score, eps, what):
+    """The fp32 folded backward on the wgmma walks: the key's half is
+    ``key_stream_bwd``'s launch (row 5f: d_rec, d_rayo, d_rays, dqq summed
+    over k, dW_k / db_k, the key walk's gradients), then the query's,
+    ``papr_key_stream_q_f32_bwd`` (dqq through w_q and the query walk to
+    d_rayd, the stashes for dW_q and the walk's dW), then its dW
+    reduction."""
+    from ..kernels import build
+
+    f32 = torch.float32
+    T, dm = int(rec.shape[1]), int(wk.shape[0])
+    dev = rec.device
+    check_pe_pairs(qwalk, f"{what} query walk")
+    qmeta, qw, qb, qln, qplan, qpd = pack_walk(qwalk, len(qwalk.cols), dev,
+                                               f32)
+    qwt = pack_walk_t(qwalk, qpd, dev, f32)
+    _, wqb, _, dm_pad = _wk_packs(wq, bq, qpd[-1], dev, f32)
+    qseg = source_segments(qwalk.cols, 3, dev)
+    # The query's stash over T rows with w_q; its image: the walk, w_q^T
+    # (dqq's way into the reverse walk), W_l^T for l = n-1 .. 0.
+    qbuf = bwd_wgmma_buffers(qwalk, qpd, 1, T, dev, head=(qpd[-1], dm_pad),
+                             extra=dm_pad, cdt=f32)
+    qimg = bwd_wgmma_pack_f32(qw, qwt, qpd, dev, (wqb,))
+    rayd = rayd.contiguous()
+    drayd = torch.empty(T, 3, dtype=torch.float32, device=dev)
+    key = _key_bwd_launch(rec, rayo, rays, qq, kwalk, wk, bk, raw, ss, dattn,
+                          score_act, bkg_score, eps, f32, what)
+    drec, drayo, drays, dqq, dwk, dbk = key[:6]
+    lib = build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name = "papr_key_stream_q_f32_bwd"
+    build.check(getattr(lib, name)(
+        rayd.data_ptr(), T, dm, ctypes.cast(c_ints(qmeta), ctypes.c_void_p),
+        qw.data_ptr(), qb.data_ptr(), qln.data_ptr(), qplan.data_ptr(),
+        dm_pad, qbuf.stash.data_ptr(),
+        ctypes.cast(qbuf.off_arg, ctypes.c_void_p), qseg.data_ptr(),
+        dqq.data_ptr(), drayd.data_ptr(), qbuf.part.data_ptr(), qbuf.part_w,
+        qbuf.scratch.data_ptr(), qimg.data_ptr(),
+        qimg.numel() * qimg.element_size(), fm.wgmma_grid(T), stream), name)
+    qdws, qpsum = qbuf.reduce(lib, stream)
+    key_stream_q_f32_bwd.launches += 1
+    return ([drec, drayo, drays, drayd, dwk, dbk,
+             qdws[-1][:int(wq.shape[1]), :dm].T,
+             qpsum[qbuf.extra_off:qbuf.extra_off + dm]]
+            + key[6:] + qbuf.walk_grads(qwalk, qdws, qpsum))
 
 
 key_stream_q_bwd.launches = 0

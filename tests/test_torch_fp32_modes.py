@@ -461,7 +461,8 @@ LAUNCHES = [
     ("papr_key_stream_q_f32_fwd", sa, "key_stream_q_f32_fwd",
      lambda: _launch_qfold("fwd"), ()),
     ("papr_key_stream_q_f32_bwd", sa, "key_stream_q_f32_bwd",
-     lambda: _launch_qfold("bwd"), ("papr_key_stream_q_f32_fwd",)),
+     lambda: _launch_qfold("bwd"), ("papr_key_stream_q_f32_fwd",
+                                    "papr_key_stream_f32_bwd")),
     ("papr_key_stream_feat_f32_fwd", sf, "key_stream_feat_f32_fwd",
      lambda: _launch_key_feat("fwd"), ()),
     ("papr_key_stream_feat_f32_bwd", sf, "key_stream_feat_f32_bwd",

@@ -2087,6 +2087,122 @@ def test_key_stream_q_f32_kernels_match_plain(dev, T):
         before[0] + 1, before[1] + 1, before[2], before[3])
 
 
+# The fp32 folded key stream on wgmma (row 7f): the query chain on the fp32
+# embedder walk with w_q as its head (query_head_fwd_wgmma_f32_kernel /
+# query_head_bwd_wgmma_f32_kernel), the key on key_stream.cu's fp32 wgmma
+# kernels. Phase 8's shapes (T = 32,400, K = 20), T not a multiple of the
+# 128-ray tile, K 1 / 7 / 33, grids that split the key's tiles, points with
+# alive = 0 (20 % of them, ray 5 all dead, with T > 128 a warpgroup of dead
+# rays), query posencs of order 4 (27 columns) and 2 (15 columns: the first
+# 32-deep chunk reads E columns past them): the forward at the fp32
+# forwards' bounds, the query stack's median row (qq) at
+# F32_EMBED_MEDIAN_REL, the backward at F32_BWD_REL on the held rays
+# (d_rayd, dW_q, db_q and the query walk's gradients among them; the plain
+# backward reads the kernel forward's raw dots, raw_saved, as the kernel
+# does and as row 5f's cases do); the key's outputs bit for bit row 5f's
+# (key_stream_f32_fwd / _bwd) on the fold's own qq and dattn.
+F32_FOLD_CASES = [(32_400, 20, None, 4), (300, 20, None, 4),
+                  (131, 1, None, 2), (257, 33, None, 4), (300, 7, 2, 2),
+                  (131, 20, 1, 4)]
+
+
+def _fold_case(rng, dev, T, K, qL):
+    rec, rayo, rays, _, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+    if T > 128:
+        rec[:, 64:128, 4] = 0.0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    rayd = rays * t(rng.uniform(0.5, 2.0, size=(T, 1)))
+    qw = _walk(rng, posenc_plan((3,), (qL,), 1, 2.0, 1.0, 0)[1], 5, 256, 256,
+               True, dev)
+    return (rec, rayo, rays, rayd, kw, wk, bk, qw,
+            t(rng.normal(size=(256, 256)) / 16), t(rng.normal(size=256) * 0.1))
+
+
+def _check_fold(dev, args, rng, name):
+    """Row 7f forward and backward against the plain fp32 versions and the
+    key's outputs against row 5f's on the fold's qq (see above); one call
+    of each counted once."""
+    rec, rayo, rays, rayd, kw, wk, bk, qw, _, _ = args
+    K, T = rec.shape[:2]
+    opts, f32 = ("relu", 5.0, 1e-6), torch.float32
+    counters = (sa.key_stream_q_f32_fwd, sa.key_stream_q_f32_bwd,
+                sa.key_stream_q_fwd, sa.key_stream_q_bwd,
+                sa.key_stream_f32_fwd, sa.key_stream_f32_bwd)
+    before = [c.launches for c in counters]
+    attn, raw, ss, qq = sa.key_stream_q_f32_fwd(*args, *opts)
+    attn_p, raw_p, _, qq_p = sa.key_stream_q_plain(*args, *opts, f32)
+    a_abs = float((attn - attn_p).abs().max())
+    med_q, med_raw = _median_row_rels([qq, raw], [qq_p, raw_p])
+    print(f"{name} fwd: attn max abs {a_abs:.2e}, raw {_rel(raw, raw_p):.2e}, "
+          f"qq {_rel(qq, qq_p):.2e}, median row qq {med_q:.2e}, median ray "
+          f"raw {med_raw:.2e}")
+    assert all(bool(torch.isfinite(x).all()) for x in (attn, raw, ss, qq))
+    assert a_abs <= F32_FWD_ATTN_ABS and _rel(raw, raw_p) <= F32_FWD_REL
+    assert _rel(qq, qq_p) <= F32_FWD_REL and med_q <= F32_EMBED_MEDIAN_REL
+    assert med_raw <= F32_FWD_MEDIAN_REL
+    dead = [5] + (list(range(64, 128)) if T > 128 else [])
+    assert bool((attn[dead, K] == 1.0).all())
+    k5 = sa.key_stream_f32_fwd(rec, rayo, rays, qq, kw, wk, bk, *opts)
+    assert all(torch.equal(a, b) for a, b in zip((attn, raw, ss), k5))
+    margin = torch.minimum(
+        sa.rec_relu_margin(rec, rayo, rays, kw),
+        fm.walk_relu_margin(fm.encode_plain(rayd, qw.cols), qw))
+    dattn = _firm(torch.as_tensor(rng.normal(size=(T, K + 1)).astype(
+        np.float32), device=dev), margin)
+    got = sa.key_stream_q_f32_bwd(*args, qq, raw, ss, dattn, *opts)
+    want = sa.key_stream_q_bwd_plain(*args, dattn, *opts, f32,
+                                     relu_on=raw > 0, raw_saved=raw)
+    _close_all(_rec_lanes(got), _rec_lanes(want), F32_BWD_REL, f"{name} bwd")
+    assert float(got[0][:, dead].abs().max()) == 0.0
+    g5 = sa.key_stream_f32_bwd(rec, rayo, rays, qq, kw, wk, bk, raw, ss,
+                               dattn, *opts)
+    nk = len(fm.walk_tensors(kw))
+    key_q = got[:3] + got[4:6] + got[8:8 + nk]
+    assert len(key_q) == len(g5) - 1
+    assert all(torch.equal(a, b) for a, b in zip(key_q, g5[:3] + g5[4:]))
+    assert [c.launches for c in counters] == [
+        before[0] + 1, before[1] + 1, before[2], before[3], before[4] + 1,
+        before[5] + 1]
+
+
+@pytest.mark.parametrize("T,K,grid,qL", F32_FOLD_CASES)
+def test_key_stream_q_f32_wgmma_matches_plain(dev, monkeypatch, T, K, grid,
+                                              qL):
+    """Row 7f on wgmma, forward and backward (see above)."""
+    rng = np.random.default_rng(2000 + T + K)
+    args = _fold_case(rng, dev, T, K, qL)
+    _fwd_grid(monkeypatch, grid)
+    _check_fold(dev, args, rng, f"key_stream_q_f32 wgmma T={T} K={K} "
+                                f"grid={grid} qL={qL}")
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("T,K,grid,qL", [(300, 7, 2, 2), (131, 20, None, 2),
+                                         (257, 33, None, 4)])
+def test_key_stream_q_f32_wgmma_after_nan_shared_memory(
+        dev, monkeypatch, smem_aid, direction, T, K, grid, qL):
+    """Row 7f's cases above with every SM's shared memory set to NaN just
+    before the query walk's kernel: forward, before each call of
+    ``papr_key_stream_q_f32_fwd``, whose first kernel is the query head's
+    (the key's forward after it meets the head's leftovers); backward,
+    before each call of ``papr_key_stream_f32_bwd`` (the key's half) and
+    again before each of ``papr_key_stream_q_f32_bwd`` (the query head's
+    backward, launched alone). The query walk's tiles are zeroed at the
+    start, so a 15-column query encoding's columns 16..31 meet zeros, and
+    every output holds as above."""
+    rng = np.random.default_rng(2100 + T + K)
+    args = _fold_case(rng, dev, T, K, qL)
+    _fwd_grid(monkeypatch, grid)
+    entries = ([f"papr_key_stream_q_f32_{direction}"] if direction == "fwd"
+               else ["papr_key_stream_f32_bwd", "papr_key_stream_q_f32_bwd"])
+    survived = [_poison(monkeypatch, smem_aid, e) for e in entries]
+    _check_fold(dev, args, rng, f"key_stream_q_f32 {direction} after NaN "
+                                f"shared memory T={T} K={K} qL={qL}")
+    for entry, check in zip(entries, survived):
+        print(entry, check())
+
+
 @pytest.mark.parametrize("T", [256, 100])
 def test_key_stream_feat_f32_kernels_match_plain(dev, T):
     """Row 8 in fp32, forward and backward."""

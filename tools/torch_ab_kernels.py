@@ -16,9 +16,13 @@ backwards' and the fp32 stream forwards' outputs on phase 2's training
 patch (queries from the plain query embedder; the value forwards fed the
 plain key forward's attention in their dtype; the
 backwards the plain forwards' raw dots, scores and attention and seeded
-cotangents: inputs both trees compute alike), of the bf16 query embedder's
-forward (K2) and backward (row 3) on the patch's rays (a seeded
-cotangent), and of the culled top-k's stage 3 (K1) at the serving shape
+cotangents: inputs both trees compute alike), of the fp32 stream
+backwards' (rows 5f / 6f bwd) and the bf16 folded key stream's (row 7, fwd
+and bwd) on the same inputs, of the fp32 feature stream forwards' (rows 8f
+/ 9f fwd) on the inputs the model's head builds from the patch, of the
+bf16 and fp32 query embedder's forward (K2, row 2f) and backward (row 3,
+row 3f) on the patch's rays (a seeded cotangent), and of the culled
+top-k's stage 3 (K1) at the serving shape
 (the 800x800 orbit frame, early exit) and the training shape (the patch,
 one 2048 chunk); then chip_smoke's phase 2
 lines (the flagship's kernels) and phase 8 lines (Caterpillar's
@@ -47,9 +51,9 @@ def main() -> None:
     import torch
     import chip_smoke as cs
     from papr_tpu_torch.kernels import build
-    from papr_tpu_torch.ops import stream_attn as sa
-
     from papr_tpu_torch.ops import fused_mlp as fm
+    from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops import stream_feat as sf
 
     cs.fail = lambda m: print("FAILS:", m, flush=True)
     build.load()
@@ -67,8 +71,8 @@ def main() -> None:
     try:
         args, T = cs.eval_block_args(params, state, cfg, dev)
         rayo, rayd = cs.training_patch(dev)
-        _, _, rec, rayo_f, rays, _, qq, kwalk, vwalk = cs.stream_patch_inputs(
-            params, state, cfg, rayo, rayd)
+        idx, _, rec, rayo_f, rays, rayd_f, qq, kwalk, vwalk = \
+            cs.stream_patch_inputs(params, state, cfg, rayo, rayd)
     finally:
         fm.fused_mlp = k2
     print(f"K3 bf16 outputs on the eval block (T={T}): sha256 "
@@ -116,16 +120,57 @@ def main() -> None:
                                         bool(cfg.models.normalize_topk_attn),
                                         float(cfg.eps), torch.float32)]),
           flush=True)
-    del rec, attn, raw, ss, dattn, dfused, attn32
+    _, raw32, ss32 = sa.key_stream_plain(rec, rayo_f, rays, qq, kwalk,
+                                         a["w_k"]["w"], a["w_k"]["bias"],
+                                         *kopts32)
+    print("fp32 stream backwards on the training patch: key sha256 "
+          + digest(sa.key_stream_bwd(rec, rayo_f, rays, qq, kwalk,
+                                     a["w_k"]["w"], a["w_k"]["bias"], raw32,
+                                     ss32, dattn, *kopts32))
+          + ", value sha256 "
+          + digest(sa.value_stream_bwd(rec, rayo_f, rays, attn32, vwalk,
+                                       dfused,
+                                       bool(cfg.models.normalize_topk_attn),
+                                       float(cfg.eps), torch.float32)),
+          flush=True)
     qwalk = cs.query_walk(params, cfg)
+    # Row 7 (bf16, the folded key stream on its WMMA kernels), from the
+    # plain forward's raw dots and scores.
+    qargs = (rec, rayo_f, rays, rayd_f.contiguous(), kwalk, a["w_k"]["w"],
+             a["w_k"]["bias"], qwalk, a["w_q"]["w"], a["w_q"]["bias"])
+    _, raw_q, ss_q, qq_q = sa.key_stream_q_plain(*qargs, *kopts)
+    print("bf16 folded key stream on the training patch: fwd sha256 "
+          + digest(sa.key_stream_q_fwd(*qargs, *kopts)) + ", bwd sha256 "
+          + digest(sa.key_stream_q_bwd(*qargs, qq_q, raw_q, ss_q, dattn,
+                                       *kopts)), flush=True)
+    # Rows 8f / 9f fwd (the fp32 feature forwards) on the inputs the
+    # model's head builds from the patch's selection.
+    from papr_tpu_torch.model.papr import _stream_inputs, model_meta
+    with torch.no_grad():
+        xk, kwalk_f, xv, vwalk_f, influ, sel_alive, _ = _stream_inputs(
+            params, cfg, model_meta(cfg), idx, rayo, rayd, state["alive"],
+            float(cfg.eps))
+    print("fp32 feature stream forwards on the training patch: key sha256 "
+          + digest(sf.key_stream_feat_fwd(
+              xk.contiguous(), qq, kwalk_f, a["w_k"]["w"], a["w_k"]["bias"],
+              influ.contiguous(), sel_alive.contiguous(), kopts[0], kopts[1],
+              torch.float32))
+          + ", value sha256 "
+          + digest([sf.value_stream_feat_fwd(
+              xv.contiguous(), attn32, vwalk_f,
+              bool(cfg.models.normalize_topk_attn), torch.float32)]),
+          flush=True)
+    del rec, attn, raw, ss, dattn, dfused, attn32, raw32, ss32, qargs, xk, xv
     x = rayd.reshape(-1, 3).contiguous()
     dy = torch.randn(x.shape[0], int(qwalk.ws[-1].shape[1]), generator=g,
                      device=dev)
-    print("bf16 query embedder on the training patch's rays: K2 sha256 "
-          + digest([fm.fused_mlp(x, qwalk, torch.bfloat16)])
-          + ", row 3 sha256 "
-          + digest((lambda r: [r[0]] + list(r[1]))(
-              fm.fused_mlp_bwd(x, dy, qwalk, torch.bfloat16))), flush=True)
+    for name, cdt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        print(f"{name} query embedder on the training patch's rays: "
+              f"{'K2' if name == 'bf16' else 'row 2f'} sha256 "
+              + digest([fm.fused_mlp(x, qwalk, cdt)])
+              + f", {'row 3' if name == 'bf16' else 'row 3f'} sha256 "
+              + digest((lambda r: [r[0]] + list(r[1]))(
+                  fm.fused_mlp_bwd(x, dy, qwalk, cdt))), flush=True)
     from papr_tpu_torch.model.papr import model_meta
     from papr_tpu_torch.ops import tile_cull as tc
     from papr_tpu_torch.ops.geometry import get_rays

@@ -39,7 +39,7 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (name, the line to replace, its replacement); the first cases are the sound
 # sources. Cases named "topk" patch topk_stream.cu, "embedder bwd"
-# fused_mlp_bwd.cu, "encoding" walk.cuh, "stream feat key" key_stream_feat.cu,
+# embed_wgmma.cuh, "encoding" walk.cuh, "stream feat key" key_stream_feat.cu,
 # "stream feat value" value_stream_feat.cu, "stream q walk" key_stream.cuh
 # (the folded key stream's WMMA walk), "stream q" key_stream_q.cu,
 # "stream shared" or "linear_bf16" stream_common.cuh, "int8 walk" walk.cuh,
@@ -51,10 +51,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # walk_wgmma_bwd.cuh (the bf16 stream backwards; "fp32 bwd wgmma" the fp32
 # ones), "wgmma attend"
 # attend_eval.cu, "embed wgmma bwd" walk_wgmma_bwd.cuh, "embed wgmma"
-# walk_wgmma.cuh, "fp32 embed wgmma fwd" fused_mlp.cu, "fp32 embed wgmma
-# bwd" fused_mlp_bwd.cu, "fp32 embed wgmma walk" walk_wgmma.cuh, "fp32
-# embed wgmma stash" and "fp32 embed wgmma rev" walk_wgmma_bwd.cuh, the
-# others fused_attn.cu. A fourth element names every
+# walk_wgmma.cuh, "fp32 embed wgmma fwd" / "bwd" embed_wgmma.cuh, "fp32
+# embed wgmma walk" walk_wgmma.cuh, "fp32 embed wgmma stash" and "fp32
+# embed wgmma rev" walk_wgmma_bwd.cuh, "fp32 keyq wgmma combine"
+# key_stream.cu, "fp32 keyq wgmma walk" walk_wgmma.cuh, the other "fp32
+# keyq wgmma" embed_wgmma.cuh (row 7f: the query head and the embedder's
+# sink), the others fused_attn.cu. A fourth element names every
 # comparison (TARGETS) that reads the case's build, where the planted line
 # runs in more than one kernel; the sound sources run once, read by every
 # comparison the picked cases need.
@@ -424,11 +426,15 @@ MUTS = [
      ("f32_embed",)),
     ("fp32 embed wgmma fwd: E left stale at the start (NaN where it is "
      "zeroed)",
-     "      sm.tiles[i] = 0.f;", "      sm.tiles[i] = __int_as_float(0x7fc00000);",
+     "i < 2 * p.e_floats; i += kWgThreads)\n      sm.tiles[i] = 0.f;",
+     "i < 2 * p.e_floats; i += kWgThreads)\n"
+     "      sm.tiles[i] = __int_as_float(0x7fc00000);",
      ("f32_embed",)),
     ("fp32 embed wgmma bwd: E left stale at the start (NaN where it is "
      "zeroed)",
-     "      sm.tiles[i] = 0.f;", "      sm.tiles[i] = __int_as_float(0x7fc00000);",
+     "i < 2 * p.wg_floats; i += kWgThreads)\n      sm.tiles[i] = 0.f;",
+     "i < 2 * p.wg_floats; i += kWgThreads)\n"
+     "      sm.tiles[i] = __int_as_float(0x7fc00000);",
      ("f32_embed",)),
     ("fp32 embed wgmma fwd: E not zeroed at the start (whatever the block's "
      "shared memory held)",
@@ -438,6 +444,49 @@ MUTS = [
      "shared memory held)",
      "    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)\n"
      "      sm.tiles[i] = 0.f;\n", "", ("f32_embed",)),
+    ("fp32 keyq wgmma head: the head's bias b_q dropped (qq = eq w_q)",
+     "  acc_bias_act(acc, hb, L.pd_out, 0);\n", "", ("f32_fold",)),
+    ("fp32 keyq wgmma head: w_q's rows off by one (the head's input "
+     "column c meets row c + 1)",
+     "  wg_gemm_f32(acc, A.E, A.row0, rg, L);\n  acc_bias_act(acc, hb, "
+     "L.pd_out, 0);\n",
+     "  for (int r = A.row0; r < A.row0 + 16; ++r) {\n"
+     "    float v[8];\n"
+     "    for (int m = 0; m < 8; ++m) {\n"
+     "      const int c = (threadIdx.x & 31) + 32 * m;\n"
+     "      v[m] = c >= 1 && c < L.pd_in ? A.E[r * kF32Ld + c - 1] : 0.f;\n"
+     "    }\n"
+     "    __syncwarp();\n"
+     "    for (int m = 0; m < 8; ++m) {\n"
+     "      const int c = (threadIdx.x & 31) + 32 * m;\n"
+     "      if (c < L.pd_in) A.E[r * kF32Ld + c] = v[m];\n"
+     "    }\n"
+     "    __syncwarp();\n"
+     "  }\n"
+     "  wg_gemm_f32(acc, A.E, A.row0, rg, L);\n  acc_bias_act(acc, hb, "
+     "L.pd_out, 0);\n", ("f32_fold",)),
+    ("fp32 keyq wgmma combine: a split tile's second part of dqq dropped "
+     "(the key's combine kernel; row 5f's too)",
+     "    dqq[i] += dqq_aux[i];\n", "", ("f32_fold",)),
+    ("fp32 keyq wgmma rayd: d_rayd summed into the wrong source column "
+     "(the embedder backward's sink; row 3f's too)",
+     "                 if (row < R) p.dx[(size_t)row * d_raw + src] = v;",
+     "                 if (row < R) p.dx[(size_t)row * d_raw + (src + 1) % "
+     "d_raw] = v;", ("f32_fold",)),
+    ("fp32 keyq wgmma head fwd: E not zeroed at the start (whatever the "
+     "block's shared memory held: NaN, in the cuda cases that fill it "
+     "first; row 2f's too)",
+     "    for (int i = threadIdx.x; i < 2 * p.e_floats; i += kWgThreads)\n"
+     "      sm.tiles[i] = 0.f;\n", "", ("f32_fold",)),
+    ("fp32 keyq wgmma head bwd: E not zeroed at the start (whatever the "
+     "block's shared memory held: NaN, in the cuda cases that fill it "
+     "just before the query head's backward; row 3f's too)",
+     "    for (int i = threadIdx.x; i < 2 * p.wg_floats; i += kWgThreads)\n"
+     "      sm.tiles[i] = 0.f;\n", "", ("f32_fold",)),
+    ("fp32 keyq wgmma walk: alive ignored (RecTok; rows 4f's token mask is "
+     "its own, row 5f's is this)",
+     "    return make_float2(gr[9], gr[10]);", "    return make_float2(gr[9], "
+     "1.f);", ("f32_fold",)),
     ("fp32 walk: single-pass TF32 (the lo terms dropped)",
      "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
      "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
@@ -484,11 +533,11 @@ MUTS = [
      "            b.dkk_stash[((size_t)k * a.T + t) * a.pdm + c] = h;",
      "            b.dkk_stash[((size_t)k * a.T + t) * a.pdm + c] = "
      "bf16_round(h);"),
-    ("fp32 stream q fwd: qq rounded to bf16",
-     "    if (t < T) qq[(size_t)t * dm + c] = linear_c<Op>(S.C[r * kCLd + c], "
-     "bq[c]);",
-     "    if (t < T) qq[(size_t)t * dm + c] = "
-     "bf16_round(linear_c<Op>(S.C[r * kCLd + c], bq[c]));"),
+    ("fp32 keyq wgmma head: qq rounded to bf16",
+     "  acc_bias_act(acc, hb, L.pd_out, 0);\n",
+     "  acc_bias_act(acc, hb, L.pd_out, 0);\n"
+     "  for (int i = 0; i < kOutRegs; ++i) acc[i] = bf16_round(acc[i]);\n",
+     ("f32_fold",)),
     ("fp32 epilogue of int8 value: its value rows rounded to bf16",
      "    fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);",
      "    if (vq) fuse_step<__nv_bfloat16>(C, acc, attn, den, k, K, cout, t0, "
@@ -663,6 +712,25 @@ elif sys.argv[1] == "compare_f32_feat":
                                n_time=1)
     except Stop:
         pass
+elif sys.argv[1] == "compare_f32_fold":
+    # Phase 8's comparisons up to row 7f (and its check against row 5f):
+    # the run stops where rows 4qf-6qf's would start.
+    cfg = cs.caterpillar_cfg()
+    params, state = cs.build_model(cfg, dev)
+    _, rayo, rayd, _ = cs.sphere_view(cfg, dev)
+    from papr_tpu_torch.ops import stream_attn as sa
+
+    class Stop(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Stop
+    sa.calibrate_walk = stop
+    try:
+        cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180,
+                               n_time=1)
+    except Stop:
+        pass
 elif sys.argv[1] == "compare_wgmma_kernels":
     cfg = cs.flagship_cfg()
     params, state = cs.build_model(cfg, dev)
@@ -718,6 +786,11 @@ TARGETS = {
     # grids, an overhang tile).
     "f32_embed": (("phase 8 fused_mlp_f32", "phase 8 fused_mlp_bwd_f32"),
                   "fused_mlp_f32"),
+    # compare_f32_kernels up to row 7f (compare_f32_fold: its forward and
+    # backward against the plain fp32 versions and against row 5f on its
+    # own qq), and row 7f's wgmma cuda cases (dead points, split grids, a
+    # 15-column query encoding, NaN-filled shared memory).
+    "f32_fold": (("phase 8 key_stream_q_f32",), "key_stream_q_f32_wgmma"),
 }
 # The comparison function each target runs, and the cuda test lines shown.
 FN = {"f32_stream_bwd": "compare_f32_streams",
@@ -726,7 +799,8 @@ FN = {"f32_stream_bwd": "compare_f32_streams",
       "stream_fwd": "compare_train_kernels",
       "embed": "compare_embed_kernels",
       "f32_embed": "compare_f32_embed",
-      "f32_feat_fwd": "compare_f32_feat"}
+      "f32_feat_fwd": "compare_f32_feat",
+      "f32_fold": "compare_f32_fold"}
 TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                                        "value_stream_i8", "int8_walk_bench"),
               "compare_f32_kernels": ("f32", "key_stream_f32_bwd wgmma",
@@ -743,7 +817,8 @@ TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
               "embed": ("fused_mlp wgmma", "fused_mlp_bwd wgmma"),
               "f32_embed": ("fused_mlp_f32",),
               "f32_feat_fwd": ("key_stream_feat_f32_fwd",
-                               "value_stream_feat_f32_fwd")}
+                               "value_stream_feat_f32_fwd"),
+              "f32_fold": ("key_stream_q_f32",)}
 
 
 def target_of(name: str) -> str:
@@ -774,9 +849,14 @@ def main() -> None:
 
 
 def source_of(name: str) -> str:
-    return next((f for word, f in (("fp32 embed wgmma fwd", "fused_mlp.cu"),
+    return next((f for word, f in (("fp32 keyq wgmma combine",
+                                    "key_stream.cu"),
+                                   ("fp32 keyq wgmma walk", "walk_wgmma.cuh"),
+                                   ("fp32 keyq wgmma", "embed_wgmma.cuh"),
+                                   ("fp32 embed wgmma fwd",
+                                    "embed_wgmma.cuh"),
                                    ("fp32 embed wgmma bwd",
-                                    "fused_mlp_bwd.cu"),
+                                    "embed_wgmma.cuh"),
                                    ("fp32 embed wgmma walk",
                                     "walk_wgmma.cuh"),
                                    ("fp32 embed wgmma stash",
@@ -792,7 +872,7 @@ def source_of(name: str) -> str:
                                    ("wgmma walk", "walk_wgmma.cuh"),
                                    ("wgmma attend", "attend_eval.cu"),
                                    ("topk", "topk_stream.cu"),
-                                   ("embedder bwd", "fused_mlp_bwd.cu"),
+                                   ("embedder bwd", "embed_wgmma.cuh"),
                                    ("encoding", "walk.cuh"),
                                    ("stream feat key", "key_stream_feat.cu"),
                                    ("stream feat value",

@@ -12,6 +12,16 @@ and Caterpillar's walks (key posenc orders 4, 4, 4; value 4, 4 and 64 point
 features) with random weights.
 
     python tools/torch_stream_bwd_ablate.py [--f32] [--tree DIR] [--split-only]
+    python tools/torch_stream_bwd_ablate.py --fold [--f32] [--tree DIR]
+
+With ``--fold`` the folded key stream's backward (``tpu.query_fold``,
+``csrc/key_stream_q.cu``: ``papr_key_stream_q_bwd``, with ``--f32``
+``papr_key_stream_q_f32_bwd``) at the same shapes with the query walk
+(posenc of the raw ray direction, 5 x 256 with LayerNorms, ``w_q``), timed
+whole and split only: the kernels alone (the WMMA ``keyq_bwd_kernel`` of an
+earlier tree, or the key's ``key_bwd_wgmma_f32_kernel`` and the query's
+``query_head_bwd_wgmma_f32_kernel``), the dW reduction, the other device
+kernels and the host; no variants.
 
 ``--tree`` takes the sources and the package from another checkout (for
 example an unpacked parent commit); the variants follow that tree's design
@@ -233,9 +243,34 @@ def inputs(dev, f32=False, seed=2):
     return key, value
 
 
-def _split(fn, name: str, n: int = 3):
-    """(kernel alone, wgrad + colsum, other device kernels) ms per call from
-    the profiler, and the whole call's ms from CUDA events."""
+def fold_inputs(dev, f32=False, seed=2):
+    """The folded key stream's arguments at ``inputs``' shapes: (rec, rayo,
+    rays, rayd, the key walk, w_k, b_k, the query walk (posenc of the raw
+    ray direction, orders 4 fp32 / 6 bf16, 5 x 256 with LayerNorms), w_q,
+    b_q), the compute options, the forward's (qq, raw, ss) and a dattn."""
+    import torch
+    from papr_tpu_torch.ops import stream_attn as sa
+    from papr_tpu_torch.ops.fused_mlp import posenc_plan
+    key, _ = inputs(dev, f32, seed)
+    rec, rayo, rays, _, kwalk, wk, bk = key[:7]
+    T, L = rec.shape[1], 4 if f32 else 6
+    rng = np.random.default_rng(seed + 1)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    rayd = rays * t(rng.uniform(0.5, 2.0, size=(T, 1)))
+    qwalk = _walk(rng, posenc_plan((3,), (L,), 1, 2.0, 1.0, 0)[1], 5, 256,
+                  256, True, dev)
+    wq, bq = t(rng.normal(size=(256, 256)) / 16), t(rng.normal(size=256) * 0.1)
+    args = (rec, rayo, rays, rayd, kwalk, wk, bk, qwalk, wq, bq)
+    opts = ("relu", 5.0, 1e-6, torch.float32 if f32 else torch.bfloat16)
+    _, raw, ss, qq = sa.key_stream_q_fwd(*args, *opts)
+    return args, opts, (qq, raw, ss), key[9]
+
+
+def _split(fn, name, n: int = 3):
+    """(kernel alone: the kernels whose name holds name, or one of a tuple
+    of names; wgrad + colsum; other device kernels) ms per call from the
+    profiler, and the whole call's ms from CUDA events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -250,7 +285,8 @@ def _split(fn, name: str, n: int = 3):
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.end - e.time_range.start
-        if name in e.name and "combine" not in e.name:
+        pats = (name,) if isinstance(name, str) else name
+        if any(p in e.name for p in pats) and "combine" not in e.name:
             kern += us
         elif "wgrad" in e.name or "colsum" in e.name:
             red += us
@@ -271,6 +307,7 @@ def main() -> None:
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--split-only", action="store_true")
     ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--fold", action="store_true")
     opt = ap.parse_args()
     tree = os.path.abspath(opt.tree)
     sys.path.insert(0, tree)
@@ -283,10 +320,21 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"{smi}; tree {tree}", flush=True)
+    form = "fp32" if opt.f32 else "bf16"
+    if opt.fold:
+        args, opts, saved, dattn = fold_inputs(dev, opt.f32)
+        fn = lambda: sa.key_stream_q_bwd(*args, *saved, dattn, *opts)
+        for _ in range(2):
+            k_ms, r_ms, o_ms, whole = _split(
+                fn, ("keyq_bwd", "key_bwd_wgmma", "query_head_bwd"))
+            print(f"{form} folded key stream backward, whole call "
+                  f"{whole:.3f} ms: kernels alone {k_ms:.3f}, wgrad + colsum "
+                  f"{r_ms:.3f}, other device kernels {o_ms:.3f}, host / gaps "
+                  f"{whole - k_ms - r_ms - o_ms:.3f}", flush=True)
+        return
     key, value = inputs(dev, opt.f32)
     cases = (("key", "key_bwd", lambda: sa.key_stream_bwd(*key)),
              ("value", "value_bwd", lambda: sa.value_stream_bwd(*value)))
-    form = "fp32" if opt.f32 else "bf16"
     sound = {}
     for what, pat, fn in cases:
         sound[what] = [g.clone() for g in fn()]

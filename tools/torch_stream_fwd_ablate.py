@@ -16,6 +16,16 @@ columns): their forwards, and, timed whole only, their backwards.
 
     python tools/torch_stream_fwd_ablate.py [--f32] [--feat] [--tree DIR]
                                             [--split-only]
+    python tools/torch_stream_fwd_ablate.py --fold [--f32] [--tree DIR]
+
+With ``--fold`` the folded key stream's forward (``tpu.query_fold``,
+``csrc/key_stream_q.cu``: ``papr_key_stream_q_fwd``, with ``--f32``
+``papr_key_stream_q_f32_fwd``) on ``torch_stream_bwd_ablate.fold_inputs``
+(the record forwards' shapes and the query walk), timed whole and split
+only: the kernels alone (the WMMA ``keyq_fwd_kernel`` of an earlier tree,
+or the query's ``query_head_fwd_wgmma_f32_kernel``, the key's
+``key_fwd_wgmma_f32_kernel`` and the softmax kernel), each kernel's span;
+no variants.
 
 ``--tree`` takes the sources and the package from another checkout (for
 example an unpacked parent commit); the variants follow that tree's design
@@ -54,7 +64,7 @@ REPO = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
 from torch_stream_bwd_ablate import (_BODY, _F32_NO_MMA,  # noqa: E402
                                      _F32_NO_WAIT, _MMA, _REFILL, _WAIT,
-                                     WMMA, _walk, inputs)
+                                     WMMA, _walk, fold_inputs, inputs)
 
 _SCORE = ("          if (c < dm)\n"
           "            s[h] += qrow[c] * linear_bf16(acc[4 * j + 2 * h + e], "
@@ -216,6 +226,7 @@ def main() -> None:
     ap.add_argument("--split-only", action="store_true")
     ap.add_argument("--f32", action="store_true")
     ap.add_argument("--feat", action="store_true")
+    ap.add_argument("--fold", action="store_true")
     opt = ap.parse_args()
     tree = os.path.abspath(opt.tree)
     sys.path.insert(0, tree)
@@ -235,7 +246,13 @@ def main() -> None:
     # The tree's design: the fp32 forwards on wgmma where key_stream.cu has
     # their kernel (the feature forwards: key_stream_feat.cu); the bf16 ones
     # where walk_wgmma.cuh exists.
-    if opt.feat:
+    if opt.fold:
+        args, opts, _, _ = fold_inputs(dev, opt.f32)
+        cases = (("key (query folded)", ("keyq_fwd", "query_head_fwd",
+                                         "key_fwd"),
+                  lambda: sa.key_stream_q_fwd(*args, *opts)),)
+        T, wg, backwards = args[0].shape[1], False, ()
+    elif opt.feat:
         key, value, raw, dattn, dfused = feat_inputs(dev, opt.f32)
         T = key[0].shape[1]
         wg = opt.f32 and "key_feat_fwd_wgmma_f32_kernel" in src(
@@ -291,6 +308,10 @@ def main() -> None:
             rule.wgmma_grid = real
     for what, pats, fn in backwards:
         show(what, " backward", pats, fn)
+    if opt.fold:
+        for what, pats, fn in cases:
+            show(what, " forward, again", pats, fn)
+        return
     if opt.split_only or not os.path.exists(os.path.join(csrc,
                                                          "walk_wgmma.cuh")):
         return
