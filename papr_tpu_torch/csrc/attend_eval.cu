@@ -27,18 +27,20 @@
 // rounded before the fuse.
 //
 // attend_eval_i8 is the same call with quant=True (tpu.int8_eval): both
-// walks' dense stacks run walk.cuh's int8 walk (walk_body_fwd_q in
-// papr_tpu/ops/fused_mlp.py:322) on a quantization the wrapper calibrated,
-// on one tile function: one block of 512 threads per 64-ray tile, every
-// activation in shared memory, each layer's weights staged by cp.async once
-// per (tile, k) step and shared by the 16 warps; geometry, posenc,
-// LayerNorms, the bf16 w_k product on y_k rounded to bf16, scores, the
-// value rows rounded to bf16, softmax and fuse. int8 halves the bytes of
-// every MMA operand; the WMMA instruction count per layer is the bf16 one.
-// attend_eval_i8_f32 is the int8 kernel beside fp32 compute (int8_eval with
-// use_amp: false): the int8 walks unchanged, then the fp32 epilogue (the
-// 3xTF32 w_k product on the unrounded y_k, fp32 bias, value rows not
-// rounded), as _ase_fwd_kernel runs it with cdt = float32.
+// walks' dense stacks in int8 (walk_body_fwd_q in
+// papr_tpu/ops/fused_mlp.py:322) on a quantization the wrapper calibrated.
+// It is the same kernel function on walk_wgmma.cuh's int8 operand form
+// (attend_eval_i8_wgmma_kernel): s8 x s8 -> s32 products on wgmma
+// (m64n128k32, A from registers, the int8 weights K-major in the TMA-fed
+// ring, each staged byte serving 128 tokens as in the bf16 kernel), the
+// epilogue (dequantization, bias, activation, quantization for the next
+// layer) in registers; then, in the bf16 epilogue (papr_attend_eval_i8),
+// y_k rounded to bf16 and the bf16 w_k product, the value rows rounded to
+// bf16; in the fp32 epilogue (papr_attend_eval_i8_f32: int8_eval with
+// use_amp: false) the 3xTF32 w_k product on the unrounded y_k, fp32 bias,
+// value rows not rounded, as _ase_fwd_kernel runs it with cdt = float32.
+// The int8 products halve the bytes of every weight stage and run at twice
+// the bf16 tensor-core rate; what is left is the epilogues' arithmetic.
 
 #include "rec_stream.cuh"
 #include "stream_common.cuh"
@@ -46,167 +48,21 @@
 
 using namespace papr;
 
-// One tile of kRows rays of the int8 kernels, Op the epilogue's operand
-// type; kq / vq: the walks' int8 forms.
-template <class Op>
-__device__ __forceinline__ void attend_eval_tile(
-    unsigned char* smem, const float* __restrict__ record, int rec_w,
-    const int* __restrict__ idx, int T, int K, const float* __restrict__ rayo,
-    const float* __restrict__ rays, const float* __restrict__ qq, int dm,
-    float sqrt_dm, const WalkDescT<Op>& kd, const WalkQuant& kq,
-    const Op* __restrict__ wk, const float* __restrict__ bk,
-    int dm_pad, const WalkDescT<Op>& vd, const WalkQuant& vq, int score_relu,
-    float bkg, int normalize, float eps, float* __restrict__ fused,
-    float* __restrict__ attn) {
-  const WalkSmemT<Op> S = walk_smem<Op>(smem);   // the epilogue's
-  const WalkSmem Q = walk_smem_q<Op>(smem);      // the int8 walks' (same C)
-  float* C = S.C;
-  float* geo = reinterpret_cast<float*>(S.extra);            // kRows x kGeo
-  float* m_run = geo + kRows * kGeo;                         // kRows
-  float* ss = m_run + kRows;                                 // kRows x K
-  const int cout = vd.d_out;
-  float* acc = ss + kRows * K;                               // kRows x cout
-  int* gidx = reinterpret_cast<int*>(acc + kRows * cout);    // kRows
-
-  const int t0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-
-  for (int r = tid; r < kRows; r += kThreads) m_run[r] = bkg;
-  for (int i = tid; i < kRows * cout; i += kThreads) acc[i] = 0.f;
-
-  for (int k = 0; k < K; ++k) {
-    // --- geometry (papr_tpu/ops/geometry.py point_ray_geometry) ---
-    if (tid < kRows) {
-      const int t = t0 + tid;
-      const bool valid = t < T;
-      const int g = valid ? idx[(size_t)t * K + k] : 0;
-      const float* rec = record + (size_t)g * rec_w;
-      float o[3], dr[3], v[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        o[j] = valid ? rayo[(size_t)t * 3 + j] : 0.f;
-        dr[j] = valid ? rays[(size_t)t * 3 + j] : 0.f;
-        v[j] = rec[j] - o[j];
-      }
-      const float t_al = v[0] * dr[0] + v[1] * dr[1] + v[2] * dr[2];
-      const float dd = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2];
-      const float cc = t_al / (dd + eps);
-      float* gr = geo + tid * kGeo;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float proj = dr[j] * cc;
-        gr[j] = rec[j];
-        gr[3 + j] = proj;
-        gr[6 + j] = v[j] - proj;
-      }
-      gr[9] = rec[3];
-      gr[10] = rec[4];
-      gidx[tid] = g;
-    }
-    __syncthreads();
-
-    // --- key walk -> w_k -> score column ---
-    encode_rec(C, kd, geo, gidx, record, rec_w);
-    __syncthreads();
-    // y_k as the w_k product's operand: rounded to bf16 in A[0], or fp32 in
-    // C (the fp32 epilogue's A[0]).
-    run_walk_q(Q, kd, kq, !kF32<Op>);
-    dense_layer(S.A[0], C, nullptr, S.W, wk, nullptr, kd.pd[kd.n], dm_pad, 0);
-    __syncthreads();
-    for (int r = warp; r < kRows; r += kWarps) {
-      const int t = t0 + r;
-      float s = 0.f;
-      if (t < T) {
-        const float* qrow = qq + (size_t)t * dm;
-        for (int c = lane; c < dm; c += 32) {
-          // nn/mlp.py linear_apply in the compute type (bf16: matmul
-          // rounded to bf16, bias add in bf16), promoted to fp32.
-          const float kk = linear_c<Op>(C[r * kCLd + c], bk[c]);
-          s += qrow[c] * kk;
-        }
-      }
-      s = warp_sum(s);
-      if (lane == 0) {
-        const float col = s / sqrt_dm;
-        const float sact = score_relu ? fmaxf(col, 0.f) : col;
-        const float* gr = geo + r * kGeo;
-        ss[r * K + k] = gr[10] > 0.5f ? sact * gr[9] : kNegBig;
-      }
-    }
-    __syncthreads();
-
-    // --- value walk -> online softmax-weighted accumulation ---
-    encode_rec(C, vd, geo, gidx, record, rec_w);
-    __syncthreads();
-    run_walk_q(Q, vd, vq);
-    for (int r = warp; r < kRows; r += kWarps) {
-      const float s = ss[r * K + k];
-      const float m_old = m_run[r];
-      const float m_new = fmaxf(m_old, s);
-      const float scale = expf(m_old - m_new), e = expf(s - m_new);
-      for (int c = lane; c < cout; c += 32) {
-        const float yc = act_round<Op>(C[r * kCLd + c]);
-        acc[r * cout + c] = acc[r * cout + c] * scale + e * yc;
-      }
-    }
-    __syncthreads();
-    if (tid < kRows) m_run[tid] = fmaxf(m_run[tid], ss[tid * K + k]);
-    __syncthreads();
-  }
-
-  // --- background-token softmax, renormalized fuse ---
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int t = t0 + r;
-    if (t >= T) continue;
-    const float m = m_run[r];
-    float z = 0.f;
-    for (int k = lane; k < K; k += 32) z += expf(ss[r * K + k] - m);
-    z = warp_sum(z);
-    const float eb = expf(bkg - m);
-    const float denom = z + eb;
-    float* arow = attn + (size_t)t * (K + 1);
-    for (int k = lane; k < K; k += 32) arow[k] = expf(ss[r * K + k] - m) / denom;
-    if (lane == 0) arow[K] = eb / denom;
-    const float dn = normalize ? (z > 0.f ? z : 1.f) : denom;
-    for (int c = lane; c < cout; c += 32)
-      fused[(size_t)t * cout + c] = acc[r * cout + c] / dn;
-  }
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads, 1)
-attend_eval_i8_kernel(const float* __restrict__ record, int rec_w,
-                      const int* __restrict__ idx, int T, int K,
-                      const float* __restrict__ rayo,
-                      const float* __restrict__ rays,
-                      const float* __restrict__ qq, int dm, float sqrt_dm,
-                      WalkDescT<Op> kd, WalkQuant kq,
-                      const Op* __restrict__ wk,
-                      const float* __restrict__ bk, int dm_pad,
-                      WalkDescT<Op> vd,
-                      WalkQuant vq, int score_relu, float bkg, int normalize,
-                      float eps, float* __restrict__ fused,
-                      float* __restrict__ attn) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  attend_eval_tile(smem, record, rec_w, idx, T, K, rayo, rays, qq, dm,
-                   sqrt_dm, kd, kq, wk, bk, dm_pad, vd, vq, score_relu, bkg,
-                   normalize, eps, fused, attn);
-}
-
-// ------------------------------------------ bf16 and fp32: on wgmma + TMA --
+// ----------------------------------------------------- on wgmma + TMA --
 //
-// The bf16 kernel (papr_attend_eval) and the fp32 kernel
-// (papr_attend_eval_f32) are the same function on walk_wgmma.cuh's forward
-// walk, which the bf16 stream forwards (key_stream.cu, value_stream.cu) run
-// too, in its two operand forms: a block of two warpgroups takes 128 rays;
-// each warpgroup owns 64 of them and loops over k, and the two read every
-// layer's packed weight chunks (key layers, w_k, value layers, once per k)
-// from one TMA-fed ring. A token's record row is idx[t * K + k]. After the
-// key walk and the score, the value walk's fp32 rows (rounded to bf16 in
-// the bf16 form) go into a background-seeded online softmax. The fp32 form
-// reads its parameter rows from global memory: its shared memory holds the
-// fp32 activations (walk_wgmma.cuh, the fp32 operand form).
+// The bf16 kernel (papr_attend_eval), the fp32 kernel (papr_attend_eval_f32)
+// and the int8 kernels (papr_attend_eval_i8 / _i8_f32) are one function on
+// walk_wgmma.cuh's forward walk, which the bf16 stream forwards
+// (key_stream.cu, value_stream.cu) run too, in its operand forms (bf16,
+// fp32, int8 beside a bf16 or fp32 epilogue): a block of two warpgroups
+// takes 128 rays; each warpgroup owns 64 of them and loops over k, and the
+// two read every layer's packed weight chunks (key layers, w_k, value
+// layers, once per k) from one TMA-fed ring. A token's record row is
+// idx[t * K + k]. After the key walk and the score, the value walk's fp32
+// rows (rounded to bf16 with a bf16 epilogue) go into a background-seeded
+// online softmax. The fp32 and int8 forms read their parameter rows from
+// global memory: the fp32 form's shared memory holds the fp32 activations,
+// and the int8 form's rows are three a layer.
 
 struct EvalWg {
   const float* record;
@@ -236,12 +92,16 @@ struct EvalWg {
   int e_floats;                  // of which the encoding / parking tile
   int nb[2], nln[2], nplan[2];   // parameter rows staged (key, value)
   int n_prm;                     // all staged parameter floats
+  const float* inv[2];           // the int8 form's rows (key, value):
+  const float* dq[2];            // ops/fused_mlp.py pack_walk_q's
 };
 
-template <class Op>
-__global__ void __launch_bounds__(kWgThreads, 1)
-attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
+// The kernels' function in the operand form of Op (bf16 or fp32) or, with
+// kQ8, the int8 form beside the epilogue of Op.
+template <class Op, bool kQ8>
+__device__ __forceinline__ void attend_eval_wg(const EvalWg& p) {
   constexpr bool f32 = kF32<Op>;
+  constexpr bool in_place = f32 || kQ8;   // parameter rows read in place
   extern __shared__ unsigned char smem_raw[];
   const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm);
   if constexpr (f32) {
@@ -261,8 +121,9 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
   {
     const float* const src[7] = {p.kd.b[0], p.kd.ln, p.kd.plan, p.bk,
                                  p.vd.b[0], p.vd.ln, p.vd.plan};
-    const int cnt[7] = {p.nb[0], p.nln[0], p.nplan[0], f32 ? 0 : p.dm_pad,
-                        p.nb[1], p.nln[1], p.nplan[1]};
+    const int cnt[7] = {p.nb[0], p.nln[0], p.nplan[0],
+                        in_place ? 0 : p.dm_pad, p.nb[1], p.nln[1],
+                        p.nplan[1]};
     wg_prologue(sm, p.stages, src, cnt);
   }
   const int tid = threadIdx.x;
@@ -271,11 +132,13 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
   WgRing rg{sm.ring, sm.full, sm.released, p.stages, 0, p.n_chunks,
             p.n_chunks * p.K, p.chunks, p.w};
   wg_ring_start(rg);
-  const WgWalk kw{&p.kd, f32 ? p.kd.b[0] : kbias, f32 ? p.kd.ln : kln,
-                  f32 ? p.kd.plan : kplan, p.layers};
-  const WgWalk vw{&p.vd, f32 ? p.vd.b[0] : vbias, f32 ? p.vd.ln : vln,
-                  f32 ? p.vd.plan : vplan, p.layers + n_key + 1};
-  const float* bkr = f32 ? p.bk : bks;
+  const WgWalk kw{&p.kd, in_place ? p.kd.b[0] : kbias,
+                  in_place ? p.kd.ln : kln, in_place ? p.kd.plan : kplan,
+                  p.layers, p.inv[0], p.dq[0]};
+  const WgWalk vw{&p.vd, in_place ? p.vd.b[0] : vbias,
+                  in_place ? p.vd.ln : vln, in_place ? p.vd.plan : vplan,
+                  p.layers + n_key + 1, p.inv[1], p.dq[1]};
+  const float* bkr = in_place ? p.bk : bks;
   {
     const int t_in = tid & 127, w = t_in >> 5, lane = t_in & 31;
     const int g = lane >> 2, q = lane & 3;
@@ -293,11 +156,21 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
     float ss[2];
     float* park_f = E;                                  // between passes
     // The operand form's registers: bf16, a pass's accumulator and the A
-    // fragments; fp32, a whole layer's accumulator (A: the rows of E).
+    // fragments; fp32, a whole layer's accumulator (A: the rows of E); int8,
+    // the int8 fragments beside the epilogue's (WgQ8A).
     constexpr int kAcc = f32 ? kOutRegs : kAccRegs;
-    std::conditional_t<f32, WgRowsA, uint32_t[kARegs]> A;
+    std::conditional_t<kQ8, WgQ8A<Op>,
+                       std::conditional_t<f32, WgRowsA, uint32_t[kARegs]>> A;
     float acc[kAcc];
-    if constexpr (f32) {
+    // The w_k product's operand: the form's A, or the int8 form's epilogue's.
+    auto& Ak = [&]() -> auto& {
+      if constexpr (kQ8) return A.ep(); else return A;
+    }();
+    if constexpr (kQ8) {
+#pragma unroll
+      for (int i = 0; i < int(sizeof(A.r) / 4); ++i) A.r[i] = 0u;
+      if constexpr (f32) A.rows = WgRowsA{E, row0};
+    } else if constexpr (f32) {
       A = WgRowsA{E, row0};
     } else {
 #pragma unroll
@@ -317,7 +190,7 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
       wg_walk(acc, A, rg, sm.zero, E, ld, kw, row0, false,
               RecSrc{geo, p.record, p.rec_w});
       float col[2];
-      wg_score(acc, A, rg, sm.zero, p.layers[n_key], p.qq, p.dm, bkr,
+      wg_score(acc, Ak, rg, sm.zero, p.layers[n_key], p.qq, p.dm, bkr,
                p.sqrt_dm, T, rbase, rl, col);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -380,6 +253,20 @@ attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
 }
 
 template <class Op>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attend_eval_wgmma_kernel(const __grid_constant__ EvalWg p) {
+  attend_eval_wg<Op, false>(p);
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attend_eval_i8_wgmma_kernel(const __grid_constant__ EvalWg p) {
+  attend_eval_wg<Op, true>(p);
+}
+
+// kQ8: the int8 form (kinv .. vdq its walks' rows, the image's walk layers
+// int8); else kinv .. vdq are unread.
+template <class Op, bool kQ8>
 static int launch_attend_eval_wgmma(
     const float* record, int rec_w, const int* idx, int T, int K,
     const float* rayo, const float* rays, const float* qq, int dm,
@@ -387,7 +274,9 @@ static int launch_attend_eval_wgmma(
     const void* kln, const void* kplan, const void* bk, int dm_pad,
     const int* vmeta, const void* vw, const void* vb, const void* vln,
     const void* vplan, int score_relu, float bkg, int normalize, float eps,
-    void* fused, void* attn, const void* wpack, int wbytes, void* stream) {
+    void* fused, void* attn, const void* kinv, const void* kdq,
+    const void* vinv, const void* vdq, const void* wpack, int wbytes,
+    void* stream) {
   constexpr bool f32 = kF32<Op>;
   EvalWg p;
   int err = fill_walk(&p.kd, kmeta, kw, kb, kln, kplan);
@@ -397,33 +286,48 @@ static int launch_attend_eval_wgmma(
   if (dm_pad <= 0 || dm_pad > kMaxWidth || dm_pad % 16 != 0 || dm > dm_pad)
     return -201;
   if (K <= 0 || K > 128) return -202;
+  if (kQ8 && (!kinv || !kdq || !vinv || !vdq)) return -105;
   if (T <= 0) return 0;
   int dims[kWgMaxLayers][2], n = 0;
   wg_walk_dims(dims, &n, p.kd);
   dims[n][0] = p.kd.pd[p.kd.n];
   dims[n++][1] = dm_pad;
   wg_walk_dims(dims, &n, p.vd);
-  const long long need = f32 ? wg_plan_f32(p.layers, dims, n)
-                              : wg_plan(p.layers, dims, n);
+  long long need;
+  if constexpr (kQ8) {
+    int kind[kWgMaxLayers];
+    for (int i = 0; i < n; ++i) kind[i] = kWgQ8;
+    kind[p.kd.n] = f32 ? kWgF32 : kWgBf16;          // w_k
+    need = wg_plan_mixed(p.layers, dims, kind, n);
+    p.n_chunks = wg_chunks_mixed(p.chunks, p.layers, kind, n);
+  } else {
+    need = f32 ? wg_plan_f32(p.layers, dims, n) : wg_plan(p.layers, dims, n);
+    p.n_chunks = f32 ? wg_chunks_f32(p.chunks, need)
+                     : wg_chunks(p.chunks, p.layers, n);
+  }
   if (need != wbytes || !wpack || reinterpret_cast<uintptr_t>(wpack) % 16)
     return -204;
-  if constexpr (f32) {
-    // Every stage full, in stream order; parameter rows read in place.
-    p.n_chunks = wg_chunks_f32(p.chunks, need);
+  const int pd0 = p.kd.pd[0] > p.vd.pd[0] ? p.kd.pd[0] : p.vd.pd[0];
+  if (f32 || kQ8) {
+    // Parameter rows read in place; E in the fp32 form's rows (fp32), or
+    // of the widest encoding (int8 beside bf16: 8 mod 32 floats a row keeps
+    // the fragments' float2 reads free of bank conflicts).
     for (int i = 0; i < 2; ++i) p.nb[i] = p.nln[i] = p.nplan[i] = 0;
     p.n_prm = 0;
-    p.ld = kF32Ld;
-    p.e_floats = kWgRows * kF32Ld;
+    p.ld = f32 ? kF32Ld : (pd0 + 31) / 32 * 32 + 8;
+    p.e_floats = f32 ? kWgRows * kF32Ld : wg_e_floats(p.ld);
   } else {
-    p.n_chunks = wg_chunks(p.chunks, p.layers, n);
     wg_walk_rows(p.kd, &p.nb[0], &p.nln[0], &p.nplan[0]);
     wg_walk_rows(p.vd, &p.nb[1], &p.nln[1], &p.nplan[1]);
     p.n_prm = p.nb[0] + p.nln[0] + p.nplan[0] + dm_pad + p.nb[1] + p.nln[1] +
               p.nplan[1];
-    const int pd0 = p.kd.pd[0] > p.vd.pd[0] ? p.kd.pd[0] : p.vd.pd[0];
     p.ld = wg_ld(pd0);
     p.e_floats = wg_e_floats(p.ld);
   }
+  p.inv[0] = static_cast<const float*>(kinv);
+  p.dq[0] = static_cast<const float*>(kdq);
+  p.inv[1] = static_cast<const float*>(vinv);
+  p.dq[1] = static_cast<const float*>(vdq);
   p.wg_floats = kWgRows * kGeo + p.e_floats + kWgRows * p.vd.d_out;
   size_t smem = 0;
   err = wg_ring_fit(wg_smem_rest(2 * p.wg_floats, p.n_prm), &p.stages, &smem);
@@ -447,56 +351,13 @@ static int launch_attend_eval_wgmma(
   p.fused = static_cast<float*>(fused);
   p.attn = static_cast<float*>(attn);
   p.w = static_cast<const unsigned char*>(wpack);
+  void (*kernel)(EvalWg) = attend_eval_wgmma_kernel<Op>;
+  if constexpr (kQ8) kernel = attend_eval_i8_wgmma_kernel<Op>;
   cudaError_t e = cudaFuncSetAttribute(
-      attend_eval_wgmma_kernel<Op>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  attend_eval_wgmma_kernel<Op><<<(T + kWgTile - 1) / kWgTile, kWgThreads,
-                                 smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// The int8 kernels' launcher, Op the epilogue's operand type (bf16 or fp32).
-template <class Op>
-static int launch_attend_eval_i8(
-    const float* record, int rec_w, const int* idx, int T, int K,
-    const float* rayo, const float* rays, const float* qq, int dm,
-    float sqrt_dm, const int* kmeta, const void* kw, const void* kb,
-    const void* kln, const void* kplan, const void* wk, const void* bk,
-    int dm_pad, const int* vmeta, const void* vw, const void* vb,
-    const void* vln, const void* vplan, int score_relu, float bkg,
-    int normalize, float eps, void* fused, void* attn, const void* kwq,
-    const void* kinv, const void* kdq, const void* vwq, const void* vinv,
-    const void* vdq, void* stream) {
-  WalkDescT<Op> kd, vd;
-  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
-  if (err) return err;
-  err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
-  if (err) return err;
-  WalkQuant kq, vq;
-  err = fill_walk_quant(&kq, kd, kmeta, kwq, kinv, kdq);
-  if (err) return err;
-  err = fill_walk_quant(&vq, vd, vmeta, vwq, vinv, vdq);
-  if (err) return err;
-  if (dm_pad <= 0 || dm_pad > kMaxWidth || dm_pad % 16 != 0 || dm > dm_pad)
-    return -201;
-  if (K <= 0 || K > 128) return -202;
-  if (T <= 0) return 0;
-  const size_t smem = kWalkSmem + sizeof(float) * kRows *
-      (kGeo + 1 + K + vd.d_out) + sizeof(int) * kRows;
-  if (smem > 232448) return -203;      // the H100's per-block maximum
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = (T + kRows - 1) / kRows;
-  const Op* wkp = static_cast<const Op*>(wk);
-  const float* bkp = static_cast<const float*>(bk);
-  cudaError_t e = cudaFuncSetAttribute(
-      attend_eval_i8_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  attend_eval_i8_kernel<Op><<<grid, kThreads, smem, st>>>(
-      record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kd, kq, wkp, bkp,
-      dm_pad, vd, vq, score_relu, bkg, normalize, eps,
-      static_cast<float*>(fused), static_cast<float*>(attn));
+  kernel<<<(T + kWgTile - 1) / kWgTile, kWgThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -508,42 +369,48 @@ static int launch_attend_eval_i8(
     int dm_pad, const int* vmeta, const void* vw, const void* vb,            \
     const void* vln, const void* vplan, int score_relu, float bkg,           \
     int normalize, float eps, void* fused, void* attn
-#define ATTEND_EVAL_ARGS                                                     \
-    record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb,    \
-    kln, kplan, wk, bk, dm_pad, vmeta, vw, vb, vln, vplan, score_relu, bkg,  \
-    normalize, eps, fused, attn
 
-// The kernels on wgmma: the tile function's arguments (w_k unread), then
-// the packed weights of every layer (bf16: ops/fused_mlp.py
-// pack_walk_wgmma; fp32: pack_walk_wgmma_f32) and their size in bytes.
+// The C entry points: the walks' arguments (kw / vw and w_k unread: the
+// packed image holds every product's weights), then (int8) the walks'
+// inverse-scale and dequantization rows (ops/fused_mlp.py pack_walk_q),
+// then the packed weights of every layer (bf16: ops/fused_mlp.py
+// pack_walk_wgmma; fp32: pack_walk_wgmma_f32; int8: the key's and value's
+// pack_walk_wgmma_q around w_k's bf16 or fp32 image) and their size in
+// bytes.
 #define ATTEND_EVAL_WGMMA_ARGS                                               \
     record, rec_w, idx, T, K, rayo, rays, qq, dm, sqrt_dm, kmeta, kw, kb,    \
     kln, kplan, bk, dm_pad, vmeta, vw, vb, vln, vplan, score_relu, bkg,      \
-    normalize, eps, fused, attn, wpack, wbytes, stream
+    normalize, eps, fused, attn
 extern "C" int papr_attend_eval(ATTEND_EVAL_PARAMS, const void* wpack,
                                 int wbytes, void* stream) {
   (void)wk;
-  return launch_attend_eval_wgmma<__nv_bfloat16>(ATTEND_EVAL_WGMMA_ARGS);
+  return launch_attend_eval_wgmma<__nv_bfloat16, false>(
+      ATTEND_EVAL_WGMMA_ARGS, nullptr, nullptr, nullptr, nullptr, wpack,
+      wbytes, stream);
 }
 
 extern "C" int papr_attend_eval_f32(ATTEND_EVAL_PARAMS, const void* wpack,
                                     int wbytes, void* stream) {
   (void)wk;
-  return launch_attend_eval_wgmma<float>(ATTEND_EVAL_WGMMA_ARGS);
+  return launch_attend_eval_wgmma<float, false>(
+      ATTEND_EVAL_WGMMA_ARGS, nullptr, nullptr, nullptr, nullptr, wpack,
+      wbytes, stream);
 }
 
-extern "C" int papr_attend_eval_i8(ATTEND_EVAL_PARAMS, const void* kwq,
-                                   const void* kinv, const void* kdq,
-                                   const void* vwq, const void* vinv,
-                                   const void* vdq, void* stream) {
-  return launch_attend_eval_i8<__nv_bfloat16>(ATTEND_EVAL_ARGS, kwq, kinv,
-                                              kdq, vwq, vinv, vdq, stream);
+extern "C" int papr_attend_eval_i8(ATTEND_EVAL_PARAMS, const void* kinv,
+                                   const void* kdq, const void* vinv,
+                                   const void* vdq, const void* wpack,
+                                   int wbytes, void* stream) {
+  (void)wk;
+  return launch_attend_eval_wgmma<__nv_bfloat16, true>(
+      ATTEND_EVAL_WGMMA_ARGS, kinv, kdq, vinv, vdq, wpack, wbytes, stream);
 }
 
-extern "C" int papr_attend_eval_i8_f32(ATTEND_EVAL_PARAMS, const void* kwq,
-                                       const void* kinv, const void* kdq,
-                                       const void* vwq, const void* vinv,
-                                       const void* vdq, void* stream) {
-  return launch_attend_eval_i8<float>(ATTEND_EVAL_ARGS, kwq, kinv, kdq,
-                                      vwq, vinv, vdq, stream);
+extern "C" int papr_attend_eval_i8_f32(ATTEND_EVAL_PARAMS, const void* kinv,
+                                       const void* kdq, const void* vinv,
+                                       const void* vdq, const void* wpack,
+                                       int wbytes, void* stream) {
+  (void)wk;
+  return launch_attend_eval_wgmma<float, true>(
+      ATTEND_EVAL_WGMMA_ARGS, kinv, kdq, vinv, vdq, wpack, wbytes, stream);
 }

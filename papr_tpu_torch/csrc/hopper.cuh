@@ -124,6 +124,9 @@ __device__ __forceinline__ void reg_fence(float& r) {
 __device__ __forceinline__ void reg_fence(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
+__device__ __forceinline__ void reg_fence(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
 template <class T, int N>
 __device__ __forceinline__ void reg_fence(T (&r)[N]) {
 #pragma unroll

@@ -1,10 +1,12 @@
-// Embedder "walk" building blocks on WMMA, shared by the int8 walks (the
-// one-shot eval attention, attend_eval.cu, and the stream forwards), the
-// bf16 folded stream kernels (key_stream_q.cu), the feature stream kernels
-// but their fp32 forwards (key_stream_feat.cu, value_stream_feat.cu: the
-// bf16 forwards and both backwards), the fused scores (fused_attn.cu) and
-// the int8 walk microbenchmark; the embedder, K3, the key / value streams,
-// the fp32 folded key stream and the fp32 feature stream forwards run
+// Embedder "walk" building blocks on WMMA, shared by the int8 stream
+// forwards (key_stream.cu / value_stream.cu with int8: rows 5q / 6q and
+// their fp32 epilogue 5qf / 6qf), the bf16 folded stream kernels
+// (key_stream_q.cu), the feature stream kernels but their fp32 forwards
+// (key_stream_feat.cu, value_stream_feat.cu: the bf16 forwards and both
+// backwards), the fused scores (fused_attn.cu) and the int8 walk
+// microbenchmark; the embedder, K3 (the int8 K3 too: walk_wgmma.cuh's int8
+// form, which reuses quantize_value below), the key / value streams, the
+// fp32 folded key stream and the fp32 feature stream forwards run
 // walk_wgmma.cuh.
 //
 // A walk is papr_tpu/ops/fused_mlp.py::walk_body_fwd: [LayerNorm] -> dense

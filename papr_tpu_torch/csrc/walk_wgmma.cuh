@@ -18,9 +18,13 @@
 // key_stream.cu's fp32 kernels), and the fp32 feature stream forwards
 // (key_stream_feat.cu key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
 // value_feat_fwd_wgmma_f32_kernel: the stream forwards' function with raw
-// (K, T, d) feature rows as the posenc sources, FeatTok). The int8 forms and
-// the other walk kernels (the bf16 forms of key_stream_q.cu, the bf16 forms
-// and the backwards of key_stream_feat.cu / value_stream_feat.cu) keep
+// (K, T, d) feature rows as the posenc sources, FeatTok). The int8 one-shot
+// eval attention (attend_eval_i8_wgmma_kernel, both epilogues) runs the same
+// walk in its int8 operand form (below: s8 x s8 -> s32 products, the
+// epilogue quantizing straight into the next product's fragments). The int8
+// stream forwards (rows 5q / 6q, 5qf / 6qf), the int8 walk microbenchmark
+// and the other walk kernels (the bf16 forms of key_stream_q.cu, the bf16
+// forms and the backwards of key_stream_feat.cu / value_stream_feat.cu) keep
 // walk.cuh's WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
@@ -77,22 +81,24 @@ __host__ __device__ inline int wg_tile_n(int pd_out) {
 }
 
 // One layer's packed weights: ceil(pd_in / 64) chunks of ni x 128 bytes at
-// byte offset off (a 256-wide layer's second pass reads rows 128.. of each).
+// byte offset off (a 256-wide layer's second pass reads rows 128.. of each;
+// an int8 layer's chunks are 128 deep).
 struct WgLayer {
   int off, pd_in, pd_out, ni;
 };
 
 // Host side: the layer table of (pd_in, pd_out) pairs in the order the
-// packed buffer holds them; returns the buffer's size in bytes.
-inline long long wg_plan(WgLayer* l, const int (*dims)[2], int n) {
+// packed buffer holds them, chunks depth rows deep; returns the buffer's
+// size in bytes.
+inline long long wg_plan(WgLayer* l, const int (*dims)[2], int n,
+                         int depth = kWChunkRows) {
   long long off = 0;
   for (int i = 0; i < n; ++i) {
     l[i].off = (int)off;
     l[i].pd_in = dims[i][0];
     l[i].pd_out = dims[i][1];
     l[i].ni = wg_tile_n(dims[i][1]);
-    off += (long long)((dims[i][0] + kWChunkRows - 1) / kWChunkRows) *
-           l[i].ni * 128;
+    off += (long long)((dims[i][0] + depth - 1) / depth) * l[i].ni * 128;
   }
   return off;
 }
@@ -333,16 +339,17 @@ __device__ __forceinline__ void smem_to_a(const unsigned char* rows, int ld,
   }
 }
 
-// Host side: the per-k chunk stream of layers [0, n) in the order the
-// warpgroups consume it (a 256-wide layer's second pass reads rows 128.. of
-// each chunk); returns its length.
-inline int wg_chunks(WgChunk* out, const WgLayer* layers, int n) {
+// Host side: the per-k chunk stream of layers [0, n) (chunks depth rows
+// deep) in the order the warpgroups consume it (a 256-wide layer's second
+// pass reads rows 128.. of each chunk); returns its length.
+inline int wg_chunks(WgChunk* out, const WgLayer* layers, int n,
+                     int depth = kWChunkRows) {
   int m = 0;
   for (int li = 0; li < n; ++li) {
     const WgLayer& l = layers[li];
     const int passes = l.ni > kPassN ? 2 : 1;
     const int bytes = (l.ni > kPassN ? kPassN : l.ni) * 128;
-    const int nch = (l.pd_in + kWChunkRows - 1) / kWChunkRows;
+    const int nch = (l.pd_in + depth - 1) / depth;
     for (int p = 0; p < passes; ++p)
       for (int c = 0; c < nch; ++c, ++m)
         out[m] = {l.off + c * l.ni * 128 + p * kWStageBytes, bytes};
@@ -381,6 +388,11 @@ struct WgWalk {
   const float* ln;               // d->ln
   const float* plan;             // d->plan
   const WgLayer* layers;         // d->n entries
+  // The int8 form's rows (ops/fused_mlp.py pack_walk_q): each layer's
+  // inverse input scales, back to back, and its dequantization scales at
+  // its bias offsets.
+  const float* inv;
+  const float* dq;
 };
 
 // The block's shared memory: a zero chunk (the bf16 form's products past a
@@ -757,12 +769,12 @@ constexpr int kWgMaxChunksF32 =
     kWgMaxLayers * (kMaxWidth / kF32ChunkK) * (kMaxWidth / kF32PassN);
 static_assert(kWgMaxChunksF32 >= kWgMaxChunks, "");
 
-// Host side: the fp32 image's per-k chunk stream (bytes of it, from
-// wg_plan_f32): every stage full, in the order the walk consumes them;
+// Host side: the fp32 image's per-k chunk stream (bytes of it from byte off,
+// from wg_plan_f32): every stage full, in the order the walk consumes them;
 // returns its length.
-inline int wg_chunks_f32(WgChunk* out, long long bytes) {
+inline int wg_chunks_f32(WgChunk* out, long long bytes, int off = 0) {
   const int m = (int)(bytes / kWStageBytes);
-  for (int i = 0; i < m; ++i) out[i] = {i * kWStageBytes, kWStageBytes};
+  for (int i = 0; i < m; ++i) out[i] = {off + i * kWStageBytes, kWStageBytes};
   return m;
 }
 
@@ -1096,6 +1108,396 @@ __device__ __forceinline__ void wg_score(float (&acc)[kOutRegs], WgRowsA& A,
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) col[h] = quad_sum(s[h]) / sqrt_dm;
+}
+
+// ------------------------------------------------ the int8 operand form --
+//
+// The walk of the int8 one-shot eval attention (attend_eval.cu
+// attend_eval_i8_wgmma_kernel, tpu.int8_eval): papr_tpu/ops/fused_mlp.py
+// walk_body_fwd_q on wgmma. The posenc and the input LayerNorm run in fp32
+// on the warp's rows of E, as the other forms; the first layer's input is
+// quantized from there (q = clip(round(h * inv), +-127), walk.cuh
+// quantize_value: round half to even, no contraction) into int8 A
+// fragments; every product is wgmma m64n128k32 s8 x s8 -> s32 (A from
+// registers, B K-major from the ring) into an int accumulator, whose
+// epilogue runs in registers: z = acc * dq + b (a multiply, then an add),
+// the activation, and, but after the last layer, the quantization with the
+// next layer's inverse scales straight into the next product's A
+// fragments. The last layer's fp32 output (and the output LayerNorm) is
+// left as the epilogue's form takes it: bf16 (4q), the bf16 form's y_k A
+// fragments or value rows; fp32 (4qf), the fp32 form's whole-layer
+// accumulator (y_k then goes to E for the 3xTF32 w_k product).
+//
+// An s8 A fragment of a k32 block holds row g's and g + 8's K positions
+// 4 q .. 4 q + 3 and 16 + 4 q .. 16 + 4 q + 3, where the accumulator holds
+// columns 8 j + 2 q + {0, 1}; the packer (ops/fused_mlp.py
+// pack_walk_wgmma_q) permutes each 32-deep K group of every layer's weight
+// rows so that K position 4 q + i reads input column {2 q, 2 q + 1, 2 q + 8,
+// 2 q + 9}[i] and 16 + 4 q + i column 16 + {...}[i]: a thread quantizes its
+// own accumulator columns into its own fragments, with no shuffle. The
+// integer sums do not depend on the order, so the products are the plain
+// version's int32 sums exactly. An int8 weight row of 128 bytes is 128 K
+// values, so a chunk is 128 deep (the 128-byte swizzle atom; the key's
+// 117 -> 128-wide first layer pads nothing past its 16-aligned width, the
+// value's 142 -> 144 pads 112 zero rows in its second chunk) and a 256-deep
+// input is two chunks of four k32 steps; a 256-wide output is two passes of
+// 128, the first pass's int8 output held in registers (A[32 ..]) while the
+// second reads the input. The products always run two chunks: past a
+// layer's width the fragments are zero, and an integer product with zero
+// fragments adds nothing whatever the stage it reads holds, so the second
+// chunk of a 128-deep layer reads its first chunk's slot again. Parameter
+// rows (biases, dq, inv, LayerNorms, plan, b_k) are read in place.
+
+constexpr int kQ8ChunkK = 128;                 // K rows of an int8 chunk
+constexpr int kQ8Regs = kMaxWidth / 8;         // a 256-deep input: 8 k32 x 4
+constexpr int kQ8ARegs = kQ8Regs + kQ8Regs / 2;  // + a first pass's output
+
+// The int8 form's A operand beside the epilogue's form Op: int8 fragments
+// in r[0 .. kQ8ARegs) (the layer input in r[0 .. kQ8Regs)); with bf16, the
+// w_k product's bf16 fragments in r[0 .. kARegs) after the walk; with fp32,
+// the warp's rows of E for the w_k product. ep() is the w_k product's
+// operand in the epilogue's form.
+template <class Op>
+struct WgQ8A {
+  uint32_t r[kARegs];
+  __device__ __forceinline__ auto& ep() { return r; }
+};
+template <>
+struct WgQ8A<float> {
+  uint32_t r[kQ8ARegs];
+  WgRowsA rows;
+  __device__ __forceinline__ WgRowsA& ep() { return rows; }
+};
+
+// Host side: the layer table of an image that mixes forms, layer i in the
+// form kind[i] (kWgQ8: ceil(pd_in / 128) chunks of wg_tile_n(pd_out) rows
+// of 128 bytes; kWgBf16: wg_plan's; kWgF32: wg_plan_f32's stages), and the
+// per-k chunk stream of those layers; the plan returns the image's size.
+enum WgKind { kWgBf16 = 0, kWgQ8 = 1, kWgF32 = 2 };
+
+inline long long wg_plan_mixed(WgLayer* l, const int (*dims)[2],
+                               const int* kind, int n) {
+  long long off = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long bytes =
+        kind[i] == kWgF32 ? wg_plan_f32(l + i, dims + i, 1)
+                          : wg_plan(l + i, dims + i, 1,
+                                    kind[i] == kWgQ8 ? kQ8ChunkK : kWChunkRows);
+    l[i].off = (int)off;
+    off += bytes;
+  }
+  return off;
+}
+
+inline int wg_chunks_mixed(WgChunk* out, const WgLayer* l, const int* kind,
+                           int n) {
+  int m = 0;
+  for (int i = 0; i < n; ++i) {
+    if (kind[i] == kWgF32) {
+      WgLayer t;
+      const int d[1][2] = {{l[i].pd_in, l[i].pd_out}};
+      m += wg_chunks_f32(out + m, wg_plan_f32(&t, d, 1), l[i].off);
+    } else {
+      m += wg_chunks(out + m, l + i, 1,
+                     kind[i] == kWgQ8 ? kQ8ChunkK : kWChunkRows);
+    }
+  }
+  return m;
+}
+
+// Four int8 values (low bytes of a .. d) as one fragment register, a first.
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// acc = A[0 .. kQ8Regs) x W for one pass: its two 128-deep chunks in order
+// from the ring, four m64n128k32 products each, one chunk's products in
+// flight while the next is issued; each chunk goes back to the ring once
+// its products are done. nch = 1: the second chunk's products read the
+// slot just waited on again with zero fragments (no second wait), and that
+// slot goes back once both chunks' products are done.
+template <int R>
+__device__ __forceinline__ void wg_gemm_q8(int (&acc)[kAccRegs],
+                                           uint32_t (&A)[R], WgRing& ring,
+                                           int nch) {
+  static_assert(R >= kQ8Regs, "");
+  reg_fence(A);
+  reg_fence(acc);
+#pragma unroll
+  for (int c = 0; c < kMaxWidth / kQ8ChunkK; ++c) {
+    const bool real = c < nch;
+    const int st = (real ? ring.i : ring.i - 1) % ring.stages;
+    if (real) mbar_wait(&ring.full[st], (ring.i / ring.stages) & 1);
+    const uint64_t desc = sw128_desc(ring.base + st * kWStageBytes, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int kb = 4 * c + kk;
+      wgmma_rs_s8_n128(acc, A[4 * kb], A[4 * kb + 1], A[4 * kb + 2],
+                       A[4 * kb + 3], desc + 2 * kk, kb > 0);
+    }
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      if (real) wg_release(ring, ring.i - 1);
+    }
+    if (real) ++ring.i;
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(A);
+  wg_release(ring, ring.i - 1);
+}
+
+// The layer's z = acc * dq + b (a multiply, then an add) and activation of
+// the pass's columns < pd (pd relative to the pass; others z = 0); pairs of
+// columns c, c + 1 = 8 j + 2 q.
+__device__ __forceinline__ float2 q8_dequant(const int (&acc)[kAccRegs],
+                                             int j, int h, float2 s, float2 b,
+                                             int act) {
+  float z0 = __fadd_rn(__fmul_rn((float)acc[4 * j + 2 * h], s.x), b.x);
+  float z1 = __fadd_rn(__fmul_rn((float)acc[4 * j + 2 * h + 1], s.y), b.y);
+  if (act == 1) {
+    z0 = fmaxf(z0, 0.f);
+    z1 = fmaxf(z1, 0.f);
+  }
+  return make_float2(z0, z1);
+}
+
+// The pass's dequantized, activated columns quantized with the next layer's
+// inverse scales (inv, relative to the pass) into the next product's
+// fragments A[O + 4 kb + 2 m + h] (kb: the pass's k32 blocks; m: K
+// positions 16 m ..; h: row g + 8 h), each of columns 32 kb + 16 m + 2 q +
+// {0, 1, 8, 9} in its bytes 0..3 (the packer's permutation); columns >= pd
+// quantize to 0.
+template <int O, int R>
+__device__ __forceinline__ void q8_to_a(const int (&acc)[kAccRegs],
+                                        const float* __restrict__ dq,
+                                        const float* __restrict__ bias,
+                                        const float* __restrict__ inv, int pd,
+                                        int act, uint32_t (&A)[R]) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int kb = 0; kb < kPassN / 32; ++kb)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      int v[2][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int j = 4 * kb + 2 * m + x, c = 8 * j + 2 * q;
+        const bool in = c < pd;
+        const float2 s = in ? *reinterpret_cast<const float2*>(dq + c)
+                            : make_float2(0.f, 0.f);
+        const float2 b = in ? *reinterpret_cast<const float2*>(bias + c)
+                            : make_float2(0.f, 0.f);
+        const float2 iv = in ? *reinterpret_cast<const float2*>(inv + c)
+                             : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 z = q8_dequant(acc, j, h, s, b, act);
+          v[h][2 * x] = quantize_value(z.x, iv.x);
+          v[h][2 * x + 1] = quantize_value(z.y, iv.y);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        A[O + 4 * kb + 2 * m + h] = pack_s8(v[h][0], v[h][1], v[h][2],
+                                            v[h][3]);
+    }
+}
+
+// The pass's dequantized, activated columns as fp32 into f[O + i] (the
+// accumulator layout); columns >= pd are 0.
+template <int O, int N>
+__device__ __forceinline__ void q8_to_f32(const int (&acc)[kAccRegs],
+                                          const float* __restrict__ dq,
+                                          const float* __restrict__ bias,
+                                          int pd, int act, float (&f)[N]) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < kAccRegs / 4; ++j) {
+    const int c = 8 * j + 2 * q;
+    const bool in = c < pd;
+    const float2 s = in ? *reinterpret_cast<const float2*>(dq + c)
+                        : make_float2(0.f, 0.f);
+    const float2 b = in ? *reinterpret_cast<const float2*>(bias + c)
+                        : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 z = q8_dequant(acc, j, h, s, b, act);
+      f[O + 4 * j + 2 * h] = in ? z.x : 0.f;
+      f[O + 4 * j + 2 * h + 1] = in ? z.y : 0.f;
+    }
+  }
+}
+
+// The first layer's fragments from the warp's fp32 rows of E (the encoding
+// after the input LayerNorm, ld floats a row), quantized with the layer's
+// inverse scales inv, in the layout q8_to_a writes; the 16-column halves
+// of k32 blocks at or past pd are zero (pd is a multiple of 16).
+template <int R>
+__device__ __forceinline__ void q8_load_a(const float* E, int ld, int pd,
+                                          const float* __restrict__ inv,
+                                          int row0, uint32_t (&A)[R]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const float* r0 = E + (row0 + g) * ld + 2 * q;
+#pragma unroll
+  for (int kb = 0; kb < kQ8Regs / 4; ++kb)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int c = 32 * kb + 16 * m;
+      const bool in = c < pd;
+      const float2 i0 = in ? *reinterpret_cast<const float2*>(inv + c + 2 * q)
+                           : make_float2(0.f, 0.f);
+      const float2 i1 = in ? *reinterpret_cast<const float2*>(inv + c + 8 +
+                                                              2 * q)
+                           : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t v = 0u;
+        if (in) {
+          const float* rh = r0 + 8 * h * ld + c;
+          const float2 x0 = *reinterpret_cast<const float2*>(rh);
+          const float2 x1 = *reinterpret_cast<const float2*>(rh + 8);
+          v = pack_s8(quantize_value(x0.x, i0.x), quantize_value(x0.y, i0.y),
+                      quantize_value(x1.x, i1.x), quantize_value(x1.y, i1.y));
+        }
+        A[4 * kb + 2 * m + h] = v;
+      }
+    }
+}
+
+// One int8 layer but the last, A -> A: its passes' products, then each
+// pass's epilogue quantized for the next layer (inv: its inverse scales).
+// A 256-wide layer's first pass goes to A[kQ8Regs ..] while the second
+// product reads A[0 .. kQ8Regs); a narrower layer's output leaves the
+// fragments past it zero.
+template <int R>
+__device__ __forceinline__ void wg_dense_q8(int (&acc)[kAccRegs],
+                                            uint32_t (&A)[R], WgRing& rg,
+                                            const WgLayer& L, const float* dq,
+                                            const float* bias, int act,
+                                            const float* inv) {
+  static_assert(R >= kQ8ARegs, "");
+  const int nch = (L.pd_in + kQ8ChunkK - 1) / kQ8ChunkK;
+  wg_gemm_q8(acc, A, rg, nch);
+  if (L.ni <= kPassN) {
+    q8_to_a<0>(acc, dq, bias, inv, L.pd_out, act, A);
+#pragma unroll
+    for (int i = kQ8Regs / 2; i < kQ8Regs; ++i) A[i] = 0u;
+    return;
+  }
+  q8_to_a<kQ8Regs>(acc, dq, bias, inv, kPassN, act, A);
+  wg_gemm_q8(acc, A, rg, nch);
+  q8_to_a<kQ8Regs / 2>(acc, dq + kPassN, bias + kPassN, inv + kPassN,
+                       L.pd_out - kPassN, act, A);
+#pragma unroll
+  for (int i = 0; i < kQ8Regs / 2; ++i) A[i] = A[kQ8Regs + i];
+}
+
+// The last layer with the bf16 epilogue (the bf16 form's wg_dense with the
+// output LayerNorm, or wg_dense_rows): its passes' fp32 output in f (a
+// 256-wide layer's first pass parked fp32 at park meanwhile), the output
+// LayerNorm when ln_a is given; with rows, left so (returns whether parked);
+// else rounded to bf16 into the w_k product's fragments A[0 .. kARegs).
+__device__ __forceinline__ bool wg_last_q8(float (&f)[kAccRegs],
+                                           int (&acc)[kAccRegs],
+                                           WgQ8A<__nv_bfloat16>& Aq,
+                                           WgRing& rg, float* park,
+                                           const WgLayer& L, const float* dq,
+                                           const float* bias, int act,
+                                           const float* ln_a,
+                                           const float* ln_b, int n_true,
+                                           bool rows) {
+  uint32_t(&A)[kARegs] = Aq.r;
+  const int nch = (L.pd_in + kQ8ChunkK - 1) / kQ8ChunkK;
+  const bool two = L.ni > kPassN;
+  wg_gemm_q8(acc, A, rg, nch);
+  q8_to_f32<0>(acc, dq, bias, two ? kPassN : L.pd_out, act, f);
+  if (two) {
+    park_f32(f, park);
+    wg_gemm_q8(acc, A, rg, nch);
+    q8_to_f32<0>(acc, dq + kPassN, bias + kPassN, L.pd_out - kPassN, act, f);
+  }
+  if (ln_a) acc_layernorm(f, two ? park : nullptr, n_true, ln_a, ln_b);
+  if (rows) return two;
+  if (two) {
+    acc_to_a<32>(f, A);
+    const int t = threadIdx.x & 127;
+#pragma unroll
+    for (int i = 0; i < kAccRegs / 2; ++i)
+      A[i] = pack_bf16(park[(2 * i) * 128 + t], park[(2 * i + 1) * 128 + t]);
+  } else {
+    acc_to_a<0>(f, A);
+#pragma unroll
+    for (int i = kAccRegs / 2; i < kARegs; ++i) A[i] = 0u;
+  }
+  return false;
+}
+
+// The last layer with the fp32 epilogue: the whole layer's fp32 output in f
+// (the fp32 form's layout), the output LayerNorm when ln_a is given; with
+// rows, left so; else written to the warp's rows of E (the fp32 w_k
+// product's A). Returns false (nothing parked).
+__device__ __forceinline__ bool wg_last_q8(float (&f)[kOutRegs],
+                                           int (&acc)[kAccRegs],
+                                           WgQ8A<float>& A, WgRing& rg,
+                                           float*, const WgLayer& L,
+                                           const float* dq, const float* bias,
+                                           int act, const float* ln_a,
+                                           const float* ln_b, int n_true,
+                                           bool rows) {
+  const int nch = (L.pd_in + kQ8ChunkK - 1) / kQ8ChunkK;
+  wg_gemm_q8(acc, A.r, rg, nch);
+  q8_to_f32<0>(acc, dq, bias, L.ni > kPassN ? kPassN : L.pd_out, act, f);
+  if (L.ni > kPassN) {
+    wg_gemm_q8(acc, A.r, rg, nch);
+    q8_to_f32<kAccRegs>(acc, dq + kPassN, bias + kPassN, L.pd_out - kPassN,
+                        act, f);
+  } else {
+#pragma unroll
+    for (int i = kAccRegs; i < kOutRegs; ++i) f[i] = 0.f;
+  }
+  if (ln_a) acc_layernorm(f, nullptr, n_true, ln_a, ln_b);
+  if (!rows) wg_rows_out(f, A.rows.E, A.rows.row0);
+  return false;
+}
+
+// The int8 walk over the warp's 16 rows, wg_walk's contract in the int8
+// form (beside the epilogue's form Op: f its accumulator): posenc into E,
+// the input LayerNorm in fp32, the first layer's fragments quantized from
+// E, the int8 layers, the last layer's fp32 output as the epilogue's form
+// leaves it (without rows_f32: y_k, bf16 fragments in A.r or fp32 rows of
+// E; with rows_f32: f, and with the bf16 epilogue a 256-wide last layer's
+// first pass parked fp32 at E, returning true).
+template <class Op, int N, class Src>
+__device__ __forceinline__ bool wg_walk(float (&f)[N], WgQ8A<Op>& A,
+                                        WgRing& rg, const unsigned char*,
+                                        float* E, int ld, const WgWalk& w,
+                                        int row0, bool rows_f32,
+                                        const Src& src_val) {
+  const WalkDesc& d = *w.d;
+  const int n = d.n;
+  wg_encode(E, ld, d, w.plan, row0, src_val);
+  __syncwarp();
+  wg_rows_in<float>(E, ld, d, w.ln, row0);
+  q8_load_a(E, ld, d.pd[0], w.inv, row0, A.r);
+  int acc[kAccRegs];
+#pragma unroll
+  for (int i = 0; i < kAccRegs; ++i) acc[i] = 0;
+  int inv_off = d.pd[0];
+  for (int l = 0; l + 1 < n; ++l) {
+    const int bo = (int)(d.b[l] - d.b[0]);
+    wg_dense_q8(acc, A.r, rg, w.layers[l], w.dq + bo, w.bias + bo, d.act,
+                w.inv + inv_off);
+    inv_off += d.pd[l + 1];
+  }
+  const int bo = (int)(d.b[n - 1] - d.b[0]);
+  const float* lo = w.ln + 2 * d.pd[0];
+  return wg_last_q8(f, acc, A, rg, E, w.layers[n - 1], w.dq + bo,
+                    w.bias + bo, d.last_act, d.has_lo ? lo : nullptr,
+                    lo + d.pd[n], d.d_out, rows_f32);
 }
 
 // ---------------------------------------------- the stream forwards ----

@@ -127,17 +127,18 @@ SIGNATURES["papr_value_stream_feat_f32_fwd"] = (
     SIGNATURES["papr_value_stream_feat_fwd"][:-1] + [P, ctypes.c_longlong, I,
                                                      P])
 
-# The int8 forms take the wgmma forms' arguments before their wgmma tail
-# (the eval attention's: those before its packed weights), then the walk's
-# (two walks': key, then value) int8 weights, inverse-scale rows and
-# dequant rows, then the stream; the ``_i8_f32`` forms (the fp32 epilogue)
-# the same.
-for _name, _walks in (("papr_attend_eval", 2), ("papr_key_stream", 1),
-                      ("papr_value_stream", 1)):
-    _stem = _I8_STEM[_name + "_fwd"] if _walks == 1 else _ATTEND[:-1]
-    _sig = _stem + [P] * (3 * _walks + 1)
+# The int8 stream forwards take the wgmma forms' arguments before their
+# wgmma tail, then the walk's int8 weights, inverse-scale rows and dequant
+# rows, then the stream; the ``_i8_f32`` forms (the fp32 epilogue) the same.
+# The int8 eval attention (on wgmma, both epilogues) takes the eval
+# attention's arguments before its packed weights, then the key's and the
+# value's inverse-scale and dequant rows, then its packed weights (the int8
+# image), their size in bytes and the stream.
+for _name in ("papr_key_stream", "papr_value_stream"):
     for _i8 in ("_i8", "_i8_f32"):
-        SIGNATURES[_name + _i8 + ("_fwd" if _walks == 1 else "")] = _sig
+        SIGNATURES[_name + _i8 + "_fwd"] = _I8_STEM[_name + "_fwd"] + [P] * 4
+for _i8 in ("_i8", "_i8_f32"):
+    SIGNATURES["papr_attend_eval" + _i8] = _ATTEND[:-1] + [P] * 4 + [P, I, P]
 
 _lib = None
 

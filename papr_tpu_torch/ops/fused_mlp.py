@@ -232,10 +232,12 @@ class WalkQuant(NamedTuple):
 
 class FrameQuant(tuple):
     """(key WalkQuant, value WalkQuant) of one frame (``model/papr.py
-    eval_quant_params``). ``packs`` keeps the kernels' packed form after the
-    frame's first tile: the one quantized pack that is kept, because it is
-    made for one frame and dropped with it (a tiled frame would otherwise
-    repack the same quantization for every tile)."""
+    eval_quant_params``). ``packs`` keeps the kernel's packed inputs after
+    the frame's first tile, by compute type (the weight image: the int8
+    layers and the model's w_k; the inv / dq rows): the one quantized pack
+    that is kept, because it is made for one frame and dropped with it (a
+    tiled frame would otherwise repack the same quantization for every
+    tile)."""
     packs = None
 
 
@@ -565,22 +567,82 @@ def pack_walk_q(quant: WalkQuant, pd, device) -> tuple:
     """Kernel layout of a quantized walk (``csrc/walk.cuh WalkQuant``): the
     int8 weights OUTPUT-major, W_i^T zero-padded to (pd[i+1], pd[i]), in one
     buffer at ``pack_walk``'s weight offsets (the tensor cores read both
-    operands along the reduction axis); the inverse activation scales as
-    rows of pd[i]; the dequantization scales as rows of pd[i+1] at
-    ``pack_walk``'s bias offsets. Padding is zero: a pad column quantizes to
-    0 and a pad channel comes out as its (zero) bias."""
-    wparts, iparts, dparts = [], [], []
-    for i, (w, inv, dq) in enumerate(zip(quant.wq, quant.inv, quant.dq)):
+    operands along the reduction axis), then ``quant_rows``. Padding is
+    zero: a pad column quantizes to 0 and a pad channel comes out as its
+    (zero) bias."""
+    wparts = []
+    for i, w in enumerate(quant.wq):
         wt = torch.zeros(pd[i + 1], pd[i], dtype=torch.int8, device=device)
         wt[:w.shape[1], :w.shape[0]] = w.T.to(device=device, dtype=torch.int8)
+        wparts.append(wt.reshape(-1))
+    return (torch.cat(wparts),) + quant_rows(quant, pd, device)
+
+
+def quant_rows(quant: WalkQuant, pd, device) -> tuple:
+    """A quantized walk's fp32 rows as the int8 kernels read them: the
+    inverse activation scales as rows of pd[i], back to back; the
+    dequantization scales as rows of pd[i+1] at ``pack_walk``'s bias
+    offsets; zero-padded."""
+    iparts, dparts = [], []
+    for i, (inv, dq) in enumerate(zip(quant.inv, quant.dq)):
         ip = torch.zeros(pd[i], dtype=torch.float32, device=device)
         ip[:inv.shape[0]] = inv.to(device=device, dtype=torch.float32)
         dp = torch.zeros(pd[i + 1], dtype=torch.float32, device=device)
         dp[:dq.shape[0]] = dq.to(device=device, dtype=torch.float32)
-        wparts.append(wt.reshape(-1))
         iparts.append(ip)
         dparts.append(dp)
-    return torch.cat(wparts), torch.cat(iparts), torch.cat(dparts)
+    return torch.cat(iparts), torch.cat(dparts)
+
+
+Q8_CHUNK_K = 128        # K rows of an int8 chunk of the wgmma walk: 128 B
+
+
+def q8_perm(x: int) -> int:
+    """The input row that K position x of a 32-deep group of the int8
+    wgmma image holds: an s8 A fragment's positions 4 q + i (and 16 + 4 q +
+    i) hold the accumulator's columns 2 q + {0, 1, 8, 9}[i] (+ 16)."""
+    return 16 * (x // 16) + 2 * (x % 16 // 4) + (0, 1, 8, 9)[x % 4]
+
+
+def pack_walk_wgmma_q(quant: WalkQuant, pd, device) -> torch.Tensor:
+    """Int8 weights of the wgmma walk's int8 form (``csrc/walk_wgmma.cuh``)
+    from ``quant``'s input-major int8 weights (scaled per input column by
+    ``quantize_walk``), in the order the kernel streams them: per layer
+    ceil(pd[i] / 128) chunks of ``wgmma_tile_n(pd[i+1])`` rows of 128 int8
+    along the input axis (K-major, zero beyond the matrix), K position x of
+    each 32-deep group holding input row ``q8_perm(x)`` of the group, each
+    row's 16-byte groups XOR-swizzled by row % 8 (the 128-byte swizzle). One
+    gather; the index map depends on the widths alone."""
+    ents, base = [], 0
+    for i, w in enumerate(quant.wq):
+        a, b = int(w.shape[0]), int(w.shape[1])
+        ents.append((pd[i], pd[i + 1], a, b, base))
+        base += a * b
+    flat = torch.cat([w.reshape(-1).to(device=device, dtype=torch.int8)
+                      for w in quant.wq]
+                     + [torch.zeros(1, dtype=torch.int8, device=device)])
+    return flat[_gather_index_q8(tuple(ents), base, torch.device(device))]
+
+
+@functools.lru_cache(maxsize=16)
+def _gather_index_q8(entries: tuple, total: int, device) -> torch.Tensor:
+    """Where each byte of ``pack_walk_wgmma_q``'s image comes from in the
+    flat int8 weights, or their zero slot ``total``: per entry (pd_in,
+    pd_out, a, b, base) the (a, b) input-major matrix at base."""
+    parts = []
+    perm = torch.tensor([q8_perm(x) for x in range(32)])
+    for pa, pb, a, b, base in entries:
+        ni, nch = wgmma_tile_n(pb), -(-pa // Q8_CHUNK_K)
+        c = torch.arange(nch).view(nch, 1, 1, 1)
+        n = torch.arange(ni).view(1, ni, 1, 1)
+        p = torch.arange(8).view(1, 1, 8, 1)
+        e = torch.arange(16).view(1, 1, 1, 16)
+        x = (p ^ (n % 8)) * 16 + e                  # K position in the chunk
+        k = c * Q8_CHUNK_K + x - x % 32 + perm[x % 32]
+        src = torch.where((k < a) & (n < b), base + k * b + n,
+                          torch.full_like(k, total))
+        parts.append(src.reshape(-1))
+    return torch.cat(parts).to(device)
 
 
 def source_segments(cols, nsrc: int, device) -> torch.Tensor:

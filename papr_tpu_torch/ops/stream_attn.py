@@ -65,7 +65,7 @@ from .fused_mlp import (BwdBuffers, FrameQuant, Walk, WalkQuant,
                         bwd_wgmma_buffers, c_ints, cast_c, check_pe_pairs,
                         check_walk_for_kernel, dense_c, encode_plain,
                         pack_walk, pack_walk_q, pack_walk_t, pack_walk_wgmma,
-                        pack_walk_wgmma_f32,
+                        pack_walk_wgmma_f32, pack_walk_wgmma_q, quant_rows,
                         round_up, source_segments, walk_plain, walk_plain_q,
                         walk_relu_margin, walk_tensors, walk_with)
 
@@ -331,17 +331,30 @@ def attend_eval_idx(record, idx, rayo, rays, qq, kwalk: Walk, wk, bk,
     stream = torch.cuda.current_stream(dev).cuda_stream
     f32 = cdt == torch.float32
     if int8:
-        packs = getattr(quant_params, "packs", None)
+        # A frame's quantization (FrameQuant) keeps the assembled image and
+        # rows by compute type: the frame's other tiles only launch.
+        cache = getattr(quant_params, "packs", None) or {}
+        packs = cache.get(f32)
         if packs is None:
             kq, vq = quant_params if quant_params is not None else \
                 _calibrate_idx(record, idx, rayo, rays, (kwalk, vwalk), eps,
                                cdt)
-            packs = pack_walk_q(kq, kpd, dev) + pack_walk_q(vq, vpd, dev)
+            # The image in stream order: the key's int8 layers, w_k in the
+            # epilogue's form, the value's int8 layers.
+            head = (pack_walk_wgmma_f32 if f32 else pack_walk_wgmma)([wkT],
+                                                                     dev)
+            kimg, vimg = (pack_walk_wgmma_q(q, pd, dev).view(torch.uint8)
+                          for q, pd in ((kq, kpd), (vq, vpd)))
+            wpack = torch.cat([kimg, head.view(torch.uint8), vimg])
+            packs = (wpack, *quant_rows(kq, kpd, dev),
+                     *quant_rows(vq, vpd, dev))
             if isinstance(quant_params, FrameQuant):
-                quant_params.packs = packs      # this frame's other tiles
+                quant_params.packs = {**cache, f32: packs}
+        wpack, kinv, kdq, vinv, vdq = packs
         name = "papr_attend_eval_i8_f32" if f32 else "papr_attend_eval_i8"
         build.check(getattr(lib, name)(
-            *args, *(t.data_ptr() for t in packs), stream), name)
+            *args, kinv.data_ptr(), kdq.data_ptr(), vinv.data_ptr(),
+            vdq.data_ptr(), wpack.data_ptr(), wpack.numel(), stream), name)
         if f32:
             attend_eval_i8_f32.launches += 1
         else:

@@ -17,8 +17,9 @@ patch (queries from the plain query embedder; the value forwards fed the
 plain key forward's attention in their dtype; the
 backwards the plain forwards' raw dots, scores and attention and seeded
 cotangents: inputs both trees compute alike), of the fp32 stream
-backwards' (rows 5f / 6f bwd) and the bf16 folded key stream's (row 7, fwd
-and bwd) on the same inputs, of the fp32 feature stream forwards' (rows 8f
+backwards' (rows 5f / 6f bwd), the int8 stream forwards' (rows 5q / 6q,
+5qf / 6qf) and the bf16 folded key stream's (row 7, fwd and bwd) on the
+same inputs, of the fp32 feature stream forwards' (rows 8f
 / 9f fwd) on the inputs the model's head builds from the patch, of the
 bf16 and fp32 query embedder's forward (K2, row 2f) and backward (row 3,
 row 3f) on the patch's rays (a seeded cotangent), and of the culled
@@ -120,6 +121,21 @@ def main() -> None:
                                         bool(cfg.models.normalize_topk_attn),
                                         float(cfg.eps), torch.float32)]),
           flush=True)
+    # Rows 5q / 6q and 5qf / 6qf (the int8 stream forwards, on walk.cuh's
+    # WMMA int8 walk), each calibrated on its own inputs.
+    for name, cdt, at in (("bf16", torch.bfloat16, attn),
+                          ("fp32", torch.float32, attn32)):
+        ko = kopts[:3] + (cdt,)
+        print(f"int8 stream forwards ({name} epilogue) on the training "
+              "patch: key sha256 "
+              + digest(sa.key_stream_fwd(rec, rayo_f, rays, qq, kwalk,
+                                         a["w_k"]["w"], a["w_k"]["bias"], *ko,
+                                         int8=True))
+              + ", value sha256 "
+              + digest([sa.value_stream_fwd(
+                  rec, rayo_f, rays, at, vwalk,
+                  bool(cfg.models.normalize_topk_attn), float(cfg.eps), cdt,
+                  int8=True)]), flush=True)
     _, raw32, ss32 = sa.key_stream_plain(rec, rayo_f, rays, qq, kwalk,
                                          a["w_k"]["w"], a["w_k"]["bias"],
                                          *kopts32)

@@ -23,7 +23,8 @@ those named "embed wgmma", ``chip_smoke.compare_embed_kernels``: the bf16
 embedder forward and backward on wgmma, and with them the other
 comparisons whose kernels run the planted line, on the same build; for
 "fp32 embed wgmma", ``chip_smoke.compare_f32_kernels`` up to the fp32
-embedder's rows 2f / 3f on the query stack)
+embedder's rows 2f / 3f on the query stack; for "int8 K3 wgmma",
+``chip_smoke.compare_int8_kernels`` up to the int8 K3 (row 4q))
 and the small-shape ``cuda`` tests of those kernels run on the copy.
 The readings are how the comparisons' bounds were set between the sound
 kernels and the weakest fault caught (PERF.md, Findings). The repository's
@@ -44,7 +45,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (the folded key stream's WMMA walk), "stream q" key_stream_q.cu,
 # "stream shared" or "linear_bf16" stream_common.cuh, "int8 walk" walk.cuh,
 # "int8 bench" int8_walk_bench.cu, "int8 value" value_stream.cu, "int8
-# attend" attend_eval.cu, "fp32 walk" walk.cuh, "fp32 stash" walk_bwd.cuh,
+# attend" attend_eval.cu, "int8 K3 wgmma pack" ops/fused_mlp.py (the int8
+# image's permutation), "int8 K3 wgmma walk" walk_wgmma.cuh, "int8 K3 wgmma
+# quantize" walk.cuh, "int8 K3 wgmma attend" attend_eval.cu, "fp32 walk"
+# walk.cuh, "fp32 stash" walk_bwd.cuh,
 # "wgmma wgrad" wgrad.cu, "wgmma walk" (with "fp32 wgmma walk", the fp32
 # form), "bwd wgmma walk" and "fwd wgmma"
 # (the bf16 stream forwards, on K3's walk) walk_wgmma.cuh, "bwd wgmma"
@@ -544,9 +548,42 @@ MUTS = [
      "T);\n"
      "    else fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);"),
     ("fp32 epilogue of int8 attend: its value rows rounded to bf16",
-     "        const float yc = act_round<Op>(C[r * kCLd + c]);",
-     "        const float yc = vq ? bf16_round(C[r * kCLd + c])\n"
-     "                            : act_round<Op>(C[r * kCLd + c]);"),
+     "              arow[c1] = arow[c1] * scale + e * act_round<Op>(acc[i]);",
+     "              arow[c1] = arow[c1] * scale + e * (kQ8 ? bf16_round(acc[i])"
+     " : act_round<Op>(acc[i]));", ("int8_k3",)),
+    # The int8 K3 on wgmma (rows 4q / 4qf): read by phase 2's int8 K3 lines
+    # and the int8 K3's cuda cases (both epilogues, NaN-filled shared memory).
+    ("int8 K3 wgmma pack: each 32-deep group's permutation shifted by one "
+     "column (K position 4 q + i holds the column of 4 q + i + 1, within "
+     "its four)",
+     "    return 16 * (x // 16) + 2 * (x % 16 // 4) + (0, 1, 8, 9)[x % 4]",
+     "    return 16 * (x // 16) + 2 * (x % 16 // 4) + (1, 8, 9, 0)[x % 4]",
+     ("int8_k3",)),
+    ("int8 K3 wgmma walk: the inv row of the wrong layer (each layer's "
+     "output quantized with its own input's scales)",
+     "                w.inv + inv_off);",
+     "                w.inv + inv_off - d.pd[l]);", ("int8_k3",)),
+    ("int8 K3 wgmma walk: dq dropped",
+     "  float z0 = __fadd_rn(__fmul_rn((float)acc[4 * j + 2 * h], s.x), b.x);\n"
+     "  float z1 = __fadd_rn(__fmul_rn((float)acc[4 * j + 2 * h + 1], s.y), "
+     "b.y);",
+     "  float z0 = __fadd_rn((float)acc[4 * j + 2 * h], b.x);\n"
+     "  float z1 = __fadd_rn((float)acc[4 * j + 2 * h + 1], b.y);",
+     ("int8_k3",)),
+    ("int8 K3 wgmma quantize: the clip at +-128 (walk.cuh quantize_value, "
+     "which rows 5q / 6q share; 128 wraps to -128)",
+     "  const float t = fminf(fmaxf(__fmul_rn(h, inv), -127.f), 127.f);",
+     "  const float t = fminf(fmaxf(__fmul_rn(h, inv), -128.f), 128.f);",
+     ("int8_k3",)),
+    ("int8 K3 wgmma attend: E not zeroed (the fp32 epilogue's tiles left as "
+     "the shared memory holds them)",
+     "  if constexpr (f32) {\n    // Every E column",
+     "  if constexpr (f32 && !kQ8) {\n    // Every E column", ("int8_k3",)),
+    ("int8 K3 wgmma attend: the value rows left unrounded in 4q (a rounding "
+     "point)",
+     "              arow[c1] = arow[c1] * scale + e * act_round<Op>(acc[i]);",
+     "              arow[c1] = arow[c1] * scale + e * (kQ8 ? acc[i] : "
+     "act_round<Op>(acc[i]));", ("int8_k3",)),
     ("int8 walk: truncation instead of round-to-nearest",
      "  return (q8)__float2int_rn(t);", "  return (q8)__float2int_rz(t);"),
     ("int8 walk: clamp at 128 (wraps to -128)",
@@ -731,6 +768,24 @@ elif sys.argv[1] == "compare_f32_fold":
                                n_time=1)
     except Stop:
         pass
+elif sys.argv[1] == "compare_int8_k3":
+    # Phase 2's int8 comparisons up to the int8 K3 (row 4q, on the
+    # eval block, self-calibrated and on a frame's quantization): the run
+    # stops where the int8 stream forwards' would start.
+    cfg = cs.flagship_cfg()
+    params, state = cs.build_model(cfg, dev)
+    from papr_tpu_torch.ops import stream_attn as sa
+
+    class Stop(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Stop
+    sa.key_stream_fwd = stop
+    try:
+        cs.compare_int8_kernels(params, state, cfg, dev, n_time=1)
+    except Stop:
+        pass
 elif sys.argv[1] == "compare_wgmma_kernels":
     cfg = cs.flagship_cfg()
     params, state = cs.build_model(cfg, dev)
@@ -791,6 +846,11 @@ TARGETS = {
     # own qq), and row 7f's wgmma cuda cases (dead points, split grids, a
     # 15-column query encoding, NaN-filled shared memory).
     "f32_fold": (("phase 8 key_stream_q_f32",), "key_stream_q_f32_wgmma"),
+    # compare_int8_kernels up to the int8 K3 (compare_int8_k3), and the int8
+    # K3's cuda cases: both epilogues against their plain versions, the
+    # NaN-filled shared memory, the kernel the profiler names.
+    "int8_k3": (("phase 2 attend_eval_i8",),
+                "attend_eval_i8 or int8_walks_with_fp32"),
 }
 # The comparison function each target runs, and the cuda test lines shown.
 FN = {"f32_stream_bwd": "compare_f32_streams",
@@ -800,7 +860,8 @@ FN = {"f32_stream_bwd": "compare_f32_streams",
       "embed": "compare_embed_kernels",
       "f32_embed": "compare_f32_embed",
       "f32_feat_fwd": "compare_f32_feat",
-      "f32_fold": "compare_f32_fold"}
+      "f32_fold": "compare_f32_fold",
+      "int8_k3": "compare_int8_k3"}
 TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                                        "value_stream_i8", "int8_walk_bench"),
               "compare_f32_kernels": ("f32", "key_stream_f32_bwd wgmma",
@@ -818,7 +879,9 @@ TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
               "f32_embed": ("fused_mlp_f32",),
               "f32_feat_fwd": ("key_stream_feat_f32_fwd",
                                "value_stream_feat_f32_fwd"),
-              "f32_fold": ("key_stream_q_f32",)}
+              "f32_fold": ("key_stream_q_f32",),
+              "int8_k3": ("attend_eval_i8", "key_stream_i8_f32",
+                          "value_stream_i8_f32")}
 
 
 def target_of(name: str) -> str:
@@ -849,7 +912,12 @@ def main() -> None:
 
 
 def source_of(name: str) -> str:
-    return next((f for word, f in (("fp32 keyq wgmma combine",
+    return next((f for word, f in (("int8 K3 wgmma pack",
+                                    "ops/fused_mlp.py"),
+                                   ("int8 K3 wgmma walk", "walk_wgmma.cuh"),
+                                   ("int8 K3 wgmma quantize", "walk.cuh"),
+                                   ("int8 K3 wgmma attend", "attend_eval.cu"),
+                                   ("fp32 keyq wgmma combine",
                                     "key_stream.cu"),
                                    ("fp32 keyq wgmma walk", "walk_wgmma.cuh"),
                                    ("fp32 keyq wgmma", "embed_wgmma.cuh"),
@@ -900,7 +968,8 @@ def run_case(name, old, new, targets) -> None:
         shutil.copy(os.path.join(REPO, f), root)
     if old is not None:
         src = source_of(name)
-        p = os.path.join(root, "papr_tpu_torch", "csrc", src)
+        p = os.path.join(root, "papr_tpu_torch",
+                         *(src.split("/") if "/" in src else ("csrc", src)))
         s = open(p).read()
         if old not in s:
             raise SystemExit(f"{name}: the line to replace is no longer in "
