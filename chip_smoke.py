@@ -193,8 +193,14 @@ K3_ATTN_ABS = 5e-3        # max abs error of attn
 # the output LayerNorm's biased variance (key 6.3e-3, K2 3.3e-3); left to
 # the `cuda` tests: that variance fault in K3 (4.2e-4) and the value rows
 # not rounded before the fuse (K3 5.4e-4, value 5.4e-4).
+# The bf16 rows 7 / 9 forwards on wgmma the same: row 7's qq (the
+# bf16 embedder walk with w_q as its head, JAX's bf16 _linear rounding;
+# sound 0, most rows bit-equal), row 9's fused (sound 9.7e-8: its plain
+# version encodes the same raw features, so few roundings flip; PERF.md,
+# Findings).
 FWD_MEDIAN_REL = {"attend_stream_eval": 1e-3, "key_stream_fwd": 3.5e-3,
-                  "value_stream_fwd": 1e-3, "fused_mlp": 5e-4}
+                  "value_stream_fwd": 1e-3, "fused_mlp": 5e-4,
+                  "key_stream_q_fwd": 2e-4, "value_stream_feat_fwd": 1e-5}
 # K3's two faults the median ray misses, caught by two more statistics:
 # the median ray of attn (sound 0: most rays' attention is bit-equal; the
 # output LayerNorm's biased variance moves every ray's scores, 1.9e-5) and
@@ -269,12 +275,6 @@ BWD_MEDIAN_REL = {"key_stream_bwd": (1e-2, 2.5e-2),
 # position columns zeroed 1.0; dqq keeping one slot 0.98; b_q left out attn
 # 1.0e-3 (PERF.md, Findings).
 STREAM_ATTN_ABS = 5e-4
-# The folded key stream (WMMA) on its own qq against the unfolded bf16 key
-# forward (wgmma): the same function and rounding points in another
-# summation order. Sound: attn max abs 7.1e-5, raw 6.7e-5 (PERF.md,
-# Findings).
-Q_UNFOLD_ABS = 5e-4
-Q_UNFOLD_REL = 5e-4
 FEAT_RAW_REL = 2e-3
 FEAT_FUSED_REL = 3e-4
 FEAT_BWD_REL = 2.5e-2
@@ -367,7 +367,10 @@ F32_EMBED_WMMA_MS = {"fused_mlp_f32": (13.523, 13.134),
 # at 640,000 rays and the key / value stacks at 512,000 tokens, its backward
 # (row 3) on the query stack at 25,600 rays and the stacks
 # (tools/torch_embed_ablate.py --split-only, random walks at the flagship's
-# widths).
+# widths); the folded key stream's and the feature value stream's forwards
+# (rows 7, 9), the means of the WMMA tree's readings in one parent / change
+# / change / parent call (tools/torch_stream_fwd_ablate.py --fold and --feat
+# --split-only --tree).
 WMMA_MS = {"fused_mlp": (4.579, 4.056), "fused_mlp_bwd": (2.003, 0.602),
            "fused_mlp key stack": (3.942, 3.490),
            "fused_mlp value stack": (5.103, 4.489),
@@ -376,7 +379,9 @@ WMMA_MS = {"fused_mlp": (4.579, 4.056), "fused_mlp_bwd": (2.003, 0.602),
            "key_stream_fwd": (5.721, 5.445),
                   "value_stream_fwd": (6.229, 5.950),
                   "key_stream_bwd": (24.596, 18.738),
-                  "value_stream_bwd": (23.592, 16.277)}
+                  "value_stream_bwd": (23.592, 16.277),
+                  "key_stream_q_fwd": (6.645, 5.929),
+                  "value_stream_feat_fwd": (6.251, 5.880)}
 # Two-kernel eval frame against the one-shot kernel's frame.
 EVAL_TWO_MIN_CLOSE = 0.999
 # Tiled frames under ``stream`` and ``streamrec`` + ``query_fold`` against
@@ -1615,18 +1620,19 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         lambda: (lambda r: [r[0], r[1], r[3]])(sa.key_stream_q_plain(*qargs,
                                                                     *kopts)),
         FWD_REL, ["attn", "raw", "qq"], q_bytes, q_flops,
-        fwd_tol=STREAM_ATTN_ABS)
+        fwd_tol=STREAM_ATTN_ABS, span=("query_head_fwd", "key_fwd_"),
+        median=2)
     ss_q = sa.key_stream_q_fwd(*qargs, *kopts)[2]
-    # On its own qq the folded kernel computes the unfolded kernel's function
-    # (the bf16 unfolded forward runs on wgmma: another summation order).
-    attn_u, raw_u, ss_u = sa.key_stream_fwd(rec, rayo_f, rays, qq_q, kwalk,
-                                            wk, bk, *kopts)
-    u_attn = float((attn_q - attn_u).abs().max())
-    u_raw = rel_fro(raw_q, raw_u)
+    # On its own qq the folded forward runs the unfolded forward's kernels
+    # (the query head's kernel, then key_stream.cu's entry point): attn, raw
+    # and ss bit for bit.
+    unfolded = sa.key_stream_fwd(rec, rayo_f, rays, qq_q, kwalk, wk, bk,
+                                 *kopts)
+    same = [torch.equal(a, b) for a, b in zip((attn_q, raw_q, ss_q),
+                                              unfolded)]
     print(f"phase 2 key_stream_q_fwd on its own qq against key_stream_fwd: "
-          f"attn max abs {u_attn:.3e} (need <= {Q_UNFOLD_ABS}), raw rel "
-          f"Frobenius {u_raw:.3e} (need <= {Q_UNFOLD_REL})", flush=True)
-    if not (u_attn <= Q_UNFOLD_ABS and u_raw <= Q_UNFOLD_REL):
+          f"attn, raw, ss bit-equal {same} (need all)", flush=True)
+    if not all(same):
         failed.append("key_stream_q_fwd vs key_stream_fwd")
     relu_q = raw_q > 0
     record_case(
@@ -1682,7 +1688,7 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         lambda: [sf.value_stream_feat_plain(xv, attn_f, vwalk_f, normalize,
                                             cdt)], FEAT_FUSED_REL,
         ["fused"], nbytes(xv, attn_f) + walk_bytes(vwalk_f),
-        T * k * walk_flops(vwalk_f))
+        T * k * walk_flops(vwalk_f), span="value_feat_fwd_", median=0)
     record_case(
         "value_stream_feat_bwd", "papr_tpu_torch/csrc/value_stream_feat.cu",
         "papr_tpu/ops/stream_attn.py:433",
@@ -2018,6 +2024,33 @@ STREAM_MODES = {
 }
 
 
+# The bf16 forwards of rows 7 and 9 on wgmma: the kernel each mode's steps
+# and tiled frames must run, and the WMMA kernel of an earlier tree they must
+# not.
+BF16_FWD_KERNELS = {
+    "stream": ("value_feat_fwd_wgmma_kernel", "valuef_fwd_kernel"),
+    "streamrec + query_fold": ("query_head_fwd_wgmma_kernel",
+                               "keyq_fwd_kernel")}
+
+
+def check_fwd_kernels(what, mode, spans) -> None:
+    """Phase 6: the profiled ``spans`` of ``what`` under ``mode`` ran its
+    bf16 forward's wgmma kernel and no WMMA one (BF16_FWD_KERNELS)."""
+    if mode not in BF16_FWD_KERNELS:
+        return
+    need, gone = BF16_FWD_KERNELS[mode]
+    if not spans:
+        print(f"phase 6 {what} ({mode}) kernels: not measured (no device "
+              "time in the profile)", flush=True)
+        return
+    names = {n.split("(")[0].replace("void ", "") for _, _, n in spans}
+    ran, old = (any(k in n for n in names) for k in (need, gone))
+    print(f"phase 6 {what} ({mode}) kernels: {need} ran {ran} (need True), "
+          f"{gone} ran {old} (need False)", flush=True)
+    if old or not ran:
+        fail(f"the bf16 {what} under {mode} did not run {need} alone")
+
+
 def drive_stream_modes(device) -> dict:
     """Phase 6: training and rendering under ``tpu.fused_attn: stream`` and
     ``streamrec`` + ``tpu.query_fold``, beside ``streamrec``, on the flagship
@@ -2090,6 +2123,7 @@ def drive_stream_modes(device) -> dict:
             params, opt, state, rayo, rayd, target, c2w, 1100 + i)
             for i in range(3)])
         split, kern = stage_split(spans, TRAIN_STAGES, 3, TRAIN_OTHER)
+        check_fwd_kernels("training steps", mode, spans)
         readings[mode].append((ms, kern, idle, peak_gb))
         print(f"phase 6 step ({mode}, round {rnd // len(STREAM_MODES) + 1}; "
               f"{n_rays} rays): {ms:.1f} ms/step over {STREAM_STEPS} steps = "
@@ -2135,6 +2169,8 @@ def drive_stream_modes(device) -> dict:
         if fr.shape != (H, W, 3) or fr.dtype != np.uint8 \
                 or int(fr.max()) == int(fr.min()):
             fail(f"frame under {mode}: {fr.shape} {fr.dtype}")
+        if mode in BF16_FWD_KERNELS:
+            check_fwd_kernels("tiled frame", mode, device_profile(render)[2])
         line = (f"phase 6 frame ({mode}): {H}x{W} in {th}x{tw} tiles, "
                 f"{ms:.1f} ms; launches "
                 f"{({n: v for n, v in got.items() if v})}")

@@ -1,26 +1,27 @@
 // The embedder walk on wgmma, forward and backward, for its two launchers:
 // the fused embedder (fused_mlp.cu / fused_mlp_bwd.cu: posenc -> [LayerNorm]
 // -> dense stack -> [LayerNorm], rows out) and the query chain of the folded
-// key stream's fp32 form (key_stream_q.cu: the same walk on the raw ray
-// directions, then a HEAD, the linear layer w_q / b_q, whose fp32 output
-// qq is what the kernel writes). Each function takes the operand form (Op:
-// bf16, or fp32, walk_wgmma.cuh) and kHead; a launcher instantiates its own
-// __global__ wrapper and hands it to launch_embed_{fwd,bwd}_wg.
+// key stream (key_stream_q.cu: the same walk on the raw ray directions, then
+// a HEAD, the linear layer w_q / b_q, whose fp32 output qq is what the
+// kernel writes). Each function takes the operand form (Op: bf16, or fp32,
+// walk_wgmma.cuh) and kHead; a launcher instantiates its own __global__
+// wrapper and hands it to launch_embed_{fwd,bwd}_wg.
 //
 // The head (kHead) runs on the walk's output where the walk leaves it for a
-// next product (the warp's rows of E), through one more layer of the weight
-// image (pd[n] -> head_pd), and adds its bias in fp32, unrounded. Its
+// next product (bf16: the A fragments, rounded; fp32: the warp's rows of
+// E), through one more layer of the weight image (pd[n] -> head_pd). Its
+// bias is added as the form's linear layer adds it (nn/mlp.py
+// linear_apply): bf16, the product rounded to bf16 and the bias added in
+// bf16 (linear_bf16, as wg_score's w_k); fp32, in fp32, unrounded. Its
 // backward takes the head's output gradient dy (R, d_head) in place of the
 // walk's: the walk's output is stashed as the head's input, dy's column
 // sums go to the head's bias row and dy to the dz stash (dW_h = y^T dy,
 // wgrad.cu), then dy W_h^T, the image's next layer (head_pd -> pd[n]), is
 // the gradient of the walk's output, from where the embedder's backward
 // goes on unchanged. Without the head the code is the embedder's as it was
-// (the head's branches are compile-time). The head's two device functions
-// (wg_head_rows, wgb_head_bwd) exist in the fp32 form only: the bf16 folded
-// key stream (row 7) runs on walk.cuh's WMMA kernels, and its redesign adds
-// their bf16 overloads (the A fragments, a 256-wide walk output in two
-// passes) with the tests that run them.
+// (the head's branches are compile-time). The head's backward
+// (wgb_head_bwd) exists in the fp32 form only: the bf16 folded key stream's
+// backward (row 7) runs on walk.cuh's WMMA kernel.
 
 #pragma once
 
@@ -50,12 +51,13 @@ struct EmbedFwdWgT {
 };
 using EmbedFwdWg = EmbedFwdWgT<__nv_bfloat16>;
 
-// The head on the walk's output (wg_walk without rows_f32 leaves it in the
-// warp's rows of E, the next product's operand), the bias added in fp32,
-// its d_head columns written to the warpgroup's rows rbase + r < R of hy:
-// every column in acc, written by wg_store_rows.
+// The fp32 head on the walk's output (wg_walk without rows_f32 leaves it in
+// the warp's rows of E, the next product's operand), the bias added in
+// fp32, its d_head columns written to the warpgroup's rows rbase + r < R of
+// hy: every column in acc, written by wg_store_rows.
 __device__ __forceinline__ void wg_head_rows(float (&acc)[kOutRegs],
-                                             WgRowsA& A, WgRing& rg, float* E,
+                                             WgRowsA& A, WgRing& rg,
+                                             const unsigned char*, float* E,
                                              const WgLayer& L,
                                              const float* hb, float* hy,
                                              int rbase, int R, int d_head) {
@@ -64,12 +66,54 @@ __device__ __forceinline__ void wg_head_rows(float (&acc)[kOutRegs],
   wg_store_rows(acc, A, E, false, hy, rbase, R, d_head);
 }
 
+// The bf16 head on the walk's output (wg_walk without rows_f32 leaves it,
+// rounded to bf16, in the A fragments): the product in passes of kPassN
+// columns over the same A (two for a head wider than 128, as wg_score's
+// w_k), each value linear_bf16(product, bias), written as fp32 straight
+// from the accumulator to the warpgroup's rows rbase + r < R of hy (d_head
+// wide): a thread's two adjacent columns as one 8-byte store where d_head
+// is even (hy 16-byte aligned), else one at a time.
+__device__ __forceinline__ void wg_head_rows(float (&acc)[kAccRegs],
+                                             uint32_t (&A)[kARegs],
+                                             WgRing& rg,
+                                             const unsigned char* zero,
+                                             float*, const WgLayer& L,
+                                             const float* __restrict__ hb,
+                                             float* __restrict__ hy,
+                                             int rbase, int R, int d_head) {
+  const int t = threadIdx.x & 127, g = (t & 31) >> 2, q = t & 3;
+  const int row0 = 16 * (t >> 5);
+  const bool pairs = (d_head & 1) == 0;
+  for (int pass = 0; pass < (L.ni > kPassN ? 2 : 1); ++pass) {
+    wg_pass(acc, A, rg, L, zero);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rbase + row0 + g + 8 * h;
+      if (row >= R) continue;
+      float* yrow = hy + (size_t)row * d_head;
+#pragma unroll
+      for (int j = 0; j < kAccRegs / 4; ++j) {
+        const int c = kPassN * pass + 8 * j + 2 * q;
+        if (c >= d_head) continue;
+        const float v0 = linear_bf16(acc[4 * j + 2 * h], hb[c]);
+        if (pairs) {
+          const float v1 = linear_bf16(acc[4 * j + 2 * h + 1], hb[c + 1]);
+          *reinterpret_cast<float2*>(yrow + c) = make_float2(v0, v1);
+        } else {
+          yrow[c] = v0;
+          if (c + 1 < d_head)
+            yrow[c + 1] = linear_bf16(acc[4 * j + 2 * h + 1], hb[c + 1]);
+        }
+      }
+    }
+  }
+}
+
 // The embedder forward on the block's share of the 128-row tiles, in either
 // operand form (Op: bf16, or fp32), with or without the head.
 template <class Op, bool kHead = false>
 __device__ __forceinline__ void embed_fwd_wg(const EmbedFwdWgT<Op>& p) {
   constexpr bool f32 = kF32<Op>;
-  static_assert(f32 || !kHead, "the head has its fp32 form only");
   extern __shared__ unsigned char smem_raw[];
   const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.e_floats, p.n_prm,
                             !f32);
@@ -124,8 +168,8 @@ __device__ __forceinline__ void embed_fwd_wg(const EmbedFwdWgT<Op>& p) {
     named_sync(2 + wg, 128);
     if constexpr (kHead) {
       wg_walk(acc, A, rg, sm.zero, E, p.ld, walk, row0, false, src);
-      wg_head_rows(acc, A, rg, E, p.layers[p.d.n], p.hb, p.hy, rbase, R,
-                   p.d_head);
+      wg_head_rows(acc, A, rg, sm.zero, E, p.layers[p.d.n], p.hb, p.hy,
+                   rbase, R, p.d_head);
     } else {
       const bool two = wg_walk(acc, A, rg, sm.zero, E, p.ld, walk, row0,
                                true, src);
@@ -263,7 +307,7 @@ __device__ __forceinline__ void wgb_head_bwd(float (&acc)[kOutRegs],
 template <class Op, bool kHead = false>
 __device__ __forceinline__ void embed_bwd_wg(const EmbedBwdWgT<Op>& p) {
   constexpr bool f32 = kF32<Op>;
-  static_assert(f32 || !kHead, "the head has its fp32 form only");
+  static_assert(f32 || !kHead, "the head's backward has its fp32 form only");
   extern __shared__ unsigned char smem_raw[];
   const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * p.wg_floats, p.n_prm,
                             !f32);

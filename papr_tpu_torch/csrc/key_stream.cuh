@@ -157,9 +157,10 @@ __device__ __forceinline__ void key_rec_bwd_tile(
 }  // namespace papr
 
 // The record-native key stream's C entry points (key_stream.cu): the int8
-// and wgmma forwards' arguments, the backward's; the fp32 wgmma forms are
-// what the folded key stream's fp32 form (key_stream_q.cu) runs after
-// (forward) and before (backward) its query chain.
+// and wgmma forwards' arguments, the backward's; the wgmma forwards (both
+// forms) are what the folded key stream (key_stream_q.cu) runs after its
+// query chain, and the fp32 backward what its fp32 form runs before its
+// query's backward.
 #define KEY_FWD_PARAMS                                                       \
     const float* rec, int rec_w, int T, int K, const float* rayo,            \
     const float* rays, const float* qq, int dm, float sqrt_dm,               \
@@ -188,6 +189,8 @@ __device__ __forceinline__ void key_rec_bwd_tile(
     seg, nsrc, drec, drayo, drays, dqq, part, part_w, scratch, wpack,        \
     wbytes, grid, dqq_aux, drayo_aux, drays_aux, stream
 
+extern "C" int papr_key_stream_fwd(KEY_FWD_PARAMS, const void* wpack,
+                                   long long wbytes, int grid, void* stream);
 extern "C" int papr_key_stream_f32_fwd(KEY_FWD_PARAMS, const void* wpack,
                                        long long wbytes, int grid,
                                        void* stream);

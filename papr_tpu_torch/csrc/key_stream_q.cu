@@ -18,82 +18,56 @@
 // chain adds one walk per K key walks (5 % at K = 20). The fold removes the
 // query embedder's launches and the w_q matmuls of a step, not work.
 //
-// fp32 (key_stream_q_f32_fwd / key_stream_q_f32_bwd; use_amp: false,
-// _ksrq_*_kernel with cdt = float32): two walks on walk_wgmma.cuh's fp32
-// operand form (3xTF32 m64n64k8 products, fresh accumulators joined every 32
-// of depth), launched in turn on one stream:
-//   * forward, one entry point: the query chain on the fp32 embedder's walk
-//     with w_q as its head (embed_wgmma.cuh embed_fwd_wg<float, true>,
-//     query_head_fwd_wgmma_f32_kernel: 128-ray tiles of a persistent grid,
-//     the walk's output left in E, one more layer of the image, b_q added in
-//     fp32, qq never rounded), then the record-native key forward on that
-//     qq through key_stream.cu's own entry point (key_fwd_wgmma_f32_kernel,
-//     then key_fwd_softmax_kernel), so attn / raw / ss are bit-equal to
-//     key_stream_f32_fwd's on the same qq;
-//   * backward, two entry points called in turn by the wrapper
-//     (ops/stream_attn.py): key_stream.cu's papr_key_stream_f32_bwd
-//     (key_bwd_wgmma_f32_kernel and its combine kernel: d_rec, d_rayo, d_rays
-//     and dqq summed over k, bit-equal to key_stream_f32_bwd's), then
-//     papr_key_stream_q_f32_bwd, the query backward on the embedder's
-//     backward with the head (embed_bwd_wg<float, true>,
-//     query_head_bwd_wgmma_f32_kernel): the recomputed eq stashed for dW_q,
-//     dqq's column sums for db_q and dqq stashed, dqq w_q (the image's
-//     w_q^T layer) into the reverse walk, the posenc backward summed per raw
-//     column into d_rayd. dW of both walks and of w_k / w_q: wgrad_f32 on
-//     the stashes, after each launch.
+// Forward, both forms (key_stream_q_fwd in bf16, key_stream_q_f32_fwd in
+// fp32, use_amp: false; _ksrq_fwd_kernel with cdt = bfloat16 / float32): one
+// entry point launches two kernels in turn on one stream. First the query
+// chain on the embedder's wgmma walk with w_q as its head (embed_wgmma.cuh
+// embed_fwd_wg<Op, true>: query_head_fwd_wgmma_kernel in bf16, activations
+// in registers, the head's product in passes of 128 columns, each value
+// rounded as JAX's bf16 _linear, linear_bf16; query_head_fwd_wgmma_f32_kernel
+// in fp32, 3xTF32 m64n64k8 products, b_q added in fp32, qq never rounded;
+// 128-ray tiles of a persistent grid), which writes qq (T, dm) fp32. Then
+// the record-native key forward on that qq through key_stream.cu's own entry
+// point (papr_key_stream_fwd / papr_key_stream_f32_fwd:
+// key_fwd_wgmma_kernel / key_fwd_wgmma_f32_kernel, then
+// key_fwd_softmax_kernel), so attn / raw / ss are bit-equal to
+// key_stream_fwd's / key_stream_f32_fwd's on the same qq. Against the WMMA
+// kernel it replaces (one 64-ray block of 512 threads, the query and key
+// walks taking turns in shared memory) no rounding point moved: qq's values
+// move only in the summation order of the w_q product.
+//
+// Backward, fp32 (key_stream_q_f32_bwd): two entry points called in turn by
+// the wrapper (ops/stream_attn.py): key_stream.cu's papr_key_stream_f32_bwd
+// (key_bwd_wgmma_f32_kernel and its combine kernel: d_rec, d_rayo, d_rays
+// and dqq summed over k, bit-equal to key_stream_f32_bwd's), then
+// papr_key_stream_q_f32_bwd, the query backward on the embedder's backward
+// with the head (embed_bwd_wg<float, true>, query_head_bwd_wgmma_f32_kernel):
+// the recomputed eq stashed for dW_q, dqq's column sums for db_q and dqq
+// stashed, dqq w_q (the image's w_q^T layer) into the reverse walk, the
+// posenc backward summed per raw column into d_rayd. dW of both walks and
+// of w_k / w_q: wgrad_f32 on the stashes, after each launch.
 // The images are the wrapper's: the query walk then w_q (forward), the
 // query walk, w_q^T, W_l^T for l = n-1 .. 0 (backward); the key's as
-// key_stream.cu's. The rounding points are JAX's fp32 _ksrq_*_kernel:
+// key_stream.cu's. The rounding points are JAX's _ksrq_*_kernel's: in fp32
 // nothing is rounded.
 //
-// bf16 (key_stream_q_fwd / key_stream_q_bwd): kernels on walk.cuh's WMMA
-// layers, one block of 512 threads a 64-ray tile: first the query
-// walk and qq = linear(eq, w_q) with the linear layer's own bf16 epilogue,
-// then the key loop of key_stream.cuh against that qq. Shared memory is full
-// with one walk's buffers (two activation tiles, the accumulator, the staged
-// weights), so the query and key walks take turns in them, one staged layer
-// at a time, and qq / dqq live in the (T, dm) device buffers the kernel
-// writes anyway: a block reads back only rows it wrote itself (L2-resident,
-// 64 KB a tile), after a barrier, through ordinary loads. The query stashes
-// are T rows, not K * T: the query walk has WalkBwd buffers of its own.
+// Backward, bf16 (key_stream_q_bwd): one kernel on walk.cuh's WMMA layers,
+// one block of 512 threads a 64-ray tile: the key loop of key_stream.cuh
+// (dqq summed over k in the (T, dm) device buffer the kernel writes
+// anyway: a block reads back only rows it wrote itself, L2-resident, 64 KB
+// a tile, after a barrier, through ordinary loads), then the query backward
+// once per tile. Shared memory is full with one walk's buffers (two
+// activation tiles, the accumulator, the staged weights), so the query and
+// key walks take turns in them, one staged layer at a time. The query
+// stashes are T rows, not K * T: the query walk has WalkBwd buffers of its
+// own.
 
 #include "embed_wgmma.cuh"
 #include "key_stream.cuh"
 
 using namespace papr;
 
-// ------------------------------------------------- bf16: on WMMA walks ----
-
-__global__ void __launch_bounds__(kThreads, 1)
-keyq_fwd_kernel(const float* __restrict__ rec, int rec_w, int T, int K,
-                const float* __restrict__ rayo, const float* __restrict__ rays,
-                const float* __restrict__ rayd, int dm, float sqrt_dm,
-                WalkDesc kd, const __nv_bfloat16* __restrict__ wk,
-                const float* __restrict__ bk, WalkDesc qd,
-                const __nv_bfloat16* __restrict__ wq,
-                const float* __restrict__ bq, int dm_pad, int score_relu,
-                float bkg, float eps, float* __restrict__ attn,
-                float* __restrict__ raw, float* __restrict__ ss_out,
-                float* qq) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmem S = walk_smem(smem);
-  const int t0 = blockIdx.x * kRows;
-
-  // The query chain, once per tile (_ksrq_fwd_kernel :1211-1215).
-  encode_raw(S.C, qd, rayd, t0, T, 3);
-  __syncthreads();
-  run_walk(S, qd, true);              // eq in A[0]
-  dense_layer(S.A[0], S.C, nullptr, S.W, wq, nullptr, qd.pd[qd.n], dm_pad, 0);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * dm; i += kThreads) {
-    const int r = i / dm, c = i - r * dm, t = t0 + r;
-    if (t < T) qq[(size_t)t * dm + c] = linear_bf16(S.C[r * kCLd + c], bq[c]);
-  }
-  __syncthreads();
-
-  key_rec_fwd_tile(S, rec, rec_w, T, K, rayo, rays, qq, dm, sqrt_dm, kd, wk,
-                   bk, dm_pad, score_relu, bkg, eps, attn, raw, ss_out);
-}
+// ------------------------------------------- bf16 backward: on WMMA walks ----
 
 __global__ void __launch_bounds__(kThreads, 1)
 keyq_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
@@ -154,39 +128,6 @@ keyq_bwd_kernel(const float* __restrict__ rec, int rec_w, int T, int Tp, int K,
   });
 }
 
-extern "C" int papr_key_stream_q_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* rayd, int dm, float sqrt_dm,
-    const int* kmeta, const void* kw, const void* kb, const void* kln,
-    const void* kplan, const void* wk, const void* bk, const int* qmeta,
-    const void* qw, const void* qb, const void* qln, const void* qplan,
-    const void* wq, const void* bq, int dm_pad, int score_relu, float bkg,
-    float eps, void* attn, void* raw, void* ss, void* qq, void* stream) {
-  WalkDesc kd, qd;
-  int err = fill_walk(&kd, kmeta, kw, kb, kln, kplan);
-  if (err) return err;
-  err = fill_walk(&qd, qmeta, qw, qb, qln, qplan);
-  if (err) return err;
-  err = check_score_head(dm, dm_pad, K);
-  if (err) return err;
-  if (T <= 0) return 0;
-  const size_t smem = key_rec_fwd_smem(K);
-  if (smem > 232448) return -203;
-  cudaError_t e = cudaFuncSetAttribute(
-      keyq_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  keyq_fwd_kernel<<<(T + kRows - 1) / kRows, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      rec, rec_w, T, K, rayo, rays, rayd, dm, sqrt_dm, kd,
-      static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
-      qd, static_cast<const __nv_bfloat16*>(wq),
-      static_cast<const float*>(bq), dm_pad, score_relu, bkg, eps,
-      static_cast<float*>(attn), static_cast<float*>(raw),
-      static_cast<float*>(ss), static_cast<float*>(qq));
-  return (int)cudaGetLastError();
-}
-
 extern "C" int papr_key_stream_q_bwd(
     const float* rec, int rec_w, int T, int K, const float* rayo,
     const float* rays, const float* rayd, const float* qq, int dm,
@@ -237,7 +178,12 @@ extern "C" int papr_key_stream_q_bwd(
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------ fp32: on wgmma + TMA ----
+// ------------------------------------------ on wgmma + TMA: both forms ----
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+query_head_fwd_wgmma_kernel(const __grid_constant__ EmbedFwdWg p) {
+  embed_fwd_wg<__nv_bfloat16, true>(p);
+}
 
 __global__ void __launch_bounds__(kWgThreads, 1)
 query_head_fwd_wgmma_f32_kernel(const __grid_constant__ EmbedFwdWgT<float> p) {
@@ -249,24 +195,33 @@ query_head_bwd_wgmma_f32_kernel(const __grid_constant__ EmbedBwdWgT<float> p) {
   embed_bwd_wg<float, true>(p);
 }
 
-// The fp32 forward: the key's arguments as papr_key_stream_f32_fwd takes
-// them (qq its output here, the key's image kpack / kbytes: the key walk,
-// then w_k; ops/stream_attn.py fwd_wgmma_pack_f32), the raw ray directions
-// rayd, the query walk and b_q, its image qpack / qbytes (the query walk,
-// then w_q), and the grid (1 .. the number of 128-ray tiles; both launches
-// take it).
-extern "C" int papr_key_stream_q_f32_fwd(
-    const float* rec, int rec_w, int T, int K, const float* rayo,
-    const float* rays, const float* rayd, int dm, float sqrt_dm,
-    const int* kmeta, const void* kw, const void* kb, const void* kln,
-    const void* kplan, const void* bk, const int* qmeta, const void* qw,
-    const void* qb, const void* qln, const void* qplan, const void* bq,
-    int dm_pad, int score_relu, float bkg, float eps, void* attn, void* raw,
-    void* ss, void* qq, const void* kpack, long long kbytes,
-    const void* qpack, long long qbytes, int grid, void* stream) {
+// The forward's arguments: the key's as papr_key_stream_fwd takes them
+// without w_k (qq its output here), the raw ray directions rayd, the query
+// walk and b_q, then the key's image kpack / kbytes (the key walk, then w_k;
+// ops/stream_attn.py fwd_wgmma_pack / fwd_wgmma_pack_f32), the query's
+// qpack / qbytes (the query walk, then w_q), and the grid (1 .. the number
+// of 128-ray tiles; both launches take it).
+#define KEYQ_FWD_PARAMS                                                      \
+    const float* rec, int rec_w, int T, int K, const float* rayo,            \
+    const float* rays, const float* rayd, int dm, float sqrt_dm,             \
+    const int* kmeta, const void* kw, const void* kb, const void* kln,       \
+    const void* kplan, const void* bk, const int* qmeta, const void* qw,     \
+    const void* qb, const void* qln, const void* qplan, const void* bq,      \
+    int dm_pad, int score_relu, float bkg, float eps, void* attn, void* raw, \
+    void* ss, void* qq, const void* kpack, long long kbytes,                 \
+    const void* qpack, long long qbytes, int grid, void* stream
+#define KEYQ_FWD_ARGS                                                        \
+    rec, rec_w, T, K, rayo, rays, rayd, dm, sqrt_dm, kmeta, kw, kb, kln,     \
+    kplan, bk, qmeta, qw, qb, qln, qplan, bq, dm_pad, score_relu, bkg, eps,  \
+    attn, raw, ss, qq, kpack, kbytes, qpack, qbytes, grid, stream
+
+// The forward in the operand form Op: the query head's kernel, then the key
+// forward's entry point of that form.
+template <class Op>
+static int launch_keyq_fwd(KEYQ_FWD_PARAMS) {
   int err = check_score_head(dm, dm_pad, K);
   if (err) return err;
-  EmbedFwdWgT<float> p{};
+  EmbedFwdWgT<Op> p{};
   size_t smem = 0;
   err = fill_embed_fwd_wg(&p, qmeta, qw, qb, qln, qplan, dm_pad, qpack,
                           qbytes, &smem);
@@ -278,13 +233,30 @@ extern "C" int papr_key_stream_q_f32_fwd(
   p.hb = static_cast<const float*>(bq);
   p.hy = static_cast<float*>(qq);
   p.d_head = dm;
-  err = launch_embed_fwd_wg(p, query_head_fwd_wgmma_f32_kernel, T, grid,
-                            smem, static_cast<cudaStream_t>(stream));
+  void (*kernel)(EmbedFwdWgT<Op>);
+  int (*key_fwd)(KEY_FWD_PARAMS, const void*, long long, int, void*);
+  if constexpr (kF32<Op>) {
+    kernel = query_head_fwd_wgmma_f32_kernel;
+    key_fwd = papr_key_stream_f32_fwd;
+  } else {
+    kernel = query_head_fwd_wgmma_kernel;
+    key_fwd = papr_key_stream_fwd;
+  }
+  err = launch_embed_fwd_wg(p, kernel, T, grid, smem,
+                            static_cast<cudaStream_t>(stream));
   if (err) return err;
-  return papr_key_stream_f32_fwd(
-      rec, rec_w, T, K, rayo, rays, static_cast<const float*>(qq), dm,
-      sqrt_dm, kmeta, kw, kb, kln, kplan, nullptr, bk, dm_pad, score_relu,
-      bkg, eps, attn, raw, ss, kpack, kbytes, grid, stream);
+  return key_fwd(rec, rec_w, T, K, rayo, rays, static_cast<const float*>(qq),
+                 dm, sqrt_dm, kmeta, kw, kb, kln, kplan, nullptr, bk, dm_pad,
+                 score_relu, bkg, eps, attn, raw, ss, kpack, kbytes, grid,
+                 stream);
+}
+
+extern "C" int papr_key_stream_q_fwd(KEYQ_FWD_PARAMS) {
+  return launch_keyq_fwd<__nv_bfloat16>(KEYQ_FWD_ARGS);
+}
+
+extern "C" int papr_key_stream_q_f32_fwd(KEYQ_FWD_PARAMS) {
+  return launch_keyq_fwd<float>(KEYQ_FWD_ARGS);
 }
 
 // The fp32 query backward, after papr_key_stream_f32_bwd has summed dqq

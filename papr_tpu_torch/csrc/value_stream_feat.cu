@@ -15,70 +15,42 @@
 // (foreground mass exactly 0) divide by 1: zero gradient into the walk.
 //
 // What bounds it on the H100: the walk, as value_stream.cu (compute bound);
-// xv adds 280 B a token to read and dxv as much to write. The design of the
-// bf16 forward and of both backwards is the WMMA one of PRs 1-7 (walk.cuh /
-// walk_bwd.cuh): one block of 512 threads per 64-ray tile, k inside the
-// block, every activation in shared memory, dW through the stash and
-// wgrad.cu; the fuse steps are shared with value_stream.cu's int8 forms
-// (stream_common.cuh).
+// xv adds 280 B a token to read and dxv as much to write. Both backwards
+// run on the WMMA walk (walk.cuh / walk_bwd.cuh): one block of 512 threads
+// per 64-ray tile, k inside the block, every activation in shared memory, dW
+// through the stash and wgrad.cu.
 //
 // value_stream_feat_f32_bwd is the same backward on the fp32 walk (use_amp:
 // false; _vs_bwd_kernel with cdt = float32): the walk in fp32 (walk.cuh's
 // 3xTF32 products), fp32 stashes and dW through wgrad_f32; the same shared
 // memory.
 //
-// value_stream_feat_f32_fwd (_vs_fwd_kernel with cdt = float32) runs on
-// wgmma: value_feat_fwd_wgmma_f32_kernel is walk_wgmma.cuh's stream_fwd_wg,
-// the fp32 record value forward's function (value_stream.cu
+// The forward, both forms (value_stream_feat_fwd in bf16,
+// value_stream_feat_f32_fwd in fp32; _vs_fwd_kernel with cdt = bfloat16 /
+// float32), runs on wgmma: value_feat_fwd_wgmma_kernel /
+// value_feat_fwd_wgmma_f32_kernel are walk_wgmma.cuh's stream_fwd_wg, the
+// record value forward's function (value_stream.cu value_fwd_wgmma_kernel /
 // value_fwd_wgmma_f32_kernel), with the token source FeatTok: per k step a
 // warpgroup encodes its 64 rays' rows of xv[k] (scalar loads by the column
 // plan: 6 posenc sources, then the point features passed through), the
-// walk runs as 3xTF32 m64n64k8 products on the TMA-fed weight ring
-// (ops/stream_attn.py fwd_wgmma_pack_f32) and its fp32 rows, unrounded, are
-// weighted by the renormalized foreground attention into per-ray sums in
-// shared memory; 128 rays a block on a persistent grid over (tile, k)
-// units, each block adding its rays' sums into the zeroed output with
-// atomicAdd. Against the WMMA kernel no rounding point moved in the walk
-// (its partial products join the fp32 sum once per 32-deep chunk instead of
-// once per 8-deep step); a ray split between two blocks sums its K terms in
-// two parts, added once (at most two addends on 0: order-free), where the
-// WMMA kernel sums all K in order. Bound by operations (three tensor-core
-// products per fp32-accurate one); xv adds 280 B a token.
+// walk runs on the TMA-fed weight ring (ops/stream_attn.py fwd_wgmma_pack /
+// fwd_wgmma_pack_f32): bf16, m64n128k16 products with the activations in
+// registers between layers; fp32, 3xTF32 m64n64k8 products. Its value rows
+// (rounded to bf16 in the bf16 form, as fuse_step<bf16> rounds them; fp32
+// unrounded) are weighted by the renormalized foreground attention into
+// per-ray sums in shared memory; 128 rays a block on a persistent grid over
+// (tile, k) units, each block adding its rays' sums into the zeroed output
+// with atomicAdd. Against the WMMA kernels no rounding point moved in the
+// walk (bf16: products summed in another order; fp32: the partial products
+// join the fp32 sum once per 32-deep chunk instead of once per 8-deep
+// step); a ray split between two blocks sums its K terms in two parts,
+// added once (at most two addends on 0: order-free), where the WMMA kernels
+// sum all K in order. Bound by operations (fp32: three tensor-core products
+// per fp32-accurate one); xv adds 280 B a token.
 
 #include "walk_wgmma.cuh"
 
 using namespace papr;
-
-template <class Op>
-__global__ void __launch_bounds__(kThreads, 1)
-valuef_fwd_kernel(const float* __restrict__ x, int d_raw, int T, int K,
-                  const float* __restrict__ attn, WalkDescT<Op> vd,
-                  int normalize,
-                  float* __restrict__ fused) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const WalkSmemT<Op> S = walk_smem<Op>(smem);
-  float* C = S.C;
-  float* den = reinterpret_cast<float*>(S.extra);            // kRows
-  const int cout = vd.d_out;
-  float* acc = den + kRows;                                  // kRows x cout
-  const int t0 = blockIdx.x * kRows;
-
-  for (int i = threadIdx.x; i < kRows * cout; i += kThreads) acc[i] = 0.f;
-  fg_mass_rows(attn, K, t0, T, normalize, den);
-  __syncthreads();
-
-  for (int k = 0; k < K; ++k) {
-    encode_raw(C, vd, x + (size_t)k * T * d_raw, t0, T, d_raw);
-    __syncthreads();
-    run_walk(S, vd);
-    fuse_step<Op>(C, acc, attn, den, k, K, cout, t0, T);
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < kRows * cout; i += kThreads) {
-    const int r = i / cout, t = t0 + r;
-    if (t < T) fused[(size_t)t * cout + (i - r * cout)] = acc[i];
-  }
-}
 
 template <class Op>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -125,37 +97,20 @@ valuef_bwd_kernel(const float* __restrict__ x, int d_raw, int T, int Tp,
   renorm_bwd_rows(datt, attn, den, normalize, K, t0, T, dattn);
 }
 
-#define VALUEF_FWD_PARAMS_NS                                                 \
+#define VALUEF_FWD_PARAMS                                                    \
     const float* x, int d_raw, int T, int K, const float* attn,              \
     const int* vmeta, const void* vw, const void* vb, const void* vln,       \
-    const void* vplan, int normalize, void* fused
-#define VALUEF_FWD_PARAMS VALUEF_FWD_PARAMS_NS, void* stream
+    const void* vplan, int normalize, void* fused, const void* wpack,        \
+    long long wbytes, int grid, void* stream
+#define VALUEF_FWD_ARGS                                                      \
+    x, d_raw, T, K, attn, vmeta, vw, vb, vln, vplan, normalize, fused,       \
+    wpack, wbytes, grid, stream
 #define VALUEF_BWD_PARAMS                                                    \
     const float* x, int d_raw, int T, int K, const float* attn,              \
     const float* dfused, const int* vmeta, const void* vw, const void* vb,   \
     const void* vln, const void* vplan, const void* vwt, int normalize,      \
     void* stash, const long long* stash_off, const int* seg, float* dx,      \
     float* dattn, float* part, int part_w, float* scratch, void* stream
-
-template <class Op>
-static int launch_valuef_fwd(VALUEF_FWD_PARAMS) {
-  WalkDescT<Op> vd;
-  int err = fill_walk(&vd, vmeta, vw, vb, vln, vplan);
-  if (err) return err;
-  if (K <= 0 || K > 64) return -202;
-  if (d_raw <= 0 || d_raw > kMaxWidth) return -205;
-  if (T <= 0) return 0;
-  const size_t smem = kWalkSmem + sizeof(float) * kRows * (1 + vd.d_out);
-  if (smem > 232448) return -203;
-  cudaError_t e = cudaFuncSetAttribute(
-      valuef_fwd_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  valuef_fwd_kernel<Op><<<(T + kRows - 1) / kRows, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      x, d_raw, T, K, attn, vd, normalize, static_cast<float*>(fused));
-  return (int)cudaGetLastError();
-}
 
 template <class Op>
 static int launch_valuef_bwd(VALUEF_BWD_PARAMS) {
@@ -183,42 +138,49 @@ static int launch_valuef_bwd(VALUEF_BWD_PARAMS) {
 }
 
 __global__ void __launch_bounds__(kWgThreads, 1)
+value_feat_fwd_wgmma_kernel(const __grid_constant__ StreamFwdWg p) {
+  stream_fwd_wg<false, __nv_bfloat16, FeatTok>(p);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
 value_feat_fwd_wgmma_f32_kernel(
     const __grid_constant__ StreamFwdWgT<float> p) {
   stream_fwd_wg<false, float, FeatTok>(p);
 }
 
-#define VALUEF_FWD_ARGS                                                      \
-    x, d_raw, T, K, attn, vmeta, vw, vb, vln, vplan, normalize, fused,       \
-    stream
 #define VALUEF_BWD_ARGS                                                      \
     x, d_raw, T, K, attn, dfused, vmeta, vw, vb, vln, vplan, vwt,            \
     normalize, stash, stash_off, seg, dx, dattn, part, part_w, scratch,      \
     stream
 
-extern "C" int papr_value_stream_feat_fwd(VALUEF_FWD_PARAMS) {
-  return launch_valuef_fwd<__nv_bfloat16>(VALUEF_FWD_ARGS);
-}
-
-// The fp32 forward on wgmma: the bf16 form's arguments before its stream,
-// fused zeroed by the caller (each block adds its rays' sums), then the
-// packed weights of the walk's layers (ops/stream_attn.py
-// fwd_wgmma_pack_f32), their size in bytes and the grid (1 .. the number of
-// 128-ray tiles).
-extern "C" int papr_value_stream_feat_f32_fwd(VALUEF_FWD_PARAMS_NS,
-                                              const void* wpack,
-                                              long long wbytes, int grid,
-                                              void* stream) {
+// The forward on wgmma in the operand form Op: the features (K, T, d_raw),
+// attn, the walk, fused zeroed by the caller (each block adds its rays'
+// sums), then the packed weights of the walk's layers (ops/stream_attn.py
+// fwd_wgmma_pack / fwd_wgmma_pack_f32), their size in bytes and the grid
+// (1 .. the number of 128-ray tiles).
+template <class Op>
+static int launch_valuef_fwd_wg(VALUEF_FWD_PARAMS) {
   if (d_raw <= 0 || d_raw > kMaxWidth) return -205;
-  StreamFwdWgT<float> p{};
+  StreamFwdWgT<Op> p{};
   p.x = x;
   p.d_raw = d_raw;
   p.attn = attn;
   p.normalize = normalize;
   p.fused = static_cast<float*>(fused);
-  return launch_stream_fwd_wg<false>(p, value_feat_fwd_wgmma_f32_kernel, T, K,
-                                     vmeta, vw, vb, vln, vplan, wpack, wbytes,
-                                     grid, static_cast<cudaStream_t>(stream));
+  void (*kernel)(StreamFwdWgT<Op>);
+  if constexpr (kF32<Op>) kernel = value_feat_fwd_wgmma_f32_kernel;
+  else kernel = value_feat_fwd_wgmma_kernel;
+  return launch_stream_fwd_wg<false>(p, kernel, T, K, vmeta, vw, vb, vln,
+                                     vplan, wpack, wbytes, grid,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int papr_value_stream_feat_fwd(VALUEF_FWD_PARAMS) {
+  return launch_valuef_fwd_wg<__nv_bfloat16>(VALUEF_FWD_ARGS);
+}
+
+extern "C" int papr_value_stream_feat_f32_fwd(VALUEF_FWD_PARAMS) {
+  return launch_valuef_fwd_wg<float>(VALUEF_FWD_ARGS);
 }
 
 extern "C" int papr_value_stream_feat_bwd(VALUEF_BWD_PARAMS) {

@@ -18,14 +18,18 @@
 // key_stream.cu's fp32 kernels), and the fp32 feature stream forwards
 // (key_stream_feat.cu key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
 // value_feat_fwd_wgmma_f32_kernel: the stream forwards' function with raw
-// (K, T, d) feature rows as the posenc sources, FeatTok). The int8 one-shot
-// eval attention (attend_eval_i8_wgmma_kernel, both epilogues) runs the same
-// walk in its int8 operand form (below: s8 x s8 -> s32 products, the
-// epilogue quantizing straight into the next product's fragments). The int8
-// stream forwards (rows 5q / 6q, 5qf / 6qf), the int8 walk microbenchmark
-// and the other walk kernels (the bf16 forms of key_stream_q.cu, the bf16
-// forms and the backwards of key_stream_feat.cu / value_stream_feat.cu) keep
-// walk.cuh's WMMA layers.
+// (K, T, d) feature rows as the posenc sources, FeatTok). The bf16 folded
+// key stream's forward (query_head_fwd_wgmma_kernel, the bf16 embedder walk
+// with w_q as its head, then key_fwd_wgmma_kernel) and the bf16 feature
+// value forward (value_feat_fwd_wgmma_kernel) are those functions in the
+// bf16 form. The int8 one-shot eval attention (attend_eval_i8_wgmma_kernel,
+// both epilogues) runs the same walk in its int8 operand form (below: s8 x
+// s8 -> s32 products, the epilogue quantizing straight into the next
+// product's fragments). The int8 stream forwards (rows 5q / 6q, 5qf / 6qf),
+// the int8 walk microbenchmark and the other walk kernels (the bf16 backward
+// of key_stream_q.cu, the bf16 key forward of key_stream_feat.cu and the
+// backwards of key_stream_feat.cu / value_stream_feat.cu) keep walk.cuh's
+// WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
 // ptxas may give a thread up to 255 registers). Within a warpgroup the
@@ -555,7 +559,7 @@ struct RecSrc {
   }
 };
 
-// The feature walks' posenc sources (the fp32 feature stream forwards): row
+// The feature walks' posenc sources (the feature stream forwards): row
 // r's column src of its token's raw feature row, x[k, rbase + r, :] of the
 // k-major (K, T, d_raw) features (xk [pos, proj, perp], xv [proj, perp,
 // point features?]: the plan's source ids are x's columns, as for K2's raw
@@ -1506,10 +1510,11 @@ __device__ __forceinline__ bool wg_walk(float (&f)[N], WgQ8A<Op>& A,
 // value_fwd_wgmma_kernel / value_fwd_wgmma_f32_kernel (value_stream.cu) on
 // the walk above, in its bf16 or fp32 operand form (the forms of the bf16 and
 // the fp32 K3): the record read pre-gathered k-major (K, T, rec_w), a
-// token's row k * T + t. The fp32 feature streams (key_stream_feat.cu
-// key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
-// value_feat_fwd_wgmma_f32_kernel) are the same function with another
-// token source (the policy Tok): the raw feature row x[k, t, :] of a
+// token's row k * T + t. The feature streams' wgmma forwards
+// (key_stream_feat.cu key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
+// value_feat_fwd_wgmma_kernel / value_feat_fwd_wgmma_f32_kernel) are the
+// same function with another token source (the policy Tok): the raw feature
+// row x[k, t, :] of a
 // (K, T, d_raw) tensor built in torch as the posenc sources, influence and
 // alive from (T, K) arrays, no geometry stage (its shared-memory rows stay
 // in the layout, unused). The grid is persistent, as the backwards'

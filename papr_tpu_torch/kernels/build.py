@@ -46,8 +46,6 @@ SIGNATURES = {
     "papr_value_stream_fwd": [P, I, I, I, P, P, P, P, P, P, P, P, I, F, P, P],
     "papr_value_stream_bwd": [P, I, I, I, P, P, P, P, P, P, P, P, P, I, F,
                               P, P, P, I, P, P, P, P, P, I, P, P],
-    "papr_key_stream_q_fwd": [P, I, I, I, P, P, P, I, F] + [P] * 14    # ..bq
-                             + [I, I, F, F] + [P] * 5,
     "papr_key_stream_q_bwd": [P, I, I, I, P, P, P, P, I, F, P, P, P]  # ..dattn
                              + [P] * 16 + [I, I, F, F]                # ..eps
                              + [P] * 4 + [P, I, P] + [P] * 5          # ..dqq
@@ -104,28 +102,30 @@ for _name in ("papr_key_stream_bwd", "papr_value_stream_bwd",
               "papr_key_stream_f32_bwd", "papr_value_stream_f32_bwd"):
     SIGNATURES[_name] = SIGNATURES[_name][:-1] + [P, ctypes.c_longlong, I, P,
                                                   P, P, P]
-# The fp32 folded key stream (on wgmma). Forward: the bf16 form's arguments
-# without w_k and w_q (the images hold them), then the key's packed weights
-# and their size in bytes, the query's and theirs, the grid and the stream.
-# Backward: the query's half alone (papr_key_stream_f32_bwd runs the key's
-# first): rayd, T, d_model, the query walk, dm_pad, its stash, the posenc
-# segments, dqq, d_rayd, the partial rows and scratch, the packed weights,
-# their size in bytes, the grid and the stream.
+# The folded key stream. Forward (bf16 and fp32, both on wgmma): the key
+# stream's arguments without w_k (qq an output), rayd, the query walk and b_q
+# (no w_q: the images hold both), dm_pad ... qq, then the key's packed
+# weights and their size in bytes, the query's and theirs, the grid and the
+# stream. The fp32 backward: the query's half alone (papr_key_stream_f32_bwd
+# runs the key's first): rayd, T, d_model, the query walk, dm_pad, its
+# stash, the posenc segments, dqq, d_rayd, the partial rows and scratch, the
+# packed weights, their size in bytes, the grid and the stream.
 _LL = ctypes.c_longlong
-SIGNATURES["papr_key_stream_q_f32_fwd"] = (
+SIGNATURES["papr_key_stream_q_fwd"] = SIGNATURES["papr_key_stream_q_f32_fwd"] = (
     [P, I, I, I, P, P, P, I, F] + [P] * 12 + [I, I, F, F] + [P] * 4
     + [P, _LL, P, _LL, I, P])
 SIGNATURES["papr_key_stream_q_f32_bwd"] = (
     [P, I, I] + [P] * 5 + [I] + [P] * 6 + [I, P, P, _LL, I, P])
-# The fp32 feature stream forwards (on wgmma) take the bf16 forms'
-# arguments before the stream, then (key) the (T, K) masked scores, the
-# packed weights, their size in bytes, the grid and the stream.
+# The feature stream forwards on wgmma (the key's fp32 form, the value's
+# both forms) take the key's bf16 form's arguments before the stream / the
+# value's features, attn, walk, normalize and output, then (key) the (T, K)
+# masked scores, the packed weights, their size in bytes, the grid and the
+# stream.
 SIGNATURES["papr_key_stream_feat_f32_fwd"] = (
-    SIGNATURES["papr_key_stream_feat_fwd"][:-1] + [P, P, ctypes.c_longlong,
-                                                   I, P])
-SIGNATURES["papr_value_stream_feat_f32_fwd"] = (
-    SIGNATURES["papr_value_stream_feat_fwd"][:-1] + [P, ctypes.c_longlong, I,
-                                                     P])
+    SIGNATURES["papr_key_stream_feat_fwd"][:-1] + [P, P, _LL, I, P])
+SIGNATURES["papr_value_stream_feat_fwd"] = (
+    SIGNATURES["papr_value_stream_feat_f32_fwd"]) = (
+    SIGNATURES["papr_value_stream_feat_fwd"][:-1] + [P, _LL, I, P])
 
 # The int8 stream forwards take the wgmma forms' arguments before their
 # wgmma tail, then the walk's int8 weights, inverse-scale rows and dequant

@@ -77,6 +77,22 @@ N_GEO = 9                      # raw sources [pos(3), proj(3), perp(3)]
 F32_FWD_MAX_ROWS = 96
 
 
+def bf16_fwd_max_rows(pd) -> int:
+    """The widest value rows the bf16 value forward on wgmma takes for a walk
+    of padded widths ``pd`` (``csrc/walk_wgmma.cuh`` fill_stream_fwd_wg's bf16
+    layout): per warpgroup the geometry rows (64 x 12 floats), the encoding
+    rows (64 x (pd[0] rounded up to 32, + 4) floats, at least the 64 x 128
+    words of a parked pass) and the per-ray fuse rows and denominator (64 x
+    (d_out + 1) floats); the staged biases, LayerNorms and plan; the zero
+    chunk, two 16 KB ring stages and the barriers, within the H100's 232,448
+    bytes a block."""
+    e_floats = max(64 * ((pd[0] + 31) // 32 * 32 + 4), 64 * 128)
+    n_prm = sum(pd[1:]) + 2 * pd[0] + 2 * pd[-1] + 3 * pd[0]
+    rest = 1024 + 16384 + 8 + 8 * (8 + 4) + 2 * 16384
+    wg_floats = ((232448 - rest) // 4 - n_prm) // 2
+    return (wg_floats - 64 * 12 - e_floats) // 64 - 1
+
+
 @functools.lru_cache(maxsize=None)
 def rec_pe_plan(has_pos, Ls, embed_type, factor, mult, extra_dim):
     """Posenc column plan over the per-token sources [pos?, proj, perp,
@@ -1141,13 +1157,13 @@ def value_stream_fuse_rec(rec, rayo, rays, attn, vwalk: Walk, normalize=True,
 #
 # ``key_stream_scores_recq``: the record-native key stream with the query
 # chain (posenc of the RAW ray direction -> query embedder -> ``w_q``) folded
-# in (``csrc/key_stream_q.cu``; bf16: inside one WMMA kernel; fp32: the query
-# chain on the fp32 embedder's wgmma walk with ``w_q`` as its head and the
-# fp32 key stream's kernels: forward, one entry point; backward, the key
-# stream's fp32 entry point, then the query's). The forward also returns qq
-# (T, dm) as a residual; the backward sums dqq over k and runs the query
-# backward once per ray, giving dW_q / db_q, the query stack's gradients and
-# d_rayd.
+# in (``csrc/key_stream_q.cu``). The forward, both dtypes: one entry point,
+# the query chain on the embedder's wgmma walk with ``w_q`` as its head,
+# then the key stream's wgmma forward of that dtype on its qq. The backward:
+# bf16, one WMMA kernel; fp32, the key stream's fp32 entry point, then the
+# query's. The forward also returns qq (T, dm) as a residual; the backward
+# sums dqq over k and runs the query backward once per ray, giving dW_q /
+# db_q, the query stack's gradients and d_rayd.
 
 def _query_math(rayd, qwalk, wq, bq, cdt):
     """posenc -> query walk -> ``w_q`` in the compute dtype (nn/mlp.py
@@ -1243,33 +1259,27 @@ def key_stream_q_fwd(rec, rayo, rays, rayd, kwalk: Walk, wk, bk, qwalk: Walk,
     qq = torch.empty(T, dm, dtype=torch.float32, device=dev)
     vp = lambda a: ctypes.cast(c_ints(a), ctypes.c_void_p)
     f32 = cdt == torch.float32
-    # The fp32 form reads w_k and w_q from its images.
-    wk_arg = () if f32 else (wkf.data_ptr(),)
-    wq_arg = () if f32 else (wqf.data_ptr(),)
-    args = (rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
-            rayd.data_ptr(), dm, float(math.sqrt(dm)),
-            vp(kmeta), kw.data_ptr(), kb.data_ptr(), kln.data_ptr(),
-            kplan.data_ptr(), *wk_arg, bkp.data_ptr(),
-            vp(qmeta), qw.data_ptr(), qb.data_ptr(), qln.data_ptr(),
-            qplan.data_ptr(), *wq_arg, bqp.data_ptr(), dm_pad,
-            int(score_act == "relu"), float(bkg_score), float(eps),
-            attn.data_ptr(), raw.data_ptr(), ss.data_ptr(), qq.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = build.load()
+    # The key walk then w_k, and the query walk then w_q, as the wgmma
+    # forwards of the compute dtype stream them (w_k and w_q are read from
+    # the images alone).
+    pack = fwd_wgmma_pack_f32 if f32 else fwd_wgmma_pack
+    kimg = pack(kw, kpd, dev, (wkf,))
+    qimg = pack(qw, qpd, dev, (wqf,))
+    name = "papr_key_stream_q_f32_fwd" if f32 else "papr_key_stream_q_fwd"
+    build.check(getattr(build.load(), name)(
+        rec.data_ptr(), rp, T, K, rayo.data_ptr(), rays.data_ptr(),
+        rayd.data_ptr(), dm, float(math.sqrt(dm)), vp(kmeta), kw.data_ptr(),
+        kb.data_ptr(), kln.data_ptr(), kplan.data_ptr(), bkp.data_ptr(),
+        vp(qmeta), qw.data_ptr(), qb.data_ptr(), qln.data_ptr(),
+        qplan.data_ptr(), bqp.data_ptr(), dm_pad, int(score_act == "relu"),
+        float(bkg_score), float(eps), attn.data_ptr(), raw.data_ptr(),
+        ss.data_ptr(), qq.data_ptr(), kimg.data_ptr(),
+        kimg.numel() * kimg.element_size(), qimg.data_ptr(),
+        qimg.numel() * qimg.element_size(), fm.wgmma_grid(T),
+        torch.cuda.current_stream(dev).cuda_stream), name)
     if f32:
-        # The query walk then w_q, and the key walk then w_k, as the fp32
-        # wgmma forwards stream them.
-        kimg = fwd_wgmma_pack_f32(kw, kpd, dev, (wkf,))
-        qimg = fwd_wgmma_pack_f32(qw, qpd, dev, (wqf,))
-        name = "papr_key_stream_q_f32_fwd"
-        build.check(getattr(lib, name)(
-            *args, kimg.data_ptr(), kimg.numel() * kimg.element_size(),
-            qimg.data_ptr(), qimg.numel() * qimg.element_size(),
-            fm.wgmma_grid(T), stream), name)
         key_stream_q_f32_fwd.launches += 1
     else:
-        name = "papr_key_stream_q_fwd"
-        build.check(getattr(lib, name)(*args, stream), name)
         key_stream_q_fwd.launches += 1
     return attn, raw, ss, qq
 

@@ -24,8 +24,11 @@ streams' function with the feature rows as its token source): they take the
 fp32 weight image of ``stream_attn.fwd_wgmma_pack_f32`` and the persistent
 grid, the key writes its masked scores to a (T, K) buffer that a softmax
 kernel reads, the value adds into a zeroed output; K <= 64 and value rows
-<= ``F32_FWD_MAX_ROWS`` wide, refused before any launch. The bf16 forwards
-and both backwards keep the WMMA walk.
+<= ``F32_FWD_MAX_ROWS`` wide, refused before any launch. The bf16 value
+forward runs on the same function in its bf16 form (``fwd_wgmma_pack``'s
+image): value rows up to ``bf16_fwd_max_rows`` of its walk, refused wider
+before any launch. The bf16 key forward and both backwards keep the WMMA
+walk.
 
 The key backward returns ALL of dxk: the caller detaches the position
 columns before they enter xk (``model/papr.py``), so autograd drops that
@@ -44,7 +47,8 @@ from .fused_mlp import (BwdBuffers, Walk, c_ints, check_walk_for_kernel,
                         encode_plain, pack_walk, pack_walk_t,
                         source_segments, walk_plain, walk_tensors, walk_with)
 from .stream_attn import (F32_FWD_MAX_ROWS, _check_score_act, _grads_of,
-                          _score_softmax, _wk_packs, fwd_wgmma_pack_f32)
+                          _score_softmax, _wk_packs, bf16_fwd_max_rows,
+                          fwd_wgmma_pack, fwd_wgmma_pack_f32)
 
 
 def _walk_feat(x, walk: Walk, cdt):
@@ -332,29 +336,29 @@ def value_stream_feat_fwd(xv, attn, vwalk: Walk, normalize=True,
     vmeta, vw, vb, vln, vplan, vpd = pack_walk(vwalk, len(vwalk.cols), dev,
                                                cdt)
     f32 = cdt == torch.float32
+    d_out = int(vwalk.ws[-1].shape[1])
     if f32 and vpd[-1] > F32_FWD_MAX_ROWS:
         raise NotImplementedError(
             f"value stream (features): value rows of {vpd[-1]} > "
             f"{F32_FWD_MAX_ROWS} (the fp32 forward keeps its fuse rows beside "
             "the fp32 activations in shared memory)")
+    if not f32 and d_out > bf16_fwd_max_rows(vpd):
+        raise NotImplementedError(
+            f"value stream (features): value rows of {d_out} > "
+            f"{bf16_fwd_max_rows(vpd)} (the bf16 forward keeps its fuse rows "
+            "beside the encoding rows in shared memory)")
     # The wgmma forward adds each block's per-ray sums into a zeroed output.
-    fused = (torch.zeros if f32 else torch.empty)(
-        T, int(vwalk.ws[-1].shape[1]), dtype=torch.float32, device=dev)
-    args = (xv.data_ptr(), d_raw, T, K, attn.data_ptr(),
-            ctypes.cast(c_ints(vmeta), ctypes.c_void_p), vw.data_ptr(),
-            vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(),
-            int(bool(normalize)), fused.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if f32:
-        wpack = fwd_wgmma_pack_f32(vw, vpd, dev)
-        name = "papr_value_stream_feat_f32_fwd"
-        rc = build.load().papr_value_stream_feat_f32_fwd(
-            *args, wpack.data_ptr(), wpack.numel() * wpack.element_size(),
-            fm.wgmma_grid(T), stream)
-    else:
-        name = "papr_value_stream_feat_fwd"
-        rc = build.load().papr_value_stream_feat_fwd(*args, stream)
-    build.check(rc, name)
+    fused = torch.zeros(T, d_out, dtype=torch.float32, device=dev)
+    wpack = (fwd_wgmma_pack_f32 if f32 else fwd_wgmma_pack)(vw, vpd, dev)
+    name = ("papr_value_stream_feat_f32_fwd" if f32
+            else "papr_value_stream_feat_fwd")
+    build.check(getattr(build.load(), name)(
+        xv.data_ptr(), d_raw, T, K, attn.data_ptr(),
+        ctypes.cast(c_ints(vmeta), ctypes.c_void_p), vw.data_ptr(),
+        vb.data_ptr(), vln.data_ptr(), vplan.data_ptr(), int(bool(normalize)),
+        fused.data_ptr(), wpack.data_ptr(),
+        wpack.numel() * wpack.element_size(), fm.wgmma_grid(T),
+        torch.cuda.current_stream(dev).cuda_stream), name)
     if f32:
         value_stream_feat_f32_fwd.launches += 1
     else:

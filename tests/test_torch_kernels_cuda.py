@@ -521,11 +521,6 @@ SS_REL = 3e-2
 # fuse K3 >= 3.9e-4, value >= 4.5e-4; the output LayerNorm's biased
 # variance K3 up to 6.2e-4, key >= 4.6e-3 (PERF.md, Findings).
 FWD_MEDIAN_REL = {"attend_eval": 3e-4, "key": 1e-3, "value": 3e-4}
-# The folded key stream (row 7, WMMA) on its own qq against the unfolded
-# bf16 key forward (wgmma): one function, one set of rounding points, two
-# summation orders; chip_smoke's Q_UNFOLD_ABS / Q_UNFOLD_REL.
-Q_UNFOLD_ABS = 5e-4
-Q_UNFOLD_REL = 5e-4
 
 
 def _fwd_grid(monkeypatch, grid):
@@ -979,15 +974,10 @@ def test_key_stream_q_kernels_match_plain(dev, T):
     assert float((attn - attn_p).abs().max()) <= 5e-3
     assert _rel(raw, raw_p) <= 1e-2
     assert float(attn[5, K]) == 1.0
-    # the same function as the unfolded kernel on the kernel's own qq (the
-    # bf16 unfolded forward runs on wgmma: another summation order)
-    attn_u, raw_u, ss_u = sa.key_stream_fwd(rec, rayo, rays, qq, kw, wk, bk,
-                                            *opts)
-    u_attn = float((attn - attn_u).abs().max())
-    u_raw = _rel(raw, raw_u)
-    print(f"key_stream_q T={T} against the unfolded forward: attn max abs "
-          f"{u_attn:.2e}, raw {u_raw:.2e}")
-    assert u_attn <= Q_UNFOLD_ABS and u_raw <= Q_UNFOLD_REL
+    # the unfolded kernel on the kernel's own qq: the fold runs it, so
+    # attn, raw and ss are bit-equal
+    k5 = sa.key_stream_fwd(rec, rayo, rays, qq, kw, wk, bk, *opts)
+    assert all(torch.equal(a, b) for a, b in zip((attn, raw, ss), k5))
     alive = (rec[..., 4] > 0.5).T
     assert torch.equal(ss, torch.where(alive, torch.clamp_min(raw, 0.0)
                                        * rec[..., 3].T, sa.NEG_BIG))
@@ -2116,8 +2106,8 @@ F32_FOLD_CASES = [(32_400, 20, None, 4), (300, 20, None, 4),
                   (131, 20, 1, 4)]
 
 
-def _fold_case(rng, dev, T, K, qL):
-    rec, rayo, rays, _, kw, _, wk, bk = _stream_case(rng, dev, T, K)
+def _fold_case(rng, dev, T, K, qL, dm=256):
+    rec, rayo, rays, _, kw, _, wk, bk = _stream_case(rng, dev, T, K, dm)
     if T > 128:
         rec[:, 64:128, 4] = 0.0
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
@@ -2126,7 +2116,7 @@ def _fold_case(rng, dev, T, K, qL):
     qw = _walk(rng, posenc_plan((3,), (qL,), 1, 2.0, 1.0, 0)[1], 5, 256, 256,
                True, dev)
     return (rec, rayo, rays, rayd, kw, wk, bk, qw,
-            t(rng.normal(size=(256, 256)) / 16), t(rng.normal(size=256) * 0.1))
+            t(rng.normal(size=(dm, 256)) / 16), t(rng.normal(size=dm) * 0.1))
 
 
 def _check_fold(dev, args, rng, name):
@@ -2811,3 +2801,142 @@ def test_fp32_modes_training_step_on_card(dev, tpu, request):
         assert _rel(out, out_p) <= F32_REL
         assert rel <= F32_STEP_GRAD_REL, (worst, rel)
 
+
+# The bf16 forwards of rows 7 and 9 on wgmma (key_stream_q_fwd:
+# query_head_fwd_wgmma_kernel, the bf16 embedder walk with w_q as its head,
+# then key_fwd_wgmma_kernel and the softmax kernel; value_stream_feat_fwd:
+# value_feat_fwd_wgmma_kernel, stream_fwd_wg with the raw feature rows as
+# its token source): T not a multiple of the 128-ray tile, K 1 and 20,
+# d_model 40 (one head pass over a 64-wide chunk) and 256 (two passes), the
+# persistent grid and a grid of one block (every tile split), dead points
+# (20 %), ray 5 all dead and, with T > 128, a warpgroup of dead rays. Row 7:
+# attn, raw and ss bit for bit row 5's (key_stream_fwd) on the fold's own qq;
+# attn / raw against the plain bf16 forward at row 5's bounds; qq's median
+# row against the plain version at KEYQ_QQ_MEDIAN_REL: the same rounding
+# points (JAX's bf16 _linear: the product rounded, the bias added in bf16),
+# another summation order, so most rows are bit-equal (chip_smoke's
+# FWD_MEDIAN_REL["key_stream_q_fwd"]; PERF.md, Findings). Row 9: fused at
+# row 6's FWD_REL and the median ray at FEAT_VALUE_MEDIAN_REL: its plain
+# version encodes the same raw features, so few roundings flip (sound <=
+# 9.4e-8).
+KEYQ_QQ_MEDIAN_REL = 2e-4
+FEAT_VALUE_MEDIAN_REL = 1e-5
+BF16_FOLD_CASES = [(300, 20, 256, None), (300, 1, 40, 1), (131, 20, 40, 1),
+                   (257, 1, 256, None), (100, 20, 256, 1)]
+BF16_FEAT_CASES = [(300, 20, None), (300, 1, 1), (131, 20, 1), (257, 1, None)]
+
+
+def _check_fold_bf16(args, name):
+    """Row 7's bf16 forward against the plain bf16 forward and row 5's
+    kernel on its qq (see above); one call counted once."""
+    rec, rayo, rays, rayd, kw, wk, bk, qw, wq, bq = args
+    K, T = rec.shape[:2]
+    opts = ("relu", 5.0, 1e-6, torch.bfloat16)
+    counters = (sa.key_stream_q_fwd, sa.key_stream_q_f32_fwd,
+                sa.key_stream_fwd)
+    before = [c.launches for c in counters]
+    attn, raw, ss, qq = sa.key_stream_q_fwd(*args, *opts)
+    assert [c.launches for c in counters] == [before[0] + 1, before[1],
+                                              before[2]]
+    attn_p, raw_p, _, qq_p = sa.key_stream_q_plain(*args, *opts)
+    med_q = _median_row_rels([qq], [qq_p])[0]
+    rels = _rel(attn, attn_p), _rel(raw, raw_p), _rel(qq, qq_p)
+    print(f"{name}: attn {rels[0]:.2e}, raw {rels[1]:.2e}, qq {rels[2]:.2e}, "
+          f"median row qq {med_q:.2e}, rows of qq bit-equal "
+          f"{float((qq == qq_p).all(dim=1).float().mean()):.4f}")
+    assert all(bool(torch.isfinite(x).all()) for x in (attn, raw, ss, qq))
+    assert torch.equal(qq, qq.to(torch.bfloat16).float())
+    assert rels[0] <= FWD_REL and rels[1] <= FWD_RAW_REL
+    assert rels[2] <= FWD_REL and med_q <= KEYQ_QQ_MEDIAN_REL
+    k5 = sa.key_stream_fwd(rec, rayo, rays, qq, kw, wk, bk, *opts)
+    assert all(torch.equal(a, b) for a, b in zip((attn, raw, ss), k5))
+    alive = (rec[..., 4] > 0.5).T
+    assert torch.equal(ss, torch.where(alive, torch.clamp_min(raw, 0.0)
+                                       * rec[..., 3].T, sa.NEG_BIG))
+    dead = ~alive.any(dim=1)
+    assert bool(dead[5]) and (T <= 128 or bool(dead[64:128].all()))
+    assert bool((attn[dead, K] == 1.0).all())
+    assert float(attn[dead, :K].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("T,K,dm,grid", BF16_FOLD_CASES)
+def test_key_stream_q_fwd_wgmma_matches_plain(dev, monkeypatch, T, K, dm,
+                                              grid):
+    """Row 7's bf16 forward on wgmma (see above)."""
+    rng = np.random.default_rng(2200 + T + K + dm)
+    args = _fold_case(rng, dev, T, K, 6, dm)
+    _fwd_grid(monkeypatch, grid)
+    _check_fold_bf16(args, f"key_stream_q_fwd wgmma T={T} K={K} dm={dm} "
+                           f"grid={grid}")
+
+
+def _feat_value_bf16(rng, dev, T, K):
+    _, xv, _, _, _, _, vw, _, _ = _feat_case(rng, dev, T, K)
+    a = rng.random((T, K + 1)).astype(np.float32)
+    a[:, :K] *= rng.random((T, K)) > 0.2                   # dead points
+    a[5, :K] = 0.0
+    if T > 128:
+        a[64:128, :K] = 0.0
+    return xv, torch.as_tensor(a / a.sum(-1, keepdims=True), device=dev), vw
+
+
+def _check_feat_value_bf16(args, name):
+    """Row 9's bf16 forward against the plain bf16 forward (see above);
+    one call counted once; a rerun is bit-equal."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    T = args[0].shape[1]
+    before = (sf.value_stream_feat_fwd.launches,
+              sf.value_stream_feat_f32_fwd.launches)
+    fused = sf.value_stream_feat_fwd(*args, torch.bfloat16)
+    assert (sf.value_stream_feat_fwd.launches,
+            sf.value_stream_feat_f32_fwd.launches) == (before[0] + 1,
+                                                       before[1])
+    fused_p = sf.value_stream_feat_plain(*args, torch.bfloat16)
+    rel = _rel(fused, fused_p)
+    med = _median_row_rels([fused], [fused_p])[0]
+    print(f"{name}: fused {rel:.2e}, median ray {med:.2e}")
+    assert bool(torch.isfinite(fused).all())
+    assert rel <= FWD_REL and med <= FEAT_VALUE_MEDIAN_REL
+    assert float(fused[5].abs().max()) == 0.0
+    if T > 128:
+        assert float(fused[64:128].abs().max()) == 0.0
+    assert torch.equal(fused, sf.value_stream_feat_fwd(*args, torch.bfloat16))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("T,K,grid", BF16_FEAT_CASES)
+def test_value_stream_feat_fwd_wgmma_matches_plain(dev, monkeypatch, T, K,
+                                                   grid, normalize):
+    """Row 9's bf16 forward on wgmma (see above): the all-dead rays have no
+    foreground mass and read exactly 0; split tiles add two blocks'
+    sums."""
+    rng = np.random.default_rng(2300 + T + K)
+    xv, attn, vw = _feat_value_bf16(rng, dev, T, K)
+    _fwd_grid(monkeypatch, grid)
+    _check_feat_value_bf16((xv, attn, vw, normalize),
+                           f"value_stream_feat_fwd wgmma T={T} K={K} "
+                           f"grid={grid} normalize={normalize}")
+
+
+@pytest.mark.parametrize("row", ["key_stream_q", "value_stream_feat"])
+def test_bf16_rows_7_9_fwd_wgmma_after_nan_shared_memory(dev, monkeypatch,
+                                                         smem_aid, row):
+    """Rows 7 and 9's bf16 forwards with every SM's shared memory set to
+    NaN just before each call of their entry point (row 7: the query head's
+    kernel first, the key's forward after it meets its leftovers): the bf16
+    walks read only shared memory they wrote (the encoding rows up to the
+    padded width, the zero chunk, the ring's landed chunks), so every
+    output holds as above."""
+    rng = np.random.default_rng(2400)
+    survived = _poison(monkeypatch, smem_aid, f"papr_{row}_fwd")
+    if row == "key_stream_q":
+        args = _fold_case(rng, dev, 300, 7, 2, 40)
+        _fwd_grid(monkeypatch, 2)
+        _check_fold_bf16(args, "key_stream_q_fwd wgmma after NaN shared "
+                               "memory")
+    else:
+        xv, attn, vw = _feat_value_bf16(rng, dev, 300, 7)
+        _check_feat_value_bf16((xv, attn, vw, True),
+                               "value_stream_feat_fwd wgmma after NaN shared "
+                               "memory")
+    print(f"papr_{row}_fwd: {survived()}")

@@ -6,7 +6,8 @@ mode, on the shape list of ``tests/test_stream_attn.py``'s recq tests
 LayerNorm). Every gradient is held: d_rec, d_rayo, d_rays, d_rayd, dW_k,
 db_k, dW_q, db_q and both stacks'. Inputs and weights are drawn with numpy
 from a seed and go through both packages. fp32; forward rtol 1e-5 / atol
-1e-6, gradients rtol 3e-4 / atol 1e-6 (the JAX tests' own bounds)."""
+1e-6, gradients rtol 3e-4 / atol 1e-6 (the JAX tests' own bounds). The
+forward also in bf16 (``BF16_ATTN_ABS``)."""
 
 import numpy as np
 import pytest
@@ -26,7 +27,8 @@ from test_stream_attn import EPS, LS, PE, QLS, _ff_cfg
 from test_torch_stream_feat import FWD, GRAD, flat_walk_grads, jwalk, np_ff, tt
 
 
-def _case(seed, T, K, norm, extra, dm=16, d_out=32, dq_out=24):
+def _case(seed, T, K, norm, extra, dm=16, d_out=32, dq_out=24,
+          compute="float32"):
     rng = np.random.default_rng(seed)
     f32 = lambda a: jnp.asarray(np.asarray(a, np.float32))
     kcfg, qcfg = _ff_cfg(32, d_out, 3, norm), _ff_cfg(32, dq_out, 2, norm)
@@ -52,7 +54,7 @@ def _case(seed, T, K, norm, extra, dm=16, d_out=32, dq_out=24):
             rec, rayo, rays, rayd, *kw, wk, bk, *qw, wq, bq,
             (LS, 1, PE[0], PE[1], extra), (QLS, 1, PE[0], PE[1]),
             kcfg.ff_act, kcfg.ff_last_act, qcfg.ff_act, qcfg.ff_last_act,
-            "relu", 5.0, EPS, 32, True, "float32")
+            "relu", 5.0, EPS, 32, True, compute)
     kwalk = walk_from_params(
         to_torch(jax.tree.map(np.asarray, kff), "cpu"), kcfg,
         sa.rec_pe_plan(True, LS, 1, PE[0], PE[1], extra))
@@ -82,6 +84,30 @@ def test_query_fold_forward_matches_jax(T, K, norm, extra):
                                        5.0, EPS)
     np.testing.assert_allclose(attn.numpy(), unfolded.numpy(), **FWD)
     np.testing.assert_allclose(attn.numpy()[5, -1], 1.0, atol=1e-6)
+
+
+# bf16 compute: JAX's Pallas kernel in interpret mode with compute
+# "bfloat16" against the port's plain bf16 forward, the yardstick of the
+# bf16 kernels on the card. Both round at the same points (activations, qq's
+# and kk's products and bias adds in bf16); their fp32 sums of bf16
+# products differ in order, so now and then a value rounds to its bf16
+# neighbour: attn max abs <= 1e-3 (T = 48, K = 3 reads 1.3e-4).
+BF16_ATTN_ABS = 1e-3
+
+
+@pytest.mark.parametrize("T,K,norm,extra", [
+    (48, 3, "layernorm", 0), (64, 5, "none", 8)])
+def test_query_fold_bf16_forward_matches_jax(T, K, norm, extra):
+    jfn, jargs, targs = _case(20, T, K, norm, extra, compute="bfloat16")
+    want = np.asarray(jfn(*jargs))
+    attn, raw, ss, qq = sa.key_stream_q_fwd(*targs, "relu", 5.0, EPS,
+                                            torch.bfloat16)
+    assert attn.shape == want.shape == (T, K + 1) and qq.shape == (T, 16)
+    assert float(np.abs(attn.numpy() - want).max()) <= BF16_ATTN_ABS
+    # qq holds bf16 values (the linear layer's bf16 rounding), in fp32
+    assert torch.equal(qq, qq.to(torch.bfloat16).float())
+    np.testing.assert_allclose(attn.numpy()[5, -1], 1.0, atol=1e-6)
+    np.testing.assert_allclose(want[5, -1], 1.0, atol=1e-6)
 
 
 @pytest.mark.parametrize("T,K,extra", [(64, 6, 0), (90, 5, 4), (48, 1, 0)])

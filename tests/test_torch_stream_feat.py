@@ -5,7 +5,8 @@ on the shape lists of ``tests/test_stream_attn.py`` (overhang rows, K = 1,
 with and without LayerNorm and renormalization) plus point-feature extras
 and an all-dead ray. Inputs and weights are drawn with numpy from a seed and
 go through both packages. fp32; forward rtol 1e-5 / atol 1e-6, gradients
-rtol 3e-4 / atol 1e-6 (the JAX tests' own bounds)."""
+rtol 3e-4 / atol 1e-6 (the JAX tests' own bounds). The value forward also
+in bf16 (``BF16_FUSED_REL``)."""
 
 import numpy as np
 import pytest
@@ -149,7 +150,8 @@ def test_key_stream_backward_matches_jax(T, K, norm, extra):
                                    err_msg=f"autograd {i}")
 
 
-def _value(seed, T, K, norm, extra, d_out=24, dead_ray=None):
+def _value(seed, T, K, norm, extra, d_out=24, dead_ray=None,
+           compute="float32"):
     rng = np.random.default_rng(seed)
     ff_cfg = _ff_cfg(32, d_out, 3, norm)
     d_in = sum(3 + 3 * 2 * l for l in VLS) + extra
@@ -161,7 +163,7 @@ def _value(seed, T, K, norm, extra, d_out=24, dead_ray=None):
     attn = jnp.asarray((a / a.sum(-1, keepdims=True)).astype(np.float32))
     jfn = lambda xv, attn, walk, renorm: value_stream_fuse(
         xv, attn, *walk, ((3, 3), VLS, 1, PE[0], PE[1], extra),
-        ff_cfg.ff_act, ff_cfg.ff_last_act, renorm, 32, True, "float32")
+        ff_cfg.ff_act, ff_cfg.ff_last_act, renorm, 32, True, compute)
     walk = twalk(ff, ff_cfg, (3, 3), VLS, extra)
     return ff_cfg, jfn, (xv, attn, jwalk(ff)), tt(xv, attn) + [walk]
 
@@ -178,6 +180,29 @@ def test_value_stream_forward_matches_jax(T, K, norm, extra, renorm):
     np.testing.assert_allclose(
         sf.value_stream_fuse(*targs, renorm).numpy(), want, **FWD)
     assert float(np.abs(want[3]).max()) == 0.0           # the all-dead ray
+
+
+# bf16 compute: JAX's Pallas kernel in interpret mode with compute
+# "bfloat16" against the port's plain bf16 forward, the yardstick of the
+# bf16 wgmma kernel on the card. Both round the walk's activations and the
+# value rows to bf16 at the same points; their fp32 sums of bf16 products
+# differ in order, so now and then one activation rounds to the bf16
+# neighbour: fused relative Frobenius <= 1e-4 (these cases read <= 6.9e-8:
+# no flip), and the all-dead ray exactly 0.
+BF16_FUSED_REL = 1e-4
+
+
+@pytest.mark.parametrize("T,K,norm,extra,renorm", [
+    (48, 5, "layernorm", 0, True), (37, 3, "none", 6, False)])
+def test_value_stream_bf16_forward_matches_jax(T, K, norm, extra, renorm):
+    _, jfn, jargs, targs = _value(6, T, K, norm, extra, dead_ray=3,
+                                  compute="bfloat16")
+    want = np.asarray(jfn(*jargs, renorm))
+    got = sf.value_stream_feat_fwd(*targs, renorm, torch.bfloat16).numpy()
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert got.shape == want.shape == (T, 24)
+    assert rel <= BF16_FUSED_REL, rel
+    assert float(np.abs(got[3]).max()) == float(np.abs(want[3]).max()) == 0.0
 
 
 @pytest.mark.parametrize("T,K,extra,renorm", [

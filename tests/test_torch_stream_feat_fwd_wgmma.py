@@ -1,19 +1,22 @@
-"""The host side of the fp32 feature stream forwards on wgmma
-(``papr_key_stream_feat_f32_fwd`` / ``papr_value_stream_feat_f32_fwd``
-launch ``key_feat_fwd_wgmma_f32_kernel`` / ``value_feat_fwd_wgmma_f32_kernel``,
+"""The host side of the feature stream forwards on wgmma
+(``papr_key_stream_feat_f32_fwd`` launches ``key_feat_fwd_wgmma_f32_kernel``;
+``papr_value_stream_feat_fwd`` / ``papr_value_stream_feat_f32_fwd`` launch
+``value_feat_fwd_wgmma_kernel`` / ``value_feat_fwd_wgmma_f32_kernel``;
 ``csrc/walk_wgmma.cuh`` ``stream_fwd_wg`` with the raw feature rows as its
 token source), on the CPU.
 
-- The fp32 wrappers of ``ops/stream_feat.py`` reach the new entry points
-  with their signature's argument count: the bf16 forms' arguments before
-  the stream, then (key) the (T, K) masked scores, the packed weights, their
-  size and the grid; one launch counted as fp32.
+- The wrappers of ``ops/stream_feat.py`` reach the wgmma entry points with
+  their signature's argument count: the key's bf16 form's arguments before
+  the stream / the value's features, attn, walk, normalize and output,
+  then (key) the (T, K) masked scores, the packed weights, their size and
+  the grid; one launch counted in the compute dtype.
 - The value's output starts zeroed (each block adds its rays' sums).
 - The image they pass unpacks to the feature walk's layers (``pack_walk``'s
-  fp32 weights) and then (key) ``w_k``, in the order a k step streams them.
-- K over 64 and fp32 value rows over ``F32_FWD_MAX_ROWS`` are refused
-  before any launch.
-- The bf16 feature forwards keep their entry points and argument lists.
+  weights: fp32 hi / lo stages, or bf16 chunks) and then (key) ``w_k``, in
+  the order a k step streams them.
+- K over 64, fp32 value rows over ``F32_FWD_MAX_ROWS`` and bf16 value rows
+  over ``bf16_fwd_max_rows`` are refused before any launch.
+- The bf16 key forward keeps its WMMA entry point and argument list.
 
 Wrappers run on CPU tensors that read as CUDA tensors, against the stand-in
 library of ``tests/test_torch_wgmma.py`` (nothing runs on a card). The
@@ -29,13 +32,16 @@ import torch
 
 from papr_tpu_torch.kernels import build
 from papr_tpu_torch.ops import fused_mlp as fm
+from papr_tpu_torch.ops import stream_attn as sa
 from papr_tpu_torch.ops import stream_feat as sf
 from test_torch_stream_bwd_wgmma import _walk
 from test_torch_wgmma import _card, lib  # noqa: F401
+from test_torch_wgmma import _unpack as _unpack_bf16
 from test_torch_wgmma_f32 import _stages, _unpack
 
 P, LL = build.P, ctypes.c_longlong
 KEY, VALUE = "papr_key_stream_feat", "papr_value_stream_feat"
+F32, BF16 = torch.float32, torch.bfloat16
 
 
 def _f32_bytes(dims):
@@ -102,58 +108,73 @@ def test_key_feat_fwd_f32_reaches_the_wgmma_entry_point(lib, monkeypatch,
     assert (attn.shape, raw.shape) == ((T, K + 1), (T, K))
 
 
-@pytest.mark.parametrize("norm,grid", [(True, None), (False, 1)])
+@pytest.mark.parametrize("norm,grid,cdt", [
+    pytest.param(True, None, F32, id="True-None"),
+    pytest.param(False, 1, F32, id="False-1"),
+    pytest.param(True, None, BF16, id="True-None-bf16"),
+    pytest.param(False, 1, BF16, id="False-1-bf16")])
 def test_value_feat_fwd_f32_reaches_the_wgmma_entry_point(lib, monkeypatch,
-                                                          norm, grid):
-    """One launch counted as fp32, the fp32 image of the walk, the grid;
-    the output it is handed is zero (the kernel adds each block's sums; the
-    stand-in writes nothing)."""
+                                                          norm, grid, cdt):
+    """One launch counted in the compute dtype, the image of the walk in
+    its form (fp32 stages, or bf16 chunks), the grid; the output it is
+    handed is zero (the kernel adds each block's sums; the stand-in writes
+    nothing)."""
     _, value, (K, T, _) = _feat_args(norm)
     grid = _grid(monkeypatch, grid)
     n = (sf.value_stream_feat_f32_fwd.launches,
          sf.value_stream_feat_fwd.launches)
-    fused = sf.value_stream_feat_f32_fwd(*value, True)
+    fused = sf.value_stream_feat_fwd(*value, True, cdt)
+    f32 = cdt == F32
     assert (sf.value_stream_feat_f32_fwd.launches,
-            sf.value_stream_feat_fwd.launches) == (n[0] + 1, n[1])
+            sf.value_stream_feat_fwd.launches) == (n[0] + f32,
+                                                   n[1] + (not f32))
     (name, a), = lib.calls
-    assert name == f"{VALUE}_f32_fwd"
-    assert len(a) == len(build.SIGNATURES[f"{VALUE}_fwd"]) + 3
+    assert name == (f"{VALUE}_f32_fwd" if f32 else f"{VALUE}_fwd")
+    assert len(a) == len(build.SIGNATURES[f"{VALUE}_fwd"]) == 16
     assert tuple(a[1:4]) == (10, T, K)
     pd = _pd(value[2])
-    assert a[-3] == _f32_bytes(list(zip(pd[:-1], pd[1:])))
+    dims = list(zip(pd[:-1], pd[1:]))
+    assert a[-3] == (_f32_bytes(dims) if f32 else sum(
+        math.ceil(p_in / 64) * fm.wgmma_tile_n(p_out) * 128
+        for p_in, p_out in dims))
     assert a[-2] == (grid or math.ceil(T / 128))
     assert fused.shape == (T, 24) and fused.dtype == torch.float32
     assert not fused.any() and a[-5] == fused.data_ptr()
 
 
 @pytest.mark.parametrize("stream,widths", [
-    ("key", "narrow"), ("value", "narrow"), ("key", "Caterpillar")])
+    ("key", "narrow"), ("value", "narrow"), ("key", "Caterpillar"),
+    ("value", "narrow-bf16"), ("value", "Caterpillar-bf16")])
 def test_feat_pack_unpacks_to_the_walk_then_w_k(lib, monkeypatch, stream,
                                                 widths):
     """The image the wrapper passes (its pointer) holds, per matrix in
-    stream order, hi = tf32(w) and hi + lo = w to fp32 rounding of the
-    feature walk's layers (``pack_walk``'s, the walk's weight in the
-    corner) and then (key) w_k as (d_out, d_model), zero beyond each."""
-    if widths == "Caterpillar":          # key 81 -> 5 x 256, w_k 256 wide
+    stream order, hi = tf32(w) and hi + lo = w to fp32 rounding (bf16: the
+    bf16 matrix exactly, ``pack_walk_wgmma``'s chunks) of the feature walk's
+    layers (``pack_walk``'s, the walk's weight in the corner) and then (key)
+    w_k as (d_out, d_model), zero beyond each."""
+    bf16 = widths.endswith("-bf16")
+    if widths.startswith("Caterpillar"):  # key 81 -> 5 x 256, w_k 256 wide
         key, value, (K, T, dm) = _feat_args(True, K=2, T=10, dm=256,
                                             key_dims=(256,) * 5, L=4)
     else:
         key, value, (K, T, dm) = _feat_args(True)
     packs = []
-    real = sf.fwd_wgmma_pack_f32
+    pack = "fwd_wgmma_pack" if bf16 else "fwd_wgmma_pack_f32"
+    real = getattr(sf, pack)
 
     def recording(*args, **kwargs):
         packs.append(real(*args, **kwargs))
         return packs[-1]
-    monkeypatch.setattr(sf, "fwd_wgmma_pack_f32", recording)
+    monkeypatch.setattr(sf, pack, recording)
     if stream == "key":
         sf.key_stream_feat_f32_fwd(*key, "relu", 5.0)
         walk, wk = key[2], key[3]
     else:
-        sf.value_stream_feat_f32_fwd(*value, True)
+        sf.value_stream_feat_fwd(*value, True, BF16 if bf16 else F32)
         walk, wk = value[2], None
     (buf,), ((_, a),) = packs, lib.calls
-    assert a[-4] == buf.data_ptr() and buf.dtype == torch.float32
+    assert a[-4] == buf.data_ptr()
+    assert buf.dtype == (BF16 if bf16 else torch.float32)
     pd = _pd(walk)
     want = []
     for w, (p_in, p_out) in zip(walk.ws, zip(pd[:-1], pd[1:])):
@@ -165,6 +186,13 @@ def test_feat_pack_unpacks_to_the_walk_then_w_k(lib, monkeypatch, stream,
         m[:wk.shape[1], :dm] = wk.T
         want.append(m)
     order = [tuple(m.shape) for m in want]
+    if bf16:
+        assert 2 * buf.numel() == a[-3] == sum(
+            math.ceil(p_in / 64) * fm.wgmma_tile_n(p_out) * 128
+            for p_in, p_out in order)
+        for got, m in zip(_unpack_bf16(buf, order), want):
+            assert torch.equal(got, m.to(BF16))
+        return
     assert 4 * buf.numel() == a[-3] == _f32_bytes(order)
     for st, m, (p_in, p_out) in zip(_stages(buf, order), want, order):
         hi, lo, lg, inside = _unpack(st, p_in, p_out)
@@ -190,7 +218,9 @@ def test_more_than_64_slots_are_refused(lib, cdt):
 def test_f32_value_rows_over_the_limit_are_refused(lib, width, refused):
     """The fp32 value forward takes value rows up to ``F32_FWD_MAX_ROWS``
     (96) wide and refuses wider ones before any launch; the bf16 form takes
-    them."""
+    them up to ``bf16_fwd_max_rows`` of the walk (the shared-memory layout
+    of ``fill_stream_fwd_wg`` computed on the host: 206-210 for these
+    walks), so 96 and 112 and not 256."""
     _, value, _ = _feat_args(True, width=width)
     if refused:
         with pytest.raises(NotImplementedError, match=f"{width} > 96"):
@@ -200,24 +230,34 @@ def test_f32_value_rows_over_the_limit_are_refused(lib, width, refused):
         sf.value_stream_feat_fwd(*value, True, torch.float32)
         assert [c[0] for c in lib.calls] == [f"{VALUE}_f32_fwd"]
     lib.calls.clear()
-    sf.value_stream_feat_fwd(*value, True, torch.bfloat16)
-    assert [c[0] for c in lib.calls] == [f"{VALUE}_fwd"]
+    lim = sa.bf16_fwd_max_rows(_pd(value[2]))
+    assert 206 <= lim <= 210
+    if width > lim:
+        with pytest.raises(NotImplementedError, match=f"{width} > {lim}"):
+            sf.value_stream_feat_fwd(*value, True, torch.bfloat16)
+        assert not lib.calls
+    else:
+        sf.value_stream_feat_fwd(*value, True, torch.bfloat16)
+        assert [c[0] for c in lib.calls] == [f"{VALUE}_fwd"]
 
 
 def test_bf16_feature_forwards_keep_their_entry_points(lib):
-    """The bf16 forwards stay on the WMMA kernels: their entry points, their
-    argument lists (no wgmma tail), their counters; the fp32 forms' lists
-    are theirs before the stream plus the tail."""
+    """The bf16 value forward reaches ``papr_value_stream_feat_fwd`` with
+    the fp32 form's argument list (its packed image, the image's bytes and
+    the grid before the stream), one call counted as one bf16 launch; the
+    bf16 key forward keeps its WMMA entry point and argument list (no wgmma
+    tail); the backwards keep one WMMA argument list for both forms."""
     key, value, (K, T, _) = _feat_args(True)
     n = (sf.key_stream_feat_fwd.launches, sf.value_stream_feat_fwd.launches,
          sf.key_stream_feat_f32_fwd.launches,
          sf.value_stream_feat_f32_fwd.launches)
     attn, raw = sf.key_stream_feat_fwd(*key, "relu", 5.0, torch.bfloat16)
-    sf.value_stream_feat_fwd(*value, True, torch.bfloat16)
+    fused = sf.value_stream_feat_fwd(*value, True, torch.bfloat16)
     assert [c[0] for c in lib.calls] == [f"{KEY}_fwd", f"{VALUE}_fwd"]
     (_, ka), (_, va) = lib.calls
-    assert (len(ka), len(va)) == (22, 13)
+    assert (len(ka), len(va)) == (22, 16)
     assert (ka[-3], ka[-2]) == (attn.data_ptr(), raw.data_ptr())
+    assert va[11] == fused.data_ptr() and va[-2] == math.ceil(T / 128)
     assert (sf.key_stream_feat_fwd.launches, sf.value_stream_feat_fwd.launches,
             sf.key_stream_feat_f32_fwd.launches,
             sf.value_stream_feat_f32_fwd.launches) == (n[0] + 1, n[1] + 1,
@@ -225,8 +265,9 @@ def test_bf16_feature_forwards_keep_their_entry_points(lib):
     sig = build.SIGNATURES
     assert sig[f"{KEY}_f32_fwd"] == sig[f"{KEY}_fwd"][:-1] + [P, P, LL,
                                                               build.I, P]
-    assert sig[f"{VALUE}_f32_fwd"] == sig[f"{VALUE}_fwd"][:-1] + [P, LL,
-                                                                  build.I, P]
+    assert sig[f"{VALUE}_fwd"] == sig[f"{VALUE}_f32_fwd"] == (
+        [P, build.I, build.I, build.I, P] + [P] * 5 + [build.I, P]
+        + [P, LL, build.I, P])
     # The backwards keep one argument list for both forms.
     for stem in (KEY, VALUE):
         assert sig[f"{stem}_f32_bwd"] == sig[f"{stem}_bwd"]

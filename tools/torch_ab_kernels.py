@@ -150,8 +150,8 @@ def main() -> None:
                                        float(cfg.eps), torch.float32)),
           flush=True)
     qwalk = cs.query_walk(params, cfg)
-    # Row 7 (bf16, the folded key stream on its WMMA kernels), from the
-    # plain forward's raw dots and scores.
+    # Row 7 (bf16: the forward on wgmma, the backward on its WMMA kernel),
+    # the backward from the plain forward's raw dots and scores.
     qargs = (rec, rayo_f, rays, rayd_f.contiguous(), kwalk, a["w_k"]["w"],
              a["w_k"]["bias"], qwalk, a["w_q"]["w"], a["w_q"]["bias"])
     _, raw_q, ss_q, qq_q = sa.key_stream_q_plain(*qargs, *kopts)

@@ -15,15 +15,77 @@ on the tree's ``F32_MODES`` of those names, e.g. ``stream``: a step against
 the plain fp32 step, 1 + 5 timed steps with their profile, a serving and a
 tiled frame against ``auto``'s). A failed comparison prints ``FAILS:`` and
 the phase goes on.
+
+    python tools/torch_phase8.py [<tree>] --bf16-frames [--mode NAME ...]
+
+With ``--bf16-frames`` the bf16 frames of chip_smoke's phase-6 modes instead
+(the tree's ``STREAM_MODES``: ``stream``, ``streamrec + query_fold`` and
+``streamrec``, or those named): on the flagship model, per mode, an 800x800
+serving frame (one tile) and the frame at the config's 100x100 test tiles,
+each timed on the host clock after a warm-up (three readings), then one
+profiled serving frame: its device time by kernel name and idle share.
+The measuring code is this tool's, so a parent / change / change / parent
+run reads both trees alike.
 """
 
 import os
 import sys
 
 
+def bf16_frames(cs, modes, n: int = 3) -> None:
+    """The bf16 serving and tiled frames of the phase-6 modes (above)."""
+    import time
+
+    import torch
+    from papr_tpu_torch.ops.geometry import get_rays_np
+    from papr_tpu_torch.train.step import render_frames, render_full_image
+
+    dev = torch.device("cuda", 0)
+    c2w = cs.orbit(0.0)
+    fr_o, fr_d = get_rays_np(cs.H, cs.W, cs.FOCAL, cs.FOCAL, c2w[None])
+    for mode, (tpu, _, _) in cs.STREAM_MODES.items():
+        if modes and mode not in modes:
+            continue
+        cfg = cs.flagship_cfg(**tpu)
+        params, state = cs.build_model(cfg, dev)
+        th, tw = int(cfg.test.max_height), int(cfg.test.max_width)
+        frames = {
+            "serving": lambda: next(render_frames(
+                params, state, cfg, [c2w], cs.FOCAL, cs.FOCAL, cs.H, cs.W,
+                cs.H, cs.W)),
+            f"tiled {th}x{tw}": lambda: render_full_image(
+                params, state, cfg, fr_o, fr_d, th, tw, rgb_only=True,
+                rgb_uint8=True)["rgb"][0]}
+        with torch.no_grad():
+            for what, fn in frames.items():
+                fn()
+                torch.cuda.synchronize()
+                ms = []
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                print(f"bf16 frame ({mode}, {what}): "
+                      + ", ".join(f"{m:.1f}" for m in ms) + " ms", flush=True)
+            wall, idle, spans = cs.device_profile(frames["serving"])
+        by = {}
+        for s0, e0, name in spans:
+            name = name.split("(")[0].split("<")[0].replace("void ", "")
+            by[name] = by.get(name, 0.0) + (e0 - s0) / 1e3
+        print(f"bf16 frame ({mode}, serving, profiled): {wall:.1f} ms, idle "
+              f"share {idle:.4f}; device ms by kernel: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                  by.items(), key=lambda x: -x[1])[:8]), flush=True)
+        del params, state
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     args = sys.argv[1:]
     modes = [args[i + 1] for i, a in enumerate(args[:-1]) if a == "--mode"]
+    bf16 = "--bf16-frames" in args
+    args = [a for a in args if a != "--bf16-frames"]
     trees = [a for i, a in enumerate(args)
              if a != "--mode" and (i == 0 or args[i - 1] != "--mode")]
     tree = os.path.abspath(trees[0] if trees else os.path.dirname(
@@ -37,6 +99,9 @@ def main() -> None:
     cs.fail = lambda m: print("FAILS:", m, flush=True)
     build.load()
     print(f"== tree {tree}", flush=True)
+    if bf16:
+        bf16_frames(cs, modes)
+        return
     f32 = cs.drive_fp32_path(torch.device("cuda", 0))
     if modes:
         cs.F32_MODES = tuple(m for m in cs.F32_MODES if m[0] in modes)

@@ -41,8 +41,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (name, the line to replace, its replacement); the first cases are the sound
 # sources. Cases named "topk" patch topk_stream.cu, "embedder bwd"
 # embed_wgmma.cuh, "encoding" walk.cuh, "stream feat key" key_stream_feat.cu,
-# "stream feat value" value_stream_feat.cu, "stream q walk" key_stream.cuh
-# (the folded key stream's WMMA walk), "stream q" key_stream_q.cu,
+# "stream feat value" value_stream_feat.cu, "stream q" key_stream_q.cu (the
+# bf16 folded key stream's WMMA backward), "bf16 keyq wgmma head"
+# embed_wgmma.cuh (row 7's bf16 query head), "bf16 keyq wgmma walk" and
+# "bf16 feat fwd wgmma" walk_wgmma.cuh,
 # "stream shared" or "linear_bf16" stream_common.cuh, "int8 walk" walk.cuh,
 # "int8 bench" int8_walk_bench.cu, "int8 value" value_stream.cu, "int8
 # attend" attend_eval.cu, "int8 K3 wgmma pack" ops/fused_mlp.py (the int8
@@ -123,6 +125,13 @@ def _f32_gemm_own_acc(name: str) -> str:
 # The fp32 stream forwards' value fuse (walk_wgmma.cuh stream_fwd_wg).
 _F32_FWD_FUSE = ("              if (c1 < cout) arow[c1] += a * "
                  "act_round<Op>(acc[i]);")
+# The bf16 query head's two stores (embed_wgmma.cuh wg_head_rows, bf16).
+_HEAD_V0 = "        const float v0 = linear_bf16(acc[4 * j + 2 * h], hb[c]);\n"
+_HEAD_V1 = ("        if (pairs) {\n"
+            "          const float v1 = linear_bf16(acc[4 * j + 2 * h + 1], "
+            "hb[c + 1]);\n")
+
+
 MUTS = [
     ("embed wgmma: the second weight chunk read from the first one's stage "
      "(a stale stage)",
@@ -185,18 +194,6 @@ MUTS = [
      "      A[i] = pack_bf16(park[(2 * i) * 128 + t], park[(2 * i + 1) * 128 + t]);",
      "      A[i] = (__float_as_uint(park[(2 * i) * 128 + t]) >> 16) |\n"
      "             (__float_as_uint(park[(2 * i + 1) * 128 + t]) & 0xffff0000u);"),
-    ("stream q walk fwd: y_k truncated to bf16 (toward zero) before w_k "
-     "instead of rounded (a rounding point of the folded key stream, held "
-     "against the unfolded key forward)",
-     "    else run_walk(S, kd, true);\n",
-     "    else run_walk(S, kd, kF32<Op>);\n"
-     "    if constexpr (!kF32<Op>) if (!kq) {\n"
-     "      const int pd = kd.pd[kd.n];\n"
-     "      for (int i = threadIdx.x; i < kRows * pd; i += kThreads)\n"
-     "        S.A[0][(i / pd) * kALd + i % pd] =\n"
-     "            __float2bfloat16_rz(C[(i / pd) * kCLd + i % pd]);\n"
-     "      __syncthreads();\n"
-     "    }\n"),
     ("bwd wgmma: dz truncated to bf16 (toward zero) before the dX product "
      "and the stash (a rounding point)",
      "  round_pass(acc, w);\n  stash_w(w, dz, srow0, width, c0);",
@@ -491,6 +488,30 @@ MUTS = [
      "its own, row 5f's is this)",
      "    return make_float2(gr[9], gr[10]);", "    return make_float2(gr[9], "
      "1.f);", ("f32_fold",)),
+    # The bf16 rows 7 / 9 forwards on wgmma: read by phase 2's rows 7 / 9
+    # lines and their bf16 wgmma cuda cases (and row 7's WMMA-era case).
+    ("bf16 keyq wgmma head: the bias added in fp32, unrounded (qq = "
+     "bf16(eq w_q) + b_q, where JAX's bf16 _linear adds the bf16 bias in bf16)",
+     _HEAD_V0 + _HEAD_V1,
+     _HEAD_V0.replace("linear_bf16(acc[4 * j + 2 * h], hb[c])",
+                      "bf16_round(acc[4 * j + 2 * h]) + hb[c]")
+     + _HEAD_V1.replace("linear_bf16(acc[4 * j + 2 * h + 1], hb[c + 1])",
+                        "bf16_round(acc[4 * j + 2 * h + 1]) + hb[c + 1]"),
+     ("bf16_fold",)),
+    ("bf16 keyq wgmma head: the second pass's columns never written (qq's "
+     "columns 128.. left as allocated; d_model 256)",
+     "      if (row >= R) continue;\n      float* yrow",
+     "      if (row >= R || pass > 0) continue;\n      float* yrow",
+     ("bf16_fold",)),
+    ("bf16 keyq wgmma walk: alive ignored (RecTok: row 5's mask, which row "
+     "7 runs)",
+     "    return make_float2(gr[9], gr[10]);", "    return make_float2(gr[9], "
+     "1.f);", ("bf16_fold",)),
+    ("bf16 feat fwd wgmma: value rows left unrounded before the fuse (row "
+     "6's too)",
+     "              if (c1 < cout) arow[c1] += a * act_round<Op>(acc[i]);",
+     "              if (c1 < cout) arow[c1] += a * acc[i];",
+     ("bf16_feat_fwd",)),
     ("fp32 walk: single-pass TF32 (the lo terms dropped)",
      "  nvcuda::wmma::mma_sync(t, a_lo, b_hi, t);\n"
      "  nvcuda::wmma::mma_sync(t, a_hi, b_lo, t);\n", ""),
@@ -624,11 +645,6 @@ MUTS = [
      "    const float g = t < T && c < dm ? dqq[(size_t)t * dm + c] : 0.f;",
      "    const float g = t < T && c < dm ? 1.05f * dqq[(size_t)t * dm + c] "
      ": 0.f;"),
-    ("stream q fwd: b_q left out",
-     "    if (t < T) qq[(size_t)t * dm + c] = linear_c<Op>(S.C[r * kCLd + c], "
-     "bq[c]);",
-     "    if (t < T) qq[(size_t)t * dm + c] = linear_c<Op>(S.C[r * kCLd + c], "
-     "0.f);"),
     ("stream shared bwd: dqq keeps the last slot only (the query backward "
      "sees one k, not their sum)",
      "      dqq[(size_t)t * dm + c] += draw[r] * kk;",
@@ -851,6 +867,16 @@ TARGETS = {
     # NaN-filled shared memory, the kernel the profiler names.
     "int8_k3": (("phase 2 attend_eval_i8",),
                 "attend_eval_i8 or int8_walks_with_fp32"),
+    # compare_train_kernels, read for the bf16 rows 7 / 9 forwards on wgmma
+    # (row 7 against the plain version and bit for bit against row 5 on its
+    # qq), and their cuda cases (dead points, split grids, d_model 40 / 256,
+    # NaN-filled shared memory).
+    "bf16_fold": (("phase 2 key_stream_q_fwd",),
+                  "key_stream_q_fwd_wgmma or bf16_rows_7_9 or "
+                  "key_stream_q_kernels"),
+    "bf16_feat_fwd": (("phase 2 value_stream_feat_fwd",),
+                      "value_stream_feat_fwd_wgmma or bf16_rows_7_9 or "
+                      "value_stream_feat_kernels"),
 }
 # The comparison function each target runs, and the cuda test lines shown.
 FN = {"f32_stream_bwd": "compare_f32_streams",
@@ -861,7 +887,9 @@ FN = {"f32_stream_bwd": "compare_f32_streams",
       "f32_embed": "compare_f32_embed",
       "f32_feat_fwd": "compare_f32_feat",
       "f32_fold": "compare_f32_fold",
-      "int8_k3": "compare_int8_k3"}
+      "int8_k3": "compare_int8_k3",
+      "bf16_fold": "compare_train_kernels",
+      "bf16_feat_fwd": "compare_train_kernels"}
 TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                                        "value_stream_i8", "int8_walk_bench"),
               "compare_f32_kernels": ("f32", "key_stream_f32_bwd wgmma",
@@ -881,7 +909,10 @@ TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                                "value_stream_feat_f32_fwd"),
               "f32_fold": ("key_stream_q_f32",),
               "int8_k3": ("attend_eval_i8", "key_stream_i8_f32",
-                          "value_stream_i8_f32")}
+                          "value_stream_i8_f32"),
+              "bf16_fold": ("key_stream_q_fwd wgmma", "papr_key_stream_q"),
+              "bf16_feat_fwd": ("value_stream_feat_fwd wgmma",
+                                "papr_value_stream_feat")}
 
 
 def target_of(name: str) -> str:
@@ -912,7 +943,11 @@ def main() -> None:
 
 
 def source_of(name: str) -> str:
-    return next((f for word, f in (("int8 K3 wgmma pack",
+    return next((f for word, f in (("bf16 keyq wgmma head",
+                                    "embed_wgmma.cuh"),
+                                   ("bf16 keyq wgmma walk", "walk_wgmma.cuh"),
+                                   ("bf16 feat fwd wgmma", "walk_wgmma.cuh"),
+                                   ("int8 K3 wgmma pack",
                                     "ops/fused_mlp.py"),
                                    ("int8 K3 wgmma walk", "walk_wgmma.cuh"),
                                    ("int8 K3 wgmma quantize", "walk.cuh"),

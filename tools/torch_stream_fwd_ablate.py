@@ -23,9 +23,13 @@ With ``--fold`` the folded key stream's forward (``tpu.query_fold``,
 ``papr_key_stream_q_f32_fwd``) on ``torch_stream_bwd_ablate.fold_inputs``
 (the record forwards' shapes and the query walk), timed whole and split
 only: the kernels alone (the WMMA ``keyq_fwd_kernel`` of an earlier tree,
-or the query's ``query_head_fwd_wgmma_f32_kernel``, the key's
+or the query's ``query_head_fwd_wgmma_kernel`` /
+``query_head_fwd_wgmma_f32_kernel``, the key's ``key_fwd_wgmma_kernel`` /
 ``key_fwd_wgmma_f32_kernel`` and the softmax kernel), each kernel's span;
-no variants.
+no variants. ``--feat`` without ``--f32`` times the bf16 feature forwards
+whole and split (the value's on wgmma, ``value_feat_fwd_wgmma_kernel``, or
+the WMMA ``valuef_fwd_kernel`` of an earlier tree; the key's WMMA
+``keyf_fwd_kernel``); no variants.
 
 ``--tree`` takes the sources and the package from another checkout (for
 example an unpacked parent commit); the variants follow that tree's design
@@ -324,8 +328,8 @@ def main() -> None:
         units = ("key_stream", "value_stream")
         fixed = ("wgrad",)
     if not variants:
-        print("no variants: this tree's feature forwards are the WMMA "
-              "kernels", flush=True)
+        print("no variants: the variants are the fp32 feature forwards' "
+              "on wgmma", flush=True)
         return
     nvcc = build._nvcc()
     root = tempfile.mkdtemp(prefix="stream_fwd_ablate_")
