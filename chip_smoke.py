@@ -276,6 +276,12 @@ BWD_MEDIAN_REL = {"key_stream_bwd": (1e-2, 2.5e-2),
 # 1.0e-3 (PERF.md, Findings).
 STREAM_ATTN_ABS = 5e-4
 FEAT_RAW_REL = 2e-3
+# The kernel checks of rows 7 / 7f (the record's alive lane) and 8 / 8f /
+# 10f (the (T, K) alive mask) run on a seeded share of dead slots (alive = 0
+# on single (t, k), as a pruned cloud leaves them; the flagship's and
+# Caterpillar's seeded clouds have none, so a kernel that ignored alive read
+# sound there). The frames and steps keep the model's own mask.
+DEAD_SHARE = 0.03
 FEAT_FUSED_REL = 3e-4
 FEAT_BWD_REL = 2.5e-2
 # One 32x32 training step, bf16 kernel path vs fp32 plain path: loss and
@@ -342,12 +348,15 @@ F32_BWD_WMMA_MS = {"key_stream_f32_bwd": (53.692, 47.031),
 # (tools/torch_stream_fwd_ablate.py --f32 on that tree; the feature
 # streams' with --feat --f32; PERF.md §6). The folded key stream's (row 7f,
 # both directions): phase 8's call on that tree, and as alone its kernel's
-# span in phase 8's profiled query_fold step.
+# span in phase 8's profiled query_fold step. The fused scores' forward (row
+# 10f): --scores on that tree, the means of its four readings in one parent
+# / change / change / parent call.
 F32_FWD_WMMA_MS = {"key_stream_f32_fwd": (18.304, 17.861),
                    "key_stream_q_f32_fwd": (19.931, 19.476),
                    "value_stream_f32_fwd": (21.857, 21.403),
                    "key_stream_feat_f32_fwd": (18.285, 18.017),
-                   "value_stream_feat_f32_fwd": (21.713, 21.149)}
+                   "value_stream_feat_f32_fwd": (21.713, 21.149),
+                   "fused_scores_f32_fwd": (3.868, 3.627)}
 # The fp32 embedder (rows 2f / 3f) on walk.cuh / walk_bwd.cuh's WMMA walk
 # before its wgmma redesign, the same readings at phase 8's shapes and
 # Caterpillar's widths (tools/torch_embed_ablate.py --f32 on that tree,
@@ -370,7 +379,8 @@ F32_EMBED_WMMA_MS = {"fused_mlp_f32": (13.523, 13.134),
 # widths); the folded key stream's and the feature value stream's forwards
 # (rows 7, 9), the means of the WMMA tree's readings in one parent / change
 # / change / parent call (tools/torch_stream_fwd_ablate.py --fold and --feat
-# --split-only --tree).
+# --split-only --tree); row 8's forward the same way (--feat --split-only
+# --tree).
 WMMA_MS = {"fused_mlp": (4.579, 4.056), "fused_mlp_bwd": (2.003, 0.602),
            "fused_mlp key stack": (3.942, 3.490),
            "fused_mlp value stack": (5.103, 4.489),
@@ -381,7 +391,8 @@ WMMA_MS = {"fused_mlp": (4.579, 4.056), "fused_mlp_bwd": (2.003, 0.602),
                   "key_stream_bwd": (24.596, 18.738),
                   "value_stream_bwd": (23.592, 16.277),
                   "key_stream_q_fwd": (6.645, 5.929),
-                  "value_stream_feat_fwd": (6.251, 5.880)}
+                  "value_stream_feat_fwd": (6.251, 5.880),
+                  "key_stream_feat_fwd": (6.075, 5.560)}
 # Two-kernel eval frame against the one-shot kernel's frame.
 EVAL_TWO_MIN_CLOSE = 0.999
 # Tiled frames under ``stream`` and ``streamrec`` + ``query_fold`` against
@@ -616,6 +627,23 @@ def walk_bytes(*walks) -> int:
 def rel_fro(a, b) -> float:
     a, b = a.float(), b.float()
     return float(((a - b).norm() / b.norm().clamp_min(1e-30)).item())
+
+
+def with_dead_slots(alive, seed: int):
+    """alive (T, K) with a seeded DEAD_SHARE of its slots set to 0."""
+    import torch
+    gen = torch.Generator(device=alive.device).manual_seed(seed)
+    keep = torch.rand(alive.shape, generator=gen,
+                      device=alive.device) >= DEAD_SHARE
+    return torch.where(keep, alive, torch.zeros_like(alive))
+
+
+def rec_with_dead_slots(rec, seed: int):
+    """A copy of the k-major record (K, T, w) whose alive lane (4) has a
+    seeded DEAD_SHARE of its (t, k) slots set to 0."""
+    out = rec.clone()
+    out[..., 4] = with_dead_slots(rec[..., 4].T, seed).T
+    return out
 
 
 def eval_block_args(params, state, cfg, device):
@@ -1533,6 +1561,7 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
                      "max_rel_err": worst, "ms": ms, "plain_ms": p_ms, **work}
         if alone is not None:
             out[name]["kernel_alone_ms"] = alone
+            out[name]["kernel_names"] = ran
         return g
 
     kargs = (rec, rayo_f, rays, qq, kwalk, wk, bk)
@@ -1608,7 +1637,11 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     # The key stream with the query chain folded in (tpu.query_fold): the
     # raw ray directions go in; qq comes out as a residual.
     a = params["attn"]
-    qargs = (rec, rayo_f, rays, rayd_f.contiguous(), kwalk, wk, bk, qwalk,
+    rec_q = rec_with_dead_slots(rec, 21)
+    print(f"phase 2 dead slots in the kernel checks of rows 7 and 8: "
+          f"{float((rec_q[..., 4] < 0.5).float().mean()):.4f} of (T, K) "
+          f"(DEAD_SHARE {DEAD_SHARE})", flush=True)
+    qargs = (rec_q, rayo_f, rays, rayd_f.contiguous(), kwalk, wk, bk, qwalk,
              a["w_q"]["w"], a["w_q"]["bias"])
     q_flops = T * (k * walk_flops(kwalk, wk) + walk_flops(qwalk, a["w_q"]["w"]))
     q_bytes = nbytes(rec, rayo_f, rays, rayd_f) + walk_bytes(kwalk, qwalk)
@@ -1626,7 +1659,7 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
     # On its own qq the folded forward runs the unfolded forward's kernels
     # (the query head's kernel, then key_stream.cu's entry point): attn, raw
     # and ss bit for bit.
-    unfolded = sa.key_stream_fwd(rec, rayo_f, rays, qq_q, kwalk, wk, bk,
+    unfolded = sa.key_stream_fwd(rec_q, rayo_f, rays, qq_q, kwalk, wk, bk,
                                  *kopts)
     same = [torch.equal(a, b) for a, b in zip((attn_q, raw_q, ss_q),
                                               unfolded)]
@@ -1646,16 +1679,18 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
                                "dW_q", "db_q"] + walk_labels(kwalk)
         + ["q." + l for l in walk_labels(qwalk)],
         q_bytes + nbytes(qq_q, raw_q, ss_q, dattn), 3 * q_flops)
-    del rec, record, qargs
+    del rec, rec_q, record, qargs
     torch.cuda.empty_cache()
 
     # The streams on raw feature tensors (tpu.fused_attn: stream), on the
-    # inputs the model's own head builds: xk (K, T, 9), xv (K, T, 70).
+    # inputs the model's own head builds: xk (K, T, 9), xv (K, T, 70); the
+    # alive mask with its seeded dead slots.
     with torch.no_grad():
         xk, kwalk_f, xv, vwalk_f, influ, sel_alive, _ = _stream_inputs(
             params, cfg, meta, idx, rayo, rayd, alive, eps)
     xk, xv = xk.contiguous(), xv.contiguous()
-    influ, sel_alive = influ.contiguous(), sel_alive.contiguous()
+    influ = influ.contiguous()
+    sel_alive = with_dead_slots(sel_alive.contiguous(), 22)
     fargs = (xk, qq, kwalk_f, wk, bk, influ, sel_alive)
     fopts = (score_act, bkg, cdt)
     # dx by column group: the key positions (returned here, detached by the
@@ -1668,7 +1703,8 @@ def compare_train_kernels(params, state, cfg, device, n_time: int = 3) -> dict:
         lambda: list(sf.key_stream_feat_plain(*fargs, *fopts)), FEAT_RAW_REL,
         ["attn", "raw"],
         nbytes(xk, qq, influ, sel_alive) + walk_bytes(kwalk_f),
-        T * k * walk_flops(kwalk_f, wk), fwd_tol=STREAM_ATTN_ABS)
+        T * k * walk_flops(kwalk_f, wk), fwd_tol=STREAM_ATTN_ABS,
+        span=("key_feat_fwd_", "key_fwd_softmax"))
     relu_f = raw_f > 0
     record_case(
         "key_stream_feat_bwd", "papr_tpu_torch/csrc/key_stream_feat.cu",
@@ -2028,27 +2064,28 @@ STREAM_MODES = {
 # and tiled frames must run, and the WMMA kernel of an earlier tree they must
 # not.
 BF16_FWD_KERNELS = {
-    "stream": ("value_feat_fwd_wgmma_kernel", "valuef_fwd_kernel"),
-    "streamrec + query_fold": ("query_head_fwd_wgmma_kernel",
-                               "keyq_fwd_kernel")}
+    "stream": (("value_feat_fwd_wgmma_kernel", "valuef_fwd_kernel"),
+               ("key_feat_fwd_wgmma_kernel", "keyf_fwd_kernel")),
+    "streamrec + query_fold": (("query_head_fwd_wgmma_kernel",
+                                "keyq_fwd_kernel"),)}
 
 
 def check_fwd_kernels(what, mode, spans) -> None:
-    """Phase 6: the profiled ``spans`` of ``what`` under ``mode`` ran its
-    bf16 forward's wgmma kernel and no WMMA one (BF16_FWD_KERNELS)."""
+    """Phase 6: the profiled ``spans`` of ``what`` under ``mode`` ran each of
+    its bf16 forwards' wgmma kernels and no WMMA one (BF16_FWD_KERNELS)."""
     if mode not in BF16_FWD_KERNELS:
         return
-    need, gone = BF16_FWD_KERNELS[mode]
     if not spans:
         print(f"phase 6 {what} ({mode}) kernels: not measured (no device "
               "time in the profile)", flush=True)
         return
     names = {n.split("(")[0].replace("void ", "") for _, _, n in spans}
-    ran, old = (any(k in n for n in names) for k in (need, gone))
-    print(f"phase 6 {what} ({mode}) kernels: {need} ran {ran} (need True), "
-          f"{gone} ran {old} (need False)", flush=True)
-    if old or not ran:
-        fail(f"the bf16 {what} under {mode} did not run {need} alone")
+    for need, gone in BF16_FWD_KERNELS[mode]:
+        ran, old = (any(k in n for n in names) for k in (need, gone))
+        print(f"phase 6 {what} ({mode}) kernels: {need} ran {ran} (need "
+              f"True), {gone} ran {old} (need False)", flush=True)
+        if old or not ran:
+            fail(f"the bf16 {what} under {mode} did not run {need} alone")
 
 
 def drive_stream_modes(device) -> dict:
@@ -3093,6 +3130,9 @@ TRAIN_STAGES = (("selection (cull kernel)", "cull_topk"),
                 ("embedder fwd", "fused_mlp_fwd_"),
                 ("embedder bwd", "fused_mlp_bwd_"),
                 ("fused scores fwd", "fused_scores_fwd_kernel"),
+                ("fused scores fwd (query head)",
+                 "fused_scores_query_wgmma"),
+                ("fused scores fwd", "fused_scores_fwd_wgmma"),
                 ("fused scores bwd", "fused_scores_bwd_kernel"),
                 ("key softmax", "key_fwd_softmax"),
                 ("key stream fwd", "key_fwd_"),
@@ -3423,6 +3463,98 @@ def tf32_reading(fn, want) -> float:
     return rel_fro(got, want)
 
 
+QNAN = 0x7FC00000
+_SMEM_AID = []
+
+
+def smem_aid():
+    """``tests/smem_fill.cu``, a check aid and no part of the port's library
+    (it fills every SM's shared memory with one 32-bit pattern and reads
+    back how much of it the next kernel finds), built alone by nvcc into
+    the library's build directory on first use and loaded."""
+    import ctypes
+    import os
+    from papr_tpu_torch.kernels import build
+    if not _SMEM_AID:
+        src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "smem_fill.cu")
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        so = os.path.join(build.BUILD_DIR, f"libsmem_fill_{os.getpid()}.so")
+        r = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
+                            "-o", so, src], capture_output=True, text=True)
+        if r.returncode:
+            fail(f"nvcc of tests/smem_fill.cu: {(r.stdout + r.stderr)[-2000:]}")
+        lib = ctypes.CDLL(so)
+        I, P = ctypes.c_int, ctypes.c_void_p
+        for name, args in (("papr_smem_fill", [I, P]),
+                           ("papr_smem_probe", [I, P, P]),
+                           ("papr_smem_words", [])):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+        _SMEM_AID.append(lib)
+    return _SMEM_AID[0]
+
+
+def compare_scores_nan_smem(device) -> bool:
+    """Phase 8, row 10f's forward on narrow heads (T = 1,000, K = 20, Dk
+    200, Dq 136, d_model 96: its staged rows end inside a 32-deep chunk, so
+    the products read columns 200..223 and 136..159 of its rows in shared
+    memory) launched right after every SM's shared memory is set to NaN
+    (``smem_aid``, on the launch's stream, just before the entry point; the
+    probe checks the fill reached the launch whole): the staging writes
+    zeros there, so attn and raw hold at the fp32 bounds against the plain
+    fp32 forward; a staging that left them unwritten reads NaN."""
+    import torch
+    from papr_tpu_torch.kernels import build
+    from papr_tpu_torch.ops import fused_attn as fa
+    aid = smem_aid()
+    T, K, Dk, Dq, dm = 1000, 20, 200, 136, 96
+    gen = torch.Generator(device=device).manual_seed(84)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    alive = with_dead_slots(torch.ones(T, K, device=device), 85)
+    args = (randn(K, T, Dk), randn(T, Dq), randn(dm, Dk) / Dk ** 0.5,
+            randn(dm) * 0.1, randn(dm, Dq) / Dq ** 0.5, randn(dm) * 0.1,
+            randn(T, K) * 0.5 + 1.0, alive)
+    words = aid.papr_smem_words()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    counts = torch.zeros(sms, dtype=torch.int32, device=device)
+    lib, load = build.load(), build.load
+
+    class Poisoned:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if name != "papr_fused_scores_f32_fwd":
+                return fn
+
+            def launch(*a):
+                build.check(aid.papr_smem_fill(QNAN, a[-1]), "papr_smem_fill")
+                build.check(aid.papr_smem_probe(QNAN, counts.data_ptr(),
+                                                a[-1]), "papr_smem_probe")
+                return fn(*a)
+            return launch
+    build.load = lambda: Poisoned()
+    try:
+        attn, raw = fa.fused_scores_f32_fwd(*args, "relu", 5.0,
+                                            with_raw=True)
+        torch.cuda.synchronize()
+    finally:
+        build.load = load
+    attn_p, raw_p = fa.fused_scores_plain(*args, "relu", 5.0,
+                                          torch.float32)
+    whole = words > 0 and bool((counts == words).all())
+    finite = bool(torch.isfinite(attn).all() and torch.isfinite(raw).all())
+    a_abs = float((attn - attn_p).abs().max())
+    r_rel = rel_fro(raw, raw_p)
+    ok = whole and finite and a_abs <= F32_ATTN_ABS and r_rel <= F32_FWD_REL
+    print(f"phase 8 fused_scores_f32_fwd after NaN shared memory: T={T} "
+          f"K={K} Dk={Dk} Dq={Dq} dm={dm}: the fill found whole on each of "
+          f"{sms} SMs {whole} ({int(counts.min())}-{int(counts.max())} of "
+          f"{words} words); finite {finite}; attn max abs {a_abs:.3e} (need "
+          f"<= {F32_ATTN_ABS}), raw rel Frobenius {r_rel:.3e} (need <= "
+          f"{F32_FWD_REL})", flush=True)
+    return ok
+
+
 def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
                         n_time: int = 3) -> list:
     """Phase 8: each fp32 kernel against its plain fp32 version at
@@ -3546,6 +3678,7 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
                  "max_rel_err": worst, "ms": ms, "plain_ms": p_ms, **work}
         if alone is not None:
             entry["kernel_alone_ms"] = alone
+            entry["kernel_names"] = ran
         if stack_of is None:
             results.append(entry)
         else:
@@ -3688,7 +3821,11 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
     # never rounded); backward held on the rays whose key and query relus
     # keep their margin.
     a = params["attn"]
-    qargs = (rec, rayo_f, rays, rayd_f.contiguous(), kwalk, wk, bk, qwalk,
+    rec_q = rec_with_dead_slots(rec, 81)
+    print(f"phase 8 dead slots in the kernel checks of rows 7f, 8f and 10f: "
+          f"{float((rec_q[..., 4] < 0.5).float().mean()):.4f} of (T, K) "
+          f"(DEAD_SHARE {DEAD_SHARE})", flush=True)
+    qargs = (rec_q, rayo_f, rays, rayd_f.contiguous(), kwalk, wk, bk, qwalk,
              a["w_q"]["w"], a["w_q"]["bias"])
     q_flops = T * (k * walk_flops(kwalk, wk)
                    + walk_flops(qwalk, a["w_q"]["w"]))
@@ -3708,7 +3845,7 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
         attn_tol=F32_ATTN_ABS, span=("query_head_fwd", "key_fwd"),
         median=(2, F32_EMBED_MEDIAN_REL))
     ss_q = sa.key_stream_q_f32_fwd(*qargs, *kopts)[2]
-    kargs_q = (rec, rayo_f, rays, qq_q, kwalk, wk, bk)
+    kargs_q = (rec_q, rayo_f, rays, qq_q, kwalk, wk, bk)
     same = [torch.equal(a_, b_) for a_, b_ in zip(
         (attn_q, raw_q, ss_q), sa.key_stream_f32_fwd(*kargs_q, *kopts))]
     print(f"phase 8 key_stream_q_f32_fwd on its own qq against "
@@ -3716,7 +3853,7 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
     if not all(same):
         failed.append("key_stream_q_f32_fwd vs key_stream_f32_fwd")
     margin_q = torch.minimum(
-        sa.rec_relu_margin(rec, rayo_f, rays, kwalk, eps),
+        sa.rec_relu_margin(rec_q, rayo_f, rays, kwalk, eps),
         fm.walk_relu_margin(fm.encode_plain(rayd_f, qwalk.cols), qwalk))
     dattn_q = firm(randn(T, k + 1), margin_q, "key_stream_q_f32_bwd")
     record("key_stream_q_f32_bwd", "papr_tpu_torch/csrc/key_stream_q.cu",
@@ -3743,7 +3880,7 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
           f"({sum(same)} of {len(same)})", flush=True)
     if not all(same) or len(same) != 5 + nk:
         failed.append("key_stream_q_f32_bwd vs key_stream_f32_bwd")
-    del qargs, kargs_q, attn_q, raw_q, qq_q, ss_q, got_q, got_5
+    del qargs, kargs_q, attn_q, raw_q, qq_q, ss_q, got_q, got_5, rec_q
 
     # Rows 4q-6q beside fp32 compute: the int8 walks with the fp32 epilogue
     # against the plain int8 walks in fp32 (the calibration is the same
@@ -3796,7 +3933,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
             params, cfg, meta, idx.reshape(1, patch, patch, k), rayo, rayd_c,
             state["alive"], eps)
     xk, xv = xk.contiguous(), xv.contiguous()
-    influ, sel_alive = influ.contiguous(), sel_alive.contiguous()
+    influ = influ.contiguous()
+    sel_alive = with_dead_slots(sel_alive.contiguous(), 82)
     fargs = (xk, qq, kwalk_f, wk, bk, influ, sel_alive)
     fopts = (score_act, bkg, f32)
     cols = lambda n: (lambda g: [g[0][..., :n], g[0][..., n:]] + list(g[1:]))
@@ -3868,7 +4006,8 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
     finally:
         fm.fused_mlp_apply = apply
     sargs = (ek.contiguous(), eq.contiguous(), wk, bk, a["w_q"]["w"],
-             a["w_q"]["bias"], influ.float().contiguous(), sel_alive.float())
+             a["w_q"]["bias"], influ.float().contiguous(),
+             with_dead_slots(sel_alive.float(), 83))
     sopts = (score_act, bkg, f32)
     Dk, dm = int(ek.shape[-1]), int(wk.shape[0])
     proj_flops = 2.0 * T * (k + 1) * Dk * dm
@@ -3879,10 +4018,12 @@ def compare_f32_kernels(params, state, cfg, device, rayo, rayd, patch,
                                                     with_raw=True)),
         lambda: list(fa.fused_scores_plain(*sargs, *sopts)),
         F32_FWD_REL, ["attn", "raw"], nbytes(*sargs), proj_flops,
-        attn_tol=F32_ATTN_ABS,
+        attn_tol=F32_ATTN_ABS, span=("fused_scores", "key_fwd_softmax"),
         tf32=lambda: tf32_reading(
             lambda: fa.fused_scores_plain(*sargs, *sopts)[1],
             fa.fused_scores_plain(*sargs, *sopts)[1]))
+    if not compare_scores_nan_smem(device):
+        failed.append("fused_scores_f32_fwd after NaN shared memory")
     dattn_s = randn(T, k + 1)
     record("fused_scores_f32_bwd", "papr_tpu_torch/csrc/fused_attn.cu",
            "papr_tpu/ops/fused_attn.py:125",
@@ -4200,6 +4341,10 @@ F32_MODES = (
      {"fused_mlp_f32": 1, "attend_eval_f32": 1}),
 )
 MODE_STEPS = 5
+# Row 10f's forward on wgmma: the kernels the fp32 ``true`` / ``score``
+# steps and frames must run (and not the WMMA ``fused_scores_fwd_kernel``).
+SCORE_F32_FWD_KERNELS = ("fused_scores_query_wgmma_f32_kernel",
+                         "fused_scores_fwd_wgmma_f32_kernel")
 
 
 def f32_mode_counters():
@@ -4414,6 +4559,27 @@ def drive_fp32_modes(device, ref) -> dict:
             print(f"phase 8 {name} frame profile (one serving frame): "
                   + (stage_split(fsp, stages, 1)[0] if fsp
                      else "not measured"), flush=True)
+        if name in ("true", "score"):
+            # The step's and one profiled serving frame's fused scores
+            # kernels by name: row 10f's forward on wgmma (its two heads),
+            # no WMMA forward; each profile that saw the device names them.
+            with torch.no_grad():
+                _, _, fsp = device_profile(lambda: next(render_frames(
+                    params0, state, mcfg, [c2w], FOCAL, FOCAL, H, W, H, W)))
+            seen = [n_ for _, _, n_ in list(spans or []) + list(fsp or [])
+                    if "fused_scores" in n_]
+            names = sorted({n_.replace("(anonymous namespace)::", "")
+                            .split("(")[0].split("<")[0].replace("void ", "")
+                            for n_ in seen})
+            need = [w_ for w_ in SCORE_F32_FWD_KERNELS if spans or fsp]
+            print(f"phase 8 {name} fused scores kernels (profiled step and "
+                  "frame): " + (", ".join(names) if need else
+                                "not measured (no device time in either "
+                                "profile)"), flush=True)
+            if any("fused_scores_fwd_kernel" in n_ for n_ in seen) or not all(
+                    any(w_ in n_ for n_ in seen) for w_ in need):
+                fail(f"the fp32 {name} path did not run the wgmma kernels "
+                     "of row 10f")
         if name == "query_fold":
             # The step's and the frame's folded key stream kernels by name:
             # the fp32 query chain and row 5f's kernels, no WMMA keyq_*;

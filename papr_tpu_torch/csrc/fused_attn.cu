@@ -32,16 +32,39 @@
 // The bias gradients go to one partial-sum row per block, summed in a fixed
 // order by colsum (no float atomics anywhere).
 //
-// fused_scores_f32_fwd / _bwd are the same two kernels in fp32 (use_amp:
-// false; _fwd_kernel / _bwd_kernel with an fp32 compute type): embeddings,
-// weights and products in fp32 (walk.cuh's 3xTF32 products), the bias added
-// to the unrounded product, the dkk / dqq stashes and d_embedk / d_embedq
-// fp32 (dW through wgrad_f32). qq is not rounded, so it cannot sit in a bf16
-// tile: the fp32 walk's shared memory holds its operand in C itself, so qq
-// goes to a (T, pdm) fp32 device buffer that the block reads back (its own
-// rows, L2-resident) for every k; the shared memory is the bf16 kernels'.
+// fused_scores_f32_bwd is the same backward kernel in fp32 (use_amp: false;
+// _bwd_kernel with an fp32 compute type): embeddings, weights and products
+// in fp32 (walk.cuh's 3xTF32 products), the bias added to the unrounded
+// product, the dkk / dqq stashes and d_embedk / d_embedq fp32 (dW through
+// wgrad_f32). qq is not rounded, so it cannot sit in a bf16 tile: the fp32
+// walk's shared memory holds its operand in C itself, so qq goes to a (T,
+// pdm) fp32 device buffer that the block reads back (its own rows,
+// L2-resident) for every k; the shared memory is the bf16 kernels'.
+//
+// fused_scores_f32_fwd (_fwd_kernel with an fp32 compute type) runs on
+// wgmma, on walk_wgmma.cuh's fp32 operand form with no walk: three launches.
+// fused_scores_query_wgmma_f32_kernel stages each 128-ray tile's eq rows
+// (fp32, 16-byte cp.async copies; zero past T and past Dq up to the 32-deep
+// chunk) into shared memory and runs the w_q head as 3xTF32 m64n64k8
+// products on the TMA-fed weight ring, b_q added to the unrounded product,
+// qq's rows written to the (T, pdm) buffer. fused_scores_fwd_wgmma_f32_kernel
+// runs the persistent grid over (tile, k) units in tile-major order: it
+// stages ek[k]'s rows of the tile the same way and runs wg_score, the w_k
+// head of the stream forwards (b_k added in fp32, the dot with qq's row read
+// back from L2, / sqrt(dm)), writing the raw dot and the masked score to (T,
+// K) rows; key_fwd_softmax_kernel takes the background-token softmax after
+// it. The image holds w_q then w_k (ops/fused_attn.py fwd_wgmma_image, the
+// 16 KB hi / lo stages of ops/fused_mlp.py pack_walk_wgmma_f32); each head
+// streams its stages once per unit from L2 (512 KB at 256 x 256: they do
+// not fit in shared memory beside the two warpgroups' 64-row tiles). No
+// rounding point moved against the WMMA kernel: the 256-deep sums join the
+// fp32 accumulator once per 32-deep chunk instead of once per 8-deep step,
+// the scale divides by sqrt(dm) where the WMMA kernel multiplied by its
+// reciprocal, and the softmax sums its terms across a warp's lanes. Bound
+// by operations (three tensor-core products per fp32-accurate one); embedk
+// is read once (663 MB at 32,400 rays, K = 20, 256 wide).
 
-#include "stream_common.cuh"
+#include "walk_wgmma.cuh"
 
 using namespace papr;
 
@@ -375,7 +398,143 @@ int fill_args(ScoreArgs<Op>* a, const void* ek, const void* eq,
   return 0;
 }
 
+// ------------------------------------- the fp32 forward on wgmma ----
+//
+// fused_scores_query_wgmma_f32_kernel (kQuery) and
+// fused_scores_fwd_wgmma_f32_kernel: one head of walk_wgmma.cuh's fp32
+// operand form on rows read from memory, no walk. Per unit a warpgroup
+// stages its 64 rows of the fp32 input (eq, or ek[k]) into its rows of E by
+// 16-byte asynchronous copies (cp.async; scalar loads where the row width
+// is not a multiple of 4), zero past the last row and past the width up to
+// the products' 32-deep chunks, then runs the head as 3xTF32 m64n64k8
+// products on the TMA-fed weight ring (wg_gemm_f32). The query head adds b_q
+// to the unrounded product and writes qq's rows (T, pdm) through E
+// (wg_store_rows); the key head is wg_score against w_k with b_k added in
+// fp32, its dot with qq's row (read back from L2), the raw dot and the
+// masked score (influence, alive from the (T, K) arrays) to raw / ss, and
+// key_fwd_softmax_kernel takes the softmax after it. The grid is
+// persistent: the query kernel's units are 128-row tiles, the key's (tile,
+// k) pairs in tile-major order, each block an even contiguous share, so a
+// block walks k under one tile and qq's rows stay in L2.
+
+struct ScoreFwdWg {
+  const float* x;                  // query: eq (T, D); key: ek (K, T, D)
+  int D, T, K;
+  WgLayer L;                       // w_q or w_k in the image
+  WgChunk chunks[(kMaxWidth / kF32ChunkK) * (kMaxWidth / kF32PassN)];
+  int n_chunks, stages;
+  const unsigned char* w;          // the packed weights (both heads)
+  int n_units, grid;
+  const float* bias;               // b_q or b_k (pdm, zero padded)
+  float* qq;                       // (T, pdm): the query's output, the key's
+  int pdm;                         // input
+  // the key
+  const float* influ;              // (T, K)
+  const float* alive;              // (T, K)
+  float sqrt_dm;
+  int score_relu;
+  float* raw;                      // (T, K) or null
+  float* ss;                       // (T, K)
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The warp's 16 rows rbase + row0 + r of x (R rows of D fp32) into its rows
+// of E (kF32Ld floats a row), columns [0, cols): 0 past R and past D.
+__device__ __forceinline__ void stage_rows_f32(float* E, int row0,
+                                               const float* __restrict__ x,
+                                               int R, int D, int cols,
+                                               int rbase) {
+  const int lane = threadIdx.x & 31, v4 = cols / 4;
+  __syncwarp();                    // the warp's last reads of E are done
+  if ((D & 3) == 0) {
+    for (int u = lane; u < 16 * v4; u += 32) {
+      const int r = u / v4, c = 4 * (u - r * v4), t = rbase + row0 + r;
+      float* dst = E + (row0 + r) * kF32Ld + c;
+      if (t < R && c < D) cp_async16(dst, x + (size_t)t * D + c);
+      else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    for (int u = lane; u < 16 * cols; u += 32) {
+      const int r = u / cols, c = u - r * cols, t = rbase + row0 + r;
+      E[(row0 + r) * kF32Ld + c] =
+          t < R && c < D ? x[(size_t)t * D + c] : 0.f;
+    }
+  }
+  __syncwarp();
+}
+
+template <bool kQuery>
+__device__ __forceinline__ void score_fwd_wg(const ScoreFwdWg& p) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int kE = kWgRows * kF32Ld;
+  const WgSmem sm = wg_smem(smem_raw, p.stages, 2 * kE, 0, false);
+  {
+    const float* const src[1] = {nullptr};
+    const int cnt[1] = {0};
+    wg_prologue(sm, p.stages, src, cnt);
+  }
+  const int u_begin = (int)((long long)p.n_units * blockIdx.x / p.grid);
+  const int u_end = (int)((long long)p.n_units * (blockIdx.x + 1) / p.grid);
+  WgRing rg{sm.ring, sm.full, sm.released, p.stages, 0, p.n_chunks,
+            p.n_chunks * (u_end - u_begin), p.chunks, p.w};
+  wg_ring_start(rg);
+
+  const int tid = threadIdx.x, wg = tid >> 7, t_in = tid & 127;
+  const int w = t_in >> 5, lane = t_in & 31, g = lane >> 2, q = lane & 3;
+  const int row0 = 16 * w, T = p.T, K = p.K;
+  const int rl[2] = {row0 + g, row0 + g + 8};
+  const int cols = (p.L.pd_in + kF32ChunkK - 1) / kF32ChunkK * kF32ChunkK;
+  float* E = sm.tiles + wg * kE;
+  WgRowsA A{E, row0};
+  float acc[kOutRegs];
+
+  for (int u = u_begin; u < u_end; ++u) {
+    if constexpr (kQuery) {
+      const int rbase = u * kWgTile + wg * kWgRows;
+      stage_rows_f32(E, row0, p.x, T, p.D, cols, rbase);
+      wg_gemm_f32(acc, E, row0, rg, p.L);
+      acc_bias_act(acc, p.bias, p.pdm, 0);
+      wg_store_rows(acc, A, E, false, p.qq, rbase, T, p.pdm);
+    } else {
+      const int tile = u / K, k = u - tile * K;
+      const int rbase = tile * kWgTile + wg * kWgRows;
+      stage_rows_f32(E, row0, p.x + (size_t)k * T * p.D, T, p.D, cols,
+                     rbase);
+      float col[2];
+      wg_score(acc, A, rg, nullptr, p.L, p.qq, p.pdm, p.bias, p.sqrt_dm, T,
+               rbase, rl, col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = rbase + rl[h];
+        if (q == 0 && t < T) {
+          const size_t i = (size_t)t * K + k;
+          if (p.raw) p.raw[i] = col[h];
+          p.ss[i] = masked_score(col[h], p.score_relu, p.influ[i],
+                                 p.alive[i] > 0.5f);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+fused_scores_query_wgmma_f32_kernel(const __grid_constant__ ScoreFwdWg p) {
+  score_fwd_wg<true>(p);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+fused_scores_fwd_wgmma_f32_kernel(const __grid_constant__ ScoreFwdWg p) {
+  score_fwd_wg<false>(p);
+}
 
 #define SCORE_HEAD_PARAMS                                                    \
     const void* ek, const void* eq, const float* influ, const float* alive,  \
@@ -391,13 +550,12 @@ int fill_args(ScoreArgs<Op>* a, const void* ek, const void* eq,
 #define SCORE_BWD_ARGS                                                       \
     dattn, wkB, wqB, dek, deq, dinflu, dkk_stash, dqq_stash, part
 
-// attn (T, K + 1) fp32; raw_out (T, K) fp32 or null; qq: the fp32 kernel's
-// (T, pdm) fp32 scratch (null for bf16).
-template <class Op>
+// attn (T, K + 1) fp32; raw_out (T, K) fp32 or null (the bf16 kernel).
 static int launch_fwd(SCORE_HEAD_PARAMS, float* attn, float* raw_out,
-                      void* qq, void* stream) {
+                      void* stream) {
+  using Op = __nv_bfloat16;
   ScoreArgs<Op> a;
-  int err = fill_args(&a, SCORE_HEAD_ARGS, qq);
+  int err = fill_args(&a, SCORE_HEAD_ARGS, nullptr);
   if (err) return err;
   if (T <= 0) return 0;
   cudaError_t e = cudaFuncSetAttribute(
@@ -407,6 +565,79 @@ static int launch_fwd(SCORE_HEAD_PARAMS, float* attn, float* raw_out,
   fused_scores_fwd_kernel<Op><<<(T + kRows - 1) / kRows, kThreads, kScoreSmem,
                                 static_cast<cudaStream_t>(stream)>>>(
       a, attn, raw_out);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 forward on wgmma: one head of the image (its layer li of the
+// table over (pdq -> pdm), (pdk -> pdm)) on rows x of width D, its units
+// over grid blocks.
+static int launch_score_wg(ScoreFwdWg p, void (*kernel)(ScoreFwdWg),
+                           const WgLayer* layers, int li, const float* x,
+                           int D, int n_units, int grid, cudaStream_t st) {
+  p.x = x;
+  p.D = D;
+  p.L = layers[li];
+  const long long bytes = (long long)((p.L.pd_in + kF32ChunkK - 1) /
+                                      kF32ChunkK) *
+                          (p.L.ni / kF32PassN) * kWStageBytes;
+  p.n_chunks = wg_chunks_f32(p.chunks, bytes, p.L.off);
+  p.n_units = n_units;
+  p.grid = grid;
+  size_t smem = 0;
+  const int err = wg_ring_fit(
+      wg_smem_rest(2 * kWgRows * kF32Ld, 0, false), &p.stages, &smem);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, kWgThreads, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// qq: the (T, pdm) fp32 rows the query head writes and the key head reads;
+// ss: the (T, K) masked scores; wpack: w_q then w_k as the fp32 image
+// (ops/stream_attn.py fwd_wgmma_pack_f32's layout), wbytes its size; grid: 1
+// .. the number of 128-ray tiles. Three launches: the query head, the key
+// head, the softmax.
+static int launch_fwd_wg(SCORE_HEAD_PARAMS, float* attn, float* raw_out,
+                         void* qq, void* ss, const void* wpack,
+                         long long wbytes, int grid, void* stream) {
+  ScoreArgs<float> a;
+  int err = fill_args(&a, SCORE_HEAD_ARGS, qq);
+  if (err) return err;
+  if (!ss) return -604;
+  WgLayer layers[2];
+  const int dims[2][2] = {{pdq, pdm}, {pdk, pdm}};
+  if (wg_plan_f32(layers, dims, 2) != wbytes || !wpack ||
+      reinterpret_cast<uintptr_t>(wpack) % 16)
+    return -204;
+  if (T <= 0) return 0;
+  const int tiles = (T + kWgTile - 1) / kWgTile;
+  if (grid < 1 || grid > tiles) return -209;
+  ScoreFwdWg p{};
+  p.T = T;
+  p.K = K;
+  p.w = static_cast<const unsigned char*>(wpack);
+  p.qq = static_cast<float*>(qq);
+  p.pdm = pdm;
+  p.influ = influ;
+  p.alive = alive;
+  p.sqrt_dm = sqrt_dm;
+  p.score_relu = relu;
+  p.raw = raw_out;
+  p.ss = static_cast<float*>(ss);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  p.bias = bq;
+  err = launch_score_wg(p, fused_scores_query_wgmma_f32_kernel, layers, 0,
+                        static_cast<const float*>(eq), Dq, tiles, grid, st);
+  if (err) return err;
+  p.bias = bk;
+  err = launch_score_wg(p, fused_scores_fwd_wgmma_f32_kernel, layers, 1,
+                        static_cast<const float*>(ek), Dk, tiles * K, grid,
+                        st);
+  if (err) return err;
+  key_fwd_softmax_kernel<0><<<(T + 7) / 8, 256, 0, st>>>(p.ss, T, K, bkg,
+                                                          attn);
   return (int)cudaGetLastError();
 }
 
@@ -440,14 +671,19 @@ static int launch_bwd(SCORE_HEAD_PARAMS, SCORE_BWD_PARAMS, void* qq,
 
 extern "C" int papr_fused_scores_fwd(SCORE_HEAD_PARAMS, float* attn,
                                      float* raw_out, void* stream) {
-  return launch_fwd<__nv_bfloat16>(SCORE_HEAD_ARGS, attn, raw_out, nullptr,
-                                   stream);
+  return launch_fwd(SCORE_HEAD_ARGS, attn, raw_out, stream);
 }
 
+// The fp32 forward on wgmma: the bf16 form's arguments before its stream
+// (wkT / wqT unread: the packed image replaces them), the (T, pdm) qq
+// buffer, the (T, K) masked scores, the packed weights (w_q, then w_k),
+// their size in bytes, the grid.
 extern "C" int papr_fused_scores_f32_fwd(SCORE_HEAD_PARAMS, float* attn,
-                                         float* raw_out, void* qq,
-                                         void* stream) {
-  return launch_fwd<float>(SCORE_HEAD_ARGS, attn, raw_out, qq, stream);
+                                         float* raw_out, void* qq, void* ss,
+                                         const void* wpack, long long wbytes,
+                                         int grid, void* stream) {
+  return launch_fwd_wg(SCORE_HEAD_ARGS, attn, raw_out, qq, ss, wpack, wbytes,
+                       grid, stream);
 }
 
 extern "C" int papr_fused_scores_bwd(SCORE_HEAD_PARAMS, SCORE_BWD_PARAMS,

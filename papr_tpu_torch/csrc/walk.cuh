@@ -1,14 +1,14 @@
 // Embedder "walk" building blocks on WMMA, shared by the int8 stream
 // forwards (key_stream.cu / value_stream.cu with int8: rows 5q / 6q and
 // their fp32 epilogue 5qf / 6qf), the bf16 folded key stream's backward
-// (key_stream_q.cu), the feature stream kernels but their wgmma forwards
-// (key_stream_feat.cu: the bf16 key forward and both backwards;
-// value_stream_feat.cu: both backwards), the fused scores (fused_attn.cu)
-// and the int8 walk microbenchmark; the embedder, K3 (the int8 K3 too:
-// walk_wgmma.cuh's int8 form, which reuses quantize_value below), the key /
-// value streams, the folded key stream's forward (both forms) and its fp32
-// backward, the fp32 feature key forward and the feature value forward
-// (both forms) run walk_wgmma.cuh.
+// (key_stream_q.cu), the feature streams' backwards (key_stream_feat.cu,
+// value_stream_feat.cu), the fused scores but their fp32 forward
+// (fused_attn.cu: the bf16 forward and both backwards) and the int8 walk
+// microbenchmark; the embedder, K3 (the int8 K3 too: walk_wgmma.cuh's int8
+// form, which reuses quantize_value below), the key / value streams, the
+// folded key stream's forward (both forms) and its fp32 backward, the
+// feature key and value forwards (both forms) and the fp32 fused scores'
+// forward run walk_wgmma.cuh.
 //
 // A walk is papr_tpu/ops/fused_mlp.py::walk_body_fwd: [LayerNorm] -> dense
 // stack (bf16 operands, fp32 accumulate, fp32 bias, relu/none, activations

@@ -21,15 +21,18 @@
 // (K, T, d) feature rows as the posenc sources, FeatTok). The bf16 folded
 // key stream's forward (query_head_fwd_wgmma_kernel, the bf16 embedder walk
 // with w_q as its head, then key_fwd_wgmma_kernel) and the bf16 feature
-// value forward (value_feat_fwd_wgmma_kernel) are those functions in the
-// bf16 form. The int8 one-shot eval attention (attend_eval_i8_wgmma_kernel,
+// forwards (key_feat_fwd_wgmma_kernel, value_feat_fwd_wgmma_kernel) are
+// those functions in the bf16 form. The fp32 fused scores' forward
+// (fused_attn.cu fused_scores_query_wgmma_f32_kernel /
+// fused_scores_fwd_wgmma_f32_kernel) runs the fp32 form's products and
+// heads (wg_gemm_f32, wg_score) on rows it stages from memory, without a
+// walk. The int8 one-shot eval attention (attend_eval_i8_wgmma_kernel,
 // both epilogues) runs the same walk in its int8 operand form (below: s8 x
 // s8 -> s32 products, the epilogue quantizing straight into the next
 // product's fragments). The int8 stream forwards (rows 5q / 6q, 5qf / 6qf),
 // the int8 walk microbenchmark and the other walk kernels (the bf16 backward
-// of key_stream_q.cu, the bf16 key forward of key_stream_feat.cu and the
-// backwards of key_stream_feat.cu / value_stream_feat.cu) keep walk.cuh's
-// WMMA layers.
+// of key_stream_q.cu and the backwards of key_stream_feat.cu /
+// value_stream_feat.cu) keep walk.cuh's WMMA layers.
 //
 // A block is two warpgroups, each owning 64 token rows (256 threads, so
 // ptxas may give a thread up to 255 registers). Within a warpgroup the
@@ -1511,7 +1514,8 @@ __device__ __forceinline__ bool wg_walk(float (&f)[N], WgQ8A<Op>& A,
 // the walk above, in its bf16 or fp32 operand form (the forms of the bf16 and
 // the fp32 K3): the record read pre-gathered k-major (K, T, rec_w), a
 // token's row k * T + t. The feature streams' wgmma forwards
-// (key_stream_feat.cu key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
+// (key_stream_feat.cu key_feat_fwd_wgmma_kernel /
+// key_feat_fwd_wgmma_f32_kernel, value_stream_feat.cu
 // value_feat_fwd_wgmma_kernel / value_feat_fwd_wgmma_f32_kernel) are the
 // same function with another token source (the policy Tok): the raw feature
 // row x[k, t, :] of a
@@ -1796,10 +1800,11 @@ __device__ __forceinline__ void stream_fwd_wg(const StreamFwdWgT<Op>& p) {
 }
 
 // After a key stream forward on wgmma (key_stream.cu key_fwd_wgmma_kernel /
-// key_fwd_wgmma_f32_kernel, key_stream_feat.cu
-// key_feat_fwd_wgmma_f32_kernel), a warp per ray: the background-token
-// softmax (stream_attn.py _softmax_s) of the ray's K masked scores -> attn
-// (T, K+1), background last. A template so that each file that launches it
+// key_fwd_wgmma_f32_kernel, key_stream_feat.cu key_feat_fwd_wgmma_kernel /
+// key_feat_fwd_wgmma_f32_kernel) and the fp32 fused scores' key head
+// (fused_attn.cu fused_scores_fwd_wgmma_f32_kernel), a warp per ray: the
+// background-token softmax (stream_attn.py _softmax_s) of the ray's K
+// masked scores -> attn (T, K+1), background last. A template so that each file that launches it
 // instantiates its own copy.
 template <int = 0>
 __global__ void key_fwd_softmax_kernel(const float* __restrict__ ss, int T,

@@ -74,9 +74,8 @@ for _name in ("papr_fused_mlp_fwd", "papr_fused_mlp_bwd",
               "papr_fused_scores_fwd", "papr_fused_scores_bwd"):
     _stem, _dir = _name.rsplit("_", 1)
     SIGNATURES[f"{_stem}_f32_{_dir}"] = SIGNATURES[_name]
-for _dir in ("fwd", "bwd"):
-    _sig = SIGNATURES[f"papr_fused_scores_f32_{_dir}"]
-    SIGNATURES[f"papr_fused_scores_f32_{_dir}"] = _sig[:-1] + [P, P]
+SIGNATURES["papr_fused_scores_f32_bwd"] = (
+    SIGNATURES["papr_fused_scores_f32_bwd"][:-1] + [P, P])
 # The one-shot eval attention (bf16 and fp32, both on wgmma) takes the int8
 # tile function's arguments, then its packed weights and their size in
 # bytes.
@@ -116,13 +115,19 @@ SIGNATURES["papr_key_stream_q_fwd"] = SIGNATURES["papr_key_stream_q_f32_fwd"] = 
     + [P, _LL, P, _LL, I, P])
 SIGNATURES["papr_key_stream_q_f32_bwd"] = (
     [P, I, I] + [P] * 5 + [I] + [P] * 6 + [I, P, P, _LL, I, P])
-# The feature stream forwards on wgmma (the key's fp32 form, the value's
-# both forms) take the key's bf16 form's arguments before the stream / the
-# value's features, attn, walk, normalize and output, then (key) the (T, K)
-# masked scores, the packed weights, their size in bytes, the grid and the
-# stream.
-SIGNATURES["papr_key_stream_feat_f32_fwd"] = (
+# The feature stream forwards on wgmma (both forms of each) take the key's
+# WMMA-era arguments before the stream / the value's features, attn, walk,
+# normalize and output, then (key) the (T, K) masked scores, the packed
+# weights, their size in bytes, the grid and the stream.
+SIGNATURES["papr_key_stream_feat_fwd"] = (
+    SIGNATURES["papr_key_stream_feat_f32_fwd"]) = (
     SIGNATURES["papr_key_stream_feat_fwd"][:-1] + [P, P, _LL, I, P])
+# The fp32 fused scores' forward on wgmma: the bf16 form's arguments before
+# the stream, then the (T, pdm) qq buffer, the (T, K) masked scores, the
+# packed weights (w_q, then w_k), their size in bytes, the grid and the
+# stream.
+SIGNATURES["papr_fused_scores_f32_fwd"] = (
+    SIGNATURES["papr_fused_scores_fwd"][:-1] + [P, P, P, _LL, I, P])
 SIGNATURES["papr_value_stream_feat_fwd"] = (
     SIGNATURES["papr_value_stream_feat_f32_fwd"]) = (
     SIGNATURES["papr_value_stream_feat_fwd"][:-1] + [P, _LL, I, P])

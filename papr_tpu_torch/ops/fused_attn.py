@@ -18,8 +18,13 @@ in plain PyTorch, and ``fused_scores`` joins the directions in an autograd
 ``Function``. A CPU tensor takes the plain version; a CUDA tensor takes the
 kernel or raises. The renormalize-and-fuse epilogue stays outside, as in the
 JAX package. The compute dtype picks the kernel: bf16, or fp32
-(``use_amp: false``: ``fused_scores_f32_fwd`` / ``_bwd``, the same kernels
-with fp32 operands and 3xTF32 products, fp32 gradients and stashes).
+(``use_amp: false``: ``fused_scores_f32_fwd`` / ``_bwd``; the backward the
+bf16 kernel with fp32 operands and 3xTF32 products, fp32 gradients and
+stashes; the forward on wgmma, its w_q and w_k heads as 3xTF32 products on
+rows staged from memory, their weights one image, ``fwd_wgmma_image``, qq
+and the masked scores in device rows between its kernels, the persistent
+grid of ``fused_mlp.wgmma_grid``; K <= 64 and widths <= 256, refused before
+any launch).
 
 Numerics: scores and softmax in fp32; the two projections in the compute
 dtype with the bias added in the compute dtype (``nn/mlp.py linear_apply``),
@@ -33,7 +38,8 @@ import math
 
 import torch
 
-from .fused_mlp import round_up, wgrad
+from . import fused_mlp as fm
+from .fused_mlp import pack_walk_wgmma_f32, round_up, wgrad
 
 NEG_BIG = -1e30
 
@@ -114,9 +120,11 @@ def fused_scores_bwd_plain(embedk, embedq, wk, bk, wq, bq, influ, alive, dattn,
 fused_scores_bwd_plain.calls = 0
 
 
-def _pack(embedk, embedq, wk, bk, wq, bq, influ, alive, cdt, what):
+def _pack(embedk, embedq, wk, bk, wq, bq, influ, alive, cdt, what,
+          weights: bool = True):
     """Checks and kernel layouts in the compute dtype ``cdt``, shared by
-    both directions."""
+    both directions; without ``weights`` (the fp32 forward, which reads the
+    packed image instead) the padded weight layouts are left out."""
     if cdt not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"{what}: compute dtype {cdt} (the CUDA "
                                   "kernels run bf16 or fp32)")
@@ -151,30 +159,49 @@ def _pack(embedk, embedq, wk, bk, wq, bq, influ, alive, cdt, what):
         out[:dm] = b.to(device=dev, dtype=torch.float32)
         return out
 
+    mats = (dict(wkT=padded(wk.T, pdk, pdm), wqT=padded(wq.T, pdq, pdm),
+                 wkB=padded(wk, pdm, pdk), wqB=padded(wq, pdm, pdq))
+            if weights else {})
     return dict(
         ek=embedk.to(cdt).contiguous(), eq=embedq.to(cdt).contiguous(),
         influ=influ.float().contiguous(), alive=alive.float().contiguous(),
-        wkT=padded(wk.T, pdk, pdm), wqT=padded(wq.T, pdq, pdm),
-        wkB=padded(wk, pdm, pdk), wqB=padded(wq, pdm, pdq),
         bk=padded_bias(bk), bq=padded_bias(bq),
-        dims=(T, K, Dk, Dq, dm, pdk, pdq, pdm), dev=dev)
+        dims=(T, K, Dk, Dq, dm, pdk, pdq, pdm), dev=dev, **mats)
 
 
 def _head_args(p, score_act, bkg_score):
     T, K, Dk, Dq, dm, pdk, pdq, pdm = p["dims"]
+    ptr = lambda name: p[name].data_ptr() if name in p else None
     return (p["ek"].data_ptr(), p["eq"].data_ptr(), p["influ"].data_ptr(),
-            p["alive"].data_ptr(), p["wkT"].data_ptr(), p["wqT"].data_ptr(),
+            p["alive"].data_ptr(), ptr("wkT"), ptr("wqT"),
             p["bk"].data_ptr(), p["bq"].data_ptr(), T, K, Dk, Dq, dm, pdk,
             pdq, pdm, float(math.sqrt(dm)), float(bkg_score),
             int(score_act == "relu"))
 
 
 def _qq_rows(p) -> torch.Tensor:
-    """The fp32 kernels' (T, pdm) buffer of qq rows: qq stays fp32 there,
-    as the fp32 walk's shared memory has no room for it beside the key
-    tile."""
+    """The fp32 kernels' (T, pdm) buffer of qq rows: qq stays fp32 there
+    (the forward's query head writes it, its key head reads it back)."""
     T, pdm = p["dims"][0], p["dims"][7]
     return torch.empty(T, pdm, dtype=torch.float32, device=p["dev"])
+
+
+def _fwd_wgmma_rows(p):
+    """The fp32 forward's device rows: qq (T, pdm), which its query head
+    writes and its key head reads, and the masked scores ss (T, K), which
+    the key head writes and the softmax kernel reads; fp32."""
+    T, K = p["dims"][:2]
+    return _qq_rows(p), torch.empty(T, K, dtype=torch.float32,
+                                    device=p["dev"])
+
+
+def fwd_wgmma_image(wk, wq, dev) -> torch.Tensor:
+    """The fp32 forward's weight image (``csrc/fused_attn.cu``, on
+    ``walk_wgmma.cuh``'s fp32 operand form): w_q^T, then w_k^T, input-major
+    fp32, as ``pack_walk_wgmma_f32``'s 16 KB hi / lo stages (the layout of
+    ``stream_attn.fwd_wgmma_pack_f32``); the kernel reads w_q's stages for
+    the query head and w_k's for the key head."""
+    return pack_walk_wgmma_f32([wq.T.float(), wk.T.float()], dev)
 
 
 def fused_scores_fwd(embedk, embedq, wk, bk, wq, bq, influ, alive,
@@ -190,8 +217,9 @@ def fused_scores_fwd(embedk, embedq, wk, bk, wq, bq, influ, alive,
     from ..kernels import build
 
     _check_score_act(score_act)
+    f32 = cdt == torch.float32
     p = _pack(embedk, embedq, wk, bk, wq, bq, influ, alive, cdt,
-              "fused_scores")
+              "fused_scores", weights=not f32)
     T, K = p["dims"][:2]
     dev = p["dev"]
     attn = torch.empty(T, K + 1, dtype=torch.float32, device=dev)
@@ -201,9 +229,14 @@ def fused_scores_fwd(embedk, embedq, wk, bk, wq, bq, influ, alive,
     args = (*_head_args(p, score_act, bkg_score), attn.data_ptr(),
             raw.data_ptr() if with_raw else None)
     lib = build.load()
-    if cdt == torch.float32:
-        qq = _qq_rows(p)
-        rc = lib.papr_fused_scores_f32_fwd(*args, qq.data_ptr(), stream)
+    if f32:
+        # The wgmma forward: qq's rows, the masked scores, then w_q and w_k
+        # as one fp32 image, its bytes and the grid.
+        qq, ss = _fwd_wgmma_rows(p)
+        wpack = fwd_wgmma_image(wk, wq, dev)
+        rc = lib.papr_fused_scores_f32_fwd(
+            *args, qq.data_ptr(), ss.data_ptr(), wpack.data_ptr(),
+            wpack.numel() * wpack.element_size(), fm.wgmma_grid(T), stream)
         build.check(rc, "papr_fused_scores_f32_fwd")
         fused_scores_f32_fwd.launches += 1
     else:

@@ -18,17 +18,15 @@ recomputed under autograd. A CPU tensor takes the plain version; a CUDA
 tensor takes the kernel or raises. Numerics as ``ops/stream_attn.py``; the
 compute dtype picks the kernel: bf16, or fp32 (``use_amp: false``: the
 ``_f32`` entry points, counted apart by ``key_stream_feat_f32_fwd`` /
-``_bwd`` and ``value_stream_feat_f32_fwd`` / ``_bwd``). The fp32 forwards
-run on wgmma (``csrc/walk_wgmma.cuh`` ``stream_fwd_wg``, the record
+``_bwd`` and ``value_stream_feat_f32_fwd`` / ``_bwd``). The forwards, both
+forms, run on wgmma (``csrc/walk_wgmma.cuh`` ``stream_fwd_wg``, the record
 streams' function with the feature rows as its token source): they take the
-fp32 weight image of ``stream_attn.fwd_wgmma_pack_f32`` and the persistent
-grid, the key writes its masked scores to a (T, K) buffer that a softmax
-kernel reads, the value adds into a zeroed output; K <= 64 and value rows
-<= ``F32_FWD_MAX_ROWS`` wide, refused before any launch. The bf16 value
-forward runs on the same function in its bf16 form (``fwd_wgmma_pack``'s
-image): value rows up to ``bf16_fwd_max_rows`` of its walk, refused wider
-before any launch. The bf16 key forward and both backwards keep the WMMA
-walk.
+weight image of ``stream_attn.fwd_wgmma_pack`` (bf16) or
+``fwd_wgmma_pack_f32`` (fp32) and the persistent grid, the key writes its
+masked scores to a (T, K) buffer that a softmax kernel reads, the value
+adds into a zeroed output; K <= 64, fp32 value rows <= ``F32_FWD_MAX_ROWS``
+and bf16 value rows <= ``bf16_fwd_max_rows`` of the walk wide, refused
+before any launch. Both backwards keep the WMMA walk.
 
 The key backward returns ALL of dxk: the caller detaches the position
 columns before they enter xk (``model/papr.py``), so autograd drops that
@@ -122,7 +120,8 @@ def _check_key_args(xk, qq, wk, influ, alive, what):
 def key_stream_feat_fwd(xk, qq, kwalk: Walk, wk, bk, influ, alive,
                         score_act="relu", bkg_score=5.0, cdt=torch.float32):
     """Key stream forward -> (attn (T, K+1), raw (T, K)): the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors (``key_feat_fwd_wgmma_kernel`` / ``_f32_kernel``, then the
+    softmax kernel), the plain version for CPU tensors."""
     if not xk.is_cuda:
         return key_stream_feat_plain(xk, qq, kwalk, wk, bk, influ, alive,
                                      score_act, bkg_score, cdt)
@@ -149,18 +148,16 @@ def key_stream_feat_fwd(xk, qq, kwalk: Walk, wk, bk, influ, alive,
             bkp.data_ptr(), dm_pad, int(score_act == "relu"),
             float(bkg_score), attn.data_ptr(), raw.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if f32:
-        # The wgmma forward: its masked scores, then the walk's layers and
-        # w_k as one fp32 image, its bytes and the grid.
-        ss = torch.empty(T, K, dtype=torch.float32, device=dev)
-        wpack = fwd_wgmma_pack_f32(kw, kpd, dev, (wkf,))
-        name = "papr_key_stream_feat_f32_fwd"
-        rc = build.load().papr_key_stream_feat_f32_fwd(
-            *args, ss.data_ptr(), wpack.data_ptr(),
-            wpack.numel() * wpack.element_size(), fm.wgmma_grid(T), stream)
-    else:
-        name = "papr_key_stream_feat_fwd"
-        rc = build.load().papr_key_stream_feat_fwd(*args, stream)
+    # The wgmma forward: its masked scores, then the walk's layers and w_k
+    # as one image in the compute dtype, its bytes and the grid.
+    ss = torch.empty(T, K, dtype=torch.float32, device=dev)
+    wpack = (fwd_wgmma_pack_f32 if f32 else fwd_wgmma_pack)(kw, kpd, dev,
+                                                            (wkf,))
+    name = ("papr_key_stream_feat_f32_fwd" if f32
+            else "papr_key_stream_feat_fwd")
+    rc = getattr(build.load(), name)(
+        *args, ss.data_ptr(), wpack.data_ptr(),
+        wpack.numel() * wpack.element_size(), fm.wgmma_grid(T), stream)
     build.check(rc, name)
     if f32:
         key_stream_feat_f32_fwd.launches += 1

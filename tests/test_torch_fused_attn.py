@@ -55,6 +55,36 @@ def test_forward_matches_jax_kernel(T, K, tile, act, Dk):
     assert got[1, K] == 1.0 and float(got[1, :K].abs().max()) == 0.0
 
 
+# A seeded few percent of dead slots (alive = 0 on single (t, k), as a
+# pruned cloud leaves them) beside an all-dead ray, at the widths of the
+# fp32 forward's query and key heads cut to 64 (Dk, Dq, d_model): the plain
+# forward against JAX's interpret-mode kernel, fp32 within atol 1e-5 (the
+# bound above), bf16 within BF16_ATTN_ABS absolute (each side rounds its
+# projections to bf16 at the same points and sums in another order); every
+# dead slot's attn exactly 0.
+BF16_ATTN_ABS = 2e-3
+
+
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_forward_with_dead_slots_matches_jax(compute):
+    T, K = 96, 20
+    args = _inputs(6, T, K, Dk=64, Dq=64, dm=64, dead_frac=0.04)
+    alive = args[7]
+    assert 0 < (alive[2:] == 0).sum() < 0.1 * T * K
+    want = np.asarray(jax_fused_scores(*map(jnp.asarray, args),
+                                       score_act="relu", bkg_score=5.0,
+                                       tile=32, interpret=True,
+                                       compute=compute))
+    cdt = torch.bfloat16 if compute else None
+    got = fa.fused_scores(*map(torch.as_tensor, args), score_act="relu",
+                          bkg_score=5.0, compute=cdt).numpy()
+    assert got.shape == (T, K + 1)
+    err = float(np.abs(got - want).max())
+    assert err <= (BF16_ATTN_ABS if compute else 1e-5), err
+    assert float(np.abs(got[:, :K][alive == 0]).max()) == 0.0
+    assert got[1, K] == 1.0
+
+
 @pytest.mark.parametrize("act,compute,tol", [("relu", None, 1e-4),
                                              ("none", None, 1e-4),
                                              ("relu", "bfloat16", 2e-2)])

@@ -1876,7 +1876,8 @@ def test_wgrad_f32_matches_fp64_product(dev, N, da, db):
 def test_wgmma_kernels_run_on_hgmma(dev):
     """The built library's SASS: the one-shot eval attention, the key /
     value stream forwards and backwards and the embedder forward and
-    backward (bf16 and fp32), the fp32 feature stream forwards and both dW
+    backward (bf16 and fp32), the feature key forward (bf16 and fp32), the
+    fp32 feature value forward, the fp32 fused scores' two heads and both dW
     reductions issue Hopper's warpgroup MMAs (HGMMA); the int8 eval
     attention (both epilogues) its s8 ones (IGMMA)."""
     import os
@@ -1901,7 +1902,9 @@ def test_wgmma_kernels_run_on_hgmma(dev):
                    "fused_mlp_bwd_wgmma_f32_kernel", "key_fwd_wgmma_f32_kernel",
                    "value_fwd_wgmma_f32_kernel", "key_bwd_wgmma_f32_kernel",
                    "value_bwd_wgmma_f32_kernel", "key_feat_fwd_wgmma_f32_kernel",
-                   "value_feat_fwd_wgmma_f32_kernel"):
+                   "value_feat_fwd_wgmma_f32_kernel", "key_feat_fwd_wgmma_kernel",
+                   "fused_scores_query_wgmma_f32_kernel",
+                   "fused_scores_fwd_wgmma_f32_kernel"):
         bodies = [b for n, b in funcs.items() if kernel in n]
         assert bodies, f"{kernel} not in the library"
         assert all("HGMMA" in b for b in bodies), f"{kernel}: no HGMMA"
@@ -2939,4 +2942,169 @@ def test_bf16_rows_7_9_fwd_wgmma_after_nan_shared_memory(dev, monkeypatch,
         _check_feat_value_bf16((xv, attn, vw, True),
                                "value_stream_feat_fwd wgmma after NaN shared "
                                "memory")
+    print(f"papr_{row}_fwd: {survived()}")
+
+
+
+# The bf16 forward of row 8 (key_stream_feat_fwd: key_feat_fwd_wgmma_kernel,
+# stream_fwd_wg with the raw feature rows as its token source, then the
+# softmax kernel) and the fp32 forward of row 10 (fused_scores_f32_fwd:
+# fused_scores_query_wgmma_f32_kernel, then fused_scores_fwd_wgmma_f32_kernel
+# and the softmax kernel; 3xTF32 heads on rows read from memory) on wgmma:
+# T not a multiple of the 128-ray tile, K 1, 20 and 64, the persistent grid
+# and grids that split tiles, dead points (20 %), ray 5 (row 8) / 3 (row
+# 10f) all dead and, with T > 128, a warpgroup of dead rays. Row 8: attn /
+# raw against the plain bf16 forward at row 5's bounds (FWD_REL, FWD_RAW_REL:
+# the same rounding points, another summation order) and the masked scores
+# the kernel hands the softmax kernel exactly from raw, influence and alive.
+# Row 10f: attn and raw at the fp32 bounds of the WMMA kernel's test above
+# (F32_ATTN_ABS, F32_REL), qq's rows against eq w_q^T + b_q at F32_REL, the
+# masked scores exactly; Dk / Dq / d_model below 256, a width that is not a
+# multiple of the 32-deep chunk (zero columns staged past it) and one not a
+# multiple of 4 (scalar loads).
+BF16_KEYF_CASES = [(300, 20, None), (300, 1, 1), (131, 20, 1), (257, 1, None),
+                   (300, 64, None), (300, 20, 2)]
+F32_SCORE_CASES = [(300, 20, 256, 256, 256, None, "relu"),
+                   (131, 1, 256, 256, 256, 1, "relu"),
+                   (300, 64, 256, 256, 256, None, "relu"),
+                   (257, 7, 200, 136, 96, 2, "none"),
+                   (100, 20, 33, 24, 32, None, "relu"),
+                   (300, 20, 256, 256, 256, 2, "none")]
+
+
+def _check_keyf_bf16(monkeypatch, args, name):
+    """Row 8's bf16 forward against the plain bf16 forward (see above);
+    one call counted once as bf16; a rerun is bit-equal."""
+    from papr_tpu_torch.ops import stream_feat as sf
+    T, K = args[5].shape
+    # The masked scores the kernel hands the softmax kernel: the entry
+    # point's (T, K) buffer (its fifth argument from the end) is this one.
+    ss = torch.full((T, K), float("nan"), device=args[0].device)
+    _interpose(monkeypatch, "papr_key_stream_feat_fwd",
+               lambda fn: lambda *a: fn(*a[:-5], ss.data_ptr(), *a[-4:]))
+    before = (sf.key_stream_feat_fwd.launches,
+              sf.key_stream_feat_f32_fwd.launches)
+    attn, raw = sf.key_stream_feat_fwd(*args, "relu", 5.0, torch.bfloat16)
+    assert (sf.key_stream_feat_fwd.launches,
+            sf.key_stream_feat_f32_fwd.launches) == (before[0] + 1,
+                                                     before[1])
+    attn_p, raw_p = sf.key_stream_feat_plain(*args, "relu", 5.0,
+                                             torch.bfloat16)
+    rels = _rel(attn, attn_p), _rel(raw, raw_p)
+    a_abs = float((attn - attn_p).abs().max())
+    print(f"{name}: attn {rels[0]:.2e} (max abs {a_abs:.2e}), raw "
+          f"{rels[1]:.2e}")
+    assert all(bool(torch.isfinite(x).all()) for x in (attn, raw, ss))
+    assert rels[0] <= FWD_REL and rels[1] <= FWD_RAW_REL
+    live = args[6] > 0.5
+    assert torch.equal(ss, torch.where(live, torch.clamp_min(raw, 0.0)
+                                       * args[5], sa.NEG_BIG))
+    dead = ~live.any(dim=1)
+    assert bool(dead[5]) and (T <= 128 or bool(dead[64:128].all()))
+    assert bool((attn[dead, K] == 1.0).all())
+    assert float(attn[:, :K][~live].abs().max()) == 0.0
+    again = sf.key_stream_feat_fwd(*args, "relu", 5.0, torch.bfloat16)
+    assert torch.equal(attn, again[0]) and torch.equal(raw, again[1])
+
+
+@pytest.mark.parametrize("T,K,grid", BF16_KEYF_CASES)
+def test_key_stream_feat_fwd_wgmma_matches_plain(dev, monkeypatch, T, K,
+                                                 grid):
+    """Row 8's bf16 forward on wgmma (see above)."""
+    rng = np.random.default_rng(2500 + T + K)
+    xk, _, qq, influ, alive, kw, _, wk, bk = _feat_case(rng, dev, T, K)
+    if T > 128:
+        alive[64:128] = 0.0
+    _fwd_grid(monkeypatch, grid)
+    _check_keyf_bf16(monkeypatch, (xk, qq, kw, wk, bk, influ, alive),
+                     f"key_stream_feat_fwd wgmma T={T} K={K} grid={grid}")
+
+
+def _scores_f32(rng, dev, T, K, Dk, Dq, dm):
+    """Row 10's inputs in fp32 (see _score_inputs), rays 64..127 all dead
+    where T > 128."""
+    args = [a.float() for a in _score_inputs(rng, T, K, Dk, Dq, dm, dev)]
+    args[0] = torch.as_tensor(rng.normal(size=(K, T, Dk)).astype(np.float32),
+                              device=dev)
+    args[1] = torch.as_tensor(rng.normal(size=(T, Dq)).astype(np.float32),
+                              device=dev)
+    if T > 128:
+        args[7][64:128] = 0.0
+    return args
+
+
+def _check_scores_f32(monkeypatch, args, act, name):
+    """Row 10f's forward on wgmma against the plain fp32 forward (see
+    above); one call counted once as fp32; a rerun is bit-equal; without
+    raw the same attn."""
+    from papr_tpu_torch.ops import fused_attn as fa
+    (K, T, Dk), Dq, dm = args[0].shape, args[1].shape[1], args[2].shape[0]
+    pdm = fm.round_up(dm, 16)
+    dev = args[0].device
+    # The rows the kernels hand each other: qq (the entry point's 22nd
+    # argument) and the masked scores (its 23rd) are these.
+    qq = torch.full((T, pdm), float("nan"), device=dev)
+    ss = torch.full((T, K), float("nan"), device=dev)
+    _interpose(monkeypatch, "papr_fused_scores_f32_fwd",
+               lambda fn: lambda *a: fn(*a[:21], qq.data_ptr(),
+                                        ss.data_ptr(), *a[23:]))
+    before = (fa.fused_scores_f32_fwd.launches, fa.fused_scores_fwd.launches)
+    attn, raw = fa.fused_scores_fwd(*args, act, 5.0, torch.float32,
+                                    with_raw=True)
+    assert (fa.fused_scores_f32_fwd.launches,
+            fa.fused_scores_fwd.launches) == (before[0] + 1, before[1])
+    attn_p, raw_p = fa.fused_scores_plain(*args, act, 5.0, torch.float32)
+    qq_p = args[1] @ args[4].T + args[5]
+    a_abs = float((attn - attn_p).abs().max())
+    rels = _rel(raw, raw_p), _rel(qq[:, :dm], qq_p)
+    print(f"{name}: attn max abs {a_abs:.2e}, raw {rels[0]:.2e}, qq "
+          f"{rels[1]:.2e}")
+    assert all(bool(torch.isfinite(x).all()) for x in (attn, raw, ss, qq))
+    assert a_abs <= F32_ATTN_ABS and rels[0] <= F32_REL
+    assert rels[1] <= F32_REL and not qq[:, dm:].any()
+    live = args[7] > 0.5
+    sact = torch.clamp_min(raw, 0.0) if act == "relu" else raw
+    assert torch.equal(ss, torch.where(live, sact * args[6], sa.NEG_BIG))
+    dead = ~live.any(dim=1)
+    assert bool(dead[3]) and (T <= 128 or bool(dead[64:128].all()))
+    assert bool((attn[dead, K] == 1.0).all())
+    assert float(attn[:, :K][~live].abs().max()) == 0.0
+    again = fa.fused_scores_fwd(*args, act, 5.0, torch.float32)
+    assert torch.equal(attn, again)
+
+
+@pytest.mark.parametrize("T,K,Dk,Dq,dm,grid,act", F32_SCORE_CASES)
+def test_fused_scores_f32_fwd_wgmma_matches_plain(dev, monkeypatch, T, K, Dk,
+                                                  Dq, dm, grid, act):
+    """Row 10f's forward on wgmma (see above)."""
+    rng = np.random.default_rng(2600 + T + K + Dk)
+    args = _scores_f32(rng, dev, T, K, Dk, Dq, dm)
+    _fwd_grid(monkeypatch, grid)
+    _check_scores_f32(monkeypatch, args, act,
+                      f"fused_scores_f32_fwd wgmma T={T} K={K} Dk={Dk} "
+                      f"Dq={Dq} dm={dm} grid={grid} {act}")
+
+
+@pytest.mark.parametrize("row", ["key_stream_feat", "fused_scores_f32"])
+def test_rows_8_10f_fwd_wgmma_after_nan_shared_memory(dev, monkeypatch,
+                                                      smem_aid, row):
+    """Row 8's bf16 and row 10f's forwards with every SM's shared memory set
+    to NaN just before each call of their entry point (row 10f: the query
+    head's kernel first, the key head's after it meets its leftovers): row
+    8's bf16 walk reads only shared memory it wrote; row 10f stages zeros
+    past T and past the widths up to the 32-deep chunks (Dk 200, Dq 136:
+    columns 200..223 and 136..159), so every output holds as above."""
+    rng = np.random.default_rng(2700)
+    survived = _poison(monkeypatch, smem_aid, f"papr_{row}_fwd")
+    if row == "key_stream_feat":
+        xk, _, qq, influ, alive, kw, _, wk, bk = _feat_case(rng, dev, 300, 7)
+        alive[64:128] = 0.0
+        _fwd_grid(monkeypatch, 2)
+        _check_keyf_bf16(monkeypatch, (xk, qq, kw, wk, bk, influ, alive),
+                         "key_stream_feat_fwd wgmma after NaN shared memory")
+    else:
+        args = _scores_f32(rng, dev, 300, 7, 200, 136, 96)
+        _check_scores_f32(monkeypatch, args, "relu",
+                          "fused_scores_f32_fwd wgmma after NaN shared "
+                          "memory")
     print(f"papr_{row}_fwd: {survived()}")

@@ -67,7 +67,8 @@ def tt(*arrays):
     return [torch.tensor(np.asarray(a)) for a in arrays]
 
 
-def _key(seed, T, K, norm, extra, dm=16, d_out=32, dead_ray=None):
+def _key(seed, T, K, norm, extra, dm=16, d_out=32, dead_ray=None,
+         compute="float32", dead_frac=0.2):
     rng = np.random.default_rng(seed)
     f32 = lambda a: jnp.asarray(np.asarray(a, np.float32))
     ff_cfg = _ff_cfg(32, d_out, 3, norm)
@@ -78,14 +79,14 @@ def _key(seed, T, K, norm, extra, dm=16, d_out=32, dead_ray=None):
     wk = f32(rng.normal(size=(dm, d_out)) / np.sqrt(d_out))
     bk = f32(rng.normal(size=dm) * 0.1)
     influ = f32(rng.normal(size=(T, K)) * 0.5 + 1.0)
-    alive = (rng.random((T, K)) > 0.2).astype(np.float32)
+    alive = (rng.random((T, K)) > dead_frac).astype(np.float32)
     if dead_ray is not None:
         alive[dead_ray] = 0.0
     alive = f32(alive)
     jfn = lambda xk, qq, walk, wk, bk, influ: key_stream_scores(
         xk, qq, *walk, wk, bk, influ, alive,
         ((3, 3, 3), LS, 1, PE[0], PE[1], extra), ff_cfg.ff_act,
-        ff_cfg.ff_last_act, "relu", 5.0, 32, True, "float32")
+        ff_cfg.ff_last_act, "relu", 5.0, 32, True, compute)
     walk = twalk(ff, ff_cfg, (3, 3, 3), LS, extra)
     txk, tqq, twk, tbk, tinflu, talive = tt(xk, qq, wk, bk, influ, alive)
     return (jfn, (xk, qq, jwalk(ff), wk, bk, influ),
@@ -104,6 +105,33 @@ def test_key_stream_forward_matches_jax(T, K, norm, extra):
     np.testing.assert_allclose(
         sf.key_stream_scores(*targs, "relu", 5.0).numpy(), want, **FWD)
     np.testing.assert_allclose(attn.numpy()[3, -1], 1.0, atol=1e-6)
+
+
+# The bf16 key forward (the compute dtype of row 8's bf16 kernel) against
+# JAX's bf16 kernel on a seeded few percent of dead slots (alive = 0 on
+# single (t, k)) and one all-dead ray: both walk in bf16 at the same rounding
+# points and sum in another order, so a bf16 rounding may flip; attn within
+# BF16_ATTN_ABS absolute (the folded key's bound in
+# tests/test_torch_query_fold.py), every dead slot's attn exactly 0 and the
+# all-dead ray pure background.
+BF16_ATTN_ABS = 1e-3
+
+
+@pytest.mark.parametrize("T,K,norm,extra", [(64, 7, "layernorm", 0),
+                                            (37, 6, "none", 4)])
+def test_key_stream_bf16_forward_with_dead_slots_matches_jax(T, K, norm,
+                                                             extra):
+    jfn, jargs, targs = _key(9, T, K, norm, extra, dead_ray=3,
+                             compute="bfloat16", dead_frac=0.05)
+    alive = targs[-1].numpy()
+    assert 0 < (alive[:3] == 0).sum() + (alive[4:] == 0).sum() < 0.15 * T * K
+    want = np.asarray(jfn(*jargs))
+    attn, raw = sf.key_stream_feat_fwd(*targs, "relu", 5.0, torch.bfloat16)
+    got = attn.numpy()
+    assert got.shape == want.shape == (T, K + 1) and raw.shape == (T, K)
+    assert float(np.abs(got - want).max()) <= BF16_ATTN_ABS
+    assert float(np.abs(got[:, :K][alive == 0]).max()) == 0.0
+    np.testing.assert_allclose(got[3, -1], 1.0, atol=1e-6)
 
 
 @pytest.mark.parametrize("T,K,norm,extra", [

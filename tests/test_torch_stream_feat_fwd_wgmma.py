@@ -1,12 +1,13 @@
 """The host side of the feature stream forwards on wgmma
-(``papr_key_stream_feat_f32_fwd`` launches ``key_feat_fwd_wgmma_f32_kernel``;
+(``papr_key_stream_feat_fwd`` / ``papr_key_stream_feat_f32_fwd`` launch
+``key_feat_fwd_wgmma_kernel`` / ``key_feat_fwd_wgmma_f32_kernel``;
 ``papr_value_stream_feat_fwd`` / ``papr_value_stream_feat_f32_fwd`` launch
 ``value_feat_fwd_wgmma_kernel`` / ``value_feat_fwd_wgmma_f32_kernel``;
 ``csrc/walk_wgmma.cuh`` ``stream_fwd_wg`` with the raw feature rows as its
 token source), on the CPU.
 
 - The wrappers of ``ops/stream_feat.py`` reach the wgmma entry points with
-  their signature's argument count: the key's bf16 form's arguments before
+  their signature's argument count: the key's WMMA-era arguments before
   the stream / the value's features, attn, walk, normalize and output,
   then (key) the (T, K) masked scores, the packed weights, their size and
   the grid; one launch counted in the compute dtype.
@@ -16,7 +17,8 @@ token source), on the CPU.
   the order a k step streams them.
 - K over 64, fp32 value rows over ``F32_FWD_MAX_ROWS`` and bf16 value rows
   over ``bf16_fwd_max_rows`` are refused before any launch.
-- The bf16 key forward keeps its WMMA entry point and argument list.
+- Both forms of each forward take one argument list; the backwards keep
+  their WMMA list.
 
 Wrappers run on CPU tensors that read as CUDA tensors, against the stand-in
 library of ``tests/test_torch_wgmma.py`` (nothing runs on a card). The
@@ -81,29 +83,41 @@ def _grid(monkeypatch, grid):
     return grid
 
 
-@pytest.mark.parametrize("norm,grid", [(True, None), (False, None),
-                                       (True, 2)])
+def _bf16_bytes(dims):
+    """The bf16 image's size (``wg_plan``): per matrix ceil(pd_in / 64)
+    chunks of ``wgmma_tile_n(pd_out)`` rows of 128 bytes."""
+    return sum(math.ceil(a / 64) * fm.wgmma_tile_n(b) * 128 for a, b in dims)
+
+
+@pytest.mark.parametrize("norm,grid,cdt", [
+    pytest.param(True, None, F32, id="True-None"),
+    pytest.param(False, None, F32, id="False-None"),
+    pytest.param(True, 2, F32, id="True-2"),
+    pytest.param(True, None, BF16, id="True-None-bf16"),
+    pytest.param(False, 2, BF16, id="False-2-bf16")])
 def test_key_feat_fwd_f32_reaches_the_wgmma_entry_point(lib, monkeypatch,
-                                                        norm, grid):
-    """One launch counted as fp32; the bf16 form's arguments (features,
-    d_raw, T, K, ..., attn, raw), then ss, the fp32 image of the walk and
-    w_k (its byte size), the grid (``fm.wgmma_grid``, read through the
-    module) and the stream."""
+                                                        norm, grid, cdt):
+    """One launch counted in the compute dtype; the WMMA-era arguments
+    (features, d_raw, T, K, ..., attn, raw), then ss, the image of the walk
+    and w_k in the form (fp32 stages, or bf16 chunks; its byte size), the
+    grid (``fm.wgmma_grid``, read through the module) and the stream."""
     key, _, (K, T, dm) = _feat_args(norm)
     grid = _grid(monkeypatch, grid)
+    f32 = cdt == F32
     n = sf.key_stream_feat_f32_fwd.launches, sf.key_stream_feat_fwd.launches
-    attn, raw = sf.key_stream_feat_f32_fwd(*key, "relu", 5.0)
+    attn, raw = sf.key_stream_feat_fwd(*key, "relu", 5.0, cdt)
     assert (sf.key_stream_feat_f32_fwd.launches,
-            sf.key_stream_feat_fwd.launches) == (n[0] + 1, n[1])
+            sf.key_stream_feat_fwd.launches) == (n[0] + f32,
+                                                 n[1] + (not f32))
     (name, a), = lib.calls
-    assert name == f"{KEY}_f32_fwd"
-    assert len(a) == len(build.SIGNATURES[f"{KEY}_fwd"]) + 4
+    assert name == (f"{KEY}_f32_fwd" if f32 else f"{KEY}_fwd")
+    assert len(a) == len(build.SIGNATURES[name]) == 26
     assert tuple(a[1:4]) == (9, T, K)
     assert (a[19], a[20]) == (attn.data_ptr(), raw.data_ptr())
     assert a[-5] not in (a[19], a[20])                     # ss of its own
     pd = _pd(key[2])
     dims = list(zip(pd[:-1], pd[1:])) + [(pd[-1], fm.round_up(dm, 16))]
-    assert a[-3] == _f32_bytes(dims)
+    assert a[-3] == (_f32_bytes(dims) if f32 else _bf16_bytes(dims))
     assert a[-2] == (grid or math.ceil(T / 128)) == fm.wgmma_grid(T)
     assert (attn.shape, raw.shape) == ((T, K + 1), (T, K))
 
@@ -144,7 +158,8 @@ def test_value_feat_fwd_f32_reaches_the_wgmma_entry_point(lib, monkeypatch,
 
 @pytest.mark.parametrize("stream,widths", [
     ("key", "narrow"), ("value", "narrow"), ("key", "Caterpillar"),
-    ("value", "narrow-bf16"), ("value", "Caterpillar-bf16")])
+    ("value", "narrow-bf16"), ("value", "Caterpillar-bf16"),
+    ("key", "narrow-bf16"), ("key", "Caterpillar-bf16")])
 def test_feat_pack_unpacks_to_the_walk_then_w_k(lib, monkeypatch, stream,
                                                 widths):
     """The image the wrapper passes (its pointer) holds, per matrix in
@@ -167,7 +182,7 @@ def test_feat_pack_unpacks_to_the_walk_then_w_k(lib, monkeypatch, stream,
         return packs[-1]
     monkeypatch.setattr(sf, pack, recording)
     if stream == "key":
-        sf.key_stream_feat_f32_fwd(*key, "relu", 5.0)
+        sf.key_stream_feat_fwd(*key, "relu", 5.0, BF16 if bf16 else F32)
         walk, wk = key[2], key[3]
     else:
         sf.value_stream_feat_fwd(*value, True, BF16 if bf16 else F32)
@@ -187,9 +202,7 @@ def test_feat_pack_unpacks_to_the_walk_then_w_k(lib, monkeypatch, stream,
         want.append(m)
     order = [tuple(m.shape) for m in want]
     if bf16:
-        assert 2 * buf.numel() == a[-3] == sum(
-            math.ceil(p_in / 64) * fm.wgmma_tile_n(p_out) * 128
-            for p_in, p_out in order)
+        assert 2 * buf.numel() == a[-3] == _bf16_bytes(order)
         for got, m in zip(_unpack_bf16(buf, order), want):
             assert torch.equal(got, m.to(BF16))
         return
@@ -241,13 +254,22 @@ def test_f32_value_rows_over_the_limit_are_refused(lib, width, refused):
         assert [c[0] for c in lib.calls] == [f"{VALUE}_fwd"]
 
 
-def test_bf16_feature_forwards_keep_their_entry_points(lib):
-    """The bf16 value forward reaches ``papr_value_stream_feat_fwd`` with
-    the fp32 form's argument list (its packed image, the image's bytes and
-    the grid before the stream), one call counted as one bf16 launch; the
-    bf16 key forward keeps its WMMA entry point and argument list (no wgmma
-    tail); the backwards keep one WMMA argument list for both forms."""
-    key, value, (K, T, _) = _feat_args(True)
+def test_bf16_feature_forwards_keep_their_entry_points(lib, monkeypatch):
+    """The bf16 key and value forwards reach ``papr_key_stream_feat_fwd`` /
+    ``papr_value_stream_feat_fwd`` with the fp32 forms' argument counts
+    (their packed image, the image's bytes and the grid before the stream;
+    the key's masked scores before those), one call counted as one bf16
+    launch each; the key's image unpacks to the walk's layers as bf16
+    chunks, then w_k; the backwards keep one WMMA argument list for both
+    forms."""
+    key, value, (K, T, dm) = _feat_args(True)
+    packs = []
+    real = sf.fwd_wgmma_pack
+
+    def recording(*args, **kwargs):
+        packs.append(real(*args, **kwargs))
+        return packs[-1]
+    monkeypatch.setattr(sf, "fwd_wgmma_pack", recording)
     n = (sf.key_stream_feat_fwd.launches, sf.value_stream_feat_fwd.launches,
          sf.key_stream_feat_f32_fwd.launches,
          sf.value_stream_feat_f32_fwd.launches)
@@ -255,16 +277,36 @@ def test_bf16_feature_forwards_keep_their_entry_points(lib):
     fused = sf.value_stream_feat_fwd(*value, True, torch.bfloat16)
     assert [c[0] for c in lib.calls] == [f"{KEY}_fwd", f"{VALUE}_fwd"]
     (_, ka), (_, va) = lib.calls
-    assert (len(ka), len(va)) == (22, 16)
-    assert (ka[-3], ka[-2]) == (attn.data_ptr(), raw.data_ptr())
-    assert va[11] == fused.data_ptr() and va[-2] == math.ceil(T / 128)
+    sig = build.SIGNATURES
+    assert (len(ka), len(va)) == (len(sig[f"{KEY}_f32_fwd"]),
+                                  len(sig[f"{VALUE}_f32_fwd"])) == (26, 16)
+    assert (ka[19], ka[20]) == (attn.data_ptr(), raw.data_ptr())
+    assert ka[-2] == va[-2] == math.ceil(T / 128)
+    assert va[11] == fused.data_ptr()
     assert (sf.key_stream_feat_fwd.launches, sf.value_stream_feat_fwd.launches,
             sf.key_stream_feat_f32_fwd.launches,
             sf.value_stream_feat_f32_fwd.launches) == (n[0] + 1, n[1] + 1,
                                                        n[2], n[3])
-    sig = build.SIGNATURES
-    assert sig[f"{KEY}_f32_fwd"] == sig[f"{KEY}_fwd"][:-1] + [P, P, LL,
-                                                              build.I, P]
+    # The key's image: the walk's layers, then w_k (d_out, d_model), bf16.
+    buf = packs[0]
+    assert ka[-4] == buf.data_ptr() and buf.dtype == BF16
+    walk, wk = key[2], key[3]
+    pd = _pd(walk)
+    want = []
+    for w, (p_in, p_out) in zip(walk.ws, zip(pd[:-1], pd[1:])):
+        m = torch.zeros(p_in, p_out)
+        m[:w.shape[0], :w.shape[1]] = w
+        want.append(m)
+    m = torch.zeros(pd[-1], fm.round_up(dm, 16))
+    m[:wk.shape[1], :dm] = wk.T
+    want.append(m)
+    order = [tuple(m.shape) for m in want]
+    assert 2 * buf.numel() == ka[-3] == _bf16_bytes(order)
+    for got, m in zip(_unpack_bf16(buf, order), want):
+        assert torch.equal(got, m.to(BF16))
+    assert sig[f"{KEY}_fwd"] == sig[f"{KEY}_f32_fwd"] == (
+        [P, build.I, build.I, build.I, P, build.I, build.F, P, P] + [P] * 7
+        + [build.I, build.I, build.F, P, P] + [P, P, LL, build.I, P])
     assert sig[f"{VALUE}_fwd"] == sig[f"{VALUE}_f32_fwd"] == (
         [P, build.I, build.I, build.I, P] + [P] * 5 + [build.I, P]
         + [P, LL, build.I, P])

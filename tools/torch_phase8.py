@@ -16,6 +16,12 @@ the plain fp32 step, 1 + 5 timed steps with their profile, a serving and a
 tiled frame against ``auto``'s). A failed comparison prints ``FAILS:`` and
 the phase goes on.
 
+    python tools/torch_phase8.py [<tree>] --modes-only --mode NAME ...
+
+With ``--modes-only`` the named modes' runs alone: the plain fp32 step
+they are held against is computed here (as phase 8 computes it, on the
+same seeded model, view and patch) instead of running phase 8 first.
+
     python tools/torch_phase8.py [<tree>] --bf16-frames [--mode NAME ...]
 
 With ``--bf16-frames`` the bf16 frames of chip_smoke's phase-6 modes instead
@@ -81,11 +87,36 @@ def bf16_frames(cs, modes, n: int = 3) -> None:
         torch.cuda.empty_cache()
 
 
+def plain_ref(cs, dev):
+    """Phase 8's reference for its modes: the plain fp32 path's loss and
+    per-group gradients, one step on Caterpillar's seeded model at the
+    cropped patch of ``cs.sphere_view`` (``drive_fp32_path``'s ``ref``)."""
+    import torch
+    from papr_tpu_torch.nn.mlp import policy_from_config
+    from papr_tpu_torch.train.losses import build_loss
+    from papr_tpu_torch.train.optim import build_group_specs, tree_leaves
+    from papr_tpu_torch.train.step import loss_and_grads
+
+    cfg = cs.caterpillar_cfg()
+    policy = policy_from_config(cfg)
+    patch = int(cfg.dataset.patches.height)
+    params, state = cs.build_model(cfg, dev)
+    c2w, rayo, rayd, target = cs.sphere_view(cfg, dev)
+    lp, _, gp = loss_and_grads(
+        params, state, cs.caterpillar_cfg(fused_attn=False), rayo,
+        cs.crop(rayd, patch), cs.crop(target, patch), c2w,
+        build_loss(cfg, policy, device=dev), build_group_specs(cfg), policy)
+    return float(lp), {key: torch.cat([t.float().reshape(-1)
+                                       for t in tree_leaves(v)])
+                       for key, v in gp.items()}
+
+
 def main() -> None:
     args = sys.argv[1:]
     modes = [args[i + 1] for i, a in enumerate(args[:-1]) if a == "--mode"]
     bf16 = "--bf16-frames" in args
-    args = [a for a in args if a != "--bf16-frames"]
+    only = "--modes-only" in args
+    args = [a for a in args if a not in ("--bf16-frames", "--modes-only")]
     trees = [a for i, a in enumerate(args)
              if a != "--mode" and (i == 0 or args[i - 1] != "--mode")]
     tree = os.path.abspath(trees[0] if trees else os.path.dirname(
@@ -102,10 +133,11 @@ def main() -> None:
     if bf16:
         bf16_frames(cs, modes)
         return
-    f32 = cs.drive_fp32_path(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    ref = plain_ref(cs, dev) if only else cs.drive_fp32_path(dev)["ref"]
     if modes:
         cs.F32_MODES = tuple(m for m in cs.F32_MODES if m[0] in modes)
-        cs.drive_fp32_modes(torch.device("cuda", 0), f32["ref"])
+        cs.drive_fp32_modes(dev, ref)
     st = torch.cuda.memory_stats()
     print("allocator: retries", st["num_alloc_retries"], "device allocs",
           st["num_device_alloc"], "device frees", st["num_device_free"],

@@ -24,7 +24,11 @@ embedder forward and backward on wgmma, and with them the other
 comparisons whose kernels run the planted line, on the same build; for
 "fp32 embed wgmma", ``chip_smoke.compare_f32_kernels`` up to the fp32
 embedder's rows 2f / 3f on the query stack; for "int8 K3 wgmma",
-``chip_smoke.compare_int8_kernels`` up to the int8 K3 (row 4q))
+``chip_smoke.compare_int8_kernels`` up to the int8 K3 (row 4q); for "bf16
+keyf wgmma", ``chip_smoke.compare_train_kernels``, read for row 8's bf16
+forward on its dead slots; for "fp32 scores wgmma",
+``chip_smoke.compare_f32_kernels`` up to row 10f's forward, its dead slots
+and its narrow case after NaN-filled shared memory)
 and the small-shape ``cuda`` tests of those kernels run on the copy.
 The readings are how the comparisons' bounds were set between the sound
 kernels and the weakest fault caught (PERF.md, Findings). The repository's
@@ -62,7 +66,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # embed wgmma rev" walk_wgmma_bwd.cuh, "fp32 keyq wgmma combine"
 # key_stream.cu, "fp32 keyq wgmma walk" walk_wgmma.cuh, the other "fp32
 # keyq wgmma" embed_wgmma.cuh (row 7f: the query head and the embedder's
-# sink), the others fused_attn.cu. A fourth element names every
+# sink), "bf16 keyf wgmma" and "fp32 scores wgmma walk" walk_wgmma.cuh (row
+# 8's token mask, the w_k heads' biases), the others fused_attn.cu (row
+# 10f's staging, query head and mask among them). A fourth element names every
 # comparison (TARGETS) that reads the case's build, where the planted line
 # runs in more than one kernel; the sound sources run once, read by every
 # comparison the picked cases need.
@@ -637,6 +643,41 @@ MUTS = [
      "the kernel)",
      "      if (t < T) dxk[(size_t)t * d_raw + src] = v;",
      "      if (t < T) dxk[(size_t)t * d_raw + src] = src < 3 ? 0.f : v;"),
+    # Row 8's bf16 forward on wgmma (FeatTok's token mask, the bf16 w_k
+    # head's bias: read by phase 2's row 8 line with its dead slots and the
+    # bf16 key's wgmma cuda cases); row 10f's forward on wgmma (its staging,
+    # query head and mask in fused_attn.cu; the fp32 w_k head's bias in
+    # walk_wgmma.cuh: read by phase 8 up to row 10f, its dead slots and its
+    # narrow case after NaN-filled shared memory, and row 10f's cuda cases).
+    ("bf16 keyf wgmma: alive ignored (FeatTok; row 8f's token mask too)",
+     "    return make_float2(p.influ[i], p.alive[i]);",
+     "    return make_float2(p.influ[i], 1.f);", ("bf16_keyf_fwd",)),
+    ("bf16 keyf wgmma: b_k not added (the bf16 w_k head, wg_score; rows 5, "
+     "7 and K3's too)",
+     "            s[h] += qrow[c] * linear_bf16(acc[4 * j + 2 * h + e], "
+     "bks[c]);",
+     "            s[h] += qrow[c] * linear_bf16(acc[4 * j + 2 * h + e], 0.f);",
+     ("bf16_keyf_fwd",)),
+    ("fp32 scores wgmma: alive ignored",
+     "                                 p.alive[i] > 0.5f);",
+     "                                 true);", ("f32_scores_fwd",)),
+    ("fp32 scores wgmma: b_q not added (the query head's bias)",
+     "      acc_bias_act(acc, p.bias, p.pdm, 0);\n", "", ("f32_scores_fwd",)),
+    ("fp32 scores wgmma walk: b_k not added (the fp32 w_k head, wg_score; "
+     "rows 4f, 5f, 7f and 8f's too)",
+     "          s[h] += qrow[c] * linear_c<float>(acc[4 * j + 2 * h + e], "
+     "bks[c]);",
+     "          s[h] += qrow[c] * linear_c<float>(acc[4 * j + 2 * h + e], "
+     "0.f);", ("f32_scores_fwd",)),
+    ("fp32 scores wgmma: the query head's columns 128.. dropped (its second "
+     "128 columns never reach qq)",
+     "      acc_bias_act(acc, p.bias, p.pdm, 0);",
+     "      acc_bias_act(acc, p.bias, p.pdm > 128 ? 128 : p.pdm, 0);",
+     ("f32_scores_fwd",)),
+    ("fp32 scores wgmma: E not zeroed (the staged rows past T and past the "
+     "width left as shared memory held them: NaN after the fill)",
+     "      else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, "
+     "0.f, 0.f);\n", "", ("f32_scores_fwd",)),
     ("stream feat key fwd + bwd: alive mask ignored",
      "      ss[r * K + k] = masked_score(col, score_relu, influ[i], "
      "alive[i] > 0.5f);",
@@ -765,6 +806,26 @@ elif sys.argv[1] == "compare_f32_feat":
                                n_time=1)
     except Stop:
         pass
+elif sys.argv[1] == "compare_f32_scores":
+    # Phase 8's comparisons up to row 10f's forward (its dead slots and its
+    # narrow case after NaN-filled shared memory): the run stops where row
+    # 10f's backward would start.
+    cfg = cs.caterpillar_cfg()
+    params, state = cs.build_model(cfg, dev)
+    _, rayo, rayd, _ = cs.sphere_view(cfg, dev)
+    from papr_tpu_torch.ops import fused_attn as fa
+
+    class Stop(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Stop
+    fa.fused_scores_f32_bwd = stop
+    try:
+        cs.compare_f32_kernels(params, state, cfg, dev, rayo, rayd, 180,
+                               n_time=1)
+    except Stop:
+        pass
 elif sys.argv[1] == "compare_f32_fold":
     # Phase 8's comparisons up to row 7f (and its check against row 5f):
     # the run stops where rows 4qf-6qf's would start.
@@ -877,6 +938,18 @@ TARGETS = {
     "bf16_feat_fwd": (("phase 2 value_stream_feat_fwd",),
                       "value_stream_feat_fwd_wgmma or bf16_rows_7_9 or "
                       "value_stream_feat_kernels"),
+    # compare_train_kernels, read for row 8's bf16 forward on wgmma (on its
+    # dead slots), and its cuda cases (dead points, split grids, K 1 / 20 /
+    # 64, NaN-filled shared memory).
+    "bf16_keyf_fwd": (("phase 2 key_stream_feat_fwd", "phase 2 dead slots"),
+                      "key_stream_feat_fwd_wgmma or rows_8_10f or "
+                      "key_stream_feat_kernels"),
+    # compare_f32_kernels up to row 10f's forward (compare_f32_scores), and
+    # its cuda cases (widths below 256, split grids, K 1 / 20 / 64, NaN-filled
+    # shared memory).
+    "f32_scores_fwd": (("phase 8 fused_scores_f32_fwd", "phase 8 dead slots"),
+                       "fused_scores_f32_fwd_wgmma or rows_8_10f or "
+                       "fused_scores_f32_kernels"),
 }
 # The comparison function each target runs, and the cuda test lines shown.
 FN = {"f32_stream_bwd": "compare_f32_streams",
@@ -889,7 +962,9 @@ FN = {"f32_stream_bwd": "compare_f32_streams",
       "f32_fold": "compare_f32_fold",
       "int8_k3": "compare_int8_k3",
       "bf16_fold": "compare_train_kernels",
-      "bf16_feat_fwd": "compare_train_kernels"}
+      "bf16_feat_fwd": "compare_train_kernels",
+      "bf16_keyf_fwd": "compare_train_kernels",
+      "f32_scores_fwd": "compare_f32_scores"}
 TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                                        "value_stream_i8", "int8_walk_bench"),
               "compare_f32_kernels": ("f32", "key_stream_f32_bwd wgmma",
@@ -912,7 +987,11 @@ TEST_LINES = {"compare_int8_kernels": ("attend_eval_i8", "key_stream_i8",
                           "value_stream_i8_f32"),
               "bf16_fold": ("key_stream_q_fwd wgmma", "papr_key_stream_q"),
               "bf16_feat_fwd": ("value_stream_feat_fwd wgmma",
-                                "papr_value_stream_feat")}
+                                "papr_value_stream_feat"),
+              "bf16_keyf_fwd": ("key_stream_feat_fwd wgmma",
+                                "papr_key_stream_feat"),
+              "f32_scores_fwd": ("fused_scores_f32_fwd", "fused_scores_f32",
+                                 "papr_fused_scores")}
 
 
 def target_of(name: str) -> str:
@@ -943,7 +1022,11 @@ def main() -> None:
 
 
 def source_of(name: str) -> str:
-    return next((f for word, f in (("bf16 keyq wgmma head",
+    return next((f for word, f in (("bf16 keyf wgmma", "walk_wgmma.cuh"),
+                                   ("fp32 scores wgmma walk",
+                                    "walk_wgmma.cuh"),
+                                   ("fp32 scores wgmma", "fused_attn.cu"),
+                                   ("bf16 keyq wgmma head",
                                     "embed_wgmma.cuh"),
                                    ("bf16 keyq wgmma walk", "walk_wgmma.cuh"),
                                    ("bf16 feat fwd wgmma", "walk_wgmma.cuh"),

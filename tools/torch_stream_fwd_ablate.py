@@ -17,6 +17,17 @@ columns): their forwards, and, timed whole only, their backwards.
     python tools/torch_stream_fwd_ablate.py [--f32] [--feat] [--tree DIR]
                                             [--split-only]
     python tools/torch_stream_fwd_ablate.py --fold [--f32] [--tree DIR]
+    python tools/torch_stream_fwd_ablate.py --scores [--tree DIR]
+
+With ``--scores`` the fp32 fused scores' forward (``tpu.fused_attn: true |
+score`` with ``use_amp: false``, ``csrc/fused_attn.cu``:
+``papr_fused_scores_f32_fwd``) at phase 8's shapes (embedk (20, 32,400,
+256), embedq (32,400, 256), d_model 256, random fp32 values, alive 80 %),
+called as the model calls it (no raw dots), timed whole and split only:
+the kernels alone (the WMMA ``fused_scores_fwd_kernel`` of an earlier tree,
+or the query head ``fused_scores_query_wgmma_f32_kernel``, the key head
+``fused_scores_fwd_wgmma_f32_kernel`` and the softmax kernel), each
+kernel's span; no variants.
 
 With ``--fold`` the folded key stream's forward (``tpu.query_fold``,
 ``csrc/key_stream_q.cu``: ``papr_key_stream_q_fwd``, with ``--f32``
@@ -202,7 +213,8 @@ def _spans(fn, n: int = 3) -> dict:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.end - e.time_range.start
-            name = e.name.split("(")[0].split("<")[0].replace("void ", "")
+            name = (e.name.replace("(anonymous namespace)::", "")
+                    .split("(")[0].split("<")[0].replace("void ", ""))
             out[name] = out.get(name, 0.0) + us / n / 1e3
     return out
 
@@ -231,6 +243,7 @@ def main() -> None:
     ap.add_argument("--f32", action="store_true")
     ap.add_argument("--feat", action="store_true")
     ap.add_argument("--fold", action="store_true")
+    ap.add_argument("--scores", action="store_true")
     opt = ap.parse_args()
     tree = os.path.abspath(opt.tree)
     sys.path.insert(0, tree)
@@ -250,7 +263,22 @@ def main() -> None:
     # The tree's design: the fp32 forwards on wgmma where key_stream.cu has
     # their kernel (the feature forwards: key_stream_feat.cu); the bf16 ones
     # where walk_wgmma.cuh exists.
-    if opt.fold:
+    if opt.scores:
+        from papr_tpu_torch.ops import fused_attn as fa
+        T, K, D = 32_400, 20, 256
+        rng = np.random.default_rng(5)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                      device=dev)
+        sargs = (t(rng.normal(size=(K, T, D))), t(rng.normal(size=(T, D))),
+                 t(rng.normal(size=(D, D)) / 16), t(rng.normal(size=D)),
+                 t(rng.normal(size=(D, D)) / 16), t(rng.normal(size=D)),
+                 t(rng.normal(size=(T, K))), t(rng.random((T, K)) > 0.2))
+        cases = (("fused scores", ("fused_scores", "key_fwd_softmax"),
+                  lambda: [fa.fused_scores_fwd(*sargs, "relu", 5.0,
+                                               torch.float32)]),)
+        wg, backwards = False, ()
+        opt.f32 = True
+    elif opt.fold:
         args, opts, _, _ = fold_inputs(dev, opt.f32)
         cases = (("key (query folded)", ("keyq_fwd", "query_head_fwd",
                                          "key_fwd"),
@@ -312,7 +340,7 @@ def main() -> None:
             rule.wgmma_grid = real
     for what, pats, fn in backwards:
         show(what, " backward", pats, fn)
-    if opt.fold:
+    if opt.fold or opt.scores:
         for what, pats, fn in cases:
             show(what, " forward, again", pats, fn)
         return
